@@ -1,0 +1,316 @@
+"""ctypes bridge to the native flattener (native/flatten.cpp, shared with
+figdraw_tpu and unchanged).
+
+The library is built at first use with g++ into this package's `_build/`,
+keyed by a hash of the source and flags. The slice has no Python walk: a
+missing toolchain raises instead of falling back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import platform
+import subprocess
+import threading
+
+import numpy as np
+
+from .nodesarray import FIG_DTYPE, GLYPH_DTYPE, OP_DTYPE, TRECT_DTYPE, RendersArray
+from .ops.layout import PACKED_WIDTH
+from .plan import ROLLED_THRESHOLD, TILE_H, TILE_W, fill_meta, meta_rows
+from .tape import BlurItem, ClearMaskItem, DrawItem, Tape
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(os.path.dirname(_PKG_DIR), "native", "flatten.cpp")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+# -ffp-contract=off: the walk and the scene animator are pinned bit-identical
+# to their numpy twins in figdraw_tpu, and numpy never fuses multiply-add
+_CXX_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-pthread",
+              "-shared", "-fPIC", "-std=c++17")
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _build() -> str:
+    """Compile the walk into BUILD_DIR (once per source, flags and host:
+    -march=native code is only good on the machine that built it); returns
+    the library path. Raises CalledProcessError with the compiler's
+    output."""
+    host = f"{platform.node()} {platform.machine()}"
+    with open(_SRC, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join((*_CXX_FLAGS, host)).encode())
+    path = os.path.join(BUILD_DIR, f"libfigdraw_flatten_{digest.hexdigest()[:16]}.so")
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # build under a private name, then rename: concurrent test workers may
+    # race to build the same library
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(["g++", *_CXX_FLAGS, "-o", tmp, _SRC], check=True,
+                       capture_output=True, text=True)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
+
+
+def load() -> ctypes.CDLL:
+    """The walk library, built and bound at first use."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(_build())
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.fd_create.restype = vp
+        lib.fd_create.argtypes = [f, f, f]
+        lib.fd_reset.argtypes = [vp, f, f, f]
+        lib.fd_reset.restype = None
+        lib.fd_flatten_layer.argtypes = [vp, vp, i, vp, i]
+        lib.fd_flatten_layer.restype = None
+        lib.fd_set_geometry.argtypes = [vp, vp, i, vp, i]
+        lib.fd_set_geometry.restype = None
+        lib.fd_set_text_geometry.argtypes = [vp, vp, i, vp, i]
+        lib.fd_set_text_geometry.restype = None
+        lib.fd_set_text_config.argtypes = [vp, i, i, i]
+        lib.fd_set_text_config.restype = None
+        lib.fd_set_white_uv.argtypes = [vp, ctypes.c_double, ctypes.c_double]
+        lib.fd_set_white_uv.restype = None
+        for name in ("fd_quad_count", "fd_item_count", "fd_mask_count"):
+            getattr(lib, name).argtypes = [vp]
+            getattr(lib, name).restype = i
+        lib.fd_export_items.argtypes = [vp, vp, i]
+        lib.fd_export_items.restype = i
+        lib.fd_export_combo_packed.argtypes = [vp, vp, i, i]
+        lib.fd_export_combo_packed.restype = i
+        lib.fd_density.argtypes = [vp, i, i, vp]
+        lib.fd_density.restype = None
+        lib.fd_cull_saturated.argtypes = [vp, f, f]
+        lib.fd_cull_saturated.restype = i
+        lib.fd_scene_animate.argtypes = [
+            vp, ctypes.c_int32, ctypes.c_double, ctypes.c_double,
+            ctypes.c_double, ctypes.c_double, ctypes.c_int32, ctypes.c_int32,
+        ] + [vp] * 8
+        lib.fd_scene_animate.restype = i
+        for name, dtype in (("fd_fig_struct_size", FIG_DTYPE),
+                            ("fd_op_struct_size", OP_DTYPE),
+                            ("fd_glyph_struct_size", GLYPH_DTYPE),
+                            ("fd_trect_struct_size", TRECT_DTYPE)):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
+            size = getattr(lib, name)()
+            if size != dtype.itemsize:
+                raise RuntimeError(
+                    f"{name}: native struct is {size} B, numpy dtype "
+                    f"{dtype.itemsize} B"
+                )
+        _lib = lib
+        return _lib
+
+
+def _ptr(arr: np.ndarray) -> ctypes.c_void_p:
+    return ctypes.c_void_p(arr.ctypes.data)
+
+
+def _layer_arrays(lst):
+    """Contiguous walk arrays for one render list."""
+    nodes = np.ascontiguousarray(lst.nodes[: lst.count])
+    roots = np.asarray(lst.root_ids, dtype=np.int32)
+    ops, points = lst.ops_view()
+    glyphs, trects = lst.text_view()
+    return (nodes, roots, np.ascontiguousarray(ops),
+            np.ascontiguousarray(points), np.ascontiguousarray(glyphs),
+            np.ascontiguousarray(trects))
+
+
+def _run_walk(lib, ctx, renders, white_uv) -> None:
+    """Context setup + layer walk in ZLevel order. The slice draws no text
+    and samples no atlas, so only the text flags (all off) and the white
+    texel uv are configured."""
+    lib.fd_set_text_config(ctx, 0, 0, 0)
+    lib.fd_set_white_uv(
+        ctx, ctypes.c_double(white_uv[0]), ctypes.c_double(white_uv[1])
+    )
+    for _lvl, lst in renders.sorted_pairs():
+        nodes, roots, ops, points, glyphs, trects = _layer_arrays(lst)
+        lib.fd_set_geometry(
+            ctx, _ptr(ops), ops.shape[0], _ptr(points), points.shape[0]
+        )
+        lib.fd_set_text_geometry(
+            ctx, _ptr(glyphs), glyphs.shape[0], _ptr(trects), trects.shape[0]
+        )
+        lib.fd_flatten_layer(
+            ctx, _ptr(nodes), nodes.shape[0], _ptr(roots), roots.shape[0]
+        )
+
+
+def _host_cull(lib, ctx, frame_w, frame_h, pixel_scale) -> int:
+    """Translucent-saturation compaction of dense tapes before export
+    (fd_cull_saturated, binning.py's SAT tier run on the host). No-op under
+    4096 quads."""
+    return lib.fd_cull_saturated(
+        ctx,
+        ctypes.c_float(frame_w * pixel_scale),
+        ctypes.c_float(frame_h * pixel_scale),
+    )
+
+
+_tls = threading.local()
+
+
+def _acquire_ctx(lib, ui_scale, pixel_scale, aa_factor):
+    """Thread-local reusable walk context (fd_reset keeps the C++ vectors'
+    capacity across frames)."""
+    ctx = getattr(_tls, "ctx", None)
+    if ctx is None:
+        ctx = lib.fd_create(
+            ctypes.c_float(ui_scale), ctypes.c_float(pixel_scale),
+            ctypes.c_float(aa_factor),
+        )
+        _tls.ctx = ctx
+    else:
+        lib.fd_reset(
+            ctx, ctypes.c_float(ui_scale), ctypes.c_float(pixel_scale),
+            ctypes.c_float(aa_factor),
+        )
+    return ctx
+
+
+# Ping-pong combo buffer pool, two buffers per (owner, ctx, shape): the
+# previous frame's tape stays valid while the current one is exported.
+# Quad rows [0, count) are rewritten by fd_export_combo_packed (which zeroes
+# the padding rows) and the meta tail by fill_meta.
+_combo_pool: dict = {}
+
+
+def _pooled_combo(ctx, shape, owner=None) -> np.ndarray:
+    key = (owner, ctx, shape)
+    entry = _combo_pool.get(key)
+    if entry is None:
+        entry = [np.zeros(shape, np.float32), np.zeros(shape, np.float32), 0]
+        _combo_pool[key] = entry
+    entry[2] ^= 1
+    return entry[entry[2]]
+
+
+def _export_tape_combo(lib, ctx, frame_w, frame_h, clear_color, bucket,
+                       pool_owner=None) -> Tape:
+    """Export straight into the PACKED upload layout: one
+    (bucket(count) + meta_rows, 52) wire buffer, quad rows written by C++
+    (colors as u8x4 words), meta tail (draw bounds / blur radii / clear
+    color) filled here (native._export_tape_combo)."""
+    n_quads = lib.fd_quad_count(ctx)
+    n_items = lib.fd_item_count(ctx)
+    items = np.zeros((max(n_items, 1), 5), dtype=np.int32)
+    rc = lib.fd_export_items(ctx, _ptr(items), items.shape[0])
+    if rc != n_items:
+        raise RuntimeError(f"fd_export_items wrote {rc} of {n_items} items")
+
+    tape = Tape()
+    tape.count = n_quads
+    tape.mask_count = lib.fd_mask_count(ctx)
+    tape.frame_size = (frame_w, frame_h)
+    tape.clear_color = clear_color
+    draws = []
+    radii = []
+    structure = []  # executor.tape_structure, built from the C++ flag bits
+    seen_blur = False
+    any_atlas = False
+    any_backdrop = False
+    for i in range(n_items):
+        word, target, start, end, rbits = items[i]
+        kind = word & 0xFF
+        if kind == 0:
+            tape.items.append(DrawItem(target=int(target), start=int(start),
+                                       end=int(end)))
+            if end > start:
+                uses_atlas = bool(word & 0x100)
+                has_backdrop = bool(word & 0x200)
+                any_atlas |= uses_atlas
+                any_backdrop |= has_backdrop
+                structure.append(("draw", int(target), uses_atlas,
+                                  seen_blur and has_backdrop))
+                draws.append((int(start), int(end)))
+        elif kind == 1:
+            r = float(np.int32(rbits).view(np.float32))
+            tape.items.append(BlurItem(radius=r))
+            radii.append(r)
+            seen_blur = True
+            structure.append(("blur",))
+        else:
+            tape.items.append(ClearMaskItem(index=int(target)))
+            structure.append(("clear_mask", int(target)))
+    tape.structure_cache = (structure, draws, radii, any_atlas, any_backdrop)
+
+    dens = np.zeros(2, np.float32)
+    lib.fd_density(ctx, TILE_W, TILE_H, _ptr(dens))
+    tape.tile_density = (float(dens[0]), float(dens[1]))
+
+    rolled = len(structure) > ROLLED_THRESHOLD
+    n_pad = bucket(max(n_quads, 1))
+    nd = 0 if rolled else len(draws)
+    nb = 0 if rolled else len(radii)
+    rows = meta_rows(nd, nb, PACKED_WIDTH)
+    combo = _pooled_combo(ctx, (n_pad + rows, PACKED_WIDTH), owner=pool_owner)
+    rc = lib.fd_export_combo_packed(ctx, _ptr(combo), n_pad, PACKED_WIDTH)
+    if rc != n_quads:
+        raise RuntimeError(f"fd_export_combo_packed wrote {rc} of {n_quads} quads")
+    fill_meta(
+        combo[n_pad:].reshape(-1),
+        draws if not rolled else [],
+        radii if not rolled else [],
+        clear_color or (0.0, 0.0, 0.0, 0.0),
+    )
+    tape.combo = combo
+    tape.combo_quads = n_pad
+    return tape
+
+
+def flatten_renders_array(
+    renders: RendersArray,
+    frame_w: float,
+    frame_h: float,
+    ui_scale: float,
+    pixel_scale: float,
+    aa_factor: float,
+    clear_color,
+    bucket,
+    white_uv=(0.0, 0.0),
+    pool_owner=None,
+) -> Tape:
+    """Runs the native walk over all layers in ZLevel order, culls saturated
+    stacks and exports the tape straight into the upload-combo layout padded
+    to `bucket(count)` rows. Raises ValueError for node kinds the walk does
+    not handle."""
+    if not renders.all_native_kinds():
+        raise ValueError("scene holds node kinds the native walk does not handle")
+    lib = load()
+    ctx = _acquire_ctx(lib, ui_scale, pixel_scale, aa_factor)
+    _run_walk(lib, ctx, renders, white_uv)
+    _host_cull(lib, ctx, frame_w, frame_h, pixel_scale)
+    return _export_tape_combo(lib, ctx, frame_w, frame_h, clear_color, bucket,
+                              pool_owner=pool_owner)
+
+
+def scene_animate(nodes: np.ndarray, w: float, h: float, frame: int,
+                  copies: int, base_xs: np.ndarray, base_ys: np.ndarray,
+                  tables: dict, clamp_x: float, clamp_y: float) -> None:
+    """fd_scene_animate: writes the 300-box demo scene's frame-dependent
+    columns into the FIG_DTYPE `nodes` array in place (bit-identical to
+    figdraw_tpu.scenes._scene_animate_np). `tables` is the
+    scenes._scene_anim_state dict of contiguous f64 phase tables."""
+    lib = load()
+    rc = lib.fd_scene_animate(
+        _ptr(nodes), nodes.shape[0], float(w), float(h),
+        float(clamp_x), float(clamp_y), int(frame),
+        int(copies), _ptr(base_xs), _ptr(base_ys),
+        _ptr(tables["sin_of_sp"]), _ptr(tables["cos_of_sp"]),
+        _ptr(tables["sin_of_cp"]), _ptr(tables["cos_of_cp"]),
+        _ptr(tables["sin_t"]), _ptr(tables["cos_t"]))
+    if rc != 0:
+        raise RuntimeError(f"fd_scene_animate failed ({rc})")

@@ -1,0 +1,386 @@
+"""Benchmark and check scenes in array form.
+
+`make_render_tree_array` is figdraw_tpu/scenes.py:44-344 (the 300-box
+animated shadow demo bench.py renders at 1080p), bit-identical to it: the
+same seeded box placement, the same static columns and the same C animator.
+`make_modes_scene_array` is a small scene that drives every SDF family the
+tile rasterizer evaluates; `walk_free_mode_rows` adds the modes the walk
+never emits.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .basics import DrawableKind, FigFlags, FigKind, ShadowStyle, StrokeCap
+from .fill import FillGradientAxis
+from .nodesarray import OP_DTYPE, RenderListArray, RendersArray
+
+# Box-placement clamp bounds shared with the native animator: the rightmost
+# box column starts at x=320 / the lowest at y=300, max animated size
+# 260x180.
+_SCENE_CLAMP_X = 320.0 + 260.0  # = 580
+_SCENE_CLAMP_Y = 300.0 + 180.0  # = 480
+
+_scene_random_cache = {}
+
+
+def _scene_randoms(copies: int, max_x: float, max_y: float):
+    key = (copies, max_x, max_y)
+    cached = _scene_random_cache.get(key)
+    if cached is None:
+        rng = np.random.RandomState(12345)
+        cached = (
+            rng.uniform(0.0, max_x, size=copies),
+            rng.uniform(0.0, max_y, size=copies),
+        )
+        _scene_random_cache[key] = cached
+    return cached
+
+
+# The animator's sixteen phase functions t*a + i*b; row order is
+# load-bearing (fd_scene_animate indexes these).
+_SIN_COEF = np.array(
+    [[1.0, 0.15], [0.8, 0.07], [1.25, 0.11], [0.7, 0.05], [0.85, 0.05],
+     [1.1, 0.05], [0.9, 0.03], [1.05, 0.06], [0.85, 0.04]]
+)
+_COS_COEF = np.array(
+    [[0.9, 0.2], [0.65, 0.09], [0.8, 0.06], [0.95, 0.08], [0.75, 0.04],
+     [0.9, 0.03], [0.8, 0.04]]
+)
+
+_scene_anim_cache = {}
+
+
+def _scene_anim_state(copies: int):
+    """Per-copies cached angle-addition tables: sin/cos of the per-copy
+    phase offsets, evaluated once; per frame only the t-dependent scalars
+    go through libm."""
+    state = _scene_anim_cache.get(copies)
+    if state is None:
+        i = np.arange(copies, dtype=np.float64)
+        sin_phase = i[None, :] * _SIN_COEF[:, 1:2]
+        cos_phase = i[None, :] * _COS_COEF[:, 1:2]
+        state = {
+            "sin_of_sp": np.sin(sin_phase),
+            "cos_of_sp": np.cos(sin_phase),
+            "sin_of_cp": np.sin(cos_phase),
+            "cos_of_cp": np.cos(cos_phase),
+            "sin_t": np.ascontiguousarray(_SIN_COEF[:, 0]),
+            "cos_t": np.ascontiguousarray(_COS_COEF[:, 0]),
+        }
+        _scene_anim_cache[copies] = state
+    return state
+
+
+def _scene_static(w: float, h: float, copies: int):
+    """Everything in the 300-box scene that does NOT depend on the frame:
+    node kinds/flags, fill kinds and colors, strokes, shadow styles and
+    shadow fills, the static pill. Returns (RendersArray, RenderListArray)."""
+    n_nodes = 1 + copies * 3 + 3
+    lst = RenderListArray(capacity=n_nodes)
+    lst.count = n_nodes
+    lst.root_ids = list(range(n_nodes))
+    nodes = lst.nodes
+    nodes["parent"] = -1
+
+    # backdrop
+    nodes["kind"][0] = int(FigKind.nkRectangle)
+    nodes["box"][0] = (0, 0, w, h)
+    nodes["fill"]["kind"][0] = 0
+    nodes["fill"]["c0"][0] = (255, 255, 255, 155)
+
+    red = slice(1, 1 + 3 * copies, 3)
+    green = slice(2, 2 + 3 * copies, 3)
+    blue = slice(3, 3 + 3 * copies, 3)
+
+    nodes["kind"][red] = int(FigKind.nkRectangle)
+    nodes["flags"][red] = int(FigFlags.NfEllipticalCorners)
+    nodes["fill"]["c0"][red] = (220, 40, 40, 155)
+    nodes["stroke_weight"][red] = 5.0
+    nodes["stroke_fill"]["c0"][red] = (0, 0, 0, 155)
+
+    nodes["kind"][green] = int(FigKind.nkRectangle)
+    green_grad = (np.arange(copies) % 2) == 0
+    gidx = np.arange(2, 2 + 3 * copies, 3)
+    gg = gidx[green_grad]
+    gs = gidx[~green_grad]
+    nodes["fill"]["kind"][gg] = 2
+    nodes["fill"]["axis"][gg] = np.where(
+        (np.arange(copies)[green_grad] % 4) < 2,
+        int(FillGradientAxis.fgaX),
+        int(FillGradientAxis.fgaDiagTLBR),
+    )
+    nodes["fill"]["midpos"][gg] = 128
+    nodes["fill"]["c0"][gg] = (18, 112, 64, 255)
+    nodes["fill"]["c1"][gg] = (40, 180, 90, 255)
+    nodes["fill"]["c2"][gg] = (78, 224, 188, 255)
+    nodes["fill"]["c0"][gs] = (40, 180, 90, 155)
+    nodes["shadows"]["style"][green, 0] = 1
+    nodes["shadows"]["fill"]["c0"][green, 0] = (0, 0, 0, 155)
+
+    nodes["kind"][blue] = int(FigKind.nkRectangle)
+    blue_grad = (np.arange(copies) % 3) == 0
+    bidx = np.arange(3, 3 + 3 * copies, 3)
+    bg_ = bidx[blue_grad]
+    bs_ = bidx[~blue_grad]
+    nodes["fill"]["kind"][bg_] = 2
+    nodes["fill"]["axis"][bg_] = np.where(
+        (np.arange(copies)[blue_grad] % 2) == 0,
+        int(FillGradientAxis.fgaY),
+        int(FillGradientAxis.fgaDiagBLTR),
+    )
+    nodes["fill"]["midpos"][bg_] = 132
+    nodes["fill"]["c0"][bg_] = (44, 72, 186, 255)
+    nodes["fill"]["c1"][bg_] = (60, 90, 220, 255)
+    nodes["fill"]["c2"][bg_] = (118, 168, 255, 255)
+    nodes["fill"]["c0"][bs_] = (60, 90, 220, 155)
+    nodes["stroke_weight"][blue] = 4.0
+    nodes["stroke_fill"]["c0"][blue] = (255, 255, 255, 210)
+    nodes["shadows"]["style"][blue, 0] = 2
+    nodes["shadows"]["fill"]["kind"][bg_, 0] = 1
+    nodes["shadows"]["fill"]["axis"][bg_, 0] = int(FillGradientAxis.fgaDiagBLTR)
+    nodes["shadows"]["fill"]["c0"][bg_, 0] = (25, 25, 40, 100)
+    nodes["shadows"]["fill"]["c1"][bg_, 0] = (65, 65, 95, 180)
+    nodes["shadows"]["fill"]["c0"][bs_, 0] = (40, 40, 60, 150)
+
+    # static elliptical pill
+    base = 1 + 3 * copies
+    nodes["kind"][base] = int(FigKind.nkRectangle)
+    nodes["box"][base] = (max(20.0, w - 200.0), 20, 180, 100)
+    nodes["fill"]["c0"][base] = (238, 140, 30, 220)
+    nodes["corners"][base] = (90, 90, 90, 90)
+    nodes["corners_y"][base] = (50, 50, 50, 50)
+    nodes["flags"][base] = int(FigFlags.NfEllipticalCorners)
+    nodes["stroke_weight"][base] = 4.0
+    nodes["stroke_fill"]["c0"][base] = (90, 45, 0, 220)
+
+    # blur panel + overlay (boxes animate; styles don't)
+    nodes["kind"][base + 1] = int(FigKind.nkBackdropBlur)
+    nodes["blur"][base + 1] = 18.0
+    nodes["kind"][base + 2] = int(FigKind.nkRectangle)
+    nodes["fill"]["c0"][base + 2] = (255, 225, 55, 120)
+    nodes["stroke_weight"][base + 2] = 6.0
+    nodes["stroke_fill"]["c0"][base + 2] = (95, 72, 0, 185)
+
+    out = RendersArray()
+    out.set_layer(0, lst)
+    return out, lst
+
+
+def _scene_animate(nodes, w: float, h: float, frame: int, copies: int) -> None:
+    """The frame-dependent columns (box positions/sizes, corner radii,
+    shadow blur/spread/offsets, the moving blur panel + overlay), written by
+    the C animator fd_scene_animate."""
+    from . import native
+
+    max_x = max(0.0, w - _SCENE_CLAMP_X)
+    max_y = max(0.0, h - _SCENE_CLAMP_Y)
+    base_xs, base_ys = _scene_randoms(copies, max_x, max_y)
+    native.scene_animate(nodes, w, h, frame, copies, base_xs, base_ys,
+                         _scene_anim_state(copies), _SCENE_CLAMP_X,
+                         _SCENE_CLAMP_Y)
+
+
+def make_render_tree_array(w: float, h: float, frame: int, copies: int = 100,
+                           cache: dict = None):
+    """The 300-box demo scene (at copies=100) in array form.
+
+    cache: a caller-owned dict enables the retained form — the static
+    columns are written once and only the animated columns update per
+    frame."""
+    if cache is not None:
+        key = (w, h, copies)
+        ent = cache.get(key)
+        if ent is None:
+            ent = cache[key] = _scene_static(w, h, copies)
+        out, lst = ent
+        _scene_animate(lst.nodes, w, h, frame, copies)
+        return out
+    out, lst = _scene_static(w, h, copies)
+    _scene_animate(lst.nodes, w, h, frame, copies)
+    return out
+
+
+# --- the SDF modes scene --------------------------------------------------------
+
+
+def _rect_node(lst, row, box, fill_c0, *, fill_kind=0, axis=0, midpos=128,
+               c1=(0, 0, 0, 0), c2=(0, 0, 0, 0), corners=(0, 0, 0, 0),
+               corners_y=None, stroke=0.0, stroke_c0=(0, 0, 0, 0), flags=0):
+    n = lst.nodes
+    n["kind"][row] = int(FigKind.nkRectangle)
+    n["box"][row] = box
+    n["flags"][row] = flags
+    n["fill"]["kind"][row] = fill_kind
+    n["fill"]["axis"][row] = axis
+    n["fill"]["midpos"][row] = midpos
+    n["fill"]["c0"][row] = fill_c0
+    n["fill"]["c1"][row] = c1
+    n["fill"]["c2"][row] = c2
+    n["corners"][row] = corners
+    if corners_y is not None:
+        n["corners_y"][row] = corners_y
+        n["flags"][row] = flags | int(FigFlags.NfEllipticalCorners)
+    n["stroke_weight"][row] = stroke
+    n["stroke_fill"]["c0"][row] = stroke_c0
+
+
+def make_modes_scene_array(w: float = 256.0, h: float = 128.0) -> RendersArray:
+    """One frame-target run that reaches every SDF family the walk emits:
+    fills with circular and elliptical corners (mode 3, +128), annular AA
+    strokes (12), drop (7) and inset (9) shadows, quadratic bezier strokes
+    with round, butt and square caps (18-20), flat and bilinear vertex fills
+    (fill mode 0), 3-stop gradients on all four axes (fill modes 1-4), and
+    circular and elliptical rect masks (QF_RECT_*). Coordinates scale with
+    (w, h) from a 256x128 layout; nothing crosses a clip mask, an atlas
+    mode or a pass break."""
+    sx, sy = w / 256.0, h / 128.0
+    lst = RenderListArray(capacity=32)
+
+    def box(x, y, bw, bh):
+        return (x * sx, y * sy, bw * sx, bh * sy)
+
+    # translucent backdrop: bilinear vertex fill (linear2 → 4 vertex colors)
+    r = lst.add_root_raw()
+    _rect_node(lst, r, box(0, 0, 256, 128), (30, 60, 200, 120), fill_kind=1,
+               axis=int(FillGradientAxis.fgaDiagTLBR), c1=(240, 200, 40, 200))
+    # 3-stop gradients on every axis (fill modes 1-4), stroked, some
+    # elliptical, with drop and inset shadows
+    for k, axis in enumerate(FillGradientAxis):
+        r = lst.add_root_raw()
+        ell = (18, 9, 14, 6) if k % 2 else None
+        _rect_node(lst, r, box(8 + 60 * k, 8, 52, 40), (200, 40, 60, 255),
+                   fill_kind=2, axis=int(axis), midpos=90 + 30 * k,
+                   c1=(40, 200, 90, 230), c2=(30, 40, 220, 180),
+                   corners=(12, 4, 8, 16), corners_y=ell, stroke=3.0,
+                   stroke_c0=(0, 0, 0, 170))
+        sh = lst.nodes["shadows"][r]
+        sh["style"][0] = int(ShadowStyle.DropShadow if k < 2
+                             else ShadowStyle.InnerShadow)
+        sh["blur"][0] = 6.0 + 2 * k
+        sh["spread"][0] = 2.0 + k
+        sh["x"][0] = 4.0 - 3 * k
+        sh["y"][0] = 3.0
+        sh["fill"]["c0"][0] = (0, 0, 0, 150)
+        if k == 3:  # gradient inset shadow fill
+            sh["fill"]["kind"][0] = 1
+            sh["fill"]["axis"][0] = int(FillGradientAxis.fgaDiagBLTR)
+            sh["fill"]["c1"][0] = (60, 60, 120, 200)
+    # fully round elliptical pill (the 2^24-1 packed-radius case), flat fill
+    r = lst.add_root_raw()
+    _rect_node(lst, r, box(150, 96, 72, 24), (250, 140, 30, 230),
+               corners=(36, 36, 36, 36), corners_y=(12, 12, 12, 12),
+               stroke=2.0, stroke_c0=(90, 45, 0, 220))
+    # rect masks: the fast path clips each parent's children, circular and
+    # elliptical
+    for k, ell in enumerate((None, (14, 6, 10, 4))):
+        p = lst.add_root_raw()
+        _rect_node(lst, p, box(12 + 70 * k, 60, 60, 40), (220, 220, 220, 200),
+                   corners=(10, 10, 10, 10), corners_y=ell,
+                   flags=int(FigFlags.NfRectMaskContent))
+        c = lst.add_child_raw(p)
+        _rect_node(lst, c, box(0 + 70 * k, 50, 80, 64), (240, 30, 30, 210),
+                   fill_kind=2, axis=int(FillGradientAxis.fgaY),
+                   c1=(30, 240, 30, 210), c2=(30, 30, 240, 210),
+                   corners=(6, 6, 6, 6), stroke=4.0, stroke_c0=(0, 0, 90, 255))
+    # quadratic bezier strokes, one per cap (round, butt, square); the
+    # square one takes a 3-stop gradient stroke
+    for k, cap in enumerate((StrokeCap.scRound, StrokeCap.scButt,
+                             StrokeCap.scSquare)):
+        d = lst.add_root_raw()
+        n = lst.nodes
+        n["kind"][d] = int(FigKind.nkDrawable)
+        n["box"][d] = (0.0, 0.0, w, h)
+        n["draw_weight"][d] = 5.0 + 2 * k
+        n["draw_cap"][d] = int(cap)
+        n["draw_stroke_fill"]["c0"][d] = (20 + 80 * k, 20, 160, 230)
+        if k == 2:
+            n["draw_stroke_fill"]["kind"][d] = 2
+            n["draw_stroke_fill"]["axis"][d] = int(FillGradientAxis.fgaX)
+            n["draw_stroke_fill"]["midpos"][d] = 128
+            n["draw_stroke_fill"]["c1"][d] = (250, 250, 40, 255)
+            n["draw_stroke_fill"]["c2"][d] = (20, 220, 220, 200)
+        n["ops_start"][d] = len(lst.ops_rows)
+        n["ops_count"][d] = 1
+        op = np.zeros((), dtype=OP_DTYPE)
+        op["kind"] = int(DrawableKind.dkBezier)
+        op["p_start"] = len(lst.points_rows)
+        op["p_count"] = 3
+        lst.ops_rows.append(op)
+        x0 = (150 + 30 * k) * sx
+        lst.points_rows.extend([(x0, 62 * sy), (x0 + 40 * sx, (30 + 20 * k) * sy),
+                                (x0 + 14 * sx, 118 * sy)])
+    out = RendersArray()
+    out.set_layer(0, lst)
+    return out
+
+
+def walk_free_mode_rows(w: float = 256.0, h: float = 128.0):
+    """Tape rows for the SDF modes the kernels evaluate but the walk never
+    emits: 8 (drop shadow, AA interior), 11 (annular, no AA) and 21 (linear
+    drop shadow), plus mode 17 (backdrop sample) over a rounded panel.
+    Axis-aligned, rounded-box quads; returns ((4, 68) f32 logical fields,
+    (4, 2) i32 modes)."""
+    from .ops.layout import (
+        QF_AA, QF_BBOX_X0, QF_BBOX_X1, QF_BBOX_Y0, QF_BBOX_Y1, QF_COLOR0,
+        QF_FACTORS, QF_INV_A, QF_INV_D, QF_ORG_X, QF_ORG_Y, QF_PARAMS,
+        QF_RADII, QF_RECT_PARAMS, QF_UVDU_X, QF_UVDV_Y, QF_WIDTH,
+    )
+
+    specs = (  # (mode, x, y, qw, qh, factor, spread, rgba)
+        (8, 20, 70, 70, 50, 8.0, 3.0, (0.1, 0.1, 0.3, 0.6)),
+        (11, 100, 20, 60, 60, 6.0, 0.0, (0.9, 0.5, 0.1, 1.0)),
+        (21, 170, 60, 70, 56, 10.0, 2.0, (0.0, 0.0, 0.0, 0.5)),
+        (17, 60, 30, 120, 70, 12.0, 0.0, (1.0, 1.0, 1.0, 1.0)),
+    )
+    sx, sy = w / 256.0, h / 128.0
+    fields = np.zeros((len(specs), QF_WIDTH), np.float32)
+    modes = np.zeros((len(specs), 2), np.int32)
+    for i, (mode, x, y, qw, qh, factor, spread, col) in enumerate(specs):
+        x, y, qw, qh = x * sx, y * sy, qw * sx, qh * sy
+        f = fields[i]
+        f[QF_INV_A] = 1.0 / qw
+        f[QF_INV_D] = 1.0 / qh
+        f[QF_ORG_X] = x
+        f[QF_ORG_Y] = y
+        f[QF_BBOX_X0], f[QF_BBOX_Y0] = x, y
+        f[QF_BBOX_X1], f[QF_BBOX_Y1] = x + qw, y + qh
+        f[QF_UVDU_X] = 1.0
+        f[QF_UVDV_Y] = 1.0
+        f[QF_COLOR0 : QF_COLOR0 + 16] = np.tile(col, 4)
+        f[QF_PARAMS : QF_PARAMS + 4] = (qw / 2, qh / 2, qw / 2 - factor,
+                                        qh / 2 - factor)
+        f[QF_RADII : QF_RADII + 4] = (10.0, 4.0, 8.0, 0.0)
+        f[QF_FACTORS] = factor
+        f[QF_FACTORS + 1] = spread
+        f[QF_AA] = 1.2
+        f[QF_RECT_PARAMS + 2] = -1.0
+        f[QF_RECT_PARAMS + 3] = -1.0
+        modes[i, 0] = mode
+    return fields, modes
+
+
+def modes_tape(w: float = 256.0, h: float = 128.0):
+    """The modes scene walked by the native flattener plus
+    walk_free_mode_rows, as logical rows padded to their quad bucket:
+    ((n_pad, 68) f32 fields, (n_pad, 2) i32 modes, n_live). One frame-target
+    run [0, n_live) that exercises every mode the tile rasterizer handles."""
+    from . import native
+    from .plan import bucket
+    from .renderer import DEFAULT_SDF_AA_FACTOR
+
+    tape = native.flatten_renders_array(
+        make_modes_scene_array(w, h), w, h, 1.0, 1.0, DEFAULT_SDF_AA_FACTOR,
+        (1.0, 1.0, 1.0, 1.0), bucket=bucket)
+    walked_f, walked_m = tape.fields_modes()
+    extra_f, extra_m = walk_free_mode_rows(w, h)
+    n_live = tape.count + extra_f.shape[0]
+    n_pad = bucket(n_live)
+    fields = np.zeros((n_pad, walked_f.shape[1]), np.float32)
+    modes = np.zeros((n_pad, 2), np.int32)
+    fields[: tape.count] = walked_f[: tape.count]
+    modes[: tape.count] = walked_m[: tape.count]
+    fields[tape.count : n_live] = extra_f
+    modes[tape.count : n_live] = extra_m
+    return fields, modes, n_live
