@@ -3,10 +3,20 @@
 
     python3 chip_smoke.py
 
-Builds the native walk (g++) and the raster kernel (nvcc) from the checkout,
-holds the kernel against its plain torch version on the headline tape and on
-a scene of every SDF mode, renders the 1080p 300-box headline scene through
-FigRenderer(device="cuda").render_frame, checks the frames, and prints times
+Builds the native walk (g++) and the CUDA kernels (nvcc, one process per
+source, all at once) from the checkout. Two paths run through
+FigRenderer(device="cuda").render_frame:
+
+- the 1080p 300-box headline scene (bench.py): the tile rasterizer K1,
+  held against its plain torch version on the headline tape and on a scene
+  of every SDF mode;
+- the clip-mask table of bench_clipmask.py (1200x800, 180 rows x 6 cells):
+  the rect-mask table on the frame executor (K1 twice and the mask-plane
+  pass K3 once per frame) and the sub-clip table on the megakernel (K4 once
+  per frame), each kernel held against its plain version on the frame's
+  own inputs.
+
+It checks the frames and the launch counts of each path and prints times
 beside the card's name and power limit. The last line is the run's summary
 JSON; any failure exits non-zero before it.
 """
@@ -19,15 +29,20 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 WIDTH, HEIGHT, COPIES = 1920, 1080, 100
 FRAMES = 20
 TOL = 1.0 / 255.0  # kernel vs plain version, and port vs the JAX reference
-# figdraw_tpu's render of the 384x216 headline scene, frame 0, as 8x8 block
-# means (tests/test_torch_render_frame.py pins it against the JAX package)
-REF_BLOCKS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "figdraw_tpu_torch", "reference",
-                          "headline_384x216_f0_blocks8.npy")
+# figdraw_tpu's renders as 8x8 block means: the 384x216 headline scene,
+# frame 0 (tests/test_torch_render_frame.py pins it against the JAX
+# package), and the 12x6 clip tables at 320x200 (tests/test_torch_masks.py
+# and test_torch_mega.py pin those)
+REF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "figdraw_tpu_torch", "reference")
+REF_BLOCKS = os.path.join(REF_DIR, "headline_384x216_f0_blocks8.npy")
+# bench_clipmask.py's table
+TABLE_W, TABLE_H, TABLE_ROWS, TABLE_COLS = 1200, 800, 180, 6
 
 
 def fail(msg: str) -> None:
@@ -66,6 +81,155 @@ def block_means(frame, k: int = 8):
     return frame.reshape(h // k, k, w // k, k, c).mean(axis=(1, 3))
 
 
+def clip_table_phase(kind: str, tag: str, dev) -> dict:
+    """Render bench_clipmask's `kind` table (1200x800, 180x6) for FRAMES
+    frames through render_frame, with every launch count set to 0 just
+    before and read just after; check the frames and the counts; hold each
+    kernel of the path against its plain version on the frame's own inputs
+    and the last frame against the same executor run with the plain
+    versions; hold a 12x6 table at 320x200 against figdraw_tpu's stored
+    block means. Returns the numbers the summary needs."""
+    import numpy as np
+    import torch
+
+    from figdraw_tpu_torch import FigRenderer, native, vec2
+    from figdraw_tpu_torch.executor import (
+        get_frame_executor, get_mega_executor, unpack_combo,
+    )
+    from figdraw_tpu_torch.ops import mega, raster
+    from figdraw_tpu_torch.ops.binning import bin_quads
+    from figdraw_tpu_torch.plan import plan_execution, tile_h_from_density
+    from figdraw_tpu_torch.scenes import make_clip_table_scene
+
+    size = vec2(TABLE_W, TABLE_H)
+    scene = make_clip_table_scene(kind, TABLE_W, TABLE_H, TABLE_ROWS, TABLE_COLS)
+    ren = FigRenderer(device="cuda")
+    ren.render_frame(scene, size)  # the first frame builds the executor
+    torch.cuda.synchronize()
+    total_ms = []
+    raster.LAUNCHES = raster.MASK_LAUNCHES = mega.LAUNCHES = 0
+    for f in range(FRAMES):
+        t0 = time.perf_counter()
+        frame = ren.render_frame(scene, size)
+        torch.cuda.synchronize()
+        total_ms.append((time.perf_counter() - t0) * 1e3)
+        if tuple(frame.shape) != (TABLE_H, TABLE_W, 4):
+            fail(f"{kind} frame {f} has shape {tuple(frame.shape)}")
+        if not bool(torch.isfinite(frame).all()):
+            fail(f"{kind} frame {f} holds non-finite values")
+    counts = (raster.LAUNCHES, raster.MASK_LAUNCHES, mega.LAUNCHES)
+    want = (2 * FRAMES, FRAMES, 0) if kind == "rectmask" else (0, 0, FRAMES)
+    print(f"check 6: {kind} table {TABLE_ROWS}x{TABLE_COLS} at {TABLE_W}x{TABLE_H}, "
+          f"{FRAMES} frames finite; launches K1 {counts[0]}, K3 {counts[1]}, "
+          f"K4 {counts[2]} (expected {want})", flush=True)
+    if counts != want:
+        fail(f"{kind} table launched (K1, K3, K4) {counts}, expected {want}")
+    walk_ms = []
+    for _ in range(FRAMES):
+        t0 = time.perf_counter()
+        native.flatten_fast(scene, TABLE_W, TABLE_H, 1.0, 1.0, ren.aa_factor,
+                            (1.0, 1.0, 1.0, 1.0))
+        walk_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"times: {kind} table: median {statistics.median(total_ms):.3f} ms/frame "
+          f"(render_frame + sync; host walk and export alone "
+          f"{statistics.median(walk_ms):.3f} ms) {tag}", flush=True)
+
+    out = {"launches": counts, "ms_per_frame": statistics.median(total_ms)}
+
+    def compared(fn, plain, errs, store):
+        def call(*args, **kw):
+            got = fn(*args, **kw)
+            ref = plain(*args, **kw)
+            torch.cuda.synchronize()
+            if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(ref).all())):
+                fail(f"{kind}: non-finite planes from {fn.__name__}")
+            errs.append(float((got - ref).abs().max()))
+            store.append((args, kw))
+            return got
+        return call
+
+    if kind == "rectmask":
+        tape = ren.flatten(scene, size)
+        plan = plan_execution(tape)
+        run = get_frame_executor(plan.structure, plan.height, plan.width,
+                                 plan.n_masks, plan.has_init_frame, plan.tile_h)
+        combo = torch.from_numpy(plan.combo).to(dev, copy=True)
+        e1, e3, a1, a3 = [], [], [], []
+        run(combo, None,
+            draw=compared(raster.draw_pass_planar_prebinned,
+                          raster.draw_pass_planar_prebinned_plain, e1, a1),
+            draw_mask=compared(raster.draw_pass_mask_prebinned,
+                               raster.draw_pass_mask_prebinned_plain, e3, a3))
+        ref = run(combo, None, draw=raster.draw_pass_planar_prebinned_plain,
+                  draw_mask=raster.draw_pass_mask_prebinned_plain)
+        if (len(e1), len(e3)) != (2, 1):
+            fail(f"the rect-mask plan ran {len(e1)} frame and {len(e3)} mask "
+                 "passes, expected 2 and 1")
+        out.update(k1_err=max(e1), k3_err=e3[0], k1_args=a1,
+                   k3_args=a3[0][0] + (a3[0][1]["tile_h"],))
+        print(f"check 6: rect-mask plan {[it[:2] for it in plan.structure]}, "
+              f"{tape.count} quads in {tape.combo_quads} rows, tile_h "
+              f"{plan.tile_h}; K1 vs plain max |diff| {max(e1):.3e}, K3 vs "
+              f"plain {e3[0]:.3e} (tol {TOL:.3e})", flush=True)
+        if not (max(e1) <= TOL and e3[0] <= TOL):
+            fail(f"rect-mask table: K1 or K3 differs from its plain version "
+                 f"({max(e1)}, {e3[0]})")
+    else:
+        _, combo_np, mask_count, density = native.flatten_fast(
+            scene, TABLE_W, TABLE_H, 1.0, 1.0, ren.aa_factor, (1.0, 1.0, 1.0, 1.0))
+        combo_np[-1, 0:4] = 1.0  # the meta row: render_frame's white clear
+        th = tile_h_from_density(*density, TABLE_H, TABLE_W)
+        run = get_mega_executor(TABLE_H, TABLE_W, mask_count + 1, False, th)
+        combo = torch.from_numpy(combo_np).to(dev, copy=True)
+        e4, a4 = [], []
+        run(combo, None, draw=compared(mega.draw_pass_mega,
+                                       mega.draw_pass_mega_plain, e4, a4))
+        ref = run(combo, None, draw=mega.draw_pass_mega_plain)
+        out.update(k4_err=e4[0], k4_args=a4[0][0] + (a4[0][1]["tile_h"],))
+        print(f"check 6: sub-clip mega combo {tuple(combo_np.shape)}, "
+              f"{mask_count + 1} mask planes, tile_h {th}; K4 vs plain max "
+              f"|diff| {e4[0]:.3e} (tol {TOL:.3e})", flush=True)
+        if not e4[0] <= TOL:
+            fail(f"sub-clip table: K4 differs from its plain version by {e4[0]}")
+    # the executor's stages on the frame's own inputs (device, CUDA events)
+    fields, modes = (out["k1_args"][0][0] if kind == "rectmask" else out["k4_args"])[:2]
+    n = fields.shape[0]
+    th = out["k3_args"][-1] if kind == "rectmask" else out["k4_args"][-1]
+    rows = combo.shape[0] - n
+    if kind == "rectmask":
+        rb = torch.stack([a[2] for a, _k in out["k1_args"]])
+        binning = lambda: bin_quads(fields, 0, n, -(-TABLE_H // th), -(-TABLE_W // 128),
+                                    th, 128, modes=modes, run_bounds=rb)
+    else:
+        binning = lambda: bin_quads(fields, 0, n, -(-TABLE_H // th), -(-TABLE_W // 128),
+                                    th, 128)
+    stages = {
+        "unpack": cuda_ms(lambda: unpack_combo(combo[:-rows]), 20),
+        "binning": cuda_ms(binning, 20),
+        "whole executor": cuda_ms(lambda: run(combo, None), 20),
+    }
+    print(f"times: {kind} executor stages: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in stages.items()) + f" (device, CUDA events) {tag}",
+        flush=True)
+    torch.cuda.synchronize()
+    out["frame_err"] = float((frame - ref).abs().max())
+    print(f"check 6: {kind} frame {FRAMES} vs the same executor with plain "
+          f"kernels max |diff| {out['frame_err']:.3e} (tol {TOL:.3e})", flush=True)
+    if not out["frame_err"] <= TOL:
+        fail(f"{kind} frame differs from the plain-kernel executor by "
+             f"{out['frame_err']}")
+
+    small = FigRenderer(device="cuda").render_frame(
+        make_clip_table_scene(kind, 320, 200, 12, 6), vec2(320, 200))
+    want_blocks = np.load(os.path.join(REF_DIR, f"cliptable_{kind}_320x200_blocks8.npy"))
+    err_ref = float(np.abs(block_means(small.cpu().numpy()) - want_blocks).max())
+    print(f"check 6: {kind} 12x6 table at 320x200 vs the JAX reference (8x8 "
+          f"block means) max |diff| {err_ref:.3e} (tol {TOL:.3e})", flush=True)
+    if not err_ref <= TOL:
+        fail(f"{kind} table differs from the JAX reference by {err_ref}")
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -83,7 +247,7 @@ def main() -> None:
     from figdraw_tpu_torch import FigRenderer, vec2
     from figdraw_tpu_torch import native
     from figdraw_tpu_torch.executor import get_frame_executor, unpack_combo
-    from figdraw_tpu_torch.ops import raster
+    from figdraw_tpu_torch.ops import mega, raster
     from figdraw_tpu_torch.ops.binning import bin_quads
     from figdraw_tpu_torch.ops.blur import backdrop_blur_planar
     from figdraw_tpu_torch.ops.layout import QF_RECT_PARAMS, QI_MODE
@@ -92,17 +256,24 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
 
-    # --- 2. build ----------------------------------------------------------------
+    # --- 2. build: the walk and each kernel source at once ------------------------
+    def timed(fn):
+        t = time.perf_counter()
+        fn()
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    native.load()
-    t1 = time.perf_counter()
-    raster.load()
-    t2 = time.perf_counter()
-    print(f"build: walk (g++) {t1 - t0:.2f} s, raster kernel (nvcc) "
-          f"{t2 - t1:.2f} s {tag}", flush=True)
-    for line in raster.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    with ThreadPoolExecutor(3) as pool:
+        builds = {name: pool.submit(timed, fn) for name, fn in (
+            ("walk (g++)", native.load), ("raster.cu (nvcc)", raster.load),
+            ("mega.cu (nvcc)", mega.load))}
+        secs = {name: f.result() for name, f in builds.items()}
+    print("build: " + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+          + f"; {time.perf_counter() - t0:.2f} s in all {tag}", flush=True)
+    for log in (raster.BUILD_LOG, mega.BUILD_LOG):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
 
     ren = FigRenderer(device="cuda")
     size = vec2(WIDTH, HEIGHT)
@@ -186,7 +357,7 @@ def main() -> None:
         make_render_tree_array(WIDTH, HEIGHT, 0, copies=COPIES, cache=cache), size)
     torch.cuda.synchronize()
     host_ms, device_ms, total_ms = [], [], []
-    raster.LAUNCHES = 0
+    raster.LAUNCHES = raster.MASK_LAUNCHES = mega.LAUNCHES = 0
     for f in range(1, FRAMES + 1):
         t0 = time.perf_counter()
         tape = ren.flatten(
@@ -205,9 +376,10 @@ def main() -> None:
     launches = raster.LAUNCHES
     print(f"check 4: {FRAMES} frames of {HEIGHT}x{WIDTH}x4, finite; raster "
           f"kernel launches {launches} ({launches / FRAMES:g} per frame)", flush=True)
-    if launches != 2 * FRAMES:
-        fail(f"raster kernel launched {launches} times in {FRAMES} frames, "
-             f"expected {2 * FRAMES}")
+    if (launches, raster.MASK_LAUNCHES, mega.LAUNCHES) != (2 * FRAMES, 0, 0):
+        fail(f"{FRAMES} headline frames launched K1 {launches}, K3 "
+             f"{raster.MASK_LAUNCHES}, K4 {mega.LAUNCHES} times, expected "
+             f"{2 * FRAMES}, 0, 0")
     # the last frame again, by the same executor with the plain raster
     plan = plan_execution(tape)
     run = get_frame_executor(plan.structure, plan.height, plan.width,
@@ -261,17 +433,61 @@ def main() -> None:
           f"{ms_bin:.4f} ms, blur {ms_blur:.4f} ms, whole executor {ms_exec:.4f} ms "
           f"(device, CUDA events) {tag}", flush=True)
 
-    # --- 6. results --------------------------------------------------------------
-    print(json.dumps({"kernels": [{
-        "name": "raster_frame_kernel",
-        "route": "cuda",
-        "source": "figdraw_tpu_torch/csrc/raster.cu",
-        "replaces": "figdraw_tpu/ops/raster_pallas.py:156",
-        "launches": launches,
-        "max_abs_err": max(err_headline, err_modes, err_frame),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    # --- 6. the clip-mask tables (bench_clipmask.py) ------------------------------
+    tables = {kind: clip_table_phase(kind, tag, dev) for kind in ("rectmask", "subclip")}
+    rm, sc = tables["rectmask"], tables["subclip"]
+    t0 = time.perf_counter()
+    kernel_ms_k3 = cuda_ms(lambda: raster.draw_pass_mask_prebinned(*rm["k3_args"]), 20)
+    plain_ms_k3 = cuda_ms(lambda: raster.draw_pass_mask_prebinned_plain(*rm["k3_args"]), 3)
+    kernel_ms_k4 = cuda_ms(lambda: mega.draw_pass_mega(*sc["k4_args"]), 20)
+    plain_ms_k4 = cuda_ms(lambda: mega.draw_pass_mega_plain(*sc["k4_args"]), 3)
+    print(f"times: K3 on the rect-mask table's mask run: kernel {kernel_ms_k3:.4f} "
+          f"ms, plain torch {plain_ms_k3:.2f} ms {tag}", flush=True)
+    print(f"times: K4 on the sub-clip table: kernel {kernel_ms_k4:.4f} ms, plain "
+          f"torch {plain_ms_k4:.2f} ms ({time.perf_counter() - t0:.1f} s) {tag}",
+          flush=True)
+    k1_table_ms = cuda_ms(lambda: [raster.draw_pass_planar_prebinned(*a, **k)
+                                   for a, k in rm["k1_args"]], 20)
+    print(f"times: K1 on the rect-mask table's two frame runs: kernel "
+          f"{k1_table_ms:.4f} ms {tag}", flush=True)
+
+    # --- 7. results --------------------------------------------------------------
+    print(json.dumps({"kernels": [
+        {
+            "name": "raster_tiles_kernel<false> (K1, frame target)",
+            "route": "cuda",
+            "source": "figdraw_tpu_torch/csrc/raster.cu",
+            "replaces": "figdraw_tpu/ops/raster_pallas.py:156",
+            "launches": launches + rm["launches"][0],
+            "launches_by_path": {"headline": launches,
+                                 "rectmask": rm["launches"][0]},
+            "max_abs_err": max(err_headline, err_modes, err_frame, rm["k1_err"]),
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+        },
+        {
+            "name": "raster_tiles_kernel<true> (K3, mask target)",
+            "route": "cuda",
+            "source": "figdraw_tpu_torch/csrc/raster.cu",
+            "replaces": "figdraw_tpu/ops/raster_pallas.py:196",
+            "launches": rm["launches"][1],
+            "launches_by_path": {"rectmask": rm["launches"][1]},
+            "max_abs_err": max(rm["k3_err"], rm["frame_err"]),
+            "ms": kernel_ms_k3,
+            "plain_ms": plain_ms_k3,
+        },
+        {
+            "name": "mega_kernel (K4)",
+            "route": "cuda",
+            "source": "figdraw_tpu_torch/csrc/mega.cu",
+            "replaces": "figdraw_tpu/ops/raster_pallas.py:495",
+            "launches": sc["launches"][2],
+            "launches_by_path": {"subclip": sc["launches"][2]},
+            "max_abs_err": max(sc["k4_err"], sc["frame_err"]),
+            "ms": kernel_ms_k4,
+            "plain_ms": plain_ms_k4,
+        },
+    ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -1,14 +1,17 @@
-// Tile rasterizer for NVIDIA Hopper (sm_90a): ordered source-over
-// compositing of binned SDF quads into a channel-planar RGBA frame.
+// Tile rasterizer for NVIDIA Hopper (sm_90a): ordered compositing of
+// binned SDF quads into a channel-planar RGBA frame (K1) or into one mask
+// plane (K3).
 //
 // Replaces figdraw_tpu/ops/raster_pallas.py `_kernel` (:156, pallas_call at
 // :344) in its frame-target form, as reached through
-// draw_pass_planar_prebinned (:431): for every 128-column tile, find the
-// run's [start, end) segment of the tile's ascending binned quad list
-// (`_lower_bound`, :136), evaluate each quad of it at every pixel center in
-// draw order, multiply by the quad's mask plane and blend
-//   rgb = f * fa + dst * (1 - fa),  a = fa + a * (1 - fa).
-// Mode-17 quads sample the backdrop planes.
+// draw_pass_planar_prebinned (:431), and in its mask-target form (:196-212),
+// as reached through draw_pass_mask_prebinned (:454): for every 128-column
+// tile, find the run's [start, end) segment of the tile's ascending binned
+// quad list (`_lower_bound`, :136), evaluate each quad of it at every pixel
+// center in draw order, multiply by the quad's mask plane and blend
+//   frame: rgb = f * fa + dst * (1 - fa),  a = fa + a * (1 - fa);
+//   mask:  m = fa * fa + m * (1 - fa)  (glsl/mask.frag through the GL blend).
+// Mode-17 quads sample the backdrop planes (frame target only).
 //
 // What bounds it on this card: arithmetic, not bytes. A 1080p frame is
 // 35 MB of planes read and written once per pass, about 20 us of HBM time,
@@ -52,8 +55,11 @@ __device__ int lower_bound(const int* list, int count, int value) {
   return lo;
 }
 
+// MASK_TARGET: `frame` and `out` are one mask plane (K3), else the four
+// RGBA planes (K1)
+template <bool MASK_TARGET>
 __global__ void __launch_bounds__(THREADS)
-raster_frame_kernel(const float* __restrict__ fields,
+raster_tiles_kernel(const float* __restrict__ fields,
                     const int* __restrict__ modes,
                     const int* __restrict__ tile_idx,
                     const int* __restrict__ tile_counts,
@@ -84,15 +90,18 @@ raster_frame_kernel(const float* __restrict__ fields,
 
   const size_t plane = (size_t)ph * pw;
   const size_t pix = (size_t)y * pw + x;
-  float r = frame[pix];
-  float g = frame[plane + pix];
-  float b = frame[2 * plane + pix];
-  float a = frame[3 * plane + pix];
+  float r = frame[pix];  // the mask value m when MASK_TARGET
+  float g = 0.0f, b = 0.0f, a = 0.0f;
+  if (!MASK_TARGET) {
+    g = frame[plane + pix];
+    b = frame[2 * plane + pix];
+    a = frame[3 * plane + pix];
+  }
   // pixel centers: (tile origin + index) + 0.5, exact in f32
   const float px = (float)x + 0.5f;
   const float py = (float)y + 0.5f;
   float bd[4];
-  if (backdrop != nullptr) {
+  if (!MASK_TARGET && backdrop != nullptr) {
     for (int ch = 0; ch < 4; ++ch) bd[ch] = backdrop[ch * plane + pix];
   }
 
@@ -109,9 +118,14 @@ raster_frame_kernel(const float* __restrict__ fields,
     for (int q = 0; q < nq; ++q) {
       float frag[4];
       figdraw::eval_quad(s_fields + q * figdraw::QF_WIDTH, s_modes[2 * q], px,
-                         py, backdrop != nullptr ? bd : nullptr, frag);
+                         py, !MASK_TARGET && backdrop != nullptr ? bd : nullptr,
+                         frag);
       const float fa = frag[3] * masks[(size_t)s_modes[2 * q + 1] * plane + pix];
       const float inv = 1.0f - fa;
+      if (MASK_TARGET) {
+        r = fa * fa + r * inv;
+        continue;
+      }
       r = frag[0] * fa + r * inv;
       g = frag[1] * fa + g * inv;
       b = frag[2] * fa + b * inv;
@@ -119,19 +133,22 @@ raster_frame_kernel(const float* __restrict__ fields,
     }
   }
   out[pix] = r;
-  out[plane + pix] = g;
-  out[2 * plane + pix] = b;
-  out[3 * plane + pix] = a;
+  if (!MASK_TARGET) {
+    out[plane + pix] = g;
+    out[2 * plane + pix] = b;
+    out[3 * plane + pix] = a;
+  }
 }
 
 }  // namespace
 
-// C entry point (bound with ctypes by ops/raster.py). Shapes: fields
+// C entry points (bound with ctypes by ops/raster.py). Shapes: fields
 // (n_quads, 68) f32, modes (n_quads, 2) i32, tile_idx (T, n_quads) i32,
-// tile_counts (T,) i32, bounds (2,) i32, frame/out/backdrop (4, ph, pw) f32,
-// masks (K, ph, pw) f32; backdrop may be null. ph is a multiple of tile_h,
-// pw of tile_w, and both tile edges of 16. Launches on `stream` and returns
-// cudaGetLastError() as an int.
+// tile_counts (T,) i32, bounds (2,) i32, masks (K, ph, pw) f32. ph is a
+// multiple of tile_h, pw of tile_w, and both tile edges of 16. Each launches
+// on `stream` and returns cudaGetLastError() as an int.
+
+// K1: frame/out/backdrop (4, ph, pw) f32; backdrop may be null.
 extern "C" int figdraw_raster_frame(const float* fields, const int* modes,
                                     const int* tile_idx,
                                     const int* tile_counts, const int* bounds,
@@ -142,8 +159,23 @@ extern "C" int figdraw_raster_frame(const float* fields, const int* modes,
                                     void* stream) {
   const dim3 block(BLOCK, BLOCK);
   const dim3 grid(pw / BLOCK, ph / BLOCK);
-  raster_frame_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  raster_tiles_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
       fields, modes, tile_idx, tile_counts, bounds, frame, masks, backdrop,
+      out, n_quads, tiles_x, tile_h, tile_w, ph, pw);
+  return (int)cudaGetLastError();
+}
+
+// K3: target/out (1, ph, pw) f32, the mask plane being written.
+extern "C" int figdraw_raster_mask(const float* fields, const int* modes,
+                                   const int* tile_idx, const int* tile_counts,
+                                   const int* bounds, const float* target,
+                                   const float* masks, float* out,
+                                   int n_quads, int tiles_x, int tile_h,
+                                   int tile_w, int ph, int pw, void* stream) {
+  const dim3 block(BLOCK, BLOCK);
+  const dim3 grid(pw / BLOCK, ph / BLOCK);
+  raster_tiles_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+      fields, modes, tile_idx, tile_counts, bounds, target, masks, nullptr,
       out, n_quads, tiles_x, tile_h, tile_w, ph, pw);
   return (int)cudaGetLastError();
 }

@@ -17,9 +17,10 @@ import threading
 
 import numpy as np
 
+from .basics import FigKind
 from .nodesarray import FIG_DTYPE, GLYPH_DTYPE, OP_DTYPE, TRECT_DTYPE, RendersArray
 from .ops.layout import PACKED_WIDTH
-from .plan import ROLLED_THRESHOLD, TILE_H, TILE_W, fill_meta, meta_rows
+from .plan import ROLLED_THRESHOLD, TILE_H, TILE_W, bucket, fill_meta, meta_rows
 from .tape import BlurItem, ClearMaskItem, DrawItem, Tape
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -81,13 +82,18 @@ def load() -> ctypes.CDLL:
         lib.fd_set_text_config.restype = None
         lib.fd_set_white_uv.argtypes = [vp, ctypes.c_double, ctypes.c_double]
         lib.fd_set_white_uv.restype = None
-        for name in ("fd_quad_count", "fd_item_count", "fd_mask_count"):
+        for name in ("fd_quad_count", "fd_item_count", "fd_mask_count",
+                     "fd_clear_count"):
             getattr(lib, name).argtypes = [vp]
             getattr(lib, name).restype = i
+        lib.fd_tape_info.argtypes = [vp, vp]
+        lib.fd_tape_info.restype = None
         lib.fd_export_items.argtypes = [vp, vp, i]
         lib.fd_export_items.restype = i
         lib.fd_export_combo_packed.argtypes = [vp, vp, i, i]
         lib.fd_export_combo_packed.restype = i
+        lib.fd_export_mega_packed.argtypes = [vp, vp, i, i]
+        lib.fd_export_mega_packed.restype = i
         lib.fd_density.argtypes = [vp, i, i, vp]
         lib.fd_density.restype = None
         lib.fd_cull_saturated.argtypes = [vp, f, f]
@@ -128,14 +134,12 @@ def _layer_arrays(lst):
             np.ascontiguousarray(trects))
 
 
-def _run_walk(lib, ctx, renders, white_uv) -> None:
-    """Context setup + layer walk in ZLevel order. The slice draws no text
-    and samples no atlas, so only the text flags (all off) and the white
-    texel uv are configured."""
+def _run_walk(lib, ctx, renders) -> None:
+    """Context setup + layer walk in ZLevel order. The port draws no text
+    and has no atlas, so the text flags are all off and the white texel uv
+    is (0, 0)."""
     lib.fd_set_text_config(ctx, 0, 0, 0)
-    lib.fd_set_white_uv(
-        ctx, ctypes.c_double(white_uv[0]), ctypes.c_double(white_uv[1])
-    )
+    lib.fd_set_white_uv(ctx, ctypes.c_double(0.0), ctypes.c_double(0.0))
     for _lvl, lst in renders.sorted_pairs():
         nodes, roots, ops, points, glyphs, trects = _layer_arrays(lst)
         lib.fd_set_geometry(
@@ -158,6 +162,25 @@ def _host_cull(lib, ctx, frame_w, frame_h, pixel_scale) -> int:
         ctypes.c_float(frame_w * pixel_scale),
         ctypes.c_float(frame_h * pixel_scale),
     )
+
+
+# node kinds that draw from the glyph/image atlas, which the port does not
+# have yet: the walk would drop their quads without a word
+_ATLAS_KIND_LUT = np.zeros(256, bool)
+_ATLAS_KIND_LUT[[int(FigKind.nkText), int(FigKind.nkImage),
+                 int(FigKind.nkMsdfImage), int(FigKind.nkMtsdfImage)]] = True
+
+
+def _check_kinds(renders: RendersArray) -> None:
+    """Raises ValueError for node kinds the walk does not handle and
+    NotImplementedError for text and image nodes."""
+    if not renders.all_native_kinds():
+        raise ValueError("scene holds node kinds the native walk does not handle")
+    for lst in renders.layers.values():
+        if _ATLAS_KIND_LUT[lst.view()["kind"]].any():
+            raise NotImplementedError(
+                "text and image nodes sample the glyph/image atlas, kernel "
+                "K1-atlas (ROADMAP.md, port item 'Atlas')")
 
 
 _tls = threading.local()
@@ -198,7 +221,7 @@ def _pooled_combo(ctx, shape, owner=None) -> np.ndarray:
     return entry[entry[2]]
 
 
-def _export_tape_combo(lib, ctx, frame_w, frame_h, clear_color, bucket,
+def _export_tape_combo(lib, ctx, frame_w, frame_h, clear_color,
                        pool_owner=None) -> Tape:
     """Export straight into the PACKED upload layout: one
     (bucket(count) + meta_rows, 52) wire buffer, quad rows written by C++
@@ -271,6 +294,51 @@ def _export_tape_combo(lib, ctx, frame_w, frame_h, clear_color, bucket,
     return tape
 
 
+def flatten_fast(
+    renders: RendersArray,
+    frame_w: float,
+    frame_h: float,
+    ui_scale: float,
+    pixel_scale: float,
+    aa_factor: float,
+    clear_color,
+    pool_owner=None,
+):
+    """One walk, the best export for the scene (native.flatten_fast):
+
+    ("mega", combo, mask_count, density): a scene of more than
+    ROLLED_THRESHOLD items with no blur, atlas or backdrop quad, exported
+    straight into the megakernel's (bucket(quads + clears) + 1, 52) wire
+    buffer; the last row is the meta row the caller fills with the clear
+    color. density is fd_density's (pairs_sum, median_h).
+    ("tape", tape): everything else, as flatten_renders_array.
+
+    The JAX package caps the mega export at VMEM_MEGA_ROWS, a limit of the
+    TPU's vector memory; the CUDA megakernel reads the tape from device
+    memory, so the port has no cap. Raises as _check_kinds."""
+    _check_kinds(renders)
+    lib = load()
+    ctx = _acquire_ctx(lib, ui_scale, pixel_scale, aa_factor)
+    _run_walk(lib, ctx, renders)
+    _host_cull(lib, ctx, frame_w, frame_h, pixel_scale)
+    info = np.zeros(4, np.int32)
+    lib.fd_tape_info(ctx, _ptr(info))
+    n_quads, n_items, mask_count, flags = (int(v) for v in info)
+    if n_items > ROLLED_THRESHOLD and flags == 0:
+        # quads + clear sentinels: draw and blur items never become rows
+        cap = bucket(n_quads + lib.fd_clear_count(ctx))
+        # C++ zeroes the padding rows, so ping-pong reuse leaks no old quads
+        combo = _pooled_combo(ctx, (cap + 1, PACKED_WIDTH), owner=pool_owner)
+        rows = lib.fd_export_mega_packed(ctx, _ptr(combo), cap, PACKED_WIDTH)
+        if rows < 0:
+            raise RuntimeError(f"fd_export_mega_packed overflowed {cap} rows")
+        dens = np.zeros(2, np.float32)
+        lib.fd_density(ctx, TILE_W, TILE_H, _ptr(dens))
+        return "mega", combo, mask_count, (float(dens[0]), float(dens[1]))
+    return "tape", _export_tape_combo(lib, ctx, frame_w, frame_h, clear_color,
+                                      pool_owner=pool_owner)
+
+
 def flatten_renders_array(
     renders: RendersArray,
     frame_w: float,
@@ -279,21 +347,18 @@ def flatten_renders_array(
     pixel_scale: float,
     aa_factor: float,
     clear_color,
-    bucket,
-    white_uv=(0.0, 0.0),
     pool_owner=None,
 ) -> Tape:
     """Runs the native walk over all layers in ZLevel order, culls saturated
     stacks and exports the tape straight into the upload-combo layout padded
     to `bucket(count)` rows. Raises ValueError for node kinds the walk does
-    not handle."""
-    if not renders.all_native_kinds():
-        raise ValueError("scene holds node kinds the native walk does not handle")
+    not handle and NotImplementedError for text and image nodes."""
+    _check_kinds(renders)
     lib = load()
     ctx = _acquire_ctx(lib, ui_scale, pixel_scale, aa_factor)
-    _run_walk(lib, ctx, renders, white_uv)
+    _run_walk(lib, ctx, renders)
     _host_cull(lib, ctx, frame_w, frame_h, pixel_scale)
-    return _export_tape_combo(lib, ctx, frame_w, frame_h, clear_color, bucket,
+    return _export_tape_combo(lib, ctx, frame_w, frame_h, clear_color,
                               pool_owner=pool_owner)
 
 

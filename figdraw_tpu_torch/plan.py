@@ -1,21 +1,28 @@
-"""Host half of a frame: pass structure, upload buffer and executor
-parameters (figdraw_tpu/renderer.py `_plan_execution` on its
-frame-executor path, with the host helpers of figdraw_tpu/executor.py).
+"""Host half of a frame: pass structure, upload buffers and executor
+parameters (figdraw_tpu/renderer.py `_plan_execution` with the host helpers
+of figdraw_tpu/executor.py).
 
-The slice plans frames the unrolled frame executor runs: draw runs into the
-frame and backdrop blurs. Scenes that need another path raise
+A frame of at most ROLLED_THRESHOLD pass items takes the unrolled frame
+executor: draw runs into the frame or into mask planes, mask clears and
+backdrop blurs. A longer frame takes the megakernel, whose combo
+`pack_mega_modes` builds. Scenes that need another path raise
 NotImplementedError naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .ops.layout import (
+    PACKED_WIDTH, QF_BBOX_X0, QF_BBOX_X1, QF_BBOX_Y0, QF_BBOX_Y1, QF_WIDTH,
+    QI_MASK, QI_MODE, QI_WIDTH, pack_fields_np,
+)
+from .ops.mega import MEGA_CLEAR_BIT, MEGA_TARGET_SHIFT
 from .ops.raster import TILE_H, TILE_W
-from .tape import FRAME_TARGET, Tape
+from .tape import ClearMaskItem, DrawItem, FRAME_TARGET, Tape
 
 ROLLED_THRESHOLD = 24  # structure items above this need the rolled executor
 
@@ -79,12 +86,94 @@ def tile_h_from_density(pairs_sum: float, median_h: float, height: int,
     return TILE_H
 
 
+def pack_mega_modes(tape: Tape, fields: np.ndarray, modes: np.ndarray):
+    """Splice a tape into target-baked (fields, modes) rows for the
+    megakernel (executor.pack_mega_modes): draw-run quads get
+    (target + 1) << MEGA_TARGET_SHIFT added to the mode lane, and each
+    ClearMaskItem becomes a sentinel row with MEGA_CLEAR_BIT set.
+
+    A clear of plane k is only observed in tiles where plane k is read or
+    written before its next clear, so the sentinel's bbox is the union of
+    those quads' bboxes (a degenerate bbox when there are none): it bins
+    only into the tiles its cell touches. fields (n, 68) f32 and modes
+    (n, 2) i32 are the tape's logical rows; returns them un-padded."""
+    n = fields.shape[0]
+    # per-quad target from the draw runs (0 frame, k + 1 mask plane k), and
+    # the tape index each clear precedes, in item order
+    tgt = np.zeros(n, np.int32)
+    positions = []
+    plane_list = []
+    cursor = 0
+    for item in tape.items:
+        if isinstance(item, DrawItem):
+            if item.end > item.start and item.target >= 0:
+                tgt[item.start : item.end] = item.target + 1
+            cursor = max(cursor, item.end)
+        elif isinstance(item, ClearMaskItem):
+            positions.append(cursor)
+            plane_list.append(item.index)
+    out_modes = modes.copy()
+    out_modes[:, QI_MODE] += tgt << MEGA_TARGET_SHIFT
+    if not positions:
+        return fields, out_modes
+
+    planes = np.asarray(plane_list, np.int32)
+    positions = np.asarray(positions, np.int64)
+    qmask = modes[:, QI_MASK]
+    x0 = fields[:, QF_BBOX_X0]
+    y0 = fields[:, QF_BBOX_Y0]
+    x1 = fields[:, QF_BBOX_X1]
+    y1 = fields[:, QF_BBOX_Y1]
+
+    nc = positions.shape[0]
+    cb = np.empty((nc, 4), np.float32)
+    for k in np.unique(planes):
+        rel = (tgt == k + 1) | (qmask == k)
+        rx0 = np.where(rel, x0, np.float32(np.inf))
+        ry0 = np.where(rel, y0, np.float32(np.inf))
+        rx1 = np.where(rel, x1, np.float32(-np.inf))
+        ry1 = np.where(rel, y1, np.float32(-np.inf))
+        sel = planes == k
+        # segments between consecutive clears of plane k (the last runs to
+        # the end); reduceat gives x[start] for an empty segment, which is
+        # overwritten below
+        starts = positions[sel]
+        idxs = np.nonzero(sel)[0]
+        r_starts = np.minimum(starts, n - 1)
+        mins_x = np.minimum.reduceat(rx0, r_starts)
+        mins_y = np.minimum.reduceat(ry0, r_starts)
+        maxs_x = np.maximum.reduceat(rx1, r_starts)
+        maxs_y = np.maximum.reduceat(ry1, r_starts)
+        empty = starts >= np.append(starts[1:], n)
+        mins_x[empty] = np.inf
+        mins_y[empty] = np.inf
+        maxs_x[empty] = -np.inf
+        maxs_y[empty] = -np.inf
+        cb[idxs, 0] = mins_x
+        cb[idxs, 1] = mins_y
+        cb[idxs, 2] = maxs_x
+        cb[idxs, 3] = maxs_y
+    # a clear whose plane is never touched again gets a degenerate bbox
+    cb[~np.isfinite(cb).all(axis=1)] = 0.0
+
+    cf = np.zeros((nc, QF_WIDTH), np.float32)
+    cf[:, QF_BBOX_X0] = cb[:, 0]
+    cf[:, QF_BBOX_Y0] = cb[:, 1]
+    cf[:, QF_BBOX_X1] = cb[:, 2]
+    cf[:, QF_BBOX_Y1] = cb[:, 3]
+    cm = np.zeros((nc, QI_WIDTH), np.int32)
+    cm[:, QI_MODE] = MEGA_CLEAR_BIT + ((planes + 1) << MEGA_TARGET_SHIFT)
+    return (np.insert(fields, positions, cf, axis=0),
+            np.insert(out_modes, positions, cm, axis=0))
+
+
 @dataclass
 class ExecPlan:
     """What renderer._ExecPlan holds on the frame-executor path."""
 
     combo: np.ndarray  # (bucket + meta rows, 52) f32 packed upload
-    structure: Tuple  # ("draw", target, uses_atlas, needs_backdrop) | ("blur",)
+    structure: Tuple  # ("draw", target, uses_atlas, needs_backdrop) |
+    # ("blur",) | ("clear_mask", k)
     bounds: List[Tuple[int, int]]  # per draw item [start, end)
     radii: List[float]  # per blur item
     height: int
@@ -92,62 +181,77 @@ class ExecPlan:
     n_masks: int
     tile_h: int
     has_init_frame: bool
+    # (bucket(quads + clears) + 1, 52) megakernel upload (pack_mega_modes;
+    # the last row holds the clear color), or None for the frame executor
+    mega_combo: Optional[np.ndarray] = None
+
+
+ROLLED_ITEM = "(ROADMAP.md, port item 'Rolled executor')"
 
 
 def check_structure(structure, n_masks: int) -> Tuple:
-    """The structure as the slice's executor keys it; raises
-    NotImplementedError for passes another ROADMAP item ports."""
-    if len(structure) > ROLLED_THRESHOLD:
-        raise NotImplementedError(
-            f"{len(structure)} pass items need the rolled executor or the "
-            "megakernel (ROADMAP.md, port item 'Masks')")
+    """The structure as the executors key it; raises NotImplementedError
+    for passes another ROADMAP item ports."""
+    if n_masks < 1:
+        raise ValueError(f"n_masks must be >= 1, got {n_masks}")
     out = []
     for item in structure:
         if item[0] == "blur":
             out.append(("blur",))
+        elif item[0] == "clear_mask":
+            out.append(("clear_mask", int(item[1])))
         elif item[0] == "draw":
             _, target, uses_atlas, needs_backdrop = item[:4]
-            if target != FRAME_TARGET:
-                raise NotImplementedError(
-                    "mask-target draws run on kernel K3 (ROADMAP.md, port "
-                    "item 'Masks')")
             if uses_atlas:
                 raise NotImplementedError(
                     "atlas runs (text, images) need kernel K1-atlas "
                     "(ROADMAP.md, port item 'Atlas')")
-            out.append(("draw", FRAME_TARGET, False, bool(needs_backdrop)))
+            out.append(("draw", int(target), False, bool(needs_backdrop)))
         else:
-            raise NotImplementedError(
-                f"pass item {item[0]!r} belongs to the masked executors "
-                "(ROADMAP.md, port item 'Masks')")
-    if n_masks != 1:
-        raise NotImplementedError(
-            "mask planes belong to the masked executors (ROADMAP.md, port "
-            "item 'Masks')")
+            raise ValueError(f"unknown pass item {item!r}")
     return tuple(out)
 
 
 def plan_execution(tape: Tape) -> ExecPlan:
-    """Derive the pass structure, pick the tile height, and take the
-    native walk's packed upload buffer as is."""
+    """Derive the pass structure, pick the tile height, and take the native
+    walk's packed upload buffer as is. A tape of more than ROLLED_THRESHOLD
+    items also gets the megakernel's combo (renderer.py:1123-1166)."""
     width = int(round(tape.frame_size[0]))
     height = int(round(tape.frame_size[1]))
     n_masks = tape.mask_count + 1
-    structure, bounds, radii, _any_atlas, _any_backdrop = tape.structure_cache
-    structure = check_structure(structure, n_masks)
+    structure, bounds, radii, any_atlas, any_backdrop = tape.structure_cache
     if tape.combo_quads != bucket(max(tape.count, 1)):
         raise ValueError("tape combo was not padded to its quad bucket")
+    mega_combo = None
+    if len(structure) > ROLLED_THRESHOLD:
+        if any_atlas or any_backdrop or radii:
+            raise NotImplementedError(
+                f"{len(structure)} pass items with a blur, a backdrop or an "
+                f"atlas run need the rolled executor {ROLLED_ITEM}")
+        fields, modes = tape.fields_modes()
+        mf, mm = pack_mega_modes(tape, fields[: tape.count], modes[: tape.count])
+        mega_combo = np.zeros((bucket(max(mf.shape[0], 1)) + 1, PACKED_WIDTH),
+                              np.float32)
+        pack_fields_np(mf, mm, out=mega_combo[: mf.shape[0]])
+        mega_combo[-1, :4] = tape.clear_color or (0.0, 0.0, 0.0, 0.0)
     return ExecPlan(
-        combo=tape.combo, structure=structure, bounds=list(bounds),
-        radii=list(radii), height=height, width=width, n_masks=n_masks,
+        combo=tape.combo, structure=check_structure(structure, n_masks),
+        bounds=list(bounds), radii=list(radii), height=height, width=width,
+        n_masks=n_masks,
         tile_h=tile_h_from_density(*tape.tile_density, height, width),
-        has_init_frame=tape.clear_color is None,
+        has_init_frame=tape.clear_color is None, mega_combo=mega_combo,
     )
 
 
 def from_jax_plan(jax_plan) -> ExecPlan:
     """The port's plan from a figdraw_tpu.renderer._ExecPlan (read through
-    its numpy fields only), so one tape can run through both executors."""
+    its numpy fields only), so one tape can run through both packages'
+    executors. A mega plan carries its megakernel combo."""
+    mega = jax_plan.mega_combo
+    if len(jax_plan.structure) > ROLLED_THRESHOLD and mega is None:
+        raise NotImplementedError(
+            f"a plan of {len(jax_plan.structure)} pass items off the "
+            f"megakernel needs the rolled executor {ROLLED_ITEM}")
     return ExecPlan(
         combo=np.asarray(jax_plan.combo, np.float32),
         structure=check_structure(jax_plan.structure, jax_plan.n_masks),
@@ -156,4 +260,5 @@ def from_jax_plan(jax_plan) -> ExecPlan:
         height=int(jax_plan.height), width=int(jax_plan.width),
         n_masks=int(jax_plan.n_masks), tile_h=int(jax_plan.tile_h),
         has_init_frame=bool(jax_plan.has_init_frame),
+        mega_combo=None if mega is None else np.asarray(mega, np.float32),
     )

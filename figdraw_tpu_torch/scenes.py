@@ -372,7 +372,7 @@ def modes_tape(w: float = 256.0, h: float = 128.0):
 
     tape = native.flatten_renders_array(
         make_modes_scene_array(w, h), w, h, 1.0, 1.0, DEFAULT_SDF_AA_FACTOR,
-        (1.0, 1.0, 1.0, 1.0), bucket=bucket)
+        (1.0, 1.0, 1.0, 1.0))
     walked_f, walked_m = tape.fields_modes()
     extra_f, extra_m = walk_free_mode_rows(w, h)
     n_live = tape.count + extra_f.shape[0]
@@ -384,3 +384,91 @@ def modes_tape(w: float = 256.0, h: float = 128.0):
     fields[tape.count : n_live] = extra_f
     modes[tape.count : n_live] = extra_m
     return fields, modes, n_live
+
+
+# --- the clip-table benchmark scenes ------------------------------------------
+#
+# bench_clipmask.py, the JAX package's reproduction of the reference's
+# windy_clip_mask_benchmark.nim and windy_non_clip_benchmark.nim (1200x800,
+# 180 rows x 6 columns), with the table size as arguments. The node rows
+# are byte-identical to figdraw_tpu's from_renders of the same scene.
+
+def _table_cell(lst, parent, box, rgba, flags=0, corners=0):
+    """One flat-filled rounded rectangle, as bench_clipmask's rect_fig."""
+    row = lst.add_root_raw() if parent < 0 else lst.add_child_raw(parent)
+    _rect_node(lst, row, box, rgba, midpos=0, corners=(corners,) * 4,
+               flags=flags)
+    return row
+
+
+def _table_scene(kind: str, w: float, h: float, rows: int,
+                 cols: int) -> RendersArray:
+    """The clipped table (bench_clipmask.make_table_scene, from
+    windy_clip_mask_benchmark.nim makeTableRenderTree): a rounded viewport
+    that clips with a mask plane, and rows x cols cells that clip their
+    three spilling children. kind "subclip": every cell clips with its own
+    mask plane (the megakernel's scene); "rectmask": cells clip through
+    the rect-mask fast path of their children's quads."""
+    margin, gap = 22.0, 4.0
+    vx, vy, vw = margin, margin, w - margin * 2
+    cell_h = 22.0
+    cell_w = (vw - gap * (cols + 1)) / cols
+    scroll_y = 37.0
+    cell_flags = int(FigFlags.NfClipContent if kind == "subclip"
+                     else FigFlags.NfRectMaskContent)
+
+    lst = RenderListArray(capacity=2 + 4 * rows * cols)
+    _table_cell(lst, -1, (0, 0, w, h), (248, 249, 251, 255))
+    vp = _table_cell(lst, -1, (vx, vy, vw, h - margin * 2), (232, 235, 240, 255),
+                     flags=int(FigFlags.NfClipContent), corners=10)
+    for row in range(rows):
+        y = vy + gap + row * (cell_h + gap) - scroll_y
+        for col in range(cols):
+            x = vx + gap + col * (cell_w + gap)
+            color = ((255, 255, 255, 255) if (row + col) % 2 == 0
+                     else (242, 246, 250, 255))
+            ci = _table_cell(lst, vp, (x, y, cell_w, cell_h), color,
+                             flags=cell_flags, corners=4)
+            tone = 42 + (row * 7 + col * 17) % 72
+            _table_cell(lst, ci, (x - 12, y + 4, cell_w + 24, 5),
+                        (36, 120 + (row * 5) % 80, 235, 255), corners=2)
+            _table_cell(lst, ci, (x + cell_w * 0.38, y - 5, cell_w * 0.74,
+                                  cell_h + 10),
+                        (tone, 170 - (col * 11) % 70, 220, 255), corners=3)
+            _table_cell(lst, ci, (x + 7, y + cell_h - 7, cell_w - 14, 8),
+                        (190 + (row + col) % 30, 210, 220, 255), corners=2)
+    out = RendersArray()
+    out.set_layer(0, lst)
+    return out
+
+
+def _nonclip_scene(w: float, h: float, rows: int, cols: int) -> RendersArray:
+    """The flat table without masks (bench_clipmask.make_nonclip_scene, from
+    windy_non_clip_benchmark.nim makeNonClipRenderTree), the control of the
+    clipped tables."""
+    margin, gap, cell_h = 18.0, 5.0, 18.0
+    cell_w = (w - margin * 2 - gap * (cols - 1)) / cols
+    lst = RenderListArray(capacity=1 + rows * cols)
+    _table_cell(lst, -1, (0, 0, w, h), (248, 249, 251, 255))
+    for row in range(rows):
+        y = margin + row * (cell_h + gap)
+        for col in range(cols):
+            x = margin + col * (cell_w + gap)
+            shade = 220 + (row * 3 + col * 7) % 35
+            accent = 80 + (row * 11 + col * 13) % 90
+            _table_cell(lst, -1, (x, y, cell_w, cell_h),
+                        (shade, 245 - (col % 5) * 5, accent, 255), corners=4)
+    out = RendersArray()
+    out.set_layer(0, lst)
+    return out
+
+
+def make_clip_table_scene(kind: str, w: float = 1200.0, h: float = 800.0,
+                          rows: int = 180, cols: int = 6) -> RendersArray:
+    """One of bench_clipmask's three scenes by its name: "noclip",
+    "rectmask" or "subclip"."""
+    if kind == "noclip":
+        return _nonclip_scene(w, h, rows, cols)
+    if kind not in ("rectmask", "subclip"):
+        raise ValueError(f"unknown table kind {kind!r}")
+    return _table_scene(kind, w, h, rows, cols)

@@ -16,6 +16,11 @@ from figdraw_tpu_torch.ops.layout import (
     QF_STOP_COLOR, QF_WIDTH,
 )
 
+# one intra-op thread: the suite runs a pytest-xdist worker per core, and
+# torch's spinning thread pools, oversubscribed, slow these tests a
+# hundredfold
+torch.set_num_threads(1)
+
 W, H = 384, 256
 
 

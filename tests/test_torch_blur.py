@@ -11,6 +11,11 @@ import torch
 from figdraw_tpu.ops.blur import backdrop_blur_planar as jax_blur
 from figdraw_tpu_torch.ops.blur import backdrop_blur_planar
 
+# one intra-op thread: the suite runs a pytest-xdist worker per core, and
+# torch's spinning thread pools, oversubscribed, slow these tests a
+# hundredfold
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("radius", [0.0, 3.0, 18.0, 64.0])
 def test_blur_matches_reference(radius):

@@ -1,7 +1,8 @@
-"""figdraw_tpu_torch's CUDA kernels against their plain torch versions on an
-NVIDIA card. Every test here needs the card (marker `cuda`) and skips
-without one. The file imports neither jax nor figdraw_tpu, so it also runs
-on a machine without them:
+"""figdraw_tpu_torch's CUDA kernels (K1 and K3 in csrc/raster.cu, K4 in
+csrc/mega.cu) against their plain torch versions on an NVIDIA card. Every
+test here needs the card (marker `cuda`) and skips without one. The file
+imports neither jax nor figdraw_tpu, so it also runs on a machine without
+them:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -11,11 +12,14 @@ import pytest
 import torch
 
 from figdraw_tpu_torch import FigRenderer, vec2
-from figdraw_tpu_torch.executor import get_frame_executor
-from figdraw_tpu_torch.ops import raster
+from figdraw_tpu_torch.executor import get_frame_executor, get_mega_executor
+from figdraw_tpu_torch.ops import mega, raster
 from figdraw_tpu_torch.ops.binning import bin_quads
-from figdraw_tpu_torch.plan import plan_execution
-from figdraw_tpu_torch.scenes import make_render_tree_array, modes_tape
+from figdraw_tpu_torch.ops.layout import QF_BBOX_X0, QF_WIDTH, QI_MODE
+from figdraw_tpu_torch.plan import bucket, plan_execution
+from figdraw_tpu_torch.scenes import (
+    make_clip_table_scene, make_render_tree_array, modes_tape,
+)
 
 TOL = 1.0 / 255.0
 
@@ -87,3 +91,138 @@ def test_wrapper_rejects_bad_arguments(dev):
     with pytest.raises(ValueError, match="is on"):
         raster.draw_pass_planar_prebinned(f.cpu(), m, bounds, tile_idx,
                                           tile_counts, planes, masks)
+
+
+def _mask_args(th, dev, w=512, h=256):
+    """K3's inputs: the modes tape (every SDF mode), three mask planes read
+    by some quads, a seeded target plane and the binning."""
+    fields, modes, n_live = modes_tape(w, h)
+    rng = np.random.RandomState(th)
+    modes[1:n_live:4, 1] = 1
+    modes[2:n_live:5, 1] = 2
+    f, m = torch.from_numpy(fields).to(dev), torch.from_numpy(modes).to(dev)
+    tile_idx, tile_counts = bin_quads(f, 0, f.shape[0], h // th, w // 128, th, 128)
+    masks = torch.from_numpy(rng.rand(3, h, w).astype(np.float32)).to(dev)
+    masks[0] = 1.0
+    target = torch.from_numpy(rng.rand(1, h, w).astype(np.float32)).to(dev)
+    bounds = torch.tensor([3, n_live - 2], dtype=torch.int32, device=dev)
+    return f, m, bounds, tile_idx, tile_counts, target, masks
+
+
+@pytest.mark.parametrize("th", [128, 64, 32])
+def test_mask_kernel_matches_plain(th, dev):
+    args = _mask_args(th, dev)
+    before = raster.MASK_LAUNCHES
+    out = raster.draw_pass_mask_prebinned(*args, tile_h=th)
+    assert raster.MASK_LAUNCHES == before + 1
+    ref = raster.draw_pass_mask_prebinned_plain(*args, tile_h=th)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (1, 256, 512) and bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= TOL
+    assert float((out - args[5]).abs().max()) > 0.1
+
+
+def _mega_args(n_masks, th, dev, w=512, h=256):
+    """K4's inputs: the modes tape with seeded targets and mask reads (some
+    out of range), clear sentinels spliced in, and its binning."""
+    fields, modes, n_live = modes_tape(w, h)
+    fields, modes = fields[:n_live], modes[:n_live].copy()
+    rng = np.random.RandomState(n_masks * 1000 + th)
+    tgt = rng.randint(0, n_masks + 2, n_live)
+    tgt[rng.rand(n_live) < 0.5] = 0
+    modes[:, QI_MODE] += tgt << mega.MEGA_TARGET_SHIFT
+    modes[:, 1] = rng.randint(-1, n_masks + 2, n_live)
+    modes[rng.rand(n_live) < 0.5, 1] = 0  # half read the all-pass plane
+    n_clear = 8
+    pos = np.sort(rng.choice(n_live, n_clear, replace=False))
+    cf = np.zeros((n_clear, QF_WIDTH), np.float32)
+    x0, y0 = rng.rand(n_clear) * w * 0.8, rng.rand(n_clear) * h * 0.7
+    cf[:, QF_BBOX_X0 : QF_BBOX_X0 + 4] = np.stack(
+        [x0, y0, x0 + 40 + rng.rand(n_clear) * 200, y0 + 20 + rng.rand(n_clear) * 100], 1)
+    cm = np.zeros((n_clear, 2), np.int32)
+    cm[:, QI_MODE] = mega.MEGA_CLEAR_BIT + (
+        rng.randint(0, n_masks + 2, n_clear) << mega.MEGA_TARGET_SHIFT)
+    fields = np.insert(fields, pos, cf, axis=0)
+    modes = np.insert(modes, pos, cm, axis=0)
+    n_pad = bucket(fields.shape[0])
+    fields = np.concatenate([fields, np.zeros((n_pad - len(fields), QF_WIDTH), np.float32)])
+    modes = np.concatenate([modes, np.zeros((n_pad - len(modes), 2), np.int32)])
+    f, m = torch.from_numpy(fields).to(dev), torch.from_numpy(modes).to(dev)
+    tile_idx, tile_counts = bin_quads(f, 0, n_pad, h // th, w // 128, th, 128)
+    planes = torch.from_numpy(rng.rand(4, h, w).astype(np.float32)).to(dev)
+    return f, m, tile_idx, tile_counts, planes
+
+
+@pytest.mark.parametrize("n_masks,th", [(1, 128), (3, 128), (3, 64), (3, 32),
+                                        (mega.MAX_PLANES, 64)])
+def test_mega_kernel_matches_plain(n_masks, th, dev):
+    args = _mega_args(n_masks, th, dev)
+    before = mega.LAUNCHES
+    out = mega.draw_pass_mega(*args, n_masks, tile_h=th)
+    assert mega.LAUNCHES == before + 1
+    ref = mega.draw_pass_mega_plain(*args, n_masks, tile_h=th)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= TOL
+    assert float((out - args[4]).abs().max()) > 0.1
+
+
+def test_mask_and_mega_wrappers_reject_bad_arguments(dev):
+    f, m, bounds, tile_idx, tile_counts, target, masks = _mask_args(64, dev)
+    with pytest.raises(ValueError, match="float32"):
+        raster.draw_pass_mask_prebinned(f, m, bounds, tile_idx, tile_counts,
+                                        target.double(), masks, tile_h=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        raster.draw_pass_mask_prebinned(f, m, bounds, tile_idx, tile_counts,
+                                        target, masks.transpose(1, 2).contiguous()
+                                        .transpose(1, 2), tile_h=64)
+    with pytest.raises(ValueError, match="is on"):
+        raster.draw_pass_mask_prebinned(f, m.cpu(), bounds, tile_idx,
+                                        tile_counts, target, masks, tile_h=64)
+    with pytest.raises(ValueError, match="target planes"):
+        raster.draw_pass_mask_prebinned(f, m, bounds, tile_idx, tile_counts,
+                                        masks, masks, tile_h=64)
+    f, m, tile_idx, tile_counts, planes = _mega_args(3, 64, dev)
+    with pytest.raises(ValueError, match="MAX_PLANES"):
+        mega.draw_pass_mega(f, m, tile_idx, tile_counts, planes,
+                            mega.MAX_PLANES + 1, tile_h=64)
+    with pytest.raises(ValueError, match="int32"):
+        mega.draw_pass_mega(f, m.long(), tile_idx, tile_counts, planes, 3,
+                            tile_h=64)
+    with pytest.raises(ValueError, match="is on"):
+        mega.draw_pass_mega(f, m, tile_idx.cpu(), tile_counts, planes, 3,
+                            tile_h=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        mega.draw_pass_mega(f, m, tile_idx, tile_counts,
+                            planes.transpose(1, 2).contiguous().transpose(1, 2),
+                            3, tile_h=64)
+
+
+@pytest.mark.parametrize("kind", ["rectmask", "subclip"])
+def test_clip_table_matches_plain_executor(kind, dev):
+    """The reduced clip table (12x6 at 320x200) through render_frame: K1 and
+    K3 for the rect-mask table, K4 alone for the sub-clip one, and the same
+    executor with the plain versions gives the same frame."""
+    ren = FigRenderer(device="cuda")
+    scene = make_clip_table_scene(kind, 320, 200, 12, 6)
+    counts = (raster.LAUNCHES, raster.MASK_LAUNCHES, mega.LAUNCHES)
+    frame = ren.render_frame(scene, vec2(320, 200))
+    counts = tuple(b - a for a, b in zip(
+        counts, (raster.LAUNCHES, raster.MASK_LAUNCHES, mega.LAUNCHES)))
+    tape = ren.flatten(scene, vec2(320, 200))
+    plan = plan_execution(tape)
+    if kind == "rectmask":
+        assert counts == (2, 1, 0)
+        run = get_frame_executor(plan.structure, 200, 320, plan.n_masks, False,
+                                 plan.tile_h)
+        ref = run(torch.from_numpy(plan.combo).to(dev), None,
+                  draw=raster.draw_pass_planar_prebinned_plain,
+                  draw_mask=raster.draw_pass_mask_prebinned_plain)
+    else:
+        assert counts == (0, 0, 1)
+        run = get_mega_executor(200, 320, plan.n_masks, False, plan.tile_h)
+        ref = run(torch.from_numpy(plan.mega_combo).to(dev), None,
+                  draw=mega.draw_pass_mega_plain)
+    torch.cuda.synchronize()
+    assert tuple(frame.shape) == (200, 320, 4)
+    assert float((frame - ref).abs().max()) <= TOL

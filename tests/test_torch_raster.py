@@ -14,6 +14,11 @@ from figdraw_tpu_torch.ops import raster
 from figdraw_tpu_torch.ops.binning import bin_quads
 from figdraw_tpu_torch.scenes import modes_tape
 
+# one intra-op thread: the suite runs a pytest-xdist worker per core, and
+# torch's spinning thread pools, oversubscribed, slow these tests a
+# hundredfold
+torch.set_num_threads(1)
+
 W, H = 256, 128
 
 

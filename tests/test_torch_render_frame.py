@@ -18,6 +18,11 @@ from figdraw_tpu.scenes import make_render_tree_array as jax_scene
 from figdraw_tpu_torch.plan import from_jax_plan
 from figdraw_tpu_torch.scenes import make_render_tree_array
 
+# one intra-op thread: the suite runs a pytest-xdist worker per core, and
+# torch's spinning thread pools, oversubscribed, slow these tests a
+# hundredfold
+torch.set_num_threads(1)
+
 W, H, COPIES = 384, 216, 10
 TOL = 1.0 / 255.0
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -115,24 +120,58 @@ def test_host_copies_match_reference():
             assert getattr(quad_eval_planar, name) == getattr(quad_eval, name), name
 
 
-def test_masked_scene_names_its_roadmap_item():
+def _clipped_cells(n):
+    """n clipped cells, each with a red child spilling over it."""
     from figdraw_tpu_torch.basics import FigFlags, FigKind
-    from figdraw_tpu_torch.nodesarray import RenderListArray, RendersArray
+    from figdraw_tpu_torch.nodesarray import RenderListArray
 
     lst = RenderListArray()
-    p = lst.add_root_raw()
-    lst.nodes["kind"][p] = int(FigKind.nkRectangle)
-    lst.nodes["box"][p] = (10, 10, 40, 30)
-    lst.nodes["flags"][p] = int(FigFlags.NfClipContent)
-    lst.nodes["fill"]["c0"][p] = (200, 200, 200, 255)
-    c = lst.add_child_raw(p)
-    lst.nodes["kind"][c] = int(FigKind.nkRectangle)
-    lst.nodes["box"][c] = (0, 0, 96, 64)
-    lst.nodes["fill"]["c0"][c] = (255, 0, 0, 255)
+    for i in range(n):
+        p = lst.add_root_raw()
+        lst.nodes["kind"][p] = int(FigKind.nkRectangle)
+        lst.nodes["box"][p] = (4 + 30 * (i % 3), 4 + 20 * (i // 3), 26, 16)
+        lst.nodes["flags"][p] = int(FigFlags.NfClipContent)
+        lst.nodes["fill"]["c0"][p] = (200, 200, 200, 255)
+        c = lst.add_child_raw(p)
+        lst.nodes["kind"][c] = int(FigKind.nkRectangle)
+        lst.nodes["box"][c] = (0, 0, 96, 64)
+        lst.nodes["fill"]["c0"][c] = (255, 0, 0, 255)
+    return lst
+
+
+def test_masked_scene_names_its_roadmap_item():
+    """Clip masks render now; text in a clipped cell needs the atlas."""
+    from figdraw_tpu_torch.basics import FigKind
+    from figdraw_tpu_torch.nodesarray import RendersArray
+
+    lst = _clipped_cells(1)
+    t = lst.add_child_raw(0)
+    lst.nodes["kind"][t] = int(FigKind.nkText)
+    lst.nodes["box"][t] = (8, 8, 40, 12)
     scene = RendersArray()
     scene.set_layer(0, lst)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, port item 'Masks'"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, port item 'Atlas'"):
         port.FigRenderer(device="cpu").render_frame(scene, port.vec2(96, 64))
+
+
+def test_rolled_scene_names_its_roadmap_item():
+    """More than 24 pass items with a backdrop blur: the rolled executor's
+    scene, not the megakernel's."""
+    from figdraw_tpu_torch.basics import FigKind
+    from figdraw_tpu_torch.nodesarray import RendersArray
+
+    lst = _clipped_cells(10)
+    b = lst.add_root_raw()
+    lst.nodes["kind"][b] = int(FigKind.nkBackdropBlur)
+    lst.nodes["box"][b] = (10, 10, 50, 30)
+    lst.nodes["blur"][b] = 6.0
+    scene = RendersArray()
+    scene.set_layer(0, lst)
+    ren = port.FigRenderer(device="cpu")
+    assert len(ren.flatten(scene, port.vec2(96, 64)).structure_cache[0]) > 24
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md, port item 'Rolled executor'"):
+        ren.render_frame(scene, port.vec2(96, 64))
 
 
 def test_cuda_renderer_raises_without_cuda(monkeypatch):
@@ -153,12 +192,19 @@ def test_imports_and_renders_without_jax():
         "f = r.render_frame(make_render_tree_array(128, 128, 0, copies=2), port.vec2(128, 128))\n"
         "assert tuple(f.shape) == (128, 128, 4) and bool(f.isfinite().all())\n"
         "assert r.take_screenshot().std() > 0\n"
+        "from figdraw_tpu_torch.scenes import make_clip_table_scene\n"
+        "from figdraw_tpu_torch import native\n"
+        "t = make_clip_table_scene('subclip', 160, 120, 4, 3)\n"
+        "assert native.flatten_fast(t, 160, 120, 1, 1, 1.2, None)[0] == 'mega'\n"
+        "f = r.render_frame(t, port.vec2(160, 120))\n"
+        "assert tuple(f.shape) == (120, 160, 4) and bool(f.isfinite().all())\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('figdraw_tpu', 'jax'))\n"
         "assert not [m for m in bad if sys.modules[m] is not None], bad\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"  # as torch.set_num_threads above
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr

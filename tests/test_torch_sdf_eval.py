@@ -28,6 +28,11 @@ from figdraw_tpu_torch.ops.layout import (
 )
 from figdraw_tpu_torch.ops.quad_eval_planar import eval_quad_planar
 
+# one intra-op thread: the suite runs a pytest-xdist worker per core, and
+# torch's spinning thread pools, oversubscribed, slow these tests a
+# hundredfold
+torch.set_num_threads(1)
+
 MODES = (3, 7, 8, 9, 11, 12, 17, 18, 19, 20, 21)
 FILL_MODES = (0, 1, 2, 3, 4)
 TILE = 32

@@ -12,6 +12,11 @@ from figdraw_tpu.ops import layout as jax_layout
 from figdraw_tpu_torch.executor import unpack_combo
 from figdraw_tpu_torch.ops import layout
 
+# one intra-op thread: the suite runs a pytest-xdist worker per core, and
+# torch's spinning thread pools, oversubscribed, slow these tests a
+# hundredfold
+torch.set_num_threads(1)
+
 
 def _random_packed(n, seed):
     """A random tape in the packed wire layout: arbitrary f32 geometry,
