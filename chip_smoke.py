@@ -14,11 +14,22 @@ FigRenderer(device="cuda").render_frame:
   the rect-mask table on the frame executor (K1 twice and the mask-plane
   pass K3 once per frame) and the sub-clip table on the megakernel (K4 once
   per frame), each kernel held against its plain version on the frame's
-  own inputs.
+  own inputs;
+- images: bench_images.py's four variants at 1920x1080 with 400 panels,
+  the photo published mipmapped on an image bus (K1-atlas once per frame,
+  K1 for the SDF control);
+- text: bench_text.py's frame (1200x800, 36 lines) from its stored plan
+  and atlas through execute_plan (K1-atlas once per frame): the card's
+  machine has no fontTools;
+- rolled: the images_clipped cards at 1920x1080 with 400 panels, 1201 pass
+  items on the rolled executor (per card K3 into the mask plane and
+  K1-atlas into the frame).
 
-It checks the frames and the launch counts of each path and prints times
-beside the card's name and power limit. The last line is the run's summary
-JSON; any failure exits non-zero before it.
+It checks the frames and the launch counts of each path, holds reduced
+frames against stored block means of the JAX package's frames, and prints
+times beside the card's name and power limit. The line before the card
+line lists each kernel with its launches, error, time and bound; the last
+line is the run's summary JSON; any failure exits non-zero before them.
 """
 
 from __future__ import annotations
@@ -43,6 +54,27 @@ REF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 REF_BLOCKS = os.path.join(REF_DIR, "headline_384x216_f0_blocks8.npy")
 # bench_clipmask.py's table
 TABLE_W, TABLE_H, TABLE_ROWS, TABLE_COLS = 1200, 800, 180, 6
+# bench_images.py's frame (and the clipped cards'), and the reduced one of
+# the stored references
+IMAGE_W, IMAGE_H, IMAGE_PANELS = 1920, 1080, 400
+SMALL_W, SMALL_H, SMALL_PANELS = 480, 270, 25
+BENCH_VARIANTS = ("sdf_control", "images_11", "images_scaled", "images_mixed")
+
+# roofline of one H100 SXM (NVIDIA's data sheet, 700 W): HBM bytes/s and
+# FP32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# FP32 operations of one pixel evaluation of a quad in csrc/sdf.cuh, by base
+# mode, counted from the code (each add, multiply, compare, min/max,
+# select, abs, floor, convert, sqrt, exp, log, sin, cos or divide one; the
+# blend into the four planes and the mask multiply included); modifiers
+# for elliptical corners, gradient fills and rect masks. Only pixels whose
+# centers lie in the quad's bbox need one. Counted, not measured.
+OPS_BY_MODE = {0: 130, 3: 75, 7: 85, 8: 85, 9: 103, 11: 80, 12: 80, 13: 165,
+               14: 165, 15: 165, 16: 165, 17: 79, 18: 167, 19: 167, 20: 167,
+               21: 85}
+OPS_ELLIPTICAL, OPS_GRADIENT, OPS_RECT_MASK = 27, 44, 35
+MASK_BLEND_SAVING = 11  # one plane blended instead of four
 
 
 def fail(msg: str) -> None:
@@ -77,8 +109,427 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def block_means(frame, k: int = 8):
+    """Means of the frame's k x k blocks; rows and columns past the last
+    whole block are left out."""
     h, w, c = frame.shape
-    return frame.reshape(h // k, k, w // k, k, c).mean(axis=(1, 3))
+    h, w = h // k * k, w // k * k
+    return frame[:h, :w].reshape(h // k, k, w // k, k, c).mean(axis=(1, 3))
+
+
+def compared(fn, plain, errs, store, what: str):
+    """fn wrapped so that each call also runs its plain version on the same
+    inputs, records max |kernel - plain| and the call's arguments."""
+    import torch
+
+    def call(*args, **kw):
+        got = fn(*args, **kw)
+        ref = plain(*args, **kw)
+        torch.cuda.synchronize()
+        if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(ref).all())):
+            fail(f"{what}: non-finite planes from {fn.__name__}")
+        errs.append(float((got - ref).abs().max()))
+        store.append((args, kw))
+        return got
+    return call
+
+
+def live_pairs(fields, modes, tile_idx, tile_counts, tile_h, tiles_x, seg=None,
+               mega=False):
+    """Every (tile, quad) pair of the binned lists (the run's segment [seg)
+    when given) that covers pixels: (quad, mode word, x0, x1, y0, y1), the
+    tile's pixels whose centers lie in the quad's bbox as the integer
+    ranges [x0, x1) x [y0, y1). Clear sentinels of the mega tape cover
+    none."""
+    import numpy as np
+
+    from figdraw_tpu_torch.ops.layout import (
+        QF_BBOX_X0, QF_BBOX_X1, QF_BBOX_Y0, QF_BBOX_Y1,
+    )
+    from figdraw_tpu_torch.ops.mega import MEGA_CLEAR_BIT, MEGA_EVAL_MASK
+
+    f = fields.cpu().numpy()
+    raw = modes[:, 0].cpu().numpy()
+    idx = tile_idx.cpu().numpy()
+    live = np.arange(idx.shape[1])[None, :] < tile_counts.cpu().numpy()[:, None]
+    if seg is not None:
+        live &= (idx >= seg[0]) & (idx < seg[1])
+    t, j = np.nonzero(live)
+    q = idx[t, j]
+    r = raw[q]
+    if mega:
+        keep = (r & MEGA_CLEAR_BIT) == 0
+        t, q, r = t[keep], q[keep], r[keep] & MEGA_EVAL_MASK
+    tx0 = (t % tiles_x) * 128
+    ty0 = (t // tiles_x) * tile_h
+    # pixel x is covered when x + 0.5 lies in [bbox_x0, bbox_x1)
+    x0 = np.maximum(np.ceil(f[q, QF_BBOX_X0] - 0.5), tx0).astype(np.int64)
+    x1 = np.minimum(np.ceil(f[q, QF_BBOX_X1] - 0.5), tx0 + 128).astype(np.int64)
+    y0 = np.maximum(np.ceil(f[q, QF_BBOX_Y0] - 0.5), ty0).astype(np.int64)
+    y1 = np.minimum(np.ceil(f[q, QF_BBOX_Y1] - 0.5), ty0 + tile_h).astype(np.int64)
+    keep = (x1 > x0) & (y1 > y0)
+    return q[keep], r[keep], x0[keep], x1[keep], y0[keep], y1[keep]
+
+
+def tile_ops(fields, pairs, mask_target=False) -> float:
+    """FP32 operations the tile walk needs for these pairs (live_pairs):
+    OPS_BY_MODE with its modifiers at each covered pixel."""
+    import numpy as np
+
+    from figdraw_tpu_torch.ops.layout import QF_RECT_PARAMS
+
+    f = fields.cpu().numpy()
+    q, r, x0, x1, y0, y1 = pairs
+    rest = r % 256
+    base = rest % 128
+    ops = np.array([OPS_BY_MODE.get(int(b), OPS_BY_MODE[3]) for b in range(128)])[base]
+    ops = (ops + OPS_ELLIPTICAL * (rest >= 128) * np.where(base == 9, 2, 1)
+           + OPS_GRADIENT * ((r // 256) % 8 != 0)
+           + OPS_RECT_MASK * ((f[q, QF_RECT_PARAMS + 2] >= 0) & (f[q, QF_RECT_PARAMS + 3] >= 0)))
+    if mask_target:
+        ops = ops - MASK_BLEND_SAVING
+    return float((ops * (x1 - x0) * (y1 - y0)).sum())
+
+
+def covered(pairs, sel, shape) -> int:
+    """Pixels of a (PH, PW) plane that the selected pairs cover, each
+    counted once."""
+    import numpy as np
+
+    _q, _r, x0, x1, y0, y1 = pairs
+    plane = np.zeros(shape, bool)
+    for a, b, c, d in zip(x0[sel], x1[sel], y0[sel], y1[sel]):
+        plane[c:d, a:b] = True
+    return int(plane.sum())
+
+
+def bound_of(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the least time for moving n_bytes through HBM
+    once and doing n_ops FP32 operations, whichever is longer."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def raster_work(args, kw, mask_target=False):
+    """(bytes, ops) of one K1 / K1-atlas / K3 call, counting what the run's
+    quads need: their rows and modes, the live entries of the tile lists,
+    the bounds, the target read and written whole (the pass is out of
+    place), each mask plane the quads index and the backdrop only at the
+    pixels the quads (mode-17 quads for the backdrop) cover, and the atlas
+    once; ops by tile_ops over the same pairs."""
+    import numpy as np
+
+    from figdraw_tpu_torch.ops.layout import QF_WIDTH, QI_MASK, QI_WIDTH
+
+    fields, modes, bounds, tile_idx, tile_counts, target, masks = args[:7]
+    backdrop = args[7] if len(args) > 7 else kw.get("backdrop_planes")
+    atlas = kw.get("atlas")
+    ph, pw = target.shape[1:]
+    pairs = live_pairs(fields, modes, tile_idx, tile_counts, kw["tile_h"], pw // 128,
+                       seg=bounds.tolist())
+    q = pairs[0]
+    plane_of = modes[:, QI_MASK].cpu().numpy()[q]
+    n_bytes = (len(np.unique(q)) * (QF_WIDTH + QI_WIDTH) * 4
+               + (int(tile_counts.sum()) + tile_counts.numel() + 2) * 4
+               + 2 * target.nelement() * 4)
+    n_bytes += 4 * sum(covered(pairs, plane_of == k, (ph, pw))
+                       for k in np.unique(plane_of))
+    if backdrop is not None:
+        n_bytes += 16 * covered(pairs, (pairs[1] % 256) % 128 == 17, (ph, pw))
+    if atlas is not None:
+        n_bytes += atlas.nelement() * 4
+    return n_bytes, tile_ops(fields, pairs, mask_target=mask_target)
+
+
+def mega_work(args):
+    """(bytes, ops) of one K4 call: the rows and modes of the quads the
+    lists hold, their live entries, the planes read and written whole (the
+    mask planes live in shared memory)."""
+    import numpy as np
+
+    from figdraw_tpu_torch.ops.layout import QF_WIDTH, QI_WIDTH
+
+    fields, modes, tile_idx, tile_counts, planes, _n_masks, th = args
+    pairs = live_pairs(fields, modes, tile_idx, tile_counts, th,
+                       planes.shape[2] // 128, mega=True)
+    n_bytes = (len(np.unique(pairs[0])) * (QF_WIDTH + QI_WIDTH) * 4
+               + (int(tile_counts.sum()) + tile_counts.numel()) * 4
+               + 2 * planes.nelement() * 4)
+    return n_bytes, tile_ops(fields, pairs)
+
+
+def image_renderer():
+    """A CUDA renderer set up as bench_images.main sets up its own: a 256
+    atlas and the photo published mipmapped on a bus of its own."""
+    from figdraw_tpu_torch import FigRenderer
+    from figdraw_tpu_torch.resources import ImageMessageBus, put_image
+    from figdraw_tpu_torch.scenes import IMAGE_ID, photo_image
+
+    ren = FigRenderer(atlas_size=256, device="cuda")
+    bus = ImageMessageBus()
+    ren.ensure_image_message_subscription(bus)
+    put_image(IMAGE_ID, photo_image(), bus=bus, mipmapped=True)
+    return ren
+
+
+def launch_counts():
+    from figdraw_tpu_torch.ops import mega, raster
+
+    return (raster.LAUNCHES, raster.ATLAS_LAUNCHES, raster.MASK_LAUNCHES,
+            mega.LAUNCHES)
+
+
+def zero_counts():
+    from figdraw_tpu_torch.ops import mega, raster
+
+    raster.LAUNCHES = raster.ATLAS_LAUNCHES = raster.MASK_LAUNCHES = 0
+    mega.LAUNCHES = 0
+
+
+def timed_frames(what: str, render, shape) -> list:
+    """FRAMES frames of render(), each ended by a synchronize; checks shape
+    and finiteness; returns the ms of each."""
+    import torch
+
+    total_ms = []
+    for f in range(FRAMES):
+        t0 = time.perf_counter()
+        frame = render()
+        torch.cuda.synchronize()
+        total_ms.append((time.perf_counter() - t0) * 1e3)
+        if tuple(frame.shape) != shape:
+            fail(f"{what} frame {f} has shape {tuple(frame.shape)}")
+        if not bool(torch.isfinite(frame).all()):
+            fail(f"{what} frame {f} holds non-finite values")
+    return total_ms
+
+
+def check_blocks(what: str, frame, path: str) -> float:
+    import numpy as np
+
+    err = float(np.abs(block_means(frame.cpu().numpy()) - np.load(path)).max())
+    print(f"check: {what} vs the JAX reference (8x8 block means) max |diff| "
+          f"{err:.3e} (tol {TOL:.3e})", flush=True)
+    if not err <= TOL:
+        fail(f"{what} differs from the JAX reference by {err}")
+    return err
+
+
+def images_phase(tag: str, dev) -> dict:
+    """bench_images' four variants at 1920x1080 with 400 panels, FRAMES
+    frames each through render_frame with the counts set to 0 just before
+    and read just after; K1 / K1-atlas against its plain version on one
+    frame's inputs, the frame against the executor with the plain version,
+    the 480x270, 25-panel frame against the stored JAX block means."""
+    import torch
+
+    from figdraw_tpu_torch import native, vec2
+    from figdraw_tpu_torch.executor import get_frame_executor
+    from figdraw_tpu_torch.ops import raster
+    from figdraw_tpu_torch.plan import plan_execution
+    from figdraw_tpu_torch.scenes import image_reference_path, make_image_panels_scene
+
+    size = vec2(IMAGE_W, IMAGE_H)
+    out = {}
+    for variant in BENCH_VARIANTS:
+        scene = make_image_panels_scene(IMAGE_W, IMAGE_H, IMAGE_PANELS, variant)
+        ren = image_renderer()
+        ren.render_frame(scene, size)  # the first frame uploads the atlas
+        torch.cuda.synchronize()
+        zero_counts()
+        total_ms = timed_frames(variant, lambda: ren.render_frame(scene, size),
+                                (IMAGE_H, IMAGE_W, 4))
+        counts = launch_counts()
+        frame = ren.last_frame
+        want = (FRAMES, 0, 0, 0) if variant == "sdf_control" else (0, FRAMES, 0, 0)
+        print(f"check images: {variant} {IMAGE_PANELS} panels at {IMAGE_W}x{IMAGE_H}, "
+              f"{FRAMES} frames finite; launches K1 {counts[0]}, K1-atlas "
+              f"{counts[1]}, K3 {counts[2]}, K4 {counts[3]} (expected {want})",
+              flush=True)
+        if counts != want:
+            fail(f"images {variant} launched {counts}, expected {want}")
+        walk = ren._walk_atlas()
+        walk_ms = []
+        for _ in range(FRAMES):
+            t0 = time.perf_counter()
+            native.flatten_fast(scene, IMAGE_W, IMAGE_H, 1.0, 1.0, ren.aa_factor,
+                                (1.0, 1.0, 1.0, 1.0), atlas=walk)
+            walk_ms.append((time.perf_counter() - t0) * 1e3)
+        tape = ren.flatten(scene, size)
+        plan = plan_execution(tape)
+        run = get_frame_executor(plan.structure, plan.height, plan.width,
+                                 plan.n_masks, plan.has_init_frame, plan.tile_h)
+        combo = torch.from_numpy(plan.combo).to(dev, copy=True)
+        atlas = ren._device_atlas()
+        errs, calls = [], []
+        run(combo, None, atlas=atlas,
+            draw=compared(raster.draw_pass_planar_prebinned,
+                          raster.draw_pass_planar_prebinned_plain, errs, calls, variant))
+        ref = run(combo, None, atlas=atlas, draw=raster.draw_pass_planar_prebinned_plain)
+        torch.cuda.synchronize()
+        frame_err = float((frame - ref).abs().max())
+        print(f"check images: {variant} tape {tape.count} quads in {tape.combo_quads} "
+              f"rows, structure {list(plan.structure)}, tile_h {plan.tile_h}; kernel "
+              f"vs plain max |diff| {max(errs):.3e}, frame {FRAMES} vs the plain "
+              f"executor {frame_err:.3e} (tol {TOL:.3e})", flush=True)
+        if not (max(errs) <= TOL and frame_err <= TOL):
+            fail(f"images {variant}: kernel or frame differs from plain "
+                 f"({max(errs)}, {frame_err})")
+        small = image_renderer().render_frame(
+            make_image_panels_scene(SMALL_W, SMALL_H, SMALL_PANELS, variant),
+            vec2(SMALL_W, SMALL_H))
+        check_blocks(f"images {variant} {SMALL_W}x{SMALL_H}, {SMALL_PANELS} panels",
+                     small, image_reference_path(variant))
+        args, kw = calls[0]
+        kernel_ms = cuda_ms(lambda: raster.draw_pass_planar_prebinned(*args, **kw), 20)
+        bound = bound_of(*raster_work(args, kw))
+        print(f"times: images {variant}: median {statistics.median(total_ms):.3f} "
+              f"ms/frame (render_frame + sync; host walk and export alone "
+              f"{statistics.median(walk_ms):.3f} ms); its draw kernel "
+              f"{kernel_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) {tag}",
+              flush=True)
+        out[variant] = dict(launches=counts, err=max(max(errs), frame_err),
+                            args=(args, kw), kernel_ms=kernel_ms,
+                            ms_per_frame=statistics.median(total_ms))
+    return out
+
+
+def text_phase(tag: str, dev) -> dict:
+    """bench_text's stored plan and atlas through execute_plan for FRAMES
+    frames (K1-atlas once each); the kernel against its plain version on the
+    frame's inputs; the frame against the stored JAX block means."""
+    import torch
+
+    from figdraw_tpu_torch import FigRenderer
+    from figdraw_tpu_torch.executor import get_frame_executor
+    from figdraw_tpu_torch.ops import raster
+    from figdraw_tpu_torch.plan import atlas_from_jax
+    from figdraw_tpu_torch.scenes import load_text_plan
+
+    plan, atlas_np, blocks = load_text_plan()
+    ren = FigRenderer(device="cuda")
+    atlas = atlas_from_jax(atlas_np, dev)
+    ren.execute_plan(plan, atlas=atlas)
+    torch.cuda.synchronize()
+    zero_counts()
+    total_ms = timed_frames("text", lambda: ren.execute_plan(plan, atlas=atlas),
+                            (plan.height, plan.width, 4))
+    counts = launch_counts()
+    frame = ren.last_frame
+    want = (0, FRAMES, 0, 0)
+    print(f"check text: {plan.width}x{plan.height}, {plan.bounds[0][1]} glyph and "
+          f"box quads, atlas {atlas_np.shape[0]}, tile_h {plan.tile_h}, {FRAMES} "
+          f"frames finite; launches {counts} (expected {want})", flush=True)
+    if counts != want:
+        fail(f"text launched {counts}, expected {want}")
+    run = get_frame_executor(plan.structure, plan.height, plan.width, plan.n_masks,
+                             plan.has_init_frame, plan.tile_h)
+    combo = torch.from_numpy(plan.combo).to(dev, copy=True)
+    errs, calls = [], []
+    run(combo, None, atlas=atlas,
+        draw=compared(raster.draw_pass_planar_prebinned,
+                      raster.draw_pass_planar_prebinned_plain, errs, calls, "text"))
+    torch.cuda.synchronize()
+    print(f"check text: kernel vs plain max |diff| {max(errs):.3e} (tol {TOL:.3e})",
+          flush=True)
+    if not max(errs) <= TOL:
+        fail(f"text: kernel differs from plain by {max(errs)}")
+    import numpy as np
+
+    err_ref = float(np.abs(block_means(frame.cpu().numpy()) - blocks).max())
+    print(f"check text: frame vs the JAX reference (8x8 block means) max |diff| "
+          f"{err_ref:.3e} (tol {TOL:.3e})", flush=True)
+    if not err_ref <= TOL:
+        fail(f"text frame differs from the JAX reference by {err_ref}")
+    args, kw = calls[0]
+    kernel_ms = cuda_ms(lambda: raster.draw_pass_planar_prebinned(*args, **kw), 20)
+    bound = bound_of(*raster_work(args, kw))
+    print(f"times: text: median {statistics.median(total_ms):.3f} ms/frame "
+          f"(execute_plan + sync: upload, executor); its draw kernel "
+          f"{kernel_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) {tag}",
+          flush=True)
+    return dict(launches=counts, err=max(errs), args=(args, kw), kernel_ms=kernel_ms,
+                ms_per_frame=statistics.median(total_ms))
+
+
+def rolled_phase(tag: str, dev) -> dict:
+    """images_clipped at 1920x1080 with 400 panels (1201 pass items) on the
+    rolled executor for FRAMES frames through render_frame; K1, K1-atlas
+    and K3 against their plain versions on one frame's inputs, the frame
+    against the rolled executor with the plain versions, the 480x270,
+    25-panel frame against the stored JAX block means."""
+    import torch
+
+    from figdraw_tpu_torch import vec2
+    from figdraw_tpu_torch.executor import get_frame_executor
+    from figdraw_tpu_torch.ops import raster
+    from figdraw_tpu_torch.plan import plan_execution
+    from figdraw_tpu_torch.scenes import image_reference_path, make_image_panels_scene
+
+    size = vec2(IMAGE_W, IMAGE_H)
+    scene = make_image_panels_scene(IMAGE_W, IMAGE_H, IMAGE_PANELS, "images_clipped")
+    ren = image_renderer()
+    ren.render_frame(scene, size)
+    torch.cuda.synchronize()
+    zero_counts()
+    total_ms = timed_frames("rolled", lambda: ren.render_frame(scene, size),
+                            (IMAGE_H, IMAGE_W, 4))
+    counts = launch_counts()
+    frame = ren.last_frame
+    want = (FRAMES, FRAMES * IMAGE_PANELS, FRAMES * IMAGE_PANELS, 0)
+    tape = ren.flatten(scene, size)
+    plan = plan_execution(tape)
+    print(f"check rolled: images_clipped {IMAGE_PANELS} panels, {len(plan.structure)} "
+          f"pass items, {tape.count} quads, {plan.n_masks} planes, tile_h "
+          f"{plan.tile_h}, {FRAMES} frames finite; launches K1 {counts[0]}, K1-atlas "
+          f"{counts[1]}, K3 {counts[2]}, K4 {counts[3]} (expected {want})", flush=True)
+    if counts != want or plan.rolled_items is None:
+        fail(f"rolled launched {counts}, expected {want}")
+    run = get_frame_executor(plan.structure, plan.height, plan.width, plan.n_masks,
+                             plan.has_init_frame, plan.tile_h, rolled=True)
+    combo = torch.from_numpy(plan.combo).to(dev, copy=True)
+    table = dict(items=plan.rolled_items, radii=plan.rolled_radii)
+    atlas = ren._device_atlas()
+    e1, e3, a1, a3 = [], [], [], []
+    t0 = time.perf_counter()
+    run(combo, None, atlas=atlas, **table,
+        draw=compared(raster.draw_pass_planar_prebinned,
+                      raster.draw_pass_planar_prebinned_plain, e1, a1, "rolled"),
+        draw_mask=compared(raster.draw_pass_mask_prebinned,
+                           raster.draw_pass_mask_prebinned_plain, e3, a3, "rolled"))
+    ref = run(combo, None, atlas=atlas, **table,
+              draw=raster.draw_pass_planar_prebinned_plain,
+              draw_mask=raster.draw_pass_mask_prebinned_plain)
+    torch.cuda.synchronize()
+    frame_err = float((frame - ref).abs().max())
+    print(f"check rolled: {len(a1)} frame and {len(a3)} mask passes; K1 / K1-atlas "
+          f"vs plain max |diff| {max(e1):.3e}, K3 vs plain {max(e3):.3e}, frame "
+          f"{FRAMES} vs the plain executor {frame_err:.3e} (tol {TOL:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    if not (max(e1) <= TOL and max(e3) <= TOL and frame_err <= TOL):
+        fail(f"rolled: a kernel or the frame differs from plain "
+             f"({max(e1)}, {max(e3)}, {frame_err})")
+    small = image_renderer().render_frame(
+        make_image_panels_scene(SMALL_W, SMALL_H, SMALL_PANELS, "images_clipped"),
+        vec2(SMALL_W, SMALL_H))
+    check_blocks(f"rolled images_clipped {SMALL_W}x{SMALL_H}, {SMALL_PANELS} panels",
+                 small, image_reference_path("images_clipped"))
+    exec_ms = cuda_ms(lambda: run(combo, None, atlas=atlas, **table), 5)
+    k_atlas = [(a, k) for a, k in a1 if k.get("atlas") is not None]
+    atlas_ms = cuda_ms(lambda: [raster.draw_pass_planar_prebinned(*a, **k)
+                                for a, k in k_atlas], 5)
+    mask_ms = cuda_ms(lambda: [raster.draw_pass_mask_prebinned(*a, **k)
+                               for a, k in a3], 5)
+    atlas_bound = bound_of(*map(sum, zip(*[raster_work(a, k) for a, k in k_atlas])))
+    mask_bound = bound_of(*map(sum, zip(*[raster_work(a, k, mask_target=True)
+                                          for a, k in a3])))
+    print(f"times: rolled: median {statistics.median(total_ms):.3f} ms/frame "
+          f"(render_frame + sync); whole executor {exec_ms:.3f} ms, its "
+          f"{len(k_atlas)} K1-atlas launches {atlas_ms:.3f} ms (bound "
+          f"{atlas_bound[0]:.4f} ms, {atlas_bound[1]}), its {len(a3)} K3 launches "
+          f"{mask_ms:.3f} ms (bound {mask_bound[0]:.4f} ms, {mask_bound[1]}) "
+          f"(device, CUDA events) {tag}", flush=True)
+    return dict(launches=counts, k1_err=max(e1), k3_err=max(e3), frame_err=frame_err,
+                ms_per_frame=statistics.median(total_ms))
 
 
 def clip_table_phase(kind: str, tag: str, dev) -> dict:
@@ -106,24 +557,19 @@ def clip_table_phase(kind: str, tag: str, dev) -> dict:
     ren = FigRenderer(device="cuda")
     ren.render_frame(scene, size)  # the first frame builds the executor
     torch.cuda.synchronize()
-    total_ms = []
-    raster.LAUNCHES = raster.MASK_LAUNCHES = mega.LAUNCHES = 0
-    for f in range(FRAMES):
-        t0 = time.perf_counter()
-        frame = ren.render_frame(scene, size)
-        torch.cuda.synchronize()
-        total_ms.append((time.perf_counter() - t0) * 1e3)
-        if tuple(frame.shape) != (TABLE_H, TABLE_W, 4):
-            fail(f"{kind} frame {f} has shape {tuple(frame.shape)}")
-        if not bool(torch.isfinite(frame).all()):
-            fail(f"{kind} frame {f} holds non-finite values")
-    counts = (raster.LAUNCHES, raster.MASK_LAUNCHES, mega.LAUNCHES)
+    zero_counts()
+    total_ms = timed_frames(kind, lambda: ren.render_frame(scene, size),
+                            (TABLE_H, TABLE_W, 4))
+    frame = ren.last_frame
+    k1, k1_atlas, k3, k4 = launch_counts()
+    counts = (k1, k3, k4)
     want = (2 * FRAMES, FRAMES, 0) if kind == "rectmask" else (0, 0, FRAMES)
     print(f"check 6: {kind} table {TABLE_ROWS}x{TABLE_COLS} at {TABLE_W}x{TABLE_H}, "
           f"{FRAMES} frames finite; launches K1 {counts[0]}, K3 {counts[1]}, "
-          f"K4 {counts[2]} (expected {want})", flush=True)
-    if counts != want:
-        fail(f"{kind} table launched (K1, K3, K4) {counts}, expected {want}")
+          f"K4 {counts[2]}, K1-atlas {k1_atlas} (expected {want}, 0)", flush=True)
+    if counts != want or k1_atlas:
+        fail(f"{kind} table launched (K1, K3, K4) {counts} and K1-atlas "
+             f"{k1_atlas}, expected {want} and 0")
     walk_ms = []
     for _ in range(FRAMES):
         t0 = time.perf_counter()
@@ -136,18 +582,6 @@ def clip_table_phase(kind: str, tag: str, dev) -> dict:
 
     out = {"launches": counts, "ms_per_frame": statistics.median(total_ms)}
 
-    def compared(fn, plain, errs, store):
-        def call(*args, **kw):
-            got = fn(*args, **kw)
-            ref = plain(*args, **kw)
-            torch.cuda.synchronize()
-            if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(ref).all())):
-                fail(f"{kind}: non-finite planes from {fn.__name__}")
-            errs.append(float((got - ref).abs().max()))
-            store.append((args, kw))
-            return got
-        return call
-
     if kind == "rectmask":
         tape = ren.flatten(scene, size)
         plan = plan_execution(tape)
@@ -157,16 +591,17 @@ def clip_table_phase(kind: str, tag: str, dev) -> dict:
         e1, e3, a1, a3 = [], [], [], []
         run(combo, None,
             draw=compared(raster.draw_pass_planar_prebinned,
-                          raster.draw_pass_planar_prebinned_plain, e1, a1),
+                          raster.draw_pass_planar_prebinned_plain, e1, a1, kind),
             draw_mask=compared(raster.draw_pass_mask_prebinned,
-                               raster.draw_pass_mask_prebinned_plain, e3, a3))
+                               raster.draw_pass_mask_prebinned_plain, e3, a3, kind))
         ref = run(combo, None, draw=raster.draw_pass_planar_prebinned_plain,
                   draw_mask=raster.draw_pass_mask_prebinned_plain)
         if (len(e1), len(e3)) != (2, 1):
             fail(f"the rect-mask plan ran {len(e1)} frame and {len(e3)} mask "
                  "passes, expected 2 and 1")
         out.update(k1_err=max(e1), k3_err=e3[0], k1_args=a1,
-                   k3_args=a3[0][0] + (a3[0][1]["tile_h"],))
+                   k3_args=a3[0][0] + (a3[0][1]["tile_h"],),
+                   k3_work=raster_work(*a3[0], mask_target=True))
         print(f"check 6: rect-mask plan {[it[:2] for it in plan.structure]}, "
               f"{tape.count} quads in {tape.combo_quads} rows, tile_h "
               f"{plan.tile_h}; K1 vs plain max |diff| {max(e1):.3e}, K3 vs "
@@ -183,9 +618,10 @@ def clip_table_phase(kind: str, tag: str, dev) -> dict:
         combo = torch.from_numpy(combo_np).to(dev, copy=True)
         e4, a4 = [], []
         run(combo, None, draw=compared(mega.draw_pass_mega,
-                                       mega.draw_pass_mega_plain, e4, a4))
+                                       mega.draw_pass_mega_plain, e4, a4, kind))
         ref = run(combo, None, draw=mega.draw_pass_mega_plain)
         out.update(k4_err=e4[0], k4_args=a4[0][0] + (a4[0][1]["tile_h"],))
+        out["k4_work"] = mega_work(out["k4_args"])
         print(f"check 6: sub-clip mega combo {tuple(combo_np.shape)}, "
               f"{mask_count + 1} mask planes, tile_h {th}; K4 vs plain max "
               f"|diff| {e4[0]:.3e} (tol {TOL:.3e})", flush=True)
@@ -357,7 +793,7 @@ def main() -> None:
         make_render_tree_array(WIDTH, HEIGHT, 0, copies=COPIES, cache=cache), size)
     torch.cuda.synchronize()
     host_ms, device_ms, total_ms = [], [], []
-    raster.LAUNCHES = raster.MASK_LAUNCHES = mega.LAUNCHES = 0
+    zero_counts()
     for f in range(1, FRAMES + 1):
         t0 = time.perf_counter()
         tape = ren.flatten(
@@ -376,10 +812,9 @@ def main() -> None:
     launches = raster.LAUNCHES
     print(f"check 4: {FRAMES} frames of {HEIGHT}x{WIDTH}x4, finite; raster "
           f"kernel launches {launches} ({launches / FRAMES:g} per frame)", flush=True)
-    if (launches, raster.MASK_LAUNCHES, mega.LAUNCHES) != (2 * FRAMES, 0, 0):
-        fail(f"{FRAMES} headline frames launched K1 {launches}, K3 "
-             f"{raster.MASK_LAUNCHES}, K4 {mega.LAUNCHES} times, expected "
-             f"{2 * FRAMES}, 0, 0")
+    if launch_counts() != (2 * FRAMES, 0, 0, 0):
+        fail(f"{FRAMES} headline frames launched (K1, K1-atlas, K3, K4) "
+             f"{launch_counts()}, expected {2 * FRAMES}, 0, 0, 0")
     # the last frame again, by the same executor with the plain raster
     plan = plan_execution(tape)
     run = get_frame_executor(plan.structure, plan.height, plan.width,
@@ -451,30 +886,83 @@ def main() -> None:
     print(f"times: K1 on the rect-mask table's two frame runs: kernel "
           f"{k1_table_ms:.4f} ms {tag}", flush=True)
 
-    # --- 7. results --------------------------------------------------------------
+    # --- 7. images, text and the rolled executor ----------------------------------
+    images = images_phase(tag, dev)
+    text = text_phase(tag, dev)
+    rolled = rolled_phase(tag, dev)
+    scaled_args, scaled_kw = images["images_scaled"]["args"]
+    plain_ms_atlas = cuda_ms(
+        lambda: raster.draw_pass_planar_prebinned_plain(*scaled_args, **scaled_kw), 3)
+    print(f"times: K1-atlas on the images_scaled frame's draw: kernel "
+          f"{images['images_scaled']['kernel_ms']:.4f} ms, plain torch "
+          f"{plain_ms_atlas:.2f} ms {tag}", flush=True)
+
+    # --- 8. results --------------------------------------------------------------
+    def work_sum(calls):
+        parts = [raster_work(a, k) for a, k in calls]
+        return sum(b for b, _o in parts), sum(o for _b, o in parts)
+
+    k1_bound = bound_of(*work_sum([(a, k) for a, k, _e in draw_args]))
+    atlas_bound = bound_of(*raster_work(scaled_args, scaled_kw))
+    k3_bound = bound_of(*rm["k3_work"])
+    k4_bound = bound_of(*sc["k4_work"])
+    print(f"bounds: K1 headline draws {k1_bound[0]:.4f} ms ({k1_bound[1]}), K1-atlas "
+          f"images_scaled {atlas_bound[0]:.4f} ms ({atlas_bound[1]}), K3 rect-mask "
+          f"{k3_bound[0]:.4f} ms ({k3_bound[1]}), K4 sub-clip {k4_bound[0]:.4f} ms "
+          f"({k4_bound[1]}) at {HBM_BYTES_PER_S / 1e12:g} TB/s and "
+          f"{FP32_OPS_PER_S / 1e12:g} FP32 TFLOP/s", flush=True)
+    ctrl = images["sdf_control"]
+    k1_paths = {"headline": launches, "rectmask": rm["launches"][0],
+                "images sdf_control": ctrl["launches"][0],
+                "rolled": rolled["launches"][0]}
+    atlas_paths = {f"images {v}": images[v]["launches"][1] for v in BENCH_VARIANTS[1:]}
+    atlas_paths.update(text=text["launches"][1], rolled=rolled["launches"][1])
+    k3_paths = {"rectmask": rm["launches"][1], "rolled": rolled["launches"][2]}
     print(json.dumps({"kernels": [
         {
-            "name": "raster_tiles_kernel<false> (K1, frame target)",
+            "name": "raster_tiles_kernel<false, false> (K1, frame target)",
             "route": "cuda",
             "source": "figdraw_tpu_torch/csrc/raster.cu",
             "replaces": "figdraw_tpu/ops/raster_pallas.py:156",
-            "launches": launches + rm["launches"][0],
-            "launches_by_path": {"headline": launches,
-                                 "rectmask": rm["launches"][0]},
-            "max_abs_err": max(err_headline, err_modes, err_frame, rm["k1_err"]),
+            "launches": sum(k1_paths.values()),
+            "launches_by_path": k1_paths,
+            "max_abs_err": max(err_headline, err_modes, err_frame, rm["k1_err"],
+                               ctrl["err"], rolled["k1_err"]),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
+            "bound_ms": k1_bound[0],
+            "bound_by": k1_bound[1],
+            "library_ms": None,
         },
         {
-            "name": "raster_tiles_kernel<true> (K3, mask target)",
+            "name": "raster_tiles_kernel<false, true> (K1-atlas, frame target "
+                    "sampling the atlas)",
+            "route": "cuda",
+            "source": "figdraw_tpu_torch/csrc/raster.cu",
+            "replaces": "figdraw_tpu/ops/raster_pallas.py:325",
+            "launches": sum(atlas_paths.values()),
+            "launches_by_path": atlas_paths,
+            "max_abs_err": max([images[v]["err"] for v in BENCH_VARIANTS[1:]]
+                               + [text["err"], rolled["k1_err"], rolled["frame_err"]]),
+            "ms": images["images_scaled"]["kernel_ms"],
+            "plain_ms": plain_ms_atlas,
+            "bound_ms": atlas_bound[0],
+            "bound_by": atlas_bound[1],
+            "library_ms": None,
+        },
+        {
+            "name": "raster_tiles_kernel<true, *> (K3, mask target)",
             "route": "cuda",
             "source": "figdraw_tpu_torch/csrc/raster.cu",
             "replaces": "figdraw_tpu/ops/raster_pallas.py:196",
-            "launches": rm["launches"][1],
-            "launches_by_path": {"rectmask": rm["launches"][1]},
-            "max_abs_err": max(rm["k3_err"], rm["frame_err"]),
+            "launches": sum(k3_paths.values()),
+            "launches_by_path": k3_paths,
+            "max_abs_err": max(rm["k3_err"], rm["frame_err"], rolled["k3_err"]),
             "ms": kernel_ms_k3,
             "plain_ms": plain_ms_k3,
+            "bound_ms": k3_bound[0],
+            "bound_by": k3_bound[1],
+            "library_ms": None,
         },
         {
             "name": "mega_kernel (K4)",
@@ -486,6 +974,9 @@ def main() -> None:
             "max_abs_err": max(sc["k4_err"], sc["frame_err"]),
             "ms": kernel_ms_k4,
             "plain_ms": plain_ms_k4,
+            "bound_ms": k4_bound[0],
+            "bound_by": k4_bound[1],
+            "library_ms": None,
         },
     ]}), flush=True)
     print(card, flush=True)

@@ -1,10 +1,11 @@
 """figdraw_tpu_torch — the PyTorch/CUDA port of figdraw_tpu.
 
-The first slice: `FigRenderer.render_frame` on array-form scenes whose
-frames run on the unrolled frame executor (draw runs into the frame and
-backdrop blurs), with the tile rasterizer as a hand-written CUDA kernel for
-Hopper (csrc/raster.cu). figdraw_tpu, the JAX package beside it, is the
-reference it is tested against; this package imports torch and numpy only.
+`FigRenderer.render_frame` on array-form scenes of SDF shapes, clip masks
+and images, through the frame executor, the rolled executor and the
+megakernel, with the tile rasterizer (and its atlas sampler) and the
+megakernel as hand-written CUDA kernels for Hopper (csrc/). figdraw_tpu, the
+JAX package beside it, is the reference it is tested against; this package
+imports torch and numpy only.
 """
 
 from .basics import FigFlags, FigKind, ShadowStyle, StrokeCap  # noqa: F401

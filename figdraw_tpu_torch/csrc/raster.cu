@@ -1,6 +1,6 @@
 // Tile rasterizer for NVIDIA Hopper (sm_90a): ordered compositing of
-// binned SDF quads into a channel-planar RGBA frame (K1) or into one mask
-// plane (K3).
+// binned quads into a channel-planar RGBA frame (K1, and K1-atlas when the
+// pass samples the glyph/image atlas) or into one mask plane (K3).
 //
 // Replaces figdraw_tpu/ops/raster_pallas.py `_kernel` (:156, pallas_call at
 // :344) in its frame-target form, as reached through
@@ -12,6 +12,16 @@
 //   frame: rgb = f * fa + dst * (1 - fa),  a = fa + a * (1 - fa);
 //   mask:  m = fa * fa + m * (1 - fa)  (glsl/mask.frag through the GL blend).
 // Mode-17 quads sample the backdrop planes (frame target only).
+//
+// K1-atlas replaces the same call's `has_atlas` form (raster_pallas.py:305,
+// :325-329; `atlas_eval`, quad_eval_planar.py:271-329), which samples a
+// VMEM-resident atlas only for 1:1 axis-aligned mode-0 quads through a
+// (th+8, tw+128) window and lane rolls, and sends every other atlas quad to
+// an XLA gather path (quad_eval.py:287-335). On Hopper a gather is an
+// ordinary load, so K1-atlas is one general sampler: modes 0 and 13-16, any
+// uv map, bilinear or nearest, through four 16-byte __ldg loads per pixel
+// from the (S, S, 4) atlas, which sits in L2 (1-4 MB) for the whole pass. S
+// is a launch argument (the atlas doubles when it overflows).
 //
 // What bounds it on this card: arithmetic, not bytes. A 1080p frame is
 // 35 MB of planes read and written once per pass, about 20 us of HBM time,
@@ -56,8 +66,9 @@ __device__ int lower_bound(const int* list, int count, int value) {
 }
 
 // MASK_TARGET: `frame` and `out` are one mask plane (K3), else the four
-// RGBA planes (K1)
-template <bool MASK_TARGET>
+// RGBA planes (K1). HAS_ATLAS: atlas-mode quads sample `atlas`; without it
+// the atlas branch is compiled out, so SDF-only passes pay nothing for it.
+template <bool MASK_TARGET, bool HAS_ATLAS>
 __global__ void __launch_bounds__(THREADS)
 raster_tiles_kernel(const float* __restrict__ fields,
                     const int* __restrict__ modes,
@@ -67,8 +78,10 @@ raster_tiles_kernel(const float* __restrict__ fields,
                     const float* __restrict__ frame,
                     const float* __restrict__ masks,
                     const float* __restrict__ backdrop,
+                    const float4* __restrict__ atlas,
                     float* __restrict__ out, int n_quads, int tiles_x,
-                    int tile_h, int tile_w, int ph, int pw) {
+                    int tile_h, int tile_w, int ph, int pw, int atlas_size,
+                    bool pixelate, bool subpixel) {
   __shared__ float s_fields[CHUNK * figdraw::QF_WIDTH];
   __shared__ int s_modes[CHUNK * 2];
   __shared__ int s_seg[2];
@@ -119,7 +132,8 @@ raster_tiles_kernel(const float* __restrict__ fields,
       float frag[4];
       figdraw::eval_quad(s_fields + q * figdraw::QF_WIDTH, s_modes[2 * q], px,
                          py, !MASK_TARGET && backdrop != nullptr ? bd : nullptr,
-                         frag);
+                         frag, HAS_ATLAS ? atlas : nullptr, atlas_size,
+                         pixelate, subpixel);
       const float fa = frag[3] * masks[(size_t)s_modes[2 * q + 1] * plane + pix];
       const float inv = 1.0f - fa;
       if (MASK_TARGET) {
@@ -144,38 +158,60 @@ raster_tiles_kernel(const float* __restrict__ fields,
 
 // C entry points (bound with ctypes by ops/raster.py). Shapes: fields
 // (n_quads, 68) f32, modes (n_quads, 2) i32, tile_idx (T, n_quads) i32,
-// tile_counts (T,) i32, bounds (2,) i32, masks (K, ph, pw) f32. ph is a
-// multiple of tile_h, pw of tile_w, and both tile edges of 16. Each launches
-// on `stream` and returns cudaGetLastError() as an int.
+// tile_counts (T,) i32, bounds (2,) i32, masks (K, ph, pw) f32, atlas
+// (atlas_size, atlas_size, 4) f32 or null. ph is a multiple of tile_h, pw of
+// tile_w, and both tile edges of 16. Each launches on `stream` and returns
+// cudaGetLastError() as an int.
 
-// K1: frame/out/backdrop (4, ph, pw) f32; backdrop may be null.
+template <bool MASK_TARGET>
+static int launch(const float* fields, const int* modes, const int* tile_idx,
+                  const int* tile_counts, const int* bounds,
+                  const float* target, const float* masks,
+                  const float* backdrop, const float* atlas, float* out,
+                  int n_quads, int tiles_x, int tile_h, int tile_w, int ph,
+                  int pw, int atlas_size, int pixelate, int subpixel,
+                  void* stream) {
+  const dim3 block(BLOCK, BLOCK);
+  const dim3 grid(pw / BLOCK, ph / BLOCK);
+  const float4* atlas4 = reinterpret_cast<const float4*>(atlas);
+  if (atlas != nullptr)
+    raster_tiles_kernel<MASK_TARGET, true><<<grid, block, 0, (cudaStream_t)stream>>>(
+        fields, modes, tile_idx, tile_counts, bounds, target, masks, backdrop,
+        atlas4, out, n_quads, tiles_x, tile_h, tile_w, ph, pw, atlas_size,
+        pixelate != 0, subpixel != 0);
+  else
+    raster_tiles_kernel<MASK_TARGET, false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        fields, modes, tile_idx, tile_counts, bounds, target, masks, backdrop,
+        nullptr, out, n_quads, tiles_x, tile_h, tile_w, ph, pw, 0, false,
+        false);
+  return (int)cudaGetLastError();
+}
+
+// K1 / K1-atlas: frame/out/backdrop (4, ph, pw) f32; backdrop may be null.
 extern "C" int figdraw_raster_frame(const float* fields, const int* modes,
                                     const int* tile_idx,
                                     const int* tile_counts, const int* bounds,
                                     const float* frame, const float* masks,
-                                    const float* backdrop, float* out,
-                                    int n_quads, int tiles_x, int tile_h,
-                                    int tile_w, int ph, int pw,
+                                    const float* backdrop, const float* atlas,
+                                    float* out, int n_quads, int tiles_x,
+                                    int tile_h, int tile_w, int ph, int pw,
+                                    int atlas_size, int pixelate, int subpixel,
                                     void* stream) {
-  const dim3 block(BLOCK, BLOCK);
-  const dim3 grid(pw / BLOCK, ph / BLOCK);
-  raster_tiles_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-      fields, modes, tile_idx, tile_counts, bounds, frame, masks, backdrop,
-      out, n_quads, tiles_x, tile_h, tile_w, ph, pw);
-  return (int)cudaGetLastError();
+  return launch<false>(fields, modes, tile_idx, tile_counts, bounds, frame,
+                       masks, backdrop, atlas, out, n_quads, tiles_x, tile_h,
+                       tile_w, ph, pw, atlas_size, pixelate, subpixel, stream);
 }
 
 // K3: target/out (1, ph, pw) f32, the mask plane being written.
 extern "C" int figdraw_raster_mask(const float* fields, const int* modes,
                                    const int* tile_idx, const int* tile_counts,
                                    const int* bounds, const float* target,
-                                   const float* masks, float* out,
-                                   int n_quads, int tiles_x, int tile_h,
-                                   int tile_w, int ph, int pw, void* stream) {
-  const dim3 block(BLOCK, BLOCK);
-  const dim3 grid(pw / BLOCK, ph / BLOCK);
-  raster_tiles_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
-      fields, modes, tile_idx, tile_counts, bounds, target, masks, nullptr,
-      out, n_quads, tiles_x, tile_h, tile_w, ph, pw);
-  return (int)cudaGetLastError();
+                                   const float* masks, const float* atlas,
+                                   float* out, int n_quads, int tiles_x,
+                                   int tile_h, int tile_w, int ph, int pw,
+                                   int atlas_size, int pixelate, int subpixel,
+                                   void* stream) {
+  return launch<true>(fields, modes, tile_idx, tile_counts, bounds, target,
+                      masks, nullptr, atlas, out, n_quads, tiles_x, tile_h,
+                      tile_w, ph, pw, atlas_size, pixelate, subpixel, stream);
 }

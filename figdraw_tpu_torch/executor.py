@@ -1,19 +1,21 @@
 """Executors: the device half of a frame, as plain functions on tensors
-(figdraw_tpu/executor.py `unpack_combo_device`, `get_frame_executor` and
-`get_mega_executor`).
+(figdraw_tpu/executor.py `unpack_combo_device`, `get_frame_executor` with
+its rolled form `get_rolled_executor`, and `get_mega_executor`).
 
 The packed upload is decoded on the device and the whole tape is binned
 once. The frame executor then runs the pass structure in order: draw runs
-into the frame (K1) or into a mask plane (K3), mask clears and backdrop
-blurs. The mega executor runs the whole masked frame in one kernel (K4). No
-value goes back to the host: draw bounds, blur radii and the clear color
-stay device tensors, and the kernels read their run's bounds themselves.
+into the frame (K1, K1-atlas) or into a mask plane (K3), mask clears and
+backdrop blurs; its rolled form takes the bounds and radii of frames of
+many items from the plan's item table. The mega executor runs the whole
+masked frame in one kernel (K4). No value goes back to the host: draw
+bounds, blur radii and the clear color stay device tensors, and the
+kernels read their run's bounds themselves.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,13 +64,24 @@ def _init_planes(combo_clear, init_frame, has_init_frame: bool, height: int,
 
 @lru_cache(maxsize=64)
 def get_frame_executor(structure: Tuple, height: int, width: int,
-                       n_masks: int, has_init_frame: bool, tile_h: int):
-    """run(combo, init_frame) -> (height, width, 4) f32 frame, for one pass
-    structure (plan.check_structure's items). combo: the plan's upload on
-    the device; init_frame: the (height, width, 4) previous frame, read only
-    when has_init_frame (frames that do not clear). draw / draw_mask: the
-    frame and mask passes, the K1 and K3 wrappers unless a check
-    substitutes their plain versions."""
+                       n_masks: int, has_init_frame: bool, tile_h: int,
+                       rolled: bool = False):
+    """run(combo, init_frame, atlas, ...) -> (height, width, 4) f32 frame,
+    for one pass structure (plan.check_structure's items). combo: the
+    plan's upload on the device; init_frame: the (height, width, 4) previous
+    frame, read only when has_init_frame (frames that do not clear); atlas:
+    the (S, S, 4) f32 atlas, passed with pixelate and subpixel_positioning
+    to every draw whose run holds an atlas quad, frame and mask runs alike.
+    draw / draw_mask: the frame and mask passes, the K1 and K3 wrappers
+    unless a check substitutes their plain versions.
+
+    rolled: the rolled form (executor.get_rolled_executor:590-751), for
+    plans of more than ROLLED_THRESHOLD items. The combo's meta is then one
+    row, the clear color; run's items and radii, the plan's host item table
+    (plan.build_rolled_items), give each item's draw bounds and blur radius,
+    uploaded once; and the tape is binned with no culling. JAX rolls the
+    item loop into a lax.fori_loop to keep its compile cost constant; here
+    both forms walk the same host loop."""
     th, tw = tile_h, TILE_W
     tiles_y = -(-height // th)
     tiles_x = -(-width // tw)
@@ -77,19 +90,40 @@ def get_frame_executor(structure: Tuple, height: int, width: int,
     draws = [item for item in structure if item[0] == "draw"]
     n_draws = len(draws)
     n_blurs = sum(1 for item in structure if item[0] == "blur")
-    rows = meta_rows(n_draws, n_blurs, PACKED_WIDTH)
+    rows = 1 if rolled else meta_rows(n_draws, n_blurs, PACKED_WIDTH)
+    # each item's row of the bounds (draws) or radii (blurs): the item's own
+    # row of the rolled table, else its place among the meta's draws or blurs
+    if rolled:
+        item_row = list(range(len(structure)))
+    else:
+        counts = {"draw": 0, "blur": 0, "clear_mask": 0}
+        item_row = []
+        for item in structure:
+            item_row.append(counts[item[0]])
+            counts[item[0]] += 1
     # positions of the frame-target runs among the draws: only they are
-    # occlusion- and saturation-culled (executor.py:319-347)
-    frame_pos = [i for i, item in enumerate(draws) if item[1] == FRAME_TARGET]
+    # occlusion- and saturation-culled (executor.py:319-347); the rolled
+    # form culls nothing (executor.py:634-640)
+    frame_pos = [] if rolled else [
+        i for i, item in enumerate(draws) if item[1] == FRAME_TARGET]
 
-    def run(combo: torch.Tensor, init_frame=None, draw=draw_pass_planar_prebinned,
-            draw_mask=draw_pass_mask_prebinned) -> torch.Tensor:
+    def run(combo: torch.Tensor, init_frame=None, atlas=None,
+            pixelate: bool = False, subpixel_positioning: bool = False,
+            draw=draw_pass_planar_prebinned,
+            draw_mask=draw_pass_mask_prebinned,
+            items: Optional[np.ndarray] = None,
+            radii: Optional[np.ndarray] = None) -> torch.Tensor:
         dev = combo.device
         fields, modes = unpack_combo(combo[:-rows])
-        meta = combo[-rows:].reshape(-1)
-        bounds = meta[: 2 * n_draws].view(torch.int32).reshape(-1, 2)
-        radii = meta[2 * n_draws : 2 * n_draws + n_blurs]
-        clear_color = meta[2 * n_draws + n_blurs : 2 * n_draws + n_blurs + 4]
+        if rolled:
+            bounds = torch.from_numpy(np.ascontiguousarray(items[:, 2:4])).to(dev)
+            blur_radii = torch.from_numpy(radii).to(dev)
+            clear_color = combo[-1, 0:4]
+        else:
+            meta = combo[-rows:].reshape(-1)
+            bounds = meta[: 2 * n_draws].view(torch.int32).reshape(-1, 2)
+            blur_radii = meta[2 * n_draws : 2 * n_draws + n_blurs]
+            clear_color = meta[2 * n_draws + n_blurs : 2 * n_draws + n_blurs + 4]
 
         planes = _init_planes(clear_color, init_frame, has_init_frame, height,
                               width, ph, pw)
@@ -108,29 +142,25 @@ def get_frame_executor(structure: Tuple, height: int, width: int,
             modes=modes if frame_pos else None, run_bounds=run_bounds,
         )
 
-        di = 0
-        bi = 0
-        for item in structure:
+        flags = dict(tile_h=th, pixelate=pixelate,
+                     subpixel_positioning=subpixel_positioning)
+        for item, row in zip(structure, item_row):
             if item[0] == "blur":
-                backdrop = backdrop_blur_planar(planes, radii[bi])
-                bi += 1
+                backdrop = backdrop_blur_planar(planes, blur_radii[row])
             elif item[0] == "clear_mask":
                 masks[item[1]] = 0.0
             elif item[1] == FRAME_TARGET:
-                needs_backdrop = item[3]
                 planes = draw(
-                    fields, modes, bounds[di], tile_idx, tile_counts, planes,
-                    masks, backdrop if needs_backdrop else None, tile_h=th,
-                )
-                di += 1
+                    fields, modes, bounds[row], tile_idx, tile_counts, planes,
+                    masks, backdrop if item[3] else None,
+                    atlas=atlas if item[2] else None, **flags)
             else:
                 # the kernel reads every plane as it was before the pass and
                 # writes a new one, so the store below is the only update
                 masks[item[1]] = draw_mask(
-                    fields, modes, bounds[di], tile_idx, tile_counts,
-                    masks[item[1]][None].contiguous(), masks, tile_h=th,
-                )[0]
-                di += 1
+                    fields, modes, bounds[row], tile_idx, tile_counts,
+                    masks[item[1]][None].contiguous(), masks,
+                    atlas=atlas if item[2] else None, **flags)[0]
         return planes.permute(1, 2, 0)[:height, :width].contiguous()
 
     return run

@@ -82,6 +82,8 @@ def load() -> ctypes.CDLL:
         lib.fd_set_text_config.restype = None
         lib.fd_set_white_uv.argtypes = [vp, ctypes.c_double, ctypes.c_double]
         lib.fd_set_white_uv.restype = None
+        lib.fd_set_atlas.argtypes = [vp, vp, vp, vp, i, f]
+        lib.fd_set_atlas.restype = None
         for name in ("fd_quad_count", "fd_item_count", "fd_mask_count",
                      "fd_clear_count"):
             getattr(lib, name).argtypes = [vp]
@@ -134,12 +136,39 @@ def _layer_arrays(lst):
             np.ascontiguousarray(trects))
 
 
-def _run_walk(lib, ctx, renders) -> None:
-    """Context setup + layer walk in ZLevel order. The port draws no text
-    and has no atlas, so the text flags are all off and the white texel uv
-    is (0, 0)."""
+def pack_atlas_entries(entries: dict):
+    """Sorted (id, level) parallel arrays for fd_set_atlas
+    (native.pack_atlas_entries): integer keys are level-0 entries, (id,
+    level) tuple keys are mips; other keys (the white texel's string) are
+    skipped. Returns (ids (n,) i64, levels (n,) i32, rects (n, 4) f32)."""
+    rows = []
+    for key, rect in entries.items():
+        if isinstance(key, tuple) and len(key) == 2 and isinstance(key[0], int):
+            rows.append((key[0], key[1], rect))
+        elif isinstance(key, int):
+            rows.append((key, 0, rect))
+    rows.sort(key=lambda r: (r[0], r[1]))
+    n = len(rows)
+    ids = np.asarray([r[0] for r in rows], dtype=np.int64)
+    levels = np.asarray([r[1] for r in rows], dtype=np.int32)
+    rects = (np.asarray([r[2] for r in rows], dtype=np.float32).reshape(n, 4)
+             if n else np.zeros((0, 4), np.float32))
+    return ids, levels, rects
+
+
+def _run_walk(lib, ctx, renders, atlas) -> None:
+    """Context setup + layer walk in ZLevel order. The port walks no text,
+    so the text flags are all off. atlas: (pack_atlas_entries' arrays, atlas
+    edge, white texel uv) or None; without it image nodes find no entry
+    and emit nothing, and filled quads sample uv (0, 0)."""
     lib.fd_set_text_config(ctx, 0, 0, 0)
-    lib.fd_set_white_uv(ctx, ctypes.c_double(0.0), ctypes.c_double(0.0))
+    white_uv = (0.0, 0.0)
+    if atlas is not None:
+        (ids, levels, rects), size, white_uv = atlas
+        lib.fd_set_atlas(ctx, _ptr(ids), _ptr(levels), _ptr(rects),
+                         ids.shape[0], ctypes.c_float(float(size)))
+    lib.fd_set_white_uv(ctx, ctypes.c_double(white_uv[0]),
+                        ctypes.c_double(white_uv[1]))
     for _lvl, lst in renders.sorted_pairs():
         nodes, roots, ops, points, glyphs, trects = _layer_arrays(lst)
         lib.fd_set_geometry(
@@ -164,23 +193,17 @@ def _host_cull(lib, ctx, frame_w, frame_h, pixel_scale) -> int:
     )
 
 
-# node kinds that draw from the glyph/image atlas, which the port does not
-# have yet: the walk would drop their quads without a word
-_ATLAS_KIND_LUT = np.zeros(256, bool)
-_ATLAS_KIND_LUT[[int(FigKind.nkText), int(FigKind.nkImage),
-                 int(FigKind.nkMsdfImage), int(FigKind.nkMtsdfImage)]] = True
-
-
 def _check_kinds(renders: RendersArray) -> None:
     """Raises ValueError for node kinds the walk does not handle and
-    NotImplementedError for text and image nodes."""
+    NotImplementedError for text nodes, whose glyphs the port cannot
+    typeset or rasterize yet (the walk would drop them without a word)."""
     if not renders.all_native_kinds():
         raise ValueError("scene holds node kinds the native walk does not handle")
     for lst in renders.layers.values():
-        if _ATLAS_KIND_LUT[lst.view()["kind"]].any():
+        if (lst.view()["kind"] == int(FigKind.nkText)).any():
             raise NotImplementedError(
-                "text and image nodes sample the glyph/image atlas, kernel "
-                "K1-atlas (ROADMAP.md, port item 'Atlas')")
+                "text nodes need typesetting and a glyph raster on the host "
+                "(ROADMAP.md, port item 'Text host pipeline')")
 
 
 _tls = threading.local()
@@ -302,6 +325,7 @@ def flatten_fast(
     pixel_scale: float,
     aa_factor: float,
     clear_color,
+    atlas=None,
     pool_owner=None,
 ):
     """One walk, the best export for the scene (native.flatten_fast):
@@ -315,11 +339,13 @@ def flatten_fast(
 
     The JAX package caps the mega export at VMEM_MEGA_ROWS, a limit of the
     TPU's vector memory; the CUDA megakernel reads the tape from device
-    memory, so the port has no cap. Raises as _check_kinds."""
+    memory, so the port has no cap. A scene with an atlas quad always takes
+    the tape: the C++ `flags` word marks it. atlas: as _run_walk's. Raises
+    as _check_kinds."""
     _check_kinds(renders)
     lib = load()
     ctx = _acquire_ctx(lib, ui_scale, pixel_scale, aa_factor)
-    _run_walk(lib, ctx, renders)
+    _run_walk(lib, ctx, renders, atlas)
     _host_cull(lib, ctx, frame_w, frame_h, pixel_scale)
     info = np.zeros(4, np.int32)
     lib.fd_tape_info(ctx, _ptr(info))
@@ -347,16 +373,17 @@ def flatten_renders_array(
     pixel_scale: float,
     aa_factor: float,
     clear_color,
+    atlas=None,
     pool_owner=None,
 ) -> Tape:
     """Runs the native walk over all layers in ZLevel order, culls saturated
     stacks and exports the tape straight into the upload-combo layout padded
-    to `bucket(count)` rows. Raises ValueError for node kinds the walk does
-    not handle and NotImplementedError for text and image nodes."""
+    to `bucket(count)` rows. atlas: as _run_walk's. Raises as
+    _check_kinds."""
     _check_kinds(renders)
     lib = load()
     ctx = _acquire_ctx(lib, ui_scale, pixel_scale, aa_factor)
-    _run_walk(lib, ctx, renders)
+    _run_walk(lib, ctx, renders, atlas)
     _host_cull(lib, ctx, frame_w, frame_h, pixel_scale)
     return _export_tape_combo(lib, ctx, frame_w, frame_h, clear_color,
                               pool_owner=pool_owner)

@@ -1,13 +1,15 @@
-"""Tile rasterizer: ordered compositing of binned SDF quads into a
+"""Tile rasterizer: ordered compositing of binned quads into a
 channel-planar frame, or into one mask plane.
 
-`draw_pass_planar_prebinned` (K1) and `draw_pass_mask_prebinned` (K3) run
-csrc/raster.cu, the hand-written Hopper (sm_90a) port of
-figdraw_tpu/ops/raster_pallas.py `_kernel` in its frame-target form (with
-and without backdrop planes) and its mask-target form. CUDA tensors launch
-the kernel or raise; CPU tensors take the plain torch versions
-(`*_plain`, built on ops/quad_eval_planar.py), which the CPU tests and the
-on-card comparison use.
+`draw_pass_planar_prebinned` (K1, and K1-atlas when given the atlas) and
+`draw_pass_mask_prebinned` (K3) run csrc/raster.cu, the hand-written Hopper
+(sm_90a) port of figdraw_tpu/ops/raster_pallas.py `_kernel` in its
+frame-target form (with and without backdrop planes), its atlas form
+(`has_atlas`, here one general in-kernel sampler for atlas modes 0 and
+13-16, bilinear or nearest, any uv map) and its mask-target form. CUDA
+tensors launch the kernel or raise; CPU tensors take the plain torch
+versions (`*_plain`, built on ops/quad_eval_planar.py), which the CPU tests
+and the on-card comparison use.
 
 The kernel library is compiled with nvcc at first use (ops/nvcc.py) and
 bound with ctypes through plain C entry points.
@@ -28,9 +30,11 @@ TILE_H = 128  # tile rows (64 or 32 when dense: plan.tile_h_from_density)
 TILE_W = 128
 BLOCK = 16  # the kernels' square pixel block; tiles are multiples of it
 
-# kernel launches since the count was last reset: K1 (frame target) and K3
-# (mask target)
+# kernel launches since the count was last reset: K1 (frame target, no
+# atlas), K1-atlas (frame target with the atlas) and K3 (mask target, with
+# or without the atlas)
 LAUNCHES = 0
+ATLAS_LAUNCHES = 0
 MASK_LAUNCHES = 0
 
 _SOURCES = ("raster.cu", "sdf.cuh")
@@ -48,9 +52,9 @@ def load() -> ctypes.CDLL:
             path, BUILD_LOG = nvcc.build("figdraw_raster", _SOURCES)
             lib = ctypes.CDLL(path)
             vp, i = ctypes.c_void_p, ctypes.c_int
-            lib.figdraw_raster_frame.argtypes = [vp] * 9 + [i] * 6 + [vp]
+            lib.figdraw_raster_frame.argtypes = [vp] * 10 + [i] * 9 + [vp]
             lib.figdraw_raster_frame.restype = i
-            lib.figdraw_raster_mask.argtypes = [vp] * 8 + [i] * 6 + [vp]
+            lib.figdraw_raster_mask.argtypes = [vp] * 9 + [i] * 9 + [vp]
             lib.figdraw_raster_mask.restype = i
             _lib = lib
         return _lib
@@ -91,9 +95,13 @@ def check_tiles(fields, modes, tile_idx, tile_counts, target, n_planes: int,
 
 
 def _check_args(fields, modes, bounds, tile_idx, tile_counts, target, masks,
-                backdrop_planes, tile_h, n_planes):
+                backdrop_planes, atlas, tile_h, n_planes):
     dev = target.device
     check_tiles(fields, modes, tile_idx, tile_counts, target, n_planes, tile_h)
+    if atlas is not None:
+        _check(atlas, "atlas", torch.float32, 3, dev)
+        if atlas.shape[0] != atlas.shape[1] or atlas.shape[2] != 4:
+            raise ValueError(f"atlas must be (S, S, 4), got {tuple(atlas.shape)}")
     _check(bounds, "bounds", torch.int32, 1, dev)
     _check(masks, "masks", torch.float32, 3, dev)
     if bounds.shape[0] != 2:
@@ -107,7 +115,8 @@ def _check_args(fields, modes, bounds, tile_idx, tile_counts, target, masks,
 
 
 def _launch(entry, fields, modes, bounds, tile_idx, tile_counts, target,
-            masks, backdrop_planes, tile_h):
+            masks, backdrop_planes, atlas, pixelate, subpixel_positioning,
+            tile_h):
     """Launch one of the library's tile entry points on the target's
     current stream; returns the new planes."""
     lib = load()
@@ -120,8 +129,11 @@ def _launch(entry, fields, modes, bounds, tile_idx, tile_counts, target,
     if entry == "figdraw_raster_frame":
         ptrs.append(backdrop_planes.data_ptr()
                     if backdrop_planes is not None else None)
+    ptrs.append(atlas.data_ptr() if atlas is not None else None)
     rc = getattr(lib, entry)(*ptrs, out.data_ptr(), fields.shape[0],
-                             pw // TILE_W, tile_h, TILE_W, ph, pw, stream)
+                             pw // TILE_W, tile_h, TILE_W, ph, pw,
+                             atlas.shape[0] if atlas is not None else 0,
+                             int(pixelate), int(subpixel_positioning), stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
     return out
@@ -134,33 +146,44 @@ def _no_kernel(device) -> None:
 
 def draw_pass_planar_prebinned(fields, modes, bounds, tile_idx, tile_counts,
                                frame_planes, masks, backdrop_planes=None,
-                               tile_h: int = TILE_H):
+                               tile_h: int = TILE_H, atlas=None,
+                               pixelate: bool = False,
+                               subpixel_positioning: bool = False):
     """Composite the run's quads [bounds[0], bounds[1]) over frame_planes
-    (kernel K1).
+    (kernel K1, or K1-atlas with an atlas).
 
     fields (N, 68) f32 and modes (N, 2) i32: the unpacked tape; bounds: (2,)
     i32 [start, end); tile_idx (T, N) i32 / tile_counts (T,) i32: the
     binning of the whole tape (each tile's list ascending, so the run is one
     contiguous segment of it); frame_planes (4, PH, PW) f32; masks (K, PH,
     PW) f32, read at each quad's mask index; backdrop_planes (4, PH, PW) f32
-    or None, sampled by mode-17 quads. Returns the new (4, PH, PW) planes.
+    or None, sampled by mode-17 quads; atlas (S, S, 4) f32 or None, sampled
+    by atlas-mode quads (0, 13-16), nearest when pixelate, mode 0's u
+    shifted by the quad's subpixel shift when subpixel_positioning. Returns
+    the new (4, PH, PW) planes.
     """
     if frame_planes.device.type == "cpu":
         return draw_pass_planar_prebinned_plain(
             fields, modes, bounds, tile_idx, tile_counts, frame_planes, masks,
-            backdrop_planes, tile_h)
+            backdrop_planes, tile_h, atlas, pixelate, subpixel_positioning)
     _no_kernel(frame_planes.device)
     _check_args(fields, modes, bounds, tile_idx, tile_counts, frame_planes,
-                masks, backdrop_planes, tile_h, 4)
+                masks, backdrop_planes, atlas, tile_h, 4)
     out = _launch("figdraw_raster_frame", fields, modes, bounds, tile_idx,
-                  tile_counts, frame_planes, masks, backdrop_planes, tile_h)
-    global LAUNCHES
-    LAUNCHES += 1
+                  tile_counts, frame_planes, masks, backdrop_planes, atlas,
+                  pixelate, subpixel_positioning, tile_h)
+    global LAUNCHES, ATLAS_LAUNCHES
+    if atlas is None:
+        LAUNCHES += 1
+    else:
+        ATLAS_LAUNCHES += 1
     return out
 
 
 def draw_pass_mask_prebinned(fields, modes, bounds, tile_idx, tile_counts,
-                             mask_plane, masks, tile_h: int = TILE_H):
+                             mask_plane, masks, tile_h: int = TILE_H,
+                             atlas=None, pixelate: bool = False,
+                             subpixel_positioning: bool = False):
     """Write the run's quads [bounds[0], bounds[1]) into one mask plane
     (kernel K3; raster_pallas.draw_pass_mask_prebinned): per quad,
     fa = alpha * masks[mask_i] and m = fa*fa + m*(1 - fa), the GL blend of
@@ -173,12 +196,13 @@ def draw_pass_mask_prebinned(fields, modes, bounds, tile_idx, tile_counts,
     if mask_plane.device.type == "cpu":
         return draw_pass_mask_prebinned_plain(
             fields, modes, bounds, tile_idx, tile_counts, mask_plane, masks,
-            tile_h)
+            tile_h, atlas, pixelate, subpixel_positioning)
     _no_kernel(mask_plane.device)
     _check_args(fields, modes, bounds, tile_idx, tile_counts, mask_plane,
-                masks, None, tile_h, 1)
+                masks, None, atlas, tile_h, 1)
     out = _launch("figdraw_raster_mask", fields, modes, bounds, tile_idx,
-                  tile_counts, mask_plane, masks, None, tile_h)
+                  tile_counts, mask_plane, masks, None, atlas, pixelate,
+                  subpixel_positioning, tile_h)
     global MASK_LAUNCHES
     MASK_LAUNCHES += 1
     return out
@@ -210,7 +234,8 @@ def pixel_centers(tiles_y, th, tiles_x, tw, device):
 
 
 def _segment_walk(fields, modes, bounds, tile_idx, tile_counts, target, masks,
-                  backdrop_planes, tile_h, mask_target: bool):
+                  backdrop_planes, tile_h, mask_target: bool, atlas=None,
+                  pixelate: bool = False, subpixel_positioning: bool = False):
     """The plain walk behind both *_plain versions. Each tile walks its run
     segment in draw order. The walk goes by depth: step k evaluates the
     k-th quad of every tile whose segment is longer than k, in one batched
@@ -252,7 +277,8 @@ def _segment_walk(fields, modes, bounds, tile_idx, tile_counts, target, masks,
             bd = (b[:, 0], b[:, 1], b[:, 2], b[:, 3])
         fr, fg, fb, fa = eval_quad_planar(
             fget, m[:, QI_MODE, None, None], px_t[act], py_t[act],
-            backdrop_planes=bd,
+            backdrop_planes=bd, atlas=atlas, pixelate=pixelate,
+            subpixel_positioning=subpixel_positioning,
         )
         fa = fa * mask_t[act, m[:, QI_MASK].long()]
         dst = carry[act]
@@ -269,17 +295,23 @@ def _segment_walk(fields, modes, bounds, tile_idx, tile_counts, target, masks,
 def draw_pass_planar_prebinned_plain(fields, modes, bounds, tile_idx,
                                      tile_counts, frame_planes, masks,
                                      backdrop_planes=None,
-                                     tile_h: int = TILE_H):
+                                     tile_h: int = TILE_H, atlas=None,
+                                     pixelate: bool = False,
+                                     subpixel_positioning: bool = False):
     """The plain torch version of draw_pass_planar_prebinned (same
     arguments and result, any device)."""
     return _segment_walk(fields, modes, bounds, tile_idx, tile_counts,
-                         frame_planes, masks, backdrop_planes, tile_h, False)
+                         frame_planes, masks, backdrop_planes, tile_h, False,
+                         atlas, pixelate, subpixel_positioning)
 
 
 def draw_pass_mask_prebinned_plain(fields, modes, bounds, tile_idx,
                                    tile_counts, mask_plane, masks,
-                                   tile_h: int = TILE_H):
+                                   tile_h: int = TILE_H, atlas=None,
+                                   pixelate: bool = False,
+                                   subpixel_positioning: bool = False):
     """The plain torch version of draw_pass_mask_prebinned (same arguments
     and result, any device)."""
     return _segment_walk(fields, modes, bounds, tile_idx, tile_counts,
-                         mask_plane, masks, None, tile_h, True)
+                         mask_plane, masks, None, tile_h, True, atlas,
+                         pixelate, subpixel_positioning)

@@ -177,6 +177,12 @@ def sd_bezier(posx, posy, ax_, ay_, bx_, by_, cx_, cy_):
     return torch.where(bb <= 1e-6, d_seg, d_curve)
 
 
+def median3(a, b, c):
+    """The median of three MSDF channels (atlas.frag:41-43)."""
+    return torch.maximum(torch.minimum(a, b),
+                         torch.minimum(torch.maximum(a, b), c))
+
+
 def shadow_profile(sd, blur_radius):
     """Gaussian falloff, CSS-like sigma = blur/2 (atlas.frag:211-216)."""
     sigma = torch.clamp(0.5 * blur_radius, min=0.5)

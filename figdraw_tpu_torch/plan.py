@@ -5,8 +5,9 @@ of figdraw_tpu/executor.py).
 A frame of at most ROLLED_THRESHOLD pass items takes the unrolled frame
 executor: draw runs into the frame or into mask planes, mask clears and
 backdrop blurs. A longer frame takes the megakernel, whose combo
-`pack_mega_modes` builds. Scenes that need another path raise
-NotImplementedError naming the ROADMAP item that ports it.
+`pack_mega_modes` builds, unless it holds an atlas run, a blur or a
+backdrop: then it takes the frame executor's rolled form, whose draw bounds
+and blur radii come from an item table (`build_rolled_items`).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .ops.layout import (
     PACKED_WIDTH, QF_BBOX_X0, QF_BBOX_X1, QF_BBOX_Y0, QF_BBOX_Y1, QF_WIDTH,
@@ -182,16 +184,18 @@ class ExecPlan:
     tile_h: int
     has_init_frame: bool
     # (bucket(quads + clears) + 1, 52) megakernel upload (pack_mega_modes;
-    # the last row holds the clear color), or None for the frame executor
+    # the last row holds the clear color), or None
     mega_combo: Optional[np.ndarray] = None
-
-
-ROLLED_ITEM = "(ROADMAP.md, port item 'Rolled executor')"
+    # the rolled executor's (n, 4) i32 item table and (n,) f32 blur radii
+    # (build_rolled_items), or None; the combo's meta is then one row, the
+    # clear color
+    rolled_items: Optional[np.ndarray] = None
+    rolled_radii: Optional[np.ndarray] = None
 
 
 def check_structure(structure, n_masks: int) -> Tuple:
-    """The structure as the executors key it; raises NotImplementedError
-    for passes another ROADMAP item ports."""
+    """The structure as the executors key it: ("draw", target, uses_atlas,
+    needs_backdrop) | ("blur",) | ("clear_mask", k)."""
     if n_masks < 1:
         raise ValueError(f"n_masks must be >= 1, got {n_masks}")
     out = []
@@ -202,32 +206,70 @@ def check_structure(structure, n_masks: int) -> Tuple:
             out.append(("clear_mask", int(item[1])))
         elif item[0] == "draw":
             _, target, uses_atlas, needs_backdrop = item[:4]
-            if uses_atlas:
-                raise NotImplementedError(
-                    "atlas runs (text, images) need kernel K1-atlas "
-                    "(ROADMAP.md, port item 'Atlas')")
-            out.append(("draw", int(target), False, bool(needs_backdrop)))
+            out.append(("draw", int(target), bool(uses_atlas),
+                        bool(needs_backdrop)))
         else:
             raise ValueError(f"unknown pass item {item!r}")
     return tuple(out)
 
 
+# rolled item kinds (executor.ITEM_*; the JAX table's ITEM_NOOP = 0 pads it
+# to a compile-cost bucket, which the port has no use for)
+ITEM_DRAW_SDF = 1
+ITEM_DRAW_ATLAS = 2
+ITEM_DRAW_SDF_BD = 3
+ITEM_DRAW_MASK = 4
+ITEM_BLUR = 5
+ITEM_CLEAR_MASK = 6
+
+
+def build_rolled_items(structure, bounds, radii):
+    """The rolled executor's item table (renderer._build_rolled_items,
+    without its padding): (n, 4) i32 rows [kind, target, start, end] and
+    (n,) f32 blur radii, one per item. A frame run with an atlas quad is
+    ITEM_DRAW_ATLAS, else ITEM_DRAW_SDF_BD when it reads the backdrop, else
+    ITEM_DRAW_SDF; a mask run is ITEM_DRAW_MASK."""
+    items = np.zeros((len(structure), 4), np.int32)
+    out_radii = np.zeros((len(structure),), np.float32)
+    di = 0
+    bi = 0
+    for i, item in enumerate(structure):
+        if item[0] == "clear_mask":
+            items[i] = (ITEM_CLEAR_MASK, item[1], 0, 0)
+        elif item[0] == "blur":
+            items[i] = (ITEM_BLUR, 0, 0, 0)
+            out_radii[i] = radii[bi]
+            bi += 1
+        else:
+            _, target, uses_atlas, needs_backdrop = item[:4]
+            s, e = bounds[di]
+            di += 1
+            if target == FRAME_TARGET:
+                kind = (ITEM_DRAW_ATLAS if uses_atlas else
+                        ITEM_DRAW_SDF_BD if needs_backdrop else ITEM_DRAW_SDF)
+                items[i] = (kind, 0, s, e)
+            else:
+                items[i] = (ITEM_DRAW_MASK, target, s, e)
+    return items, out_radii
+
+
 def plan_execution(tape: Tape) -> ExecPlan:
     """Derive the pass structure, pick the tile height, and take the native
     walk's packed upload buffer as is. A tape of more than ROLLED_THRESHOLD
-    items also gets the megakernel's combo (renderer.py:1123-1166)."""
+    items also gets the rolled item table when it holds an atlas run, a
+    blur or a backdrop, else the megakernel's combo (renderer.py:1123-1166:
+    an atlas scene never takes the megakernel)."""
     width = int(round(tape.frame_size[0]))
     height = int(round(tape.frame_size[1]))
     n_masks = tape.mask_count + 1
     structure, bounds, radii, any_atlas, any_backdrop = tape.structure_cache
     if tape.combo_quads != bucket(max(tape.count, 1)):
         raise ValueError("tape combo was not padded to its quad bucket")
-    mega_combo = None
-    if len(structure) > ROLLED_THRESHOLD:
-        if any_atlas or any_backdrop or radii:
-            raise NotImplementedError(
-                f"{len(structure)} pass items with a blur, a backdrop or an "
-                f"atlas run need the rolled executor {ROLLED_ITEM}")
+    checked = check_structure(structure, n_masks)
+    mega_combo = rolled_items = rolled_radii = None
+    if len(structure) > ROLLED_THRESHOLD and (any_atlas or any_backdrop or radii):
+        rolled_items, rolled_radii = build_rolled_items(checked, bounds, radii)
+    elif len(structure) > ROLLED_THRESHOLD:
         fields, modes = tape.fields_modes()
         mf, mm = pack_mega_modes(tape, fields[: tape.count], modes[: tape.count])
         mega_combo = np.zeros((bucket(max(mf.shape[0], 1)) + 1, PACKED_WIDTH),
@@ -235,30 +277,43 @@ def plan_execution(tape: Tape) -> ExecPlan:
         pack_fields_np(mf, mm, out=mega_combo[: mf.shape[0]])
         mega_combo[-1, :4] = tape.clear_color or (0.0, 0.0, 0.0, 0.0)
     return ExecPlan(
-        combo=tape.combo, structure=check_structure(structure, n_masks),
+        combo=tape.combo, structure=checked,
         bounds=list(bounds), radii=list(radii), height=height, width=width,
         n_masks=n_masks,
         tile_h=tile_h_from_density(*tape.tile_density, height, width),
         has_init_frame=tape.clear_color is None, mega_combo=mega_combo,
+        rolled_items=rolled_items, rolled_radii=rolled_radii,
     )
 
 
 def from_jax_plan(jax_plan) -> ExecPlan:
     """The port's plan from a figdraw_tpu.renderer._ExecPlan (read through
     its numpy fields only), so one tape can run through both packages'
-    executors. A mega plan carries its megakernel combo."""
+    executors. A mega plan carries its megakernel combo, a rolled plan gets
+    its item table. Run it with the JAX renderer's atlas
+    (atlas_from_jax)."""
     mega = jax_plan.mega_combo
-    if len(jax_plan.structure) > ROLLED_THRESHOLD and mega is None:
-        raise NotImplementedError(
-            f"a plan of {len(jax_plan.structure)} pass items off the "
-            f"megakernel needs the rolled executor {ROLLED_ITEM}")
+    structure = check_structure(jax_plan.structure, jax_plan.n_masks)
+    bounds = [tuple(int(v) for v in b) for b in jax_plan.bounds]
+    radii = [float(r) for r in jax_plan.radii]
+    rolled_items = rolled_radii = None
+    if len(structure) > ROLLED_THRESHOLD and mega is None:
+        rolled_items, rolled_radii = build_rolled_items(structure, bounds, radii)
     return ExecPlan(
-        combo=np.asarray(jax_plan.combo, np.float32),
-        structure=check_structure(jax_plan.structure, jax_plan.n_masks),
-        bounds=[tuple(int(v) for v in b) for b in jax_plan.bounds],
-        radii=[float(r) for r in jax_plan.radii],
+        combo=np.asarray(jax_plan.combo, np.float32), structure=structure,
+        bounds=bounds, radii=radii,
         height=int(jax_plan.height), width=int(jax_plan.width),
         n_masks=int(jax_plan.n_masks), tile_h=int(jax_plan.tile_h),
         has_init_frame=bool(jax_plan.has_init_frame),
         mega_combo=None if mega is None else np.asarray(mega, np.float32),
+        rolled_items=rolled_items, rolled_radii=rolled_radii,
     )
+
+
+def atlas_from_jax(jax_atlas, device="cpu") -> torch.Tensor:
+    """The (S, S, 4) f32 atlas tensor from figdraw_tpu's renderer atlas
+    data (`FigRenderer.atlas.data`, numpy), for execute_plan."""
+    data = np.asarray(jax_atlas, np.float32)
+    if data.ndim != 3 or data.shape[0] != data.shape[1] or data.shape[2] != 4:
+        raise ValueError(f"atlas must be (S, S, 4), got {data.shape}")
+    return torch.from_numpy(data).to(device, copy=True)

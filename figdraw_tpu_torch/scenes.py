@@ -5,10 +5,17 @@ animated shadow demo bench.py renders at 1080p), bit-identical to it: the
 same seeded box placement, the same static columns and the same C animator.
 `make_modes_scene_array` is a small scene that drives every SDF family the
 tile rasterizer evaluates; `walk_free_mode_rows` adds the modes the walk
-never emits.
+never emits, and `atlas_modes_tape` the atlas modes. The clip tables of
+bench_clipmask.py and the image panels of bench_images.py are built
+byte-identical to the JAX package's; `load_text_plan` reads bench_text's
+frame as the JAX package planned it.
 """
 
 from __future__ import annotations
+
+import json
+import os
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -386,6 +393,98 @@ def modes_tape(w: float = 256.0, h: float = 128.0):
     return fields, modes, n_live
 
 
+def atlas_modes_tape(w: int, h: int, atlas_size: int, seed: int = 0,
+                     n: int = 48, one_to_one: bool = False):
+    """Seeded tape rows that drive every branch of the atlas sampler, with a
+    seeded (S, S, 4) atlas: mode-0 quads at 1:1 (fractional origins),
+    minified by exactly 2 (texel-boundary ties under nearest sampling),
+    scaled by non-powers of two, rotated and v-flipped; MSDF and MTSDF
+    quads (13, 14) and their strokes (15, 16) with vertex and gradient
+    fills; an SDF box every seventh quad; rect masks on some. one_to_one:
+    only axis-aligned 1:1 mode-0 quads at whole-pixel origins, SDF boxes
+    between them (the quads the TPU kernel samples in-kernel). Returns
+    ((n_pad, 68) f32 logical fields, (n_pad, 2) i32 modes, n, (S, S, 4) f32
+    atlas)."""
+    from .ops.layout import (
+        QF_AA, QF_BBOX_X0, QF_COLOR0, QF_FACTORS, QF_INV_A, QF_MID_COLOR,
+        QF_ORG_X, QF_PARAMS, QF_RECT_MATX, QF_RECT_MATY, QF_RECT_PARAMS,
+        QF_STOP_COLOR, QF_SUBPIXEL_SHIFT, QF_UV3_X, QF_WIDTH,
+    )
+    from .plan import bucket
+
+    rng = np.random.RandomState(seed)
+    s = atlas_size
+    atlas = rng.rand(s, s, 4).astype(np.float32)
+    n_pad = bucket(n)
+    fields = np.zeros((n_pad, QF_WIDTH), np.float32)
+    modes = np.zeros((n_pad, 2), np.int32)
+    for i in range(n):
+        f = fields[i]
+        kind = i % 7 if not one_to_one else (6 if i % 3 == 2 else 0)
+        # an atlas entry (texels) and its draw size (pixels)
+        ew = int(rng.randint(4, max(5, min(40, s // 2))))
+        eh = int(rng.randint(4, max(5, min(40, s // 2))))
+        ex = int(rng.randint(0, s - ew + 1))
+        ey = int(rng.randint(0, s - eh + 1))
+        dw, dh = float(ew), float(eh)
+        angle = 0.0
+        flip = False
+        if kind == 1:  # minified by exactly 2: ties on texel boundaries
+            dw, dh = ew / 2.0, eh / 2.0
+        elif kind == 2:  # scaled by a non-power of two, rotated
+            dw, dh = ew * 1.37, eh * 0.81
+            angle = float(rng.uniform(-0.6, 0.6))
+        elif kind in (3, 4, 5):  # MSDF family, magnified, some flipped
+            dw, dh = ew * 2.3, eh * 1.7
+            flip = kind == 5
+        ox = float(rng.randint(0, max(1, w - 48)))
+        oy = float(rng.randint(0, max(1, h - 48)))
+        if kind in (0, 2, 3) and not one_to_one:
+            ox += float(rng.choice([0.25, 0.5, 0.37]))
+        # the quad's edge vectors along u and v, and the inverse affine
+        cu, su = np.cos(angle), np.sin(angle)
+        eu = np.array([dw * cu, dw * su])
+        ev = np.array([-dh * su, dh * cu])
+        inv = np.linalg.inv(np.stack([eu, ev], axis=1))
+        f[QF_INV_A : QF_INV_A + 4] = inv.reshape(-1)
+        f[QF_ORG_X : QF_ORG_X + 2] = (ox, oy)
+        corners = np.array([[ox, oy], [ox, oy] + eu, [ox, oy] + ev,
+                            [ox, oy] + eu + ev])
+        f[QF_BBOX_X0 : QF_BBOX_X0 + 4] = (
+            np.floor(corners[:, 0].min()), np.floor(corners[:, 1].min()),
+            np.ceil(corners[:, 0].max()), np.ceil(corners[:, 1].max()))
+        v0, v1 = (ey + eh, ey) if flip else (ey, ey + eh)
+        f[QF_UV3_X : QF_UV3_X + 6] = (ex / s, v0 / s, ew / s, 0.0, 0.0,
+                                      (v1 - v0) / s)
+        colors = rng.randint(0, 256, (4, 4)) / 255.0
+        if i % 2 == 0:  # flat vertex colors take the evaluator's shortcut
+            colors[:] = colors[0]
+        f[QF_COLOR0 : QF_COLOR0 + 16] = colors.reshape(-1)
+        f[QF_MID_COLOR : QF_MID_COLOR + 4] = rng.randint(0, 256, 4) / 255.0
+        f[QF_STOP_COLOR : QF_STOP_COLOR + 4] = rng.randint(0, 256, 4) / 255.0
+        f[QF_AA] = 1.2
+        f[QF_SUBPIXEL_SHIFT] = float(rng.uniform(0.0, 1.0))
+        f[QF_RECT_PARAMS + 2] = f[QF_RECT_PARAMS + 3] = -1.0
+        if kind in (0, 1, 2):
+            mode, fm = 0, 0
+        elif kind == 6:  # an SDF box among the atlas quads
+            mode, fm = 3, 0
+            f[QF_PARAMS : QF_PARAMS + 4] = (dw / 2, dh / 2, dw / 2, dh / 2)
+        else:
+            mode = 13 + (i + 2 * (i // 7)) % 4  # solid or stroked, m or mt
+            fm = int(rng.randint(0, 5))  # vertex or gradient fills
+            f[QF_PARAMS : QF_PARAMS + 2] = (s, float(rng.uniform(0.0, 3.0)))
+            f[QF_FACTORS : QF_FACTORS + 2] = (float(rng.uniform(2.0, 6.0)),
+                                              float(rng.uniform(0.3, 0.7)))
+        if i % 5 == 3:  # a rect mask through the quad's center
+            f[QF_RECT_PARAMS : QF_RECT_PARAMS + 4] = (
+                ox + dw / 2, oy + dh / 2, dw / 3, dh / 3)
+            f[QF_RECT_MATX : QF_RECT_MATX + 3] = (1.0, 0.0, 0.0)
+            f[QF_RECT_MATY : QF_RECT_MATY + 3] = (0.0, 1.0, 0.0)
+        modes[i, 0] = mode + 256 * fm
+    return fields, modes, n, atlas
+
+
 # --- the clip-table benchmark scenes ------------------------------------------
 #
 # bench_clipmask.py, the JAX package's reproduction of the reference's
@@ -472,3 +571,127 @@ def make_clip_table_scene(kind: str, w: float = 1200.0, h: float = 800.0,
     if kind not in ("rectmask", "subclip"):
         raise ValueError(f"unknown table kind {kind!r}")
     return _table_scene(kind, w, h, rows, cols)
+
+
+# --- the image benchmark scenes --------------------------------------------------
+#
+# bench_images.py (the windy_image_renderlist class of workload): n panels of
+# a rounded box and an image at 1080p. The node rows are byte-identical to
+# figdraw_tpu's from_renders of bench_images.build_scene.
+
+# figdraw_tpu's frames of the reduced image scenes (480x270, 25 panels) and
+# bench_text's stored plan, made by tests/torch_reference.py
+REFERENCE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "reference")
+TEXT_REFERENCE = os.path.join(REFERENCE_DIR, "text_1200x800.npz")
+
+IMAGE_ID = 7001  # bench_images.IMG_ID
+IMAGE_SRC = 64  # the source image's edge (bench_images.SRC)
+IMAGE_VARIANTS = ("sdf_control", "images_11", "images_scaled", "images_mixed",
+                  "images_clipped")
+
+
+def image_reference_path(variant: str) -> str:
+    """The stored 8x8 block means of figdraw_tpu's 480x270, 25-panel frame
+    of an image variant."""
+    name = variant[len("images_"):] if variant.startswith("images_") else variant
+    return os.path.join(REFERENCE_DIR, f"images_{name}_480x270_blocks8.npy")
+
+
+def load_text_plan(path: str = TEXT_REFERENCE):
+    """bench_text's frame (1200x800, 36 lines of DejaVuSans at 15 px) as
+    figdraw_tpu planned it, stored because the port has no text host
+    pipeline yet: (ExecPlan, (S, S, 4) f32 atlas its glyph uv point into,
+    (100, 150, 4) 8x8 block means of figdraw_tpu's frame)."""
+    from .plan import from_jax_plan
+
+    with np.load(path) as z:
+        jax_plan = SimpleNamespace(
+            combo=z["combo"], bounds=z["bounds"].tolist(),
+            structure=[tuple(item) for item in json.loads(str(z["structure"]))],
+            radii=z["radii"].tolist(), height=int(z["height"]),
+            width=int(z["width"]), n_masks=int(z["n_masks"]),
+            tile_h=int(z["tile_h"]), has_init_frame=bool(z["has_init_frame"]),
+            mega_combo=None)
+        return from_jax_plan(jax_plan), z["atlas"].copy(), z["blocks"].copy()
+
+
+def photo_image(edge: int = IMAGE_SRC) -> np.ndarray:
+    """bench_images._photo_image: a deterministic (edge, edge, 4) uint8
+    'photo' of smooth gradients and a checker of hard edges."""
+    y, x = np.mgrid[0:edge, 0:edge]
+    img = np.zeros((edge, edge, 4), np.uint8)
+    img[..., 0] = (x * 255 / edge).astype(np.uint8)
+    img[..., 1] = (y * 255 / edge).astype(np.uint8)
+    img[..., 2] = ((x + y) * 127 / edge).astype(np.uint8)
+    img[(x // 8 + y // 8) % 2 == 0, 2] = 220
+    img[..., 3] = 255
+    return img
+
+
+def _image_node(lst, parent, box, image_id):
+    row = lst.add_root_raw() if parent < 0 else lst.add_child_raw(parent)
+    n = lst.nodes
+    n["kind"][row] = int(FigKind.nkImage)
+    n["box"][row] = box
+    n["image_id"][row] = image_id
+    n["image_fill"]["c0"][row] = (255, 255, 255, 255)  # image_style's white tint
+    return row
+
+
+def make_image_panels_scene(w: float, h: float, n: int,
+                            variant: str) -> RendersArray:
+    """bench_images.build_scene(n, variant) at a (w, h) frame, in array form.
+    Each of n seeded panels (seed 777) is a 104x104 rounded box plus:
+
+    sdf_control: an 80x80 rounded box (no image);
+    images_11: the 64x64 image at its native size (1:1 atlas quads);
+    images_scaled: the image at 80, 40 or 96 px (minified draws of a
+      mipmapped image take a second, trilinear quad);
+    images_mixed: the scaled image, then a drop-shadowed translucent box
+      (one draw run carries both kinds);
+    images_clipped: the panel clips its content (NfClipContent, a mask
+      plane each) and its child is a 96x96 image at (x + 24, y + 24), which
+      the clip cuts: photo thumbnails in rounded cards. Not in
+      bench_images.py: its > 24 pass items drive the rolled executor."""
+    if variant not in IMAGE_VARIANTS:
+        raise ValueError(f"unknown image variant {variant!r}")
+    rng = np.random.RandomState(777)
+    lst = RenderListArray(capacity=1 + 3 * n)
+    _rect_node(lst, lst.add_root_raw(), (0, 0, w, h), (30, 30, 30, 255),
+               midpos=0)
+    for i in range(n):
+        x = float(rng.uniform(0, w - 120))
+        y = float(rng.uniform(0, h - 120))
+        flags = int(FigFlags.NfClipContent) if variant == "images_clipped" else 0
+        panel = lst.add_root_raw()
+        _rect_node(lst, panel, (x, y, 104, 104), (80, 80, 80, 255), midpos=0,
+                   corners=(12,) * 4, flags=flags)
+        if variant == "sdf_control":
+            _rect_node(lst, lst.add_root_raw(), (x + 12, y + 12, 80, 80),
+                       (120 + i % 90, 90, 200, 255), midpos=0,
+                       corners=(6,) * 4)
+            continue
+        if variant == "images_clipped":
+            _image_node(lst, panel, (x + 24, y + 24, 96, 96), IMAGE_ID)
+            continue
+        if variant == "images_11":
+            box = (x + 20, y + 20, IMAGE_SRC, IMAGE_SRC)
+        else:
+            s = (80, 40, 96)[i % 3]
+            box = (x + 12, y + 12, s, s)
+        _image_node(lst, -1, box, IMAGE_ID)
+        if variant == "images_mixed":
+            r = lst.add_root_raw()
+            _rect_node(lst, r, (x + 60, y + 60, 70, 50), (200, 160, 60, 200),
+                       midpos=0, corners=(8,) * 4)
+            sh = lst.nodes["shadows"][r]
+            sh["style"][0] = int(ShadowStyle.DropShadow)
+            sh["blur"][0] = 8.0
+            sh["spread"][0] = 3.0
+            sh["x"][0] = 4.0
+            sh["y"][0] = 4.0
+            sh["fill"]["c0"][0] = (0, 0, 0, 140)
+    out = RendersArray()
+    out.set_layer(0, lst)
+    return out

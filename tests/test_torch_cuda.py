@@ -1,5 +1,5 @@
-"""figdraw_tpu_torch's CUDA kernels (K1 and K3 in csrc/raster.cu, K4 in
-csrc/mega.cu) against their plain torch versions on an NVIDIA card. Every
+"""figdraw_tpu_torch's CUDA kernels (K1, K1-atlas and K3 in csrc/raster.cu,
+K4 in csrc/mega.cu) against their plain torch versions on an NVIDIA card. Every
 test here needs the card (marker `cuda`) and skips without one. The file
 imports neither jax nor figdraw_tpu, so it also runs on a machine without
 them:
@@ -12,13 +12,17 @@ import pytest
 import torch
 
 from figdraw_tpu_torch import FigRenderer, vec2
-from figdraw_tpu_torch.executor import get_frame_executor, get_mega_executor
+from figdraw_tpu_torch.executor import (
+    get_frame_executor, get_mega_executor,
+)
 from figdraw_tpu_torch.ops import mega, raster
 from figdraw_tpu_torch.ops.binning import bin_quads
 from figdraw_tpu_torch.ops.layout import QF_BBOX_X0, QF_WIDTH, QI_MODE
 from figdraw_tpu_torch.plan import bucket, plan_execution
+from figdraw_tpu_torch.resources import ImageMessageBus, put_image
 from figdraw_tpu_torch.scenes import (
-    make_clip_table_scene, make_render_tree_array, modes_tape,
+    IMAGE_ID, atlas_modes_tape, make_clip_table_scene, make_image_panels_scene,
+    make_render_tree_array, modes_tape, photo_image,
 )
 
 TOL = 1.0 / 255.0
@@ -225,4 +229,118 @@ def test_clip_table_matches_plain_executor(kind, dev):
                   draw=mega.draw_pass_mega_plain)
     torch.cuda.synchronize()
     assert tuple(frame.shape) == (200, 320, 4)
+    assert float((frame - ref).abs().max()) <= TOL
+
+
+def _atlas_args(size, th, dev, w=512, h=256, seed=None):
+    """K1-atlas's inputs: the atlas modes tape (modes 0 and 13-16 at 1:1,
+    minified, scaled, rotated and flipped, SDF boxes between) on a seeded
+    (size, size, 4) atlas, some quads reading a second mask plane, seeded
+    planes and the binning."""
+    fields, modes, n, atlas = atlas_modes_tape(w, h, size, seed=size if seed is None else seed)
+    modes[1:n:4, 1] = 1
+    rng = np.random.RandomState(size)
+    f, m = torch.from_numpy(fields).to(dev), torch.from_numpy(modes).to(dev)
+    tile_idx, tile_counts = bin_quads(f, 0, f.shape[0], h // th, w // 128, th, 128)
+    planes, mask1 = (torch.from_numpy(rng.rand(*s).astype(np.float32)).to(dev)
+                     for s in ((4, h, w), (1, h, w)))
+    masks = torch.cat([torch.ones_like(mask1), mask1])
+    bounds = torch.tensor([0, n], dtype=torch.int32, device=dev)
+    return (f, m, bounds, tile_idx, tile_counts, planes, masks,
+            torch.from_numpy(atlas).to(dev))
+
+
+@pytest.mark.parametrize("size", [64, 256, 1024])
+def test_atlas_kernel_matches_plain(size, dev):
+    """K1-atlas and K3 with the atlas, bilinear and nearest, with and
+    without the subpixel shift, on an atlas smaller than a tile (64), the
+    image benchmark's (256) and a large one (1024)."""
+    f, m, bounds, tile_idx, tile_counts, planes, masks, atlas = _atlas_args(size, 64, dev)
+    for pixelate, subpixel in ((False, False), (False, True), (True, False)):
+        kw = dict(tile_h=64, atlas=atlas, pixelate=pixelate,
+                  subpixel_positioning=subpixel)
+        before = (raster.LAUNCHES, raster.ATLAS_LAUNCHES)
+        out = raster.draw_pass_planar_prebinned(f, m, bounds, tile_idx, tile_counts,
+                                                planes, masks, **kw)
+        assert (raster.LAUNCHES, raster.ATLAS_LAUNCHES) == (before[0], before[1] + 1)
+        ref = raster.draw_pass_planar_prebinned_plain(f, m, bounds, tile_idx,
+                                                      tile_counts, planes, masks, **kw)
+        mask_out = raster.draw_pass_mask_prebinned(f, m, bounds, tile_idx, tile_counts,
+                                                   masks[1:], masks, **kw)
+        mask_ref = raster.draw_pass_mask_prebinned_plain(f, m, bounds, tile_idx,
+                                                         tile_counts, masks[1:], masks, **kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(mask_out).all())
+        assert float((out - ref).abs().max()) <= TOL
+        assert float((mask_out - mask_ref).abs().max()) <= TOL
+        assert float((out - planes).abs().max()) > 0.1
+
+
+def test_pixelate_on_minified_draws_matches_plain(dev):
+    """Nearest sampling on draws minified by exactly 2 puts texel
+    boundaries on pixel centers: a floor that rounded otherwise would pick
+    another texel outright, so kernel and plain version agree to rounding."""
+    f, m, bounds, tile_idx, tile_counts, planes, masks, atlas = _atlas_args(256, 128, dev, seed=7)
+    minified = torch.arange(f.shape[0], device=dev) % 7 == 1
+    m = torch.where(minified[:, None], m, torch.zeros_like(m))
+    f = torch.where(minified[:, None], f, torch.zeros_like(f))
+    tile_idx, tile_counts = bin_quads(f, 0, f.shape[0], 2, 4, 128, 128)
+    kw = dict(tile_h=128, atlas=atlas, pixelate=True)
+    out = raster.draw_pass_planar_prebinned(f, m, bounds, tile_idx, tile_counts,
+                                            planes, masks, **kw)
+    ref = raster.draw_pass_planar_prebinned_plain(f, m, bounds, tile_idx, tile_counts,
+                                                  planes, masks, **kw)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 1e-5
+    assert float((out - planes).abs().max()) > 0.1
+
+
+def test_wrappers_name_a_bad_atlas(dev):
+    f, m, bounds, tile_idx, tile_counts, planes, masks, atlas = _atlas_args(64, 64, dev)
+    args = (f, m, bounds, tile_idx, tile_counts, planes, masks)
+    with pytest.raises(ValueError, match="atlas is on"):
+        raster.draw_pass_planar_prebinned(*args, tile_h=64, atlas=atlas.cpu())
+    with pytest.raises(ValueError, match="atlas must be torch.float32"):
+        raster.draw_pass_planar_prebinned(*args, tile_h=64, atlas=atlas.double())
+    with pytest.raises(ValueError, match="atlas must be"):
+        raster.draw_pass_mask_prebinned(f, m, bounds, tile_idx, tile_counts,
+                                        masks[1:], masks, tile_h=64,
+                                        atlas=atlas[:, :32].contiguous())
+    with pytest.raises(ValueError, match="atlas must be contiguous"):
+        raster.draw_pass_mask_prebinned(f, m, bounds, tile_idx, tile_counts,
+                                        masks[1:], masks, tile_h=64,
+                                        atlas=atlas.transpose(0, 1))
+
+
+def _image_renderer():
+    ren = FigRenderer(atlas_size=256, device="cuda")
+    bus = ImageMessageBus()
+    ren.ensure_image_message_subscription(bus)
+    put_image(IMAGE_ID, photo_image(), bus=bus, mipmapped=True)
+    return ren
+
+
+@pytest.mark.parametrize("variant", ["images_11", "images_mixed", "images_clipped"])
+def test_image_frame_matches_plain_executor(variant, dev):
+    """An image scene at 480x270 with 25 panels through render_frame: K1-atlas
+    once a frame (and K3 and K1 per clipped card for images_clipped, on the
+    rolled executor); the same executor with the plain versions gives the
+    same frame."""
+    ren = _image_renderer()
+    scene = make_image_panels_scene(480, 270, 25, variant)
+    counts = (raster.LAUNCHES, raster.ATLAS_LAUNCHES, raster.MASK_LAUNCHES)
+    frame = ren.render_frame(scene, vec2(480, 270))
+    counts = tuple(b - a for a, b in zip(
+        counts, (raster.LAUNCHES, raster.ATLAS_LAUNCHES, raster.MASK_LAUNCHES)))
+    plan = plan_execution(ren.flatten(scene, vec2(480, 270)))
+    combo = torch.from_numpy(plan.combo).to(dev)
+    plain = dict(draw=raster.draw_pass_planar_prebinned_plain,
+                 draw_mask=raster.draw_pass_mask_prebinned_plain,
+                 atlas=ren._device_atlas())
+    assert counts == ((1, 25, 25) if variant == "images_clipped" else (0, 1, 0))
+    run = get_frame_executor(plan.structure, 270, 480, plan.n_masks, False,
+                             plan.tile_h, rolled=plan.rolled_items is not None)
+    ref = run(combo, None, items=plan.rolled_items, radii=plan.rolled_radii, **plain)
+    torch.cuda.synchronize()
+    assert tuple(frame.shape) == (270, 480, 4)
     assert float((frame - ref).abs().max()) <= TOL

@@ -140,7 +140,8 @@ def _clipped_cells(n):
 
 
 def test_masked_scene_names_its_roadmap_item():
-    """Clip masks render now; text in a clipped cell needs the atlas."""
+    """Clip masks and the atlas render now; text in a clipped cell needs
+    the text host pipeline."""
     from figdraw_tpu_torch.basics import FigKind
     from figdraw_tpu_torch.nodesarray import RendersArray
 
@@ -150,15 +151,19 @@ def test_masked_scene_names_its_roadmap_item():
     lst.nodes["box"][t] = (8, 8, 40, 12)
     scene = RendersArray()
     scene.set_layer(0, lst)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, port item 'Atlas'"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md, port item 'Text host pipeline'"):
         port.FigRenderer(device="cpu").render_frame(scene, port.vec2(96, 64))
 
 
 def test_rolled_scene_names_its_roadmap_item():
     """More than 24 pass items with a backdrop blur: the rolled executor's
-    scene, not the megakernel's."""
+    scene, not the megakernel's. It has landed: the scene renders through
+    the rolled plan as figdraw_tpu renders it."""
+    from figdraw_tpu.nodesarray import FIG_DTYPE, RenderListArray, RendersArray as JR
     from figdraw_tpu_torch.basics import FigKind
     from figdraw_tpu_torch.nodesarray import RendersArray
+    from figdraw_tpu_torch.plan import plan_execution
 
     lst = _clipped_cells(10)
     b = lst.add_root_raw()
@@ -168,10 +173,19 @@ def test_rolled_scene_names_its_roadmap_item():
     scene = RendersArray()
     scene.set_layer(0, lst)
     ren = port.FigRenderer(device="cpu")
-    assert len(ren.flatten(scene, port.vec2(96, 64)).structure_cache[0]) > 24
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, port item 'Rolled executor'"):
-        ren.render_frame(scene, port.vec2(96, 64))
+    tape = ren.flatten(scene, port.vec2(96, 64))
+    assert len(tape.structure_cache[0]) > 24
+    plan = plan_execution(tape)
+    assert plan.rolled_items is not None and plan.mega_combo is None
+    got = ren.render_frame(scene, port.vec2(96, 64)).numpy()
+    jl = RenderListArray(capacity=lst.count)
+    jl.nodes[: lst.count] = lst.nodes[: lst.count].view(FIG_DTYPE)
+    jl.count, jl.root_ids = lst.count, list(lst.root_ids)
+    jscene = JR()
+    jscene.set_layer(0, jl)
+    ref = np.asarray(JaxRenderer(atlas_size=64, use_pallas=False).render_frame(
+        jscene, jax_vec2(96, 64)))
+    assert np.abs(got - ref).max() <= TOL
 
 
 def test_cuda_renderer_raises_without_cuda(monkeypatch):

@@ -1,0 +1,163 @@
+"""figdraw_tpu's side of figdraw_tpu_torch's image, text and rolled tests,
+and the stored references `chip_smoke.py` holds the port to on the card.
+
+Built with the JAX package on the CPU, on its default path there
+(FigRenderer(use_pallas=False): atlas runs on the XLA windowed evaluator,
+long tapes on the rolled executor):
+
+- `images_<variant>_480x270_blocks8.npy` (the variant without its
+  `images_` prefix): 8x8 block means of bench_images'
+  variants at 480x270 with 25 panels (and of `images_clipped`, built with
+  the figdraw_tpu API);
+- `text_1200x800.npz`: bench_text's frame (36 lines, DejaVuSans at 15 px,
+  FigRenderer(atlas_size=512)) as its plan (combo, structure, bounds, tile
+  height), the atlas its glyphs were packed into, and the frame's 8x8
+  block means. The card's machine has no fontTools: the port's text phase
+  runs this stored plan.
+
+Rewrite them all (needs jax, fontTools and the DejaVu font):
+
+    JAX_PLATFORMS=cpu python tests/torch_reference.py
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DEJAVU = "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf"
+# the reduced image scenes of the tests and of chip_smoke.py's references
+# (the benchmark: 1920x1080 with 400 panels)
+IMAGE_W, IMAGE_H, IMAGE_N = 480, 270, 25
+TEXT_W, TEXT_H = 1200, 800
+
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+
+def block_means(frame, k: int = 8):
+    """Means of the frame's k x k blocks; rows and columns past the last
+    whole block (270 = 33 * 8 + 6) are left out."""
+    h, w, c = frame.shape
+    h, w = h // k * k, w // k * k
+    return frame[:h, :w].reshape(h // k, k, w // k, k, c).mean(axis=(1, 3))
+
+
+def jax_clipped_scene(n: int, w: float, h: float):
+    """images_clipped with the figdraw_tpu API: bench_images.build_scene's
+    panels, each clipping its content, with a 96x96 image child at
+    (x + 24, y + 24)."""
+    from figdraw_tpu import (
+        Fig, FigFlags, FigKind, fill, image_style, new_renders, rect, rgba,
+    )
+    from figdraw_tpu.nodes import RenderList
+    from figdraw_tpu.nodesarray import from_renders
+
+    import bench_images
+
+    rng = np.random.RandomState(777)
+    lst = RenderList()
+    lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, w, h),
+                     fill=fill(rgba(30, 30, 30, 255))))
+    for _ in range(n):
+        x = float(rng.uniform(0, w - 120))
+        y = float(rng.uniform(0, h - 120))
+        panel = lst.add_root(Fig(
+            kind=FigKind.nkRectangle, screen_box=rect(x, y, 104, 104),
+            fill=fill(rgba(80, 80, 80, 255)), corners=(12,) * 4,
+            flags=FigFlags.NfClipContent))
+        lst.add_child(panel, Fig(kind=FigKind.nkImage,
+                                 screen_box=rect(x + 24, y + 24, 96, 96),
+                                 image=image_style(bench_images.IMG_ID)))
+    renders = new_renders()
+    renders.set_layer(0, lst)
+    return from_renders(renders)
+
+
+def jax_image_scene(variant: str, monkeypatch, w: int = IMAGE_W,
+                    h: int = IMAGE_H, n: int = IMAGE_N):
+    """bench_images' scene in array form (its frame size is a module global
+    read at call time), or images_clipped."""
+    import bench_images
+
+    if variant == "images_clipped":
+        return jax_clipped_scene(n, float(w), float(h))
+    monkeypatch.setattr(bench_images, "W", w)
+    monkeypatch.setattr(bench_images, "H", h)
+    return bench_images.build_scene(n, variant)
+
+
+def jax_image_renderer():
+    """figdraw_tpu's renderer as bench_images.main sets it up: a 256 atlas
+    and the photo published mipmapped on a bus of its own."""
+    from figdraw_tpu import FigRenderer
+    from figdraw_tpu.resources import ImageMessageBus, put_image
+
+    import bench_images
+
+    ren = FigRenderer(atlas_size=256, use_pallas=False)
+    bus = ImageMessageBus()
+    ren.ensure_image_message_subscription(bus)
+    put_image(bench_images.IMG_ID, bench_images._photo_image(), bus=bus,
+              mipmapped=True)
+    return ren
+
+
+def jax_image_frame(variant: str, monkeypatch, w: int = IMAGE_W,
+                    h: int = IMAGE_H, n: int = IMAGE_N):
+    """(scene, renderer, frame) of figdraw_tpu's default path."""
+    from figdraw_tpu import vec2
+
+    scene = jax_image_scene(variant, monkeypatch, w, h, n)
+    ren = jax_image_renderer()
+    frame = np.asarray(ren.render_frame(scene, vec2(w, h)))
+    return scene, ren, frame
+
+
+def text_fixture():
+    """bench_text's frame through figdraw_tpu: (the fixture's arrays, the
+    (800, 1200, 4) frame)."""
+    import bench_text
+    from figdraw_tpu import FigRenderer, fill, rgba, vec2
+    from figdraw_tpu.text.typefaces import load_typeface
+
+    tid = load_typeface(DEJAVU)
+    scene, _ = bench_text.build_scene(tid, fill(rgba(20, 20, 30, 255)), 0)
+    ren = FigRenderer(atlas_size=512, use_pallas=False)
+    frame = np.asarray(ren.render_frame(scene, vec2(TEXT_W, TEXT_H)))
+    plan = ren._plan_execution(ren.flatten(scene, vec2(TEXT_W, TEXT_H)))
+    arrays = dict(
+        combo=np.asarray(plan.combo, np.float32),
+        structure=np.array(json.dumps([list(item) for item in plan.structure])),
+        bounds=np.asarray(plan.bounds, np.int32).reshape(-1, 2),
+        radii=np.asarray(plan.radii, np.float32),
+        tile_h=np.int32(plan.tile_h), height=np.int32(plan.height),
+        width=np.int32(plan.width), n_masks=np.int32(plan.n_masks),
+        has_init_frame=np.bool_(plan.has_init_frame),
+        atlas=np.asarray(ren.atlas.data, np.float32),
+        blocks=block_means(frame).astype(np.float32),
+    )
+    return arrays, frame
+
+
+def main() -> None:
+    from figdraw_tpu_torch.scenes import (
+        IMAGE_VARIANTS, TEXT_REFERENCE, image_reference_path,
+    )
+
+    with pytest.MonkeyPatch.context() as mp:
+        for variant in IMAGE_VARIANTS:
+            _scene, _ren, frame = jax_image_frame(variant, mp)
+            path = image_reference_path(variant)
+            np.save(path, block_means(frame).astype(np.float32))
+            print(f"wrote {path}")
+    arrays, _frame = text_fixture()
+    np.savez_compressed(TEXT_REFERENCE, **arrays)
+    print(f"wrote {TEXT_REFERENCE} ({os.path.getsize(TEXT_REFERENCE)} bytes)")
+
+
+if __name__ == "__main__":
+    main()
