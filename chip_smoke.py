@@ -27,9 +27,15 @@ FigRenderer(device="cuda").render_frame:
 
 It checks the frames and the launch counts of each path, holds reduced
 frames against stored block means of the JAX package's frames, and prints
-times beside the card's name and power limit. The line before the card
-line lists each kernel with its launches, error, time and bound; the last
-line is the run's summary JSON; any failure exits non-zero before them.
+times beside the card's name and power limit. The tile kernels work in
+place, so each comparison hands the plain version the target as it was
+before the kernel ran; their bounds are printed in place (the kernels'
+own) and out of place (as earlier runs counted them), with the quad-block
+pairs the kernels' bbox cull keeps; the rolled path's launches are timed
+on the device by torch.profiler and a CUDA graph replay, and on the host
+around the wrapper calls. The line before the card line lists each kernel
+with its launches, error, time and bound; the last line is the run's
+summary JSON; any failure exits non-zero before them.
 """
 
 from __future__ import annotations
@@ -116,14 +122,24 @@ def block_means(frame, k: int = 8):
     return frame[:h, :w].reshape(h // k, k, w // k, k, c).mean(axis=(1, 3))
 
 
-def compared(fn, plain, errs, store, what: str):
+def as_before(args):
+    """A tile pass's arguments with its target (args[5]) and mask stack
+    (args[6]) copied: the kernels update the target in place, and K3's
+    target is a plane of the stack, so a plain version run after the kernel
+    gets them as they were before it."""
+    return args[:5] + (args[5].clone(), args[6].clone()) + tuple(args[7:])
+
+
+def compared(fn, plain, errs, store, what: str, in_place: bool = True):
     """fn wrapped so that each call also runs its plain version on the same
-    inputs, records max |kernel - plain| and the call's arguments."""
+    inputs (as they were before the kernel ran, for the in-place tile
+    passes), records max |kernel - plain| and the call's arguments."""
     import torch
 
     def call(*args, **kw):
+        before = as_before(args) if in_place else args
         got = fn(*args, **kw)
-        ref = plain(*args, **kw)
+        ref = plain(*before, **kw)
         torch.cuda.synchronize()
         if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(ref).all())):
             fail(f"{what}: non-finite planes from {fn.__name__}")
@@ -210,34 +226,94 @@ def bound_of(n_bytes: float, n_ops: float):
 
 
 def raster_work(args, kw, mask_target=False):
-    """(bytes, ops) of one K1 / K1-atlas / K3 call, counting what the run's
-    quads need: their rows and modes, the live entries of the tile lists,
-    the bounds, the target read and written whole (the pass is out of
-    place), each mask plane the quads index and the backdrop only at the
-    pixels the quads (mode-17 quads for the backdrop) cover, and the atlas
-    once; ops by tile_ops over the same pairs."""
+    """The work of one K1 / K1-atlas / K3 call, counting what the run's
+    quads need, as a numpy vector (bytes out of place, bytes in place, ops,
+    quad-block pairs of the run segments, the pairs the cull keeps). Bytes:
+    the quads' rows and modes, the live entries of the tile lists, the
+    bounds, each mask plane the quads index and the backdrop only at the
+    pixels the quads (mode-17 quads for the backdrop) cover, the atlas once,
+    and the target read and written: whole for an out-of-place pass (the
+    kernels' earlier design), only at the 16x16 blocks that keep a quad for
+    the in-place kernel. Ops by tile_ops over the same pairs; pairs by
+    raster.block_pairs."""
     import numpy as np
 
+    from figdraw_tpu_torch.ops import raster
     from figdraw_tpu_torch.ops.layout import QF_WIDTH, QI_MASK, QI_WIDTH
 
     fields, modes, bounds, tile_idx, tile_counts, target, masks = args[:7]
     backdrop = args[7] if len(args) > 7 else kw.get("backdrop_planes")
     atlas = kw.get("atlas")
-    ph, pw = target.shape[1:]
+    planes, ph, pw = target.shape
     pairs = live_pairs(fields, modes, tile_idx, tile_counts, kw["tile_h"], pw // 128,
                        seg=bounds.tolist())
     q = pairs[0]
     plane_of = modes[:, QI_MASK].cpu().numpy()[q]
     n_bytes = (len(np.unique(q)) * (QF_WIDTH + QI_WIDTH) * 4
-               + (int(tile_counts.sum()) + tile_counts.numel() + 2) * 4
-               + 2 * target.nelement() * 4)
+               + (int(tile_counts.sum()) + tile_counts.numel() + 2) * 4)
     n_bytes += 4 * sum(covered(pairs, plane_of == k, (ph, pw))
                        for k in np.unique(plane_of))
     if backdrop is not None:
         n_bytes += 16 * covered(pairs, (pairs[1] % 256) % 128 == 17, (ph, pw))
     if atlas is not None:
         n_bytes += atlas.nelement() * 4
-    return n_bytes, tile_ops(fields, pairs, mask_target=mask_target)
+    before, after, blocks = raster.block_pairs(fields, bounds, tile_idx, tile_counts,
+                                               kw["tile_h"], ph, pw)
+    per_block = 2 * planes * raster.BLOCK * raster.BLOCK * 4
+    return np.array([n_bytes + 2 * target.nelement() * 4, n_bytes + blocks * per_block,
+                     tile_ops(fields, pairs, mask_target=mask_target), before, after],
+                    dtype=np.float64)
+
+
+def bounds_of(work):
+    """((bound_ms, bound_by) in place, the same out of place) of a
+    raster_work vector or a sum of them."""
+    return bound_of(work[1], work[2]), bound_of(work[0], work[2])
+
+
+def bound_text(work) -> str:
+    (ip, ip_by), (oop, oop_by) = bounds_of(work)
+    return (f"bound {ip:.4f} ms in place ({ip_by}), {oop:.4f} ms out of place "
+            f"({oop_by}); quad-block pairs {work[3]:.0f} before the cull, "
+            f"{work[4]:.0f} after")
+
+
+def kernel_device_ms(fn, reps: int = 3) -> dict:
+    """Device ms per run of fn() in each kernel, by name, from torch.profiler
+    (CUPTI): {name: (ms per run, launches per run)}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = max(getattr(e, a, 0) or 0 for a in (
+            "self_device_time_total", "device_time_total", "self_cuda_time_total",
+            "cuda_time_total"))
+        if us > 0:
+            out[e.key] = (us / 1e3 / reps, e.count / reps)
+    return out
+
+
+def graph_ms(fn, reps: int = 5) -> float:
+    """Median device ms of one replay of a CUDA graph of fn()'s launches (no
+    host work between them), by CUDA events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
 
 
 def mega_work(args):
@@ -381,14 +457,13 @@ def images_phase(tag: str, dev) -> dict:
                      small, image_reference_path(variant))
         args, kw = calls[0]
         kernel_ms = cuda_ms(lambda: raster.draw_pass_planar_prebinned(*args, **kw), 20)
-        bound = bound_of(*raster_work(args, kw))
+        work = raster_work(args, kw)
         print(f"times: images {variant}: median {statistics.median(total_ms):.3f} "
               f"ms/frame (render_frame + sync; host walk and export alone "
               f"{statistics.median(walk_ms):.3f} ms); its draw kernel "
-              f"{kernel_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) {tag}",
-              flush=True)
+              f"{kernel_ms:.4f} ms, {bound_text(work)} {tag}", flush=True)
         out[variant] = dict(launches=counts, err=max(max(errs), frame_err),
-                            args=(args, kw), kernel_ms=kernel_ms,
+                            args=(args, kw), kernel_ms=kernel_ms, work=work,
                             ms_per_frame=statistics.median(total_ms))
     return out
 
@@ -442,10 +517,9 @@ def text_phase(tag: str, dev) -> dict:
         fail(f"text frame differs from the JAX reference by {err_ref}")
     args, kw = calls[0]
     kernel_ms = cuda_ms(lambda: raster.draw_pass_planar_prebinned(*args, **kw), 20)
-    bound = bound_of(*raster_work(args, kw))
     print(f"times: text: median {statistics.median(total_ms):.3f} ms/frame "
           f"(execute_plan + sync: upload, executor); its draw kernel "
-          f"{kernel_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) {tag}",
+          f"{kernel_ms:.4f} ms, {bound_text(raster_work(args, kw))} {tag}",
           flush=True)
     return dict(launches=counts, err=max(errs), args=(args, kw), kernel_ms=kernel_ms,
                 ms_per_frame=statistics.median(total_ms))
@@ -515,19 +589,52 @@ def rolled_phase(tag: str, dev) -> dict:
                  small, image_reference_path("images_clipped"))
     exec_ms = cuda_ms(lambda: run(combo, None, atlas=atlas, **table), 5)
     k_atlas = [(a, k) for a, k in a1 if k.get("atlas") is not None]
-    atlas_ms = cuda_ms(lambda: [raster.draw_pass_planar_prebinned(*a, **k)
-                                for a, k in k_atlas], 5)
-    mask_ms = cuda_ms(lambda: [raster.draw_pass_mask_prebinned(*a, **k)
-                               for a, k in a3], 5)
-    atlas_bound = bound_of(*map(sum, zip(*[raster_work(a, k) for a, k in k_atlas])))
-    mask_bound = bound_of(*map(sum, zip(*[raster_work(a, k, mask_target=True)
-                                          for a, k in a3])))
+
+    def atlas_loop():
+        for a, k in k_atlas:
+            raster.draw_pass_planar_prebinned(*a, **k)
+
+    def mask_loop():
+        for a, k in a3:
+            raster.draw_pass_mask_prebinned(*a, **k)
+
+    # CUDA events around the host loops of wrapper calls: the host's cost
+    atlas_host_ms, mask_host_ms = cuda_ms(atlas_loop, 5), cuda_ms(mask_loop, 5)
+    # the kernels' own device time: torch.profiler, and a CUDA graph replay
+    prof = kernel_device_ms(lambda: (atlas_loop(), mask_loop()))
+    atlas_dev = [v for k, v in prof.items() if "raster_tiles_kernel<false, true>" in k]
+    mask_dev = [v for k, v in prof.items() if "raster_tiles_kernel<true" in k]
+    atlas_dev_ms, mask_dev_ms = sum(v[0] for v in atlas_dev), sum(v[0] for v in mask_dev)
+    atlas_graph_ms, mask_graph_ms = graph_ms(atlas_loop), graph_ms(mask_loop)
+    atlas_work = sum(raster_work(a, k) for a, k in k_atlas)
+    mask_work = sum(raster_work(a, k, mask_target=True) for a, k in a3)
+    # the frame's two halves: the host walk and plan, then execute_plan (the
+    # upload and the executor's host loop of 1201 items) to the sync
+    host_ms, execute_ms = [], []
+    for _ in range(FRAMES):
+        t0 = time.perf_counter()
+        step = plan_execution(ren.flatten(scene, size))
+        t1 = time.perf_counter()
+        ren.execute_plan(step)
+        torch.cuda.synchronize()
+        host_ms.append((t1 - t0) * 1e3)
+        execute_ms.append((time.perf_counter() - t1) * 1e3)
     print(f"times: rolled: median {statistics.median(total_ms):.3f} ms/frame "
-          f"(render_frame + sync); whole executor {exec_ms:.3f} ms, its "
-          f"{len(k_atlas)} K1-atlas launches {atlas_ms:.3f} ms (bound "
-          f"{atlas_bound[0]:.4f} ms, {atlas_bound[1]}), its {len(a3)} K3 launches "
-          f"{mask_ms:.3f} ms (bound {mask_bound[0]:.4f} ms, {mask_bound[1]}) "
-          f"(device, CUDA events) {tag}", flush=True)
+          f"(render_frame + sync) = host walk and plan {statistics.median(host_ms):.3f} "
+          f"ms + execute_plan and sync {statistics.median(execute_ms):.3f} ms; whole "
+          f"executor {exec_ms:.3f} ms (CUDA events) {tag}", flush=True)
+    print(f"times: rolled: its {len(k_atlas)} K1-atlas launches: device "
+          f"{atlas_dev_ms:.3f} ms ({sum(v[1] for v in atlas_dev):g} kernels a run, "
+          f"torch.profiler), CUDA graph replay {atlas_graph_ms:.3f} ms, host loop "
+          f"{atlas_host_ms:.3f} ms (host time: CUDA events around the wrapper "
+          f"calls); {bound_text(atlas_work)} {tag}", flush=True)
+    print(f"times: rolled: its {len(a3)} K3 launches: device {mask_dev_ms:.3f} ms "
+          f"({sum(v[1] for v in mask_dev):g} kernels a run, torch.profiler), CUDA "
+          f"graph replay {mask_graph_ms:.3f} ms, host loop {mask_host_ms:.3f} ms "
+          f"(host time); {bound_text(mask_work)} {tag}", flush=True)
+    if not (len(k_atlas) == len(a3) == IMAGE_PANELS and atlas_dev_ms > 0 and mask_dev_ms > 0):
+        fail(f"rolled: the profiler saw no device time for the {len(k_atlas)} "
+             f"K1-atlas and {len(a3)} K3 launches; it saw {sorted(prof)[:20]}")
     return dict(launches=counts, k1_err=max(e1), k3_err=max(e3), frame_err=frame_err,
                 ms_per_frame=statistics.median(total_ms))
 
@@ -618,7 +725,8 @@ def clip_table_phase(kind: str, tag: str, dev) -> dict:
         combo = torch.from_numpy(combo_np).to(dev, copy=True)
         e4, a4 = [], []
         run(combo, None, draw=compared(mega.draw_pass_mega,
-                                       mega.draw_pass_mega_plain, e4, a4, kind))
+                                       mega.draw_pass_mega_plain, e4, a4, kind,
+                                       in_place=False))
         ref = run(combo, None, draw=mega.draw_pass_mega_plain)
         out.update(k4_err=e4[0], k4_args=a4[0][0] + (a4[0][1]["tile_h"],))
         out["k4_work"] = mega_work(out["k4_args"])
@@ -719,8 +827,9 @@ def main() -> None:
     draw_args = []  # (args, kwargs) of each headline draw, for the timings
 
     def compare_draw(*args, **kw):
+        before = as_before(args)
         out = raster.draw_pass_planar_prebinned(*args, **kw)
-        ref = plain(*args, **kw)
+        ref = plain(*before, **kw)
         torch.cuda.synchronize()
         if not (torch.isfinite(out).all() and torch.isfinite(ref).all()):
             fail("non-finite planes from the headline draw")
@@ -774,7 +883,7 @@ def main() -> None:
         backdrop = torch.from_numpy(rng.rand(4, ph, pw).astype(np.float32)).to(dev)
         masks = torch.ones((1, ph, pw), dtype=torch.float32, device=dev)
         out = raster.draw_pass_planar_prebinned(
-            fields, modes, bounds, tile_idx, tile_counts, planes, masks,
+            fields, modes, bounds, tile_idx, tile_counts, planes.clone(), masks,
             backdrop, tile_h=th)
         ref = plain(fields, modes, bounds, tile_idx, tile_counts, planes, masks,
                     backdrop, tile_h=th)
@@ -848,8 +957,9 @@ def main() -> None:
 
     kernel_ms = cuda_ms(draws(raster.draw_pass_planar_prebinned), 20)
     plain_ms = cuda_ms(draws(plain), 3)
+    k1_work = sum(raster_work(a, k) for a, k, _e in draw_args)
     print(f"times: headline draw runs (both): kernel {kernel_ms:.4f} ms, plain "
-          f"torch {plain_ms:.2f} ms {tag}", flush=True)
+          f"torch {plain_ms:.2f} ms; {bound_text(k1_work)} {tag}", flush=True)
     for i, (a, k, _e) in enumerate(draw_args):
         ms = cuda_ms(lambda: raster.draw_pass_planar_prebinned(*a, **k), 20)
         print(f"times: headline draw run {i}: kernel {ms:.4f} ms {tag}", flush=True)
@@ -884,7 +994,11 @@ def main() -> None:
     k1_table_ms = cuda_ms(lambda: [raster.draw_pass_planar_prebinned(*a, **k)
                                    for a, k in rm["k1_args"]], 20)
     print(f"times: K1 on the rect-mask table's two frame runs: kernel "
-          f"{k1_table_ms:.4f} ms {tag}", flush=True)
+          f"{k1_table_ms:.4f} ms; "
+          f"{bound_text(sum(raster_work(a, k) for a, k in rm['k1_args']))} {tag}",
+          flush=True)
+    print(f"times: K3 on the rect-mask table's mask run: {bound_text(rm['k3_work'])} "
+          f"{tag}", flush=True)
 
     # --- 7. images, text and the rolled executor ----------------------------------
     images = images_phase(tag, dev)
@@ -898,19 +1012,19 @@ def main() -> None:
           f"{plain_ms_atlas:.2f} ms {tag}", flush=True)
 
     # --- 8. results --------------------------------------------------------------
-    def work_sum(calls):
-        parts = [raster_work(a, k) for a, k in calls]
-        return sum(b for b, _o in parts), sum(o for _b, o in parts)
-
-    k1_bound = bound_of(*work_sum([(a, k) for a, k, _e in draw_args]))
-    atlas_bound = bound_of(*raster_work(scaled_args, scaled_kw))
-    k3_bound = bound_of(*rm["k3_work"])
+    # the in-place bound is the kernels' own (the out-of-place one counts
+    # the earlier design's bytes, for comparison)
+    k1_bound, k1_oop = bounds_of(k1_work)
+    atlas_bound, atlas_oop = bounds_of(images["images_scaled"]["work"])
+    k3_bound, k3_oop = bounds_of(rm["k3_work"])
     k4_bound = bound_of(*sc["k4_work"])
-    print(f"bounds: K1 headline draws {k1_bound[0]:.4f} ms ({k1_bound[1]}), K1-atlas "
-          f"images_scaled {atlas_bound[0]:.4f} ms ({atlas_bound[1]}), K3 rect-mask "
-          f"{k3_bound[0]:.4f} ms ({k3_bound[1]}), K4 sub-clip {k4_bound[0]:.4f} ms "
-          f"({k4_bound[1]}) at {HBM_BYTES_PER_S / 1e12:g} TB/s and "
-          f"{FP32_OPS_PER_S / 1e12:g} FP32 TFLOP/s", flush=True)
+    print(f"bounds: K1 headline draws {k1_bound[0]:.4f} ms ({k1_bound[1]}; out of "
+          f"place {k1_oop[0]:.4f}), K1-atlas images_scaled {atlas_bound[0]:.4f} ms "
+          f"({atlas_bound[1]}; out of place {atlas_oop[0]:.4f}), K3 rect-mask "
+          f"{k3_bound[0]:.4f} ms ({k3_bound[1]}; out of place {k3_oop[0]:.4f}), K4 "
+          f"sub-clip {k4_bound[0]:.4f} ms ({k4_bound[1]}) at "
+          f"{HBM_BYTES_PER_S / 1e12:g} TB/s and {FP32_OPS_PER_S / 1e12:g} FP32 "
+          f"TFLOP/s", flush=True)
     ctrl = images["sdf_control"]
     k1_paths = {"headline": launches, "rectmask": rm["launches"][0],
                 "images sdf_control": ctrl["launches"][0],
@@ -932,6 +1046,7 @@ def main() -> None:
             "plain_ms": plain_ms,
             "bound_ms": k1_bound[0],
             "bound_by": k1_bound[1],
+            "bound_out_of_place_ms": k1_oop[0],
             "library_ms": None,
         },
         {
@@ -948,6 +1063,7 @@ def main() -> None:
             "plain_ms": plain_ms_atlas,
             "bound_ms": atlas_bound[0],
             "bound_by": atlas_bound[1],
+            "bound_out_of_place_ms": atlas_oop[0],
             "library_ms": None,
         },
         {
@@ -962,6 +1078,7 @@ def main() -> None:
             "plain_ms": plain_ms_k3,
             "bound_ms": k3_bound[0],
             "bound_by": k3_bound[1],
+            "bound_out_of_place_ms": k3_oop[0],
             "library_ms": None,
         },
         {

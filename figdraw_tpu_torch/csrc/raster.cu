@@ -1,6 +1,6 @@
 // Tile rasterizer for NVIDIA Hopper (sm_90a): ordered compositing of
 // binned quads into a channel-planar RGBA frame (K1, and K1-atlas when the
-// pass samples the glyph/image atlas) or into one mask plane (K3).
+// pass samples the glyph/image atlas) or into one mask plane (K3), in place.
 //
 // Replaces figdraw_tpu/ops/raster_pallas.py `_kernel` (:156, pallas_call at
 // :344) in its frame-target form, as reached through
@@ -23,23 +23,46 @@
 // from the (S, S, 4) atlas, which sits in L2 (1-4 MB) for the whole pass. S
 // is a launch argument (the atlas doubles when it overflows).
 //
-// What bounds it on this card: arithmetic, not bytes. A 1080p frame is
-// 35 MB of planes read and written once per pass, about 20 us of HBM time,
-// while every pixel evaluates some 20 quads of SDF math (rounded and
-// elliptical boxes, gaussians, the bezier cubic solve) on the SM's FP32 and
-// SFU pipes. The design keeps that work on the pixels that need it:
+// What bounds it on this card. The work the pass needs is the SDF math of
+// each quad at the pixels of its bbox (FP32 and SFU pipes; no matrix product,
+// so the tensor cores have nothing to do) and the bytes of the pixels it
+// changes. An earlier design had every 16x16 block walk its whole tile
+// segment and read and write its whole target out of place: a quad that
+// touches 2 of a tile's 64 blocks cost a loop step in all 64, and a pass that
+// draws one small card still moved the whole frame (71 MB for K1-atlas and
+// 18 MB for K3 at 1080p). The design:
 //   * one thread per pixel, 16x16-pixel blocks: a pixel's blend chain is
-//     independent of its neighbours', so nothing crosses threads but the
-//     quad records;
-//   * every block walks the list of the tile that contains it, so all its
-//     threads evaluate the same quad at the same time and each mode branch
-//     is uniform across the block: only the SDF family the quad uses runs;
-//   * quad records are staged through shared memory in chunks of 32 rows
-//     and read from there as broadcasts;
-//   * the carry stays in registers and the frame is read and written once.
+//     serial and independent of its neighbours', so nothing crosses threads
+//     but the quad records;
+//   * in place: the target is read and written only by blocks that
+//     composite something, each pixel by its own thread, once; a block whose
+//     segment is empty, or whose quads all miss it, returns untouched;
+//   * exact per-block culling: each staged quad whose bbox, widened by
+//     CULL_MARGIN, misses the block's pixel centers is dropped before the
+//     pixel loop. eval_quad is exactly 0 outside the quad's polygon (the
+//     reference's `inside` guard), a zero fragment leaves the carry
+//     bit-identical (x * 0 + r * 1), and the polygon lies inside its bbox up
+//     to the bbox's float rounding and the 1e-6 uv guard, which the margin
+//     covers (a bbox the walk clamped to its mask plane's support covers the
+//     pixels where that plane is non-zero). The survivors keep their draw
+//     order: one warp tests a chunk of 32 list entries, __ballot_sync marks
+//     the survivors and each takes the slot __popc of the lower lanes gives;
+//   * asynchronous staging: the survivors' 272-byte rows go to shared memory
+//     with cp.async (17 x 16 B), double buffered, so the next chunk's bbox
+//     test (16 B per quad straight from global memory) and copy run while the
+//     block evaluates the current one; a warp finds the segment bounds with a
+//     32-way search (one load per lane and round) instead of a serial one;
+//   * each mode branch stays uniform across the block (one quad at a time),
+//     and the mask plane is read only where the fragment has alpha and the
+//     quad reads a plane other than 0 (the all-ones plane: fa * 1 == fa).
 // The TPU blocking rules are dropped: no VMEM chunking of the tape, no
 // (T, 1, N) reshape of the tile lists, no scalar prefetch (a block loads its
 // own segment bounds).
+//
+// Aliasing: K3's target is one plane of `masks`, and a quad may read that
+// plane. A thread reads masks[mi][pix] only inside its quad loop and writes
+// its pixel once after it, so every read sees the value from before the
+// pass. No pointer that may alias the target is __restrict__.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,91 +73,184 @@ namespace {
 
 constexpr int BLOCK = 16;  // pixels per block edge
 constexpr int THREADS = BLOCK * BLOCK;
-constexpr int CHUNK = 32;  // quad rows staged per shared-memory fill
+constexpr int WARPS = THREADS / 32;
+constexpr int CHUNK = 32;  // list entries one warp tests and stages at once
+constexpr int ROW_PIECES = figdraw::QF_WIDTH / 4;  // 16-byte pieces of a row
+constexpr int QF_BBOX_X0 = 6;  // bbox (x0, y0, x1, y1), fields 6-9
+// widening of a quad's bbox in the cull test, in pixels (ops/raster.py
+// CULL_MARGIN)
+constexpr float CULL_MARGIN = 1.0f;
+constexpr unsigned FULL = 0xffffffffu;
 
-// first position of the ascending list[0, count) holding a value >= value
-__device__ int lower_bound(const int* list, int count, int value) {
+// first position of the ascending list[0, count) holding a value >= value,
+// found by one warp (every lane returns it): each round probes 32 positions
+// spread over the candidates [lo, hi) and keeps the gap the answer lies in
+__device__ int warp_lower_bound(const int* list, int count, int value,
+                                int lane) {
   int lo = 0, hi = count;
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (list[mid] < value)
-      lo = mid + 1;
-    else
-      hi = mid;
+  while (hi - lo > 32) {
+    const int p = lo + (int)(((long long)lane * (hi - lo)) >> 5);
+    const int c = __popc(__ballot_sync(FULL, list[p] < value));
+    if (c == 0) return lo;  // list[lo] >= value
+    const int p_last = __shfl_sync(FULL, p, c - 1);
+    const int p_next = __shfl_sync(FULL, p, c & 31);
+    lo = p_last + 1;
+    if (c < 32) hi = p_next;
   }
-  return lo;
+  const int p = lo + lane;
+  return lo + __popc(__ballot_sync(FULL, p < hi && list[p] < value));
 }
 
-// MASK_TARGET: `frame` and `out` are one mask plane (K3), else the four
-// RGBA planes (K1). HAS_ATLAS: atlas-mode quads sample `atlas`; without it
-// the atlas branch is compiled out, so SDF-only passes pay nothing for it.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One staging buffer: the surviving quads' rows and mode words, in draw
+// order, and how many there are. 16-byte aligned, as are its rows (272 B).
+struct __align__(16) Stage {
+  float fields[CHUNK * figdraw::QF_WIDTH];
+  int modes[CHUNK * 2];
+  int count;
+};
+
+// Run by one warp: test the list entries [base, base + n) against the
+// block's pixel-center rectangle [cx0, cx1] x [cy0, cy1], write the
+// survivors' mode words and count, and start the copies of their rows (one
+// cp.async group; the caller waits for it before the block barrier).
+__device__ __forceinline__ void stage_chunk(Stage& st, const float* fields,
+                                            const int* modes, const int* list,
+                                            int base, int n, float cx0,
+                                            float cx1, float cy0, float cy1,
+                                            int lane) {
+  int q = 0;
+  bool keep = false;
+  if (lane < n) {
+    q = list[base + lane];
+    // fields 6-9 of a 272-byte row start 24 bytes in: two 8-byte loads
+    const float2* bb = reinterpret_cast<const float2*>(
+        fields + (size_t)q * figdraw::QF_WIDTH + QF_BBOX_X0);
+    const float2 lo = bb[0], hi = bb[1];
+    keep = lo.x - CULL_MARGIN <= cx1 && hi.x + CULL_MARGIN >= cx0 &&
+           lo.y - CULL_MARGIN <= cy1 && hi.y + CULL_MARGIN >= cy0;
+  }
+  const unsigned kept = __ballot_sync(FULL, keep);
+  if (keep) {
+    const int slot = __popc(kept & ((1u << lane) - 1u));
+    const float4* src =
+        reinterpret_cast<const float4*>(fields + (size_t)q * figdraw::QF_WIDTH);
+    float4* dst = reinterpret_cast<float4*>(st.fields + slot * figdraw::QF_WIDTH);
+#pragma unroll
+    for (int k = 0; k < ROW_PIECES; ++k) cp_async16(dst + k, src + k);
+    const int2 md = reinterpret_cast<const int2*>(modes)[q];
+    st.modes[2 * slot] = md.x;
+    st.modes[2 * slot + 1] = md.y;
+  }
+  if (lane == 0) st.count = __popc(kept);
+  cp_async_commit();
+}
+
+// MASK_TARGET: `target` is one mask plane (K3), else the four RGBA planes
+// (K1). HAS_ATLAS: atlas-mode quads sample `atlas`; without it the atlas
+// branch is compiled out, so SDF-only passes pay nothing for it.
 template <bool MASK_TARGET, bool HAS_ATLAS>
 __global__ void __launch_bounds__(THREADS)
 raster_tiles_kernel(const float* __restrict__ fields,
                     const int* __restrict__ modes,
                     const int* __restrict__ tile_idx,
                     const int* __restrict__ tile_counts,
-                    const int* __restrict__ bounds,
-                    const float* __restrict__ frame,
-                    const float* __restrict__ masks,
-                    const float* __restrict__ backdrop,
-                    const float4* __restrict__ atlas,
-                    float* __restrict__ out, int n_quads, int tiles_x,
-                    int tile_h, int tile_w, int ph, int pw, int atlas_size,
-                    bool pixelate, bool subpixel) {
-  __shared__ float s_fields[CHUNK * figdraw::QF_WIDTH];
-  __shared__ int s_modes[CHUNK * 2];
+                    const int* __restrict__ bounds, float* target,
+                    const float* masks, const float* backdrop,
+                    const float4* __restrict__ atlas, int n_quads,
+                    int tiles_x, int tile_h, int tile_w, int ph, int pw,
+                    int atlas_size, bool pixelate, bool subpixel) {
+  __shared__ Stage s_stage[2];
   __shared__ int s_seg[2];
 
   const int tid = threadIdx.y * BLOCK + threadIdx.x;
-  const int x = blockIdx.x * BLOCK + threadIdx.x;
-  const int y = blockIdx.y * BLOCK + threadIdx.y;
-  const int tile = (blockIdx.y * BLOCK / tile_h) * tiles_x +
-                   (blockIdx.x * BLOCK / tile_w);
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int bx0 = blockIdx.x * BLOCK;
+  const int by0 = blockIdx.y * BLOCK;
+  const int tile = (by0 / tile_h) * tiles_x + bx0 / tile_w;
   const int* list = tile_idx + (size_t)tile * n_quads;
-  if (tid == 0) {
-    const int count = tile_counts[tile];
-    s_seg[0] = lower_bound(list, count, bounds[0]);
-    s_seg[1] = lower_bound(list, count, bounds[1]);
+  if (warp < 2) {
+    const int at = warp == 0 ? bounds[0] : bounds[1];
+    const int j = warp_lower_bound(list, tile_counts[tile], at, lane);
+    if (lane == 0) s_seg[warp] = j;
   }
   __syncthreads();
   const int j_lo = s_seg[0];
   const int j_hi = s_seg[1];
+  if (j_lo >= j_hi) return;  // nothing of the run in this tile
 
+  // the block's pixel centers: (origin + index) + 0.5, exact in f32
+  const float cx0 = (float)bx0 + 0.5f, cx1 = (float)bx0 + 15.5f;
+  const float cy0 = (float)by0 + 0.5f, cy1 = (float)by0 + 15.5f;
+  const int n_chunks = (j_hi - j_lo + CHUNK - 1) / CHUNK;
+  if (warp == 0) {
+    stage_chunk(s_stage[0], fields, modes, list, j_lo, min(CHUNK, j_hi - j_lo),
+                cx0, cx1, cy0, cy1, lane);
+    cp_async_wait_all();
+  }
+  __syncthreads();
+
+  const int x = bx0 + threadIdx.x;
+  const int y = by0 + threadIdx.y;
   const size_t plane = (size_t)ph * pw;
   const size_t pix = (size_t)y * pw + x;
-  float r = frame[pix];  // the mask value m when MASK_TARGET
-  float g = 0.0f, b = 0.0f, a = 0.0f;
-  if (!MASK_TARGET) {
-    g = frame[plane + pix];
-    b = frame[2 * plane + pix];
-    a = frame[3 * plane + pix];
-  }
-  // pixel centers: (tile origin + index) + 0.5, exact in f32
   const float px = (float)x + 0.5f;
   const float py = (float)y + 0.5f;
-  float bd[4];
-  if (!MASK_TARGET && backdrop != nullptr) {
-    for (int ch = 0; ch < 4; ++ch) bd[ch] = backdrop[ch * plane + pix];
-  }
+  bool loaded = false;  // uniform: the block composited something
+  float r = 0.0f, g = 0.0f, b = 0.0f, a = 0.0f;  // r: the mask value m in K3
 
-  for (int base = j_lo; base < j_hi; base += CHUNK) {
-    const int nq = min(CHUNK, j_hi - base);
-    __syncthreads();  // the previous chunk is consumed
-    for (int k = tid; k < nq * figdraw::QF_WIDTH; k += THREADS) {
-      const int q = k / figdraw::QF_WIDTH;
-      const int c = k - q * figdraw::QF_WIDTH;
-      s_fields[k] = fields[(size_t)list[base + q] * figdraw::QF_WIDTH + c];
+  for (int c = 0; c < n_chunks; ++c) {
+    const Stage& st = s_stage[c & 1];
+    // the next chunk's test and copies, by a warp that takes turns, into the
+    // buffer the block finished reading before the last barrier
+    const int next = j_lo + (c + 1) * CHUNK;
+    const bool stager = next < j_hi && warp == (c + 1) % WARPS;
+    if (stager)
+      stage_chunk(s_stage[(c + 1) & 1], fields, modes, list, next,
+                  min(CHUNK, j_hi - next), cx0, cx1, cy0, cy1, lane);
+    const int nq = st.count;
+    if (nq > 0 && !loaded) {
+      loaded = true;
+      r = target[pix];
+      if (!MASK_TARGET) {
+        g = target[plane + pix];
+        b = target[2 * plane + pix];
+        a = target[3 * plane + pix];
+      }
     }
-    if (tid < nq * 2) s_modes[tid] = modes[(size_t)list[base + tid / 2] * 2 + tid % 2];
-    __syncthreads();
     for (int q = 0; q < nq; ++q) {
+      const int mode_packed = st.modes[2 * q];
+      const int mi = st.modes[2 * q + 1];
+      float bd[4];
+      const float* bdp = nullptr;
+      if (!MASK_TARGET && backdrop != nullptr) {
+        const int rest = mode_packed % 256;
+        if ((rest >= 128 ? rest - 128 : rest) == figdraw::MODE_BACKDROP_BLUR) {
+          for (int ch = 0; ch < 4; ++ch) bd[ch] = backdrop[ch * plane + pix];
+          bdp = bd;
+        }
+      }
       float frag[4];
-      figdraw::eval_quad(s_fields + q * figdraw::QF_WIDTH, s_modes[2 * q], px,
-                         py, !MASK_TARGET && backdrop != nullptr ? bd : nullptr,
-                         frag, HAS_ATLAS ? atlas : nullptr, atlas_size,
-                         pixelate, subpixel);
-      const float fa = frag[3] * masks[(size_t)s_modes[2 * q + 1] * plane + pix];
+      figdraw::eval_quad(st.fields + q * figdraw::QF_WIDTH, mode_packed, px,
+                         py, bdp, frag, HAS_ATLAS ? atlas : nullptr,
+                         atlas_size, pixelate, subpixel);
+      float fa = frag[3];
+      if (fa != 0.0f && mi != 0) fa *= masks[(size_t)mi * plane + pix];
       const float inv = 1.0f - fa;
       if (MASK_TARGET) {
         r = fa * fa + r * inv;
@@ -145,73 +261,74 @@ raster_tiles_kernel(const float* __restrict__ fields,
       b = frag[2] * fa + b * inv;
       a = fa + a * inv;
     }
+    if (stager) cp_async_wait_all();
+    __syncthreads();  // the next buffer is filled; this one is consumed
   }
-  out[pix] = r;
+  if (!loaded) return;  // every quad of the segment missed this block
+  target[pix] = r;
   if (!MASK_TARGET) {
-    out[plane + pix] = g;
-    out[2 * plane + pix] = b;
-    out[3 * plane + pix] = a;
+    target[plane + pix] = g;
+    target[2 * plane + pix] = b;
+    target[3 * plane + pix] = a;
   }
 }
 
 }  // namespace
 
 // C entry points (bound with ctypes by ops/raster.py). Shapes: fields
-// (n_quads, 68) f32, modes (n_quads, 2) i32, tile_idx (T, n_quads) i32,
-// tile_counts (T,) i32, bounds (2,) i32, masks (K, ph, pw) f32, atlas
-// (atlas_size, atlas_size, 4) f32 or null. ph is a multiple of tile_h, pw of
-// tile_w, and both tile edges of 16. Each launches on `stream` and returns
-// cudaGetLastError() as an int.
+// (n_quads, 68) f32 (16-byte aligned), modes (n_quads, 2) i32 (8-byte
+// aligned), tile_idx (T, n_quads) i32, tile_counts (T,) i32, bounds (2,)
+// i32, masks (K, ph, pw) f32 with masks[0] all ones, atlas (atlas_size,
+// atlas_size, 4) f32 or null. ph is a multiple of tile_h, pw of tile_w, and
+// both tile edges of 16. The target is updated in place. Each launches on
+// `stream` and returns cudaGetLastError() as an int.
 
 template <bool MASK_TARGET>
 static int launch(const float* fields, const int* modes, const int* tile_idx,
-                  const int* tile_counts, const int* bounds,
-                  const float* target, const float* masks,
-                  const float* backdrop, const float* atlas, float* out,
-                  int n_quads, int tiles_x, int tile_h, int tile_w, int ph,
-                  int pw, int atlas_size, int pixelate, int subpixel,
-                  void* stream) {
+                  const int* tile_counts, const int* bounds, float* target,
+                  const float* masks, const float* backdrop,
+                  const float* atlas, int n_quads, int tiles_x, int tile_h,
+                  int tile_w, int ph, int pw, int atlas_size, int pixelate,
+                  int subpixel, void* stream) {
   const dim3 block(BLOCK, BLOCK);
   const dim3 grid(pw / BLOCK, ph / BLOCK);
   const float4* atlas4 = reinterpret_cast<const float4*>(atlas);
   if (atlas != nullptr)
     raster_tiles_kernel<MASK_TARGET, true><<<grid, block, 0, (cudaStream_t)stream>>>(
         fields, modes, tile_idx, tile_counts, bounds, target, masks, backdrop,
-        atlas4, out, n_quads, tiles_x, tile_h, tile_w, ph, pw, atlas_size,
+        atlas4, n_quads, tiles_x, tile_h, tile_w, ph, pw, atlas_size,
         pixelate != 0, subpixel != 0);
   else
     raster_tiles_kernel<MASK_TARGET, false><<<grid, block, 0, (cudaStream_t)stream>>>(
         fields, modes, tile_idx, tile_counts, bounds, target, masks, backdrop,
-        nullptr, out, n_quads, tiles_x, tile_h, tile_w, ph, pw, 0, false,
-        false);
+        nullptr, n_quads, tiles_x, tile_h, tile_w, ph, pw, 0, false, false);
   return (int)cudaGetLastError();
 }
 
-// K1 / K1-atlas: frame/out/backdrop (4, ph, pw) f32; backdrop may be null.
+// K1 / K1-atlas: frame/backdrop (4, ph, pw) f32; backdrop may be null.
 extern "C" int figdraw_raster_frame(const float* fields, const int* modes,
                                     const int* tile_idx,
                                     const int* tile_counts, const int* bounds,
-                                    const float* frame, const float* masks,
+                                    float* frame, const float* masks,
                                     const float* backdrop, const float* atlas,
-                                    float* out, int n_quads, int tiles_x,
-                                    int tile_h, int tile_w, int ph, int pw,
-                                    int atlas_size, int pixelate, int subpixel,
-                                    void* stream) {
+                                    int n_quads, int tiles_x, int tile_h,
+                                    int tile_w, int ph, int pw, int atlas_size,
+                                    int pixelate, int subpixel, void* stream) {
   return launch<false>(fields, modes, tile_idx, tile_counts, bounds, frame,
-                       masks, backdrop, atlas, out, n_quads, tiles_x, tile_h,
+                       masks, backdrop, atlas, n_quads, tiles_x, tile_h,
                        tile_w, ph, pw, atlas_size, pixelate, subpixel, stream);
 }
 
-// K3: target/out (1, ph, pw) f32, the mask plane being written.
+// K3: target (1, ph, pw) f32, the mask plane being written; it may be one of
+// the planes of `masks`.
 extern "C" int figdraw_raster_mask(const float* fields, const int* modes,
                                    const int* tile_idx, const int* tile_counts,
-                                   const int* bounds, const float* target,
+                                   const int* bounds, float* target,
                                    const float* masks, const float* atlas,
-                                   float* out, int n_quads, int tiles_x,
-                                   int tile_h, int tile_w, int ph, int pw,
-                                   int atlas_size, int pixelate, int subpixel,
-                                   void* stream) {
+                                   int n_quads, int tiles_x, int tile_h,
+                                   int tile_w, int ph, int pw, int atlas_size,
+                                   int pixelate, int subpixel, void* stream) {
   return launch<true>(fields, modes, tile_idx, tile_counts, bounds, target,
-                      masks, nullptr, atlas, out, n_quads, tiles_x, tile_h,
-                      tile_w, ph, pw, atlas_size, pixelate, subpixel, stream);
+                      masks, nullptr, atlas, n_quads, tiles_x, tile_h, tile_w,
+                      ph, pw, atlas_size, pixelate, subpixel, stream);
 }

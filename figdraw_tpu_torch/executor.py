@@ -73,7 +73,9 @@ def get_frame_executor(structure: Tuple, height: int, width: int,
     the (S, S, 4) f32 atlas, passed with pixelate and subpixel_positioning
     to every draw whose run holds an atlas quad, frame and mask runs alike.
     draw / draw_mask: the frame and mask passes, the K1 and K3 wrappers
-    unless a check substitutes their plain versions.
+    (which update the executor's own planes in place) unless a check
+    substitutes their plain versions (which return new planes). The
+    caller's init_frame is never written.
 
     rolled: the rolled form (executor.get_rolled_executor:590-751), for
     plans of more than ROLLED_THRESHOLD items. The combo's meta is then one
@@ -155,12 +157,15 @@ def get_frame_executor(structure: Tuple, height: int, width: int,
                     masks, backdrop if item[3] else None,
                     atlas=atlas if item[2] else None, **flags)
             else:
-                # the kernel reads every plane as it was before the pass and
-                # writes a new one, so the store below is the only update
-                masks[item[1]] = draw_mask(
-                    fields, modes, bounds[row], tile_idx, tile_counts,
-                    masks[item[1]][None].contiguous(), masks,
-                    atlas=atlas if item[2] else None, **flags)[0]
+                # the kernel writes the plane in place, and each pixel's
+                # quads read every plane, this one too, before the pixel is
+                # written; a plain version returns a new plane to store
+                plane = masks[item[1] : item[1] + 1]
+                out = draw_mask(fields, modes, bounds[row], tile_idx,
+                                tile_counts, plane, masks,
+                                atlas=atlas if item[2] else None, **flags)
+                if out is not plane:
+                    plane.copy_(out)
         return planes.permute(1, 2, 0)[:height, :width].contiguous()
 
     return run

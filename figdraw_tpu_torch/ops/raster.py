@@ -11,6 +11,12 @@ tensors launch the kernel or raise; CPU tensors take the plain torch
 versions (`*_plain`, built on ops/quad_eval_planar.py), which the CPU tests
 and the on-card comparison use.
 
+The wrappers update their target in place and return it (the JAX passes
+are pure); the plain versions stay pure and return new planes, and the
+wrappers' CPU branch copies their result into the target. The kernel culls
+each 16x16 block's quads by bbox (`block_survivors` states the rule in
+plain torch; `_segment_walk(..., cull=True)` composites with it).
+
 The kernel library is compiled with nvcc at first use (ops/nvcc.py) and
 bound with ctypes through plain C entry points.
 """
@@ -23,12 +29,15 @@ import threading
 import torch
 
 from . import nvcc
-from .layout import QF_WIDTH, QI_MASK, QI_MODE, QI_WIDTH
+from .layout import QF_BBOX_X0, QF_WIDTH, QI_MASK, QI_MODE, QI_WIDTH
 from .quad_eval_planar import eval_quad_planar
 
 TILE_H = 128  # tile rows (64 or 32 when dense: plan.tile_h_from_density)
 TILE_W = 128
 BLOCK = 16  # the kernels' square pixel block; tiles are multiples of it
+# widening of a quad's bbox, in pixels, in the kernel's per-block cull: the
+# bbox's float rounding and the evaluator's 1e-6 uv guard stay inside it
+CULL_MARGIN = 1.0
 
 # kernel launches since the count was last reset: K1 (frame target, no
 # atlas), K1-atlas (frame target with the atlas) and K3 (mask target, with
@@ -52,9 +61,9 @@ def load() -> ctypes.CDLL:
             path, BUILD_LOG = nvcc.build("figdraw_raster", _SOURCES)
             lib = ctypes.CDLL(path)
             vp, i = ctypes.c_void_p, ctypes.c_int
-            lib.figdraw_raster_frame.argtypes = [vp] * 10 + [i] * 9 + [vp]
+            lib.figdraw_raster_frame.argtypes = [vp] * 9 + [i] * 9 + [vp]
             lib.figdraw_raster_frame.restype = i
-            lib.figdraw_raster_mask.argtypes = [vp] * 9 + [i] * 9 + [vp]
+            lib.figdraw_raster_mask.argtypes = [vp] * 8 + [i] * 9 + [vp]
             lib.figdraw_raster_mask.restype = i
             _lib = lib
         return _lib
@@ -104,6 +113,10 @@ def _check_args(fields, modes, bounds, tile_idx, tile_counts, target, masks,
             raise ValueError(f"atlas must be (S, S, 4), got {tuple(atlas.shape)}")
     _check(bounds, "bounds", torch.int32, 1, dev)
     _check(masks, "masks", torch.float32, 3, dev)
+    # the kernel stages quad rows in 16-byte pieces and reads mode pairs as
+    # 8-byte words
+    if fields.data_ptr() % 16 or modes.data_ptr() % 8:
+        raise ValueError("fields must be 16-byte and modes 8-byte aligned")
     if bounds.shape[0] != 2:
         raise ValueError("bounds must be the run's [start, end)")
     if masks.shape[1:] != target.shape[1:] or masks.shape[0] < 1:
@@ -118,10 +131,9 @@ def _launch(entry, fields, modes, bounds, tile_idx, tile_counts, target,
             masks, backdrop_planes, atlas, pixelate, subpixel_positioning,
             tile_h):
     """Launch one of the library's tile entry points on the target's
-    current stream; returns the new planes."""
+    current stream; the kernel updates the target in place."""
     lib = load()
     _, ph, pw = target.shape
-    out = torch.empty_like(target)
     stream = torch.cuda.current_stream(target.device).cuda_stream
     ptrs = [fields.data_ptr(), modes.data_ptr(), tile_idx.data_ptr(),
             tile_counts.data_ptr(), bounds.data_ptr(), target.data_ptr(),
@@ -130,13 +142,12 @@ def _launch(entry, fields, modes, bounds, tile_idx, tile_counts, target,
         ptrs.append(backdrop_planes.data_ptr()
                     if backdrop_planes is not None else None)
     ptrs.append(atlas.data_ptr() if atlas is not None else None)
-    rc = getattr(lib, entry)(*ptrs, out.data_ptr(), fields.shape[0],
+    rc = getattr(lib, entry)(*ptrs, fields.shape[0],
                              pw // TILE_W, tile_h, TILE_W, ph, pw,
                              atlas.shape[0] if atlas is not None else 0,
                              int(pixelate), int(subpixel_positioning), stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
-    return out
 
 
 def _no_kernel(device) -> None:
@@ -155,29 +166,30 @@ def draw_pass_planar_prebinned(fields, modes, bounds, tile_idx, tile_counts,
     fields (N, 68) f32 and modes (N, 2) i32: the unpacked tape; bounds: (2,)
     i32 [start, end); tile_idx (T, N) i32 / tile_counts (T,) i32: the
     binning of the whole tape (each tile's list ascending, so the run is one
-    contiguous segment of it); frame_planes (4, PH, PW) f32; masks (K, PH,
-    PW) f32, read at each quad's mask index; backdrop_planes (4, PH, PW) f32
+    contiguous segment of it); frame_planes (4, PH, PW) f32, updated in
+    place; masks (K, PH, PW) f32, read at each quad's mask index, masks[0]
+    all ones (the kernel does not read it); backdrop_planes (4, PH, PW) f32
     or None, sampled by mode-17 quads; atlas (S, S, 4) f32 or None, sampled
     by atlas-mode quads (0, 13-16), nearest when pixelate, mode 0's u
     shifted by the quad's subpixel shift when subpixel_positioning. Returns
-    the new (4, PH, PW) planes.
+    frame_planes.
     """
     if frame_planes.device.type == "cpu":
-        return draw_pass_planar_prebinned_plain(
+        return frame_planes.copy_(draw_pass_planar_prebinned_plain(
             fields, modes, bounds, tile_idx, tile_counts, frame_planes, masks,
-            backdrop_planes, tile_h, atlas, pixelate, subpixel_positioning)
+            backdrop_planes, tile_h, atlas, pixelate, subpixel_positioning))
     _no_kernel(frame_planes.device)
     _check_args(fields, modes, bounds, tile_idx, tile_counts, frame_planes,
                 masks, backdrop_planes, atlas, tile_h, 4)
-    out = _launch("figdraw_raster_frame", fields, modes, bounds, tile_idx,
-                  tile_counts, frame_planes, masks, backdrop_planes, atlas,
-                  pixelate, subpixel_positioning, tile_h)
+    _launch("figdraw_raster_frame", fields, modes, bounds, tile_idx,
+            tile_counts, frame_planes, masks, backdrop_planes, atlas, pixelate,
+            subpixel_positioning, tile_h)
     global LAUNCHES, ATLAS_LAUNCHES
     if atlas is None:
         LAUNCHES += 1
     else:
         ATLAS_LAUNCHES += 1
-    return out
+    return frame_planes
 
 
 def draw_pass_mask_prebinned(fields, modes, bounds, tile_idx, tile_counts,
@@ -189,23 +201,24 @@ def draw_pass_mask_prebinned(fields, modes, bounds, tile_idx, tile_counts,
     fa = alpha * masks[mask_i] and m = fa*fa + m*(1 - fa), the GL blend of
     glsl/mask.frag.
 
-    mask_plane (1, PH, PW) f32: the target plane's current values; masks
-    (K, PH, PW) f32: every plane, read at each quad's mask index as it was
-    before the pass. The other arguments are draw_pass_planar_prebinned's.
-    Returns the new (1, PH, PW) plane (out of place)."""
+    mask_plane (1, PH, PW) f32: the target plane, updated in place; it may
+    be a view of one of the planes of masks (masks[p : p + 1]); masks (K,
+    PH, PW) f32: every plane, read at each quad's mask index as it was
+    before the pass, masks[0] all ones. The other arguments are
+    draw_pass_planar_prebinned's. Returns mask_plane."""
     if mask_plane.device.type == "cpu":
-        return draw_pass_mask_prebinned_plain(
+        return mask_plane.copy_(draw_pass_mask_prebinned_plain(
             fields, modes, bounds, tile_idx, tile_counts, mask_plane, masks,
-            tile_h, atlas, pixelate, subpixel_positioning)
+            tile_h, atlas, pixelate, subpixel_positioning))
     _no_kernel(mask_plane.device)
     _check_args(fields, modes, bounds, tile_idx, tile_counts, mask_plane,
                 masks, None, atlas, tile_h, 1)
-    out = _launch("figdraw_raster_mask", fields, modes, bounds, tile_idx,
-                  tile_counts, mask_plane, masks, None, atlas, pixelate,
-                  subpixel_positioning, tile_h)
+    _launch("figdraw_raster_mask", fields, modes, bounds, tile_idx,
+            tile_counts, mask_plane, masks, None, atlas, pixelate,
+            subpixel_positioning, tile_h)
     global MASK_LAUNCHES
     MASK_LAUNCHES += 1
-    return out
+    return mask_plane
 
 
 def to_tiles(planes, tiles_y, th, tiles_x, tw):
@@ -233,27 +246,88 @@ def pixel_centers(tiles_y, th, tiles_x, tw, device):
     return y0 + iy + 0.5, x0 + ix + 0.5
 
 
-def _segment_walk(fields, modes, bounds, tile_idx, tile_counts, target, masks,
-                  backdrop_planes, tile_h, mask_target: bool, atlas=None,
-                  pixelate: bool = False, subpixel_positioning: bool = False):
-    """The plain walk behind both *_plain versions. Each tile walks its run
-    segment in draw order. The walk goes by depth: step k evaluates the
-    k-th quad of every tile whose segment is longer than k, in one batched
-    eval_quad_planar call over those tiles' pixels, and blends it over them,
-    so every pixel sees its tile's quads in the same order as the kernel."""
-    th, tw = tile_h, TILE_W
-    _, ph, pw = target.shape
-    tiles_y, tiles_x = ph // th, pw // tw
-    dev = target.device
-    n = fields.shape[0]
+def tile_origins(tiles_y, th, tiles_x, tw, device):
+    """Each tile's first pixel ((T,) x0, (T,) y0) as int64, row-major."""
+    t = torch.arange(tiles_y * tiles_x, device=device)
+    return (t % tiles_x) * tw, (t // tiles_x) * th
 
-    # each tile's run segment [j_lo, j_hi) of its ascending list
-    pos = torch.arange(n, device=dev)
+
+def run_segments(bounds, tile_idx, tile_counts):
+    """Each tile's run segment [j_lo, j_hi) of its ascending list: the
+    positions of the first entries >= bounds[0] and >= bounds[1] ((T,)
+    int64 each)."""
+    n = tile_idx.shape[1]
+    pos = torch.arange(n, device=tile_idx.device)
     live = pos[None, :] < tile_counts[:, None].long()
     lists = torch.where(live, tile_idx.long(), torch.iinfo(torch.int64).max)
     seg = bounds.long().reshape(2, 1, 1).expand(2, lists.shape[0], 1)
     j_lo = torch.searchsorted(lists, seg[0].contiguous()).squeeze(1)
     j_hi = torch.searchsorted(lists, seg[1].contiguous()).squeeze(1)
+    return j_lo, j_hi
+
+
+def block_survivors(bbox, x0, y0, tile_h: int):
+    """The kernel's per-block cull in plain torch: (..., tile_h // 16,
+    TILE_W // 16) bool, whether a quad with bbox (..., 4) f32 (x0, y0, x1,
+    y1), widened by CULL_MARGIN, reaches the pixel centers of each 16x16
+    block of the tile whose first pixel is (x0, y0) ((...) int tensors).
+    Computed in f32, as the kernel computes it."""
+    bx = torch.arange(0, TILE_W, BLOCK, device=bbox.device)
+    by = torch.arange(0, tile_h, BLOCK, device=bbox.device)
+    cx0 = (x0[..., None] + bx).to(torch.float32) + 0.5
+    cy0 = (y0[..., None] + by).to(torch.float32) + 0.5
+    cx1, cy1 = cx0 + 15.0, cy0 + 15.0  # the block's last centers, exact
+    hit_x = ((bbox[..., 0:1] - CULL_MARGIN <= cx1)
+             & (bbox[..., 2:3] + CULL_MARGIN >= cx0))
+    hit_y = ((bbox[..., 1:2] - CULL_MARGIN <= cy1)
+             & (bbox[..., 3:4] + CULL_MARGIN >= cy0))
+    return hit_y[..., :, None] & hit_x[..., None, :]
+
+
+def block_pairs(fields, bounds, tile_idx, tile_counts, tile_h: int, ph: int,
+                pw: int):
+    """What the kernel's cull leaves of one pass over a (ph, pw) target:
+    (quad-block pairs of the run segments, the pairs that survive the cull,
+    the blocks that keep at least one quad and so read and write their
+    pixels), as ints."""
+    j_lo, j_hi = run_segments(bounds, tile_idx, tile_counts)
+    depth = j_hi - j_lo
+    per_tile = (tile_h // BLOCK) * (TILE_W // BLOCK)
+    before = int(depth.sum()) * per_tile
+    d = int(depth.max()) if depth.numel() else 0
+    if d == 0:
+        return before, 0, 0
+    k = torch.arange(d, device=depth.device)
+    valid = k[None, :] < depth[:, None]
+    pos = (j_lo[:, None] + k).clamp(max=tile_idx.shape[1] - 1)
+    q = tile_idx.gather(1, pos).long()
+    x0, y0 = tile_origins(ph // tile_h, tile_h, pw // TILE_W, TILE_W, depth.device)
+    surv = block_survivors(fields[q][..., QF_BBOX_X0 : QF_BBOX_X0 + 4],
+                           x0[:, None].expand_as(q), y0[:, None].expand_as(q),
+                           tile_h) & valid[:, :, None, None]
+    return before, int(surv.sum()), int(surv.any(dim=1).sum())
+
+
+def _segment_walk(fields, modes, bounds, tile_idx, tile_counts, target, masks,
+                  backdrop_planes, tile_h, mask_target: bool, atlas=None,
+                  pixelate: bool = False, subpixel_positioning: bool = False,
+                  cull: bool = False):
+    """The plain walk behind both *_plain versions. Each tile walks its run
+    segment in draw order. The walk goes by depth: step k evaluates the
+    k-th quad of every tile whose segment is longer than k, in one batched
+    eval_quad_planar call over those tiles' pixels, and blends it over them,
+    so every pixel sees its tile's quads in the same order as the kernel.
+
+    cull: composite as the kernel does, each quad only in the 16x16 blocks
+    where it survives block_survivors, and the mask plane multiplied in only
+    where the fragment has alpha and the plane is not 0. The CPU tests hold
+    it bit-identical to the full walk."""
+    th, tw = tile_h, TILE_W
+    _, ph, pw = target.shape
+    tiles_y, tiles_x = ph // th, pw // tw
+    dev = target.device
+
+    j_lo, j_hi = run_segments(bounds, tile_idx, tile_counts)
     depth = j_hi - j_lo
 
     carry = to_tiles(target, tiles_y, th, tiles_x, tw).clone()
@@ -261,6 +335,7 @@ def _segment_walk(fields, modes, bounds, tile_idx, tile_counts, target, masks,
     bd_t = (None if backdrop_planes is None
             else to_tiles(backdrop_planes, tiles_y, th, tiles_x, tw))
     py_t, px_t = pixel_centers(tiles_y, th, tiles_x, tw, dev)
+    x0_t, y0_t = tile_origins(tiles_y, th, tiles_x, tw, dev)
 
     for k in range(int(depth.max()) if depth.numel() else 0):
         act = torch.nonzero(depth > k).squeeze(1)
@@ -280,15 +355,24 @@ def _segment_walk(fields, modes, bounds, tile_idx, tile_counts, target, masks,
             backdrop_planes=bd, atlas=atlas, pixelate=pixelate,
             subpixel_positioning=subpixel_positioning,
         )
-        fa = fa * mask_t[act, m[:, QI_MASK].long()]
+        mi = m[:, QI_MASK].long()
+        if cull:
+            reads = (fa != 0.0) & (mi != 0)[:, None, None]
+            fa = torch.where(reads, fa * mask_t[act, mi], fa)
+            keep = block_survivors(f[:, QF_BBOX_X0 : QF_BBOX_X0 + 4], x0_t[act],
+                                   y0_t[act], th)
+            keep = keep.repeat_interleave(BLOCK, 1).repeat_interleave(BLOCK, 2)
+        else:
+            fa = fa * mask_t[act, mi]
         dst = carry[act]
         if mask_target:
-            carry[act] = (fa * fa + dst[:, 0] * (1.0 - fa))[:, None]
-            continue
-        inv = 1.0 - fa
-        carry[act] = torch.stack(
-            (fr * fa + dst[:, 0] * inv, fg * fa + dst[:, 1] * inv,
-             fb * fa + dst[:, 2] * inv, fa + dst[:, 3] * inv), dim=1)
+            new = (fa * fa + dst[:, 0] * (1.0 - fa))[:, None]
+        else:
+            inv = 1.0 - fa
+            new = torch.stack(
+                (fr * fa + dst[:, 0] * inv, fg * fa + dst[:, 1] * inv,
+                 fb * fa + dst[:, 2] * inv, fa + dst[:, 3] * inv), dim=1)
+        carry[act] = torch.where(keep[:, None], new, dst) if cull else new
     return from_tiles(carry, tiles_y, th, tiles_x, tw)
 
 

@@ -270,13 +270,14 @@ def test_cpu_tensors_take_the_plain_atlas_pass():
     tile_idx, tile_counts = bin_quads(f, 0, f.shape[0], 2, 2, 64, 128)
     args = (f, torch.from_numpy(modes), torch.tensor([0, n], dtype=torch.int32),
             tile_idx, tile_counts, torch.rand(4, 128, 256), torch.ones(1, 128, 256))
+    want = raster.draw_pass_planar_prebinned_plain(*args, tile_h=64,
+                                                   atlas=torch.from_numpy(atlas))
     before = (raster.LAUNCHES, raster.ATLAS_LAUNCHES)
     out = raster.draw_pass_planar_prebinned(*args, tile_h=64,
                                             atlas=torch.from_numpy(atlas))
     assert (raster.LAUNCHES, raster.ATLAS_LAUNCHES) == before
-    np.testing.assert_array_equal(
-        out.numpy(), raster.draw_pass_planar_prebinned_plain(
-            *args, tile_h=64, atlas=torch.from_numpy(atlas)).numpy())
+    assert out is args[5]  # the target, updated in place
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
 
 
 # --- bench_images' variants through render_frame ----------------------------------

@@ -51,14 +51,16 @@ def test_raster_kernel_matches_plain(th, dev):
     masks = torch.cat([torch.ones_like(mask1), mask1])
     bounds = torch.tensor([0, n_live], dtype=torch.int32, device=dev)
     args = (f, m, bounds, tile_idx, tile_counts, planes, masks, backdrop)
+    planes0 = planes.clone()  # the kernel updates planes in place
     before = raster.LAUNCHES
     out = raster.draw_pass_planar_prebinned(*args, tile_h=th)
-    assert raster.LAUNCHES == before + 1
-    ref = raster.draw_pass_planar_prebinned_plain(*args, tile_h=th)
+    assert raster.LAUNCHES == before + 1 and out is planes
+    ref = raster.draw_pass_planar_prebinned_plain(
+        f, m, bounds, tile_idx, tile_counts, planes0, masks, backdrop, tile_h=th)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out).all())
     assert float((out - ref).abs().max()) <= TOL
-    assert float((out - planes).abs().max()) > 0.1
+    assert float((out - planes0).abs().max()) > 0.1
 
 
 def test_headline_frame_matches_plain_executor(dev):
@@ -116,14 +118,38 @@ def _mask_args(th, dev, w=512, h=256):
 @pytest.mark.parametrize("th", [128, 64, 32])
 def test_mask_kernel_matches_plain(th, dev):
     args = _mask_args(th, dev)
+    target0 = args[5].clone()  # the kernel updates the target in place
     before = raster.MASK_LAUNCHES
     out = raster.draw_pass_mask_prebinned(*args, tile_h=th)
-    assert raster.MASK_LAUNCHES == before + 1
-    ref = raster.draw_pass_mask_prebinned_plain(*args, tile_h=th)
+    assert raster.MASK_LAUNCHES == before + 1 and out is args[5]
+    ref = raster.draw_pass_mask_prebinned_plain(*args[:5], target0, args[6], tile_h=th)
     torch.cuda.synchronize()
     assert tuple(out.shape) == (1, 256, 512) and bool(torch.isfinite(out).all())
     assert float((out - ref).abs().max()) <= TOL
-    assert float((out - args[5]).abs().max()) > 0.1
+    assert float((out - target0).abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("p", [1, 2])
+def test_mask_kernel_in_place_reads_its_own_plane(p, dev):
+    """K3 into masks[p : p + 1], a view of the stack, with quads that read
+    plane p itself: each pixel's reads see the plane as it was before the
+    pass, and every other plane keeps its bits."""
+    f, m, bounds, tile_idx, tile_counts, _target, masks = _mask_args(64, dev)
+    m[3::3, 1] = p
+    before = masks.clone()
+    plane = masks[p : p + 1]
+    out = raster.draw_pass_mask_prebinned(f, m, bounds, tile_idx, tile_counts,
+                                          plane, masks, tile_h=64)
+    ref = raster.draw_pass_mask_prebinned_plain(
+        f, m, bounds, tile_idx, tile_counts, before[p : p + 1].clone(), before,
+        tile_h=64)
+    torch.cuda.synchronize()
+    assert out is plane
+    assert float((masks[p : p + 1] - ref).abs().max()) <= TOL
+    assert float((masks[p] - before[p]).abs().max()) > 0.1
+    for k in range(masks.shape[0]):
+        if k != p:
+            assert torch.equal(masks[k], before[k])
 
 
 def _mega_args(n_masks, th, dev, w=512, h=256):
@@ -259,14 +285,17 @@ def test_atlas_kernel_matches_plain(size, dev):
     for pixelate, subpixel in ((False, False), (False, True), (True, False)):
         kw = dict(tile_h=64, atlas=atlas, pixelate=pixelate,
                   subpixel_positioning=subpixel)
+        # the kernels update their targets in place: each pass gets fresh
+        # copies, and the plain versions the planes as they were
+        target, stack = planes.clone(), masks.clone()
         before = (raster.LAUNCHES, raster.ATLAS_LAUNCHES)
         out = raster.draw_pass_planar_prebinned(f, m, bounds, tile_idx, tile_counts,
-                                                planes, masks, **kw)
+                                                target, masks, **kw)
         assert (raster.LAUNCHES, raster.ATLAS_LAUNCHES) == (before[0], before[1] + 1)
         ref = raster.draw_pass_planar_prebinned_plain(f, m, bounds, tile_idx,
                                                       tile_counts, planes, masks, **kw)
         mask_out = raster.draw_pass_mask_prebinned(f, m, bounds, tile_idx, tile_counts,
-                                                   masks[1:], masks, **kw)
+                                                   stack[1:], stack, **kw)
         mask_ref = raster.draw_pass_mask_prebinned_plain(f, m, bounds, tile_idx,
                                                          tile_counts, masks[1:], masks, **kw)
         torch.cuda.synchronize()
@@ -287,7 +316,7 @@ def test_pixelate_on_minified_draws_matches_plain(dev):
     tile_idx, tile_counts = bin_quads(f, 0, f.shape[0], 2, 4, 128, 128)
     kw = dict(tile_h=128, atlas=atlas, pixelate=True)
     out = raster.draw_pass_planar_prebinned(f, m, bounds, tile_idx, tile_counts,
-                                            planes, masks, **kw)
+                                            planes.clone(), masks, **kw)
     ref = raster.draw_pass_planar_prebinned_plain(f, m, bounds, tile_idx, tile_counts,
                                                   planes, masks, **kw)
     torch.cuda.synchronize()

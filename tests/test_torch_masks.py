@@ -210,11 +210,12 @@ def test_cpu_tensors_take_the_plain_mask_pass():
     args = (torch.from_numpy(fields), torch.from_numpy(modes),
             torch.tensor([0, n_live], dtype=torch.int32), tile_idx, tile_counts,
             torch.from_numpy(target), torch.from_numpy(masks))
+    want = raster.draw_pass_mask_prebinned_plain(*args, tile_h=64)
     before = raster.MASK_LAUNCHES
     out = raster.draw_pass_mask_prebinned(*args, tile_h=64)
     assert raster.MASK_LAUNCHES == before
-    np.testing.assert_array_equal(
-        out.numpy(), raster.draw_pass_mask_prebinned_plain(*args, tile_h=64).numpy())
+    assert out is args[5]  # the target, updated in place
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
     meta = torch.empty((1, 128, 128), device="meta")
     with pytest.raises(ValueError, match="no raster kernel"):
         raster.draw_pass_mask_prebinned(meta, meta, meta, meta, meta, meta, meta)

@@ -70,11 +70,12 @@ def test_cpu_tensors_take_the_plain_version():
             torch.tensor([0, n_live], dtype=torch.int32), tile_idx, tile_counts,
             torch.from_numpy(planes), torch.from_numpy(masks),
             torch.from_numpy(backdrop))
+    want = raster.draw_pass_planar_prebinned_plain(*args, tile_h=64)
     before = raster.LAUNCHES
     out = raster.draw_pass_planar_prebinned(*args, tile_h=64)
     assert raster.LAUNCHES == before  # no kernel ran
-    np.testing.assert_array_equal(
-        out.numpy(), raster.draw_pass_planar_prebinned_plain(*args, tile_h=64).numpy())
+    assert out is args[5]  # the target, updated in place
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
 
 
 def test_other_devices_raise():
