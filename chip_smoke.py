@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the native walk (g++) and the CUDA kernels (nvcc, one process per
-source, all at once) from the checkout. Two paths run through
-FigRenderer(device="cuda").render_frame:
+source, all at once) from the checkout. These paths run through
+FigRenderer(device="cuda").render_frame or execute_plan:
 
 - the 1080p 300-box headline scene (bench.py): the tile rasterizer K1,
   held against its plain torch version on the headline tape and on a scene
@@ -14,16 +14,25 @@ FigRenderer(device="cuda").render_frame:
   the rect-mask table on the frame executor (K1 twice and the mask-plane
   pass K3 once per frame) and the sub-clip table on the megakernel (K4 once
   per frame), each kernel held against its plain version on the frame's
-  own inputs;
+  own inputs, and the megakernel also on a seeded tape that drives every
+  clamp of its walk;
 - images: bench_images.py's four variants at 1920x1080 with 400 panels,
   the photo published mipmapped on an image bus (K1-atlas once per frame,
   K1 for the SDF control);
 - text: bench_text.py's frame (1200x800, 36 lines) from its stored plan
   and atlas through execute_plan (K1-atlas once per frame): the card's
   machine has no fontTools;
-- rolled: the images_clipped cards at 1920x1080 with 400 panels, 1201 pass
-  items on the rolled executor (per card K3 into the mask plane and
-  K1-atlas into the frame).
+- clipped cards: the images_clipped cards at 1920x1080 with 400 panels
+  (1201 pass items) through render_frame, which sends them to the
+  megakernel with the atlas (K4-atlas once per frame);
+- text table: a stored tape of text in clipped cells (1200x800, 180 rows x
+  6 cells, `reference/textclip_1200x800.npz`) planned by the port and run
+  through execute_plan (K4-atlas once per frame);
+- rolled: the same clipped cards through execute_plan on the rolled form
+  of the frame executor (plan.plan_rolled: per card K3 into the mask plane
+  and K1-atlas into the frame), the route these frames took before the
+  megakernel had its atlas form; both atlas scenes run both routes in
+  turns.
 
 It checks the frames and the launch counts of each path, holds reduced
 frames against stored block means of the JAX package's frames, and prints
@@ -31,7 +40,9 @@ times beside the card's name and power limit. The tile kernels work in
 place, so each comparison hands the plain version the target as it was
 before the kernel ran; their bounds are printed in place (the kernels'
 own) and out of place (as earlier runs counted them), with the quad-block
-pairs the kernels' bbox cull keeps; the rolled path's launches are timed
+pairs (for the megakernel: list entries, clear sentinels included) the
+kernels' bbox cull keeps; each kernel's time is taken twice, by CUDA events
+around its wrapper call and, for the kernel alone, by torch.profiler; the rolled path's launches are timed
 on the device by torch.profiler and a CUDA graph replay, and on the host
 around the wrapper calls. The line before the card line lists each kernel
 with its launches, error, time and bound; the last line is the run's
@@ -122,22 +133,26 @@ def block_means(frame, k: int = 8):
     return frame[:h, :w].reshape(h // k, k, w // k, k, c).mean(axis=(1, 3))
 
 
-def as_before(args):
-    """A tile pass's arguments with its target (args[5]) and mask stack
-    (args[6]) copied: the kernels update the target in place, and K3's
-    target is a plane of the stack, so a plain version run after the kernel
-    gets them as they were before it."""
-    return args[:5] + (args[5].clone(), args[6].clone()) + tuple(args[7:])
+TILE_TARGETS = (5, 6)  # a tile pass's target and mask stack
+MEGA_TARGETS = (4,)  # the megakernel's frame planes
 
 
-def compared(fn, plain, errs, store, what: str, in_place: bool = True):
+def as_before(args, targets=TILE_TARGETS):
+    """A pass's arguments with its target copied (for a tile pass args[5]
+    and the mask stack args[6]; for the megakernel args[4]): the kernels
+    update the target in place, and K3's target is a plane of the stack, so
+    a plain version run after the kernel gets them as they were before it."""
+    return tuple(a.clone() if i in targets else a for i, a in enumerate(args))
+
+
+def compared(fn, plain, errs, store, what: str, targets=TILE_TARGETS):
     """fn wrapped so that each call also runs its plain version on the same
-    inputs (as they were before the kernel ran, for the in-place tile
-    passes), records max |kernel - plain| and the call's arguments."""
+    inputs (as they were before the kernel ran: the passes work in place),
+    records max |kernel - plain| and the call's arguments."""
     import torch
 
     def call(*args, **kw):
-        before = as_before(args) if in_place else args
+        before = as_before(args, targets)
         got = fn(*args, **kw)
         ref = plain(*before, **kw)
         torch.cuda.synchronize()
@@ -218,6 +233,31 @@ def covered(pairs, sel, shape) -> int:
     return int(plane.sum())
 
 
+def atlas_bytes(fields, pairs, atlas) -> int:
+    """Bytes of the (S, S, 4) f32 atlas that the pairs' atlas quads (modes 0
+    and 13-16) sample: the texels inside each quad's uv parallelogram's
+    bounding rectangle, a texel wider for the bilinear taps, each counted
+    once."""
+    import numpy as np
+
+    from figdraw_tpu_torch.ops.layout import QF_UV3_X
+
+    s = atlas.shape[0]
+    base = (pairs[1] % 256) % 128
+    q = np.unique(pairs[0][(base == 0) | ((base >= 13) & (base <= 16))])
+    uv = fields.cpu().numpy()[q, QF_UV3_X : QF_UV3_X + 6]
+    us = uv[:, 0:1] + np.stack([0 * uv[:, 2], uv[:, 2], uv[:, 4], uv[:, 2] + uv[:, 4]], 1)
+    vs = uv[:, 1:2] + np.stack([0 * uv[:, 3], uv[:, 3], uv[:, 5], uv[:, 3] + uv[:, 5]], 1)
+    x0 = np.clip(np.floor(us.min(1) * s) - 1, 0, s).astype(np.int64)
+    x1 = np.clip(np.ceil(us.max(1) * s) + 1, 0, s).astype(np.int64)
+    y0 = np.clip(np.floor(vs.min(1) * s) - 1, 0, s).astype(np.int64)
+    y1 = np.clip(np.ceil(vs.max(1) * s) + 1, 0, s).astype(np.int64)
+    texels = np.zeros((s, s), bool)
+    for a, b, c, d in zip(x0, x1, y0, y1):
+        texels[c:d, a:b] = True
+    return int(texels.sum()) * 16
+
+
 def bound_of(n_bytes: float, n_ops: float):
     """(bound_ms, bound_by): the least time for moving n_bytes through HBM
     once and doing n_ops FP32 operations, whichever is longer."""
@@ -231,8 +271,8 @@ def raster_work(args, kw, mask_target=False):
     quad-block pairs of the run segments, the pairs the cull keeps). Bytes:
     the quads' rows and modes, the live entries of the tile lists, the
     bounds, each mask plane the quads index and the backdrop only at the
-    pixels the quads (mode-17 quads for the backdrop) cover, the atlas once,
-    and the target read and written: whole for an out-of-place pass (the
+    pixels the quads (mode-17 quads for the backdrop) cover, the atlas
+    texels the quads sample (atlas_bytes), and the target read and written: whole for an out-of-place pass (the
     kernels' earlier design), only at the 16x16 blocks that keep a quad for
     the in-place kernel. Ops by tile_ops over the same pairs; pairs by
     raster.block_pairs."""
@@ -256,7 +296,7 @@ def raster_work(args, kw, mask_target=False):
     if backdrop is not None:
         n_bytes += 16 * covered(pairs, (pairs[1] % 256) % 128 == 17, (ph, pw))
     if atlas is not None:
-        n_bytes += atlas.nelement() * 4
+        n_bytes += atlas_bytes(fields, pairs, atlas)
     before, after, blocks = raster.block_pairs(fields, bounds, tile_idx, tile_counts,
                                                kw["tile_h"], ph, pw)
     per_block = 2 * planes * raster.BLOCK * raster.BLOCK * 4
@@ -300,6 +340,18 @@ def kernel_device_ms(fn, reps: int = 3) -> dict:
     return out
 
 
+def device_ms_of(fn, kernel: str, reps: int = 5) -> float:
+    """Device ms per run of fn() in the kernels whose name holds `kernel`,
+    from torch.profiler: the kernel's own time, where CUDA events around a
+    wrapper call also count the host's part of a launch into an idle
+    queue."""
+    prof = kernel_device_ms(fn, reps)
+    hits = [v for k, v in prof.items() if kernel in k]
+    if not hits:
+        fail(f"the profiler saw no kernel named {kernel}; it saw {sorted(prof)[:20]}")
+    return sum(v[0] for v in hits)
+
+
 def graph_ms(fn, reps: int = 5) -> float:
     """Median device ms of one replay of a CUDA graph of fn()'s launches (no
     host work between them), by CUDA events."""
@@ -316,21 +368,34 @@ def graph_ms(fn, reps: int = 5) -> float:
     return cuda_ms(graph.replay, reps)
 
 
-def mega_work(args):
-    """(bytes, ops) of one K4 call: the rows and modes of the quads the
-    lists hold, their live entries, the planes read and written whole (the
-    mask planes live in shared memory)."""
+def mega_work(args, kw):
+    """The work of one K4 / K4-atlas call, as raster_work's vector (bytes
+    out of place, bytes in place, ops, entry-block pairs of the tile lists,
+    the pairs the cull keeps). Bytes: the rows and modes of the quads the
+    lists hold, their live entries, the atlas texels the quads sample
+    (atlas_bytes), and the frame planes
+    read and written: whole out of place (the earlier design), only at the
+    16x16 blocks that keep an entry for the in-place kernel (the mask planes
+    live in shared memory). Clear sentinels count as entries and cover no
+    pixel."""
     import numpy as np
 
+    from figdraw_tpu_torch.ops import mega, raster
     from figdraw_tpu_torch.ops.layout import QF_WIDTH, QI_WIDTH
 
-    fields, modes, tile_idx, tile_counts, planes, _n_masks, th = args
-    pairs = live_pairs(fields, modes, tile_idx, tile_counts, th,
-                       planes.shape[2] // 128, mega=True)
+    fields, modes, tile_idx, tile_counts, planes, _n_masks = args
+    th, atlas = kw["tile_h"], kw.get("atlas")
+    _, ph, pw = planes.shape
+    pairs = live_pairs(fields, modes, tile_idx, tile_counts, th, pw // 128, mega=True)
     n_bytes = (len(np.unique(pairs[0])) * (QF_WIDTH + QI_WIDTH) * 4
-               + (int(tile_counts.sum()) + tile_counts.numel()) * 4
-               + 2 * planes.nelement() * 4)
-    return n_bytes, tile_ops(fields, pairs)
+               + (int(tile_counts.sum()) + tile_counts.numel()) * 4)
+    if atlas is not None:
+        n_bytes += atlas_bytes(fields, pairs, atlas)
+    before, after, blocks = mega.block_entries(fields, modes, tile_idx, tile_counts, th,
+                                               ph, pw)
+    per_block = 2 * 4 * raster.BLOCK * raster.BLOCK * 4
+    return np.array([n_bytes + 2 * planes.nelement() * 4, n_bytes + blocks * per_block,
+                     tile_ops(fields, pairs), before, after], dtype=np.float64)
 
 
 def image_renderer():
@@ -351,23 +416,23 @@ def launch_counts():
     from figdraw_tpu_torch.ops import mega, raster
 
     return (raster.LAUNCHES, raster.ATLAS_LAUNCHES, raster.MASK_LAUNCHES,
-            mega.LAUNCHES)
+            mega.LAUNCHES, mega.ATLAS_LAUNCHES)
 
 
 def zero_counts():
     from figdraw_tpu_torch.ops import mega, raster
 
     raster.LAUNCHES = raster.ATLAS_LAUNCHES = raster.MASK_LAUNCHES = 0
-    mega.LAUNCHES = 0
+    mega.LAUNCHES = mega.ATLAS_LAUNCHES = 0
 
 
-def timed_frames(what: str, render, shape) -> list:
-    """FRAMES frames of render(), each ended by a synchronize; checks shape
-    and finiteness; returns the ms of each."""
+def timed_frames(what: str, render, shape, frames: int = FRAMES) -> list:
+    """`frames` frames of render(), each ended by a synchronize; checks
+    shape and finiteness; returns the ms of each."""
     import torch
 
     total_ms = []
-    for f in range(FRAMES):
+    for f in range(frames):
         t0 = time.perf_counter()
         frame = render()
         torch.cuda.synchronize()
@@ -416,11 +481,12 @@ def images_phase(tag: str, dev) -> dict:
                                 (IMAGE_H, IMAGE_W, 4))
         counts = launch_counts()
         frame = ren.last_frame
-        want = (FRAMES, 0, 0, 0) if variant == "sdf_control" else (0, FRAMES, 0, 0)
+        want = ((FRAMES, 0, 0, 0, 0) if variant == "sdf_control"
+                else (0, FRAMES, 0, 0, 0))
         print(f"check images: {variant} {IMAGE_PANELS} panels at {IMAGE_W}x{IMAGE_H}, "
               f"{FRAMES} frames finite; launches K1 {counts[0]}, K1-atlas "
-              f"{counts[1]}, K3 {counts[2]}, K4 {counts[3]} (expected {want})",
-              flush=True)
+              f"{counts[1]}, K3 {counts[2]}, K4 {counts[3]}, K4-atlas {counts[4]} "
+              f"(expected {want})", flush=True)
         if counts != want:
             fail(f"images {variant} launched {counts}, expected {want}")
         walk = ren._walk_atlas()
@@ -490,7 +556,7 @@ def text_phase(tag: str, dev) -> dict:
                             (plan.height, plan.width, 4))
     counts = launch_counts()
     frame = ren.last_frame
-    want = (0, FRAMES, 0, 0)
+    want = (0, FRAMES, 0, 0, 0)
     print(f"check text: {plan.width}x{plan.height}, {plan.bounds[0][1]} glyph and "
           f"box quads, atlas {atlas_np.shape[0]}, tile_h {plan.tile_h}, {FRAMES} "
           f"frames finite; launches {counts} (expected {want})", flush=True)
@@ -525,37 +591,222 @@ def text_phase(tag: str, dev) -> dict:
                 ms_per_frame=statistics.median(total_ms))
 
 
+TURNS, TURN_FRAMES = 3, 10  # both routes of an atlas scene, in turns
+
+
+def mega_atlas_phase(which: str, tag: str, dev) -> dict:
+    """A mask-heavy atlas scene on the megakernel with the atlas (K4-atlas
+    once a frame) for FRAMES frames, with the counts set to 0 just before
+    and read just after. which: "clipped cards", images_clipped at 1920x1080
+    with 400 panels through render_frame; "text table", the stored tape of
+    text in clipped cells (1200x800, 180x6) through plan_execution and
+    execute_plan. K4-atlas against its plain version on the frame's own
+    inputs, the frame against the same executor with the plain version and
+    against the stored JAX block means; the frame's host split; then the
+    megakernel and the rolled form of the frame executor (plan.plan_rolled) on
+    the same scene in turns."""
+    import numpy as np
+    import torch
+
+    from figdraw_tpu_torch import FigRenderer, vec2
+    from figdraw_tpu_torch.executor import get_mega_executor
+    from figdraw_tpu_torch.ops import mega
+    from figdraw_tpu_torch.plan import atlas_from_jax, plan_execution, plan_rolled
+    from figdraw_tpu_torch.scenes import (
+        image_reference_path, load_text_tape, make_image_panels_scene,
+    )
+
+    if which == "clipped cards":
+        size = vec2(IMAGE_W, IMAGE_H)
+        scene = make_image_panels_scene(IMAGE_W, IMAGE_H, IMAGE_PANELS, "images_clipped")
+        ren = image_renderer()
+        ren.process_image_messages()
+        given = {}  # the renderer's own atlas
+        make_tape = lambda: ren.flatten(scene, size)
+        mega_frame = lambda: ren.render_frame(scene, size)
+    else:
+        tape, atlas_np, blocks = load_text_tape()
+        ren = FigRenderer(device="cuda")
+        given = dict(atlas=atlas_from_jax(atlas_np, dev))
+        make_tape = lambda: tape
+        mega_frame = lambda: ren.execute_plan(plan_execution(tape), **given)
+
+    def rolled_frame():
+        return ren.execute_plan(plan_rolled(make_tape()), **given)
+
+    plan = plan_execution(make_tape())
+    shape = (plan.height, plan.width, 4)
+    mega_frame()  # the first frame uploads the atlas
+    torch.cuda.synchronize()
+    zero_counts()
+    total_ms = timed_frames(which, mega_frame, shape)
+    counts = launch_counts()
+    frame = ren.last_frame
+    want = (0, 0, 0, 0, FRAMES)
+    n_clears = sum(1 for item in plan.structure if item[0] == "clear_mask")
+    print(f"check {which}: {plan.width}x{plan.height}, {len(plan.structure)} pass "
+          f"items, mega combo {None if plan.mega_combo is None else plan.mega_combo.shape} "
+          f"with {n_clears} clear sentinels, {plan.n_masks} planes, tile_h "
+          f"{plan.tile_h}, {FRAMES} frames finite; launches K1 {counts[0]}, K1-atlas "
+          f"{counts[1]}, K3 {counts[2]}, K4 {counts[3]}, K4-atlas {counts[4]} "
+          f"(expected {want})", flush=True)
+    if counts != want or not plan.mega_atlas:
+        fail(f"{which} launched {counts}, expected {want} on a mega plan with "
+             f"the atlas (mega_atlas {plan.mega_atlas})")
+
+    run = get_mega_executor(plan.height, plan.width, plan.n_masks,
+                            plan.has_init_frame, plan.tile_h)
+    combo = torch.from_numpy(plan.mega_combo).to(dev, copy=True)
+    flags = dict(atlas=given["atlas"] if given else ren._device_atlas(),
+                 pixelate=ren.pixelate)
+    errs, calls = [], []
+    run(combo, None, **flags,
+        draw=compared(mega.draw_pass_mega, mega.draw_pass_mega_plain, errs, calls,
+                      which, targets=MEGA_TARGETS))
+    ref = run(combo, None, **flags, draw=mega.draw_pass_mega_plain)
+    torch.cuda.synchronize()
+    frame_err = float((frame - ref).abs().max())
+    print(f"check {which}: K4-atlas vs plain max |diff| {errs[0]:.3e}, frame "
+          f"{FRAMES} vs the plain executor {frame_err:.3e} (tol {TOL:.3e})", flush=True)
+    if not (len(errs) == 1 and errs[0] <= TOL and frame_err <= TOL):
+        fail(f"{which}: K4-atlas or the frame differs from plain ({errs}, {frame_err})")
+    if which == "clipped cards":
+        small = image_renderer().render_frame(
+            make_image_panels_scene(SMALL_W, SMALL_H, SMALL_PANELS, "images_clipped"),
+            vec2(SMALL_W, SMALL_H))
+        check_blocks(f"{which} {SMALL_W}x{SMALL_H}, {SMALL_PANELS} panels", small,
+                     image_reference_path("images_clipped"))
+    else:
+        err_ref = float(np.abs(block_means(frame.cpu().numpy()) - blocks).max())
+        print(f"check {which}: frame vs the JAX reference (8x8 block means) max "
+              f"|diff| {err_ref:.3e} (tol {TOL:.3e})", flush=True)
+        if not err_ref <= TOL:
+            fail(f"{which} frame differs from the JAX reference by {err_ref}")
+
+    args, kw = calls[0]
+    kernel_ms = cuda_ms(lambda: mega.draw_pass_mega(*args, **kw), 20)
+    device_ms = device_ms_of(lambda: mega.draw_pass_mega(*args, **kw), "mega_kernel<true>")
+    plain_ms = cuda_ms(lambda: mega.draw_pass_mega_plain(*args, **kw), 3)
+    exec_ms = cuda_ms(lambda: run(combo, None, **flags), 20)
+    work = mega_work(args, kw)
+    # the frame's parts on the host's clock: the walk (none for the stored
+    # tape), the plan (pack_mega_combo), execute_plan to the sync; and the
+    # rolled form's plan (its item table) alone
+    walk_ms, plan_ms, execute_ms, items_ms = [], [], [], []
+    for _ in range(FRAMES):
+        t0 = time.perf_counter()
+        step_tape = make_tape()
+        t1 = time.perf_counter()
+        step = plan_execution(step_tape)
+        t2 = time.perf_counter()
+        ren.execute_plan(step, **given)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        plan_rolled(step_tape)
+        t4 = time.perf_counter()
+        for lst, a, b in ((walk_ms, t0, t1), (plan_ms, t1, t2), (execute_ms, t2, t3),
+                          (items_ms, t3, t4)):
+            lst.append((b - a) * 1e3)
+    med = statistics.median
+    print(f"times: {which}: median {med(total_ms):.3f} ms/frame on the megakernel "
+          f"= host walk {med(walk_ms):.3f} ms + plan (pack_mega_combo) "
+          f"{med(plan_ms):.3f} ms + execute_plan and sync {med(execute_ms):.3f} ms; "
+          f"whole executor {exec_ms:.4f} ms, K4-atlas {kernel_ms:.4f} ms (CUDA "
+          f"events around the wrapper call), {device_ms:.4f} ms (the kernel alone, "
+          f"torch.profiler), plain torch {plain_ms:.2f} ms; {bound_text(work)} "
+          f"(entries of the tile lists, clear sentinels included); the rolled "
+          f"form's plan {med(items_ms):.3f} ms on the host {tag}", flush=True)
+    # both routes in turns, each from the tape: walk, its own plan, execute
+    by_route = {"mega": [], "rolled": []}
+    for _ in range(TURNS):
+        for route, render in (("mega", mega_frame), ("rolled", rolled_frame)):
+            by_route[route].append(med(timed_frames(f"{which} {route}", render, shape,
+                                                    TURN_FRAMES)))
+    rolled_err = float((ren.last_frame - ref).abs().max())
+    print(f"times: {which}: routes in turns, median ms/frame of {TURN_FRAMES} frames "
+          f"a turn: megakernel {by_route['mega']}, rolled executor {by_route['rolled']}; "
+          f"the rolled frame vs the plain mega walk max |diff| {rolled_err:.3e} {tag}",
+          flush=True)
+    if not rolled_err <= TOL:
+        fail(f"{which}: the rolled frame differs from the mega frame by {rolled_err}")
+    return dict(launches=counts, err=max(errs[0], frame_err), kernel_ms=kernel_ms,
+                device_ms=device_ms, plain_ms=plain_ms, work=work, ms_per_frame=med(total_ms),
+                mega_ms=med(by_route["mega"]), rolled_ms=med(by_route["rolled"]))
+
+
+def mega_clamps_check(dev) -> None:
+    """K4 and K4-atlas against their plain versions on a seeded tape that
+    drives every clamp of the walk (scenes.mega_modes_tape: reads, targets
+    and clears out of range, and quads that target plane 0, which the
+    kernel's cull must keep in every block)."""
+    import numpy as np
+    import torch
+
+    from figdraw_tpu_torch.ops import mega
+    from figdraw_tpu_torch.ops.binning import bin_quads
+    from figdraw_tpu_torch.scenes import mega_modes_tape
+
+    w, h = 512, 256
+    errs = []
+    for n_masks, th, size in ((1, 128, None), (3, 64, None), (3, 32, 256), (4, 128, 64)):
+        fields, modes, atlas = (
+            None if a is None else torch.from_numpy(a).to(dev)
+            for a in mega_modes_tape(n_masks, n_masks * 1000 + th, w, h, size))
+        tile_idx, tile_counts = bin_quads(fields, 0, fields.shape[0], h // th, w // 128,
+                                          th, 128)
+        planes = torch.from_numpy(np.random.RandomState(th).rand(4, h, w)
+                                  .astype(np.float32)).to(dev)
+        args = (fields, modes, tile_idx, tile_counts)
+        got = mega.draw_pass_mega(*args, planes.clone(), n_masks, tile_h=th, atlas=atlas)
+        ref = mega.draw_pass_mega_plain(*args, planes, n_masks, tile_h=th, atlas=atlas)
+        torch.cuda.synchronize()
+        errs.append(float((got - ref).abs().max()))
+        if not float((ref - planes).abs().max()) > 0.1:
+            fail("the clamps tape drew nothing")
+    print(f"check: K4 / K4-atlas vs plain on the seeded clamps tape (planes out of "
+          f"range, targets of plane 0) max |diff| {max(errs):.3e} (tol {TOL:.3e})",
+          flush=True)
+    if not max(errs) <= TOL:
+        fail(f"the megakernel differs from plain on the clamps tape: {errs}")
+
+
 def rolled_phase(tag: str, dev) -> dict:
     """images_clipped at 1920x1080 with 400 panels (1201 pass items) on the
-    rolled executor for FRAMES frames through render_frame; K1, K1-atlas
-    and K3 against their plain versions on one frame's inputs, the frame
-    against the rolled executor with the plain versions, the 480x270,
+    rolled form of the frame executor (plan.plan_rolled of the port's own
+    tape) for FRAMES frames through flatten, plan and execute_plan; K1,
+    K1-atlas and K3 against their plain versions on one frame's inputs, the
+    frame against the rolled executor with the plain versions, the 480x270,
     25-panel frame against the stored JAX block means."""
     import torch
 
     from figdraw_tpu_torch import vec2
     from figdraw_tpu_torch.executor import get_frame_executor
     from figdraw_tpu_torch.ops import raster
-    from figdraw_tpu_torch.plan import plan_execution
+    from figdraw_tpu_torch.plan import plan_rolled
     from figdraw_tpu_torch.scenes import image_reference_path, make_image_panels_scene
 
     size = vec2(IMAGE_W, IMAGE_H)
     scene = make_image_panels_scene(IMAGE_W, IMAGE_H, IMAGE_PANELS, "images_clipped")
     ren = image_renderer()
-    ren.render_frame(scene, size)
+    ren.process_image_messages()
+
+    def rolled_frame(scene=scene, size=size, ren=ren):
+        return ren.execute_plan(plan_rolled(ren.flatten(scene, size)))
+
+    rolled_frame()
     torch.cuda.synchronize()
     zero_counts()
-    total_ms = timed_frames("rolled", lambda: ren.render_frame(scene, size),
-                            (IMAGE_H, IMAGE_W, 4))
+    total_ms = timed_frames("rolled", rolled_frame, (IMAGE_H, IMAGE_W, 4))
     counts = launch_counts()
     frame = ren.last_frame
-    want = (FRAMES, FRAMES * IMAGE_PANELS, FRAMES * IMAGE_PANELS, 0)
+    want = (FRAMES, FRAMES * IMAGE_PANELS, FRAMES * IMAGE_PANELS, 0, 0)
     tape = ren.flatten(scene, size)
-    plan = plan_execution(tape)
+    plan = plan_rolled(tape)
     print(f"check rolled: images_clipped {IMAGE_PANELS} panels, {len(plan.structure)} "
           f"pass items, {tape.count} quads, {plan.n_masks} planes, tile_h "
           f"{plan.tile_h}, {FRAMES} frames finite; launches K1 {counts[0]}, K1-atlas "
-          f"{counts[1]}, K3 {counts[2]}, K4 {counts[3]} (expected {want})", flush=True)
+          f"{counts[1]}, K3 {counts[2]}, K4 {counts[3]}, K4-atlas {counts[4]} "
+          f"(expected {want})", flush=True)
     if counts != want or plan.rolled_items is None:
         fail(f"rolled launched {counts}, expected {want}")
     run = get_frame_executor(plan.structure, plan.height, plan.width, plan.n_masks,
@@ -582,9 +833,11 @@ def rolled_phase(tag: str, dev) -> dict:
     if not (max(e1) <= TOL and max(e3) <= TOL and frame_err <= TOL):
         fail(f"rolled: a kernel or the frame differs from plain "
              f"({max(e1)}, {max(e3)}, {frame_err})")
-    small = image_renderer().render_frame(
+    small_ren = image_renderer()
+    small_ren.process_image_messages()
+    small = rolled_frame(
         make_image_panels_scene(SMALL_W, SMALL_H, SMALL_PANELS, "images_clipped"),
-        vec2(SMALL_W, SMALL_H))
+        vec2(SMALL_W, SMALL_H), small_ren)
     check_blocks(f"rolled images_clipped {SMALL_W}x{SMALL_H}, {SMALL_PANELS} panels",
                  small, image_reference_path("images_clipped"))
     exec_ms = cuda_ms(lambda: run(combo, None, atlas=atlas, **table), 5)
@@ -613,14 +866,15 @@ def rolled_phase(tag: str, dev) -> dict:
     host_ms, execute_ms = [], []
     for _ in range(FRAMES):
         t0 = time.perf_counter()
-        step = plan_execution(ren.flatten(scene, size))
+        step = plan_rolled(ren.flatten(scene, size))
         t1 = time.perf_counter()
         ren.execute_plan(step)
         torch.cuda.synchronize()
         host_ms.append((t1 - t0) * 1e3)
         execute_ms.append((time.perf_counter() - t1) * 1e3)
     print(f"times: rolled: median {statistics.median(total_ms):.3f} ms/frame "
-          f"(render_frame + sync) = host walk and plan {statistics.median(host_ms):.3f} "
+          f"(flatten, plan, execute_plan + sync) = host walk and plan "
+          f"{statistics.median(host_ms):.3f} "
           f"ms + execute_plan and sync {statistics.median(execute_ms):.3f} ms; whole "
           f"executor {exec_ms:.3f} ms (CUDA events) {tag}", flush=True)
     print(f"times: rolled: its {len(k_atlas)} K1-atlas launches: device "
@@ -668,15 +922,16 @@ def clip_table_phase(kind: str, tag: str, dev) -> dict:
     total_ms = timed_frames(kind, lambda: ren.render_frame(scene, size),
                             (TABLE_H, TABLE_W, 4))
     frame = ren.last_frame
-    k1, k1_atlas, k3, k4 = launch_counts()
+    k1, k1_atlas, k3, k4, k4_atlas = launch_counts()
     counts = (k1, k3, k4)
     want = (2 * FRAMES, FRAMES, 0) if kind == "rectmask" else (0, 0, FRAMES)
     print(f"check 6: {kind} table {TABLE_ROWS}x{TABLE_COLS} at {TABLE_W}x{TABLE_H}, "
           f"{FRAMES} frames finite; launches K1 {counts[0]}, K3 {counts[1]}, "
-          f"K4 {counts[2]}, K1-atlas {k1_atlas} (expected {want}, 0)", flush=True)
-    if counts != want or k1_atlas:
-        fail(f"{kind} table launched (K1, K3, K4) {counts} and K1-atlas "
-             f"{k1_atlas}, expected {want} and 0")
+          f"K4 {counts[2]}, K1-atlas {k1_atlas}, K4-atlas {k4_atlas} (expected "
+          f"{want}, 0, 0)", flush=True)
+    if counts != want or k1_atlas or k4_atlas:
+        fail(f"{kind} table launched (K1, K3, K4) {counts}, K1-atlas {k1_atlas} "
+             f"and K4-atlas {k4_atlas}, expected {want}, 0 and 0")
     walk_ms = []
     for _ in range(FRAMES):
         t0 = time.perf_counter()
@@ -726,13 +981,14 @@ def clip_table_phase(kind: str, tag: str, dev) -> dict:
         e4, a4 = [], []
         run(combo, None, draw=compared(mega.draw_pass_mega,
                                        mega.draw_pass_mega_plain, e4, a4, kind,
-                                       in_place=False))
+                                       targets=MEGA_TARGETS))
         ref = run(combo, None, draw=mega.draw_pass_mega_plain)
         out.update(k4_err=e4[0], k4_args=a4[0][0] + (a4[0][1]["tile_h"],))
-        out["k4_work"] = mega_work(out["k4_args"])
+        out["k4_work"] = mega_work(*a4[0])
         print(f"check 6: sub-clip mega combo {tuple(combo_np.shape)}, "
               f"{mask_count + 1} mask planes, tile_h {th}; K4 vs plain max "
-              f"|diff| {e4[0]:.3e} (tol {TOL:.3e})", flush=True)
+              f"|diff| {e4[0]:.3e} (tol {TOL:.3e}); {bound_text(out['k4_work'])}",
+              flush=True)
         if not e4[0] <= TOL:
             fail(f"sub-clip table: K4 differs from its plain version by {e4[0]}")
     # the executor's stages on the frame's own inputs (device, CUDA events)
@@ -921,9 +1177,9 @@ def main() -> None:
     launches = raster.LAUNCHES
     print(f"check 4: {FRAMES} frames of {HEIGHT}x{WIDTH}x4, finite; raster "
           f"kernel launches {launches} ({launches / FRAMES:g} per frame)", flush=True)
-    if launch_counts() != (2 * FRAMES, 0, 0, 0):
-        fail(f"{FRAMES} headline frames launched (K1, K1-atlas, K3, K4) "
-             f"{launch_counts()}, expected {2 * FRAMES}, 0, 0, 0")
+    if launch_counts() != (2 * FRAMES, 0, 0, 0, 0):
+        fail(f"{FRAMES} headline frames launched (K1, K1-atlas, K3, K4, K4-atlas) "
+             f"{launch_counts()}, expected {2 * FRAMES}, 0, 0, 0, 0")
     # the last frame again, by the same executor with the plain raster
     plan = plan_execution(tape)
     run = get_frame_executor(plan.structure, plan.height, plan.width,
@@ -958,8 +1214,12 @@ def main() -> None:
     kernel_ms = cuda_ms(draws(raster.draw_pass_planar_prebinned), 20)
     plain_ms = cuda_ms(draws(plain), 3)
     k1_work = sum(raster_work(a, k) for a, k, _e in draw_args)
-    print(f"times: headline draw runs (both): kernel {kernel_ms:.4f} ms, plain "
-          f"torch {plain_ms:.2f} ms; {bound_text(k1_work)} {tag}", flush=True)
+    device_ms_k1 = device_ms_of(draws(raster.draw_pass_planar_prebinned),
+                                "raster_tiles_kernel<false, false>")
+    print(f"times: headline draw runs (both): kernel {kernel_ms:.4f} ms (CUDA events "
+          f"around the wrapper calls), {device_ms_k1:.4f} ms (the kernels alone, "
+          f"torch.profiler), plain torch {plain_ms:.2f} ms; {bound_text(k1_work)} {tag}",
+          flush=True)
     for i, (a, k, _e) in enumerate(draw_args):
         ms = cuda_ms(lambda: raster.draw_pass_planar_prebinned(*a, **k), 20)
         print(f"times: headline draw run {i}: kernel {ms:.4f} ms {tag}", flush=True)
@@ -986,11 +1246,18 @@ def main() -> None:
     plain_ms_k3 = cuda_ms(lambda: raster.draw_pass_mask_prebinned_plain(*rm["k3_args"]), 3)
     kernel_ms_k4 = cuda_ms(lambda: mega.draw_pass_mega(*sc["k4_args"]), 20)
     plain_ms_k4 = cuda_ms(lambda: mega.draw_pass_mega_plain(*sc["k4_args"]), 3)
+    device_ms_k3 = device_ms_of(lambda: raster.draw_pass_mask_prebinned(*rm["k3_args"]),
+                                "raster_tiles_kernel<true")
+    device_ms_k4 = device_ms_of(lambda: mega.draw_pass_mega(*sc["k4_args"]),
+                                "mega_kernel<false>")
     print(f"times: K3 on the rect-mask table's mask run: kernel {kernel_ms_k3:.4f} "
-          f"ms, plain torch {plain_ms_k3:.2f} ms {tag}", flush=True)
-    print(f"times: K4 on the sub-clip table: kernel {kernel_ms_k4:.4f} ms, plain "
-          f"torch {plain_ms_k4:.2f} ms ({time.perf_counter() - t0:.1f} s) {tag}",
+          f"ms (CUDA events around the wrapper call), {device_ms_k3:.4f} ms (the "
+          f"kernel alone, torch.profiler), plain torch {plain_ms_k3:.2f} ms {tag}",
           flush=True)
+    print(f"times: K4 on the sub-clip table: kernel {kernel_ms_k4:.4f} ms (CUDA "
+          f"events around the wrapper call), {device_ms_k4:.4f} ms (the kernel "
+          f"alone, torch.profiler), plain torch {plain_ms_k4:.2f} ms "
+          f"({time.perf_counter() - t0:.1f} s) {tag}", flush=True)
     k1_table_ms = cuda_ms(lambda: [raster.draw_pass_planar_prebinned(*a, **k)
                                    for a, k in rm["k1_args"]], 20)
     print(f"times: K1 on the rect-mask table's two frame runs: kernel "
@@ -1000,16 +1267,30 @@ def main() -> None:
     print(f"times: K3 on the rect-mask table's mask run: {bound_text(rm['k3_work'])} "
           f"{tag}", flush=True)
 
-    # --- 7. images, text and the rolled executor ----------------------------------
+    mega_clamps_check(dev)
+
+    # --- 7. images, text, the megakernel with the atlas, the rolled executor -------
     images = images_phase(tag, dev)
     text = text_phase(tag, dev)
+    cards = mega_atlas_phase("clipped cards", tag, dev)
+    table = mega_atlas_phase("text table", tag, dev)
     rolled = rolled_phase(tag, dev)
+    faster = all(p["mega_ms"] < p["rolled_ms"] for p in (cards, table))
+    print(f"routing: the megakernel with the atlas against the rolled executor, "
+          f"median ms/frame: clipped cards {cards['mega_ms']:.3f} against "
+          f"{cards['rolled_ms']:.3f}, text table {table['mega_ms']:.3f} against "
+          f"{table['rolled_ms']:.3f}: the megakernel is "
+          f"{'faster on both' if faster else 'not faster on both'} {tag}", flush=True)
     scaled_args, scaled_kw = images["images_scaled"]["args"]
     plain_ms_atlas = cuda_ms(
         lambda: raster.draw_pass_planar_prebinned_plain(*scaled_args, **scaled_kw), 3)
+    device_ms_atlas = device_ms_of(
+        lambda: raster.draw_pass_planar_prebinned(*scaled_args, **scaled_kw),
+        "raster_tiles_kernel<false, true>")
     print(f"times: K1-atlas on the images_scaled frame's draw: kernel "
-          f"{images['images_scaled']['kernel_ms']:.4f} ms, plain torch "
-          f"{plain_ms_atlas:.2f} ms {tag}", flush=True)
+          f"{images['images_scaled']['kernel_ms']:.4f} ms (CUDA events around the "
+          f"wrapper call), {device_ms_atlas:.4f} ms (the kernel alone, "
+          f"torch.profiler), plain torch {plain_ms_atlas:.2f} ms {tag}", flush=True)
 
     # --- 8. results --------------------------------------------------------------
     # the in-place bound is the kernels' own (the out-of-place one counts
@@ -1017,12 +1298,17 @@ def main() -> None:
     k1_bound, k1_oop = bounds_of(k1_work)
     atlas_bound, atlas_oop = bounds_of(images["images_scaled"]["work"])
     k3_bound, k3_oop = bounds_of(rm["k3_work"])
-    k4_bound = bound_of(*sc["k4_work"])
+    k4_bound, k4_oop = bounds_of(sc["k4_work"])
+    k4a_bound, k4a_oop = bounds_of(cards["work"])
+    table_bound, _table_oop = bounds_of(table["work"])
     print(f"bounds: K1 headline draws {k1_bound[0]:.4f} ms ({k1_bound[1]}; out of "
           f"place {k1_oop[0]:.4f}), K1-atlas images_scaled {atlas_bound[0]:.4f} ms "
           f"({atlas_bound[1]}; out of place {atlas_oop[0]:.4f}), K3 rect-mask "
           f"{k3_bound[0]:.4f} ms ({k3_bound[1]}; out of place {k3_oop[0]:.4f}), K4 "
-          f"sub-clip {k4_bound[0]:.4f} ms ({k4_bound[1]}) at "
+          f"sub-clip {k4_bound[0]:.4f} ms ({k4_bound[1]}; out of place "
+          f"{k4_oop[0]:.4f}), K4-atlas clipped cards {k4a_bound[0]:.4f} ms "
+          f"({k4a_bound[1]}; out of place {k4a_oop[0]:.4f}), text table "
+          f"{table_bound[0]:.4f} ms ({table_bound[1]}) at "
           f"{HBM_BYTES_PER_S / 1e12:g} TB/s and {FP32_OPS_PER_S / 1e12:g} FP32 "
           f"TFLOP/s", flush=True)
     ctrl = images["sdf_control"]
@@ -1043,6 +1329,7 @@ def main() -> None:
             "max_abs_err": max(err_headline, err_modes, err_frame, rm["k1_err"],
                                ctrl["err"], rolled["k1_err"]),
             "ms": kernel_ms,
+            "device_ms": device_ms_k1,
             "plain_ms": plain_ms,
             "bound_ms": k1_bound[0],
             "bound_by": k1_bound[1],
@@ -1060,6 +1347,7 @@ def main() -> None:
             "max_abs_err": max([images[v]["err"] for v in BENCH_VARIANTS[1:]]
                                + [text["err"], rolled["k1_err"], rolled["frame_err"]]),
             "ms": images["images_scaled"]["kernel_ms"],
+            "device_ms": device_ms_atlas,
             "plain_ms": plain_ms_atlas,
             "bound_ms": atlas_bound[0],
             "bound_by": atlas_bound[1],
@@ -1075,6 +1363,7 @@ def main() -> None:
             "launches_by_path": k3_paths,
             "max_abs_err": max(rm["k3_err"], rm["frame_err"], rolled["k3_err"]),
             "ms": kernel_ms_k3,
+            "device_ms": device_ms_k3,
             "plain_ms": plain_ms_k3,
             "bound_ms": k3_bound[0],
             "bound_by": k3_bound[1],
@@ -1082,7 +1371,7 @@ def main() -> None:
             "library_ms": None,
         },
         {
-            "name": "mega_kernel (K4)",
+            "name": "mega_kernel<false> (K4)",
             "route": "cuda",
             "source": "figdraw_tpu_torch/csrc/mega.cu",
             "replaces": "figdraw_tpu/ops/raster_pallas.py:495",
@@ -1090,9 +1379,37 @@ def main() -> None:
             "launches_by_path": {"subclip": sc["launches"][2]},
             "max_abs_err": max(sc["k4_err"], sc["frame_err"]),
             "ms": kernel_ms_k4,
+            "device_ms": device_ms_k4,
             "plain_ms": plain_ms_k4,
             "bound_ms": k4_bound[0],
             "bound_by": k4_bound[1],
+            "bound_out_of_place_ms": k4_oop[0],
+            "entries_before_cull": sc["k4_work"][3],
+            "entries_after_cull": sc["k4_work"][4],
+            "library_ms": None,
+        },
+        {
+            "name": "mega_kernel<true> (K4-atlas, the megakernel sampling the atlas)",
+            "route": "cuda",
+            "source": "figdraw_tpu_torch/csrc/mega.cu",
+            "replaces": "figdraw_tpu/ops/raster_pallas.py:495 (has_atlas, :567)",
+            "launches": cards["launches"][4] + table["launches"][4],
+            "launches_by_path": {"clipped cards": cards["launches"][4],
+                                 "text table": table["launches"][4]},
+            "max_abs_err": max(cards["err"], table["err"]),
+            "ms": cards["kernel_ms"],
+            "device_ms": cards["device_ms"],
+            "plain_ms": cards["plain_ms"],
+            "bound_ms": k4a_bound[0],
+            "bound_by": k4a_bound[1],
+            "bound_out_of_place_ms": k4a_oop[0],
+            "entries_before_cull": cards["work"][3],
+            "entries_after_cull": cards["work"][4],
+            "text_table": {"ms": table["kernel_ms"], "device_ms": table["device_ms"],
+                           "plain_ms": table["plain_ms"],
+                           "bound_ms": table_bound[0], "bound_by": table_bound[1],
+                           "entries_before_cull": table["work"][3],
+                           "entries_after_cull": table["work"][4]},
             "library_ms": None,
         },
     ]}), flush=True)

@@ -67,20 +67,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cull.cuh"
 #include "sdf.cuh"
 
 namespace {
 
+using figdraw::CHUNK;
+using figdraw::FULL;
+using figdraw::Stage;
+using figdraw::cp_async_wait_all;
+using figdraw::stage_chunk;
+
 constexpr int BLOCK = 16;  // pixels per block edge
 constexpr int THREADS = BLOCK * BLOCK;
 constexpr int WARPS = THREADS / 32;
-constexpr int CHUNK = 32;  // list entries one warp tests and stages at once
-constexpr int ROW_PIECES = figdraw::QF_WIDTH / 4;  // 16-byte pieces of a row
-constexpr int QF_BBOX_X0 = 6;  // bbox (x0, y0, x1, y1), fields 6-9
-// widening of a quad's bbox in the cull test, in pixels (ops/raster.py
-// CULL_MARGIN)
-constexpr float CULL_MARGIN = 1.0f;
-constexpr unsigned FULL = 0xffffffffu;
 
 // first position of the ascending list[0, count) holding a value >= value,
 // found by one warp (every lane returns it): each round probes 32 positions
@@ -99,65 +99,6 @@ __device__ int warp_lower_bound(const int* list, int count, int value,
   }
   const int p = lo + lane;
   return lo + __popc(__ballot_sync(FULL, p < hi && list[p] < value));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// One staging buffer: the surviving quads' rows and mode words, in draw
-// order, and how many there are. 16-byte aligned, as are its rows (272 B).
-struct __align__(16) Stage {
-  float fields[CHUNK * figdraw::QF_WIDTH];
-  int modes[CHUNK * 2];
-  int count;
-};
-
-// Run by one warp: test the list entries [base, base + n) against the
-// block's pixel-center rectangle [cx0, cx1] x [cy0, cy1], write the
-// survivors' mode words and count, and start the copies of their rows (one
-// cp.async group; the caller waits for it before the block barrier).
-__device__ __forceinline__ void stage_chunk(Stage& st, const float* fields,
-                                            const int* modes, const int* list,
-                                            int base, int n, float cx0,
-                                            float cx1, float cy0, float cy1,
-                                            int lane) {
-  int q = 0;
-  bool keep = false;
-  if (lane < n) {
-    q = list[base + lane];
-    // fields 6-9 of a 272-byte row start 24 bytes in: two 8-byte loads
-    const float2* bb = reinterpret_cast<const float2*>(
-        fields + (size_t)q * figdraw::QF_WIDTH + QF_BBOX_X0);
-    const float2 lo = bb[0], hi = bb[1];
-    keep = lo.x - CULL_MARGIN <= cx1 && hi.x + CULL_MARGIN >= cx0 &&
-           lo.y - CULL_MARGIN <= cy1 && hi.y + CULL_MARGIN >= cy0;
-  }
-  const unsigned kept = __ballot_sync(FULL, keep);
-  if (keep) {
-    const int slot = __popc(kept & ((1u << lane) - 1u));
-    const float4* src =
-        reinterpret_cast<const float4*>(fields + (size_t)q * figdraw::QF_WIDTH);
-    float4* dst = reinterpret_cast<float4*>(st.fields + slot * figdraw::QF_WIDTH);
-#pragma unroll
-    for (int k = 0; k < ROW_PIECES; ++k) cp_async16(dst + k, src + k);
-    const int2 md = reinterpret_cast<const int2*>(modes)[q];
-    st.modes[2 * slot] = md.x;
-    st.modes[2 * slot + 1] = md.y;
-  }
-  if (lane == 0) st.count = __popc(kept);
-  cp_async_commit();
 }
 
 // MASK_TARGET: `target` is one mask plane (K3), else the four RGBA planes

@@ -7,7 +7,8 @@ once. The frame executor then runs the pass structure in order: draw runs
 into the frame (K1, K1-atlas) or into a mask plane (K3), mask clears and
 backdrop blurs; its rolled form takes the bounds and radii of frames of
 many items from the plan's item table. The mega executor runs the whole
-masked frame in one kernel (K4). No value goes back to the host: draw
+masked frame in one kernel (K4, or K4-atlas when the tape samples the
+atlas). No value goes back to the host: draw
 bounds, blur radii and the clear color stay device tensors, and the
 kernels read their run's bounds themselves.
 """
@@ -174,18 +175,22 @@ def get_frame_executor(structure: Tuple, height: int, width: int,
 @lru_cache(maxsize=32)
 def get_mega_executor(height: int, width: int, n_masks: int,
                       has_init_frame: bool, tile_h: int):
-    """run(combo, init_frame) -> (height, width, 4) f32 frame through the
-    megakernel (executor.get_mega_executor). combo: target-baked packed rows
-    (plan.pack_mega_modes or native.flatten_fast's mega export) and one meta
-    row whose first four values are the clear color; init_frame as in
-    get_frame_executor. draw: the K4 wrapper unless a check substitutes its
-    plain version."""
+    """run(combo, init_frame, atlas, ...) -> (height, width, 4) f32 frame
+    through the megakernel (executor.get_mega_executor). combo: target-baked
+    packed rows (plan.pack_mega_combo or native.flatten_fast's mega export)
+    and one meta row whose first four values are the clear color;
+    init_frame as in get_frame_executor, never written; atlas: the (S, S, 4)
+    f32 atlas when the tape holds atlas quads (K4-atlas, with pixelate and
+    subpixel_positioning), else None (K4). draw: the megakernel's wrapper
+    (which updates the executor's own planes in place) unless a check
+    substitutes its plain version (which returns new planes)."""
     th, tw = tile_h, TILE_W
     tiles_y = -(-height // th)
     tiles_x = -(-width // tw)
     ph, pw = tiles_y * th, tiles_x * tw
 
-    def run(combo: torch.Tensor, init_frame=None,
+    def run(combo: torch.Tensor, init_frame=None, atlas=None,
+            pixelate: bool = False, subpixel_positioning: bool = False,
             draw=draw_pass_mega) -> torch.Tensor:
         fields, modes = unpack_combo(combo[:-1])
         planes = _init_planes(combo[-1, 0:4], init_frame, has_init_frame,
@@ -194,7 +199,8 @@ def get_mega_executor(height: int, width: int, n_masks: int,
         tile_idx, tile_counts = bin_quads(fields, 0, fields.shape[0], tiles_y,
                                           tiles_x, th, tw)
         planes = draw(fields, modes, tile_idx, tile_counts, planes, n_masks,
-                      tile_h=th)
+                      tile_h=th, atlas=atlas, pixelate=pixelate,
+                      subpixel_positioning=subpixel_positioning)
         return planes.permute(1, 2, 0)[:height, :width].contiguous()
 
     return run

@@ -46,7 +46,7 @@ LAUNCHES = 0
 ATLAS_LAUNCHES = 0
 MASK_LAUNCHES = 0
 
-_SOURCES = ("raster.cu", "sdf.cuh")
+_SOURCES = ("raster.cu", "cull.cuh", "sdf.cuh")
 
 _lock = threading.Lock()
 _lib = None
@@ -81,10 +81,11 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
 
 
 def check_tiles(fields, modes, tile_idx, tile_counts, target, n_planes: int,
-                tile_h: int) -> None:
+                tile_h: int, atlas=None) -> None:
     """Checks shared by the tile kernels' wrappers: the (N, 68) / (N, 2)
-    tape, its (T, N) / (T,) binning, and an (n_planes, PH, PW) target that
-    tiles by (tile_h, TILE_W). Raises ValueError."""
+    tape and its alignment, its (T, N) / (T,) binning, an (n_planes, PH, PW)
+    target that tiles by (tile_h, TILE_W), and the (S, S, 4) atlas when
+    given. Raises ValueError."""
     dev = target.device
     _check(target, "target planes", torch.float32, 3, dev)
     _check(fields, "fields", torch.float32, 2, dev)
@@ -101,22 +102,23 @@ def check_tiles(fields, modes, tile_idx, tile_counts, target, n_planes: int,
         raise ValueError("fields must be (N, 68) and modes (N, 2)")
     if tuple(tile_idx.shape) != (tiles, n) or tuple(tile_counts.shape) != (tiles,):
         raise ValueError(f"tile lists must be ({tiles}, {n}) and ({tiles},)")
+    # the kernels stage quad rows in 16-byte pieces and read mode pairs as
+    # 8-byte words
+    if fields.data_ptr() % 16 or modes.data_ptr() % 8:
+        raise ValueError("fields must be 16-byte and modes 8-byte aligned")
+    if atlas is not None:
+        _check(atlas, "atlas", torch.float32, 3, dev)
+        if atlas.shape[0] != atlas.shape[1] or atlas.shape[2] != 4:
+            raise ValueError(f"atlas must be (S, S, 4), got {tuple(atlas.shape)}")
 
 
 def _check_args(fields, modes, bounds, tile_idx, tile_counts, target, masks,
                 backdrop_planes, atlas, tile_h, n_planes):
     dev = target.device
-    check_tiles(fields, modes, tile_idx, tile_counts, target, n_planes, tile_h)
-    if atlas is not None:
-        _check(atlas, "atlas", torch.float32, 3, dev)
-        if atlas.shape[0] != atlas.shape[1] or atlas.shape[2] != 4:
-            raise ValueError(f"atlas must be (S, S, 4), got {tuple(atlas.shape)}")
+    check_tiles(fields, modes, tile_idx, tile_counts, target, n_planes, tile_h,
+                atlas)
     _check(bounds, "bounds", torch.int32, 1, dev)
     _check(masks, "masks", torch.float32, 3, dev)
-    # the kernel stages quad rows in 16-byte pieces and reads mode pairs as
-    # 8-byte words
-    if fields.data_ptr() % 16 or modes.data_ptr() % 8:
-        raise ValueError("fields must be 16-byte and modes 8-byte aligned")
     if bounds.shape[0] != 2:
         raise ValueError("bounds must be the run's [start, end)")
     if masks.shape[1:] != target.shape[1:] or masks.shape[0] < 1:
@@ -285,11 +287,12 @@ def block_survivors(bbox, x0, y0, tile_h: int):
 
 
 def block_pairs(fields, bounds, tile_idx, tile_counts, tile_h: int, ph: int,
-                pw: int):
+                pw: int, keep=None):
     """What the kernel's cull leaves of one pass over a (ph, pw) target:
     (quad-block pairs of the run segments, the pairs that survive the cull,
     the blocks that keep at least one quad and so read and write their
-    pixels), as ints."""
+    pixels), as ints. keep: (N,) bool, quads that survive whatever their
+    bbox (the megakernel's plane-0 targets), or None."""
     j_lo, j_hi = run_segments(bounds, tile_idx, tile_counts)
     depth = j_hi - j_lo
     per_tile = (tile_h // BLOCK) * (TILE_W // BLOCK)
@@ -304,7 +307,10 @@ def block_pairs(fields, bounds, tile_idx, tile_counts, tile_h: int, ph: int,
     x0, y0 = tile_origins(ph // tile_h, tile_h, pw // TILE_W, TILE_W, depth.device)
     surv = block_survivors(fields[q][..., QF_BBOX_X0 : QF_BBOX_X0 + 4],
                            x0[:, None].expand_as(q), y0[:, None].expand_as(q),
-                           tile_h) & valid[:, :, None, None]
+                           tile_h)
+    if keep is not None:
+        surv = surv | keep[q][:, :, None, None]
+    surv = surv & valid[:, :, None, None]
     return before, int(surv.sum()), int(surv.any(dim=1).sum())
 
 

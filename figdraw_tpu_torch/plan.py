@@ -5,9 +5,10 @@ of figdraw_tpu/executor.py).
 A frame of at most ROLLED_THRESHOLD pass items takes the unrolled frame
 executor: draw runs into the frame or into mask planes, mask clears and
 backdrop blurs. A longer frame takes the megakernel, whose combo
-`pack_mega_modes` builds, unless it holds an atlas run, a blur or a
-backdrop: then it takes the frame executor's rolled form, whose draw bounds
-and blur radii come from an item table (`build_rolled_items`).
+`pack_mega_combo` builds, with the atlas when it holds an atlas run, unless
+it holds a blur or a backdrop: then it takes the frame executor's rolled
+form, whose draw bounds and blur radii come from an item table
+(`build_rolled_items`).
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ import numpy as np
 import torch
 
 from .ops.layout import (
-    PACKED_WIDTH, QF_BBOX_X0, QF_BBOX_X1, QF_BBOX_Y0, QF_BBOX_Y1, QF_WIDTH,
-    QI_MASK, QI_MODE, QI_WIDTH, pack_fields_np,
+    PACKED_MODES, PACKED_WIDTH, QF_BBOX_X0, QF_BBOX_Y1, QI_MASK, QI_MODE,
+    QI_WIDTH,
 )
 from .ops.mega import MEGA_CLEAR_BIT, MEGA_TARGET_SHIFT
 from .ops.raster import TILE_H, TILE_W
@@ -88,20 +89,18 @@ def tile_h_from_density(pairs_sum: float, median_h: float, height: int,
     return TILE_H
 
 
-def pack_mega_modes(tape: Tape, fields: np.ndarray, modes: np.ndarray):
-    """Splice a tape into target-baked (fields, modes) rows for the
-    megakernel (executor.pack_mega_modes): draw-run quads get
-    (target + 1) << MEGA_TARGET_SHIFT added to the mode lane, and each
-    ClearMaskItem becomes a sentinel row with MEGA_CLEAR_BIT set.
+def _mega_splice(tape: Tape, bbox: np.ndarray, qmask: np.ndarray):
+    """What the megakernel's tape adds to a tape of n quads with (n, 4)
+    bboxes and (n,) mask reads: (per-quad target (n,) i32: 0 the frame,
+    k + 1 mask plane k; the tape index each clear sentinel precedes (c,)
+    i64, in item order; the sentinels' planes (c,) i32; their bboxes (c, 4)
+    f32).
 
-    A clear of plane k is only observed in tiles where plane k is read or
-    written before its next clear, so the sentinel's bbox is the union of
-    those quads' bboxes (a degenerate bbox when there are none): it bins
-    only into the tiles its cell touches. fields (n, 68) f32 and modes
-    (n, 2) i32 are the tape's logical rows; returns them un-padded."""
-    n = fields.shape[0]
-    # per-quad target from the draw runs (0 frame, k + 1 mask plane k), and
-    # the tape index each clear precedes, in item order
+    A clear of plane k is only observed where plane k is read or written
+    before its next clear, so the sentinel's bbox is the union of those
+    quads' bboxes (a degenerate bbox when there are none): it bins only
+    into the tiles its cell touches, and the kernel drops it with them."""
+    n = bbox.shape[0]
     tgt = np.zeros(n, np.int32)
     positions = []
     plane_list = []
@@ -114,59 +113,58 @@ def pack_mega_modes(tape: Tape, fields: np.ndarray, modes: np.ndarray):
         elif isinstance(item, ClearMaskItem):
             positions.append(cursor)
             plane_list.append(item.index)
-    out_modes = modes.copy()
-    out_modes[:, QI_MODE] += tgt << MEGA_TARGET_SHIFT
-    if not positions:
-        return fields, out_modes
-
     planes = np.asarray(plane_list, np.int32)
     positions = np.asarray(positions, np.int64)
-    qmask = modes[:, QI_MASK]
-    x0 = fields[:, QF_BBOX_X0]
-    y0 = fields[:, QF_BBOX_Y0]
-    x1 = fields[:, QF_BBOX_X1]
-    y1 = fields[:, QF_BBOX_Y1]
-
     nc = positions.shape[0]
-    cb = np.empty((nc, 4), np.float32)
-    for k in np.unique(planes):
+    cb = np.zeros((nc, 4), np.float32)
+    for k in np.unique(planes) if n else ():
         rel = (tgt == k + 1) | (qmask == k)
-        rx0 = np.where(rel, x0, np.float32(np.inf))
-        ry0 = np.where(rel, y0, np.float32(np.inf))
-        rx1 = np.where(rel, x1, np.float32(-np.inf))
-        ry1 = np.where(rel, y1, np.float32(-np.inf))
+        lo = np.where(rel[:, None], bbox[:, 0:2], np.float32(np.inf))
+        hi = np.where(rel[:, None], bbox[:, 2:4], np.float32(-np.inf))
         sel = planes == k
         # segments between consecutive clears of plane k (the last runs to
         # the end); reduceat gives x[start] for an empty segment, which is
         # overwritten below
         starts = positions[sel]
-        idxs = np.nonzero(sel)[0]
         r_starts = np.minimum(starts, n - 1)
-        mins_x = np.minimum.reduceat(rx0, r_starts)
-        mins_y = np.minimum.reduceat(ry0, r_starts)
-        maxs_x = np.maximum.reduceat(rx1, r_starts)
-        maxs_y = np.maximum.reduceat(ry1, r_starts)
+        mins = np.minimum.reduceat(lo, r_starts, axis=0)
+        maxs = np.maximum.reduceat(hi, r_starts, axis=0)
         empty = starts >= np.append(starts[1:], n)
-        mins_x[empty] = np.inf
-        mins_y[empty] = np.inf
-        maxs_x[empty] = -np.inf
-        maxs_y[empty] = -np.inf
-        cb[idxs, 0] = mins_x
-        cb[idxs, 1] = mins_y
-        cb[idxs, 2] = maxs_x
-        cb[idxs, 3] = maxs_y
+        mins[empty] = np.inf
+        maxs[empty] = -np.inf
+        cb[sel, 0:2] = mins
+        cb[sel, 2:4] = maxs
     # a clear whose plane is never touched again gets a degenerate bbox
     cb[~np.isfinite(cb).all(axis=1)] = 0.0
+    return tgt, positions, planes, cb
 
-    cf = np.zeros((nc, QF_WIDTH), np.float32)
-    cf[:, QF_BBOX_X0] = cb[:, 0]
-    cf[:, QF_BBOX_Y0] = cb[:, 1]
-    cf[:, QF_BBOX_X1] = cb[:, 2]
-    cf[:, QF_BBOX_Y1] = cb[:, 3]
-    cm = np.zeros((nc, QI_WIDTH), np.int32)
-    cm[:, QI_MODE] = MEGA_CLEAR_BIT + ((planes + 1) << MEGA_TARGET_SHIFT)
-    return (np.insert(fields, positions, cf, axis=0),
-            np.insert(out_modes, positions, cm, axis=0))
+
+def pack_mega_combo(tape: Tape) -> np.ndarray:
+    """The megakernel's upload of a tape, (bucket(quads + clears) + 1, 52)
+    f32 with the clear color in the last row (executor.pack_mega_modes'
+    rows, packed): draw-run quads get (target + 1) << MEGA_TARGET_SHIFT
+    added to the mode lane, and each ClearMaskItem becomes a sentinel row
+    with MEGA_CLEAR_BIT set and the bbox _mega_splice gives it. The splice
+    works on the tape's packed rows as they are (the bbox and the mode lanes
+    ride the wire unpacked; a sentinel's other columns are zeros), so a long
+    tape is not unpacked and packed again."""
+    n = tape.count
+    packed = tape.combo[:n]
+    lanes = packed[:, PACKED_MODES : PACKED_MODES + QI_WIDTH].view(np.int32)
+    tgt, positions, planes, cb = _mega_splice(
+        tape, packed[:, QF_BBOX_X0 : QF_BBOX_Y1 + 1], lanes[:, QI_MASK])
+    nc = positions.shape[0]
+    out = np.zeros((bucket(max(n + nc, 1)) + 1, PACKED_WIDTH), np.float32)
+    # quad i lands after the sentinels that precede it
+    dest = np.arange(n) + np.searchsorted(positions, np.arange(n), side="right")
+    out[dest] = packed
+    out_lanes = out[:, PACKED_MODES : PACKED_MODES + QI_WIDTH].view(np.int32)
+    out_lanes[dest, QI_MODE] += tgt << MEGA_TARGET_SHIFT
+    at = positions + np.arange(nc)
+    out[at, QF_BBOX_X0 : QF_BBOX_Y1 + 1] = cb
+    out_lanes[at, QI_MODE] = MEGA_CLEAR_BIT + ((planes + 1) << MEGA_TARGET_SHIFT)
+    out[-1, :4] = tape.clear_color or (0.0, 0.0, 0.0, 0.0)
+    return out
 
 
 @dataclass
@@ -183,9 +181,11 @@ class ExecPlan:
     n_masks: int
     tile_h: int
     has_init_frame: bool
-    # (bucket(quads + clears) + 1, 52) megakernel upload (pack_mega_modes;
+    # (bucket(quads + clears) + 1, 52) megakernel upload (pack_mega_combo;
     # the last row holds the clear color), or None
     mega_combo: Optional[np.ndarray] = None
+    # the mega tape holds atlas quads: the megakernel samples the atlas
+    mega_atlas: bool = False
     # the rolled executor's (n, 4) i32 item table and (n,) f32 blur radii
     # (build_rolled_items), or None; the combo's meta is then one row, the
     # clear color
@@ -253,12 +253,9 @@ def build_rolled_items(structure, bounds, radii):
     return items, out_radii
 
 
-def plan_execution(tape: Tape) -> ExecPlan:
-    """Derive the pass structure, pick the tile height, and take the native
-    walk's packed upload buffer as is. A tape of more than ROLLED_THRESHOLD
-    items also gets the rolled item table when it holds an atlas run, a
-    blur or a backdrop, else the megakernel's combo (renderer.py:1123-1166:
-    an atlas scene never takes the megakernel)."""
+def _plan(tape: Tape, rolled: Optional[bool]) -> ExecPlan:
+    """The plan of a tape; rolled: None for plan_execution's own routing of
+    long tapes, True for the rolled item table whatever the tape holds."""
     width = int(round(tape.frame_size[0]))
     height = int(round(tape.frame_size[1]))
     n_masks = tape.mask_count + 1
@@ -266,32 +263,52 @@ def plan_execution(tape: Tape) -> ExecPlan:
     if tape.combo_quads != bucket(max(tape.count, 1)):
         raise ValueError("tape combo was not padded to its quad bucket")
     checked = check_structure(structure, n_masks)
+    long = len(structure) > ROLLED_THRESHOLD
+    if rolled is None:
+        rolled = long and bool(any_backdrop or radii)
     mega_combo = rolled_items = rolled_radii = None
-    if len(structure) > ROLLED_THRESHOLD and (any_atlas or any_backdrop or radii):
+    if rolled:
         rolled_items, rolled_radii = build_rolled_items(checked, bounds, radii)
-    elif len(structure) > ROLLED_THRESHOLD:
-        fields, modes = tape.fields_modes()
-        mf, mm = pack_mega_modes(tape, fields[: tape.count], modes[: tape.count])
-        mega_combo = np.zeros((bucket(max(mf.shape[0], 1)) + 1, PACKED_WIDTH),
-                              np.float32)
-        pack_fields_np(mf, mm, out=mega_combo[: mf.shape[0]])
-        mega_combo[-1, :4] = tape.clear_color or (0.0, 0.0, 0.0, 0.0)
+    elif long:
+        mega_combo = pack_mega_combo(tape)
     return ExecPlan(
         combo=tape.combo, structure=checked,
         bounds=list(bounds), radii=list(radii), height=height, width=width,
         n_masks=n_masks,
         tile_h=tile_h_from_density(*tape.tile_density, height, width),
         has_init_frame=tape.clear_color is None, mega_combo=mega_combo,
+        mega_atlas=mega_combo is not None and bool(any_atlas),
         rolled_items=rolled_items, rolled_radii=rolled_radii,
     )
+
+
+def plan_execution(tape: Tape) -> ExecPlan:
+    """Derive the pass structure, pick the tile height, and take the native
+    walk's packed upload buffer as is. A tape of more than ROLLED_THRESHOLD
+    items also gets the rolled item table when it holds a blur or a
+    backdrop, else the megakernel's combo, atlas runs included. (The JAX
+    default keeps atlas scenes off its megakernel, renderer.py:1123-1166,
+    for the cost of its in-kernel VMEM window on a TPU v5e; on the H100 a
+    gather is a load and one launch beats a pass per item.)"""
+    return _plan(tape, None)
+
+
+def plan_rolled(tape: Tape) -> ExecPlan:
+    """The plan of a tape on the frame executor's rolled form, whatever
+    plan_execution would route it to. A comparison hook: the tests and
+    chip_smoke.py hold the megakernel's frame and time against a pass per
+    item with it; render_frame never calls it."""
+    return _plan(tape, True)
 
 
 def from_jax_plan(jax_plan) -> ExecPlan:
     """The port's plan from a figdraw_tpu.renderer._ExecPlan (read through
     its numpy fields only), so one tape can run through both packages'
-    executors. A mega plan carries its megakernel combo, a rolled plan gets
-    its item table. Run it with the JAX renderer's atlas
-    (atlas_from_jax)."""
+    executors. The plan keeps the JAX package's route: a mega plan carries
+    its megakernel combo (and mega_atlas, when JAX planned it with the
+    in-kernel sampler; the 1:1 marks in bit 13 of its mode lanes ride along
+    and are ignored), a rolled plan gets its item table. Run it with the
+    JAX renderer's atlas (atlas_from_jax)."""
     mega = jax_plan.mega_combo
     structure = check_structure(jax_plan.structure, jax_plan.n_masks)
     bounds = [tuple(int(v) for v in b) for b in jax_plan.bounds]
@@ -306,6 +323,7 @@ def from_jax_plan(jax_plan) -> ExecPlan:
         n_masks=int(jax_plan.n_masks), tile_h=int(jax_plan.tile_h),
         has_init_frame=bool(jax_plan.has_init_frame),
         mega_combo=None if mega is None else np.asarray(mega, np.float32),
+        mega_atlas=mega is not None and bool(getattr(jax_plan, "mega_atlas", False)),
         rolled_items=rolled_items, rolled_radii=rolled_radii,
     )
 

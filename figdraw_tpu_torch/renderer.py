@@ -178,27 +178,33 @@ class FigRenderer:
         return last
 
     def _run_mega(self, combo: np.ndarray, height: int, width: int,
-                  n_masks: int, has_init_frame: bool, tile_h: int):
+                  n_masks: int, has_init_frame: bool, tile_h: int,
+                  atlas: Optional[torch.Tensor] = None):
+        """The megakernel on a mega combo; atlas: the device atlas when the
+        tape holds atlas quads, else None."""
         run = get_mega_executor(height, width, n_masks, has_init_frame, tile_h)
         # a synchronous copy: the walk's combo pool reuses this host buffer
         # two flattens later
         frame = run(torch.from_numpy(combo).to(self.device, copy=True),
-                    self._init_frame(has_init_frame, height, width))
+                    self._init_frame(has_init_frame, height, width),
+                    atlas=atlas, pixelate=self.pixelate)
         self.last_frame = frame
         return frame
 
     def execute_plan(self, plan: ExecPlan,
                      atlas: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Upload the plan's combo and run its executor: the megakernel for
-        a mega plan, else the frame executor (its rolled form for a rolled
-        plan). atlas: the (S, S, 4) f32 atlas the plan's uv were packed
-        against (plan.atlas_from_jax for a JAX plan); default this
-        renderer's own."""
+        a mega plan (with the atlas for a mega_atlas plan), else the frame
+        executor (its rolled form for a rolled plan). atlas: the (S, S, 4)
+        f32 atlas the plan's uv were packed against (plan.atlas_from_jax for
+        a JAX plan); default this renderer's own."""
+        needs_atlas = plan.mega_combo is None or plan.mega_atlas
+        if atlas is None and needs_atlas:
+            atlas = self._device_atlas()
         if plan.mega_combo is not None:
             return self._run_mega(plan.mega_combo, plan.height, plan.width,
-                                  plan.n_masks, plan.has_init_frame, plan.tile_h)
-        if atlas is None:
-            atlas = self._device_atlas()
+                                  plan.n_masks, plan.has_init_frame, plan.tile_h,
+                                  atlas=atlas if plan.mega_atlas else None)
         init = self._init_frame(plan.has_init_frame, plan.height, plan.width)
         combo = torch.from_numpy(plan.combo).to(self.device, copy=True)
         flags = dict(atlas=atlas, pixelate=self.pixelate)
@@ -219,7 +225,8 @@ class FigRenderer:
         The walk's fast export comes first (renderer.py:1307-1317): a
         mask-heavy scene without atlas quads, blurs or backdrops goes from
         the walk straight to the megakernel, every other scene through a
-        tape and execute()."""
+        tape and execute(), which sends a mask-heavy atlas scene to the
+        megakernel too (plan.plan_execution)."""
         if frame_size.x <= 0 or frame_size.y <= 0:
             return self.last_frame
         self.process_image_messages()

@@ -485,6 +485,61 @@ def atlas_modes_tape(w: int, h: int, atlas_size: int, seed: int = 0,
     return fields, modes, n, atlas
 
 
+def mega_modes_tape(n_masks: int, seed: int, w: int = 512, h: int = 256,
+                    atlas_size=None):
+    """A seeded megakernel tape that drives every clamp: modes_tape's rows
+    (atlas_modes_tape's, on a seeded atlas, when atlas_size is given) with
+    seeded targets and mask reads, some out of range and some targeting
+    plane 0, and eight clear sentinels spliced in, each with the bbox union
+    of the rows that read or write its plane, under the kernel's clamps,
+    before the plane's next clear. Returns ((n_pad, 68) f32 fields, (n_pad,
+    2) i32 mode lanes, (S, S, 4) f32 atlas or None)."""
+    from .ops.layout import QF_BBOX_X0, QF_WIDTH, QI_MASK, QI_MODE
+    from .ops.mega import MEGA_CLEAR_BIT, MEGA_TARGET_SHIFT
+    from .plan import bucket
+
+    atlas = None
+    if atlas_size is None:
+        fields, modes, n_live = modes_tape(w, h)
+    else:
+        fields, modes, n_live, atlas = atlas_modes_tape(w, h, atlas_size,
+                                                        seed=atlas_size, n=96)
+    fields, modes = fields[:n_live], modes[:n_live].copy()
+    rng = np.random.RandomState(seed)
+    kmax = n_masks - 1
+    tgt = rng.randint(0, n_masks + 2, n_live)
+    tgt[rng.rand(n_live) < 0.5] = 0  # half the quads draw into the frame
+    modes[:, QI_MODE] += tgt << MEGA_TARGET_SHIFT
+    modes[:, QI_MASK] = rng.randint(-1, n_masks + 2, n_live)
+    modes[rng.rand(n_live) < 0.5, QI_MASK] = 0  # half read the all-pass plane
+    n_clear = 8
+    pos = np.sort(rng.choice(n_live, n_clear, replace=False))
+    clear_tgt = rng.randint(0, n_masks + 2, n_clear)
+    cleared = np.clip(clear_tgt - 1, 1, max(kmax, 1))
+    # the planes each row touches: its read, its write and the write's source
+    touches = np.stack([np.clip(modes[:, QI_MASK], 0, kmax),
+                        np.where(tgt > 0, np.clip(tgt - 1, 1, kmax), -1),
+                        np.where(tgt > 0, np.clip(tgt - 1, 0, kmax), -1)], 1)
+    cf = np.zeros((n_clear, QF_WIDTH), np.float32)
+    for i in range(n_clear):
+        later = pos[i + 1 :][cleared[i + 1 :] == cleared[i]]
+        stop = later[0] if later.size else n_live
+        rel = (touches[pos[i] : stop] == cleared[i]).any(axis=1)
+        bb = fields[pos[i] : stop, QF_BBOX_X0 : QF_BBOX_X0 + 4][rel]
+        if len(bb):
+            cf[i, QF_BBOX_X0 : QF_BBOX_X0 + 4] = np.concatenate(
+                [bb[:, :2].min(0), bb[:, 2:].max(0)])
+    cm = np.zeros((n_clear, 2), np.int32)
+    cm[:, QI_MODE] = MEGA_CLEAR_BIT + (clear_tgt << MEGA_TARGET_SHIFT)
+    fields = np.insert(fields, pos, cf, axis=0)
+    modes = np.insert(modes, pos, cm, axis=0)
+    n_pad = bucket(fields.shape[0])
+    fields = np.concatenate([fields, np.zeros((n_pad - fields.shape[0], QF_WIDTH),
+                                              np.float32)])
+    modes = np.concatenate([modes, np.zeros((n_pad - modes.shape[0], 2), np.int32)])
+    return fields, modes, atlas
+
+
 # --- the clip-table benchmark scenes ------------------------------------------
 #
 # bench_clipmask.py, the JAX package's reproduction of the reference's
@@ -584,6 +639,7 @@ def make_clip_table_scene(kind: str, w: float = 1200.0, h: float = 800.0,
 REFERENCE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "reference")
 TEXT_REFERENCE = os.path.join(REFERENCE_DIR, "text_1200x800.npz")
+TEXT_TABLE_REFERENCE = os.path.join(REFERENCE_DIR, "textclip_1200x800.npz")
 
 IMAGE_ID = 7001  # bench_images.IMG_ID
 IMAGE_SRC = 64  # the source image's edge (bench_images.SRC)
@@ -614,6 +670,41 @@ def load_text_plan(path: str = TEXT_REFERENCE):
             tile_h=int(z["tile_h"]), has_init_frame=bool(z["has_init_frame"]),
             mega_combo=None)
         return from_jax_plan(jax_plan), z["atlas"].copy(), z["blocks"].copy()
+
+
+def load_text_tape(path: str = TEXT_TABLE_REFERENCE):
+    """A table of text in clipped cells (1200x800: bench_clipmask's 180 rows
+    x 6 cells in a clipped viewport, each cell clipping a line of DejaVuSans
+    at 13 px that spills over it) as figdraw_tpu flattened it, stored
+    because the port has no text host pipeline yet: (Tape, (S, S, 4) f32
+    atlas its glyph uv point into, (100, 150, 4) 8x8 block means of
+    figdraw_tpu's frame). The tape is what the port's own walk would hand
+    to plan.plan_execution: the packed combo with its one meta row (the
+    clear color), the pass items, the structure and the tile density."""
+    from .tape import ClearMaskItem, DrawItem, Tape
+
+    with np.load(path) as z:
+        structure = [tuple(item) for item in json.loads(str(z["structure"]))]
+        bounds = [tuple(b) for b in z["bounds"].tolist()]
+        tape = Tape()
+        tape.count = int(z["count"])
+        tape.combo = z["combo"].copy()
+        tape.combo_quads = tape.combo.shape[0] - 1
+        tape.mask_count = int(z["n_masks"]) - 1
+        tape.frame_size = (float(z["width"]), float(z["height"]))
+        tape.clear_color = tuple(float(v) for v in tape.combo[-1, :4])
+        runs = iter(bounds)
+        for item in structure:
+            if item[0] == "clear_mask":
+                tape.items.append(ClearMaskItem(index=int(item[1])))
+            else:
+                start, end = next(runs)
+                tape.items.append(DrawItem(target=int(item[1]), start=start, end=end))
+        tape.structure_cache = (structure, bounds, [],
+                                any(it[0] == "draw" and it[2] for it in structure),
+                                False)
+        tape.tile_density = tuple(float(v) for v in z["density"])
+        return tape, z["atlas"].copy(), z["blocks"].copy()
 
 
 def photo_image(edge: int = IMAGE_SRC) -> np.ndarray:

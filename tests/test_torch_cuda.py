@@ -1,5 +1,5 @@
 """figdraw_tpu_torch's CUDA kernels (K1, K1-atlas and K3 in csrc/raster.cu,
-K4 in csrc/mega.cu) against their plain torch versions on an NVIDIA card. Every
+K4 and K4-atlas in csrc/mega.cu) against their plain torch versions on an NVIDIA card. Every
 test here needs the card (marker `cuda`) and skips without one. The file
 imports neither jax nor figdraw_tpu, so it also runs on a machine without
 them:
@@ -17,12 +17,13 @@ from figdraw_tpu_torch.executor import (
 )
 from figdraw_tpu_torch.ops import mega, raster
 from figdraw_tpu_torch.ops.binning import bin_quads
-from figdraw_tpu_torch.ops.layout import QF_BBOX_X0, QF_WIDTH, QI_MODE
-from figdraw_tpu_torch.plan import bucket, plan_execution
+from figdraw_tpu_torch.ops.layout import QF_WIDTH, QI_MODE
+from figdraw_tpu_torch.plan import atlas_from_jax, plan_execution, plan_rolled
 from figdraw_tpu_torch.resources import ImageMessageBus, put_image
 from figdraw_tpu_torch.scenes import (
-    IMAGE_ID, atlas_modes_tape, make_clip_table_scene, make_image_panels_scene,
-    make_render_tree_array, modes_tape, photo_image,
+    IMAGE_ID, atlas_modes_tape, load_text_tape, make_clip_table_scene,
+    make_image_panels_scene, make_render_tree_array, mega_modes_tape, modes_tape,
+    photo_image,
 )
 
 TOL = 1.0 / 255.0
@@ -152,49 +153,77 @@ def test_mask_kernel_in_place_reads_its_own_plane(p, dev):
             assert torch.equal(masks[k], before[k])
 
 
-def _mega_args(n_masks, th, dev, w=512, h=256):
-    """K4's inputs: the modes tape with seeded targets and mask reads (some
-    out of range), clear sentinels spliced in, and its binning."""
-    fields, modes, n_live = modes_tape(w, h)
-    fields, modes = fields[:n_live], modes[:n_live].copy()
-    rng = np.random.RandomState(n_masks * 1000 + th)
-    tgt = rng.randint(0, n_masks + 2, n_live)
-    tgt[rng.rand(n_live) < 0.5] = 0
-    modes[:, QI_MODE] += tgt << mega.MEGA_TARGET_SHIFT
-    modes[:, 1] = rng.randint(-1, n_masks + 2, n_live)
-    modes[rng.rand(n_live) < 0.5, 1] = 0  # half read the all-pass plane
-    n_clear = 8
-    pos = np.sort(rng.choice(n_live, n_clear, replace=False))
-    cf = np.zeros((n_clear, QF_WIDTH), np.float32)
-    x0, y0 = rng.rand(n_clear) * w * 0.8, rng.rand(n_clear) * h * 0.7
-    cf[:, QF_BBOX_X0 : QF_BBOX_X0 + 4] = np.stack(
-        [x0, y0, x0 + 40 + rng.rand(n_clear) * 200, y0 + 20 + rng.rand(n_clear) * 100], 1)
-    cm = np.zeros((n_clear, 2), np.int32)
-    cm[:, QI_MODE] = mega.MEGA_CLEAR_BIT + (
-        rng.randint(0, n_masks + 2, n_clear) << mega.MEGA_TARGET_SHIFT)
-    fields = np.insert(fields, pos, cf, axis=0)
-    modes = np.insert(modes, pos, cm, axis=0)
-    n_pad = bucket(fields.shape[0])
-    fields = np.concatenate([fields, np.zeros((n_pad - len(fields), QF_WIDTH), np.float32)])
-    modes = np.concatenate([modes, np.zeros((n_pad - len(modes), 2), np.int32)])
+def _mega_args(n_masks, th, dev, w=512, h=256, atlas_size=None):
+    """The megakernel's inputs: scenes.mega_modes_tape (targets and mask
+    reads out of range, targets of plane 0, clear sentinels with their
+    plane's bbox union) and its binning. Returns (fields, modes, tile_idx,
+    tile_counts, planes, atlas or None)."""
+    fields, modes, atlas = mega_modes_tape(n_masks, n_masks * 1000 + th, w, h,
+                                           atlas_size)
+    assert (modes[:, QI_MODE] >> mega.MEGA_TARGET_SHIFT == 1).any()
+    if atlas is not None:
+        atlas = torch.from_numpy(atlas).to(dev)
     f, m = torch.from_numpy(fields).to(dev), torch.from_numpy(modes).to(dev)
-    tile_idx, tile_counts = bin_quads(f, 0, n_pad, h // th, w // 128, th, 128)
+    tile_idx, tile_counts = bin_quads(f, 0, f.shape[0], h // th, w // 128, th, 128)
+    rng = np.random.RandomState(th)
     planes = torch.from_numpy(rng.rand(4, h, w).astype(np.float32)).to(dev)
-    return f, m, tile_idx, tile_counts, planes
+    return f, m, tile_idx, tile_counts, planes, atlas
 
 
 @pytest.mark.parametrize("n_masks,th", [(1, 128), (3, 128), (3, 64), (3, 32),
                                         (mega.MAX_PLANES, 64)])
 def test_mega_kernel_matches_plain(n_masks, th, dev):
-    args = _mega_args(n_masks, th, dev)
-    before = mega.LAUNCHES
-    out = mega.draw_pass_mega(*args, n_masks, tile_h=th)
-    assert mega.LAUNCHES == before + 1
-    ref = mega.draw_pass_mega_plain(*args, n_masks, tile_h=th)
+    """K4 against its plain version, in place: only the frame planes
+    change, and the culled plain walk gives the full walk's planes."""
+    *args, planes, _atlas = _mega_args(n_masks, th, dev)
+    others = [t.clone() for t in args]
+    before = (mega.LAUNCHES, mega.ATLAS_LAUNCHES)
+    target = planes.clone()
+    out = mega.draw_pass_mega(*args, target, n_masks, tile_h=th)
+    assert (mega.LAUNCHES, mega.ATLAS_LAUNCHES) == (before[0] + 1, before[1])
+    assert out is target
+    ref = mega.draw_pass_mega_plain(*args, planes, n_masks, tile_h=th)
+    culled = mega.draw_pass_mega_plain(*args, planes, n_masks, tile_h=th, cull=True)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out).all())
     assert float((out - ref).abs().max()) <= TOL
-    assert float((out - args[4]).abs().max()) > 0.1
+    assert float((culled - ref).abs().max()) <= 1e-6
+    assert float((out - planes).abs().max()) > 0.1
+    for a, b in zip(args, others):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("size,n_masks,th", [(64, 3, 64), (256, 1, 128),
+                                             (256, 4, 32), (1024, 3, 64)])
+def test_mega_atlas_kernel_matches_plain(size, n_masks, th, dev):
+    """K4-atlas against its plain version on the atlas modes tape with
+    targets, mask reads and clears: bilinear and nearest, with and without
+    the subpixel shift; without the atlas the same tape is another frame."""
+    *args, planes, atlas = _mega_args(n_masks, th, dev, atlas_size=size)
+    for pixelate, subpixel in ((False, False), (False, True), (True, False)):
+        kw = dict(tile_h=th, atlas=atlas, pixelate=pixelate,
+                  subpixel_positioning=subpixel)
+        before = (mega.LAUNCHES, mega.ATLAS_LAUNCHES)
+        target = planes.clone()
+        out = mega.draw_pass_mega(*args, target, n_masks, **kw)
+        assert (mega.LAUNCHES, mega.ATLAS_LAUNCHES) == (before[0], before[1] + 1)
+        assert out is target
+        ref = mega.draw_pass_mega_plain(*args, planes, n_masks, **kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all())
+        assert float((out - ref).abs().max()) <= TOL
+        assert float((out - planes).abs().max()) > 0.1
+    boxes = mega.draw_pass_mega(*args, planes.clone(), n_masks, tile_h=th)
+    assert float((boxes - ref).abs().max()) > 0.1
+
+
+def test_mega_on_cpu_tensors_never_reaches_the_kernel(dev):
+    *args, planes, atlas = (t.cpu() for t in _mega_args(3, 64, dev, atlas_size=64))
+    before = (mega.LAUNCHES, mega.ATLAS_LAUNCHES)
+    want = mega.draw_pass_mega_plain(*args, planes, 3, tile_h=64, atlas=atlas)
+    out = mega.draw_pass_mega(*args, planes, 3, tile_h=64, atlas=atlas)
+    assert (mega.LAUNCHES, mega.ATLAS_LAUNCHES) == before
+    assert out is planes and torch.equal(out, want)
 
 
 def test_mask_and_mega_wrappers_reject_bad_arguments(dev):
@@ -212,7 +241,7 @@ def test_mask_and_mega_wrappers_reject_bad_arguments(dev):
     with pytest.raises(ValueError, match="target planes"):
         raster.draw_pass_mask_prebinned(f, m, bounds, tile_idx, tile_counts,
                                         masks, masks, tile_h=64)
-    f, m, tile_idx, tile_counts, planes = _mega_args(3, 64, dev)
+    f, m, tile_idx, tile_counts, planes, _atlas = _mega_args(3, 64, dev)
     with pytest.raises(ValueError, match="MAX_PLANES"):
         mega.draw_pass_mega(f, m, tile_idx, tile_counts, planes,
                             mega.MAX_PLANES + 1, tile_h=64)
@@ -226,6 +255,17 @@ def test_mask_and_mega_wrappers_reject_bad_arguments(dev):
         mega.draw_pass_mega(f, m, tile_idx, tile_counts,
                             planes.transpose(1, 2).contiguous().transpose(1, 2),
                             3, tile_h=64)
+    with pytest.raises(ValueError, match="aligned"):
+        mega.draw_pass_mega(f.reshape(-1)[1 : 1 + (f.shape[0] - 1) * QF_WIDTH]
+                            .reshape(-1, QF_WIDTH), m[:-1], tile_idx[:, :-1].contiguous(),
+                            tile_counts, planes, 3, tile_h=64)
+    atlas = torch.rand((64, 64, 4), device=dev)
+    with pytest.raises(ValueError, match="atlas is on"):
+        mega.draw_pass_mega(f, m, tile_idx, tile_counts, planes, 3, tile_h=64,
+                            atlas=atlas.cpu())
+    with pytest.raises(ValueError, match="atlas must be"):
+        mega.draw_pass_mega(f, m, tile_idx, tile_counts, planes, 3, tile_h=64,
+                            atlas=atlas[:, :32].contiguous())
 
 
 @pytest.mark.parametrize("kind", ["rectmask", "subclip"])
@@ -349,27 +389,73 @@ def _image_renderer():
     return ren
 
 
+def _counts():
+    return (raster.LAUNCHES, raster.ATLAS_LAUNCHES, raster.MASK_LAUNCHES,
+            mega.LAUNCHES, mega.ATLAS_LAUNCHES)
+
+
 @pytest.mark.parametrize("variant", ["images_11", "images_mixed", "images_clipped"])
 def test_image_frame_matches_plain_executor(variant, dev):
     """An image scene at 480x270 with 25 panels through render_frame: K1-atlas
-    once a frame (and K3 and K1 per clipped card for images_clipped, on the
-    rolled executor); the same executor with the plain versions gives the
-    same frame."""
+    once a frame, or K4-atlas once for the clipped cards; the same executor
+    with the plain versions gives the same frame, and so does, for the
+    clipped cards, the rolled form of the frame executor (K1 once, K3 and
+    K1-atlas per card)."""
     ren = _image_renderer()
     scene = make_image_panels_scene(480, 270, 25, variant)
-    counts = (raster.LAUNCHES, raster.ATLAS_LAUNCHES, raster.MASK_LAUNCHES)
+    counts = _counts()
     frame = ren.render_frame(scene, vec2(480, 270))
-    counts = tuple(b - a for a, b in zip(
-        counts, (raster.LAUNCHES, raster.ATLAS_LAUNCHES, raster.MASK_LAUNCHES)))
-    plan = plan_execution(ren.flatten(scene, vec2(480, 270)))
-    combo = torch.from_numpy(plan.combo).to(dev)
+    counts = tuple(b - a for a, b in zip(counts, _counts()))
+    tape = ren.flatten(scene, vec2(480, 270))
+    plan = plan_execution(tape)
+    atlas = ren._device_atlas()
     plain = dict(draw=raster.draw_pass_planar_prebinned_plain,
-                 draw_mask=raster.draw_pass_mask_prebinned_plain,
-                 atlas=ren._device_atlas())
-    assert counts == ((1, 25, 25) if variant == "images_clipped" else (0, 1, 0))
+                 draw_mask=raster.draw_pass_mask_prebinned_plain, atlas=atlas)
+    if variant == "images_clipped":
+        assert counts == (0, 0, 0, 0, 1) and plan.mega_atlas
+        run = get_mega_executor(270, 480, plan.n_masks, False, plan.tile_h)
+        ref = run(torch.from_numpy(plan.mega_combo).to(dev), None, atlas=atlas,
+                  draw=mega.draw_pass_mega_plain)
+        plan = plan_rolled(tape)
+        counts = _counts()
+        rolled = ren.execute_plan(plan).clone()
+        assert tuple(b - a for a, b in zip(counts, _counts())) == (1, 25, 25, 0, 0)
+        assert float((frame - rolled).abs().max()) <= TOL
+    else:
+        assert counts == (0, 1, 0, 0, 0)
+        ref = None
     run = get_frame_executor(plan.structure, 270, 480, plan.n_masks, False,
                              plan.tile_h, rolled=plan.rolled_items is not None)
-    ref = run(combo, None, items=plan.rolled_items, radii=plan.rolled_radii, **plain)
+    by_pass = run(torch.from_numpy(plan.combo).to(dev), None, items=plan.rolled_items,
+                  radii=plan.rolled_radii, **plain)
     torch.cuda.synchronize()
     assert tuple(frame.shape) == (270, 480, 4)
+    assert float((frame - by_pass).abs().max()) <= TOL
+    if ref is not None:
+        assert float((frame - ref).abs().max()) <= TOL
+
+
+def test_text_table_matches_plain_executor(dev):
+    """The stored table of text in clipped cells (1200x800) on the
+    megakernel with the atlas: one K4-atlas launch, the frame the plain
+    walk's and the rolled executor's, and figdraw_tpu's stored block means."""
+    tape, atlas_np, blocks = load_text_tape()
+    plan = plan_execution(tape)
+    assert plan.mega_atlas
+    atlas = atlas_from_jax(atlas_np, dev)
+    ren = FigRenderer(device="cuda")
+    counts = _counts()
+    frame = ren.execute_plan(plan, atlas=atlas)
+    assert tuple(b - a for a, b in zip(counts, _counts())) == (0, 0, 0, 0, 1)
+    run = get_mega_executor(plan.height, plan.width, plan.n_masks, False,
+                            plan.tile_h)
+    ref = run(torch.from_numpy(plan.mega_combo).to(dev), None, atlas=atlas,
+              draw=mega.draw_pass_mega_plain)
+    rolled = FigRenderer(device="cuda").execute_plan(plan_rolled(tape), atlas=atlas)
+    torch.cuda.synchronize()
     assert float((frame - ref).abs().max()) <= TOL
+    assert float((frame - rolled).abs().max()) <= TOL
+    got = frame.cpu().numpy()
+    h, w = got.shape[0] // 8 * 8, got.shape[1] // 8 * 8
+    means = got[:h, :w].reshape(h // 8, 8, w // 8, 8, 4).mean(axis=(1, 3))
+    assert np.abs(means - blocks).max() <= TOL

@@ -37,7 +37,7 @@ from figdraw_tpu_torch.ops import raster
 from figdraw_tpu_torch.ops.binning import bin_quads
 from figdraw_tpu_torch.ops.layout import QF_BBOX_X0, QI_MASK, QI_MODE
 from figdraw_tpu_torch.ops.quad_eval_planar import eval_quad_planar
-from figdraw_tpu_torch.plan import plan_execution
+from figdraw_tpu_torch.plan import plan_execution, plan_rolled
 from figdraw_tpu_torch.resources import ImageMessageBus, put_image
 from figdraw_tpu_torch.scenes import (
     IMAGE_ID, make_clip_table_scene, make_image_panels_scene,
@@ -169,9 +169,15 @@ class _Passes:
 
 
 def _culled_frame(ren, scene, w, h):
-    """The scene's plan through the port's executor with every pass
-    checked by _Passes; (frame, passes)."""
-    plan = plan_execution(ren.flatten(scene, port.vec2(w, h)))
+    """The scene's plan through the port's frame executor (its rolled form
+    for a tape the port would send to the megakernel) with every pass
+    checked by _Passes; (frame, passes, the same plan's frame through the
+    executor's own passes)."""
+    tape = ren.flatten(scene, port.vec2(w, h))
+    plan = plan_execution(tape)
+    if plan.mega_combo is not None:
+        plan = plan_rolled(tape)
+    default = ren.execute_plan(plan).clone()  # in-place wrappers
     run = get_frame_executor(plan.structure, plan.height, plan.width,
                              plan.n_masks, plan.has_init_frame, plan.tile_h,
                              rolled=plan.rolled_items is not None)
@@ -180,7 +186,7 @@ def _culled_frame(ren, scene, w, h):
                 pixelate=ren.pixelate, items=plan.rolled_items,
                 radii=plan.rolled_radii, draw=passes.draw,
                 draw_mask=passes.draw_mask)
-    return frame, passes
+    return frame, passes, default
 
 
 def _port_image_renderer():
@@ -220,8 +226,8 @@ def test_culled_passes_are_bit_identical(scene, monkeypatch):
         ours = make_clip_table_scene("rectmask", w, h, 12, 6)
         ref = _jax_rectmask(w, h, monkeypatch)
         kinds = ["frame", "mask", "frame"]
-    default = ren.render_frame(ours, port.vec2(w, h)).clone()  # in-place wrappers
-    frame, passes = _culled_frame(ren, ours, w, h)
+    ren.process_image_messages()
+    frame, passes, default = _culled_frame(ren, ours, w, h)
     assert passes.kinds == kinds
     assert torch.equal(frame, default)
     assert np.abs(frame.numpy() - ref).max() <= TOL

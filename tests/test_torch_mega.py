@@ -1,5 +1,5 @@
 """The megakernel path of figdraw_tpu_torch against figdraw_tpu on the CPU:
-the walk's fast export (route and combo bytes), pack_mega_modes, the
+the walk's fast export (route and combo bytes), pack_mega_combo, the
 megakernel K4 (plain version against the Pallas kernel in interpret mode,
 with clear sentinels, K == 1 and out-of-range plane indices), the sub-clip
 table of bench_clipmask.py through render_frame at 12x6 cells and 320x200,
@@ -21,15 +21,21 @@ from figdraw_tpu import FigRenderer as JaxRenderer, vec2 as jax_vec2
 from figdraw_tpu import native as jax_native
 from figdraw_tpu import tape as jax_tape
 from figdraw_tpu.nodesarray import from_renders
-from figdraw_tpu.ops import raster_pallas
+from figdraw_tpu.ops import layout as jax_layout, raster_pallas
 from figdraw_tpu.renderer import _bucket
-from figdraw_tpu_torch import native, renderer as port_renderer, tape as port_tape
+from figdraw_tpu_torch import native, tape as port_tape
+from figdraw_tpu_torch.executor import unpack_combo
 from figdraw_tpu_torch.nodesarray import RenderListArray, RendersArray
 from figdraw_tpu_torch.ops import mega
 from figdraw_tpu_torch.ops.binning import bin_quads
-from figdraw_tpu_torch.ops.layout import QF_BBOX_X0, QF_WIDTH, QI_MODE
-from figdraw_tpu_torch.plan import bucket, from_jax_plan, pack_mega_modes, plan_execution
+from figdraw_tpu_torch.ops.layout import (
+    PACKED_WIDTH, QF_BBOX_X0, QF_WIDTH, QI_MODE, pack_fields_np,
+)
+from figdraw_tpu_torch.plan import (
+    bucket, from_jax_plan, pack_mega_combo, plan_execution,
+)
 from figdraw_tpu_torch.scenes import make_clip_table_scene, modes_tape
+from torch_reference import spy_mega_runs
 
 # one intra-op thread: the suite runs a pytest-xdist worker per core, and
 # torch's spinning thread pools, oversubscribed, slow these tests a
@@ -115,40 +121,106 @@ def test_flatten_fast_matches_reference(name, monkeypatch):
         assert (got[1].shape, got[2]) == ((8193, 52), 2)
 
 
-@pytest.mark.parametrize("name", ["clip_table", "subclip_small"])
-def test_pack_mega_modes_matches_reference(name, monkeypatch):
+def _reference_combo(jt, fields, modes, clear_color):
+    """figdraw_tpu's mega combo of a tape with logical rows (fields, modes):
+    executor.pack_mega_modes' rows packed by its own packer and padded to
+    their bucket, with the meta row (renderer._plan_execution's steps)."""
+    mf, mm = jex.pack_mega_modes(jt, fields, modes)
+    combo = np.zeros((_bucket(max(mf.shape[0], 1)) + 1, jax_layout.PACKED_WIDTH),
+                     np.float32)
+    jax_layout.pack_fields_np(mf, mm, out=combo[: mf.shape[0]])
+    combo[-1, :4] = clear_color or (0.0, 0.0, 0.0, 0.0)
+    return combo, mm
+
+
+def _flattened(name, monkeypatch):
+    """(figdraw_tpu's tape, the port's) of one scene."""
     a, b, w, h = _scenes(name, monkeypatch)
     jt = JaxRenderer(atlas_size=64, use_pallas=True).flatten(a, jax_vec2(w, h))
     pt = port.FigRenderer(device="cpu").flatten(b, port.vec2(w, h))
-    ref_f, ref_m = jex.pack_mega_modes(jt, jt.fields[: jt.count], jt.modes[: jt.count])
-    fields, modes = pt.fields_modes()
-    got_f, got_m = pack_mega_modes(pt, fields[: pt.count], modes[: pt.count])
-    assert got_f.tobytes() == ref_f.tobytes()
-    assert got_m.tobytes() == ref_m.tobytes()
-    assert (got_m[:, QI_MODE] & mega.MEGA_CLEAR_BIT).any()
+    return jt, pt
+
+
+@pytest.mark.parametrize("name", ["clip_table", "subclip_small"])
+def test_pack_mega_modes_matches_reference(name, monkeypatch):
+    """The mode lanes of pack_mega_combo's rows (targets baked, clear
+    sentinels spliced in) are executor.pack_mega_modes'."""
+    jt, pt = _flattened(name, monkeypatch)
+    _combo, ref_m = _reference_combo(jt, jt.fields[: jt.count], jt.modes[: jt.count],
+                                     pt.clear_color)
+    got = pack_mega_combo(pt)
+    _f, got_m = unpack_combo(torch.from_numpy(got[: ref_m.shape[0]]))
+    assert got_m.numpy().tobytes() == ref_m.tobytes()
+    assert (ref_m[:, QI_MODE] & mega.MEGA_CLEAR_BIT).any()
+    assert not got[ref_m.shape[0] : -1].any()  # padding to the bucket
+
+
+_CLEAR_ITEMS = [("clear", 1), ("draw", 1, 0, 2), ("clear", 2), ("clear", 2),
+                ("draw", 2, 2, 3), ("draw", -1, 3, 6), ("clear", 1), ("clear", 3)]
+
+
+def _clear_tapes(items, n, clear_color=None):
+    """A tape of `items` over n seeded rows, figdraw_tpu's and the port's
+    (with the packed combo pack_mega_combo reads), and the rows."""
+    rng = np.random.RandomState(3)
+    fields = rng.rand(6, QF_WIDTH).astype(np.float32) * 50
+    fields[:, QF_BBOX_X0 + 2 : QF_BBOX_X0 + 4] += 60
+    fields[:, 16:40] = rng.randint(0, 256, (6, 24)) / np.float32(255.0)
+    modes = np.stack([np.full(6, 3), np.array([0, 1, 1, 2, 0, 1])], 1).astype(np.int32)
+    fields, modes = fields[:n], modes[:n]
+    jt, pt = jax_tape.Tape(capacity=1), port_tape.Tape()
+    for t, mod in ((jt, jax_tape), (pt, port_tape)):
+        for it in items:
+            t.items.append(mod.ClearMaskItem(index=it[1]) if it[0] == "clear"
+                           else mod.DrawItem(target=it[1], start=it[2], end=it[3]))
+    pt.count = n
+    pt.combo = np.zeros((bucket(max(n, 1)) + 1, PACKED_WIDTH), np.float32)
+    pack_fields_np(fields, modes, out=pt.combo[:n])
+    pt.clear_color = clear_color
+    return jt, pt, fields, modes
 
 
 def test_pack_mega_modes_dead_and_repeated_clears():
     """Clears with no quad after them (a degenerate sentinel bbox) and two
     clears of one plane in a row (an empty segment)."""
-    rng = np.random.RandomState(3)
-    fields = rng.rand(6, QF_WIDTH).astype(np.float32) * 50
-    fields[:, QF_BBOX_X0 + 2 : QF_BBOX_X0 + 4] += 60
-    modes = np.stack([np.full(6, 3), np.array([0, 1, 1, 2, 0, 1])], 1).astype(np.int32)
-    items = [("clear", 1), ("draw", 1, 0, 2), ("clear", 2), ("clear", 2),
-             ("draw", 2, 2, 3), ("draw", -1, 3, 6), ("clear", 1), ("clear", 3)]
+    jt, pt, fields, modes = _clear_tapes(_CLEAR_ITEMS, 6)
+    want, ref_m = _reference_combo(jt, fields, modes, None)
+    got = pack_mega_combo(pt)
+    assert got.tobytes() == want.tobytes()
+    assert int(((ref_m[:, QI_MODE] & mega.MEGA_CLEAR_BIT) != 0).sum()) == 5
 
-    def tape_of(mod):
-        t = mod.Tape() if mod is port_tape else mod.Tape(capacity=1)
-        for it in items:
-            t.items.append(mod.ClearMaskItem(index=it[1]) if it[0] == "clear"
-                           else mod.DrawItem(target=it[1], start=it[2], end=it[3]))
-        return t
 
-    ref_f, ref_m = jex.pack_mega_modes(tape_of(jax_tape), fields, modes)
-    got_f, got_m = pack_mega_modes(tape_of(port_tape), fields, modes)
-    assert got_f.tobytes() == ref_f.tobytes()
-    assert got_m.tobytes() == ref_m.tobytes()
+@pytest.mark.parametrize("name", ["clip_table", "clip_table_12", "subclip_small"])
+def test_pack_mega_combo_is_the_packed_rows(name, monkeypatch):
+    """The plan's mega combo, spliced on the tape's packed rows, is byte for
+    byte figdraw_tpu's: executor.pack_mega_modes' rows, packed."""
+    jt, pt = _flattened(name, monkeypatch)
+    want, _m = _reference_combo(jt, jt.fields[: jt.count], jt.modes[: jt.count],
+                                pt.clear_color)
+    got = pack_mega_combo(pt)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+    assert plan_execution(pt).mega_combo.tobytes() == want.tobytes()
+
+
+def test_pack_mega_combo_dead_and_repeated_clears():
+    """As test_pack_mega_modes_dead_and_repeated_clears with a clear color;
+    and a tape of clears alone."""
+    color = (0.25, 0.5, 0.75, 1.0)
+    jt, pt, fields, modes = _clear_tapes(_CLEAR_ITEMS, 6, color)
+    assert pack_mega_combo(pt).tobytes() == _reference_combo(
+        jt, fields, modes, color)[0].tobytes()
+    clears = [it for it in _CLEAR_ITEMS if it[0] == "clear"]
+    # no quads (figdraw_tpu's packer takes no such tape): five sentinels
+    # with degenerate bboxes, their planes in the mode lane
+    _jt, pt, _fields, _modes = _clear_tapes(clears, 0, color)
+    got = pack_mega_combo(pt)
+    assert got.shape == (bucket(5) + 1, PACKED_WIDTH)
+    assert tuple(got[-1, :4]) == color
+    f, m = unpack_combo(torch.from_numpy(got[:-1]))
+    assert not f.any() and not m[5:].any()
+    assert m[:5, QI_MODE].tolist() == [
+        mega.MEGA_CLEAR_BIT + ((it[1] + 1) << mega.MEGA_TARGET_SHIFT) for it in clears]
 
 
 # --- K4: the megakernel ----------------------------------------------------------
@@ -204,11 +276,14 @@ def test_cpu_tensors_take_the_plain_mega():
     f, m = torch.from_numpy(fields), torch.from_numpy(modes)
     tile_idx, tile_counts = bin_quads(f, 0, f.shape[0], 2, 2, 64, 128)
     planes = torch.ones((4, 128, 256))
-    before = mega.LAUNCHES
+    want = mega.draw_pass_mega_plain(f, m, tile_idx, tile_counts, planes, 3,
+                                     tile_h=64)
+    assert torch.equal(planes, torch.ones((4, 128, 256)))  # the plain walk is pure
+    before = (mega.LAUNCHES, mega.ATLAS_LAUNCHES)
     out = mega.draw_pass_mega(f, m, tile_idx, tile_counts, planes, 3, tile_h=64)
-    assert mega.LAUNCHES == before
-    np.testing.assert_array_equal(out.numpy(), mega.draw_pass_mega_plain(
-        f, m, tile_idx, tile_counts, planes, 3, tile_h=64).numpy())
+    assert (mega.LAUNCHES, mega.ATLAS_LAUNCHES) == before
+    assert out is planes  # the wrapper works in place, on the CPU too
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
     meta = torch.empty((4, 128, 128), device="meta")
     with pytest.raises(ValueError, match="no megakernel"):
         mega.draw_pass_mega(meta, meta, meta, meta, meta, 3)
@@ -233,18 +308,12 @@ def jax_subclip():
 
 def test_subclip_table_matches_reference(jax_subclip, monkeypatch):
     _scene, _jr, first, second = jax_subclip
-    calls = []
-    orig = port_renderer.get_mega_executor
-
-    def spy(*a):
-        calls.append(a)
-        return orig(*a)
-
-    monkeypatch.setattr(port_renderer, "get_mega_executor", spy)
+    runs = spy_mega_runs(monkeypatch)
     pr = port.FigRenderer(device="cpu")
     ours = make_clip_table_scene("subclip", W, H, ROWS, COLS)
     got = pr.render_frame(ours, port.vec2(W, H))
-    assert calls and calls[0][2] == 3  # the megakernel, three mask planes
+    # the megakernel, three mask planes, no atlas (an SDF tape: K4)
+    assert runs and runs[0][0][2] == 3 and not runs[0][1]
     assert tuple(got.shape) == (H, W, 4)
     assert np.abs(got.numpy() - first).max() <= TOL
     again = pr.render_frame(ours, port.vec2(W, H), clear_main=False)

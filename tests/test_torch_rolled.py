@@ -1,10 +1,13 @@
 """The rolled executor of figdraw_tpu_torch against figdraw_tpu on the CPU:
-tapes of more than 24 pass items that hold an atlas run, a blur or a
-backdrop. test_mega.py's text-in-clip scene through figdraw_tpu's own plan
-and atlas, the images_clipped cards through render_frame at 480x270 with
-25 panels, a blurred clip table, and the item table against
-renderer._build_rolled_items. Pixels within 1/255; tables and rows
-exactly."""
+tapes of more than 24 pass items. The port's own plans take it for a blur
+or a backdrop (atlas runs go to the megakernel: tests/
+test_torch_mega_atlas.py); a figdraw_tpu rolled plan keeps its route
+through from_jax_plan, and plan.plan_rolled puts any tape on it.
+test_mega.py's text-in-clip scene through figdraw_tpu's own plan and atlas,
+the images_clipped cards at 480x270 with 25 panels through render_frame
+(the megakernel) and through the rolled form, a blurred clip table, and
+the item table against renderer._build_rolled_items. Pixels within 1/255;
+tables and rows exactly."""
 
 import numpy as np
 import pytest
@@ -17,7 +20,7 @@ from figdraw_tpu_torch.basics import FigFlags, FigKind
 from figdraw_tpu_torch.nodesarray import RenderListArray, RendersArray
 from figdraw_tpu_torch.ops import raster
 from figdraw_tpu_torch.plan import (
-    ROLLED_THRESHOLD, atlas_from_jax, from_jax_plan, plan_execution,
+    ROLLED_THRESHOLD, atlas_from_jax, from_jax_plan, plan_execution, plan_rolled,
 )
 from figdraw_tpu_torch.resources import ImageMessageBus, put_image
 from figdraw_tpu_torch.scenes import (
@@ -25,7 +28,7 @@ from figdraw_tpu_torch.scenes import (
 )
 from torch_reference import (
     DEJAVU, IMAGE_H, IMAGE_N, IMAGE_W, block_means, jax_clipped_scene,
-    jax_image_frame,
+    jax_image_frame, jax_text_cells_scene,
 )
 
 # one intra-op thread: the suite runs a pytest-xdist worker per core, and
@@ -52,36 +55,16 @@ def _same_table(jax_plan, plan):
 
 @pytest.fixture(scope="module")
 def text_in_clip():
-    """test_mega.py:255's scene (8x3 clipped cells of text at 360x280,
+    """test_mega.py:159's scene (8x3 clipped cells of text at 360x280,
     DejaVuSans at 13 px) through figdraw_tpu's default path: its rolled
     plan, atlas and frame."""
     import os
 
     if not os.path.exists(DEJAVU):
         pytest.skip(f"needs the DejaVu font at {DEJAVU}")
-    from figdraw_tpu import Fig, FigFlags as JFlags, FigKind as JKind, fill, rect, rgba
     from figdraw_tpu import FigRenderer as JaxRenderer
-    from figdraw_tpu.nodes import RenderList, Renders
-    from figdraw_tpu.text.layout import typeset
-    from figdraw_tpu.text.typefaces import FigFont, load_typeface
 
-    f = FigFont(typeface_id=load_typeface(DEJAVU), size=13.0)
-    lst = RenderList()
-    lst.add_root(Fig(kind=JKind.nkRectangle, screen_box=rect(0, 0, 360, 280),
-                     fill=fill(rgba(248, 249, 251, 255))))
-    for row in range(8):
-        for col in range(3):
-            cell = rect(8 + col * 116, 8 + row * 33, 110, 28)
-            ci = lst.add_root(Fig(kind=JKind.nkRectangle, screen_box=cell,
-                                  corners=(5,) * 4, flags=JFlags.NfClipContent,
-                                  fill=fill(rgba(255, 255, 255, 255))))
-            arr = typeset(jax_vec2(140, 24), [(f, fill(rgba(30, 30, 40, 255)),
-                                               f"cell r{row}c{col} spills wide")])
-            lst.add_child(ci, Fig(kind=JKind.nkText,
-                                  screen_box=rect(cell.x + 4, cell.y + 5, 140, 20),
-                                  text_layout=arr))
-    scene = Renders()
-    scene.set_layer(0, lst)
+    scene = jax_text_cells_scene()
     jr = JaxRenderer(atlas_size=256, use_pallas=False)
     frame = np.asarray(jr.render_frame(scene, jax_vec2(360, 280)))
     jplan = jr._plan_execution(jr.flatten(scene, jax_vec2(360, 280)))
@@ -139,17 +122,28 @@ def test_images_clipped_matches_reference(jax_clipped):
     got = pr.render_frame(ours, size)
     assert tuple(got.shape) == (IMAGE_H, IMAGE_W, 4)
     assert np.abs(got.numpy() - ref).max() <= TOL
-    # the same tape, and a rolled plan: per card a mask clear, the card into
-    # the mask plane, and the card with its clipped image into the frame
+    # the same tape: per card a mask clear, the card into the mask plane,
+    # and the card with its clipped image into the frame. The port sends it
+    # to the megakernel with the atlas
     pt = pr.flatten(ours, size)
     jt = jr.flatten(scene, jax_vec2(IMAGE_W, IMAGE_H))
     assert pt.combo.tobytes() == jt.combo.tobytes()
     plan = plan_execution(pt)
-    assert plan.mega_combo is None and plan.rolled_items is not None
+    assert plan.mega_combo is not None and plan.mega_atlas
+    assert plan.rolled_items is None
     assert plan.structure[:4] == (("draw", -1, False, False), ("clear_mask", 1),
                                   ("draw", 1, False, False), ("draw", -1, True, False))
     assert len(plan.structure) == 1 + 3 * IMAGE_N
-    _same_table(jr._plan_execution(jt), plan)
+    # the rolled form of the frame executor on the same tape: figdraw_tpu's
+    # item table, and the same frame a pass per item
+    rolled = plan_rolled(pt)
+    assert rolled.mega_combo is None and not rolled.mega_atlas
+    _same_table(jr._plan_execution(jt), rolled)
+    before = (raster.LAUNCHES, raster.ATLAS_LAUNCHES, raster.MASK_LAUNCHES)
+    by_item = pr.execute_plan(rolled)
+    assert (raster.LAUNCHES, raster.ATLAS_LAUNCHES, raster.MASK_LAUNCHES) == before
+    assert np.abs(by_item.numpy() - ref).max() <= TOL
+    assert np.abs(by_item.numpy() - got.numpy()).max() <= 1e-5
     # frames that do not clear start from the last frame
     again = pr.render_frame(ours, size, clear_main=False)
     from figdraw_tpu import vec2

@@ -13,7 +13,13 @@ long tapes on the rolled executor):
   FigRenderer(atlas_size=512)) as its plan (combo, structure, bounds, tile
   height), the atlas its glyphs were packed into, and the frame's 8x8
   block means. The card's machine has no fontTools: the port's text phase
-  runs this stored plan.
+  runs this stored plan;
+- `textclip_1200x800.npz`: a table of text in clipped cells, tests/
+  test_mega.py's text-in-clip scene grown to bench_clipmask's table (1200x800,
+  180 rows x 6 cells in a clipped viewport, each cell clipping a line of
+  DejaVuSans at 13 px that spills over it), as its tape (the packed combo,
+  pass structure, draw bounds, tile density), atlas and block means. The
+  port plans the stored tape itself (`scenes.load_text_tape`).
 
 Rewrite them all (needs jax, fontTools and the DejaVu font):
 
@@ -33,6 +39,8 @@ DEJAVU = "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf"
 # (the benchmark: 1920x1080 with 400 panels)
 IMAGE_W, IMAGE_H, IMAGE_N = 480, 270, 25
 TEXT_W, TEXT_H = 1200, 800
+# bench_clipmask's table, with text in its cells
+TABLE_W, TABLE_H, TABLE_ROWS, TABLE_COLS = 1200, 800, 180, 6
 
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
@@ -44,6 +52,27 @@ def block_means(frame, k: int = 8):
     h, w, c = frame.shape
     h, w = h // k * k, w // k * k
     return frame[:h, :w].reshape(h // k, k, w // k, k, c).mean(axis=(1, 3))
+
+
+def spy_mega_runs(monkeypatch):
+    """Record the port renderer's megakernel frames: a list that gains, per
+    frame, (get_mega_executor's arguments, whether the run got an atlas)."""
+    from figdraw_tpu_torch import renderer as port_renderer
+
+    runs = []
+    orig = port_renderer.get_mega_executor
+
+    def spy(*key):
+        run = orig(*key)
+
+        def recorded(combo, init_frame, atlas=None, **kw):
+            runs.append((key, atlas is not None))
+            return run(combo, init_frame, atlas=atlas, **kw)
+
+        return recorded
+
+    monkeypatch.setattr(port_renderer, "get_mega_executor", spy)
+    return runs
 
 
 def jax_clipped_scene(n: int, w: float, h: float):
@@ -143,9 +172,125 @@ def text_fixture():
     return arrays, frame
 
 
+def _text_font(size: float):
+    from figdraw_tpu.text.typefaces import FigFont, load_typeface
+
+    return FigFont(typeface_id=load_typeface(DEJAVU), size=size)
+
+
+def jax_text_cells_scene():
+    """tests/test_mega.py:159's scene: 8x3 clipped cells at 360x280, each
+    with a line of DejaVuSans at 13 px that spills over its cell."""
+    from figdraw_tpu import Fig, FigFlags, FigKind, fill, rect, rgba, vec2
+    from figdraw_tpu.nodes import RenderList, Renders
+    from figdraw_tpu.text.layout import typeset
+
+    f = _text_font(13.0)
+    lst = RenderList()
+    lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, 360, 280),
+                     fill=fill(rgba(248, 249, 251, 255))))
+    for row in range(8):
+        for col in range(3):
+            cell = rect(8 + col * 116, 8 + row * 33, 110, 28)
+            ci = lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=cell,
+                                  corners=(5,) * 4, flags=FigFlags.NfClipContent,
+                                  fill=fill(rgba(255, 255, 255, 255))))
+            arr = typeset(vec2(140, 24), [(f, fill(rgba(30, 30, 40, 255)),
+                                           f"cell r{row}c{col} spills wide")])
+            lst.add_child(ci, Fig(kind=FigKind.nkText,
+                                  screen_box=rect(cell.x + 4, cell.y + 5, 140, 20),
+                                  text_layout=arr))
+    scene = Renders()
+    scene.set_layer(0, lst)
+    return scene
+
+
+def jax_text_table_scene(rows: int = TABLE_ROWS, cols: int = TABLE_COLS,
+                         w: float = TABLE_W, h: float = TABLE_H):
+    """The text-in-clip scene at bench_clipmask.make_table_scene's size and
+    layout: a clipped viewport scrolled by 37 px over rows x cols rounded
+    cells of 22 px, each clipping a 13 px line that runs past its right
+    edge."""
+    from figdraw_tpu import Fig, FigFlags, FigKind, fill, rect, rgba, vec2
+    from figdraw_tpu.nodes import RenderList, Renders
+    from figdraw_tpu.text.layout import typeset
+
+    f = _text_font(13.0)
+    margin, gap, cell_h, scroll_y = 22.0, 4.0, 22.0, 37.0
+    viewport = rect(margin, margin, w - margin * 2, h - margin * 2)
+    cell_w = (viewport.w - gap * (cols + 1)) / cols
+    lst = RenderList()
+    lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, w, h),
+                     fill=fill(rgba(248, 249, 251, 255))))
+    vp = lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=viewport,
+                          fill=fill(rgba(232, 235, 240, 255)), corners=(10,) * 4,
+                          flags=FigFlags.NfClipContent))
+    for row in range(rows):
+        y = viewport.y + gap + row * (cell_h + gap) - scroll_y
+        for col in range(cols):
+            cell = rect(viewport.x + gap + col * (cell_w + gap), y, cell_w, cell_h)
+            shade = 255 if (row + col) % 2 == 0 else 244
+            ci = lst.add_child(vp, Fig(
+                kind=FigKind.nkRectangle, screen_box=cell, corners=(4,) * 4,
+                flags=FigFlags.NfClipContent,
+                fill=fill(rgba(shade, shade, 255, 255))))
+            arr = typeset(vec2(cell_w + 60, 20), [(
+                f, fill(rgba(30, 30 + (row * 7) % 90, 40 + (col * 29) % 120, 255)),
+                f"cell r{row}c{col} spills wide past its clip")])
+            lst.add_child(ci, Fig(
+                kind=FigKind.nkText,
+                screen_box=rect(cell.x + 4, cell.y + 3, cell_w + 60, 20),
+                text_layout=arr))
+    scene = Renders()
+    scene.set_layer(0, lst)
+    return scene
+
+
+def _density(fields: np.ndarray, tile_h: int = 128, tile_w: int = 128):
+    """native/flatten.cpp fd_density on logical field rows: (quad-tile pair
+    count over live quads, median live bbox height or -1)."""
+    bw = fields[:, 8] - fields[:, 6]
+    bh = fields[:, 9] - fields[:, 7]
+    live = (bw > 0) & (bh > 0)
+    if not live.any():
+        return 0.0, -1.0
+    pairs = ((np.floor(bw[live] / np.float32(tile_w)) + 1.0)
+             * (np.floor(bh[live] / np.float32(tile_h)) + 1.0)).sum()
+    return float(np.float32(pairs)), float(np.median(bh[live]))
+
+
+def text_table_fixture(rows: int = TABLE_ROWS, cols: int = TABLE_COLS,
+                       w: int = TABLE_W, h: int = TABLE_H, atlas_size: int = 512):
+    """The text table through figdraw_tpu's default path (the rolled
+    executor): (the tape's arrays as `textclip_1200x800.npz` stores them,
+    the (h, w, 4) frame)."""
+    from figdraw_tpu import FigRenderer, vec2
+
+    scene = jax_text_table_scene(rows, cols, float(w), float(h))
+    ren = FigRenderer(atlas_size=atlas_size, use_pallas=False)
+    frame = np.asarray(ren.render_frame(scene, vec2(w, h)))
+    tape = ren.flatten(scene, vec2(w, h))
+    plan = ren._plan_execution(tape)
+    assert plan.rolled and plan.mega_combo is None and not plan.radii
+    density = tape.tile_density or _density(np.asarray(tape.fields[: tape.count]))
+    arrays = dict(
+        combo=np.asarray(plan.combo, np.float32),
+        count=np.int32(tape.count),
+        structure=np.array(json.dumps([list(item[:4]) for item in plan.structure])),
+        bounds=np.asarray(plan.bounds, np.int32).reshape(-1, 2),
+        density=np.asarray(density, np.float32),
+        tile_h=np.int32(plan.tile_h), height=np.int32(plan.height),
+        width=np.int32(plan.width), n_masks=np.int32(plan.n_masks),
+        atlas=np.asarray(ren.atlas.data, np.float32),
+        blocks=block_means(frame).astype(np.float32),
+    )
+    return arrays, frame
+
+
 def main() -> None:
     from figdraw_tpu_torch.scenes import (
-        IMAGE_VARIANTS, TEXT_REFERENCE, image_reference_path,
+        IMAGE_VARIANTS, TEXT_REFERENCE, TEXT_TABLE_REFERENCE,
+        image_reference_path,
     )
 
     with pytest.MonkeyPatch.context() as mp:
@@ -157,6 +302,10 @@ def main() -> None:
     arrays, _frame = text_fixture()
     np.savez_compressed(TEXT_REFERENCE, **arrays)
     print(f"wrote {TEXT_REFERENCE} ({os.path.getsize(TEXT_REFERENCE)} bytes)")
+    arrays, _frame = text_table_fixture()
+    np.savez_compressed(TEXT_TABLE_REFERENCE, **arrays)
+    print(f"wrote {TEXT_TABLE_REFERENCE} "
+          f"({os.path.getsize(TEXT_TABLE_REFERENCE)} bytes)")
 
 
 if __name__ == "__main__":
