@@ -32,7 +32,23 @@ FigRenderer(device="cuda").render_frame or execute_plan:
   of the frame executor (plan.plan_rolled: per card K3 into the mask plane
   and K1-atlas into the frame), the route these frames took before the
   megakernel had its atlas form; both atlas scenes run both routes in
-  turns.
+  turns;
+- device-resident scenes, through snapshot_scene, render_view, render_views
+  and update_scene at 1920x1080 with 300 and 12000 boxes: bench_camera.py's
+  pan and flythrough loops, bench_sceneanim.py's per-root affine table a
+  frame and bench_retained.py's 8 edited roots a frame (damage-clipped and
+  in full), each beside its render_frame loop; every view launches the row
+  kernel (csrc/rows.cu) once, held against its plain version on each
+  loop's own rows (equal 32-bit words), and the headline's frames launch
+  the blur kernel (csrc/blur.cu) once a pass, held against the plain blur
+  on the headline's planes and on seeded planes at other radii.
+
+`python3 chip_smoke.py headline` stops after the headline phases (build,
+K1 and the blur against their plain versions, the frames and their stage
+times) and prints the card line and the same last line. It is how two
+commits are compared in turns: unpack the other commit beside this one
+and run the command in each checkout alternately, one process after the
+other on the same card, so both see the same card and power limit.
 
 It checks the frames and the launch counts of each path, holds reduced
 frames against stored block means of the JAX package's frames, and prints
@@ -340,16 +356,34 @@ def kernel_device_ms(fn, reps: int = 3) -> dict:
     return out
 
 
-def device_ms_of(fn, kernel: str, reps: int = 5) -> float:
+def device_ms_of(fn, kernel: str, reps: int = 5, launches: int = 1) -> float:
     """Device ms per run of fn() in the kernels whose name holds `kernel`,
     from torch.profiler: the kernel's own time, where CUDA events around a
     wrapper call also count the host's part of a launch into an idle
-    queue."""
-    prof = kernel_device_ms(fn, reps)
-    hits = [v for k, v in prof.items() if kernel in k]
-    if not hits:
-        fail(f"the profiler saw no kernel named {kernel}; it saw {sorted(prof)[:20]}")
-    return sum(v[0] for v in hits)
+    queue. fn() launches each such kernel `launches` times. The profiler's
+    traces on the card are not always whole: one in some hundred comes back
+    with no device activity at all and is taken again (up to three more
+    times), the take after such a one has read 2.5 times a kernel's usual
+    time, and one call site's traces hold 4 launches for 5 runs. So the time
+    is the mean per launch that the trace holds times `launches`, and a
+    trace that holds another number of launches than reps * launches is
+    printed."""
+    prof = {}
+    for attempt in range(4):
+        prof = kernel_device_ms(fn, reps)
+        hits = {k: v for k, v in prof.items() if kernel in k}
+        if hits:
+            seen = [round(n * reps) for _ms, n in hits.values()]
+            if attempt or any(n != reps * launches for n in seen):
+                print(f"note: the profiler's trace for {kernel} (take {attempt + 1}) "
+                      f"holds {seen} launches for {reps} runs of {launches} each; "
+                      f"timed by the mean per launch", flush=True)
+            return sum(ms / n * launches for ms, n in hits.values())
+        if prof:
+            break
+        print(f"note: the profiler's trace for {kernel} came back with no device "
+              f"activity (take {attempt + 1} of 4)", flush=True)
+    fail(f"the profiler saw no kernel named {kernel}; it saw {sorted(prof)[:20]}")
 
 
 def graph_ms(fn, reps: int = 5) -> float:
@@ -420,10 +454,11 @@ def launch_counts():
 
 
 def zero_counts():
-    from figdraw_tpu_torch.ops import mega, raster
+    from figdraw_tpu_torch.ops import blur, mega, raster, rows
 
     raster.LAUNCHES = raster.ATLAS_LAUNCHES = raster.MASK_LAUNCHES = 0
     mega.LAUNCHES = mega.ATLAS_LAUNCHES = 0
+    rows.LAUNCHES = blur.LAUNCHES = 0
 
 
 def timed_frames(what: str, render, shape, frames: int = FRAMES) -> list:
@@ -1030,6 +1065,445 @@ def clip_table_phase(kind: str, tag: str, dev) -> dict:
     return out
 
 
+RESIDENT_FRAMES = 48  # the device-resident benchmarks' sweep length
+RESIDENT_SCALES = (100, 4000)  # bench.py's copies: 300 and 12000 boxes
+DIRTY_ROOTS = 8  # bench_retained.py's edited roots a frame
+# FP32 operations the blur needs for one tap of one pixel: two multiplies and
+# an add for the interpolation, a multiply and an add into the sum. A tap's
+# position, floor, fraction, clamped texel indices and 1 - fraction (9 more
+# operations) depend only on the column in the horizontal pass and on the row
+# in the vertical one, so the function needs them once a line position, not
+# once a pixel; csrc/blur.cu, one thread a pixel, computes them per pixel (14
+# operations a tap), which its bound does not credit it for. ROWS_OPS_PER_ROW:
+# one row of csrc/rows.cu with every stage on. Counted, not measured.
+BLUR_OPS_PER_TAP, BLUR_OPS_PER_POSITION, BLUR_TAPS = 5, 9, 17
+BLUR_KERNEL_OPS_PER_TAP = BLUR_OPS_PER_TAP + BLUR_OPS_PER_POSITION
+ROWS_OPS_PER_ROW = 190
+
+
+def loop_ms(render, reps: int = 3) -> list:
+    """ms/frame of `reps` loops of render(f) for f in range(RESIDENT_FRAMES),
+    each loop ended by one synchronize, as the device-resident benchmarks
+    time theirs."""
+    import torch
+
+    frames = RESIDENT_FRAMES
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in range(frames):
+            render(f)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3 / frames)
+    return out
+
+
+def ms_text(ms: list) -> str:
+    return f"{min(ms):.3f} ms/frame (loops of {RESIDENT_FRAMES}: " + ", ".join(
+        f"{m:.3f}" for m in ms) + ")"
+
+
+def rows_check(what: str, scene, d, z, errs: list, table=None, ridx=None,
+               rects=None):
+    """The row kernel against its plain version on a scene's resident rows:
+    fails unless their int32 views are equal and the resident rows are
+    untouched. Returns the call's arguments."""
+    import torch
+
+    from figdraw_tpu_torch.ops import rows
+
+    resident = scene.combo_dev.clone()
+    out = torch.empty_like(scene.combo_dev)
+    args = (scene.combo_dev, scene.n_quads, d, z)
+    kw = dict(table=table, ridx=ridx, rects=rects)
+    got = rows.transform_rows(*args, out, **kw)
+    ref = rows.transform_rows_plain(*args, **kw)
+    torch.cuda.synchronize()
+    differing = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+    moved = int((got.view(torch.int32) != resident.view(torch.int32)).sum())
+    print(f"check 8: rows kernel vs plain on the {what} rows "
+          f"{tuple(scene.combo_dev.shape)} ({scene.n_quads} quad rows, stages: "
+          f"{'affine, ' if table is not None else ''}camera"
+          f"{', damage clip' if rects is not None else ''}): {differing} of "
+          f"{got.numel()} 32-bit words differ (expected 0); {moved} words moved",
+          flush=True)
+    if differing or not torch.equal(scene.combo_dev.view(torch.int32),
+                                    resident.view(torch.int32)):
+        fail(f"{what}: the row kernel differs from its plain version in "
+             f"{differing} words, or wrote the resident rows")
+    errs.append(float(differing))
+    return args, kw
+
+
+def shifted_scene(copies: int, d):
+    """bench.py's frame-0 scene with every box moved by the integer offset d."""
+    from figdraw_tpu_torch.scenes import make_render_tree_array
+
+    import numpy as np
+
+    arr = make_render_tree_array(WIDTH, HEIGHT, 0, copies=copies)
+    box = arr[0].nodes["box"]
+    box[:, 0] += np.float32(d[0])
+    box[:, 1] += np.float32(d[1])
+    return arr
+
+
+def camera_phase(copies: int, tag: str, errs: list) -> dict:
+    """bench_camera.py's loops at 1080p: render_frame of the static scene,
+    render_view(snap, (3f, f)) and render_views of the same sweep with its
+    zooms. Checks: an integer-pan view equals, bit for bit, the frame of the
+    scene with its boxes moved by the pan (flattened without the viewport
+    cull, and at copies=100 also render_frame's own frame); render_views
+    equals the render_view loop; launch counts."""
+    import torch
+
+    from figdraw_tpu_torch import FigRenderer, vec2
+    from figdraw_tpu_torch.executor import unpack_combo
+    from figdraw_tpu_torch.ops import blur, raster, rows
+    from figdraw_tpu_torch.ops.binning import bin_quads
+    from figdraw_tpu_torch.scenes import make_render_tree_array
+
+    size = vec2(WIDTH, HEIGHT)
+    cache = {}
+    ren = FigRenderer(device="cuda")
+    n = RESIDENT_FRAMES
+
+    def scene(f):
+        return make_render_tree_array(WIDTH, HEIGHT, f, copies=copies, cache=cache)
+
+    ren.render_frame(scene(0), size)
+    walk = loop_ms(lambda f: ren.render_frame(scene(0), size), reps=1)
+    snap = ren.snapshot_scene(scene(0), size)
+    ren.render_view(snap, (1.0, 0.0))
+    zero_counts()
+    pan = loop_ms(lambda f: ren.render_view(snap, (f * 3.0, f * 1.0)))
+    counts = (rows.LAUNCHES, blur.LAUNCHES, raster.LAUNCHES)
+    want = (3 * n, 2 * 3 * n, 2 * 3 * n)
+    if counts != want:
+        fail(f"camera {copies}: (rows, blur, K1) launches {counts}, expected {want}")
+    pans = [(f * 3.0, f * 1.0) for f in range(n)]
+    zooms = [1.0 + 0.4 * (f / n) for f in range(n)]
+    ren.render_views(snap, pans[:2], zooms[:2])
+    # one call renders the whole sweep: loop_ms divides its time by the views
+    fly = loop_ms(lambda f: ren.render_views(snap, pans, zooms) if f == 0 else None)
+    stack = ren.render_views(snap, pans, zooms)
+    for i in (0, 1, n // 2, n - 1):
+        if not torch.equal(stack[i], ren.render_view(snap, pans[i], zooms[i])):
+            fail(f"camera {copies}: render_views' view {i} differs from render_view's")
+    if not bool(torch.isfinite(stack).all()):
+        fail(f"camera {copies}: render_views holds non-finite values")
+    del stack
+    # at copies=100 every comparison is bit for bit; past 4096 quads
+    # render_frame's walk culls saturated stacks for its viewport, and the
+    # device binning's saturation tier works tile by tile, so there the views
+    # are held within TOL and the exact ones counted
+    worst, worst_walk, exact = 0.0, 0.0, 0
+    checked = (0, 7, n - 1)
+    for f in checked:
+        d = (f * 3.0, f * 1.0)
+        view = ren.render_view(snap, d)
+        other = FigRenderer(device="cuda")
+        moved = shifted_scene(copies, d)
+        expect = other.execute(other.flatten(moved, size, cull=False))
+        exact += bool(torch.equal(view, expect))
+        worst = max(worst, float((view - expect).abs().max()))
+        worst_walk = max(worst_walk, float(
+            (view - other.render_frame(moved, size)).abs().max()))
+    limit = 0.0 if copies == COPIES else TOL
+    print(f"check 8: camera {copies * 3} boxes ({snap.kind}, {snap.n_quads} quad "
+          f"rows): integer-pan views against the frame of the scene with its boxes "
+          f"moved: max |diff| {worst:.3e} flattened without the viewport cull "
+          f"({exact} of {len(checked)} bit for bit), {worst_walk:.3e} against "
+          f"render_frame (limit {limit:.3e}); render_views equals the render_view "
+          f"loop; launches per view: rows 1, blur 2, K1 2", flush=True)
+    if worst > limit or worst_walk > limit:
+        fail(f"camera {copies}: an integer-pan view differs from the moved scene's "
+             f"frame by {max(worst, worst_walk)}")
+    args = rows_check(f"camera {copies * 3}-box", snap,
+                      torch.tensor([21.0, 7.0], device="cuda"),
+                      torch.tensor([1.0], device="cuda"), errs)
+    print(f"times: camera {copies * 3} boxes {WIDTH}x{HEIGHT}: render_view "
+          f"{ms_text(pan)}, render_views {ms_text(fly)} a view, render_frame loop "
+          f"{walk[0]:.3f} ms/frame {tag}", flush=True)
+    # a view's executor by stage, on the last view's rows
+    plan, viewed, th = snap.plan, snap.scratch, snap.plan.tile_h
+    fields, modes = unpack_combo(viewed[: snap.n_quads])
+    run_bounds = torch.tensor(plan.bounds, dtype=torch.int32, device="cuda")
+    stages = {
+        "unpack": cuda_ms(lambda: unpack_combo(viewed[: snap.n_quads]), 10),
+        "binning": cuda_ms(lambda: bin_quads(
+            fields, 0, snap.n_quads, -(-HEIGHT // th), -(-WIDTH // 128), th, 128,
+            modes=modes, run_bounds=run_bounds), 10),
+        "whole executor": cuda_ms(lambda: ren._run_plan(plan, viewed), 10),
+    }
+    print(f"times: camera {copies * 3} boxes: a view's executor stages (tile_h "
+          f"{th}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items())
+          + f" (device, CUDA events) {tag}", flush=True)
+    return {"rows_args": args, "pan": pan, "fly": fly, "walk": walk[0],
+            "launches": counts[0], "blur_launches": counts[1]}
+
+
+def sceneanim_phase(copies: int, tag: str, errs: list) -> dict:
+    """bench_sceneanim.py's loops at 1080p: the bulk (R, 6) affine table a
+    frame through render_view against the animate and re-flatten loop."""
+    import numpy as np
+    import torch
+
+    from figdraw_tpu_torch import FigRenderer, vec2
+    from figdraw_tpu_torch.ops import rows
+    from figdraw_tpu_torch.scene import anim_table as scene_table
+    from figdraw_tpu_torch.scenes import anim_table, box_tracks, make_render_tree_array
+
+    size = vec2(WIDTH, HEIGHT)
+    cache = {}
+    ren = FigRenderer(device="cuda")
+
+    def scene(f):
+        return make_render_tree_array(WIDTH, HEIGHT, f, copies=copies, cache=cache)
+
+    ren.render_frame(scene(0), size)
+    walk = loop_ms(lambda f: ren.render_frame(scene(f), size), reps=1)
+    snap = ren.snapshot_scene(scene(0), size)
+    n_roots = len(snap.animation_order())
+    base = box_tracks(copies, 0, WIDTH, HEIGHT)
+    table = np.zeros((n_roots, 6), np.float32)
+    table[:, 0] = table[:, 3] = 1.0
+    still = ren.render_view(snap, root_transforms=table)
+    if not torch.equal(still, ren.render_view(snap)):
+        fail(f"sceneanim {copies}: the identity table's frame differs from the view")
+    zero_counts()
+    anim = loop_ms(lambda f: ren.render_view(
+        snap, root_transforms=anim_table(copies, base, f, table, WIDTH, HEIGHT)))
+    launches = rows.LAUNCHES
+    if launches != 3 * RESIDENT_FRAMES:
+        fail(f"sceneanim {copies}: {launches} row launches, expected "
+             f"{3 * RESIDENT_FRAMES}")
+    moved = ren.last_frame
+    if not bool(torch.isfinite(moved).all()) or torch.equal(moved, still):
+        fail(f"sceneanim {copies}: the animated frame is not finite or did not move")
+    host = []
+    for f in range(RESIDENT_FRAMES):
+        t0 = time.perf_counter()
+        anim_table(copies, base, f, table, WIDTH, HEIGHT)
+        host.append((time.perf_counter() - t0) * 1e3)
+    dev_table = torch.from_numpy(scene_table(snap, table)).cuda()
+    args = rows_check(f"sceneanim {copies * 3}-box", snap,
+                      torch.tensor([0.0, 0.0], device="cuda"),
+                      torch.tensor([1.0], device="cuda"), errs, table=dev_table,
+                      ridx=snap.anim_ridx_dev)
+    print(f"times: sceneanim {copies * 3} boxes ({n_roots} roots): animated "
+          f"render_view {ms_text(anim)} (the table's numpy math alone "
+          f"{statistics.median(host):.3f} ms), animate + render_frame loop "
+          f"{walk[0]:.3f} ms/frame {tag}", flush=True)
+    return {"rows_args": args, "anim": anim, "walk": walk[0], "launches": launches}
+
+
+def retained_phase(copies: int, tag: str, errs: list) -> dict:
+    """bench_retained.py's loops at 1080p: DIRTY_ROOTS edited roots a frame
+    through update_scene + render_view, damage-clipped (the camera stands
+    still) and in full, against the render_frame loop. Checks: every frame
+    of the clipped loop took the clipped path and its last frame equals, bit
+    for bit, the view of a new snapshot of the edited scene."""
+    import torch
+
+    from figdraw_tpu_torch import FigRenderer, renderer, rgba, vec2
+    from figdraw_tpu_torch.ops import rows
+    from figdraw_tpu_torch.scene import damage_rects
+    from figdraw_tpu_torch.scenes import build_grid
+
+    n_boxes = copies * 3
+    size = vec2(WIDTH, HEIGHT)
+    arr, boxes = build_grid(n_boxes, WIDTH, HEIGHT)
+    lst = arr[0]
+    ren = FigRenderer(device="cuda")
+
+    def edit(f):
+        dirty = []
+        for k in range(DIRTY_ROOTS):
+            b = boxes[(f * DIRTY_ROOTS + k) % len(boxes)]
+            x, y, w, h = lst.nodes[b]["box"]
+            lst.set_box(b, float(x), float((y + 3 + f) % HEIGHT), float(w), float(h))
+            lst.set_solid_color(b, rgba((b * 13 + f) % 255, 120, 220, 180))
+            dirty.append((0, b))
+        return dirty
+
+    def walk_frame(f):
+        edit(f)
+        ren.render_frame(arr, size)
+
+    ren.render_frame(arr, size)
+    walk = loop_ms(walk_frame, reps=1)
+    scene = ren.snapshot_scene(arr, size)
+    if scene.spans is None:
+        fail(f"retained {n_boxes}: the snapshot has no spans")
+    ren.update_scene(scene, arr, edit(0))
+    ren.render_view(scene)
+    clipped_frames = [0]
+    spans = renderer.damage_spans
+
+    def counting(*a, **k):
+        clipped_frames[0] += 1
+        return spans(*a, **k)
+
+    renderer.damage_spans = counting
+    host = []
+
+    def retained_frame(f, full=False):
+        t0 = time.perf_counter()
+        ren.update_scene(scene, arr, edit(f + 1))
+        host.append((time.perf_counter() - t0) * 1e3)
+        if full:
+            scene.last_view_frame = None  # no source for a damage-clipped frame
+        ren.render_view(scene)
+
+    try:
+        zero_counts()
+        clipped = loop_ms(retained_frame)
+        taken = clipped_frames[0]
+        last = ren.last_frame
+        rects = torch.from_numpy(damage_rects(
+            [(100.0, 80.0, 400.0, 300.0), (900.5, 600.25, 1300.0, 900.0)])).cuda()
+        launches = rows.LAUNCHES
+        full = loop_ms(lambda f: retained_frame(f, full=True))
+    finally:
+        renderer.damage_spans = spans
+    if taken != 3 * RESIDENT_FRAMES or clipped_frames[0] != taken:
+        fail(f"retained {n_boxes}: {taken} damage-clipped frames of "
+             f"{3 * RESIDENT_FRAMES}, {clipped_frames[0] - taken} in the full loop")
+    if launches != 3 * RESIDENT_FRAMES:
+        fail(f"retained {n_boxes}: {launches} row launches, expected "
+             f"{3 * RESIDENT_FRAMES}")
+    # one more damage-clipped frame, held against a new snapshot's view
+    ren.render_view(scene)
+    ren.update_scene(scene, arr, edit(0))
+    got = ren.render_view(scene)
+    fresh = FigRenderer(device="cuda")
+    want = fresh.render_view(fresh.snapshot_scene(arr, size))
+    if not (torch.equal(got, want) and bool(torch.isfinite(last).all())):
+        fail(f"retained {n_boxes}: the patched frame differs from a new "
+             f"snapshot's by {float((got - want).abs().max())}")
+    print(f"check 8: retained {n_boxes} boxes ({scene.kind}, {scene.n_quads} quad "
+          f"rows, {DIRTY_ROOTS} dirty roots a frame): {taken} of {taken} frames "
+          f"damage-clipped; a damage-clipped frame equals a new snapshot's view bit "
+          f"for bit", flush=True)
+    args = rows_check(f"retained {n_boxes}-box", scene,
+                      torch.tensor([0.0, 0.0], device="cuda"),
+                      torch.tensor([1.0], device="cuda"), errs, rects=rects)
+    print(f"times: retained {n_boxes} boxes: update_scene + render_view "
+          f"damage-clipped {ms_text(clipped)}, in full {ms_text(full)} "
+          f"(update_scene alone {statistics.median(host):.3f} ms), edit + "
+          f"render_frame loop {walk[0]:.3f} ms/frame {tag}", flush=True)
+    return {"rows_args": args, "clipped": clipped, "full": full, "walk": walk[0],
+            "launches": launches}
+
+
+def rows_times(what: str, args, kw, tag: str) -> dict:
+    """The row kernel's time on one phase's rows: by CUDA events around the
+    wrapper call, alone by torch.profiler, its plain version, its bound."""
+    import torch
+
+    from figdraw_tpu_torch.ops import rows
+
+    combo, n_quads = args[0], args[1]
+    out = torch.empty_like(combo)
+    ms = cuda_ms(lambda: rows.transform_rows(*args, out, **kw), 20)
+    alone = device_ms_of(lambda: rows.transform_rows(*args, out, **kw), "rows_kernel")
+    plain_ms = cuda_ms(lambda: rows.transform_rows_plain(*args, **kw), 3)
+    n_bytes = 2 * combo.numel() * 4 + 12
+    for extra in kw.values():
+        if extra is not None:
+            n_bytes += extra.numel() * 4
+    bound, by = bound_of(n_bytes, ROWS_OPS_PER_ROW * n_quads)
+    print(f"times: rows kernel on the {what} rows {tuple(combo.shape)}: {ms:.4f} ms "
+          f"(CUDA events around the wrapper call), {alone:.4f} ms (the kernel alone, "
+          f"torch.profiler), plain torch {plain_ms:.3f} ms; bound {bound:.5f} ms "
+          f"({by}: {n_bytes} bytes) {tag}", flush=True)
+    return {"ms": ms, "device_ms": alone, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by}
+
+
+def blur_phase(planes, radius, tag: str) -> dict:
+    """The blur kernel against the plain blur on the headline's planes at
+    its own radius and on seeded planes at other radii; times and bound at
+    the headline's."""
+    import numpy as np
+    import torch
+
+    from figdraw_tpu_torch.ops import blur
+
+    errs = {}
+    rng = np.random.RandomState(18)
+    seeded = torch.from_numpy(rng.rand(*planes.shape).astype(np.float32)).cuda()
+    r18 = torch.tensor(float(radius), dtype=torch.float32, device="cuda")
+    for what, src, r in [("headline", planes, float(radius))] + [
+            ("seeded", seeded, r) for r in (0.3, 1.0, 7.5, 64.0, 100.0)]:
+        rt = torch.tensor(r, dtype=torch.float32, device="cuda")
+        before = src.clone()
+        got = blur.backdrop_blur_planar(src, rt)
+        ref = blur.backdrop_blur_planar_plain(src, rt)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        errs[f"{what} r={r:g}"] = err
+        if not (err <= 1e-5 and bool(torch.isfinite(got).all())
+                and torch.equal(src, before)):
+            fail(f"blur kernel on the {what} planes at r={r:g} differs from the "
+                 f"plain blur by {err}, or wrote its input")
+        if r <= 0.5 and not torch.equal(got, src):
+            fail(f"blur kernel at r={r:g} is not the identity")
+    print(f"check 8: blur kernel vs plain on {tuple(planes.shape)} planes, max |diff| "
+          + ", ".join(f"{k}: {v:.2e}" for k, v in errs.items()) + " (tol 1e-05)",
+          flush=True)
+    ms = cuda_ms(lambda: blur.backdrop_blur_planar(planes, r18), 20)
+    alone = device_ms_of(lambda: blur.backdrop_blur_planar(planes, r18),
+                         "blur_pass_kernel")
+    plain_ms = cuda_ms(lambda: blur.backdrop_blur_planar_plain(planes, r18), 5)
+    n_bytes = 4 * planes.numel() * 4  # two passes, each a read and a write
+    # what the function needs: the interpolation and the sum for every tap of
+    # every pixel and the divide, twice; the tap positions once a column
+    # (horizontal pass) and once a row (vertical pass)
+    ph, pw = planes.shape[-2:]
+    n_ops = (2 * planes.numel() * (BLUR_TAPS * BLUR_OPS_PER_TAP + 1)
+             + BLUR_TAPS * BLUR_OPS_PER_POSITION * (ph + pw))
+    kernel_ops = 2 * planes.numel() * (BLUR_TAPS * BLUR_KERNEL_OPS_PER_TAP + 1)
+    bound, by = bound_of(n_bytes, n_ops)
+    print(f"times: blur kernel on the headline's planes {tuple(planes.shape)} at "
+          f"r={float(radius):g}: {ms:.4f} ms (CUDA events around the wrapper call, both "
+          f"passes), {alone:.4f} ms (the two kernels alone, torch.profiler), plain "
+          f"torch {plain_ms:.3f} ms; bound {bound:.4f} ms ({by}; bytes alone "
+          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, the function's operations alone "
+          f"{n_ops / FP32_OPS_PER_S * 1e3:.4f} ms; the kernel, which works the tap "
+          f"positions out per pixel, runs {kernel_ops / FP32_OPS_PER_S * 1e3:.4f} ms "
+          f"of operations); the kernel alone is {alone / bound:.2f} times its bound "
+          f"{tag}", flush=True)
+    return {"ms": ms, "device_ms": alone, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "err": max(errs.values())}
+
+
+def resident_phases(tag: str) -> dict:
+    """The device-resident loops of bench_camera.py, bench_sceneanim.py and
+    bench_retained.py at both scales, and the row kernel's times on their
+    rows."""
+    errs, out = [], {"launches": {}}
+    for copies in RESIDENT_SCALES:
+        boxes = copies * 3
+        cam = camera_phase(copies, tag, errs)
+        anim = sceneanim_phase(copies, tag, errs)
+        kept = retained_phase(copies, tag, errs)
+        out[copies] = {"camera": cam, "sceneanim": anim, "retained": kept}
+        for name, phase in (("camera", cam), ("sceneanim", anim), ("retained", kept)):
+            out["launches"][f"{name} {boxes}"] = phase["launches"]
+    small, big = RESIDENT_SCALES[0], RESIDENT_SCALES[-1]
+    out["times"] = rows_times(f"sceneanim {big * 3}-box (affine and camera)",
+                              *out[big]["sceneanim"]["rows_args"], tag)
+    rows_times(f"camera {small * 3}-box (camera)",
+               *out[small]["camera"]["rows_args"], tag)
+    rows_times(f"retained {big * 3}-box (camera and damage clip)",
+               *out[big]["retained"]["rows_args"], tag)
+    out["err"] = max(errs)
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1047,9 +1521,8 @@ def main() -> None:
     from figdraw_tpu_torch import FigRenderer, vec2
     from figdraw_tpu_torch import native
     from figdraw_tpu_torch.executor import get_frame_executor, unpack_combo
-    from figdraw_tpu_torch.ops import mega, raster
+    from figdraw_tpu_torch.ops import blur, mega, raster, rows
     from figdraw_tpu_torch.ops.binning import bin_quads
-    from figdraw_tpu_torch.ops.blur import backdrop_blur_planar
     from figdraw_tpu_torch.ops.layout import QF_RECT_PARAMS, QI_MODE
     from figdraw_tpu_torch.plan import plan_execution
     from figdraw_tpu_torch.scenes import make_render_tree_array, modes_tape
@@ -1063,14 +1536,15 @@ def main() -> None:
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = {name: pool.submit(timed, fn) for name, fn in (
             ("walk (g++)", native.load), ("raster.cu (nvcc)", raster.load),
-            ("mega.cu (nvcc)", mega.load))}
+            ("mega.cu (nvcc)", mega.load), ("rows.cu (nvcc)", rows.load),
+            ("blur.cu (nvcc)", blur.load))}
         secs = {name: f.result() for name, f in builds.items()}
     print("build: " + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
           + f"; {time.perf_counter() - t0:.2f} s in all {tag}", flush=True)
-    for log in (raster.BUILD_LOG, mega.BUILD_LOG):
+    for log in (raster.BUILD_LOG, mega.BUILD_LOG, rows.BUILD_LOG, blur.BUILD_LOG):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
@@ -1180,6 +1654,10 @@ def main() -> None:
     if launch_counts() != (2 * FRAMES, 0, 0, 0, 0):
         fail(f"{FRAMES} headline frames launched (K1, K1-atlas, K3, K4, K4-atlas) "
              f"{launch_counts()}, expected {2 * FRAMES}, 0, 0, 0, 0")
+    blur_launches = blur.LAUNCHES
+    if blur_launches != 2 * FRAMES:
+        fail(f"{FRAMES} headline frames launched the blur kernel {blur_launches} "
+             f"times, expected {2 * FRAMES} (one a pass)")
     # the last frame again, by the same executor with the plain raster
     plan = plan_execution(tape)
     run = get_frame_executor(plan.structure, plan.height, plan.width,
@@ -1215,7 +1693,8 @@ def main() -> None:
     plain_ms = cuda_ms(draws(plain), 3)
     k1_work = sum(raster_work(a, k) for a, k, _e in draw_args)
     device_ms_k1 = device_ms_of(draws(raster.draw_pass_planar_prebinned),
-                                "raster_tiles_kernel<false, false>")
+                                "raster_tiles_kernel<false, false>",
+                                launches=len(draw_args))
     print(f"times: headline draw runs (both): kernel {kernel_ms:.4f} ms (CUDA events "
           f"around the wrapper calls), {device_ms_k1:.4f} ms (the kernels alone, "
           f"torch.profiler), plain torch {plain_ms:.2f} ms; {bound_text(k1_work)} {tag}",
@@ -1232,11 +1711,23 @@ def main() -> None:
     ms_bin = cuda_ms(lambda: bin_quads(
         fields, 0, n, planes.shape[1] // th, planes.shape[2] // 128, th, 128,
         modes=modes, run_bounds=run_bounds), 20)
-    ms_blur = cuda_ms(lambda: backdrop_blur_planar(draw_args[1][0][5], plan.radii[0]), 20)
+    radius = torch.tensor(plan.radii[0], dtype=torch.float32, device=dev)
+    ms_blur = cuda_ms(lambda: blur.backdrop_blur_planar(draw_args[1][0][5], radius), 20)
+    ms_blur_plain = cuda_ms(
+        lambda: blur.backdrop_blur_planar_plain(draw_args[1][0][5], radius), 5)
     ms_exec = cuda_ms(lambda: run(combo, None), 20)
     print(f"times: executor stages: unpack {ms_unpack:.4f} ms, binning "
-          f"{ms_bin:.4f} ms, blur {ms_blur:.4f} ms, whole executor {ms_exec:.4f} ms "
+          f"{ms_bin:.4f} ms, blur {ms_blur:.4f} ms (the kernel; the plain torch blur "
+          f"{ms_blur_plain:.4f} ms), whole executor {ms_exec:.4f} ms "
           f"(device, CUDA events) {tag}", flush=True)
+    blurred = blur_phase(draw_args[1][0][5], plan.radii[0], tag)
+    if sys.argv[1:] == ["headline"]:
+        # the headline phases alone, for runs in turns against another commit
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
+            flush=True)
+        return
 
     # --- 6. the clip-mask tables (bench_clipmask.py) ------------------------------
     tables = {kind: clip_table_phase(kind, tag, dev) for kind in ("rectmask", "subclip")}
@@ -1292,7 +1783,13 @@ def main() -> None:
           f"wrapper call), {device_ms_atlas:.4f} ms (the kernel alone, "
           f"torch.profiler), plain torch {plain_ms_atlas:.2f} ms {tag}", flush=True)
 
-    # --- 8. results --------------------------------------------------------------
+    # --- 8. device-resident scenes: camera, per-root animation, retained updates ---
+    resident = resident_phases(tag)
+    blur_paths = {"headline": blur_launches}
+    blur_paths.update({f"camera {c * 3}": resident[c]["camera"]["blur_launches"]
+                       for c in RESIDENT_SCALES})
+
+    # --- 9. results --------------------------------------------------------------
     # the in-place bound is the kernels' own (the out-of-place one counts
     # the earlier design's bytes, for comparison)
     k1_bound, k1_oop = bounds_of(k1_work)
@@ -1410,6 +1907,37 @@ def main() -> None:
                            "bound_ms": table_bound[0], "bound_by": table_bound[1],
                            "entries_before_cull": table["work"][3],
                            "entries_after_cull": table["work"][4]},
+            "library_ms": None,
+        },
+        {
+            "name": "rows_kernel (X3-X5: per-root affine, camera, damage clip)",
+            "route": "cuda",
+            "source": "figdraw_tpu_torch/csrc/rows.cu",
+            "replaces": "figdraw_tpu/executor.py:761 (view_rows), :805 "
+                        "(animate_rows), :1001 (the damage clip); XLA ops, no Pallas",
+            "launches": sum(resident["launches"].values()),
+            "launches_by_path": resident["launches"],
+            "max_abs_err": resident["err"],
+            **resident["times"],
+            # no one PyTorch call transforms selected columns of selected rows
+            "library_ms": None,
+        },
+        {
+            "name": "blur_pass_kernel (X1: the backdrop blur, one launch a pass)",
+            "route": "cuda",
+            "source": "figdraw_tpu_torch/csrc/blur.cu",
+            "replaces": "figdraw_tpu/ops/blur.py:61 (backdrop_blur_planar, "
+                        "_blur_axis :21); XLA ops, no Pallas",
+            "launches": sum(blur_paths.values()),
+            "launches_by_path": blur_paths,
+            "max_abs_err": blurred["err"],
+            "ms": blurred["ms"],
+            "device_ms": blurred["device_ms"],
+            "plain_ms": blurred["plain_ms"],
+            "bound_ms": blurred["bound_ms"],
+            "bound_by": blurred["bound_by"],
+            # no one PyTorch call computes it: the tap step is a device value
+            # and not whole pixels, so it is no convolution with a fixed kernel
             "library_ms": None,
         },
     ]}), flush=True)

@@ -5,7 +5,7 @@ its rolled form `get_rolled_executor`, and `get_mega_executor`).
 The packed upload is decoded on the device and the whole tape is binned
 once. The frame executor then runs the pass structure in order: draw runs
 into the frame (K1, K1-atlas) or into a mask plane (K3), mask clears and
-backdrop blurs; its rolled form takes the bounds and radii of frames of
+backdrop blurs (the blur kernel of ops/blur.py); its rolled form takes the bounds and radii of frames of
 many items from the plan's item table. The mega executor runs the whole
 masked frame in one kernel (K4, or K4-atlas when the tape samples the
 atlas). No value goes back to the host: draw

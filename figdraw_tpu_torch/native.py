@@ -19,7 +19,10 @@ import numpy as np
 
 from .basics import FigKind
 from .nodesarray import FIG_DTYPE, GLYPH_DTYPE, OP_DTYPE, TRECT_DTYPE, RendersArray
-from .ops.layout import PACKED_WIDTH
+from .ops.layout import (
+    PACKED_WIDTH, QF_BBOX_X0, QF_BBOX_X1, QF_BBOX_Y0, QF_BBOX_Y1, QF_INV_A,
+    QF_ORG_X, QF_ORG_Y, QF_WIDTH, pack_fields_np,
+)
 from .plan import ROLLED_THRESHOLD, TILE_H, TILE_W, bucket, fill_meta, meta_rows
 from .tape import BlurItem, ClearMaskItem, DrawItem, Tape
 
@@ -74,6 +77,10 @@ def load() -> ctypes.CDLL:
         lib.fd_reset.restype = None
         lib.fd_flatten_layer.argtypes = [vp, vp, i, vp, i]
         lib.fd_flatten_layer.restype = None
+        lib.fd_flatten_layer_spans.argtypes = [vp, vp, i, vp, i, vp]
+        lib.fd_flatten_layer_spans.restype = None
+        lib.fd_pad_rows.argtypes = [vp, i]
+        lib.fd_pad_rows.restype = None
         lib.fd_set_geometry.argtypes = [vp, vp, i, vp, i]
         lib.fd_set_geometry.restype = None
         lib.fd_set_text_geometry.argtypes = [vp, vp, i, vp, i]
@@ -156,11 +163,11 @@ def pack_atlas_entries(entries: dict):
     return ids, levels, rects
 
 
-def _run_walk(lib, ctx, renders, atlas) -> None:
-    """Context setup + layer walk in ZLevel order. The port walks no text,
-    so the text flags are all off. atlas: (pack_atlas_entries' arrays, atlas
-    edge, white texel uv) or None; without it image nodes find no entry
-    and emit nothing, and filled quads sample uv (0, 0)."""
+def _set_walk_config(lib, ctx, atlas) -> None:
+    """Context setup shared by the walks. The port walks no text, so the
+    text flags are all off. atlas: (pack_atlas_entries' arrays, atlas edge,
+    white texel uv) or None; without it image nodes find no entry and emit
+    nothing, and filled quads sample uv (0, 0)."""
     lib.fd_set_text_config(ctx, 0, 0, 0)
     white_uv = (0.0, 0.0)
     if atlas is not None:
@@ -169,17 +176,57 @@ def _run_walk(lib, ctx, renders, atlas) -> None:
                          ids.shape[0], ctypes.c_float(float(size)))
     lib.fd_set_white_uv(ctx, ctypes.c_double(white_uv[0]),
                         ctypes.c_double(white_uv[1]))
-    for _lvl, lst in renders.sorted_pairs():
-        nodes, roots, ops, points, glyphs, trects = _layer_arrays(lst)
-        lib.fd_set_geometry(
-            ctx, _ptr(ops), ops.shape[0], _ptr(points), points.shape[0]
-        )
-        lib.fd_set_text_geometry(
-            ctx, _ptr(glyphs), glyphs.shape[0], _ptr(trects), trects.shape[0]
-        )
-        lib.fd_flatten_layer(
-            ctx, _ptr(nodes), nodes.shape[0], _ptr(roots), roots.shape[0]
-        )
+
+
+def _set_layer_geometry(lib, ctx, lst):
+    """Hand one layer's side arrays to the context; returns (nodes, roots),
+    which the caller keeps alive through its walk."""
+    nodes, roots, ops, points, glyphs, trects = _layer_arrays(lst)
+    lib.fd_set_geometry(
+        ctx, _ptr(ops), ops.shape[0], _ptr(points), points.shape[0]
+    )
+    lib.fd_set_text_geometry(
+        ctx, _ptr(glyphs), glyphs.shape[0], _ptr(trects), trects.shape[0]
+    )
+    return nodes, roots
+
+
+def _run_walk(lib, ctx, renders, atlas, spans_out=None, reserves=None) -> None:
+    """Context setup + layer walk in ZLevel order (native._run_walk). atlas:
+    as _set_walk_config's. spans_out: a dict to fill with (lvl,
+    root_node_idx) -> (qs, qe), each root's rows of the tape (the serial
+    walk, fd_flatten_layer_spans). reserves: (lvl, root_node_idx) -> n; each
+    such root's span ends in n inert rows (fd_pad_rows), so an edit that
+    changes its quad count can still patch in place."""
+    _set_walk_config(lib, ctx, atlas)
+    for lvl, lst in renders.sorted_pairs():
+        nodes, roots = _set_layer_geometry(lib, ctx, lst)
+        if spans_out is None:
+            lib.fd_flatten_layer(
+                ctx, _ptr(nodes), nodes.shape[0], _ptr(roots), roots.shape[0]
+            )
+        elif reserves and any((lvl, int(r)) in reserves for r in roots):
+            # one call a root, so a reserved root can pad in place; the
+            # context keeps its runs open and its mask numbering, so apart
+            # from the pads the tape is the one-call walk's byte for byte
+            one = np.empty((1, 2), np.int32)
+            for pos in range(roots.shape[0]):
+                rid = int(roots[pos])
+                lib.fd_flatten_layer_spans(
+                    ctx, _ptr(nodes), nodes.shape[0],
+                    _ptr(roots[pos : pos + 1]), 1, _ptr(one))
+                pad = int(reserves.get((lvl, rid), 0))
+                if pad > 0:
+                    lib.fd_pad_rows(ctx, pad)
+                spans_out[(lvl, rid)] = (int(one[0, 0]), int(one[0, 1]) + pad)
+        else:
+            spans = np.empty((roots.shape[0], 2), np.int32)
+            lib.fd_flatten_layer_spans(
+                ctx, _ptr(nodes), nodes.shape[0], _ptr(roots), roots.shape[0],
+                _ptr(spans))
+            for pos in range(roots.shape[0]):
+                spans_out[(lvl, int(roots[pos]))] = (
+                    int(spans[pos, 0]), int(spans[pos, 1]))
 
 
 def _host_cull(lib, ctx, frame_w, frame_h, pixel_scale) -> int:
@@ -209,22 +256,29 @@ def _check_kinds(renders: RendersArray) -> None:
 _tls = threading.local()
 
 
-def _acquire_ctx(lib, ui_scale, pixel_scale, aa_factor):
+def _acquire_ctx(lib, ui_scale, pixel_scale, aa_factor, slot: str = "ctx"):
     """Thread-local reusable walk context (fd_reset keeps the C++ vectors'
-    capacity across frames)."""
-    ctx = getattr(_tls, "ctx", None)
+    capacity across frames); one per slot."""
+    ctx = getattr(_tls, slot, None)
     if ctx is None:
         ctx = lib.fd_create(
             ctypes.c_float(ui_scale), ctypes.c_float(pixel_scale),
             ctypes.c_float(aa_factor),
         )
-        _tls.ctx = ctx
+        setattr(_tls, slot, ctx)
     else:
         lib.fd_reset(
             ctx, ctypes.c_float(ui_scale), ctypes.c_float(pixel_scale),
             ctypes.c_float(aa_factor),
         )
     return ctx
+
+
+def _acquire_scratch_ctx(lib, ui_scale, pixel_scale, aa_factor):
+    """The retained-scene patch context (native._acquire_scratch_ctx): it
+    shares neither tape state nor the combo pool with the frame walker's
+    context, so a patch between frames leaves a tape in flight valid."""
+    return _acquire_ctx(lib, ui_scale, pixel_scale, aa_factor, "patch_ctx")
 
 
 # Ping-pong combo buffer pool, two buffers per (owner, ctx, shape): the
@@ -340,8 +394,8 @@ def flatten_fast(
     The JAX package caps the mega export at VMEM_MEGA_ROWS, a limit of the
     TPU's vector memory; the CUDA megakernel reads the tape from device
     memory, so the port has no cap. A scene with an atlas quad always takes
-    the tape: the C++ `flags` word marks it. atlas: as _run_walk's. Raises
-    as _check_kinds."""
+    the tape: the C++ `flags` word marks it. atlas: as _set_walk_config's.
+    Raises as _check_kinds."""
     _check_kinds(renders)
     lib = load()
     ctx = _acquire_ctx(lib, ui_scale, pixel_scale, aa_factor)
@@ -375,18 +429,99 @@ def flatten_renders_array(
     clear_color,
     atlas=None,
     pool_owner=None,
+    cull: bool = True,
+    record_spans: bool = False,
+    reserve=None,
 ) -> Tape:
     """Runs the native walk over all layers in ZLevel order, culls saturated
     stacks and exports the tape straight into the upload-combo layout padded
-    to `bucket(count)` rows. atlas: as _run_walk's. Raises as
-    _check_kinds."""
+    to `bucket(count)` rows. atlas: as _set_walk_config's. cull=False skips
+    the saturation cull: it is clamped to the viewport, so a tape that will
+    be panned on the device (snapshot_scene) keeps every quad.
+    record_spans=True fills tape.root_spans with (lvl, root_node_idx) ->
+    (qs, qe), each root's rows; spans index rows before the cull, so it
+    needs cull=False (ValueError). reserve: as _run_walk's reserves. Raises
+    as _check_kinds."""
+    if record_spans and cull:
+        raise ValueError("root spans index pre-cull rows: record_spans needs "
+                         "cull=False")
     _check_kinds(renders)
     lib = load()
     ctx = _acquire_ctx(lib, ui_scale, pixel_scale, aa_factor)
-    _run_walk(lib, ctx, renders, atlas)
-    _host_cull(lib, ctx, frame_w, frame_h, pixel_scale)
-    return _export_tape_combo(lib, ctx, frame_w, frame_h, clear_color,
+    spans_out = {} if record_spans else None
+    _run_walk(lib, ctx, renders, atlas, spans_out=spans_out, reserves=reserve)
+    if cull:
+        _host_cull(lib, ctx, frame_w, frame_h, pixel_scale)
+    tape = _export_tape_combo(lib, ctx, frame_w, frame_h, clear_color,
                               pool_owner=pool_owner)
+    tape.root_spans = spans_out
+    return tape
+
+
+def inert_quad_rows(n: int) -> np.ndarray:
+    """n inert packed rows, fd_pad_rows' bytes (native.inert_quad_rows): an
+    empty bbox, so never binned, and an inverse affine that puts every pixel
+    far outside the uv unit square, so coverage is exactly 0. The retained
+    patch fills the tail of a span that shrank with these."""
+    fields = np.zeros((n, QF_WIDTH), np.float32)
+    fields[:, QF_INV_A] = 1.0
+    fields[:, QF_ORG_X] = 2e9
+    fields[:, QF_ORG_Y] = 2e9
+    fields[:, QF_BBOX_X0] = 2e9
+    fields[:, QF_BBOX_Y0] = 2e9
+    fields[:, QF_BBOX_X1] = -2e9
+    fields[:, QF_BBOX_Y1] = -2e9
+    modes = np.zeros((n, 2), np.int32)
+    modes[:, 0] = 3  # fd_pad_rows' packed_mode
+    return pack_fields_np(fields, modes)
+
+
+def walk_roots_packed(renders: RendersArray, dirty, ui_scale, pixel_scale,
+                      aa_factor, atlas=None, allow_atlas: bool = False):
+    """Re-walk the roots `dirty`, a sequence of (lvl, root_node_idx), in the
+    scratch context and export their quads as packed rows, the retained-scene
+    patch (native.walk_roots_packed, packed layout).
+
+    Returns (rows (n, PACKED_WIDTH) f32 in walk order, spans: a list of (qs,
+    qe) into rows, one per dirty root), or None where a patch cannot stand in
+    for a snapshot: a missing layer, a plane mask (their numbering is the
+    whole scene's), a blur or a backdrop (they split the pass structure), or
+    an atlas quad without allow_atlas. atlas: as _set_walk_config's. Raises
+    as _check_kinds."""
+    _check_kinds(renders)
+    lib = load()
+    ctx = _acquire_scratch_ctx(lib, ui_scale, pixel_scale, aa_factor)
+    _set_walk_config(lib, ctx, atlas)
+    dirty = list(dirty)
+    spans: list = []
+    i = 0
+    while i < len(dirty):
+        lvl = dirty[i][0]
+        j = i
+        while j < len(dirty) and dirty[j][0] == lvl:
+            j += 1
+        lst = renders.layers.get(lvl)
+        if lst is None:
+            return None
+        nodes, _roots = _set_layer_geometry(lib, ctx, lst)
+        roots = np.asarray([d[1] for d in dirty[i:j]], dtype=np.int32)
+        out = np.empty((roots.shape[0], 2), np.int32)
+        lib.fd_flatten_layer_spans(ctx, _ptr(nodes), nodes.shape[0],
+                                   _ptr(roots), roots.shape[0], _ptr(out))
+        spans.extend((int(s), int(e)) for s, e in out)
+        i = j
+    info = np.zeros(4, np.int32)
+    lib.fd_tape_info(ctx, _ptr(info))
+    n_quads, _n_items, mask_count, flags = (int(v) for v in info)
+    if mask_count or (flags & 1) or (flags & 4):
+        return None
+    if (flags & 2) and not allow_atlas:
+        return None
+    rows = np.empty((max(n_quads, 1), PACKED_WIDTH), dtype=np.float32)
+    rc = lib.fd_export_combo_packed(ctx, _ptr(rows), rows.shape[0], PACKED_WIDTH)
+    if rc != n_quads:
+        raise RuntimeError(f"fd_export_combo_packed wrote {rc} of {n_quads} quads")
+    return rows[:n_quads], spans
 
 
 def scene_animate(nodes: np.ndarray, w: float, h: float, frame: int,

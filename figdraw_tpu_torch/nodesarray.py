@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from .basics import FigKind
+from .fill import FillKind
 
 MAX_SHADOWS = 4
 
@@ -161,6 +162,29 @@ def _merge_structured(rows: list, dtype) -> np.ndarray:
     return out
 
 
+def _rgba_tuple(c):
+    return (c.r, c.g, c.b, c.a)
+
+
+def pack_fill(out, f) -> None:
+    """Write a fill.Fill into a FILL_DTYPE row (nodesarray.pack_fill)."""
+    if f.kind == FillKind.flColor:
+        out["kind"] = 0
+        out["c0"] = _rgba_tuple(f.color)
+    elif f.kind == FillKind.flLinear2:
+        out["kind"] = 1
+        out["axis"] = int(f.lin2.axis)
+        out["c0"] = _rgba_tuple(f.lin2.start)
+        out["c1"] = _rgba_tuple(f.lin2.stop)
+    else:
+        out["kind"] = 2
+        out["axis"] = int(f.lin3.axis)
+        out["midpos"] = f.lin3.mid_pos
+        out["c0"] = _rgba_tuple(f.lin3.start)
+        out["c1"] = _rgba_tuple(f.lin3.mid)
+        out["c2"] = _rgba_tuple(f.lin3.stop)
+
+
 class RenderListArray:
     """Numpy-backed render list: FIG_DTYPE rows written column by column,
     plus the drawable/text side arrays the walk reads."""
@@ -223,6 +247,36 @@ class RenderListArray:
         self.nodes[parent_idx]["child_count"] += 1
         return i
 
+    # --- retained-scene edits in place (nodesarray.py:509-533) ---------------
+    # These write FIG columns directly, so the walk's cached side arrays stay
+    # valid; renderer.update_scene(scene, renders, dirty=[(lvl, root_idx),
+    # ...]) then patches only the edited roots' rows on the device.
+
+    def set_box(self, i: int, x: float, y: float, w: float, h: float) -> None:
+        self.nodes[i]["box"] = (x, y, w, h)
+
+    def set_rotation(self, i: int, degrees: float) -> None:
+        self.nodes[i]["rotation"] = degrees
+
+    def set_fill(self, i: int, f) -> None:
+        pack_fill(self.nodes[i]["fill"], f)
+
+    def set_stroke_fill(self, i: int, f) -> None:
+        pack_fill(self.nodes[i]["stroke_fill"], f)
+
+    def set_solid_color(self, i: int, color) -> None:
+        """Recolor a solid fill; color: a ColorRGBA."""
+        self.nodes[i]["fill"]["kind"] = 0
+        self.nodes[i]["fill"]["c0"] = _rgba_tuple(color)
+
+    def set_corners(self, i: int, radii) -> None:
+        self.nodes[i]["corners"] = radii
+
+    def set_transform_offset(self, i: int, tx: float, ty: float) -> None:
+        """Move an nkTransform node (offset mode)."""
+        self.nodes[i]["tx"] = tx
+        self.nodes[i]["ty"] = ty
+
     def view(self) -> np.ndarray:
         return self.nodes[: self.count]
 
@@ -235,6 +289,11 @@ class RendersArray:
 
     def __init__(self):
         self.layers: dict[int, RenderListArray] = {}
+
+    def __getitem__(self, lvl: int) -> RenderListArray:
+        if lvl not in self.layers:
+            self.layers[lvl] = RenderListArray()
+        return self.layers[lvl]
 
     def set_layer(self, lvl: int, lst: RenderListArray) -> None:
         self.layers[lvl] = lst

@@ -295,9 +295,11 @@ def plan_execution(tape: Tape) -> ExecPlan:
 
 def plan_rolled(tape: Tape) -> ExecPlan:
     """The plan of a tape on the frame executor's rolled form, whatever
-    plan_execution would route it to. A comparison hook: the tests and
-    chip_smoke.py hold the megakernel's frame and time against a pass per
-    item with it; render_frame never calls it."""
+    plan_execution would route it to. snapshot_scene(animate=True) takes it
+    for a long tape with clip masks, whose megakernel combo would interleave
+    clear sentinel rows; the tests and chip_smoke.py hold the megakernel's
+    frame and time against a pass per item with it. render_frame never
+    calls it."""
     return _plan(tape, True)
 
 

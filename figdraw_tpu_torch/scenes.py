@@ -8,7 +8,9 @@ tile rasterizer evaluates; `walk_free_mode_rows` adds the modes the walk
 never emits, and `atlas_modes_tape` the atlas modes. The clip tables of
 bench_clipmask.py and the image panels of bench_images.py are built
 byte-identical to the JAX package's; `load_text_plan` reads bench_text's
-frame as the JAX package planned it.
+frame as the JAX package planned it. `build_grid` is bench_retained.py's
+grid of one root a box, `box_tracks` and `anim_table` bench_sceneanim.py's
+per-root affine animation of the demo scene.
 """
 
 from __future__ import annotations
@@ -231,6 +233,89 @@ def _rect_node(lst, row, box, fill_c0, *, fill_kind=0, axis=0, midpos=128,
         n["flags"][row] = flags | int(FigFlags.NfEllipticalCorners)
     n["stroke_weight"][row] = stroke
     n["stroke_fill"]["c0"][row] = stroke_c0
+
+
+# --- the device-resident benchmarks' scenes ---------------------------------------
+
+
+def build_grid(n_boxes: int, w: float = 1920.0, h: float = 1080.0):
+    """bench_retained.py's scene: a backdrop and one root per box (the
+    retained unit) on a w x h grid, rounded, rotated and translucent.
+    Returns (RendersArray, the boxes' root node indices)."""
+    lst = RenderListArray(capacity=n_boxes + 1)
+    # midpos 0: a solid fill packs no gradient midpoint
+    _rect_node(lst, lst.add_root_raw(), (0, 0, w, h), (24, 26, 34, 255),
+               midpos=0)
+    cols = max(int((n_boxes * w / h) ** 0.5), 1)
+    rows = (n_boxes + cols - 1) // cols
+    cw, ch = w / cols, h / rows
+    boxes = []
+    for i in range(n_boxes):
+        r, c = divmod(i, cols)
+        row = lst.add_root_raw()
+        _rect_node(lst, row, (c * cw + 2, r * ch + 2, cw - 4, ch - 4),
+                   ((i * 37) % 255, (i * 91) % 255, 200, 155),
+                   midpos=0, corners=(4,) * 4)
+        lst.set_rotation(row, (i * 7) % 23 - 11)
+        boxes.append(row)
+    out = RendersArray()
+    out.set_layer(0, lst)
+    return out, boxes
+
+
+def box_tracks(copies: int, frame: int, w: float = 1920.0, h: float = 1080.0):
+    """The demo's position and size phase math for its 3 * copies animated
+    boxes (bench_sceneanim._box_tracks): (3, copies, 4) float64 x, y, w, h
+    at `frame`."""
+    t = frame * 0.02
+    st = _scene_anim_state(copies)
+    sin_ta = np.sin(t * st["sin_t"])[:, None]
+    cos_ta = np.cos(t * st["sin_t"])[:, None]
+    s = st["cos_of_sp"] * sin_ta + st["sin_of_sp"] * cos_ta
+    cos_tc = np.cos(t * st["cos_t"])[:, None]
+    sin_tc = np.sin(t * st["cos_t"])[:, None]
+    c = st["cos_of_cp"] * cos_tc - st["sin_of_cp"] * sin_tc
+    max_x = max(0.0, w - _SCENE_CLAMP_X)
+    max_y = max(0.0, h - _SCENE_CLAMP_Y)
+    base_xs, base_ys = _scene_randoms(copies, max_x, max_y)
+    off_x = np.clip(base_xs + s[0] * 20, 0.0, max_x)
+    off_y = np.clip(base_ys + c[0] * 20, 0.0, max_y)
+    pulse_w = 0.5 + 0.5 * s[1]
+    pulse_h = 0.5 + 0.5 * c[1]
+    out = np.empty((3, copies, 4))
+    out[0, :, 0] = 60.0 + off_x
+    out[0, :, 1] = 60.0 + off_y
+    out[0, :, 2] = 160.0 + 100.0 * pulse_w
+    out[0, :, 3] = 110.0 + 70.0 * pulse_h
+    out[1, :, 0] = 320.0 + off_x
+    out[1, :, 1] = 120.0 + off_y
+    out[1, :, 2] = 160.0 + 100.0 * pulse_h
+    out[1, :, 3] = 110.0 + 70.0 * pulse_w
+    out[2, :, 0] = 180.0 + off_x
+    out[2, :, 1] = 300.0 + off_y
+    out[2, :, 2] = 160.0 + 100.0 * (1.0 - pulse_w)
+    out[2, :, 3] = 110.0 + 70.0 * (1.0 - pulse_h)
+    return out
+
+
+def anim_table(copies: int, base, frame: int, out, w: float = 1920.0,
+               h: float = 1080.0):
+    """bench_sceneanim._anim_table: fills `out`, the bulk (R, 6) affine table
+    of render_view's root_transforms in slot order (the demo scene's roots
+    are its node indices 0..n-1), with each box's scale about its base
+    origin (`base` = box_tracks at the snapshot's frame) and its translation
+    to the position at `frame`; the other roots keep what `out` holds
+    (identity). Returns out."""
+    cur = box_tracks(copies, frame, w, h)
+    sx = cur[..., 2] / base[..., 2]
+    sy = cur[..., 3] / base[..., 3]
+    # node idx of box (k, i) is 1 + 3*i + k
+    rows = out[1 : 1 + 3 * copies].reshape(copies, 3, 6)
+    rows[:, :, 0] = sx.T
+    rows[:, :, 3] = sy.T
+    rows[:, :, 4] = (cur[..., 0] - sx * base[..., 0]).T
+    rows[:, :, 5] = (cur[..., 1] - sy * base[..., 1]).T
+    return out
 
 
 def make_modes_scene_array(w: float = 256.0, h: float = 128.0) -> RendersArray:

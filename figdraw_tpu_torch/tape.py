@@ -54,6 +54,7 @@ class Tape:
         "combo_quads",
         "structure_cache",
         "tile_density",
+        "root_spans",
     )
 
     def __init__(self):
@@ -70,6 +71,9 @@ class Tape:
         # the C++ item flag bits, and the fd_density tile summary
         self.structure_cache = None
         self.tile_density = None
+        # (lvl, root_node_idx) -> (qs, qe), each root's rows, when the walk
+        # recorded them (native.flatten_renders_array(record_spans=True))
+        self.root_spans = None
 
     def fields_modes(self):
         """Logical ((combo_quads, 68) f32 fields, (combo_quads, 2) i32

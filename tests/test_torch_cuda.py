@@ -1,5 +1,6 @@
 """figdraw_tpu_torch's CUDA kernels (K1, K1-atlas and K3 in csrc/raster.cu,
-K4 and K4-atlas in csrc/mega.cu) against their plain torch versions on an NVIDIA card. Every
+K4 and K4-atlas in csrc/mega.cu, the row transform in csrc/rows.cu and the
+backdrop blur in csrc/blur.cu) against their plain torch versions on an NVIDIA card. Every
 test here needs the card (marker `cuda`) and skips without one. The file
 imports neither jax nor figdraw_tpu, so it also runs on a machine without
 them:
@@ -15,15 +16,15 @@ from figdraw_tpu_torch import FigRenderer, vec2
 from figdraw_tpu_torch.executor import (
     get_frame_executor, get_mega_executor,
 )
-from figdraw_tpu_torch.ops import mega, raster
+from figdraw_tpu_torch.ops import blur, mega, raster, rows
 from figdraw_tpu_torch.ops.binning import bin_quads
 from figdraw_tpu_torch.ops.layout import QF_WIDTH, QI_MODE
 from figdraw_tpu_torch.plan import atlas_from_jax, plan_execution, plan_rolled
 from figdraw_tpu_torch.resources import ImageMessageBus, put_image
 from figdraw_tpu_torch.scenes import (
     IMAGE_ID, atlas_modes_tape, load_text_tape, make_clip_table_scene,
-    make_image_panels_scene, make_render_tree_array, mega_modes_tape, modes_tape,
-    photo_image,
+    build_grid, make_image_panels_scene, make_render_tree_array, mega_modes_tape,
+    modes_tape, photo_image,
 )
 
 TOL = 1.0 / 255.0
@@ -459,3 +460,202 @@ def test_text_table_matches_plain_executor(dev):
     h, w = got.shape[0] // 8 * 8, got.shape[1] // 8 * 8
     means = got[:h, :w].reshape(h // 8, 8, w // 8, 8, 4).mean(axis=(1, 3))
     assert np.abs(means - blocks).max() <= TOL
+
+
+def _seeded_combo(seed, dev, w=1920, h=1080, copies=20):
+    """A real packed buffer (the headline scene's rows, then its meta tail)
+    with seeded extras: rows with an empty bbox, NaN-patterned colour words
+    and a table of per-root slots."""
+    rng = np.random.RandomState(seed)
+    ren = FigRenderer(device="cuda")
+    tape = ren.flatten(make_render_tree_array(w, h, seed, copies=copies),
+                       vec2(w, h), cull=False, record_spans=True)
+    combo = tape.combo.copy()
+    n = tape.combo_quads
+    combo[rng.randint(0, tape.count, 5), 6:10] = (2e9, 2e9, -2e9, -2e9)
+    words = combo[:, 16:22].view(np.uint32)
+    words[rng.randint(0, tape.count, 8)] = 0xFFC00001  # a NaN with a payload
+    roots = 7
+    ridx = rng.randint(-1, roots, size=n).astype(np.int32)
+    table = np.zeros((roots + 1, 6), np.float32)
+    table[:, 0] = table[:, 3] = 1.0
+    table[0] = (1, 0, 0, 1, 12, -9)
+    table[1] = (2, 0, 0, 2, 4, 8)
+    table[2] = (0.5, 0, 0, 0.25, -3, 5)
+    table[3] = (0.9, 0.3, -0.3, 0.9, 2.5, 1.5)
+    table[4] = (1.25, 0.1, 0.2, 0.8, -7.75, 3.125)
+    rects = np.full((4, 4), (2e9, 2e9, -2e9, -2e9), np.float32)
+    rects[0] = (100, 80, 400, 300)
+    rects[1] = (900.5, 600.25, 1300, 900)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return t(combo), n, t(table), t(ridx), t(rects)
+
+
+@pytest.mark.parametrize("cam", [((0.0, 0.0), 1.0), ((9.0, -7.0), 2.0),
+                                 ((0.5, 0.25), 1.5), ((-13.3, 11.7), 0.75)])
+@pytest.mark.parametrize("stages", ["view", "anim", "damage", "all"])
+def test_rows_kernel_matches_plain_bit_for_bit(cam, stages, dev):
+    combo, n, table, ridx, rects = _seeded_combo(3, dev)
+    d = torch.tensor(cam[0], dtype=torch.float32, device=dev)
+    z = torch.tensor([cam[1]], dtype=torch.float32, device=dev)
+    kw = {}
+    if stages in ("anim", "all"):
+        kw.update(table=table, ridx=ridx)
+    if stages in ("damage", "all"):
+        kw.update(rects=rects)
+    before_combo = combo.clone()
+    out = torch.empty_like(combo)
+    before = rows.LAUNCHES
+    got = rows.transform_rows(combo, n, d, z, out, **kw)
+    assert rows.LAUNCHES == before + 1 and got is out
+    ref = rows.transform_rows_plain(combo, n, d, z, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(combo.view(torch.int32), before_combo.view(torch.int32))
+    # the meta tail and the integer lanes pass through untouched
+    assert torch.equal(got[n:].view(torch.int32), combo[n:].view(torch.int32))
+    for cols in (slice(16, 22), slice(50, 52)):
+        assert torch.equal(got[:, cols].contiguous().view(torch.int32),
+                           combo[:, cols].contiguous().view(torch.int32))
+    if stages in ("anim", "all") or cam != ((0.0, 0.0), 1.0):
+        assert not torch.equal(got.view(torch.int32), combo.view(torch.int32))
+
+
+def test_rows_wrapper_rejects_bad_arguments(dev):
+    combo, n, table, ridx, rects = _seeded_combo(4, dev, 640, 360, 5)
+    d = torch.zeros(2, dtype=torch.float32, device=dev)
+    z = torch.ones(1, dtype=torch.float32, device=dev)
+    out = torch.empty_like(combo)
+    before = rows.LAUNCHES
+    bad = [
+        dict(out=combo),  # in place
+        dict(out=torch.empty_like(combo)[1:]),  # another shape
+        dict(out=out.cpu()),  # a foreign device
+        dict(d=d.cpu()),
+        dict(z=z.double()),
+        dict(table=table),  # without ridx
+        dict(table=table, ridx=ridx.long()),
+        dict(table=table[:, :5].contiguous(), ridx=ridx),
+        dict(rects=rects[:2]),
+        dict(n_quads=combo.shape[0] + 1),
+    ]
+    for change in bad:
+        args = dict(combo=combo, n_quads=n, d=d, z=z, out=out)
+        args.update(change)
+        with pytest.raises(ValueError):
+            rows.transform_rows(**args)
+    # a misaligned buffer: one float into a larger allocation
+    flat = torch.empty(combo.numel() + 1, dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        rows.transform_rows(flat[1:].view_as(combo), n, d, z, out)
+    with pytest.raises(ValueError):
+        rows.transform_rows(combo[:, :51], n, d, z, out)
+    assert rows.LAUNCHES == before
+
+
+def test_rows_and_blur_on_cpu_tensors_never_reach_a_kernel(dev):
+    combo, n, table, ridx, rects = _seeded_combo(5, dev, 640, 360, 5)
+    combo, table, ridx, rects = (t.cpu() for t in (combo, table, ridx, rects))
+    before = rows.LAUNCHES, blur.LAUNCHES
+    out = rows.transform_rows(combo, n, torch.tensor([3.0, 1.0]), torch.tensor(2.0),
+                              torch.empty_like(combo), table, ridx, rects)
+    assert out.device.type == "cpu"
+    planes = torch.rand(4, 64, 128)
+    assert blur.backdrop_blur_planar(planes, 7.5).device.type == "cpu"
+    assert (rows.LAUNCHES, blur.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("radius", [0.3, 0.5, 1.0, 7.5, 18.0, 64.0, 100.0])
+@pytest.mark.parametrize("shape", [(4, 1152, 1920), (4, 128, 256), (1, 37, 53)])
+def test_blur_kernel_matches_plain(radius, shape, dev):
+    rng = np.random.RandomState(int(radius * 10) + shape[1])
+    planes = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)
+    planes0 = planes.clone()
+    r = torch.tensor(radius, dtype=torch.float32, device=dev)
+    before = blur.LAUNCHES
+    got = blur.backdrop_blur_planar(planes, r)
+    assert blur.LAUNCHES == before + 2
+    ref = blur.backdrop_blur_planar_plain(planes, r)
+    torch.cuda.synchronize()
+    assert got.shape == planes.shape and got.data_ptr() != planes.data_ptr()
+    assert torch.equal(planes, planes0)  # the input is not written
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-5
+    if radius <= 0.5:
+        assert torch.equal(got, planes)
+    else:
+        assert float((got - planes).abs().max()) > 1e-3
+
+
+def test_blur_wrapper_rejects_bad_arguments(dev):
+    planes = torch.rand(4, 128, 256, device=dev)
+    before = blur.LAUNCHES
+    with pytest.raises(ValueError):
+        blur.backdrop_blur_planar(planes.double(), 3.0)
+    with pytest.raises(ValueError):
+        blur.backdrop_blur_planar(planes[:, :, ::2], 3.0)
+    with pytest.raises(ValueError):
+        blur.backdrop_blur_planar(planes[0], 3.0)
+    with pytest.raises(ValueError):
+        blur.backdrop_blur_planar(planes, torch.ones(2, device=dev))
+    assert blur.LAUNCHES == before
+
+
+def test_device_resident_scene_on_the_card(dev):
+    """snapshot, view, animate and patch at 1080p: the integer pan equals
+    render_frame of the shifted scene, the damage-clipped frame the full
+    render, and each frame launches the row kernel once."""
+    w, h = 1920, 1080
+    size = vec2(w, h)
+    ren = FigRenderer(device="cuda")
+    arr, boxes = build_grid(300, w, h)
+    lst = arr[0]
+    scene = ren.snapshot_scene(arr, size)
+    before = rows.LAUNCHES
+    first = ren.render_view(scene)
+    assert rows.LAUNCHES == before + 1
+    assert torch.equal(first, ren.render_frame(arr, size))
+    for f in range(3):
+        dirty = []
+        for k in range(8):
+            b = boxes[(f * 8 + k) % len(boxes)]
+            x, y, bw, bh = lst.nodes[b]["box"]
+            lst.set_box(b, float(x), float((y + 3 + f) % h), float(bw), float(bh))
+            dirty.append((0, b))
+        ren.update_scene(scene, arr, dirty)
+        assert scene.pending_patch is not None
+        assert ren._partial_ok(scene, (0.0, 0.0, 1.0, scene.kind))
+        clipped = ren.render_view(scene)
+        assert torch.equal(clipped, ren.render_frame(arr, size)), f
+    n = len(scene.animation_order())
+    table = np.zeros((n, 6), np.float32)
+    table[:, 0] = table[:, 3] = 1.0
+    table[5] = (1, 0, 0, 1, 16, -8)
+    moved = ren.render_view(scene, (3.0, 1.0), root_transforms=table)
+    assert bool(torch.isfinite(moved).all()) and not torch.equal(moved, clipped)
+    assert torch.equal(ren.render_view(scene), clipped)  # the base stays
+    stack = ren.render_views(scene, [(0, 0), (6, -2)], [1.0, 1.5], as_uint8=True)
+    assert stack.dtype == torch.uint8 and tuple(stack.shape) == (2, h, w, 4)
+    assert np.array_equal(stack[0].cpu().numpy(), ren.take_screenshot(clipped))
+
+
+def test_a_scene_on_another_device_is_refused(dev):
+    """A renderer on the card refuses a scene that lies on the CPU, and the
+    reverse, before anything runs: no plain version stands in for a kernel
+    and no frame mixes devices."""
+    size = vec2(256, 128)
+    arr, boxes = build_grid(12, 256, 128)
+    on_card, on_cpu = FigRenderer(device="cuda"), FigRenderer(device="cpu")
+    counts = (rows.LAUNCHES, blur.LAUNCHES, raster.LAUNCHES)
+    for ren, scene in ((on_card, on_cpu.snapshot_scene(arr, size)),
+                       (on_cpu, on_card.snapshot_scene(arr, size))):
+        with pytest.raises(ValueError, match="the scene lies on"):
+            ren.render_view(scene)
+        with pytest.raises(ValueError, match="the scene lies on"):
+            ren.render_views(scene, [(0, 0)])
+        with pytest.raises(ValueError, match="the scene lies on"):
+            ren.update_scene(scene, arr, [(0, boxes[0])])
+    assert (rows.LAUNCHES, blur.LAUNCHES, raster.LAUNCHES) == counts
+    # the same renderer's own scene, whether it names the card's index or not
+    own = on_card.snapshot_scene(arr, size)
+    assert bool(torch.isfinite(FigRenderer(device="cuda:0").render_view(own)).all())

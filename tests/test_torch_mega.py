@@ -25,7 +25,6 @@ from figdraw_tpu.ops import layout as jax_layout, raster_pallas
 from figdraw_tpu.renderer import _bucket
 from figdraw_tpu_torch import native, tape as port_tape
 from figdraw_tpu_torch.executor import unpack_combo
-from figdraw_tpu_torch.nodesarray import RenderListArray, RendersArray
 from figdraw_tpu_torch.ops import mega
 from figdraw_tpu_torch.ops.binning import bin_quads
 from figdraw_tpu_torch.ops.layout import (
@@ -35,7 +34,7 @@ from figdraw_tpu_torch.plan import (
     bucket, from_jax_plan, pack_mega_combo, plan_execution,
 )
 from figdraw_tpu_torch.scenes import make_clip_table_scene, modes_tape
-from torch_reference import spy_mega_runs
+from torch_reference import spy_mega_runs, to_port
 
 # one intra-op thread: the suite runs a pytest-xdist worker per core, and
 # torch's spinning thread pools, oversubscribed, slow these tests a
@@ -72,19 +71,6 @@ def clip_table(rows=8, cols=6, w=256.0, h=200.0):
                 fill=fill(rgba(30, 30, 220, 120)), rotation=10.0,
             ))
     return from_renders(renders)
-
-
-def to_port(arr):
-    """A figdraw_tpu RendersArray as the port's (the node rows are the same
-    bytes)."""
-    out = RendersArray()
-    for lvl, lst in arr.sorted_pairs():
-        p = RenderListArray(capacity=max(lst.count, 1))
-        p.nodes[: lst.count] = lst.nodes[: lst.count]
-        p.count = lst.count
-        p.root_ids = list(lst.root_ids)
-        out.set_layer(lvl, p)
-    return out
 
 
 def _scenes(name, monkeypatch):

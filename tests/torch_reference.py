@@ -54,6 +54,21 @@ def block_means(frame, k: int = 8):
     return frame[:h, :w].reshape(h // k, k, w // k, k, c).mean(axis=(1, 3))
 
 
+def to_port(arr):
+    """A figdraw_tpu RendersArray as the port's (the node rows are the same
+    bytes)."""
+    from figdraw_tpu_torch.nodesarray import RenderListArray, RendersArray
+
+    out = RendersArray()
+    for lvl, lst in arr.sorted_pairs():
+        p = RenderListArray(capacity=max(lst.count, 1))
+        p.nodes[: lst.count] = lst.nodes[: lst.count]
+        p.count = lst.count
+        p.root_ids = list(lst.root_ids)
+        out.set_layer(lvl, p)
+    return out
+
+
 def spy_mega_runs(monkeypatch):
     """Record the port renderer's megakernel frames: a list that gains, per
     frame, (get_mega_executor's arguments, whether the run got an atlas)."""
