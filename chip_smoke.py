@@ -43,12 +43,21 @@ FigRenderer(device="cuda").render_frame or execute_plan:
   the blur kernel (csrc/blur.cu) once a pass, held against the plain blur
   on the headline's planes and on seeded planes at other radii.
 
-`python3 chip_smoke.py headline` stops after the headline phases (build,
-K1 and the blur against their plain versions, the frames and their stage
-times) and prints the card line and the same last line. It is how two
-commits are compared in turns: unpack the other commit beside this one
-and run the command in each checkout alternately, one process after the
-other on the same card, so both see the same card and power limit.
+Every path bins its tape once a frame through the binning kernel
+(csrc/binning.cu), which each phase holds against its plain version on
+the executor's own binning call of one frame: whole (T, N) lists and
+counts equal, leaving out only the quads whose within-run stack lies
+within rounding of the saturation threshold (counted and printed;
+expected 0).
+
+`python3 chip_smoke.py turns` only times the headline frame, the rect-mask
+table's frame and a 12000-box camera view, each with its executor and its
+binning, and the blur alone on seeded planes of the headline's size and
+radius, through entry points that every commit since the device-resident
+scenes has. It is how two commits are compared in turns: unpack the other
+commit beside this one, copy this script into it, and run the command in
+each checkout alternately, one process after the other on the same card,
+so both see the same card and power limit.
 
 It checks the frames and the launch counts of each path, holds reduced
 frames against stored block means of the JAX package's frames, and prints
@@ -356,9 +365,11 @@ def kernel_device_ms(fn, reps: int = 3) -> dict:
     return out
 
 
-def device_ms_of(fn, kernel: str, reps: int = 5, launches: int = 1) -> float:
-    """Device ms per run of fn() in the kernels whose name holds `kernel`,
-    from torch.profiler: the kernel's own time, where CUDA events around a
+def device_ms_of(fn, kernel, reps: int = 5, launches: int = 1) -> float:
+    """Device ms per run of fn() in the kernels whose name holds `kernel`
+    (a string, or a tuple of them for a wrapper that launches several
+    kernels, each `launches` times), from torch.profiler: the kernels' own
+    time, where CUDA events around a
     wrapper call also count the host's part of a launch into an idle
     queue. fn() launches each such kernel `launches` times. The profiler's
     traces on the card are not always whole: one in some hundred comes back
@@ -371,8 +382,9 @@ def device_ms_of(fn, kernel: str, reps: int = 5, launches: int = 1) -> float:
     prof = {}
     for attempt in range(4):
         prof = kernel_device_ms(fn, reps)
-        hits = {k: v for k, v in prof.items() if kernel in k}
-        if hits:
+        names = (kernel,) if isinstance(kernel, str) else kernel
+        hits = {k: v for k, v in prof.items() if any(name in k for name in names)}
+        if all(any(name in k for k in hits) for name in names):
             seen = [round(n * reps) for _ms, n in hits.values()]
             if attempt or any(n != reps * launches for n in seen):
                 print(f"note: the profiler's trace for {kernel} (take {attempt + 1}) "
@@ -384,6 +396,15 @@ def device_ms_of(fn, kernel: str, reps: int = 5, launches: int = 1) -> float:
         print(f"note: the profiler's trace for {kernel} came back with no device "
               f"activity (take {attempt + 1} of 4)", flush=True)
     fail(f"the profiler saw no kernel named {kernel}; it saw {sorted(prof)[:20]}")
+
+
+def kernel_parts(fn, names) -> str:
+    """Each named kernel's device ms a launch in one torch.profiler trace of
+    fn(), as text: where a wrapper launches several kernels, which takes
+    the time."""
+    parts = {name: ms / n for key, (ms, n) in kernel_device_ms(fn).items()
+             for name in names if name in key}
+    return "a launch: " + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
 
 
 def graph_ms(fn, reps: int = 5) -> float:
@@ -454,11 +475,148 @@ def launch_counts():
 
 
 def zero_counts():
-    from figdraw_tpu_torch.ops import blur, mega, raster, rows
+    from figdraw_tpu_torch.ops import binning, blur, mega, raster, rows
 
     raster.LAUNCHES = raster.ATLAS_LAUNCHES = raster.MASK_LAUNCHES = 0
     mega.LAUNCHES = mega.ATLAS_LAUNCHES = 0
-    rows.LAUNCHES = blur.LAUNCHES = 0
+    rows.LAUNCHES = blur.LAUNCHES = binning.LAUNCHES = 0
+
+
+def binning_launches(what: str, runs: int) -> int:
+    """The binning kernels' launches since zero_counts(): one binning a run
+    of an executor, as the path ran `runs` of them, each launching the
+    prepass and the tile kernel; fails otherwise."""
+    from figdraw_tpu_torch.ops import binning
+
+    if binning.LAUNCHES != 2 * runs:
+        fail(f"{what}: {binning.LAUNCHES} binning launches, expected {2 * runs} (one "
+             f"binning an executor run, two launches a binning)")
+    return binning.LAUNCHES
+
+
+def recorded_binning(render) -> list:
+    """Runs render() with the executor's bin_quads calls recorded as they
+    run: [(args, kwargs)]."""
+    from figdraw_tpu_torch import executor
+
+    calls, real = [], executor.bin_quads
+
+    def record(*a, **k):
+        calls.append((a, k))
+        return real(*a, **k)
+
+    executor.bin_quads = record
+    try:
+        render()
+    finally:
+        executor.bin_quads = real
+    return calls
+
+
+BIN_CALLS = {}  # scene -> the executor's own binning call, for the times
+BIN_PATHS = {}  # path -> binning launches of its counted run
+BORDERLINE = {}  # path -> saturation-borderline quads its check left out
+BIN_DIFF = {}  # path -> binning.list_differences of its check
+
+
+def binning_check(what: str, render) -> int:
+    """Runs render() (one frame or view of a path) with the executor's
+    binning call recorded, then holds the binning kernel against its plain
+    version on that call: whole (T, N) lists and counts equal, leaving out the
+    quads whose within-run above-stack lies within rounding of the
+    saturation threshold (bin_quads_model finds them; expected 0). Keeps
+    the call for the times and the differences for the kernels line;
+    returns the borderline quads left out."""
+    import torch
+
+    from figdraw_tpu_torch.ops import binning
+
+    calls = recorded_binning(render)
+    if len(calls) != 1:
+        fail(f"{what}: the frame made {len(calls)} binning calls, expected 1")
+    a, k = calls[0]
+    got = binning.bin_quads(*a, **k)
+    want = binning.bin_quads_plain(*a, **k)
+    torch.cuda.synchronize()
+    fields, start, end, tiles_y, tiles_x, th, tw = a
+    modes, runs = k.get("modes"), k.get("run_bounds")
+    _idx, _counts, border = binning.bin_quads_model(
+        fields.cpu().numpy(), int(start), int(end), tiles_y, tiles_x, th, tw,
+        modes=None if modes is None else modes.cpu().numpy(),
+        run_bounds=None if runs is None else runs.cpu().numpy())
+    got_np = [t.cpu().numpy() for t in got]
+    want_np = [t.cpu().numpy() for t in want]
+    diff = binning.list_differences(*got_np, *want_np, border)
+    same = diff["max_abs_err"] == 0
+    culls = ("no culling" if modes is None else "occlusion" if runs is None
+             else f"{runs.shape[0]} frame runs")
+    print(f"check 9: binning kernel vs plain on the {what} tape (T {tiles_y * tiles_x}, "
+          f"N {fields.shape[0]}, tile_h {th}, {culls}"
+          f"{', saturation tier' if modes is not None and fields.shape[0] >= binning.SAT_MIN_QUADS else ''}): "
+          f"whole lists and counts {'equal' if same else 'DIFFER'}: "
+          f"{diff['differing']} of {diff['compared']} entries differ, kept counts "
+          f"{diff['count_delta']} apart at most, max |kernel - plain| "
+          f"{diff['max_abs_err']:g}; {int(border.sum())} saturation-borderline quads left "
+          f"out (expected 0); {int(got_np[1].sum())} of {int(want_np[1].sum())} kept "
+          f"entries", flush=True)
+    if not same:
+        fail(f"{what}: the binning kernel's lists differ from the plain version's")
+    BIN_CALLS[what] = (a, k)
+    BIN_DIFF[what] = diff
+    return int(border.sum())
+
+
+def binning_work(a, k):
+    """(bytes, operations) one binning needs: each row's columns the
+    function reads (the bbox; with modes the alphas, half-extents, radii,
+    AA, the two inverse terms and the rect-mask flag, and the mode lanes),
+    the runs and the window once; the (T, N) lists and the counts written
+    once; four compares and three ands a (tile, quad) pair of the window,
+    and with modes ~40 operations a quad for its cover terms. Counted,
+    not measured."""
+    fields, start, end, tiles_y, tiles_x = a[:5]
+    n, n_tiles = fields.shape[0], tiles_y * tiles_x
+    modes, runs = k.get("modes"), k.get("run_bounds")
+    cols = 4 if modes is None else 20
+    n_bytes = n * cols * 4 + (0 if modes is None else n * 8) + 8
+    n_bytes += 0 if runs is None else runs.numel() * 4
+    n_bytes += n_tiles * n * 4 + n_tiles * 4
+    window = max(0, min(int(end), n) - max(int(start), 0))
+    n_ops = n_tiles * window * 7 + (0 if modes is None else n * 40)
+    return n_bytes, n_ops
+
+
+def binning_times(what: str, tag: str) -> dict:
+    """The binning kernel's time on one scene's own call: by CUDA events
+    around the wrapper call, the two kernels alone by torch.profiler, the
+    plain version, the bound; and, for the record only, torch.argsort of
+    the (T, N) keys that the plain version sorts."""
+    import torch
+
+    from figdraw_tpu_torch.ops import binning
+
+    a, k = BIN_CALLS[what]
+    ms = cuda_ms(lambda: binning.bin_quads(*a, **k), 20)
+    names = ("bin_prep_kernel", "bin_tiles_kernel")
+    alone = device_ms_of(lambda: binning.bin_quads(*a, **k), names)
+    parts = kernel_parts(lambda: binning.bin_quads(*a, **k), names)
+    plain_ms = cuda_ms(lambda: binning.bin_quads_plain(*a, **k), 5)
+    idx, counts = binning.bin_quads(*a, **k)
+    n = idx.shape[1]
+    order = torch.arange(n, dtype=torch.int32, device=idx.device)
+    live = order[None, :] < counts[:, None]
+    kept = torch.zeros_like(live).scatter_(1, idx.long(), live)
+    keys = torch.where(kept, order[None, :], n + order[None, :])
+    argsort_ms = cuda_ms(lambda: torch.argsort(keys, dim=1), 5)
+    n_bytes, n_ops = binning_work(a, k)
+    bound, by = bound_of(n_bytes, n_ops)
+    print(f"times: binning kernel on the {what} tape {tuple(idx.shape)}: {ms:.4f} ms "
+          f"(CUDA events around the wrapper call), {alone:.4f} ms (the prepass and the "
+          f"tile kernel alone, torch.profiler; {parts}), plain torch {plain_ms:.3f} ms; bound "
+          f"{bound:.4f} ms ({by}: {n_bytes} bytes); torch.argsort of the (T, N) keys "
+          f"alone {argsort_ms:.4f} ms (for the record, no yardstick) {tag}", flush=True)
+    return {"ms": ms, "device_ms": alone, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "argsort_ms": argsort_ms}
 
 
 def timed_frames(what: str, render, shape, frames: int = FRAMES) -> list:
@@ -515,6 +673,7 @@ def images_phase(tag: str, dev) -> dict:
         total_ms = timed_frames(variant, lambda: ren.render_frame(scene, size),
                                 (IMAGE_H, IMAGE_W, 4))
         counts = launch_counts()
+        bins = binning_launches(f"images {variant}", FRAMES)
         frame = ren.last_frame
         want = ((FRAMES, 0, 0, 0, 0) if variant == "sdf_control"
                 else (0, FRAMES, 0, 0, 0))
@@ -524,6 +683,7 @@ def images_phase(tag: str, dev) -> dict:
               f"(expected {want})", flush=True)
         if counts != want:
             fail(f"images {variant} launched {counts}, expected {want}")
+        border = binning_check(f"images {variant}", lambda: ren.render_frame(scene, size))
         walk = ren._walk_atlas()
         walk_ms = []
         for _ in range(FRAMES):
@@ -565,7 +725,8 @@ def images_phase(tag: str, dev) -> dict:
               f"{kernel_ms:.4f} ms, {bound_text(work)} {tag}", flush=True)
         out[variant] = dict(launches=counts, err=max(max(errs), frame_err),
                             args=(args, kw), kernel_ms=kernel_ms, work=work,
-                            ms_per_frame=statistics.median(total_ms))
+                            ms_per_frame=statistics.median(total_ms),
+                            bin_launches=bins, borderline=border)
     return out
 
 
@@ -590,6 +751,7 @@ def text_phase(tag: str, dev) -> dict:
     total_ms = timed_frames("text", lambda: ren.execute_plan(plan, atlas=atlas),
                             (plan.height, plan.width, 4))
     counts = launch_counts()
+    bins = binning_launches("text", FRAMES)
     frame = ren.last_frame
     want = (0, FRAMES, 0, 0, 0)
     print(f"check text: {plan.width}x{plan.height}, {plan.bounds[0][1]} glyph and "
@@ -597,6 +759,7 @@ def text_phase(tag: str, dev) -> dict:
           f"frames finite; launches {counts} (expected {want})", flush=True)
     if counts != want:
         fail(f"text launched {counts}, expected {want}")
+    border = binning_check("text", lambda: ren.execute_plan(plan, atlas=atlas))
     run = get_frame_executor(plan.structure, plan.height, plan.width, plan.n_masks,
                              plan.has_init_frame, plan.tile_h)
     combo = torch.from_numpy(plan.combo).to(dev, copy=True)
@@ -623,7 +786,8 @@ def text_phase(tag: str, dev) -> dict:
           f"{kernel_ms:.4f} ms, {bound_text(raster_work(args, kw))} {tag}",
           flush=True)
     return dict(launches=counts, err=max(errs), args=(args, kw), kernel_ms=kernel_ms,
-                ms_per_frame=statistics.median(total_ms))
+                ms_per_frame=statistics.median(total_ms), bin_launches=bins,
+                borderline=border)
 
 
 TURNS, TURN_FRAMES = 3, 10  # both routes of an atlas scene, in turns
@@ -676,6 +840,7 @@ def mega_atlas_phase(which: str, tag: str, dev) -> dict:
     zero_counts()
     total_ms = timed_frames(which, mega_frame, shape)
     counts = launch_counts()
+    bins = binning_launches(which, FRAMES)
     frame = ren.last_frame
     want = (0, 0, 0, 0, FRAMES)
     n_clears = sum(1 for item in plan.structure if item[0] == "clear_mask")
@@ -688,6 +853,7 @@ def mega_atlas_phase(which: str, tag: str, dev) -> dict:
     if counts != want or not plan.mega_atlas:
         fail(f"{which} launched {counts}, expected {want} on a mega plan with "
              f"the atlas (mega_atlas {plan.mega_atlas})")
+    border = binning_check(which, mega_frame)
 
     run = get_mega_executor(plan.height, plan.width, plan.n_masks,
                             plan.has_init_frame, plan.tile_h)
@@ -766,7 +932,8 @@ def mega_atlas_phase(which: str, tag: str, dev) -> dict:
         fail(f"{which}: the rolled frame differs from the mega frame by {rolled_err}")
     return dict(launches=counts, err=max(errs[0], frame_err), kernel_ms=kernel_ms,
                 device_ms=device_ms, plain_ms=plain_ms, work=work, ms_per_frame=med(total_ms),
-                mega_ms=med(by_route["mega"]), rolled_ms=med(by_route["rolled"]))
+                mega_ms=med(by_route["mega"]), rolled_ms=med(by_route["rolled"]),
+                bin_launches=bins, borderline=border)
 
 
 def mega_clamps_check(dev) -> None:
@@ -833,6 +1000,7 @@ def rolled_phase(tag: str, dev) -> dict:
     zero_counts()
     total_ms = timed_frames("rolled", rolled_frame, (IMAGE_H, IMAGE_W, 4))
     counts = launch_counts()
+    bins = binning_launches("rolled", FRAMES)
     frame = ren.last_frame
     want = (FRAMES, FRAMES * IMAGE_PANELS, FRAMES * IMAGE_PANELS, 0, 0)
     tape = ren.flatten(scene, size)
@@ -844,6 +1012,7 @@ def rolled_phase(tag: str, dev) -> dict:
           f"(expected {want})", flush=True)
     if counts != want or plan.rolled_items is None:
         fail(f"rolled launched {counts}, expected {want}")
+    border = binning_check("rolled", rolled_frame)
     run = get_frame_executor(plan.structure, plan.height, plan.width, plan.n_masks,
                              plan.has_init_frame, plan.tile_h, rolled=True)
     combo = torch.from_numpy(plan.combo).to(dev, copy=True)
@@ -925,7 +1094,8 @@ def rolled_phase(tag: str, dev) -> dict:
         fail(f"rolled: the profiler saw no device time for the {len(k_atlas)} "
              f"K1-atlas and {len(a3)} K3 launches; it saw {sorted(prof)[:20]}")
     return dict(launches=counts, k1_err=max(e1), k3_err=max(e3), frame_err=frame_err,
-                ms_per_frame=statistics.median(total_ms))
+                ms_per_frame=statistics.median(total_ms), bin_launches=bins,
+                borderline=border)
 
 
 def clip_table_phase(kind: str, tag: str, dev) -> dict:
@@ -944,7 +1114,7 @@ def clip_table_phase(kind: str, tag: str, dev) -> dict:
         get_frame_executor, get_mega_executor, unpack_combo,
     )
     from figdraw_tpu_torch.ops import mega, raster
-    from figdraw_tpu_torch.ops.binning import bin_quads
+    from figdraw_tpu_torch.ops.binning import bin_quads, bin_quads_plain
     from figdraw_tpu_torch.plan import plan_execution, tile_h_from_density
     from figdraw_tpu_torch.scenes import make_clip_table_scene
 
@@ -958,6 +1128,7 @@ def clip_table_phase(kind: str, tag: str, dev) -> dict:
                             (TABLE_H, TABLE_W, 4))
     frame = ren.last_frame
     k1, k1_atlas, k3, k4, k4_atlas = launch_counts()
+    bins = binning_launches(f"{kind} table", FRAMES)
     counts = (k1, k3, k4)
     want = (2 * FRAMES, FRAMES, 0) if kind == "rectmask" else (0, 0, FRAMES)
     print(f"check 6: {kind} table {TABLE_ROWS}x{TABLE_COLS} at {TABLE_W}x{TABLE_H}, "
@@ -967,6 +1138,7 @@ def clip_table_phase(kind: str, tag: str, dev) -> dict:
     if counts != want or k1_atlas or k4_atlas:
         fail(f"{kind} table launched (K1, K3, K4) {counts}, K1-atlas {k1_atlas} "
              f"and K4-atlas {k4_atlas}, expected {want}, 0 and 0")
+    border = binning_check(f"{kind} table", lambda: ren.render_frame(scene, size))
     walk_ms = []
     for _ in range(FRAMES):
         t0 = time.perf_counter()
@@ -977,7 +1149,8 @@ def clip_table_phase(kind: str, tag: str, dev) -> dict:
           f"(render_frame + sync; host walk and export alone "
           f"{statistics.median(walk_ms):.3f} ms) {tag}", flush=True)
 
-    out = {"launches": counts, "ms_per_frame": statistics.median(total_ms)}
+    out = {"launches": counts, "ms_per_frame": statistics.median(total_ms),
+           "bin_launches": bins, "borderline": border}
 
     if kind == "rectmask":
         tape = ren.flatten(scene, size)
@@ -1031,16 +1204,14 @@ def clip_table_phase(kind: str, tag: str, dev) -> dict:
     n = fields.shape[0]
     th = out["k3_args"][-1] if kind == "rectmask" else out["k4_args"][-1]
     rows = combo.shape[0] - n
+    bin_args = (fields, 0, n, -(-TABLE_H // th), -(-TABLE_W // 128), th, 128)
+    bin_kw = {}
     if kind == "rectmask":
-        rb = torch.stack([a[2] for a, _k in out["k1_args"]])
-        binning = lambda: bin_quads(fields, 0, n, -(-TABLE_H // th), -(-TABLE_W // 128),
-                                    th, 128, modes=modes, run_bounds=rb)
-    else:
-        binning = lambda: bin_quads(fields, 0, n, -(-TABLE_H // th), -(-TABLE_W // 128),
-                                    th, 128)
+        bin_kw = dict(modes=modes, run_bounds=torch.stack([a[2] for a, _k in out["k1_args"]]))
     stages = {
         "unpack": cuda_ms(lambda: unpack_combo(combo[:-rows]), 20),
-        "binning": cuda_ms(binning, 20),
+        "binning": cuda_ms(lambda: bin_quads(*bin_args, **bin_kw), 20),
+        "binning (plain torch)": cuda_ms(lambda: bin_quads_plain(*bin_args, **bin_kw), 20),
         "whole executor": cuda_ms(lambda: run(combo, None), 20),
     }
     print(f"times: {kind} executor stages: " + ", ".join(
@@ -1073,11 +1244,9 @@ DIRTY_ROOTS = 8  # bench_retained.py's edited roots a frame
 # position, floor, fraction, clamped texel indices and 1 - fraction (9 more
 # operations) depend only on the column in the horizontal pass and on the row
 # in the vertical one, so the function needs them once a line position, not
-# once a pixel; csrc/blur.cu, one thread a pixel, computes them per pixel (14
-# operations a tap), which its bound does not credit it for. ROWS_OPS_PER_ROW:
-# one row of csrc/rows.cu with every stage on. Counted, not measured.
+# once a pixel. ROWS_OPS_PER_ROW: one row of csrc/rows.cu with every stage
+# on. Counted, not measured.
 BLUR_OPS_PER_TAP, BLUR_OPS_PER_POSITION, BLUR_TAPS = 5, 9, 17
-BLUR_KERNEL_OPS_PER_TAP = BLUR_OPS_PER_TAP + BLUR_OPS_PER_POSITION
 ROWS_OPS_PER_ROW = 190
 
 
@@ -1161,7 +1330,7 @@ def camera_phase(copies: int, tag: str, errs: list) -> dict:
     from figdraw_tpu_torch import FigRenderer, vec2
     from figdraw_tpu_torch.executor import unpack_combo
     from figdraw_tpu_torch.ops import blur, raster, rows
-    from figdraw_tpu_torch.ops.binning import bin_quads
+    from figdraw_tpu_torch.ops.binning import bin_quads, bin_quads_plain
     from figdraw_tpu_torch.scenes import make_render_tree_array
 
     size = vec2(WIDTH, HEIGHT)
@@ -1179,9 +1348,11 @@ def camera_phase(copies: int, tag: str, errs: list) -> dict:
     zero_counts()
     pan = loop_ms(lambda f: ren.render_view(snap, (f * 3.0, f * 1.0)))
     counts = (rows.LAUNCHES, blur.LAUNCHES, raster.LAUNCHES)
+    bins = binning_launches(f"camera {copies * 3}", 3 * n)
     want = (3 * n, 2 * 3 * n, 2 * 3 * n)
     if counts != want:
         fail(f"camera {copies}: (rows, blur, K1) launches {counts}, expected {want}")
+    border = binning_check(f"camera {copies * 3}", lambda: ren.render_view(snap, (21.0, 7.0)))
     pans = [(f * 3.0, f * 1.0) for f in range(n)]
     zooms = [1.0 + 0.4 * (f / n) for f in range(n)]
     ren.render_views(snap, pans[:2], zooms[:2])
@@ -1230,18 +1401,20 @@ def camera_phase(copies: int, tag: str, errs: list) -> dict:
     plan, viewed, th = snap.plan, snap.scratch, snap.plan.tile_h
     fields, modes = unpack_combo(viewed[: snap.n_quads])
     run_bounds = torch.tensor(plan.bounds, dtype=torch.int32, device="cuda")
+    bin_args = (fields, 0, snap.n_quads, -(-HEIGHT // th), -(-WIDTH // 128), th, 128)
+    bin_kw = dict(modes=modes, run_bounds=run_bounds)
     stages = {
         "unpack": cuda_ms(lambda: unpack_combo(viewed[: snap.n_quads]), 10),
-        "binning": cuda_ms(lambda: bin_quads(
-            fields, 0, snap.n_quads, -(-HEIGHT // th), -(-WIDTH // 128), th, 128,
-            modes=modes, run_bounds=run_bounds), 10),
+        "binning": cuda_ms(lambda: bin_quads(*bin_args, **bin_kw), 10),
+        "binning (plain torch)": cuda_ms(lambda: bin_quads_plain(*bin_args, **bin_kw), 10),
         "whole executor": cuda_ms(lambda: ren._run_plan(plan, viewed), 10),
     }
     print(f"times: camera {copies * 3} boxes: a view's executor stages (tile_h "
           f"{th}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items())
           + f" (device, CUDA events) {tag}", flush=True)
     return {"rows_args": args, "pan": pan, "fly": fly, "walk": walk[0],
-            "launches": counts[0], "blur_launches": counts[1]}
+            "launches": counts[0], "blur_launches": counts[1], "bin_launches": bins,
+            "borderline": border}
 
 
 def sceneanim_phase(copies: int, tag: str, errs: list) -> dict:
@@ -1276,12 +1449,15 @@ def sceneanim_phase(copies: int, tag: str, errs: list) -> dict:
     anim = loop_ms(lambda f: ren.render_view(
         snap, root_transforms=anim_table(copies, base, f, table, WIDTH, HEIGHT)))
     launches = rows.LAUNCHES
+    bins = binning_launches(f"sceneanim {copies * 3}", 3 * RESIDENT_FRAMES)
     if launches != 3 * RESIDENT_FRAMES:
         fail(f"sceneanim {copies}: {launches} row launches, expected "
              f"{3 * RESIDENT_FRAMES}")
     moved = ren.last_frame
     if not bool(torch.isfinite(moved).all()) or torch.equal(moved, still):
         fail(f"sceneanim {copies}: the animated frame is not finite or did not move")
+    border = binning_check(f"sceneanim {copies * 3}", lambda: ren.render_view(
+        snap, root_transforms=anim_table(copies, base, 5, table, WIDTH, HEIGHT)))
     host = []
     for f in range(RESIDENT_FRAMES):
         t0 = time.perf_counter()
@@ -1296,7 +1472,8 @@ def sceneanim_phase(copies: int, tag: str, errs: list) -> dict:
           f"render_view {ms_text(anim)} (the table's numpy math alone "
           f"{statistics.median(host):.3f} ms), animate + render_frame loop "
           f"{walk[0]:.3f} ms/frame {tag}", flush=True)
-    return {"rows_args": args, "anim": anim, "walk": walk[0], "launches": launches}
+    return {"rows_args": args, "anim": anim, "walk": walk[0], "launches": launches,
+            "bin_launches": bins, "borderline": border}
 
 
 def retained_phase(copies: int, tag: str, errs: list) -> dict:
@@ -1365,6 +1542,7 @@ def retained_phase(copies: int, tag: str, errs: list) -> dict:
         rects = torch.from_numpy(damage_rects(
             [(100.0, 80.0, 400.0, 300.0), (900.5, 600.25, 1300.0, 900.0)])).cuda()
         launches = rows.LAUNCHES
+        bins = binning_launches(f"retained {n_boxes}", 3 * RESIDENT_FRAMES)
         full = loop_ms(lambda f: retained_frame(f, full=True))
     finally:
         renderer.damage_spans = spans
@@ -1387,6 +1565,9 @@ def retained_phase(copies: int, tag: str, errs: list) -> dict:
           f"rows, {DIRTY_ROOTS} dirty roots a frame): {taken} of {taken} frames "
           f"damage-clipped; a damage-clipped frame equals a new snapshot's view bit "
           f"for bit", flush=True)
+    # a damage-clipped view's binning: the rows outside the damage drop out
+    border = binning_check(f"retained {n_boxes}", lambda: (
+        ren.update_scene(scene, arr, edit(1)), ren.render_view(scene)))
     args = rows_check(f"retained {n_boxes}-box", scene,
                       torch.tensor([0.0, 0.0], device="cuda"),
                       torch.tensor([1.0], device="cuda"), errs, rects=rects)
@@ -1395,7 +1576,7 @@ def retained_phase(copies: int, tag: str, errs: list) -> dict:
           f"(update_scene alone {statistics.median(host):.3f} ms), edit + "
           f"render_frame loop {walk[0]:.3f} ms/frame {tag}", flush=True)
     return {"rows_args": args, "clipped": clipped, "full": full, "walk": walk[0],
-            "launches": launches}
+            "launches": launches, "bin_launches": bins, "borderline": border}
 
 
 def rows_times(what: str, args, kw, tag: str) -> dict:
@@ -1424,9 +1605,10 @@ def rows_times(what: str, args, kw, tag: str) -> dict:
 
 
 def blur_phase(planes, radius, tag: str) -> dict:
-    """The blur kernel against the plain blur on the headline's planes at
-    its own radius and on seeded planes at other radii; times and bound at
-    the headline's."""
+    """The blur kernel against the plain blur, bit for bit, on the
+    headline's planes at its own radius, on seeded planes at other radii and
+    on seeded planes whose sides are no multiple of the kernel's blocks;
+    times and bound at the headline's."""
     import numpy as np
     import torch
 
@@ -1435,9 +1617,14 @@ def blur_phase(planes, radius, tag: str) -> dict:
     errs = {}
     rng = np.random.RandomState(18)
     seeded = torch.from_numpy(rng.rand(*planes.shape).astype(np.float32)).cuda()
+    # (4, 1000, 1916): the 16-byte vertical pass with partial blocks;
+    # (3, 1081, 1925): an odd width, the one-column vertical pass
+    odd = [torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda()
+           for shape in ((4, 1000, 1916), (3, 1081, 1925))]
     r18 = torch.tensor(float(radius), dtype=torch.float32, device="cuda")
     for what, src, r in [("headline", planes, float(radius))] + [
-            ("seeded", seeded, r) for r in (0.3, 1.0, 7.5, 64.0, 100.0)]:
+            ("seeded", seeded, r) for r in (0.3, 1.0, 7.5, 64.0, 100.0)] + [
+            (f"seeded {tuple(o.shape)}", o, r) for o in odd for r in (0.5, 7.5, 18.0, 64.0)]:
         rt = torch.tensor(r, dtype=torch.float32, device="cuda")
         before = src.clone()
         got = blur.backdrop_blur_planar(src, rt)
@@ -1445,18 +1632,19 @@ def blur_phase(planes, radius, tag: str) -> dict:
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         errs[f"{what} r={r:g}"] = err
-        if not (err <= 1e-5 and bool(torch.isfinite(got).all())
+        if not (torch.equal(got, ref) and bool(torch.isfinite(got).all())
                 and torch.equal(src, before)):
             fail(f"blur kernel on the {what} planes at r={r:g} differs from the "
                  f"plain blur by {err}, or wrote its input")
         if r <= 0.5 and not torch.equal(got, src):
             fail(f"blur kernel at r={r:g} is not the identity")
     print(f"check 8: blur kernel vs plain on {tuple(planes.shape)} planes, max |diff| "
-          + ", ".join(f"{k}: {v:.2e}" for k, v in errs.items()) + " (tol 1e-05)",
+          + ", ".join(f"{k}: {v:.2e}" for k, v in errs.items()) + " (bit for bit)",
           flush=True)
     ms = cuda_ms(lambda: blur.backdrop_blur_planar(planes, r18), 20)
-    alone = device_ms_of(lambda: blur.backdrop_blur_planar(planes, r18),
-                         "blur_pass_kernel")
+    names = ("blur_h_kernel", "blur_v_kernel")
+    alone = device_ms_of(lambda: blur.backdrop_blur_planar(planes, r18), names)
+    parts = kernel_parts(lambda: blur.backdrop_blur_planar(planes, r18), names)
     plain_ms = cuda_ms(lambda: blur.backdrop_blur_planar_plain(planes, r18), 5)
     n_bytes = 4 * planes.numel() * 4  # two passes, each a read and a write
     # what the function needs: the interpolation and the sum for every tap of
@@ -1465,17 +1653,14 @@ def blur_phase(planes, radius, tag: str) -> dict:
     ph, pw = planes.shape[-2:]
     n_ops = (2 * planes.numel() * (BLUR_TAPS * BLUR_OPS_PER_TAP + 1)
              + BLUR_TAPS * BLUR_OPS_PER_POSITION * (ph + pw))
-    kernel_ops = 2 * planes.numel() * (BLUR_TAPS * BLUR_KERNEL_OPS_PER_TAP + 1)
     bound, by = bound_of(n_bytes, n_ops)
     print(f"times: blur kernel on the headline's planes {tuple(planes.shape)} at "
           f"r={float(radius):g}: {ms:.4f} ms (CUDA events around the wrapper call, both "
-          f"passes), {alone:.4f} ms (the two kernels alone, torch.profiler), plain "
+          f"passes), {alone:.4f} ms (the two kernels alone, torch.profiler; {parts}), plain "
           f"torch {plain_ms:.3f} ms; bound {bound:.4f} ms ({by}; bytes alone "
           f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, the function's operations alone "
-          f"{n_ops / FP32_OPS_PER_S * 1e3:.4f} ms; the kernel, which works the tap "
-          f"positions out per pixel, runs {kernel_ops / FP32_OPS_PER_S * 1e3:.4f} ms "
-          f"of operations); the kernel alone is {alone / bound:.2f} times its bound "
-          f"{tag}", flush=True)
+          f"{n_ops / FP32_OPS_PER_S * 1e3:.4f} ms); the kernel alone is "
+          f"{alone / bound:.2f} times its bound {tag}", flush=True)
     return {"ms": ms, "device_ms": alone, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": by, "err": max(errs.values())}
 
@@ -1493,6 +1678,8 @@ def resident_phases(tag: str) -> dict:
         out[copies] = {"camera": cam, "sceneanim": anim, "retained": kept}
         for name, phase in (("camera", cam), ("sceneanim", anim), ("retained", kept)):
             out["launches"][f"{name} {boxes}"] = phase["launches"]
+            BIN_PATHS[f"{name} {boxes}"] = phase["bin_launches"]
+            BORDERLINE[f"{name} {boxes}"] = phase["borderline"]
     small, big = RESIDENT_SCALES[0], RESIDENT_SCALES[-1]
     out["times"] = rows_times(f"sceneanim {big * 3}-box (affine and camera)",
                               *out[big]["sceneanim"]["rows_args"], tag)
@@ -1501,6 +1688,97 @@ def resident_phases(tag: str) -> dict:
     rows_times(f"retained {big * 3}-box (camera and damage clip)",
                *out[big]["retained"]["rows_args"], tag)
     out["err"] = max(errs)
+    return out
+
+
+def turns_phase(tag: str) -> dict:
+    """`python3 chip_smoke.py turns`: the headline frame (FRAMES frames of
+    render_frame), the rect-mask table's frame and a 12000-box camera view
+    (render_view, three loops of RESIDENT_FRAMES), each with its executor
+    and the executor's own binning call timed alone by CUDA events; the
+    blur (both passes) on seeded planes of the headline's shape at its
+    radius, by CUDA events and alone by torch.profiler. Only entry points
+    that every commit since the device-resident scenes has, and whichever
+    binning and blur kernels the checkout has; no checks."""
+    import importlib
+    import itertools
+
+    from figdraw_tpu_torch import FigRenderer, executor, native, vec2
+    from figdraw_tpu_torch.executor import get_frame_executor
+    from figdraw_tpu_torch.ops import blur
+    from figdraw_tpu_torch.plan import plan_execution
+    from figdraw_tpu_torch.scenes import make_clip_table_scene, make_render_tree_array
+
+    import torch
+
+    loads = [native.load]
+    for name in ("raster", "mega", "rows", "blur", "binning"):
+        try:
+            loads.append(importlib.import_module(f"figdraw_tpu_torch.ops.{name}").load)
+        except (ImportError, AttributeError):  # an older checkout has no such kernel
+            pass
+    with ThreadPoolExecutor(len(loads)) as pool:
+        list(pool.map(lambda load: load(), loads))
+
+    def binning_ms(render) -> float:
+        a, k = recorded_binning(render)[0]
+        return cuda_ms(lambda: executor.bin_quads(*a, **k), 20)
+
+    size = vec2(WIDTH, HEIGHT)
+    out = {}
+    cache = {}
+    ren = FigRenderer(device="cuda")
+    step = itertools.count(1)
+    headline = lambda: ren.render_frame(make_render_tree_array(
+        WIDTH, HEIGHT, next(step), copies=COPIES, cache=cache), size)
+    headline()
+    frames = timed_frames("headline", headline, (HEIGHT, WIDTH, 4))
+    plan = plan_execution(ren.flatten(make_render_tree_array(
+        WIDTH, HEIGHT, 0, copies=COPIES, cache=cache), size))
+    run = get_frame_executor(plan.structure, plan.height, plan.width, plan.n_masks,
+                             plan.has_init_frame, plan.tile_h)
+    combo = torch.from_numpy(plan.combo).to("cuda", copy=True)
+    out["headline"] = {"frame_ms": statistics.median(frames),
+                       "executor_ms": cuda_ms(lambda: run(combo, None), 20),
+                       "binning_ms": binning_ms(lambda: run(combo, None))}
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    ph, pw = -(-plan.height // plan.tile_h) * plan.tile_h, -(-plan.width // 128) * 128
+    planes = torch.rand((4, ph, pw), generator=gen, device="cuda")  # the executor's
+    radius = torch.tensor(float(plan.radii[0]), dtype=torch.float32, device="cuda")
+    blurred = lambda: blur.backdrop_blur_planar(planes, radius)
+    out["blur"] = {"planes": list(planes.shape), "radius": float(plan.radii[0]),
+                   "ms": cuda_ms(blurred, 20),
+                   "device_ms": device_ms_of(blurred, "blur_"),  # both passes
+                   "passes": kernel_parts(blurred, ("blur_h", "blur_v", "blur_pass"))}
+
+    table = make_clip_table_scene("rectmask", TABLE_W, TABLE_H, TABLE_ROWS, TABLE_COLS)
+    table_size = vec2(TABLE_W, TABLE_H)
+    ren = FigRenderer(device="cuda")
+    ren.render_frame(table, table_size)
+    frames = timed_frames("rectmask", lambda: ren.render_frame(table, table_size),
+                          (TABLE_H, TABLE_W, 4))
+    plan = plan_execution(ren.flatten(table, table_size))
+    run = get_frame_executor(plan.structure, plan.height, plan.width, plan.n_masks,
+                             plan.has_init_frame, plan.tile_h)
+    combo = torch.from_numpy(plan.combo).to("cuda", copy=True)
+    out["rectmask"] = {"frame_ms": statistics.median(frames),
+                       "executor_ms": cuda_ms(lambda: run(combo, None), 20),
+                       "binning_ms": binning_ms(lambda: run(combo, None))}
+
+    copies = RESIDENT_SCALES[-1]
+    ren = FigRenderer(device="cuda")
+    snap = ren.snapshot_scene(make_render_tree_array(WIDTH, HEIGHT, 0, copies=copies), size)
+    ren.render_view(snap, (1.0, 0.0))
+    loops = loop_ms(lambda f: ren.render_view(snap, (f * 3.0, f * 1.0)))
+    out[f"camera {copies * 3}"] = {
+        "view_ms": min(loops), "loops_ms": loops,
+        "executor_ms": cuda_ms(lambda: ren._run_plan(snap.plan, snap.scratch), 20),
+        "binning_ms": binning_ms(lambda: ren.render_view(snap, (21.0, 7.0)))}
+    for what, v in out.items():
+        print(f"turns: {what}: " + ", ".join(
+            f"{k} {x:.4f}" if isinstance(x, float) else f"{k} {x}" for k, x in v.items())
+            + f" {tag}", flush=True)
+    print(json.dumps({"turns": out}), flush=True)
     return out
 
 
@@ -1517,12 +1795,19 @@ def main() -> None:
     tag = f"[{card}]"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["turns"]:
+        turns_phase(tag)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
+            flush=True)
+        return
 
     from figdraw_tpu_torch import FigRenderer, vec2
     from figdraw_tpu_torch import native
     from figdraw_tpu_torch.executor import get_frame_executor, unpack_combo
-    from figdraw_tpu_torch.ops import blur, mega, raster, rows
-    from figdraw_tpu_torch.ops.binning import bin_quads
+    from figdraw_tpu_torch.ops import binning, blur, mega, raster, rows
+    from figdraw_tpu_torch.ops.binning import bin_quads, bin_quads_plain
     from figdraw_tpu_torch.ops.layout import QF_RECT_PARAMS, QI_MODE
     from figdraw_tpu_torch.plan import plan_execution
     from figdraw_tpu_torch.scenes import make_render_tree_array, modes_tape
@@ -1536,15 +1821,16 @@ def main() -> None:
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         builds = {name: pool.submit(timed, fn) for name, fn in (
             ("walk (g++)", native.load), ("raster.cu (nvcc)", raster.load),
             ("mega.cu (nvcc)", mega.load), ("rows.cu (nvcc)", rows.load),
-            ("blur.cu (nvcc)", blur.load))}
+            ("blur.cu (nvcc)", blur.load), ("binning.cu (nvcc)", binning.load))}
         secs = {name: f.result() for name, f in builds.items()}
     print("build: " + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
           + f"; {time.perf_counter() - t0:.2f} s in all {tag}", flush=True)
-    for log in (raster.BUILD_LOG, mega.BUILD_LOG, rows.BUILD_LOG, blur.BUILD_LOG):
+    for log in (raster.BUILD_LOG, mega.BUILD_LOG, rows.BUILD_LOG, blur.BUILD_LOG,
+                binning.BUILD_LOG):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
@@ -1658,6 +1944,8 @@ def main() -> None:
     if blur_launches != 2 * FRAMES:
         fail(f"{FRAMES} headline frames launched the blur kernel {blur_launches} "
              f"times, expected {2 * FRAMES} (one a pass)")
+    BIN_PATHS["headline"] = binning_launches("headline", FRAMES)
+    BORDERLINE["headline"] = binning_check("headline", lambda: ren.execute(tape))
     # the last frame again, by the same executor with the plain raster
     plan = plan_execution(tape)
     run = get_frame_executor(plan.structure, plan.height, plan.width,
@@ -1708,30 +1996,27 @@ def main() -> None:
     n = fields.shape[0]
     run_bounds = torch.stack([a[2] for a, _k, _e in draw_args])
     ms_unpack = cuda_ms(lambda: unpack_combo(combo[:n]), 20)
-    ms_bin = cuda_ms(lambda: bin_quads(
-        fields, 0, n, planes.shape[1] // th, planes.shape[2] // 128, th, 128,
-        modes=modes, run_bounds=run_bounds), 20)
+    bin_args = (fields, 0, n, planes.shape[1] // th, planes.shape[2] // 128, th, 128)
+    bin_kw = dict(modes=modes, run_bounds=run_bounds)
+    ms_bin = cuda_ms(lambda: bin_quads(*bin_args, **bin_kw), 20)
+    ms_bin_plain = cuda_ms(lambda: bin_quads_plain(*bin_args, **bin_kw), 20)
     radius = torch.tensor(plan.radii[0], dtype=torch.float32, device=dev)
     ms_blur = cuda_ms(lambda: blur.backdrop_blur_planar(draw_args[1][0][5], radius), 20)
     ms_blur_plain = cuda_ms(
         lambda: blur.backdrop_blur_planar_plain(draw_args[1][0][5], radius), 5)
     ms_exec = cuda_ms(lambda: run(combo, None), 20)
     print(f"times: executor stages: unpack {ms_unpack:.4f} ms, binning "
-          f"{ms_bin:.4f} ms, blur {ms_blur:.4f} ms (the kernel; the plain torch blur "
+          f"{ms_bin:.4f} ms (the kernel; the plain torch binning {ms_bin_plain:.4f} ms), "
+          f"blur {ms_blur:.4f} ms (the kernel; the plain torch blur "
           f"{ms_blur_plain:.4f} ms), whole executor {ms_exec:.4f} ms "
           f"(device, CUDA events) {tag}", flush=True)
     blurred = blur_phase(draw_args[1][0][5], plan.radii[0], tag)
-    if sys.argv[1:] == ["headline"]:
-        # the headline phases alone, for runs in turns against another commit
-        print(card, flush=True)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
-            flush=True)
-        return
+    binned = {"headline": binning_times("headline", tag)}
 
     # --- 6. the clip-mask tables (bench_clipmask.py) ------------------------------
     tables = {kind: clip_table_phase(kind, tag, dev) for kind in ("rectmask", "subclip")}
     rm, sc = tables["rectmask"], tables["subclip"]
+    binned["rectmask table"] = binning_times("rectmask table", tag)
     t0 = time.perf_counter()
     kernel_ms_k3 = cuda_ms(lambda: raster.draw_pass_mask_prebinned(*rm["k3_args"]), 20)
     plain_ms_k3 = cuda_ms(lambda: raster.draw_pass_mask_prebinned_plain(*rm["k3_args"]), 3)
@@ -1766,6 +2051,7 @@ def main() -> None:
     cards = mega_atlas_phase("clipped cards", tag, dev)
     table = mega_atlas_phase("text table", tag, dev)
     rolled = rolled_phase(tag, dev)
+    binned["text table"] = binning_times("text table", tag)
     faster = all(p["mega_ms"] < p["rolled_ms"] for p in (cards, table))
     print(f"routing: the megakernel with the atlas against the rolled executor, "
           f"median ms/frame: clipped cards {cards['mega_ms']:.3f} against "
@@ -1785,6 +2071,16 @@ def main() -> None:
 
     # --- 8. device-resident scenes: camera, per-root animation, retained updates ---
     resident = resident_phases(tag)
+    big = RESIDENT_SCALES[-1] * 3
+    binned[f"camera {big}"] = binning_times(f"camera {big}", tag)
+    for name, phase in [("rectmask", rm), ("subclip", sc), ("text", text),
+                        ("clipped cards", cards), ("text table", table), ("rolled", rolled)] + [
+            (f"images {v}", images[v]) for v in BENCH_VARIANTS]:
+        BIN_PATHS[name] = phase["bin_launches"]
+        BORDERLINE[name] = phase["borderline"]
+    print(f"check 9: binning launches by path {BIN_PATHS} (two an executor run: the "
+          f"prepass and the tile kernel); saturation-borderline quads left out by scene "
+          f"{BORDERLINE} (expected 0)", flush=True)
     blur_paths = {"headline": blur_launches}
     blur_paths.update({f"camera {c * 3}": resident[c]["camera"]["blur_launches"]
                        for c in RESIDENT_SCALES})
@@ -1923,7 +2219,7 @@ def main() -> None:
             "library_ms": None,
         },
         {
-            "name": "blur_pass_kernel (X1: the backdrop blur, one launch a pass)",
+            "name": "blur_h_kernel + blur_v_kernel (X1: the backdrop blur, one launch a pass)",
             "route": "cuda",
             "source": "figdraw_tpu_torch/csrc/blur.cu",
             "replaces": "figdraw_tpu/ops/blur.py:61 (backdrop_blur_planar, "
@@ -1938,6 +2234,29 @@ def main() -> None:
             "bound_by": blurred["bound_by"],
             # no one PyTorch call computes it: the tap step is a device value
             # and not whole pixels, so it is no convolution with a fixed kernel
+            "library_ms": None,
+        },
+        {
+            "name": "bin_prep_kernel + bin_tiles_kernel (X2: the tile binning, two "
+                    "launches a binning)",
+            "route": "cuda",
+            "source": "figdraw_tpu_torch/csrc/binning.cu",
+            "replaces": "figdraw_tpu/ops/binning.py:35 (bin_quads); XLA ops, no Pallas",
+            "launches": sum(BIN_PATHS.values()),
+            "launches_by_path": BIN_PATHS,
+            # integer lists: the largest |kernel - plain| over the entries
+            # and kept counts each path's check compared, outside the
+            # saturation-borderline quads (the check fails on any)
+            "max_abs_err": max(d["max_abs_err"] for d in BIN_DIFF.values()),
+            "entries_compared": sum(d["compared"] for d in BIN_DIFF.values()),
+            "entries_differing": sum(d["differing"] for d in BIN_DIFF.values()),
+            "borderline_quads": BORDERLINE,
+            **{key: binned["headline"][key] for key in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+            "by_scene": {k: v for k, v in binned.items() if k != "headline"},
+            # no one PyTorch call computes per-tile culled lists; argsort_ms
+            # is torch.argsort of the plain version's keys, for the record
+            "argsort_ms": binned["headline"]["argsort_ms"],
             "library_ms": None,
         },
     ]}), flush=True)

@@ -109,6 +109,7 @@ def get_frame_executor(structure: Tuple, height: int, width: int,
     # form culls nothing (executor.py:634-640)
     frame_pos = [] if rolled else [
         i for i, item in enumerate(draws) if item[1] == FRAME_TARGET]
+    frame_rows = {}  # device -> frame_pos as an index tensor there, made once
 
     def run(combo: torch.Tensor, init_frame=None, atlas=None,
             pixelate: bool = False, subpixel_positioning: bool = False,
@@ -139,7 +140,12 @@ def get_frame_executor(structure: Tuple, height: int, width: int,
         # contiguous segment of a tile's list. Culling stays scoped to the
         # frame-target runs, and a frame without one is not culled at all:
         # a mask write's quads never truncate a list
-        run_bounds = bounds[frame_pos] if frame_pos else None
+        run_bounds = None
+        if frame_pos:
+            rows_at = frame_rows.get(dev)
+            if rows_at is None:
+                rows_at = frame_rows[dev] = torch.tensor(frame_pos, device=dev)
+            run_bounds = bounds.index_select(0, rows_at)
         tile_idx, tile_counts = bin_quads(
             fields, 0, fields.shape[0], tiles_y, tiles_x, th, tw,
             modes=modes if frame_pos else None, run_bounds=run_bounds,

@@ -1,20 +1,34 @@
-"""Tile binning: map quad AABBs to per-tile draw-ordered index lists, in
-plain torch (figdraw_tpu/ops/binning.py:33-213).
+"""Tile binning: map quad AABBs to per-tile draw-ordered index lists
+(figdraw_tpu/ops/binning.py:33-213, which the JAX package leaves to XLA).
 
-A (T, N) intersection mask from the tape's bboxes, opaque-occlusion and
-saturation culling on it, then one argsort per tile row. The sort keys are
-unique (intersecting quads keep their index, the rest index + N), so any
-sort gives exactly the JAX reference's lists and counts.
+`bin_quads` runs csrc/binning.cu, a hand-written kernel for Hopper
+(sm_90a), on CUDA tensors (or raises); CPU tensors take `bin_quads_plain`,
+the plain torch version, which the CPU tests and the on-card comparison
+use: a (T, N) intersection mask from the tape's bboxes, opaque-occlusion
+and saturation culling on it, then one argsort per tile row. The sort keys
+are unique (intersecting quads keep their index, the rest index + N), so
+any sort gives exactly the JAX reference's lists and counts.
+
+`bin_quads_model` is the kernel's decomposition in numpy (one lower bound
+per tile and run, then an ordered compaction with no sort), which the CPU
+tests hold to the JAX reference; its `borderline` mask marks the quads
+whose saturation cut no two summation orders need agree on, and
+`list_differences` compares two binnings outside them.
 """
 
 from __future__ import annotations
 
+import ctypes
+import threading
+
+import numpy as np
 import torch
 
+from . import nvcc
 from .layout import (
     QF_AA, QF_BBOX_X0, QF_BBOX_X1, QF_BBOX_Y0, QF_BBOX_Y1, QF_COLOR0,
     QF_INV_B, QF_INV_C, QF_MID_COLOR, QF_PARAMS, QF_RADII, QF_RECT_PARAMS,
-    QF_STOP_COLOR, QI_MASK, QI_MODE,
+    QF_STOP_COLOR, QF_WIDTH, QI_MASK, QI_MODE, QI_WIDTH,
 )
 
 # Translucent-stack saturation culling engages only on dense tapes (padded
@@ -22,26 +36,51 @@ from .layout import (
 SAT_MIN_QUADS = 4096
 # Cull a quad when the stack above it transmits < 2^-11 of it.
 LOG2_SAT_EPS = -11.0
+# A quad whose within-run above-stack, summed in float64, lies within
+# SAT_BORDER + SAT_BORDER_REL * |S| of LOG2_SAT_EPS may be cut by one
+# summation order and kept by another. S is the whole-row suffix sum from the
+# quad that the plain version carries in float32 (it takes the within-run
+# stack as a difference of two such sums, so its error grows with them);
+# 2^-16 is 256 float32 units of |S|, over the log-depth error of the card's
+# scan and the typical error of a sequential sum of 10^4 same-signed terms.
+SAT_BORDER = 1e-3
+SAT_BORDER_REL = 2.0 ** -16
+# what one launch of the kernel takes (csrc/binning.cu): the frame runs it
+# keeps in shared memory, and the quads whose kept bits fit there
+MAX_RUNS = 64
+MAX_QUADS = 1 << 20
+
+# kernel launches since the count was last reset: two a binning, the
+# prepass and the tile kernel, from one call of the C entry point (the tile
+# kernel alone for a tape of no rows)
+LAUNCHES = 0
+
+_SOURCES = ("binning.cu",)
+
+_lock = threading.Lock()
+_lib = None
+BUILD_LOG = ""  # nvcc's output of the build this process loaded (ptxas -v)
 
 
-def bin_quads(fields, start, end, tiles_y: int, tiles_x: int, tile_h: int,
-              tile_w: int, modes=None, run_bounds=None):
-    """Returns (tile_idx (T, N) i32, tile_counts (T,) i32).
+def load() -> ctypes.CDLL:
+    """The kernel library, built and bound at first use."""
+    global _lib, BUILD_LOG
+    with _lock:
+        if _lib is None:
+            path, BUILD_LOG = nvcc.build("figdraw_binning", _SOURCES)
+            lib = ctypes.CDLL(path)
+            vp, i = ctypes.c_void_p, ctypes.c_int
+            lib.figdraw_bin_quads.argtypes = ([vp] * 4 + [i, i, vp] + [i] * 8
+                                              + [vp] * 4)
+            lib.figdraw_bin_quads.restype = i
+            _lib = lib
+        return _lib
 
-    tile_idx[t, :counts[t]] are the indices of quads in [start, end) whose
-    bbox intersects tile t, in draw order; the rest is padding. start/end:
-    ints or 0-d integer tensors on the fields' device.
 
-    modes (frame-target runs only) enables opaque occlusion: a quad whose
-    fully opaque interior covers a tile truncates the tile's list to start
-    at it. Dense tapes (>= SAT_MIN_QUADS rows) also drop quads under a
-    translucent stack that transmits less than 2^LOG2_SAT_EPS.
-
-    run_bounds (with modes): (n_runs, 2) i32 [start, end) ranges of the
-    frame-target draw runs when one binning serves a multi-run frame;
-    culling then stays run-scoped, and quads outside every run are never
-    culled.
-    """
+def bin_quads_plain(fields, start, end, tiles_y: int, tiles_x: int,
+                    tile_h: int, tile_w: int, modes=None, run_bounds=None):
+    """The plain torch version of bin_quads (same arguments and results,
+    any device): the JAX reference's ops, argsort included."""
     dev = fields.device
     n = fields.shape[0]
     x0 = fields[:, QF_BBOX_X0]
@@ -185,3 +224,252 @@ def bin_quads(fields, start, end, tiles_y: int, tiles_x: int, tile_h: int,
     order = torch.argsort(keys, dim=1).to(torch.int32)
     counts = mask.sum(dim=1, dtype=torch.int32)
     return order, counts
+
+
+def _window_arg(v, dev, what: str):
+    """(device tensor or None, int) for one end of the window: a tensor on
+    the card is read there by the kernel, an int or a CPU tensor by value."""
+    if not isinstance(v, torch.Tensor):
+        return None, int(v)
+    if v.numel() != 1:
+        raise ValueError(f"{what} must hold one value, got {tuple(v.shape)}")
+    if v.device.type == "cpu":
+        return None, int(v)
+    if v.device != dev:
+        raise ValueError(f"{what} lies on {v.device}, the fields on {dev}")
+    return v.reshape(1).to(torch.int32), 0
+
+
+def bin_quads(fields, start, end, tiles_y: int, tiles_x: int, tile_h: int,
+              tile_w: int, modes=None, run_bounds=None):
+    """Returns (tile_idx (T, N) i32, tile_counts (T,) i32), T = tiles_y *
+    tiles_x.
+
+    tile_idx[t, :counts[t]] are the indices of quads in [start, end) whose
+    bbox intersects tile t, in draw order; the rest of the row is every
+    other index, ascending. start/end: ints or 0-d integer tensors on the
+    fields' device, which the kernel reads there.
+
+    modes (frame-target runs only) enables opaque occlusion: a quad whose
+    fully opaque interior covers a tile truncates the tile's list to start
+    at it. Dense tapes (>= SAT_MIN_QUADS rows) also drop quads under a
+    translucent stack that transmits less than 2^LOG2_SAT_EPS.
+
+    run_bounds (with modes): (n_runs, 2) i32 [start, end) ranges of the
+    frame-target draw runs when one binning serves a multi-run frame, on
+    the fields' device; culling then stays run-scoped, and quads outside
+    every run are never culled.
+
+    On CUDA tensors this is one call of csrc/binning.cu, which launches the
+    prepass and the tile kernel (a ValueError for more than MAX_QUADS rows
+    or MAX_RUNS runs, or arguments it does not take; a RuntimeError if the
+    launch fails); CPU tensors take bin_quads_plain; any other device raises
+    ValueError.
+    """
+    if fields.device.type == "cpu":
+        return bin_quads_plain(fields, start, end, tiles_y, tiles_x, tile_h,
+                               tile_w, modes=modes, run_bounds=run_bounds)
+    if fields.device.type != "cuda":
+        raise ValueError(f"no binning kernel for {fields.device}")
+    dev = fields.device
+    if (fields.dtype != torch.float32 or fields.dim() != 2
+            or fields.shape[1] != QF_WIDTH or not fields.is_contiguous()):
+        raise ValueError(f"fields must be contiguous (N, {QF_WIDTH}) float32, got "
+                         f"{fields.dtype} {tuple(fields.shape)}")
+    n = fields.shape[0]
+    if n > MAX_QUADS:
+        raise ValueError(f"{n} rows are more than one launch's MAX_QUADS = {MAX_QUADS}")
+    if min(tiles_y, tiles_x, tile_h, tile_w) <= 0:
+        raise ValueError(f"no tiles: {tiles_y} x {tiles_x} of {tile_h} x {tile_w}")
+    if modes is not None and (modes.dtype != torch.int32 or modes.device != dev
+                              or tuple(modes.shape) != (n, QI_WIDTH)
+                              or not modes.is_contiguous()):
+        raise ValueError(f"modes must be contiguous (N, {QI_WIDTH}) int32 on {dev}, "
+                         f"got {modes.dtype} {tuple(modes.shape)} on {modes.device}")
+    runs, n_runs = None, 0
+    if modes is not None and run_bounds is not None:
+        if (not isinstance(run_bounds, torch.Tensor) or run_bounds.device != dev
+                or run_bounds.dim() != 2 or run_bounds.shape[1] != 2
+                or run_bounds.dtype not in (torch.int32, torch.int64)):
+            raise ValueError("run_bounds must be an (R, 2) integer tensor on the "
+                             "fields' device")
+        n_runs = run_bounds.shape[0]
+        if n_runs > MAX_RUNS:
+            raise ValueError(f"{n_runs} runs are more than one launch's MAX_RUNS = "
+                             f"{MAX_RUNS}")
+        runs = run_bounds.to(torch.int32).contiguous()
+    start_t, start_v = _window_arg(start, dev, "start")
+    end_t, end_v = _window_arg(end, dev, "end")
+    lib = load()
+    n_tiles = tiles_y * tiles_x
+    tile_idx = torch.empty((n_tiles, n), dtype=torch.int32, device=dev)
+    tile_counts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((10 * n,), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = lib.figdraw_bin_quads(
+        fields.data_ptr(), ptr(modes), ptr(start_t), ptr(end_t), start_v, end_v,
+        ptr(runs), n_runs, int(modes is not None and run_bounds is None), n,
+        n_tiles, tiles_x, tile_h, tile_w,
+        int(modes is not None and n >= SAT_MIN_QUADS), scratch.data_ptr(),
+        tile_idx.data_ptr(), tile_counts.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"binning launch failed: cudaError {rc}")
+    global LAUNCHES
+    LAUNCHES += 2 if n > 0 else 1
+    return tile_idx, tile_counts
+
+
+def cover_terms(fields: np.ndarray, modes: np.ndarray):
+    """What the kernel's prepass computes per quad, in numpy float32 with
+    bin_quads_plain's steps and roundings: (cov (N, 4) = cx - ihx, cx + ihx,
+    cy - ihy, cy + ihy, NaN for a quad that can never cover; a_min (N,), the
+    least alpha of its fill)."""
+    f = np.asarray(fields, np.float32)
+    m = np.asarray(modes)[:, QI_MODE].astype(np.int64)
+    rest, fill_mode = m % 256, m // 256
+    a = f[:, [QF_COLOR0 + 3, QF_COLOR0 + 7, QF_COLOR0 + 11, QF_COLOR0 + 15]]
+    a_min = np.minimum(np.minimum(a[:, 0], a[:, 1]), np.minimum(a[:, 2], a[:, 3]))
+    a_min = np.where(fill_mode == 0, a_min, np.minimum(
+        a_min, np.minimum(f[:, QF_MID_COLOR + 3], f[:, QF_STOP_COLOR + 3])))
+    radii = f[:, QF_RADII : QF_RADII + 4]
+    hx, hy = f[:, QF_PARAMS + 2 : QF_PARAMS + 3], f[:, QF_PARAMS + 3 : QF_PARAMS + 4]
+    elliptical = rest >= 128
+    with np.errstate(invalid="ignore"):
+        circ_r = -radii - np.float32(1.0)
+        pk = np.where(radii >= np.float32(8388608.0), radii,
+                      np.floor(radii + np.float32(0.5)))
+        rx = np.where(radii < 0, circ_r,
+                      np.fmod(pk, np.float32(4096.0)) * hx / np.float32(4095.0))
+        ry = np.where(radii < 0, circ_r,
+                      np.floor(pk / np.float32(4096.0)) * hy / np.float32(4095.0))
+        inset_x = np.where(elliptical, rx.max(1), radii.max(1))
+        inset_y = np.where(elliptical, ry.max(1), radii.max(1))
+        margin = (np.float32(0.5) / np.maximum(f[:, QF_AA], np.float32(1e-3))
+                  + np.float32(0.01))
+        ihx = hx[:, 0] - inset_x - margin
+        ihy = hy[:, 0] - inset_y - margin
+        radii_ok = np.where(elliptical, ((rx >= 0) & (ry >= 0)).all(1),
+                            (radii >= 0).all(1))
+        coverer = ((rest % 128 == 3) & (np.asarray(modes)[:, QI_MASK] == 0)
+                   & (f[:, QF_INV_B] == 0) & (f[:, QF_INV_C] == 0)
+                   & (f[:, QF_RECT_PARAMS + 2] < 0) & radii_ok & (ihx > 0) & (ihy > 0))
+        cx = (f[:, QF_BBOX_X0] + f[:, QF_BBOX_X1]) * np.float32(0.5)
+        cy = (f[:, QF_BBOX_Y0] + f[:, QF_BBOX_Y1]) * np.float32(0.5)
+        cov = np.stack([cx - ihx, cx + ihx, cy - ihy, cy + ihy], 1)
+    cov[~coverer] = np.nan
+    return cov.astype(np.float32), a_min
+
+
+def bin_quads_model(fields, start: int, end: int, tiles_y: int, tiles_x: int,
+                    tile_h: int, tile_w: int, modes=None, run_bounds=None):
+    """csrc/binning.cu's decomposition in numpy, on numpy arrays: per tile
+    and run r (the window when no runs are given) the last opaque cover and
+    the last saturated quad, the within-run stacks summed in float64; quad i
+    of r is kept when it is at or after the cover of the last run holding it
+    and after the cut of every run holding it; then the kept quads at their
+    prefix and the rest after them ascending. Returns (tile_idx (T, N) i32,
+    tile_counts (T,) i32, borderline (T, N) bool: the quads whose
+    within-run above-stack lies within SAT_BORDER + SAT_BORDER_REL * |S| of
+    LOG2_SAT_EPS, S the stack of the window's covers from the quad on)."""
+    f = np.asarray(fields, np.float32)
+    n = f.shape[0]
+    n_tiles = tiles_y * tiles_x
+    idx = np.arange(n)
+    tx0 = np.tile(np.arange(tiles_x, dtype=np.float32) * np.float32(tile_w), tiles_y)
+    ty0 = np.repeat(np.arange(tiles_y, dtype=np.float32) * np.float32(tile_h), tiles_x)
+    tx1, ty1 = tx0 + np.float32(tile_w), ty0 + np.float32(tile_h)
+    keep = ((f[None, :, QF_BBOX_X0] < tx1[:, None]) & (f[None, :, QF_BBOX_X1] > tx0[:, None])
+            & (f[None, :, QF_BBOX_Y0] < ty1[:, None]) & (f[None, :, QF_BBOX_Y1] > ty0[:, None])
+            & ((idx >= start) & (idx < end))[None, :])
+    borderline = np.zeros((n_tiles, n), bool)
+    if modes is not None:
+        cov, a_min = cover_terms(f, modes)
+        opaque = a_min >= 1.0
+        with np.errstate(invalid="ignore", divide="ignore"):
+            lt = np.log2(np.maximum(np.float32(1.0) - a_min, np.float32(2.0 ** -24))
+                         .astype(np.float64))
+        saturate = n >= SAT_MIN_QUADS
+        runs = ([(start, end)] if run_bounds is None
+                else [tuple(int(v) for v in r) for r in np.asarray(run_bounds)])
+        thr = np.full((n_tiles, n), -1, np.int64)
+        satlo = np.zeros((n_tiles, n), np.int64)
+
+        def covers_of(lo, hi):  # (T, hi - lo): quad lo + j covers tile t
+            c = cov[lo:hi]
+            return ((c[None, :, 0] <= (tx0 + np.float32(0.5))[:, None])
+                    & (c[None, :, 1] >= (tx1 - np.float32(0.5))[:, None])
+                    & (c[None, :, 2] <= (ty0 + np.float32(0.5))[:, None])
+                    & (c[None, :, 3] >= (ty1 - np.float32(0.5))[:, None]))
+
+        row_suf = np.zeros((n_tiles, n))  # the window's stack from each quad on
+        w_lo, w_hi = max(start, 0), min(end, n)
+        if saturate and w_lo < w_hi:
+            terms = np.where(covers_of(w_lo, w_hi), lt[w_lo:w_hi], 0.0)
+            row_suf[:, w_lo:w_hi] = np.cumsum(terms[:, ::-1], axis=1)[:, ::-1]
+        for s_r, e_r in runs:
+            lo, hi = max(s_r, start, 0), min(e_r, end, n)
+            if lo >= hi:
+                continue
+            covers = covers_of(lo, hi)
+            seg = idx[lo:hi]
+            cover = np.where(covers & opaque[lo:hi], seg, -1).max(1)
+            cut = np.full(n_tiles, -1)
+            if saturate:
+                terms = np.where(covers, lt[lo:hi], 0.0)
+                above = np.zeros_like(terms)  # sum over the run strictly above
+                above[:, :-1] = np.cumsum(terms[:, ::-1], axis=1)[:, ::-1][:, 1:]
+                with np.errstate(invalid="ignore"):
+                    cut = np.where(~(above >= LOG2_SAT_EPS), seg, -1).max(1)
+                    borderline[:, lo:hi] |= np.abs(above - LOG2_SAT_EPS) < (
+                        SAT_BORDER + SAT_BORDER_REL * np.abs(row_suf[:, lo:hi]))
+            thr[:, lo:hi] = cover[:, None]
+            satlo[:, lo:hi] = np.maximum(satlo[:, lo:hi], cut[:, None] + 1)
+        keep &= (idx[None, :] >= thr) & (idx[None, :] >= satlo)
+    counts = keep.sum(1)
+    prefix = np.cumsum(keep, axis=1) - keep
+    pos = np.where(keep, prefix, counts[:, None] + idx[None, :] - prefix)
+    tile_idx = np.empty((n_tiles, n), np.int32)
+    tile_idx[np.arange(n_tiles)[:, None], pos] = idx[None, :]
+    return tile_idx, counts.astype(np.int32), borderline
+
+
+def list_differences(a_idx, a_counts, b_idx, b_counts, borderline=None) -> dict:
+    """How two binnings ((T, N) lists, (T,) counts, as numpy arrays) differ
+    once the quads that `borderline` ((T, N) bool by quad index) marks are
+    left out of both: `compared`, the list entries compared; `differing`,
+    how many of them differ; `count_delta`, the largest difference of the
+    kept counts over the tiles; `max_abs_err`, the largest |a - b| over the
+    compared entries and the kept counts (0 when they agree, inf when the
+    shapes or the entries left out do not match)."""
+    a_idx, b_idx = np.asarray(a_idx), np.asarray(b_idx)
+    a_counts, b_counts = np.asarray(a_counts), np.asarray(b_counts)
+    if a_idx.shape != b_idx.shape or a_counts.shape != b_counts.shape:
+        return {"compared": 0, "differing": max(a_idx.size, b_idx.size),
+                "count_delta": None, "max_abs_err": float("inf")}
+    n = a_idx.shape[1]
+    if borderline is None:
+        borderline = np.zeros(a_idx.shape, bool)
+    rows = np.arange(a_idx.shape[0])[:, None]
+    live = np.arange(n)[None, :]
+
+    def left_out(x):  # entries of borderline quads (an index out of range is kept)
+        return borderline[rows, np.clip(x, 0, max(n - 1, 0))] & (x >= 0) & (x < n)
+
+    out_a, out_b = left_out(a_idx), left_out(b_idx)
+    kept_a = a_counts.astype(np.int64) - (out_a & (live < a_counts[:, None])).sum(1)
+    kept_b = b_counts.astype(np.int64) - (out_b & (live < b_counts[:, None])).sum(1)
+    va, vb = a_idx[~out_a].astype(np.int64), b_idx[~out_b].astype(np.int64)
+    if va.shape != vb.shape:
+        return {"compared": 0, "differing": max(va.size, vb.size),
+                "count_delta": None, "max_abs_err": float("inf")}
+    diff = np.abs(va - vb)
+    delta = int(np.abs(kept_a - kept_b).max(initial=0))
+    return {"compared": int(va.size), "differing": int((diff != 0).sum()),
+            "count_delta": delta, "max_abs_err": float(max(int(diff.max(initial=0)), delta))}
+
+
+def lists_equal(a_idx, a_counts, b_idx, b_counts, borderline=None) -> bool:
+    """Whether two binnings agree outside the borderline quads
+    (list_differences finds no difference)."""
+    return list_differences(a_idx, a_counts, b_idx, b_counts, borderline)["max_abs_err"] == 0

@@ -105,8 +105,8 @@ def backdrop_blur_planar(frame_planes: torch.Tensor, radius) -> torch.Tensor:
     if radius.numel() != 1:
         raise ValueError(f"radius must hold one value, got {tuple(radius.shape)}")
     planes, ph, pw = frame_planes.shape
-    if planes * ph > 65535 * 8:
-        raise ValueError(f"{planes} x {ph} rows are more than one launch's grid")
+    if planes * ph > 1 << 30:
+        raise ValueError(f"{planes} x {ph} rows are more than one launch takes")
     lib = load()
     mid = torch.empty_like(frame_planes)
     out = torch.empty_like(frame_planes)

@@ -632,6 +632,61 @@ def mega_modes_tape(n_masks: int, seed: int, w: int = 512, h: int = 256,
 # 180 rows x 6 columns), with the table size as arguments. The node rows
 # are byte-identical to figdraw_tpu's from_renders of the same scene.
 
+def binning_tape(n: int, n_live: int, seed: int, sat: bool = False,
+                 w: float = 384.0, h: float = 256.0):
+    """A seeded tape for the tile binning's culls, in the logical layout:
+    n_live quads over a w x h frame (the rest zero rows) with bboxes,
+    rounded-box half-extents, corner radii (some elliptical-packed, some
+    negative), u8 alphas, a mix of covers (big opaque or constant-alpha
+    axis-aligned boxes) and quads that must never cover (rotated, mask-read,
+    rect-masked, non-fill modes). sat: mostly big boxes of alpha 155, 200
+    or 255, so translucent stacks saturate. Returns ((n, 68) f32 fields,
+    (n, 2) i32 mode lanes)."""
+    from .ops.layout import (
+        QF_AA, QF_BBOX_X0, QF_BBOX_X1, QF_BBOX_Y0, QF_BBOX_Y1, QF_COLOR0,
+        QF_INV_B, QF_MID_COLOR, QF_PARAMS, QF_RADII, QF_RECT_PARAMS,
+        QF_STOP_COLOR, QF_WIDTH,
+    )
+
+    rng = np.random.RandomState(seed)
+    f = np.zeros((n, QF_WIDTH), np.float32)
+    m = np.zeros((n, 2), np.int32)
+    big = rng.rand(n_live) < (0.6 if sat else 0.15)
+    cw = np.where(big, rng.uniform(200, 500, n_live), rng.uniform(4, 150, n_live))
+    ch = np.where(big, rng.uniform(160, 400, n_live), rng.uniform(4, 150, n_live))
+    cx = rng.uniform(-40, w + 40, n_live)
+    cy = rng.uniform(-40, h + 40, n_live)
+    f[:n_live, QF_BBOX_X0] = cx - cw / 2
+    f[:n_live, QF_BBOX_X1] = cx + cw / 2
+    f[:n_live, QF_BBOX_Y0] = cy - ch / 2
+    f[:n_live, QF_BBOX_Y1] = cy + ch / 2
+    f[:n_live, QF_PARAMS + 2] = cw / 2
+    f[:n_live, QF_PARAMS + 3] = ch / 2
+    f[:n_live, QF_AA] = 1.2
+    f[:n_live, QF_RECT_PARAMS + 2] = np.where(rng.rand(n_live) < 0.05, 30.0, -1.0)
+    f[:n_live, QF_INV_B] = np.where(rng.rand(n_live) < 0.05, 0.01, 0.0)
+    ell = rng.rand(n_live) < 0.3
+    radii = rng.randint(0, 24, size=(n_live, 4)).astype(np.float32)
+    packed = (rng.randint(0, 4096, size=(n_live, 4))
+              + 4096 * rng.randint(0, 4096, size=(n_live, 4))).astype(np.float32)
+    packed[:, 0] = np.where(rng.rand(n_live) < 0.2, -5.0, packed[:, 0])
+    f[:n_live, QF_RADII : QF_RADII + 4] = np.where(ell[:, None], packed, radii)
+    if sat:
+        alpha = rng.choice([155, 200, 255], size=n_live)
+    else:
+        alpha = np.where(rng.rand(n_live) < 0.5, 255, rng.randint(0, 256, n_live))
+    a = (alpha / 255.0).astype(np.float32)
+    for c in range(4):
+        f[:n_live, QF_COLOR0 + 4 * c + 3] = a
+    fm = np.where(rng.rand(n_live) < 0.2, rng.randint(1, 5, n_live), 0)
+    f[:n_live, QF_MID_COLOR + 3] = np.where(rng.rand(n_live) < 0.5, a, 0.5)
+    f[:n_live, QF_STOP_COLOR + 3] = a
+    mode = np.where(rng.rand(n_live) < 0.85, 3, rng.choice([7, 9, 12], n_live))
+    m[:n_live, 0] = mode + 128 * ell + 256 * fm
+    m[:n_live, 1] = np.where(rng.rand(n_live) < 0.05, 1, 0)
+    return f, m
+
+
 def _table_cell(lst, parent, box, rgba, flags=0, corners=0):
     """One flat-filled rounded rectangle, as bench_clipmask's rect_fig."""
     row = lst.add_root_raw() if parent < 0 else lst.add_child_raw(parent)

@@ -1,6 +1,7 @@
 """figdraw_tpu_torch's CUDA kernels (K1, K1-atlas and K3 in csrc/raster.cu,
-K4 and K4-atlas in csrc/mega.cu, the row transform in csrc/rows.cu and the
-backdrop blur in csrc/blur.cu) against their plain torch versions on an NVIDIA card. Every
+K4 and K4-atlas in csrc/mega.cu, the row transform in csrc/rows.cu, the
+backdrop blur in csrc/blur.cu and the tile binning in csrc/binning.cu)
+against their plain torch versions on an NVIDIA card. Every
 test here needs the card (marker `cuda`) and skips without one. The file
 imports neither jax nor figdraw_tpu, so it also runs on a machine without
 them:
@@ -16,13 +17,16 @@ from figdraw_tpu_torch import FigRenderer, vec2
 from figdraw_tpu_torch.executor import (
     get_frame_executor, get_mega_executor,
 )
-from figdraw_tpu_torch.ops import blur, mega, raster, rows
-from figdraw_tpu_torch.ops.binning import bin_quads
+from figdraw_tpu_torch import executor
+from figdraw_tpu_torch.ops import binning, blur, mega, raster, rows
+from figdraw_tpu_torch.ops.binning import (
+    MAX_RUNS, bin_quads, bin_quads_model, bin_quads_plain, lists_equal,
+)
 from figdraw_tpu_torch.ops.layout import QF_WIDTH, QI_MODE
 from figdraw_tpu_torch.plan import atlas_from_jax, plan_execution, plan_rolled
 from figdraw_tpu_torch.resources import ImageMessageBus, put_image
 from figdraw_tpu_torch.scenes import (
-    IMAGE_ID, atlas_modes_tape, load_text_tape, make_clip_table_scene,
+    IMAGE_ID, atlas_modes_tape, binning_tape, load_text_tape, make_clip_table_scene,
     build_grid, make_image_panels_scene, make_render_tree_array, mega_modes_tape,
     modes_tape, photo_image,
 )
@@ -565,9 +569,14 @@ def test_rows_and_blur_on_cpu_tensors_never_reach_a_kernel(dev):
     assert (rows.LAUNCHES, blur.LAUNCHES) == before
 
 
+# the last three are no multiple of the blocks' 128 x 8 (horizontal) and
+# 64 x 48 (vertical) pixels; (1, 37, 53) takes the one-column vertical pass
 @pytest.mark.parametrize("radius", [0.3, 0.5, 1.0, 7.5, 18.0, 64.0, 100.0])
-@pytest.mark.parametrize("shape", [(4, 1152, 1920), (4, 128, 256), (1, 37, 53)])
+@pytest.mark.parametrize("shape", [(4, 1152, 1920), (4, 128, 256), (1, 37, 53),
+                                   (4, 1000, 1916), (2, 61, 132)])
 def test_blur_kernel_matches_plain(radius, shape, dev):
+    """The kernel equals the plain blur bit for bit: each pixel's arithmetic
+    is the plain version's, one rounding a step."""
     rng = np.random.RandomState(int(radius * 10) + shape[1])
     planes = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)
     planes0 = planes.clone()
@@ -580,7 +589,7 @@ def test_blur_kernel_matches_plain(radius, shape, dev):
     assert got.shape == planes.shape and got.data_ptr() != planes.data_ptr()
     assert torch.equal(planes, planes0)  # the input is not written
     assert bool(torch.isfinite(got).all())
-    assert float((got - ref).abs().max()) <= 1e-5
+    assert torch.equal(got, ref), float((got - ref).abs().max())
     if radius <= 0.5:
         assert torch.equal(got, planes)
     else:
@@ -659,3 +668,121 @@ def test_a_scene_on_another_device_is_refused(dev):
     # the same renderer's own scene, whether it names the card's index or not
     own = on_card.snapshot_scene(arr, size)
     assert bool(torch.isfinite(FigRenderer(device="cuda:0").render_view(own)).all())
+
+
+# (rows, live quads, sat, frame w, h, tile_h, window or None, modes, runs,
+# window as device tensors): N from 1 to 32769, T up to 510 (1920x1080 at
+# tile_h 32), with and without modes, 1-3 runs, windows
+BIN_CASES = [
+    (1, 1, False, 384, 256, 64, None, True, None, False),
+    (255, 200, False, 384, 256, 32, (17, 240), True, [[0, 90], [90, 200]], True),
+    (255, 200, False, 384, 256, 128, (17, 240), False, None, False),
+    (1025, 706, False, 1920, 1080, 128, None, True, [[0, 703], [703, 706]], False),
+    (1025, 1000, False, 1920, 1080, 128, None, False, None, False),
+    (4096, 3900, True, 1920, 1080, 32, None, True,
+     [[0, 1200], [1200, 2500], [2500, 3900]], False),
+    (6144, 4323, True, 1200, 800, 64, None, True, [[0, 2000], [3000, 4323]], False),
+    (6144, 6000, True, 1200, 800, 64, (100, 5900), True, None, True),
+    (32769, 28006, True, 1920, 1080, 32, None, True, [[0, 28003], [28003, 28006]],
+     False),
+    (32769, 30000, False, 1920, 1080, 32, (0, 30000), False, None, False),
+]
+
+
+@pytest.mark.parametrize("case", range(len(BIN_CASES)))
+def test_binning_kernel_matches_plain(case, dev):
+    """Whole (T, N) lists and counts of the kernel equal bin_quads_plain's on
+    the card, leaving out only the quads whose within-run above-stack lies
+    within rounding of the saturation threshold (the model marks them)."""
+    n, n_live, sat, w, h, th, window, with_modes, runs, on_device = BIN_CASES[case]
+    f, m = binning_tape(n, n_live, 100 + case, sat=sat, w=w, h=h)
+    start, end = window or (0, n)
+    grid = (-(-h // th), -(-w // 128), th, 128)
+    fd, md = torch.from_numpy(f).to(dev), torch.from_numpy(m).to(dev)
+    kw = dict(modes=md if with_modes else None,
+              run_bounds=None if runs is None else torch.tensor(runs, dtype=torch.int32,
+                                                                  device=dev))
+    s, e = ((torch.tensor(start, device=dev), torch.tensor(end, device=dev))
+            if on_device else (start, end))
+    before = binning.LAUNCHES
+    got = bin_quads(fd, s, e, *grid, **kw)
+    assert binning.LAUNCHES == before + 2  # the prepass and the tile kernel
+    want = bin_quads_plain(fd, s, e, *grid, **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape == (grid[0] * grid[1], n) and got[0].dtype == torch.int32
+    assert got[1].dtype == torch.int32
+    _idx, _counts, border = bin_quads_model(f, start, end, *grid,
+                                            modes=m if with_modes else None,
+                                            run_bounds=runs)
+    assert border.sum() <= 64  # few quads sit that close to the threshold
+    assert lists_equal(got[0].cpu().numpy(), got[1].cpu().numpy(),
+                       want[0].cpu().numpy(), want[1].cpu().numpy(), border)
+    if with_modes and n > 1:
+        plain_all = bin_quads_plain(fd, s, e, *grid)
+        assert int(got[1].sum()) < int(plain_all[1].sum())  # the culls ran
+
+
+@pytest.mark.parametrize("n_masks,th", [(1, 128), (3, 64), (3, 32), (4, 128)])
+def test_binning_kernel_on_the_mega_clamps_tape(n_masks, th, dev):
+    """The megakernel's lists (no culling) over a tape with clear sentinels
+    and quads that target plane 0 equal the plain version's exactly, and
+    the megakernel walks them to the same planes."""
+    w, h = 512, 256
+    fields, modes, _atlas = mega_modes_tape(n_masks, n_masks * 1000 + th, w, h)
+    assert (modes[:, QI_MODE] & mega.MEGA_CLEAR_BIT).any()
+    assert (modes[:, QI_MODE] >> mega.MEGA_TARGET_SHIFT == 1).any()
+    f, m = torch.from_numpy(fields).to(dev), torch.from_numpy(modes).to(dev)
+    got = bin_quads(f, 0, f.shape[0], h // th, w // 128, th, 128)
+    want = bin_quads_plain(f, 0, f.shape[0], h // th, w // 128, th, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    planes = torch.from_numpy(np.random.RandomState(th).rand(4, h, w)
+                              .astype(np.float32)).to(dev)
+    a = mega.draw_pass_mega(f, m, *got, planes.clone(), n_masks, tile_h=th)
+    b = mega.draw_pass_mega(f, m, *want, planes.clone(), n_masks, tile_h=th)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["headline", "rectmask"])
+def test_frames_with_the_binning_kernel_equal_the_plain_binnings(kind, dev, monkeypatch):
+    """The executor's frames with the kernel's lists equal its frames with
+    bin_quads_plain's, bit for bit (no quad of these scenes lies near the
+    saturation threshold)."""
+    if kind == "headline":
+        scene, size = make_render_tree_array(1920, 1080, 3, copies=100), vec2(1920, 1080)
+    else:
+        scene, size = make_clip_table_scene("rectmask", 1200, 800, 180, 6), vec2(1200, 800)
+    before = binning.LAUNCHES
+    got = FigRenderer(device="cuda").render_frame(scene, size)
+    assert binning.LAUNCHES == before + 2  # one binning: the prepass and the tiles
+    monkeypatch.setattr(executor, "bin_quads", bin_quads_plain)
+    want = FigRenderer(device="cuda").render_frame(scene, size)
+    torch.cuda.synchronize()
+    assert binning.LAUNCHES == before + 2
+    assert torch.equal(got, want)
+
+
+def test_binning_wrapper_rejects_bad_arguments(dev):
+    f, m = binning_tape(256, 200, 3)
+    fd, md = torch.from_numpy(f).to(dev), torch.from_numpy(m).to(dev)
+    grid = (0, 256, 2, 3, 128, 128)
+    before = binning.LAUNCHES
+    with pytest.raises(ValueError):
+        bin_quads(fd.double(), *grid)
+    with pytest.raises(ValueError):
+        bin_quads(fd[:, :60], *grid)
+    with pytest.raises(ValueError):
+        bin_quads(fd[::2], *grid)
+    with pytest.raises(ValueError):
+        bin_quads(fd, *grid, modes=md.long())
+    with pytest.raises(ValueError):
+        bin_quads(fd, *grid, modes=md, run_bounds=torch.zeros(
+            (MAX_RUNS + 1, 2), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        bin_quads(fd, *grid, modes=md, run_bounds=torch.tensor([[0, 256]]))
+    with pytest.raises(ValueError):
+        bin_quads(fd, torch.tensor([0, 1], device=dev), *grid[1:])
+    with pytest.raises(ValueError):
+        bin_quads(fd, 0, 256, 0, 3, 128, 128)
+    assert binning.LAUNCHES == before
