@@ -41,7 +41,20 @@ FigRenderer(device="cuda").render_frame or execute_plan:
   kernel (csrc/rows.cu) once, held against its plain version on each
   loop's own rows (equal 32-bit words), and the headline's frames launch
   the blur kernel (csrc/blur.cu) once a pass, held against the plain blur
-  on the headline's planes and on seeded planes at other radii.
+  on the headline's planes and on seeded planes at other radii;
+- tree-form scenes (Fig nodes in a Renders) through render_frame and the
+  Python walk: bench.py's headline as a tree (1920x1080, 300 boxes, each
+  frame its own animated tree), bench_clipmask's rect-mask and sub-clip
+  tables as trees (1200x800, 180x6; from_renders of each equals the array
+  form's rows) and the scenes of examples/layers_clip.py (900x560),
+  drawable_beziers.py (760x560) and dashed_dotted_borders.py (820x560),
+  each also at pixel_scale=2 and at UI scale 2 into a frame of twice the
+  size, held to figdraw_tpu's stored block means; on each, the Python
+  walk of to_renders(from_renders(tree)) gives the native walk's packed
+  combo byte for byte and its frame bit for bit, each kernel of the frame
+  is held against its plain version on the frame's own inputs, and the
+  Python walk's and the planner's host time stand beside the native
+  walk's.
 
 Every path bins its tape once a frame through the binning kernel
 (csrc/binning.cu), which each phase holds against its plain version on
@@ -170,11 +183,18 @@ def as_before(args, targets=TILE_TARGETS):
     return tuple(a.clone() if i in targets else a for i, a in enumerate(args))
 
 
-def compared(fn, plain, errs, store, what: str, targets=TILE_TARGETS):
+def compared(fn, plain, errs, store, what: str, targets=TILE_TARGETS,
+             ambiguous=None):
     """fn wrapped so that each call also runs its plain version on the same
     inputs (as they were before the kernel ran: the passes work in place),
-    records max |kernel - plain| and the call's arguments."""
+    records max |kernel - plain| and the call's arguments. ambiguous: a list,
+    or None; given, the pixels past TOL that ops.raster.ambiguous_pixels
+    finds on a quad's uv clip edge or a bezier's evolute (where a fused
+    multiply-add and ATen's rounding decide a whole pixel's coverage apart)
+    are left out of the error and their count appended to the list."""
     import torch
+
+    from figdraw_tpu_torch.ops.raster import ambiguous_pixels
 
     def call(*args, **kw):
         before = as_before(args, targets)
@@ -183,7 +203,17 @@ def compared(fn, plain, errs, store, what: str, targets=TILE_TARGETS):
         torch.cuda.synchronize()
         if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(ref).all())):
             fail(f"{what}: non-finite planes from {fn.__name__}")
-        errs.append(float((got - ref).abs().max()))
+        diff = (got - ref).abs()
+        if ambiguous is not None:
+            per_pixel = diff.amax(0)
+            ys, xs = (t.cpu().numpy() for t in torch.nonzero(per_pixel > TOL, as_tuple=True))
+            if len(ys):
+                left = ambiguous_pixels(args[0].cpu().numpy(), args[1].cpu().numpy(), ys, xs)
+                per_pixel[ys[left], xs[left]] = 0.0
+                ambiguous.append(int(left.sum()))
+            errs.append(float(per_pixel.max()))
+        else:
+            errs.append(float(diff.max()))
         store.append((args, kw))
         return got
     return call
@@ -1236,6 +1266,305 @@ def clip_table_phase(kind: str, tag: str, dev) -> dict:
     return out
 
 
+TREE_FRAMES = 5  # the clip tables as trees: frames through the Python walk
+
+
+def expected_launches(plan) -> tuple:
+    """(K1, K3, K4) launches one frame of a plan makes: a frame-target draw
+    run launches K1, a mask-target run K3, a mega plan K4 once."""
+    if plan.mega_combo is not None:
+        return (0, 0, 1)
+    draws = [it for it in plan.structure if it[0] == "draw"]
+    return (sum(it[1] == -1 for it in draws), sum(it[1] >= 0 for it in draws), 0)
+
+
+def recorded_blur(errs: list):
+    """A stand-in for the executor's backdrop_blur_planar that also runs the
+    plain blur on the same planes and records max |kernel - plain| (the
+    kernel must equal it bit for bit); restore with the returned undo."""
+    import torch
+
+    from figdraw_tpu_torch import executor
+    from figdraw_tpu_torch.ops import blur
+
+    real = executor.backdrop_blur_planar
+
+    def call(planes, radius):
+        got = real(planes, radius)
+        ref = blur.backdrop_blur_planar_plain(planes, radius)
+        torch.cuda.synchronize()
+        errs.append(float((got - ref).abs().max()))
+        if not torch.equal(got, ref):
+            fail(f"blur kernel on a tree frame's planes differs from the plain blur "
+                 f"by {errs[-1]}")
+        return got
+
+    executor.backdrop_blur_planar = call
+    return lambda: setattr(executor, "backdrop_blur_planar", real)
+
+
+def tree_kernel_checks(what: str, ren, scene, size, errs: dict) -> None:
+    """Each kernel of a tree frame's plan against its plain version on the
+    frame's own inputs (the walked and planned tape on the card): K1 and K3
+    through compared(), the blur through recorded_blur, K4 on the planner's
+    megakernel combo; and the binning kernel on the frame's own binning
+    call (binning_check)."""
+    import torch
+
+    from figdraw_tpu_torch.executor import get_frame_executor, get_mega_executor
+    from figdraw_tpu_torch.ops import mega, raster
+    from figdraw_tpu_torch.plan import plan_execution
+
+    plan = plan_execution(ren.flatten(scene, size))
+    store = []
+    ambiguous = errs.setdefault("ambiguous pixels", {}).setdefault(what, [])
+    if plan.mega_combo is not None:
+        run = get_mega_executor(plan.height, plan.width, plan.n_masks,
+                                plan.has_init_frame, plan.tile_h)
+        combo = torch.from_numpy(plan.mega_combo).to(ren.device, copy=True)
+        run(combo, None, draw=compared(mega.draw_pass_mega, mega.draw_pass_mega_plain,
+                                       errs.setdefault("K4", []), store, what,
+                                       targets=MEGA_TARGETS, ambiguous=ambiguous))
+    else:
+        run = get_frame_executor(plan.structure, plan.height, plan.width,
+                                 plan.n_masks, plan.has_init_frame, plan.tile_h)
+        combo = torch.from_numpy(plan.combo).to(ren.device, copy=True)
+        undo = recorded_blur(errs.setdefault("blur", []))
+        try:
+            run(combo, None,
+                draw=compared(raster.draw_pass_planar_prebinned,
+                              raster.draw_pass_planar_prebinned_plain,
+                              errs.setdefault("K1", []), store, what,
+                              ambiguous=ambiguous),
+                draw_mask=compared(raster.draw_pass_mask_prebinned,
+                                   raster.draw_pass_mask_prebinned_plain,
+                                   errs.setdefault("K3", []), store, what,
+                                   ambiguous=ambiguous))
+        finally:
+            undo()
+    worst = {k: max(v) for k, v in errs.items() if v and k in ("K1", "K3", "K4")}
+    if any(v > TOL for v in worst.values()):
+        fail(f"{what}: a kernel differs from its plain version: {worst}")
+    BORDERLINE[what] = binning_check(what, lambda: ren.render_frame(scene, size))
+
+
+def tree_equal_walks(what: str, tree, size) -> dict:
+    """to_renders(from_renders(tree)) through the Python walk against
+    from_renders(tree) through the native walk, on renderers of their own:
+    the packed combos (and megakernel combos) byte for byte, and the two
+    render_frame frames bit for bit on the card."""
+    import torch
+
+    from figdraw_tpu_torch import FigRenderer, from_renders, to_renders
+    from figdraw_tpu_torch.plan import plan_execution
+
+    arr = from_renders(tree)
+    walked = to_renders(arr)
+    py_ren, nat_ren = FigRenderer(device="cuda"), FigRenderer(device="cuda")
+    py_tape, nat_tape = py_ren.flatten(walked, size), nat_ren.flatten(arr, size)
+    py_plan, nat_plan = plan_execution(py_tape), plan_execution(nat_tape)
+    same_combo = py_plan.combo.tobytes() == nat_plan.combo.tobytes()
+    same_mega = ((py_plan.mega_combo is None and nat_plan.mega_combo is None)
+                 or (py_plan.mega_combo is not None and nat_plan.mega_combo is not None
+                     and py_plan.mega_combo.tobytes() == nat_plan.mega_combo.tobytes()))
+    py_frame = py_ren.render_frame(walked, size)
+    nat_frame = nat_ren.render_frame(arr, size)
+    torch.cuda.synchronize()
+    same_frame = torch.equal(py_frame, nat_frame)
+    print(f"check 10: {what} tree, {py_tape.count} quads, {len(py_tape.items)} items, "
+          f"{py_tape.mask_count} mask planes: Python walk of to_renders(from_renders"
+          f"(tree)) vs native walk of from_renders(tree): packed combo "
+          f"{'equal' if same_combo else 'DIFFERS'} byte for byte"
+          + ("" if nat_plan.mega_combo is None else
+             f", megakernel combo {'equal' if same_mega else 'DIFFERS'}")
+          + f", render_frame frames {'equal' if same_frame else 'DIFFER'} bit for bit "
+          f"(max |diff| {float((py_frame - nat_frame).abs().max()):.3e})", flush=True)
+    if not (same_combo and same_mega and same_frame):
+        fail(f"{what} tree: the Python walk and the native walk disagree")
+    return {"quads": py_tape.count, "items": len(py_tape.items)}
+
+
+def tree_host_ms(tree, size, frames: int, pixel_scale: float = 1.0) -> dict:
+    """Host ms of one frame's walk alone, the Python walk of the tree and the
+    native walk (and its export) of from_renders(tree), medians of
+    `frames`, and the planner's ms on the walked tape."""
+    from figdraw_tpu_torch import FigRenderer, from_renders, native
+    from figdraw_tpu_torch.basics import fig_ui_scale, scaled
+    from figdraw_tpu_torch.plan import plan_execution
+
+    ren = FigRenderer(device="cuda", pixel_scale=pixel_scale)
+    fs = scaled(size)
+    arr = from_renders(tree)
+    walk, plan, nat = [], [], []
+    for _ in range(frames):
+        t0 = time.perf_counter()
+        tape = ren.flatten(tree, fs)
+        t1 = time.perf_counter()
+        plan_execution(tape)
+        t2 = time.perf_counter()
+        native.flatten_fast(arr, fs.x, fs.y, fig_ui_scale(), ren.pixel_scale,
+                            ren.aa_factor, (1.0, 1.0, 1.0, 1.0))
+        t3 = time.perf_counter()
+        walk.append((t1 - t0) * 1e3)
+        plan.append((t2 - t1) * 1e3)
+        nat.append((t3 - t2) * 1e3)
+    return {"walk_ms": statistics.median(walk), "plan_ms": statistics.median(plan),
+            "native_walk_ms": statistics.median(nat)}
+
+
+def tree_phase(tag: str) -> dict:
+    """Tree-form scenes (Fig nodes in a Renders) through FigRenderer.render_frame
+    and the Python walk, at their sources' full sizes: bench.py's headline
+    (1920x1080, 300 boxes; FRAMES frames, each its own animated tree),
+    bench_clipmask's rect-mask and sub-clip tables (1200x800, 180x6;
+    TREE_FRAMES frames each) and the scenes of examples/layers_clip.py,
+    drawable_beziers.py and dashed_dotted_borders.py at their own sizes, at
+    pixel_scale=2 and at UI scale 2. Every path is counted with the counts
+    set to 0 just before and read just after; each frame's kernels are held
+    against their plain versions on its own inputs; the Python walk's frame
+    and packed combo against the native walk's; the example frames against
+    figdraw_tpu's stored block means; host times of the Python walk, the
+    planner and the native walk beside the frame times."""
+    import numpy as np
+    import torch
+
+    from figdraw_tpu_torch import FigRenderer, from_renders, make_render_tree, vec2
+    from figdraw_tpu_torch.basics import fig_ui_scale, set_fig_ui_scale
+    from figdraw_tpu_torch.ops import binning, blur
+    from figdraw_tpu_torch.plan import plan_execution
+    from figdraw_tpu_torch.scenes import (
+        EXAMPLE_FORMS, EXAMPLE_SCENES, example_reference_path, make_clip_table_scene,
+        make_table_scene, render_example,
+    )
+
+    out = {"launches": {}, "errs": {}}
+    errs = out["errs"]
+
+    def counted(what, frames, plan, blurs_per_frame=0):
+        k1, k1_atlas, k3, k4, k4_atlas = launch_counts()
+        got = (k1, k3, k4, blur.LAUNCHES)
+        e1, e3, e4 = expected_launches(plan)
+        want = (e1 * frames, e3 * frames, e4 * frames, blurs_per_frame * frames)
+        print(f"check 10: {what} tree, {frames} frames through render_frame: launches "
+              f"K1 {k1}, K3 {k3}, K4 {k4}, blur {blur.LAUNCHES}, K1-atlas {k1_atlas}, "
+              f"K4-atlas {k4_atlas}, binning {binning.LAUNCHES} (expected "
+              f"{want}, 0, 0, {2 * frames})", flush=True)
+        if got != want or k1_atlas or k4_atlas:
+            fail(f"{what} tree launched (K1, K3, K4, blur) {got}, K1-atlas {k1_atlas}, "
+                 f"K4-atlas {k4_atlas}, expected {want}, 0, 0")
+        BIN_PATHS[f"tree {what}"] = binning_launches(f"{what} tree", frames)
+        out["launches"][what] = {"K1": k1, "K3": k3, "K4": k4, "blur": blur.LAUNCHES}
+
+    # --- bench.py's headline as a tree ---
+    size = vec2(WIDTH, HEIGHT)
+    t0 = time.perf_counter()
+    trees = [make_render_tree(WIDTH, HEIGHT, f, copies=COPIES) for f in range(FRAMES + 1)]
+    build_ms = (time.perf_counter() - t0) * 1e3 / len(trees)
+    ren = FigRenderer(device="cuda")
+    ren.render_frame(trees[0], size)
+    torch.cuda.synchronize()
+    zero_counts()
+    it = iter(trees[1:])
+    total_ms = timed_frames("headline tree", lambda: ren.render_frame(next(it), size),
+                            (HEIGHT, WIDTH, 4), frames=FRAMES)
+    plan = plan_execution(ren.flatten(trees[-1], size))
+    counted("headline", FRAMES, plan, blurs_per_frame=2)
+    host = tree_host_ms(trees[-1], size, FRAMES)
+    arr_ren = FigRenderer(device="cuda")
+    arrs = [from_renders(t) for t in trees[1:]]
+    arr_ren.render_frame(arrs[0], size)
+    ait = iter(arrs)
+    arr_ms = timed_frames("headline tree's array", lambda: arr_ren.render_frame(next(ait), size),
+                          (HEIGHT, WIDTH, 4), frames=FRAMES)
+    exec_ms = cuda_ms(lambda: ren.execute_plan(plan), 10)
+    print(f"times: headline tree {WIDTH}x{HEIGHT} {COPIES * 3} boxes, {FRAMES} frames "
+          f"through render_frame (Python walk, planner, upload, executor, sync): median "
+          f"{statistics.median(total_ms):.3f} ms/frame; Python walk alone "
+          f"{host['walk_ms']:.3f} ms, planner alone {host['plan_ms']:.3f} ms, upload and "
+          f"executor {exec_ms:.3f} ms (device, CUDA events); tree build "
+          f"{build_ms:.3f} ms a frame (make_render_tree, not in the frame); the same "
+          f"frames as arrays through render_frame {statistics.median(arr_ms):.3f} "
+          f"ms/frame, native walk and export alone {host['native_walk_ms']:.3f} ms {tag}",
+          flush=True)
+    out["headline"] = {"ms_per_frame": statistics.median(total_ms), "exec_ms": exec_ms,
+                       "array_ms_per_frame": statistics.median(arr_ms),
+                       "build_ms": build_ms, **host}
+    out["headline"].update(tree_equal_walks("headline", trees[-1], size))
+    tree_kernel_checks("tree headline", ren, trees[-1], size, errs)
+
+    # --- bench_clipmask's tables as trees ---
+    tsize = vec2(TABLE_W, TABLE_H)
+    for kind in ("rectmask", "subclip"):
+        tree = make_table_scene(kind, TABLE_W, TABLE_H, TABLE_ROWS, TABLE_COLS)
+        same_rows = from_renders(tree)[0].view().tobytes() == make_clip_table_scene(
+            kind, TABLE_W, TABLE_H, TABLE_ROWS, TABLE_COLS)[0].view().tobytes()
+        print(f"check 10: {kind} table tree: from_renders equals scenes."
+              f"make_clip_table_scene's rows byte for byte: {same_rows}", flush=True)
+        if not same_rows:
+            fail(f"{kind} table tree: from_renders differs from make_clip_table_scene's rows")
+        ren = FigRenderer(device="cuda")
+        ren.render_frame(tree, tsize)
+        torch.cuda.synchronize()
+        zero_counts()
+        total_ms = timed_frames(f"{kind} table tree", lambda: ren.render_frame(tree, tsize),
+                                (TABLE_H, TABLE_W, 4), frames=TREE_FRAMES)
+        plan = plan_execution(ren.flatten(tree, tsize))
+        counted(f"{kind} table", TREE_FRAMES, plan)
+        host = tree_host_ms(tree, tsize, TREE_FRAMES)
+        print(f"times: {kind} table tree {TABLE_ROWS}x{TABLE_COLS} at {TABLE_W}x{TABLE_H}, "
+              f"{TREE_FRAMES} frames through render_frame: median "
+              f"{statistics.median(total_ms):.3f} ms/frame; Python walk alone "
+              f"{host['walk_ms']:.3f} ms, planner alone {host['plan_ms']:.3f} ms, native "
+              f"walk and export of its arrays alone {host['native_walk_ms']:.3f} ms {tag}",
+              flush=True)
+        out[kind] = {"ms_per_frame": statistics.median(total_ms), **host}
+        out[kind].update(tree_equal_walks(f"{kind} table", tree, tsize))
+        tree_kernel_checks(f"tree {kind} table", ren, tree, tsize, errs)
+
+    # --- the example scenes, at their sizes and at both scales of 2 ---
+    out["examples"] = {}
+    for name, (build, (w, h)) in EXAMPLE_SCENES.items():
+        for form, (ps, ui, mult) in EXAMPLE_FORMS.items():
+            zero_counts()
+            ren, frame = render_example(
+                lambda p: FigRenderer(device="cuda", pixel_scale=p), name, form)
+            torch.cuda.synchronize()
+            shape = (h * mult * (2 if ui == 2 else 1), w * mult * (2 if ui == 2 else 1), 4)
+            if tuple(frame.shape) != shape or not bool(torch.isfinite(frame).all()):
+                fail(f"{name} {form}: frame of shape {tuple(frame.shape)}, expected {shape}, "
+                     "or non-finite")
+            ref = np.load(example_reference_path(name, form))
+            err = float(np.abs(block_means(frame.cpu().numpy()) - ref).max())
+            old = fig_ui_scale()
+            set_fig_ui_scale(ui)
+            try:
+                scene = build(w, h)
+                fsize = vec2(w * mult, h * mult)
+                plan = plan_execution(ren.flatten(scene, vec2(shape[1], shape[0])))
+                counted(f"{name} {form}", 1, plan)
+                host = tree_host_ms(scene, fsize, 3, pixel_scale=ps)
+                if form == "1x":
+                    tree_kernel_checks(f"tree {name}", ren, scene, fsize, errs)
+                    host.update(tree_equal_walks(name, scene, fsize))
+            finally:
+                set_fig_ui_scale(old)
+            print(f"check 10: {name} {form} {shape[1]}x{shape[0]} vs the JAX reference "
+                  f"(8x8 block means) max |diff| {err:.3e} (tol {TOL:.3e}); Python walk "
+                  f"{host['walk_ms']:.3f} ms, planner {host['plan_ms']:.3f} ms, native walk "
+                  f"{host['native_walk_ms']:.3f} ms {tag}", flush=True)
+            if not err <= TOL:
+                fail(f"{name} {form} differs from the JAX reference by {err}")
+            out["examples"][f"{name} {form}"] = {"err": err, **host}
+    left_out = {k: sum(v) for k, v in errs.pop("ambiguous pixels").items()}
+    worst = {k: max(v) for k, v in errs.items() if v}
+    print(f"check 10: tree frames' kernels vs their plain versions on the frames' own "
+          f"inputs, max |diff| {worst} (tol {TOL:.3e}; the blur bit for bit), "
+          f"leaving out the pixels on a quad's uv clip edge or a bezier's evolute "
+          f"(ops.raster.ambiguous_pixels): {left_out}", flush=True)
+    out["ambiguous"] = left_out
+    return out
+
+
 RESIDENT_FRAMES = 48  # the device-resident benchmarks' sweep length
 RESIDENT_SCALES = (100, 4000)  # bench.py's copies: 300 and 12000 boxes
 DIRTY_ROOTS = 8  # bench_retained.py's edited roots a frame
@@ -2085,6 +2414,13 @@ def main() -> None:
     blur_paths.update({f"camera {c * 3}": resident[c]["camera"]["blur_launches"]
                        for c in RESIDENT_SCALES})
 
+    # --- 8b. tree-form scenes: the Python walk and the planner ------------------
+    trees = tree_phase(tag)
+    tree_paths = {k: {f"tree {p}": n[k] for p, n in trees["launches"].items() if n[k]}
+                  for k in ("K1", "K3", "K4", "blur")}
+    tree_errs = {k: max(v) for k, v in trees["errs"].items() if v}
+    blur_paths.update(tree_paths["blur"])
+
     # --- 9. results --------------------------------------------------------------
     # the in-place bound is the kernels' own (the out-of-place one counts
     # the earlier design's bytes, for comparison)
@@ -2107,10 +2443,12 @@ def main() -> None:
     ctrl = images["sdf_control"]
     k1_paths = {"headline": launches, "rectmask": rm["launches"][0],
                 "images sdf_control": ctrl["launches"][0],
-                "rolled": rolled["launches"][0]}
+                "rolled": rolled["launches"][0], **tree_paths["K1"]}
     atlas_paths = {f"images {v}": images[v]["launches"][1] for v in BENCH_VARIANTS[1:]}
     atlas_paths.update(text=text["launches"][1], rolled=rolled["launches"][1])
-    k3_paths = {"rectmask": rm["launches"][1], "rolled": rolled["launches"][2]}
+    k3_paths = {"rectmask": rm["launches"][1], "rolled": rolled["launches"][2],
+                **tree_paths["K3"]}
+    k4_paths = {"subclip": sc["launches"][2], **tree_paths["K4"]}
     print(json.dumps({"kernels": [
         {
             "name": "raster_tiles_kernel<false, false> (K1, frame target)",
@@ -2120,7 +2458,7 @@ def main() -> None:
             "launches": sum(k1_paths.values()),
             "launches_by_path": k1_paths,
             "max_abs_err": max(err_headline, err_modes, err_frame, rm["k1_err"],
-                               ctrl["err"], rolled["k1_err"]),
+                               ctrl["err"], rolled["k1_err"], tree_errs.get("K1", 0.0)),
             "ms": kernel_ms,
             "device_ms": device_ms_k1,
             "plain_ms": plain_ms,
@@ -2154,7 +2492,8 @@ def main() -> None:
             "replaces": "figdraw_tpu/ops/raster_pallas.py:196",
             "launches": sum(k3_paths.values()),
             "launches_by_path": k3_paths,
-            "max_abs_err": max(rm["k3_err"], rm["frame_err"], rolled["k3_err"]),
+            "max_abs_err": max(rm["k3_err"], rm["frame_err"], rolled["k3_err"],
+                               tree_errs.get("K3", 0.0)),
             "ms": kernel_ms_k3,
             "device_ms": device_ms_k3,
             "plain_ms": plain_ms_k3,
@@ -2168,9 +2507,9 @@ def main() -> None:
             "route": "cuda",
             "source": "figdraw_tpu_torch/csrc/mega.cu",
             "replaces": "figdraw_tpu/ops/raster_pallas.py:495",
-            "launches": sc["launches"][2],
-            "launches_by_path": {"subclip": sc["launches"][2]},
-            "max_abs_err": max(sc["k4_err"], sc["frame_err"]),
+            "launches": sum(k4_paths.values()),
+            "launches_by_path": k4_paths,
+            "max_abs_err": max(sc["k4_err"], sc["frame_err"], tree_errs.get("K4", 0.0)),
             "ms": kernel_ms_k4,
             "device_ms": device_ms_k4,
             "plain_ms": plain_ms_k4,
@@ -2226,7 +2565,7 @@ def main() -> None:
                         "_blur_axis :21); XLA ops, no Pallas",
             "launches": sum(blur_paths.values()),
             "launches_by_path": blur_paths,
-            "max_abs_err": blurred["err"],
+            "max_abs_err": max(blurred["err"], tree_errs.get("blur", 0.0)),
             "ms": blurred["ms"],
             "device_ms": blurred["device_ms"],
             "plain_ms": blurred["plain_ms"],

@@ -2,8 +2,9 @@
 figdraw_tpu and unchanged).
 
 The library is built at first use with g++ into this package's `_build/`,
-keyed by a hash of the source and flags. The slice has no Python walk: a
-missing toolchain raises instead of falling back.
+keyed by a hash of the source and flags. A RendersArray always takes this
+walk: a missing toolchain raises instead of falling back to the Python
+walk (render.py), which renders trees.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import threading
 
 import numpy as np
 
-from .basics import FigKind
+from .basics import TEXT_NOT_PORTED, FigKind
 from .nodesarray import FIG_DTYPE, GLYPH_DTYPE, OP_DTYPE, TRECT_DTYPE, RendersArray
 from .ops.layout import (
     PACKED_WIDTH, QF_BBOX_X0, QF_BBOX_X1, QF_BBOX_Y0, QF_BBOX_Y1, QF_INV_A,
@@ -248,9 +249,7 @@ def _check_kinds(renders: RendersArray) -> None:
         raise ValueError("scene holds node kinds the native walk does not handle")
     for lst in renders.layers.values():
         if (lst.view()["kind"] == int(FigKind.nkText)).any():
-            raise NotImplementedError(
-                "text nodes need typesetting and a glyph raster on the host "
-                "(ROADMAP.md, port item 'Text host pipeline')")
+            raise NotImplementedError(TEXT_NOT_PORTED)
 
 
 _tls = threading.local()

@@ -1,17 +1,23 @@
-"""Structure-of-arrays scene storage for the native flattener
-(figdraw_tpu/nodesarray.py without the object-form Fig conversions).
+"""Structure-of-arrays scene storage for the native walk, and its
+conversions from and to the object-form tree (figdraw_tpu/nodesarray.py).
 
 The dtypes are byte-for-byte the JAX package's: the C++ walk
 (native/flatten.cpp) reads these rows directly, and native.py checks each
-struct size against the library at load time.
+struct size against the library at load time. `from_renders` packs a
+`Renders` tree into rows (the f32 round trip that makes the Python walk of
+`to_renders(from_renders(tree))` and the native walk of `from_renders(tree)`
+give the same tape); `RenderListArray.add_root` / `add_child` / `set_node`
+take Fig nodes. Text nodes raise NotImplementedError (pack_text) until the
+text host pipeline is ported.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .basics import FigKind
-from .fill import FillKind
+from .basics import TEXT_NOT_PORTED, FigFlags, FigKind
+from .fill import Fill, FillKind
+from .nodes import Fig, RenderList, Renders
 
 MAX_SHADOWS = 4
 
@@ -83,8 +89,8 @@ FIG_DTYPE = np.dtype(
     ]
 )
 
-# nkText side-array rows (the slice draws no text; the walk still takes the
-# arrays, empty)
+# nkText side-array rows (the port packs no text yet; the walk still takes
+# the arrays, empty)
 GLYPH_DTYPE = np.dtype(
     [
         ("font_id", np.int64),
@@ -144,9 +150,69 @@ _NATIVE_KIND_LUT = np.zeros(256, bool)
 _NATIVE_KIND_LUT[list(NATIVE_KINDS)] = True
 
 
+def pack_fill(out, f: Fill) -> None:
+    if f.kind == FillKind.flColor:
+        out["kind"] = 0
+        out["c0"] = f.color.as_tuple()
+    elif f.kind == FillKind.flLinear2:
+        out["kind"] = 1
+        out["axis"] = int(f.lin2.axis)
+        out["c0"] = f.lin2.start.as_tuple()
+        out["c1"] = f.lin2.stop.as_tuple()
+    else:
+        out["kind"] = 2
+        out["axis"] = int(f.lin3.axis)
+        out["midpos"] = f.lin3.mid_pos
+        out["c0"] = f.lin3.start.as_tuple()
+        out["c1"] = f.lin3.mid.as_tuple()
+        out["c2"] = f.lin3.stop.as_tuple()
+
+
+def pack_ops(row, node: Fig, ops_rows: list, points_rows: list) -> None:
+    """Encode a drawable node's op list into the layer side arrays."""
+    from .nodes import DrawableKind
+
+    row["ops_start"] = len(ops_rows)
+    row["ops_count"] = len(node.draw_ops)
+    row["draw_weight"] = node.draw_stroke.weight
+    row["draw_cap"] = int(node.draw_stroke.cap)
+    row["draw_join"] = int(node.draw_stroke.join)
+    row["draw_steps"] = node.draw_steps
+    row["draw_aa"] = node.draw_aa
+    pack_fill(row["draw_stroke_fill"], node.draw_stroke.fill)
+    for op in node.draw_ops:
+        r = np.zeros((), dtype=OP_DTYPE)
+        r["kind"] = int(op.kind)
+        if op.kind == DrawableKind.dkLine:
+            r["data"][0:4] = (op.a.x, op.a.y, op.b.x, op.b.y)
+        elif op.kind == DrawableKind.dkCircle:
+            r["data"][0:3] = (op.center.x, op.center.y, op.radius)
+        elif op.kind == DrawableKind.dkRectangle:
+            r["data"][0:4] = (op.box.x, op.box.y, op.box.w, op.box.h)
+            r["data"][4:8] = [float(c) for c in op.corners]
+        elif op.kind == DrawableKind.dkBezier:
+            r["p_start"] = len(points_rows)
+            r["p_count"] = len(op.controls)
+            r["steps"] = op.steps
+            points_rows.extend((p.x, p.y) for p in op.controls)
+        elif op.kind == DrawableKind.dkArc:
+            r["data"][0:5] = (
+                op.arc_center.x, op.arc_center.y, op.arc_radius,
+                op.start_angle, op.sweep_angle,
+            )
+            r["steps"] = op.arc_steps
+        elif op.kind == DrawableKind.dkEllipse:
+            r["data"][0:4] = (
+                op.ellipse_center.x, op.ellipse_center.y,
+                op.ellipse_radii.x, op.ellipse_radii.y,
+            )
+        ops_rows.append(r)
+
+
 def _merge_structured(rows: list, dtype) -> np.ndarray:
     """Merge a list of same-dtype structured blocks/rows into one array by
-    raw byte copy."""
+    raw byte copy (np.concatenate on structured dtypes promotes fields
+    block by block)."""
     if not rows:
         return np.zeros(0, dtype=dtype)
     blocks = [np.atleast_1d(b) for b in rows]
@@ -162,32 +228,60 @@ def _merge_structured(rows: list, dtype) -> np.ndarray:
     return out
 
 
-def _rgba_tuple(c):
-    return (c.r, c.g, c.b, c.a)
+def pack_text(row, node: Fig, glyph_rows: list, trect_rows: list,
+              glyph_total: int = -1) -> int:
+    """A text node's draw list (placed glyphs and selection / decoration
+    rects) needs the text host pipeline: raises NotImplementedError rather
+    than pack a node the walk would draw as nothing."""
+    raise NotImplementedError(TEXT_NOT_PORTED)
 
 
-def pack_fill(out, f) -> None:
-    """Write a fill.Fill into a FILL_DTYPE row (nodesarray.pack_fill)."""
-    if f.kind == FillKind.flColor:
-        out["kind"] = 0
-        out["c0"] = _rgba_tuple(f.color)
-    elif f.kind == FillKind.flLinear2:
-        out["kind"] = 1
-        out["axis"] = int(f.lin2.axis)
-        out["c0"] = _rgba_tuple(f.lin2.start)
-        out["c1"] = _rgba_tuple(f.lin2.stop)
-    else:
-        out["kind"] = 2
-        out["axis"] = int(f.lin3.axis)
-        out["midpos"] = f.lin3.mid_pos
-        out["c0"] = _rgba_tuple(f.lin3.start)
-        out["c1"] = _rgba_tuple(f.lin3.mid)
-        out["c2"] = _rgba_tuple(f.lin3.stop)
+def pack_fig(row, node: Fig, ops_rows: list = None, points_rows: list = None) -> None:
+    row["kind"] = int(node.kind)
+    row["zlevel"] = node.zlevel
+    row["flags"] = int(node.flags)
+    row["parent"] = node.parent
+    row["child_count"] = node.child_count
+    row["box"] = (node.screen_box.x, node.screen_box.y, node.screen_box.w, node.screen_box.h)
+    row["rotation"] = node.rotation
+    pack_fill(row["fill"], node.fill)
+    row["corners"] = node.corners
+    row["corners_y"] = node.corner_radii_y
+    row["stroke_weight"] = node.stroke.weight
+    pack_fill(row["stroke_fill"], node.stroke.fill)
+    for i, sh in enumerate(node.shadows[:MAX_SHADOWS]):
+        srow = row["shadows"][i]
+        srow["style"] = int(sh.style)
+        srow["blur"] = sh.blur
+        srow["spread"] = sh.spread
+        srow["x"] = sh.x
+        srow["y"] = sh.y
+        pack_fill(srow["fill"], sh.fill)
+    row["blur"] = node.backdrop_blur.blur
+    row["tx"] = node.transform.translation.x
+    row["ty"] = node.transform.translation.y
+    if node.transform.use_matrix:
+        m = node.transform.matrix
+        row["use_matrix"] = 1
+        row["matrix"] = (m.a, m.b, m.tx, m.c, m.d, m.ty)
+    if node.kind == FigKind.nkImage:
+        row["image_id"] = node.image.id
+        pack_fill(row["image_fill"], node.image.fill)
+    elif node.kind in (FigKind.nkMsdfImage, FigKind.nkMtsdfImage):
+        style = (
+            node.msdf_image if node.kind == FigKind.nkMsdfImage else node.mtsdf_image
+        )
+        row["image_id"] = style.id
+        row["px_range"] = style.px_range
+        row["sd_threshold"] = style.sd_threshold
+        row["msdf_stroke"] = style.stroke_weight
+        pack_fill(row["image_fill"], style.fill)
+    elif node.kind == FigKind.nkDrawable and ops_rows is not None:
+        pack_ops(row, node, ops_rows, points_rows)
 
 
 class RenderListArray:
-    """Numpy-backed render list: FIG_DTYPE rows written column by column,
-    plus the drawable/text side arrays the walk reads."""
+    """Numpy-backed RenderList with the O(1) mutation subset."""
 
     def __init__(self, capacity: int = 64):
         self.nodes = np.zeros(capacity, dtype=FIG_DTYPE)
@@ -220,6 +314,11 @@ class RenderListArray:
             self._text_cache = (len(self.glyph_rows), glyphs, trects)
         return self._text_cache[1], self._text_cache[2]
 
+    def _pack(self, i: int, node: Fig) -> None:
+        pack_fig(self.nodes[i], node, self.ops_rows, self.points_rows)
+        if node.kind == FigKind.nkText:
+            pack_text(self.nodes[i], node, self.glyph_rows, self.trect_rows)
+
     def _grow(self) -> None:
         new = np.zeros(self.nodes.shape[0] * 2, dtype=FIG_DTYPE)
         new[: self.count] = self.nodes[: self.count]
@@ -230,6 +329,22 @@ class RenderListArray:
             self._grow()
         i = self.count
         self.count += 1
+        return i
+
+    def add_root(self, node: Fig) -> int:
+        i = self._alloc()
+        self._pack(i, node)
+        self.nodes[i]["parent"] = -1
+        self.nodes[i]["child_count"] = 0
+        self.root_ids.append(i)
+        return i
+
+    def add_child(self, parent_idx: int, node: Fig) -> int:
+        i = self._alloc()
+        self._pack(i, node)
+        self.nodes[i]["parent"] = parent_idx
+        self.nodes[i]["child_count"] = 0
+        self.nodes[parent_idx]["child_count"] += 1
         return i
 
     def add_root_raw(self) -> int:
@@ -247,10 +362,11 @@ class RenderListArray:
         self.nodes[parent_idx]["child_count"] += 1
         return i
 
-    # --- retained-scene edits in place (nodesarray.py:509-533) ---------------
-    # These write FIG columns directly, so the walk's cached side arrays stay
-    # valid; renderer.update_scene(scene, renders, dirty=[(lvl, root_idx),
-    # ...]) then patches only the edited roots' rows on the device.
+    # --- retained-scene in-place edits --------------------------------------
+    # These write FIG columns directly (no repack, no buffer churn) so the
+    # native walk's cached arrays stay valid; pair with
+    # renderer.update_scene(scene, renders, dirty=[(lvl, root_idx), ...]) to
+    # patch only the edited roots' quad rows on device.
 
     def set_box(self, i: int, x: float, y: float, w: float, h: float) -> None:
         self.nodes[i]["box"] = (x, y, w, h)
@@ -265,9 +381,9 @@ class RenderListArray:
         pack_fill(self.nodes[i]["stroke_fill"], f)
 
     def set_solid_color(self, i: int, color) -> None:
-        """Recolor a solid fill; color: a ColorRGBA."""
+        """Recolor a solid fill without rebuilding the Fill object."""
         self.nodes[i]["fill"]["kind"] = 0
-        self.nodes[i]["fill"]["c0"] = _rgba_tuple(color)
+        self.nodes[i]["fill"]["c0"] = color.as_tuple()
 
     def set_corners(self, i: int, radii) -> None:
         self.nodes[i]["corners"] = radii
@@ -277,11 +393,195 @@ class RenderListArray:
         self.nodes[i]["tx"] = tx
         self.nodes[i]["ty"] = ty
 
+    def set_node(self, i: int, node) -> None:
+        """Repack a node wholesale (fill-kind swaps, a drawable's new ops —
+        anything the column setters can't express), preserving its tree
+        links. A drawable repack appends its ops to the side arrays (the old
+        rows stay orphaned); pair with renderer.snapshot_scene(reserve=...)
+        so an edit that changes a root's quad count still patches in
+        place."""
+        parent = int(self.nodes[i]["parent"])
+        child_count = int(self.nodes[i]["child_count"])
+        self._pack(i, node)
+        self.nodes[i]["parent"] = parent
+        self.nodes[i]["child_count"] = child_count
+
     def view(self) -> np.ndarray:
         return self.nodes[: self.count]
 
     def all_native_kinds(self) -> bool:
-        return bool(_NATIVE_KIND_LUT[self.view()["kind"]].all())
+        kinds = self.view()["kind"]
+        # LUT gather instead of np.isin (sort-based): this runs per frame on
+        # the native fast path and was ~0.2 ms of a 1.4 ms headline frame
+        return bool(_NATIVE_KIND_LUT[kinds].all())
+
+
+def from_render_list(lst: RenderList) -> RenderListArray:
+    arr = RenderListArray(capacity=max(len(lst.nodes), 1))
+    arr.count = len(lst.nodes)
+    for i, node in enumerate(lst.nodes):
+        arr._pack(i, node)
+    arr.root_ids = list(lst.root_ids)
+    return arr
+
+
+def unpack_fill(row) -> Fill:
+    from .colors import ColorRGBA
+    from .fill import FillGradientAxis, Linear2, Linear3
+
+    kind = int(row["kind"])
+    if kind == 0:
+        return Fill(kind=FillKind.flColor, color=ColorRGBA(*(int(v) for v in row["c0"])))
+    if kind == 1:
+        return Fill(
+            kind=FillKind.flLinear2,
+            lin2=Linear2(
+                axis=FillGradientAxis(int(row["axis"])),
+                start=ColorRGBA(*(int(v) for v in row["c0"])),
+                stop=ColorRGBA(*(int(v) for v in row["c1"])),
+            ),
+        )
+    return Fill(
+        kind=FillKind.flLinear3,
+        lin3=Linear3(
+            axis=FillGradientAxis(int(row["axis"])),
+            start=ColorRGBA(*(int(v) for v in row["c0"])),
+            mid=ColorRGBA(*(int(v) for v in row["c1"])),
+            stop=ColorRGBA(*(int(v) for v in row["c2"])),
+            mid_pos=int(row["midpos"]),
+        ),
+    )
+
+
+def _unpack_ops(row, ops, points):
+    from .geometry import Rect, Vec2
+    from .nodes import DrawableKind, DrawableOp
+
+    out = []
+    start = int(row["ops_start"])
+    for i in range(start, start + int(row["ops_count"])):
+        r = ops[i]
+        kind = DrawableKind(int(r["kind"]))
+        d = r["data"]
+        if kind == DrawableKind.dkLine:
+            out.append(DrawableOp(kind=kind, a=Vec2(float(d[0]), float(d[1])),
+                                  b=Vec2(float(d[2]), float(d[3]))))
+        elif kind == DrawableKind.dkCircle:
+            out.append(DrawableOp(kind=kind, center=Vec2(float(d[0]), float(d[1])),
+                                  radius=float(d[2])))
+        elif kind == DrawableKind.dkRectangle:
+            out.append(DrawableOp(
+                kind=kind, box=Rect(*(float(v) for v in d[0:4])),
+                corners=tuple(int(v) for v in d[4:8])))
+        elif kind == DrawableKind.dkBezier:
+            ps = int(r["p_start"])
+            ctrl = tuple(
+                Vec2(float(points[j][0]), float(points[j][1]))
+                for j in range(ps, ps + int(r["p_count"]))
+            )
+            out.append(DrawableOp(kind=kind, controls=ctrl, steps=int(r["steps"])))
+        elif kind == DrawableKind.dkArc:
+            out.append(DrawableOp(
+                kind=kind, arc_center=Vec2(float(d[0]), float(d[1])),
+                arc_radius=float(d[2]), start_angle=float(d[3]),
+                sweep_angle=float(d[4]), arc_steps=int(r["steps"])))
+        elif kind == DrawableKind.dkEllipse:
+            out.append(DrawableOp(
+                kind=kind, ellipse_center=Vec2(float(d[0]), float(d[1])),
+                ellipse_radii=Vec2(float(d[2]), float(d[3]))))
+    return tuple(out)
+
+
+def unpack_fig(row, ops=None, points=None) -> Fig:
+    from .basics import (
+        BackdropBlurStyle,
+        RenderShadow,
+        RenderStroke,
+        ShadowStyle,
+        StrokeCap,
+        StrokeJoin,
+        TransformStyle,
+    )
+    from .geometry import Mat3, Rect, Vec2
+
+    shadows = []
+    for srow in row["shadows"]:
+        if int(srow["style"]) == 0:
+            continue
+        shadows.append(
+            RenderShadow(
+                style=ShadowStyle(int(srow["style"])),
+                blur=float(srow["blur"]),
+                spread=float(srow["spread"]),
+                x=float(srow["x"]),
+                y=float(srow["y"]),
+                fill=unpack_fill(srow["fill"]),
+            )
+        )
+    matrix = None
+    if int(row["use_matrix"]):
+        m = row["matrix"]
+        matrix = Mat3(*(float(v) for v in m))
+    from .basics import ImageStyle, MsdfImageStyle
+
+    kind = FigKind(int(row["kind"]))
+    image = ImageStyle()
+    msdf_image = MsdfImageStyle()
+    mtsdf_image = MsdfImageStyle()
+    if kind == FigKind.nkImage:
+        image = ImageStyle(id=int(row["image_id"]), fill=unpack_fill(row["image_fill"]))
+    elif kind in (FigKind.nkMsdfImage, FigKind.nkMtsdfImage):
+        style = MsdfImageStyle(
+            id=int(row["image_id"]),
+            fill=unpack_fill(row["image_fill"]),
+            px_range=float(row["px_range"]),
+            sd_threshold=float(row["sd_threshold"]),
+            stroke_weight=float(row["msdf_stroke"]),
+        )
+        if kind == FigKind.nkMsdfImage:
+            msdf_image = style
+        else:
+            mtsdf_image = style
+    return Fig(
+        kind=FigKind(int(row["kind"])),
+        zlevel=int(row["zlevel"]),
+        flags=FigFlags(int(row["flags"])),
+        parent=int(row["parent"]),
+        child_count=int(row["child_count"]),
+        screen_box=Rect(*(float(v) for v in row["box"])),
+        rotation=float(row["rotation"]),
+        fill=unpack_fill(row["fill"]),
+        corners=tuple(int(v) for v in row["corners"]),
+        corner_radii_y=tuple(int(v) for v in row["corners_y"]),
+        stroke=RenderStroke(
+            weight=float(row["stroke_weight"]), fill=unpack_fill(row["stroke_fill"])
+        ),
+        shadows=tuple(shadows),
+        backdrop_blur=BackdropBlurStyle(blur=float(row["blur"])),
+        transform=TransformStyle(
+            translation=Vec2(float(row["tx"]), float(row["ty"])), matrix=matrix
+        ),
+        image=image,
+        msdf_image=msdf_image,
+        mtsdf_image=mtsdf_image,
+        draw_ops=(
+            _unpack_ops(row, ops, points)
+            if kind == FigKind.nkDrawable and ops is not None
+            else ()
+        ),
+        draw_stroke=(
+            RenderStroke(
+                weight=float(row["draw_weight"]),
+                fill=unpack_fill(row["draw_stroke_fill"]),
+                cap=StrokeCap(int(row["draw_cap"])),
+                join=StrokeJoin(int(row["draw_join"])),
+            )
+            if kind == FigKind.nkDrawable
+            else RenderStroke()
+        ),
+        draw_steps=int(row["draw_steps"]),
+        draw_aa=float(row["draw_aa"]),
+    )
 
 
 class RendersArray:
@@ -303,3 +603,26 @@ class RendersArray:
 
     def all_native_kinds(self) -> bool:
         return all(lst.all_native_kinds() for lst in self.layers.values())
+
+
+def from_renders(renders: Renders) -> RendersArray:
+    out = RendersArray()
+    for lvl, lst in renders.pairs():
+        out.set_layer(lvl, from_render_list(lst))
+    return out
+
+
+def to_renders(arr: RendersArray) -> Renders:
+    """Reconstruct the object form (Python-walk fallback; also quantizes
+    coordinates through f32 exactly like the array storage)."""
+    out = Renders()
+    for lvl, lst in arr.sorted_pairs():
+        ops, points = lst.ops_view()
+        rl = RenderList()
+        rl.nodes = [
+            unpack_fig(lst.nodes[i], ops, points)
+            for i in range(lst.count)
+        ]
+        rl.root_ids = list(lst.root_ids)
+        out.set_layer(lvl, rl)
+    return out

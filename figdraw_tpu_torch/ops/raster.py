@@ -286,6 +286,67 @@ def block_survivors(bbox, x0, y0, tile_h: int):
     return hit_y[..., :, None] & hit_x[..., None, :]
 
 
+def ambiguous_pixels(fields, modes, ys, xs):
+    """Whether each pixel (ys, xs) (int arrays) is one where two correct
+    evaluations of the tape may differ by a whole pixel's coverage of a
+    quad, for a quad of `fields` / `modes` ((N, 68) f32 and (N, 2) i32
+    numpy rows) whose bbox holds the pixel center, computed in float64:
+
+    - a uv clip edge: u or v within 4 ulps of its two products of a bound
+      of the inside test (-1e-6 and 1 + 1e-6). There the clip turns on how
+      u = inv_a dx + inv_b dy rounds, and a fused multiply-add (nvcc
+      contracts one, as XLA does) and ATen's separate multiply and add fall
+      on either side;
+    - a bezier stroke's evolute (modes 18-20): the cubic solve's p = ky -
+      kx^2 within 1% of kx^2, where it cancels and one ulp of kx moves the
+      root (tests/test_torch_sdf_eval.py holds the evaluators there to the
+      frame bound).
+
+    Checks use it to tell such pixels from a fault: they are few, in frames
+    of rotated or curved strokes."""
+    import numpy as np
+
+    from .layout import (
+        QF_BBOX_X1, QF_BBOX_Y0, QF_BBOX_Y1, QF_INV_A, QF_INV_B, QF_INV_C,
+        QF_INV_D, QF_ORG_X, QF_ORG_Y, QF_PARAMS, QF_RADII,
+    )
+
+    f = np.asarray(fields, np.float64)
+    base = (np.asarray(modes)[:, QI_MODE] % 256) % 128
+    out = np.zeros(len(ys), bool)
+    for k, (y, x) in enumerate(zip(ys, xs)):
+        px, py = float(x) + 0.5, float(y) + 0.5
+        hold = ((f[:, QF_BBOX_X0] <= px) & (f[:, QF_BBOX_X1] >= px)
+                & (f[:, QF_BBOX_Y0] <= py) & (f[:, QF_BBOX_Y1] >= py))
+        g, gb = f[hold], base[hold]
+        rx = (np.float32(px) - g[:, QF_ORG_X].astype(np.float32)).astype(np.float64)
+        ry = (np.float32(py) - g[:, QF_ORG_Y].astype(np.float32)).astype(np.float64)
+        uv = []
+        for a, b in ((QF_INV_A, QF_INV_B), (QF_INV_C, QF_INV_D)):
+            t1, t2 = g[:, a] * rx, g[:, b] * ry
+            band = 4.0 * 2.0 ** -24 * (np.abs(t1) + np.abs(t2)) + 2.0 ** -30
+            w = t1 + t2
+            uv.append(w)
+            if ((np.abs(w + 1e-6) <= band) | (np.abs(w - (1.0 + 1e-6)) <= band)).any():
+                out[k] = True
+        if out[k]:
+            continue
+        u, v = uv
+        posx = (u - 0.5) * 2.0 * g[:, QF_PARAMS]
+        posy = (v - 0.5) * 2.0 * g[:, QF_PARAMS + 1]
+        ax, ay = g[:, QF_PARAMS + 2], g[:, QF_PARAMS + 3]
+        bx, by, cx, cy = (g[:, QF_RADII + i] for i in range(4))
+        abx, aby = bx - ax, by - ay
+        bbx, bby = ax - 2.0 * bx + cx, ay - 2.0 * by + cy
+        kk = 1.0 / np.maximum(bbx * bbx + bby * bby, 1e-6)
+        kx = kk * (abx * bbx + aby * bby)
+        ky = kk * (2.0 * (abx * abx + aby * aby) + ((ax - posx) * bbx
+                                                    + (ay - posy) * bby)) / 3.0
+        ill = np.abs(ky - kx * kx) < 0.01 * kx * kx
+        out[k] = bool((ill & (gb >= 18) & (gb <= 20)).any())
+    return out
+
+
 def block_pairs(fields, bounds, tile_idx, tile_counts, tile_h: int, ph: int,
                 pw: int, keep=None):
     """What the kernel's cull leaves of one pass over a (ph, pw) target:

@@ -2,6 +2,13 @@
 parameters (figdraw_tpu/renderer.py `_plan_execution` with the host helpers
 of figdraw_tpu/executor.py).
 
+A native export arrives packed, with its structure and tile density from
+the C++ walk. A tape of the Python walk arrives as logical rows:
+`pack_walked_tape` gives it what the native export gives (the structure
+from its mode lanes, the packed combo with its meta tail), and its tile
+height comes from its rows (`pick_tile_h`), as the JAX renderer plans such
+a tape.
+
 A frame of at most ROLLED_THRESHOLD pass items takes the unrolled frame
 executor: draw runs into the frame or into mask planes, mask clears and
 backdrop blurs. A longer frame takes the megakernel, whose combo
@@ -20,12 +27,12 @@ import numpy as np
 import torch
 
 from .ops.layout import (
-    PACKED_MODES, PACKED_WIDTH, QF_BBOX_X0, QF_BBOX_Y1, QI_MASK, QI_MODE,
-    QI_WIDTH,
+    PACKED_MODES, PACKED_WIDTH, QF_BBOX_X0, QF_BBOX_X1, QF_BBOX_Y0, QF_BBOX_Y1,
+    QI_MASK, QI_MODE, QI_WIDTH, pack_fields_np,
 )
 from .ops.mega import MEGA_CLEAR_BIT, MEGA_TARGET_SHIFT
 from .ops.raster import TILE_H, TILE_W
-from .tape import ClearMaskItem, DrawItem, FRAME_TARGET, Tape
+from .tape import BlurItem, ClearMaskItem, DrawItem, FRAME_TARGET, Tape
 
 ROLLED_THRESHOLD = 24  # structure items above this need the rolled executor
 
@@ -87,6 +94,95 @@ def tile_h_from_density(pairs_sum: float, median_h: float, height: int,
     if median_h <= SHORT_QUAD_H:
         return DENSE_TILE_H
     return TILE_H
+
+
+def pick_tile_h(fields: np.ndarray, count: int, height: int, width: int) -> int:
+    """The tile height of a tape from its rows (executor.pick_tile_h): the
+    density summary the native walk's fd_density gives, computed from the
+    live quads' bboxes (padding rows, zero bboxes, do not count), through
+    tile_h_from_density's rule."""
+    f = fields[:count]
+    bw = np.maximum(f[:, QF_BBOX_X1] - f[:, QF_BBOX_X0], 0.0)
+    bh = np.maximum(f[:, QF_BBOX_Y1] - f[:, QF_BBOX_Y0], 0.0)
+    live = (bw > 0) & (bh > 0)
+    if not live.any():
+        return tile_h_from_density(0.0, -1.0, height, width)
+    pairs = (((bw // TILE_W) + 1) * ((bh // TILE_H) + 1))[live]
+    return tile_h_from_density(float(pairs.sum()), float(np.median(bh[live])),
+                               height, width)
+
+
+# base sdf modes that sample the atlas (raster_pallas.ATLAS_BASE_MODES): the
+# atlas quad, MSDF / MTSDF and their annular forms
+ATLAS_BASE_MODES = (0, 13, 14, 15, 16)
+BACKDROP_BASE_MODE = 17
+_ATLAS_MODE_LUT = np.zeros(128, bool)
+_ATLAS_MODE_LUT[list(ATLAS_BASE_MODES)] = True
+
+
+def tape_structure(tape: Tape, modes: np.ndarray):
+    """The pass structure of a tape from its mode lanes
+    (executor.tape_structure): (structure, bounds, radii, is_atlas_mode,
+    is_backdrop_mode), the structure items as check_structure takes them.
+    A draw run is ("draw", target, uses_atlas, needs_backdrop): it reads the
+    backdrop when a blur came before it and one of its quads is a backdrop
+    quad. Empty runs are dropped."""
+    base_modes = (modes[:, QI_MODE] % 256) % 128  # strip fill + elliptical
+    is_atlas_mode = _ATLAS_MODE_LUT[base_modes]
+    is_backdrop_mode = base_modes == BACKDROP_BASE_MODE
+    structure = []
+    bounds = []
+    radii = []
+    seen_blur = False
+    for item in tape.items:
+        if isinstance(item, ClearMaskItem):
+            structure.append(("clear_mask", item.index))
+        elif isinstance(item, BlurItem):
+            structure.append(("blur",))
+            radii.append(item.radius)
+            seen_blur = True
+        elif isinstance(item, DrawItem):
+            if item.end <= item.start:
+                continue
+            uses_atlas = bool(is_atlas_mode[item.start : item.end].any())
+            needs_backdrop = seen_blur and bool(
+                is_backdrop_mode[item.start : item.end].any())
+            structure.append(("draw", item.target, uses_atlas, needs_backdrop))
+            bounds.append((item.start, item.end))
+    return structure, bounds, radii, is_atlas_mode, is_backdrop_mode
+
+
+def pack_tape_combo(tape: Tape, n_pad: int, bounds, radii, clear_color) -> np.ndarray:
+    """A tape's logical rows in the packed upload layout
+    (executor.pack_tape_combo): (n_pad + meta rows, PACKED_WIDTH) f32, the
+    quad rows packed, the padding rows zero, the meta tail filled; the
+    Python walk's twin of the native fd_export_combo_packed."""
+    c = tape.count
+    combo = np.zeros((n_pad + meta_rows(len(bounds), len(radii), PACKED_WIDTH),
+                      PACKED_WIDTH), dtype=np.float32)
+    pack_fields_np(tape.fields[:c], tape.modes[:c], out=combo[:c])
+    fill_meta(combo[n_pad:].reshape(-1), bounds, radii, clear_color)
+    return combo
+
+
+def pack_walked_tape(tape: Tape) -> None:
+    """Give a tape of the Python walk what the native export gives it: the
+    structure cache (from its mode lanes) and the packed combo, padded to
+    its quad bucket, whose meta tail carries the draw bounds and blur radii
+    (only the clear color when the tape takes the megakernel or the rolled
+    form). A tape that has them already is left as it is."""
+    if tape.structure_cache is not None:
+        return
+    structure, bounds, radii, is_atlas, is_backdrop = tape_structure(
+        tape, tape.modes[: tape.count])
+    tape.structure_cache = (structure, bounds, radii, bool(is_atlas.any()),
+                            bool(is_backdrop.any()))
+    rolled = len(structure) > ROLLED_THRESHOLD
+    n_pad = bucket(max(tape.count, 1))
+    tape.combo = pack_tape_combo(tape, n_pad, [] if rolled else bounds,
+                                 [] if rolled else radii,
+                                 tape.clear_color or (0.0, 0.0, 0.0, 0.0))
+    tape.combo_quads = n_pad
 
 
 def _mega_splice(tape: Tape, bbox: np.ndarray, qmask: np.ndarray):
@@ -259,6 +355,7 @@ def _plan(tape: Tape, rolled: Optional[bool]) -> ExecPlan:
     width = int(round(tape.frame_size[0]))
     height = int(round(tape.frame_size[1]))
     n_masks = tape.mask_count + 1
+    pack_walked_tape(tape)
     structure, bounds, radii, any_atlas, any_backdrop = tape.structure_cache
     if tape.combo_quads != bucket(max(tape.count, 1)):
         raise ValueError("tape combo was not padded to its quad bucket")
@@ -275,7 +372,9 @@ def _plan(tape: Tape, rolled: Optional[bool]) -> ExecPlan:
         combo=tape.combo, structure=checked,
         bounds=list(bounds), radii=list(radii), height=height, width=width,
         n_masks=n_masks,
-        tile_h=tile_h_from_density(*tape.tile_density, height, width),
+        tile_h=(tile_h_from_density(*tape.tile_density, height, width)
+                if tape.tile_density is not None
+                else pick_tile_h(tape.fields, tape.count, height, width)),
         has_init_frame=tape.clear_color is None, mega_combo=mega_combo,
         mega_atlas=mega_combo is not None and bool(any_atlas),
         rolled_items=rolled_items, rolled_radii=rolled_radii,
@@ -283,8 +382,9 @@ def _plan(tape: Tape, rolled: Optional[bool]) -> ExecPlan:
 
 
 def plan_execution(tape: Tape) -> ExecPlan:
-    """Derive the pass structure, pick the tile height, and take the native
-    walk's packed upload buffer as is. A tape of more than ROLLED_THRESHOLD
+    """Derive the pass structure, pick the tile height, and take the packed
+    upload buffer (the native walk's as is; a walked tape's packed by
+    pack_walked_tape). A tape of more than ROLLED_THRESHOLD
     items also gets the rolled item table when it holds a blur or a
     backdrop, else the megakernel's combo, atlas runs included. (The JAX
     default keeps atlas scenes off its megakernel, renderer.py:1123-1166,

@@ -1,10 +1,17 @@
 """FigRenderer: flatten a scene on the host, rasterize it on the device
-(figdraw_tpu/renderer.py, the native-walk paths: the frame executor, the
-rolled executor and the megakernel), with the glyph/image atlas and its
-image message bus, and device-resident scenes: snapshot_scene parks a
-flattened scene on the device, render_view and render_views draw it under a
-camera and per-root affines, update_scene patches edited roots in place
-(scene.py holds their state and host half).
+(figdraw_tpu/renderer.py: the frame executor, the rolled executor and the
+megakernel), with the glyph/image atlas and its image message bus, and
+device-resident scenes: snapshot_scene parks a flattened scene on the
+device, render_view and render_views draw it under a camera and per-root
+affines, update_scene patches edited roots in place (scene.py holds their
+state and host half).
+
+A RendersArray goes through the native walk (native/flatten.cpp); a
+Renders tree or a RenderFragments goes through the Python walk
+(render.render_root on a tape.TapeBackend) and the planner packs its tape.
+Both walks apply the global UI scale (basics.fig_ui_scale) and the
+renderer's pixel scale, and render_frame scales the frame size by the UI
+scale, as the JAX renderer does.
 
 The device is explicit: FigRenderer(device="cuda") raises when CUDA is
 absent, and a "cpu" renderer runs the plain torch versions of the kernels.
@@ -19,9 +26,12 @@ import torch
 
 from . import native
 from .atlas import Atlas, AtlasEntryMeta
+from .basics import fig_ui_scale, scaled
 from .colors import Color, as_color
 from .executor import get_frame_executor, get_mega_executor
 from .geometry import Vec2
+from .nodesarray import RendersArray
+from .render import render_root
 from .ops.rows import damage_spans, transform_rows
 from .plan import ExecPlan, plan_execution, plan_rolled, tile_h_from_density
 from .resources import ImageMessageBus, ImageMsgKind, default_bus
@@ -29,22 +39,27 @@ from .scene import (
     DeviceScene, anim_table, damage_rects, patch_device_scene, patch_staging,
     patchable_spans, plan_kind,
 )
-from .tape import Tape
+from .tape import Tape, TapeBackend
 
 DEFAULT_SDF_AA_FACTOR = 1.2  # figbackend.nim:34
 WHITE_IMAGE_KEY = "__figdraw_white__"  # renderer.WHITE_IMAGE_KEY
 
 
 class FigRenderer:
-    """Renders RendersArray scenes to (H, W, 4) float32 frames on `device`.
+    """Renders scenes (a RendersArray, a Renders tree or a RenderFragments)
+    to (H, W, 4) float32 frames on `device`.
 
     atlas_size, atlas_margin: the glyph/image atlas's first edge and its
     per-entry margin (it doubles on overflow). pixelate: nearest atlas
-    sampling (GL_NEAREST) instead of bilinear. Glyph quads sample without
-    the subpixel shift: the option comes with the text host pipeline."""
+    sampling (GL_NEAREST) instead of bilinear. pixel_scale: device pixels
+    per UI unit after the UI scale (a HiDPI frame); the walks draw the
+    scene that much larger, and the caller sizes the frame. Glyph quads
+    sample without the subpixel shift: the option comes with the text host
+    pipeline."""
 
     def __init__(self, atlas_size: int = 512, atlas_margin: int = 4,
-                 pixelate: bool = False, device="cuda"):
+                 pixelate: bool = False, pixel_scale: float = 1.0,
+                 device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("FigRenderer(device='cuda'): CUDA is not available")
@@ -55,6 +70,7 @@ class FigRenderer:
         self.atlas.put_image(WHITE_IMAGE_KEY, np.ones((4, 4, 4), np.float32),
                              AtlasEntryMeta(kind="generated"))
         self.pixelate = pixelate
+        self.pixel_scale = float(pixel_scale)
         self.aa_factor = DEFAULT_SDF_AA_FACTOR
         self.last_frame = None  # (H, W, 4) f32 tensor of the last render
         self._atlas_device = None
@@ -165,15 +181,34 @@ class FigRenderer:
                 clear_color: Color = Color(1.0, 1.0, 1.0, 1.0),
                 cull: bool = True, record_spans: bool = False,
                 reserve=None) -> Tape:
-        """Walk the scene into a packed quad tape (host only). cull,
-        record_spans, reserve: the JAX package's flatten takes them too
-        (renderer.flatten); as native.flatten_renders_array's."""
-        return native.flatten_renders_array(
-            renders, frame_size.x, frame_size.y, 1.0, 1.0, self.aa_factor,
-            self._clear_tuple(clear_main, clear_color),
-            atlas=self._walk_atlas(), pool_owner=id(self), cull=cull,
-            record_spans=record_spans, reserve=reserve,
-        )
+        """Walk the scene into a quad tape (host only), at the UI scale and
+        the pixel scale; frame_size is the frame's own (already scaled).
+
+        A RendersArray takes the native walk, whose tape arrives packed;
+        cull, record_spans and reserve are native.flatten_renders_array's.
+        A Renders or a RenderFragments takes the Python walk (renderer.flatten
+        of the JAX package), which has no saturation cull, root spans or
+        reserves, so those three are ignored there; its tape holds logical
+        rows, which plan.plan_execution packs."""
+        if isinstance(renders, RendersArray):
+            return native.flatten_renders_array(
+                renders, frame_size.x, frame_size.y, fig_ui_scale(),
+                self.pixel_scale, self.aa_factor,
+                self._clear_tuple(clear_main, clear_color),
+                atlas=self._walk_atlas(), pool_owner=id(self), cull=cull,
+                record_spans=record_spans, reserve=reserve,
+            )
+        backend = TapeBackend(white_uv=self._white_uv())
+        backend.entries = self.atlas.entries
+        backend.atlas_size = self.atlas.size
+        backend.aa_factor = self.aa_factor
+        backend.begin_frame(frame_size, clear_main, as_color(clear_color))
+        backend.save_transform()
+        backend.scale(self.pixel_scale)
+        render_root(backend, renders)
+        backend.restore_transform()
+        backend.end_frame()
+        return backend.finish()
 
     def execute(self, tape: Tape) -> torch.Tensor:
         """Plan the tape on the host, then run it on the device."""
@@ -241,27 +276,34 @@ class FigRenderer:
     def render_frame(self, renders, frame_size: Vec2, clear_main: bool = True,
                      clear_color: Color = Color(1.0, 1.0, 1.0, 1.0)):
         """Full frame: apply pending image messages, flatten on the host,
-        rasterize on the device. Returns the (H, W, 4) f32 frame tensor
+        rasterize on the device. renders: a RendersArray, a Renders tree or
+        a RenderFragments; frame_size in UI units (the frame is frame_size
+        times the UI scale). Returns the (H, W, 4) f32 frame tensor
         (asynchronous on CUDA).
 
-        The walk's fast export comes first (renderer.py:1307-1317): a
-        mask-heavy scene without atlas quads, blurs or backdrops goes from
-        the walk straight to the megakernel, every other scene through a
-        tape and execute(), which sends a mask-heavy atlas scene to the
-        megakernel too (plan.plan_execution)."""
-        if frame_size.x <= 0 or frame_size.y <= 0:
+        A RendersArray takes the walk's fast export first
+        (renderer.py:1307-1317): a mask-heavy scene without atlas quads,
+        blurs or backdrops goes from the walk straight to the megakernel,
+        every other scene through a tape and execute(), which sends a
+        mask-heavy atlas scene to the megakernel too (plan.plan_execution).
+        A tree takes the Python walk and execute(). A text node raises
+        NotImplementedError on either walk."""
+        fs = scaled(frame_size)
+        if fs.x <= 0 or fs.y <= 0:
             return self.last_frame
         self.process_image_messages()
+        if not isinstance(renders, RendersArray):
+            return self.execute(self.flatten(renders, fs, clear_main, clear_color))
         cc = self._clear_tuple(clear_main, clear_color)
         result = native.flatten_fast(
-            renders, frame_size.x, frame_size.y, 1.0, 1.0, self.aa_factor, cc,
-            atlas=self._walk_atlas(), pool_owner=id(self),
+            renders, fs.x, fs.y, fig_ui_scale(), self.pixel_scale,
+            self.aa_factor, cc, atlas=self._walk_atlas(), pool_owner=id(self),
         )
         if result[0] == "tape":
             return self.execute(result[1])
         _, combo, mask_count, density = result
-        width = int(round(frame_size.x))
-        height = int(round(frame_size.y))
+        width = int(round(fs.x))
+        height = int(round(fs.y))
         # the pooled buffer's meta row may hold an earlier frame's clear
         # color; a frame that does not clear starts from the last frame
         combo[-1, 0:4] = cc if cc is not None else 0.0
@@ -275,7 +317,11 @@ class FigRenderer:
                        reserve=None, animate: bool = False) -> DeviceScene:
         """Flatten once and park the tape on the device; render_view then
         draws it under any camera for a camera upload, a row transform and
-        the executor (renderer.snapshot_scene).
+        the executor (renderer.snapshot_scene). renders and frame_size as
+        render_frame's. A tree takes the Python walk, which records no
+        per-root spans: its snapshot is drawn under a camera, and
+        update_scene takes a new snapshot of it; root_transforms and patches
+        in place need a RendersArray, as in the JAX package.
 
         The snapshot flattens without the saturation cull, which is clamped
         to the viewport: panning could reveal what it dropped. Later edits
@@ -289,7 +335,7 @@ class FigRenderer:
         executor instead."""
         self.process_image_messages()
         clear_color = as_color(clear_color)
-        tape = self.flatten(renders, frame_size, clear_main, clear_color,
+        tape = self.flatten(renders, scaled(frame_size), clear_main, clear_color,
                             cull=False, record_spans=True, reserve=reserve)
         plan = plan_execution(tape)
         if animate and tape.mask_count and plan.mega_combo is not None:
@@ -317,10 +363,10 @@ class FigRenderer:
 
     def update_scene(self, scene: DeviceScene, renders, dirty=None) -> DeviceScene:
         """Bring a DeviceScene up to date after edits in place of `renders`,
-        the RendersArray it was snapshot from (renderer.update_scene): walk
-        only the dirty roots again and patch their rows into the resident
-        buffer, so a frame's host cost follows the edited quads, not the
-        scene.
+        the scene it was snapshot from (renderer.update_scene): for a
+        RendersArray walk only the dirty roots again and patch their rows
+        into the resident buffer, so a frame's host cost follows the edited
+        quads, not the scene; a tree always takes a new snapshot.
 
         dirty: (lvl, root_node_idx) keys, or bare ints for layer 0, of the
         roots whose subtrees changed. An edit that keeps a subtree's pass
@@ -484,3 +530,10 @@ class FigRenderer:
 def frames_to_u8(frames: torch.Tensor) -> torch.Tensor:
     """RGBA u8 on the device, take_screenshot's rounding (half to even)."""
     return torch.clamp(torch.round(frames * 255.0), 0, 255).to(torch.uint8)
+
+
+def new_fig_renderer(atlas_size: int = 512, pixel_scale: float = 1.0,
+                     device="cuda") -> FigRenderer:
+    """renderer.new_fig_renderer, with the port's explicit device."""
+    return FigRenderer(atlas_size=atlas_size, pixel_scale=pixel_scale,
+                       device=device)

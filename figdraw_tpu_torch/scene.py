@@ -19,8 +19,9 @@ import numpy as np
 import torch
 
 from . import native
+from .basics import fig_ui_scale
 from .colors import Color
-from .geometry import vec2
+from .geometry import Mat3, vec2
 from .nodesarray import RendersArray
 from .ops.layout import PACKED_MODES, PACKED_WIDTH, QI_MASK
 from .ops.rows import DAMAGE_RECTS, EMPTY_BBOX
@@ -172,14 +173,18 @@ def anim_state(scene: DeviceScene):
 
 def affine6(tr) -> np.ndarray:
     """One transform as the table row (m00, m01, m10, m11, tx, ty) of p' =
-    M p + t: a (6,) row in that order or a 2x3 [[a, b, tx], [c, d, ty]]."""
+    M p + t: a geometry.Mat3 (its translation is t), a (6,) row in that
+    order (geometry.root_affine gives one) or a 2x3 [[a, b, tx], [c, d,
+    ty]]."""
+    if isinstance(tr, Mat3):
+        return np.asarray((tr.a, tr.b, tr.c, tr.d, tr.tx, tr.ty), np.float32)
     arr = np.asarray(tr, np.float32)
     if arr.shape == (2, 3):
         return np.asarray((arr[0, 0], arr[0, 1], arr[1, 0], arr[1, 1],
                            arr[0, 2], arr[1, 2]), np.float32)
     if arr.shape == (6,):
         return arr
-    raise ValueError("root transform must be a (6,) row "
+    raise ValueError("root transform must be a Mat3, a (6,) row "
                      "(m00, m01, m10, m11, tx, ty) or a 2x3 affine")
 
 
@@ -251,7 +256,7 @@ def patch_device_scene(renderer, scene: DeviceScene, renders, dirty) -> bool:
     if scene.atlas_generation != renderer.atlas.generation:
         return False
     out = native.walk_roots_packed(
-        renders, dirty, 1.0, 1.0, renderer.aa_factor,
+        renders, dirty, fig_ui_scale(), renderer.pixel_scale, renderer.aa_factor,
         atlas=renderer._walk_atlas(),
         # the megakernel's rows carry their target in the mode lane, which a
         # scratch walk's rows lack; the other layouts read the atlas through

@@ -1,4 +1,4 @@
-"""Benchmark and check scenes in array form.
+"""Benchmark and check scenes, in array form and in tree form.
 
 `make_render_tree_array` is figdraw_tpu/scenes.py:44-344 (the 300-box
 animated shadow demo bench.py renders at 1080p), bit-identical to it: the
@@ -11,18 +11,39 @@ byte-identical to the JAX package's; `load_text_plan` reads bench_text's
 frame as the JAX package planned it. `build_grid` is bench_retained.py's
 grid of one root a box, `box_tracks` and `anim_table` bench_sceneanim.py's
 per-root affine animation of the demo scene.
+
+In tree form, built with the port's Fig API: `make_render_tree` (the
+headline), `make_table_scene` and `make_nonclip_scene` (bench_clipmask's
+tables; from_renders of a table equals make_clip_table_scene's rows byte
+for byte) and the scenes of three examples (`EXAMPLE_SCENES`), which
+`render_example` renders in each of `EXAMPLE_FORMS` against figdraw_tpu's
+stored block means (`example_reference_path`).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 from types import SimpleNamespace
 
 import numpy as np
 
-from .basics import DrawableKind, FigFlags, FigKind, ShadowStyle, StrokeCap
-from .fill import FillGradientAxis
+from .basics import (
+    BackdropBlurStyle, FigFlags, FigKind, RenderShadow, RenderStroke,
+    ShadowStyle, StrokeCap, StrokeJoin,
+)
+from .borders import (
+    fig_dashed_rounded_rect_border, fig_dotted_rounded_rect_border,
+    fig_rounded_rect_border,
+)
+from .colors import rgba
+from .fill import FillGradientAxis, fill, linear
+from .geometry import rect, vec2
+from .nodes import (
+    DrawableKind, Fig, RenderList, Renders, drawable_arc, drawable_bezier,
+    drawable_circle, drawable_line, drawable_rect, new_renders,
+)
 from .nodesarray import OP_DTYPE, RenderListArray, RendersArray
 
 # Box-placement clamp bounds shared with the native animator: the rightmost
@@ -465,7 +486,7 @@ def modes_tape(w: float = 256.0, h: float = 128.0):
     tape = native.flatten_renders_array(
         make_modes_scene_array(w, h), w, h, 1.0, 1.0, DEFAULT_SDF_AA_FACTOR,
         (1.0, 1.0, 1.0, 1.0))
-    walked_f, walked_m = tape.fields_modes()
+    walked_f, walked_m = tape.fields, tape.modes
     extra_f, extra_m = walk_free_mode_rows(w, h)
     n_live = tape.count + extra_f.shape[0]
     n_pad = bucket(n_live)
@@ -926,3 +947,502 @@ def make_image_panels_scene(w: float, h: float, n: int,
     out = RendersArray()
     out.set_layer(0, lst)
     return out
+
+
+# --- tree-form scenes -------------------------------------------------------------
+#
+# Built with the port's own Fig API, node for node as their sources build
+# them with figdraw_tpu's: bench.py's headline (figdraw_tpu/scenes.py
+# make_render_tree), bench_clipmask.py's tables (make_table_scene,
+# make_nonclip_scene) and the scenes of examples/layers_clip.py,
+# examples/drawable_beziers.py and examples/dashed_dotted_borders.py.
+
+def make_render_tree(w: float, h: float, frame: int, copies: int = 100) -> Renders:
+    """bench.py's headline scene as a Fig tree (scenes.make_render_tree of
+    the JAX package): the same scene as make_render_tree_array, built node
+    by node; from_renders of it holds make_render_tree_array's rows up to the
+    f32 round trip of the animated columns."""
+    lst = RenderList()
+    t = frame * 0.02
+
+    lst.add_root(
+        Fig(
+            kind=FigKind.nkRectangle,
+            zlevel=0,
+            screen_box=rect(0, 0, w, h),
+            fill=fill(rgba(255, 255, 255, 155)),
+        )
+    )
+
+    red_start = (60.0, 60.0)
+    green_start = (320.0, 120.0)
+    blue_start = (180.0, 300.0)
+    max_w, max_h = 260.0, 180.0
+    max_x = max(0.0, w - (green_start[0] + max_w))
+    max_y = max(0.0, h - (blue_start[1] + max_h))
+
+    rng = np.random.RandomState(12345)
+    base_xs = rng.uniform(0.0, max_x, size=copies)
+    base_ys = rng.uniform(0.0, max_y, size=copies)
+
+    for i in range(copies):
+        jitter_x = math.sin(t + i * 0.15) * 20
+        jitter_y = math.cos(t * 0.9 + i * 0.2) * 20
+        off_x = min(max(base_xs[i] + jitter_x, 0.0), max_x)
+        off_y = min(max(base_ys[i] + jitter_y, 0.0), max_y)
+
+        pulse_w = 0.5 + 0.5 * math.sin(t * 0.8 + i * 0.07)
+        pulse_h = 0.5 + 0.5 * math.cos(t * 0.65 + i * 0.09)
+        red_w = 160.0 + 100.0 * pulse_w
+        red_h = 110.0 + 70.0 * pulse_h
+        green_w = 160.0 + 100.0 * pulse_h
+        green_h = 110.0 + 70.0 * pulse_w
+        blue_w = 160.0 + 100.0 * (1.0 - pulse_w)
+        blue_h = 110.0 + 70.0 * (1.0 - pulse_h)
+
+        cp = 0.5 + 0.5 * math.sin(t * 1.25 + i * 0.11)
+        c0 = 4.0 + 26.0 * cp
+        c1 = 6.0 + 22.0 * (1.0 - cp)
+        c2 = 8.0 + 18.0 * (0.5 + 0.5 * math.sin(t * 0.7 + i * 0.05))
+        c3 = 10.0 + 16.0 * (0.5 + 0.5 * math.cos(t * 0.8 + i * 0.06))
+
+        gp = 0.5 + 0.5 * math.cos(t * 0.95 + i * 0.08)
+        g0 = 6.0 + 22.0 * gp
+        g1 = 8.0 + 18.0 * (1.0 - gp)
+        g2 = 10.0 + 16.0 * (0.5 + 0.5 * math.cos(t * 0.75 + i * 0.04))
+        g3 = 12.0 + 14.0 * (0.5 + 0.5 * math.sin(t * 0.85 + i * 0.05))
+
+        sp = 0.5 + 0.5 * math.sin(t * 1.1 + i * 0.05)
+        shadow_blur = max(0.0, 6.0 + 18.0 * sp)
+        shadow_spread = max(0.0, 4.0 + 20.0 * (1.0 - sp))
+        shadow_x = 6.0 + 10.0 * math.sin(t * 0.9 + i * 0.03)
+        shadow_y = 6.0 + 10.0 * math.cos(t * 0.9 + i * 0.03)
+        ip = 0.5 + 0.5 * math.sin(t * 1.05 + i * 0.06)
+        inset_blur = max(0.0, 8.0 + 10.0 * ip)
+        inset_spread = max(0.0, 2.0 + 10.0 * (1.0 - ip))
+        inset_x = 6.0 * math.sin(t * 0.85 + i * 0.04)
+        inset_y = 6.0 * math.cos(t * 0.8 + i * 0.04)
+        use_green_gradient = (i % 2) == 0
+        use_blue_gradient = (i % 3) == 0
+
+        lst.add_root(
+            Fig(
+                kind=FigKind.nkRectangle,
+                zlevel=0,
+                corners=(int(c0), int(c1), int(c2), int(c3)),
+                corner_radii_y=(int(c0), int(c1 * 2), int(c2), int(c3 * 2)),
+                flags=FigFlags.NfEllipticalCorners,
+                screen_box=rect(red_start[0] + off_x, red_start[1] + off_y, red_w, red_h),
+                fill=fill(rgba(220, 40, 40, 155)),
+                stroke=RenderStroke(weight=5.0, fill=fill(rgba(0, 0, 0, 155))),
+            )
+        )
+
+        green_fill = (
+            linear(
+                rgba(18, 112, 64, 255),
+                rgba(40, 180, 90, 255),
+                rgba(78, 224, 188, 255),
+                axis=(
+                    FillGradientAxis.fgaX
+                    if (i % 4) < 2
+                    else FillGradientAxis.fgaDiagTLBR
+                ),
+                mid_pos=128,
+            )
+            if use_green_gradient
+            else fill(rgba(40, 180, 90, 155))
+        )
+        lst.add_root(
+            Fig(
+                kind=FigKind.nkRectangle,
+                zlevel=0,
+                screen_box=rect(
+                    green_start[0] + off_x, green_start[1] + off_y, green_w, green_h
+                ),
+                corners=(int(g0), int(g1), int(g2), int(g3)),
+                fill=green_fill,
+                shadows=(
+                    RenderShadow(
+                        style=ShadowStyle.DropShadow,
+                        blur=shadow_blur,
+                        spread=shadow_spread,
+                        x=shadow_x,
+                        y=shadow_y,
+                        fill=fill(rgba(0, 0, 0, 155)),
+                    ),
+                ),
+            )
+        )
+
+        blue_fill = (
+            linear(
+                rgba(44, 72, 186, 255),
+                rgba(60, 90, 220, 255),
+                rgba(118, 168, 255, 255),
+                axis=(
+                    FillGradientAxis.fgaY
+                    if (i % 2) == 0
+                    else FillGradientAxis.fgaDiagBLTR
+                ),
+                mid_pos=132,
+            )
+            if use_blue_gradient
+            else fill(rgba(60, 90, 220, 155))
+        )
+        inner_fill = (
+            linear(rgba(25, 25, 40, 100), rgba(65, 65, 95, 180),
+                   axis=FillGradientAxis.fgaDiagBLTR)
+            if use_blue_gradient
+            else fill(rgba(40, 40, 60, 150))
+        )
+        lst.add_root(
+            Fig(
+                kind=FigKind.nkRectangle,
+                zlevel=0,
+                screen_box=rect(
+                    blue_start[0] + off_x, blue_start[1] + off_y, blue_w, blue_h
+                ),
+                fill=blue_fill,
+                stroke=RenderStroke(weight=4.0, fill=fill(rgba(255, 255, 255, 210))),
+                shadows=(
+                    RenderShadow(
+                        style=ShadowStyle.InnerShadow,
+                        blur=inset_blur,
+                        spread=inset_spread,
+                        x=inset_x,
+                        y=inset_y,
+                        fill=inner_fill,
+                    ),
+                ),
+            )
+        )
+
+    # elliptical orange pill
+    lst.add_root(
+        Fig(
+            kind=FigKind.nkRectangle,
+            zlevel=0,
+            screen_box=rect(max(20.0, w - 200.0), 20, 180, 100),
+            fill=fill(rgba(238, 140, 30, 220)),
+            corners=(90, 90, 90, 90),
+            corner_radii_y=(50, 50, 50, 50),
+            flags=FigFlags.NfEllipticalCorners,
+            stroke=RenderStroke(weight=4.0, fill=fill(rgba(90, 45, 0, 220))),
+        )
+    )
+
+    # moving backdrop-blur panel + yellow overlay
+    yw, yh, ym = 360.0, 240.0, 20.0
+    travel_x = max(0.0, w - yw - ym * 2.0)
+    travel_y = max(0.0, h - yh - ym * 2.0)
+    yx = ym + travel_x * (0.5 + 0.5 * math.sin(t * 0.33))
+    yy = ym + travel_y * (0.5 + 0.5 * math.cos(t * 0.41))
+    yc = 20.0 + 12.0 * (0.5 + 0.5 * math.sin(t * 0.7))
+
+    lst.add_root(
+        Fig(
+            kind=FigKind.nkBackdropBlur,
+            zlevel=0,
+            corners=(int(yc),) * 4,
+            screen_box=rect(yx, yy, yw, yh),
+            fill=fill(rgba(0, 0, 0, 0)),
+            backdrop_blur=BackdropBlurStyle(blur=18.0),
+        )
+    )
+    lst.add_root(
+        Fig(
+            kind=FigKind.nkRectangle,
+            zlevel=0,
+            corners=(int(yc),) * 4,
+            screen_box=rect(yx, yy, yw, yh),
+            fill=fill(rgba(255, 225, 55, 120)),
+            stroke=RenderStroke(weight=6.0, fill=fill(rgba(95, 72, 0, 185))),
+        )
+    )
+
+    renders = new_renders()
+    renders.set_layer(0, lst)
+    return renders
+
+
+def _tree_rect(box, color, flags=0, corners=0, zlevel=0) -> Fig:
+    return Fig(kind=FigKind.nkRectangle, zlevel=zlevel, screen_box=box,
+               fill=fill(color), corners=(corners,) * 4, flags=flags)
+
+
+def make_table_scene(kind: str, w: float = 1200.0, h: float = 800.0,
+                     rows: int = 180, cols: int = 6) -> Renders:
+    """bench_clipmask.make_table_scene as a tree: kind "subclip" (every cell
+    clips with a mask plane) or "rectmask" (the rect-mask fast path).
+    from_renders of it equals make_clip_table_scene(kind, ...) byte for
+    byte."""
+    if kind not in ("rectmask", "subclip"):
+        raise ValueError(f"unknown table kind {kind!r}")
+    margin, gap = 22.0, 4.0
+    viewport = rect(margin, margin, w - margin * 2, h - margin * 2)
+    cell_h = 22.0
+    cell_w = (viewport.w - gap * (cols + 1)) / cols
+    scroll_y = 37.0
+
+    lst = RenderList()
+    lst.add_root(_tree_rect(rect(0, 0, w, h), rgba(248, 249, 251, 255)))
+    vp = lst.add_root(_tree_rect(viewport, rgba(232, 235, 240, 255),
+                                 flags=FigFlags.NfClipContent, corners=10))
+    cell_flags = (FigFlags.NfClipContent if kind == "subclip"
+                  else FigFlags.NfRectMaskContent)
+    for row in range(rows):
+        y = viewport.y + gap + row * (cell_h + gap) - scroll_y
+        for col in range(cols):
+            x = viewport.x + gap + col * (cell_w + gap)
+            cell = rect(x, y, cell_w, cell_h)
+            color = (rgba(255, 255, 255, 255) if (row + col) % 2 == 0
+                     else rgba(242, 246, 250, 255))
+            ci = lst.add_child(vp, _tree_rect(cell, color, flags=cell_flags,
+                                              corners=4))
+            tone = 42 + (row * 7 + col * 17) % 72
+            lst.add_child(ci, _tree_rect(
+                rect(cell.x - 12, cell.y + 4, cell.w + 24, 5),
+                rgba(36, 120 + (row * 5) % 80, 235, 255), corners=2))
+            lst.add_child(ci, _tree_rect(
+                rect(cell.x + cell.w * 0.38, cell.y - 5, cell.w * 0.74, cell.h + 10),
+                rgba(tone, 170 - (col * 11) % 70, 220, 255), corners=3))
+            lst.add_child(ci, _tree_rect(
+                rect(cell.x + 7, cell.y + cell.h - 7, cell.w - 14, 8),
+                rgba(190 + (row + col) % 30, 210, 220, 255), corners=2))
+    renders = new_renders()
+    renders.set_layer(0, lst)
+    return renders
+
+
+def make_nonclip_scene(w: float = 1200.0, h: float = 800.0, rows: int = 180,
+                       cols: int = 6) -> Renders:
+    """bench_clipmask.make_nonclip_scene as a tree, the control of the
+    clipped tables: plain rounded cells, no masks."""
+    margin, gap, cell_h = 18.0, 5.0, 18.0
+    cell_w = (w - margin * 2 - gap * (cols - 1)) / cols
+    lst = RenderList()
+    lst.add_root(_tree_rect(rect(0, 0, w, h), rgba(248, 249, 251, 255)))
+    for row in range(rows):
+        y = margin + row * (cell_h + gap)
+        for col in range(cols):
+            x = margin + col * (cell_w + gap)
+            shade = 220 + (row * 3 + col * 7) % 35
+            accent = 80 + (row * 11 + col * 13) % 90
+            lst.add_root(_tree_rect(rect(x, y, cell_w, cell_h),
+                                    rgba(shade, 245 - (col % 5) * 5, accent, 255),
+                                    corners=4))
+    renders = new_renders()
+    renders.set_layer(0, lst)
+    return renders
+
+
+# the example scenes' own frame sizes
+LAYERS_CLIP_SIZE = (900, 560)
+DRAWABLE_BEZIERS_SIZE = (760, 560)
+DASHED_BORDERS_SIZE = (820, 560)
+
+
+def make_layers_clip_scene(w: float = 900.0, h: float = 560.0,
+                           slide: float = 12.0) -> Renders:
+    """examples/layers_clip.py's scene: ZLevel layers around a z=0 plane with
+    two containers, one clipping its overflowing button with a rounded
+    mask plane and one with the rect-mask fast path, and buttons under
+    (z=-5) and over (z=5) them. slide 12 is the example's last frame."""
+    def fig(box, color, z, clip=False, rect_mask=False, corners=10):
+        flags = FigFlags(0)
+        if clip:
+            flags |= FigFlags.NfClipContent
+        if rect_mask:
+            flags |= FigFlags.NfRectMaskContent
+        return _tree_rect(box, color, flags=flags, corners=corners, zlevel=z)
+
+    bg = rgba(255, 255, 255, 255)
+    container = rgba(208, 208, 208, 255)
+    button = rgba(43, 159, 234, 255)
+    under = rgba(234, 96, 43, 255)
+    over = rgba(80, 200, 120, 255)
+    cw, ch = w * 0.30, w * 0.40
+    cy = h * 0.10
+    clx, crx = w * 0.03, w * 0.50
+    bx = cw * 0.10 + slide
+    bw, bh = cw * 1.30, ch * 0.20
+    by1, by2, by3 = ch * 0.15, ch * 0.45, ch * 0.75
+
+    renders = new_renders()
+    renders.add_root(-20, fig(rect(0, 0, w, h), bg, -20, corners=0))
+    left = renders.add_root(0, fig(rect(clx, cy, cw, ch), container, 0, clip=True))
+    right = renders.add_root(0, fig(rect(crx, cy, cw, ch), container, 0,
+                                    rect_mask=True))
+    renders.add_child(0, left, fig(rect(clx + bx, cy + by2, bw, bh), button, 0))
+    renders.add_child(0, right, fig(rect(crx + bx, cy + by2, bw, bh), button, 0))
+    renders.add_root(-5, fig(rect(clx + bx, cy + by3, bw, bh), under, -5))
+    renders.add_root(-5, fig(rect(crx + bx, cy + by3, bw, bh), under, -5))
+    renders.add_root(5, fig(rect(clx + bx, cy + by1, bw, bh), over, 5))
+    renders.add_root(5, fig(rect(crx + bx, cy + by1, bw, bh), over, 5))
+    return renders
+
+
+def make_drawable_beziers_scene(w: float = 760.0, h: float = 560.0) -> Renders:
+    """examples/drawable_beziers.py's scene: quadratic, cubic and 5-point
+    beziers stroked with butt, square and round caps and bevel and round
+    joins, their control polygons and points, two arc sweeps, a rounded
+    rect drawable and endpoint markers."""
+    def drawable(area, node_fill, stroke, ops, steps=0, aa=0.0):
+        return Fig(kind=FigKind.nkDrawable, screen_box=area, fill=fill(node_fill),
+                   draw_stroke=stroke, draw_steps=steps, draw_aa=aa,
+                   draw_ops=tuple(ops))
+
+    renders = new_renders()
+    renders.add_root(0, Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, w, h),
+                            fill=fill(rgba(246, 248, 252, 255))))
+    margin = max(28.0, min(w, h) * 0.08)
+    area = rect(margin, margin, w - margin * 2, h - margin * 2)
+
+    def lp(x, y):
+        return vec2(area.w * x, area.h * y)
+
+    transparent = rgba(0, 0, 0, 0)
+    blue, rose, green = (rgba(26, 99, 214, 255), rgba(221, 62, 125, 255),
+                         rgba(40, 153, 94, 255))
+    muted = {"blue": rgba(26, 99, 214, 70), "rose": rgba(221, 62, 125, 70),
+             "green": rgba(40, 153, 94, 70), "ink": rgba(82, 92, 112, 120)}
+    white = rgba(255, 255, 255, 230)
+    quadratic = [lp(0.08, 0.72), lp(0.29, 0.10), lp(0.52, 0.64)]
+    cubic = [lp(0.14, 0.38), lp(0.36, 0.04), lp(0.58, 0.94), lp(0.83, 0.42)]
+    generic = [lp(0.10, 0.58), lp(0.25, 0.88), lp(0.43, 0.44), lp(0.64, 0.80),
+               lp(0.91, 0.20)]
+    arc_center = lp(0.76, 0.75)
+
+    def add(node):
+        renders.add_root(0, node)
+
+    add(drawable(area, transparent,
+                 RenderStroke(weight=3.0, fill=fill(muted["ink"]),
+                              cap=StrokeCap.scSquare, join=StrokeJoin.sjBevel),
+                 [drawable_arc(arc_center, min(area.w, area.h) * 0.10,
+                               -math.pi * 1.10, math.pi * 1.35),
+                  drawable_arc(arc_center, min(area.w, area.h) * 0.15,
+                               -math.pi * 0.85, math.pi * 0.95)],
+                 steps=24, aa=0.85))
+    add(drawable(area, transparent,
+                 RenderStroke(weight=2.0, fill=fill(rgba(80, 90, 110, 90))),
+                 [drawable_rect(rect(18, 18, area.w - 36, area.h - 36),
+                                corners=(16, 16, 16, 16))]))
+    for pts, key in ((quadratic, "blue"), (cubic, "rose"), (generic, "green")):
+        add(drawable(area, transparent,
+                     RenderStroke(weight=1.4, fill=fill(muted[key])),
+                     [drawable_line(pts[i], pts[i + 1]) for i in range(len(pts) - 1)]))
+        add(drawable(area, muted[key],
+                     RenderStroke(weight=1.5, fill=fill(white)),
+                     [drawable_circle(p, 5.0) for p in pts]))
+    add(drawable(area, transparent,
+                 RenderStroke(weight=7.0, fill=fill(blue), cap=StrokeCap.scButt),
+                 [drawable_bezier(quadratic)], aa=0.9))
+    add(drawable(area, transparent,
+                 RenderStroke(weight=8.0, fill=fill(rose), cap=StrokeCap.scSquare,
+                              join=StrokeJoin.sjBevel),
+                 [drawable_bezier(cubic)], steps=24, aa=0.9))
+    add(drawable(area, transparent,
+                 RenderStroke(weight=5.5, fill=fill(green), cap=StrokeCap.scRound,
+                              join=StrokeJoin.sjRound),
+                 [drawable_bezier(generic)], steps=32, aa=0.9))
+    for p, c, r in ((lp(0.52, 0.64), blue, 9.0), (lp(0.83, 0.42), rose, 9.0),
+                    (lp(0.91, 0.20), green, 8.0)):
+        add(drawable(area, c, RenderStroke(weight=2.0, fill=fill(white)),
+                     [drawable_circle(p, r)]))
+    return renders
+
+
+def make_dashed_borders_scene(w: float = 820.0, h: float = 560.0,
+                              phase: float = 5.0) -> Renders:
+    """examples/dashed_dotted_borders.py's scene: a 3x2 grid of shadowed
+    cards, each with a solid, dashed (butt or round caps), dotted or
+    marching-ants rounded-rect border from borders.py; phase 5 is the
+    example's frame."""
+    renders = new_renders()
+    renders.add_root(0, Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, w, h),
+                            fill=fill(rgba(236, 240, 247, 255))))
+    cols, rows = 3, 2
+    pad, gap = 36.0, 28.0
+    card_w = (w - pad * 2 - gap * (cols - 1)) / cols
+    card_h = (h - pad * 2 - gap * (rows - 1)) / rows
+    ink = rgba(34, 48, 74, 255)
+    blue = rgba(26, 99, 214, 255)
+    rose = rgba(221, 62, 125, 255)
+    green = rgba(40, 153, 94, 255)
+    borders = [
+        lambda box: fig_rounded_rect_border(box, (14, 14, 14, 14), fill(ink), 3.0),
+        lambda box: fig_dashed_rounded_rect_border(
+            box, (14, 14, 14, 14), fill(blue), 3.0, dash_length=14.0,
+            gap_length=8.0),
+        lambda box: fig_dashed_rounded_rect_border(
+            box, (22, 22, 22, 22), fill(rose), 5.0, dash_length=2.0,
+            gap_length=12.0, cap=StrokeCap.scRound),
+        lambda box: fig_dotted_rounded_rect_border(
+            box, (14, 14, 14, 14), fill(green), 5.0, gap_length=7.0),
+        lambda box: fig_dotted_rounded_rect_border(
+            box, (28, 28, 4, 4), fill(ink), 3.0, gap_length=3.0),
+        lambda box: fig_dashed_rounded_rect_border(
+            box, (10, 10, 10, 10), fill(blue), 2.0, dash_length=8.0,
+            gap_length=6.0, offset=phase),
+    ]
+    i = 0
+    for row in range(rows):
+        for col in range(cols):
+            x = pad + col * (card_w + gap)
+            y = pad + row * (card_h + gap)
+            renders.add_root(0, Fig(
+                kind=FigKind.nkRectangle, screen_box=rect(x, y, card_w, card_h),
+                fill=fill(rgba(255, 255, 255, 245)), corners=(14, 14, 14, 14),
+                shadows=(RenderShadow(style=ShadowStyle.DropShadow, blur=14,
+                                      spread=2, x=0, y=6,
+                                      fill=fill(rgba(25, 35, 55, 34))),),
+            ))
+            renders.add_root(0, borders[i](rect(x + 18, y + 18, card_w - 36,
+                                                card_h - 36)))
+            i += 1
+    return renders
+
+
+# name -> (make function, frame size): the example scenes chip_smoke.py and the
+# tests hold to the JAX package's frames
+EXAMPLE_SCENES = {
+    "layers_clip": (make_layers_clip_scene, LAYERS_CLIP_SIZE),
+    "drawable_beziers": (make_drawable_beziers_scene, DRAWABLE_BEZIERS_SIZE),
+    "dashed_borders": (make_dashed_borders_scene, DASHED_BORDERS_SIZE),
+}
+
+# the forms each example scene is held to the JAX package's frame in:
+# form -> (renderer pixel_scale, UI scale, frame_size multiplier); either
+# scale of 2 gives a frame of twice the size, drawn differently (the UI
+# scale scales the scene's coordinates before the walk, the pixel scale the
+# walk's transform)
+EXAMPLE_FORMS = {"1x": (1.0, 1.0, 1), "pixel2": (2.0, 1.0, 2), "ui2": (1.0, 2.0, 1)}
+
+
+def example_reference_path(name: str, form: str) -> str:
+    """figdraw_tpu's frame of an example scene in one form, as 8x8 block
+    means (tests/torch_reference.py writes them)."""
+    if name not in EXAMPLE_SCENES or form not in EXAMPLE_FORMS:
+        raise ValueError(f"unknown example {name!r} or form {form!r}")
+    return os.path.join(REFERENCE_DIR, f"example_{name}_{form}_blocks8.npy")
+
+
+def render_example(renderer_for, name: str, form: str):
+    """The frame of example scene `name` in `form`: renderer_for(pixel_scale)
+    gives the renderer; the UI scale is set for the frame and restored after
+    it. Returns (renderer, frame)."""
+    from .basics import fig_ui_scale, set_fig_ui_scale
+    from .geometry import vec2
+
+    build, (w, h) = EXAMPLE_SCENES[name]
+    pixel_scale, ui_scale, mult = EXAMPLE_FORMS[form]
+    ren = renderer_for(pixel_scale)
+    old = fig_ui_scale()
+    set_fig_ui_scale(ui_scale)
+    try:
+        frame = ren.render_frame(build(w, h), vec2(w * mult, h * mult))
+    finally:
+        set_fig_ui_scale(old)
+    return ren, frame

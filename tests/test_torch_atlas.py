@@ -384,7 +384,7 @@ def test_images_mixed_binning_matches_prebin(monkeypatch):
     with pytest.raises(_Binned):
         run(torch.from_numpy(plan.combo))
     idx, counts = seen["lists"]
-    fields, modes = tape.fields_modes()
+    fields, modes = tape.fields, tape.modes
     ph = -(-1080 // plan.tile_h) * plan.tile_h
     ref_idx, ref_counts = raster_pallas.prebin(
         jnp.asarray(fields), jnp.int32(fields.shape[0]), ph, 1920,

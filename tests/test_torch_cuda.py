@@ -786,3 +786,80 @@ def test_binning_wrapper_rejects_bad_arguments(dev):
     with pytest.raises(ValueError):
         bin_quads(fd, 0, 256, 0, 3, 128, 128)
     assert binning.LAUNCHES == before
+
+
+# --- tree-form scenes: the Python walk and the planner into the same kernels ------
+
+
+def _tree_and_array_frames(tree, size):
+    """The frame of to_renders(from_renders(tree)) through the Python walk
+    and of from_renders(tree) through the native walk, each on a renderer
+    of its own, with the kernel launches each made."""
+    from figdraw_tpu_torch import from_renders, to_renders
+
+    arr = from_renders(tree)
+    out = []
+    for scene in (to_renders(arr), arr):
+        before = (raster.LAUNCHES, mega.LAUNCHES, blur.LAUNCHES)
+        frame = FigRenderer(device="cuda").render_frame(scene, size)
+        torch.cuda.synchronize()
+        out.append((frame, tuple(a - b for a, b in zip(
+            (raster.LAUNCHES, mega.LAUNCHES, blur.LAUNCHES), before))))
+    return out
+
+
+def test_tree_headline_on_the_card(dev):
+    """bench.py's scene as a tree: the Python walk's frame equals the native
+    walk's bit for bit, through K1 twice and the blur kernel once a pass,
+    and the planned tape's frame matches the plain executor's."""
+    from figdraw_tpu_torch import make_render_tree
+
+    size = vec2(640, 360)
+    tree = make_render_tree(640, 360, 2, copies=10)
+    (py, py_n), (nat, nat_n) = _tree_and_array_frames(tree, size)
+    assert py_n == nat_n == (2, 0, 2)
+    assert torch.equal(py, nat)
+    ren = FigRenderer(device="cuda")
+    plan = plan_execution(ren.flatten(tree, size))
+    run = get_frame_executor(plan.structure, plan.height, plan.width,
+                             plan.n_masks, plan.has_init_frame, plan.tile_h)
+    ref = run(torch.from_numpy(plan.combo).to(dev), None,
+              draw=raster.draw_pass_planar_prebinned_plain)
+    got = ren.execute_plan(plan)
+    assert float((got - ref).abs().max()) <= TOL
+
+
+def test_tree_subclip_table_on_the_card(dev):
+    """bench_clipmask's sub-clip table as a tree: the planner's megakernel
+    combo and the native walk's own mega export give the same frame bit for
+    bit, one K4 launch each."""
+    from figdraw_tpu_torch.scenes import make_table_scene
+
+    tree = make_table_scene("subclip", 320.0, 200.0, 12, 6)
+    (py, py_n), (nat, nat_n) = _tree_and_array_frames(tree, vec2(320, 200))
+    assert py_n == nat_n == (0, 1, 0)
+    assert torch.equal(py, nat)
+
+
+def test_render_view_takes_mat3_and_root_affine(dev):
+    """render_view's root_transforms as Mat3 and root_affine rows on an
+    animated snapshot of from_renders(tree): bit-equal to the same view
+    given the (R, 6) table."""
+    from figdraw_tpu_torch import Mat3, from_renders, make_render_tree, root_affine
+
+    size = vec2(640, 360)
+    arr = from_renders(make_render_tree(640, 360, 1, copies=6))
+    ren = FigRenderer(device="cuda")
+    scene = ren.snapshot_scene(arr, size, animate=True)
+    keys = scene.animation_order()
+    table = np.zeros((len(keys), 6), np.float32)
+    table[:, 0] = table[:, 3] = 1.0
+    mats = {keys[2]: Mat3(1.0, 0.0, 12.0, 0.0, 1.0, -5.0),
+            keys[5]: Mat3(2.0, 0.0, -30.0, 0.0, 0.5, 40.0)}
+    for k, m in mats.items():
+        table[keys.index(k)] = (m.a, m.b, m.c, m.d, m.tx, m.ty)
+    bulk = ren.render_view(scene, (3.0, -2.0), root_transforms=table)
+    assert torch.equal(ren.render_view(scene, (3.0, -2.0), root_transforms=mats), bulk)
+    aff = {keys[2]: root_affine((12.0, -5.0)),
+           keys[5]: root_affine((-30.0, 40.0), scale=(2.0, 0.5))}
+    assert torch.equal(ren.render_view(scene, (3.0, -2.0), root_transforms=aff), bulk)

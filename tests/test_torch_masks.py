@@ -160,7 +160,7 @@ def test_rectmask_table_binning_matches_prebin(monkeypatch):
     assert (tape.combo_quads, plan.n_masks, plan.tile_h) == (6144, 2, 64)
     idx, counts = _executor_binning(monkeypatch, plan.structure, plan.combo,
                                     800, 1200, plan.n_masks, plan.tile_h)
-    fields, modes = tape.fields_modes()
+    fields, modes = tape.fields, tape.modes
     ref_idx, ref_counts = _jax_prebin(fields, modes, plan.bounds,
                                       (True, False, True), 832, 1280, 64)
     np.testing.assert_array_equal(counts.numpy(), ref_counts)

@@ -459,7 +459,7 @@ def test_a_plane0_target_is_never_culled():
     scene.set_layer(0, lst)
     w, h, th, n_masks = 128, 64, 64, 2
     tape = port.FigRenderer(device="cpu").flatten(scene, port.vec2(w, h))
-    fields, modes = tape.fields_modes()
+    fields, modes = tape.fields, tape.modes
     assert tape.count == 2
     modes = modes.copy()
     modes[0, QI_MODE] += 1 << mega.MEGA_TARGET_SHIFT

@@ -14,6 +14,13 @@ long tapes on the rolled executor):
   height), the atlas its glyphs were packed into, and the frame's 8x8
   block means. The card's machine has no fontTools: the port's text phase
   runs this stored plan;
+- `example_<scene>_<form>_blocks8.npy`: 8x8 block means of the scenes of
+  examples/layers_clip.py (900x560), examples/drawable_beziers.py
+  (760x560) and examples/dashed_dotted_borders.py (820x560), each built
+  by the example's own make_scene and rendered at its own size (form
+  `1x`), at pixel_scale=2 into a frame of twice the size (`pixel2`) and at
+  UI scale 2 (`ui2`), by FigRenderer(use_pallas=True): Pallas in interpret
+  mode on the CPU;
 - `textclip_1200x800.npz`: a table of text in clipped cells, tests/
   test_mega.py's text-in-clip scene grown to bench_clipmask's table (1200x800,
   180 rows x 6 cells in a clipped viewport, each cell clipping a line of
@@ -21,9 +28,11 @@ long tapes on the rolled executor):
   pass structure, draw bounds, tile density), atlas and block means. The
   port plans the stored tape itself (`scenes.load_text_tape`).
 
-Rewrite them all (needs jax, fontTools and the DejaVu font):
+Rewrite them all (needs jax, fontTools and the DejaVu font), or only the
+example scenes' (needs jax):
 
     JAX_PLATFORMS=cpu python tests/torch_reference.py
+    JAX_PLATFORMS=cpu python tests/torch_reference.py examples
 """
 
 import json
@@ -55,9 +64,11 @@ def block_means(frame, k: int = 8):
 
 
 def to_port(arr):
-    """A figdraw_tpu RendersArray as the port's (the node rows are the same
-    bytes)."""
-    from figdraw_tpu_torch.nodesarray import RenderListArray, RendersArray
+    """A figdraw_tpu RendersArray as the port's: the node rows are the same
+    bytes, and the drawable side arrays (ops and bezier points) the rows
+    index come along, so the native walk reads the same ops. Text side
+    arrays do not: the port packs no text."""
+    from figdraw_tpu_torch.nodesarray import OP_DTYPE, RenderListArray, RendersArray
 
     out = RendersArray()
     for lvl, lst in arr.sorted_pairs():
@@ -65,6 +76,9 @@ def to_port(arr):
         p.nodes[: lst.count] = lst.nodes[: lst.count]
         p.count = lst.count
         p.root_ids = list(lst.root_ids)
+        ops, points = lst.ops_view()
+        p.ops_rows = [np.frombuffer(ops.tobytes(), OP_DTYPE)] if ops.shape[0] else []
+        p.points_rows = [tuple(float(v) for v in pt) for pt in points]
         out.set_layer(lvl, p)
     return out
 
@@ -302,11 +316,69 @@ def text_table_fixture(rows: int = TABLE_ROWS, cols: int = TABLE_COLS,
     return arrays, frame
 
 
+def jax_example_scene(name: str):
+    """An example scene as its example builds it with the figdraw_tpu API
+    (the last frame the example writes): (renders, (w, h))."""
+    sys.path.insert(0, os.path.join(REPO, "examples"))
+    try:
+        if name == "layers_clip":
+            import layers_clip
+
+            return layers_clip.make_scene(layers_clip.W, layers_clip.H,
+                                          slide=12.0), (layers_clip.W, layers_clip.H)
+        if name == "drawable_beziers":
+            import drawable_beziers
+
+            return drawable_beziers.make_scene(), (drawable_beziers.W,
+                                                   drawable_beziers.H)
+        import dashed_dotted_borders
+
+        return dashed_dotted_borders.make_scene(phase=5.0), (
+            dashed_dotted_borders.W, dashed_dotted_borders.H)
+    finally:
+        sys.path.remove(os.path.join(REPO, "examples"))
+
+
+def jax_example_frame(name: str, form: str) -> np.ndarray:
+    """figdraw_tpu's frame of an example scene in one of
+    scenes.EXAMPLE_FORMS, on its Pallas path (interpret mode on the CPU)."""
+    from figdraw_tpu import fig_ui_scale, set_fig_ui_scale, vec2
+    from figdraw_tpu.renderer import FigRenderer
+
+    from figdraw_tpu_torch.scenes import EXAMPLE_FORMS
+
+    pixel_scale, ui_scale, mult = EXAMPLE_FORMS[form]
+    renders, (w, h) = jax_example_scene(name)
+    ren = FigRenderer(use_pallas=True, pixel_scale=pixel_scale)
+    old = fig_ui_scale()
+    set_fig_ui_scale(ui_scale)
+    try:
+        return np.asarray(ren.render_frame(renders, vec2(w * mult, h * mult)))
+    finally:
+        set_fig_ui_scale(old)
+
+
+def write_example_references() -> None:
+    from figdraw_tpu_torch.scenes import (
+        EXAMPLE_FORMS, EXAMPLE_SCENES, example_reference_path,
+    )
+
+    for name in EXAMPLE_SCENES:
+        for form in EXAMPLE_FORMS:
+            path = example_reference_path(name, form)
+            np.save(path, block_means(jax_example_frame(name, form)).astype(np.float32))
+            print(f"wrote {path}")
+
+
 def main() -> None:
     from figdraw_tpu_torch.scenes import (
         IMAGE_VARIANTS, TEXT_REFERENCE, TEXT_TABLE_REFERENCE,
         image_reference_path,
     )
+
+    write_example_references()
+    if sys.argv[1:] == ["examples"]:
+        return
 
     with pytest.MonkeyPatch.context() as mp:
         for variant in IMAGE_VARIANTS:
