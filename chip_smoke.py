@@ -54,7 +54,24 @@ FigRenderer(device="cuda").render_frame or execute_plan:
   combo byte for byte and its frame bit for bit, each kernel of the frame
   is held against its plain version on the frame's own inputs, and the
   Python walk's and the planner's host time stand beside the native
-  walk's.
+  walk's;
+- the frame loop's entry points: render_batch on bench_anim.py's run (the
+  headline scene at 1920x1080 and 640x360, 48 frames in groups of 8,
+  against its render_frame loop) and as mega, mega-with-atlas and rolled
+  groups (the sub-clip table, images_clipped, the blurred cards), with an
+  update_image between two groups; render_frame_async on 48 headline
+  frames against the synchronous loop, with the device's idle share in a
+  torch.profiler window of each; render_frame_with_overlays on
+  examples/overlay_3d.py's scene and pyramid (420x300, six frames) against
+  stored JAX block means; and the blurred cards (400 clipped photo cards at
+  1920x1080 under a backdrop blur and a frosted panel, 80 more above it,
+  1443 pass items), which the planner sends to the rolled executor through
+  render_frame, with the walk, the plan and the upload + executor split.
+  Every batched and async frame equals render_frame's bit for bit; each
+  path is counted with the counts set to 0 just before it, and one frame of
+  each has its kernels held against their plain versions on its own
+  inputs (a batch group's on its slice of the group's one upload, an async
+  frame's as the worker ran it).
 
 Every path bins its tape once a frame through the binning kernel
 (csrc/binning.cu), which each phase holds against its plain version on
@@ -2111,6 +2128,598 @@ def turns_phase(tag: str) -> dict:
     return out
 
 
+# --- the frame loop: render_batch, render_frame_async, overlays, blurred cards ----
+
+ANIM_FRAMES = 48  # bench_anim.py's FIGDRAW_BENCH_FRAMES
+ANIM_SIZES = ((1920, 1080), (640, 360))  # bench_anim.py's RESOLUTIONS
+ANIM_CHUNK = 8  # bench_anim.py's FIGDRAW_BATCH_CHUNK
+GROUP_FRAMES = 8  # frames of each further batch group
+IDLE_FRAMES = 12  # frames in each torch.profiler window of the async phase
+
+
+def frame_launches(plan) -> dict:
+    """The kernel launches one frame of a plan makes, by kernel: a
+    frame-target run K1 (K1-atlas when it holds an atlas quad), a
+    mask-target run K3, a megakernel plan K4 or K4-atlas once, a blur item
+    two blur launches, and one binning (two launches) a frame."""
+    out = dict.fromkeys(("K1", "K1-atlas", "K3", "K4", "K4-atlas", "blur"), 0)
+    out["binning"] = 2
+    if plan.mega_combo is not None:
+        out["K4-atlas" if plan.mega_atlas else "K4"] = 1
+        return out
+    for item in plan.structure:
+        if item[0] == "blur":
+            out["blur"] += 2
+        elif item[0] == "draw":
+            out["K3" if item[1] >= 0 else "K1-atlas" if item[2] else "K1"] += 1
+    return out
+
+
+def all_counts() -> dict:
+    from figdraw_tpu_torch.ops import binning, blur
+
+    k1, k1a, k3, k4, k4a = launch_counts()
+    return {"K1": k1, "K1-atlas": k1a, "K3": k3, "K4": k4, "K4-atlas": k4a,
+            "blur": blur.LAUNCHES, "binning": binning.LAUNCHES}
+
+
+LOOP_PATHS = {}  # path -> its counted run's launches by kernel
+
+
+def counted_launches(what: str, want: dict) -> dict:
+    """The launches since zero_counts() against `want` (by kernel); fails
+    on any difference; keeps them for the kernels line."""
+    got = all_counts()
+    print(f"check 11: {what}: launches {got} (expected {want})", flush=True)
+    if got != want:
+        fail(f"{what} launched {got}, expected {want}")
+    LOOP_PATHS[what] = got
+    return got
+
+
+def scaled_launches(per_frame: dict, frames: int) -> dict:
+    return {k: v * frames for k, v in per_frame.items()}
+
+
+def recorded_frames(ren) -> tuple:
+    """ren._run_plan wrapped so that each frame it runs is recorded with
+    its own inputs, (plan, combo on the card, atlas, init frame), on
+    whichever thread runs it; returns (the list, undo)."""
+    from figdraw_tpu_torch.renderer import _needs_atlas
+
+    runs, real = [], ren._run_plan
+
+    def call(plan, combo, atlas=None):
+        if atlas is None and _needs_atlas(plan):
+            atlas = ren._device_atlas()
+        init = ren._init_frame(plan.has_init_frame, plan.height, plan.width)
+        runs.append((plan, combo, atlas, None if init is None else init.clone()))
+        return real(plan, combo, atlas)
+
+    ren._run_plan = call
+    return runs, lambda: delattr(ren, "_run_plan")
+
+
+def recorded_groups(ren) -> tuple:
+    """ren._dispatch_batch wrapped so that each group render_batch runs is
+    recorded: (key, first plan, its BatchStack, atlas); returns (the list,
+    undo)."""
+    groups, real = [], ren._dispatch_batch
+
+    def call(key, plan, batch, atlas):
+        groups.append((key, plan, batch, atlas))
+        return real(key, plan, batch, atlas)
+
+    ren._dispatch_batch = call
+    return groups, lambda: delattr(ren, "_dispatch_batch")
+
+
+FRAMELOOP_ERRS = {}  # kernel -> max |kernel - plain| over the frame loop's checks
+
+
+def plan_kernel_checks(what: str, plan, combo, atlas, init=None, table=None) -> dict:
+    """Each kernel of one frame of `plan` against its plain version on that
+    frame's own inputs: combo (its upload on the card, or its slice of a
+    batch's stack), atlas and init frame as the frame's executor got them,
+    table the rolled item table and radii (tensors of a batch's stack, or
+    the plan's own). K1, K1-atlas and K3 through compared(), K4 and K4-atlas
+    on the megakernel (targets as before the kernel ran), the blur through
+    recorded_blur (bit for bit) and the binning through binning_check.
+    Fails past TOL; returns the errors by kernel."""
+    import torch
+
+    from figdraw_tpu_torch.executor import get_frame_executor, get_mega_executor
+    from figdraw_tpu_torch.ops import mega, raster
+
+    errs, store = {}, []
+    if plan.mega_combo is not None:
+        name = "K4-atlas" if plan.mega_atlas else "K4"
+        run = get_mega_executor(plan.height, plan.width, plan.n_masks,
+                                plan.has_init_frame, plan.tile_h)
+        atlas = atlas if plan.mega_atlas else None
+
+        def frame():
+            return run(combo, init, atlas=atlas)
+
+        run(combo, init, atlas=atlas,
+            draw=compared(mega.draw_pass_mega, mega.draw_pass_mega_plain,
+                          errs.setdefault(name, []), store, what, targets=MEGA_TARGETS))
+    else:
+        rolled = plan.rolled_items is not None
+        run = get_frame_executor(plan.structure, plan.height, plan.width, plan.n_masks,
+                                 plan.has_init_frame, plan.tile_h, rolled=rolled)
+        if rolled and table is None:
+            table = dict(items=plan.rolled_items, radii=plan.rolled_radii)
+        table = table or {}
+
+        def frame():
+            return run(combo, init, atlas=atlas, **table)
+
+        k1, k3 = [], []
+        undo = recorded_blur(errs.setdefault("blur", []))
+        try:
+            run(combo, init, atlas=atlas, **table,
+                draw=compared(raster.draw_pass_planar_prebinned,
+                              raster.draw_pass_planar_prebinned_plain, k1, store, what),
+                draw_mask=compared(raster.draw_pass_mask_prebinned,
+                                   raster.draw_pass_mask_prebinned_plain, k3, [], what))
+        finally:
+            undo()
+        for err, (_a, kw) in zip(k1, store):
+            errs.setdefault("K1-atlas" if kw.get("atlas") is not None else "K1", []).append(err)
+        if k3:
+            errs["K3"] = k3
+    torch.cuda.synchronize()
+    worst = {k: max(v) for k, v in errs.items() if v}
+    BORDERLINE[what] = binning_check(what, frame)
+    print(f"check 11: {what}: each kernel vs its plain version on the frame's own "
+          f"inputs, max |diff| {worst} (tol {TOL:.3e}; the blur bit for bit); the "
+          f"binning's lists equal", flush=True)
+    if any(v > TOL for v in worst.values()):
+        fail(f"{what}: a kernel differs from its plain version: {worst}")
+    for k, v in worst.items():
+        FRAMELOOP_ERRS[k] = max(FRAMELOOP_ERRS.get(k, 0.0), v)
+    return worst
+
+
+def group_checks(what: str, group, dev) -> None:
+    """plan_kernel_checks on the first frame of a recorded batch group, on
+    its slice of the group's one upload."""
+    key, plan, batch, atlas = group
+    frame0 = batch.frame(batch.upload(dev), 0)
+    table = ({"items": frame0["items"], "radii": frame0["radii"]}
+             if key[0] == "rolled" else None)
+    plan_kernel_checks(what, plan, frame0["combo"], atlas, table=table)
+
+
+def equal_frames(what: str, got, want) -> None:
+    import torch
+
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} frames, expected {len(want)}")
+    bad = [f for f in range(len(want)) if not torch.equal(got[f], want[f])]
+    print(f"check 11: {what}: {len(want)} frames bit-equal to render_frame's on a "
+          f"second renderer: {not bad}", flush=True)
+    if bad:
+        diff = float((got[bad[0]] - want[bad[0]]).abs().max())
+        fail(f"{what}: frames {bad} differ from render_frame's (frame {bad[0]} by {diff})")
+
+
+def batch_phase(tag: str, dev) -> dict:
+    """bench_anim.py's run through render_batch: the headline scene
+    (copies=100, 300 boxes) at 1920x1080 and 640x360, ANIM_FRAMES frames in
+    groups of ANIM_CHUNK, the batch's ms/frame (best of three) against the
+    render_frame loop's (one synchronize a loop, as bench_anim times both);
+    every frame bit-equal to render_frame's on a second renderer and its
+    as_uint8 form to take_screenshot's; the counted run's launches (K1 2,
+    blur 2, binning 2 a frame); then the sub-clip table, images_clipped and
+    the blurred cards as mega, mega-with-atlas and rolled groups of
+    GROUP_FRAMES, and an update_image between two groups; each group's
+    first frame's kernels against their plain versions on its slice of the
+    group's upload."""
+    import numpy as np
+    import torch
+
+    from figdraw_tpu_torch import FigRenderer, vec2
+    from figdraw_tpu_torch.plan import plan_execution
+    from figdraw_tpu_torch.scenes import (
+        IMAGE_ID, make_blurred_cards_scene, make_clip_table_scene,
+        make_image_panels_scene, make_render_tree_array,
+    )
+
+    out = {}
+    for w, h in ANIM_SIZES:
+        size = vec2(w, h)
+        cache = {}
+
+        def scenes(n, base=0, w=w, h=h, cache=cache):
+            for f in range(base, base + n):
+                yield make_render_tree_array(w, h, f, copies=COPIES, cache=cache)
+
+        ren = FigRenderer(atlas_size=256, device="cuda")
+        ren.render_frame(next(iter(scenes(1))), size)
+        ren.render_batch(scenes(ANIM_CHUNK), size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for sc in scenes(ANIM_FRAMES, base=100):
+            ren.render_frame(sc, size)
+        torch.cuda.synchronize()
+        loop_ms_ = (time.perf_counter() - t0) * 1e3 / ANIM_FRAMES
+        batch_ms = []
+        for rep in range(3):
+            if rep == 0:
+                zero_counts()
+            t0 = time.perf_counter()
+            frames = ren.render_batch(scenes(ANIM_FRAMES, base=100), size,
+                                      chunk=ANIM_CHUNK)
+            torch.cuda.synchronize()
+            batch_ms.append((time.perf_counter() - t0) * 1e3 / ANIM_FRAMES)
+            if rep == 0:
+                plan = plan_execution(ren.flatten(next(iter(scenes(1, base=100))), size))
+                counted_launches(f"batch headline {w}x{h}",
+                                 scaled_launches(frame_launches(plan), ANIM_FRAMES))
+        if tuple(frames.shape) != (ANIM_FRAMES, h, w, 4) or not bool(torch.isfinite(frames).all()):
+            fail(f"batch {w}x{h}: frames of shape {tuple(frames.shape)} or non-finite")
+        ref = FigRenderer(atlas_size=256, device="cuda")
+        want = [ref.render_frame(sc, size).clone() for sc in scenes(ANIM_FRAMES, base=100)]
+        equal_frames(f"batch headline {w}x{h}", frames, want)
+        u8 = ren.render_batch(scenes(ANIM_FRAMES, base=100), size, as_uint8=True)
+        shots_equal = all(np.array_equal(u8[f].cpu().numpy(), ref.take_screenshot(want[f]))
+                          for f in range(ANIM_FRAMES))
+        print(f"check 11: batch headline {w}x{h}: as_uint8 equals take_screenshot of each "
+              f"frame: {shots_equal}", flush=True)
+        if not shots_equal:
+            fail(f"batch {w}x{h}: as_uint8 differs from take_screenshot")
+        groups, undo = recorded_groups(ren)
+        ren.render_batch(scenes(1, base=100), size)
+        undo()
+        group_checks(f"batch headline {w}x{h}", groups[0], dev)
+        print(f"times: batch headline {w}x{h} {COPIES * 3} boxes, {ANIM_FRAMES} frames in "
+              f"groups of {ANIM_CHUNK}: render_batch {min(batch_ms):.3f} ms/frame (best of "
+              f"3: {', '.join(f'{m:.3f}' for m in batch_ms)}), the render_frame loop "
+              f"{loop_ms_:.3f} ms/frame (bench_anim.py's timing: one synchronize a loop) "
+              f"{tag}", flush=True)
+        out[f"{w}x{h}"] = {"batch_ms": min(batch_ms), "batch_runs_ms": batch_ms,
+                           "loop_ms": loop_ms_}
+
+    # --- further groups: mega, mega with the atlas, rolled ---
+    cases = (
+        ("subclip table", lambda f: make_clip_table_scene(
+            "subclip", TABLE_W, TABLE_H, TABLE_ROWS, TABLE_COLS), vec2(TABLE_W, TABLE_H), "mega"),
+        ("images_clipped", lambda f: make_image_panels_scene(
+            IMAGE_W, IMAGE_H, IMAGE_PANELS, "images_clipped"), vec2(IMAGE_W, IMAGE_H), "mega"),
+        ("blurred cards", lambda f: make_blurred_cards_scene(
+            IMAGE_W, IMAGE_H, IMAGE_PANELS), vec2(IMAGE_W, IMAGE_H), "rolled"),
+    )
+    for what, build, size, kind in cases:
+        built = [build(f) for f in range(GROUP_FRAMES)]
+        ren, ref = image_renderer(), image_renderer()
+        ren.render_batch(built[:1], size)
+        ref.render_frame(built[0], size)
+        torch.cuda.synchronize()
+        groups, undo = recorded_groups(ren)
+        zero_counts()
+        t0 = time.perf_counter()
+        frames = ren.render_batch(built, size)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / GROUP_FRAMES
+        undo()
+        counted_launches(f"batch {what}",
+                         scaled_launches(frame_launches(groups[0][1]), GROUP_FRAMES))
+        kinds = [g[0][0] for g in groups]
+        if kinds != [kind] or groups[0][2].count != GROUP_FRAMES:
+            fail(f"batch {what}: groups {kinds} of {[g[2].count for g in groups]} frames, "
+                 f"expected one {kind} group of {GROUP_FRAMES}")
+        t0 = time.perf_counter()
+        want = [ref.render_frame(sc, size) for sc in built]
+        torch.cuda.synchronize()
+        loop_ms_ = (time.perf_counter() - t0) * 1e3 / GROUP_FRAMES
+        equal_frames(f"batch {what}", frames, want)
+        group_checks(f"batch {what}", groups[0], dev)
+        print(f"times: batch {what}: one {kind} group of {GROUP_FRAMES} frames, "
+              f"{ms:.3f} ms/frame (walks, plans, one upload, executor, sync), the "
+              f"render_frame loop over the same scenes {loop_ms_:.3f} ms/frame (one "
+              f"synchronize a loop) {tag}", flush=True)
+        out[what] = {"kind": kind, "batch_group_ms": ms, "loop_ms": loop_ms_}
+
+    # --- an image update between two groups ---
+    red = np.zeros((64, 64, 4), np.uint8)
+    red[..., 0] = red[..., 3] = 255
+    size = vec2(IMAGE_W, IMAGE_H)
+
+    def with_update(r):
+        for f in range(GROUP_FRAMES):
+            if f == GROUP_FRAMES // 2:
+                r.update_image(IMAGE_ID, red)
+            yield make_image_panels_scene(IMAGE_W, IMAGE_H, IMAGE_PANELS, "images_clipped")
+
+    ren, ref = image_renderer(), image_renderer()
+    groups, undo = recorded_groups(ren)
+    frames = ren.render_batch(with_update(ren), size)
+    undo()
+    sizes = [g[2].count for g in groups]
+    if sizes != [GROUP_FRAMES // 2] * 2:
+        fail(f"batch with an update_image: groups of {sizes} frames, expected two of "
+             f"{GROUP_FRAMES // 2}")
+    equal_frames("batch with an update_image between two groups", frames,
+                 [fr.clone() for fr in (ref.render_frame(sc, size) for sc in with_update(ref))])
+    if torch.equal(frames[GROUP_FRAMES // 2 - 1], frames[GROUP_FRAMES // 2]):
+        fail("batch with an update_image: the update did not show")
+    return out
+
+
+def device_idle(fn) -> dict:
+    """The device's busy and idle time in one torch.profiler window around
+    fn(): the window runs from the first to the last event of the trace
+    (host and device), busy is the union of the device's kernel, copy and
+    set intervals in it; idle share = 1 - busy / window."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), e.get("cat", ""))
+             for e in events if e.get("ph") == "X" and "ts" in e]
+    device = sorted((a, b) for a, b, cat in spans
+                    if cat in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not device:
+        fail(f"the profiler saw no device activity; categories "
+             f"{sorted({cat for _a, _b, cat in spans})}")
+    start, end = min(a for a, _b, _c in spans), max(b for _a, b, _c in spans)
+    busy, cur_a, cur_b = 0.0, None, None
+    for a, b in device:
+        if cur_b is None or a > cur_b:
+            if cur_b is not None:
+                busy += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    busy += cur_b - cur_a
+    window = end - start
+    return {"idle_share": 1.0 - busy / window, "busy_ms": busy / 1e3,
+            "window_ms": window / 1e3}
+
+
+def async_phase(tag: str, dev) -> dict:
+    """ANIM_FRAMES headline frames (1920x1080, 300 boxes) through
+    render_frame_async: bit-equal to the synchronous loop's frames, never
+    more than two in flight, the counted run's launches (K1 2, blur 2,
+    binning 2 a frame); ms/frame of the async loop (each future resolved
+    two frames behind, one synchronize at the end) against the synchronous
+    loop (render_frame + synchronize a frame: a UI loop that presents each
+    frame), best of three; the device's idle share in a torch.profiler
+    window of IDLE_FRAMES frames of each; one frame's kernels against their
+    plain versions on its own inputs, recorded on the worker thread; a job
+    that raises reaches its future, and the next frame renders."""
+    import torch
+
+    from figdraw_tpu_torch import FigRenderer, vec2
+    from figdraw_tpu_torch.plan import plan_execution
+    from figdraw_tpu_torch.scenes import make_render_tree_array
+
+    size = vec2(WIDTH, HEIGHT)
+    cache = {}
+
+    def scene(f):
+        return make_render_tree_array(WIDTH, HEIGHT, f, copies=COPIES, cache=cache)
+
+    ren, ref = FigRenderer(device="cuda"), FigRenderer(device="cuda")
+    ren.render_frame_async(scene(0), size).result()
+    torch.cuda.synchronize()
+
+    def async_loop(n, keep=None):
+        futs, most = [], 0
+        for f in range(n):
+            futs.append(ren.render_frame_async(scene(f), size))
+            most = max(most, len(ren._async_released))
+            if len(futs) > 2:
+                done = futs[-3].result()
+                if keep is not None:
+                    keep.append(done)
+        for fut in futs[-2:]:
+            done = fut.result()
+            if keep is not None:
+                keep.append(done)
+        torch.cuda.synchronize()
+        return most
+
+    def sync_loop(n, keep=None):
+        for f in range(n):
+            frame = ref.render_frame(scene(f), size)
+            torch.cuda.synchronize()
+            if keep is not None:
+                keep.append(frame)
+
+    zero_counts()
+    got = []
+    most = async_loop(ANIM_FRAMES, got)
+    plan = plan_execution(ref.flatten(scene(0), size))
+    counted_launches("async headline", scaled_launches(frame_launches(plan), ANIM_FRAMES))
+    want = []
+    sync_loop(ANIM_FRAMES, want)
+    equal_frames("async headline", got, want)
+    print(f"check 11: async headline: at most {most} frames in flight (cap 2)", flush=True)
+    if most > 2:
+        fail(f"async: {most} frames in flight")
+    async_ms, sync_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        async_loop(ANIM_FRAMES)
+        async_ms.append((time.perf_counter() - t0) * 1e3 / ANIM_FRAMES)
+        t0 = time.perf_counter()
+        sync_loop(ANIM_FRAMES)
+        sync_ms.append((time.perf_counter() - t0) * 1e3 / ANIM_FRAMES)
+    idle_async = device_idle(lambda: async_loop(IDLE_FRAMES))
+    idle_sync = device_idle(lambda: sync_loop(IDLE_FRAMES))
+    runs, undo = recorded_frames(ren)
+    ren.render_frame_async(scene(1), size).result()
+    undo()
+    plan_kernel_checks("async headline", *runs[0])
+    real = ren._run_plan
+
+    def boom(*a, **k):
+        raise RuntimeError("injected job failure")
+
+    ren._run_plan = boom
+    raised = False
+    try:
+        ren.render_frame_async(scene(2), size).result()
+    except RuntimeError as exc:
+        raised = "injected job failure" in str(exc)
+    ren._run_plan = real
+    again = ren.render_frame_async(scene(3), size).result()
+    ok = raised and torch.equal(again, ref.render_frame(scene(3), size))
+    print(f"check 11: async: a job that raises reaches its future: {raised}; the next "
+          f"frame renders and equals render_frame's: {ok}", flush=True)
+    if not ok:
+        fail("async: a failed job did not reach its future, or broke the pipeline")
+    print(f"times: async headline {WIDTH}x{HEIGHT} {COPIES * 3} boxes, {ANIM_FRAMES} frames: "
+          f"render_frame_async {min(async_ms):.3f} ms/frame (best of 3: "
+          f"{', '.join(f'{m:.3f}' for m in async_ms)}), render_frame + synchronize a "
+          f"frame {min(sync_ms):.3f} ms/frame ({', '.join(f'{m:.3f}' for m in sync_ms)}); "
+          f"device idle share in a window of {IDLE_FRAMES} frames: async "
+          f"{idle_async['idle_share']:.3f} (busy {idle_async['busy_ms']:.3f} of "
+          f"{idle_async['window_ms']:.3f} ms), sync {idle_sync['idle_share']:.3f} (busy "
+          f"{idle_sync['busy_ms']:.3f} of {idle_sync['window_ms']:.3f} ms; torch.profiler) "
+          f"{tag}", flush=True)
+    return {"async_ms": min(async_ms), "sync_ms": min(sync_ms), "async_runs_ms": async_ms,
+            "sync_runs_ms": sync_ms, "idle_async": idle_async, "idle_sync": idle_sync}
+
+
+def overlay_phase(tag: str, dev) -> dict:
+    """examples/overlay_3d.py's scene at 420x300 with its numpy pyramid at
+    zlevel 0, OVERLAY_FRAMES frames through render_frame_with_overlays:
+    each frame within TOL of figdraw_tpu's stored block means; the counted
+    run's launches (two layer groups a frame: K1 and a binning each); one
+    frame's groups' kernels against their plain versions."""
+    import numpy as np
+    import torch
+
+    from figdraw_tpu_torch import FigRenderer, vec2
+    from figdraw_tpu_torch.scenes import (
+        OVERLAY_FRAMES, OVERLAY_REFERENCE, OVERLAY_SIZE, make_overlay_scene,
+        overlay_time, rasterize_pyramid,
+    )
+
+    w, h = OVERLAY_SIZE
+    size = vec2(w, h)
+    scene = make_overlay_scene(w, h)
+    pyramids = [rasterize_pyramid(w, h, overlay_time(i)) for i in range(OVERLAY_FRAMES)]
+    ren = FigRenderer(atlas_size=128, device="cuda")
+    ren.render_frame_with_overlays(scene, size, {0: pyramids[0]})
+    torch.cuda.synchronize()
+    zero_counts()
+    frames, ms = [], []
+    for i in range(OVERLAY_FRAMES):
+        t0 = time.perf_counter()
+        frames.append(ren.render_frame_with_overlays(scene, size, {0: pyramids[i]}))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    per = {"K1": 2, "K1-atlas": 0, "K3": 0, "K4": 0, "K4-atlas": 0, "blur": 0, "binning": 4}
+    counted_launches("overlay", scaled_launches(per, OVERLAY_FRAMES))
+    stored = np.load(OVERLAY_REFERENCE)
+    err = max(float(np.abs(block_means(f.cpu().numpy()) - stored[i]).max())
+              for i, f in enumerate(frames))
+    print(f"check 11: overlay {w}x{h}, {OVERLAY_FRAMES} frames vs the JAX reference (8x8 "
+          f"block means) max |diff| {err:.3e} (tol {TOL:.3e})", flush=True)
+    if not err <= TOL or not all(bool(torch.isfinite(f).all()) for f in frames):
+        fail(f"overlay frames differ from the JAX reference by {err}")
+    runs, undo = recorded_frames(ren)
+    ren.render_frame_with_overlays(scene, size, {0: pyramids[1]})
+    undo()
+    for k, run in enumerate(runs):
+        plan_kernel_checks(f"overlay group {k}", *run)
+    print(f"times: overlay {w}x{h}: median {statistics.median(ms):.3f} ms/frame "
+          f"(two layer groups, the pyramid's upload and blend, sync) {tag}", flush=True)
+    return {"ms": statistics.median(ms), "err": err}
+
+
+def blurred_phase(tag: str, dev) -> dict:
+    """The blurred cards (scenes.make_blurred_cards_scene: 400 clipped photo
+    cards at 1920x1080, a backdrop blur under a frosted panel, 80 cards
+    above it) through render_frame, which plans them onto the rolled
+    executor: FRAMES frames; launches as the plan's item table says; K1,
+    K1-atlas, K3, the blur and the binning against their plain versions on
+    one frame's own inputs; the 480x270 frame (25 cards) against the
+    stored block means of figdraw_tpu's unrolled frame executor; ms/frame
+    with the walk, the plan and the upload + executor split."""
+    import torch
+
+    from figdraw_tpu_torch import vec2
+    from figdraw_tpu_torch.plan import plan_execution
+    from figdraw_tpu_torch.scenes import (
+        BLURRED_REFERENCE, BLURRED_SMALL, make_blurred_cards_scene,
+    )
+
+    size = vec2(IMAGE_W, IMAGE_H)
+    scene = make_blurred_cards_scene(IMAGE_W, IMAGE_H, IMAGE_PANELS)
+    ren = image_renderer()
+    ren.render_frame(scene, size)
+    torch.cuda.synchronize()
+    zero_counts()
+    total_ms = timed_frames("blurred cards", lambda: ren.render_frame(scene, size),
+                            (IMAGE_H, IMAGE_W, 4))
+    tape = ren.flatten(scene, size)
+    plan = plan_execution(tape)
+    if plan.rolled_items is None or ("blur",) not in plan.structure:
+        fail("blurred cards: the planner did not send them to the rolled executor")
+    counted_launches("blurred cards", scaled_launches(frame_launches(plan), FRAMES))
+    print(f"check 11: blurred cards: {len(plan.structure)} pass items, {tape.count} "
+          f"quads, {plan.n_masks} planes, tile_h {plan.tile_h}, rolled", flush=True)
+    runs, undo = recorded_frames(ren)
+    t0 = time.perf_counter()
+    ren.render_frame(scene, size)
+    undo()
+    worst = plan_kernel_checks("blurred cards", *runs[0])
+    print(f"check 11: blurred cards kernel checks took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    sw, sh, sn = BLURRED_SMALL
+    small = image_renderer().render_frame(make_blurred_cards_scene(sw, sh, sn), vec2(sw, sh))
+    err = check_blocks(f"blurred cards {sw}x{sh}, {sn} cards", small, BLURRED_REFERENCE)
+    walk_ms, plan_ms, exec_ms = [], [], []
+    for _ in range(FRAMES):
+        t0 = time.perf_counter()
+        ren.process_image_messages()
+        step = ren.flatten(scene, size)
+        t1 = time.perf_counter()
+        step = plan_execution(step)
+        t2 = time.perf_counter()
+        ren.execute_plan(step)
+        torch.cuda.synchronize()
+        walk_ms.append((t1 - t0) * 1e3)
+        plan_ms.append((t2 - t1) * 1e3)
+        exec_ms.append((time.perf_counter() - t2) * 1e3)
+    med = statistics.median
+    device_ms = cuda_ms(lambda: ren.execute_plan(plan), 5)
+    print(f"times: blurred cards {IMAGE_W}x{IMAGE_H}, {IMAGE_PANELS} + {IMAGE_PANELS // 5} "
+          f"cards, {len(plan.structure)} items: render_frame median {med(total_ms):.3f} "
+          f"ms/frame = walk {med(walk_ms):.3f} ms + plan {med(plan_ms):.3f} ms + upload "
+          f"and executor to the sync {med(exec_ms):.3f} ms (the executor by CUDA events "
+          f"{device_ms:.3f} ms) {tag}", flush=True)
+    return {"ms": med(total_ms), "walk_ms": med(walk_ms), "plan_ms": med(plan_ms),
+            "exec_ms": med(exec_ms), "device_ms": device_ms, "err": err,
+            "items": len(plan.structure), "worst": worst}
+
+
+def frameloop_phases(tag: str, dev) -> dict:
+    """The frame loop's entry points, each path counted with the counts set
+    to 0 just before it and read just after."""
+    t0 = time.perf_counter()
+    out = {"batch": batch_phase(tag, dev), "async": async_phase(tag, dev),
+           "overlay": overlay_phase(tag, dev), "blurred": blurred_phase(tag, dev)}
+    print(f"frame loop phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2421,6 +3030,21 @@ def main() -> None:
     tree_errs = {k: max(v) for k, v in trees["errs"].items() if v}
     blur_paths.update(tree_paths["blur"])
 
+    # --- 8c. the frame loop: render_batch, render_frame_async, overlays, blurred cards ---
+    loop = frameloop_phases(tag, dev)
+    loop_paths = {k: {p: n[k] for p, n in LOOP_PATHS.items() if n[k]}
+                  for k in ("K1", "K1-atlas", "K3", "K4", "K4-atlas", "blur")}
+    BIN_PATHS.update({p: n["binning"] for p, n in LOOP_PATHS.items()})
+    blur_paths.update(loop_paths["blur"])
+    anim = loop["batch"]
+    print(f"frame loop: batch against the render_frame loop, ms/frame: "
+          + ", ".join(f"{k} {v['batch_ms']:.3f} against {v['loop_ms']:.3f}"
+                      for k, v in anim.items() if "batch_ms" in v)
+          + f"; async {loop['async']['async_ms']:.3f} against sync "
+          f"{loop['async']['sync_ms']:.3f}; blurred cards {loop['blurred']['ms']:.3f} "
+          f"(walk {loop['blurred']['walk_ms']:.3f}, plan {loop['blurred']['plan_ms']:.3f}, "
+          f"upload and executor {loop['blurred']['exec_ms']:.3f}) {tag}", flush=True)
+
     # --- 9. results --------------------------------------------------------------
     # the in-place bound is the kernels' own (the out-of-place one counts
     # the earlier design's bytes, for comparison)
@@ -2443,12 +3067,16 @@ def main() -> None:
     ctrl = images["sdf_control"]
     k1_paths = {"headline": launches, "rectmask": rm["launches"][0],
                 "images sdf_control": ctrl["launches"][0],
-                "rolled": rolled["launches"][0], **tree_paths["K1"]}
+                "rolled": rolled["launches"][0], **tree_paths["K1"], **loop_paths["K1"]}
     atlas_paths = {f"images {v}": images[v]["launches"][1] for v in BENCH_VARIANTS[1:]}
     atlas_paths.update(text=text["launches"][1], rolled=rolled["launches"][1])
+    atlas_paths.update(loop_paths["K1-atlas"])
     k3_paths = {"rectmask": rm["launches"][1], "rolled": rolled["launches"][2],
-                **tree_paths["K3"]}
-    k4_paths = {"subclip": sc["launches"][2], **tree_paths["K4"]}
+                **tree_paths["K3"], **loop_paths["K3"]}
+    k4_paths = {"subclip": sc["launches"][2], **tree_paths["K4"], **loop_paths["K4"]}
+    k4a_paths = {"clipped cards": cards["launches"][4], "text table": table["launches"][4],
+                 **loop_paths["K4-atlas"]}
+    loop_err = lambda name: FRAMELOOP_ERRS.get(name, 0.0)
     print(json.dumps({"kernels": [
         {
             "name": "raster_tiles_kernel<false, false> (K1, frame target)",
@@ -2458,7 +3086,8 @@ def main() -> None:
             "launches": sum(k1_paths.values()),
             "launches_by_path": k1_paths,
             "max_abs_err": max(err_headline, err_modes, err_frame, rm["k1_err"],
-                               ctrl["err"], rolled["k1_err"], tree_errs.get("K1", 0.0)),
+                               ctrl["err"], rolled["k1_err"], tree_errs.get("K1", 0.0),
+                               loop_err("K1")),
             "ms": kernel_ms,
             "device_ms": device_ms_k1,
             "plain_ms": plain_ms,
@@ -2476,7 +3105,8 @@ def main() -> None:
             "launches": sum(atlas_paths.values()),
             "launches_by_path": atlas_paths,
             "max_abs_err": max([images[v]["err"] for v in BENCH_VARIANTS[1:]]
-                               + [text["err"], rolled["k1_err"], rolled["frame_err"]]),
+                               + [text["err"], rolled["k1_err"], rolled["frame_err"],
+                                  loop_err("K1-atlas")]),
             "ms": images["images_scaled"]["kernel_ms"],
             "device_ms": device_ms_atlas,
             "plain_ms": plain_ms_atlas,
@@ -2493,7 +3123,7 @@ def main() -> None:
             "launches": sum(k3_paths.values()),
             "launches_by_path": k3_paths,
             "max_abs_err": max(rm["k3_err"], rm["frame_err"], rolled["k3_err"],
-                               tree_errs.get("K3", 0.0)),
+                               tree_errs.get("K3", 0.0), loop_err("K3")),
             "ms": kernel_ms_k3,
             "device_ms": device_ms_k3,
             "plain_ms": plain_ms_k3,
@@ -2509,7 +3139,8 @@ def main() -> None:
             "replaces": "figdraw_tpu/ops/raster_pallas.py:495",
             "launches": sum(k4_paths.values()),
             "launches_by_path": k4_paths,
-            "max_abs_err": max(sc["k4_err"], sc["frame_err"], tree_errs.get("K4", 0.0)),
+            "max_abs_err": max(sc["k4_err"], sc["frame_err"], tree_errs.get("K4", 0.0),
+                               loop_err("K4")),
             "ms": kernel_ms_k4,
             "device_ms": device_ms_k4,
             "plain_ms": plain_ms_k4,
@@ -2525,10 +3156,9 @@ def main() -> None:
             "route": "cuda",
             "source": "figdraw_tpu_torch/csrc/mega.cu",
             "replaces": "figdraw_tpu/ops/raster_pallas.py:495 (has_atlas, :567)",
-            "launches": cards["launches"][4] + table["launches"][4],
-            "launches_by_path": {"clipped cards": cards["launches"][4],
-                                 "text table": table["launches"][4]},
-            "max_abs_err": max(cards["err"], table["err"]),
+            "launches": sum(k4a_paths.values()),
+            "launches_by_path": k4a_paths,
+            "max_abs_err": max(cards["err"], table["err"], loop_err("K4-atlas")),
             "ms": cards["kernel_ms"],
             "device_ms": cards["device_ms"],
             "plain_ms": cards["plain_ms"],
@@ -2565,7 +3195,7 @@ def main() -> None:
                         "_blur_axis :21); XLA ops, no Pallas",
             "launches": sum(blur_paths.values()),
             "launches_by_path": blur_paths,
-            "max_abs_err": max(blurred["err"], tree_errs.get("blur", 0.0)),
+            "max_abs_err": max(blurred["err"], tree_errs.get("blur", 0.0), loop_err("blur")),
             "ms": blurred["ms"],
             "device_ms": blurred["device_ms"],
             "plain_ms": blurred["plain_ms"],

@@ -4,6 +4,10 @@ the part the port uses):
   FIGDRAW_UI_SCALE / HDI   the global UI scale (basics.set_fig_ui_scale)
   FIGDRAW_DATA_DIR         the asset root (fig_data_dir), where the text
                            host pipeline will look for fonts
+  FIGDRAW_BATCH_CHUNK      frames per group of FigRenderer.render_batch
+                           (batch_chunk, default 8)
+  FIGDRAW_NO_THREAD_GUARD  1 turns off the render-thread guard
+                           (FigRenderer._assert_render_thread)
 
 The JAX package's rasterizer switches (FIGDRAW_BACKEND, FIGDRAW_FORCE_XLA)
 have no counterpart: the port has no fallback chain. Its text switches come
@@ -41,3 +45,14 @@ def apply_startup_env() -> None:
             set_fig_ui_scale(float(scale))
         except ValueError:
             pass
+
+
+def batch_chunk() -> int:
+    """Frames per batched group in FigRenderer.render_batch (config.py:76-84
+    of the JAX package, the same FIGDRAW_BATCH_CHUNK, default 8): the
+    frames of a group travel to the device as one upload and are written
+    into one preallocated output. A value that does not parse gives 8."""
+    try:
+        return max(1, int(os.environ.get("FIGDRAW_BATCH_CHUNK", "8")))
+    except ValueError:
+        return 8

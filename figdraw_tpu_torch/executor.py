@@ -1,6 +1,7 @@
 """Executors: the device half of a frame, as plain functions on tensors
 (figdraw_tpu/executor.py `unpack_combo_device`, `get_frame_executor` with
-its rolled form `get_rolled_executor`, and `get_mega_executor`).
+its rolled form `get_rolled_executor`, `get_mega_executor`, and
+`get_batch_runner` as `BatchStack` and `run_batch`).
 
 The packed upload is decoded on the device and the whole tape is binned
 once. The frame executor then runs the pass structure in order: draw runs
@@ -80,9 +81,10 @@ def get_frame_executor(structure: Tuple, height: int, width: int,
 
     rolled: the rolled form (executor.get_rolled_executor:590-751), for
     plans of more than ROLLED_THRESHOLD items. The combo's meta is then one
-    row, the clear color; run's items and radii, the plan's host item table
-    (plan.build_rolled_items), give each item's draw bounds and blur radius,
-    uploaded once; and the tape is binned with no culling. JAX rolls the
+    row, the clear color; run's items and radii, the plan's item table
+    (plan.build_rolled_items: numpy, uploaded here, or tensors on the
+    combo's device, as a batch passes them), give each item's draw bounds
+    and blur radius; and the tape is binned with no culling. JAX rolls the
     item loop into a lax.fori_loop to keep its compile cost constant; here
     both forms walk the same host loop."""
     th, tw = tile_h, TILE_W
@@ -120,8 +122,11 @@ def get_frame_executor(structure: Tuple, height: int, width: int,
         dev = combo.device
         fields, modes = unpack_combo(combo[:-rows])
         if rolled:
-            bounds = torch.from_numpy(np.ascontiguousarray(items[:, 2:4])).to(dev)
-            blur_radii = torch.from_numpy(radii).to(dev)
+            if isinstance(items, np.ndarray):
+                items = torch.from_numpy(items).to(dev)
+                radii = torch.from_numpy(radii).to(dev)
+            bounds = items[:, 2:4].contiguous()
+            blur_radii = radii
             clear_color = combo[-1, 0:4]
         else:
             meta = combo[-rows:].reshape(-1)
@@ -210,3 +215,65 @@ def get_mega_executor(height: int, width: int, n_masks: int,
         return planes.permute(1, 2, 0)[:height, :width].contiguous()
 
     return run
+
+
+class BatchStack:
+    """The varying buffers of a group of batched frames (the JAX package's
+    stacked `lax.map` operands, executor.get_batch_runner): one (chunk, L)
+    f32 host row a frame, each named buffer flattened end to end into it
+    (an int32 buffer as its bits). A frame's buffers are copied in when it
+    is added, so a pooled walk buffer is free again at once; the group goes
+    to the device as one (F, L) upload (`upload`), and `frame` gives frame
+    f's buffers back as views of that one tensor, in their own shapes and
+    dtypes."""
+
+    def __init__(self, buffers: dict, chunk: int):
+        self.layout = []  # (name, shape, is_int32, start, end)
+        at = 0
+        for name, arr in buffers.items():
+            if arr.dtype not in (np.float32, np.int32):
+                raise ValueError(f"batch buffer {name!r} has dtype {arr.dtype}")
+            self.layout.append((name, arr.shape, arr.dtype == np.int32, at,
+                                at + arr.size))
+            at += arr.size
+        self.host = np.empty((chunk, at), np.float32)
+        self.count = 0
+        self.add(buffers)
+
+    def add(self, buffers: dict) -> None:
+        if self.count >= self.host.shape[0]:
+            raise ValueError(f"a batch group holds at most {self.host.shape[0]} frames")
+        row = self.host[self.count]
+        for name, shape, _is_int, a, b in self.layout:
+            arr = buffers[name]
+            if arr.shape != shape:
+                raise ValueError(f"batch buffer {name!r} is {arr.shape}, the group's {shape}")
+            row[a:b] = np.ascontiguousarray(arr).reshape(-1).view(np.float32)
+        self.count += 1
+
+    def upload(self, device) -> torch.Tensor:
+        """The group's frames as one (F, L) f32 tensor, one host-to-device
+        copy."""
+        return torch.from_numpy(self.host[: self.count]).to(device, copy=True)
+
+    def frame(self, stack: torch.Tensor, f: int) -> dict:
+        row = stack[f]
+        out = {}
+        for name, shape, is_int, a, b in self.layout:
+            t = row[a:b]
+            out[name] = (t.view(torch.int32) if is_int else t).view(shape)
+        return out
+
+
+def run_batch(run, batch: BatchStack, out: torch.Tensor, **const) -> torch.Tensor:
+    """The CUDA counterpart of the JAX package's `lax.map` over a chunk
+    (executor.get_batch_runner): upload the group's stack once, then run the
+    single-frame executor `run` on each frame's slice of it, in order,
+    writing frame f into out[f] (a preallocated (F, H, W, 4) f32 tensor).
+    const: the frame-invariant keywords (init_frame, atlas, pixelate).
+    `lax.map` is a sequential loop on the TPU as well; each frame equals
+    run's frame on the same buffers bit for bit."""
+    stack = batch.upload(out.device)
+    for f in range(batch.count):
+        out[f] = run(**batch.frame(stack, f), **const)
+    return out

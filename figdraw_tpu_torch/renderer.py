@@ -13,12 +13,27 @@ Both walks apply the global UI scale (basics.fig_ui_scale) and the
 renderer's pixel scale, and render_frame scales the frame size by the UI
 scale, as the JAX renderer does.
 
+The frame loop's other entry points: render_frame_async (the walk on
+the caller's thread, upload and executor on one worker thread, at most two
+frames in flight), render_batch (groups of frames of one pass structure
+uploaded as one stack and run into one preallocated output),
+render_frame_with_overlays (external frames composited between layers);
+and the image surface (update_image, remove_image, contains_image,
+rebuild_image_atlas, atlas_usage, publish_atlas_usage).
+
 The device is explicit: FigRenderer(device="cuda") raises when CUDA is
 absent, and a "cpu" renderer runs the plain torch versions of the kernels.
+No path retries a failed kernel or build another way: the error reaches
+the caller.
 """
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
+import os
+import threading
+from dataclasses import dataclass
 from typing import Hashable, Optional
 
 import numpy as np
@@ -28,7 +43,8 @@ from . import native
 from .atlas import Atlas, AtlasEntryMeta
 from .basics import fig_ui_scale, scaled
 from .colors import Color, as_color
-from .executor import get_frame_executor, get_mega_executor
+from .config import batch_chunk
+from .executor import BatchStack, get_frame_executor, get_mega_executor, run_batch
 from .geometry import Vec2
 from .nodesarray import RendersArray
 from .render import render_root
@@ -43,6 +59,89 @@ from .tape import Tape, TapeBackend
 
 DEFAULT_SDF_AA_FACTOR = 1.2  # figbackend.nim:34
 WHITE_IMAGE_KEY = "__figdraw_white__"  # renderer.WHITE_IMAGE_KEY
+ASYNC_IN_FLIGHT = 2  # render_frame_async's cap: the walk pool's two buffers
+STAGING_SLOTS = 3  # pinned upload slots of the async pipeline
+
+
+@dataclass
+class AtlasUsage:
+    """Atlas occupancy snapshot (renderer.AtlasUsage, figbackend.nim:72-89)."""
+
+    snapshot_id: int = 0
+    generation: int = 0
+    rebuild_count: int = 0
+    atlas_size: int = 0
+    atlas_area: int = 0
+    used_area: int = 0
+    packed_area: int = 0
+    entry_count: int = 0
+    image_count: int = 0
+    glyph_count: int = 0
+    generated_count: int = 0
+    unknown_count: int = 0
+
+    @property
+    def used_ratio(self) -> float:
+        return self.used_area / self.atlas_area if self.atlas_area > 0 else 0.0
+
+    @property
+    def packed_ratio(self) -> float:
+        return self.packed_area / self.atlas_area if self.atlas_area > 0 else 0.0
+
+
+_atlas_usage_lock = threading.Lock()
+_last_atlas_usage = AtlasUsage()
+_next_snapshot_id = 0
+
+
+def atlas_usage_snapshot() -> AtlasUsage:
+    """The last published snapshot, readable from any thread
+    (renderer.atlas_usage_snapshot, figbackend.nim:347-353)."""
+    with _atlas_usage_lock:
+        return _last_atlas_usage
+
+
+def blend_overlay(frame: torch.Tensor, overlay: torch.Tensor) -> torch.Tensor:
+    """Source-over of an external straight-alpha (H, W, 4) layer onto a
+    frame (renderer._blend_overlay, the GL blend state of glcontext.nim).
+    Elementwise, in plain torch: the JAX package computes it outside any
+    Pallas kernel, as one XLA op."""
+    a = overlay[..., 3:4]
+    rgb = overlay[..., :3] * a + frame[..., :3] * (1.0 - a)
+    al = overlay[..., 3] + frame[..., 3] * (1.0 - overlay[..., 3])
+    return torch.cat([rgb, al[..., None]], dim=-1)
+
+
+class _Staging:
+    """The async pipeline's upload slots: STAGING_SLOTS pinned host buffers,
+    each with the CUDA event recorded after the copy that last read it. A
+    slot is written only once its event has completed, so a non_blocking
+    copy never reads a buffer the host is rewriting; the walk's pooled
+    buffer itself is free as soon as its bytes are in a slot. On the CPU a
+    slot is a plain copy."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.slots = [[None, None] for _ in range(STAGING_SLOTS)]
+        self.turn = 0
+
+    def upload(self, arr: np.ndarray) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return torch.from_numpy(arr).clone()
+        slot = self.slots[self.turn]
+        self.turn = (self.turn + 1) % len(self.slots)
+        buf, event = slot
+        if event is not None:
+            event.synchronize()
+        if buf is None or buf.numel() < arr.nbytes:
+            buf = slot[0] = torch.empty(arr.nbytes, dtype=torch.uint8,
+                                        pin_memory=True)
+        host = buf[: arr.nbytes]
+        host.copy_(torch.from_numpy(np.ascontiguousarray(arr).reshape(-1).view(np.uint8)))
+        dev = host.to(self.device, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record()
+        return dev.view(torch.float32).view(arr.shape)
 
 
 class FigRenderer:
@@ -74,9 +173,36 @@ class FigRenderer:
         self.aa_factor = DEFAULT_SDF_AA_FACTOR
         self.last_frame = None  # (H, W, 4) f32 tensor of the last render
         self._atlas_device = None
+        # the device atlas was handed to work that has not run yet (an async
+        # job, a batch group): the next patch goes into a copy
+        self._atlas_shared = False
+        self._atlas_stamp = 0  # bumped each time the device atlas changes
+        self.atlas_upload_bytes = 0  # bytes of the last device-atlas upload
         self._atlas_pack_cache = None
         self._bus = None
         self._subscription = None
+        self._render_thread_id: Optional[int] = None
+        # render_frame_async: one worker thread for upload and executor, and
+        # a release future per frame in flight (at most ASYNC_IN_FLIGHT)
+        self._pipe = None
+        self._async_released = collections.deque()
+        self._staging = _Staging(self.device)
+
+    def _assert_render_thread(self) -> None:
+        """The render path has one owner thread (renderer._assert_render_thread,
+        the runtime form of the reference's thread-effect tags,
+        shared.nim:22-35); other threads publish images through the message
+        bus. FIGDRAW_NO_THREAD_GUARD=1 turns the check off."""
+        if os.environ.get("FIGDRAW_NO_THREAD_GUARD") == "1":
+            return
+        tid = threading.get_ident()
+        if self._render_thread_id is None:
+            self._render_thread_id = tid
+        elif self._render_thread_id != tid:
+            raise RuntimeError(
+                "FigRenderer render path used from two threads; publish "
+                "resources through the image message bus instead "
+                "(figdraw_tpu_torch.resources), or set FIGDRAW_NO_THREAD_GUARD=1")
 
     # --- the image message bus -----------------------------------------------
 
@@ -123,8 +249,59 @@ class FigRenderer:
     def put_image(self, key: Hashable, img, kind: str = "image") -> None:
         self.atlas.put_image(key, img, AtlasEntryMeta(kind=kind))
 
-    def has_image(self, key: Hashable) -> bool:
+    def update_image(self, key: Hashable, img) -> None:
+        """Replace an image's pixels in place when its size is unchanged
+        (the device atlas then takes a dirty-rect copy), else repack it."""
+        self.atlas.update_image(key, img)
+
+    def remove_image(self, key: Hashable) -> None:
+        self.atlas.remove(key)
+
+    def contains_image(self, key: Hashable) -> bool:
         return key in self.atlas
+
+    def rebuild_image_atlas(self, minimum_size: int = 0) -> None:
+        """Reset the atlas (grown to at least minimum_size), then replay the
+        bus's live images into it (figbackend.nim:202-207); the device atlas
+        is uploaded whole at the next frame."""
+        self.atlas.reset(minimum_size)
+        if self._bus is not None and self._subscription is not None:
+            self._bus.replay_to(self._subscription)
+            self.process_image_messages()
+
+    def atlas_usage(self) -> AtlasUsage:
+        """The atlas' occupancy now (renderer.atlas_usage)."""
+        atlas = self.atlas
+        usage = AtlasUsage(
+            generation=atlas.generation, rebuild_count=atlas.rebuild_count,
+            atlas_size=atlas.size, atlas_area=atlas.size * atlas.size,
+            used_area=atlas.used_area(),
+            packed_area=max(atlas.packed_area(), atlas.used_area()),
+            entry_count=len(atlas.entries),
+        )
+        for key in atlas.entries:
+            meta = atlas.meta.get(key)
+            if meta is None:
+                usage.unknown_count += 1
+            elif meta.kind == "image":
+                usage.image_count += 1
+            elif meta.kind == "glyph":
+                usage.glyph_count += 1
+            else:
+                usage.generated_count += 1
+        if usage.atlas_area > 0:
+            usage.used_area = min(usage.used_area, usage.atlas_area)
+            usage.packed_area = min(usage.packed_area, usage.atlas_area)
+        return usage
+
+    def publish_atlas_usage(self) -> None:
+        """Publish atlas_usage() for atlas_usage_snapshot()."""
+        global _last_atlas_usage, _next_snapshot_id
+        usage = self.atlas_usage()
+        with _atlas_usage_lock:
+            _next_snapshot_id += 1
+            usage.snapshot_id = _next_snapshot_id
+            _last_atlas_usage = usage
 
     def _white_uv(self):
         """The white texel's uv center; restored first if a cache clear
@@ -147,24 +324,41 @@ class FigRenderer:
     def _device_atlas(self) -> torch.Tensor:
         """The (S, S, 4) f32 atlas on the device (renderer._device_atlas):
         uploaded whole after a rebuild, a size change or when the dirty rects
-        cover the atlas' area, else each dirty rect is copied into its slice.
+        cover a quarter of the atlas' area, else each dirty rect is copied
+        into its slice (atlas_upload_bytes: the bytes of the last upload).
         The copies are synchronous: the host array changes under the next
-        put_image."""
+        put_image. While work that has not run yet holds the device atlas
+        (_atlas_shared), the rects go into a copy of it, so that work
+        samples the atlas as of its own walk."""
         atlas = self.atlas
         dev = self._atlas_device
         if (atlas.full_dirty or dev is None
                 or tuple(dev.shape) != atlas.data.shape):
-            self._atlas_device = torch.from_numpy(atlas.data).to(self.device,
-                                                                 copy=True)
+            dev = None
         elif atlas.dirty and atlas.dirty_rects:
             patched = sum(w * h for (_x, _y, w, h) in atlas.dirty_rects)
             if patched * 4 >= atlas.data.size:
-                self._atlas_device = torch.from_numpy(atlas.data).to(self.device,
-                                                                     copy=True)
+                dev = None
             else:
+                if self._atlas_shared:
+                    dev = dev.clone()
+                total = 0
                 for (x, y, w, h) in atlas.dirty_rects:
-                    dev[y : y + h, x : x + w].copy_(
-                        torch.from_numpy(atlas.data[y : y + h, x : x + w]))
+                    patch = torch.from_numpy(atlas.data[y : y + h, x : x + w])
+                    dev[y : y + h, x : x + w].copy_(patch)
+                    total += w * h * 16
+                self._atlas_device = dev
+                self._atlas_shared = False
+                self._atlas_stamp += 1
+                self.atlas_upload_bytes = total
+        else:
+            dev = self._atlas_device
+        if dev is None:
+            self._atlas_device = torch.from_numpy(atlas.data).to(self.device,
+                                                                 copy=True)
+            self._atlas_shared = False
+            self._atlas_stamp += 1
+            self.atlas_upload_bytes = atlas.data.nbytes
         atlas.full_dirty = False
         atlas.dirty = False
         atlas.dirty_rects.clear()
@@ -225,19 +419,10 @@ class FigRenderer:
                                device=self.device)
         return last
 
-    def _run_mega(self, combo: np.ndarray, height: int, width: int,
-                  n_masks: int, has_init_frame: bool, tile_h: int):
-        """The megakernel on the walk's own mega export (no atlas quads)."""
-        run = get_mega_executor(height, width, n_masks, has_init_frame, tile_h)
-        frame = run(self._upload(combo),
-                    self._init_frame(has_init_frame, height, width),
-                    pixelate=self.pixelate)
-        self.last_frame = frame
-        return frame
-
     def _upload(self, combo: np.ndarray) -> torch.Tensor:
         """A synchronous copy: the walk's combo pool reuses the host buffer
-        two flattens later."""
+        two flattens later (native._pooled_combo). The async pipeline
+        uploads through its pinned slots instead (_Staging)."""
         return torch.from_numpy(combo).to(self.device, copy=True)
 
     def execute_plan(self, plan: ExecPlan,
@@ -254,8 +439,7 @@ class FigRenderer:
                   atlas: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Run the plan's executor on `combo`, the plan's upload (or a
         transformed copy of it) on the device; atlas as execute_plan's."""
-        needs_atlas = plan.mega_combo is None or plan.mega_atlas
-        if atlas is None and needs_atlas:
+        if atlas is None and _needs_atlas(plan):
             atlas = self._device_atlas()
         init = self._init_frame(plan.has_init_frame, plan.height, plan.width)
         if plan.mega_combo is not None:
@@ -273,42 +457,287 @@ class FigRenderer:
         self.last_frame = frame
         return frame
 
-    def render_frame(self, renders, frame_size: Vec2, clear_main: bool = True,
-                     clear_color: Color = Color(1.0, 1.0, 1.0, 1.0)):
-        """Full frame: apply pending image messages, flatten on the host,
-        rasterize on the device. renders: a RendersArray, a Renders tree or
-        a RenderFragments; frame_size in UI units (the frame is frame_size
-        times the UI scale). Returns the (H, W, 4) f32 frame tensor
-        (asynchronous on CUDA).
-
-        A RendersArray takes the walk's fast export first
+    def _walk_plan(self, renders, fs: Vec2, clear_main: bool,
+                   clear_color) -> ExecPlan:
+        """The host half of a frame at the scaled frame size fs: the walk and
+        the plan. A RendersArray takes the walk's fast export first
         (renderer.py:1307-1317): a mask-heavy scene without atlas quads,
-        blurs or backdrops goes from the walk straight to the megakernel,
-        every other scene through a tape and execute(), which sends a
-        mask-heavy atlas scene to the megakernel too (plan.plan_execution).
-        A tree takes the Python walk and execute(). A text node raises
-        NotImplementedError on either walk."""
-        fs = scaled(frame_size)
-        if fs.x <= 0 or fs.y <= 0:
-            return self.last_frame
-        self.process_image_messages()
+        blurs or backdrops goes from the walk straight to a megakernel plan
+        whose combo is the walk's pooled export; every other scene gets a
+        tape, which plan.plan_execution plans (and sends to the megakernel
+        too when it is mask-heavy, atlas runs included). A tree takes the
+        Python walk. A text node raises NotImplementedError on either
+        walk."""
         if not isinstance(renders, RendersArray):
-            return self.execute(self.flatten(renders, fs, clear_main, clear_color))
+            return plan_execution(self.flatten(renders, fs, clear_main, clear_color))
         cc = self._clear_tuple(clear_main, clear_color)
         result = native.flatten_fast(
             renders, fs.x, fs.y, fig_ui_scale(), self.pixel_scale,
             self.aa_factor, cc, atlas=self._walk_atlas(), pool_owner=id(self),
         )
         if result[0] == "tape":
-            return self.execute(result[1])
+            return plan_execution(result[1])
         _, combo, mask_count, density = result
         width = int(round(fs.x))
         height = int(round(fs.y))
         # the pooled buffer's meta row may hold an earlier frame's clear
         # color; a frame that does not clear starts from the last frame
         combo[-1, 0:4] = cc if cc is not None else 0.0
-        return self._run_mega(combo, height, width, mask_count + 1, cc is None,
-                              tile_h_from_density(*density, height, width))
+        return ExecPlan(
+            combo=combo, structure=(), bounds=[], radii=[], height=height,
+            width=width, n_masks=mask_count + 1,
+            tile_h=tile_h_from_density(*density, height, width),
+            has_init_frame=cc is None, mega_combo=combo)
+
+    def render_frame(self, renders, frame_size: Vec2, clear_main: bool = True,
+                     clear_color: Color = Color(1.0, 1.0, 1.0, 1.0)):
+        """Full frame: apply pending image messages, flatten on the host,
+        rasterize on the device. renders: a RendersArray, a Renders tree or
+        a RenderFragments; frame_size in UI units (the frame is frame_size
+        times the UI scale). Returns the (H, W, 4) f32 frame tensor
+        (asynchronous on CUDA). Frames of render_frame_async still in
+        flight are drained first. The route is _walk_plan's."""
+        fs = scaled(frame_size)
+        if fs.x <= 0 or fs.y <= 0:
+            return self.last_frame
+        self._assert_render_thread()
+        self.drain_async()
+        self.process_image_messages()
+        frame = self.execute_plan(self._walk_plan(renders, fs, clear_main, clear_color))
+        self.publish_atlas_usage()
+        return frame
+
+    # --- the async pipeline ----------------------------------------------------
+
+    def render_frame_async(self, renders, frame_size: Vec2, clear_main: bool = True,
+                           clear_color: Color = Color(1.0, 1.0, 1.0, 1.0)
+                           ) -> concurrent.futures.Future:
+        """A pipelined frame (renderer.render_frame_async): the image
+        messages, the walk, the plan and the device atlas' update run now,
+        on the calling thread; the upload and the executor run on the
+        renderer's one worker thread, so the next frame's walk overlaps this
+        frame's device work. Returns a Future of the (H, W, 4) f32 frame
+        tensor; on CUDA the frame is enqueued on the caller's stream, which
+        orders it for any later use there.
+
+        At most ASYNC_IN_FLIGHT frames are in flight: the walk's combo pool
+        alternates two buffers, so the walk of frame N+2 waits until frame
+        N's job has copied its buffer out. The job copies it into a pinned
+        staging slot and uploads that with a non_blocking copy; a slot is
+        rewritten only after the event of its last copy has completed. The
+        frame samples the atlas as of its own walk: the device atlas is
+        resolved here, before the job is queued, and a later patch goes into
+        a copy of it. An exception in the job reaches the Future's result()
+        and frees the frame's slot; the pipeline stays usable."""
+        fs = scaled(frame_size)
+        done = concurrent.futures.Future()
+        if fs.x <= 0 or fs.y <= 0:
+            done.set_result(self.last_frame)
+            return done
+        self._assert_render_thread()
+        if self._pipe is None:
+            self._pipe = concurrent.futures.ThreadPoolExecutor(
+                1, thread_name_prefix="figdraw-pipe")
+        while len(self._async_released) >= ASYNC_IN_FLIGHT:
+            self._async_released.popleft().result()
+        self.process_image_messages()
+        plan = self._walk_plan(renders, fs, clear_main, clear_color)
+        atlas = self._device_atlas() if _needs_atlas(plan) else None
+        self._atlas_shared |= atlas is not None
+        self.publish_atlas_usage()
+        stream = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+        released = concurrent.futures.Future()
+
+        def job():
+            try:
+                combo = plan.mega_combo if plan.mega_combo is not None else plan.combo
+                if stream is None:
+                    return self._run_plan(plan, self._staging.upload(combo), atlas)
+                with torch.cuda.stream(stream):
+                    return self._run_plan(plan, self._staging.upload(combo), atlas)
+            finally:
+                released.set_result(None)
+
+        fut = self._pipe.submit(job)
+        self._async_released.append(released)
+        return fut
+
+    def drain_async(self) -> None:
+        """Wait until no frame of render_frame_async is in flight; every
+        synchronous entry point calls it first."""
+        while self._async_released:
+            self._async_released.popleft().result()
+        # every job has enqueued its work: a later patch of the device atlas
+        # is ordered after it on the stream
+        self._atlas_shared = False
+
+    # --- batched offline rendering ---------------------------------------------
+
+    def render_batch(self, scenes, frame_size: Vec2,
+                     clear_color: Color = Color(1.0, 1.0, 1.0, 1.0),
+                     chunk: int = 0, as_uint8: bool = False, mesh=None
+                     ) -> torch.Tensor:
+        """A sequence of scenes as an (F, H, W, 4) f32 tensor in scene order
+        (or, as_uint8, take_screenshot's RGBA u8), the offline animation
+        path (renderer.render_batch). Consecutive frames of one group key
+        (_batch_signature: the executor, the pass structure, the sizes and
+        the atlas they sample) form a group of at most `chunk` frames
+        (default FIGDRAW_BATCH_CHUNK, 8): the group's varying buffers go to
+        the device as one stack in one copy, and the group's single-frame
+        executor runs on each frame's slice of it into one preallocated
+        output (executor.run_batch). Each frame equals render_frame's bit for
+        bit. A frame that does not clear (none here: every frame clears)
+        takes the single-frame path in order. An image update between frames
+        changes the device atlas and so starts a new group. The frame axis is
+        not padded to a power of two: that padding bounds XLA's jit
+        signatures, which the port does not have. mesh (frame-parallel
+        rendering over several devices) raises NotImplementedError."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "render_batch(mesh=...): rendering across several devices is "
+                "not ported yet (ROADMAP.md, module item 10)")
+        if chunk <= 0:
+            chunk = batch_chunk()
+        fs = scaled(frame_size)
+        self._assert_render_thread()
+        self.drain_async()
+        height, width = int(round(fs.y)), int(round(fs.x))
+        parts = []
+        group = None  # [key, first plan, BatchStack, atlas]
+
+        def flush():
+            nonlocal group
+            if group is None:
+                return
+            key, plan, batch, atlas = group
+            group = None
+            parts.append(self._dispatch_batch(key, plan, batch, atlas))
+
+        for renders in scenes:
+            self.process_image_messages()
+            plan = self._walk_plan(renders, fs, True, clear_color)
+            # resolved before the key: a change since the group's frames
+            # goes into a copy of the atlas they hold and restamps it
+            atlas = self._device_atlas() if _needs_atlas(plan) else None
+            key, vary = self._batch_signature(plan)
+            if key is None:
+                flush()
+                parts.append(self.execute_plan(plan)[None])
+                continue
+            if group is not None and (group[0] != key or group[2].count >= chunk):
+                flush()
+            if group is None:
+                self._atlas_shared |= atlas is not None
+                group = [key, plan, BatchStack(vary, chunk), atlas]
+            else:
+                group[2].add(vary)
+        flush()
+        self._atlas_shared = False
+        self.publish_atlas_usage()
+        if not parts:
+            out = torch.zeros((0, height, width, 4), dtype=torch.float32,
+                              device=self.device)
+        else:
+            out = parts[0] if len(parts) == 1 else torch.cat(parts)
+            self.last_frame = out[-1]
+        return frames_to_u8(out) if as_uint8 else out
+
+    def _batch_signature(self, plan: ExecPlan):
+        """(group key, the frame's varying buffers by name) for a plan, or
+        (None, None) for a frame that cannot batch (it composites onto the
+        previous frame). The key names the executor and everything its
+        single-frame form is built for: the megakernel's sizes, planes, tile
+        height, atlas form and combo shape; a rolled or unrolled plan's pass
+        structure (which fixes the item table's rows and atlas runs), sizes
+        and combo shape. A plan that samples the atlas adds the atlas
+        generation and the device atlas' stamp, so frames that sample
+        different atlas contents never share a group. Blur radii are not in
+        the key: they ride in the combo's meta or the rolled radii, a device
+        value a frame. The buffers are copied into the group's stack as the
+        frame joins it."""
+        if plan.has_init_frame:
+            return None, None
+        atlas_key = ((self.atlas.generation, self._atlas_stamp)
+                     if _needs_atlas(plan) else None)
+        sizes = (plan.height, plan.width, plan.n_masks, plan.tile_h)
+        if plan.mega_combo is not None:
+            return (("mega", sizes, plan.mega_atlas, plan.mega_combo.shape, atlas_key),
+                    {"combo": plan.mega_combo})
+        if plan.rolled_items is not None:
+            return (("rolled", plan.structure, sizes, plan.combo.shape, atlas_key),
+                    {"combo": plan.combo, "items": plan.rolled_items,
+                     "radii": plan.rolled_radii})
+        return (("unrolled", plan.structure, sizes, plan.combo.shape, atlas_key),
+                {"combo": plan.combo})
+
+    def _dispatch_batch(self, key, plan: ExecPlan, batch: BatchStack,
+                        atlas: Optional[torch.Tensor]) -> torch.Tensor:
+        """Run one group: its executor (from its first plan) over the
+        stacked frames into a preallocated (F, H, W, 4) output. A failure
+        raises: there is no per-frame retry."""
+        if key[0] == "mega":
+            run = get_mega_executor(plan.height, plan.width, plan.n_masks, False,
+                                    plan.tile_h)
+            atlas = atlas if plan.mega_atlas else None
+        else:
+            run = get_frame_executor(plan.structure, plan.height, plan.width,
+                                     plan.n_masks, False, plan.tile_h,
+                                     rolled=key[0] == "rolled")
+        out = torch.empty((batch.count, plan.height, plan.width, 4),
+                          dtype=torch.float32, device=self.device)
+        return run_batch(run, batch, out, init_frame=None, atlas=atlas,
+                         pixelate=self.pixelate)
+
+    # --- overlays ----------------------------------------------------------------
+
+    def render_frame_with_overlays(self, renders, frame_size: Vec2, overlays,
+                                   clear_main: bool = True,
+                                   clear_color: Color = Color(1.0, 1.0, 1.0, 1.0)
+                                   ) -> torch.Tensor:
+        """Composite external full-frame images between the scene's layers
+        (renderer.render_frame_with_overlays, the reference's 3D-overlay
+        sandwich). overlays: {zlevel: (H, W, 4) straight-alpha image, a
+        tensor or an array}; each composites source-over (blend_overlay)
+        after every layer whose zlevel is below its key and before the
+        layers at or above it. The layers between two boundaries render as
+        one frame onto the last (render_frame with clear_main=False after
+        the first group); when nothing lies below the first boundary, the
+        frame starts from the clear color. An overlay whose shape is not the
+        frame's raises ValueError."""
+        if not overlays:
+            return self.render_frame(renders, frame_size, clear_main, clear_color)
+        clear_color = as_color(clear_color)
+        boundaries = sorted(overlays)
+        groups = [[] for _ in range(len(boundaries) + 1)]
+        for lvl, lst in renders.sorted_pairs():
+            gi = 0
+            while gi < len(boundaries) and lvl >= boundaries[gi]:
+                gi += 1
+            groups[gi].append((lvl, lst))
+        frame = None
+        for gi, group in enumerate(groups):
+            if group:
+                sub = type(renders)()
+                for lvl, lst in group:
+                    sub.set_layer(lvl, lst)
+                frame = self.render_frame(sub, frame_size,
+                                          clear_main=clear_main if frame is None else False,
+                                          clear_color=clear_color)
+            elif frame is None:
+                fs = scaled(frame_size)
+                color = torch.tensor([clear_color.r, clear_color.g, clear_color.b,
+                                      clear_color.a], dtype=torch.float32)
+                frame = color.to(self.device).expand(
+                    int(round(fs.y)), int(round(fs.x)), 4).contiguous()
+                self.last_frame = frame
+            if gi < len(boundaries):
+                overlay = torch.as_tensor(overlays[boundaries[gi]],
+                                          dtype=torch.float32).to(self.device)
+                if tuple(overlay.shape) != tuple(frame.shape):
+                    raise ValueError(f"overlay {tuple(overlay.shape)} must match "
+                                     f"the frame {tuple(frame.shape)}")
+                frame = self.last_frame = blend_overlay(frame, overlay)
+        return frame
 
     # --- device-resident scenes -----------------------------------------------
 
@@ -333,6 +762,8 @@ class FigRenderer:
         take the megakernel's layout, whose clear sentinel rows break the
         mapping of tape rows onto the resident rows, takes the rolled
         executor instead."""
+        self._assert_render_thread()
+        self.drain_async()
         self.process_image_messages()
         clear_color = as_color(clear_color)
         tape = self.flatten(renders, scaled(frame_size), clear_main, clear_color,
@@ -375,6 +806,7 @@ class FigRenderer:
         Anything else (a structural edit, a plane mask, a blur or a backdrop
         in a dirty root, an atlas rebuild, dirty=None) takes a new snapshot
         into `scene`: the same frames at a snapshot's cost. Returns scene."""
+        self._assert_render_thread()
         self._check_scene_device(scene)
         if patch_device_scene(self, scene, renders, dirty):
             return scene
@@ -495,6 +927,8 @@ class FigRenderer:
         scalar or (N,). The cameras go to the device in one upload; each
         view equals render_view's. A scene that does not clear composites
         each view onto the one before."""
+        self._assert_render_thread()
+        self.drain_async()
         self._check_scene_device(scene)
         ds = np.asarray(pans, dtype=np.float32).reshape(-1, 2)
         n = ds.shape[0]
@@ -525,6 +959,14 @@ class FigRenderer:
             y = max(0, min(y, arr.shape[0]))
             arr = arr[y : y + max(h, 0), x : x + max(w, 0)]
         return np.clip(np.round(arr * 255.0), 0, 255).astype(np.uint8)
+
+
+def _needs_atlas(plan: ExecPlan) -> bool:
+    """Whether a plan's executor samples the atlas: a megakernel plan with
+    atlas quads, or a draw run of the frame executor that holds one."""
+    if plan.mega_combo is not None:
+        return plan.mega_atlas
+    return any(item[0] == "draw" and item[2] for item in plan.structure)
 
 
 def frames_to_u8(frames: torch.Tensor) -> torch.Tensor:

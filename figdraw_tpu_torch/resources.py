@@ -91,6 +91,13 @@ class ImageMessageBus:
                 sub._push(msg)
         return sub
 
+    def replay_to(self, sub: ImageMessageSubscription) -> None:
+        """Send the live images to a subscription again, after its renderer
+        rebuilt its atlas (imgutils.nim:206-215)."""
+        with self._lock:
+            for msg in self._replay.values():
+                sub._push(msg)
+
     def publish(self, msg: ImageMsg) -> ImageMsg:
         """Stamp a put or replace with its generations, update the replay
         table, and push the message to every subscriber. Returns the

@@ -18,6 +18,14 @@ tables; from_renders of a table equals make_clip_table_scene's rows byte
 for byte) and the scenes of three examples (`EXAMPLE_SCENES`), which
 `render_example` renders in each of `EXAMPLE_FORMS` against figdraw_tpu's
 stored block means (`example_reference_path`).
+
+For the frame loop's entry points: `make_blurred_cards_scene` (the
+clipped photo cards under a backdrop blur, a frosted panel and a second
+band of cards above it: a long tape with a blur, which the planner sends to
+the rolled executor) and examples/overlay_3d.py's scene with its numpy
+pyramid (`make_overlay_scene`, `rasterize_pyramid`), each held to stored
+block means of figdraw_tpu's frames (`BLURRED_REFERENCE`,
+`OVERLAY_REFERENCE`).
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ import numpy as np
 
 from .basics import (
     BackdropBlurStyle, FigFlags, FigKind, RenderShadow, RenderStroke,
-    ShadowStyle, StrokeCap, StrokeJoin,
+    ShadowStyle, StrokeCap, StrokeJoin, image_style,
 )
 from .borders import (
     fig_dashed_rounded_rect_border, fig_dotted_rounded_rect_border,
@@ -44,7 +52,7 @@ from .nodes import (
     DrawableKind, Fig, RenderList, Renders, drawable_arc, drawable_bezier,
     drawable_circle, drawable_line, drawable_rect, new_renders,
 )
-from .nodesarray import OP_DTYPE, RenderListArray, RendersArray
+from .nodesarray import OP_DTYPE, RenderListArray, RendersArray, from_renders
 
 # Box-placement clamp bounds shared with the native animator: the rightmost
 # box column starts at x=320 / the lowest at y=300, max animated size
@@ -1446,3 +1454,132 @@ def render_example(renderer_for, name: str, form: str):
     finally:
         set_fig_ui_scale(old)
     return ren, frame
+
+
+# --- the frame loop's scenes ------------------------------------------------------
+
+BLURRED_REFERENCE = os.path.join(REFERENCE_DIR, "blurred_cards_480x270_blocks8.npy")
+BLURRED_SMALL = (480, 270, 25)  # the stored reference's frame and cards
+BLURRED_RADIUS = 12.0
+
+
+def _card(lst: RenderList, x: float, y: float, image_id: int) -> None:
+    """One of images_clipped's cards: a 104x104 rounded panel that clips a
+    96x96 image child at (x + 24, y + 24)."""
+    panel = lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=rect(x, y, 104, 104),
+                             fill=fill(rgba(80, 80, 80, 255)), corners=(12,) * 4,
+                             flags=FigFlags.NfClipContent))
+    lst.add_child(panel, Fig(kind=FigKind.nkImage,
+                             screen_box=rect(x + 24, y + 24, 96, 96),
+                             image=image_style(image_id)))
+
+
+def blurred_panel(w: float, h: float):
+    """The frosted panel's box: the lower 45% of the frame, inset by 8%."""
+    return rect(w * 0.08, h * 0.5, w * 0.84, h * 0.45)
+
+
+def make_blurred_cards_scene(w: float, h: float, n: int) -> RendersArray:
+    """images_clipped's n cards (seed 777) on its dark background, then a
+    backdrop blur of radius BLURRED_RADIUS over the frosted panel (a
+    rounded, translucent white nkBackdropBlur node: the blur item and a
+    backdrop quad), then a second band of n // 5 clipped cards (seed 778)
+    inside the panel, above the blur. Built with the port's Fig API and
+    from_renders, node for node as tests/torch_reference.py builds it with
+    figdraw_tpu's; more than 24 pass items with a blur and a backdrop, so
+    plan.plan_execution sends it to the rolled executor."""
+    rng = np.random.RandomState(777)
+    lst = RenderList()
+    lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, w, h),
+                     fill=fill(rgba(30, 30, 30, 255))))
+    for _ in range(n):
+        x = float(rng.uniform(0, w - 120))
+        y = float(rng.uniform(0, h - 120))
+        _card(lst, x, y, IMAGE_ID)
+    panel = blurred_panel(w, h)
+    lst.add_root(Fig(kind=FigKind.nkBackdropBlur, screen_box=panel,
+                     backdrop_blur=BackdropBlurStyle(blur=BLURRED_RADIUS),
+                     corners=(16,) * 4, fill=fill(rgba(255, 255, 255, 70))))
+    rng = np.random.RandomState(778)
+    for _ in range(n // 5):
+        x = float(rng.uniform(panel.x, panel.x + panel.w - 104))
+        y = float(rng.uniform(panel.y, panel.y + panel.h - 104))
+        _card(lst, x, y, IMAGE_ID)
+    renders = new_renders()
+    renders.set_layer(0, lst)
+    return from_renders(renders)
+
+
+OVERLAY_SIZE = (420, 300)  # examples/overlay_3d.py's W, H
+OVERLAY_FRAMES = 6  # the example's strip: t = 0.35 + 0.5 i
+OVERLAY_REFERENCE = os.path.join(REFERENCE_DIR, "overlay_3d_420x300_blocks8.npy")
+
+
+def overlay_time(i: int) -> float:
+    return 0.35 + i * 0.5
+
+
+def rasterize_pyramid(w: int, h: int, t: float) -> np.ndarray:
+    """examples/overlay_3d.py's external 3D pass, copied (numpy, no JAX): a
+    spinning pyramid of 6 vertex-colored triangles with a z-buffer, opaque
+    over a dark clear color; (h, w, 4) f32."""
+    verts = np.array([[-0.5, 0, -0.5], [0.5, 0, -0.5], [0.5, 0, 0.5],
+                      [-0.5, 0, 0.5], [0.0, 0.8, 0.0]])
+    colors = np.array([[1, 0.2, 0.2], [0.2, 1, 0.2], [0.2, 0.2, 1],
+                       [1, 1, 0.2], [1, 0.2, 1.0]])
+    tris = [(0, 1, 4), (1, 2, 4), (2, 3, 4), (3, 0, 4), (0, 1, 2), (2, 3, 0)]
+    cy_, sy_ = np.cos(t), np.sin(t)
+    rot = np.array([[cy_, 0, sy_], [0, 1, 0], [-sy_, 0, cy_]])
+    v = verts @ rot.T
+    eye = np.array([1.5, 1.2, 2.3])
+    fwd = -eye / np.linalg.norm(eye)
+    right = np.cross(fwd, [0, 1, 0])
+    right /= np.linalg.norm(right)
+    up = np.cross(right, fwd)
+    cam = (v - eye) @ np.stack([right, up, -fwd], axis=1)
+    f = 1.0 / np.tan(np.radians(24))
+    sx = (f * cam[:, 0] / -cam[:, 2] * h / w + 1) * 0.5 * w
+    sy = (1 - f * cam[:, 1] / -cam[:, 2]) * 0.5 * h
+    sz = -cam[:, 2]
+
+    frame = np.empty((h, w, 4), np.float32)
+    frame[..., :3] = (0.08, 0.10, 0.14)
+    frame[..., 3] = 1.0
+    zbuf = np.full((h, w), np.inf)
+    yy, xx = np.mgrid[0:h, 0:w]
+    px, py = xx + 0.5, yy + 0.5
+    for ia, ib, ic in tris:
+        area = ((sx[ib] - sx[ia]) * (sy[ic] - sy[ia])
+                - (sy[ib] - sy[ia]) * (sx[ic] - sx[ia]))
+        if abs(area) < 1e-12:
+            continue
+        w0 = ((sx[ib] - px) * (sy[ic] - py) - (sy[ib] - py) * (sx[ic] - px)) / area
+        w1 = ((sx[ic] - px) * (sy[ia] - py) - (sy[ic] - py) * (sx[ia] - px)) / area
+        w2 = 1.0 - w0 - w1
+        z = w0 * sz[ia] + w1 * sz[ib] + w2 * sz[ic]
+        hit = (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & (z < zbuf)
+        if not hit.any():
+            continue
+        for ch in range(3):
+            attr = w0 * colors[ia, ch] + w1 * colors[ib, ch] + w2 * colors[ic, ch]
+            frame[..., ch] = np.where(hit, attr, frame[..., ch])
+        zbuf = np.where(hit, z, zbuf)
+    return frame
+
+
+def make_overlay_scene(w: float, h: float) -> Renders:
+    """examples/overlay_3d.py's make_scene: a gradient backdrop at zlevel -1
+    and a translucent HUD at zlevel 0; the pyramid composites at boundary
+    0, after the backdrop and before the HUD."""
+    back = RenderList()
+    back.add_root(Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, w, h),
+                      fill=linear(rgba(30, 34, 60, 255), rgba(8, 8, 16, 255))))
+    hud = RenderList()
+    hud.add_root(Fig(kind=FigKind.nkRectangle, screen_box=rect(16, h - 72, w - 32, 56),
+                     corners=(12, 12, 12, 12), fill=fill(rgba(255, 255, 255, 48))))
+    hud.add_root(Fig(kind=FigKind.nkRectangle, screen_box=rect(24, h - 64, 150, 40),
+                     corners=(8, 8, 8, 8), fill=fill(rgba(70, 200, 140, 220))))
+    r = new_renders()
+    r.set_layer(-1, back)
+    r.set_layer(0, hud)
+    return r

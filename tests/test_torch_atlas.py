@@ -132,22 +132,22 @@ def test_image_bus_matches_reference():
         put(2, imgs[2], bus=bus, mipmapped=True)
         rep(2, imgs[3], bus=bus)
     same()
-    assert pr.has_image(1) and pr.has_image((2, 1)) is False
+    assert pr.contains_image(1) and pr.contains_image((2, 1)) is False
     for bus, clear in ((jb, jax_clear_image), (pb, clear_image)):
         clear(1, bus=bus)
     same()
-    assert not pr.has_image(1) and pr.has_image(2)
+    assert not pr.contains_image(1) and pr.contains_image(2)
     late_j = JaxRenderer(atlas_size=128, use_pallas=False)
     late_p = port.FigRenderer(atlas_size=128, device="cpu")
     late_j.ensure_image_message_subscription(jb)
     late_p.ensure_image_message_subscription(pb)
     late_j.process_image_messages()
     late_p.process_image_messages()
-    assert late_p.atlas.entries == late_j.atlas.entries and late_p.has_image(2)
+    assert late_p.atlas.entries == late_j.atlas.entries and late_p.contains_image(2)
     for bus, clear in ((jb, jax_clear_image_cache), (pb, clear_image_cache)):
         clear(bus=bus)
     same()
-    assert not pr.has_image(2) and "__figdraw_white__" in pr.atlas.entries
+    assert not pr.contains_image(2) and "__figdraw_white__" in pr.atlas.entries
 
 
 def test_device_atlas_follows_the_host_atlas():

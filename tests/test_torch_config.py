@@ -1,7 +1,8 @@
 """figdraw_tpu_torch.config against figdraw_tpu.config (tests/test_config.py's
 twin for what the port reads): FIGDRAW_UI_SCALE and its alias HDI set the
-global UI scale, FIGDRAW_DATA_DIR the asset root, with the JAX package's
-precedence and parsing. The rasterizer and text switches have no
+global UI scale, FIGDRAW_DATA_DIR the asset root, FIGDRAW_BATCH_CHUNK
+render_batch's group bound, with the JAX package's precedence and
+parsing. The rasterizer and text switches have no
 counterpart in the port. Every case restores both packages' scales."""
 
 import os
@@ -70,3 +71,14 @@ def test_package_import_applies_env():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert float(res.stdout.strip().splitlines()[-1]) == 1.5
+
+
+@pytest.mark.parametrize("value", [None, "4", "0", "-3", "not-a-number", "12"])
+def test_batch_chunk_env(monkeypatch, value):
+    """FIGDRAW_BATCH_CHUNK, render_batch's group bound, parses and clamps as
+    figdraw_tpu's (test_config.py's test_batch_chunk_parses_and_clamps)."""
+    if value is None:
+        monkeypatch.delenv("FIGDRAW_BATCH_CHUNK", raising=False)
+    else:
+        monkeypatch.setenv("FIGDRAW_BATCH_CHUNK", value)
+    assert port_config.batch_chunk() == jax_config.batch_chunk()

@@ -863,3 +863,161 @@ def test_render_view_takes_mat3_and_root_affine(dev):
     aff = {keys[2]: root_affine((12.0, -5.0)),
            keys[5]: root_affine((-30.0, 40.0), scale=(2.0, 0.5))}
     assert torch.equal(ren.render_view(scene, (3.0, -2.0), root_transforms=aff), bulk)
+
+
+# --- the frame loop: render_batch, render_frame_async, the blurred cards ------------
+
+
+def _image_renderer():
+    ren = FigRenderer(atlas_size=256, device="cuda")
+    bus = ImageMessageBus()
+    ren.ensure_image_message_subscription(bus)
+    put_image(IMAGE_ID, photo_image(), bus=bus, mipmapped=True)
+    return ren
+
+
+@pytest.mark.parametrize("kind", ["headline", "subclip", "images_clipped", "blurred"])
+def test_render_batch_equals_render_frame_on_the_card(kind, dev):
+    """Each group kind (unrolled with the blur, mega, mega with the atlas,
+    rolled with the atlas and a blur): every batched frame equals
+    render_frame's bit for bit, and the group's kernels launch as the
+    frames' own would."""
+    from figdraw_tpu_torch.scenes import make_blurred_cards_scene
+
+    w, h = (640, 360) if kind == "headline" else (320, 200)
+    scenes = {
+        "headline": lambda f: make_render_tree_array(w, h, f, copies=10),
+        "subclip": lambda f: make_clip_table_scene("subclip", w, h, 12 + f, 6),
+        "images_clipped": lambda f: make_image_panels_scene(w + f, h, 12, "images_clipped"),
+        "blurred": lambda f: make_blurred_cards_scene(w, h, 10),
+    }[kind]
+    a, b = _image_renderer(), _image_renderer()
+    before = (raster.LAUNCHES, mega.LAUNCHES + mega.ATLAS_LAUNCHES, blur.LAUNCHES)
+    out = a.render_batch([scenes(f) for f in range(5)], vec2(w, h), chunk=3)
+    torch.cuda.synchronize()
+    batch_n = tuple(x - y for x, y in zip(
+        (raster.LAUNCHES, mega.LAUNCHES + mega.ATLAS_LAUNCHES, blur.LAUNCHES), before))
+    before = (raster.LAUNCHES, mega.LAUNCHES + mega.ATLAS_LAUNCHES, blur.LAUNCHES)
+    for f in range(5):
+        assert torch.equal(out[f], b.render_frame(scenes(f), vec2(w, h))), f"frame {f}"
+    torch.cuda.synchronize()
+    frame_n = tuple(x - y for x, y in zip(
+        (raster.LAUNCHES, mega.LAUNCHES + mega.ATLAS_LAUNCHES, blur.LAUNCHES), before))
+    assert batch_n == frame_n and any(batch_n)
+    u8 = a.render_batch([scenes(0)], vec2(w, h), as_uint8=True)
+    np.testing.assert_array_equal(u8[0].cpu().numpy(), b.take_screenshot(out[0]))
+
+
+def test_render_frame_async_equals_sync_on_the_card(dev):
+    """48 headline frames through the pipeline: never more than two in
+    flight, each equal to the synchronous loop's, with the walk's pooled
+    combos rewritten as soon as each frame's slot is released; then a job
+    that raises and a frame after it."""
+    from figdraw_tpu_torch import native
+
+    w, h = 640, 360
+    a, b = FigRenderer(device="cuda"), FigRenderer(device="cuda")
+    futs = []
+    for f in range(48):
+        futs.append(a.render_frame_async(make_render_tree_array(w, h, f, copies=10),
+                                         vec2(w, h)))
+        assert len(a._async_released) <= 2
+        if f % 3 == 0:
+            a._async_released[-1].result()
+            for key, entry in native._combo_pool.items():
+                if key[0] == id(a):
+                    entry[0].fill(np.nan)
+                    entry[1].fill(np.nan)
+    for f, fut in enumerate(futs):
+        want = b.render_frame(make_render_tree_array(w, h, f, copies=10), vec2(w, h))
+        assert torch.equal(fut.result(), want), f"frame {f}"
+    real = a._run_plan
+
+    def boom(*args, **kw):
+        raise RuntimeError("injected")
+
+    a._run_plan = boom
+    with pytest.raises(RuntimeError, match="injected"):
+        a.render_frame_async(make_render_tree_array(w, h, 0, copies=10), vec2(w, h)).result()
+    a._run_plan = real
+    again = a.render_frame_async(make_render_tree_array(w, h, 1, copies=10), vec2(w, h))
+    assert torch.equal(again.result(), b.render_frame(
+        make_render_tree_array(w, h, 1, copies=10), vec2(w, h)))
+
+
+def test_async_image_update_lands_on_the_next_frame_only_on_the_card(dev):
+    import threading
+
+    size = vec2(320, 200)
+    scene = make_image_panels_scene(320, 200, 12, "images_11")
+    red = np.zeros((64, 64, 4), np.uint8)
+    red[..., 0] = red[..., 3] = 255
+    r = _image_renderer()
+    gate, real = threading.Event(), r._run_plan
+
+    def held(*args, **kw):
+        gate.wait(30)
+        return real(*args, **kw)
+
+    r._run_plan = held
+    first = r.render_frame_async(scene, size)
+    r.update_image(IMAGE_ID, red)
+    second = r.render_frame_async(scene, size)
+    gate.set()
+    ref = _image_renderer()
+    before = ref.render_frame(scene, size)
+    ref.update_image(IMAGE_ID, red)
+    after = ref.render_frame(scene, size)
+    assert torch.equal(first.result(), before) and torch.equal(second.result(), after)
+    assert not torch.equal(before, after)
+
+
+def test_blurred_cards_kernels_match_plain_on_the_card(dev):
+    """The blurred cards (25 at 480x270) plan onto the rolled form through
+    render_frame: K1-atlas, K3, the blur and the binning against their
+    plain versions on the frame's own inputs."""
+    from figdraw_tpu_torch.scenes import make_blurred_cards_scene
+
+    ren = _image_renderer()
+    ren.process_image_messages()
+    scene = make_blurred_cards_scene(480, 270, 25)
+    plan = plan_execution(ren.flatten(scene, vec2(480, 270)))
+    assert plan.rolled_items is not None and ("blur",) in plan.structure
+    before = (raster.ATLAS_LAUNCHES, raster.MASK_LAUNCHES, blur.LAUNCHES)
+    got = ren.render_frame(scene, vec2(480, 270))
+    torch.cuda.synchronize()
+    n_atlas = sum(1 for it in plan.structure if it[0] == "draw" and it[1] == -1 and it[2])
+    n_mask = sum(1 for it in plan.structure if it[0] == "draw" and it[1] >= 0)
+    assert (raster.ATLAS_LAUNCHES - before[0], raster.MASK_LAUNCHES - before[1],
+            blur.LAUNCHES - before[2]) == (n_atlas, n_mask, 2)
+    run = get_frame_executor(plan.structure, plan.height, plan.width, plan.n_masks,
+                             plan.has_init_frame, plan.tile_h, rolled=True)
+    combo = torch.from_numpy(plan.combo).to(dev)
+    table = dict(items=plan.rolled_items, radii=plan.rolled_radii)
+    ref = run(combo, None, atlas=ren._device_atlas(), **table,
+              draw=raster.draw_pass_planar_prebinned_plain,
+              draw_mask=raster.draw_pass_mask_prebinned_plain)
+    assert float((got - ref).abs().max()) <= TOL
+    real_blur, real_bin = executor.backdrop_blur_planar, executor.bin_quads
+    blurs, bins = [], []
+
+    def blur_both(planes, radius):
+        out = real_blur(planes, radius)
+        assert torch.equal(out, blur.backdrop_blur_planar_plain(planes, radius))
+        blurs.append(1)
+        return out
+
+    def bin_both(*a, **k):
+        out = real_bin(*a, **k)
+        want = bin_quads_plain(*a, **k)
+        assert torch.equal(out[1], want[1])
+        bins.append(1)
+        return out
+
+    executor.backdrop_blur_planar, executor.bin_quads = blur_both, bin_both
+    try:
+        ren.render_frame(scene, vec2(480, 270))
+        torch.cuda.synchronize()
+    finally:
+        executor.backdrop_blur_planar, executor.bin_quads = real_blur, real_bin
+    assert blurs == [1] and bins == [1]

@@ -6,8 +6,13 @@ through from_jax_plan, and plan.plan_rolled puts any tape on it.
 test_mega.py's text-in-clip scene through figdraw_tpu's own plan and atlas,
 the images_clipped cards at 480x270 with 25 panels through render_frame
 (the megakernel) and through the rolled form, a blurred clip table, and
-the item table against renderer._build_rolled_items. Pixels within 1/255;
-tables and rows exactly."""
+the item table against renderer._build_rolled_items, and the blurred
+cards (scenes.make_blurred_cards_scene: the clipped cards under a backdrop
+blur, a frosted panel and a second band of cards above it), which the
+port's own planner sends to the rolled form through render_frame, against
+figdraw_tpu's unrolled frame executor on its plan (its rolled executor
+drops an atlas run's backdrop) and the stored block means chip_smoke.py
+holds the card to. Pixels within 1/255; tables and rows exactly."""
 
 import numpy as np
 import pytest
@@ -24,11 +29,13 @@ from figdraw_tpu_torch.plan import (
 )
 from figdraw_tpu_torch.resources import ImageMessageBus, put_image
 from figdraw_tpu_torch.scenes import (
-    IMAGE_ID, image_reference_path, make_image_panels_scene, photo_image,
+    BLURRED_REFERENCE, BLURRED_SMALL, IMAGE_ID, image_reference_path,
+    make_blurred_cards_scene, make_image_panels_scene, photo_image,
 )
 from torch_reference import (
-    DEJAVU, IMAGE_H, IMAGE_N, IMAGE_W, block_means, jax_clipped_scene,
-    jax_image_frame, jax_text_cells_scene,
+    DEJAVU, IMAGE_H, IMAGE_N, IMAGE_W, block_means, jax_blurred_cards_scene,
+    jax_clipped_scene, jax_image_frame, jax_image_renderer, jax_text_cells_scene,
+    jax_unrolled_frame, port_image_renderer,
 )
 
 # one intra-op thread: the suite runs a pytest-xdist worker per core, and
@@ -219,3 +226,56 @@ def test_blurred_cells_run_rolled_and_match_reference():
     _same_table(jr._plan_execution(jr.flatten(jscene, jax_vec2(160, 120))), plan)
     got = pr.render_frame(scene, port.vec2(160, 120))
     assert np.abs(got.numpy() - ref).max() <= TOL
+
+
+# --- the blurred cards: a long tape with a blur, through the planner --------------------
+
+
+@pytest.mark.parametrize("size", [BLURRED_SMALL, (1920, 1080, 400)])
+def test_blurred_cards_bytes_match_reference(size):
+    w, h, n = size
+    a = jax_blurred_cards_scene(n, float(w), float(h)).layers[0]
+    b = make_blurred_cards_scene(w, h, n).layers[0]
+    assert a.count == b.count == 2 + 2 * n + 2 * (n // 5)
+    assert a.root_ids == b.root_ids
+    assert a.nodes[: a.count].tobytes() == b.nodes[: b.count].tobytes()
+
+
+@pytest.fixture(scope="module")
+def jax_blurred():
+    """figdraw_tpu's blurred cards at the stored size: (its renderer and
+    scene, its unrolled frame)."""
+    w, h, n = BLURRED_SMALL
+    jr = jax_image_renderer()
+    scene = jax_blurred_cards_scene(n, float(w), float(h))
+    return jr, scene, jax_unrolled_frame(jr, scene, w, h)
+
+
+def test_blurred_cards_take_the_rolled_form_and_match_reference(jax_blurred):
+    jr, jscene, ref = jax_blurred
+    w, h, n = BLURRED_SMALL
+    pr = port_image_renderer()
+    scene = make_blurred_cards_scene(w, h, n)
+    pr.process_image_messages()
+    tape = pr.flatten(scene, port.vec2(w, h))
+    jt = jr.flatten(jscene, jax_vec2(w, h))
+    assert tape.combo.tobytes() == jt.combo.tobytes()
+    plan = plan_execution(tape)
+    assert plan.rolled_items is not None and plan.mega_combo is None
+    assert len(plan.structure) == 1 + 3 * n + 2 + 3 * (n // 5)
+    assert ("blur",) in plan.structure
+    backdrop = [it for it in plan.structure if it[0] == "draw" and it[3]]
+    assert backdrop == [("draw", -1, False, True)]
+    _same_table(jr._plan_execution(jt), plan)
+    before = (raster.LAUNCHES, raster.ATLAS_LAUNCHES, raster.MASK_LAUNCHES)
+    got = pr.render_frame(scene, port.vec2(w, h))
+    assert (raster.LAUNCHES, raster.ATLAS_LAUNCHES, raster.MASK_LAUNCHES) == before
+    assert np.abs(got.numpy() - ref).max() <= TOL
+    assert np.abs(block_means(got.numpy()) - np.load(BLURRED_REFERENCE)).max() <= TOL
+
+
+def test_stored_blurred_blocks_match_jax(jax_blurred):
+    """chip_smoke.py's rolled phase holds the card's 480x270 frame to these
+    block means (tests/torch_reference.py frameloop writes them)."""
+    stored = np.load(BLURRED_REFERENCE)
+    np.testing.assert_allclose(stored, block_means(jax_blurred[2]), rtol=0, atol=1e-6)

@@ -28,11 +28,24 @@ long tapes on the rolled executor):
   pass structure, draw bounds, tile density), atlas and block means. The
   port plans the stored tape itself (`scenes.load_text_tape`).
 
-Rewrite them all (needs jax, fontTools and the DejaVu font), or only the
-example scenes' (needs jax):
+- `blurred_cards_480x270_blocks8.npy`: 8x8 block means of the blurred
+  cards (`scenes.make_blurred_cards_scene`: 25 clipped photo cards, a
+  backdrop blur of radius 12 under a frosted panel, 5 cards above it) at
+  480x270, built with the figdraw_tpu API (`jax_blurred_cards_scene`) and
+  rendered by figdraw_tpu's unrolled frame executor on its own plan
+  (`jax_unrolled_frame`; its rolled executor drops an atlas run's
+  backdrop, executor.py:689);
+- `overlay_3d_420x300_blocks8.npy`: (6, 37, 52, 4), 8x8 block means of
+  examples/overlay_3d.py's six frames (its scene and pyramid at t = 0.35 +
+  0.5 i) through figdraw_tpu's render_frame_with_overlays
+  (FigRenderer(atlas_size=128, use_pallas=False), `jax_overlay_frames`).
+
+Rewrite them all (needs jax, fontTools and the DejaVu font), only the
+example scenes' (needs jax), or only the frame loop's two (needs jax):
 
     JAX_PLATFORMS=cpu python tests/torch_reference.py
     JAX_PLATFORMS=cpu python tests/torch_reference.py examples
+    JAX_PLATFORMS=cpu python tests/torch_reference.py frameloop
 """
 
 import json
@@ -104,25 +117,17 @@ def spy_mega_runs(monkeypatch):
     return runs
 
 
-def jax_clipped_scene(n: int, w: float, h: float):
-    """images_clipped with the figdraw_tpu API: bench_images.build_scene's
-    panels, each clipping its content, with a 96x96 image child at
-    (x + 24, y + 24)."""
-    from figdraw_tpu import (
-        Fig, FigFlags, FigKind, fill, image_style, new_renders, rect, rgba,
-    )
-    from figdraw_tpu.nodes import RenderList
-    from figdraw_tpu.nodesarray import from_renders
+def _jax_cards(lst, rng, n: int, x0: float, y0: float, x1: float, y1: float):
+    """n of images_clipped's cards at seeded places in [x0, x1) x [y0, y1):
+    a 104x104 rounded panel clipping a 96x96 image child at (x + 24, y +
+    24)."""
+    from figdraw_tpu import Fig, FigFlags, FigKind, fill, image_style, rect, rgba
 
     import bench_images
 
-    rng = np.random.RandomState(777)
-    lst = RenderList()
-    lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, w, h),
-                     fill=fill(rgba(30, 30, 30, 255))))
     for _ in range(n):
-        x = float(rng.uniform(0, w - 120))
-        y = float(rng.uniform(0, h - 120))
+        x = float(rng.uniform(x0, x1))
+        y = float(rng.uniform(y0, y1))
         panel = lst.add_root(Fig(
             kind=FigKind.nkRectangle, screen_box=rect(x, y, 104, 104),
             fill=fill(rgba(80, 80, 80, 255)), corners=(12,) * 4,
@@ -130,9 +135,119 @@ def jax_clipped_scene(n: int, w: float, h: float):
         lst.add_child(panel, Fig(kind=FigKind.nkImage,
                                  screen_box=rect(x + 24, y + 24, 96, 96),
                                  image=image_style(bench_images.IMG_ID)))
+
+
+def _jax_clipped_list(n: int, w: float, h: float):
+    from figdraw_tpu import Fig, FigKind, fill, rect, rgba
+    from figdraw_tpu.nodes import RenderList
+
+    lst = RenderList()
+    lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, w, h),
+                     fill=fill(rgba(30, 30, 30, 255))))
+    _jax_cards(lst, np.random.RandomState(777), n, 0, 0, w - 120, h - 120)
+    return lst
+
+
+def _as_array(lst):
+    from figdraw_tpu import new_renders
+    from figdraw_tpu.nodesarray import from_renders
+
     renders = new_renders()
     renders.set_layer(0, lst)
     return from_renders(renders)
+
+
+def jax_clipped_scene(n: int, w: float, h: float):
+    """images_clipped with the figdraw_tpu API: bench_images.build_scene's
+    panels, each clipping its content, with a 96x96 image child at
+    (x + 24, y + 24)."""
+    return _as_array(_jax_clipped_list(n, w, h))
+
+
+def jax_blurred_cards_scene(n: int, w: float, h: float):
+    """scenes.make_blurred_cards_scene with the figdraw_tpu API: the n
+    clipped cards, a backdrop blur of radius 12 over the frosted panel
+    (the lower 45% of the frame, inset by 8%), then n // 5 cards (seed
+    778) inside the panel."""
+    from figdraw_tpu import Fig, FigKind, fill, rect, rgba
+    from figdraw_tpu.nodes import BackdropBlurStyle
+
+    lst = _jax_clipped_list(n, w, h)
+    px, py, pw, ph = w * 0.08, h * 0.5, w * 0.84, h * 0.45
+    lst.add_root(Fig(kind=FigKind.nkBackdropBlur, screen_box=rect(px, py, pw, ph),
+                     backdrop_blur=BackdropBlurStyle(blur=12.0),
+                     corners=(16,) * 4, fill=fill(rgba(255, 255, 255, 70))))
+    _jax_cards(lst, np.random.RandomState(778), n // 5, px, py,
+               px + pw - 104, py + ph - 104)
+    return _as_array(lst)
+
+
+def jax_unrolled_frame(ren, scene, w: int, h: int) -> np.ndarray:
+    """figdraw_tpu's frame of a long tape on its unrolled frame executor
+    (use_pallas=False), which its planner would send to the rolled one:
+    the plan's packed rows with the unrolled meta tail (draw bounds, blur
+    radii, clear color) in place of the rolled one-row meta. Run eagerly
+    (jax.disable_jit): compiling a pass per item takes three times as long
+    on the CPU as running them op by op."""
+    import jax
+    import jax.numpy as jnp
+    from figdraw_tpu import executor as jex
+    from figdraw_tpu import vec2
+    from figdraw_tpu.ops.layout import PACKED_WIDTH
+
+    ren.process_image_messages()
+    plan = ren._plan_execution(ren.flatten(scene, vec2(w, h)))
+    assert plan.rolled and plan.mega_combo is None
+    n = plan.combo.shape[0] - 1  # the rolled meta: one row, the clear color
+    clear = plan.combo[n, :4].copy()
+    rows = jex._meta_rows(len(plan.bounds), len(plan.radii), PACKED_WIDTH)
+    combo = np.zeros((n + rows, PACKED_WIDTH), np.float32)
+    combo[:n] = plan.combo[:n]
+    jex.fill_meta(combo[n:].reshape(-1), plan.bounds, plan.radii, clear)
+    structure = tuple(item[:4] for item in plan.structure)
+    run = jex.get_frame_executor(structure, plan.height, plan.width, plan.n_masks,
+                                 False, False, False, ren.pixelate,
+                                 tile_h=plan.tile_h)
+    with jax.disable_jit():
+        return np.asarray(run(jnp.asarray(combo), jnp.zeros((1, 1, 4), jnp.float32),
+                              jnp.asarray(ren.atlas.data)))
+
+
+def jax_overlay_frames(frames: int = 6):
+    """examples/overlay_3d.py's frames through figdraw_tpu's
+    render_frame_with_overlays: (F, 300, 420, 4)."""
+    from figdraw_tpu import vec2
+    from figdraw_tpu.renderer import FigRenderer
+
+    sys.path.insert(0, os.path.join(REPO, "examples"))
+    try:
+        import overlay_3d
+    finally:
+        sys.path.remove(os.path.join(REPO, "examples"))
+    ren = FigRenderer(atlas_size=128, use_pallas=False)
+    scene = overlay_3d.make_scene(overlay_3d.W, overlay_3d.H)
+    out = []
+    for i in range(frames):
+        pyramid = overlay_3d.rasterize_pyramid(overlay_3d.W, overlay_3d.H,
+                                               t=0.35 + i * 0.5)
+        out.append(np.asarray(ren.render_frame_with_overlays(
+            scene, vec2(overlay_3d.W, overlay_3d.H), {0: pyramid})))
+    return np.stack(out)
+
+
+def write_frameloop_references() -> None:
+    from figdraw_tpu_torch.scenes import (
+        BLURRED_REFERENCE, BLURRED_SMALL, OVERLAY_REFERENCE,
+    )
+
+    w, h, n = BLURRED_SMALL
+    ren = jax_image_renderer()
+    frame = jax_unrolled_frame(ren, jax_blurred_cards_scene(n, w, h), w, h)
+    np.save(BLURRED_REFERENCE, block_means(frame).astype(np.float32))
+    print(f"wrote {BLURRED_REFERENCE}")
+    means = np.stack([block_means(f) for f in jax_overlay_frames()])
+    np.save(OVERLAY_REFERENCE, means.astype(np.float32))
+    print(f"wrote {OVERLAY_REFERENCE}")
 
 
 def jax_image_scene(variant: str, monkeypatch, w: int = IMAGE_W,
@@ -161,6 +276,21 @@ def jax_image_renderer():
     ren.ensure_image_message_subscription(bus)
     put_image(bench_images.IMG_ID, bench_images._photo_image(), bus=bus,
               mipmapped=True)
+    return ren
+
+
+def port_image_renderer(atlas_size: int = 256, device="cpu"):
+    """figdraw_tpu_torch's renderer set up as jax_image_renderer: the photo
+    (scenes.photo_image, bench_images' own) published mipmapped on a bus of
+    its own."""
+    from figdraw_tpu_torch import FigRenderer
+    from figdraw_tpu_torch.resources import ImageMessageBus, put_image
+    from figdraw_tpu_torch.scenes import IMAGE_ID, photo_image
+
+    ren = FigRenderer(atlas_size=atlas_size, device=device)
+    bus = ImageMessageBus()
+    ren.ensure_image_message_subscription(bus)
+    put_image(IMAGE_ID, photo_image(), bus=bus, mipmapped=True)
     return ren
 
 
@@ -376,9 +506,13 @@ def main() -> None:
         image_reference_path,
     )
 
+    if sys.argv[1:] == ["frameloop"]:
+        write_frameloop_references()
+        return
     write_example_references()
     if sys.argv[1:] == ["examples"]:
         return
+    write_frameloop_references()
 
     with pytest.MonkeyPatch.context() as mp:
         for variant in IMAGE_VARIANTS:
