@@ -19,15 +19,26 @@ FigRenderer(device="cuda").render_frame or execute_plan:
 - images: bench_images.py's four variants at 1920x1080 with 400 panels,
   the photo published mipmapped on an image bus (K1-atlas once per frame,
   K1 for the SDF control);
-- text: bench_text.py's frame (1200x800, 36 lines) from its stored plan
-  and atlas through execute_plan (K1-atlas once per frame): the card's
-  machine has no fontTools;
+- text: bench_text.py's frame (1200x800, 36 lines) from the plan and
+  atlas figdraw_tpu built and stored, through execute_plan (K1-atlas once
+  per frame): the baseline of the text-host phase below;
 - clipped cards: the images_clipped cards at 1920x1080 with 400 panels
   (1201 pass items) through render_frame, which sends them to the
   megakernel with the atlas (K4-atlas once per frame);
 - text table: a stored tape of text in clipped cells (1200x800, 180 rows x
   6 cells, `reference/textclip_1200x800.npz`) planned by the port and run
   through execute_plan (K4-atlas once per frame);
+- the text host pipeline (text_host_phase), from the DejaVuSans.ttf in
+  the checkout (sha256 checked) with the port's own OpenType reader,
+  shaper, typesetter and glyph raster, no fontTools, no PIL, no stored
+  plan: bench_text's scene typeset and rasterized by the port through
+  render_frame (K1-atlas once per frame; its combo and atlas equal the
+  stored plan's byte for byte), the text table walked and planned by the
+  port (its tape the stored one's byte for byte but the sign of zero, then
+  K4-atlas once per frame), and a text table tree through the Python walk
+  at 1x, pixel_scale=2 and UI scale 2 (its combo the native walk's byte
+  for byte); with the face load, typesetting cold and warm, the cold
+  glyph raster and the warm frame's parts timed on the card's host;
 - rolled: the same clipped cards through execute_plan on the rolled form
   of the frame executor (plan.plan_rolled: per card K3 into the mask plane
   and K1-atlas into the frame), the route these frames took before the
@@ -412,6 +423,9 @@ def kernel_device_ms(fn, reps: int = 3) -> dict:
     return out
 
 
+TRACE_TAKES = 6  # torch.profiler takes of one timing before it fails
+
+
 def device_ms_of(fn, kernel, reps: int = 5, launches: int = 1) -> float:
     """Device ms per run of fn() in the kernels whose name holds `kernel`
     (a string, or a tuple of them for a wrapper that launches several
@@ -420,14 +434,18 @@ def device_ms_of(fn, kernel, reps: int = 5, launches: int = 1) -> float:
     wrapper call also count the host's part of a launch into an idle
     queue. fn() launches each such kernel `launches` times. The profiler's
     traces on the card are not always whole: one in some hundred comes back
-    with no device activity at all and is taken again (up to three more
-    times), the take after such a one has read 2.5 times a kernel's usual
-    time, and one call site's traces hold 4 launches for 5 runs. So the time
+    with no device activity at all, once four in a row right after the
+    rolled phase's long traces, so such a take is taken again after a pause
+    that grows (up to five more times); the take after such a one has read
+    2.5 times a kernel's usual time, and one call site's traces hold 4
+    launches for 5 runs. So the time
     is the mean per launch that the trace holds times `launches`, and a
     trace that holds another number of launches than reps * launches is
     printed."""
     prof = {}
-    for attempt in range(4):
+    for attempt in range(TRACE_TAKES):
+        if attempt:
+            time.sleep(0.5 * attempt)
         prof = kernel_device_ms(fn, reps)
         names = (kernel,) if isinstance(kernel, str) else kernel
         hits = {k: v for k, v in prof.items() if any(name in k for name in names)}
@@ -441,7 +459,7 @@ def device_ms_of(fn, kernel, reps: int = 5, launches: int = 1) -> float:
         if prof:
             break
         print(f"note: the profiler's trace for {kernel} came back with no device "
-              f"activity (take {attempt + 1} of 4)", flush=True)
+              f"activity (take {attempt + 1} of {TRACE_TAKES})", flush=True)
     fail(f"the profiler saw no kernel named {kernel}; it saw {sorted(prof)[:20]}")
 
 
@@ -983,6 +1001,297 @@ def mega_atlas_phase(which: str, tag: str, dev) -> dict:
                 bin_launches=bins, borderline=border)
 
 
+FONT_SHA256 = "abdc775b21b1bc470d50c97e790d276f2054b7504e56e5bd3e64f48d68582322"
+TEXT_TREE_ROWS = 60  # the text table tree of the walks' check: 60x6 cells
+
+
+def text_host_phase(tag: str, dev) -> dict:
+    """The port's own text pipeline on the card's host, from the font in the
+    checkout (no fontTools, no PIL, no stored plan):
+
+    1. DejaVuSans.ttf from figdraw_tpu_torch/fonts, its sha256 checked; the
+       face load timed (the OpenType reader and the cmap);
+    2. bench_text's scene (scenes.make_text_scene: 1200x800, 36 lines at
+       15 px, seed 0, atlas_size=512) typeset cold, then warm, its glyphs
+       rasterized on the cold miss; through render_frame: the packed combo
+       and the atlas against the stored text_1200x800.npz byte for byte,
+       FRAMES frames with the counts set to 0 just before and read just
+       after (K1-atlas and one binning a frame), K1-atlas against its plain
+       version on the frame's own inputs, the frame against the stored
+       block means; the warm frame split into scene build, walk, glyph
+       check, upload and executor;
+    3. the text table (scenes.make_text_table_scene, 1200x800, 180x6)
+       walked by the Python walk and planned: the tape against the stored
+       textclip_1200x800.npz byte for byte but the sign of zero (the JAX
+       Python walk's integer snap), TREE_FRAMES frames of its plan on the
+       megakernel with the atlas, counted; K4-atlas against its plain
+       version and the frame against the stored block means;
+    4. a text table tree (TEXT_TREE_ROWS x 6 at 1200x800) through
+       render_frame at 1x, pixel_scale=2 and UI scale 2: the Python walk's
+       combo against the native walk's of the same arrays byte for byte,
+       each frame counted (K4-atlas once) and its kernel held against its
+       plain version."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from figdraw_tpu_torch import Color, FigRenderer, fill, rgba, vec2
+    from figdraw_tpu_torch.basics import fig_ui_scale, set_fig_ui_scale
+    from figdraw_tpu_torch.executor import get_frame_executor, get_mega_executor
+    from figdraw_tpu_torch.ops import mega, raster
+    from figdraw_tpu_torch.plan import pack_walked_tape, plan_execution
+    from figdraw_tpu_torch.scenes import (
+        TEXT_REFERENCE, TEXT_TABLE_REFERENCE, make_text_scene, make_text_table_scene,
+    )
+    from figdraw_tpu_torch.text import layout
+    from figdraw_tpu_torch.text.typefaces import (
+        FigFont, Typeface, bundled_font_path, get_typeface, load_typeface,
+    )
+
+    med = statistics.median
+    out = {}
+    # --- 1. the font ---
+    path = bundled_font_path()
+    with open(path, "rb") as fh:
+        data = fh.read()
+    digest = hashlib.sha256(data).hexdigest()
+    print(f"check 12: font {os.path.relpath(path)}: {len(data)} bytes, sha256 {digest} "
+          f"({'as expected' if digest == FONT_SHA256 else 'UNEXPECTED'})", flush=True)
+    if digest != FONT_SHA256:
+        fail(f"the bundled font's sha256 is {digest}, expected {FONT_SHA256}")
+    load_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        Typeface(path, data, 0)
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    tid = load_typeface(path)
+    registry_ms = (time.perf_counter() - t0) * 1e3
+    tf = get_typeface(tid)
+    print(f"times: face load (the port's OpenType reader: tables, glyph names, cmap; "
+          f"{len(tf._glyph_order)} glyphs) median {med(load_ms):.3f} ms of 5, "
+          f"load_typeface (file read, sha256 id, load) {registry_ms:.3f} ms {tag}", flush=True)
+
+    # --- 2. bench_text's scene through render_frame ---
+    ink = fill(rgba(20, 20, 30, 255))
+    t0 = time.perf_counter()
+    scene, n_glyphs = make_text_scene(tid, ink, 0)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    make_text_scene(tid, ink, 0)
+    cached_ms = (time.perf_counter() - t0) * 1e3
+    warm_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for row in range(36):
+            layout.typeset(vec2(1180, 22), [(FigFont(typeface_id=tid, size=15.0), ink,
+                "The quick brown fox jumps over the lazy dog near the riverbank %d" % row)])
+        warm_ms.append((time.perf_counter() - t0) * 1e3)
+    size = vec2(1200, 800)
+    ren = FigRenderer(atlas_size=512, device="cuda")
+    before = len(ren.atlas.entries)
+    t0 = time.perf_counter()
+    ren._ensure_packed_glyphs(scene)
+    raster_ms = (time.perf_counter() - t0) * 1e3
+    n_raster = len(ren.atlas.entries) - before
+    print(f"times: bench_text typesetting, 36 lines ({n_glyphs} glyphs): cold "
+          f"{cold_ms:.3f} ms (the first typeset: the shaper's GSUB/GPOS tables decoded, "
+          f"typeset_cached), warm {med(warm_ms):.3f} ms (typeset, uncached, median of 3), "
+          f"cached {cached_ms:.3f} ms (typeset_cached hits, as bench_text's frame loop "
+          f"builds its scene); cold glyph raster {raster_ms:.3f} ms for {n_raster} glyphs, "
+          f"{raster_ms / max(n_raster, 1):.3f} ms a glyph {tag}", flush=True)
+    plan = ren._walk_plan(scene, size, True, Color(1.0, 1.0, 1.0, 1.0))
+    with np.load(TEXT_REFERENCE) as z:
+        same_combo = np.array_equal(plan.combo.view(np.uint32), z["combo"].view(np.uint32))
+        same_atlas = np.array_equal(ren.atlas.data, z["atlas"])
+        blocks = z["blocks"].copy()
+    print(f"check 12: bench_text scene built by the port: packed combo {plan.combo.shape} "
+          f"{'equal' if same_combo else 'DIFFERS'} to the stored plan's byte for byte, "
+          f"atlas {ren.atlas.data.shape} {'equal' if same_atlas else 'DIFFERS'} byte for "
+          f"byte", flush=True)
+    if not (same_combo and same_atlas):
+        fail("bench_text built by the port differs from the stored plan or atlas")
+    ren.render_frame(scene, size)  # the first frame uploads the atlas
+    torch.cuda.synchronize()
+    zero_counts()
+    total_ms = timed_frames("text host", lambda: ren.render_frame(scene, size), (800, 1200, 4))
+    counts = launch_counts()
+    bins = binning_launches("text host", FRAMES)
+    frame = ren.last_frame
+    want = (0, FRAMES, 0, 0, 0)
+    print(f"check 12: bench_text scene, {FRAMES} frames through render_frame on cuda, "
+          f"finite; launches {counts} (expected {want}); binning {bins}", flush=True)
+    if counts != want:
+        fail(f"text host launched {counts}, expected {want}")
+    border = binning_check("text host", lambda: ren.render_frame(scene, size))
+    run = get_frame_executor(plan.structure, plan.height, plan.width, plan.n_masks,
+                             plan.has_init_frame, plan.tile_h)
+    combo = torch.from_numpy(plan.combo).to(dev, copy=True)
+    atlas = ren._device_atlas()
+    errs, calls = [], []
+    run(combo, None, atlas=atlas,
+        draw=compared(raster.draw_pass_planar_prebinned,
+                      raster.draw_pass_planar_prebinned_plain, errs, calls, "text host"))
+    ref = run(combo, None, atlas=atlas, draw=raster.draw_pass_planar_prebinned_plain)
+    torch.cuda.synchronize()
+    frame_err = float((frame - ref).abs().max())
+    err_ref = float(np.abs(block_means(frame.cpu().numpy()) - blocks).max())
+    print(f"check 12: bench_text scene: K1-atlas vs plain max |diff| {max(errs):.3e}, "
+          f"frame vs the plain executor {frame_err:.3e}, frame vs the JAX reference (8x8 "
+          f"block means) {err_ref:.3e} (tol {TOL:.3e})", flush=True)
+    if not (max(errs) <= TOL and frame_err <= TOL and err_ref <= TOL):
+        fail(f"text host: kernel, frame or reference differs ({max(errs)}, {frame_err}, "
+             f"{err_ref})")
+    args, kw = calls[0]
+    kernel_ms = cuda_ms(lambda: raster.draw_pass_planar_prebinned(*args, **kw), 20)
+    parts = {"build": [], "glyphs": [], "walk": [], "upload": [], "executor": []}
+    for _ in range(FRAMES):
+        t0 = time.perf_counter()
+        step_scene, _n = make_text_scene(tid, ink, 0)
+        t1 = time.perf_counter()
+        ren._ensure_packed_glyphs(step_scene)
+        t2 = time.perf_counter()
+        step = ren._walk_plan(step_scene, size, True, Color(1.0, 1.0, 1.0, 1.0))
+        t3 = time.perf_counter()
+        up = ren._upload(step.combo)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        ren._run_plan(step, up)
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        for key, a, b in (("build", t0, t1), ("glyphs", t1, t2), ("walk", t2, t3),
+                          ("upload", t3, t4), ("executor", t4, t5)):
+            parts[key].append((b - a) * 1e3)
+    split = {k: med(v) for k, v in parts.items()}
+    print(f"times: bench_text scene through render_frame: median "
+          f"{med(total_ms):.3f} ms/frame (warm; render_frame + sync); its parts, "
+          f"median of {FRAMES}: scene build {split['build']:.3f} ms (typeset_cached, "
+          f"from_renders), glyph check {split['glyphs']:.3f} ms, walk and plan "
+          f"{split['walk']:.3f} ms, upload {split['upload']:.3f} ms, executor "
+          f"{split['executor']:.3f} ms; its draw kernel {kernel_ms:.4f} ms, "
+          f"{bound_text(raster_work(args, kw))} {tag}", flush=True)
+    out.update(launches=counts, err=max(max(errs), frame_err), bin_launches=bins,
+               borderline=border, kernel_ms=kernel_ms, ms_per_frame=med(total_ms),
+               split=split, face_load_ms=med(load_ms), typeset_cold_ms=cold_ms,
+               typeset_warm_ms=med(warm_ms), typeset_cached_ms=cached_ms,
+               raster_ms_per_glyph=raster_ms / max(n_raster, 1))
+
+    # --- 3. the text table, walked and planned by the port ---
+    tsize = vec2(TABLE_W, TABLE_H)
+    t0 = time.perf_counter()
+    tree = make_text_table_scene(TABLE_ROWS, TABLE_COLS, float(TABLE_W), float(TABLE_H),
+                                 tid=tid)
+    t1 = time.perf_counter()
+    tren = FigRenderer(atlas_size=512, device="cuda")
+    tape = tren.flatten(tree, tsize)
+    t2 = time.perf_counter()
+    pack_walked_tape(tape)
+    tplan = plan_execution(tape)
+    t3 = time.perf_counter()
+    with np.load(TEXT_TABLE_REFERENCE) as z:
+        stored, stored_atlas, tblocks = z["combo"], z["atlas"], z["blocks"].copy()
+    wa, wb = tape.combo.view(np.uint32), stored.view(np.uint32)
+    same_shape = wa.shape == wb.shape
+    diff = (wa != wb) if same_shape else np.ones(1, bool)
+    zeros = ((wa | wb) & np.uint32(0x7FFFFFFF)) == 0 if same_shape else np.zeros(1, bool)
+    same_table = same_shape and not (diff & ~zeros).any()
+    same_tatlas = np.array_equal(tren.atlas.data, stored_atlas)
+    print(f"check 12: text table built by the port ({tape.count} quads, "
+          f"{len(tape.items)} items): tape combo {tape.combo.shape} "
+          f"{'equal' if same_table else 'DIFFERS'} to the stored JAX tape byte for byte "
+          f"but {int((diff & zeros).sum())} zeros of the other sign (the JAX Python walk "
+          f"snaps to ints), atlas {'equal' if same_tatlas else 'DIFFERS'} byte for byte; "
+          f"planned to the megakernel with the atlas: {tplan.mega_atlas}", flush=True)
+    if not (same_table and same_tatlas and tplan.mega_atlas):
+        fail("the text table built by the port differs from the stored tape or atlas")
+    tren.execute_plan(tplan)
+    torch.cuda.synchronize()
+    zero_counts()
+    table_ms = timed_frames("text table host", lambda: tren.execute_plan(tplan),
+                            (TABLE_H, TABLE_W, 4), frames=TREE_FRAMES)
+    tcounts = launch_counts()
+    tbins = binning_launches("text table host", TREE_FRAMES)
+    twant = (0, 0, 0, 0, TREE_FRAMES)
+    tframe = tren.last_frame
+    print(f"check 12: text table, {TREE_FRAMES} frames of its plan through execute_plan: "
+          f"launches {tcounts} (expected {twant}); binning {tbins}", flush=True)
+    if tcounts != twant:
+        fail(f"text table host launched {tcounts}, expected {twant}")
+    tborder = binning_check("text table host", lambda: tren.execute_plan(tplan))
+    mrun = get_mega_executor(tplan.height, tplan.width, tplan.n_masks,
+                             tplan.has_init_frame, tplan.tile_h)
+    mcombo = torch.from_numpy(tplan.mega_combo).to(dev, copy=True)
+    flags = dict(atlas=tren._device_atlas(), pixelate=tren.pixelate)
+    terrs, tcalls = [], []
+    mrun(mcombo, None, **flags,
+         draw=compared(mega.draw_pass_mega, mega.draw_pass_mega_plain, terrs, tcalls,
+                       "text table host", targets=MEGA_TARGETS))
+    tref = mrun(mcombo, None, **flags, draw=mega.draw_pass_mega_plain)
+    torch.cuda.synchronize()
+    tframe_err = float((tframe - tref).abs().max())
+    terr_ref = float(np.abs(block_means(tframe.cpu().numpy()) - tblocks).max())
+    print(f"check 12: text table: K4-atlas vs plain max |diff| {terrs[0]:.3e}, frame vs "
+          f"the plain executor {tframe_err:.3e}, frame vs the JAX reference (8x8 block "
+          f"means) {terr_ref:.3e} (tol {TOL:.3e})", flush=True)
+    if not (terrs[0] <= TOL and tframe_err <= TOL and terr_ref <= TOL):
+        fail(f"text table host: kernel, frame or reference differs ({terrs}, "
+             f"{tframe_err}, {terr_ref})")
+    targs, tkw = tcalls[0]
+    texec_ms = cuda_ms(lambda: mrun(mcombo, None, **flags), 10)
+    print(f"times: text table {TABLE_ROWS}x{TABLE_COLS} at {TABLE_W}x{TABLE_H}: tree "
+          f"build ({TABLE_ROWS * TABLE_COLS} typesets) {(t1 - t0) * 1e3:.1f} ms, Python walk (glyphs "
+          f"rasterized on the way) {(t2 - t1) * 1e3:.1f} ms, plan (pack and megakernel "
+          f"combo) {(t3 - t2) * 1e3:.1f} ms, execute_plan + sync median "
+          f"{med(table_ms):.3f} ms, executor {texec_ms:.4f} ms (device, CUDA events) "
+          f"{tag}", flush=True)
+    out.update(table_launches=tcounts, table_err=max(terrs[0], tframe_err),
+               table_bin_launches=tbins, table_borderline=tborder,
+               table_build_ms=(t1 - t0) * 1e3, table_walk_ms=(t2 - t1) * 1e3,
+               table_plan_ms=(t3 - t2) * 1e3, table_exec_ms=texec_ms,
+               table_ms=med(table_ms))
+
+    # --- 4. a text tree at 1x, pixel_scale=2 and UI scale 2 ---
+    out["tree"] = {}
+    tree = make_text_table_scene(TEXT_TREE_ROWS, TABLE_COLS, float(TABLE_W),
+                                 float(TABLE_H), tid=tid)
+    for form, (ps, ui, mult) in (("1x", (1.0, 1.0, 1)), ("pixel2", (2.0, 1.0, 2)),
+                                 ("ui2", (1.0, 2.0, 1))):
+        old = fig_ui_scale()
+        set_fig_ui_scale(ui)
+        try:
+            fsize = vec2(TABLE_W * mult, TABLE_H * mult)
+            fren = FigRenderer(atlas_size=512, pixel_scale=ps, device="cuda")
+            walks = tree_equal_walks(f"text {form}", tree, fsize, ren=fren,
+                                     label="check 12")
+            zero_counts()
+            t0 = time.perf_counter()
+            fframe = fren.render_frame(tree, fsize)
+            torch.cuda.synchronize()
+            f_ms = (time.perf_counter() - t0) * 1e3
+            fcounts = launch_counts()
+            fbins = binning_launches(f"text tree {form}", 1)
+            shape = (int(TABLE_H * mult * ui), int(TABLE_W * mult * ui), 4)
+            print(f"check 12: text tree {form}: frame {tuple(fframe.shape)} (expected "
+                  f"{shape}); launches {fcounts} (expected (0, 0, 0, 0, 1)); binning "
+                  f"{fbins}; render_frame + sync {f_ms:.3f} ms {tag}", flush=True)
+            if fcounts != (0, 0, 0, 0, 1) or tuple(fframe.shape) != shape:
+                fail(f"text tree {form}: launches {fcounts} or shape {tuple(fframe.shape)}")
+            # the kernels against their plain versions on this frame's own
+            # inputs (tree_kernel_checks walks at the frame's size, which UI
+            # scale 2 changes under it: 1x and pixel_scale=2, as tree_phase)
+            errs_f = {}
+            if ui == 1.0:
+                tree_kernel_checks(f"text tree {form}", fren, tree, fsize, errs_f)
+            out["tree"][form] = {"launches": fcounts, "bin_launches": fbins,
+                                 "err": max([max(v) for v in errs_f.values()
+                                             if isinstance(v, list) and v] or [0.0]),
+                                 "ms": f_ms, **walks}
+        finally:
+            set_fig_ui_scale(old)
+    return out
+
+
 def mega_clamps_check(dev) -> None:
     """K4 and K4-atlas against their plain versions on a seeded tape that
     drives every clamp of the walk (scenes.mega_modes_tape: reads, targets
@@ -1365,30 +1674,36 @@ def tree_kernel_checks(what: str, ren, scene, size, errs: dict) -> None:
     BORDERLINE[what] = binning_check(what, lambda: ren.render_frame(scene, size))
 
 
-def tree_equal_walks(what: str, tree, size) -> dict:
-    """to_renders(from_renders(tree)) through the Python walk against
-    from_renders(tree) through the native walk, on renderers of their own:
-    the packed combos (and megakernel combos) byte for byte, and the two
-    render_frame frames bit for bit on the card."""
+def tree_equal_walks(what: str, tree, size, ren=None, label: str = "check 10") -> dict:
+    """On one renderer (a new one unless given; glyphs land in its atlas in
+    load order), from_renders(tree) through the native walk first, whose
+    glyph check loads every glyph the arrays hold, then to_renders of those
+    arrays through the Python walk: the packed combos (and megakernel
+    combos) byte for byte, and the two render_frame frames bit for bit on
+    the card."""
     import torch
 
     from figdraw_tpu_torch import FigRenderer, from_renders, to_renders
+    from figdraw_tpu_torch.basics import scaled
     from figdraw_tpu_torch.plan import plan_execution
 
+    ren = ren or FigRenderer(device="cuda")
     arr = from_renders(tree)
     walked = to_renders(arr)
-    py_ren, nat_ren = FigRenderer(device="cuda"), FigRenderer(device="cuda")
-    py_tape, nat_tape = py_ren.flatten(walked, size), nat_ren.flatten(arr, size)
-    py_plan, nat_plan = plan_execution(py_tape), plan_execution(nat_tape)
+    fs = scaled(size)
+    nat_tape = ren.flatten(arr, fs)
+    nat_plan = plan_execution(nat_tape)
+    py_tape = ren.flatten(walked, fs)
+    py_plan = plan_execution(py_tape)
     same_combo = py_plan.combo.tobytes() == nat_plan.combo.tobytes()
     same_mega = ((py_plan.mega_combo is None and nat_plan.mega_combo is None)
                  or (py_plan.mega_combo is not None and nat_plan.mega_combo is not None
                      and py_plan.mega_combo.tobytes() == nat_plan.mega_combo.tobytes()))
-    py_frame = py_ren.render_frame(walked, size)
-    nat_frame = nat_ren.render_frame(arr, size)
+    nat_frame = ren.render_frame(arr, size)
+    py_frame = ren.render_frame(walked, size)
     torch.cuda.synchronize()
     same_frame = torch.equal(py_frame, nat_frame)
-    print(f"check 10: {what} tree, {py_tape.count} quads, {len(py_tape.items)} items, "
+    print(f"{label}: {what} tree, {py_tape.count} quads, {len(py_tape.items)} items, "
           f"{py_tape.mask_count} mask planes: Python walk of to_renders(from_renders"
           f"(tree)) vs native walk of from_renders(tree): packed combo "
           f"{'equal' if same_combo else 'DIFFERS'} byte for byte"
@@ -2988,6 +3303,7 @@ def main() -> None:
     text = text_phase(tag, dev)
     cards = mega_atlas_phase("clipped cards", tag, dev)
     table = mega_atlas_phase("text table", tag, dev)
+    host = text_host_phase(tag, dev)
     rolled = rolled_phase(tag, dev)
     binned["text table"] = binning_times("text table", tag)
     faster = all(p["mega_ms"] < p["rolled_ms"] for p in (cards, table))
@@ -3016,6 +3332,11 @@ def main() -> None:
             (f"images {v}", images[v]) for v in BENCH_VARIANTS]:
         BIN_PATHS[name] = phase["bin_launches"]
         BORDERLINE[name] = phase["borderline"]
+    BIN_PATHS["text host"] = host["bin_launches"]
+    BORDERLINE["text host"] = host["borderline"]
+    BIN_PATHS["text table host"] = host["table_bin_launches"]
+    BORDERLINE["text table host"] = host["table_borderline"]
+    BIN_PATHS.update({f"text tree {f}": v["bin_launches"] for f, v in host["tree"].items()})
     print(f"check 9: binning launches by path {BIN_PATHS} (two an executor run: the "
           f"prepass and the tile kernel); saturation-borderline quads left out by scene "
           f"{BORDERLINE} (expected 0)", flush=True)
@@ -3070,11 +3391,14 @@ def main() -> None:
                 "rolled": rolled["launches"][0], **tree_paths["K1"], **loop_paths["K1"]}
     atlas_paths = {f"images {v}": images[v]["launches"][1] for v in BENCH_VARIANTS[1:]}
     atlas_paths.update(text=text["launches"][1], rolled=rolled["launches"][1])
+    atlas_paths["text host"] = host["launches"][1]
     atlas_paths.update(loop_paths["K1-atlas"])
     k3_paths = {"rectmask": rm["launches"][1], "rolled": rolled["launches"][2],
                 **tree_paths["K3"], **loop_paths["K3"]}
     k4_paths = {"subclip": sc["launches"][2], **tree_paths["K4"], **loop_paths["K4"]}
     k4a_paths = {"clipped cards": cards["launches"][4], "text table": table["launches"][4],
+                 "text table host": host["table_launches"][4],
+                 **{f"text tree {f}": v["launches"][4] for f, v in host["tree"].items()},
                  **loop_paths["K4-atlas"]}
     loop_err = lambda name: FRAMELOOP_ERRS.get(name, 0.0)
     print(json.dumps({"kernels": [
@@ -3106,7 +3430,7 @@ def main() -> None:
             "launches_by_path": atlas_paths,
             "max_abs_err": max([images[v]["err"] for v in BENCH_VARIANTS[1:]]
                                + [text["err"], rolled["k1_err"], rolled["frame_err"],
-                                  loop_err("K1-atlas")]),
+                                  loop_err("K1-atlas"), host["err"]]),
             "ms": images["images_scaled"]["kernel_ms"],
             "device_ms": device_ms_atlas,
             "plain_ms": plain_ms_atlas,
@@ -3158,7 +3482,9 @@ def main() -> None:
             "replaces": "figdraw_tpu/ops/raster_pallas.py:495 (has_atlas, :567)",
             "launches": sum(k4a_paths.values()),
             "launches_by_path": k4a_paths,
-            "max_abs_err": max(cards["err"], table["err"], loop_err("K4-atlas")),
+            "max_abs_err": max([cards["err"], table["err"], loop_err("K4-atlas"),
+                                host["table_err"]]
+                               + [v["err"] for v in host["tree"].values()]),
             "ms": cards["kernel_ms"],
             "device_ms": cards["device_ms"],
             "plain_ms": cards["plain_ms"],

@@ -1,11 +1,14 @@
 """figdraw_tpu_torch — the PyTorch/CUDA port of figdraw_tpu.
 
-`FigRenderer.render_frame` on scenes of SDF shapes, clip masks and images:
+`FigRenderer.render_frame` on scenes of SDF shapes, clip masks, images and
+text:
 array-form scenes (`RendersArray`) through the native walk, and tree-form
 scenes (`Fig` nodes in a `Renders` or a `RenderFragments`) through the
 Python walk, at the global UI scale and the renderer's pixel scale; the
 frame executor, the rolled executor and the megakernel; device-resident
 scenes (`snapshot_scene`, `render_view`, `render_views`, `update_scene`).
+Text typesets on the host (text/: the port's own OpenType reader, shaping,
+bidi, typesetting and the glyph raster) and draws from the atlas.
 The tile rasterizer (and its atlas sampler), the megakernel, the binning,
 the row transform of a resident scene and the backdrop blur are
 hand-written CUDA kernels for Hopper (csrc/). figdraw_tpu, the JAX package
@@ -14,7 +17,7 @@ torch and numpy only.
 
 The names below are figdraw_tpu's umbrella exports that the port has, so an
 example's `from figdraw_tpu import ...` line works with the package name
-replaced. Text (typesetting, fonts) and `load_image` are not ported yet.
+replaced. `load_image` is not ported yet.
 """
 
 from .basics import (  # noqa: F401
@@ -124,10 +127,14 @@ from .borders import (  # noqa: F401,E402
 from .extras import fig_circle, fig_circle_xy, fig_line, fig_line_xy  # noqa: F401,E402
 from .transfer import copy_into, to_tree  # noqa: F401,E402
 from .resources import (  # noqa: F401,E402
+    FontRef,
     ImageMessageBus,
+    ImageRef,
+    clear_font_glyphs,
     clear_image,
     clear_image_cache,
     clear_images,
+    clear_typeface_glyphs,
     put_image,
     replace_image,
 )
@@ -139,6 +146,23 @@ from .debugtools import (  # noqa: F401,E402
     fig_visibility,
     hits_at_point,
     top_fig_at_point,
+)
+from .text.typefaces import (  # noqa: F401,E402
+    FigFont,
+    FontFeature,
+    FontVariation,
+    load_typeface,
+    register_font,
+    supported_font_file_extensions,
+    text_backend,
+    text_backend_features,
+)
+from .text.layout import (  # noqa: F401,E402
+    HAlign,
+    VAlign,
+    typeset,
+    typeset_cached,
+    typeset_for_measurement,
 )
 from .scenes import make_render_tree, make_render_tree_array  # noqa: F401,E402
 from .config import apply_startup_env as _apply_startup_env  # noqa: E402

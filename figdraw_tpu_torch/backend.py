@@ -1,7 +1,7 @@
 """The draw contract the Python walk writes to: SdfMode, BackendFill and
-BackendContext, with the quad-encoding helpers every backend shares
-(corner-radius packing, sdf-mode packing). figdraw_tpu/backend.py, copied
-without the text runtime flags, which come with the text host pipeline.
+BackendContext with its text runtime flags, and the quad-encoding helpers
+every backend shares (corner-radius packing, sdf-mode packing).
+figdraw_tpu/backend.py, copied.
 """
 
 from __future__ import annotations
@@ -213,6 +213,10 @@ class BackendContext:
         self._pixel_scale: float = 1.0
         self.frame_size: Vec2 = vec2(0, 0)
         self.frame_begun: bool = False
+        self._text_subpixel_shift: float = 0.0
+        self._text_lcd_filtering = False
+        self._text_subpixel_positioning = False
+        self._text_subpixel_glyph_variants = False
 
     # transforms (glcontext.nim:1991-2029)
     def translate(self, v: Vec2) -> None:
@@ -253,6 +257,28 @@ class BackendContext:
     @property
     def pixel_scale(self) -> float:
         return self._pixel_scale
+
+    # text runtime flags (figbackend.nim:663-686)
+    def text_lcd_filtering_enabled(self) -> bool:
+        return self._text_lcd_filtering
+
+    def set_text_lcd_filtering_enabled(self, enabled: bool) -> None:
+        self._text_lcd_filtering = enabled
+
+    def text_subpixel_positioning_enabled(self) -> bool:
+        return self._text_subpixel_positioning
+
+    def set_text_subpixel_positioning_enabled(self, enabled: bool) -> None:
+        self._text_subpixel_positioning = enabled
+
+    def text_subpixel_glyph_variants_enabled(self) -> bool:
+        return self._text_subpixel_glyph_variants
+
+    def set_text_subpixel_glyph_variants_enabled(self, enabled: bool) -> None:
+        self._text_subpixel_glyph_variants = enabled
+
+    def set_text_subpixel_shift(self, shift: float) -> None:
+        self._text_subpixel_shift = shift
 
     # --- draw contract; subclasses override what they support ----------------
 

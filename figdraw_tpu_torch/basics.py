@@ -18,12 +18,6 @@ from .geometry import Mat3, Rect, Vec2
 
 SHADOW_COUNT = 4  # figbasics.nim:12
 
-# what every entry point that meets a text node raises NotImplementedError
-# with (render.render_text, nodesarray.pack_text, the native walk's kind
-# check): the port has no typesetting or glyph raster on the host yet
-TEXT_NOT_PORTED = ("text nodes need typesetting and a glyph raster on the host "
-                   "(ROADMAP.md, port item 'Text host pipeline')")
-
 ZLevel = int  # int8 in the reference (figbasics.nim:16)
 FigID = int
 

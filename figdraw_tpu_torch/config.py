@@ -2,17 +2,20 @@
 the part the port uses):
 
   FIGDRAW_UI_SCALE / HDI   the global UI scale (basics.set_fig_ui_scale)
-  FIGDRAW_DATA_DIR         the asset root (fig_data_dir), where the text
-                           host pipeline will look for fonts
+  FIGDRAW_DATA_DIR         the asset root (fig_data_dir), where
+                           text.typefaces.load_typeface looks for fonts
+  FIGDRAW_TEXT_LCD_FILTERING (or FIGDRAW_TEXT_LCD_FILTER)  1: LCD-filtered
+                           glyph rasters
+  FIGDRAW_TEXT_SUBPIXEL_POSITIONING  1: subpixel glyph x-shifts
+  FIGDRAW_TEXT_SUBPIXEL_GLYPH_VARIANTS  1: 10 pre-shifted glyph rasters
   FIGDRAW_BATCH_CHUNK      frames per group of FigRenderer.render_batch
                            (batch_chunk, default 8)
   FIGDRAW_NO_THREAD_GUARD  1 turns off the render-thread guard
                            (FigRenderer._assert_render_thread)
 
 The JAX package's rasterizer switches (FIGDRAW_BACKEND, FIGDRAW_FORCE_XLA)
-have no counterpart: the port has no fallback chain. Its text switches come
-with the text host pipeline, and FIGDRAW_ATLAS11 is a TPU experiment the
-port does not carry.
+have no counterpart: the port has no fallback chain. FIGDRAW_ATLAS11 is a
+TPU experiment the port does not carry.
 """
 
 from __future__ import annotations
@@ -29,6 +32,24 @@ def fig_data_dir() -> str:
 def set_fig_data_dir(path: str) -> None:
     global _data_dir
     _data_dir = path
+
+
+def _truthy(name: str) -> bool:
+    return os.environ.get(name, "").strip().lower() in ("1", "true", "yes", "on")
+
+
+def runtime_text_lcd_filtering_requested() -> bool:
+    if os.environ.get("FIGDRAW_TEXT_LCD_FILTERING", "").strip():
+        return _truthy("FIGDRAW_TEXT_LCD_FILTERING")
+    return _truthy("FIGDRAW_TEXT_LCD_FILTER")
+
+
+def runtime_text_subpixel_positioning_requested() -> bool:
+    return _truthy("FIGDRAW_TEXT_SUBPIXEL_POSITIONING")
+
+
+def runtime_text_subpixel_glyph_variants_requested() -> bool:
+    return _truthy("FIGDRAW_TEXT_SUBPIXEL_GLYPH_VARIANTS")
 
 
 def apply_startup_env() -> None:

@@ -18,7 +18,6 @@ import threading
 
 import numpy as np
 
-from .basics import TEXT_NOT_PORTED, FigKind
 from .nodesarray import FIG_DTYPE, GLYPH_DTYPE, OP_DTYPE, TRECT_DTYPE, RendersArray
 from .ops.layout import (
     PACKED_WIDTH, QF_BBOX_X0, QF_BBOX_X1, QF_BBOX_Y0, QF_BBOX_Y1, QF_INV_A,
@@ -88,6 +87,8 @@ def load() -> ctypes.CDLL:
         lib.fd_set_text_geometry.restype = None
         lib.fd_set_text_config.argtypes = [vp, i, i, i]
         lib.fd_set_text_config.restype = None
+        lib.fd_set_glyph_offsets.argtypes = [vp, vp, vp, i]
+        lib.fd_set_glyph_offsets.restype = None
         lib.fd_set_white_uv.argtypes = [vp, ctypes.c_double, ctypes.c_double]
         lib.fd_set_white_uv.restype = None
         lib.fd_set_atlas.argtypes = [vp, vp, vp, vp, i, f]
@@ -164,12 +165,20 @@ def pack_atlas_entries(entries: dict):
     return ids, levels, rects
 
 
-def _set_walk_config(lib, ctx, atlas) -> None:
-    """Context setup shared by the walks. The port walks no text, so the
-    text flags are all off. atlas: (pack_atlas_entries' arrays, atlas edge,
-    white texel uv) or None; without it image nodes find no entry and emit
-    nothing, and filled quads sample uv (0, 0)."""
-    lib.fd_set_text_config(ctx, 0, 0, 0)
+def _set_walk_config(lib, ctx, atlas, text=None) -> None:
+    """Context setup shared by the walks (native._set_walk_config). atlas:
+    (pack_atlas_entries' arrays, atlas edge, white texel uv) or None;
+    without it image nodes find no entry and emit nothing, and filled quads
+    sample uv (0, 0). text: (text config, glyph offsets) or None (all text
+    flags off, no offsets): the config is the renderer's (lcd filtering,
+    subpixel positioning, subpixel glyph variants), the offsets its sorted
+    (keys (n,) i64, offsets (n, 2) f32) raster offsets per glyph key, or
+    None; a text node's glyphs find their atlas entries by key."""
+    config, offsets = text if text is not None else ((False, False, False), None)
+    lib.fd_set_text_config(ctx, int(config[0]), int(config[1]), int(config[2]))
+    if offsets is not None:
+        keys, offs = offsets
+        lib.fd_set_glyph_offsets(ctx, _ptr(keys), _ptr(offs), keys.shape[0])
     white_uv = (0.0, 0.0)
     if atlas is not None:
         (ids, levels, rects), size, white_uv = atlas
@@ -192,14 +201,15 @@ def _set_layer_geometry(lib, ctx, lst):
     return nodes, roots
 
 
-def _run_walk(lib, ctx, renders, atlas, spans_out=None, reserves=None) -> None:
-    """Context setup + layer walk in ZLevel order (native._run_walk). atlas:
-    as _set_walk_config's. spans_out: a dict to fill with (lvl,
+def _run_walk(lib, ctx, renders, atlas, spans_out=None, reserves=None,
+              text=None) -> None:
+    """Context setup + layer walk in ZLevel order (native._run_walk). atlas,
+    text: as _set_walk_config's. spans_out: a dict to fill with (lvl,
     root_node_idx) -> (qs, qe), each root's rows of the tape (the serial
     walk, fd_flatten_layer_spans). reserves: (lvl, root_node_idx) -> n; each
     such root's span ends in n inert rows (fd_pad_rows), so an edit that
     changes its quad count can still patch in place."""
-    _set_walk_config(lib, ctx, atlas)
+    _set_walk_config(lib, ctx, atlas, text)
     for lvl, lst in renders.sorted_pairs():
         nodes, roots = _set_layer_geometry(lib, ctx, lst)
         if spans_out is None:
@@ -242,14 +252,9 @@ def _host_cull(lib, ctx, frame_w, frame_h, pixel_scale) -> int:
 
 
 def _check_kinds(renders: RendersArray) -> None:
-    """Raises ValueError for node kinds the walk does not handle and
-    NotImplementedError for text nodes, whose glyphs the port cannot
-    typeset or rasterize yet (the walk would drop them without a word)."""
+    """Raises ValueError for node kinds the walk does not handle."""
     if not renders.all_native_kinds():
         raise ValueError("scene holds node kinds the native walk does not handle")
-    for lst in renders.layers.values():
-        if (lst.view()["kind"] == int(FigKind.nkText)).any():
-            raise NotImplementedError(TEXT_NOT_PORTED)
 
 
 _tls = threading.local()
@@ -380,6 +385,7 @@ def flatten_fast(
     clear_color,
     atlas=None,
     pool_owner=None,
+    text=None,
 ):
     """One walk, the best export for the scene (native.flatten_fast):
 
@@ -393,12 +399,12 @@ def flatten_fast(
     The JAX package caps the mega export at VMEM_MEGA_ROWS, a limit of the
     TPU's vector memory; the CUDA megakernel reads the tape from device
     memory, so the port has no cap. A scene with an atlas quad always takes
-    the tape: the C++ `flags` word marks it. atlas: as _set_walk_config's.
-    Raises as _check_kinds."""
+    the tape: the C++ `flags` word marks it. atlas, text: as
+    _set_walk_config's. Raises as _check_kinds."""
     _check_kinds(renders)
     lib = load()
     ctx = _acquire_ctx(lib, ui_scale, pixel_scale, aa_factor)
-    _run_walk(lib, ctx, renders, atlas)
+    _run_walk(lib, ctx, renders, atlas, text=text)
     _host_cull(lib, ctx, frame_w, frame_h, pixel_scale)
     info = np.zeros(4, np.int32)
     lib.fd_tape_info(ctx, _ptr(info))
@@ -431,12 +437,14 @@ def flatten_renders_array(
     cull: bool = True,
     record_spans: bool = False,
     reserve=None,
+    text=None,
 ) -> Tape:
     """Runs the native walk over all layers in ZLevel order, culls saturated
     stacks and exports the tape straight into the upload-combo layout padded
     to `bucket(count)` rows. atlas: as _set_walk_config's. cull=False skips
     the saturation cull: it is clamped to the viewport, so a tape that will
-    be panned on the device (snapshot_scene) keeps every quad.
+    be panned on the device (snapshot_scene) keeps every quad. text: as
+    _set_walk_config's.
     record_spans=True fills tape.root_spans with (lvl, root_node_idx) ->
     (qs, qe), each root's rows; spans index rows before the cull, so it
     needs cull=False (ValueError). reserve: as _run_walk's reserves. Raises
@@ -448,7 +456,8 @@ def flatten_renders_array(
     lib = load()
     ctx = _acquire_ctx(lib, ui_scale, pixel_scale, aa_factor)
     spans_out = {} if record_spans else None
-    _run_walk(lib, ctx, renders, atlas, spans_out=spans_out, reserves=reserve)
+    _run_walk(lib, ctx, renders, atlas, spans_out=spans_out, reserves=reserve,
+              text=text)
     if cull:
         _host_cull(lib, ctx, frame_w, frame_h, pixel_scale)
     tape = _export_tape_combo(lib, ctx, frame_w, frame_h, clear_color,
@@ -476,7 +485,8 @@ def inert_quad_rows(n: int) -> np.ndarray:
 
 
 def walk_roots_packed(renders: RendersArray, dirty, ui_scale, pixel_scale,
-                      aa_factor, atlas=None, allow_atlas: bool = False):
+                      aa_factor, atlas=None, allow_atlas: bool = False,
+                      text=None):
     """Re-walk the roots `dirty`, a sequence of (lvl, root_node_idx), in the
     scratch context and export their quads as packed rows, the retained-scene
     patch (native.walk_roots_packed, packed layout).
@@ -485,12 +495,12 @@ def walk_roots_packed(renders: RendersArray, dirty, ui_scale, pixel_scale,
     qe) into rows, one per dirty root), or None where a patch cannot stand in
     for a snapshot: a missing layer, a plane mask (their numbering is the
     whole scene's), a blur or a backdrop (they split the pass structure), or
-    an atlas quad without allow_atlas. atlas: as _set_walk_config's. Raises
-    as _check_kinds."""
+    an atlas quad without allow_atlas. atlas, text: as _set_walk_config's.
+    Raises as _check_kinds."""
     _check_kinds(renders)
     lib = load()
     ctx = _acquire_scratch_ctx(lib, ui_scale, pixel_scale, aa_factor)
-    _set_walk_config(lib, ctx, atlas)
+    _set_walk_config(lib, ctx, atlas, text)
     dirty = list(dirty)
     spans: list = []
     i = 0

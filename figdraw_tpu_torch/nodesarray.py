@@ -7,15 +7,15 @@ struct size against the library at load time. `from_renders` packs a
 `Renders` tree into rows (the f32 round trip that makes the Python walk of
 `to_renders(from_renders(tree))` and the native walk of `from_renders(tree)`
 give the same tape); `RenderListArray.add_root` / `add_child` / `set_node`
-take Fig nodes. Text nodes raise NotImplementedError (pack_text) until the
-text host pipeline is ported.
+take Fig nodes; a text node's typeset arrangement packs into glyph and
+text-rect side rows (pack_text).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .basics import TEXT_NOT_PORTED, FigFlags, FigKind
+from .basics import FigFlags, FigKind
 from .fill import Fill, FillKind
 from .nodes import Fig, RenderList, Renders
 
@@ -89,8 +89,11 @@ FIG_DTYPE = np.dtype(
     ]
 )
 
-# nkText side-array rows (the port packs no text yet; the walk still takes
-# the arrays, empty)
+# nkText side-array rows: placed glyph (logical pen x/y from the arrangement,
+# physical raster image offset, tint) and pre-computed selection/decoration
+# rects (text/glyphs.py draw_text_layout emission order: selections,
+# decorations, then glyphs). Coordinates stay f64 so the C++ walk reproduces
+# the Python walk bit-for-bit.
 GLYPH_DTYPE = np.dtype(
     [
         ("font_id", np.int64),
@@ -209,6 +212,10 @@ def pack_ops(row, node: Fig, ops_rows: list, points_rows: list) -> None:
         ops_rows.append(r)
 
 
+def _row_total(blocks: list) -> int:
+    return sum(b.shape[0] if b.ndim else 1 for b in blocks)
+
+
 def _merge_structured(rows: list, dtype) -> np.ndarray:
     """Merge a list of same-dtype structured blocks/rows into one array by
     raw byte copy (np.concatenate on structured dtypes promotes fields
@@ -230,10 +237,134 @@ def _merge_structured(rows: list, dtype) -> np.ndarray:
 
 def pack_text(row, node: Fig, glyph_rows: list, trect_rows: list,
               glyph_total: int = -1) -> int:
-    """A text node's draw list (placed glyphs and selection / decoration
-    rects) needs the text host pipeline: raises NotImplementedError rather
-    than pack a node the walk would draw as nothing."""
-    raise NotImplementedError(TEXT_NOT_PORTED)
+    """Pre-compute the text node's draw list (text/glyphs.py draw_text_layout):
+    selection bands + underline/strikethrough rects into trects, placed
+    glyphs into glyph rows. Logical (pre-ui-scale) coordinates; the flattener
+    applies scaling, invertY and subpixel policy.
+
+    glyph_total: running row count of glyph_rows (pass -1 to recount);
+    returns the updated total so callers with many text nodes stay O(1) per
+    node instead of re-summing every block."""
+    from .fill import fill_alpha_max
+    from .geometry import rect as _rect
+
+    layout = node.text_layout
+    # NOTE: the decoration loop below binds its own `start, stop` span range;
+    # the running total must live under a distinct name
+    g_start = _row_total(glyph_rows) if glyph_total < 0 else glyph_total
+    row["glyphs_start"] = g_start
+    row["trects_start"] = len(trect_rows)
+    if layout is None:
+        return g_start
+
+    sel_a, sel_b = node.selection_range
+    if (
+        FigFlags.NfSelectText in node.flags
+        and fill_alpha_max(node.fill) > 0
+        and sel_a <= sel_b
+    ):
+        for selection in layout.selection_rects_for((sel_a, sel_b)):
+            if selection.h > 0:
+                r = np.zeros((), dtype=TRECT_DTYPE)
+                r["x"], r["y"] = selection.x, selection.y
+                r["w"], r["h"] = max(selection.w, 1.0), selection.h
+                pack_fill(r["fill"], node.fill)
+                trect_rows.append(r)
+
+    # decorations + glyph block depend only on the (immutable) arrangement —
+    # cache them on it so retained layouts pack as an append, not a walk
+    cached = getattr(layout, "_fig_pack_cache", None)
+    if cached is not None:
+        deco_rows, glyph_block = cached
+        trect_rows.extend(deco_rows)
+        added = 0
+        if glyph_block is not None:
+            glyph_rows.append(glyph_block)
+            added = int(glyph_block.shape[0])
+        row["glyphs_count"] = added
+        row["trects_count"] = len(trect_rows) - int(row["trects_start"])
+        return g_start + added
+
+    deco_rows = []
+    # decorations (figrender.nim:370-415 band math, done here once)
+    for span_index, (ss, se) in enumerate(layout.spans):
+        if span_index >= len(layout.fonts):
+            break
+        gf = layout.fonts[span_index]
+        if not (gf.underline or gf.strikethrough):
+            continue
+        color = (
+            layout.span_colors[span_index]
+            if span_index < len(layout.span_colors)
+            else None
+        )
+        if color is None:
+            continue
+        thickness = max(round(gf.size / 16.0), 1.0)
+        for line_s, line_e in layout.lines:
+            start, stop = max(ss, line_s), min(se, line_e)
+            if start > stop:
+                continue
+            min_x = min_y = float("inf")
+            max_x = max_y = float("-inf")
+            for gi in range(start, stop + 1):
+                gr = layout.glyph_rect(gi)
+                min_x, max_x = min(min_x, gr.x), max(max_x, gr.x + gr.w)
+                min_y, max_y = min(min_y, gr.y), max(max_y, gr.y + gr.h)
+            if not (min_x < max_x and min_y < max_y):
+                continue
+            bands = []
+            if gf.underline:
+                bands.append(_rect(min_x, max_y - thickness * 1.5,
+                                   max_x - min_x, thickness))
+            if gf.strikethrough:
+                bands.append(_rect(
+                    min_x, min_y + (max_y - min_y) * 0.5 - thickness * 0.5,
+                    max_x - min_x, thickness,
+                ))
+            for band in bands:
+                if band.w <= 0 or band.h <= 0:
+                    continue
+                r = np.zeros((), dtype=TRECT_DTYPE)
+                r["x"], r["y"], r["w"], r["h"] = band.x, band.y, band.w, band.h
+                pack_fill(r["fill"], color)
+                deco_rows.append(r)
+    trect_rows.extend(deco_rows)
+
+    drawn = [g for g in layout.arranged_glyphs if not g.is_whitespace]
+    if drawn:
+        block = np.zeros(len(drawn), dtype=GLYPH_DTYPE)
+        block["font_id"] = [g.font_id for g in drawn]
+        block["glyph_id"] = [g.glyph_id for g in drawn]
+        # pack the span FILL itself (solid or gradient) — glyph quads take
+        # gradientColors vertex mapping like every other quad
+        # (figrender.nim:494: drawImage(..., glyph.fill.gradientColors()))
+        packed_fills = {}
+        black = np.zeros((), dtype=FILL_DTYPE)
+        black["c0"] = (0, 0, 0, 255)
+        for i, g in enumerate(drawn):
+            f = g.fill
+            if f is None:
+                block["fill"][i] = black
+                continue
+            key = id(f)
+            p = packed_fills.get(key)
+            if p is None:
+                p = np.zeros((), dtype=FILL_DTYPE)
+                pack_fill(p, f)
+                packed_fills[key] = p
+            block["fill"][i] = p
+        block["x"] = [g.pos.x + g.offset.x for g in drawn]
+        block["y"] = [g.pos.y + g.offset.y for g in drawn]
+        block["img_ox"] = [g.image_offset.x for g in drawn]
+        block["img_oy"] = [g.image_offset.y for g in drawn]
+        glyph_rows.append(block)
+    layout._fig_pack_cache = (deco_rows, block if drawn else None)
+
+    added = len(drawn)
+    row["glyphs_count"] = added
+    row["trects_count"] = len(trect_rows) - int(row["trects_start"])
+    return g_start + added
 
 
 def pack_fig(row, node: Fig, ops_rows: list = None, points_rows: list = None) -> None:
@@ -293,6 +424,8 @@ class RenderListArray:
         self.trect_rows: list = []
         self._ops_cache = None
         self._text_cache = None
+        self.text_objects: dict = {}  # row idx -> (layout, selection_range)
+        self.glyph_total = 0  # running _row_total(glyph_rows)
 
     def ops_view(self):
         """(ops array, points array) for the native walk."""
@@ -317,7 +450,11 @@ class RenderListArray:
     def _pack(self, i: int, node: Fig) -> None:
         pack_fig(self.nodes[i], node, self.ops_rows, self.points_rows)
         if node.kind == FigKind.nkText:
-            pack_text(self.nodes[i], node, self.glyph_rows, self.trect_rows)
+            self.glyph_total = pack_text(
+                self.nodes[i], node, self.glyph_rows, self.trect_rows,
+                glyph_total=self.glyph_total,
+            )
+            self.text_objects[i] = (node.text_layout, node.selection_range)
 
     def _grow(self) -> None:
         new = np.zeros(self.nodes.shape[0] * 2, dtype=FIG_DTYPE)
@@ -394,12 +531,12 @@ class RenderListArray:
         self.nodes[i]["ty"] = ty
 
     def set_node(self, i: int, node) -> None:
-        """Repack a node wholesale (fill-kind swaps, a drawable's new ops —
-        anything the column setters can't express), preserving its tree
-        links. A drawable repack appends its ops to the side arrays (the old
-        rows stay orphaned); pair with renderer.snapshot_scene(reserve=...)
-        so an edit that changes a root's quad count still patches in
-        place."""
+        """Repack a node wholesale (text content changes, fill-kind swaps, a
+        drawable's new ops — anything the column setters can't express),
+        preserving its tree links. A drawable or text repack appends its ops or a fresh glyph
+        block to the side arrays (the old rows stay orphaned); pair with
+        renderer.snapshot_scene(reserve=...) so an edit that changes a
+        root's quad count still patches in place."""
         parent = int(self.nodes[i]["parent"])
         child_count = int(self.nodes[i]["child_count"])
         self._pack(i, node)
@@ -492,7 +629,7 @@ def _unpack_ops(row, ops, points):
     return tuple(out)
 
 
-def unpack_fig(row, ops=None, points=None) -> Fig:
+def unpack_fig(row, ops=None, points=None, text=None) -> Fig:
     from .basics import (
         BackdropBlurStyle,
         RenderShadow,
@@ -581,6 +718,8 @@ def unpack_fig(row, ops=None, points=None) -> Fig:
         ),
         draw_steps=int(row["draw_steps"]),
         draw_aa=float(row["draw_aa"]),
+        text_layout=text[0] if text is not None else None,
+        selection_range=text[1] if text is not None else (0, -1),
     )
 
 
@@ -620,7 +759,7 @@ def to_renders(arr: RendersArray) -> Renders:
         ops, points = lst.ops_view()
         rl = RenderList()
         rl.nodes = [
-            unpack_fig(lst.nodes[i], ops, points)
+            unpack_fig(lst.nodes[i], ops, points, lst.text_objects.get(i))
             for i in range(lst.count)
         ]
         rl.root_ids = list(lst.root_ids)

@@ -6,9 +6,10 @@ shadows, clip or rect mask, the node's own draw, inner shadows, children,
 then LIFO cleanup), shadow emission, rounded-shape fills and strokes,
 drawable decomposition into lines and SDF quads with adaptive quadratic
 spans, strokes with caps and joins, image and MSDF/MTSDF nodes and the
-backdrop-blur pass break. Draw calls land on any BackendContext (the
-tape backend of tape.py, or a recording backend in tests). Text nodes
-raise NotImplementedError until the text host pipeline is ported.
+backdrop-blur pass break. Text nodes draw their typeset arrangement's
+selection bands, decorations and atlas glyphs (text/glyphs.py). Draw calls
+land on any BackendContext (the tape backend of tape.py, or a recording
+backend in tests).
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ from .basics import (
     ShadowStyle,
     StrokeCap,
     StrokeJoin,
-    TEXT_NOT_PORTED,
     init_corner_radii_2d,
     scaled,
 )
@@ -910,9 +910,15 @@ def render_backdrop_blur(ctx: BackendContext, node: Fig) -> None:
 
 
 def render_text(ctx: BackendContext, node: Fig) -> None:
-    """Text nodes need typesetting and a glyph raster on the host, which the
-    port does not have yet: raises rather than drop the node."""
-    raise NotImplementedError(TEXT_NOT_PORTED)
+    """Text node rendering (figrender.nim:417-497): the node's typeset
+    arrangement through text/glyphs.py draw_text_layout; a node without one
+    draws nothing."""
+    layout = node.text_layout
+    if layout is None:
+        return
+    from .text.glyphs import draw_text_layout
+
+    draw_text_layout(ctx, node, layout)
 
 
 # --- the per-node stage machine (figrender.nim:1756-1839) -------------------------

@@ -13,6 +13,12 @@ Both walks apply the global UI scale (basics.fig_ui_scale) and the
 renderer's pixel scale, and render_frame scales the frame size by the UI
 scale, as the JAX renderer does.
 
+Text nodes typeset on the host (text/layout.py); their glyphs are
+rasterized into the atlas on a cold miss (text/glyphs.py): by the Python
+walk as it meets them, and for a RendersArray by _ensure_packed_glyphs
+before the native walk, which then finds every glyph's atlas entry and
+raster offset by key.
+
 The frame loop's other entry points: render_frame_async (the walk on
 the caller's thread, upload and executor on one worker thread, at most two
 frames in flight), render_batch (groups of frames of one pass structure
@@ -43,7 +49,11 @@ from . import native
 from .atlas import Atlas, AtlasEntryMeta
 from .basics import fig_ui_scale, scaled
 from .colors import Color, as_color
-from .config import batch_chunk
+from .config import (
+    batch_chunk, runtime_text_lcd_filtering_requested,
+    runtime_text_subpixel_glyph_variants_requested,
+    runtime_text_subpixel_positioning_requested,
+)
 from .executor import BatchStack, get_frame_executor, get_mega_executor, run_batch
 from .geometry import Vec2
 from .nodesarray import RendersArray
@@ -152,9 +162,14 @@ class FigRenderer:
     per-entry margin (it doubles on overflow). pixelate: nearest atlas
     sampling (GL_NEAREST) instead of bilinear. pixel_scale: device pixels
     per UI unit after the UI scale (a HiDPI frame); the walks draw the
-    scene that much larger, and the caller sizes the frame. Glyph quads
-    sample without the subpixel shift: the option comes with the text host
-    pipeline."""
+    scene that much larger, and the caller sizes the frame.
+
+    The text switches (renderer.FigRenderer's, defaults from config's
+    FIGDRAW_TEXT_* environment): text_lcd_filtering rasterizes glyphs
+    through the 5-tap LCD filter; text_subpixel_positioning snaps glyph
+    quads to whole pixels and carries the fraction as a subpixel shift the
+    kernels' atlas sample applies; with text_subpixel_glyph_variants too,
+    the fraction picks one of 10 pre-shifted rasters instead."""
 
     def __init__(self, atlas_size: int = 512, atlas_margin: int = 4,
                  pixelate: bool = False, pixel_scale: float = 1.0,
@@ -171,6 +186,17 @@ class FigRenderer:
         self.pixelate = pixelate
         self.pixel_scale = float(pixel_scale)
         self.aa_factor = DEFAULT_SDF_AA_FACTOR
+        self.text_lcd_filtering = runtime_text_lcd_filtering_requested()
+        self.text_subpixel_positioning = runtime_text_subpixel_positioning_requested()
+        self.text_subpixel_glyph_variants = (
+            runtime_text_subpixel_glyph_variants_requested())
+        # glyph key -> raster offset (x, y) of the glyphs in the atlas
+        self._glyph_offsets: dict = {}
+        self._glyph_pack_cache = None
+        # id(glyph block) -> (block, stamp): see _ensure_packed_glyphs
+        self._ensured_glyph_blocks: dict = {}
+        self._image_owners: dict = {}
+        self._font_owners: dict = {}
         self.last_frame = None  # (H, W, 4) f32 tensor of the last render
         self._atlas_device = None
         # the device atlas was handed to work that has not run yet (an async
@@ -219,9 +245,12 @@ class FigRenderer:
             self._subscription = bus.subscribe()
 
     def process_image_messages(self) -> None:
-        """Drain the subscription and apply its puts, replaces and clears to
-        the atlas, dropping stale puts (renderer.process_image_messages, the
-        image half)."""
+        """Drain the subscription and apply its messages to the atlas
+        (renderer.process_image_messages): image puts and replaces (stale
+        ones dropped), glyph puts (a key already held is kept), clears of an
+        image, a list, the cache, a font's or a typeface's glyphs, and the
+        retain / release of ImageRef and FontRef owners, whose final release
+        evicts the image or the font's glyphs."""
         self.ensure_image_message_subscription()
         bus = self._bus
         for msg in self._subscription.drain():
@@ -236,6 +265,11 @@ class FigRenderer:
                 else:  # same size: in place; else repack
                     self.atlas.update_image(msg.id, msg.image)
                     self.atlas.meta[msg.id] = meta
+            elif kind == ImageMsgKind.PutGlyph:
+                if msg.image is None or msg.id in self.atlas:
+                    continue
+                self.atlas.put_image(msg.id, msg.image, AtlasEntryMeta(
+                    kind="glyph", font_id=msg.font_id, typeface_id=msg.typeface_id))
             elif kind == ImageMsgKind.ClearImage:
                 self.atlas.remove(msg.id)
             elif kind == ImageMsgKind.ClearImages:
@@ -243,6 +277,36 @@ class FigRenderer:
                     self.atlas.remove(i)
             elif kind == ImageMsgKind.ClearImageCache:
                 self.atlas.clear()
+            elif kind == ImageMsgKind.ClearFontGlyphs:
+                self._clear_glyphs(lambda m: m.font_id == msg.font_id)
+            elif kind == ImageMsgKind.ClearTypefaceGlyphs:
+                self._clear_glyphs(lambda m: m.typeface_id == msg.typeface_id)
+            elif kind == ImageMsgKind.RetainImage:
+                self._image_owners.setdefault(msg.id, set()).add(msg.owner_token)
+            elif kind == ImageMsgKind.ReleaseImage:
+                self._release(self._image_owners, msg.id, msg.owner_token)
+                if msg.final_release:
+                    self.atlas.remove(msg.id)
+            elif kind == ImageMsgKind.RetainFont:
+                self._font_owners.setdefault(msg.font_id, set()).add(msg.owner_token)
+            elif kind == ImageMsgKind.ReleaseFont:
+                self._release(self._font_owners, msg.font_id, msg.owner_token)
+                if msg.final_release:
+                    self._clear_glyphs(lambda m: m.font_id == msg.font_id)
+
+    @staticmethod
+    def _release(owners: dict, key, token) -> None:
+        held = owners.get(key)
+        if held is not None:
+            held.discard(token)
+            if not held:
+                owners.pop(key, None)
+
+    def _clear_glyphs(self, pred) -> None:
+        keys = [k for k, m in self.atlas.meta.items()
+                if m.kind == "glyph" and pred(m)]
+        for k in keys:
+            self.atlas.remove(k)
 
     # --- the atlas -------------------------------------------------------------
 
@@ -265,6 +329,7 @@ class FigRenderer:
         bus's live images into it (figbackend.nim:202-207); the device atlas
         is uploaded whole at the next frame."""
         self.atlas.reset(minimum_size)
+        self._glyph_offsets.clear()
         if self._bus is not None and self._subscription is not None:
             self._bus.replay_to(self._subscription)
             self.process_image_messages()
@@ -320,6 +385,114 @@ class FigRenderer:
         if self._atlas_pack_cache is None or self._atlas_pack_cache[0] != key:
             self._atlas_pack_cache = (key, native.pack_atlas_entries(self.atlas.entries))
         return self._atlas_pack_cache[1], self.atlas.size, white_uv
+
+    # --- glyphs -----------------------------------------------------------------
+
+    def _text_config(self):
+        """(lcd filtering, subpixel positioning, subpixel glyph variants) as
+        the walks read them: variants only under subpixel positioning."""
+        return (self.text_lcd_filtering, self.text_subpixel_positioning,
+                self.text_subpixel_positioning and self.text_subpixel_glyph_variants)
+
+    def _walk_text(self):
+        """The walk's text argument (native._set_walk_config): the text
+        config and the sorted glyph offsets."""
+        return self._text_config(), self._glyph_offsets_pack()
+
+    def _load_glyph(self, key, glyph, lcd: bool, variant: int) -> bool:
+        """Cold-miss glyph generation straight into the atlas
+        (renderer._load_glyph, figrender.nim:477-491): False for a glyph
+        with no outline."""
+        from .text.glyphs import generate_glyph
+        from .text.typefaces import get_fig_font
+
+        result = generate_glyph(glyph.font_id, glyph.glyph_id, lcd, variant)
+        if result is None:
+            return False
+        img, offset = result
+        self.atlas.put_image(key, img, AtlasEntryMeta(
+            kind="glyph", font_id=glyph.font_id,
+            typeface_id=get_fig_font(glyph.font_id).typeface_id))
+        self._glyph_offsets[key] = offset
+        return True
+
+    def _ensure_packed_glyphs(self, renders) -> None:
+        """Rasterize the glyphs a RendersArray's text rows reference that
+        are not in the atlas yet (renderer._ensure_packed_glyphs), so the
+        native walk only meets warm keys. Keys are computed over the
+        GLYPH_DTYPE rows at once (text/glyphs.py glyph_hash) and loaded in
+        sorted key order, the JAX package's order, so both atlases pack the
+        same glyphs in the same places. Each glyph block (cached per
+        arrangement by nodesarray.pack_text) is scanned once per text
+        config, UI scale and atlas entries version."""
+        from types import SimpleNamespace
+
+        lcd, _subpixel, variants_on = self._text_config()
+        ui = fig_ui_scale()
+        config_key = (lcd, variants_on, ui, self.atlas.entries_version,
+                      self.atlas.size)
+        cache = self._ensured_glyph_blocks
+        pending = []
+        for _lvl, lst in renders.sorted_pairs():
+            for block in lst.glyph_rows:
+                if block.ndim == 0 or block.shape[0] == 0:
+                    continue
+                marker = cache.get(id(block))
+                if (marker is not None and marker[0] is block
+                        and marker[1] == config_key):
+                    continue
+                pending.append(block)
+        if not pending:
+            return
+        glyphs = np.concatenate([np.atleast_1d(b) for b in pending])
+        n = glyphs.shape[0]
+        if variants_on:
+            gx = glyphs["x"] * ui + glyphs["img_ox"]
+            frac = np.clip(gx - np.floor(gx), 0.0, 0.999)
+            variant = np.minimum((frac * 10.0).astype(np.int64), 9)
+        else:
+            variant = np.zeros(n, np.int64)
+        h = np.full(n, 0xCBF29CE484222325, np.uint64)
+        prime = np.uint64(0x100000001B3)
+        for v in (np.full(n, 2344, np.uint64), glyphs["font_id"].astype(np.uint64),
+                  glyphs["glyph_id"].astype(np.uint64),
+                  np.full(n, int(lcd), np.uint64), variant.astype(np.uint64)):
+            h = (h ^ v) * prime
+        keys = (h & np.uint64(0x7FFFFFFFFFFFFFFF)).astype(np.int64)
+        uniq, first = np.unique(keys, return_index=True)
+        entries = self.atlas.entries
+        for k, i in zip(uniq.tolist(), first.tolist()):
+            if k in entries:
+                continue
+            g = glyphs[i]
+            self._load_glyph(k, SimpleNamespace(font_id=int(g["font_id"]),
+                                                glyph_id=int(g["glyph_id"])),
+                             lcd, int(variant[i]))
+        # stamped after the loads, so the loads themselves do not
+        # invalidate the markers; the table is bounded for frame loops that
+        # typeset afresh every frame
+        if len(cache) > 4096:
+            cache.clear()
+        stamp = (lcd, variants_on, ui, self.atlas.entries_version, self.atlas.size)
+        for block in pending:
+            cache[id(block)] = (block, stamp)
+
+    def _glyph_offsets_pack(self):
+        """Sorted (keys (n,) i64, offsets (n, 2) f32) arrays for
+        fd_set_glyph_offsets, cached by the offsets table's size (entries
+        are only added), or None while it is empty."""
+        n = len(self._glyph_offsets)
+        cached = self._glyph_pack_cache
+        if cached is None or cached[0] != n:
+            packed = None
+            if n:
+                keys = np.fromiter(self._glyph_offsets.keys(), dtype=np.int64, count=n)
+                order = np.argsort(keys)
+                offs = np.asarray(list(self._glyph_offsets.values()), dtype=np.float32)
+                packed = (np.ascontiguousarray(keys[order]),
+                          np.ascontiguousarray(offs[order]))
+            cached = self._glyph_pack_cache = (n, packed)
+        return cached[1]
 
     def _device_atlas(self) -> torch.Tensor:
         """The (S, S, 4) f32 atlas on the device (renderer._device_atlas):
@@ -385,17 +558,25 @@ class FigRenderer:
         reserves, so those three are ignored there; its tape holds logical
         rows, which plan.plan_execution packs."""
         if isinstance(renders, RendersArray):
+            self._ensure_packed_glyphs(renders)
             return native.flatten_renders_array(
                 renders, frame_size.x, frame_size.y, fig_ui_scale(),
                 self.pixel_scale, self.aa_factor,
                 self._clear_tuple(clear_main, clear_color),
                 atlas=self._walk_atlas(), pool_owner=id(self), cull=cull,
                 record_spans=record_spans, reserve=reserve,
+                text=self._walk_text(),
             )
         backend = TapeBackend(white_uv=self._white_uv())
         backend.entries = self.atlas.entries
         backend.atlas_size = self.atlas.size
+        backend.glyph_offsets = self._glyph_offsets
+        backend.glyph_loader = self._load_glyph
         backend.aa_factor = self.aa_factor
+        backend.set_text_lcd_filtering_enabled(self.text_lcd_filtering)
+        backend.set_text_subpixel_positioning_enabled(self.text_subpixel_positioning)
+        backend.set_text_subpixel_glyph_variants_enabled(
+            self.text_subpixel_glyph_variants)
         backend.begin_frame(frame_size, clear_main, as_color(clear_color))
         backend.save_transform()
         backend.scale(self.pixel_scale)
@@ -446,13 +627,15 @@ class FigRenderer:
             run = get_mega_executor(plan.height, plan.width, plan.n_masks,
                                     plan.has_init_frame, plan.tile_h)
             frame = run(combo, init, atlas=atlas if plan.mega_atlas else None,
-                        pixelate=self.pixelate)
+                        pixelate=self.pixelate,
+                        subpixel_positioning=self.text_subpixel_positioning)
         else:
             run = get_frame_executor(plan.structure, plan.height, plan.width,
                                      plan.n_masks, plan.has_init_frame,
                                      plan.tile_h,
                                      rolled=plan.rolled_items is not None)
             frame = run(combo, init, atlas=atlas, pixelate=self.pixelate,
+                        subpixel_positioning=self.text_subpixel_positioning,
                         items=plan.rolled_items, radii=plan.rolled_radii)
         self.last_frame = frame
         return frame
@@ -466,14 +649,15 @@ class FigRenderer:
         whose combo is the walk's pooled export; every other scene gets a
         tape, which plan.plan_execution plans (and sends to the megakernel
         too when it is mask-heavy, atlas runs included). A tree takes the
-        Python walk. A text node raises NotImplementedError on either
-        walk."""
+        Python walk."""
         if not isinstance(renders, RendersArray):
             return plan_execution(self.flatten(renders, fs, clear_main, clear_color))
         cc = self._clear_tuple(clear_main, clear_color)
+        self._ensure_packed_glyphs(renders)
         result = native.flatten_fast(
             renders, fs.x, fs.y, fig_ui_scale(), self.pixel_scale,
             self.aa_factor, cc, atlas=self._walk_atlas(), pool_owner=id(self),
+            text=self._walk_text(),
         )
         if result[0] == "tape":
             return plan_execution(result[1])
@@ -686,7 +870,8 @@ class FigRenderer:
         out = torch.empty((batch.count, plan.height, plan.width, 4),
                           dtype=torch.float32, device=self.device)
         return run_batch(run, batch, out, init_frame=None, atlas=atlas,
-                         pixelate=self.pixelate)
+                         pixelate=self.pixelate,
+                         subpixel_positioning=self.text_subpixel_positioning)
 
     # --- overlays ----------------------------------------------------------------
 

@@ -253,11 +253,14 @@ def patch_device_scene(renderer, scene: DeviceScene, renders, dirty) -> bool:
         if span is None:
             return False
         old_spans.append(span)
+    # glyphs first: new ones can grow the atlas, and rows packed against an
+    # older generation take a new snapshot
+    renderer._ensure_packed_glyphs(renders)
     if scene.atlas_generation != renderer.atlas.generation:
         return False
     out = native.walk_roots_packed(
         renders, dirty, fig_ui_scale(), renderer.pixel_scale, renderer.aa_factor,
-        atlas=renderer._walk_atlas(),
+        atlas=renderer._walk_atlas(), text=renderer._walk_text(),
         # the megakernel's rows carry their target in the mode lane, which a
         # scratch walk's rows lack; the other layouts read the atlas through
         # their items, so patched rows may sample it

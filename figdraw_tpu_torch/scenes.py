@@ -876,6 +876,86 @@ def load_text_tape(path: str = TEXT_TABLE_REFERENCE):
         return tape, z["atlas"].copy(), z["blocks"].copy()
 
 
+# --- the text scenes, typeset by the port ---------------------------------------------
+
+TEXT_SIZE = (1200, 800)  # bench_text.py's W, H
+TEXT_LINES = 36  # bench_text.LINES
+
+
+def make_text_scene(tid: int, ink, seed: int, w: int = TEXT_SIZE[0],
+                    h: int = TEXT_SIZE[1], lines: int = TEXT_LINES):
+    """bench_text.build_scene with the port's API: a plain background and
+    `lines` lines of the typeface `tid` at 15 px (typeset_cached), 22 px
+    apart. Returns (RendersArray, number of arranged glyphs). Its packed
+    combo and its atlas are figdraw_tpu's byte for byte (the stored
+    TEXT_REFERENCE holds them, for DejaVuSans, seed 0, atlas_size=512)."""
+    from .text.layout import typeset_cached
+    from .text.typefaces import FigFont
+
+    renders = new_renders()
+    renders.add_root(0, Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, w, h),
+                            fill=fill(rgba(250, 250, 250, 255))))
+    y = 4.0
+    n = 0
+    for row in range(lines):
+        f = FigFont(typeface_id=tid, size=15.0)
+        arr = typeset_cached(vec2(w - 20, 22), [(
+            f, ink,
+            "The quick brown fox jumps over the lazy dog near the riverbank %d"
+            % (seed + row),
+        )])
+        n += len(arr.arranged_glyphs)
+        renders.add_root(0, Fig(kind=FigKind.nkText,
+                                screen_box=rect(8, y, w - 20, 22),
+                                text_layout=arr))
+        y += 22.0
+    return from_renders(renders), n
+
+
+def make_text_table_scene(rows: int = 180, cols: int = 6, w: float = 1200.0,
+                          h: float = 800.0, tid: int = None) -> Renders:
+    """A table of text in clipped cells, as a tree (the text-in-clip scene at
+    bench_clipmask.make_table_scene's size and layout): a clipped viewport
+    scrolled by 37 px over rows x cols rounded cells of 22 px, each
+    clipping a 13 px line of the typeface `tid` (default: the bundled
+    DejaVuSans) that runs past its right edge. Its tape is the one
+    TEXT_TABLE_REFERENCE stores, made by figdraw_tpu's Python walk."""
+    from .text.layout import typeset
+    from .text.typefaces import FigFont, bundled_font_path, load_typeface
+
+    if tid is None:
+        tid = load_typeface(bundled_font_path())
+    f = FigFont(typeface_id=tid, size=13.0)
+    margin, gap, cell_h, scroll_y = 22.0, 4.0, 22.0, 37.0
+    viewport = rect(margin, margin, w - margin * 2, h - margin * 2)
+    cell_w = (viewport.w - gap * (cols + 1)) / cols
+    lst = RenderList()
+    lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, w, h),
+                     fill=fill(rgba(248, 249, 251, 255))))
+    vp = lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=viewport,
+                          fill=fill(rgba(232, 235, 240, 255)), corners=(10,) * 4,
+                          flags=FigFlags.NfClipContent))
+    for row in range(rows):
+        y = viewport.y + gap + row * (cell_h + gap) - scroll_y
+        for col in range(cols):
+            cell = rect(viewport.x + gap + col * (cell_w + gap), y, cell_w, cell_h)
+            shade = 255 if (row + col) % 2 == 0 else 244
+            ci = lst.add_child(vp, Fig(
+                kind=FigKind.nkRectangle, screen_box=cell, corners=(4,) * 4,
+                flags=FigFlags.NfClipContent,
+                fill=fill(rgba(shade, shade, 255, 255))))
+            arr = typeset(vec2(cell_w + 60, 20), [(
+                f, fill(rgba(30, 30 + (row * 7) % 90, 40 + (col * 29) % 120, 255)),
+                f"cell r{row}c{col} spills wide past its clip")])
+            lst.add_child(ci, Fig(
+                kind=FigKind.nkText,
+                screen_box=rect(cell.x + 4, cell.y + 3, cell_w + 60, 20),
+                text_layout=arr))
+    renders = Renders()
+    renders.set_layer(0, lst)
+    return renders
+
+
 def photo_image(edge: int = IMAGE_SRC) -> np.ndarray:
     """bench_images._photo_image: a deterministic (edge, edge, 4) uint8
     'photo' of smooth gradients and a checker of hard edges."""

@@ -4,8 +4,9 @@ A Tape holds quad records and ordered pass items. The native walk exports
 its rows straight into the packed upload buffer (`combo`, ops/layout.py's
 wire layout); the Python walk (render.render_root on a TapeBackend) writes
 logical (68-wide) `fields` and (2-wide) `modes` rows, which the planner
-packs (plan.pack_walked_tape). TapeBackend is the JAX package's backend
-without the text subpixel shift, which comes with the text host pipeline.
+packs (plan.pack_walked_tape). TapeBackend is the JAX package's backend;
+a renderer hands it its glyph loader and glyph offsets (text/glyphs.py
+draw_text_layout reads them).
 
 Encodings kept from the reference renderer, so both walks give the same
 rows: ceil() vertex snapping after the transform, the corner-radius packing
@@ -58,6 +59,7 @@ from .ops.layout import (
     QF_RECT_PARAMS,
     QF_RECT_RADII,
     QF_STOP_COLOR,
+    QF_SUBPIXEL_SHIFT,
     QF_UV3_X,
     QF_WIDTH,
     QI_MASK,
@@ -381,6 +383,7 @@ class TapeBackend(BackendContext):
         f[QF_RADII : QF_RADII + 4] = radii
         f[QF_FACTORS : QF_FACTORS + 2] = factors
         f[QF_AA] = self.aa_factor
+        f[QF_SUBPIXEL_SHIFT] = self._active_subpixel_shift()
 
         rm = self._active_rect_mask()
         if rm is not None:
@@ -393,6 +396,11 @@ class TapeBackend(BackendContext):
 
         t.modes[i, QI_MODE] = packed_mode
         t.modes[i, QI_MASK] = mask_read
+
+    def _active_subpixel_shift(self) -> float:
+        if not self._text_subpixel_positioning:
+            return 0.0
+        return max(0.0, min(self._text_subpixel_shift, 0.999))
 
     def _pos_quad(self, at: Vec2, to: Vec2):
         """Transform + ceil-snap the 4 corners (glcontext.nim:1036-1040, order

@@ -441,13 +441,24 @@ def test_text_plan_matches_stored_blocks():
     assert np.abs(block_means(got) - blocks).max() <= TOL
 
 
-def test_text_nodes_name_their_roadmap_item():
+def test_text_nodes_name_their_roadmap_item(tmp_path):
+    """Text has landed: a text row without a layout (no glyph rows) draws
+    nothing, on the native walk, and what of text stays unported names its
+    ROADMAP item: a variation location away from a variable face's
+    default."""
+    import test_shaping
+
     from figdraw_tpu_torch.basics import FigKind
+    from figdraw_tpu_torch.text import typefaces as port_tf
 
     scene = make_image_panels_scene(128, 128, 1, "images_11")
+    plain = port.FigRenderer(device="cpu").render_frame(scene, port.vec2(128, 128))
     lst = scene.layers[0]
     t = lst.add_root_raw()
     lst.nodes["kind"][t] = int(FigKind.nkText)
+    got = port.FigRenderer(device="cpu").render_frame(scene, port.vec2(128, 128))
+    assert torch.equal(got, plain)
+    tf = port_tf.get_typeface(port_tf.load_typeface(test_shaping._build_var_font(tmp_path)))
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md, port item 'Text host pipeline'"):
-        port.FigRenderer(device="cpu").render_frame(scene, port.vec2(128, 128))
+        tf.glyph_path(tf.glyph_id(65), (port_tf.FontVariation("wght", 700),))

@@ -2,8 +2,9 @@
 twin for what the port reads): FIGDRAW_UI_SCALE and its alias HDI set the
 global UI scale, FIGDRAW_DATA_DIR the asset root, FIGDRAW_BATCH_CHUNK
 render_batch's group bound, with the JAX package's precedence and
-parsing. The rasterizer and text switches have no
-counterpart in the port. Every case restores both packages' scales."""
+parsing. The rasterizer switches have no counterpart in the port; the
+text switches are held to the JAX package's in test_torch_text.py. Every
+case restores both packages' scales."""
 
 import os
 import subprocess

@@ -1021,3 +1021,63 @@ def test_blurred_cards_kernels_match_plain_on_the_card(dev):
     finally:
         executor.backdrop_blur_planar, executor.bin_quads = real_blur, real_bin
     assert blurs == [1] and bins == [1]
+
+
+# --- text typeset and rasterized by the port, from the bundled font ---------------
+
+
+def _block_means(frame):
+    got = frame.cpu().numpy()
+    h, w = got.shape[0] // 8 * 8, got.shape[1] // 8 * 8
+    return got[:h, :w].reshape(h // 8, 8, w // 8, 8, 4).mean(axis=(1, 3))
+
+
+def test_text_scene_typeset_by_the_port_matches_plain(dev):
+    """bench_text's scene built by the port (its OpenType reader, shaper,
+    typesetter and glyph raster) through render_frame on the card: the
+    stored plan's combo and atlas byte for byte, one K1-atlas launch, the
+    frame the plain executor's and figdraw_tpu's stored block means."""
+    from figdraw_tpu_torch import Color, fill, rgba
+    from figdraw_tpu_torch.scenes import TEXT_REFERENCE, make_text_scene
+    from figdraw_tpu_torch.text.typefaces import bundled_font_path, load_typeface
+
+    scene, _n = make_text_scene(load_typeface(bundled_font_path()),
+                                fill(rgba(20, 20, 30, 255)), 0)
+    ren = FigRenderer(atlas_size=512, device="cuda")
+    plan = ren._walk_plan(scene, vec2(1200, 800), True, Color(1.0, 1.0, 1.0, 1.0))
+    with np.load(TEXT_REFERENCE) as z:
+        assert np.array_equal(plan.combo.view(np.uint32), z["combo"].view(np.uint32))
+        assert np.array_equal(ren.atlas.data, z["atlas"])
+        blocks = z["blocks"].copy()
+    counts = _counts()
+    frame = ren.render_frame(scene, vec2(1200, 800))
+    assert tuple(b - a for a, b in zip(counts, _counts())) == (0, 1, 0, 0, 0)
+    run = get_frame_executor(plan.structure, plan.height, plan.width, plan.n_masks,
+                             plan.has_init_frame, plan.tile_h)
+    ref = run(torch.from_numpy(plan.combo).to(dev), None, atlas=ren._device_atlas(),
+              draw=raster.draw_pass_planar_prebinned_plain)
+    torch.cuda.synchronize()
+    assert float((frame - ref).abs().max()) <= TOL
+    assert np.abs(_block_means(frame) - blocks).max() <= TOL
+
+
+def test_text_table_built_by_the_port_matches_plain(dev):
+    """The text table walked and planned by the port on the megakernel with
+    the atlas: one K4-atlas launch, the frame the plain walk's and the
+    stored block means."""
+    from figdraw_tpu_torch.scenes import TEXT_TABLE_REFERENCE, make_text_table_scene
+
+    ren = FigRenderer(atlas_size=512, device="cuda")
+    tape = ren.flatten(make_text_table_scene(), vec2(1200, 800))
+    plan = plan_execution(tape)
+    assert plan.mega_atlas
+    counts = _counts()
+    frame = ren.execute_plan(plan)
+    assert tuple(b - a for a, b in zip(counts, _counts())) == (0, 0, 0, 0, 1)
+    run = get_mega_executor(plan.height, plan.width, plan.n_masks, False, plan.tile_h)
+    ref = run(torch.from_numpy(plan.mega_combo).to(dev), None, atlas=ren._device_atlas(),
+              draw=mega.draw_pass_mega_plain)
+    torch.cuda.synchronize()
+    assert float((frame - ref).abs().max()) <= TOL
+    with np.load(TEXT_TABLE_REFERENCE) as z:
+        assert np.abs(_block_means(frame) - z["blocks"]).max() <= TOL

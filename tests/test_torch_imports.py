@@ -1,8 +1,10 @@
 """figdraw_tpu_torch and chip_smoke.py import nothing of JAX or of the JAX
-package figdraw_tpu: every module of the port imports in a process where
-`jax` and `figdraw_tpu` cannot be imported, and no source file of the port
-or the smoke script names either in an import statement, at any depth (the
-smoke script and the port import some modules inside functions)."""
+package figdraw_tpu, and nothing of fontTools or PIL (the card's machine has
+neither; the text pipeline reads fonts with the port's own OpenType reader):
+every module of the port imports in a process where `jax`, `figdraw_tpu`,
+`fontTools` and `PIL` cannot be imported, and no source file of the port or
+the smoke script names any of them in an import statement, at any depth
+(the smoke script and the port import some modules inside functions)."""
 
 import ast
 import os
@@ -18,7 +20,7 @@ SOURCES = sorted(
     for root, _dirs, names in os.walk(PORT)
     for name in names if name.endswith(".py")
 ) + ["chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "figdraw_tpu")
+FORBIDDEN = ("jax", "jaxlib", "figdraw_tpu", "fontTools", "PIL")
 
 
 def _forbidden(module: str) -> bool:
@@ -46,7 +48,7 @@ def test_source_imports_no_jax(path):
 def test_every_port_module_imports_without_jax():
     code = (
         "import importlib, pkgutil, sys\n"
-        "for name in ('jax', 'jaxlib', 'figdraw_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'figdraw_tpu', 'fontTools', 'PIL'):\n"
         "    sys.modules[name] = None\n"
         "import figdraw_tpu_torch\n"
         "names = ['figdraw_tpu_torch'] + [m.name for m in pkgutil.walk_packages(\n"
@@ -54,7 +56,8 @@ def test_every_port_module_imports_without_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m, v in sys.modules.items()\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib', 'figdraw_tpu') and v is not None]\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'figdraw_tpu', 'fontTools', 'PIL')\n"
+        "       and v is not None]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )

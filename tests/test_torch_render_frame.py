@@ -140,8 +140,10 @@ def _clipped_cells(n):
 
 
 def test_masked_scene_names_its_roadmap_item():
-    """Clip masks and the atlas render now; text in a clipped cell needs
-    the text host pipeline."""
+    """Clip masks, the atlas and text render now: a text row in a clipped
+    cell renders as figdraw_tpu renders the same rows (a row without a
+    layout draws nothing)."""
+    from figdraw_tpu.nodesarray import FIG_DTYPE, RenderListArray, RendersArray as JR
     from figdraw_tpu_torch.basics import FigKind
     from figdraw_tpu_torch.nodesarray import RendersArray
 
@@ -151,9 +153,15 @@ def test_masked_scene_names_its_roadmap_item():
     lst.nodes["box"][t] = (8, 8, 40, 12)
     scene = RendersArray()
     scene.set_layer(0, lst)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, port item 'Text host pipeline'"):
-        port.FigRenderer(device="cpu").render_frame(scene, port.vec2(96, 64))
+    got = port.FigRenderer(device="cpu").render_frame(scene, port.vec2(96, 64))
+    jl = RenderListArray(capacity=lst.count)
+    jl.nodes[: lst.count] = lst.nodes[: lst.count].view(FIG_DTYPE)
+    jl.count, jl.root_ids = lst.count, list(lst.root_ids)
+    jscene = JR()
+    jscene.set_layer(0, jl)
+    want = np.asarray(JaxRenderer(atlas_size=64, use_pallas=False).render_frame(
+        jscene, jax_vec2(96, 64)))
+    assert np.abs(got.numpy() - want).max() <= TOL
 
 
 def test_rolled_scene_names_its_roadmap_item():

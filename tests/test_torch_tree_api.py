@@ -14,40 +14,9 @@ the same numbers and makes the same assertions. The JAX package's run of
 the same test is its own file's.
 """
 
-import ast
-import os
-import re
-import sys
-import types
-
 import pytest
 
-TESTS = os.path.dirname(os.path.abspath(__file__))
-_IMPORT = re.compile(r"^(\s*)(from|import) figdraw_tpu\b(?!_torch)", re.M)
-
-
-def port_twin(name: str) -> types.ModuleType:
-    """tests/<name>.py with its figdraw_tpu imports pointed at the port."""
-    mod_name = f"_port_twin_{name}"
-    if mod_name in sys.modules:
-        return sys.modules[mod_name]
-    path = os.path.join(TESTS, name + ".py")
-    with open(path) as fh:
-        src = _IMPORT.sub(r"\1\2 figdraw_tpu_torch", fh.read())
-    mod = types.ModuleType(mod_name)
-    mod.__file__ = path
-    sys.modules[mod_name] = mod
-    exec(compile(src, path, "exec"), mod.__dict__)
-    return mod
-
-
-def _test_names(name: str, skip=()):
-    with open(os.path.join(TESTS, name + ".py")) as fh:
-        tree = ast.parse(fh.read())
-    return [n.name for n in tree.body
-            if isinstance(n, ast.FunctionDef) and n.name.startswith("test_")
-            and n.name not in skip]
-
+from torch_twin import port_twin, test_names as _test_names
 
 # test_misc.py's border cases are its first four; test_border_figs_render
 # renders through figdraw_tpu's FigRenderer and is twinned, against the JAX

@@ -23,7 +23,8 @@ port.to_renders(to_port(figdraw_tpu.nodesarray.from_renders(tree)))):
   tape;
 - frames within 1/255 of figdraw_tpu's (use_pallas=False), also at
   pixel_scale=2 and at UI scale 2, for trees and for RenderFragments;
-- a text node raises NotImplementedError on every path;
+- a text node renders on every path, the Python walk's tape equal to the
+  native walk's (tests/test_torch_text_scenes.py holds text to figdraw_tpu);
 - the saturation cull of the native walk against test_hostcull.py's numpy
   reference on the port's Python-walk tape.
 """
@@ -569,28 +570,39 @@ def test_snapshot_of_a_tree_views_like_its_frame():
 
 
 def test_text_tree_raises_on_every_path():
+    """Text has landed on every path: a text node with a layout renders
+    through render_frame, flatten, snapshot_scene and from_renders, the
+    Python walk's tape equal to the native walk's of the same arrays byte
+    for byte; a text row without a layout draws nothing on either walk."""
+    from figdraw_tpu_torch.text.layout import typeset
+    from figdraw_tpu_torch.text.typefaces import FigFont, bundled_font_path, load_typeface
+
     renders = port.new_renders()
     renders.add_root(0, port.Fig(kind=port.FigKind.nkRectangle,
                                  screen_box=port.rect(0, 0, 60, 40),
                                  fill=port.fill(port.rgba(255, 255, 255, 255))))
+    f = FigFont(typeface_id=load_typeface(bundled_font_path()), size=12.0)
     renders.add_root(0, port.Fig(kind=port.FigKind.nkText,
-                                 screen_box=port.rect(4, 4, 50, 20)))
+                                 screen_box=port.rect(4, 4, 50, 20),
+                                 text_layout=typeset(port.vec2(50, 20), [
+                                     (f, port.fill(port.rgba(0, 0, 0, 255)), "Ab")])))
     ren = _port_renderer()
-    for call in (lambda: ren.render_frame(renders, port.vec2(60, 40)),
-                 lambda: ren.flatten(renders, port.vec2(60, 40)),
-                 lambda: ren.snapshot_scene(renders, port.vec2(60, 40)),
-                 lambda: port.from_renders(renders)):
-        with pytest.raises(NotImplementedError, match="Text host pipeline"):
-            call()
-    # an array with a text row, written column by column, on the native walk
-    arr = port.RendersArray()
-    i = arr[0].add_root_raw()
-    arr[0].nodes["kind"][i] = int(port.FigKind.nkText)
-    with pytest.raises(NotImplementedError, match="Text host pipeline"):
-        ren.render_frame(arr, port.vec2(60, 40))
-    with pytest.raises(NotImplementedError, match="Text host pipeline"):
-        ren.render_frame(port.to_renders(arr), port.vec2(60, 40))
-    assert ren.last_frame is None
+    frame = ren.render_frame(renders, port.vec2(60, 40))
+    assert (frame[..., 0] < 0.5).any()
+    walked = ren.flatten(renders, port.vec2(60, 40))
+    arr = port.from_renders(renders)
+    native_tape = ren.flatten(arr, port.vec2(60, 40))
+    port_plan.pack_walked_tape(walked)
+    assert np.array_equal(walked.combo.view(np.uint32), native_tape.combo.view(np.uint32))
+    scene = ren.snapshot_scene(arr, port.vec2(60, 40))
+    assert torch.equal(ren.render_view(scene), ren.render_frame(arr, port.vec2(60, 40)))
+    # a text row written column by column: no layout, nothing drawn
+    raw = port.RendersArray()
+    i = raw[0].add_root_raw()
+    raw[0].nodes["kind"][i] = int(port.FigKind.nkText)
+    blank = ren.render_frame(raw, port.vec2(60, 40))
+    assert torch.equal(blank, ren.render_frame(port.to_renders(raw), port.vec2(60, 40)))
+    assert torch.equal(blank, torch.ones_like(blank))
 
 
 def test_all_kinds_native_and_rejection_path():

@@ -405,6 +405,220 @@ def jax_text_table_scene(rows: int = TABLE_ROWS, cols: int = TABLE_COLS,
     return scene
 
 
+class _TmpFactory:
+    """tmp_path_factory's mktemp over a plain directory, for the JAX shaping
+    tests' module fixtures."""
+
+    def __init__(self, root):
+        self.root = root
+        self.n = 0
+
+    def mktemp(self, name):
+        import pathlib
+
+        self.n += 1
+        path = pathlib.Path(self.root) / f"{name}{self.n}"
+        path.mkdir(parents=True, exist_ok=True)
+        return path
+
+
+def _fea_font(path, family, names, cmap, fea, advances=None):
+    """A FontBuilder font of square glyphs with `fea` compiled in."""
+    from fontTools.feaLib.builder import addOpenTypeFeaturesFromString
+    from fontTools.fontBuilder import FontBuilder
+    from fontTools.pens.ttGlyphPen import TTGlyphPen
+
+    fb = FontBuilder(1000, isTTF=True)
+    fb.setupGlyphOrder(names)
+    fb.setupCharacterMap(cmap)
+    glyf = {}
+    for g in names:
+        pen = TTGlyphPen(None)
+        pen.moveTo((50, 0)); pen.lineTo((450, 0))
+        pen.lineTo((450, 700)); pen.lineTo((50, 700)); pen.closePath()
+        glyf[g] = pen.glyph()
+    fb.setupGlyf(glyf)
+    fb.setupHorizontalMetrics({g: ((advances or {}).get(g, 500), 50) for g in names})
+    fb.setupHorizontalHeader(ascent=800, descent=-200)
+    fb.setupNameTable({"familyName": family, "styleName": "Regular"})
+    fb.setupOS2(sTypoAscender=800, sTypoDescender=-200)
+    fb.setupPost()
+    addOpenTypeFeaturesFromString(fb.font, fea)
+    fb.font.save(str(path))
+    return str(path)
+
+
+def add_context_formats(path: str, gpos7: bool = False) -> None:
+    """Append GSUB 5 subtables in formats 1, 2 and 3 and GSUB 6 and GPOS 8 in
+    formats 1 and 2 (feaLib writes chained format 3 only) to the font at
+    `path`, each applying lookup 0 of its table; gpos7 adds GPOS 7 in
+    formats 1, 2 and 3 too. Both packages' shapers take a GPOS 7 lookup for
+    an extension (shaper._unwrap) and raise AttributeError on it, so the
+    shaping fonts leave it out."""
+    from fontTools.ttLib import TTFont
+    from fontTools.ttLib.tables import otTables as ot
+
+    font = TTFont(path)
+
+    def cov(glyphs):
+        c = ot.Coverage()
+        c.glyphs = list(glyphs)
+        return c
+
+    def cdef(classes):
+        c = ot.ClassDef()
+        c.classDefs = dict(classes)
+        return c
+
+    def rec(kind, seq, li):
+        r = getattr(ot, kind)()
+        r.SequenceIndex, r.LookupListIndex = seq, li
+        return r
+
+    def rule(cls, chained, values, rec_name, recs):
+        r = getattr(ot, cls)()
+        if chained:
+            r.Backtrack, r.Input, r.LookAhead = values
+        elif cls.endswith("ClassRule"):
+            r.Class = values[1]
+        else:
+            r.Input = values[1]
+        setattr(r, rec_name, recs)
+        return r
+
+    for tag, kind, rec_name in (("GSUB", "Sub", "SubstLookupRecord"),
+                                ("GPOS", "Pos", "PosLookupRecord")):
+        table = font[tag].table
+        plain, chain = ("ContextSubst", "ChainContextSubst") if kind == "Sub" else (
+            "ContextPos", "ChainContextPos")
+        subs = []
+        for chained, cls_name in ((False, plain), (True, chain)):
+            if kind == "Pos" and not chained and not gpos7:
+                continue
+            pre = ("Chain" + kind) if chained else kind
+            recs = [rec(rec_name, 0, 0)]
+            st = getattr(ot, cls_name)()
+            st.Format = 1
+            st.Coverage = cov(["a", "b"])
+            sets = []
+            for first in ("a", "b"):
+                rs = getattr(ot, pre + "RuleSet")()
+                setattr(rs, pre + "Rule", [rule(pre + "Rule", chained,
+                                                (["c"], ["x"], ["y"]), rec_name, recs)])
+                sets.append(rs)
+            setattr(st, pre + "RuleSet", sets)
+            subs.append(st)
+            st = getattr(ot, cls_name)()
+            st.Format = 2
+            st.Coverage = cov(["a", "b", "c"])
+            classes = {"a": 1, "b": 1, "x": 2, "y": 2, "c": 3}
+            if chained:
+                st.BacktrackClassDef = cdef({"d": 1})
+                st.InputClassDef = cdef(classes)
+                st.LookAheadClassDef = cdef({"z": 1, "e": 2})
+            else:
+                st.ClassDef = cdef(classes)
+            cs = getattr(ot, pre + "ClassSet")()
+            setattr(cs, pre + "ClassRule", [rule(pre + "ClassRule", chained,
+                                                 ([1], [2], [1, 2]), rec_name, recs)])
+            setattr(st, pre + "ClassSet", [None, cs, None, None])
+            subs.append(st)
+            if not chained:
+                st = getattr(ot, cls_name)()
+                st.Format = 3
+                st.Coverage = [cov(["a", "b"]), cov(["x", "y"])]
+                setattr(st, rec_name, recs)
+                subs.append(st)
+        for st in subs:
+            lookup = ot.Lookup()
+            lookup.LookupType = ({"Sub": 5, "Pos": 7}[kind] if "Chain" not in type(st).__name__
+                                 else {"Sub": 6, "Pos": 8}[kind])
+            lookup.LookupFlag = 0
+            lookup.SubTable = [st]
+            table.LookupList.Lookup.append(lookup)
+    font.save(path)
+
+
+def shaping_font_paths(tmp_dir) -> dict:
+    """The fonts figdraw_tpu's shaping tests build (tests/test_shaping.py,
+    test_shaping_thai.py, test_shaping_use.py), by their own builders, and
+    three more: cursive anchors (test_gpos_cursive_attachment's), GSUB and
+    GPOS lookups in extension subtables (feaLib's useExtension), and chained
+    contexts of glyph, class and coverage rules. {name: path}."""
+    import pathlib
+
+    import test_shaping
+    import test_shaping_thai
+    import test_shaping_use
+    from figdraw_tpu.text.typefaces import get_typeface
+
+    tmp = pathlib.Path(tmp_dir)
+    tmp.mkdir(parents=True, exist_ok=True)
+    factory = _TmpFactory(tmp)
+    out = {
+        "fea": test_shaping._build_fea_font(factory.mktemp("fea")),
+        "multiple": test_shaping._build_multiple_subst_font(factory.mktemp("mult")),
+        "mark_filter": test_shaping._build_mark_filter_font(factory.mktemp("filt")),
+        "var": test_shaping._build_var_font(factory.mktemp("var")),
+    }
+    for name, mod, fixture in (("thai", test_shaping_thai, "thai_tid"),
+                               ("thai_bare", test_shaping_thai, "bare_tid"),
+                               ("khmer", test_shaping_use, "khmer_tid"),
+                               ("myanmar", test_shaping_use, "myanmar_tid")):
+        tid = getattr(mod, fixture)._get_wrapped_function()(factory)
+        out[name] = get_typeface(tid).path
+    abc = [".notdef", "a", "b", "c"]
+    out["cursive"] = _fea_font(factory.mktemp("curs") / "curstest.ttf", "CursTest",
+                               abc, {ord(c): c for c in "abc"}, """
+        feature curs {
+            position cursive a <anchor 0 100> <anchor 450 -100>;
+            position cursive b <anchor 50 100> <anchor 450 -100>;
+        } curs;
+    """)
+    names = [".notdef", "f", "i", "l", "f_i", "f_l", "A", "V", "acute"]
+    out["extension"] = _fea_font(
+        factory.mktemp("ext") / "exttest.ttf", "ExtTest", names,
+        {ord(c): c for c in "filAV"} | {0x0301: "acute"}, """
+        markClass [acute] <anchor 250 700> @TOP;
+        lookup LIGS useExtension {
+            sub f i by f_i;
+            sub f l by f_l;
+        } LIGS;
+        lookup KERN useExtension {
+            pos A V -70;
+            pos [A V] [f i] -20;
+        } KERN;
+        lookup MARKS useExtension {
+            pos base [A V f i l] <anchor 250 700> mark @TOP;
+        } MARKS;
+        feature liga { lookup LIGS; } liga;
+        feature kern { lookup KERN; } kern;
+        feature mark { lookup MARKS; } mark;
+    """, advances={"acute": 0})
+    names = [".notdef", "a", "b", "c", "d", "e", "x", "y", "z", "a.alt", "b.alt"]
+    out["context"] = _fea_font(
+        factory.mktemp("ctx") / "ctxtest.ttf", "CtxTest", names,
+        {ord(c): c for c in "abcdexyz"}, """
+        @LEFT = [a b c];
+        @RIGHT = [x y z];
+        lookup ALT { sub a by a.alt; sub b by b.alt; } ALT;
+        lookup KERN1 { pos a -30; pos b -40; } KERN1;
+        feature calt {
+            sub a' lookup ALT x;
+            sub b' lookup ALT y z;
+            sub c d a' lookup ALT e;
+            sub @LEFT b' lookup ALT @RIGHT;
+        } calt;
+        feature kern {
+            pos a' lookup KERN1 [x y];
+            pos @LEFT b' lookup KERN1 @RIGHT;
+            pos [c d] [d e] a' lookup KERN1 [x] [y z];
+        } kern;
+    """)
+    add_context_formats(out["context"])
+    return out
+
+
 def _density(fields: np.ndarray, tile_h: int = 128, tile_w: int = 128):
     """native/flatten.cpp fd_density on logical field rows: (quad-tile pair
     count over live quads, median live bbox height or -1)."""
