@@ -426,6 +426,32 @@ def kernel_device_ms(fn, reps: int = 3) -> dict:
 TRACE_TAKES = 6  # torch.profiler takes of one timing before it fails
 
 
+def kernels_alone(fn, names, reps: int = 5, replays=None) -> dict:
+    """Each named kernel's device ms a launch from one torch.profiler trace
+    of fn() (each launched once a run), taken again as device_ms_of takes a
+    trace that comes back empty; {name: ms}. When every take comes back
+    empty, replays() times them instead (CUDA graph replays, printed as
+    such)."""
+    prof = {}
+    for attempt in range(TRACE_TAKES):
+        if attempt:
+            time.sleep(0.5 * attempt)
+        prof = kernel_device_ms(fn, reps)
+        got = {name: [ms / n for key, (ms, n) in prof.items() if name in key]
+               for name in names}
+        if all(got.values()):
+            return {name: sum(v) for name, v in got.items()}
+        if prof:
+            break
+        print(f"note: the profiler's trace for {names} came back with no device "
+              f"activity (take {attempt + 1} of {TRACE_TAKES})", flush=True)
+    if not prof and replays is not None:
+        out = replays()
+        print(f"note: {names} timed by CUDA graph replays instead: {out}", flush=True)
+        return out
+    fail(f"the profiler saw no kernels named {names}; it saw {sorted(prof)[:20]}")
+
+
 def device_ms_of(fn, kernel, reps: int = 5, launches: int = 1) -> float:
     """Device ms per run of fn() in the kernels whose name holds `kernel`
     (a string, or a tuple of them for a wrapper that launches several
@@ -441,7 +467,8 @@ def device_ms_of(fn, kernel, reps: int = 5, launches: int = 1) -> float:
     launches for 5 runs. So the time
     is the mean per launch that the trace holds times `launches`, and a
     trace that holds another number of launches than reps * launches is
-    printed."""
+    printed. When every take comes back empty, a CUDA graph replay of fn()
+    times it instead (graph_ms), with a note."""
     prof = {}
     for attempt in range(TRACE_TAKES):
         if attempt:
@@ -460,6 +487,13 @@ def device_ms_of(fn, kernel, reps: int = 5, launches: int = 1) -> float:
             break
         print(f"note: the profiler's trace for {kernel} came back with no device "
               f"activity (take {attempt + 1} of {TRACE_TAKES})", flush=True)
+    if not prof:
+        # every take empty: the device time of a CUDA graph replay of fn()'s
+        # launches, which also counts the graph's own launch (a few µs)
+        ms = graph_ms(fn, reps=20)
+        print(f"note: {kernel} timed by a CUDA graph replay of the call instead: "
+              f"{ms:.4f} ms", flush=True)
+        return ms
     fail(f"the profiler saw no kernel named {kernel}; it saw {sorted(prof)[:20]}")
 
 
@@ -544,80 +578,121 @@ def zero_counts():
 
     raster.LAUNCHES = raster.ATLAS_LAUNCHES = raster.MASK_LAUNCHES = 0
     mega.LAUNCHES = mega.ATLAS_LAUNCHES = 0
-    rows.LAUNCHES = blur.LAUNCHES = binning.LAUNCHES = 0
+    rows.LAUNCHES = blur.LAUNCHES = binning.LAUNCHES = binning.DECODE_LAUNCHES = 0
+    binning.PLAIN_DECODES = binning.PLAIN_BINNINGS = 0
+
+
+FRONT_PATHS = {}  # path -> front-kernel launches of its counted run
 
 
 def binning_launches(what: str, runs: int) -> int:
-    """The binning kernels' launches since zero_counts(): one binning a run
-    of an executor, as the path ran `runs` of them, each launching the
-    prepass and the tile kernel; fails otherwise."""
+    """The front end's launches since zero_counts(): one front end a run of
+    an executor, as the path ran `runs` of them, each launching the front
+    kernel (the decode fused with the binning's terms) and the tile kernel,
+    and no plain decode or binning; fails otherwise. Keeps the front
+    kernel's count for the kernels line; returns the tile kernel's."""
     from figdraw_tpu_torch.ops import binning
 
-    if binning.LAUNCHES != 2 * runs:
-        fail(f"{what}: {binning.LAUNCHES} binning launches, expected {2 * runs} (one "
-             f"binning an executor run, two launches a binning)")
+    got = (binning.DECODE_LAUNCHES, binning.LAUNCHES, binning.PLAIN_DECODES,
+           binning.PLAIN_BINNINGS)
+    if got != (runs, runs, 0, 0):
+        fail(f"{what}: (front kernel, tile kernel, plain decode, plain binning) ran "
+             f"{got} times, expected {(runs, runs, 0, 0)} (one front end an executor run)")
+    FRONT_PATHS[what] = binning.DECODE_LAUNCHES
     return binning.LAUNCHES
 
 
-def recorded_binning(render) -> list:
-    """Runs render() with the executor's bin_quads calls recorded as they
-    run: [(args, kwargs)]."""
-    from figdraw_tpu_torch import executor
-
-    calls, real = [], executor.bin_quads
+def recorded(module, name: str, render) -> list:
+    """Runs render() with module.name's calls recorded as they run:
+    [(args, kwargs)]."""
+    calls, real = [], getattr(module, name)
 
     def record(*a, **k):
         calls.append((a, k))
         return real(*a, **k)
 
-    executor.bin_quads = record
+    setattr(module, name, record)
     try:
         render()
     finally:
-        executor.bin_quads = real
+        setattr(module, name, real)
     return calls
 
 
-BIN_CALLS = {}  # scene -> the executor's own binning call, for the times
-BIN_PATHS = {}  # path -> binning launches of its counted run
+def recorded_binning(render) -> list:
+    """Runs render() with the executor's front-end calls (decode_and_bin)
+    recorded as they run: [(args, kwargs)]."""
+    from figdraw_tpu_torch import executor
+
+    return recorded(executor, "decode_and_bin", render)
+
+
+BIN_CALLS = {}  # scene -> the executor's own front-end call, for the times
+BIN_PATHS = {}  # path -> tile-kernel launches of its counted run
 BORDERLINE = {}  # path -> saturation-borderline quads its check left out
 BIN_DIFF = {}  # path -> binning.list_differences of its check
+DECODE_DIFF = {}  # path -> (words compared, words differing, max |kernel - plain| word)
+
+
+def words_differ(got, want) -> tuple:
+    """(words compared, words differing, max |a - b| over the int32 words)
+    of two tensors of 32-bit lanes."""
+    import torch
+
+    a = got.contiguous().view(torch.int32).long()
+    b = want.contiguous().view(torch.int32).long()
+    if a.shape != b.shape:
+        return 0, max(a.numel(), b.numel()), float("inf")
+    d = (a - b).abs()
+    return a.numel(), int((d != 0).sum()), float(d.max()) if d.numel() else 0.0
 
 
 def binning_check(what: str, render) -> int:
     """Runs render() (one frame or view of a path) with the executor's
-    binning call recorded, then holds the binning kernel against its plain
-    version on that call: whole (T, N) lists and counts equal, leaving out the
-    quads whose within-run above-stack lies within rounding of the
-    saturation threshold (bin_quads_model finds them; expected 0). Keeps
-    the call for the times and the differences for the kernels line;
-    returns the borderline quads left out."""
+    front-end call recorded, then holds the kernels against the plain front
+    end on that call: the fields and modes equal the plain decode's as
+    32-bit words (check 9 decode), and the whole (T, N) lists and counts
+    equal the plain binning's, leaving out the quads whose within-run
+    above-stack lies within rounding of the saturation threshold
+    (bin_quads_model finds them; expected 0). Keeps the call for the times
+    and the differences for the kernels line; returns the borderline quads
+    left out."""
     import torch
 
     from figdraw_tpu_torch.ops import binning
 
     calls = recorded_binning(render)
     if len(calls) != 1:
-        fail(f"{what}: the frame made {len(calls)} binning calls, expected 1")
+        fail(f"{what}: the frame made {len(calls)} front-end calls, expected 1")
     a, k = calls[0]
-    got = binning.bin_quads(*a, **k)
-    want = binning.bin_quads_plain(*a, **k)
+    got = binning.decode_and_bin(*a, **k)
+    want = binning.decode_and_bin_plain(*a, **k)
     torch.cuda.synchronize()
-    fields, start, end, tiles_y, tiles_x, th, tw = a
-    modes, runs = k.get("modes"), k.get("run_bounds")
+    rows, start, end, tiles_y, tiles_x, th, tw = a
+    cull, runs = k.get("cull", False), k.get("run_bounds")
+    words = [words_differ(got[i], want[i]) for i in (0, 1)]
+    decode = (sum(w[0] for w in words), sum(w[1] for w in words),
+              max(w[2] for w in words))
+    print(f"check 9 decode: the front kernel vs the plain decode on the {what} rows "
+          f"{tuple(rows.shape)}: {decode[1]} of {decode[0]} fields and modes words "
+          f"differ (expected 0)", flush=True)
+    if decode[1]:
+        fail(f"{what}: the decode kernel's fields or modes differ from the plain decode's")
+    DECODE_DIFF[what] = decode
+    fields, modes = want[0], want[1]
     _idx, _counts, border = binning.bin_quads_model(
         fields.cpu().numpy(), int(start), int(end), tiles_y, tiles_x, th, tw,
-        modes=None if modes is None else modes.cpu().numpy(),
-        run_bounds=None if runs is None else runs.cpu().numpy())
-    got_np = [t.cpu().numpy() for t in got]
-    want_np = [t.cpu().numpy() for t in want]
+        modes=modes.cpu().numpy() if cull else None,
+        run_bounds=None if runs is None or not cull else runs.cpu().numpy())
+    got_np = [t.cpu().numpy() for t in got[2:]]
+    want_np = [t.cpu().numpy() for t in want[2:]]
     diff = binning.list_differences(*got_np, *want_np, border)
     same = diff["max_abs_err"] == 0
-    culls = ("no culling" if modes is None else "occlusion" if runs is None
+    culls = ("no culling" if not cull else "occlusion" if runs is None
              else f"{runs.shape[0]} frame runs")
     print(f"check 9: binning kernel vs plain on the {what} tape (T {tiles_y * tiles_x}, "
-          f"N {fields.shape[0]}, tile_h {th}, {culls}"
-          f"{', saturation tier' if modes is not None and fields.shape[0] >= binning.SAT_MIN_QUADS else ''}): "
+          f"N {rows.shape[0]}, tile_h {th}, {culls}"
+          f"{', saturation tier' if cull and rows.shape[0] >= binning.SAT_MIN_QUADS else ''}): "
           f"whole lists and counts {'equal' if same else 'DIFFER'}: "
           f"{diff['differing']} of {diff['compared']} entries differ, kept counts "
           f"{diff['count_delta']} apart at most, max |kernel - plain| "
@@ -631,42 +706,82 @@ def binning_check(what: str, render) -> int:
     return int(border.sum())
 
 
-def binning_work(a, k):
-    """(bytes, operations) one binning needs: each row's columns the
-    function reads (the bbox; with modes the alphas, half-extents, radii,
-    AA, the two inverse terms and the rect-mask flag, and the mode lanes),
-    the runs and the window once; the (T, N) lists and the counts written
-    once; four compares and three ands a (tile, quad) pair of the window,
-    and with modes ~40 operations a quad for its cover terms. Counted,
+def front_work(a, k):
+    """(bytes, operations) the front kernel needs: each packed row read
+    once (208 B), its fields (272 B) and modes (8 B) written once, and the
+    tile kernel's terms written once (the bbox's tile range, 8 B; with
+    culling the cover terms, 16 B); 24 divisions of the colour bytes a row
+    and, with culling, ~60 operations a quad for its cover terms. Counted,
     not measured."""
-    fields, start, end, tiles_y, tiles_x = a[:5]
-    n, n_tiles = fields.shape[0], tiles_y * tiles_x
-    modes, runs = k.get("modes"), k.get("run_bounds")
-    cols = 4 if modes is None else 20
-    n_bytes = n * cols * 4 + (0 if modes is None else n * 8) + 8
+    rows = a[0]
+    n, cull = rows.shape[0], k.get("cull", False)
+    n_bytes = n * (208 + 272 + 8 + 8 + (16 if cull else 0))
+    return n_bytes, n * (24 + 12 + (60 if cull else 0))
+
+
+def tiles_work(a, k):
+    """(bytes, operations) the tile kernel needs: each quad's tile range
+    read once (8 B) and, with culling, the cover terms of the quads the
+    walk visits (counted as all, 16 B), the runs and the window once; the
+    (T, N) lists and the counts written once; four compares a (tile, quad)
+    pair of the window. Counted, not measured."""
+    rows, start, end, tiles_y, tiles_x = a[:5]
+    n, n_tiles = rows.shape[0], tiles_y * tiles_x
+    cull, runs = k.get("cull", False), k.get("run_bounds")
+    n_bytes = n * (8 + (16 if cull else 0)) + 8
     n_bytes += 0 if runs is None else runs.numel() * 4
     n_bytes += n_tiles * n * 4 + n_tiles * 4
     window = max(0, min(int(end), n) - max(int(start), 0))
-    n_ops = n_tiles * window * 7 + (0 if modes is None else n * 40)
-    return n_bytes, n_ops
+    return n_bytes, n_tiles * window * 4
+
+
+def binning_work(a, k):
+    """(bytes, operations) the whole front end needs as one function: the
+    packed rows read once, the fields, modes, (T, N) lists and counts
+    written once (the per-quad terms between its two kernels are its own);
+    the two kernels' operations. Counted, not measured."""
+    rows, _start, _end, tiles_y, tiles_x = a[:5]
+    n, n_tiles = rows.shape[0], tiles_y * tiles_x
+    runs = k.get("run_bounds")
+    n_bytes = n * (208 + 272 + 8) + 8 + (0 if runs is None else runs.numel() * 4)
+    n_bytes += n_tiles * n * 4 + n_tiles * 4
+    return n_bytes, front_work(a, k)[1] + tiles_work(a, k)[1]
 
 
 def binning_times(what: str, tag: str) -> dict:
-    """The binning kernel's time on one scene's own call: by CUDA events
-    around the wrapper call, the two kernels alone by torch.profiler, the
-    plain version, the bound; and, for the record only, torch.argsort of
-    the (T, N) keys that the plain version sorts."""
+    """The front end's times on one scene's own call: by CUDA events around
+    the wrapper call (decode_and_bin, both kernels), the front kernel alone
+    (stop=4) by events, each kernel alone by torch.profiler, the plain
+    front end and the plain decode, and each bound; and, for the record
+    only, torch.argsort of the (T, N) keys that the plain version sorts."""
     import torch
 
     from figdraw_tpu_torch.ops import binning
 
     a, k = BIN_CALLS[what]
-    ms = cuda_ms(lambda: binning.bin_quads(*a, **k), 20)
-    names = ("bin_prep_kernel", "bin_tiles_kernel")
-    alone = device_ms_of(lambda: binning.bin_quads(*a, **k), names)
-    parts = kernel_parts(lambda: binning.bin_quads(*a, **k), names)
-    plain_ms = cuda_ms(lambda: binning.bin_quads_plain(*a, **k), 5)
-    idx, counts = binning.bin_quads(*a, **k)
+    call = lambda: binning.decode_and_bin(*a, **k)
+    front = lambda: binning.decode_and_bin(*a, **k, stop=4)
+    ms = cuda_ms(call, 20)
+    front_ms = cuda_ms(front, 20)
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(50):  # the wrapper's host path: checks, allocations, the C call
+        t0 = time.perf_counter()
+        call()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    host_ms = statistics.median(host)
+    def replays():
+        front_replay = graph_ms(front, reps=20)
+        return {"front_kernel": front_replay,
+                "tiles_kernel": graph_ms(call, reps=20) - front_replay}
+
+    parts = kernels_alone(call, ("front_kernel", "tiles_kernel"), replays=replays)
+    front_alone, tiles_alone = parts["front_kernel"], parts["tiles_kernel"]
+    alone = front_alone + tiles_alone
+    plain_ms = cuda_ms(lambda: binning.decode_and_bin_plain(*a, **k), 5)
+    decode_plain_ms = cuda_ms(lambda: binning.unpack_combo_plain(a[0]), 5)
+    _f, _m, idx, counts = call()
     n = idx.shape[1]
     order = torch.arange(n, dtype=torch.int32, device=idx.device)
     live = order[None, :] < counts[:, None]
@@ -675,13 +790,64 @@ def binning_times(what: str, tag: str) -> dict:
     argsort_ms = cuda_ms(lambda: torch.argsort(keys, dim=1), 5)
     n_bytes, n_ops = binning_work(a, k)
     bound, by = bound_of(n_bytes, n_ops)
-    print(f"times: binning kernel on the {what} tape {tuple(idx.shape)}: {ms:.4f} ms "
-          f"(CUDA events around the wrapper call), {alone:.4f} ms (the prepass and the "
-          f"tile kernel alone, torch.profiler; {parts}), plain torch {plain_ms:.3f} ms; bound "
-          f"{bound:.4f} ms ({by}: {n_bytes} bytes); torch.argsort of the (T, N) keys "
-          f"alone {argsort_ms:.4f} ms (for the record, no yardstick) {tag}", flush=True)
+    f_bytes, f_ops = front_work(a, k)
+    front_bound, front_by = bound_of(f_bytes, f_ops)
+    t_bytes, t_ops = tiles_work(a, k)
+    tiles_bound, tiles_by = bound_of(t_bytes, t_ops)
+    print(f"times: front end on the {what} tape, rows {tuple(a[0].shape)}, lists "
+          f"{tuple(idx.shape)}: {ms:.4f} ms (CUDA events around decode_and_bin; its host "
+          f"path, the enqueue alone, {host_ms:.4f} ms), "
+          f"{alone:.4f} ms (both kernels alone, torch.profiler), plain torch "
+          f"{plain_ms:.3f} ms; bound {bound:.4f} ms ({by}: {n_bytes} bytes). The front "
+          f"kernel: {front_ms:.4f} ms by events, {front_alone:.4f} ms alone, bound "
+          f"{front_bound:.5f} ms ({front_by}: {f_bytes} bytes), the plain decode "
+          f"{decode_plain_ms:.4f} ms. The tile kernel: {tiles_alone:.4f} ms alone, bound "
+          f"{tiles_bound:.4f} ms ({tiles_by}: {t_bytes} bytes). torch.argsort of the "
+          f"(T, N) keys alone {argsort_ms:.4f} ms (for the record, no yardstick) {tag}",
+          flush=True)
     return {"ms": ms, "device_ms": alone, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "argsort_ms": argsort_ms}
+            "bound_by": by, "argsort_ms": argsort_ms, "host_ms": host_ms,
+            "front": {"ms": front_ms, "device_ms": front_alone, "plain_ms": decode_plain_ms,
+                      "bound_ms": front_bound, "bound_by": front_by},
+            "tiles": {"device_ms": tiles_alone, "bound_ms": tiles_bound,
+                      "bound_by": tiles_by}}
+
+
+def tile_split(what: str, tag: str) -> dict:
+    """The tile kernel's phases on one scene's own call: the front end
+    stopped after its front kernel, after the tile kernel's overlap pass,
+    its culls and its counts, and whole, each ten times in a CUDA graph (no
+    host work between the launches) timed by CUDA events a replay; each
+    phase is the difference of two."""
+    from figdraw_tpu_torch.ops import binning
+
+    a, k = BIN_CALLS[what]
+    calls = 10  # a graph holds ten calls, so one replay's launch costs a tenth
+    ms = {stop: graph_ms(lambda: [binning.decode_and_bin(*a, **k, stop=stop)
+                                  for _ in range(calls)], reps=20) / calls
+          for stop in (4, 1, 2, 3, 0)}
+    split = {"overlap": ms[1] - ms[4], "culls": ms[2] - ms[1], "counts": ms[3] - ms[2],
+             "writing": ms[0] - ms[3], "whole": ms[0] - ms[4]}
+    print(f"times: the tile kernel's phases on the {what} tape (CUDA graph replays of the "
+          f"front end stopped after each, differences): "
+          + ", ".join(f"{p} {v:.4f} ms" for p, v in split.items())
+          + f"; the front end whole {ms[0]:.4f} ms, its front kernel {ms[4]:.4f} ms {tag}",
+          flush=True)
+    return split
+
+
+def front_stages(what: str) -> dict:
+    """The front end's stages on a path's own call, by CUDA events: the
+    decode alone (unpack_combo, the front kernel's decode-only form), the
+    front end (decode_and_bin) and its plain version."""
+    from figdraw_tpu_torch.ops import binning
+
+    a, k = BIN_CALLS[what]
+    return {
+        "decode": cuda_ms(lambda: binning.unpack_combo(a[0]), 10),
+        "front end": cuda_ms(lambda: binning.decode_and_bin(*a, **k), 10),
+        "front end (plain torch)": cuda_ms(lambda: binning.decode_and_bin_plain(*a, **k), 5),
+    }
 
 
 def timed_frames(what: str, render, shape, frames: int = FRAMES) -> list:
@@ -1466,11 +1632,8 @@ def clip_table_phase(kind: str, tag: str, dev) -> dict:
     import torch
 
     from figdraw_tpu_torch import FigRenderer, native, vec2
-    from figdraw_tpu_torch.executor import (
-        get_frame_executor, get_mega_executor, unpack_combo,
-    )
+    from figdraw_tpu_torch.executor import get_frame_executor, get_mega_executor
     from figdraw_tpu_torch.ops import mega, raster
-    from figdraw_tpu_torch.ops.binning import bin_quads, bin_quads_plain
     from figdraw_tpu_torch.plan import plan_execution, tile_h_from_density
     from figdraw_tpu_torch.scenes import make_clip_table_scene
 
@@ -1556,20 +1719,8 @@ def clip_table_phase(kind: str, tag: str, dev) -> dict:
         if not e4[0] <= TOL:
             fail(f"sub-clip table: K4 differs from its plain version by {e4[0]}")
     # the executor's stages on the frame's own inputs (device, CUDA events)
-    fields, modes = (out["k1_args"][0][0] if kind == "rectmask" else out["k4_args"])[:2]
-    n = fields.shape[0]
-    th = out["k3_args"][-1] if kind == "rectmask" else out["k4_args"][-1]
-    rows = combo.shape[0] - n
-    bin_args = (fields, 0, n, -(-TABLE_H // th), -(-TABLE_W // 128), th, 128)
-    bin_kw = {}
-    if kind == "rectmask":
-        bin_kw = dict(modes=modes, run_bounds=torch.stack([a[2] for a, _k in out["k1_args"]]))
-    stages = {
-        "unpack": cuda_ms(lambda: unpack_combo(combo[:-rows]), 20),
-        "binning": cuda_ms(lambda: bin_quads(*bin_args, **bin_kw), 20),
-        "binning (plain torch)": cuda_ms(lambda: bin_quads_plain(*bin_args, **bin_kw), 20),
-        "whole executor": cuda_ms(lambda: run(combo, None), 20),
-    }
+    stages = front_stages(f"{kind} table")
+    stages["whole executor"] = cuda_ms(lambda: run(combo, None), 20)
     print(f"times: {kind} executor stages: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in stages.items()) + f" (device, CUDA events) {tag}",
         flush=True)
@@ -1779,8 +1930,8 @@ def tree_phase(tag: str) -> dict:
         want = (e1 * frames, e3 * frames, e4 * frames, blurs_per_frame * frames)
         print(f"check 10: {what} tree, {frames} frames through render_frame: launches "
               f"K1 {k1}, K3 {k3}, K4 {k4}, blur {blur.LAUNCHES}, K1-atlas {k1_atlas}, "
-              f"K4-atlas {k4_atlas}, binning {binning.LAUNCHES} (expected "
-              f"{want}, 0, 0, {2 * frames})", flush=True)
+              f"K4-atlas {k4_atlas}, front kernel {binning.DECODE_LAUNCHES}, tile kernel "
+              f"{binning.LAUNCHES} (expected {want}, 0, 0, {frames}, {frames})", flush=True)
         if got != want or k1_atlas or k4_atlas:
             fail(f"{what} tree launched (K1, K3, K4, blur) {got}, K1-atlas {k1_atlas}, "
                  f"K4-atlas {k4_atlas}, expected {want}, 0, 0")
@@ -1989,9 +2140,7 @@ def camera_phase(copies: int, tag: str, errs: list) -> dict:
     import torch
 
     from figdraw_tpu_torch import FigRenderer, vec2
-    from figdraw_tpu_torch.executor import unpack_combo
     from figdraw_tpu_torch.ops import blur, raster, rows
-    from figdraw_tpu_torch.ops.binning import bin_quads, bin_quads_plain
     from figdraw_tpu_torch.scenes import make_render_tree_array
 
     size = vec2(WIDTH, HEIGHT)
@@ -2058,18 +2207,10 @@ def camera_phase(copies: int, tag: str, errs: list) -> dict:
     print(f"times: camera {copies * 3} boxes {WIDTH}x{HEIGHT}: render_view "
           f"{ms_text(pan)}, render_views {ms_text(fly)} a view, render_frame loop "
           f"{walk[0]:.3f} ms/frame {tag}", flush=True)
-    # a view's executor by stage, on the last view's rows
+    # a view's executor by stage, on the checked view's rows
     plan, viewed, th = snap.plan, snap.scratch, snap.plan.tile_h
-    fields, modes = unpack_combo(viewed[: snap.n_quads])
-    run_bounds = torch.tensor(plan.bounds, dtype=torch.int32, device="cuda")
-    bin_args = (fields, 0, snap.n_quads, -(-HEIGHT // th), -(-WIDTH // 128), th, 128)
-    bin_kw = dict(modes=modes, run_bounds=run_bounds)
-    stages = {
-        "unpack": cuda_ms(lambda: unpack_combo(viewed[: snap.n_quads]), 10),
-        "binning": cuda_ms(lambda: bin_quads(*bin_args, **bin_kw), 10),
-        "binning (plain torch)": cuda_ms(lambda: bin_quads_plain(*bin_args, **bin_kw), 10),
-        "whole executor": cuda_ms(lambda: ren._run_plan(plan, viewed), 10),
-    }
+    stages = front_stages(f"camera {copies * 3}")
+    stages["whole executor"] = cuda_ms(lambda: ren._run_plan(plan, viewed), 10)
     print(f"times: camera {copies * 3} boxes: a view's executor stages (tile_h "
           f"{th}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items())
           + f" (device, CUDA events) {tag}", flush=True)
@@ -2356,7 +2497,8 @@ def turns_phase(tag: str) -> dict:
     """`python3 chip_smoke.py turns`: the headline frame (FRAMES frames of
     render_frame), the rect-mask table's frame and a 12000-box camera view
     (render_view, three loops of RESIDENT_FRAMES), each with its executor
-    and the executor's own binning call timed alone by CUDA events; the
+    and the executor's own front end timed by CUDA events (the decode, the
+    binning of the decoded fields and the two together); the
     blur (both passes) on seeded planes of the headline's shape at its
     radius, by CUDA events and alone by torch.profiler. Only entry points
     that every commit since the device-resident scenes has, and whichever
@@ -2366,7 +2508,7 @@ def turns_phase(tag: str) -> dict:
 
     from figdraw_tpu_torch import FigRenderer, executor, native, vec2
     from figdraw_tpu_torch.executor import get_frame_executor
-    from figdraw_tpu_torch.ops import blur
+    from figdraw_tpu_torch.ops import binning, blur
     from figdraw_tpu_torch.plan import plan_execution
     from figdraw_tpu_torch.scenes import make_clip_table_scene, make_render_tree_array
 
@@ -2381,9 +2523,26 @@ def turns_phase(tag: str) -> dict:
     with ThreadPoolExecutor(len(loads)) as pool:
         list(pool.map(lambda load: load(), loads))
 
-    def binning_ms(render) -> float:
-        a, k = recorded_binning(render)[0]
-        return cuda_ms(lambda: executor.bin_quads(*a, **k), 20)
+    def front_ms(render) -> dict:
+        """The executor's front end on its own call, by CUDA events: the
+        decode alone, the binning of the decoded fields (bin_quads), and the
+        whole front end (decode_and_bin where the checkout has it, else its
+        decode and binning calls in turn)."""
+        if hasattr(executor, "decode_and_bin"):
+            a, k = recorded(executor, "decode_and_bin", render)[0]
+            rows = a[0]
+            fields, modes = executor.unpack_combo(rows)
+            b = (fields,) + a[1:]
+            kb = dict(modes=modes, run_bounds=k.get("run_bounds")) if k.get("cull") else {}
+            whole = lambda: executor.decode_and_bin(*a, **k)
+            binned = lambda: binning.bin_quads(*b, **kb)
+        else:
+            (rows,), _k = recorded(executor, "unpack_combo", render)[0]
+            b, kb = recorded(executor, "bin_quads", render)[0]
+            whole = lambda: (executor.unpack_combo(rows), executor.bin_quads(*b, **kb))
+            binned = lambda: executor.bin_quads(*b, **kb)
+        return {"decode_ms": cuda_ms(lambda: executor.unpack_combo(rows), 20),
+                "binning_ms": cuda_ms(binned, 20), "front_ms": cuda_ms(whole, 20)}
 
     size = vec2(WIDTH, HEIGHT)
     out = {}
@@ -2401,7 +2560,7 @@ def turns_phase(tag: str) -> dict:
     combo = torch.from_numpy(plan.combo).to("cuda", copy=True)
     out["headline"] = {"frame_ms": statistics.median(frames),
                        "executor_ms": cuda_ms(lambda: run(combo, None), 20),
-                       "binning_ms": binning_ms(lambda: run(combo, None))}
+                       **front_ms(lambda: run(combo, None))}
     gen = torch.Generator(device="cuda").manual_seed(18)
     ph, pw = -(-plan.height // plan.tile_h) * plan.tile_h, -(-plan.width // 128) * 128
     planes = torch.rand((4, ph, pw), generator=gen, device="cuda")  # the executor's
@@ -2424,7 +2583,7 @@ def turns_phase(tag: str) -> dict:
     combo = torch.from_numpy(plan.combo).to("cuda", copy=True)
     out["rectmask"] = {"frame_ms": statistics.median(frames),
                        "executor_ms": cuda_ms(lambda: run(combo, None), 20),
-                       "binning_ms": binning_ms(lambda: run(combo, None))}
+                       **front_ms(lambda: run(combo, None))}
 
     copies = RESIDENT_SCALES[-1]
     ren = FigRenderer(device="cuda")
@@ -2434,7 +2593,7 @@ def turns_phase(tag: str) -> dict:
     out[f"camera {copies * 3}"] = {
         "view_ms": min(loops), "loops_ms": loops,
         "executor_ms": cuda_ms(lambda: ren._run_plan(snap.plan, snap.scratch), 20),
-        "binning_ms": binning_ms(lambda: ren.render_view(snap, (21.0, 7.0)))}
+        **front_ms(lambda: ren.render_view(snap, (21.0, 7.0)))}
     for what, v in out.items():
         print(f"turns: {what}: " + ", ".join(
             f"{k} {x:.4f}" if isinstance(x, float) else f"{k} {x}" for k, x in v.items())
@@ -2456,9 +2615,11 @@ def frame_launches(plan) -> dict:
     """The kernel launches one frame of a plan makes, by kernel: a
     frame-target run K1 (K1-atlas when it holds an atlas quad), a
     mask-target run K3, a megakernel plan K4 or K4-atlas once, a blur item
-    two blur launches, and one binning (two launches) a frame."""
-    out = dict.fromkeys(("K1", "K1-atlas", "K3", "K4", "K4-atlas", "blur"), 0)
-    out["binning"] = 2
+    two blur launches, and one front end a frame (the front kernel,
+    "decode", and the tile kernel, "binning"), with no plain decode or
+    binning ("plain")."""
+    out = dict.fromkeys(("K1", "K1-atlas", "K3", "K4", "K4-atlas", "blur", "plain"), 0)
+    out["binning"] = out["decode"] = 1
     if plan.mega_combo is not None:
         out["K4-atlas" if plan.mega_atlas else "K4"] = 1
         return out
@@ -2475,7 +2636,9 @@ def all_counts() -> dict:
 
     k1, k1a, k3, k4, k4a = launch_counts()
     return {"K1": k1, "K1-atlas": k1a, "K3": k3, "K4": k4, "K4-atlas": k4a,
-            "blur": blur.LAUNCHES, "binning": binning.LAUNCHES}
+            "blur": blur.LAUNCHES, "binning": binning.LAUNCHES,
+            "decode": binning.DECODE_LAUNCHES,
+            "plain": binning.PLAIN_DECODES + binning.PLAIN_BINNINGS}
 
 
 LOOP_PATHS = {}  # path -> its counted run's launches by kernel
@@ -2939,7 +3102,8 @@ def overlay_phase(tag: str, dev) -> dict:
         frames.append(ren.render_frame_with_overlays(scene, size, {0: pyramids[i]}))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    per = {"K1": 2, "K1-atlas": 0, "K3": 0, "K4": 0, "K4-atlas": 0, "blur": 0, "binning": 4}
+    per = {"K1": 2, "K1-atlas": 0, "K3": 0, "K4": 0, "K4-atlas": 0, "blur": 0, "binning": 2,
+           "decode": 2, "plain": 0}
     counted_launches("overlay", scaled_launches(per, OVERLAY_FRAMES))
     stored = np.load(OVERLAY_REFERENCE)
     err = max(float(np.abs(block_means(f.cpu().numpy()) - stored[i]).max())
@@ -3058,9 +3222,9 @@ def main() -> None:
 
     from figdraw_tpu_torch import FigRenderer, vec2
     from figdraw_tpu_torch import native
-    from figdraw_tpu_torch.executor import get_frame_executor, unpack_combo
+    from figdraw_tpu_torch.executor import get_frame_executor
     from figdraw_tpu_torch.ops import binning, blur, mega, raster, rows
-    from figdraw_tpu_torch.ops.binning import bin_quads, bin_quads_plain
+    from figdraw_tpu_torch.ops.binning import bin_quads
     from figdraw_tpu_torch.ops.layout import QF_RECT_PARAMS, QI_MODE
     from figdraw_tpu_torch.plan import plan_execution
     from figdraw_tpu_torch.scenes import make_render_tree_array, modes_tape
@@ -3244,23 +3408,16 @@ def main() -> None:
         ms = cuda_ms(lambda: raster.draw_pass_planar_prebinned(*a, **k), 20)
         print(f"times: headline draw run {i}: kernel {ms:.4f} ms {tag}", flush=True)
     # the executor's stages on the frame-0 headline tape, with its own inputs
-    fields, modes, _b, tile_idx, _c, planes = draw_args[0][0][:6]
-    th = draw_args[0][1]["tile_h"]
-    n = fields.shape[0]
-    run_bounds = torch.stack([a[2] for a, _k, _e in draw_args])
-    ms_unpack = cuda_ms(lambda: unpack_combo(combo[:n]), 20)
-    bin_args = (fields, 0, n, planes.shape[1] // th, planes.shape[2] // 128, th, 128)
-    bin_kw = dict(modes=modes, run_bounds=run_bounds)
-    ms_bin = cuda_ms(lambda: bin_quads(*bin_args, **bin_kw), 20)
-    ms_bin_plain = cuda_ms(lambda: bin_quads_plain(*bin_args, **bin_kw), 20)
+    stages = front_stages("headline")
     radius = torch.tensor(plan.radii[0], dtype=torch.float32, device=dev)
     ms_blur = cuda_ms(lambda: blur.backdrop_blur_planar(draw_args[1][0][5], radius), 20)
     ms_blur_plain = cuda_ms(
         lambda: blur.backdrop_blur_planar_plain(draw_args[1][0][5], radius), 5)
     ms_exec = cuda_ms(lambda: run(combo, None), 20)
-    print(f"times: executor stages: unpack {ms_unpack:.4f} ms, binning "
-          f"{ms_bin:.4f} ms (the kernel; the plain torch binning {ms_bin_plain:.4f} ms), "
-          f"blur {ms_blur:.4f} ms (the kernel; the plain torch blur "
+    print(f"times: executor stages: decode {stages['decode']:.4f} ms (the front "
+          f"kernel's decode-only form), front end {stages['front end']:.4f} ms (the "
+          f"front kernel and the tile kernel; the plain torch decode and binning "
+          f"{stages['front end (plain torch)']:.4f} ms), blur {ms_blur:.4f} ms (the kernel; the plain torch blur "
           f"{ms_blur_plain:.4f} ms), whole executor {ms_exec:.4f} ms "
           f"(device, CUDA events) {tag}", flush=True)
     blurred = blur_phase(draw_args[1][0][5], plan.radii[0], tag)
@@ -3337,9 +3494,11 @@ def main() -> None:
     BIN_PATHS["text table host"] = host["table_bin_launches"]
     BORDERLINE["text table host"] = host["table_borderline"]
     BIN_PATHS.update({f"text tree {f}": v["bin_launches"] for f, v in host["tree"].items()})
-    print(f"check 9: binning launches by path {BIN_PATHS} (two an executor run: the "
-          f"prepass and the tile kernel); saturation-borderline quads left out by scene "
+    print(f"check 9: tile-kernel launches by path {BIN_PATHS} and front-kernel "
+          f"launches {FRONT_PATHS} (one each an executor run; no plain decode or "
+          f"binning on any path); saturation-borderline quads left out by scene "
           f"{BORDERLINE} (expected 0)", flush=True)
+    split = tile_split(f"camera {big}", tag)
     blur_paths = {"headline": blur_launches}
     blur_paths.update({f"camera {c * 3}": resident[c]["camera"]["blur_launches"]
                        for c in RESIDENT_SCALES})
@@ -3356,6 +3515,7 @@ def main() -> None:
     loop_paths = {k: {p: n[k] for p, n in LOOP_PATHS.items() if n[k]}
                   for k in ("K1", "K1-atlas", "K3", "K4", "K4-atlas", "blur")}
     BIN_PATHS.update({p: n["binning"] for p, n in LOOP_PATHS.items()})
+    FRONT_PATHS.update({p: n["decode"] for p, n in LOOP_PATHS.items()})
     blur_paths.update(loop_paths["blur"])
     anim = loop["batch"]
     print(f"frame loop: batch against the render_frame loop, ms/frame: "
@@ -3532,8 +3692,27 @@ def main() -> None:
             "library_ms": None,
         },
         {
-            "name": "bin_prep_kernel + bin_tiles_kernel (X2: the tile binning, two "
-                    "launches a binning)",
+            "name": "front_kernel<MODE> (X7: the wire decode, fused with the binning's "
+                    "per-quad terms; one launch an executor run)",
+            "route": "cuda",
+            "source": "figdraw_tpu_torch/csrc/binning.cu",
+            "replaces": "figdraw_tpu/executor.py:181 (unpack_combo_device); XLA ops, "
+                        "no Pallas",
+            "launches": sum(FRONT_PATHS.values()),
+            "launches_by_path": FRONT_PATHS,
+            # 32-bit words: the largest |kernel - plain| over every path's
+            # fields and modes (the check fails on any difference)
+            "max_abs_err": max(d[2] for d in DECODE_DIFF.values()),
+            "words_compared": sum(d[0] for d in DECODE_DIFF.values()),
+            "words_differing": sum(d[1] for d in DECODE_DIFF.values()),
+            **binned["headline"]["front"],
+            "by_scene": {k: v["front"] for k, v in binned.items() if k != "headline"},
+            # no one PyTorch call decodes u8x4 words through a table
+            "library_ms": None,
+        },
+        {
+            "name": "tiles_kernel<CULL, SATURATE> (X2: the tile binning; launched by "
+                    "the front end, or after prep_kernel by bin_quads)",
             "route": "cuda",
             "source": "figdraw_tpu_torch/csrc/binning.cu",
             "replaces": "figdraw_tpu/ops/binning.py:35 (bin_quads); XLA ops, no Pallas",
@@ -3546,9 +3725,22 @@ def main() -> None:
             "entries_compared": sum(d["compared"] for d in BIN_DIFF.values()),
             "entries_differing": sum(d["differing"] for d in BIN_DIFF.values()),
             "borderline_quads": BORDERLINE,
-            **{key: binned["headline"][key] for key in (
-                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
-            "by_scene": {k: v for k, v in binned.items() if k != "headline"},
+            # ms: CUDA events around the front end's call (both kernels);
+            # device_ms the tile kernel alone; plain_ms the plain front end
+            "ms": binned["headline"]["ms"],
+            "device_ms": binned["headline"]["tiles"]["device_ms"],
+            "plain_ms": binned["headline"]["plain_ms"],
+            "bound_ms": binned["headline"]["tiles"]["bound_ms"],
+            "bound_by": binned["headline"]["tiles"]["bound_by"],
+            "front_end": {key: binned["headline"][key] for key in (
+                "ms", "host_ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+            "by_scene": {k: {**v["tiles"], "front_end_ms": v["ms"],
+                             "front_end_host_ms": v["host_ms"],
+                             "front_end_device_ms": v["device_ms"],
+                             "front_end_plain_ms": v["plain_ms"],
+                             "front_end_bound_ms": v["bound_ms"]}
+                         for k, v in binned.items() if k != "headline"},
+            "phases_12000_boxes": split,
             # no one PyTorch call computes per-tile culled lists; argsort_ms
             # is torch.argsort of the plain version's keys, for the record
             "argsort_ms": binned["headline"]["argsort_ms"],

@@ -77,3 +77,11 @@ def batch_chunk() -> int:
         return max(1, int(os.environ.get("FIGDRAW_BATCH_CHUNK", "8")))
     except ValueError:
         return 8
+
+
+def test_one_frame_path():
+    """The reference's -d:testOneFrame hook (config.py:87-91 of the JAX
+    package, the same FIGDRAW_TEST_ONE_FRAME): when set to a path, the
+    renderer writes the first frame it renders there as a PNG (CI smoke
+    screenshots without a frame loop); None when unset or empty."""
+    return os.environ.get("FIGDRAW_TEST_ONE_FRAME") or None

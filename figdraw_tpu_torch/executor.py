@@ -3,8 +3,10 @@
 its rolled form `get_rolled_executor`, `get_mega_executor`, and
 `get_batch_runner` as `BatchStack` and `run_batch`).
 
-The packed upload is decoded on the device and the whole tape is binned
-once. The frame executor then runs the pass structure in order: draw runs
+The packed upload is decoded and the whole tape binned once, in one front
+end call (ops/binning.decode_and_bin: the front kernel, the decode fused
+with the binning's per-quad terms, then the tile kernel). The frame
+executor then runs the pass structure in order: draw runs
 into the frame (K1, K1-atlas) or into a mask plane (K3), mask clears and
 backdrop blurs (the blur kernel of ops/blur.py); its rolled form takes the bounds and radii of frames of
 many items from the plan's item table. The mega executor runs the whole
@@ -22,36 +24,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .ops.binning import bin_quads
+from .ops.binning import decode_and_bin, unpack_combo  # noqa: F401 - unpack_combo re-exported
 from .ops.blur import backdrop_blur_planar
-from .ops.layout import PACKED_MODES, PACKED_WIDTH
+from .ops.layout import PACKED_WIDTH
 from .ops.mega import draw_pass_mega
 from .ops.raster import TILE_W, draw_pass_mask_prebinned, draw_pass_planar_prebinned
 from .plan import meta_rows
 from .tape import FRAME_TARGET
-
-# k/255 as float32, computed on the host once: a division on the device may
-# be rewritten into a multiply by 1/255, which is 1 ULP off the walk's own
-# quantization (c/255.0f) and breaks the bit-exact decode
-_U8_LUT = np.arange(256, dtype=np.float32) / np.float32(255.0)
-
-
-def unpack_combo(rows: torch.Tensor):
-    """Inverse of the packed wire layout: (N, PACKED_WIDTH) f32 rows ->
-    ((N, 68) f32 fields, (N, 2) i32 modes), bit-identical to the pre-pack
-    tape. Colors ride as six u8x4 words; each byte goes through the k/255
-    table."""
-    n = rows.shape[0]
-    words = rows[:, 16:22].contiguous().view(torch.int32)
-    bytes_ = torch.stack(
-        [(words >> (8 * k)) & 0xFF for k in range(4)], dim=2
-    )  # (N, 6, 4): word w byte k = logical color col 16 + 4w + k
-    lut = torch.from_numpy(_U8_LUT).to(rows.device)
-    colors = lut[bytes_.reshape(n, 24).long()]
-    fields = torch.cat([rows[:, :16], colors, rows[:, 22:50]], dim=1)
-    modes = rows[:, PACKED_MODES : PACKED_MODES + 2].contiguous().view(torch.int32)
-    return fields, modes
-
 
 def _init_planes(combo_clear, init_frame, has_init_frame: bool, height: int,
                  width: int, ph: int, pw: int):
@@ -120,7 +99,6 @@ def get_frame_executor(structure: Tuple, height: int, width: int,
             items: Optional[np.ndarray] = None,
             radii: Optional[np.ndarray] = None) -> torch.Tensor:
         dev = combo.device
-        fields, modes = unpack_combo(combo[:-rows])
         if rolled:
             if isinstance(items, np.ndarray):
                 items = torch.from_numpy(items).to(dev)
@@ -151,9 +129,10 @@ def get_frame_executor(structure: Tuple, height: int, width: int,
             if rows_at is None:
                 rows_at = frame_rows[dev] = torch.tensor(frame_pos, device=dev)
             run_bounds = bounds.index_select(0, rows_at)
-        tile_idx, tile_counts = bin_quads(
-            fields, 0, fields.shape[0], tiles_y, tiles_x, th, tw,
-            modes=modes if frame_pos else None, run_bounds=run_bounds,
+        n = combo.shape[0] - rows
+        fields, modes, tile_idx, tile_counts = decode_and_bin(
+            combo[:n], 0, n, tiles_y, tiles_x, th, tw, cull=bool(frame_pos),
+            run_bounds=run_bounds,
         )
 
         flags = dict(tile_h=th, pixelate=pixelate,
@@ -203,12 +182,12 @@ def get_mega_executor(height: int, width: int, n_masks: int,
     def run(combo: torch.Tensor, init_frame=None, atlas=None,
             pixelate: bool = False, subpixel_positioning: bool = False,
             draw=draw_pass_mega) -> torch.Tensor:
-        fields, modes = unpack_combo(combo[:-1])
         planes = _init_planes(combo[-1, 0:4], init_frame, has_init_frame,
                               height, width, ph, pw)
         # no culling: a mask write or a clear never truncates a list
-        tile_idx, tile_counts = bin_quads(fields, 0, fields.shape[0], tiles_y,
-                                          tiles_x, th, tw)
+        n = combo.shape[0] - 1
+        fields, modes, tile_idx, tile_counts = decode_and_bin(
+            combo[:n], 0, n, tiles_y, tiles_x, th, tw)
         planes = draw(fields, modes, tile_idx, tile_counts, planes, n_masks,
                       tile_h=th, atlas=atlas, pixelate=pixelate,
                       subpixel_positioning=subpixel_positioning)
@@ -217,12 +196,19 @@ def get_mega_executor(height: int, width: int, n_masks: int,
     return run
 
 
+def _aligned(words: int) -> int:
+    """words rounded up to whole 16-byte units: every buffer of a batch
+    stack starts at a 16-byte address, as the front kernel reads its rows."""
+    return -(-words // 4) * 4
+
+
 class BatchStack:
     """The varying buffers of a group of batched frames (the JAX package's
     stacked `lax.map` operands, executor.get_batch_runner): one (chunk, L)
-    f32 host row a frame, each named buffer flattened end to end into it
-    (an int32 buffer as its bits). A frame's buffers are copied in when it
-    is added, so a pooled walk buffer is free again at once; the group goes
+    f32 host row a frame, each named buffer flattened into it from a
+    16-byte boundary (an int32 buffer as its bits). A frame's buffers are
+    copied in when it is added, so a pooled walk buffer is free again at
+    once; the group goes
     to the device as one (F, L) upload (`upload`), and `frame` gives frame
     f's buffers back as views of that one tensor, in their own shapes and
     dtypes."""
@@ -235,8 +221,8 @@ class BatchStack:
                 raise ValueError(f"batch buffer {name!r} has dtype {arr.dtype}")
             self.layout.append((name, arr.shape, arr.dtype == np.int32, at,
                                 at + arr.size))
-            at += arr.size
-        self.host = np.empty((chunk, at), np.float32)
+            at = _aligned(at + arr.size)
+        self.host = np.zeros((chunk, at), np.float32)
         self.count = 0
         self.add(buffers)
 

@@ -1,19 +1,32 @@
-"""Tile binning: map quad AABBs to per-tile draw-ordered index lists
-(figdraw_tpu/ops/binning.py:33-213, which the JAX package leaves to XLA).
+"""The frame's device front end: the wire decode and the tile binning, which
+maps quad AABBs to per-tile draw-ordered index lists (figdraw_tpu/executor.py
+`unpack_combo_device` :181 and figdraw_tpu/ops/binning.py:33-213, which the
+JAX package leaves to XLA).
 
-`bin_quads` runs csrc/binning.cu, a hand-written kernel for Hopper
-(sm_90a), on CUDA tensors (or raises); CPU tensors take `bin_quads_plain`,
-the plain torch version, which the CPU tests and the on-card comparison
-use: a (T, N) intersection mask from the tape's bboxes, opaque-occlusion
-and saturation culling on it, then one argsort per tile row. The sort keys
-are unique (intersecting quads keep their index, the rest index + N), so
-any sort gives exactly the JAX reference's lists and counts.
+On CUDA tensors each entry point runs csrc/binning.cu, hand-written kernels
+for Hopper (sm_90a), or raises; CPU tensors take the plain torch versions,
+which the CPU tests and the on-card comparison use:
 
-`bin_quads_model` is the kernel's decomposition in numpy (one lower bound
-per tile and run, then an ordered compaction with no sort), which the CPU
-tests hold to the JAX reference; its `borderline` mask marks the quads
-whose saturation cut no two summation orders need agree on, and
-`list_differences` compares two binnings outside them.
+- `decode_and_bin`, the executors' call: the packed upload rows decoded and
+  binned in two launches, the front kernel (the decode fused with the
+  binning's per-quad terms) and the tile kernel. Its plain version is
+  `unpack_combo_plain` followed by `bin_quads_plain`.
+- `unpack_combo`, the decode alone (one launch of the front kernel);
+  `unpack_combo_plain` is the JAX reference's ops.
+- `bin_quads`, the binning of decoded fields (a prepass and the tile
+  kernel); `bin_quads_plain` builds a (T, N) intersection mask from the
+  bboxes, culls it for opaque occlusion and saturation, then sorts each
+  tile row. The sort keys are unique (intersecting quads keep their index,
+  the rest index + N), so any sort gives exactly the JAX reference's lists
+  and counts.
+
+`bin_quads_model` is the kernels' decomposition in numpy (each quad's bbox
+as an int16 tile range that sets its bit in each tile it meets, one lower
+bound per tile and run from the covers among those bits, then an ordered
+compaction with no sort), which the CPU tests hold to the JAX reference;
+its `borderline` mask marks the quads whose saturation cut no two summation
+orders need agree on, and `list_differences` compares two binnings outside
+them.
 """
 
 from __future__ import annotations
@@ -26,9 +39,10 @@ import torch
 
 from . import nvcc
 from .layout import (
-    QF_AA, QF_BBOX_X0, QF_BBOX_X1, QF_BBOX_Y0, QF_BBOX_Y1, QF_COLOR0,
-    QF_INV_B, QF_INV_C, QF_MID_COLOR, QF_PARAMS, QF_RADII, QF_RECT_PARAMS,
-    QF_STOP_COLOR, QF_WIDTH, QI_MASK, QI_MODE, QI_WIDTH,
+    PACKED_MODES, PACKED_WIDTH, QF_AA, QF_BBOX_X0, QF_BBOX_X1, QF_BBOX_Y0,
+    QF_BBOX_Y1, QF_COLOR0, QF_INV_B, QF_INV_C, QF_MID_COLOR, QF_PARAMS,
+    QF_RADII, QF_RECT_PARAMS, QF_STOP_COLOR, QF_WIDTH, QI_MASK, QI_MODE,
+    QI_WIDTH,
 )
 
 # Translucent-stack saturation culling engages only on dense tapes (padded
@@ -46,16 +60,25 @@ LOG2_SAT_EPS = -11.0
 SAT_BORDER = 1e-3
 SAT_BORDER_REL = 2.0 ** -16
 # what one launch of the kernel takes (csrc/binning.cu): the frame runs it
-# keeps in shared memory, and the quads whose kept bits fit there
+# keeps in shared memory, the quads whose kept bits fit there, and the
+# tiles an int16 tile range can name
 MAX_RUNS = 64
 MAX_QUADS = 1 << 20
+MAX_TILES = 32767
 
-# kernel launches since the count was last reset: two a binning, the
-# prepass and the tile kernel, from one call of the C entry point (the tile
-# kernel alone for a tape of no rows)
+# kernel launches since the count was last reset. LAUNCHES: the binning's,
+# the tile kernel once a binning, and for `bin_quads` also its prepass (two
+# a call; the tile kernel alone for a tape of no rows). DECODE_LAUNCHES:
+# the front kernel's (the decode, fused with the binning's per-quad terms
+# in `decode_and_bin`), one a call of `decode_and_bin` or `unpack_combo`
+# with rows
 LAUNCHES = 0
+DECODE_LAUNCHES = 0
+# calls of the plain versions, on any device: a card's frames make none
+PLAIN_DECODES = 0
+PLAIN_BINNINGS = 0
 
-_SOURCES = ("binning.cu",)
+_SOURCES = ("binning.cu", "decode.cuh")
 
 _lock = threading.Lock()
 _lib = None
@@ -72,15 +95,188 @@ def load() -> ctypes.CDLL:
             vp, i = ctypes.c_void_p, ctypes.c_int
             lib.figdraw_bin_quads.argtypes = ([vp] * 4 + [i, i, vp] + [i] * 8
                                               + [vp] * 4)
-            lib.figdraw_bin_quads.restype = i
+            lib.figdraw_decode_and_bin.argtypes = ([vp, i, vp, vp, vp, vp, i, i, i, vp]
+                                                   + [i] * 7 + [vp] * 4 + [i])
+            lib.figdraw_decode.argtypes = [vp, i, vp, vp, vp]
+            for fn in (lib.figdraw_bin_quads, lib.figdraw_decode_and_bin,
+                       lib.figdraw_decode):
+                fn.restype = i
             _lib = lib
         return _lib
+
+
+# k/255 as float32, computed on the host once: a division on the device may
+# be rewritten into a multiply by 1/255, which is 1 ULP off the walk's own
+# quantization (c/255.0f) and breaks the bit-exact decode
+_U8_LUT = np.arange(256, dtype=np.float32) / np.float32(255.0)
+
+
+def unpack_combo_plain(rows: torch.Tensor):
+    """The plain torch version of unpack_combo (any device): the JAX
+    reference's ops (executor.unpack_combo_device), each colour byte
+    through the k/255 table."""
+    global PLAIN_DECODES
+    PLAIN_DECODES += 1
+    n = rows.shape[0]
+    words = rows[:, 16:22].contiguous().view(torch.int32)
+    bytes_ = torch.stack(
+        [(words >> (8 * k)) & 0xFF for k in range(4)], dim=2
+    )  # (N, 6, 4): word w byte k = logical color col 16 + 4w + k
+    lut = torch.from_numpy(_U8_LUT).to(rows.device)
+    colors = lut[bytes_.reshape(n, 24).long()]
+    fields = torch.cat([rows[:, :16], colors, rows[:, 22:50]], dim=1)
+    modes = rows[:, PACKED_MODES : PACKED_MODES + 2].contiguous().view(torch.int32)
+    return fields, modes
+
+
+def _check_rows(rows) -> None:
+    """The packed rows a front-kernel launch reads as 16-byte words: a
+    contiguous (N, PACKED_WIDTH) float32 tensor at a 16-byte address (a row
+    view of an upload or of a batch stack is one); anything else raises, it
+    is never copied."""
+    if (rows.dtype != torch.float32 or rows.dim() != 2
+            or rows.shape[1] != PACKED_WIDTH or not rows.is_contiguous()):
+        raise ValueError(f"rows must be contiguous (N, {PACKED_WIDTH}) float32, got "
+                         f"{rows.dtype} {tuple(rows.shape)}")
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must start at a 16-byte address (the kernel reads "
+                         "them as 16-byte words)")
+    if rows.shape[0] > MAX_QUADS:
+        raise ValueError(f"{rows.shape[0]} rows are more than one launch's MAX_QUADS = "
+                         f"{MAX_QUADS}")
+
+
+def unpack_combo(rows: torch.Tensor):
+    """Inverse of the packed wire layout: (N, PACKED_WIDTH) f32 rows ->
+    ((N, 68) f32 fields, (N, 2) i32 modes), bit-identical to the pre-pack
+    tape. Colors ride as six u8x4 words; each byte decodes to k/255.
+
+    On CUDA tensors one launch of csrc/binning.cu's front kernel (a
+    ValueError for rows it does not take, see _check_rows; a RuntimeError
+    if the launch fails); CPU tensors take unpack_combo_plain; any other
+    device raises ValueError."""
+    if rows.device.type == "cpu":
+        return unpack_combo_plain(rows)
+    if rows.device.type != "cuda":
+        raise ValueError(f"no decode kernel for {rows.device}")
+    _check_rows(rows)
+    n = rows.shape[0]
+    fields = torch.empty((n, QF_WIDTH), dtype=torch.float32, device=rows.device)
+    modes = torch.empty((n, QI_WIDTH), dtype=torch.int32, device=rows.device)
+    if n == 0:
+        return fields, modes
+    rc = load().figdraw_decode(rows.data_ptr(), n, fields.data_ptr(), modes.data_ptr(),
+                               torch.cuda.current_stream(rows.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decode launch failed: cudaError {rc}")
+    global DECODE_LAUNCHES
+    DECODE_LAUNCHES += 1
+    return fields, modes
+
+
+def decode_and_bin_plain(rows, start, end, tiles_y: int, tiles_x: int,
+                         tile_h: int, tile_w: int, cull: bool = False,
+                         run_bounds=None):
+    """The plain torch version of decode_and_bin (same arguments and
+    results, any device): unpack_combo_plain, then bin_quads_plain."""
+    fields, modes = unpack_combo_plain(rows)
+    tile_idx, tile_counts = bin_quads_plain(
+        fields, start, end, tiles_y, tiles_x, tile_h, tile_w,
+        modes=modes if cull else None, run_bounds=run_bounds if cull else None)
+    return fields, modes, tile_idx, tile_counts
+
+
+def decode_and_bin(rows, start, end, tiles_y: int, tiles_x: int, tile_h: int,
+                   tile_w: int, cull: bool = False, run_bounds=None, stop: int = 0):
+    """The front end of an executor run: (fields (N, 68) f32, modes (N, 2)
+    i32, tile_idx (T, N) i32, tile_counts (T,) i32) = unpack_combo(rows)
+    and bin_quads(fields, start, end, ..., modes=modes if cull, run_bounds)
+    on them, T = tiles_y * tiles_x. rows: the (N, PACKED_WIDTH) packed
+    upload rows; cull: the frame-target runs' opaque and saturation culls
+    (bin_quads' modes), run-scoped when run_bounds is given.
+
+    On CUDA tensors two launches of csrc/binning.cu: the front kernel,
+    which reads each packed row once and writes the fields, the modes and
+    the binning's per-quad terms, and the tile kernel (a ValueError for
+    arguments they do not take; a RuntimeError if a launch fails). CPU
+    tensors take decode_and_bin_plain; any other device raises ValueError.
+    stop (CUDA only, to time the tile kernel's phases): 1-3 end the tile
+    kernel after its overlap pass, its culls or its counts, 4 launches the
+    front kernel alone; the lists are then not written."""
+    if rows.device.type == "cpu":
+        return decode_and_bin_plain(rows, start, end, tiles_y, tiles_x, tile_h,
+                                    tile_w, cull=cull, run_bounds=run_bounds)
+    if rows.device.type != "cuda":
+        raise ValueError(f"no front-end kernel for {rows.device}")
+    _check_rows(rows)
+    dev = rows.device
+    n = rows.shape[0]
+    runs, n_runs = _runs_arg(run_bounds if cull else None, dev)
+    n_tiles = _tiles_arg(tiles_y, tiles_x, tile_h, tile_w)
+    start_t, start_v = _window_arg(start, dev, "start")
+    end_t, end_v = _window_arg(end, dev, "end")
+    lib = load()
+    fields = torch.empty((n, QF_WIDTH), dtype=torch.float32, device=dev)
+    modes = torch.empty((n, QI_WIDTH), dtype=torch.int32, device=dev)
+    tile_idx = torch.empty((n_tiles, n), dtype=torch.int32, device=dev)
+    tile_counts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
+    scratch = _scratch(n, n_tiles, dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = lib.figdraw_decode_and_bin(
+        rows.data_ptr(), n, fields.data_ptr(), modes.data_ptr(), ptr(start_t),
+        ptr(end_t), start_v, end_v, int(bool(cull)), ptr(runs), n_runs,
+        int(bool(cull) and run_bounds is None), tiles_y, tiles_x, tile_h, tile_w,
+        int(bool(cull) and n >= SAT_MIN_QUADS), scratch.data_ptr(),
+        tile_idx.data_ptr(), tile_counts.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, int(stop))
+    if rc != 0:
+        raise RuntimeError(f"front-end launch failed: cudaError {rc}")
+    global LAUNCHES, DECODE_LAUNCHES
+    DECODE_LAUNCHES += 1 if n > 0 else 0
+    LAUNCHES += 0 if stop == 4 else 1
+    return fields, modes, tile_idx, tile_counts
+
+
+def _scratch(n: int, n_tiles: int, dev) -> torch.Tensor:
+    """What the front end passes its tile kernel (csrc/binning.cu
+    scratch_terms): 16 bytes of cover terms a quad, the tiles' overlap bits
+    (n_tiles, 4 ceil(n / 128)) and a flag."""
+    return torch.empty((4 * n + 4 * n_tiles * ((n + 127) // 128) + 1,), dtype=torch.int32,
+                       device=dev)
+
+
+def _runs_arg(run_bounds, dev):
+    """(int32 runs on the device or None, the count) for the kernels."""
+    if run_bounds is None:
+        return None, 0
+    if (not isinstance(run_bounds, torch.Tensor) or run_bounds.device != dev
+            or run_bounds.dim() != 2 or run_bounds.shape[1] != 2
+            or run_bounds.dtype not in (torch.int32, torch.int64)):
+        raise ValueError("run_bounds must be an (R, 2) integer tensor on the "
+                         "rows' device")
+    if run_bounds.shape[0] > MAX_RUNS:
+        raise ValueError(f"{run_bounds.shape[0]} runs are more than one launch's "
+                         f"MAX_RUNS = {MAX_RUNS}")
+    return run_bounds.to(torch.int32).contiguous(), run_bounds.shape[0]
+
+
+def _tiles_arg(tiles_y: int, tiles_x: int, tile_h: int, tile_w: int) -> int:
+    """The tile count, for a grid the kernels take: at least one tile,
+    at most MAX_TILES a side (the tile ranges are int16)."""
+    if min(tiles_y, tiles_x, tile_h, tile_w) <= 0:
+        raise ValueError(f"no tiles: {tiles_y} x {tiles_x} of {tile_h} x {tile_w}")
+    if max(tiles_y, tiles_x) > MAX_TILES:
+        raise ValueError(f"{tiles_y} x {tiles_x} tiles: more than MAX_TILES = "
+                         f"{MAX_TILES} a side")
+    return tiles_y * tiles_x
 
 
 def bin_quads_plain(fields, start, end, tiles_y: int, tiles_x: int,
                     tile_h: int, tile_w: int, modes=None, run_bounds=None):
     """The plain torch version of bin_quads (same arguments and results,
     any device): the JAX reference's ops, argsort included."""
+    global PLAIN_BINNINGS
+    PLAIN_BINNINGS += 1
     dev = fields.device
     n = fields.shape[0]
     x0 = fields[:, QF_BBOX_X0]
@@ -261,10 +457,11 @@ def bin_quads(fields, start, end, tiles_y: int, tiles_x: int, tile_h: int,
     every run are never culled.
 
     On CUDA tensors this is one call of csrc/binning.cu, which launches the
-    prepass and the tile kernel (a ValueError for more than MAX_QUADS rows
-    or MAX_RUNS runs, or arguments it does not take; a RuntimeError if the
-    launch fails); CPU tensors take bin_quads_plain; any other device raises
-    ValueError.
+    prepass and the tile kernel (a ValueError for more than MAX_QUADS rows,
+    MAX_RUNS runs or MAX_TILES tiles a side, or arguments it does not take;
+    a RuntimeError if the launch fails); CPU tensors take bin_quads_plain;
+    any other device raises ValueError. The executors call decode_and_bin,
+    which decodes the packed rows on the way.
     """
     if fields.device.type == "cpu":
         return bin_quads_plain(fields, start, end, tiles_y, tiles_x, tile_h,
@@ -279,37 +476,24 @@ def bin_quads(fields, start, end, tiles_y: int, tiles_x: int, tile_h: int,
     n = fields.shape[0]
     if n > MAX_QUADS:
         raise ValueError(f"{n} rows are more than one launch's MAX_QUADS = {MAX_QUADS}")
-    if min(tiles_y, tiles_x, tile_h, tile_w) <= 0:
-        raise ValueError(f"no tiles: {tiles_y} x {tiles_x} of {tile_h} x {tile_w}")
+    n_tiles = _tiles_arg(tiles_y, tiles_x, tile_h, tile_w)
     if modes is not None and (modes.dtype != torch.int32 or modes.device != dev
                               or tuple(modes.shape) != (n, QI_WIDTH)
                               or not modes.is_contiguous()):
         raise ValueError(f"modes must be contiguous (N, {QI_WIDTH}) int32 on {dev}, "
                          f"got {modes.dtype} {tuple(modes.shape)} on {modes.device}")
-    runs, n_runs = None, 0
-    if modes is not None and run_bounds is not None:
-        if (not isinstance(run_bounds, torch.Tensor) or run_bounds.device != dev
-                or run_bounds.dim() != 2 or run_bounds.shape[1] != 2
-                or run_bounds.dtype not in (torch.int32, torch.int64)):
-            raise ValueError("run_bounds must be an (R, 2) integer tensor on the "
-                             "fields' device")
-        n_runs = run_bounds.shape[0]
-        if n_runs > MAX_RUNS:
-            raise ValueError(f"{n_runs} runs are more than one launch's MAX_RUNS = "
-                             f"{MAX_RUNS}")
-        runs = run_bounds.to(torch.int32).contiguous()
+    runs, n_runs = _runs_arg(run_bounds if modes is not None else None, dev)
     start_t, start_v = _window_arg(start, dev, "start")
     end_t, end_v = _window_arg(end, dev, "end")
     lib = load()
-    n_tiles = tiles_y * tiles_x
     tile_idx = torch.empty((n_tiles, n), dtype=torch.int32, device=dev)
     tile_counts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
-    scratch = torch.empty((10 * n,), dtype=torch.float32, device=dev)
+    scratch = _scratch(n, n_tiles, dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     rc = lib.figdraw_bin_quads(
         fields.data_ptr(), ptr(modes), ptr(start_t), ptr(end_t), start_v, end_v,
         ptr(runs), n_runs, int(modes is not None and run_bounds is None), n,
-        n_tiles, tiles_x, tile_h, tile_w,
+        tiles_y, tiles_x, tile_h, tile_w,
         int(modes is not None and n >= SAT_MIN_QUADS), scratch.data_ptr(),
         tile_idx.data_ptr(), tile_counts.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -361,71 +545,135 @@ def cover_terms(fields: np.ndarray, modes: np.ndarray):
     return cov.astype(np.float32), a_min
 
 
+def _spans(a, b, tiles: int) -> np.ndarray:
+    """The tiles t in [a, b] (float64 bounds) as (first, last) int16,
+    clamped to [0, tiles - 1]; (1, 0) when there is none (NaN included)."""
+    with np.errstate(invalid="ignore"):
+        empty = ~(a <= b) | (b < 0) | (a > tiles - 1)
+        first = np.where(empty, 1, np.clip(np.nan_to_num(a), 0, tiles - 1))
+        last = np.where(empty, 0, np.clip(np.nan_to_num(b), 0, tiles - 1))
+    return np.stack([first, last], 1).astype(np.int16)
+
+
+def tile_ranges(fields, tiles_y: int, tiles_x: int, tile_h: int, tile_w: int):
+    """Each quad's bbox as the tile range the kernels read (csrc/decode.cuh
+    bbox_tiles), (N, 4) int16 (x first, y first, x last, y last): tile
+    (tx, ty) meets the quad exactly when x0 < (tx+1) w, x1 > tx w and the
+    same in y, that is floor(x0 / w) <= tx <= ceil(x1 / w) - 1, in float64;
+    (1, 1, 0, 0) for a quad that meets no tile."""
+    f = np.asarray(fields, np.float32).astype(np.float64)
+    x = _spans(np.floor(f[:, QF_BBOX_X0] / tile_w), np.ceil(f[:, QF_BBOX_X1] / tile_w) - 1,
+               tiles_x)
+    y = _spans(np.floor(f[:, QF_BBOX_Y0] / tile_h), np.ceil(f[:, QF_BBOX_Y1] / tile_h) - 1,
+               tiles_y)
+    out = np.stack([x[:, 0], y[:, 0], x[:, 1], y[:, 1]], 1)
+    out[(out[:, 0] > out[:, 2]) | (out[:, 1] > out[:, 3])] = (1, 1, 0, 0)
+    return out
+
+
+def cover_ranges(fields, modes, tiles_y: int, tiles_x: int, tile_h: int, tile_w: int):
+    """Each quad's cover terms as the tile kernel reads them (csrc/decode.cuh
+    cover_term): ((N, 4) int16 range of the tiles its cover rectangle
+    covers, (1, 1, 0, 0) for none: cx - ihx <= tx w + 0.5 and cx + ihx >=
+    (tx+1) w - 0.5, that is ceil((cx - ihx - 0.5) / w) <= tx <=
+    floor((cx + ihx + 0.5) / w) - 1; (N,) float32 lt, 0 where the range is
+    empty; (N,) bool opaque)."""
+    cov, a_min = cover_terms(fields, modes)
+    c = cov.astype(np.float64)
+    x = _spans(np.ceil((c[:, 0] - 0.5) / tile_w), np.floor((c[:, 1] + 0.5) / tile_w) - 1,
+               tiles_x)
+    y = _spans(np.ceil((c[:, 2] - 0.5) / tile_h), np.floor((c[:, 3] + 0.5) / tile_h) - 1,
+               tiles_y)
+    rng = np.stack([x[:, 0], y[:, 0], x[:, 1], y[:, 1]], 1)
+    empty = (rng[:, 0] > rng[:, 2]) | (rng[:, 1] > rng[:, 3])
+    rng[empty] = (1, 1, 0, 0)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        lt = np.log2(np.maximum(np.float32(1.0) - a_min, np.float32(2.0 ** -24)))
+        opaque = a_min >= 1.0
+    return rng, np.where(empty, np.float32(0.0), lt).astype(np.float32), opaque & ~empty
+
+
+def _in(rng, tx: int, ty: int):
+    return (tx >= rng[:, 0]) & (tx <= rng[:, 2]) & (ty >= rng[:, 1]) & (ty <= rng[:, 3])
+
+
+def overlap_bits(rng, tiles_y: int, tiles_x: int) -> np.ndarray:
+    """The (T, N) overlap bits the front kernel scatters: each quad sets its
+    bit in every tile of its range (tile_ranges)."""
+    bits = np.zeros((tiles_y, tiles_x, rng.shape[0]), bool)
+    for i in np.flatnonzero((rng[:, 0] <= rng[:, 2]) & (rng[:, 1] <= rng[:, 3])):
+        bits[rng[i, 1] : rng[i, 3] + 1, rng[i, 0] : rng[i, 2] + 1, i] = True
+    return bits.reshape(tiles_y * tiles_x, -1)
+
+
 def bin_quads_model(fields, start: int, end: int, tiles_y: int, tiles_x: int,
                     tile_h: int, tile_w: int, modes=None, run_bounds=None):
-    """csrc/binning.cu's decomposition in numpy, on numpy arrays: per tile
-    and run r (the window when no runs are given) the last opaque cover and
-    the last saturated quad, the within-run stacks summed in float64; quad i
-    of r is kept when it is at or after the cover of the last run holding it
-    and after the cut of every run holding it; then the kept quads at their
-    prefix and the rest after them ascending. Returns (tile_idx (T, N) i32,
-    tile_counts (T,) i32, borderline (T, N) bool: the quads whose
+    """csrc/binning.cu's decomposition in numpy, on numpy arrays, from the
+    terms its front kernel writes (tile_ranges, cover_ranges): each quad
+    sets its bit in every tile its int16 range names; per tile the bits in
+    the window, then per run r (the window when no runs are given) one lower
+    bound from the covers among those bits (among every quad of the run
+    when some quad's cover range is not inside its bbox range): the last
+    opaque cover, or in the saturation tier j*, the last cover whose
+    within-run stack from itself on, summed in float64, is under
+    LOG2_SAT_EPS; quad i of r is kept at or after the bound of the last run
+    holding it (every run's, in the saturation tier); then the kept quads at
+    their prefix and the rest after them ascending. Returns (tile_idx (T, N)
+    i32, tile_counts (T,) i32, borderline (T, N) bool: the quads whose
     within-run above-stack lies within SAT_BORDER + SAT_BORDER_REL * |S| of
     LOG2_SAT_EPS, S the stack of the window's covers from the quad on)."""
     f = np.asarray(fields, np.float32)
     n = f.shape[0]
     n_tiles = tiles_y * tiles_x
     idx = np.arange(n)
-    tx0 = np.tile(np.arange(tiles_x, dtype=np.float32) * np.float32(tile_w), tiles_y)
-    ty0 = np.repeat(np.arange(tiles_y, dtype=np.float32) * np.float32(tile_h), tiles_x)
-    tx1, ty1 = tx0 + np.float32(tile_w), ty0 + np.float32(tile_h)
-    keep = ((f[None, :, QF_BBOX_X0] < tx1[:, None]) & (f[None, :, QF_BBOX_X1] > tx0[:, None])
-            & (f[None, :, QF_BBOX_Y0] < ty1[:, None]) & (f[None, :, QF_BBOX_Y1] > ty0[:, None])
-            & ((idx >= start) & (idx < end))[None, :])
+    w_lo, w_hi = max(start, 0), min(end, n)
+    window = (idx >= w_lo) & (idx < w_hi)
+    rng = tile_ranges(f, tiles_y, tiles_x, tile_h, tile_w)
+    keep = overlap_bits(rng, tiles_y, tiles_x) & window[None, :]
     borderline = np.zeros((n_tiles, n), bool)
     if modes is not None:
-        cov, a_min = cover_terms(f, modes)
-        opaque = a_min >= 1.0
-        with np.errstate(invalid="ignore", divide="ignore"):
-            lt = np.log2(np.maximum(np.float32(1.0) - a_min, np.float32(2.0 ** -24))
-                         .astype(np.float64))
+        crng, lt, opaque = cover_ranges(f, modes, tiles_y, tiles_x, tile_h, tile_w)
+        outside = ((crng[:, 0] <= crng[:, 2])
+                   & ((crng[:, 0] < rng[:, 0]) | (crng[:, 2] > rng[:, 2])
+                      | (crng[:, 1] < rng[:, 1]) | (crng[:, 3] > rng[:, 3]))).any()
         saturate = n >= SAT_MIN_QUADS
         runs = ([(start, end)] if run_bounds is None
                 else [tuple(int(v) for v in r) for r in np.asarray(run_bounds)])
-        thr = np.full((n_tiles, n), -1, np.int64)
-        satlo = np.zeros((n_tiles, n), np.int64)
-
-        def covers_of(lo, hi):  # (T, hi - lo): quad lo + j covers tile t
-            c = cov[lo:hi]
-            return ((c[None, :, 0] <= (tx0 + np.float32(0.5))[:, None])
-                    & (c[None, :, 1] >= (tx1 - np.float32(0.5))[:, None])
-                    & (c[None, :, 2] <= (ty0 + np.float32(0.5))[:, None])
-                    & (c[None, :, 3] >= (ty1 - np.float32(0.5))[:, None]))
-
-        row_suf = np.zeros((n_tiles, n))  # the window's stack from each quad on
-        w_lo, w_hi = max(start, 0), min(end, n)
-        if saturate and w_lo < w_hi:
-            terms = np.where(covers_of(w_lo, w_hi), lt[w_lo:w_hi], 0.0)
-            row_suf[:, w_lo:w_hi] = np.cumsum(terms[:, ::-1], axis=1)[:, ::-1]
-        for s_r, e_r in runs:
-            lo, hi = max(s_r, start, 0), min(e_r, end, n)
-            if lo >= hi:
-                continue
-            covers = covers_of(lo, hi)
-            seg = idx[lo:hi]
-            cover = np.where(covers & opaque[lo:hi], seg, -1).max(1)
-            cut = np.full(n_tiles, -1)
-            if saturate:
-                terms = np.where(covers, lt[lo:hi], 0.0)
-                above = np.zeros_like(terms)  # sum over the run strictly above
-                above[:, :-1] = np.cumsum(terms[:, ::-1], axis=1)[:, ::-1][:, 1:]
-                with np.errstate(invalid="ignore"):
-                    cut = np.where(~(above >= LOG2_SAT_EPS), seg, -1).max(1)
-                    borderline[:, lo:hi] |= np.abs(above - LOG2_SAT_EPS) < (
-                        SAT_BORDER + SAT_BORDER_REL * np.abs(row_suf[:, lo:hi]))
-            thr[:, lo:hi] = cover[:, None]
-            satlo[:, lo:hi] = np.maximum(satlo[:, lo:hi], cut[:, None] + 1)
-        keep &= (idx[None, :] >= thr) & (idx[None, :] >= satlo)
+        for t in range(n_tiles):
+            ty, tx = divmod(t, tiles_x)
+            bits = keep[t]
+            covers = _in(crng, tx, ty) & window
+            thr = np.full(n, -1)
+            for s_r, e_r in runs:
+                lo, hi = max(s_r, w_lo), min(e_r, w_hi)
+                if lo >= hi:
+                    continue
+                seg = np.arange(lo, hi)
+                cand = np.ones(hi - lo, bool) if outside else bits[lo:hi]
+                cov_r = cand & covers[lo:hi]
+                if saturate:
+                    terms = np.where(cov_r, lt[lo:hi].astype(np.float64), 0.0)
+                    stack = np.cumsum(terms[::-1])[::-1]  # from each quad on
+                    with np.errstate(invalid="ignore"):
+                        under = cov_r & ~(stack >= LOG2_SAT_EPS)
+                    bound = seg[under].max() if under.any() else -1
+                    thr[lo:hi] = np.maximum(thr[lo:hi], bound)
+                else:
+                    opq = cov_r & opaque[lo:hi]
+                    thr[lo:hi] = seg[opq].max() if opq.any() else -1
+            keep[t] = bits & (idx >= thr)
+            if saturate and w_lo < w_hi:
+                terms = np.where(covers, lt.astype(np.float64), 0.0)
+                row_suf = np.cumsum(terms[::-1])[::-1]  # the window's stack
+                for s_r, e_r in runs:
+                    lo, hi = max(s_r, w_lo), min(e_r, w_hi)
+                    if lo >= hi:
+                        continue
+                    above = np.zeros(hi - lo)  # the run's stack strictly above
+                    above[:-1] = np.cumsum(terms[lo:hi][::-1])[::-1][1:]
+                    with np.errstate(invalid="ignore"):
+                        borderline[t, lo:hi] |= np.abs(above - LOG2_SAT_EPS) < (
+                            SAT_BORDER + SAT_BORDER_REL * np.abs(row_suf[lo:hi]))
     counts = keep.sum(1)
     prefix = np.cumsum(keep, axis=1) - keep
     pos = np.where(keep, prefix, counts[:, None] + idx[None, :] - prefix)

@@ -38,7 +38,9 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import os
+import struct
 import threading
+import zlib
 from dataclasses import dataclass
 from typing import Hashable, Optional
 
@@ -50,7 +52,7 @@ from .atlas import Atlas, AtlasEntryMeta
 from .basics import fig_ui_scale, scaled
 from .colors import Color, as_color
 from .config import (
-    batch_chunk, runtime_text_lcd_filtering_requested,
+    batch_chunk, runtime_text_lcd_filtering_requested, test_one_frame_path,
     runtime_text_subpixel_glyph_variants_requested,
     runtime_text_subpixel_positioning_requested,
 )
@@ -198,6 +200,7 @@ class FigRenderer:
         self._image_owners: dict = {}
         self._font_owners: dict = {}
         self.last_frame = None  # (H, W, 4) f32 tensor of the last render
+        self._one_frame_written = False  # FIGDRAW_TEST_ONE_FRAME, once a renderer
         self._atlas_device = None
         # the device atlas was handed to work that has not run yet (an async
         # job, a batch group): the next patch goes into a copy
@@ -689,6 +692,7 @@ class FigRenderer:
         self.process_image_messages()
         frame = self.execute_plan(self._walk_plan(renders, fs, clear_main, clear_color))
         self.publish_atlas_usage()
+        self._maybe_write_one_frame()
         return frame
 
     # --- the async pipeline ----------------------------------------------------
@@ -824,6 +828,7 @@ class FigRenderer:
         else:
             out = parts[0] if len(parts) == 1 else torch.cat(parts)
             self.last_frame = out[-1]
+            self._maybe_write_one_frame()
         return frames_to_u8(out) if as_uint8 else out
 
     def _batch_signature(self, plan: ExecPlan):
@@ -1132,6 +1137,17 @@ class FigRenderer:
             out[i] = frames_to_u8(frame) if as_uint8 else frame
         return out
 
+    def _maybe_write_one_frame(self) -> None:
+        """FIGDRAW_TEST_ONE_FRAME: write the first frame as a PNG, once a
+        renderer (renderer.py:2036-2050; after render_frame and render_batch,
+        the batch's last frame)."""
+        if self._one_frame_written:
+            return
+        self._one_frame_written = True
+        path = test_one_frame_path()
+        if path:
+            write_png(path, self.take_screenshot())
+
     def take_screenshot(self, frame=None, frame_rect=None) -> np.ndarray:
         """The frame as uint8 RGBA (renderer.py:2193). frame_rect: optional
         (x, y, w, h) crop in pixels, clamped to the frame."""
@@ -1152,6 +1168,28 @@ def _needs_atlas(plan: ExecPlan) -> bool:
     if plan.mega_combo is not None:
         return plan.mega_atlas
     return any(item[0] == "draw" and item[2] for item in plan.structure)
+
+
+def write_png(path: str, rgba: np.ndarray) -> None:
+    """An (H, W, 4) uint8 RGBA image as a PNG file: 8 bits a channel,
+    colour type 6, every row filter 0 (none), one zlib stream, the chunks'
+    CRCs by zlib.crc32."""
+    rgba = np.ascontiguousarray(rgba, dtype=np.uint8)
+    h, w, c = rgba.shape
+    if c != 4:
+        raise ValueError(f"write_png takes (H, W, 4) RGBA, got {rgba.shape}")
+    raw = np.zeros((h, 1 + 4 * w), np.uint8)
+    raw[:, 1:] = rgba.reshape(h, 4 * w)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n"
+                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+                 + chunk(b"IEND", b""))
 
 
 def frames_to_u8(frames: torch.Tensor) -> torch.Tensor:

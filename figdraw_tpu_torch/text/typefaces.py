@@ -22,6 +22,7 @@ from typing import Dict, List, Optional, Tuple
 
 from ..config import fig_data_dir, set_fig_data_dir  # noqa: F401 - re-exported
 from .otf import VARIATIONS_NOT_PORTED, OTFont, collection_size
+from . import scripts
 
 TypefaceId = int
 FontId = int
@@ -337,11 +338,13 @@ def font_fallback_resolver():
 
 
 def script_of_codepoint(cp: int) -> str:
-    """Four-letter script tag for a codepoint, a hint the fallback resolver
-    requests carry. The JAX package reads it from fontTools' Unicode data;
-    the port carries none, so it is "" (the contract's value where that
-    data is absent)."""
-    return ""
+    """Four-letter script tag for a codepoint (resolver requests carry it so
+    CJK/Indic resolvers can pick per-script faces), from the port's copy of
+    fontTools' Unicode script table (text/scripts.py); "" for a value that
+    is no codepoint, as the reference gives for what chr() refuses."""
+    if not 0 <= cp <= 0x10FFFF:
+        return ""
+    return scripts.script(cp)
 
 
 # --- system font discovery (extras/systemfonts.nim) --------------------------------

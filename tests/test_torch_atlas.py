@@ -27,7 +27,7 @@ from figdraw_tpu.resources import (
 from figdraw_tpu_torch import executor
 from figdraw_tpu_torch.atlas import Atlas, AtlasEntryMeta
 from figdraw_tpu_torch.ops import raster
-from figdraw_tpu_torch.ops.binning import bin_quads
+from figdraw_tpu_torch.ops.binning import bin_quads, decode_and_bin
 from figdraw_tpu_torch.ops.quad_eval_planar import eval_quad_planar
 from figdraw_tpu_torch.plan import atlas_from_jax, from_jax_plan, plan_execution
 from figdraw_tpu_torch.resources import (
@@ -375,10 +375,10 @@ def test_images_mixed_binning_matches_prebin(monkeypatch):
     seen = {}
 
     def spy(*args, **kw):
-        seen["lists"] = bin_quads(*args, **kw)
+        seen["lists"] = decode_and_bin(*args, **kw)[2:]
         raise _Binned
 
-    monkeypatch.setattr(executor, "bin_quads", spy)
+    monkeypatch.setattr(executor, "decode_and_bin", spy)
     run = executor.get_frame_executor(plan.structure, 1080, 1920, 1, False,
                                       plan.tile_h)
     with pytest.raises(_Binned):

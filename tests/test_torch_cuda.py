@@ -20,9 +20,10 @@ from figdraw_tpu_torch.executor import (
 from figdraw_tpu_torch import executor
 from figdraw_tpu_torch.ops import binning, blur, mega, raster, rows
 from figdraw_tpu_torch.ops.binning import (
-    MAX_RUNS, bin_quads, bin_quads_model, bin_quads_plain, lists_equal,
+    MAX_RUNS, bin_quads, bin_quads_model, bin_quads_plain, decode_and_bin,
+    decode_and_bin_plain, lists_equal, unpack_combo, unpack_combo_plain,
 )
-from figdraw_tpu_torch.ops.layout import QF_WIDTH, QI_MODE
+from figdraw_tpu_torch.ops.layout import PACKED_WIDTH, QF_WIDTH, QI_MODE, pack_fields_np
 from figdraw_tpu_torch.plan import atlas_from_jax, plan_execution, plan_rolled
 from figdraw_tpu_torch.resources import ImageMessageBus, put_image
 from figdraw_tpu_torch.scenes import (
@@ -753,13 +754,16 @@ def test_frames_with_the_binning_kernel_equal_the_plain_binnings(kind, dev, monk
         scene, size = make_render_tree_array(1920, 1080, 3, copies=100), vec2(1920, 1080)
     else:
         scene, size = make_clip_table_scene("rectmask", 1200, 800, 180, 6), vec2(1200, 800)
-    before = binning.LAUNCHES
+    before = (binning.LAUNCHES, binning.DECODE_LAUNCHES, binning.PLAIN_DECODES,
+              binning.PLAIN_BINNINGS)
     got = FigRenderer(device="cuda").render_frame(scene, size)
-    assert binning.LAUNCHES == before + 2  # one binning: the prepass and the tiles
-    monkeypatch.setattr(executor, "bin_quads", bin_quads_plain)
+    # one front end: the front kernel and the tile kernel, nothing plain
+    assert (binning.LAUNCHES, binning.DECODE_LAUNCHES, binning.PLAIN_DECODES,
+            binning.PLAIN_BINNINGS) == (before[0] + 1, before[1] + 1, *before[2:])
+    monkeypatch.setattr(executor, "decode_and_bin", decode_and_bin_plain)
     want = FigRenderer(device="cuda").render_frame(scene, size)
     torch.cuda.synchronize()
-    assert binning.LAUNCHES == before + 2
+    assert (binning.LAUNCHES, binning.DECODE_LAUNCHES) == (before[0] + 1, before[1] + 1)
     assert torch.equal(got, want)
 
 
@@ -786,6 +790,163 @@ def test_binning_wrapper_rejects_bad_arguments(dev):
     with pytest.raises(ValueError):
         bin_quads(fd, 0, 256, 0, 3, 128, 128)
     assert binning.LAUNCHES == before
+
+
+# --- the front end: the decode fused with the binning's terms, then the tiles ----
+
+
+def _words(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 1025, 32769])
+def test_decode_kernel_equals_the_plain_decode_bit_for_bit(n, dev):
+    """Random packed rows (every float lane random bits, NaN payloads and
+    -0.0 included; colour words random bytes): the decode kernel's fields
+    and modes equal the plain decode's as 32-bit words, alone and fused."""
+    rng = np.random.RandomState(n)
+    rows = torch.from_numpy(rng.randint(-2**31, 2**31, size=(n, PACKED_WIDTH),
+                                        dtype=np.int64).astype(np.int32).view(np.float32)).to(dev)
+    before = (binning.DECODE_LAUNCHES, binning.PLAIN_DECODES)
+    f, m = unpack_combo(rows)
+    assert (binning.DECODE_LAUNCHES, binning.PLAIN_DECODES) == (before[0] + 1, before[1])
+    pf, pm = unpack_combo_plain(rows)
+    torch.cuda.synchronize()
+    assert f.shape == (n, QF_WIDTH) and m.dtype == torch.int32
+    assert torch.equal(_words(f), _words(pf)) and torch.equal(m, pm)
+    ff, fm, _idx, _counts = decode_and_bin(rows, 0, n, 3, 4, 64, 128, cull=True)
+    torch.cuda.synchronize()
+    assert torch.equal(_words(ff), _words(pf)) and torch.equal(fm, pm)
+
+
+@pytest.mark.parametrize("case", range(len(BIN_CASES)))
+def test_front_end_kernels_match_the_plain_front_end(case, dev):
+    """decode_and_bin on the packed rows of BIN_CASES' tapes: fields and
+    modes equal the plain decode's as words, and the whole lists and counts
+    equal the plain binning's outside the borderline quads; two launches."""
+    n, n_live, sat, w, h, th, window, with_modes, runs, on_device = BIN_CASES[case]
+    f, m = binning_tape(n, n_live, 100 + case, sat=sat, w=w, h=h)
+    rows_np = pack_fields_np(f, m)
+    start, end = window or (0, n)
+    grid = (-(-h // th), -(-w // 128), th, 128)
+    rows = torch.from_numpy(rows_np).to(dev)
+    kw = dict(cull=with_modes,
+              run_bounds=None if runs is None else torch.tensor(runs, dtype=torch.int32,
+                                                                  device=dev))
+    s, e = ((torch.tensor(start, device=dev), torch.tensor(end, device=dev))
+            if on_device else (start, end))
+    before = (binning.LAUNCHES, binning.DECODE_LAUNCHES)
+    got = decode_and_bin(rows, s, e, *grid, **kw)
+    assert (binning.LAUNCHES, binning.DECODE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    want = decode_and_bin_plain(rows, s, e, *grid, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_words(got[0]), _words(want[0])) and torch.equal(got[1], want[1])
+    fields = want[0].cpu().numpy()
+    _idx, _counts, border = bin_quads_model(fields, start, end, *grid,
+                                            modes=m if with_modes else None,
+                                            run_bounds=runs)
+    assert border.sum() <= 64
+    assert lists_equal(got[2].cpu().numpy(), got[3].cpu().numpy(),
+                       want[2].cpu().numpy(), want[3].cpu().numpy(), border)
+    # and the binning of decoded fields agrees with the fused front end
+    alone = bin_quads(got[0], s, e, *grid, modes=got[1] if with_modes else None,
+                      run_bounds=kw["run_bounds"])
+    torch.cuda.synchronize()
+    assert torch.equal(alone[0], got[2]) and torch.equal(alone[1], got[3])
+
+
+@pytest.mark.parametrize("cull", [False, True])
+def test_front_end_past_the_staged_tiles(cull, dev):
+    """More tiles than a front-kernel block stages in shared memory (80 x 60
+    tiles of 128 x 32): the bits are ORed in device memory, and the lists
+    still equal the plain front end's."""
+    w, h, th = 80 * 128, 60 * 32, 32
+    f, m = binning_tape(2048, 1900, 11, w=w, h=h)
+    rows = torch.from_numpy(pack_fields_np(f, m)).to(dev)
+    grid = (h // th, w // 128, th, 128)
+    got = decode_and_bin(rows, 0, 2048, *grid, cull=cull)
+    want = decode_and_bin_plain(rows, 0, 2048, *grid, cull=cull)
+    torch.cuda.synchronize()
+    assert torch.equal(_words(got[0]), _words(want[0])) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    assert int(got[3].sum()) > 0
+
+
+def test_front_end_walks_every_quad_for_a_cover_outside_its_bbox(dev):
+    """A quad whose cover rectangle reaches past its bbox (the walks never
+    write one) covers tiles it does not meet: the front kernel flags it and
+    the tile kernel's walk visits every quad of the run; the lists equal
+    the plain front end's, with and without saturation."""
+    from figdraw_tpu_torch.ops.binning import cover_ranges
+    from figdraw_tpu_torch.ops.layout import QF_BBOX_X0, QF_BBOX_X1
+
+    for n, sat in ((640, False), (4608, True)):
+        f, m = binning_tape(n, n - 64, 7, sat=sat, w=1024, h=512)
+        crng = cover_ranges(f, m, 8, 8, 64, 128)[0]
+        for i in np.flatnonzero(crng[:, 0] < crng[:, 2])[:5]:
+            cx = (f[i, QF_BBOX_X0] + f[i, QF_BBOX_X1]) * np.float32(0.5)
+            f[i, QF_BBOX_X0], f[i, QF_BBOX_X1] = cx - np.float32(1), cx + np.float32(1)
+        rows = torch.from_numpy(pack_fields_np(f, m)).to(dev)
+        runs = torch.tensor([[0, n // 2], [n // 2, n]], dtype=torch.int32, device=dev)
+        got = decode_and_bin(rows, 0, n, 8, 8, 64, 128, cull=True, run_bounds=runs)
+        want = decode_and_bin_plain(rows, 0, n, 8, 8, 64, 128, cull=True, run_bounds=runs)
+        torch.cuda.synchronize()
+        fields = want[0].cpu().numpy()
+        _idx, _counts, border = bin_quads_model(fields, 0, n, 8, 8, 64, 128, modes=m,
+                                                run_bounds=runs.cpu().numpy())
+        assert lists_equal(got[2].cpu().numpy(), got[3].cpu().numpy(),
+                           want[2].cpu().numpy(), want[3].cpu().numpy(), border)
+
+
+def test_front_end_phase_stops_launch_and_leave_the_counts(dev):
+    """stop 1-4 (the phase timings) launch and return; stop 3 writes the
+    counts the full run writes."""
+    f, m = binning_tape(32769, 28006, 7, sat=True, w=1920, h=1080)
+    rows = torch.from_numpy(pack_fields_np(f, m)).to(dev)
+    args = (rows, 0, 32769, 34, 15, 32, 128)
+    runs = torch.tensor([[0, 28003], [28003, 28006]], dtype=torch.int32, device=dev)
+    full = decode_and_bin(*args, cull=True, run_bounds=runs)
+    for stop in (1, 2, 3, 4):
+        out = decode_and_bin(*args, cull=True, run_bounds=runs, stop=stop)
+        torch.cuda.synchronize()
+        if stop == 3:
+            assert torch.equal(out[3], full[3])
+
+
+def test_front_end_rejects_rows_it_does_not_take(dev):
+    rows = torch.zeros((65, PACKED_WIDTH), dtype=torch.float32, device=dev)
+    before = (binning.LAUNCHES, binning.DECODE_LAUNCHES)
+    for bad in (rows.double(), rows[:, :50], rows[::2], rows.view(-1)[1:1 + 64 * 52]
+                .view(64, 52)):
+        with pytest.raises(ValueError):
+            decode_and_bin(bad, 0, bad.shape[0], 2, 2, 64, 128)
+        with pytest.raises(ValueError):
+            unpack_combo(bad)
+    with pytest.raises(ValueError):
+        decode_and_bin(rows, 0, 65, 1, 40000, 64, 128)
+    with pytest.raises(ValueError):
+        decode_and_bin(rows, 0, 65, 2, 2, 64, 128, cull=True,
+                       run_bounds=torch.tensor([[0, 65]]))
+    assert (binning.LAUNCHES, binning.DECODE_LAUNCHES) == before
+
+
+def test_batched_and_viewed_rows_reach_the_front_kernel(dev):
+    """A batch group's frames and a resident view's rows are views the
+    front kernel takes: render_batch and render_view launch it, no plain
+    decode or binning runs, and the batch's frames equal render_frame's."""
+    scenes = [make_render_tree_array(640, 360, f, copies=20) for f in range(3)]
+    size = vec2(640, 360)
+    ren = FigRenderer(device="cuda")
+    before = (binning.DECODE_LAUNCHES, binning.PLAIN_DECODES, binning.PLAIN_BINNINGS)
+    frames = ren.render_batch(scenes, size)
+    snap = ren.snapshot_scene(scenes[0], size)
+    view = ren.render_view(snap, (0.0, 0.0))
+    torch.cuda.synchronize()
+    assert (binning.DECODE_LAUNCHES - before[0], binning.PLAIN_DECODES,
+            binning.PLAIN_BINNINGS) == (4, *before[1:])
+    assert view.shape == frames[0].shape and bool(torch.isfinite(view).all())
+    for f, scene in enumerate(scenes):
+        assert torch.equal(frames[f], FigRenderer(device="cuda").render_frame(scene, size))
 
 
 # --- tree-form scenes: the Python walk and the planner into the same kernels ------
@@ -998,7 +1159,7 @@ def test_blurred_cards_kernels_match_plain_on_the_card(dev):
               draw=raster.draw_pass_planar_prebinned_plain,
               draw_mask=raster.draw_pass_mask_prebinned_plain)
     assert float((got - ref).abs().max()) <= TOL
-    real_blur, real_bin = executor.backdrop_blur_planar, executor.bin_quads
+    real_blur, real_bin = executor.backdrop_blur_planar, executor.decode_and_bin
     blurs, bins = [], []
 
     def blur_both(planes, radius):
@@ -1009,17 +1170,18 @@ def test_blurred_cards_kernels_match_plain_on_the_card(dev):
 
     def bin_both(*a, **k):
         out = real_bin(*a, **k)
-        want = bin_quads_plain(*a, **k)
-        assert torch.equal(out[1], want[1])
+        want = decode_and_bin_plain(*a, **k)
+        assert torch.equal(out[0].view(torch.int32), want[0].view(torch.int32))
+        assert torch.equal(out[1], want[1]) and torch.equal(out[3], want[3])
         bins.append(1)
         return out
 
-    executor.backdrop_blur_planar, executor.bin_quads = blur_both, bin_both
+    executor.backdrop_blur_planar, executor.decode_and_bin = blur_both, bin_both
     try:
         ren.render_frame(scene, vec2(480, 270))
         torch.cuda.synchronize()
     finally:
-        executor.backdrop_blur_planar, executor.bin_quads = real_blur, real_bin
+        executor.backdrop_blur_planar, executor.decode_and_bin = real_blur, real_bin
     assert blurs == [1] and bins == [1]
 
 

@@ -74,7 +74,7 @@ def failing_binning(monkeypatch):
         calls.append(1)
         raise _Injected("injected kernel failure")
 
-    monkeypatch.setattr(executor, "bin_quads", boom)
+    monkeypatch.setattr(executor, "decode_and_bin", boom)
     return calls
 
 

@@ -22,7 +22,7 @@ from figdraw_tpu_torch import executor
 from figdraw_tpu_torch.basics import FigFlags, FigKind
 from figdraw_tpu_torch.nodesarray import RenderListArray, RendersArray
 from figdraw_tpu_torch.ops import raster
-from figdraw_tpu_torch.ops.binning import bin_quads
+from figdraw_tpu_torch.ops.binning import bin_quads, decode_and_bin
 from figdraw_tpu_torch.ops.layout import (
     PACKED_WIDTH, QF_AA, QF_BBOX_X0, QF_COLOR0, QF_INV_A, QF_INV_D, QF_ORG_X,
     QF_ORG_Y, QF_PARAMS, QF_RECT_PARAMS, QF_UVDU_X, QF_UVDV_Y, QF_WIDTH,
@@ -90,10 +90,10 @@ def _executor_binning(monkeypatch, structure, combo, height, width, n_masks,
     seen = {}
 
     def spy(*args, **kw):
-        seen["lists"] = bin_quads(*args, **kw)
+        seen["lists"] = decode_and_bin(*args, **kw)[2:]
         raise _Binned
 
-    monkeypatch.setattr(executor, "bin_quads", spy)
+    monkeypatch.setattr(executor, "decode_and_bin", spy)
     run = executor.get_frame_executor(structure, height, width, n_masks, False,
                                       tile_h)
     with pytest.raises(_Binned):

@@ -81,9 +81,8 @@ def test_font_fallback_resolver(tmp_path):
     """test_text_extra.test_font_fallback_resolver's contract on a built
     Devanagari face: the resolver is asked once for the first miss, its
     typeface serves both letters, an unresolvable codepoint is asked once
-    and memoized; the arrangement equals the JAX package's. The port has no
-    Unicode script data (script_of_codepoint gives ""), so the resolver
-    keys on the codepoints."""
+    and memoized; the arrangement and the requests' script hints equal the
+    JAX package's."""
     deva_path = _deva_font(tmp_path / "deva.ttf")
     results = []
     for pk, tf_mod, lay in ((jax_pkg, jax_tf, jax_layout), (port, port_tf, port_layout)):
@@ -102,6 +101,7 @@ def test_font_fallback_resolver(tmp_path):
             ink = pk.fill(pk.rgba(0, 0, 0, 255))
             arr = lay.typeset(pk.vec2(400, 100), [(font, ink, "aकमb")])
             first = [(c.codepoints, c.primary_typeface_id) for c in calls]
+            scripts_asked = [c.script for c in calls]
             calls.clear()
             lay.typeset(pk.vec2(400, 100), [(font, ink, "\U00013000\U00013000")])
             second = len(calls)
@@ -113,10 +113,11 @@ def test_font_fallback_resolver(tmp_path):
             deva_tf.glyph_id(ord(ch)) for ch in "कम"]
         assert by_rune["a"].glyph_id != 0
         assert first == [((ord("क"),), tid)] and second == 1
+        assert scripts_asked == ["Deva"]
         results.append([(g.glyph_id, g.font_id, g.pos.x, g.advance.x)
                         for g in arr.arranged_glyphs])
     assert results[1] == results[0]
-    assert port_tf.script_of_codepoint(ord("क")) == ""
+    assert port_tf.script_of_codepoint(ord("क")) == jax_tf.script_of_codepoint(ord("क")) == "Deva"
 
 
 @pytest.mark.parametrize("size,shift,lcd", [(15.0, 0.0, False), (13.0, 0.3, False),
