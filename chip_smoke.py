@@ -82,7 +82,19 @@ FigRenderer(device="cuda").render_frame or execute_plan:
   path is counted with the counts set to 0 just before it, and one frame of
   each has its kernels held against their plain versions on its own
   inputs (a batch group's on its slice of the group's one upload, an async
-  frame's as the worker ran it).
+  frame's as the worker ran it);
+- images from files and generated SDFs (image_files_phase): the Snappy
+  library (native/snappy.cpp, g++) and the PNG unfilter
+  (figdraw_tpu_torch/csrc/png_unfilter.cpp, g++); load_image of a copy of
+  the repo's PNG fixture (800x600) cold, through the .flippy sidecar it
+  writes, and warm, against the stored sha256 of PIL's decode and of
+  figdraw_tpu's sidecar; the image-file scene (examples/image_renderlist.py),
+  the MSDF star (examples/msdf_star.py, its SDF made by utils/sdfgen.py)
+  and an MTSDF scene in each form through render_frame (K1-atlas), the SDF
+  image modes 13-16 counted where they reach K1-atlas and, beside the main
+  path, K4-atlas; and a 1080p photo wall of the loaded image (48 panels,
+  12 clipped: the megakernel with the atlas), with the host times of the
+  pipeline's steps and render_frame's perf span means.
 
 Every path bins its tape once a frame through the binning kernel
 (csrc/binning.cu), which each phase holds against its plain version on
@@ -1916,8 +1928,8 @@ def tree_phase(tag: str) -> dict:
     from figdraw_tpu_torch.ops import binning, blur
     from figdraw_tpu_torch.plan import plan_execution
     from figdraw_tpu_torch.scenes import (
-        EXAMPLE_FORMS, EXAMPLE_SCENES, example_reference_path, make_clip_table_scene,
-        make_table_scene, render_example,
+        EXAMPLE_FORMS, EXAMPLE_IMAGES, EXAMPLE_SCENES, example_reference_path,
+        make_clip_table_scene, make_table_scene, render_example,
     )
 
     out = {"launches": {}, "errs": {}}
@@ -2004,9 +2016,12 @@ def tree_phase(tag: str) -> dict:
         out[kind].update(tree_equal_walks(f"{kind} table", tree, tsize))
         tree_kernel_checks(f"tree {kind} table", ren, tree, tsize, errs)
 
-    # --- the example scenes, at their sizes and at both scales of 2 ---
+    # --- the example scenes, at their sizes and at both scales of 2 (those
+    # that draw images: image_files_phase) ---
     out["examples"] = {}
     for name, (build, (w, h)) in EXAMPLE_SCENES.items():
+        if name in EXAMPLE_IMAGES:
+            continue
         for form, (ps, ui, mult) in EXAMPLE_FORMS.items():
             zero_counts()
             ren, frame = render_example(
@@ -2695,7 +2710,8 @@ def recorded_groups(ren) -> tuple:
 FRAMELOOP_ERRS = {}  # kernel -> max |kernel - plain| over the frame loop's checks
 
 
-def plan_kernel_checks(what: str, plan, combo, atlas, init=None, table=None) -> dict:
+def plan_kernel_checks(what: str, plan, combo, atlas, init=None, table=None,
+                       calls=None) -> dict:
     """Each kernel of one frame of `plan` against its plain version on that
     frame's own inputs: combo (its upload on the card, or its slice of a
     batch's stack), atlas and init frame as the frame's executor got them,
@@ -2703,13 +2719,15 @@ def plan_kernel_checks(what: str, plan, combo, atlas, init=None, table=None) -> 
     the plan's own). K1, K1-atlas and K3 through compared(), K4 and K4-atlas
     on the megakernel (targets as before the kernel ran), the blur through
     recorded_blur (bit for bit) and the binning through binning_check.
-    Fails past TOL; returns the errors by kernel."""
+    calls: an empty list, or None; given, it receives the (args, kwargs) of
+    each K1, K1-atlas and K4 / K4-atlas launch the check made. Fails past
+    TOL; returns the errors by kernel."""
     import torch
 
     from figdraw_tpu_torch.executor import get_frame_executor, get_mega_executor
     from figdraw_tpu_torch.ops import mega, raster
 
-    errs, store = {}, []
+    errs, store = {}, ([] if calls is None else calls)
     if plan.mega_combo is not None:
         name = "K4-atlas" if plan.mega_atlas else "K4"
         run = get_mega_executor(plan.height, plan.width, plan.n_masks,
@@ -3189,6 +3207,323 @@ def blurred_phase(tag: str, dev) -> dict:
             "items": len(plan.structure), "worst": worst}
 
 
+IMAGE_REPS = 5  # repeats of each host step of the image-file pipeline
+
+
+def host_ms(fn, reps: int = IMAGE_REPS):
+    """Median host ms of fn() over reps runs, and its last result."""
+    ms, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms), out
+
+
+def atlas_modes(plan, calls, census: dict) -> None:
+    """Adds to census[kernel][mode] the quads of SDF image modes 13-16 that
+    reached an atlas kernel in the recorded kernel calls of one frame of
+    `plan` (plan_kernel_checks' calls: the mode words each launch read;
+    for a tile pass, its run [bounds) of the tape)."""
+    from figdraw_tpu_torch.ops.layout import QI_MODE
+
+    for args, kw in calls:
+        if kw.get("atlas") is None:
+            continue
+        words = args[1][:, QI_MODE].cpu().numpy()
+        if plan.mega_combo is not None:
+            name = "K4-atlas"
+        else:
+            name = "K1-atlas"
+            b0, b1 = args[2].tolist()
+            words = words[b0:b1]
+        base = (words % 256) % 128
+        for mode in (13, 14, 15, 16):
+            n = int((base == mode).sum())
+            if n:
+                per = census.setdefault(name, {})
+                per[mode] = per.get(mode, 0) + n
+
+
+def span_means(entries) -> dict:
+    """Mean host ms of each perf span tag over the buffer's closed spans."""
+    out, stack = {}, []
+    for e in entries:
+        if e.kind == "begin":
+            stack.append(e)
+        elif e.kind == "end" and stack and stack[-1].tag == e.tag:
+            out.setdefault(e.tag, []).append((e.t - stack.pop().t) * 1e3)
+    return {k: statistics.mean(v) for k, v in out.items()}
+
+
+def image_files_phase(tag: str, dev) -> dict:
+    """Images from files and generated SDFs (the slice of load_image, the
+    .flippy cache, utils/png.py and utils/sdfgen.py): the Snappy library
+    (native/snappy.cpp, g++) round-trips the fixture's pixels and its
+    decoder equals the plain Python one; a cold load_image of a copy of the
+    repo's PNG fixture in a temporary directory (decode, bleed, chain,
+    compress, write the sidecar) gives the stored digests of PIL's decode
+    and of figdraw_tpu's sidecar; a warm load after clear_image_cache reads
+    the sidecar and gives the same image and mips; a source newer than its
+    sidecar regenerates it. Then render_frame on the image-file scene, the
+    MSDF star and the MTSDF scene in each form, held to figdraw_tpu's
+    stored block means, and the 1080p photo wall of the loaded image for
+    FRAMES frames, its 480x270 reduction held likewise; every path counted
+    with the counts set to 0 just before it, one frame of each with its
+    kernels against their plain versions on its own inputs, and the SDF
+    image modes 13-16 counted where they reach an atlas kernel (the SDF
+    scenes' tapes also through the megakernel with the atlas, a check
+    beside the main path). Host times of each step of the pipeline, the
+    photo wall's ms/frame with its host and device split and its perf span
+    means."""
+    import dataclasses
+    import hashlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from figdraw_tpu_torch import FigRenderer, vec2
+    from figdraw_tpu_torch import resources
+    from figdraw_tpu_torch.basics import fig_ui_scale, scaled, set_fig_ui_scale
+    from figdraw_tpu_torch.colors import Color
+    from figdraw_tpu_torch.ops import mega, raster
+    from figdraw_tpu_torch.plan import pack_mega_combo, plan_execution
+    from figdraw_tpu_torch.scenes import (
+        EXAMPLE_FORMS, EXAMPLE_IMAGES, EXAMPLE_SCENES, IMAGE_FILE_SIZE, IMAGE_FIXTURE,
+        IMAGE_FIXTURE_REFERENCE, PHOTO_WALL_PANELS, PHOTO_WALL_REFERENCE, PHOTO_WALL_SIZE,
+        PHOTO_WALL_SMALL, example_reference_path, make_image_file_scene,
+        make_loaded_photo_wall,
+    )
+    from figdraw_tpu_torch.utils import flippy, perf, png
+
+    t_phase = time.perf_counter()
+    with open(IMAGE_FIXTURE_REFERENCE) as fh:
+        stored = json.load(fh)
+    decode_ms, pixels = host_ms(lambda: png.read_image(IMAGE_FIXTURE))
+    raw = pixels.tobytes()
+    if hashlib.sha256(raw).hexdigest() != stored["decoded_sha256"]:
+        fail("image files: the PNG decode of the fixture differs from PIL's stored digest")
+    zip_ms, packed = host_ms(lambda: flippy.snappy_compress(raw))
+    unzip_ms, back = host_ms(lambda: flippy.snappy_uncompress(packed))
+    if back != raw or flippy._py_uncompress(packed) != back:
+        fail("image files: the Snappy library's round trip, or its decoder against "
+             "the plain Python decoder, differs")
+    print(f"check 13: Snappy (native/snappy.cpp) round-trips the fixture's "
+          f"{len(raw)} pixel bytes ({len(packed)} compressed) and its decoder equals "
+          f"_py_uncompress; the PNG decode equals PIL's stored sha256", flush=True)
+    chain_ms, chain = host_ms(lambda: flippy.image_to_flippy(pixels))
+    census = {}
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, os.path.basename(IMAGE_FIXTURE))
+        shutil.copyfile(IMAGE_FIXTURE, path)
+        side = os.path.join(td, "timing.flippy")
+        write_ms, _ = host_ms(lambda: flippy.save_flippy(chain, side))
+        read_ms, _ = host_ms(lambda: flippy.load_flippy(side))
+        # --- cold and warm loads ---
+        bus = resources.ImageMessageBus()
+        sub = bus.subscribe()
+        t0 = time.perf_counter()
+        cold = resources.load_image(path, bus=bus)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        with open(path + ".flippy", "rb") as fh:
+            sidecar = fh.read()
+        if hashlib.sha256(sidecar).hexdigest() != stored["sidecar_sha256"]:
+            fail("image files: the sidecar differs from figdraw_tpu's stored digest")
+        resources.clear_image_cache(bus=bus)
+        t0 = time.perf_counter()
+        warm = resources.load_image(path, bus=bus)
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        puts = [m for m in sub.drain() if m.kind == resources.ImageMsgKind.PutImage]
+        a, b = puts[0], puts[-1]
+        same = (len(puts) == 2 and np.array_equal(a.image, b.image)
+                and len(a.mips) == len(b.mips) == len(chain.mipmaps) - 1
+                and all(np.array_equal(x, y) for x, y in zip(a.mips, b.mips))
+                and hashlib.sha256(np.ascontiguousarray(b.image).tobytes()).hexdigest()
+                == stored["decoded_sha256"])
+        if not same:
+            fail("image files: the warm load (the sidecar) differs from the cold one")
+        # the sidecar made older than its source: the next load rewrites it
+        old = os.path.getmtime(path) - 10
+        os.utime(path + ".flippy", (old, old))
+        resources.clear_image_cache(bus=bus)
+        resources.load_image(path, bus=bus).close()
+        with open(path + ".flippy", "rb") as fh:
+            fresh = fh.read()
+        if not (os.path.getmtime(path + ".flippy") > old and fresh == sidecar):
+            fail("image files: a source newer than its sidecar did not regenerate it")
+        cold.close()
+        warm.close()
+        print(f"check 13: load_image cold (decode, bleed, chain, compress, write "
+              f"{len(sidecar)} bytes) gives figdraw_tpu's stored sidecar sha256; warm "
+              f"(the sidecar) equals it, image and {len(a.mips)} mips; a newer source "
+              f"regenerated the same sidecar", flush=True)
+
+        # --- render_frame: the image-file scene and the SDF scenes in each form ---
+        def checked_frame(what, make, ref_path):
+            """make() -> (renderer, scene, frame size): the frame's first
+            render uploads the atlas; the counted one runs with the counts
+            set to 0 just before; its kernels against their plain versions
+            on its own inputs; its blocks against the stored ones."""
+            ren, scene, size = make()
+            ren.render_frame(scene, size)
+            torch.cuda.synchronize()
+            zero_counts()
+            frame = ren.render_frame(scene, size)
+            torch.cuda.synchronize()
+            plan = plan_execution(ren.flatten(scene, scaled(size)))
+            counted_launches(what, frame_launches(plan))
+            runs, undo = recorded_frames(ren)
+            ren.render_frame(scene, size)
+            undo()
+            calls = []
+            plan_kernel_checks(what, *runs[0], calls=calls)
+            atlas_modes(plan, calls, census)
+            check_blocks(what, frame, ref_path)
+            if not bool(torch.isfinite(frame).all()):
+                fail(f"{what}: non-finite frame")
+            return ren, plan, calls
+
+        timed, refs = {}, []  # refs: the loaded images' owners, alive to the end
+        for form, (ps, ui, mult) in EXAMPLE_FORMS.items():
+            old = fig_ui_scale()
+            set_fig_ui_scale(ui)
+            try:
+                def make_file(ps=ps, mult=mult):
+                    ren = FigRenderer(atlas_size=512, device="cuda", pixel_scale=ps)
+                    bus = resources.ImageMessageBus()
+                    ren.ensure_image_message_subscription(bus)
+                    refs.append(resources.load_image(path, bus=bus))
+                    w, h = IMAGE_FILE_SIZE
+                    return (ren, make_image_file_scene(w, h, refs[-1].id),
+                            vec2(w * mult, h * mult))
+
+                checked_frame(f"image_file {form}", make_file,
+                              example_reference_path("image_file", form))
+                for name in EXAMPLE_IMAGES:
+                    def make_sdf(name=name, ps=ps, mult=mult):
+                        build, (w, h) = EXAMPLE_SCENES[name]
+                        ren = FigRenderer(device="cuda", pixel_scale=ps)
+                        bus = resources.ImageMessageBus()
+                        ren.ensure_image_message_subscription(bus)
+                        for image_id, image in EXAMPLE_IMAGES[name]():
+                            resources.put_image(image_id, image, bus=bus)
+                        return ren, build(w, h), vec2(w * mult, h * mult)
+
+                    ren, plan, calls = checked_frame(
+                        f"{name} {form}", make_sdf, example_reference_path(name, form))
+                    if form == "1x":
+                        timed[name] = [c for c in calls if c[1].get("atlas") is not None]
+                        # the same tape through the megakernel with the
+                        # atlas: the MSDF branch of K4-atlas, beside the
+                        # main path (its launches are not counted)
+                        build, (w, h) = EXAMPLE_SCENES[name]
+                        tape = ren.flatten(build(w, h), vec2(w, h))
+                        mplan = dataclasses.replace(
+                            plan_execution(tape), mega_combo=pack_mega_combo(tape),
+                            mega_atlas=True)
+                        mcalls = []
+                        plan_kernel_checks(
+                            f"{name} on K4-atlas", mplan,
+                            torch.from_numpy(mplan.mega_combo).to(dev, copy=True),
+                            ren._device_atlas(), calls=mcalls)
+                        atlas_modes(mplan, mcalls, census)
+            finally:
+                set_fig_ui_scale(old)
+        missing = [(k, m) for k in ("K1-atlas", "K4-atlas") for m in (13, 14, 15, 16)
+                   if not census.get(k, {}).get(m)]
+        print(f"check 13: SDF image modes reaching the atlas kernels, quads by kernel "
+              f"and mode {census} (every one of 13-16 on each)", flush=True)
+        if missing:
+            fail(f"image files: no quad of (kernel, mode) {missing} reached an atlas kernel")
+
+        # --- the 1080p photo wall of the loaded image ---
+        w, h = PHOTO_WALL_SIZE
+        size = vec2(w, h)
+        ren = FigRenderer(atlas_size=256, device="cuda")
+        wall_bus = resources.ImageMessageBus()
+        ren.ensure_image_message_subscription(wall_bus)
+        refs.append(resources.load_image(path, bus=wall_bus))
+        scene = make_loaded_photo_wall(w, h, PHOTO_WALL_PANELS, refs[-1].id)
+        ren.render_frame(scene, size)
+        torch.cuda.synchronize()
+        plan = plan_execution(ren.flatten(scene, size))
+        if not plan.mega_atlas:
+            fail("photo wall: the planner did not send it to the megakernel with the atlas")
+        perf._global_perf.clear()
+        zero_counts()
+        wall_ms = timed_frames("photo wall", lambda: ren.render_frame(scene, size),
+                               (h, w, 4))
+        spans = span_means(perf._global_perf.entries)
+        perf._global_perf.clear()
+        counted_launches("photo wall", scaled_launches(frame_launches(plan), FRAMES))
+        if set(spans) != {"frame", "messages", "flatten", "execute"}:
+            fail(f"photo wall: render_frame recorded the spans {sorted(spans)}")
+        runs, undo = recorded_frames(ren)
+        ren.render_frame(scene, size)
+        undo()
+        wall_calls = []
+        plan_kernel_checks("photo wall", *runs[0], calls=wall_calls)
+        sw, sh, sn = PHOTO_WALL_SMALL
+        small = FigRenderer(atlas_size=256, device="cuda")
+        small_bus = resources.ImageMessageBus()
+        small.ensure_image_message_subscription(small_bus)
+        refs.append(resources.load_image(path, bus=small_bus))
+        small_scene = make_loaded_photo_wall(sw, sh, sn, refs[-1].id)
+        checked_frame(f"photo wall {sw}x{sh}", lambda: (small, small_scene, vec2(sw, sh)),
+                      PHOTO_WALL_REFERENCE)
+        host, device = [], []
+        for _ in range(FRAMES):
+            t0 = time.perf_counter()
+            ren.process_image_messages()
+            step = ren._walk_plan(scene, size, True, Color(1.0, 1.0, 1.0, 1.0))
+            t1 = time.perf_counter()
+            ren.execute_plan(step)
+            torch.cuda.synchronize()
+            host.append((t1 - t0) * 1e3)
+            device.append((time.perf_counter() - t1) * 1e3)
+        for ref in refs:
+            ref.close()
+    med = statistics.median
+    # the atlas kernels on this slice's frames: K1-atlas on the MSDF star's
+    # draw, K4-atlas on the photo wall
+    star_args, star_kw = timed["msdf_star"][0]
+    k1a = dict(
+        ms=cuda_ms(lambda: raster.draw_pass_planar_prebinned(*star_args, **star_kw), 20),
+        device_ms=device_ms_of(lambda: raster.draw_pass_planar_prebinned(*star_args, **star_kw),
+                               "raster_tiles_kernel<false, true>"),
+        plain_ms=cuda_ms(lambda: raster.draw_pass_planar_prebinned_plain(*star_args, **star_kw), 3),
+        work=raster_work(star_args, star_kw))
+    wall_args, wall_kw = wall_calls[0]
+    k4a = dict(
+        ms=cuda_ms(lambda: mega.draw_pass_mega(*wall_args, **wall_kw), 20),
+        device_ms=device_ms_of(lambda: mega.draw_pass_mega(*wall_args, **wall_kw),
+                               "mega_kernel<true>"),
+        plain_ms=cuda_ms(lambda: mega.draw_pass_mega_plain(*wall_args, **wall_kw), 3),
+        work=mega_work(wall_args, wall_kw))
+    print(f"times: image files, host (median of {IMAGE_REPS}): PNG decode {decode_ms:.3f} ms "
+          f"(800x600 RGBA8); bleed + chain {chain_ms:.3f} ms ({len(chain.mipmaps)} "
+          f"levels); sidecar write {write_ms:.3f} ms; sidecar read {read_ms:.3f} ms; "
+          f"Snappy compress {len(raw) / zip_ms / 1e3:.1f} MB/s, uncompress "
+          f"{len(raw) / unzip_ms / 1e3:.1f} MB/s; load_image cold {cold_ms:.3f} ms, "
+          f"warm {warm_ms:.3f} ms {tag}", flush=True)
+    print(f"times: photo wall {w}x{h}, {PHOTO_WALL_PANELS} panels of the loaded "
+          f"image, {len(plan.structure)} pass items, atlas {ren.atlas.size}: median "
+          f"{med(wall_ms):.3f} ms/frame (render_frame + sync) = host (messages, walk, "
+          f"plan) {med(host):.3f} ms + upload, executor and sync {med(device):.3f} ms; "
+          f"perf spans, mean ms over {FRAMES} frames: " + ", ".join(
+              f"{k} {spans[k]:.3f}" for k in ("frame", "messages", "flatten", "execute"))
+          + f" {tag}", flush=True)
+    print(f"times: K1-atlas on the MSDF star's draw {k1a['ms']:.4f} ms (events), "
+          f"{k1a['device_ms']:.4f} ms alone, plain torch {k1a['plain_ms']:.2f} ms, "
+          f"{bound_text(k1a['work'])}; K4-atlas on the photo wall {k4a['ms']:.4f} ms "
+          f"(events), {k4a['device_ms']:.4f} ms alone, plain torch "
+          f"{k4a['plain_ms']:.2f} ms, {bound_text(k4a['work'])} {tag}", flush=True)
+    print(f"image files phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(census=census, k1a=k1a, k4a=k4a)
+
+
 def frameloop_phases(tag: str, dev) -> dict:
     """The frame loop's entry points, each path counted with the counts set
     to 0 just before it and read just after."""
@@ -3202,6 +3537,8 @@ def frameloop_phases(tag: str, dev) -> dict:
 def main() -> None:
     import numpy as np
     import torch
+
+    t_main = time.perf_counter()
 
     # --- 1. device ---------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3228,6 +3565,7 @@ def main() -> None:
     from figdraw_tpu_torch.ops.layout import QF_RECT_PARAMS, QI_MODE
     from figdraw_tpu_torch.plan import plan_execution
     from figdraw_tpu_torch.scenes import make_render_tree_array, modes_tape
+    from figdraw_tpu_torch.utils import flippy, png
 
     dev = torch.device("cuda", 0)
 
@@ -3238,11 +3576,12 @@ def main() -> None:
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(8) as pool:
         builds = {name: pool.submit(timed, fn) for name, fn in (
             ("walk (g++)", native.load), ("raster.cu (nvcc)", raster.load),
             ("mega.cu (nvcc)", mega.load), ("rows.cu (nvcc)", rows.load),
-            ("blur.cu (nvcc)", blur.load), ("binning.cu (nvcc)", binning.load))}
+            ("blur.cu (nvcc)", blur.load), ("binning.cu (nvcc)", binning.load),
+            ("snappy (g++)", flippy.load), ("png_unfilter (g++)", png.load))}
         secs = {name: f.result() for name, f in builds.items()}
     print("build: " + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
           + f"; {time.perf_counter() - t0:.2f} s in all {tag}", flush=True)
@@ -3512,6 +3851,12 @@ def main() -> None:
 
     # --- 8c. the frame loop: render_batch, render_frame_async, overlays, blurred cards ---
     loop = frameloop_phases(tag, dev)
+
+    # --- 8d. images from files and generated SDFs ----------------------------------
+    before_images = time.perf_counter() - t_main
+    images_from_files = image_files_phase(tag, dev)
+    print(f"wall time: {before_images:.1f} s before the image_files phase, "
+          f"{time.perf_counter() - t_main:.1f} s after it", flush=True)
     loop_paths = {k: {p: n[k] for p, n in LOOP_PATHS.items() if n[k]}
                   for k in ("K1", "K1-atlas", "K3", "K4", "K4-atlas", "blur")}
     BIN_PATHS.update({p: n["binning"] for p, n in LOOP_PATHS.items()})
@@ -3561,6 +3906,7 @@ def main() -> None:
                  **{f"text tree {f}": v["launches"][4] for f, v in host["tree"].items()},
                  **loop_paths["K4-atlas"]}
     loop_err = lambda name: FRAMELOOP_ERRS.get(name, 0.0)
+    print(f"wall time: {time.perf_counter() - t_main:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [
         {
             "name": "raster_tiles_kernel<false, false> (K1, frame target)",
@@ -3597,6 +3943,11 @@ def main() -> None:
             "bound_ms": atlas_bound[0],
             "bound_by": atlas_bound[1],
             "bound_out_of_place_ms": atlas_oop[0],
+            "msdf_star": {key: images_from_files["k1a"][key]
+                          for key in ("ms", "device_ms", "plain_ms")}
+                         | dict(zip(("bound_ms", "bound_by"),
+                                    bounds_of(images_from_files["k1a"]["work"])[0])),
+            "sdf_modes": images_from_files["census"].get("K1-atlas", {}),
             "library_ms": None,
         },
         {
@@ -3658,6 +4009,11 @@ def main() -> None:
                            "bound_ms": table_bound[0], "bound_by": table_bound[1],
                            "entries_before_cull": table["work"][3],
                            "entries_after_cull": table["work"][4]},
+            "photo_wall": {key: images_from_files["k4a"][key]
+                           for key in ("ms", "device_ms", "plain_ms")}
+                          | dict(zip(("bound_ms", "bound_by"),
+                                     bounds_of(images_from_files["k4a"]["work"])[0])),
+            "sdf_modes": images_from_files["census"].get("K4-atlas", {}),
             "library_ms": None,
         },
         {

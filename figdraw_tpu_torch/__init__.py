@@ -17,7 +17,8 @@ torch and numpy only.
 
 The names below are figdraw_tpu's umbrella exports that the port has, so an
 example's `from figdraw_tpu import ...` line works with the package name
-replaced. `load_image` is not ported yet.
+replaced. `load_image` decodes PNG only (utils/png.py), through the
+.flippy mip cache (utils/flippy.py).
 """
 
 from .basics import (  # noqa: F401
@@ -135,6 +136,7 @@ from .resources import (  # noqa: F401,E402
     clear_image_cache,
     clear_images,
     clear_typeface_glyphs,
+    load_image,
     put_image,
     replace_image,
 )

@@ -88,24 +88,32 @@ class Atlas:
         self.entries_version += 1
         return True
 
-    def _rebuild(self, new_size: int) -> None:
-        self.size = new_size
-        self.data = np.zeros((self.size, self.size, 4), dtype=np.float32)
-        self.heights = np.zeros(self.size, dtype=np.int32)
-        self.entries.clear()
-        # a rebuild that re-places nothing (clear with no retained images)
-        # must still invalidate every entries_version-keyed cache — the
-        # packed-atlas tables and the renderer's ensured-glyph stamps
-        self.entries_version += 1
-        self.rebuild_count += 1
-        self.generation += 1
-        self.dirty = True
-        self.full_dirty = True
-        self.dirty_rects.clear()
-        for key, img in self._images.items():
+    def _rebuild(self, new_size: int, grow: bool = False) -> None:
+        """Repack every retained image into a new (new_size, new_size)
+        array. grow (the growth of put_image): where they do not all fit,
+        double again and repack, since a new image may be more than twice
+        the old edge (figdraw_tpu's copy fails its assert there); else a
+        misfit raises."""
+        while True:
+            self.size = new_size
+            self.data = np.zeros((self.size, self.size, 4), dtype=np.float32)
+            self.heights = np.zeros(self.size, dtype=np.int32)
+            self.entries.clear()
+            # a rebuild that re-places nothing (clear with no retained images)
+            # must still invalidate every entries_version-keyed cache — the
+            # packed-atlas tables and the renderer's ensured-glyph stamps
+            self.entries_version += 1
+            self.rebuild_count += 1
+            self.generation += 1
+            self.dirty = True
+            self.full_dirty = True
+            self.dirty_rects.clear()
             # a raise, not an assert: the placement must run under -O too
-            if not self._place(key, img):
+            if all(self._place(key, img) for key, img in self._images.items()):
+                return
+            if not grow:
                 raise RuntimeError("atlas rebuild overflow")
+            new_size *= 2
 
     @staticmethod
     def _normalize(img: np.ndarray) -> np.ndarray:
@@ -136,7 +144,7 @@ class Atlas:
             self.remove(key)
         self._images[key] = img
         while not self._place(key, img):
-            self._rebuild(self.size * 2)
+            self._rebuild(self.size * 2, grow=True)
         if meta is not None:
             self.meta[key] = meta
         if mips is not None:
@@ -148,7 +156,7 @@ class Atlas:
                 mip_key = (key, level)
                 self._images[mip_key] = mip
                 while not self._place(mip_key, mip):
-                    self._rebuild(self.size * 2)
+                    self._rebuild(self.size * 2, grow=True)
                 if meta is not None:
                     self.meta[mip_key] = meta
         elif mipmapped:
@@ -168,7 +176,7 @@ class Atlas:
                 mip_key = (key, level)
                 self._images[mip_key] = current
                 while not self._place(mip_key, current):
-                    self._rebuild(self.size * 2)
+                    self._rebuild(self.size * 2, grow=True)
                 if meta is not None:
                     self.meta[mip_key] = meta
                 level += 1

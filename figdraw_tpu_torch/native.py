@@ -10,10 +10,7 @@ walk (render.py), which renders trees.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import platform
-import subprocess
 import threading
 
 import numpy as np
@@ -25,10 +22,10 @@ from .ops.layout import (
 )
 from .plan import ROLLED_THRESHOLD, TILE_H, TILE_W, bucket, fill_meta, meta_rows
 from .tape import BlurItem, ClearMaskItem, DrawItem, Tape
+from .utils import gxx
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(os.path.dirname(_PKG_DIR), "native", "flatten.cpp")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 # -ffp-contract=off: the walk and the scene animator are pinned bit-identical
 # to their numpy twins in figdraw_tpu, and numpy never fuses multiply-add
 _CXX_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-pthread",
@@ -39,28 +36,9 @@ _lib = None
 
 
 def _build() -> str:
-    """Compile the walk into BUILD_DIR (once per source, flags and host:
-    -march=native code is only good on the machine that built it); returns
-    the library path. Raises CalledProcessError with the compiler's
-    output."""
-    host = f"{platform.node()} {platform.machine()}"
-    with open(_SRC, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join((*_CXX_FLAGS, host)).encode())
-    path = os.path.join(BUILD_DIR, f"libfigdraw_flatten_{digest.hexdigest()[:16]}.so")
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    # build under a private name, then rename: concurrent test workers may
-    # race to build the same library
-    tmp = f"{path}.{os.getpid()}.tmp"
-    try:
-        subprocess.run(["g++", *_CXX_FLAGS, "-o", tmp, _SRC], check=True,
-                       capture_output=True, text=True)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path
+    """Compile the walk into the package's _build/ (utils.gxx); returns the library
+    path. Raises CalledProcessError with the compiler's output."""
+    return gxx.build(_SRC, "figdraw_flatten", _CXX_FLAGS)
 
 
 def load() -> ctypes.CDLL:

@@ -68,6 +68,7 @@ from .scene import (
     patchable_spans, plan_kind,
 )
 from .tape import Tape, TapeBackend
+from .utils.perf import perf
 
 DEFAULT_SDF_AA_FACTOR = 1.2  # figbackend.nim:34
 WHITE_IMAGE_KEY = "__figdraw_white__"  # renderer.WHITE_IMAGE_KEY
@@ -264,7 +265,8 @@ class FigRenderer:
                 meta = AtlasEntryMeta(kind="image", image_id=msg.id)
                 if msg.mipmapped:  # a mip chain always repacks
                     self.atlas.remove(msg.id)
-                    self.atlas.put_image(msg.id, msg.image, meta, mipmapped=True)
+                    self.atlas.put_image(msg.id, msg.image, meta, mipmapped=True,
+                                         mips=msg.mips)
                 else:  # same size: in place; else repack
                     self.atlas.update_image(msg.id, msg.image)
                     self.atlas.meta[msg.id] = meta
@@ -683,15 +685,28 @@ class FigRenderer:
         a RenderFragments; frame_size in UI units (the frame is frame_size
         times the UI scale). Returns the (H, W, 4) f32 frame tensor
         (asynchronous on CUDA). Frames of render_frame_async still in
-        flight are drained first. The route is _walk_plan's."""
+        flight are drained first. The route is _walk_plan's.
+
+        The call records figdraw_tpu's perf spans (utils.perf): `frame`
+        around it all, `messages` around process_image_messages, `flatten`
+        around the walk and plan (_walk_plan) and `execute` around
+        execute_plan. figdraw_tpu's `mega` span times its native fast path
+        to the megakernel, which the port's _walk_plan folds into its walk,
+        so it has no counterpart here. The spans read the host clock only:
+        `execute` times the enqueue of the frame's device work."""
         fs = scaled(frame_size)
         if fs.x <= 0 or fs.y <= 0:
             return self.last_frame
         self._assert_render_thread()
         self.drain_async()
-        self.process_image_messages()
-        frame = self.execute_plan(self._walk_plan(renders, fs, clear_main, clear_color))
-        self.publish_atlas_usage()
+        with perf("frame"):
+            with perf("messages"):
+                self.process_image_messages()
+            with perf("flatten"):
+                plan = self._walk_plan(renders, fs, clear_main, clear_color)
+            with perf("execute"):
+                frame = self.execute_plan(plan)
+            self.publish_atlas_usage()
         self._maybe_write_one_frame()
         return frame
 

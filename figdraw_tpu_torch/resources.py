@@ -10,8 +10,13 @@ ring inbox (the oldest is dropped on overflow); a replay table keeps the
 latest put or replace per id, so a new subscriber sees all live images;
 per-id and cache generations let the consumer drop stale messages.
 
-Not ported yet (ROADMAP.md, port item 'Overlays and the image surface'):
-`load_image` and its .flippy mip cache, which decode through PIL.
+`load_image` reads an image file through the .flippy sidecar cache
+(utils/flippy.py) and the port's own PNG decoder (utils/png.py; another
+format raises NotImplementedError) and publishes it with its mip chain.
+A host cache keeps each published image (and a loaded image's chain) by
+id, as figdraw_tpu's does: put, replace and the clears keep it current,
+and a later load_image of the same path publishes the cached pixels
+without reading the file again.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from __future__ import annotations
 import enum
 import itertools
 import threading
+import zlib
 from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -35,6 +41,11 @@ _id_counter = itertools.count(1)
 
 def next_owner_token() -> OwnerToken:
     return next(_id_counter)
+
+
+def image_id_from_path(path: str) -> ImageId:
+    """Stable id for a file path: the crc32 of the path (never 0)."""
+    return zlib.crc32(path.encode("utf-8")) or 1
 
 
 class ImageMsgKind(enum.Enum):
@@ -65,6 +76,7 @@ class ImageMsg:
     owner_token: OwnerToken = 0
     final_release: bool = False
     mipmapped: bool = False
+    mips: Optional[tuple] = None  # a precomputed chain (.flippy), levels 1..n
 
 
 class ImageMessageSubscription:
@@ -131,7 +143,7 @@ class ImageMessageBus:
                 msg = ImageMsg(kind=msg.kind, id=msg.id, image=msg.image,
                                generation=gen,
                                cache_generation=self._cache_generation,
-                               mipmapped=msg.mipmapped)
+                               mipmapped=msg.mipmapped, mips=msg.mips)
                 self._replay[msg.id] = msg
             elif msg.kind == ImageMsgKind.ClearImage:
                 self._replay.pop(msg.id, None)
@@ -152,12 +164,70 @@ class ImageMessageBus:
 # the process-wide bus renderers subscribe to when given none
 default_bus = ImageMessageBus()
 
+# the host image cache: id -> the published pixels, and a loaded image's
+# mip chain (levels 1..n)
+_image_cache: Dict[ImageId, np.ndarray] = {}
+_mip_cache: Dict[ImageId, tuple] = {}
+_image_cache_lock = threading.Lock()
+
+
+def load_image(path: str, bus: Optional[ImageMessageBus] = None,
+               mipmapped: bool = True, flippy_cache: bool = True) -> "ImageRef":
+    """Load an image file and publish it to renderers (imgutils.nim:553-557);
+    returns the ImageRef that owns it, under image_id_from_path(path).
+
+    A mipmapped load goes through the .flippy sidecar cache, as the
+    reference's pipeline does: alpha-bled, the full mip chain,
+    Snappy-compressed, regenerated when the source file is newer
+    (utils.flippy.read_image_cached); the message carries the chain as
+    `mips`. flippy_cache=False (or mipmapped=False) decodes the file's
+    pixels alone. A second load of a cached id reads no file. Only PNG
+    decodes: another format raises NotImplementedError; without g++ the
+    flippy cache raises."""
+    image_id = image_id_from_path(path)
+    with _image_cache_lock:
+        cached = _image_cache.get(image_id)
+        mips = _mip_cache.get(image_id)
+    if cached is None:
+        if mipmapped and flippy_cache:
+            from .utils.flippy import read_image_cached
+
+            flippy = read_image_cached(path)
+            cached = flippy.mipmaps[0]
+            mips = tuple(flippy.mipmaps[1:])
+        else:
+            from .utils.png import read_image
+
+            cached, mips = read_image(path), None
+        with _image_cache_lock:
+            _image_cache[image_id] = cached
+            if mips is not None:
+                _mip_cache[image_id] = mips
+    b = bus or default_bus
+    b.publish(ImageMsg(kind=ImageMsgKind.PutImage, id=image_id, image=cached,
+                       mipmapped=mipmapped, mips=mips))
+    return ImageRef(image_id, bus=b)
+
+
+def _cache(image_id: ImageId, image) -> None:
+    with _image_cache_lock:
+        _image_cache[image_id] = image
+        _mip_cache.pop(image_id, None)
+
+
+def _evict(ids) -> None:
+    with _image_cache_lock:
+        for i in ids:
+            _image_cache.pop(i, None)
+            _mip_cache.pop(i, None)
+
 
 def put_image(image_id: ImageId, image: np.ndarray,
               bus: Optional[ImageMessageBus] = None,
               mipmapped: bool = False) -> ImageId:
     """Publish an image under an explicit id. mipmapped: the renderer packs
     a box-filtered mip chain beside it, so minified draws blend two levels."""
+    _cache(image_id, image)
     (bus or default_bus).publish(ImageMsg(kind=ImageMsgKind.PutImage,
                                           id=image_id, image=image,
                                           mipmapped=mipmapped))
@@ -168,6 +238,7 @@ def replace_image(image_id: ImageId, image: np.ndarray,
                   bus: Optional[ImageMessageBus] = None) -> None:
     """In-place replace (video or canvas streams): same size updates the
     atlas entry's pixels, another size repacks it."""
+    _cache(image_id, image)
     (bus or default_bus).publish(ImageMsg(kind=ImageMsgKind.ReplaceImage,
                                           id=image_id, image=image))
 
@@ -175,15 +246,20 @@ def replace_image(image_id: ImageId, image: np.ndarray,
 def clear_image(image_id: ImageId, bus: Optional[ImageMessageBus] = None) -> None:
     (bus or default_bus).publish(ImageMsg(kind=ImageMsgKind.ClearImage,
                                           id=image_id))
+    _evict((image_id,))
 
 
 def clear_images(ids, bus: Optional[ImageMessageBus] = None) -> None:
-    (bus or default_bus).publish(ImageMsg(kind=ImageMsgKind.ClearImages,
-                                          ids=tuple(ids)))
+    ids = tuple(ids)
+    (bus or default_bus).publish(ImageMsg(kind=ImageMsgKind.ClearImages, ids=ids))
+    _evict(ids)
 
 
 def clear_image_cache(bus: Optional[ImageMessageBus] = None) -> None:
     (bus or default_bus).publish(ImageMsg(kind=ImageMsgKind.ClearImageCache))
+    with _image_cache_lock:
+        _image_cache.clear()
+        _mip_cache.clear()
 
 
 def clear_font_glyphs(font_id: FontId, bus: Optional[ImageMessageBus] = None) -> None:
@@ -233,6 +309,11 @@ class _OwnedRef:
             else:
                 cls._refcounts[self.id] = rc
         self._bus.publish(self._message(self._release, final))
+        if final:
+            self._final_release()
+
+    def _final_release(self) -> None:
+        pass
 
     def __enter__(self):
         return self
@@ -246,7 +327,8 @@ class _OwnedRef:
 
 
 class ImageRef(_OwnedRef):
-    """RAII image handle (resources.ImageRef)."""
+    """RAII image handle (resources.ImageRef): its final release evicts the
+    image from every renderer's atlas and from the host cache."""
 
     _retain, _release = ImageMsgKind.RetainImage, ImageMsgKind.ReleaseImage
     _refcounts: Dict[ImageId, int] = {}
@@ -255,6 +337,9 @@ class ImageRef(_OwnedRef):
     def _message(self, kind, final: bool) -> ImageMsg:
         return ImageMsg(kind=kind, id=self.id, owner_token=self._token,
                         final_release=final)
+
+    def _final_release(self) -> None:
+        _evict((self.id,))  # the host cache drops the image with its last owner
 
 
 class FontRef(_OwnedRef):

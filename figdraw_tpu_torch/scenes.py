@@ -19,6 +19,17 @@ for byte) and the scenes of three examples (`EXAMPLE_SCENES`), which
 `render_example` renders in each of `EXAMPLE_FORMS` against figdraw_tpu's
 stored block means (`example_reference_path`).
 
+Images from files and generated SDFs: `make_msdf_star_scene`
+(examples/msdf_star.py; its star's SDF made by utils/sdfgen, `star_sdf`) and
+`make_mtsdf_scene` (all four SDF image modes on test_images.py's synthetic
+circle) are example scenes too, with their images in `EXAMPLE_IMAGES`;
+`make_image_file_scene` (examples/image_renderlist.py) and
+`make_loaded_photo_wall` (a 1080p photo grid) draw an image loaded from a
+file, the repo's PNG fixture (`IMAGE_FIXTURE`; `render_image_file` loads it
+through resources.load_image), held to `example_reference_path
+("image_file", form)` and `PHOTO_WALL_REFERENCE`, and the fixture's decode
+and sidecar to the digests in `IMAGE_FIXTURE_REFERENCE`.
+
 For the frame loop's entry points: `make_blurred_cards_scene` (the
 clipped photo cards under a backdrop blur, a frosted panel and a second
 band of cards above it: a long tape with a blur, which the planner sends to
@@ -38,8 +49,8 @@ from types import SimpleNamespace
 import numpy as np
 
 from .basics import (
-    BackdropBlurStyle, FigFlags, FigKind, RenderShadow, RenderStroke,
-    ShadowStyle, StrokeCap, StrokeJoin, image_style,
+    BackdropBlurStyle, FigFlags, FigKind, MsdfImageStyle, RenderShadow,
+    RenderStroke, ShadowStyle, StrokeCap, StrokeJoin, image_style,
 )
 from .borders import (
     fig_dashed_rounded_rect_border, fig_dotted_rounded_rect_border,
@@ -1493,12 +1504,192 @@ def make_dashed_borders_scene(w: float = 820.0, h: float = 560.0,
     return renders
 
 
+# --- generated SDF images ---------------------------------------------------------
+
+MSDF_STAR_SIZE = (760, 520)  # examples/msdf_star.py's W, H
+STAR_ID = 9001  # msdf_star.STAR_ID
+STAR_PX_RANGE = 8.0  # msdf_star.PX_RANGE
+MTSDF_SIZE = (280, 100)
+MTSDF_ID = 98  # test_images.py's synthetic MSDF image
+
+
+def star_coverage(size: int = 96, points: int = 5,
+                  inner_frac: float = 0.42) -> np.ndarray:
+    """examples/msdf_star.py's star_coverage: the analytic coverage of a
+    regular star polygon, 4x supersampled."""
+    ss = 4
+    n = size * ss
+    yy, xx = np.mgrid[0:n, 0:n]
+    cx = cy = n / 2.0
+    px = (xx + 0.5 - cx) / (n / 2.0)
+    py = (yy + 0.5 - cy) / (n / 2.0)
+    r_outer = 0.92
+    r_inner = r_outer * inner_frac
+    verts = []
+    for i in range(points * 2):
+        ang = -math.pi / 2.0 + i * math.pi / points
+        r = r_outer if i % 2 == 0 else r_inner
+        verts.append((r * math.cos(ang), r * math.sin(ang)))
+    # even-odd point-in-polygon over the supersampled grid
+    inside = np.zeros((n, n), bool)
+    m = len(verts)
+    for i in range(m):
+        x0, y0 = verts[i]
+        x1, y1 = verts[(i + 1) % m]
+        crosses = ((y0 > py) != (y1 > py)) & (
+            px < (x1 - x0) * (py - y0) / (y1 - y0 + 1e-30) + x0
+        )
+        inside ^= crosses
+    cov = inside.reshape(size, ss, size, ss).mean(axis=(1, 3))
+    return cov.astype(np.float32)
+
+
+def star_sdf() -> np.ndarray:
+    """The star's SDF image as msdf_star.main publishes it: the port's
+    utils.sdfgen.sdf_from_coverage of star_coverage(), px_range 8."""
+    from .utils.sdfgen import sdf_from_coverage
+
+    return sdf_from_coverage(star_coverage(), px_range=STAR_PX_RANGE)
+
+
+def make_msdf_star_scene(w: float = 760.0, h: float = 520.0) -> Renders:
+    """examples/msdf_star.py's make_scene: one star SDF (STAR_ID) drawn
+    through nkMsdfImage at 24 to 300 px (mode 13), as outlines through
+    stroke_weight (mode 15) and fattened through sd_threshold."""
+    renders = new_renders()
+    renders.add_root(0, Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, w, h),
+                            fill=fill(rgba(24, 28, 40, 255))))
+
+    def star(x, y, s, color, stroke_weight=0.0, sd_threshold=0.0):
+        renders.add_root(0, Fig(
+            kind=FigKind.nkMsdfImage, screen_box=rect(x, y, s, s),
+            msdf_image=MsdfImageStyle(id=STAR_ID, fill=fill(color),
+                                      px_range=STAR_PX_RANGE,
+                                      sd_threshold=sd_threshold,
+                                      stroke_weight=stroke_weight)))
+
+    x = 36.0
+    for s in (24.0, 48.0, 96.0, 180.0):
+        star(x, h - s - 40.0, s, rgba(250, 200, 70, 255))
+        x += s + 26.0
+    star(430.0, 40.0, 300.0, rgba(90, 70, 190, 255))
+    star(60.0, 60.0, 120.0, rgba(120, 190, 250, 255), stroke_weight=3.0)
+    star(210.0, 90.0, 80.0, rgba(240, 110, 160, 255), stroke_weight=1.5)
+    star(300.0, 60.0, 110.0, rgba(245, 245, 250, 255), sd_threshold=-0.12)
+    return renders
+
+
+def synthetic_msdf(size: int = 32, radius: float = 10.0,
+                   px_range: float = 4.0) -> np.ndarray:
+    """tests/test_images.py's synthetic_msdf: the true SDF of a circle in
+    r, g and b (their median is the SDF) and in alpha (the MTSDF plane)."""
+    yy, xx = np.mgrid[0:size, 0:size]
+    d = np.sqrt((xx + 0.5 - size / 2) ** 2 + (yy + 0.5 - size / 2) ** 2)
+    sd = (radius - d) / px_range + 0.5
+    sd = np.clip(sd, 0.0, 1.0).astype(np.float32)
+    return np.stack([sd, sd, sd, sd], axis=-1)
+
+
+def make_mtsdf_scene(w: float = 280.0, h: float = 100.0) -> Renders:
+    """test_images.py::test_mtsdf_and_annular_msdf_render's scene, widened
+    by a third shape so that all four SDF image modes draw: an MTSDF disc
+    (mode 14), an annular MSDF ring (15) and an annular MTSDF ring (16) of
+    synthetic_msdf (MTSDF_ID) on a light background. The test's MTSDF node
+    sets msdf_image, which an nkMtsdfImage does not read, so it draws
+    nothing there; here each node sets the style its kind reads."""
+    lst = RenderList()
+    lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, w, h),
+                     fill=fill(rgba(250, 250, 250, 255))))
+    lst.add_root(Fig(kind=FigKind.nkMtsdfImage, screen_box=rect(10, 20, 64, 64),
+                     mtsdf_image=MsdfImageStyle(id=MTSDF_ID, fill=fill(rgba(20, 60, 200, 255)),
+                                                px_range=4.0)))
+    lst.add_root(Fig(kind=FigKind.nkMsdfImage, screen_box=rect(110, 20, 64, 64),
+                     msdf_image=MsdfImageStyle(id=MTSDF_ID, fill=fill(rgba(200, 40, 40, 255)),
+                                               px_range=4.0, stroke_weight=2.0)))
+    lst.add_root(Fig(kind=FigKind.nkMtsdfImage, screen_box=rect(200, 20, 64, 64),
+                     mtsdf_image=MsdfImageStyle(id=MTSDF_ID, fill=fill(rgba(30, 150, 60, 255)),
+                                                px_range=4.0, stroke_weight=3.0)))
+    renders = new_renders()
+    renders.set_layer(0, lst)
+    return renders
+
+
+# --- images from files ------------------------------------------------------------
+
+# the repo's PNG fixture the image-file scenes load: 800x600 RGBA8, rows
+# filtered Sub, Up and Paeth
+IMAGE_FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             "tests", "goldens", "render_3d_overlay_gaussian.png")
+IMAGE_FIXTURE_REFERENCE = os.path.join(REFERENCE_DIR, "image_fixture.json")
+IMAGE_FILE_SIZE = (800, 600)  # examples/image_renderlist.py's W, H
+PHOTO_WALL_SIZE = (1920, 1080)
+PHOTO_WALL_PANELS = 48
+PHOTO_WALL_EDGES = (400, 200, 100, 50)  # a panel's image edge, by i % 4
+PHOTO_WALL_SMALL = (480, 270, 12)  # the stored reference's frame and panels
+PHOTO_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_480x270_blocks8.npy")
+
+
+def make_image_file_scene(w: float, h: float, image_id: int) -> Renders:
+    """examples/image_renderlist.py's scene: a dark page, a rounded grey
+    card and the image `image_id` (the example's ImageRef-owned picture;
+    here a loaded file) drawn at 280x280 on top."""
+    renders = new_renders()
+    root = renders.add_root(0, Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, w, h),
+                                   fill=fill(rgba(30, 30, 30, 255))))
+    renders.add_child(0, root, Fig(kind=FigKind.nkRectangle,
+                                   screen_box=rect(40, 40, 320, 320), corners=(16,) * 4,
+                                   fill=fill(rgba(80, 80, 80, 255))))
+    renders.add_child(0, root, Fig(kind=FigKind.nkImage, screen_box=rect(60, 60, 280, 280),
+                                   image=image_style(image_id)))
+    return renders
+
+
+def make_loaded_photo_wall(w: float, h: float, n: int, image_id: int) -> RendersArray:
+    """A photo grid of one loaded image (image_id, 800x600): on a dark
+    page, n seeded panels (seed 777, as make_image_panels_scene), panel i a
+    rounded grey card holding the image at an edge of PHOTO_WALL_EDGES[i %
+    4] px (3:4 high), minified draws across levels 1-4 of its mip chain.
+    Every fourth group of four panels (a quarter) clips its content
+    (NfClipContent, a mask plane each) and holds the image 8 px past its
+    right and bottom edge, which the clip cuts; the others hold it inset by
+    8 px. The planner's routing decides the kernels: more than 24 pass
+    items go to the megakernel with the atlas."""
+    rng = np.random.RandomState(777)
+    lst = RenderList()
+    lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, w, h),
+                     fill=fill(rgba(30, 30, 30, 255))))
+    for i in range(n):
+        s = float(PHOTO_WALL_EDGES[i % 4])
+        ih = s * 0.75
+        x = float(rng.uniform(0, max(1.0, w - s - 16)))
+        y = float(rng.uniform(0, max(1.0, h - ih - 16)))
+        clip = (i // 4) % 4 == 0
+        box = rect(x, y, s, ih) if clip else rect(x, y, s + 16, ih + 16)
+        panel = lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=box,
+                                 fill=fill(rgba(80, 80, 80, 255)), corners=(12,) * 4,
+                                 flags=FigFlags.NfClipContent if clip else 0))
+        lst.add_child(panel, Fig(kind=FigKind.nkImage, screen_box=rect(x + 8, y + 8, s, ih),
+                                 image=image_style(image_id)))
+    renders = new_renders()
+    renders.set_layer(0, lst)
+    return from_renders(renders)
+
+
 # name -> (make function, frame size): the example scenes chip_smoke.py and the
 # tests hold to the JAX package's frames
 EXAMPLE_SCENES = {
     "layers_clip": (make_layers_clip_scene, LAYERS_CLIP_SIZE),
     "drawable_beziers": (make_drawable_beziers_scene, DRAWABLE_BEZIERS_SIZE),
     "dashed_borders": (make_dashed_borders_scene, DASHED_BORDERS_SIZE),
+    "msdf_star": (make_msdf_star_scene, MSDF_STAR_SIZE),
+    "mtsdf": (make_mtsdf_scene, MTSDF_SIZE),
+}
+
+# name -> the images an example scene draws, as (id, image) pairs that
+# render_example publishes on the renderer's own bus
+EXAMPLE_IMAGES = {
+    "msdf_star": lambda: [(STAR_ID, star_sdf())],
+    "mtsdf": lambda: [(MTSDF_ID, synthetic_msdf())],
 }
 
 # the forms each example scene is held to the JAX package's frame in:
@@ -1510,30 +1701,59 @@ EXAMPLE_FORMS = {"1x": (1.0, 1.0, 1), "pixel2": (2.0, 1.0, 2), "ui2": (1.0, 2.0,
 
 
 def example_reference_path(name: str, form: str) -> str:
-    """figdraw_tpu's frame of an example scene in one form, as 8x8 block
-    means (tests/torch_reference.py writes them)."""
-    if name not in EXAMPLE_SCENES or form not in EXAMPLE_FORMS:
+    """figdraw_tpu's frame of an example scene (or of the image-file scene,
+    name "image_file") in one form, as 8x8 block means
+    (tests/torch_reference.py writes them)."""
+    if (name not in EXAMPLE_SCENES and name != "image_file") or form not in EXAMPLE_FORMS:
         raise ValueError(f"unknown example {name!r} or form {form!r}")
     return os.path.join(REFERENCE_DIR, f"example_{name}_{form}_blocks8.npy")
 
 
-def render_example(renderer_for, name: str, form: str):
-    """The frame of example scene `name` in `form`: renderer_for(pixel_scale)
-    gives the renderer; the UI scale is set for the frame and restored after
-    it. Returns (renderer, frame)."""
+def render_in_form(ren, scene_for, size, form: str):
+    """ren's frame of scene_for(w, h) in `form` (the renderer already has
+    the form's pixel scale): the UI scale is set for the frame and restored
+    after it."""
     from .basics import fig_ui_scale, set_fig_ui_scale
-    from .geometry import vec2
 
-    build, (w, h) = EXAMPLE_SCENES[name]
-    pixel_scale, ui_scale, mult = EXAMPLE_FORMS[form]
-    ren = renderer_for(pixel_scale)
+    (w, h), (_ps, ui_scale, mult) = size, EXAMPLE_FORMS[form]
     old = fig_ui_scale()
     set_fig_ui_scale(ui_scale)
     try:
-        frame = ren.render_frame(build(w, h), vec2(w * mult, h * mult))
+        return ren.render_frame(scene_for(w, h), vec2(w * mult, h * mult))
     finally:
         set_fig_ui_scale(old)
-    return ren, frame
+
+
+def render_example(renderer_for, name: str, form: str):
+    """The frame of example scene `name` in `form`: renderer_for(pixel_scale)
+    gives the renderer, and the scene's images (EXAMPLE_IMAGES) are
+    published on a bus of its own. Returns (renderer, frame)."""
+    from .resources import ImageMessageBus, put_image
+
+    build, size = EXAMPLE_SCENES[name]
+    ren = renderer_for(EXAMPLE_FORMS[form][0])
+    if name in EXAMPLE_IMAGES:
+        bus = ImageMessageBus()
+        ren.ensure_image_message_subscription(bus)
+        for image_id, image in EXAMPLE_IMAGES[name]():
+            put_image(image_id, image, bus=bus)
+    return ren, render_in_form(ren, build, size, form)
+
+
+def render_image_file(renderer_for, path: str, form: str):
+    """The image-file scene in `form`: the PNG at `path` loaded by
+    resources.load_image (through its .flippy sidecar, written beside it)
+    on a bus of the renderer's own. Returns (renderer, frame, the
+    ImageRef)."""
+    from .resources import ImageMessageBus, load_image
+
+    ren = renderer_for(EXAMPLE_FORMS[form][0])
+    bus = ImageMessageBus()
+    ren.ensure_image_message_subscription(bus)
+    ref = load_image(path, bus=bus)
+    frame = render_in_form(ren, lambda w, h: make_image_file_scene(w, h, ref.id),
+                           IMAGE_FILE_SIZE, form)
+    return ren, frame, ref
 
 
 # --- the frame loop's scenes ------------------------------------------------------

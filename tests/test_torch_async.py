@@ -195,3 +195,53 @@ def test_async_stress_with_a_short_switch_interval():
     want = drive(b, lambda r, f: r.render_frame(scene, size, clear_main=f % 3 != 2))
     for f in range(24):
         assert torch.equal(got[f], want[f]), f"frame {f}"
+
+
+@pytest.mark.parametrize("publish", ["load_image", "put_image"])
+def test_async_image_published_between_frames(publish, tmp_path):
+    """The atlas changing inside the frame loop: an image published on the
+    renderer's bus (load_image of the PNG fixture through its .flippy
+    chain, which grows the atlas from 256 to 2048, or a mipmapped
+    put_image) between two async frames, the first held until the second
+    is queued. Each frame equals render_frame's with the same publication
+    at the same point, bit for bit."""
+    from figdraw_tpu_torch import resources
+    from figdraw_tpu_torch.scenes import make_loaded_photo_wall
+    from torch_reference import fixture_copy
+
+    size = port.vec2(320, 200)
+    path = fixture_copy(str(tmp_path))
+    first_scene = make_image_panels_scene(320, 200, 12, "images_scaled")
+
+    def publish_on(ren) -> int:
+        if publish == "load_image":
+            return resources.load_image(path, bus=ren._bus).id
+        rng = np.random.RandomState(9)
+        resources.put_image(5151, rng.randint(0, 256, (96, 128, 4)).astype(np.uint8),
+                            bus=ren._bus, mipmapped=True)
+        return 5151
+
+    r = port_image_renderer()
+    gate = threading.Event()
+    orig = r._run_plan
+
+    def held(*a, **k):
+        gate.wait(30)
+        return orig(*a, **k)
+
+    r._run_plan = held
+    first = r.render_frame_async(first_scene, size)
+    image_id = publish_on(r)
+    second = r.render_frame_async(make_loaded_photo_wall(320, 200, 8, image_id), size)
+    third = r.render_frame_async(first_scene, size)
+    gate.set()
+    ref = port_image_renderer()
+    want = [ref.render_frame(first_scene, size)]
+    ref_id = publish_on(ref)
+    want.append(ref.render_frame(make_loaded_photo_wall(320, 200, 8, ref_id), size))
+    want.append(ref.render_frame(first_scene, size))
+    got = [f.result(timeout=120) for f in (first, second, third)]
+    for f in range(3):
+        assert torch.equal(got[f], want[f]), f"frame {f}"
+    assert ref.atlas.size == (2048 if publish == "load_image" else 256)
+    assert not torch.equal(got[0], got[1])

@@ -248,3 +248,30 @@ def test_batch_stack_round_trips_buffers():
     with pytest.raises(ValueError):
         stack.add({"combo": np.zeros((6, 52), np.float32), "items": frames[0]["items"],
                    "radii": frames[0]["radii"]})
+
+
+def test_batch_cold_glyph_in_a_later_frame(monkeypatch):
+    """The atlas changing inside a batch: frames of text whose later frames
+    hold a glyph no earlier frame drew (a cold miss rasterized into the
+    atlas by the walk of that frame). The frames before it keep their
+    group and atlas; each frame equals render_frame's on a second renderer
+    bit for bit."""
+    from figdraw_tpu_torch.scenes import make_text_scene
+    from figdraw_tpu_torch.text.typefaces import bundled_font_path, load_typeface
+
+    groups = _groups(monkeypatch)
+    tid = load_typeface(bundled_font_path())
+    ink = port.fill(port.rgba(20, 20, 30, 255))
+    seeds = [0, 0, 1, 1, 2]  # the lines of seed s end in s, s + 1, s + 2
+
+    def scenes():
+        return [make_text_scene(tid, ink, s, 320, 80, lines=3)[0] for s in seeds]
+
+    a = port.FigRenderer(atlas_size=256, device="cpu")
+    out = a.render_batch(scenes(), port.vec2(320, 80))
+    b = port.FigRenderer(atlas_size=256, device="cpu")
+    want = [b.render_frame(sc, port.vec2(320, 80)) for sc in scenes()]
+    for f in range(len(seeds)):
+        assert torch.equal(out[f], want[f]), f"frame {f}"
+    assert groups == [2, 2, 1]
+    assert not torch.equal(out[1], out[2])

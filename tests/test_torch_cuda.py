@@ -1243,3 +1243,122 @@ def test_text_table_built_by_the_port_matches_plain(dev):
     assert float((frame - ref).abs().max()) <= TOL
     with np.load(TEXT_TABLE_REFERENCE) as z:
         assert np.abs(_block_means(frame) - z["blocks"]).max() <= TOL
+
+
+# --- images from files and generated SDFs -------------------------------------------
+
+
+def _loaded(path, atlas_size=512, device="cuda"):
+    """A renderer with the PNG at `path` loaded on a bus of its own:
+    (renderer, ImageRef)."""
+    from figdraw_tpu_torch.resources import load_image
+
+    ren = FigRenderer(atlas_size=atlas_size, device=device)
+    bus = ImageMessageBus()
+    ren.ensure_image_message_subscription(bus)
+    return ren, load_image(path, bus=bus)
+
+
+@pytest.fixture
+def fixture_png(tmp_path):
+    """The repo's PNG fixture copied where load_image may write its
+    sidecar."""
+    import shutil
+
+    from figdraw_tpu_torch.scenes import IMAGE_FIXTURE
+
+    path = str(tmp_path / "fixture.png")
+    shutil.copyfile(IMAGE_FIXTURE, path)
+    return path
+
+
+def test_image_file_scene_on_the_card(dev, fixture_png):
+    """The image-file scene with the fixture loaded through its .flippy
+    chain: one K1-atlas launch, the frame the plain executor's and the
+    stored block means of figdraw_tpu's."""
+    from figdraw_tpu_torch.scenes import (
+        IMAGE_FILE_SIZE, example_reference_path, make_image_file_scene,
+    )
+
+    ren, ref = _loaded(fixture_png)
+    w, h = IMAGE_FILE_SIZE
+    scene = make_image_file_scene(w, h, ref.id)
+    ren.render_frame(scene, vec2(w, h))
+    counts = _counts()
+    frame = ren.render_frame(scene, vec2(w, h))
+    assert tuple(b - a for a, b in zip(counts, _counts())) == (0, 1, 0, 0, 0)
+    plan = plan_execution(ren.flatten(scene, vec2(w, h)))
+    run = get_frame_executor(plan.structure, plan.height, plan.width, plan.n_masks,
+                             plan.has_init_frame, plan.tile_h)
+    want = run(torch.from_numpy(plan.combo).to(dev), None, atlas=ren._device_atlas(),
+               draw=raster.draw_pass_planar_prebinned_plain)
+    torch.cuda.synchronize()
+    assert float((frame - want).abs().max()) <= TOL
+    assert np.abs(_block_means(frame) - np.load(example_reference_path("image_file", "1x"))
+                  ).max() <= TOL
+    ref.close()
+
+
+@pytest.mark.parametrize("name", ["msdf_star", "mtsdf"])
+def test_sdf_image_modes_on_the_card(name, dev):
+    """The MSDF star (modes 13, 15) and the MTSDF scene (14, 15, 16): one
+    K1-atlas launch each, the frame the plain executor's and the stored
+    block means; the same tape through the megakernel with the atlas
+    against its plain walk."""
+    import dataclasses
+
+    from figdraw_tpu_torch.plan import pack_mega_combo
+    from figdraw_tpu_torch.scenes import EXAMPLE_SCENES, example_reference_path, render_example
+
+    before = _counts()
+    ren, frame = render_example(lambda ps: FigRenderer(device="cuda", pixel_scale=ps),
+                                name, "1x")
+    assert tuple(b - a for a, b in zip(before, _counts())) == (0, 1, 0, 0, 0)
+    build, (w, h) = EXAMPLE_SCENES[name]
+    tape = ren.flatten(build(w, h), vec2(w, h))
+    plan = plan_execution(tape)
+    run = get_frame_executor(plan.structure, plan.height, plan.width, plan.n_masks,
+                             plan.has_init_frame, plan.tile_h)
+    want = run(torch.from_numpy(plan.combo).to(dev), None, atlas=ren._device_atlas(),
+               draw=raster.draw_pass_planar_prebinned_plain)
+    torch.cuda.synchronize()
+    assert float((frame - want).abs().max()) <= TOL
+    assert np.abs(_block_means(frame) - np.load(example_reference_path(name, "1x"))
+                  ).max() <= TOL
+    mplan = dataclasses.replace(plan, mega_combo=pack_mega_combo(tape), mega_atlas=True)
+    mrun = get_mega_executor(mplan.height, mplan.width, mplan.n_masks, False, mplan.tile_h)
+    combo = torch.from_numpy(mplan.mega_combo).to(dev)
+    got = mrun(combo, None, atlas=ren._device_atlas())
+    ref = mrun(combo, None, atlas=ren._device_atlas(), draw=mega.draw_pass_mega_plain)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= TOL
+    assert float((got - frame).abs().max()) <= TOL
+
+
+def test_photo_wall_on_the_card(dev, fixture_png):
+    """The 1080p photo wall of the loaded image (48 panels, 12 clipped):
+    the megakernel with the atlas once a frame, the frame its plain walk's;
+    the 480x270 reduction against the stored block means."""
+    from figdraw_tpu_torch.scenes import (
+        PHOTO_WALL_REFERENCE, PHOTO_WALL_SMALL, make_loaded_photo_wall,
+    )
+
+    ren, ref = _loaded(fixture_png, atlas_size=256)
+    scene = make_loaded_photo_wall(1920, 1080, 48, ref.id)
+    ren.render_frame(scene, vec2(1920, 1080))
+    counts = _counts()
+    frame = ren.render_frame(scene, vec2(1920, 1080))
+    assert tuple(b - a for a, b in zip(counts, _counts())) == (0, 0, 0, 0, 1)
+    assert ren.atlas.size == 2048
+    plan = plan_execution(ren.flatten(scene, vec2(1920, 1080)))
+    run = get_mega_executor(plan.height, plan.width, plan.n_masks, False, plan.tile_h)
+    want = run(torch.from_numpy(plan.mega_combo).to(dev), None, atlas=ren._device_atlas(),
+               draw=mega.draw_pass_mega_plain)
+    torch.cuda.synchronize()
+    assert float((frame - want).abs().max()) <= TOL
+    w, h, n = PHOTO_WALL_SMALL
+    small, small_ref = _loaded(fixture_png, atlas_size=256)
+    got = small.render_frame(make_loaded_photo_wall(w, h, n, small_ref.id), vec2(w, h))
+    assert np.abs(_block_means(got) - np.load(PHOTO_WALL_REFERENCE)).max() <= TOL
+    ref.close()
+    small_ref.close()

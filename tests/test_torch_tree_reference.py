@@ -2,9 +2,9 @@
 port's tree frames to on the card (the card's machine has no jax):
 `figdraw_tpu_torch/reference/example_<scene>_<form>_blocks8.npy`, the 8x8
 block means of figdraw_tpu's frames of examples/layers_clip.py,
-drawable_beziers.py and dashed_dotted_borders.py at their own sizes, at
-pixel_scale=2 and at UI scale 2 (scenes.EXAMPLE_FORMS), written by
-tests/torch_reference.py.
+drawable_beziers.py, dashed_dotted_borders.py and msdf_star.py and of the
+MTSDF scene at their own sizes, at pixel_scale=2 and at UI scale 2
+(scenes.EXAMPLE_FORMS), written by tests/torch_reference.py.
 
 Each stored array must be figdraw_tpu's frame today (it fails when they
 drift: rewrite them with `JAX_PLATFORMS=cpu python tests/torch_reference.py

@@ -38,14 +38,30 @@ long tapes on the rolled executor):
 - `overlay_3d_420x300_blocks8.npy`: (6, 37, 52, 4), 8x8 block means of
   examples/overlay_3d.py's six frames (its scene and pyramid at t = 0.35 +
   0.5 i) through figdraw_tpu's render_frame_with_overlays
-  (FigRenderer(atlas_size=128, use_pallas=False), `jax_overlay_frames`).
+  (FigRenderer(atlas_size=128, use_pallas=False), `jax_overlay_frames`);
+- the example scenes `msdf_star` (examples/msdf_star.py, its star SDF made
+  by figdraw_tpu.utils.sdfgen) and `mtsdf` (`jax_mtsdf_scene`) in each
+  form, as the other examples (`jax_example_images` publishes their
+  images);
+- `image_fixture.json`: the sha256 of PIL's decode of the PNG fixture
+  (tests/goldens/render_3d_overlay_gaussian.png) and of the .flippy sidecar
+  figdraw_tpu's read_image_cached writes for it (`fixture_digests`);
+- `example_image_file_<form>_blocks8.npy` and
+  `photo_wall_480x270_blocks8.npy`: 8x8 block means of
+  examples/image_renderlist.py's scene with the fixture loaded by
+  figdraw_tpu's load_image (`jax_image_file_frame`) in each form, and of
+  the photo wall of the loaded image at 480x270 with 12 panels
+  (`jax_photo_wall_frame`), both FigRenderer(atlas_size=512,
+  use_pallas=False).
 
-Rewrite them all (needs jax, fontTools and the DejaVu font), only the
-example scenes' (needs jax), or only the frame loop's two (needs jax):
+Rewrite them all (needs jax, fontTools, PIL and the DejaVu font), only the
+example scenes' (needs jax), only the frame loop's two (needs jax) or only
+the image files' (needs jax and PIL):
 
     JAX_PLATFORMS=cpu python tests/torch_reference.py
     JAX_PLATFORMS=cpu python tests/torch_reference.py examples
     JAX_PLATFORMS=cpu python tests/torch_reference.py frameloop
+    JAX_PLATFORMS=cpu python tests/torch_reference.py images
 """
 
 import json
@@ -660,11 +676,64 @@ def text_table_fixture(rows: int = TABLE_ROWS, cols: int = TABLE_COLS,
     return arrays, frame
 
 
+def jax_mtsdf_scene(w: float = 280.0, h: float = 100.0):
+    """scenes.make_mtsdf_scene with the figdraw_tpu API:
+    test_images.py::test_mtsdf_and_annular_msdf_render's scene with each
+    node's style set as its kind reads it, and an annular MTSDF ring."""
+    from figdraw_tpu import Fig, FigKind, MsdfImageStyle, fill, new_renders, rect, rgba
+    from figdraw_tpu.nodes import RenderList
+
+    lst = RenderList()
+    lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, w, h),
+                     fill=fill(rgba(250, 250, 250, 255))))
+    lst.add_root(Fig(kind=FigKind.nkMtsdfImage, screen_box=rect(10, 20, 64, 64),
+                     mtsdf_image=MsdfImageStyle(id=98, fill=fill(rgba(20, 60, 200, 255)),
+                                                px_range=4.0)))
+    lst.add_root(Fig(kind=FigKind.nkMsdfImage, screen_box=rect(110, 20, 64, 64),
+                     msdf_image=MsdfImageStyle(id=98, fill=fill(rgba(200, 40, 40, 255)),
+                                               px_range=4.0, stroke_weight=2.0)))
+    lst.add_root(Fig(kind=FigKind.nkMtsdfImage, screen_box=rect(200, 20, 64, 64),
+                     mtsdf_image=MsdfImageStyle(id=98, fill=fill(rgba(30, 150, 60, 255)),
+                                                px_range=4.0, stroke_weight=3.0)))
+    r = new_renders()
+    r.set_layer(0, lst)
+    return r
+
+
+def jax_example_images(name: str) -> list:
+    """The (id, image) pairs an example scene draws, made by figdraw_tpu:
+    msdf_star's star through figdraw_tpu.utils.sdfgen, test_images.py's
+    synthetic MSDF circle for the MTSDF scene."""
+    sys.path.insert(0, os.path.join(REPO, "examples"))
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    try:
+        if name == "msdf_star":
+            import msdf_star
+            from figdraw_tpu.utils.sdfgen import sdf_from_coverage
+
+            return [(msdf_star.STAR_ID, sdf_from_coverage(msdf_star.star_coverage(),
+                                                          px_range=msdf_star.PX_RANGE))]
+        if name == "mtsdf":
+            from test_images import synthetic_msdf
+
+            return [(98, synthetic_msdf())]
+        return []
+    finally:
+        sys.path.remove(os.path.join(REPO, "examples"))
+        sys.path.remove(os.path.join(REPO, "tests"))
+
+
 def jax_example_scene(name: str):
     """An example scene as its example builds it with the figdraw_tpu API
     (the last frame the example writes): (renders, (w, h))."""
+    if name == "mtsdf":
+        return jax_mtsdf_scene(), (280, 100)
     sys.path.insert(0, os.path.join(REPO, "examples"))
     try:
+        if name == "msdf_star":
+            import msdf_star
+
+            return msdf_star.make_scene(), (msdf_star.W, msdf_star.H)
         if name == "layers_clip":
             import layers_clip
 
@@ -691,15 +760,177 @@ def jax_example_frame(name: str, form: str) -> np.ndarray:
 
     from figdraw_tpu_torch.scenes import EXAMPLE_FORMS
 
+    from figdraw_tpu.resources import ImageMessageBus, put_image
+
     pixel_scale, ui_scale, mult = EXAMPLE_FORMS[form]
     renders, (w, h) = jax_example_scene(name)
     ren = FigRenderer(use_pallas=True, pixel_scale=pixel_scale)
+    bus = ImageMessageBus()
+    ren.ensure_image_message_subscription(bus)
+    for image_id, image in jax_example_images(name):
+        put_image(image_id, image, bus=bus)
     old = fig_ui_scale()
     set_fig_ui_scale(ui_scale)
     try:
         return np.asarray(ren.render_frame(renders, vec2(w * mult, h * mult)))
     finally:
         set_fig_ui_scale(old)
+
+
+def jax_image_file_scene(w: float, h: float, image_id: int):
+    """scenes.make_image_file_scene with the figdraw_tpu API:
+    examples/image_renderlist.py's scene with the image `image_id`."""
+    from figdraw_tpu import Fig, FigKind, fill, image_style, new_renders, rect, rgba
+
+    renders = new_renders()
+    root = renders.add_root(0, Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, w, h),
+                                   fill=fill(rgba(30, 30, 30, 255))))
+    renders.add_child(0, root, Fig(kind=FigKind.nkRectangle,
+                                   screen_box=rect(40, 40, 320, 320), corners=(16,) * 4,
+                                   fill=fill(rgba(80, 80, 80, 255))))
+    renders.add_child(0, root, Fig(kind=FigKind.nkImage, screen_box=rect(60, 60, 280, 280),
+                                   image=image_style(image_id)))
+    return renders
+
+
+def jax_photo_wall(w: float, h: float, n: int, image_id: int):
+    """scenes.make_loaded_photo_wall with the figdraw_tpu API, in array
+    form."""
+    from figdraw_tpu import Fig, FigFlags, FigKind, fill, image_style, rect, rgba
+    from figdraw_tpu.nodes import RenderList
+    from figdraw_tpu_torch.scenes import PHOTO_WALL_EDGES
+
+    rng = np.random.RandomState(777)
+    lst = RenderList()
+    lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, w, h),
+                     fill=fill(rgba(30, 30, 30, 255))))
+    for i in range(n):
+        s = float(PHOTO_WALL_EDGES[i % 4])
+        ih = s * 0.75
+        x = float(rng.uniform(0, max(1.0, w - s - 16)))
+        y = float(rng.uniform(0, max(1.0, h - ih - 16)))
+        clip = (i // 4) % 4 == 0
+        box = rect(x, y, s, ih) if clip else rect(x, y, s + 16, ih + 16)
+        panel = lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=box,
+                                 fill=fill(rgba(80, 80, 80, 255)), corners=(12,) * 4,
+                                 flags=FigFlags.NfClipContent if clip else 0))
+        lst.add_child(panel, Fig(kind=FigKind.nkImage, screen_box=rect(x + 8, y + 8, s, ih),
+                                 image=image_style(image_id)))
+    return _as_array(lst)
+
+
+def jax_loaded_renderer(path: str, pixel_scale: float = 1.0, atlas_size: int = 512):
+    """figdraw_tpu's renderer (use_pallas=False) with the PNG at `path`
+    loaded by its load_image (PIL, its .flippy sidecar beside the file) on
+    a bus of its own: (renderer, ImageRef)."""
+    from figdraw_tpu.renderer import FigRenderer
+    from figdraw_tpu.resources import ImageMessageBus, load_image
+
+    jax_flippy()
+    ren = FigRenderer(atlas_size=atlas_size, use_pallas=False, pixel_scale=pixel_scale)
+    bus = ImageMessageBus()
+    ren.ensure_image_message_subscription(bus)
+    return ren, load_image(path, bus=bus)
+
+
+def jax_image_file_frame(path: str, form: str) -> np.ndarray:
+    """figdraw_tpu's frame of the image-file scene in one of
+    scenes.EXAMPLE_FORMS, the image loaded from `path`."""
+    from figdraw_tpu import fig_ui_scale, set_fig_ui_scale, vec2
+
+    from figdraw_tpu_torch.scenes import EXAMPLE_FORMS, IMAGE_FILE_SIZE
+
+    pixel_scale, ui_scale, mult = EXAMPLE_FORMS[form]
+    (w, h) = IMAGE_FILE_SIZE
+    ren, ref = jax_loaded_renderer(path, pixel_scale)
+    old = fig_ui_scale()
+    set_fig_ui_scale(ui_scale)
+    try:
+        return np.asarray(ren.render_frame(jax_image_file_scene(w, h, ref.id),
+                                           vec2(w * mult, h * mult)))
+    finally:
+        set_fig_ui_scale(old)
+
+
+def jax_photo_wall_frame(path: str, w: int, h: int, n: int) -> np.ndarray:
+    from figdraw_tpu import vec2
+
+    ren, ref = jax_loaded_renderer(path)
+    return np.asarray(ren.render_frame(jax_photo_wall(w, h, n, ref.id), vec2(w, h)))
+
+
+def jax_flippy():
+    """figdraw_tpu.utils.flippy with its Snappy library loaded. It builds
+    the library at first use in place (native/build/), so a test worker that
+    loads it while another worker is still building it fails once and would
+    write literal-only streams for the rest of the process: retry until the
+    other build is done."""
+    import time
+
+    from figdraw_tpu.utils import flippy
+
+    for _ in range(60):
+        if flippy._load() is not None:
+            return flippy
+        flippy._load_failed = False
+        time.sleep(0.5)
+    raise RuntimeError("figdraw_tpu's Snappy library does not load")
+
+
+def fixture_copy(tmp_dir: str) -> str:
+    """The PNG fixture copied into tmp_dir (load_image writes its sidecar
+    beside the file it reads)."""
+    import shutil
+
+    from figdraw_tpu_torch.scenes import IMAGE_FIXTURE
+
+    path = os.path.join(tmp_dir, os.path.basename(IMAGE_FIXTURE))
+    shutil.copyfile(IMAGE_FIXTURE, path)
+    return path
+
+
+def fixture_digests(tmp_dir: str) -> dict:
+    """The fixture's sha256 digests: PIL's decode (`Image.open(...)
+    .convert("RGBA")`) and the sidecar figdraw_tpu's read_image_cached
+    writes for it."""
+    import hashlib
+
+    from PIL import Image
+
+    read_image_cached = jax_flippy().read_image_cached
+    path = fixture_copy(tmp_dir)
+    pixels = np.asarray(Image.open(path).convert("RGBA"))
+    read_image_cached(path)
+    with open(path + ".flippy", "rb") as fh:
+        sidecar = fh.read()
+    return {"decoded_sha256": hashlib.sha256(pixels.tobytes()).hexdigest(),
+            "shape": list(pixels.shape),
+            "sidecar_sha256": hashlib.sha256(sidecar).hexdigest(),
+            "sidecar_bytes": len(sidecar)}
+
+
+def write_image_file_references() -> None:
+    import tempfile
+
+    from figdraw_tpu_torch.scenes import (
+        EXAMPLE_FORMS, IMAGE_FIXTURE_REFERENCE, PHOTO_WALL_REFERENCE, PHOTO_WALL_SMALL,
+        example_reference_path,
+    )
+
+    with tempfile.TemporaryDirectory() as td:
+        with open(IMAGE_FIXTURE_REFERENCE, "w") as fh:
+            json.dump(fixture_digests(td), fh, indent=1)
+            fh.write("\n")
+        print(f"wrote {IMAGE_FIXTURE_REFERENCE}")
+        path = fixture_copy(td)
+        for form in EXAMPLE_FORMS:
+            out = example_reference_path("image_file", form)
+            np.save(out, block_means(jax_image_file_frame(path, form)).astype(np.float32))
+            print(f"wrote {out}")
+        w, h, n = PHOTO_WALL_SMALL
+        np.save(PHOTO_WALL_REFERENCE,
+                block_means(jax_photo_wall_frame(path, w, h, n)).astype(np.float32))
+        print(f"wrote {PHOTO_WALL_REFERENCE}")
 
 
 def write_example_references() -> None:
@@ -723,10 +954,14 @@ def main() -> None:
     if sys.argv[1:] == ["frameloop"]:
         write_frameloop_references()
         return
+    if sys.argv[1:] == ["images"]:
+        write_image_file_references()
+        return
     write_example_references()
     if sys.argv[1:] == ["examples"]:
         return
     write_frameloop_references()
+    write_image_file_references()
 
     with pytest.MonkeyPatch.context() as mp:
         for variant in IMAGE_VARIANTS:
