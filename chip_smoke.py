@@ -94,7 +94,21 @@ FigRenderer(device="cuda").render_frame or execute_plan:
   image modes 13-16 counted where they reach K1-atlas and, beside the main
   path, K4-atlas; and a 1080p photo wall of the loaded image (48 panels,
   12 clipped: the megakernel with the atlas), with the host times of the
-  pipeline's steps and render_frame's perf span means.
+  pipeline's steps and render_frame's perf span means;
+- the C ABI for external hosts (capi_phase, lines `check 14`): the
+  headline scene fed row by row through the scene-building calls
+  fd_renders_* (capi_scene), walked by fd_flatten_renders and exported by
+  native.export_tape into FigRenderer.execute (its tape flatten's byte for
+  byte, its frame render_frame's bit for bit, K1 2, the blur 2 and the
+  front end 1 a frame); bench_text's scene through fd_renders_add_text
+  (K1-atlas) beside the C typesetter (native/typeset.cpp, built with g++)
+  on its 36 strings, glyph for glyph with the Python typesetter, from the
+  FDTP pack of the bundled DejaVuSans (sha256 pinned by the CPU test);
+  bench_retained's 12000 boxes through the C retained recipe
+  (fd_flatten_renders_spans, fd_renders_set_fig, fd_flatten_renders_root),
+  each patched tape a full re-flatten's byte for byte; and the C examples
+  native/examples/{scene,shim,typeset}_demo.c built with gcc against the
+  port's libraries and run.
 
 Every path bins its tape once a frame through the binning kernel
 (csrc/binning.cu), which each phase holds against its plain version on
@@ -3524,6 +3538,576 @@ def image_files_phase(tag: str, dev) -> dict:
     return dict(census=census, k1a=k1a, k4a=k4a)
 
 
+# --- the C ABI for external hosts (capi_phase) -------------------------------------
+
+CAPI_FRAMES = 12  # frames or patches of each C-ABI timing and counted run (medians)
+CAPI_RESERVE = 2  # inert rows at the end of each root's span (the retained recipe)
+RETAINED_BOXES = 12000  # bench_retained.py's largest grid
+TEXT_LINES = 36  # bench_text's lines
+PACK_REF = os.path.join(REF_DIR, "fdtp_DejaVuSans.json")
+NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native")
+
+
+def _cptr(arr):
+    import ctypes
+
+    return ctypes.c_void_p(arr.ctypes.data)
+
+
+def capi_scene(lib, renders):
+    """A RendersArray fed to the scene-building C ABI row by row, as an
+    external host builds its scene: each layer in ascending zlevel, each
+    node in order through fd_renders_add_root or fd_renders_add_child, a
+    drawable's ops (and bezier points) through fd_renders_add_op and a text
+    node's glyph and rect rows through fd_renders_add_text first, their
+    starts read from the layer's counts. Returns the FdRenders handle (free
+    it with fd_renders_free)."""
+    import numpy as np
+
+    from figdraw_tpu_torch.nodesarray import FIG_DTYPE
+
+    handle = lib.fd_renders_new()
+    row = np.zeros((), FIG_DTYPE)
+    for lvl, lst in renders.sorted_pairs():
+        nodes = lst.nodes[: lst.count]
+        ops, points = lst.ops_view()
+        glyphs, trects = lst.text_view()
+        if list(lst.root_ids) != sorted(lst.root_ids):
+            raise ValueError("the C ABI adds roots in node order")
+        for i in range(lst.count):
+            row[...] = nodes[i]
+            n_ops = int(row["ops_count"])
+            if n_ops:
+                row["ops_start"] = lib.fd_renders_op_count(handle, lvl)
+                first = int(nodes[i]["ops_start"])
+                for op in np.split(ops[first : first + n_ops], n_ops):
+                    n_pts = int(op["p_count"][0])
+                    p0 = int(op["p_start"][0])
+                    pts = np.ascontiguousarray(points[p0 : p0 + n_pts])
+                    lib.fd_renders_add_op(handle, lvl, _cptr(op),
+                                          _cptr(pts) if n_pts else None, n_pts)
+            n_glyphs, n_rects = int(row["glyphs_count"]), int(row["trects_count"])
+            if n_glyphs or n_rects:
+                row["glyphs_start"] = lib.fd_renders_glyph_count(handle, lvl)
+                row["trects_start"] = lib.fd_renders_trect_count(handle, lvl)
+                g0, t0 = int(nodes[i]["glyphs_start"]), int(nodes[i]["trects_start"])
+                g = np.ascontiguousarray(glyphs[g0 : g0 + n_glyphs])
+                t = np.ascontiguousarray(trects[t0 : t0 + n_rects])
+                lib.fd_renders_add_text(handle, lvl, _cptr(g) if n_glyphs else None,
+                                        n_glyphs, _cptr(t) if n_rects else None, n_rects)
+            parent = int(row["parent"])
+            got = (lib.fd_renders_add_root(handle, lvl, _cptr(row)) if parent < 0
+                   else lib.fd_renders_add_child(handle, lvl, parent, _cptr(row)))
+            if got != i:
+                lib.fd_renders_free(handle)
+                raise RuntimeError(f"layer {lvl} node {i} was added as node {got}")
+    return handle
+
+
+def capi_context(lib, ren):
+    """A walk context configured from a port renderer as a C host configures
+    it (fd_create with the UI scale, pixel scale and coverage slope, then
+    fd_set_text_config, fd_set_glyph_offsets, fd_set_atlas and
+    fd_set_white_uv). Free it with fd_destroy."""
+    import ctypes
+
+    from figdraw_tpu_torch.basics import fig_ui_scale
+
+    ctx = lib.fd_create(ctypes.c_float(fig_ui_scale()), ctypes.c_float(ren.pixel_scale),
+                        ctypes.c_float(ren.aa_factor))
+    (ids, levels, rects), edge, (u, v) = ren._walk_atlas()
+    config, offsets = ren._walk_text()
+    lib.fd_set_text_config(ctx, *(int(c) for c in config))
+    if offsets is not None:
+        keys, offs = offsets
+        lib.fd_set_glyph_offsets(ctx, _cptr(keys), _cptr(offs), keys.shape[0])
+    lib.fd_set_atlas(ctx, _cptr(ids), _cptr(levels), _cptr(rects), ids.shape[0],
+                     ctypes.c_float(float(edge)))
+    lib.fd_set_white_uv(ctx, ctypes.c_double(u), ctypes.c_double(v))
+    return ctx
+
+
+def capi_tape(lib, renders, ren, w, h, clear=(1.0, 1.0, 1.0, 1.0), times=None):
+    """`renders` built through the C ABI (capi_scene), walked by
+    fd_flatten_renders on a context configured from `ren` and exported by
+    native.export_tape: the tape a C host hands to FigRenderer.execute.
+    times: None, or a dict whose lists "build", "walk" and "export" each
+    get the step's ms."""
+    from figdraw_tpu_torch import native
+
+    t0 = time.perf_counter()
+    handle = capi_scene(lib, renders)
+    t1 = time.perf_counter()
+    ctx = capi_context(lib, ren)
+    try:
+        lib.fd_flatten_renders(ctx, handle)
+        t2 = time.perf_counter()
+        tape = native.export_tape(ctx, w, h, clear)
+        t3 = time.perf_counter()
+    finally:
+        lib.fd_destroy(ctx)
+        lib.fd_renders_free(handle)
+    if times is not None:
+        for key, ms in (("build", t1 - t0), ("walk", t2 - t1), ("export", t3 - t2)):
+            times.setdefault(key, []).append(ms * 1e3)
+    return tape
+
+
+def capi_snapshot(lib, handle, ren, w, h, reserve=CAPI_RESERVE):
+    """The retained recipe's snapshot: fd_flatten_renders_spans on a fresh
+    context configured from `ren`, each root's span ending in `reserve`
+    inert rows. Returns (tape, spans (roots, 2) i32 in flatten order)."""
+    import numpy as np
+
+    from figdraw_tpu_torch import native
+
+    n = lib.fd_renders_root_count(handle)
+    spans = np.zeros((n, 2), np.int32)
+    ctx = capi_context(lib, ren)
+    try:
+        if lib.fd_flatten_renders_spans(ctx, handle, _cptr(spans), n, reserve) != n:
+            raise RuntimeError("fd_flatten_renders_spans refused the span table")
+        return native.export_tape(ctx, w, h, (1.0, 1.0, 1.0, 1.0)), spans
+    finally:
+        lib.fd_destroy(ctx)
+
+
+def capi_patch(lib, handle, ren, tape, spans, dirty) -> None:
+    """The retained recipe's patch of a snapshot tape, in place: each dirty
+    root, (zlevel, position in its layer's roots, index into spans),
+    re-walked alone by fd_flatten_renders_root on one scratch context,
+    padded with fd_pad_rows to its span, and its rows spliced over the
+    span. Raises ValueError where the recipe cannot patch in place (a root
+    grew past its span, or the dirty roots emit a mask, a blur or a
+    backdrop: re-flatten then). Patch a tape before planning it."""
+    from figdraw_tpu_torch import native
+
+    scratch = capi_context(lib, ren)
+    try:
+        lengths = []
+        for lvl, pos, k in dirty:
+            got = lib.fd_flatten_renders_root(scratch, handle, lvl, pos)
+            span = int(spans[k, 1] - spans[k, 0])
+            if not 0 <= got <= span:
+                raise ValueError(f"root {pos} of layer {lvl} gave {got} rows for a span of {span}")
+            lib.fd_pad_rows(scratch, span - got)
+            lengths.append(span)
+        if lib.fd_mask_count(scratch) or lib.fd_item_count(scratch) > 1:
+            raise ValueError("the dirty roots emit a mask, a blur or a backdrop")
+        rows = native.export_tape(scratch, *tape.frame_size)
+    finally:
+        lib.fd_destroy(scratch)
+    r = 0
+    for (_lvl, _pos, k), n in zip(dirty, lengths):
+        s = int(spans[k, 0])
+        tape.fields[s : s + n] = rows.fields[r : r + n]
+        tape.modes[s : s + n] = rows.modes[r : r + n]
+        r += n
+
+
+def same_tape(a, b) -> bool:
+    """Two tapes with the same rows, byte for byte, pass items and mask
+    count."""
+    import numpy as np
+
+    n = a.count
+    return (n == b.count and a.items == b.items and a.mask_count == b.mask_count
+            and np.array_equal(a.fields[:n].view(np.uint32), b.fields[:n].view(np.uint32))
+            and np.array_equal(a.modes[:n], b.modes[:n]))
+
+
+def tape_copy(tape):
+    """A new tape with a copy of `tape`'s rows, items and frame: the patched
+    snapshot stays unplanned (planning packs a tape once)."""
+    from figdraw_tpu_torch.tape import Tape
+
+    out = Tape(capacity=max(tape.count, 1))
+    out.fields[: tape.count] = tape.fields[: tape.count]
+    out.modes[: tape.count] = tape.modes[: tape.count]
+    out.count, out.items, out.mask_count = tape.count, list(tape.items), tape.mask_count
+    out.frame_size, out.clear_color = tape.frame_size, tape.clear_color
+    out.tile_density = tape.tile_density
+    return out
+
+
+def text_lines(seed: int = 0) -> list:
+    """bench_text's strings (scenes.make_text_scene)."""
+    return ["The quick brown fox jumps over the lazy dog near the riverbank %d" % (seed + row)
+            for row in range(TEXT_LINES)]
+
+
+def cold_typeset(which: str) -> dict:
+    """Typesetting bench_text's 36 lines in a fresh process, from the
+    bundled DejaVuSans: `py`, the port's Python typesetter (the first
+    typeset decodes the shaper's tables), or `c`, the C typesetter (the
+    face load, the FDTP pack's build and load, then the first typesets).
+    Prints one JSON line of ms: the first pass (cold) and the median of
+    three more (warm)."""
+    from figdraw_tpu_torch import fill, rgba, vec2
+    from figdraw_tpu_torch.text import layout, native_typeset
+    from figdraw_tpu_torch.text.typefaces import FigFont, bundled_font_path, load_typeface
+
+    t0 = time.perf_counter()
+    tid = load_typeface(bundled_font_path())
+    out = {"load_ms": (time.perf_counter() - t0) * 1e3}
+    if which == "c":
+        native_typeset.build()
+        t0 = time.perf_counter()
+        native_typeset.pack_blob(tid)
+        out["pack_ms"] = (time.perf_counter() - t0) * 1e3
+
+        def one_pass():
+            for s in text_lines():
+                native_typeset.typeset_box(tid, s, 15.0, bounds=(1180.0, 22.0))
+    else:
+        ink = fill(rgba(20, 20, 30, 255))
+
+        def one_pass():
+            for s in text_lines():
+                layout.typeset(vec2(1180, 22), [(FigFont(typeface_id=tid, size=15.0), ink, s)])
+    passes = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        one_pass()
+        passes.append((time.perf_counter() - t0) * 1e3)
+    out.update(cold_ms=passes[0], warm_ms=statistics.median(passes[1:]))
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def run_cold_typeset(which: str) -> dict:
+    """cold_typeset in a new Python process (nothing loaded or decoded yet)."""
+    code = f"import chip_smoke; chip_smoke.cold_typeset({which!r})"
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=os.path.dirname(os.path.abspath(__file__)), timeout=300)
+    if res.returncode != 0:
+        fail(f"cold typeset ({which}) failed: {res.stderr[-2000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def capi_checked_frames(what: str, ren, make_tape, frames: int) -> list:
+    """`frames` frames of C-built tapes through ren.execute with the counts
+    set to 0 just before and read just after (the launches of
+    frame_launches a frame), then one more with each kernel held against
+    its plain version on the frame's own inputs. Returns the ms of each
+    counted frame (the tape, execute, the synchronize)."""
+    import torch
+
+    from figdraw_tpu_torch.plan import plan_execution
+
+    plan = plan_execution(make_tape())
+    ren.execute(make_tape())
+    torch.cuda.synchronize()
+    zero_counts()
+    ms = timed_frames(what, lambda: ren.execute(make_tape()),
+                      (plan.height, plan.width, 4), frames)
+    counted_launches(what, scaled_launches(frame_launches(plan), frames))
+    runs, undo = recorded_frames(ren)
+    try:
+        ren.execute(make_tape())
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    rplan, combo, atlas, init = runs[0]
+    plan_kernel_checks(what, rplan, combo, atlas, init)
+    return ms
+
+
+def equal_frame(what: str, got, want, ref: str = "render_frame's") -> None:
+    import torch
+
+    same = bool(torch.equal(got, want))
+    print(f"check 14: {what}: the frame through the C ABI and execute equals {ref} "
+          f"bit for bit: {same}", flush=True)
+    if not same:
+        fail(f"{what}: frames differ by {float((got - want).abs().max())}")
+
+
+def capi_examples(tag: str, tid: int, tmp: str) -> dict:
+    """The C examples of native/examples compiled with gcc against the
+    port's own builds (by the libraries' full paths: utils.gxx names them
+    lib<name>_<hash>.so) and run: scene_demo (a layered scene and the
+    retained patch), shim_demo (native/figdraw.h: scene, a typeset label,
+    borders, the patch; on a pack save_font_pack writes from the bundled
+    DejaVuSans) and typeset_demo (a line, a wrapped box and the refusal of
+    a mark, on the same pack)."""
+    import shutil
+
+    from figdraw_tpu_torch import native
+    from figdraw_tpu_torch.nodesarray import FIG_DTYPE
+    from figdraw_tpu_torch.text import native_pack, native_typeset
+
+    gcc = shutil.which("gcc")
+    if gcc is None:
+        fail("no gcc to build the C examples")
+    flatten_lib, typeset_lib = native._build(), native_typeset.build()
+    rpath = f"-Wl,-rpath,{os.path.dirname(flatten_lib)}"
+    offs = {name: FIG_DTYPE.fields[name][1]
+            for name in ("ops_start", "draw_weight", "draw_stroke_fill")}
+
+    def build(name, libs, *defs):
+        exe = os.path.join(tmp, name)
+        res = subprocess.run([gcc, os.path.join(NATIVE_DIR, "examples", name + ".c"),
+                              "-I", NATIVE_DIR, *defs, *libs, rpath, "-o", exe],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            fail(f"{name}.c does not build: {res.stderr[-2000:]}")
+        return exe
+
+    def run(exe, *args, code=0):
+        res = subprocess.run([exe, *args], capture_output=True, text=True, timeout=120)
+        if res.returncode != code:
+            fail(f"{os.path.basename(exe)} {args} exited {res.returncode}: {res.stderr[-1000:]}")
+        return dict(kv.split("=") for line in res.stdout.splitlines() for kv in line.split())
+
+    pack = os.path.join(tmp, "dejavu.fdtp")
+    native_pack.save_font_pack(tid, pack)
+    scene = run(build("scene_demo", [flatten_lib],
+                      *(f"-DFD_OFF_{k.upper()}={v}" for k, v in offs.items())))
+    shim = run(build("shim_demo", [flatten_lib, typeset_lib]), pack)
+    demo = build("typeset_demo", [typeset_lib])
+    text = "Office flow AVATAR"
+    line = run(demo, pack, text)
+    gids, _x, _c, baseline = native_typeset.typeset_line(tid, text, 24.0)
+    bg, _bx, _by, _bc, bsize = native_typeset.typeset_box(tid, text, 24.0, bounds=(160, 0),
+                                                          h_align=1, wrap=True)
+    refused = subprocess.run([demo, pack, "cafe\u0301"], capture_output=True).returncode
+    ok = {
+        "scene_demo": int(scene["quads"]) >= 3 and int(scene["patch_ok"]) == 1,
+        "shim_demo": (int(shim["quads"]) > 0 and int(shim["patch_ok"]) == 1
+                      and int(shim["label_glyphs"]) > 0 and int(shim["dashed_idx"]) >= 0
+                      and int(shim["dotted_idx"]) > int(shim["dashed_idx"])),
+        "typeset_demo": (int(line["glyphs"]) == len(gids)
+                         and int(line["first_gid"]) == int(gids[0])
+                         and float(line["baseline"]) == baseline
+                         and int(line["box_glyphs"]) == len(bg)
+                         and abs(float(line["box_w"]) - bsize[0]) < 0.05
+                         and abs(float(line["box_h"]) - bsize[1]) < 0.05 and refused == 2),
+    }
+    print(f"check 14: the C examples against the port's builds ({os.path.basename(flatten_lib)}, "
+          f"{os.path.basename(typeset_lib)}): scene_demo quads {scene['quads']} patch_ok "
+          f"{scene['patch_ok']}; shim_demo quads {shim['quads']} patch_ok {shim['patch_ok']} "
+          f"label_glyphs {shim['label_glyphs']}; typeset_demo glyphs {line['glyphs']} box "
+          f"{line['box_w']}x{line['box_h']}, the mark refused with exit {refused}: {ok} "
+          f"{tag}", flush=True)
+    if not all(ok.values()):
+        fail(f"a C example disagrees with the port: {ok}")
+    return ok | {"pack_bytes": os.path.getsize(pack)}
+
+
+def capi_phase(tag: str) -> dict:
+    """The C ABI for external hosts on the card (check 14):
+
+    (a) bench.py's headline scene (1920x1080, 300 boxes, draw -> blur r=18
+        -> draw with the backdrop) fed row by row through fd_renders_*
+        (capi_scene), walked by fd_flatten_renders, exported by
+        native.export_tape and run by FigRenderer(device="cuda").execute:
+        the tape equals flatten's of the array byte for byte and the frame
+        render_frame's bit for bit; CAPI_FRAMES frames counted (K1 2, the
+        blur 2 and the front end 1 a frame), the kernels held against their
+        plain versions on one frame's inputs; the C ABI's build, walk and
+        export a frame against flatten_fast of the array;
+    (b) bench_text's scene (1200x800, 36 lines of the bundled DejaVuSans)
+        through fd_renders_add_text with the renderer's atlas, glyph
+        offsets, text config and white texel, executed through K1-atlas:
+        the tape and the frame as in (a); beside it the C typesetter on the
+        36 strings, from the FDTP pack of the bundled face (its sha256
+        against reference/fdtp_DejaVuSans.json), glyph for glyph with the
+        port's Python typesetter within 1e-3 px; each typesetter's cold and
+        warm times from a fresh process;
+    (c) bench_retained's grid of 12000 boxes with 8 dirty roots a frame,
+        the C retained recipe (fd_flatten_renders_spans with a reserve,
+        fd_renders_set_fig, fd_flatten_renders_root on a scratch context):
+        each patched tape equals a full re-flatten byte for byte, and its
+        frame on the card the full one's bit for bit;
+    and the C examples (capi_examples)."""
+    import hashlib
+    import tempfile
+    import unicodedata
+
+    import numpy as np
+
+    from figdraw_tpu_torch import FigRenderer, fill, native, rgba, vec2
+    from figdraw_tpu_torch.basics import fig_ui_scale
+    from figdraw_tpu_torch.scenes import build_grid, make_render_tree_array, make_text_scene
+    from figdraw_tpu_torch.text import layout, native_typeset
+    from figdraw_tpu_torch.text.typefaces import FigFont, bundled_font_path, load_typeface
+
+    med = statistics.median
+    lib = native.load()
+    t_phase = time.perf_counter()
+    out = {}
+
+    # --- (a) the headline through the C ABI ---
+    size = vec2(WIDTH, HEIGHT)
+    ren = FigRenderer(device="cuda")
+    cache = {}
+    arr = make_render_tree_array(WIDTH, HEIGHT, 0, copies=COPIES, cache=cache)
+    tape = capi_tape(lib, arr, ren, WIDTH, HEIGHT)
+    want = ren.flatten(arr, size)
+    same = same_tape(tape, want)
+    print(f"check 14: headline {WIDTH}x{HEIGHT} through fd_renders_* ({arr[0].count} nodes): "
+          f"{tape.count} quads, {len(tape.items)} items; the tape equals flatten's of the "
+          f"array byte for byte: {same}", flush=True)
+    if not same:
+        fail("the C-built headline tape differs from flatten's")
+    got = ren.execute(tape)
+    equal_frame("headline", got, FigRenderer(device="cuda").render_frame(arr, size))
+    frame_no = [0]
+
+    def headline_tape():
+        frame_no[0] += 1
+        return capi_tape(lib, make_render_tree_array(WIDTH, HEIGHT, frame_no[0],
+                                                     copies=COPIES, cache=cache),
+                         ren, WIDTH, HEIGHT)
+
+    frame_ms = capi_checked_frames("capi headline", ren, headline_tape, CAPI_FRAMES)
+    steps, fast_ms = {}, []
+    for f in range(CAPI_FRAMES):
+        scene = make_render_tree_array(WIDTH, HEIGHT, 100 + f, copies=COPIES, cache=cache)
+        capi_tape(lib, scene, ren, WIDTH, HEIGHT, times=steps)
+        t0 = time.perf_counter()
+        native.flatten_fast(scene, WIDTH, HEIGHT, fig_ui_scale(), ren.pixel_scale,
+                            ren.aa_factor, (1.0, 1.0, 1.0, 1.0), atlas=ren._walk_atlas(),
+                            text=ren._walk_text())
+        fast_ms.append((time.perf_counter() - t0) * 1e3)
+    out["headline"] = {k: med(v) for k, v in steps.items()}
+    out["headline"].update(flatten_fast_ms=med(fast_ms), frame_ms=med(frame_ms))
+    h = out["headline"]
+    print(f"times: capi headline, medians of {CAPI_FRAMES} frames: the C ABI's build "
+          f"{h['build']:.3f} ms (capi_scene: {arr[0].count} rows through ctypes), walk "
+          f"{h['walk']:.3f} ms (fd_flatten_renders), export {h['export']:.3f} ms "
+          f"(export_tape); flatten_fast of the array {h['flatten_fast_ms']:.3f} ms; a frame "
+          f"(C-ABI tape, execute, synchronize) {h['frame_ms']:.3f} ms {tag}", flush=True)
+
+    # --- (b) text through fd_renders_add_text, and the C typesetter ---
+    tid = load_typeface(bundled_font_path())
+    ink = fill(rgba(20, 20, 30, 255))
+    scene, n_glyphs = make_text_scene(tid, ink, 0)
+    tsize = vec2(1200, 800)
+    tren = FigRenderer(atlas_size=512, device="cuda")
+    want = tren.flatten(scene, tsize)  # rasterizes the glyphs into the atlas
+    tape = capi_tape(lib, scene, tren, 1200, 800)
+    same = same_tape(tape, want)
+    print(f"check 14: bench_text's scene through fd_renders_add_text ({n_glyphs} glyphs, "
+          f"{len(tren.atlas.entries)} atlas entries): {tape.count} quads; the tape equals "
+          f"flatten's byte for byte: {same}", flush=True)
+    if not same:
+        fail("the C-built text tape differs from flatten's")
+    got = tren.execute(tape)
+    equal_frame("text", got, tren.render_frame(scene, tsize))
+    text_ms = capi_checked_frames(
+        "capi text", tren, lambda: capi_tape(lib, scene, tren, 1200, 800), CAPI_FRAMES)
+    blob = native_typeset.pack_blob(tid)
+    digest = hashlib.sha256(blob).hexdigest()
+    with open(PACK_REF) as fh:
+        ref = json.load(fh)
+    print(f"check 14: the FDTP pack of {os.path.relpath(bundled_font_path())}: {len(blob)} "
+          f"bytes, sha256 {digest} ({'as' if digest == ref['pack_sha256'] else 'NOT as'} "
+          f"pinned by the CPU test); unicodedata {unicodedata.unidata_version} (the pin's "
+          f"{ref['unidata_version']}), Python {sys.version.split()[0]}", flush=True)
+    if digest != ref["pack_sha256"]:
+        fail(f"the pack's sha256 {digest} is not the pinned {ref['pack_sha256']}")
+    worst, n_cmp = 0.0, 0
+    for s in text_lines():
+        arr_py = layout.typeset(vec2(1180, 22), [(FigFont(typeface_id=tid, size=15.0), ink, s)])
+        gids, xs, ys, clus, _size = native_typeset.typeset_box(tid, s, 15.0,
+                                                               bounds=(1180.0, 22.0))
+        py = arr_py.arranged_glyphs
+        if len(gids) != len(py) or any(int(g) != p.glyph_id or int(c) != p.cluster
+                                       for g, c, p in zip(gids, clus, py)):
+            fail(f"the C typesetter's glyphs differ from the Python one's on {s!r}")
+        for x, y, p in zip(xs, ys, py):
+            worst = max(worst, abs(float(x) - (p.pos.x + p.offset.x)),
+                        abs(float(y) - (p.pos.y + p.offset.y)))
+        n_cmp += len(py)
+    print(f"check 14: the C typesetter on bench_text's {TEXT_LINES} strings: {n_cmp} glyphs "
+          f"equal to the Python typesetter's glyph for glyph, positions max |diff| "
+          f"{worst:.3e} px (tol 1e-3)", flush=True)
+    if not worst < 1e-3:
+        fail(f"the C typesetter's positions differ from the Python one's by {worst}")
+    cold = {"py": run_cold_typeset("py"), "c": run_cold_typeset("c")}
+    out["text"] = {"frame_ms": med(text_ms), "pack_sha256": digest, "pack_bytes": len(blob),
+                   "max_pos_err": worst, "typeset": cold}
+    print(f"times: typesetting bench_text's {TEXT_LINES} lines, each in a fresh process: "
+          f"Python cold {cold['py']['cold_ms']:.3f} ms (the first typeset decodes the "
+          f"shaper's tables), warm {cold['py']['warm_ms']:.3f} ms; C cold "
+          f"{cold['c']['cold_ms']:.3f} ms (the first typesets on a loaded pack), warm "
+          f"{cold['c']['warm_ms']:.3f} ms, after the pack's build and load "
+          f"{cold['c']['pack_ms']:.3f} ms (build_font_pack: the shaper's tables, the "
+          f"Unicode tables; fd_pack_load); face load {cold['py']['load_ms']:.3f} / "
+          f"{cold['c']['load_ms']:.3f} ms; a frame (C-ABI tape, execute, synchronize) "
+          f"{med(text_ms):.3f} ms {tag}", flush=True)
+
+    # --- (c) the C retained recipe at 12000 boxes ---
+    grid, boxes = build_grid(RETAINED_BOXES, WIDTH, HEIGHT)
+    lst = grid[0]
+    rows = lst.nodes[: lst.count].copy()
+    pos_of = {int(r): p for p, r in enumerate(lst.root_ids)}
+    rren = FigRenderer(device="cuda")
+    handle = capi_scene(lib, grid)
+    edits = [0]
+
+    def patched():
+        """The next frame's DIRTY_ROOTS edits through fd_renders_set_fig and
+        the patch of the snapshot; returns the ms."""
+        f = edits[0]
+        edits[0] += 1
+        t0 = time.perf_counter()
+        dirty = []
+        for k in range(DIRTY_ROOTS):
+            b = boxes[(f * DIRTY_ROOTS + k) % len(boxes)]
+            x, y, w, hh = rows["box"][b]
+            rows["box"][b] = (x, (y + 3 + f) % HEIGHT, w, hh)
+            rows["fill"]["c0"][b] = ((b * 13 + f) % 255, 120, 220, 180)
+            if lib.fd_renders_set_fig(handle, 0, b, _cptr(rows[b : b + 1])) != 0:
+                fail(f"fd_renders_set_fig refused node {b}")
+            dirty.append((0, pos_of[b], pos_of[b]))
+        capi_patch(lib, handle, rren, snap, spans, dirty)
+        return (time.perf_counter() - t0) * 1e3
+
+    try:
+        snap, spans = capi_snapshot(lib, handle, rren, WIDTH, HEIGHT)
+        patch_ms, full_ms, equal = [], [], 0
+        for _ in range(CAPI_FRAMES):
+            patch_ms.append(patched())
+            t0 = time.perf_counter()
+            full, full_spans = capi_snapshot(lib, handle, rren, WIDTH, HEIGHT)
+            full_ms.append((time.perf_counter() - t0) * 1e3)
+            equal += same_tape(snap, full) and np.array_equal(spans, full_spans)
+        print(f"check 14: retained {RETAINED_BOXES} boxes through the C ABI ({snap.count} "
+              f"rows with {CAPI_RESERVE} reserve rows a root), {DIRTY_ROOTS} dirty roots a "
+              f"patch: {equal} of {CAPI_FRAMES} patched tapes equal a full re-flatten byte "
+              f"for byte", flush=True)
+        if equal != CAPI_FRAMES:
+            fail("a patched tape differs from the full re-flatten")
+        got = rren.execute(tape_copy(snap))
+        equal_frame("retained", got, FigRenderer(device="cuda").execute(full),
+                    "the full re-flatten's")
+
+        def patched_tape():
+            patched()
+            return tape_copy(snap)
+
+        exec_ms = capi_checked_frames("capi retained", rren, patched_tape, CAPI_FRAMES)
+        if not same_tape(snap, capi_snapshot(lib, handle, rren, WIDTH, HEIGHT)[0]):
+            fail("the patched tape of the counted frames differs from a full re-flatten")
+    finally:
+        lib.fd_renders_free(handle)
+    out["retained"] = {"patch_ms": med(patch_ms), "full_ms": med(full_ms),
+                       "frame_ms": med(exec_ms), "rows": snap.count}
+    print(f"times: capi retained {RETAINED_BOXES} boxes, medians of {CAPI_FRAMES}: the "
+          f"patch of {DIRTY_ROOTS} roots (fd_renders_set_fig, fd_flatten_renders_root, "
+          f"fd_pad_rows, export, splice) {med(patch_ms):.3f} ms against a full re-flatten "
+          f"and export {med(full_ms):.3f} ms; a frame (the patch, a copy of the tape, "
+          f"execute, synchronize) {med(exec_ms):.3f} ms {tag}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out["examples"] = capi_examples(tag, tid, tmp)
+    print(f"capi phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def frameloop_phases(tag: str, dev) -> dict:
     """The frame loop's entry points, each path counted with the counts set
     to 0 just before it and read just after."""
@@ -3565,6 +4149,7 @@ def main() -> None:
     from figdraw_tpu_torch.ops.layout import QF_RECT_PARAMS, QI_MODE
     from figdraw_tpu_torch.plan import plan_execution
     from figdraw_tpu_torch.scenes import make_render_tree_array, modes_tape
+    from figdraw_tpu_torch.text import native_typeset
     from figdraw_tpu_torch.utils import flippy, png
 
     dev = torch.device("cuda", 0)
@@ -3581,7 +4166,8 @@ def main() -> None:
             ("walk (g++)", native.load), ("raster.cu (nvcc)", raster.load),
             ("mega.cu (nvcc)", mega.load), ("rows.cu (nvcc)", rows.load),
             ("blur.cu (nvcc)", blur.load), ("binning.cu (nvcc)", binning.load),
-            ("snappy (g++)", flippy.load), ("png_unfilter (g++)", png.load))}
+            ("snappy (g++)", flippy.load), ("png_unfilter (g++)", png.load),
+            ("typeset (g++)", native_typeset.build))}
         secs = {name: f.result() for name, f in builds.items()}
     print("build: " + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
           + f"; {time.perf_counter() - t0:.2f} s in all {tag}", flush=True)
@@ -3857,6 +4443,10 @@ def main() -> None:
     images_from_files = image_files_phase(tag, dev)
     print(f"wall time: {before_images:.1f} s before the image_files phase, "
           f"{time.perf_counter() - t_main:.1f} s after it", flush=True)
+
+    # --- 8e. the C ABI for external hosts -------------------------------------------
+    capi = capi_phase(tag)
+    print(f"capi: {json.dumps(capi)}", flush=True)
     loop_paths = {k: {p: n[k] for p, n in LOOP_PATHS.items() if n[k]}
                   for k in ("K1", "K1-atlas", "K3", "K4", "K4-atlas", "blur")}
     BIN_PATHS.update({p: n["binning"] for p, n in LOOP_PATHS.items()})

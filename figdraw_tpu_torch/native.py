@@ -92,6 +92,7 @@ def load() -> ctypes.CDLL:
             ctypes.c_double, ctypes.c_double, ctypes.c_int32, ctypes.c_int32,
         ] + [vp] * 8
         lib.fd_scene_animate.restype = i
+        _bind_scene_api(lib)
         for name, dtype in (("fd_fig_struct_size", FIG_DTYPE),
                             ("fd_op_struct_size", OP_DTYPE),
                             ("fd_glyph_struct_size", GLYPH_DTYPE),
@@ -108,8 +109,80 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
+def _bind_scene_api(lib) -> None:
+    """The C ABI for external hosts (native/figdraw_flatten.h): the
+    context's destroy and exports, the scene-building calls fd_renders_*,
+    the retained recipe, the fill helpers and the border op generator, as
+    figdraw_tpu/native.py binds them. A host builds a scene row by row with
+    them and export_tape hands the walked tape to FigRenderer.execute."""
+    vp, i, u8, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint8, ctypes.c_double
+    signatures = {
+        "fd_destroy": ([vp], None),
+        "fd_export": ([vp, vp, vp, i, vp, i], i),
+        "fd_export_combo": ([vp, vp, i, i], i),
+        "fd_export_mega": ([vp, vp, i, i], i),
+        "fd_renders_new": ([], vp),
+        "fd_renders_free": ([vp], None),
+        "fd_renders_add_root": ([vp, i, vp], i),
+        "fd_renders_add_child": ([vp, i, i, vp], i),
+        "fd_renders_op_count": ([vp, i], i),
+        "fd_renders_add_op": ([vp, i, vp, vp, i], i),
+        "fd_renders_glyph_count": ([vp, i], i),
+        "fd_renders_trect_count": ([vp, i], i),
+        "fd_renders_add_text": ([vp, i, vp, i, vp, i], i),
+        "fd_renders_root_count": ([vp], i),
+        "fd_renders_set_fig": ([vp, i, i, vp], i),
+        "fd_flatten_renders": ([vp, vp], None),
+        "fd_flatten_renders_spans": ([vp, vp, vp, i, i], i),
+        "fd_flatten_renders_root": ([vp, vp, i, i], i),
+        "fd_fill_solid": ([vp, u8, u8, u8, u8], None),
+        "fd_fill_linear2": ([vp, i, vp, vp], None),
+        "fd_fill_linear3": ([vp, i, vp, vp, vp, u8], None),
+        "fd_border_ops": ([i, d, d, d, d, vp, d, d, d, vp, i], i),
+    }
+    for name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+
+
 def _ptr(arr: np.ndarray) -> ctypes.c_void_p:
     return ctypes.c_void_p(arr.ctypes.data)
+
+
+def export_tape(ctx, frame_w: float, frame_h: float, clear_color=None) -> Tape:
+    """The context's walked tape as a Tape of logical rows (fd_export;
+    figdraw_tpu.native._export_tape): fields, modes, pass items, the mask
+    count and fd_density's tile summary. FigRenderer.execute plans it as it
+    plans a walked tape (plan.pack_walked_tape), so a scene a C host built
+    through fd_renders_* and walked with fd_flatten_renders renders on the
+    port's kernels. ctx: a context from fd_create, walked. clear_color: the
+    frame's (r, g, b, a) clear, or None to draw over the last frame."""
+    lib = load()
+    n_quads = lib.fd_quad_count(ctx)
+    n_items = lib.fd_item_count(ctx)
+    tape = Tape(capacity=max(n_quads, 1))
+    items = np.zeros((max(n_items, 1), 5), dtype=np.int32)
+    rc = lib.fd_export(ctx, _ptr(tape.fields), _ptr(tape.modes), tape.fields.shape[0],
+                       _ptr(items), items.shape[0])
+    if rc != n_quads:
+        raise RuntimeError(f"fd_export wrote {rc} of {n_quads} quads")
+    tape.count = n_quads
+    tape.mask_count = lib.fd_mask_count(ctx)
+    tape.frame_size = (frame_w, frame_h)
+    tape.clear_color = clear_color
+    for word, target, start, end, rbits in items[:n_items]:
+        kind = word & 0xFF  # draw items carry the atlas and backdrop bits 8 and 9
+        if kind == 0:
+            tape.items.append(DrawItem(target=int(target), start=int(start), end=int(end)))
+        elif kind == 1:
+            tape.items.append(BlurItem(radius=float(np.int32(rbits).view(np.float32))))
+        else:
+            tape.items.append(ClearMaskItem(index=int(target)))
+    dens = np.zeros(2, np.float32)
+    lib.fd_density(ctx, TILE_W, TILE_H, _ptr(dens))
+    tape.tile_density = (float(dens[0]), float(dens[1]))
+    return tape
 
 
 def _layer_arrays(lst):

@@ -22,7 +22,7 @@ from figdraw_tpu.nodesarray import from_renders
 from figdraw_tpu.renderer import FigRenderer as JaxRenderer
 from figdraw_tpu_torch.scene import affine6, from_jax_scene
 from test_animview import S, T
-from torch_reference import to_port
+from torch_reference import ensure_jax_native, to_port
 
 # one intra-op thread: the suite runs a pytest-xdist worker per core, and
 # torch's spinning thread pools, oversubscribed, slow these tests a
@@ -30,6 +30,14 @@ from torch_reference import to_port
 torch.set_num_threads(1)
 
 TOL = 1.0 / 255.0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_walk():
+    """figdraw_tpu's C++ walk loaded before any test here uses it
+    (torch_reference.ensure_jax_native: a lost build race raises, never
+    falls back to figdraw_tpu's Python walk)."""
+    ensure_jax_native()
 
 
 def _ren():

@@ -30,6 +30,7 @@ from figdraw_tpu_torch.ops.layout import (
 )
 from figdraw_tpu_torch.plan import fill_meta, from_jax_plan, meta_rows, plan_execution
 from figdraw_tpu_torch.scenes import make_clip_table_scene, modes_tape
+from torch_reference import ensure_jax_native
 
 # one intra-op thread: the suite runs a pytest-xdist worker per core, and
 # torch's spinning thread pools, oversubscribed, slow these tests a
@@ -37,6 +38,16 @@ from figdraw_tpu_torch.scenes import make_clip_table_scene, modes_tape
 torch.set_num_threads(1)
 
 TOL = 1.0 / 255.0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_walk():
+    """figdraw_tpu's C++ walk loaded before any test here uses it
+    (torch_reference.ensure_jax_native: a lost build race raises, never
+    falls back to figdraw_tpu's Python walk)."""
+    ensure_jax_native()
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the reduced clip table of these tests and of chip_smoke.py's stored
 # reference: 12 rows x 6 columns at 320x200 (the benchmark: 180 x 6 at

@@ -34,7 +34,7 @@ from figdraw_tpu_torch.plan import (
     bucket, from_jax_plan, pack_mega_combo, plan_execution,
 )
 from figdraw_tpu_torch.scenes import make_clip_table_scene, modes_tape
-from torch_reference import spy_mega_runs, to_port
+from torch_reference import ensure_jax_native, spy_mega_runs, to_port
 
 # one intra-op thread: the suite runs a pytest-xdist worker per core, and
 # torch's spinning thread pools, oversubscribed, slow these tests a
@@ -42,6 +42,16 @@ from torch_reference import spy_mega_runs, to_port
 torch.set_num_threads(1)
 
 TOL = 1.0 / 255.0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_walk():
+    """figdraw_tpu's C++ walk loaded before any test here uses it
+    (torch_reference.ensure_jax_native: a lost build race raises, never
+    falls back to figdraw_tpu's Python walk)."""
+    ensure_jax_native()
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROWS, COLS, W, H = 12, 6, 320, 200  # as tests/test_torch_masks.py
 

@@ -33,9 +33,9 @@ from figdraw_tpu_torch.scenes import (
     make_blurred_cards_scene, make_image_panels_scene, photo_image,
 )
 from torch_reference import (
-    DEJAVU, IMAGE_H, IMAGE_N, IMAGE_W, block_means, jax_blurred_cards_scene,
-    jax_clipped_scene, jax_image_frame, jax_image_renderer, jax_text_cells_scene,
-    jax_unrolled_frame, port_image_renderer,
+    DEJAVU, IMAGE_H, IMAGE_N, IMAGE_W, block_means, ensure_jax_native,
+    jax_blurred_cards_scene, jax_clipped_scene, jax_image_frame, jax_image_renderer,
+    jax_text_cells_scene, jax_unrolled_frame, port_image_renderer,
 )
 
 # one intra-op thread: the suite runs a pytest-xdist worker per core, and
@@ -44,6 +44,14 @@ from torch_reference import (
 torch.set_num_threads(1)
 
 TOL = 1.0 / 255.0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_walk():
+    """figdraw_tpu's C++ walk loaded before any test here uses it
+    (torch_reference.ensure_jax_native: a lost build race raises, never
+    falls back to figdraw_tpu's Python walk)."""
+    ensure_jax_native()
 
 
 def _same_table(jax_plan, plan):

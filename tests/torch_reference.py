@@ -92,6 +92,69 @@ def block_means(frame, k: int = 8):
     return frame[:h, :w].reshape(h // k, k, w // k, k, c).mean(axis=(1, 3))
 
 
+# figdraw_tpu's own builds of its walk (native.py's _build) and of its
+# typesetter (text/native_typeset.py's _build), written here to a private
+# name: those _builds write the library in place, so test workers that meet
+# an empty native/build/ race, and a worker that opens a half-written
+# library keeps _load_failed for the rest of its life
+JAX_WALK_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-pthread",
+                  "-shared", "-fPIC", "-std=c++17")
+JAX_TYPESET_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-shared",
+                     "-fPIC", "-std=c++17")
+
+
+def _ensure_jax_library(module, flags):
+    """module._load()'s library, loaded: when _load() returned None (a lost
+    build race), build it with the package's own command under a private
+    name, os.replace it onto module._LIB under an fcntl lock in its build
+    directory, clear _load_failed and load again. Raises when that fails
+    too: the tests never skip for it."""
+    import fcntl
+    import subprocess
+
+    lib = module._load()
+    if lib is not None:
+        return lib
+    os.makedirs(module._LIB_DIR, exist_ok=True)
+    with open(os.path.join(module._LIB_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        module._load_failed = False
+        lib = module._load()  # another worker may have replaced it meanwhile
+        if lib is None:
+            tmp = f"{module._LIB}.{os.getpid()}.tmp"
+            try:
+                subprocess.run(["g++", *flags, "-o", tmp, module._SRC],
+                               check=True, capture_output=True, text=True)
+                os.replace(tmp, module._LIB)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+            module._load_failed = False
+            lib = module._load()
+    if lib is None:
+        raise RuntimeError(f"figdraw_tpu's library {module._LIB} does not load")
+    return lib
+
+
+def ensure_jax_native(jax_native=None):
+    """figdraw_tpu.native's walk library, loaded (_ensure_jax_library): the
+    tests that hold the port to figdraw_tpu's C++ walk call it before they
+    use that walk. jax_native: the module (default figdraw_tpu.native)."""
+    if jax_native is None:
+        from figdraw_tpu import native as jax_native
+    return _ensure_jax_library(jax_native, JAX_WALK_FLAGS)
+
+
+def ensure_jax_typeset():
+    """figdraw_tpu.text.native_typeset's library, loaded
+    (_ensure_jax_library), for the tests that hold the port's C typesetter
+    to figdraw_tpu's build."""
+    from figdraw_tpu.text import native_typeset as jax_nt
+
+    flags = JAX_TYPESET_FLAGS + ("-I", os.path.dirname(jax_nt._SRC))
+    return _ensure_jax_library(jax_nt, flags)
+
+
 def to_port(arr):
     """A figdraw_tpu RendersArray as the port's: the node rows are the same
     bytes, and the drawable side arrays (ops and bezier points) the rows
