@@ -894,12 +894,15 @@ TEXT_LINES = 36  # bench_text.LINES
 
 
 def make_text_scene(tid: int, ink, seed: int, w: int = TEXT_SIZE[0],
-                    h: int = TEXT_SIZE[1], lines: int = TEXT_LINES):
+                    h: int = TEXT_SIZE[1], lines: int = TEXT_LINES, variations=()):
     """bench_text.build_scene with the port's API: a plain background and
     `lines` lines of the typeface `tid` at 15 px (typeset_cached), 22 px
-    apart. Returns (RendersArray, number of arranged glyphs). Its packed
-    combo and its atlas are figdraw_tpu's byte for byte (the stored
-    TEXT_REFERENCE holds them, for DejaVuSans, seed 0, atlas_size=512)."""
+    apart, at the variation location `variations` (FontVariation objects;
+    none by default). Returns (RendersArray, number of arranged glyphs).
+    Its packed combo and its atlas are figdraw_tpu's byte for byte (the
+    stored TEXT_REFERENCE holds them, for DejaVuSans, seed 0,
+    atlas_size=512; reference/fonts.json their digests for the FigPort Sans
+    faces)."""
     from .text.layout import typeset_cached
     from .text.typefaces import FigFont
 
@@ -909,7 +912,7 @@ def make_text_scene(tid: int, ink, seed: int, w: int = TEXT_SIZE[0],
     y = 4.0
     n = 0
     for row in range(lines):
-        f = FigFont(typeface_id=tid, size=15.0)
+        f = FigFont(typeface_id=tid, size=15.0, variations=tuple(variations))
         arr = typeset_cached(vec2(w - 20, 22), [(
             f, ink,
             "The quick brown fox jumps over the lazy dog near the riverbank %d"
@@ -923,20 +926,85 @@ def make_text_scene(tid: int, ink, seed: int, w: int = TEXT_SIZE[0],
     return from_renders(renders), n
 
 
+# --- the FigPort Sans faces (CFF, and variable glyf and CFF2) ------------------------
+
+FONTS_REFERENCE = os.path.join(REFERENCE_DIR, "fonts.json")
+FONT_FACES = ("FigPortSans-CFF.otf", "FigPortSans-VF.ttf", "FigPortSans-VF.otf")
+# (tag, value) pairs: the default, then each axis at its minimum, a middle
+# (wdth 90 is where avar maps 90 to 85) and its maximum
+FONT_LOCATIONS = ((), (("wdth", 75.0),), (("wdth", 90.0),), (("wdth", 125.0),),
+                  (("slnt", -12.0),), (("slnt", -6.0),), (("slnt", 0.0),))
+# bench_text's scene from each face: (face, location)
+FONT_TEXT_CASES = (("FigPortSans-CFF.otf", ()),
+                   ("FigPortSans-VF.ttf", (("wdth", 75.0),)),
+                   ("FigPortSans-VF.ttf", (("wdth", 125.0), ("slnt", -12.0))),
+                   ("FigPortSans-VF.otf", (("wdth", 75.0),)),
+                   ("FigPortSans-VF.otf", (("wdth", 125.0), ("slnt", -12.0))))
+FONT_TABLE_CASE = ("FigPortSans-VF.otf", (("wdth", 90.0), ("slnt", -6.0)))
+FONT_PACK_CASES = (("FigPortSans-VF.ttf", (("wdth", 75.0),)),
+                   ("FigPortSans-VF.ttf", (("wdth", 125.0), ("slnt", -12.0))))
+
+
+def font_case_key(face: str, location) -> str:
+    """A face and a location as one name: "FigPortSans-VF.ttf@wdth=75,slnt=-12"."""
+    return face + "@" + ",".join(f"{t}={v:g}" for t, v in location)
+
+
+def font_blocks_path(key: str) -> str:
+    """The stored 8x8 block means of figdraw_tpu's frame of a font case."""
+    stem = key.replace(".", "_").replace("@", "_").replace("=", "").replace(",", "_")
+    stem = stem.rstrip("_")
+    return os.path.join(REFERENCE_DIR, f"font_{stem}_blocks8.npy")
+
+
+def _digest_number(v) -> str:
+    return repr(float(v) + 0.0)  # ints and floats alike, -0.0 as 0.0
+
+
+def outline_digests(tf, variations) -> tuple:
+    """(sha256 of every glyph's outline, sha256 of every glyph's advance) of
+    a typeface at a location: the recording-pen value lists and
+    var_advance, numbers written as floats, so figdraw_tpu's typeface (on
+    fontTools) and the port's hash alike when their values are equal."""
+    import hashlib
+
+    paths, advances = hashlib.sha256(), hashlib.sha256()
+    for gid in range(len(tf._glyph_order)):
+        for op, pts in tf.glyph_path(gid, variations):
+            paths.update(op.encode())
+            for pt in pts:
+                paths.update(b"N" if pt is None else
+                             (_digest_number(pt[0]) + "," + _digest_number(pt[1]) + ";").encode())
+        advances.update((_digest_number(tf.var_advance(gid, variations)) + ";").encode())
+    return paths.hexdigest(), advances.hexdigest()
+
+
+def array_digest(a, zero_sign: bool = False) -> str:
+    """sha256 of an array's 32-bit words; with `zero_sign` a -0.0 word
+    hashes as +0.0 (a Python walk's integer snap, see load_text_tape)."""
+    import hashlib
+
+    words = np.ascontiguousarray(a).view(np.uint32)
+    if zero_sign:
+        words = np.where((words & np.uint32(0x7FFFFFFF)) == 0, np.uint32(0), words)
+    return hashlib.sha256(words.tobytes()).hexdigest()
+
+
 def make_text_table_scene(rows: int = 180, cols: int = 6, w: float = 1200.0,
-                          h: float = 800.0, tid: int = None) -> Renders:
+                          h: float = 800.0, tid: int = None, variations=()) -> Renders:
     """A table of text in clipped cells, as a tree (the text-in-clip scene at
     bench_clipmask.make_table_scene's size and layout): a clipped viewport
     scrolled by 37 px over rows x cols rounded cells of 22 px, each
     clipping a 13 px line of the typeface `tid` (default: the bundled
-    DejaVuSans) that runs past its right edge. Its tape is the one
-    TEXT_TABLE_REFERENCE stores, made by figdraw_tpu's Python walk."""
+    DejaVuSans) at the variation location `variations` that runs past its
+    right edge. Its tape is the one TEXT_TABLE_REFERENCE stores, made by
+    figdraw_tpu's Python walk."""
     from .text.layout import typeset
     from .text.typefaces import FigFont, bundled_font_path, load_typeface
 
     if tid is None:
         tid = load_typeface(bundled_font_path())
-    f = FigFont(typeface_id=tid, size=13.0)
+    f = FigFont(typeface_id=tid, size=13.0, variations=tuple(variations))
     margin, gap, cell_h, scroll_y = 22.0, 4.0, 22.0, 37.0
     viewport = rect(margin, margin, w - margin * 2, h - margin * 2)
     cell_w = (viewport.w - gap * (cols + 1)) / cols

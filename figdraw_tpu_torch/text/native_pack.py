@@ -7,10 +7,9 @@ plan (text/shaper.py over the port's OpenType reader, text/otf.py; no
 fontTools). For the same face the blob equals figdraw_tpu's byte for byte
 (tests/test_torch_native_typeset.py); the bidi and Arabic joining tables
 come from the running Python's unicodedata, so two hosts give the same pack
-only on the same Unicode version (chip_smoke.py prints it). A variation
-location away from a variable face's default raises NotImplementedError
-(otf.VARIATIONS_NOT_PORTED), as the port's typefaces do: no default pack is
-built in its place.
+only on the same Unicode version (chip_smoke.py prints it). An instance
+pack (variations given) bakes the advances the port's typefaces give at
+that location (gvar/HVAR/avar, text/otf.py), as figdraw_tpu's does.
 
 v2 exports the FULL default-feature plan: every GSUB lookup the default
 features select (ccmp/liga/clig/rlig/calt/rclt/locl) with single / multiple
@@ -546,8 +545,6 @@ def build_font_pack(typeface_id: int, variations=()) -> bytes:
     values (no rvrn/feature-variations), and neither does the pack — the
     plan tables are the default instance's, matching layout.py exactly."""
     tf = get_typeface(typeface_id)
-    var_list = _norm_variations(variations)
-    tf._check_location(var_list)  # before any work: never a default pack instead
     shaper = get_shaper(tf)
     ctx = _PackCtx(tf)
 
@@ -558,6 +555,7 @@ def build_font_pack(typeface_id: int, variations=()) -> bytes:
         cmap_items.append((int(cp), _gid(tf, name)))
     cmap_items.sort()
 
+    var_list = _norm_variations(variations)
     adv = [0.0] * n_glyphs
     for name, gid in tf._name_to_gid.items():
         adv[gid] = (float(tf.var_advance(gid, var_list)) if var_list

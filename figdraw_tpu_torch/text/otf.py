@@ -14,17 +14,26 @@ typeface_info.py and shaper.py use it, and gives the same values:
 - glyf/loca, simple and composite glyphs, parsed per glyph on first use:
   glyph_path gives the value list of fontTools' DecomposingRecordingPen
   (implied on-curve points left implicit, contours that start off-curve
-  rotated to end on-curve, all-off-curve contours ending in None,
+  rotated to end on-curve, all-off-curve contours ending in None, cubic
+  contours (glyphDataFormat 1) as curveTo with implied on-curve midpoints,
   components decomposed through their 2x2 transform and offsets);
+- CFF and CFF2 outlines (text/cff.py), preferred to glyf as fontTools'
+  getGlyphSet prefers them, and a 'CFF ' table's charset as the glyph
+  order;
 - GDEF, GSUB (types 1-8) and GPOS (types 1-9), extensions included,
   decoded per lookup into SimpleNamespace objects under fontTools'
   attribute names (Coverage.glyphs in coverage-index order,
   ClassDef.classDefs as a dict without class 0, Value1/Value2 None for an
   empty value format), so the shaper reads them as it reads fontTools';
-- fvar axes, as metadata.
+- variations: fvar axes; a user location normalized through fvar and avar
+  (text/varstore.py); at a normalized location, glyf outlines moved by gvar
+  (text/gvar.py) as fontTools' instanced glyph set draws them, CFF2
+  charstrings blended by their VarStore, and advances with HVAR's deltas.
 
-A CFF or CFF2 face and a variable face drawn away from its default
-location raise NotImplementedError with the ROADMAP item that holds them.
+A location is applied as fontTools' getGlyphSet(location=...) applies it:
+a non-empty normalized location instances every glyph (even at the
+default, where the deltas are 0), an empty one or None draws the default
+glyph set.
 """
 
 from __future__ import annotations
@@ -35,13 +44,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-CFF_NOT_PORTED = (
-    "CFF and CFF2 outlines (an 'OTTO' face) are not read by the port's "
-    "OpenType reader (ROADMAP.md, port item 'Text host pipeline': CFF/CFF2)")
-VARIATIONS_NOT_PORTED = (
-    "a variation location away from the default needs gvar/HVAR/avar "
-    "instancing, which the port's OpenType reader does not do (ROADMAP.md, "
-    "port item 'Text host pipeline': variable-font instancing)")
+from .cff import CFFTable
+from .gvar import Gvar, instance_coordinates
+from .varstore import Avar, ItemVariationStore, normalize_location, ot_round, var_idx_map
 
 _U16 = struct.Struct(">H").unpack_from
 _I16 = struct.Struct(">h").unpack_from
@@ -136,12 +141,12 @@ class NameRecord(SimpleNamespace):
 
 
 class OTFont:
-    """One face of a TrueType-outline sfnt (.ttf, .otf with glyf, or one
-    face of a .ttc/.otc collection), read from its bytes.
+    """One face of an sfnt (.ttf, .otf, or one face of a .ttc/.otc
+    collection), read from its bytes.
 
     The tables the pipeline needs are read at construction (they are
-    small); cmap, kern, name, GSUB, GPOS and GDEF on first use; glyf per
-    glyph."""
+    small); cmap, kern, name, GSUB, GPOS, GDEF and the variation tables on
+    first use; glyf and gvar per glyph, charstrings per draw."""
 
     def __init__(self, data: bytes, face_index: int = 0):
         self.data = data = bytes(data)
@@ -151,8 +156,6 @@ class OTFont:
             if not 0 <= face_index < n_fonts:
                 raise IndexError(f"face {face_index} of a {n_fonts}-face collection")
             base = _U32(data, 12 + 4 * face_index)[0]
-        if data[base : base + 4] == b"OTTO":
-            raise NotImplementedError(CFF_NOT_PORTED)
         num_tables = _U16(data, base + 4)[0]
         self.tables: Dict[str, Tuple[int, int]] = {}
         for i in range(num_tables):
@@ -160,11 +163,9 @@ class OTFont:
             tag = data[rec : rec + 4].decode("latin1")
             _checksum, offset, length = struct.unpack_from(">III", data, rec + 4)
             self.tables[tag] = (offset, length)
-        if "CFF " in self.tables or "CFF2" in self.tables:
-            raise NotImplementedError(CFF_NOT_PORTED)
         for tag in ("head", "hhea", "maxp", "hmtx"):
             if tag not in self.tables:
-                raise ValueError(f"not a TrueType face: no '{tag}' table")
+                raise ValueError(f"not an OpenType face: no '{tag}' table")
 
         head = self.tables["head"][0]
         self.units_per_em = _U16(data, head + 18)[0]
@@ -188,7 +189,19 @@ class OTFont:
             self.lsbs[n_h:] = np.frombuffer(data, dtype=">i2", count=n - n_h,
                                             offset=hmtx + 4 * n_h)
 
-        self.glyph_order: List[str] = self._read_glyph_order()
+        self.axes = self.fvar_axes()
+        self.cff: Optional[CFFTable] = None
+        cff_tag = "CFF2" if "CFF2" in self.tables else "CFF "
+        if cff_tag in self.tables:
+            self.cff = CFFTable(data, *self.tables[cff_tag], cff_tag == "CFF2",
+                                [a.axisTag for a in self.axes])
+        if "CFF " in self.tables:
+            # TTFont.getGlyphOrder: a 'CFF ' table's charset names the glyphs
+            self.glyph_order: List[str] = (
+                self.cff.glyph_names if cff_tag == "CFF " else
+                CFFTable(data, *self.tables["CFF "], False).glyph_names)
+        else:
+            self.glyph_order = self._read_glyph_order()
         self._name_to_gid = {nm: i for i, nm in enumerate(self.glyph_order)}
 
         self._loca = None
@@ -205,6 +218,8 @@ class OTFont:
         self._kern: Optional[Dict[Tuple[str, str], int]] = None
         self._names: Optional[List[NameRecord]] = None
         self._layout: Dict[str, object] = {}
+        self._var_tables: Optional[tuple] = None
+        self._hvar_instancers: Dict[tuple, object] = {}  # per location, as a glyph set's
 
     def __contains__(self, tag: str) -> bool:
         return tag in self.tables
@@ -455,26 +470,69 @@ class OTFont:
                                         axisNameID=name_id))
         return axes
 
-    def is_default_location(self, location: Dict[str, float]) -> bool:
-        """Whether a {tag: value} location draws the default instance: every
-        axis of fvar is at its default (tags of no axis are ignored, as
-        fontTools' normalizeLocation ignores them)."""
-        for axis in self.fvar_axes():
-            if float(location.get(axis.axisTag, axis.defaultValue)) != axis.defaultValue:
-                return False
-        return True
+    def normalize_location(self, location: Dict[str, float]) -> Dict[str, float]:
+        """TTFont.normalizeLocation: a {tag: user value} location over
+        fvar's axes (clamped, defaults filled in, other tags ignored), then
+        avar's maps. Raises on a face without fvar."""
+        if "fvar" not in self.tables:
+            raise ValueError("Not a variable font")
+        axes = {a.axisTag: (a.minValue, a.defaultValue, a.maxValue) for a in self.axes}
+        out = normalize_location(location, axes)
+        avar = self._variation_tables()[0]
+        return avar.renormalize(out) if avar is not None else out
+
+    def _variation_tables(self):
+        """(avar, gvar, HVAR's store, HVAR's advance map), each None where
+        the face has no such table, read on first use."""
+        if self._var_tables is None:
+            tags = [a.axisTag for a in self.axes]
+            avar = gvar = store = adv_map = None
+            if "avar" in self.tables and "fvar" in self.tables:
+                avar = Avar(self.data, self.tables["avar"][0], tags)
+            if "gvar" in self.tables and "fvar" in self.tables:
+                gvar = Gvar(self.data, self.tables["gvar"][0], tags)
+            if "HVAR" in self.tables and "fvar" in self.tables:
+                pos = self.tables["HVAR"][0]
+                store_off, adv_off = struct.unpack_from(">II", self.data, pos + 4)
+                store = ItemVariationStore(self.data, pos + store_off, tags)
+                if adv_off:
+                    adv_map = var_idx_map(self.data, pos + adv_off, self.num_glyphs)
+            self._var_tables = (avar, gvar, store, adv_map)
+        return self._var_tables
+
+    def advance_at(self, gid: int, location: Optional[Dict[str, float]]):
+        """The advance a glyph set at a normalized location gives
+        (_TTGlyph.width): hmtx's, plus HVAR's delta when the face has HVAR
+        and the location is not empty."""
+        width = int(self.advances[gid])
+        if location:
+            _avar, _gvar, store, adv_map = self._variation_tables()
+            if store is not None:
+                key = tuple(location.items())
+                inst = self._hvar_instancers.get(key)
+                if inst is None:
+                    inst = self._hvar_instancers[key] = store.instancer(location)
+                width += inst[gid if adv_map is None else adv_map[gid]]
+        return width
+
+    def phantom_advance(self, gid: int, location: Dict[str, float]) -> int:
+        """The advance of a gvar instance's phantom points (otRound of right
+        minus left), which fontTools sets on a glyph of an instanced glyph
+        set without HVAR once the glyph is drawn."""
+        coords = self._instance(gid, location)[0]
+        return ot_round(coords[-3][0] - coords[-4][0])
 
     # --- outlines ------------------------------------------------------------------
 
     def _glyph(self, gid: int) -> tuple:
         """The parsed glyf entry: ("empty",), ("simple", xs, ys, end_pts,
-        flags, x_min) or ("composite", [(component gid, transform)])."""
+        flags, x_min) or ("composite", [(component gid, transform)],
+        x_min)."""
         g = self._glyphs.get(gid)
         if g is not None:
             return g
         if self._loca is None:
-            raise NotImplementedError("a face without glyf/loca outlines is not "
-                                      "drawn by the port's OpenType reader")
+            raise ValueError("a face with neither glyf/loca nor CFF outlines")
         data = self.data
         start = self.tables["glyf"][0] + int(self._loca[gid])
         end = self.tables["glyf"][0] + int(self._loca[gid + 1])
@@ -485,7 +543,7 @@ class OTFont:
             if n_contours >= 0:
                 g = self._simple_glyph(start + 10, n_contours, x_min)
             else:
-                g = self._composite_glyph(start + 10)
+                g = self._composite_glyph(start + 10, x_min)
         self._glyphs[gid] = g
         return g
 
@@ -527,7 +585,7 @@ class OTFont:
             out.append(v)
         return out, pos
 
-    def _composite_glyph(self, pos: int) -> tuple:
+    def _composite_glyph(self, pos: int, x_min: int) -> tuple:
         data = self.data
         comps = []
         while True:
@@ -559,14 +617,46 @@ class OTFont:
                 trans = (1, 0, 0, 1, a, b)
             comps.append((gid, trans))
             if not flags & _MORE_COMPONENTS:
-                return ("composite", comps)
+                return ("composite", comps, x_min)
 
-    def glyph_path(self, gid: int) -> list:
+    def _instance(self, gid: int, location: Dict[str, float]):
+        """glyf._getCoordinatesAndControls moved by gvar at `location`: the
+        (N + 4, 2) float64 points (a simple glyph's points, or a
+        composite's component offsets, then the four phantom points) and
+        the parsed glyph."""
+        g = self._glyph(gid)
+        if g[0] == "simple":
+            pts = list(zip(g[1], g[2]))
+            ends, x_min = g[3], g[5]
+        elif g[0] == "composite":
+            pts = [trans[4:] for _cgid, trans in g[1]]
+            ends, x_min = list(range(len(pts))), g[2]
+        else:
+            pts, ends, x_min = [], [], 0
+        left = x_min - int(self.lsbs[gid])
+        pts += [(left, 0), (left + int(self.advances[gid]), 0), (0, 0), (0, 0)]
+        coords = np.asarray(pts, dtype=np.float64).reshape(-1, 2)
+        gvar = self._variation_tables()[1]
+        variations = gvar.variations(gid, len(coords))
+        return instance_coordinates(coords, variations, location, ends), g
+
+    def glyph_path(self, gid: int, location: Optional[Dict[str, float]] = None) -> list:
         """The glyph's outline as fontTools' DecomposingRecordingPen value
-        list (font units, y up), drawn as TTGlyphSet draws it: a simple
-        glyph at the top level shifted by its hmtx lsb minus its xMin."""
+        list (font units, y up), drawn as TTFont.getGlyphSet(location=...)
+        draws it: CFF/CFF2 charstrings (blended at a non-empty normalized
+        `location`), else glyf (a simple glyph at the top level shifted by
+        its lsb minus its xMin; moved by gvar at a non-empty location)."""
         out: list = []
-        self._draw(gid, out, None, True)
+        if self.cff is not None:
+            inst = None
+            if location and self.cff.store is not None:
+                inst = self.cff.store.instancer(location)
+            self.cff.draw(gid, out, inst, self._name_to_gid.get)
+            return out
+        if location and self._variation_tables()[1] is not None:
+            self._draw_instance(gid, out, None, True, location)
+        else:
+            self._draw(gid, out, None, True)
         return out
 
     def _draw(self, gid: int, out: list, trans, top: bool) -> None:
@@ -593,6 +683,42 @@ class OTFont:
             pts = [(xx * x + yx * y + dx, xy * x + yy * y + dy) for x, y in zip(xs, ys)]
         _trace_contours(pts, end_pts, flags, out)
 
+    def _draw_instance(self, gid: int, out: list, trans, top: bool,
+                       location: Dict[str, float]) -> None:
+        """_draw on _TTGlyphGlyf._getGlyphInstance's glyph: points or
+        component offsets from gvar, and at the top level the shift by the
+        recomputed lsb minus the recomputed xMin."""
+        coords, g = self._instance(gid, location)
+        if g[0] == "empty":
+            return
+        if g[0] == "composite":
+            for (cgid, ctrans), (x, y) in zip(g[1], coords[:-4].tolist()):
+                ctrans = ctrans[:4] + (_maybe_int(x), _maybe_int(y))
+                if trans is not None:
+                    ctrans = _compose(trans, ctrans)
+                if tuple(ctrans) == _IDENTITY:
+                    self._draw_instance(cgid, out, None, False, location)
+                else:
+                    self._draw_instance(cgid, out, ctrans, False, location)
+            return
+        _, _xs, _ys, end_pts, flags, _x_min = g
+        pts = coords[:-4]
+        if top and len(pts):
+            x_min = ot_round(float(pts[:, 0].min()))
+            offset = ot_round(x_min - float(coords[-4, 0])) - x_min
+            if offset:
+                pts = pts + np.array([offset, 0.0])
+        pts = [(_maybe_int(x), _maybe_int(y)) for x, y in pts.tolist()]
+        if trans is not None:
+            xx, xy, yx, yy, dx, dy = trans
+            pts = [(xx * x + yx * y + dx, xy * x + yy * y + dy) for x, y in pts]
+        _trace_contours(pts, end_pts, flags, out)
+
+
+def _maybe_int(v: float):
+    """GlyphCoordinates' item: an integral float as an int."""
+    return int(v) if v.is_integer() else v
+
 
 def _compose(outer, inner):
     """fontTools' Transform(outer).transform(inner): inner applied first."""
@@ -601,6 +727,12 @@ def _compose(outer, inner):
     return (xx1 * xx2 + xy1 * yx2, xx1 * xy2 + xy1 * yy2,
             yx1 * xx2 + yy1 * yx2, yx1 * xy2 + yy1 * yy2,
             xx2 * dx1 + yx2 * dy1 + dx2, xy2 * dx1 + yy2 * dy1 + dy2)
+
+
+def _mid(a, b):
+    """fontTools' maybeInt((a + b) * 0.5)."""
+    v = (a + b) * 0.5
+    return int(v) if v == int(v) else v
 
 
 def _trace_contours(pts, end_pts, flags, out: list) -> None:
@@ -614,11 +746,22 @@ def _trace_contours(pts, end_pts, flags, out: list) -> None:
         cu_flags = [_CUBIC & f for f in flags[start:end]]
         start = end
         if 1 not in c_flags:
+            if any(cu_flags) and not all(cu_flags):
+                raise ValueError("a glyf contour mixes cubic and quadratic off-curves")
             if cu_flags and all(cu_flags):
-                raise NotImplementedError(
-                    "cubic glyf contours are not read by the port's OpenType reader")
-            contour.append(None)
-            out.append(("qCurveTo", tuple(contour)))
+                count = len(contour)
+                if count % 2:
+                    raise ValueError("Odd number of cubic off-curves undefined")
+                last, first = contour[-1], contour[0]
+                out.append(("moveTo", ((_mid(last[0], first[0]), _mid(last[1], first[1])),)))
+                for i in range(0, count, 2):
+                    p1, p2 = contour[i], contour[i + 1]
+                    p4 = contour[i + 2 if i + 2 < count else 0]
+                    out.append(("curveTo", (p1, p2, (_mid(p2[0], p4[0]),
+                                                     _mid(p2[1], p4[1])))))
+            else:
+                contour.append(None)
+                out.append(("qCurveTo", tuple(contour)))
         else:
             first_on = c_flags.index(1) + 1
             contour = contour[first_on:] + contour[:first_on]
@@ -631,11 +774,21 @@ def _trace_contours(pts, end_pts, flags, out: list) -> None:
                     if len(contour) > 1:
                         out.append(("lineTo", (contour[0],)))
                 else:
-                    if any(cu_flags[: next_on - 1]):
-                        raise NotImplementedError(
-                            "cubic glyf contours are not read by the port's "
-                            "OpenType reader")
-                    out.append(("qCurveTo", tuple(contour[:next_on])))
+                    cubic = cu_flags[: next_on - 1]
+                    if any(cubic) and not all(cubic):
+                        raise ValueError("Mixed cubic and quadratic segment undefined")
+                    if any(cubic):
+                        count = next_on
+                        if count < 3 or (count - 1) % 2:
+                            raise ValueError("a cubic glyf segment needs an even "
+                                             "number (at least two) of off-curves")
+                        for i in range(0, count - 3, 2):
+                            p1, p2, p4 = contour[i], contour[i + 1], contour[i + 2]
+                            out.append(("curveTo", (p1, p2, (_mid(p2[0], p4[0]),
+                                                             _mid(p2[1], p4[1])))))
+                        out.append(("curveTo", tuple(contour[count - 3 : count])))
+                    else:
+                        out.append(("qCurveTo", tuple(contour[:next_on])))
                 contour = contour[next_on:]
                 c_flags = c_flags[next_on:]
                 cu_flags = cu_flags[next_on:]

@@ -1,6 +1,8 @@
 """Typeface registry and font model (figdraw_tpu/text/typefaces.py, copied
 with its faces read by the port's own OpenType reader, text/otf.py, in place
-of fontTools).
+of fontTools: TrueType and CFF/CFF2 outlines, and variable faces instanced
+at a FigFont's variations as fontTools' getGlyphSet(location=...) instances
+them).
 
 Typefaces get a collision-salted content-hash TypefaceId, and fonts
 (typeface, raster-relevant settings and UI scale) hash to a FontId.
@@ -21,7 +23,7 @@ from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Tuple
 
 from ..config import fig_data_dir, set_fig_data_dir  # noqa: F401 - re-exported
-from .otf import VARIATIONS_NOT_PORTED, OTFont, collection_size
+from .otf import OTFont, collection_size
 from . import scripts
 
 TypefaceId = int
@@ -101,6 +103,7 @@ class Typeface:
         self._kern = self._tt.kern_pairs()
         self.family_name = self._tt.debug_name(1) or os.path.basename(path)
         self.subfamily_name = self._tt.debug_name(2) or ""
+        self._locations: Dict[tuple, Dict[str, float]] = {}
 
     # --- glyph-level API -----------------------------------------------------
 
@@ -132,26 +135,32 @@ class Typeface:
     def is_variable(self) -> bool:
         return "fvar" in self._tt
 
-    def _check_location(self, variations) -> None:
-        """A variable face draws only its default instance: a location away
-        from it raises NotImplementedError (otf.VARIATIONS_NOT_PORTED)."""
-        if variations and self.is_variable():
-            location = {v.tag: float(v.value) for v in variations}
-            if not self._tt.is_default_location(location):
-                raise NotImplementedError(VARIATIONS_NOT_PORTED)
+    def _location(self, variations) -> Optional[Dict[str, float]]:
+        """The normalized location of a set of variations (fvar and avar),
+        cached per location as figdraw_tpu caches its glyph sets; None for
+        no variations, a face without fvar, or a location that normalizes
+        to nothing (avar 2 drops zero axes): the default glyph set."""
+        if not variations or not self.is_variable():
+            return None
+        key = tuple(sorted((v.tag, float(v.value)) for v in variations))
+        loc = self._locations.get(key)
+        if loc is None:
+            loc = self._locations[key] = self._tt.normalize_location(dict(key))
+        return loc or None
 
     def var_advance(self, gid: FontGlyphId, variations) -> float:
-        """Advance width at a variation location, font units: the default
-        instance's (a location away from it raises)."""
-        self._check_location(variations)
-        return self.advance(gid)
+        """Advance width at a variation location, font units: hmtx's plus
+        HVAR's delta where the face has HVAR (a gvar face without HVAR keeps
+        hmtx's, as figdraw_tpu's undrawn glyph does)."""
+        loc = self._location(variations)
+        if loc is None:
+            return self.advance(gid)
+        return self._tt.advance_at(gid, loc)
 
     def glyph_path(self, gid: FontGlyphId, variations=()):
         """Glyph outline as fontTools' DecomposingRecordingPen value list
-        (font units), from the default instance (a location away from it
-        raises)."""
-        self._check_location(variations)
-        return self._tt.glyph_path(gid)
+        (font units), instanced at the variations' location."""
+        return self._tt.glyph_path(gid, self._location(variations))
 
     # --- scaled metrics ---------------------------------------------------------
 

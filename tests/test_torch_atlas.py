@@ -443,9 +443,8 @@ def test_text_plan_matches_stored_blocks():
 
 def test_text_nodes_name_their_roadmap_item(tmp_path):
     """Text has landed: a text row without a layout (no glyph rows) draws
-    nothing, on the native walk, and what of text stays unported names its
-    ROADMAP item: a variation location away from a variable face's
-    default."""
+    nothing, on the native walk, and a variable face's outline away from
+    its default (once unported, naming its ROADMAP item) is figdraw_tpu's."""
     import test_shaping
 
     from figdraw_tpu_torch.basics import FigKind
@@ -458,7 +457,12 @@ def test_text_nodes_name_their_roadmap_item(tmp_path):
     lst.nodes["kind"][t] = int(FigKind.nkText)
     got = port.FigRenderer(device="cpu").render_frame(scene, port.vec2(128, 128))
     assert torch.equal(got, plain)
-    tf = port_tf.get_typeface(port_tf.load_typeface(test_shaping._build_var_font(tmp_path)))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, port item 'Text host pipeline'"):
-        tf.glyph_path(tf.glyph_id(65), (port_tf.FontVariation("wght", 700),))
+    from figdraw_tpu.text import typefaces as jax_tf
+
+    path = test_shaping._build_var_font(tmp_path)
+    tf = port_tf.get_typeface(port_tf.load_typeface(path))
+    jtf = jax_tf.get_typeface(jax_tf.load_typeface(path))
+    a = tf.glyph_id(65)
+    heavy = tf.glyph_path(a, (port_tf.FontVariation("wght", 700),))
+    assert heavy == jtf.glyph_path(a, (jax_tf.FontVariation("wght", 700),))
+    assert heavy != tf.glyph_path(a)

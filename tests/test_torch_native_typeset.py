@@ -6,15 +6,19 @@ figdraw_tpu's.
   in this checkout run a second time on the port: with the system
   DejaVuSans the JAX tests read, and those that read it again with the
   port's bundled copy (fonts/DejaVuSans.ttf, sha256 checked). The others
-  (WAITING) read faces that are not in the repository.
+  (WAITING) read faces that are not in the repository;
+  test_variable_instance_packs reads, in place of the Noto Naskh variable
+  face, a built one with Arabic and a wght axis
+  (torch_reference.build_weight_face).
 - The pack bytes: the port's build_font_pack equals figdraw_tpu's byte for
   byte on the DejaVu faces and the bundled copy; the bundled face's pack
   digest is pinned in reference/fdtp_DejaVuSans.json (chip_smoke.py holds
   the card's host to it) with the Unicode version of this Python, whose
   unicodedata makes the pack's bidi and joining tables.
 - The port's build of typeset.cpp gives figdraw_tpu's build's results on
-  the same strings, array for array; a variation location away from the
-  default raises; a failed build raises with the compiler's output; the
+  the same strings, array for array; instance packs (a variation location)
+  equal figdraw_tpu's and typeset as its do; a failed build raises with the
+  compiler's output; the
   example typeset_demo.c runs against the port's library.
 """
 
@@ -35,9 +39,8 @@ from figdraw_tpu.text import native_pack as jax_pack
 from figdraw_tpu.text import native_typeset as jax_nt
 from figdraw_tpu.text import typefaces as jax_tf
 from figdraw_tpu_torch.text import native_pack, native_typeset as nt, typefaces
-from figdraw_tpu_torch.text.otf import VARIATIONS_NOT_PORTED
 from figdraw_tpu_torch.utils import gxx
-from torch_reference import DEJAVU, REPO, ensure_jax_typeset
+from torch_reference import DEJAVU, REPO, build_weight_face, ensure_jax_typeset
 from torch_twin import TESTS, assert_runs_on_port, port_twin, run_twin
 
 BUNDLED = typefaces.bundled_font_path()
@@ -48,14 +51,14 @@ PACK_FACES = [f for f in DEJAVU_FACES if os.path.basename(f) in (
 
 # the tests of test_native_typeset.py that read Ubuntu, Hack, FiraCode and
 # the Noto Hebrew, Naskh and Devanagari faces, none of which is in the
-# repository (ROADMAP.md queue 1, item 5)
+# repository (ROADMAP.md, the WAITING twins)
 WAITING = (
     "test_ubuntu_and_hack_fonts_match", "test_firacode_calt_shapes_natively",
     "test_c_host_demo_compiles_and_runs", "test_hebrew_niqqud_shape_ex_matches_python",
     "test_devanagari_shape_ex_matches_layout", "test_devanagari_fuzz_parity",
     "test_mixed_script_fuzz_parity", "test_typeset_box_devanagari_wrapped",
     "test_arrangement_geometry_bidi", "test_arrangement_geometry_devanagari",
-    "test_arrangement_geometry_edge_contracts", "test_variable_instance_packs",
+    "test_arrangement_geometry_edge_contracts",
     "test_typeset_box_bidi_hebrew", "test_typeset_box_bidi_arabic",
     "test_typeset_box_bidi_fuzz", "test_arabic_naskh_shape_ex_matches_layout",
     "test_arabic_positional_forms_actually_fire", "test_arabic_mixed_and_fuzz_parity",
@@ -85,7 +88,7 @@ CASES = _twin_cases()
 
 def test_twins_are_the_tests_that_read_fonts_in_the_repo():
     names = {name for name, _ in CASES}
-    assert len(names) == 21 and len(names) + len(WAITING) == 39
+    assert len(names) == 22 and len(names) + len(WAITING) == 39
 
 
 @pytest.mark.parametrize("case", CASES, ids=[
@@ -96,7 +99,16 @@ def test_port_twin(request, monkeypatch, case):
     assert_runs_on_port(twin)
     assert twin.nt is nt
     monkeypatch.setattr(twin, "DEJAVU", path)
+    if name == "test_variable_instance_packs":
+        monkeypatch.setattr(twin, "NASKH", request.getfixturevalue("weight_face"))
     run_twin(request, monkeypatch, ("test_native_typeset", name, None))
+
+
+@pytest.fixture(scope="module")
+def weight_face(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("wght") / "FigPortArabic-wght.ttf")
+    build_weight_face(path)
+    return path
 
 
 def test_bundled_font_is_the_system_dejavu_sans():
@@ -167,18 +179,35 @@ def _variable_face(tmp_path):
     return path
 
 
-def test_variation_away_from_default_raises(tmp_path):
+def test_variation_away_from_default_raises(tmp_path, weight_face):
+    """The instance packs that raised before instancing was ported: on a
+    face with fvar alone and on the built wght face, every location's pack
+    equals figdraw_tpu's byte for byte, the wght face's differ from its
+    default pack, and shape_ex over an instance pack (keyed by its
+    location) gives figdraw_tpu's C typesetter's result."""
+    ensure_jax_typeset()
     path = _variable_face(tmp_path)
     tid = typefaces.load_typeface(path)
     default = native_pack.build_font_pack(tid)
     assert native_pack.build_font_pack(tid, [("wght", 400.0)]) == default
     assert default == jax_pack.build_font_pack(jax_tf.load_typeface(path))
-    with pytest.raises(NotImplementedError, match="variation location"):
-        native_pack.build_font_pack(tid, [("wght", 700.0)])
-    with pytest.raises(NotImplementedError) as err:
-        nt.shape_ex(tid, "AB", variations=[typefaces.FontVariation("wght", 700.0)])
-    assert str(err.value) == VARIATIONS_NOT_PORTED
-    assert not [key for key in nt._packs if key[0] == tid and key[1]]
+    assert native_pack.build_font_pack(tid, [("wght", 700.0)]) == jax_pack.build_font_pack(
+        jax_tf.load_typeface(path), [("wght", 700.0)])
+    wtid, jwtid = typefaces.load_typeface(weight_face), jax_tf.load_typeface(weight_face)
+    wdefault = native_pack.build_font_pack(wtid)
+    for w in (100.0, 700.0, 900.0):
+        got = native_pack.build_font_pack(wtid, [("wght", w)])
+        assert got == jax_pack.build_font_pack(jwtid, [("wght", w)]), w
+        assert (got != wdefault) == (w > 400.0), w
+    text = "\u0633\u0644\u0627\u0645 abc 12"
+    pv = [typefaces.FontVariation("wght", 700.0)]
+    jv = [jax_tf.FontVariation("wght", 700.0)]
+    got = nt.shape_ex(wtid, text, variations=pv)
+    want = jax_nt.shape_ex(jwtid, text, variations=jv)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    assert [key for key in nt._packs if key[0] == wtid and key[1]]
 
 
 # --- the port's C build against figdraw_tpu's ------------------------------------

@@ -13,8 +13,10 @@ the JAX package reads fonts with.
 - cmap formats 0, 6 and 12 and post format 3 names on fonts built for them;
 - names, axes, feature tags and scripts (typeface_info) against the JAX
   package's;
-- the NotImplementedErrors of a CFF face and of a variation location away
-  from the default, each naming its ROADMAP item;
+- a CFF face built with FontBuilder and a variable face at locations away
+  from its default, equal to fontTools' outlines and figdraw_tpu's advances,
+  typesets and rasters;
+- cubic glyf contours (glyphDataFormat 1), drawn as fontTools draws them;
 - the bundled font is DejaVuSans, with its sha256.
 """
 
@@ -290,6 +292,8 @@ def test_typeface_info_equals_the_jax_packages(built_fonts, key):
 
 
 def test_cff_face_raises_with_its_roadmap_item(tmp_path):
+    """The CFF face that raised before CFF outlines were read: it loads, and
+    draws and measures as fontTools does."""
     from fontTools.fontBuilder import FontBuilder
     from fontTools.pens.t2CharStringPen import T2CharStringPen
 
@@ -308,31 +312,99 @@ def test_cff_face_raises_with_its_roadmap_item(tmp_path):
     fb.setupPost()
     path = str(tmp_path / "cff.otf")
     fb.save(path)
-    with pytest.raises(NotImplementedError, match="Text host pipeline.*CFF"):
-        port_typefaces.load_typeface(path)
+    tf = port_typefaces.get_typeface(port_typefaces.load_typeface(path))
+    tt = TTFont(path)
+    gs = tt.getGlyphSet()
+    pen = DecomposingRecordingPen(gs)
+    gs["A"].draw(pen)
+    a = tf.glyph_id(65)
+    assert tf.glyph_path(a) == pen.value == [
+        ("moveTo", ((0, 0),)), ("lineTo", ((400, 0),)), ("lineTo", ((400, 600),)),
+        ("closePath", ())]
+    assert tf.advance(a) == 500 and tf._glyph_order == tt.getGlyphOrder()
+    jtf = jax_typefaces.get_typeface(jax_typefaces.load_typeface(path))
+    assert tf.glyph_path(a) == jtf.glyph_path(a)
 
 
 def test_variation_location_raises_with_its_roadmap_item(built_fonts):
-    """The default location of a variable face draws; any other raises,
-    at typeset and at raster time, naming the ROADMAP item."""
+    """The variable face whose locations away from the default raised
+    before instancing was ported: at the default and at wght 900, 500 and
+    past the axis, var_advance, glyph_path, a raster and a typeset equal
+    figdraw_tpu's."""
+    import numpy as np
+
+    import figdraw_tpu as jp
+    from figdraw_tpu.text.layout import typeset as jax_typeset
+    from figdraw_tpu.text.raster import rasterize_glyph as jax_raster
     from figdraw_tpu_torch import fill, rgba, vec2
     from figdraw_tpu_torch.text.layout import typeset
     from figdraw_tpu_torch.text.raster import rasterize_glyph
 
     tid = port_typefaces.load_typeface(built_fonts["var"])
     tf = port_typefaces.get_typeface(tid)
+    jtid = jax_typefaces.load_typeface(built_fonts["var"])
+    jtf = jax_typefaces.get_typeface(jtid)
     a = tf.glyph_id(ord("A"))
-    default = (port_typefaces.FontVariation("wght", 100),)
-    heavy = (port_typefaces.FontVariation("wght", 900),)
-    assert tf.var_advance(a, default) == tf.advance(a) == 500
-    assert rasterize_glyph(tf, a, 20.0, variations=default) is not None
-    with pytest.raises(NotImplementedError, match="Text host pipeline.*variable-font"):
-        tf.var_advance(a, heavy)
-    with pytest.raises(NotImplementedError, match="variable-font instancing"):
-        rasterize_glyph(tf, a, 20.0, variations=heavy)
-    f = port_typefaces.FigFont(typeface_id=tid, size=20.0, variations=heavy)
-    with pytest.raises(NotImplementedError, match="variable-font instancing"):
-        typeset(vec2(400, 40), [(f, fill(rgba(0, 0, 0, 255)), "AA")])
+    assert tf.var_advance(a, (port_typefaces.FontVariation("wght", 100),)) == 500
+    assert tf.var_advance(a, (port_typefaces.FontVariation("wght", 900),)) == 900
+    for w in (100, 500, 900, 1200):
+        pv = (port_typefaces.FontVariation("wght", w),)
+        jv = (jax_typefaces.FontVariation("wght", w),)
+        assert tf.var_advance(a, pv) == jtf.var_advance(a, jv)
+        assert tf.glyph_path(a, pv) == jtf.glyph_path(a, jv)
+        got, want = rasterize_glyph(tf, a, 20.0, variations=pv), jax_raster(
+            jtf, a, 20.0, variations=jv)
+        assert np.array_equal(got[0], want[0]) and got[1] == want[1]
+        f = port_typefaces.FigFont(typeface_id=tid, size=20.0, variations=pv)
+        jf = jax_typefaces.FigFont(typeface_id=jtid, size=20.0, variations=jv)
+        arr = typeset(vec2(400, 40), [(f, fill(rgba(0, 0, 0, 255)), "AA")])
+        jarr = jax_typeset(jp.vec2(400, 40), [(jf, jp.fill(jp.rgba(0, 0, 0, 255)), "AA")])
+        assert [(g.glyph_id, g.pos.x, g.advance.x) for g in arr.arranged_glyphs] == [
+            (g.glyph_id, g.pos.x, g.advance.x) for g in jarr.arranged_glyphs]
+
+
+def _cubic_face(path):
+    """A glyf face with glyphDataFormat 1: contours of cubic off-curve
+    pairs (one all off-curve, one mixed with on-curve points and lines)."""
+    from fontTools.fontBuilder import FontBuilder
+    from fontTools.pens.ttGlyphPen import TTGlyphPen
+
+    fb = FontBuilder(1000, isTTF=True, glyphDataFormat=1)
+    fb.setupGlyphOrder([".notdef", "O", "D"])
+    fb.setupCharacterMap({ord("O"): "O", ord("D"): "D"})
+    o = TTGlyphPen(None)
+    o.moveTo((100, 0)); o.curveTo((200, 0), (300, 100), (300, 200))
+    o.curveTo((300, 300), (200, 401), (100, 401)); o.curveTo((0, 401), (-100, 300), (-100, 200))
+    o.curveTo((-100, 100), (0, 0), (100, 0)); o.closePath()
+    d = TTGlyphPen(None)
+    d.moveTo((0, 0)); d.lineTo((200, 0)); d.curveTo((350, 0), (450, 150), (450, 351))
+    d.curveTo((450, 500), (350, 700), (200, 700)); d.lineTo((0, 700)); d.closePath()
+    fb.setupGlyf({".notdef": TTGlyphPen(None).glyph(), "O": o.glyph(dropImpliedOnCurves=True),
+                  "D": d.glyph()})
+    fb.setupHorizontalMetrics({".notdef": (500, 0), "O": (600, -100), "D": (600, 0)})
+    fb.setupHorizontalHeader(ascent=800, descent=-200)
+    fb.setupNameTable({"familyName": "Cubic", "styleName": "Regular"})
+    fb.setupOS2()
+    fb.setupPost()
+    fb.save(path)
+
+
+def test_cubic_glyf_contours_draw_as_fonttools(tmp_path):
+    path = str(tmp_path / "cubic.ttf")
+    _cubic_face(path)
+    tt = TTFont(path)
+    assert tt["head"].glyphDataFormat == 1
+    gs = tt.getGlyphSet()
+    ours = _reader(path)
+    kinds = set()
+    for gid, name in enumerate(tt.getGlyphOrder()):
+        pen = DecomposingRecordingPen(gs)
+        gs[name].draw(pen)
+        got = ours.glyph_path(gid)
+        assert got == pen.value, name
+        assert _types(got) == _types(pen.value), name
+        kinds.update(op for op, _ in got)
+    assert "curveTo" in kinds and "qCurveTo" not in kinds
 
 
 def test_bundled_font_is_dejavu_sans():

@@ -3,9 +3,9 @@ against figdraw_tpu's (on fontTools).
 
 - Twins: every test of test_shaping.py, test_shaping_thai.py and
   test_shaping_use.py runs a second time on the port (torch_twin), with its
-  fonts built by the same builders; test_variable_font_instancing's twin
-  checks instead that a non-default location raises, naming its ROADMAP
-  item (the port draws a variable face's default instance only).
+  fonts built by the same builders, test_variable_font_instancing's
+  included; its differential twin holds the port's instanced advances,
+  typesets and rasters to figdraw_tpu's at the same locations.
 - Differential: the same fonts (DejaVuSans and the fonts those tests build)
   and the same strings go through both packages' typeset, and through both
   shapers' substitute / position for the Thai, Khmer and Myanmar runs of
@@ -29,8 +29,7 @@ from torch_twin import assert_runs_on_port, case_id, port_twin, run_twin, twin_c
 torch.set_num_threads(1)
 
 FILES = ("test_shaping", "test_shaping_thai", "test_shaping_use")
-CASES = [c for name in FILES
-         for c in twin_cases(name, skip=("test_variable_font_instancing",))]
+CASES = [c for name in FILES for c in twin_cases(name)]
 
 
 @pytest.mark.parametrize("case", CASES, ids=[case_id(c) for c in CASES])
@@ -40,24 +39,37 @@ def test_port_twin(request, monkeypatch, case):
 
 
 def test_variable_font_instancing(tmp_path):
-    """test_shaping.test_variable_font_instancing's twin: the default
-    location typesets as the static face; wght 900 raises."""
+    """test_shaping.test_variable_font_instancing's scene on both packages:
+    at wght 100, 500, 900 and past the axis, the advances, the typeset
+    arrangement, the font ids' distinctness and the rasters equal
+    figdraw_tpu's."""
+    import numpy as np
     import test_shaping
 
+    import figdraw_tpu as jp
+    from figdraw_tpu.text import raster as jax_raster
     from figdraw_tpu_torch import fill, rgba, vec2
+    from figdraw_tpu_torch.text import raster as port_raster
 
-    tid = port_tf.load_typeface(test_shaping._build_var_font(tmp_path))
-    c = fill(rgba(0, 0, 0, 255))
-    light = port_tf.FigFont(typeface_id=tid, size=100.0,
-                            variations=(port_tf.FontVariation("wght", 100),))
-    plain = port_tf.FigFont(typeface_id=tid, size=100.0)
-    al = port_layout.typeset(vec2(1000, 100), [(light, c, "AA")])
-    ap = port_layout.typeset(vec2(1000, 100), [(plain, c, "AA")])
-    assert [g.advance.x for g in al.arranged_glyphs] == [g.advance.x for g in ap.arranged_glyphs]
-    heavy = port_tf.FigFont(typeface_id=tid, size=100.0,
-                            variations=(port_tf.FontVariation("wght", 900),))
-    with pytest.raises(NotImplementedError, match="variable-font instancing"):
-        port_layout.typeset(vec2(1000, 100), [(heavy, c, "AA")])
+    path = test_shaping._build_var_font(tmp_path)
+    tid, jtid = port_tf.load_typeface(path), jax_tf.load_typeface(path)
+    tf, jtf = port_tf.get_typeface(tid), jax_tf.get_typeface(jtid)
+    a = tf.glyph_id(65)
+    widths = []
+    for w in (100.0, 500.0, 900.0, 1000.0):
+        pv, jv = (port_tf.FontVariation("wght", w),), (jax_tf.FontVariation("wght", w),)
+        assert tf.var_advance(a, pv) == jtf.var_advance(a, jv)
+        pf = port_tf.FigFont(typeface_id=tid, size=20.0, variations=pv)
+        jf = jax_tf.FigFont(typeface_id=jtid, size=20.0, variations=jv)
+        pa = port_layout.typeset(vec2(1000, 100), [(pf, fill(rgba(0, 0, 0, 255)), "AA")])
+        ja = jax_layout.typeset(jp.vec2(1000, 100), [(jf, jp.fill(jp.rgba(0, 0, 0, 255)), "AA")])
+        assert arrangement(pa) == arrangement(ja)
+        assert pa.arranged_glyphs[0].font_id == ja.arranged_glyphs[0].font_id
+        got = port_raster.rasterize_glyph(tf, a, 40.0, variations=pv)
+        want = jax_raster.rasterize_glyph(jtf, a, 40.0, variations=jv)
+        assert np.array_equal(got[0], want[0]) and got[1] == want[1]
+        widths.append(pa.max_size.x)
+    assert widths[0] < widths[1] < widths[2] == widths[3]
 
 
 # --- the differential ------------------------------------------------------------------

@@ -5,7 +5,9 @@ Every test of test_text_registry.py runs a second time on the port
 font ids that ignore shaping-only settings. Both registries give the same
 typeface ids (a content digest of the bytes and the face index) and font ids
 for the same fonts, so glyph cache keys agree across the packages; and both
-resolve a name through the data dir and the system font dirs alike.
+resolve a name through the data dir and the system font dirs alike; the
+committed variable faces give the same axes, the same font ids at a
+location and the same instanced advances.
 """
 
 import os
@@ -72,3 +74,35 @@ def test_name_resolution_equals_the_jax_packages(tmp_path):
     assert port_tf.supported_font_file_extensions() == jax_tf.supported_font_file_extensions()
     assert port_tf.text_backend_features() == jax_tf.text_backend_features()
     assert os.path.exists(port_tf.bundled_font_path())
+
+
+@pytest.mark.parametrize("face", ["FigPortSans-VF.ttf", "FigPortSans-VF.otf"])
+def test_variable_axes_equal_the_jax_packages(face):
+    """A variable face's axes, its font ids at variation locations (the
+    same hash of the same fields, in one process) and its instanced
+    advances."""
+    from figdraw_tpu.text import typeface_info as jax_info
+    from figdraw_tpu_torch.text import typeface_info as port_info
+
+    path = port_tf.bundled_font_path(face)
+    tid = port_tf.load_typeface(path)
+    assert tid == jax_tf.load_typeface(path)
+    ptf, jtf = port_tf.get_typeface(tid), jax_tf.get_typeface(tid)
+    assert ptf.is_variable() and jtf.is_variable()
+    axes = [(a.tag, a.min_value, a.default_value, a.max_value)
+            for a in port_info.get_typeface_info(tid).variation_axes]
+    assert axes == [(a.tag, a.min_value, a.default_value, a.max_value)
+                    for a in jax_info.get_typeface_info(tid).variation_axes]
+    assert axes == [("wdth", 75.0, 100.0, 125.0), ("slnt", -12.0, 0.0, 0.0)]
+    a = ptf.glyph_id(ord("a"))
+    ids = set()
+    for loc in ((), (("wdth", 75.0),), (("wdth", 90.0), ("slnt", -6.0))):
+        pv = tuple(port_tf.FontVariation(t, v) for t, v in loc)
+        jv = tuple(jax_tf.FontVariation(t, v) for t, v in loc)
+        pid = port_tf.register_font(port_tf.FigFont(typeface_id=tid, size=15.0,
+                                                    variations=pv))
+        assert pid == jax_tf.register_font(jax_tf.FigFont(typeface_id=tid, size=15.0,
+                                                          variations=jv))
+        ids.add(pid)
+        assert ptf.var_advance(a, pv) == jtf.var_advance(a, jv)
+    assert len(ids) == 3

@@ -54,14 +54,29 @@ long tapes on the rolled executor):
   (`jax_photo_wall_frame`), both FigRenderer(atlas_size=512,
   use_pallas=False).
 
+- `fonts.json` and `font_<case>_blocks8.npy`, for the FigPort Sans faces
+  (figdraw_tpu_torch/fonts, written by tools/make_port_faces.py): each
+  face's sha256 and, at each of `scenes.FONT_LOCATIONS`, the digests of
+  its every glyph's outline and advance as figdraw_tpu gives them
+  (`scenes.outline_digests` over figdraw_tpu's typeface, on fontTools);
+  bench_text's scene from each of `scenes.FONT_TEXT_CASES` (1200x800, 36
+  lines, FigRenderer(atlas_size=512, use_pallas=False)): its plan's combo
+  and atlas digests and its frame's 8x8 block means; the text table
+  (180x6 at 1200x800) of `scenes.FONT_TABLE_CASE`: its plan's combo (zero
+  signs folded) and atlas digests and block means; the sha256 of
+  figdraw_tpu's instance packs (`build_font_pack`) of
+  `scenes.FONT_PACK_CASES`.
+
 Rewrite them all (needs jax, fontTools, PIL and the DejaVu font), only the
-example scenes' (needs jax), only the frame loop's two (needs jax) or only
-the image files' (needs jax and PIL):
+example scenes' (needs jax), only the frame loop's two (needs jax), only
+the image files' (needs jax and PIL) or only the fonts' (needs jax and
+fontTools, ~1 min):
 
     JAX_PLATFORMS=cpu python tests/torch_reference.py
     JAX_PLATFORMS=cpu python tests/torch_reference.py examples
     JAX_PLATFORMS=cpu python tests/torch_reference.py frameloop
     JAX_PLATFORMS=cpu python tests/torch_reference.py images
+    JAX_PLATFORMS=cpu python tests/torch_reference.py fonts
 """
 
 import json
@@ -410,10 +425,171 @@ def text_fixture():
     return arrays, frame
 
 
-def _text_font(size: float):
+def _text_font(size: float, path: str = DEJAVU, location=()):
     from figdraw_tpu.text.typefaces import FigFont, load_typeface
 
-    return FigFont(typeface_id=load_typeface(DEJAVU), size=size)
+    return FigFont(typeface_id=load_typeface(path), size=size,
+                   variations=jax_variations(location))
+
+
+def jax_variations(location) -> tuple:
+    """(tag, value) pairs as figdraw_tpu's FontVariation tuple."""
+    from figdraw_tpu.text.typefaces import FontVariation
+
+    return tuple(FontVariation(tag, float(v)) for tag, v in location)
+
+
+def port_variations(location) -> tuple:
+    from figdraw_tpu_torch.text.typefaces import FontVariation
+
+    return tuple(FontVariation(tag, float(v)) for tag, v in location)
+
+
+def jax_font_text_scene(path: str, location, seed: int = 0):
+    """bench_text.build_scene from the face at `path` at a variation
+    location, with the figdraw_tpu API."""
+    from figdraw_tpu import Fig, FigKind, fill, new_renders, rect, rgba, vec2
+    from figdraw_tpu.nodesarray import from_renders
+    from figdraw_tpu.text.layout import typeset_cached
+
+    renders = new_renders()
+    renders.add_root(0, Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, TEXT_W, TEXT_H),
+                            fill=fill(rgba(250, 250, 250, 255))))
+    f = _text_font(15.0, path, location)
+    y = 4.0
+    for row in range(36):
+        arr = typeset_cached(vec2(TEXT_W - 20, 22), [(
+            f, fill(rgba(20, 20, 30, 255)),
+            "The quick brown fox jumps over the lazy dog near the riverbank %d"
+            % (seed + row))])
+        renders.add_root(0, Fig(kind=FigKind.nkText, screen_box=rect(8, y, TEXT_W - 20, 22),
+                                text_layout=arr))
+        y += 22.0
+    return from_renders(renders)
+
+
+def jax_font_text_plan(path: str, location, render: bool = False):
+    """figdraw_tpu's plan of jax_font_text_scene (FigRenderer(atlas_size=512,
+    use_pallas=False)): (combo, atlas, the frame or None)."""
+    from figdraw_tpu import FigRenderer, vec2
+
+    scene = jax_font_text_scene(path, location)
+    ren = FigRenderer(atlas_size=512, use_pallas=False)
+    size = vec2(TEXT_W, TEXT_H)
+    frame = np.asarray(ren.render_frame(scene, size)) if render else None
+    plan = ren._plan_execution(ren.flatten(scene, size))
+    return np.asarray(plan.combo, np.float32), np.asarray(ren.atlas.data, np.float32), frame
+
+
+def jax_font_table_plan(path: str, location, render: bool = False,
+                        rows: int = TABLE_ROWS):
+    """figdraw_tpu's plan of the text table from the face at `path` at a
+    location (rows x 6 at 1200x800, its default path: the rolled executor):
+    (combo, atlas, the frame or None)."""
+    from figdraw_tpu import FigRenderer, vec2
+
+    scene = jax_text_table_scene(rows=rows, font=_text_font(13.0, path, location))
+    ren = FigRenderer(atlas_size=512, use_pallas=False)
+    size = vec2(TABLE_W, TABLE_H)
+    frame = np.asarray(ren.render_frame(scene, size)) if render else None
+    plan = ren._plan_execution(ren.flatten(scene, size))
+    return np.asarray(plan.combo, np.float32), np.asarray(ren.atlas.data, np.float32), frame
+
+
+def build_weight_face(path: str) -> None:
+    """A variable face with Arabic and Latin (DejaVuSans subset to U+0020-
+    007E and U+0600-06FF by tools/make_port_faces.py, its layout tables
+    kept) on a wght axis 100-400-900, its 900 master 1.3 times as wide: a
+    built stand-in for test_native_typeset.py's Noto Naskh variable face."""
+    from fontTools import varLib
+    from fontTools.designspaceLib import AxisDescriptor, DesignSpaceDocument, SourceDescriptor
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import make_port_faces
+
+    base = make_port_faces.subset_source(
+        unicodes=list(range(0x20, 0x7F)) + list(range(0x600, 0x700)))
+    ds = DesignSpaceDocument()
+    ax = AxisDescriptor()
+    ax.tag, ax.name = "wght", "Weight"
+    ax.minimum, ax.default, ax.maximum = 100.0, 400.0, 900.0
+    ds.addAxis(ax)
+    for w, sx in ((400.0, 1.0), (900.0, 1.3)):
+        src = SourceDescriptor()
+        src.font = make_port_faces.master(base, sx, 0.0)
+        src.location = {"Weight": w}
+        if w == 400.0:
+            src.copyLib = src.copyInfo = src.copyFeatures = True
+        ds.addSource(src)
+    vf, _, _ = varLib.build(ds, exclude=["MVAR"])
+    vf.save(path)
+
+
+def font_path(face: str) -> str:
+    from figdraw_tpu_torch.text.typefaces import bundled_font_path
+
+    return bundled_font_path(face)
+
+
+def font_references() -> dict:
+    """fonts.json's contents from figdraw_tpu (without the frames)."""
+    import hashlib
+
+    from figdraw_tpu.text import native_pack as jax_pack
+    from figdraw_tpu.text.typefaces import get_typeface, load_typeface
+    from figdraw_tpu_torch.scenes import (
+        FONT_FACES, FONT_LOCATIONS, FONT_PACK_CASES, FONT_TABLE_CASE, FONT_TEXT_CASES,
+        array_digest, font_case_key, outline_digests,
+    )
+
+    out = {"faces": {}, "text": {}, "table": {}, "packs": {}}
+    for face in FONT_FACES:
+        path = font_path(face)
+        with open(path, "rb") as fh:
+            entry = {"sha256": hashlib.sha256(fh.read()).hexdigest(), "outlines": {}}
+        tf = get_typeface(load_typeface(path))
+        for loc in FONT_LOCATIONS:
+            paths, advances = outline_digests(tf, jax_variations(loc))
+            entry["outlines"][font_case_key(face, loc)] = {"paths": paths,
+                                                          "advances": advances}
+        out["faces"][face] = entry
+    for face, loc in FONT_TEXT_CASES:
+        combo, atlas, _ = jax_font_text_plan(font_path(face), loc)
+        out["text"][font_case_key(face, loc)] = {
+            "combo": array_digest(combo), "combo_shape": list(combo.shape),
+            "atlas": array_digest(atlas)}
+    face, loc = FONT_TABLE_CASE
+    combo, atlas, _ = jax_font_table_plan(font_path(face), loc)
+    out["table"][font_case_key(face, loc)] = {
+        "combo": array_digest(combo, zero_sign=True), "combo_shape": list(combo.shape),
+        "atlas": array_digest(atlas)}
+    for face, loc in FONT_PACK_CASES:
+        tid = load_typeface(font_path(face))
+        out["packs"][font_case_key(face, loc)] = hashlib.sha256(
+            jax_pack.build_font_pack(tid, jax_variations(loc))).hexdigest()
+    return out
+
+
+def write_font_references() -> None:
+    from figdraw_tpu_torch.scenes import (
+        FONT_TABLE_CASE, FONT_TEXT_CASES, FONTS_REFERENCE, font_blocks_path, font_case_key,
+    )
+
+    refs = font_references()
+    with open(FONTS_REFERENCE, "w") as fh:
+        json.dump(refs, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+    print(f"wrote {FONTS_REFERENCE}")
+    for face, loc in FONT_TEXT_CASES:
+        _combo, _atlas, frame = jax_font_text_plan(font_path(face), loc, render=True)
+        path = font_blocks_path(font_case_key(face, loc))
+        np.save(path, block_means(frame).astype(np.float32))
+        print(f"wrote {path}")
+    face, loc = FONT_TABLE_CASE
+    _combo, _atlas, frame = jax_font_table_plan(font_path(face), loc, render=True)
+    path = font_blocks_path(font_case_key(face, loc))
+    np.save(path, block_means(frame).astype(np.float32))
+    print(f"wrote {path}")
 
 
 def jax_text_cells_scene():
@@ -444,16 +620,16 @@ def jax_text_cells_scene():
 
 
 def jax_text_table_scene(rows: int = TABLE_ROWS, cols: int = TABLE_COLS,
-                         w: float = TABLE_W, h: float = TABLE_H):
+                         w: float = TABLE_W, h: float = TABLE_H, font=None):
     """The text-in-clip scene at bench_clipmask.make_table_scene's size and
     layout: a clipped viewport scrolled by 37 px over rows x cols rounded
-    cells of 22 px, each clipping a 13 px line that runs past its right
-    edge."""
+    cells of 22 px, each clipping a 13 px line (DejaVuSans, or `font`) that
+    runs past its right edge."""
     from figdraw_tpu import Fig, FigFlags, FigKind, fill, rect, rgba, vec2
     from figdraw_tpu.nodes import RenderList, Renders
     from figdraw_tpu.text.layout import typeset
 
-    f = _text_font(13.0)
+    f = font if font is not None else _text_font(13.0)
     margin, gap, cell_h, scroll_y = 22.0, 4.0, 22.0, 37.0
     viewport = rect(margin, margin, w - margin * 2, h - margin * 2)
     cell_w = (viewport.w - gap * (cols + 1)) / cols
@@ -1020,11 +1196,15 @@ def main() -> None:
     if sys.argv[1:] == ["images"]:
         write_image_file_references()
         return
+    if sys.argv[1:] == ["fonts"]:
+        write_font_references()
+        return
     write_example_references()
     if sys.argv[1:] == ["examples"]:
         return
     write_frameloop_references()
     write_image_file_references()
+    write_font_references()
 
     with pytest.MonkeyPatch.context() as mp:
         for variant in IMAGE_VARIANTS:
