@@ -108,7 +108,19 @@ FigRenderer(device="cuda").render_frame or execute_plan:
   (fd_flatten_renders_spans, fd_renders_set_fig, fd_flatten_renders_root),
   each patched tape a full re-flatten's byte for byte; and the C examples
   native/examples/{scene,shim,typeset}_demo.c built with gcc against the
-  port's libraries and run.
+  port's libraries and run;
+- rendering across several devices (sharded_phase, lines `check 16`), on
+  meshes of [cuda:0] * n (one card runs every band): ShardedFigRenderer on
+  the headline in 4 bands of 272 rows (the banded blur X6 on its swap path)
+  and 24 of 48 (its gather path), the clip tables in 2 bands of 400 (K4 and
+  K3 at a band origin), bench_text's scene in 4 (K1-atlas, glyph runs
+  across the boundaries), the clipped cards in 4 (K4-atlas), a
+  device-resident 12000-box grid in 4 (render_view, render_views, a patch
+  and the damage-clipped view) and render_batch / render_views over a
+  frames mesh of [cuda:0] * 2; every frame against the one-device one,
+  each band-origin kernel and its front end against their plain versions
+  at a non-zero origin, and ms/frame on 1, 2 and 4 bands beside
+  render_frame.
 
 Every path bins its tape once a frame through the binning kernel
 (csrc/binning.cu), which each phase holds against its plain version on
@@ -124,7 +136,9 @@ radius, through entry points that every commit since the device-resident
 scenes has. It is how two commits are compared in turns: unpack the other
 commit beside this one, copy this script into it, and run the command in
 each checkout alternately, one process after the other on the same card,
-so both see the same card and power limit.
+so both see the same card and power limit. `python3 chip_smoke.py
+band_turns` does the same for the sharded headline: ms/frame through
+render_frame and on 1, 2 and 4 bands of one card (band_times).
 
 It checks the frames and the launch counts of each path, holds reduced
 frames against stored block means of the JAX package's frames, and prints
@@ -274,12 +288,12 @@ def compared(fn, plain, errs, store, what: str, targets=TILE_TARGETS,
 
 
 def live_pairs(fields, modes, tile_idx, tile_counts, tile_h, tiles_x, seg=None,
-               mega=False):
+               mega=False, row0=0):
     """Every (tile, quad) pair of the binned lists (the run's segment [seg)
     when given) that covers pixels: (quad, mode word, x0, x1, y0, y1), the
     tile's pixels whose centers lie in the quad's bbox as the integer
-    ranges [x0, x1) x [y0, y1). Clear sentinels of the mega tape cover
-    none."""
+    ranges [x0, x1) x [y0, y1), rows counted from the band origin row0.
+    Clear sentinels of the mega tape cover none."""
     import numpy as np
 
     from figdraw_tpu_torch.ops.layout import (
@@ -300,14 +314,14 @@ def live_pairs(fields, modes, tile_idx, tile_counts, tile_h, tiles_x, seg=None,
         keep = (r & MEGA_CLEAR_BIT) == 0
         t, q, r = t[keep], q[keep], r[keep] & MEGA_EVAL_MASK
     tx0 = (t % tiles_x) * 128
-    ty0 = (t // tiles_x) * tile_h
+    ty0 = row0 + (t // tiles_x) * tile_h
     # pixel x is covered when x + 0.5 lies in [bbox_x0, bbox_x1)
     x0 = np.maximum(np.ceil(f[q, QF_BBOX_X0] - 0.5), tx0).astype(np.int64)
     x1 = np.minimum(np.ceil(f[q, QF_BBOX_X1] - 0.5), tx0 + 128).astype(np.int64)
     y0 = np.maximum(np.ceil(f[q, QF_BBOX_Y0] - 0.5), ty0).astype(np.int64)
     y1 = np.minimum(np.ceil(f[q, QF_BBOX_Y1] - 0.5), ty0 + tile_h).astype(np.int64)
     keep = (x1 > x0) & (y1 > y0)
-    return q[keep], r[keep], x0[keep], x1[keep], y0[keep], y1[keep]
+    return q[keep], r[keep], x0[keep], x1[keep], y0[keep] - row0, y1[keep] - row0
 
 
 def tile_ops(fields, pairs, mask_target=False) -> float:
@@ -394,8 +408,9 @@ def raster_work(args, kw, mask_target=False):
     backdrop = args[7] if len(args) > 7 else kw.get("backdrop_planes")
     atlas = kw.get("atlas")
     planes, ph, pw = target.shape
+    row0 = kw.get("row0", 0)
     pairs = live_pairs(fields, modes, tile_idx, tile_counts, kw["tile_h"], pw // 128,
-                       seg=bounds.tolist())
+                       seg=bounds.tolist(), row0=row0)
     q = pairs[0]
     plane_of = modes[:, QI_MASK].cpu().numpy()[q]
     n_bytes = (len(np.unique(q)) * (QF_WIDTH + QI_WIDTH) * 4
@@ -407,7 +422,7 @@ def raster_work(args, kw, mask_target=False):
     if atlas is not None:
         n_bytes += atlas_bytes(fields, pairs, atlas)
     before, after, blocks = raster.block_pairs(fields, bounds, tile_idx, tile_counts,
-                                               kw["tile_h"], ph, pw)
+                                               kw["tile_h"], ph, pw, row0=row0)
     per_block = 2 * planes * raster.BLOCK * raster.BLOCK * 4
     return np.array([n_bytes + 2 * target.nelement() * 4, n_bytes + blocks * per_block,
                      tile_ops(fields, pairs, mask_target=mask_target), before, after],
@@ -566,13 +581,15 @@ def mega_work(args, kw):
     fields, modes, tile_idx, tile_counts, planes, _n_masks = args
     th, atlas = kw["tile_h"], kw.get("atlas")
     _, ph, pw = planes.shape
-    pairs = live_pairs(fields, modes, tile_idx, tile_counts, th, pw // 128, mega=True)
+    row0 = kw.get("row0", 0)
+    pairs = live_pairs(fields, modes, tile_idx, tile_counts, th, pw // 128, mega=True,
+                       row0=row0)
     n_bytes = (len(np.unique(pairs[0])) * (QF_WIDTH + QI_WIDTH) * 4
                + (int(tile_counts.sum()) + tile_counts.numel()) * 4)
     if atlas is not None:
         n_bytes += atlas_bytes(fields, pairs, atlas)
     before, after, blocks = mega.block_entries(fields, modes, tile_idx, tile_counts, th,
-                                               ph, pw)
+                                               ph, pw, row0=row0)
     per_block = 2 * 4 * raster.BLOCK * raster.BLOCK * 4
     return np.array([n_bytes + 2 * planes.nelement() * 4, n_bytes + blocks * per_block,
                      tile_ops(fields, pairs), before, after], dtype=np.float64)
@@ -606,6 +623,9 @@ def zero_counts():
     mega.LAUNCHES = mega.ATLAS_LAUNCHES = 0
     rows.LAUNCHES = blur.LAUNCHES = binning.LAUNCHES = binning.DECODE_LAUNCHES = 0
     binning.PLAIN_DECODES = binning.PLAIN_BINNINGS = 0
+    raster.BAND_LAUNCHES = raster.BAND_ATLAS_LAUNCHES = raster.BAND_MASK_LAUNCHES = 0
+    mega.BAND_LAUNCHES = mega.BAND_ATLAS_LAUNCHES = 0
+    binning.BAND_LAUNCHES = binning.BAND_DECODE_LAUNCHES = blur.BAND_LAUNCHES = 0
 
 
 FRONT_PATHS = {}  # path -> front-kernel launches of its counted run
@@ -2713,9 +2733,9 @@ def recorded_groups(ren) -> tuple:
     undo)."""
     groups, real = [], ren._dispatch_batch
 
-    def call(key, plan, batch, atlas):
+    def call(key, plan, batch, atlas, **kw):
         groups.append((key, plan, batch, atlas))
-        return real(key, plan, batch, atlas)
+        return real(key, plan, batch, atlas, **kw)
 
     ren._dispatch_batch = call
     return groups, lambda: delattr(ren, "_dispatch_batch")
@@ -4390,6 +4410,644 @@ def fonts_phase(tag: str, dev, host: dict) -> dict:
     return out
 
 
+SHARD_BANDS = 4  # the headline's bands: 1080 rows in bands of 272 (the last 264)
+SHARD_FINE = 24  # 24 bands of 48 rows, shorter than the blur's halo: the gather path
+SHARD_FRAMES = 8  # frames of each counted sharded run
+SHARD_VIEWS = 8  # views of the device-resident grid's sweeps
+SHARD_TABLE_BANDS = 2  # the clip tables' 800 rows in bands of 400
+SHARD_PATHS = {}  # path -> its counted run's band-origin launches by kernel
+SHARD_ERRS = {}  # band-origin kernel -> max |kernel - plain| over its checks
+SHARD_TIMES = {}  # band-origin kernel -> its times and bound at the checked band
+
+
+def band_counts() -> dict:
+    """Launches at a band origin other than 0, by kernel, since zero_counts()."""
+    from figdraw_tpu_torch.ops import binning, blur, mega, raster
+
+    return {"K1": raster.BAND_LAUNCHES, "K1-atlas": raster.BAND_ATLAS_LAUNCHES,
+            "K3": raster.BAND_MASK_LAUNCHES, "K4": mega.BAND_LAUNCHES,
+            "K4-atlas": mega.BAND_ATLAS_LAUNCHES, "front": binning.BAND_DECODE_LAUNCHES,
+            "tiles": binning.BAND_LAUNCHES, "X6": blur.BAND_LAUNCHES}
+
+
+def band_expected(plan, n: int) -> dict:
+    """A sharded frame's band-origin launches on n bands of one card (the
+    wrappers count a launch at an origin other than 0): one front end and
+    each kernel of the plan's executor a band but band 0; X6 a horizontal
+    pass a band and a vertical pass a band (the swap path) or one (the
+    gather path, every band on one device)."""
+    from figdraw_tpu_torch.ops.blur import BLUR_HALO
+    from figdraw_tpu_torch.parallel.sharding import band_geometry
+    from figdraw_tpu_torch.tape import FRAME_TARGET
+
+    pband = band_geometry(n, plan.height, plan.width)[3]
+    want = {"front": n - 1, "tiles": n - 1}
+    if plan.mega_combo is not None:
+        want["K4-atlas" if plan.mega_atlas else "K4"] = n - 1
+        return want
+    for item in plan.structure:
+        if item[0] == "blur":
+            want["X6"] = want.get("X6", 0) + n + (n if BLUR_HALO < pband else 1)
+        elif item[0] == "draw":
+            key = "K3" if item[1] != FRAME_TARGET else "K1-atlas" if item[2] else "K1"
+            want[key] = want.get(key, 0) + n - 1
+    return want
+
+
+def sharded_counted(what: str, render, frames: int, want: dict) -> list:
+    """`frames` runs of render(f) with the counts set to 0 just before and
+    read just after: the band-origin launches must be want's (a frame)
+    times frames, every other band-origin kernel 0, and no plain decode or
+    binning; returns each frame's ms (host and device, a synchronize
+    each)."""
+    import torch
+
+    zero_counts()
+    ms = []
+    for f in range(frames):
+        t0 = time.perf_counter()
+        frame = render(f)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not bool(torch.isfinite(frame).all()):
+            fail(f"sharded {what}: frame {f} holds non-finite values")
+    got = band_counts()
+    expect = {k: want.get(k, 0) * frames for k in got}
+    plain = all_counts()["plain"]
+    print(f"check 16: sharded {what}: {frames} runs, band-origin launches {got} "
+          f"(expected {expect}), plain front ends {plain}", flush=True)
+    if got != expect or plain:
+        fail(f"sharded {what}: band-origin launches {got}, expected {expect}; "
+             f"{plain} plain front ends")
+    SHARD_PATHS[what] = got
+    return ms
+
+
+FRINGE_CAP = 64  # pixels of one frame that two tile layouts' fringes may explain
+
+
+def tile_rows(ys, th: int, pband: int = 0):
+    """Each pixel row's tile rows (t0, t1) as int64 arrays: tiles of th rows
+    from row 0, or, pband > 0, from each band's origin (a multiple of
+    pband), as a sharded frame tiles its bands."""
+    import numpy as np
+
+    ys = np.asarray(ys, np.int64)
+    base = (ys // pband) * pband if pband else np.zeros_like(ys)
+    t0 = base + ((ys - base) // th) * th
+    return t0, t0 + th
+
+
+def layout_fringe(fields, modes, ys, xs, tiles_a, tiles_b, tile_w: int = 128):
+    """The most that the frames of two tile layouts can differ by at each
+    pixel (ys, xs): the summed alpha there of the quads whose bbox meets the
+    pixel's tile in one layout and not in the other (every renderer bins a
+    quad by its bbox, and a fragment left out of a pixel changes it by at
+    most its alpha). Such a quad reaches the pixel only with antialiased
+    fringe past its bbox: the walk's bbox of a rotated box misses up to a
+    pixel of it. 0 where no quad does. fields (N, 68) f32 and modes (N, 2)
+    i32: the frame's unpacked rows, torch tensors on the CPU; tiles_a,
+    tiles_b: each pixel's tile rows in the two layouts (tile_rows); columns
+    tile by tile_w from 0 in both."""
+    import numpy as np
+    import torch
+
+    from figdraw_tpu_torch.ops.layout import QF_BBOX_X0, QI_MODE
+    from figdraw_tpu_torch.ops.quad_eval_planar import eval_quad_planar
+
+    bb = fields[:, QF_BBOX_X0 : QF_BBOX_X0 + 4].numpy()
+    live = (bb[:, 2] > bb[:, 0]) & (bb[:, 3] > bb[:, 1])
+    out = np.zeros(len(ys), np.float64)
+    for k, (y, x) in enumerate(zip(ys, xs)):
+        c0 = (int(x) // tile_w) * tile_w
+        cols = live & (bb[:, 0] < c0 + tile_w) & (bb[:, 2] > c0)
+        in_a = cols & (bb[:, 1] < tiles_a[1][k]) & (bb[:, 3] > tiles_a[0][k])
+        in_b = cols & (bb[:, 1] < tiles_b[1][k]) & (bb[:, 3] > tiles_b[0][k])
+        idx = torch.from_numpy(np.nonzero(in_a ^ in_b)[0])
+        if len(idx):
+            alpha = eval_quad_planar(lambda f: fields[idx, f], modes[idx, QI_MODE],
+                                     torch.tensor(float(x) + 0.5),
+                                     torch.tensor(float(y) + 0.5))[3]
+            out[k] = float(alpha.sum())
+    return out
+
+
+def sharded_equal(what: str, got, want, tol: float = TOL, fringe=None) -> float:
+    """max |got - want| of two frames, the pixels that differ, printed; fails
+    past tol. fringe: None, or fringe(ys, xs) -> how much two tile layouts'
+    frames may differ at those pixels (layout_fringe); given, a pixel past
+    tol whose difference is within that (and tol) is counted and left out,
+    and more than FRINGE_CAP of them fail."""
+    import torch
+
+    torch.cuda.synchronize()
+    diff = (got - want).abs().amax(-1)
+    px = int((diff > 0).sum())
+    left, worst = 0, (0.0, 0.0)
+    if fringe is not None:
+        ys, xs = (t.cpu().numpy() for t in torch.nonzero(diff > tol, as_tuple=True))
+        if len(ys):
+            bound = fringe(ys, xs)
+            d = diff[ys, xs].cpu().numpy()
+            ok = (bound > 0) & (d <= bound + tol)
+            left = int(ok.sum())
+            if left:
+                k = int((d * ok).argmax())
+                worst = (float(d[k]), float(bound[k]))
+            diff[ys[ok], xs[ok]] = 0.0
+    err = float(diff.max())
+    print(f"check 16: sharded {what}: max |diff| {err:.3e} (tol {tol:.3e}), {px} of "
+          f"{diff.shape[0] * diff.shape[1]} pixels differ"
+          + (f", {left} of them (at most {FRINGE_CAP}) within a quad's fringe that the "
+             f"two tile layouts bin differently, left out (the largest {worst[0]:.3f} "
+             f"of {worst[1]:.3f} allowed)" if fringe is not None else ""), flush=True)
+    if not err <= tol:
+        fail(f"sharded {what} differs by {err}")
+    if left > FRINGE_CAP:
+        fail(f"sharded {what}: {left} pixels differ on a fringe, more than {FRINGE_CAP}")
+    return err
+
+
+def at_origin(fn, plain, row0: int, errs: list, store: list, what: str,
+              targets=TILE_TARGETS):
+    """fn wrapped so that its calls at band origin row0 also run the plain
+    version on the same inputs (compared); other bands run fn alone."""
+    checked = compared(fn, plain, errs, store, what, targets)
+
+    def call(*args, **kw):
+        return checked(*args, **kw) if kw.get("row0") == row0 else fn(*args, **kw)
+    return call
+
+
+def band_kernel_check(name: str, what: str, sr, plan, row0: int, draws_of) -> tuple:
+    """One sharded run of plan with the kernel `name` at band origin row0
+    held against its plain version on the band's own inputs, and the band's
+    front end against the plain front end (fields and modes as words, whole
+    lists): (the kernel call's (args, kw), the front end's (args, kw))."""
+    import torch
+
+    from figdraw_tpu_torch import executor
+    from figdraw_tpu_torch.ops import binning
+
+    errs, store = [], []
+    rows = plan.mega_combo if plan.mega_combo is not None else plan.combo
+    combos = sr._upload(rows)
+    draws = draws_of(errs, store)
+    calls = recorded(executor, "decode_and_bin", lambda: sr._run(plan, combos, draws=draws))
+    torch.cuda.synchronize()
+    if not store:
+        fail(f"sharded {what}: no {name} call at band origin {row0}")
+    err = max(errs)
+    SHARD_ERRS[name] = max(SHARD_ERRS.get(name, 0.0), err)
+    at = [(a, k) for a, k in calls if k.get("row0") == row0]
+    if len(at) != 1:
+        fail(f"sharded {what}: {len(at)} front ends at band origin {row0}, expected 1")
+    a, k = at[0]
+    got = binning.decode_and_bin(*a, **k)
+    want = binning.decode_and_bin_plain(*a, **k)
+    torch.cuda.synchronize()
+    words = [words_differ(got[i], want[i]) for i in (0, 1)]
+    runs = k.get("run_bounds")
+    _idx, _counts, border = binning.bin_quads_model(
+        want[0].cpu().numpy(), int(a[1]), int(a[2]), *a[3:7],
+        modes=want[1].cpu().numpy() if k.get("cull") else None,
+        run_bounds=None if runs is None or not k.get("cull") else runs.cpu().numpy(),
+        row0=row0)
+    diff = binning.list_differences(*[t.cpu().numpy() for t in got[2:]],
+                                    *[t.cpu().numpy() for t in want[2:]], border)
+    bad = sum(w[1] for w in words)
+    print(f"check 16: sharded {what}, the band at row {row0}: {name} vs plain max |diff| "
+          f"{err:.3e} over {len(errs)} calls (tol {TOL:.3e}); the front end's fields and "
+          f"modes {bad} words differ, lists {diff['differing']} of {diff['compared']} "
+          f"entries differ (T {got[2].shape[0]}, N {got[2].shape[1]}, tile_h {a[5]}; "
+          f"{int(border.sum())} saturation-borderline quads left out, 0 expected)",
+          flush=True)
+    if not err <= TOL or bad or diff["max_abs_err"] != 0:
+        fail(f"sharded {what}: {name} or the front end at band origin {row0} differs "
+             f"from its plain version")
+    SHARD_ERRS["front"] = max(SHARD_ERRS.get("front", 0.0), float(max(w[2] for w in words)))
+    SHARD_ERRS["tiles"] = max(SHARD_ERRS.get("tiles", 0.0), diff["max_abs_err"])
+    return store[0], (a, k)
+
+
+def band_kernel_times(name: str, what: str, fn, plain, call, work_of, targets, tag: str):
+    """The checked call of a band-origin kernel timed (CUDA events around the
+    wrapper call), its plain version timed, and its bound from the work its
+    inputs need (raster_work or mega_work)."""
+    args, kw = call
+    ms = cuda_ms(lambda: fn(*args, **kw), 20)
+    plain_ms = cuda_ms(lambda: plain(*as_before(args, targets), **kw), 3)
+    bound, by = bounds_of(work_of(args, kw))[0]
+    SHARD_TIMES[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                         "at": f"{what}, row {kw['row0']}"}
+    print(f"times: {name} at band origin {kw['row0']} ({what}): kernel {ms:.4f} ms (CUDA "
+          f"events around the wrapper call), plain torch {plain_ms:.2f} ms, bound "
+          f"{bound:.4f} ms ({by}) {tag}", flush=True)
+
+
+def band_front_times(what: str, call, tag: str) -> None:
+    """The front end of the checked band timed: both kernels by events, the
+    front kernel alone (stop=4), the plain front end; bounds as
+    binning_times'."""
+    from figdraw_tpu_torch.ops import binning
+
+    a, k = call
+    ms = cuda_ms(lambda: binning.decode_and_bin(*a, **k), 20)
+    front_ms = cuda_ms(lambda: binning.decode_and_bin(*a, **k, stop=4), 20)
+    plain_ms = cuda_ms(lambda: binning.decode_and_bin_plain(*a, **k), 3)
+    decode_plain_ms = cuda_ms(lambda: binning.unpack_combo_plain(a[0]), 3)
+    f_bound, f_by = bound_of(*front_work(a, k))
+    t_bound, t_by = bound_of(*tiles_work(a, k))
+    SHARD_TIMES["front"] = {"ms": front_ms, "plain_ms": decode_plain_ms, "bound_ms": f_bound,
+                            "bound_by": f_by, "at": f"{what}, row {k['row0']}"}
+    SHARD_TIMES["tiles"] = {"ms": ms - front_ms, "front_end_ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": t_bound, "bound_by": t_by,
+                            "at": f"{what}, row {k['row0']}"}
+    print(f"times: the front end at band origin {k['row0']} ({what}): {ms:.4f} ms (CUDA "
+          f"events, both kernels), the front kernel {front_ms:.4f} ms (bound {f_bound:.5f} "
+          f"ms, {f_by}), the tile kernel {ms - front_ms:.4f} ms by difference (bound "
+          f"{t_bound:.5f} ms, {t_by}); plain front end {plain_ms:.3f} ms {tag}", flush=True)
+
+
+def banded_blur_check(what: str, bands, radii, tag: str, timed: bool) -> None:
+    """X6 against its plain version on a sharded frame's own bands, bit for
+    bit; with timed, its times, the halo and copy bytes and its bound."""
+    import torch
+
+    from figdraw_tpu_torch.ops import blur
+
+    n, (c, band_h, pw) = len(bands), bands[0].shape
+    got = blur.banded_blur_planar(bands, radii)
+    want = blur.banded_blur_planar_plain(bands, radii)
+    torch.cuda.synchronize()
+    diff = max(words_differ(a, b)[1] for a, b in zip(got, want))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    SHARD_ERRS["X6"] = max(SHARD_ERRS.get("X6", 0.0), err)
+    swap = blur.BLUR_HALO < band_h
+    print(f"check 16: X6 on the {what}'s {n} bands of {band_h} rows "
+          f"({'swap' if swap else 'gather'} path, r={float(radii[0]):g}) vs plain: {diff} "
+          f"words differ, max |diff| {err:.3e} (bit for bit expected)", flush=True)
+    if diff:
+        fail(f"X6 on the {what} differs from its plain version")
+    if not timed:
+        return
+    ms = cuda_ms(lambda: blur.banded_blur_planar(bands, radii), 20)
+    plain_ms = cuda_ms(lambda: blur.banded_blur_planar_plain(bands, radii), 3)
+    rows = n * band_h
+    plane_row = c * pw * 4  # bytes of one row of every plane
+    n_bytes = 2 * rows * plane_row  # the bands read once, the result written once
+    n_ops = (2 * c * rows * pw * (BLUR_TAPS * BLUR_OPS_PER_TAP + 1)
+             + BLUR_TAPS * BLUR_OPS_PER_POSITION * (rows + pw))
+    bound, by = bound_of(n_bytes, n_ops)
+    halo = blur.BLUR_HALO
+    halo_bytes = (2 * (n - 1) * halo * plane_row if swap else rows * plane_row)
+    ext_bytes = (n * 2 * ((band_h + 2 * halo) + band_h) * plane_row if swap
+                 else 2 * (rows + band_h * n) * plane_row)
+    SHARD_TIMES["X6"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                         "halo_bytes": halo_bytes, "copy_bytes": ext_bytes,
+                         "at": f"{what}, {n} bands of {band_h} rows"}
+    print(f"times: X6 on the {what}'s {n} bands ({tuple(bands[0].shape)} each, one card): "
+          f"{ms:.4f} ms (CUDA events: both passes a band, the halo rows' copies, the "
+          f"extended bands and the crops), plain torch {plain_ms:.3f} ms; bound "
+          f"{bound:.4f} ms ({by}: the frame read and written once); halo rows moved "
+          f"{halo_bytes} bytes, extended-band and crop copies {ext_bytes} bytes "
+          f"({ext_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM rate) {tag}", flush=True)
+
+
+def recorded_blur_bands(sr, plan) -> tuple:
+    """(bands, radii) of the first banded blur of a sharded run of plan."""
+    from figdraw_tpu_torch.parallel import sharding
+
+    seen, real = [], sharding.banded_blur_planar
+
+    def record(bands, radii, *a, **k):
+        seen.append(([b.clone() for b in bands], list(radii)))
+        return real(bands, radii, *a, **k)
+
+    sharding.banded_blur_planar = record
+    try:
+        sr._run(plan, sr._upload(plan.combo))
+    finally:
+        sharding.banded_blur_planar = real
+    if not seen:
+        fail("the sharded frame ran no banded blur")
+    return seen[0]
+
+
+def band_times(head, one, mesh, turns: int, tag: str) -> dict:
+    """ms/frame of the 1080p headline (head(f): frame f's renders) through
+    one.render_frame and ShardedFigRenderer on 1, 2 and 4 bands of
+    mesh(n): the median of SHARD_FRAMES frames (render_frame + sync), the
+    best of `turns` turns, printed."""
+    import torch
+
+    from figdraw_tpu_torch import vec2
+    from figdraw_tpu_torch.parallel.sharding import ShardedFigRenderer
+
+    size = vec2(WIDTH, HEIGHT)
+    timing = {"render_frame": lambda f: one.render_frame(head(f), size)}
+    for k in (1, 2, 4):
+        ren_k = ShardedFigRenderer(mesh(k))
+        ren_k.render_frame(head(0), size)
+        timing[f"{k} band{'s' if k > 1 else ''}"] = (
+            lambda r: lambda f: r.render_frame(head(f), size))(ren_k)
+    got = {}
+    for _ in range(turns):  # in turns
+        for name, fn in timing.items():
+            per = []
+            for f in range(SHARD_FRAMES):
+                t0 = time.perf_counter()
+                fn(f)
+                torch.cuda.synchronize()
+                per.append((time.perf_counter() - t0) * 1e3)
+            got.setdefault(name, []).append(statistics.median(per))
+    got = {k: min(v) for k, v in got.items()}
+    print(f"times: headline ms/frame (median of {SHARD_FRAMES}, best of {turns} turns, "
+          "one card): " + ", ".join(f"{k} {v:.3f}" for k, v in got.items()) + f" {tag}",
+          flush=True)
+    return got
+
+
+def band_turns_phase(tag: str) -> None:
+    """`python3 chip_smoke.py band_turns`: band_times alone, 5 turns, no
+    checks: run it from two checkouts in turns to compare them."""
+    import torch
+
+    from figdraw_tpu_torch import FigRenderer, native
+    from figdraw_tpu_torch.ops import binning, blur, mega, raster
+    from figdraw_tpu_torch.parallel.sharding import Mesh
+    from figdraw_tpu_torch.scenes import make_render_tree_array
+
+    with ThreadPoolExecutor(5) as pool:
+        list(pool.map(lambda load: load(), (native.load, raster.load, mega.load,
+                                            blur.load, binning.load)))
+    dev = torch.device("cuda", 0)
+    cache = {}
+    band_times(lambda f: make_render_tree_array(WIDTH, HEIGHT, f, copies=COPIES, cache=cache),
+               FigRenderer(device="cuda"), lambda n: Mesh((dev,) * n), 5, tag)
+
+
+def sharded_phase(tag: str, dev) -> dict:
+    """Rendering across several devices on one card (parallel/sharding.py),
+    meshes of [cuda:0] * n, each run counted with the counts set to 0 just
+    before and read just after:
+
+    1. the headline (1920x1080, 300 boxes) on 4 bands of 272 rows: the
+       backdrop blur on X6's swap path; K1 at band origin 544 and the band's
+       front end held against their plain versions, X6 against its plain
+       version bit for bit; the frames against FigRenderer.render_frame
+       within 1/255, the pixels that differ counted;
+    2. the same frame on 24 bands of 48 rows, shorter than the halo: X6's
+       gather path;
+    3. bench_clipmask's tables (1200x800, 180x6) on 2 bands of 400 rows: the
+       sub-clip table on the megakernel (K4 at origin 400), the rect-mask
+       table on the frame executor (K3 at origin 400);
+    4. bench_text's scene (1200x800, 36 lines, the bundled font) on 4 bands
+       of 200: glyph runs across the band boundaries, K1-atlas at origin 400;
+    5. bench_images' clipped cards (1920x1080, 400 panels) on 4 bands: K4-atlas
+       at origin 544;
+    6. a device-resident 12000-box grid on 4 bands: render_view against
+       FigRenderer.render_view, the sharded render_views against its
+       render_view loop and FigRenderer.render_views(chunk=, mesh=) over
+       [cuda:0] * 2 against its loop, bit for bit; a patch of 8 roots and
+       the damage-clipped view against a new snapshot's, bit for bit;
+    7. render_batch(mesh=) over [cuda:0] * 2 on bench_anim's frames, each
+       equal to render_frame's;
+    8. ms/frame of the headline on 1, 2 and 4 bands beside render_frame.
+    One card runs every band: these are one card's numbers and claim no
+    scaling."""
+    import numpy as np
+    import torch
+
+    from figdraw_tpu_torch import Color, FigRenderer, fill, rgba, vec2
+    from figdraw_tpu_torch.ops import mega, raster
+    from figdraw_tpu_torch.parallel.sharding import (
+        FRAMES_AXIS, Mesh, ShardedFigRenderer, band_geometry, band_tiles,
+    )
+    from figdraw_tpu_torch.resources import ImageMessageBus, put_image
+    from figdraw_tpu_torch.scenes import (
+        IMAGE_ID, TEXT_SIZE, build_grid, make_clip_table_scene, make_image_panels_scene,
+        make_render_tree_array, make_text_scene, photo_image,
+    )
+    from figdraw_tpu_torch.text.typefaces import bundled_font_path, load_typeface
+
+    t_phase = time.perf_counter()
+    med = statistics.median
+    mesh = lambda n, axis="rows": Mesh((dev,) * n, axis)
+    white = Color(1.0, 1.0, 1.0, 1.0)
+    out = {"frames": {}}
+
+    def plan_of(sr, renders, size):
+        sr.process_image_messages()
+        return sr._flattener._walk_plan(renders, size, True, white)
+
+    def band_row(n, height, k):
+        return band_geometry(n, height, 128)[3] * k
+
+    # --- 1. the headline on 4 bands: X6's swap path ---
+    size = vec2(WIDTH, HEIGHT)
+    cache = {}
+    head = lambda f: make_render_tree_array(WIDTH, HEIGHT, f, copies=COPIES, cache=cache)
+    sr = ShardedFigRenderer(mesh(SHARD_BANDS))
+    print(f"check 16: mesh {[str(d) for d in sr.mesh.devices]}, headline bands of "
+          f"{band_geometry(SHARD_BANDS, HEIGHT, WIDTH)[3]} rows, kernel tiles "
+          f"{band_tiles(band_geometry(SHARD_BANDS, HEIGHT, WIDTH)[3], 128)}", flush=True)
+    one = FigRenderer(device="cuda")
+    sr.render_frame(head(0), size)
+    n = SHARD_BANDS
+    plan = plan_of(sr, head(0), size)
+    ms = sharded_counted("headline 4 bands", lambda f: sr.render_frame(head(f + 1), size),
+                         SHARD_FRAMES, band_expected(plan, n))
+    last = sr.last_frame
+    out["frames"]["headline 4 bands"] = sharded_equal(
+        "headline 4 bands against render_frame", last,
+        one.render_frame(head(SHARD_FRAMES), size))
+    row = band_row(n, HEIGHT, 2)
+    plan = plan_of(sr, head(SHARD_FRAMES), size)
+    k1_call, front_call = band_kernel_check(
+        "K1", "headline", sr, plan, row,
+        lambda errs, store: dict(draw=at_origin(
+            raster.draw_pass_planar_prebinned, raster.draw_pass_planar_prebinned_plain,
+            row, errs, store, "sharded headline K1")))
+    bands, radii = recorded_blur_bands(sr, plan)
+    banded_blur_check("headline", bands, radii, tag, timed=True)
+
+    # --- 2. 24 bands of 48 rows: X6's gather path ---
+    fine = ShardedFigRenderer(mesh(SHARD_FINE))
+    fine.render_frame(head(0), size)
+    sharded_counted("headline 24 bands", lambda f: fine.render_frame(head(f + 1), size), 2,
+                    band_expected(plan, SHARD_FINE))
+    out["frames"]["headline 24 bands"] = sharded_equal(
+        "headline 24 bands against render_frame", fine.last_frame,
+        one.render_frame(head(2), size))
+    bands24, radii24 = recorded_blur_bands(fine, plan_of(fine, head(2), size))
+    banded_blur_check("headline (24 bands)", bands24, radii24, tag, timed=False)
+
+    # --- 3. the clip tables on 2 bands ---
+    tsize = vec2(TABLE_W, TABLE_H)
+    tables = ShardedFigRenderer(mesh(SHARD_TABLE_BANDS))
+    row = band_row(SHARD_TABLE_BANDS, TABLE_H, 1)
+    for kind, name, draws_of in (
+            ("subclip", "K4",
+             lambda errs, store: dict(draw=at_origin(
+                 mega.draw_pass_mega, mega.draw_pass_mega_plain, row, errs, store,
+                 "sharded sub-clip K4", MEGA_TARGETS))),
+            ("rectmask", "K3",
+             lambda errs, store: dict(draw_mask=at_origin(
+                 raster.draw_pass_mask_prebinned, raster.draw_pass_mask_prebinned_plain,
+                 row, errs, store, "sharded rect-mask K3")))):
+        scene = make_clip_table_scene(kind, TABLE_W, TABLE_H, TABLE_ROWS, TABLE_COLS)
+        tables.render_frame(scene, tsize)
+        sharded_counted(f"{kind} table", lambda f: tables.render_frame(scene, tsize),
+                        SHARD_FRAMES, band_expected(plan_of(tables, scene, tsize),
+                                                    SHARD_TABLE_BANDS))
+        out["frames"][f"{kind} table"] = sharded_equal(
+            f"{kind} table against render_frame", tables.last_frame,
+            one.render_frame(scene, tsize))
+        plan = plan_of(tables, scene, tsize)
+        call, _front = band_kernel_check(name, f"{kind} table", tables, plan, row, draws_of)
+        if name == "K4":
+            band_kernel_times("K4", "sub-clip table", mega.draw_pass_mega,
+                              mega.draw_pass_mega_plain, call, mega_work, MEGA_TARGETS, tag)
+        else:
+            band_kernel_times("K3", "rect-mask table", raster.draw_pass_mask_prebinned,
+                              raster.draw_pass_mask_prebinned_plain, call,
+                              lambda a, k: raster_work(a, k, mask_target=True),
+                              TILE_TARGETS, tag)
+
+    # --- 4. bench_text's scene on 4 bands: K1-atlas ---
+    tid = load_typeface(bundled_font_path())
+    text_scene, _glyphs = make_text_scene(tid, fill(rgba(20, 20, 30, 255)), 0)
+    xsize = vec2(*TEXT_SIZE)
+    texts = ShardedFigRenderer(mesh(4), atlas_size=512)
+    one_text = FigRenderer(atlas_size=512, device="cuda")
+    texts.render_frame(text_scene, xsize)
+    n = 4
+    sharded_counted("bench_text", lambda f: texts.render_frame(text_scene, xsize),
+                    SHARD_FRAMES, band_expected(plan_of(texts, text_scene, xsize), n))
+    out["frames"]["bench_text"] = sharded_equal(
+        "bench_text against render_frame", texts.last_frame,
+        one_text.render_frame(text_scene, xsize))
+    row = band_row(n, TEXT_SIZE[1], 2)
+    call, _front = band_kernel_check(
+        "K1-atlas", "bench_text", texts, plan_of(texts, text_scene, xsize), row,
+        lambda errs, store: dict(draw=at_origin(
+            raster.draw_pass_planar_prebinned, raster.draw_pass_planar_prebinned_plain,
+            row, errs, store, "sharded bench_text K1-atlas")))
+    band_kernel_times("K1-atlas", "bench_text", raster.draw_pass_planar_prebinned,
+                      raster.draw_pass_planar_prebinned_plain, call, raster_work,
+                      TILE_TARGETS, tag)
+
+    # --- 5. the clipped cards on 4 bands: K4-atlas ---
+    cards_scene = make_image_panels_scene(IMAGE_W, IMAGE_H, IMAGE_PANELS, "images_clipped")
+    cards = ShardedFigRenderer(mesh(4))
+    bus = ImageMessageBus()
+    cards._flattener.ensure_image_message_subscription(bus)
+    put_image(IMAGE_ID, photo_image(), bus=bus, mipmapped=True)
+    one_cards = image_renderer()
+    isize = vec2(IMAGE_W, IMAGE_H)
+    cards.render_frame(cards_scene, isize)
+    sharded_counted("clipped cards", lambda f: cards.render_frame(cards_scene, isize),
+                    SHARD_FRAMES, band_expected(plan_of(cards, cards_scene, isize), n))
+    out["frames"]["clipped cards"] = sharded_equal(
+        "clipped cards against render_frame", cards.last_frame,
+        one_cards.render_frame(cards_scene, isize))
+    row = band_row(n, IMAGE_H, 2)
+    call, _front = band_kernel_check(
+        "K4-atlas", "clipped cards", cards, plan_of(cards, cards_scene, isize), row,
+        lambda errs, store: dict(draw=at_origin(
+            mega.draw_pass_mega, mega.draw_pass_mega_plain, row, errs, store,
+            "sharded clipped cards K4-atlas", MEGA_TARGETS)))
+    band_kernel_times("K4-atlas", "clipped cards", mega.draw_pass_mega,
+                      mega.draw_pass_mega_plain, call, mega_work, MEGA_TARGETS, tag)
+
+    # the headline's K1 and front end at their band, timed
+    band_kernel_times("K1", "headline", raster.draw_pass_planar_prebinned,
+                      raster.draw_pass_planar_prebinned_plain, k1_call, raster_work,
+                      TILE_TARGETS, tag)
+    band_front_times("headline", front_call, tag)
+
+    # --- 6. a device-resident 12000-box grid on 4 bands ---
+    arr, boxes = build_grid(RESIDENT_SCALES[-1] * 3, WIDTH, HEIGHT)
+    grid = ShardedFigRenderer(mesh(4))
+    scene = grid.snapshot_scene(arr, size)
+    one_grid = FigRenderer(device="cuda")
+    single = one_grid.snapshot_scene(arr, size)
+    pans = [(float(7 * i), float(-3 * i)) for i in range(SHARD_VIEWS)]
+    zooms = [1.0 + 0.125 * (i % 3) for i in range(SHARD_VIEWS)]
+    grid.render_view(scene, pans[1], zooms[1])
+    sharded_counted("grid views", lambda f: grid.render_view(scene, pans[f], zooms[f]),
+                    SHARD_VIEWS, band_expected(scene.plan, 4))
+    from figdraw_tpu_torch.ops.binning import unpack_combo_plain
+
+    pband = band_geometry(4, HEIGHT, WIDTH)[3]
+    kth = band_tiles(pband, scene.plan.tile_h)[0]
+    for pan, zoom in ((pans[0], 1.0), (pans[-1], 1.5)):
+        want = one_grid.render_view(single, pan, zoom)
+        fields, modes = (t.cpu() for t in unpack_combo_plain(single.scratch[: single.n_quads]))
+
+        def fringe(ys, xs, fields=fields, modes=modes):
+            return layout_fringe(fields, modes, ys, xs, tile_rows(ys, single.plan.tile_h),
+                                 tile_rows(ys, kth, pband))
+
+        out["frames"][f"grid view zoom {zoom:g}"] = sharded_equal(
+            f"12000-box view at pan {pan}, zoom {zoom:g} against FigRenderer.render_view",
+            grid.render_view(scene, pan, zoom), want, fringe=fringe)
+    stack = grid.render_views(scene, pans, zooms, chunk=4)
+    loop = torch.stack([grid.render_view(scene, p, z) for p, z in zip(pans, zooms)])
+    par = one_grid.render_views(single, pans, zooms, chunk=4,
+                                mesh=mesh(2, FRAMES_AXIS))
+    par_loop = torch.stack([one_grid.render_view(single, p, z) for p, z in zip(pans, zooms)])
+    torch.cuda.synchronize()
+    if not (torch.equal(stack, loop) and torch.equal(par, par_loop)):
+        fail("the sharded render_views or FigRenderer.render_views(mesh=) differ from "
+             "their render_view loops")
+    lst = arr[0]
+    dirty = []
+    for k in range(DIRTY_ROOTS):
+        b = boxes[k * 97 % len(boxes)]
+        x, y, w, h = lst.nodes[b]["box"]
+        lst.set_box(b, float(x) + 5.0, float(y) + 3.0, float(w), float(h))
+        lst.set_solid_color(b, rgba((b * 13) % 255, 120, 220, 180))
+        dirty.append((0, b))
+    from figdraw_tpu_torch.parallel import sharding
+
+    grid.render_view(scene, pans[2], zooms[2])
+    grid.update_scene(scene, arr, dirty=dirty)
+    spans = recorded(sharding, "damage_spans",
+                     lambda: out.__setitem__("clipped", grid.render_view(scene, pans[2],
+                                                                         zooms[2])))
+    clipped = out.pop("clipped")
+    if len(spans) != 1:
+        fail("the sharded view after a patch did not take the damage clip")
+    fresh = grid.render_view(grid.snapshot_scene(arr, size), pans[2], zooms[2])
+    torch.cuda.synchronize()
+    print(f"check 16: sharded 12000-box grid: render_views (chunk 4) equal to the "
+          f"render_view loop, FigRenderer.render_views(chunk=4, mesh=[cuda:0] * 2) equal to "
+          f"its loop, the damage-clipped view after a patch of {DIRTY_ROOTS} roots "
+          f"{'equal' if torch.equal(clipped, fresh) else 'NOT equal'} to a new snapshot's",
+          flush=True)
+    if not torch.equal(clipped, fresh):
+        fail("the sharded damage-clipped view differs from a new snapshot's")
+
+    # --- 7. render_batch over [cuda:0] * 2 on bench_anim's frames ---
+    anim = [make_render_tree_array(WIDTH, HEIGHT, f, copies=COPIES) for f in range(SHARD_FRAMES)]
+    batch_ren = FigRenderer(device="cuda")
+    batch = batch_ren.render_batch(anim, size, chunk=4, mesh=mesh(2, FRAMES_AXIS))
+    for f, renders in enumerate(anim):
+        if not torch.equal(batch[f], one.render_frame(renders, size)):
+            fail(f"render_batch(mesh=) frame {f} differs from render_frame's")
+    print(f"check 16: render_batch(mesh=[cuda:0] * 2, chunk=4) on {SHARD_FRAMES} of "
+          f"bench_anim's frames: each equal to render_frame's", flush=True)
+
+    # --- 8. ms/frame on 1, 2 and 4 bands beside render_frame ---
+    out["ms"] = band_times(head, one, mesh, 2, tag)
+    out["headline_4_bands_ms"] = med(ms)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"check 16: the sharded phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -4405,8 +5063,8 @@ def main() -> None:
     tag = f"[{card}]"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:] == ["turns"]:
-        turns_phase(tag)
+    if sys.argv[1:] in (["turns"], ["band_turns"]):
+        (turns_phase if sys.argv[1] == "turns" else band_turns_phase)(tag)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
@@ -4728,6 +5386,13 @@ def main() -> None:
         BORDERLINE[f"fonts {key}"] = fonts["borderline"][key]
     BIN_PATHS[f"fonts table {fonts['table']['key']}"] = fonts["table"]["bin_launches"]
     BORDERLINE[f"fonts table {fonts['table']['key']}"] = fonts["table"]["borderline"]
+
+    # --- 8g. rendering across several devices: row bands on one card ------------------
+    shard = sharded_phase(tag, dev)
+    print(f"sharded: {json.dumps(shard)}", flush=True)
+    for key in ("K1", "K1-atlas", "K3", "K4", "K4-atlas", "front", "tiles", "X6"):
+        if not sum(p[key] for p in SHARD_PATHS.values()):
+            fail(f"no sharded path launched {key} at a band origin")
     loop_paths = {k: {p: n[k] for p, n in LOOP_PATHS.items() if n[k]}
                   for k in ("K1", "K1-atlas", "K3", "K4", "K4-atlas", "blur")}
     BIN_PATHS.update({p: n["binning"] for p, n in LOOP_PATHS.items()})
@@ -4779,6 +5444,48 @@ def main() -> None:
                  **loop_paths["K4-atlas"],
                  f"fonts table {fonts['table']['key']}": fonts["table"]["launches"]}
     loop_err = lambda name: FRAMELOOP_ERRS.get(name, 0.0)
+
+    def band_entry(key: str, kernel: str, source: str, replaces: str, **more) -> dict:
+        """A kernel's band-origin form: its launches at an origin other than
+        0 on the sharded paths, its error against the plain version at the
+        checked band, and its times and bound there."""
+        times = SHARD_TIMES[key]
+        return {"name": kernel, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(p[key] for p in SHARD_PATHS.values()),
+                "launches_by_path": {p: v[key] for p, v in SHARD_PATHS.items() if v[key]},
+                "max_abs_err": SHARD_ERRS[key], **times, **more, "library_ms": None}
+
+    band_kernels = [
+        band_entry("K1", "raster_tiles_kernel<false, false> (K1) at a band origin",
+                   "figdraw_tpu_torch/csrc/raster.cu",
+                   "figdraw_tpu/ops/raster_pallas.py:156 (row0 seg_ref[2], :161-184)"),
+        band_entry("K1-atlas", "raster_tiles_kernel<false, true> (K1-atlas) at a band origin",
+                   "figdraw_tpu_torch/csrc/raster.cu",
+                   "figdraw_tpu/ops/raster_pallas.py:156 (has_atlas :325, row0 :184)"),
+        band_entry("K3", "raster_tiles_kernel<true, *> (K3) at a band origin",
+                   "figdraw_tpu_torch/csrc/raster.cu",
+                   "figdraw_tpu/ops/raster_pallas.py:196 (row0 seg_ref[2], :184)"),
+        band_entry("K4", "mega_kernel<false> (K4) at a band origin", "figdraw_tpu_torch/csrc/mega.cu",
+                   "figdraw_tpu/ops/raster_pallas.py:495 (row0 :505, draw_pass_mega :643-665)"),
+        band_entry("K4-atlas", "mega_kernel<true> (K4-atlas) at a band origin",
+                   "figdraw_tpu_torch/csrc/mega.cu",
+                   "figdraw_tpu/ops/raster_pallas.py:495 (has_atlas :567, row0 :505)"),
+        band_entry("front", "front_kernel<MODE> (X7 with the band's tile ranges) at a band origin",
+                   "figdraw_tpu_torch/csrc/binning.cu",
+                   "figdraw_tpu/executor.py:181 and ops/binning.py:73 (y_offset); "
+                   "XLA ops, no Pallas"),
+        band_entry("tiles", "tiles_kernel<CULL, SATURATE> (X2) at a band origin",
+                   "figdraw_tpu_torch/csrc/binning.cu",
+                   "figdraw_tpu/ops/binning.py:35 (y_offset :36-42, :73; "
+                   "raster_pallas.prebin :399); XLA ops, no Pallas"),
+        # no one PyTorch call computes the banded blur: its tap step is a
+        # device value and not whole pixels, as the whole blur's
+        band_entry("X6", "blur_h_kernel + blur_v_kernel on extended bands (X6, the banded "
+                   "blur)", "figdraw_tpu_torch/csrc/blur.cu",
+                   "figdraw_tpu/parallel/sharding.py:165 (_banded_blur_planar: ppermute "
+                   "halo exchange or all_gather, then _blur_axis); XLA ops, no Pallas"),
+    ]
     print(f"wall time: {time.perf_counter() - t_main:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [
         {
@@ -4976,7 +5683,7 @@ def main() -> None:
             "argsort_ms": binned["headline"]["argsort_ms"],
             "library_ms": None,
         },
-    ]}), flush=True)
+    ] + band_kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -15,7 +15,8 @@ the part the port uses):
 
 The JAX package's rasterizer switches (FIGDRAW_BACKEND, FIGDRAW_FORCE_XLA)
 have no counterpart: the port has no fallback chain. FIGDRAW_ATLAS11 is a
-TPU experiment the port does not carry.
+TPU experiment the port does not carry, and FIGDRAW_SHARD_TILE is the
+constant parallel/sharding.SHARD_TILE_H (8).
 """
 
 from __future__ import annotations

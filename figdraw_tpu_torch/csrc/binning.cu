@@ -19,6 +19,10 @@
 //      dropped;
 //   3. the kept quads in draw order, then every other index ascending, as
 //      the whole (T, N) permutation, and the count kept.
+// Tile row ty spans the global rows [row0 + ty tile_h, row0 + (ty+1)
+// tile_h): row0 is the band origin of bin_quads' y_offset (binning.py:36,
+// :73), nonzero when the tiles cover one row band of a frame split over
+// several devices (parallel/sharding.py), 0 for a whole frame.
 //
 // What bounds it on this card: bytes. The lists alone are T x N x 4 bytes
 // (66.8 MB at N = 32769, T = 510: 0.020 ms at 3.35 TB/s) and the decoded
@@ -93,10 +97,11 @@ constexpr int MAX_QUADS = 1 << 20;  // ops/binning.py MAX_QUADS: kept bits in sh
 constexpr int SMEM_BITS_BYTES = MAX_QUADS / 8;
 constexpr unsigned FULL = 0xffffffffu;
 
-// The tiles.
+// The tiles; tile row 0 starts at global row row0 (a band origin).
 struct Grid {
   int tiles_x, tiles_y, tile_w, tile_h;
   double inv_w, inv_h;  // 1 / tile size when that is exact, else 0
+  int row0;
 };
 
 // What the front end writes for the tile kernel, in the caller's scratch
@@ -157,12 +162,12 @@ __device__ __forceinline__ void store_terms(const QuadIn& q, bool valid, int i, 
                                             const Grid& g, bool cull, unsigned* stage,
                                             int i0) {
   const short4 r = valid ? bbox_tiles(q, g.tiles_x, g.tiles_y, g.tile_w, g.tile_h, g.inv_w,
-                                      g.inv_h)
+                                      g.inv_h, (double)g.row0)
                          : make_short4(1, 1, 0, 0);
   scatter_bits(r, i >> 5, t, g, stage, (i - i0) >> 5);
   if (!cull || !valid) return;
   const CoverTerm c = cover_term(q, g.tiles_x, g.tiles_y, g.tile_w, g.tile_h, g.inv_w,
-                                 g.inv_h);
+                                 g.inv_h, (double)g.row0);
   t.cov[i] = c;
   if (cover_outside(c.range, r)) atomicOr(t.outside, 1);
 }
@@ -456,10 +461,10 @@ cudaError_t opt_in_smem() {
   return err;
 }
 
-Grid make_grid(int tiles_y, int tiles_x, int tile_h, int tile_w) {
+Grid make_grid(int tiles_y, int tiles_x, int tile_h, int tile_w, int row0) {
   // a power-of-two tile size has an exact reciprocal
   auto inv = [](int size) { return (size & (size - 1)) == 0 ? 1.0 / size : 0.0; };
-  return Grid{tiles_x, tiles_y, tile_w, tile_h, inv(tile_w), inv(tile_h)};
+  return Grid{tiles_x, tiles_y, tile_w, tile_h, inv(tile_w), inv(tile_h), row0};
 }
 
 Terms scratch_terms(void* scratch, int n, int n_tiles) {
@@ -525,7 +530,7 @@ extern "C" int figdraw_decode(const float* packed, int n, float* fields, int* mo
   front_kernel<0, false><<<(n + FRONT_ROWS - 1) / FRONT_ROWS, FRONT_THREADS, 0,
                     (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(packed), n, reinterpret_cast<float4*>(fields),
-      reinterpret_cast<int2*>(modes), none, make_grid(1, 1, 1, 1));
+      reinterpret_cast<int2*>(modes), none, make_grid(1, 1, 1, 1, 0));
   return (int)cudaGetLastError();
 }
 
@@ -533,15 +538,17 @@ extern "C" int figdraw_decode(const float* packed, int n, float* fields, int* mo
 // launch), then the tile kernel. cull != 0 culls (runs (n_runs, 2) i32 on
 // the device, or window_run != 0 for the window as the one run); the window
 // [start, end) from start_p / end_p (one i32 on the device each) where not
-// null, else from start / end; tile_idx (tiles_y * tiles_x, n) i32 and
+// null, else from start / end; tile row 0 at global row row0 (a band
+// origin, 0 for a whole frame); tile_idx (tiles_y * tiles_x, n) i32 and
 // tile_counts i32, written whole. stop: 0 (1-3 and 4, after the front
 // kernel, only to time the phases).
 extern "C" int figdraw_decode_and_bin(const float* packed, int n, float* fields, int* modes,
                                       const int* start_p, const int* end_p, int start,
                                       int end, int cull, const int* runs, int n_runs,
                                       int window_run, int tiles_y, int tiles_x, int tile_h,
-                                      int tile_w, int saturate, void* scratch, int* tile_idx,
-                                      int* tile_counts, void* stream, int stop) {
+                                      int tile_w, int row0, int saturate, void* scratch,
+                                      int* tile_idx, int* tile_counts, void* stream,
+                                      int stop) {
   if (bad_args(n, n_runs, tiles_y, tiles_x, tile_h, tile_w)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int n_tiles = tiles_y * tiles_x;
@@ -555,7 +562,7 @@ extern "C" int figdraw_decode_and_bin(const float* packed, int n, float* fields,
     const float4* p = reinterpret_cast<const float4*>(packed);
     float4* f = reinterpret_cast<float4*>(fields);
     int2* m = reinterpret_cast<int2*>(modes);
-    const Grid g = make_grid(tiles_y, tiles_x, tile_h, tile_w);
+    const Grid g = make_grid(tiles_y, tiles_x, tile_h, tile_w, row0);
     const size_t smem = staged ? (size_t)n_tiles * STAGE_WORDS * sizeof(unsigned) : 0;
     if (cull && staged)
       front_kernel<2, true><<<grid, FRONT_THREADS, smem, s>>>(p, n, f, m, t, g);
@@ -579,7 +586,7 @@ extern "C" int figdraw_decode_and_bin(const float* packed, int n, float* fields,
 extern "C" int figdraw_bin_quads(const float* fields, const int* modes, const int* start_p,
                                  const int* end_p, int start, int end, const int* runs,
                                  int n_runs, int window_run, int n, int tiles_y, int tiles_x,
-                                 int tile_h, int tile_w, int saturate, void* scratch,
+                                 int tile_h, int tile_w, int row0, int saturate, void* scratch,
                                  int* tile_idx, int* tile_counts, void* stream) {
   if (bad_args(n, n_runs, tiles_y, tiles_x, tile_h, tile_w)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -590,7 +597,7 @@ extern "C" int figdraw_bin_quads(const float* fields, const int* modes, const in
   if (err != cudaSuccess) return (int)err;
   if (n > 0) {
     const int grid = (n + PREP_THREADS - 1) / PREP_THREADS;
-    const Grid g = make_grid(tiles_y, tiles_x, tile_h, tile_w);
+    const Grid g = make_grid(tiles_y, tiles_x, tile_h, tile_w, row0);
     if (cull)
       prep_kernel<true><<<grid, PREP_THREADS, 0, s>>>(fields, modes, n, t, g);
     else

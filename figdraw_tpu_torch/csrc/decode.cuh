@@ -30,6 +30,9 @@
 //     when cx - ihx <= tx w + 0.5 and cx + ihx >= (tx+1) w - 0.5, that is
 //     ceil((cx - ihx - 0.5) / w) <= tx <= floor((cx + ihx + 0.5) / w) - 1;
 //     and (log2 transmittance, opaque).
+// A band origin `org_y` (the global row of tile row 0, bin_quads'
+// y_offset, :36-42 and :73) moves the tile rows: y ranges are taken of
+// y - org_y, exact in double.
 
 #pragma once
 
@@ -166,26 +169,29 @@ __device__ __forceinline__ void clamp_span(double a, double b, int tiles, short&
   last = clamp_tile(b, tiles);
 }
 
-// the tiles [floor(lo / size), ceil(hi / size) - 1] that a span (lo, hi)
-// meets
-__device__ __forceinline__ void span_tiles(float lo, float hi, int size, double inv,
-                                           int tiles, short& first, short& last) {
-  clamp_span(floor(over(lo, size, inv)), ceil(over(hi, size, inv)) - 1.0, tiles, first, last);
+// the tiles [floor((lo - org) / size), ceil((hi - org) / size) - 1] that a
+// span (lo, hi) meets, tile 0 starting at org
+__device__ __forceinline__ void span_tiles(float lo, float hi, double org, int size,
+                                           double inv, int tiles, short& first,
+                                           short& last) {
+  clamp_span(floor(over((double)lo - org, size, inv)),
+             ceil(over((double)hi - org, size, inv)) - 1.0, tiles, first, last);
 }
 
-// the tiles t with lo <= t size + 0.5 and hi >= (t + 1) size - 0.5
-__device__ __forceinline__ void cover_tiles(float lo, float hi, int size, double inv,
-                                            int tiles, short& first, short& last) {
-  clamp_span(ceil(over((double)lo - 0.5, size, inv)),
-             floor(over((double)hi + 0.5, size, inv)) - 1.0, tiles, first, last);
+// the tiles t with lo <= org + t size + 0.5 and hi >= org + (t + 1) size - 0.5
+__device__ __forceinline__ void cover_tiles(float lo, float hi, double org, int size,
+                                            double inv, int tiles, short& first,
+                                            short& last) {
+  clamp_span(ceil(over((double)lo - org - 0.5, size, inv)),
+             floor(over((double)hi - org + 0.5, size, inv)) - 1.0, tiles, first, last);
 }
 
 __device__ __forceinline__ short4 bbox_tiles(const QuadIn& q, int tiles_x, int tiles_y,
                                              int tile_w, int tile_h, double inv_w,
-                                             double inv_h) {
+                                             double inv_h, double org_y) {
   short4 r;
-  span_tiles(q.x0, q.x1, tile_w, inv_w, tiles_x, r.x, r.z);
-  span_tiles(q.y0, q.y1, tile_h, inv_h, tiles_y, r.y, r.w);
+  span_tiles(q.x0, q.x1, 0.0, tile_w, inv_w, tiles_x, r.x, r.z);
+  span_tiles(q.y0, q.y1, org_y, tile_h, inv_h, tiles_y, r.y, r.w);
   if (r.x > r.z || r.y > r.w) r = make_short4(1, 1, 0, 0);  // no tile
   return r;
 }
@@ -193,7 +199,7 @@ __device__ __forceinline__ short4 bbox_tiles(const QuadIn& q, int tiles_x, int t
 // ops/binning.bin_quads_plain :65-132, once a quad
 __device__ __forceinline__ CoverTerm cover_term(const QuadIn& q, int tiles_x, int tiles_y,
                                                 int tile_w, int tile_h, double inv_w,
-                                                double inv_h) {
+                                                double inv_h, double org_y) {
   const int rest = q.mode & 255;      // torch.remainder(m, 256)
   const int fill_mode = q.mode >> 8;  // floor division by 256
   float a_min = min_nan(min_nan(q.alpha[0], q.alpha[1]), min_nan(q.alpha[2], q.alpha[3]));
@@ -238,8 +244,10 @@ __device__ __forceinline__ CoverTerm cover_term(const QuadIn& q, int tiles_x, in
     const float cx = __fmul_rn(__fadd_rn(q.x0, q.x1), 0.5f);
     const float cy = __fmul_rn(__fadd_rn(q.y0, q.y1), 0.5f);
     short4 r;
-    cover_tiles(__fsub_rn(cx, ihx), __fadd_rn(cx, ihx), tile_w, inv_w, tiles_x, r.x, r.z);
-    cover_tiles(__fsub_rn(cy, ihy), __fadd_rn(cy, ihy), tile_h, inv_h, tiles_y, r.y, r.w);
+    cover_tiles(__fsub_rn(cx, ihx), __fadd_rn(cx, ihx), 0.0, tile_w, inv_w, tiles_x, r.x,
+                r.z);
+    cover_tiles(__fsub_rn(cy, ihy), __fadd_rn(cy, ihy), org_y, tile_h, inv_h, tiles_y, r.y,
+                r.w);
     if (r.x <= r.z && r.y <= r.w) {
       t.range = r;
       t.lt = log2f(max_nan(__fsub_rn(1.0f, a_min), 0x1p-24f));

@@ -55,6 +55,13 @@
 //     keeps an entry and written once after the walk, each pixel by its own
 //     thread;
 //   * every branch on the mode lane is uniform across the block.
+//
+// Band origin: `row0`, the global row of the frame's row 0 (the TPU
+// kernel's seg_ref[0], :505; nonzero when the frame is one row band of a
+// frame split over several devices, parallel/sharding.py). Pixel centers
+// and the per-block cull are global, (row0 + y) + 0.5; the planes are
+// indexed by the band's own rows. An entry that targets plane 0 is kept in
+// every block of every band.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,7 +98,7 @@ mega_kernel(const float* __restrict__ fields, const int* __restrict__ modes,
             const int* __restrict__ tile_idx,
             const int* __restrict__ tile_counts, float* frame,
             const float4* __restrict__ atlas, int n_quads, int tiles_x,
-            int tile_h, int tile_w, int ph, int pw, int n_masks,
+            int tile_h, int tile_w, int ph, int pw, int row0, int n_masks,
             int atlas_size, bool pixelate, bool subpixel) {
   extern __shared__ float s_masks[];  // [n_masks * THREADS]
   __shared__ Stage s_stage[2];
@@ -106,9 +113,9 @@ mega_kernel(const float* __restrict__ fields, const int* __restrict__ modes,
   const int count = tile_counts[tile];
   if (count == 0) return;  // nothing of the tape in this tile
 
-  // the block's pixel centers: (origin + index) + 0.5, exact in f32
+  // the block's pixel centers: (global origin + index) + 0.5, exact in f32
   const float cx0 = (float)bx0 + 0.5f, cx1 = (float)bx0 + 15.5f;
-  const float cy0 = (float)by0 + 0.5f, cy1 = (float)by0 + 15.5f;
+  const float cy0 = (float)(row0 + by0) + 0.5f, cy1 = (float)(row0 + by0) + 15.5f;
   const int n_chunks = (count + CHUNK - 1) / CHUNK;
   if (warp == 0) {
     stage_chunk<true>(s_stage[0], fields, modes, list, 0, min(CHUNK, count),
@@ -122,7 +129,7 @@ mega_kernel(const float* __restrict__ fields, const int* __restrict__ modes,
   const size_t plane = (size_t)ph * pw;
   const size_t pix = (size_t)y * pw + x;
   const float px = (float)x + 0.5f;
-  const float py = (float)y + 0.5f;
+  const float py = (float)(row0 + y) + 0.5f;
   const int kmax = n_masks - 1;
   bool loaded = false;  // uniform: the block kept an entry
   float r = 0.0f, g = 0.0f, b = 0.0f, a = 0.0f;
@@ -218,13 +225,14 @@ cudaError_t opt_in_smem() {
 // tile_counts (T,) i32, frame (4, ph, pw) f32, updated in place, atlas
 // (atlas_size, atlas_size, 4) f32 or null (K4-atlas with it, K4 without);
 // 1 <= n_masks <= MAX_PLANES. ph is a multiple of tile_h, pw of tile_w, and
-// both tile edges of 16. Launches on `stream` and returns cudaGetLastError()
+// both tile edges of 16; row0 is the global row of the frame's row 0 (0 for
+// a whole frame). Launches on `stream` and returns cudaGetLastError()
 // as an int (cudaErrorInvalidValue for n_masks out of range).
 extern "C" int figdraw_mega(const float* fields, const int* modes,
                             const int* tile_idx, const int* tile_counts,
                             float* frame, const float* atlas, int n_quads,
                             int tiles_x, int tile_h, int tile_w, int ph, int pw,
-                            int n_masks, int atlas_size, int pixelate,
+                            int row0, int n_masks, int atlas_size, int pixelate,
                             int subpixel, void* stream) {
   if (n_masks < 1 || n_masks > MAX_PLANES) return (int)cudaErrorInvalidValue;
   const cudaError_t err = opt_in_smem();
@@ -236,10 +244,11 @@ extern "C" int figdraw_mega(const float* fields, const int* modes,
     mega_kernel<true><<<grid, block, smem, (cudaStream_t)stream>>>(
         fields, modes, tile_idx, tile_counts, frame,
         reinterpret_cast<const float4*>(atlas), n_quads, tiles_x, tile_h,
-        tile_w, ph, pw, n_masks, atlas_size, pixelate != 0, subpixel != 0);
+        tile_w, ph, pw, row0, n_masks, atlas_size, pixelate != 0,
+        subpixel != 0);
   else
     mega_kernel<false><<<grid, block, smem, (cudaStream_t)stream>>>(
         fields, modes, tile_idx, tile_counts, frame, nullptr, n_quads, tiles_x,
-        tile_h, tile_w, ph, pw, n_masks, 0, false, false);
+        tile_h, tile_w, ph, pw, row0, n_masks, 0, false, false);
   return (int)cudaGetLastError();
 }

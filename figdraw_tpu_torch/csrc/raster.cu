@@ -13,6 +13,12 @@
 //   mask:  m = fa * fa + m * (1 - fa)  (glsl/mask.frag through the GL blend).
 // Mode-17 quads sample the backdrop planes (frame target only).
 //
+// Band origin: `row0`, the global row of the target's row 0 (the TPU
+// kernel's seg_ref[2], :161-184; nonzero when the target is one row band of
+// a frame split over several devices, parallel/sharding.py). Pixel centers
+// and the per-block cull are global, (row0 + y) + 0.5; the target, the
+// masks and the backdrop are indexed by the band's own rows.
+//
 // K1-atlas replaces the same call's `has_atlas` form (raster_pallas.py:305,
 // :325-329; `atlas_eval`, quad_eval_planar.py:271-329), which samples a
 // VMEM-resident atlas only for 1:1 axis-aligned mode-0 quads through a
@@ -114,7 +120,7 @@ raster_tiles_kernel(const float* __restrict__ fields,
                     const float* masks, const float* backdrop,
                     const float4* __restrict__ atlas, int n_quads,
                     int tiles_x, int tile_h, int tile_w, int ph, int pw,
-                    int atlas_size, bool pixelate, bool subpixel) {
+                    int row0, int atlas_size, bool pixelate, bool subpixel) {
   __shared__ Stage s_stage[2];
   __shared__ int s_seg[2];
 
@@ -135,9 +141,9 @@ raster_tiles_kernel(const float* __restrict__ fields,
   const int j_hi = s_seg[1];
   if (j_lo >= j_hi) return;  // nothing of the run in this tile
 
-  // the block's pixel centers: (origin + index) + 0.5, exact in f32
+  // the block's pixel centers: (global origin + index) + 0.5, exact in f32
   const float cx0 = (float)bx0 + 0.5f, cx1 = (float)bx0 + 15.5f;
-  const float cy0 = (float)by0 + 0.5f, cy1 = (float)by0 + 15.5f;
+  const float cy0 = (float)(row0 + by0) + 0.5f, cy1 = (float)(row0 + by0) + 15.5f;
   const int n_chunks = (j_hi - j_lo + CHUNK - 1) / CHUNK;
   if (warp == 0) {
     stage_chunk(s_stage[0], fields, modes, list, j_lo, min(CHUNK, j_hi - j_lo),
@@ -151,7 +157,7 @@ raster_tiles_kernel(const float* __restrict__ fields,
   const size_t plane = (size_t)ph * pw;
   const size_t pix = (size_t)y * pw + x;
   const float px = (float)x + 0.5f;
-  const float py = (float)y + 0.5f;
+  const float py = (float)(row0 + y) + 0.5f;
   bool loaded = false;  // uniform: the block composited something
   float r = 0.0f, g = 0.0f, b = 0.0f, a = 0.0f;  // r: the mask value m in K3
 
@@ -221,7 +227,8 @@ raster_tiles_kernel(const float* __restrict__ fields,
 // aligned), tile_idx (T, n_quads) i32, tile_counts (T,) i32, bounds (2,)
 // i32, masks (K, ph, pw) f32 with masks[0] all ones, atlas (atlas_size,
 // atlas_size, 4) f32 or null. ph is a multiple of tile_h, pw of tile_w, and
-// both tile edges of 16. The target is updated in place. Each launches on
+// both tile edges of 16; row0 is the global row of the target's row 0 (0
+// for a whole frame). The target is updated in place. Each launches on
 // `stream` and returns cudaGetLastError() as an int.
 
 template <bool MASK_TARGET>
@@ -229,20 +236,21 @@ static int launch(const float* fields, const int* modes, const int* tile_idx,
                   const int* tile_counts, const int* bounds, float* target,
                   const float* masks, const float* backdrop,
                   const float* atlas, int n_quads, int tiles_x, int tile_h,
-                  int tile_w, int ph, int pw, int atlas_size, int pixelate,
-                  int subpixel, void* stream) {
+                  int tile_w, int ph, int pw, int row0, int atlas_size,
+                  int pixelate, int subpixel, void* stream) {
   const dim3 block(BLOCK, BLOCK);
   const dim3 grid(pw / BLOCK, ph / BLOCK);
   const float4* atlas4 = reinterpret_cast<const float4*>(atlas);
   if (atlas != nullptr)
     raster_tiles_kernel<MASK_TARGET, true><<<grid, block, 0, (cudaStream_t)stream>>>(
         fields, modes, tile_idx, tile_counts, bounds, target, masks, backdrop,
-        atlas4, n_quads, tiles_x, tile_h, tile_w, ph, pw, atlas_size,
+        atlas4, n_quads, tiles_x, tile_h, tile_w, ph, pw, row0, atlas_size,
         pixelate != 0, subpixel != 0);
   else
     raster_tiles_kernel<MASK_TARGET, false><<<grid, block, 0, (cudaStream_t)stream>>>(
         fields, modes, tile_idx, tile_counts, bounds, target, masks, backdrop,
-        nullptr, n_quads, tiles_x, tile_h, tile_w, ph, pw, 0, false, false);
+        nullptr, n_quads, tiles_x, tile_h, tile_w, ph, pw, row0, 0, false,
+        false);
   return (int)cudaGetLastError();
 }
 
@@ -253,11 +261,13 @@ extern "C" int figdraw_raster_frame(const float* fields, const int* modes,
                                     float* frame, const float* masks,
                                     const float* backdrop, const float* atlas,
                                     int n_quads, int tiles_x, int tile_h,
-                                    int tile_w, int ph, int pw, int atlas_size,
-                                    int pixelate, int subpixel, void* stream) {
+                                    int tile_w, int ph, int pw, int row0,
+                                    int atlas_size, int pixelate, int subpixel,
+                                    void* stream) {
   return launch<false>(fields, modes, tile_idx, tile_counts, bounds, frame,
                        masks, backdrop, atlas, n_quads, tiles_x, tile_h,
-                       tile_w, ph, pw, atlas_size, pixelate, subpixel, stream);
+                       tile_w, ph, pw, row0, atlas_size, pixelate, subpixel,
+                       stream);
 }
 
 // K3: target (1, ph, pw) f32, the mask plane being written; it may be one of
@@ -267,9 +277,10 @@ extern "C" int figdraw_raster_mask(const float* fields, const int* modes,
                                    const int* bounds, float* target,
                                    const float* masks, const float* atlas,
                                    int n_quads, int tiles_x, int tile_h,
-                                   int tile_w, int ph, int pw, int atlas_size,
-                                   int pixelate, int subpixel, void* stream) {
+                                   int tile_w, int ph, int pw, int row0,
+                                   int atlas_size, int pixelate, int subpixel,
+                                   void* stream) {
   return launch<true>(fields, modes, tile_idx, tile_counts, bounds, target,
                       masks, nullptr, atlas, n_quads, tiles_x, tile_h, tile_w,
-                      ph, pw, atlas_size, pixelate, subpixel, stream);
+                      ph, pw, row0, atlas_size, pixelate, subpixel, stream);
 }

@@ -32,6 +32,40 @@ from .ops.raster import TILE_W, draw_pass_mask_prebinned, draw_pass_planar_prebi
 from .plan import meta_rows
 from .tape import FRAME_TARGET
 
+def item_rows(structure: Tuple, rolled: bool) -> list:
+    """Each item's row of the bounds (draws) or radii (blurs): the item's own
+    row of the rolled table, else its place among the meta's draws or
+    blurs."""
+    if rolled:
+        return list(range(len(structure)))
+    counts = {"draw": 0, "blur": 0, "clear_mask": 0}
+    rows = []
+    for item in structure:
+        rows.append(counts[item[0]])
+        counts[item[0]] += 1
+    return rows
+
+
+def read_meta(combo: torch.Tensor, structure: Tuple, rolled: bool, items=None,
+              radii=None):
+    """(draw bounds (D, 2) i32, blur radii, clear color (4,), meta rows) of
+    a frame upload on its device: from the combo's meta tail, or for the
+    rolled form from its item table and radii (numpy, uploaded here, or
+    tensors on the combo's device) and the one meta row."""
+    if rolled:
+        if isinstance(items, np.ndarray):
+            items = torch.from_numpy(items).to(combo.device)
+            radii = torch.from_numpy(radii).to(combo.device)
+        return items[:, 2:4].contiguous(), radii, combo[-1, 0:4], 1
+    n_draws = sum(1 for item in structure if item[0] == "draw")
+    n_blurs = sum(1 for item in structure if item[0] == "blur")
+    rows = meta_rows(n_draws, n_blurs, PACKED_WIDTH)
+    meta = combo[-rows:].reshape(-1)
+    return (meta[: 2 * n_draws].view(torch.int32).reshape(-1, 2),
+            meta[2 * n_draws : 2 * n_draws + n_blurs],
+            meta[2 * n_draws + n_blurs : 2 * n_draws + n_blurs + 4], rows)
+
+
 def _init_planes(combo_clear, init_frame, has_init_frame: bool, height: int,
                  width: int, ph: int, pw: int):
     """The (4, PH, PW) planes a frame starts from: the previous frame padded
@@ -72,19 +106,7 @@ def get_frame_executor(structure: Tuple, height: int, width: int,
     ph, pw = tiles_y * th, tiles_x * tw
     any_blur = any(item[0] == "blur" for item in structure)
     draws = [item for item in structure if item[0] == "draw"]
-    n_draws = len(draws)
-    n_blurs = sum(1 for item in structure if item[0] == "blur")
-    rows = 1 if rolled else meta_rows(n_draws, n_blurs, PACKED_WIDTH)
-    # each item's row of the bounds (draws) or radii (blurs): the item's own
-    # row of the rolled table, else its place among the meta's draws or blurs
-    if rolled:
-        item_row = list(range(len(structure)))
-    else:
-        counts = {"draw": 0, "blur": 0, "clear_mask": 0}
-        item_row = []
-        for item in structure:
-            item_row.append(counts[item[0]])
-            counts[item[0]] += 1
+    item_row = item_rows(structure, rolled)
     # positions of the frame-target runs among the draws: only they are
     # occlusion- and saturation-culled (executor.py:319-347); the rolled
     # form culls nothing (executor.py:634-640)
@@ -99,18 +121,8 @@ def get_frame_executor(structure: Tuple, height: int, width: int,
             items: Optional[np.ndarray] = None,
             radii: Optional[np.ndarray] = None) -> torch.Tensor:
         dev = combo.device
-        if rolled:
-            if isinstance(items, np.ndarray):
-                items = torch.from_numpy(items).to(dev)
-                radii = torch.from_numpy(radii).to(dev)
-            bounds = items[:, 2:4].contiguous()
-            blur_radii = radii
-            clear_color = combo[-1, 0:4]
-        else:
-            meta = combo[-rows:].reshape(-1)
-            bounds = meta[: 2 * n_draws].view(torch.int32).reshape(-1, 2)
-            blur_radii = meta[2 * n_draws : 2 * n_draws + n_blurs]
-            clear_color = meta[2 * n_draws + n_blurs : 2 * n_draws + n_blurs + 4]
+        bounds, blur_radii, clear_color, rows = read_meta(combo, structure, rolled,
+                                                          items, radii)
 
         planes = _init_planes(clear_color, init_frame, has_init_frame, height,
                               width, ph, pw)
@@ -237,10 +249,11 @@ class BatchStack:
             row[a:b] = np.ascontiguousarray(arr).reshape(-1).view(np.float32)
         self.count += 1
 
-    def upload(self, device) -> torch.Tensor:
-        """The group's frames as one (F, L) f32 tensor, one host-to-device
-        copy."""
-        return torch.from_numpy(self.host[: self.count]).to(device, copy=True)
+    def upload(self, device, start: int = 0, end: Optional[int] = None) -> torch.Tensor:
+        """The group's frames [start, end) (default all) as one (F, L) f32
+        tensor, one host-to-device copy."""
+        end = self.count if end is None else min(end, self.count)
+        return torch.from_numpy(self.host[start:end]).to(device, copy=True)
 
     def frame(self, stack: torch.Tensor, f: int) -> dict:
         row = stack[f]

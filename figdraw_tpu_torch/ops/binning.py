@@ -20,6 +20,12 @@ which the CPU tests and the on-card comparison use:
   the rest index + N), so any sort gives exactly the JAX reference's lists
   and counts.
 
+Each entry point takes `row0`, the band origin of bin_quads' y_offset
+(binning.py:36-42, :73; raster_pallas.prebin :399-416): tile row ty spans
+the global rows [row0 + ty tile_h, row0 + (ty+1) tile_h). It is 0 for a
+whole frame; a frame split into row bands over several devices
+(parallel/sharding.py) bins each band at its own origin.
+
 `bin_quads_model` is the kernels' decomposition in numpy (each quad's bbox
 as an int16 tile range that sets its bit in each tile it meets, one lower
 bound per tile and run from the covers among those bits, then an ordered
@@ -44,6 +50,7 @@ from .layout import (
     QF_RADII, QF_RECT_PARAMS, QF_STOP_COLOR, QF_WIDTH, QI_MASK, QI_MODE,
     QI_WIDTH,
 )
+from .raster import check_row0
 
 # Translucent-stack saturation culling engages only on dense tapes (padded
 # row count >= this): small scenes keep the exact opaque-only cull.
@@ -74,6 +81,10 @@ MAX_TILES = 32767
 # with rows
 LAUNCHES = 0
 DECODE_LAUNCHES = 0
+# of those, the launches at a band origin other than 0 (row0 != 0): the
+# tile kernel's and the front kernel's
+BAND_LAUNCHES = 0
+BAND_DECODE_LAUNCHES = 0
 # calls of the plain versions, on any device: a card's frames make none
 PLAIN_DECODES = 0
 PLAIN_BINNINGS = 0
@@ -93,10 +104,10 @@ def load() -> ctypes.CDLL:
             path, BUILD_LOG = nvcc.build("figdraw_binning", _SOURCES)
             lib = ctypes.CDLL(path)
             vp, i = ctypes.c_void_p, ctypes.c_int
-            lib.figdraw_bin_quads.argtypes = ([vp] * 4 + [i, i, vp] + [i] * 8
+            lib.figdraw_bin_quads.argtypes = ([vp] * 4 + [i, i, vp] + [i] * 9
                                               + [vp] * 4)
             lib.figdraw_decode_and_bin.argtypes = ([vp, i, vp, vp, vp, vp, i, i, i, vp]
-                                                   + [i] * 7 + [vp] * 4 + [i])
+                                                   + [i] * 8 + [vp] * 4 + [i])
             lib.figdraw_decode.argtypes = [vp, i, vp, vp, vp]
             for fn in (lib.figdraw_bin_quads, lib.figdraw_decode_and_bin,
                        lib.figdraw_decode):
@@ -176,24 +187,27 @@ def unpack_combo(rows: torch.Tensor):
 
 def decode_and_bin_plain(rows, start, end, tiles_y: int, tiles_x: int,
                          tile_h: int, tile_w: int, cull: bool = False,
-                         run_bounds=None):
+                         run_bounds=None, row0: int = 0):
     """The plain torch version of decode_and_bin (same arguments and
     results, any device): unpack_combo_plain, then bin_quads_plain."""
     fields, modes = unpack_combo_plain(rows)
     tile_idx, tile_counts = bin_quads_plain(
         fields, start, end, tiles_y, tiles_x, tile_h, tile_w,
-        modes=modes if cull else None, run_bounds=run_bounds if cull else None)
+        modes=modes if cull else None, run_bounds=run_bounds if cull else None,
+        row0=row0)
     return fields, modes, tile_idx, tile_counts
 
 
 def decode_and_bin(rows, start, end, tiles_y: int, tiles_x: int, tile_h: int,
-                   tile_w: int, cull: bool = False, run_bounds=None, stop: int = 0):
+                   tile_w: int, cull: bool = False, run_bounds=None, stop: int = 0,
+                   row0: int = 0):
     """The front end of an executor run: (fields (N, 68) f32, modes (N, 2)
     i32, tile_idx (T, N) i32, tile_counts (T,) i32) = unpack_combo(rows)
     and bin_quads(fields, start, end, ..., modes=modes if cull, run_bounds)
     on them, T = tiles_y * tiles_x. rows: the (N, PACKED_WIDTH) packed
     upload rows; cull: the frame-target runs' opaque and saturation culls
-    (bin_quads' modes), run-scoped when run_bounds is given.
+    (bin_quads' modes), run-scoped when run_bounds is given; row0: the band
+    origin, the global row of tile row 0.
 
     On CUDA tensors two launches of csrc/binning.cu: the front kernel,
     which reads each packed row once and writes the fields, the modes and
@@ -203,9 +217,11 @@ def decode_and_bin(rows, start, end, tiles_y: int, tiles_x: int, tile_h: int,
     stop (CUDA only, to time the tile kernel's phases): 1-3 end the tile
     kernel after its overlap pass, its culls or its counts, 4 launches the
     front kernel alone; the lists are then not written."""
+    row0 = check_row0(row0, tiles_y * tile_h)
     if rows.device.type == "cpu":
         return decode_and_bin_plain(rows, start, end, tiles_y, tiles_x, tile_h,
-                                    tile_w, cull=cull, run_bounds=run_bounds)
+                                    tile_w, cull=cull, run_bounds=run_bounds,
+                                    row0=row0)
     if rows.device.type != "cuda":
         raise ValueError(f"no front-end kernel for {rows.device}")
     _check_rows(rows)
@@ -226,15 +242,20 @@ def decode_and_bin(rows, start, end, tiles_y: int, tiles_x: int, tile_h: int,
         rows.data_ptr(), n, fields.data_ptr(), modes.data_ptr(), ptr(start_t),
         ptr(end_t), start_v, end_v, int(bool(cull)), ptr(runs), n_runs,
         int(bool(cull) and run_bounds is None), tiles_y, tiles_x, tile_h, tile_w,
-        int(bool(cull) and n >= SAT_MIN_QUADS), scratch.data_ptr(),
+        row0, int(bool(cull) and n >= SAT_MIN_QUADS), scratch.data_ptr(),
         tile_idx.data_ptr(), tile_counts.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream, int(stop))
     if rc != 0:
         raise RuntimeError(f"front-end launch failed: cudaError {rc}")
-    global LAUNCHES, DECODE_LAUNCHES
+    global LAUNCHES, DECODE_LAUNCHES, BAND_LAUNCHES, BAND_DECODE_LAUNCHES
     DECODE_LAUNCHES += 1 if n > 0 else 0
     LAUNCHES += 0 if stop == 4 else 1
+    BAND_DECODE_LAUNCHES += n > 0 and row0 != 0
+    BAND_LAUNCHES += stop != 4 and row0 != 0
     return fields, modes, tile_idx, tile_counts
+
+
+
 
 
 def _scratch(n: int, n_tiles: int, dev) -> torch.Tensor:
@@ -272,7 +293,8 @@ def _tiles_arg(tiles_y: int, tiles_x: int, tile_h: int, tile_w: int) -> int:
 
 
 def bin_quads_plain(fields, start, end, tiles_y: int, tiles_x: int,
-                    tile_h: int, tile_w: int, modes=None, run_bounds=None):
+                    tile_h: int, tile_w: int, modes=None, run_bounds=None,
+                    row0: int = 0):
     """The plain torch version of bin_quads (same arguments and results,
     any device): the JAX reference's ops, argsort included."""
     global PLAIN_BINNINGS
@@ -284,7 +306,7 @@ def bin_quads_plain(fields, start, end, tiles_y: int, tiles_x: int,
     x1 = fields[:, QF_BBOX_X1]
     y1 = fields[:, QF_BBOX_Y1]
 
-    ty = torch.arange(tiles_y, dtype=torch.float32, device=dev) * tile_h
+    ty = float(row0) + torch.arange(tiles_y, dtype=torch.float32, device=dev) * tile_h
     tx = torch.arange(tiles_x, dtype=torch.float32, device=dev) * tile_w
     # tile t covers pixel centers [t0 + 0.5, t0 + tile - 0.5]
     tx0 = tx[None, :, None]  # (1, TX, 1)
@@ -437,7 +459,7 @@ def _window_arg(v, dev, what: str):
 
 
 def bin_quads(fields, start, end, tiles_y: int, tiles_x: int, tile_h: int,
-              tile_w: int, modes=None, run_bounds=None):
+              tile_w: int, modes=None, run_bounds=None, row0: int = 0):
     """Returns (tile_idx (T, N) i32, tile_counts (T,) i32), T = tiles_y *
     tiles_x.
 
@@ -456,6 +478,8 @@ def bin_quads(fields, start, end, tiles_y: int, tiles_x: int, tile_h: int,
     the fields' device; culling then stays run-scoped, and quads outside
     every run are never culled.
 
+    row0: the band origin, the global row of tile row 0 (y_offset).
+
     On CUDA tensors this is one call of csrc/binning.cu, which launches the
     prepass and the tile kernel (a ValueError for more than MAX_QUADS rows,
     MAX_RUNS runs or MAX_TILES tiles a side, or arguments it does not take;
@@ -463,9 +487,10 @@ def bin_quads(fields, start, end, tiles_y: int, tiles_x: int, tile_h: int,
     any other device raises ValueError. The executors call decode_and_bin,
     which decodes the packed rows on the way.
     """
+    row0 = check_row0(row0, tiles_y * tile_h)
     if fields.device.type == "cpu":
         return bin_quads_plain(fields, start, end, tiles_y, tiles_x, tile_h,
-                               tile_w, modes=modes, run_bounds=run_bounds)
+                               tile_w, modes=modes, run_bounds=run_bounds, row0=row0)
     if fields.device.type != "cuda":
         raise ValueError(f"no binning kernel for {fields.device}")
     dev = fields.device
@@ -493,14 +518,15 @@ def bin_quads(fields, start, end, tiles_y: int, tiles_x: int, tile_h: int,
     rc = lib.figdraw_bin_quads(
         fields.data_ptr(), ptr(modes), ptr(start_t), ptr(end_t), start_v, end_v,
         ptr(runs), n_runs, int(modes is not None and run_bounds is None), n,
-        tiles_y, tiles_x, tile_h, tile_w,
+        tiles_y, tiles_x, tile_h, tile_w, row0,
         int(modes is not None and n >= SAT_MIN_QUADS), scratch.data_ptr(),
         tile_idx.data_ptr(), tile_counts.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"binning launch failed: cudaError {rc}")
-    global LAUNCHES
+    global LAUNCHES, BAND_LAUNCHES
     LAUNCHES += 2 if n > 0 else 1
+    BAND_LAUNCHES += (2 if n > 0 else 1) if row0 != 0 else 0
     return tile_idx, tile_counts
 
 
@@ -555,35 +581,38 @@ def _spans(a, b, tiles: int) -> np.ndarray:
     return np.stack([first, last], 1).astype(np.int16)
 
 
-def tile_ranges(fields, tiles_y: int, tiles_x: int, tile_h: int, tile_w: int):
+def tile_ranges(fields, tiles_y: int, tiles_x: int, tile_h: int, tile_w: int,
+                row0: int = 0):
     """Each quad's bbox as the tile range the kernels read (csrc/decode.cuh
     bbox_tiles), (N, 4) int16 (x first, y first, x last, y last): tile
     (tx, ty) meets the quad exactly when x0 < (tx+1) w, x1 > tx w and the
-    same in y, that is floor(x0 / w) <= tx <= ceil(x1 / w) - 1, in float64;
-    (1, 1, 0, 0) for a quad that meets no tile."""
+    same in y with y taken from the band origin row0, that is floor(x0 / w)
+    <= tx <= ceil(x1 / w) - 1, in float64; (1, 1, 0, 0) for a quad that
+    meets no tile."""
     f = np.asarray(fields, np.float32).astype(np.float64)
     x = _spans(np.floor(f[:, QF_BBOX_X0] / tile_w), np.ceil(f[:, QF_BBOX_X1] / tile_w) - 1,
                tiles_x)
-    y = _spans(np.floor(f[:, QF_BBOX_Y0] / tile_h), np.ceil(f[:, QF_BBOX_Y1] / tile_h) - 1,
-               tiles_y)
+    y = _spans(np.floor((f[:, QF_BBOX_Y0] - row0) / tile_h),
+               np.ceil((f[:, QF_BBOX_Y1] - row0) / tile_h) - 1, tiles_y)
     out = np.stack([x[:, 0], y[:, 0], x[:, 1], y[:, 1]], 1)
     out[(out[:, 0] > out[:, 2]) | (out[:, 1] > out[:, 3])] = (1, 1, 0, 0)
     return out
 
 
-def cover_ranges(fields, modes, tiles_y: int, tiles_x: int, tile_h: int, tile_w: int):
+def cover_ranges(fields, modes, tiles_y: int, tiles_x: int, tile_h: int, tile_w: int,
+                 row0: int = 0):
     """Each quad's cover terms as the tile kernel reads them (csrc/decode.cuh
     cover_term): ((N, 4) int16 range of the tiles its cover rectangle
     covers, (1, 1, 0, 0) for none: cx - ihx <= tx w + 0.5 and cx + ihx >=
     (tx+1) w - 0.5, that is ceil((cx - ihx - 0.5) / w) <= tx <=
-    floor((cx + ihx + 0.5) / w) - 1; (N,) float32 lt, 0 where the range is
-    empty; (N,) bool opaque)."""
+    floor((cx + ihx + 0.5) / w) - 1, y taken from the band origin row0; (N,)
+    float32 lt, 0 where the range is empty; (N,) bool opaque)."""
     cov, a_min = cover_terms(fields, modes)
     c = cov.astype(np.float64)
     x = _spans(np.ceil((c[:, 0] - 0.5) / tile_w), np.floor((c[:, 1] + 0.5) / tile_w) - 1,
                tiles_x)
-    y = _spans(np.ceil((c[:, 2] - 0.5) / tile_h), np.floor((c[:, 3] + 0.5) / tile_h) - 1,
-               tiles_y)
+    y = _spans(np.ceil((c[:, 2] - row0 - 0.5) / tile_h),
+               np.floor((c[:, 3] - row0 + 0.5) / tile_h) - 1, tiles_y)
     rng = np.stack([x[:, 0], y[:, 0], x[:, 1], y[:, 1]], 1)
     empty = (rng[:, 0] > rng[:, 2]) | (rng[:, 1] > rng[:, 3])
     rng[empty] = (1, 1, 0, 0)
@@ -607,7 +636,8 @@ def overlap_bits(rng, tiles_y: int, tiles_x: int) -> np.ndarray:
 
 
 def bin_quads_model(fields, start: int, end: int, tiles_y: int, tiles_x: int,
-                    tile_h: int, tile_w: int, modes=None, run_bounds=None):
+                    tile_h: int, tile_w: int, modes=None, run_bounds=None,
+                    row0: int = 0):
     """csrc/binning.cu's decomposition in numpy, on numpy arrays, from the
     terms its front kernel writes (tile_ranges, cover_ranges): each quad
     sets its bit in every tile its int16 range names; per tile the bits in
@@ -621,18 +651,19 @@ def bin_quads_model(fields, start: int, end: int, tiles_y: int, tiles_x: int,
     their prefix and the rest after them ascending. Returns (tile_idx (T, N)
     i32, tile_counts (T,) i32, borderline (T, N) bool: the quads whose
     within-run above-stack lies within SAT_BORDER + SAT_BORDER_REL * |S| of
-    LOG2_SAT_EPS, S the stack of the window's covers from the quad on)."""
+    LOG2_SAT_EPS, S the stack of the window's covers from the quad on). row0:
+    the band origin (tile_ranges, cover_ranges)."""
     f = np.asarray(fields, np.float32)
     n = f.shape[0]
     n_tiles = tiles_y * tiles_x
     idx = np.arange(n)
     w_lo, w_hi = max(start, 0), min(end, n)
     window = (idx >= w_lo) & (idx < w_hi)
-    rng = tile_ranges(f, tiles_y, tiles_x, tile_h, tile_w)
+    rng = tile_ranges(f, tiles_y, tiles_x, tile_h, tile_w, row0)
     keep = overlap_bits(rng, tiles_y, tiles_x) & window[None, :]
     borderline = np.zeros((n_tiles, n), bool)
     if modes is not None:
-        crng, lt, opaque = cover_ranges(f, modes, tiles_y, tiles_x, tile_h, tile_w)
+        crng, lt, opaque = cover_ranges(f, modes, tiles_y, tiles_x, tile_h, tile_w, row0)
         outside = ((crng[:, 0] <= crng[:, 2])
                    & ((crng[:, 0] < rng[:, 0]) | (crng[:, 2] > rng[:, 2])
                       | (crng[:, 1] < rng[:, 1]) | (crng[:, 3] > rng[:, 3]))).any()

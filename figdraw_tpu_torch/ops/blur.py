@@ -8,9 +8,20 @@ float32 as in the reference (never in Python doubles), and no value leaves
 the device.
 
 `backdrop_blur_planar` runs csrc/blur.cu, a hand-written kernel for Hopper
-(sm_90a), one launch a pass, on CUDA tensors (or raises); CPU tensors take
-`backdrop_blur_planar_plain`, the plain torch version, which the CPU tests
-and the on-card comparison use.
+(sm_90a), one launch a pass (`blur_pass`), on CUDA tensors (or raises); CPU
+tensors take `backdrop_blur_planar_plain`, the plain torch version, which
+the CPU tests and the on-card comparison use.
+
+`banded_blur_planar` is the same blur on a frame split into row bands over
+several devices (figdraw_tpu/parallel/sharding.py `_banded_blur_planar`,
+:165-190, the ppermute halo exchange): the horizontal pass runs on each
+band; each band then takes BLUR_HALO rows from each neighbour (its own edge
+row repeated at the frame's top and bottom), and the vertical pass runs on
+the extended band, which is cropped back. Where the halo is not shorter
+than a band, every band is gathered onto each device instead, blurred
+there once and sliced back. On CUDA bands both passes are X1's kernel
+(`blur_pass`), the halo rows move by tensor copies between devices; the
+plain version `banded_blur_planar_plain` does the same on `_blur_axis`.
 """
 
 from __future__ import annotations
@@ -26,6 +37,12 @@ TAP_RADIUS = 8
 
 # kernel launches since the count was last reset (two a blur: one a pass)
 LAUNCHES = 0
+# of those, the passes the banded blur launched (a horizontal pass a band,
+# then a vertical pass a band or, on the gather path, a device)
+BAND_LAUNCHES = 0
+# rows a band takes from each neighbour: the radius clamp 64 (blur.frag:12)
+# and 1 for the linear tap's second texel (sharding.py:151)
+BLUR_HALO = 65
 
 _SOURCES = ("blur.cu",)
 
@@ -88,35 +105,118 @@ def backdrop_blur_planar_plain(frame_planes: torch.Tensor, radius) -> torch.Tens
     return out
 
 
+def blur_pass(planes: torch.Tensor, radius, vertical: bool,
+              band: bool = False) -> torch.Tensor:
+    """One separable pass of X1's kernel over channel-planar (C, H, W) f32
+    planes on the card, into new planes (along W, or along H when
+    vertical); the input is not written. radius: a 0-d (or one-element)
+    float32 tensor on the planes' device, which the kernel reads there, or a
+    float. band: the pass belongs to banded_blur_planar (counted in
+    BAND_LAUNCHES too). A tensor that is not on a CUDA device raises
+    ValueError; blur_axis_plain is the pass's plain version."""
+    if planes.device.type != "cuda":
+        raise ValueError(f"no blur kernel for {planes.device}")
+    dev = planes.device
+    if planes.dtype != torch.float32 or planes.dim() != 3 or not planes.is_contiguous():
+        raise ValueError("planes must be contiguous (C, H, W) float32, got "
+                         f"{planes.dtype} {tuple(planes.shape)}")
+    radius = torch.as_tensor(radius, dtype=torch.float32, device=dev)
+    if radius.numel() != 1:
+        raise ValueError(f"radius must hold one value, got {tuple(radius.shape)}")
+    c, ph, pw = planes.shape
+    if c * ph > 1 << 30:
+        raise ValueError(f"{c} x {ph} rows are more than one launch takes")
+    out = torch.empty_like(planes)
+    lib = load()
+    # the planes' device is the current one for the launch: the banded blur
+    # passes bands of several devices
+    with torch.cuda.device(dev):
+        rc = lib.figdraw_blur_pass(planes.data_ptr(), out.data_ptr(), radius.data_ptr(),
+                                   c, ph, pw, int(bool(vertical)),
+                                   torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"blur launch failed: cudaError {rc}")
+    global LAUNCHES, BAND_LAUNCHES
+    LAUNCHES += 1
+    BAND_LAUNCHES += bool(band)
+    return out
+
+
+def blur_axis_plain(planes: torch.Tensor, radius, vertical: bool) -> torch.Tensor:
+    """The plain torch version of blur_pass (any device)."""
+    radius = torch.as_tensor(radius, dtype=torch.float32, device=planes.device)
+    return _blur_axis(planes, radius, axis=1 if vertical else 2)
+
+
 def backdrop_blur_planar(frame_planes: torch.Tensor, radius) -> torch.Tensor:
     """Blur a channel-planar (C, H, W) f32 frame into new planes; the input
     is not written. radius: a 0-d (or one-element) float32 tensor on the
     planes' device, which the kernel reads there, or a float."""
     if frame_planes.device.type == "cpu":
         return backdrop_blur_planar_plain(frame_planes, radius)
-    if frame_planes.device.type != "cuda":
-        raise ValueError(f"no blur kernel for {frame_planes.device}")
-    dev = frame_planes.device
-    if (frame_planes.dtype != torch.float32 or frame_planes.dim() != 3
-            or not frame_planes.is_contiguous()):
-        raise ValueError("frame_planes must be contiguous (C, H, W) float32, got "
-                         f"{frame_planes.dtype} {tuple(frame_planes.shape)}")
-    radius = torch.as_tensor(radius, dtype=torch.float32, device=dev)
-    if radius.numel() != 1:
-        raise ValueError(f"radius must hold one value, got {tuple(radius.shape)}")
-    planes, ph, pw = frame_planes.shape
-    if planes * ph > 1 << 30:
-        raise ValueError(f"{planes} x {ph} rows are more than one launch takes")
-    lib = load()
-    mid = torch.empty_like(frame_planes)
-    out = torch.empty_like(frame_planes)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    global LAUNCHES
-    for src, dst, vertical in ((frame_planes, mid, 0), (mid, out, 1)):
-        rc = lib.figdraw_blur_pass(src.data_ptr(), dst.data_ptr(),
-                                   radius.data_ptr(), planes, ph, pw, vertical,
-                                   stream)
-        if rc != 0:
-            raise RuntimeError(f"blur launch failed: cudaError {rc}")
-        LAUNCHES += 1
+    return blur_pass(blur_pass(frame_planes, radius, False), radius, True)
+
+
+def _edge_rows(band: torch.Tensor, row: int, halo: int) -> torch.Tensor:
+    """Row `row` of a (C, H, W) band repeated halo times."""
+    return band[:, row : row + 1 if row >= 0 else None].expand(-1, halo, -1)
+
+
+def _banded(bands, radii, halo: int, pass_fn):
+    """The banded blur over one pass function pass_fn(planes, radius,
+    vertical)."""
+    n = len(bands)
+    local = [pass_fn(b, r, False) for b, r in zip(bands, radii)]
+    if n == 1:
+        return [pass_fn(local[0], radii[0], True)]
+    band_h = local[0].shape[1]
+    if halo >= band_h:
+        # bands no taller than the blur's reach: every band gathered onto
+        # each device, blurred there once, and each band's rows taken back
+        whole = {}
+        out = []
+        for i, b in enumerate(local):
+            dev = b.device
+            if dev not in whole:
+                gathered = torch.cat([x.to(dev) for x in local], dim=1)
+                whole[dev] = pass_fn(gathered, radii[i], True)
+            out.append(whole[dev][:, i * band_h : (i + 1) * band_h].contiguous())
+        return out
+    out = []
+    for i, b in enumerate(local):
+        dev = b.device
+        top = (_edge_rows(b, 0, halo) if i == 0
+               else local[i - 1][:, -halo:].to(dev))
+        bot = (_edge_rows(b, -1, halo) if i == n - 1
+               else local[i + 1][:, :halo].to(dev))
+        extended = torch.cat([top, b, bot], dim=1)
+        out.append(pass_fn(extended, radii[i], True)[:, halo:-halo].contiguous())
     return out
+
+
+def banded_blur_planar(bands, radii, halo: int = BLUR_HALO) -> list:
+    """The backdrop blur of a frame split into row bands: bands, a list of
+    (C, h, W) f32 planes (band i the frame's rows [i h, (i+1) h), each on
+    its own device, one device for several bands allowed); radii, a list of
+    each band's radius (a one-element f32 tensor on its device, or a
+    float). Returns the blurred bands, new planes on the bands' devices;
+    the inputs are not written. The frame's edge rows repeat at its top and
+    bottom (clamp-to-edge on the n h rows). CUDA bands run blur_pass, CPU
+    bands the plain version; a mix raises ValueError."""
+    types = {b.device.type for b in bands}
+    if len(types) != 1:
+        raise ValueError(f"bands on devices of several types: {sorted(types)}")
+    if len({tuple(b.shape) for b in bands}) != 1:
+        raise ValueError("every band must have the same shape")
+    if types == {"cpu"}:
+        return banded_blur_planar_plain(bands, radii, halo)
+
+    def kernel_pass(planes, radius, vertical):
+        return blur_pass(planes, radius, vertical, band=True)
+
+    return _banded(bands, radii, halo, kernel_pass)
+
+
+def banded_blur_planar_plain(bands, radii, halo: int = BLUR_HALO) -> list:
+    """The plain torch version of banded_blur_planar (any devices)."""
+    return _banded(bands, radii, halo, blur_axis_plain)

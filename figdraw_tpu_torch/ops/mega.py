@@ -24,6 +24,11 @@ targets plane 0, the all-pass parent, is never culled: the write clamp sends
 it to plane 1 with plane 0 as its source, which changes plane 1 outside the
 quad's bbox too (the walk emits none, but the clamps hold for any tape).
 
+Both take `row0`, the band origin of the TPU kernel (seg_ref[0],
+raster_pallas.py:505): the global row of the frame's row 0, 0 for a whole
+frame and a band's own origin when a frame is split into row bands over
+several devices (parallel/sharding.py).
+
 CUDA tensors launch the kernel or raise; CPU tensors take
 `draw_pass_mega_plain`, the plain torch version the CPU tests and the
 on-card comparison use.
@@ -40,8 +45,8 @@ from . import nvcc
 from .layout import QF_BBOX_X0, QI_MASK, QI_MODE
 from .quad_eval_planar import eval_quad_planar
 from .raster import (
-    BLOCK, TILE_H, TILE_W, block_pairs, block_survivors, check_tiles,
-    from_tiles, pixel_centers, tile_origins, to_tiles,
+    BLOCK, TILE_H, TILE_W, block_pairs, block_survivors, check_row0,
+    check_tiles, from_tiles, pixel_centers, tile_origins, to_tiles,
 )
 
 # mode-lane packing (raster_pallas.py:481-492)
@@ -56,6 +61,9 @@ MAX_PLANES = 200
 # K4-atlas
 LAUNCHES = 0
 ATLAS_LAUNCHES = 0
+# of those, the launches at a band origin other than 0 (row0 != 0)
+BAND_LAUNCHES = 0
+BAND_ATLAS_LAUNCHES = 0
 
 _SOURCES = ("mega.cu", "cull.cuh", "sdf.cuh")
 
@@ -72,7 +80,7 @@ def load() -> ctypes.CDLL:
             path, BUILD_LOG = nvcc.build("figdraw_mega", _SOURCES)
             lib = ctypes.CDLL(path)
             vp, i = ctypes.c_void_p, ctypes.c_int
-            lib.figdraw_mega.argtypes = [vp] * 6 + [i] * 10 + [vp]
+            lib.figdraw_mega.argtypes = [vp] * 6 + [i] * 11 + [vp]
             lib.figdraw_mega.restype = i
             _lib = lib
         return _lib
@@ -80,7 +88,8 @@ def load() -> ctypes.CDLL:
 
 def draw_pass_mega(fields, modes, tile_idx, tile_counts, frame_planes,
                    n_masks: int, tile_h: int = TILE_H, atlas=None,
-                   pixelate: bool = False, subpixel_positioning: bool = False):
+                   pixelate: bool = False, subpixel_positioning: bool = False,
+                   row0: int = 0):
     """The whole frame over target-baked rows (kernel K4, or K4-atlas with
     an atlas).
 
@@ -90,12 +99,15 @@ def draw_pass_mega(fields, modes, tile_idx, tile_counts, frame_planes,
     the walk, updated in place; n_masks: K, the mask planes the walk keeps
     (plane 0 is the all-pass parent); atlas (S, S, 4) f32 or None, sampled
     by atlas-mode quads (0, 13-16), nearest when pixelate, mode 0's u
-    shifted by the quad's subpixel shift when subpixel_positioning. Returns
-    frame_planes. On CUDA, K is at most MAX_PLANES (ValueError past it)."""
+    shifted by the quad's subpixel shift when subpixel_positioning; row0:
+    the band origin, the global row of the planes' row 0 (the binning's
+    too). Returns frame_planes. On CUDA, K is at most MAX_PLANES
+    (ValueError past it)."""
+    row0 = check_row0(row0, frame_planes.shape[1])
     if frame_planes.device.type == "cpu":
         return frame_planes.copy_(draw_pass_mega_plain(
             fields, modes, tile_idx, tile_counts, frame_planes, n_masks,
-            tile_h, atlas, pixelate, subpixel_positioning))
+            tile_h, atlas, pixelate, subpixel_positioning, row0=row0))
     if frame_planes.device.type != "cuda":
         raise ValueError(f"no megakernel for {frame_planes.device}")
     if not 1 <= n_masks <= MAX_PLANES:
@@ -110,16 +122,18 @@ def draw_pass_mega(fields, modes, tile_idx, tile_counts, frame_planes,
         fields.data_ptr(), modes.data_ptr(), tile_idx.data_ptr(),
         tile_counts.data_ptr(), frame_planes.data_ptr(),
         atlas.data_ptr() if atlas is not None else None,
-        fields.shape[0], pw // TILE_W, tile_h, TILE_W, ph, pw, n_masks,
+        fields.shape[0], pw // TILE_W, tile_h, TILE_W, ph, pw, row0, n_masks,
         atlas.shape[0] if atlas is not None else 0, int(pixelate),
         int(subpixel_positioning), stream)
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed: cudaError {rc}")
-    global LAUNCHES, ATLAS_LAUNCHES
+    global LAUNCHES, ATLAS_LAUNCHES, BAND_LAUNCHES, BAND_ATLAS_LAUNCHES
     if atlas is None:
         LAUNCHES += 1
+        BAND_LAUNCHES += row0 != 0
     else:
         ATLAS_LAUNCHES += 1
+        BAND_ATLAS_LAUNCHES += row0 != 0
     return frame_planes
 
 
@@ -137,22 +151,23 @@ def entry_survivors(bbox, raw, x0, y0, tile_h: int):
 
 
 def block_entries(fields, modes, tile_idx, tile_counts, tile_h: int, ph: int,
-                  pw: int):
-    """What the kernel's cull leaves of one walk over a (ph, pw) frame:
+                  pw: int, row0: int = 0):
+    """What the kernel's cull leaves of one walk over a (ph, pw) frame at
+    band origin row0:
     (entry-block pairs of the tile lists, clear sentinels included, the
     pairs that survive the cull, the blocks that keep at least one entry
     and so read and write their pixels), as ints."""
     whole = torch.tensor([0, fields.shape[0]], dtype=torch.int32,
                          device=fields.device)
     return block_pairs(fields, whole, tile_idx, tile_counts, tile_h, ph, pw,
-                       keep=targets_plane0(modes[:, QI_MODE]))
+                       keep=targets_plane0(modes[:, QI_MODE]), row0=row0)
 
 
 def draw_pass_mega_plain(fields, modes, tile_idx, tile_counts, frame_planes,
                          n_masks: int, tile_h: int = TILE_H, atlas=None,
                          pixelate: bool = False,
                          subpixel_positioning: bool = False,
-                         cull: bool = False):
+                         cull: bool = False, row0: int = 0):
     """The plain torch version of draw_pass_mega (same arguments, any
     device, any K); pure: it returns new planes.
 
@@ -176,8 +191,9 @@ def draw_pass_mega_plain(fields, modes, tile_idx, tile_counts, frame_planes,
     masks = torch.zeros((carry.shape[0], n_masks, th, tw), dtype=torch.float32,
                         device=dev)
     masks[:, 0] = 1.0
-    py_t, px_t = pixel_centers(tiles_y, th, tiles_x, tw, dev)
-    x0_t, y0_t = tile_origins(tiles_y, th, tiles_x, tw, dev)
+    row0 = int(row0)
+    py_t, px_t = pixel_centers(tiles_y, th, tiles_x, tw, dev, row0)
+    x0_t, y0_t = tile_origins(tiles_y, th, tiles_x, tw, dev, row0)
     counts = tile_counts.long()
 
     for k in range(int(counts.max()) if counts.numel() else 0):

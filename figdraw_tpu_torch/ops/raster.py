@@ -17,6 +17,12 @@ wrappers' CPU branch copies their result into the target. The kernel culls
 each 16x16 block's quads by bbox (`block_survivors` states the rule in
 plain torch; `_segment_walk(..., cull=True)` composites with it).
 
+Every entry point takes `row0`, the band origin of the TPU kernel
+(seg_ref[2], raster_pallas.py:161-184): the global row of the target's row
+0. It is 0 for a whole frame; a frame split into row bands over several
+devices (parallel/sharding.py) draws each band at its own origin, so pixel
+centers and the cull are global while the planes are the band's.
+
 The kernel library is compiled with nvcc at first use (ops/nvcc.py) and
 bound with ctypes through plain C entry points.
 """
@@ -45,6 +51,10 @@ CULL_MARGIN = 1.0
 LAUNCHES = 0
 ATLAS_LAUNCHES = 0
 MASK_LAUNCHES = 0
+# of those, the launches at a band origin other than 0 (row0 != 0)
+BAND_LAUNCHES = 0
+BAND_ATLAS_LAUNCHES = 0
+BAND_MASK_LAUNCHES = 0
 
 _SOURCES = ("raster.cu", "cull.cuh", "sdf.cuh")
 
@@ -61,9 +71,9 @@ def load() -> ctypes.CDLL:
             path, BUILD_LOG = nvcc.build("figdraw_raster", _SOURCES)
             lib = ctypes.CDLL(path)
             vp, i = ctypes.c_void_p, ctypes.c_int
-            lib.figdraw_raster_frame.argtypes = [vp] * 9 + [i] * 9 + [vp]
+            lib.figdraw_raster_frame.argtypes = [vp] * 9 + [i] * 10 + [vp]
             lib.figdraw_raster_frame.restype = i
-            lib.figdraw_raster_mask.argtypes = [vp] * 8 + [i] * 9 + [vp]
+            lib.figdraw_raster_mask.argtypes = [vp] * 8 + [i] * 10 + [vp]
             lib.figdraw_raster_mask.restype = i
             _lib = lib
         return _lib
@@ -131,7 +141,7 @@ def _check_args(fields, modes, bounds, tile_idx, tile_counts, target, masks,
 
 def _launch(entry, fields, modes, bounds, tile_idx, tile_counts, target,
             masks, backdrop_planes, atlas, pixelate, subpixel_positioning,
-            tile_h):
+            tile_h, row0):
     """Launch one of the library's tile entry points on the target's
     current stream; the kernel updates the target in place."""
     lib = load()
@@ -145,7 +155,7 @@ def _launch(entry, fields, modes, bounds, tile_idx, tile_counts, target,
                     if backdrop_planes is not None else None)
     ptrs.append(atlas.data_ptr() if atlas is not None else None)
     rc = getattr(lib, entry)(*ptrs, fields.shape[0],
-                             pw // TILE_W, tile_h, TILE_W, ph, pw,
+                             pw // TILE_W, tile_h, TILE_W, ph, pw, int(row0),
                              atlas.shape[0] if atlas is not None else 0,
                              int(pixelate), int(subpixel_positioning), stream)
     if rc != 0:
@@ -157,11 +167,22 @@ def _no_kernel(device) -> None:
         raise ValueError(f"no raster kernel for {device}")
 
 
+def check_row0(row0, ph: int) -> int:
+    """A band origin as an int: a whole number in [0, 2^24 - ph], so that
+    every global pixel center of the band is exact in f32. Raises
+    ValueError."""
+    r = int(row0)
+    if r != row0 or r < 0 or r + ph > 1 << 24:
+        raise ValueError(f"band origin {row0!r} must be an int in [0, 2^24 - {ph}]")
+    return r
+
+
 def draw_pass_planar_prebinned(fields, modes, bounds, tile_idx, tile_counts,
                                frame_planes, masks, backdrop_planes=None,
                                tile_h: int = TILE_H, atlas=None,
                                pixelate: bool = False,
-                               subpixel_positioning: bool = False):
+                               subpixel_positioning: bool = False,
+                               row0: int = 0):
     """Composite the run's quads [bounds[0], bounds[1]) over frame_planes
     (kernel K1, or K1-atlas with an atlas).
 
@@ -173,31 +194,37 @@ def draw_pass_planar_prebinned(fields, modes, bounds, tile_idx, tile_counts,
     all ones (the kernel does not read it); backdrop_planes (4, PH, PW) f32
     or None, sampled by mode-17 quads; atlas (S, S, 4) f32 or None, sampled
     by atlas-mode quads (0, 13-16), nearest when pixelate, mode 0's u
-    shifted by the quad's subpixel shift when subpixel_positioning. Returns
-    frame_planes.
+    shifted by the quad's subpixel shift when subpixel_positioning; row0:
+    the band origin, the global row of the planes' row 0 (the binning's
+    too). Returns frame_planes.
     """
+    row0 = check_row0(row0, frame_planes.shape[1])
     if frame_planes.device.type == "cpu":
         return frame_planes.copy_(draw_pass_planar_prebinned_plain(
             fields, modes, bounds, tile_idx, tile_counts, frame_planes, masks,
-            backdrop_planes, tile_h, atlas, pixelate, subpixel_positioning))
+            backdrop_planes, tile_h, atlas, pixelate, subpixel_positioning,
+            row0))
     _no_kernel(frame_planes.device)
     _check_args(fields, modes, bounds, tile_idx, tile_counts, frame_planes,
                 masks, backdrop_planes, atlas, tile_h, 4)
     _launch("figdraw_raster_frame", fields, modes, bounds, tile_idx,
             tile_counts, frame_planes, masks, backdrop_planes, atlas, pixelate,
-            subpixel_positioning, tile_h)
-    global LAUNCHES, ATLAS_LAUNCHES
+            subpixel_positioning, tile_h, row0)
+    global LAUNCHES, ATLAS_LAUNCHES, BAND_LAUNCHES, BAND_ATLAS_LAUNCHES
     if atlas is None:
         LAUNCHES += 1
+        BAND_LAUNCHES += row0 != 0
     else:
         ATLAS_LAUNCHES += 1
+        BAND_ATLAS_LAUNCHES += row0 != 0
     return frame_planes
 
 
 def draw_pass_mask_prebinned(fields, modes, bounds, tile_idx, tile_counts,
                              mask_plane, masks, tile_h: int = TILE_H,
                              atlas=None, pixelate: bool = False,
-                             subpixel_positioning: bool = False):
+                             subpixel_positioning: bool = False,
+                             row0: int = 0):
     """Write the run's quads [bounds[0], bounds[1]) into one mask plane
     (kernel K3; raster_pallas.draw_pass_mask_prebinned): per quad,
     fa = alpha * masks[mask_i] and m = fa*fa + m*(1 - fa), the GL blend of
@@ -208,18 +235,20 @@ def draw_pass_mask_prebinned(fields, modes, bounds, tile_idx, tile_counts,
     PH, PW) f32: every plane, read at each quad's mask index as it was
     before the pass, masks[0] all ones. The other arguments are
     draw_pass_planar_prebinned's. Returns mask_plane."""
+    row0 = check_row0(row0, mask_plane.shape[1])
     if mask_plane.device.type == "cpu":
         return mask_plane.copy_(draw_pass_mask_prebinned_plain(
             fields, modes, bounds, tile_idx, tile_counts, mask_plane, masks,
-            tile_h, atlas, pixelate, subpixel_positioning))
+            tile_h, atlas, pixelate, subpixel_positioning, row0))
     _no_kernel(mask_plane.device)
     _check_args(fields, modes, bounds, tile_idx, tile_counts, mask_plane,
                 masks, None, atlas, tile_h, 1)
     _launch("figdraw_raster_mask", fields, modes, bounds, tile_idx,
             tile_counts, mask_plane, masks, None, atlas, pixelate,
-            subpixel_positioning, tile_h)
-    global MASK_LAUNCHES
+            subpixel_positioning, tile_h, row0)
+    global MASK_LAUNCHES, BAND_MASK_LAUNCHES
     MASK_LAUNCHES += 1
+    BAND_MASK_LAUNCHES += row0 != 0
     return mask_plane
 
 
@@ -236,22 +265,24 @@ def from_tiles(tiles, tiles_y, th, tiles_x, tw):
             .permute(2, 0, 3, 1, 4).reshape(c, tiles_y * th, tiles_x * tw))
 
 
-def pixel_centers(tiles_y, th, tiles_x, tw, device):
-    """Per-tile pixel-center grids ((T, th, 1) py, (T, 1, tw) px): (tile
-    origin + index) + 0.5, as the kernels compute them."""
+def pixel_centers(tiles_y, th, tiles_x, tw, device, row0: int = 0):
+    """Per-tile pixel-center grids ((T, th, 1) py, (T, 1, tw) px): (global
+    tile origin + index) + 0.5, as the kernels compute them; row0: the band
+    origin."""
     iy = torch.arange(th, dtype=torch.float32, device=device)[:, None]
     ix = torch.arange(tw, dtype=torch.float32, device=device)[None, :]
     ty = torch.arange(tiles_y, device=device).repeat_interleave(tiles_x)
     tx = torch.arange(tiles_x, device=device).repeat(tiles_y)
-    y0 = (ty * th).to(torch.float32)[:, None, None]
+    y0 = (row0 + ty * th).to(torch.float32)[:, None, None]
     x0 = (tx * tw).to(torch.float32)[:, None, None]
     return y0 + iy + 0.5, x0 + ix + 0.5
 
 
-def tile_origins(tiles_y, th, tiles_x, tw, device):
-    """Each tile's first pixel ((T,) x0, (T,) y0) as int64, row-major."""
+def tile_origins(tiles_y, th, tiles_x, tw, device, row0: int = 0):
+    """Each tile's first pixel ((T,) x0, (T,) y0) as int64, row-major, y0
+    global (row0: the band origin)."""
     t = torch.arange(tiles_y * tiles_x, device=device)
-    return (t % tiles_x) * tw, (t // tiles_x) * th
+    return (t % tiles_x) * tw, row0 + (t // tiles_x) * th
 
 
 def run_segments(bounds, tile_idx, tile_counts):
@@ -348,12 +379,12 @@ def ambiguous_pixels(fields, modes, ys, xs):
 
 
 def block_pairs(fields, bounds, tile_idx, tile_counts, tile_h: int, ph: int,
-                pw: int, keep=None):
-    """What the kernel's cull leaves of one pass over a (ph, pw) target:
-    (quad-block pairs of the run segments, the pairs that survive the cull,
-    the blocks that keep at least one quad and so read and write their
-    pixels), as ints. keep: (N,) bool, quads that survive whatever their
-    bbox (the megakernel's plane-0 targets), or None."""
+                pw: int, keep=None, row0: int = 0):
+    """What the kernel's cull leaves of one pass over a (ph, pw) target at
+    band origin row0: (quad-block pairs of the run segments, the pairs that
+    survive the cull, the blocks that keep at least one quad and so read and
+    write their pixels), as ints. keep: (N,) bool, quads that survive
+    whatever their bbox (the megakernel's plane-0 targets), or None."""
     j_lo, j_hi = run_segments(bounds, tile_idx, tile_counts)
     depth = j_hi - j_lo
     per_tile = (tile_h // BLOCK) * (TILE_W // BLOCK)
@@ -365,7 +396,8 @@ def block_pairs(fields, bounds, tile_idx, tile_counts, tile_h: int, ph: int,
     valid = k[None, :] < depth[:, None]
     pos = (j_lo[:, None] + k).clamp(max=tile_idx.shape[1] - 1)
     q = tile_idx.gather(1, pos).long()
-    x0, y0 = tile_origins(ph // tile_h, tile_h, pw // TILE_W, TILE_W, depth.device)
+    x0, y0 = tile_origins(ph // tile_h, tile_h, pw // TILE_W, TILE_W, depth.device,
+                          row0)
     surv = block_survivors(fields[q][..., QF_BBOX_X0 : QF_BBOX_X0 + 4],
                            x0[:, None].expand_as(q), y0[:, None].expand_as(q),
                            tile_h)
@@ -378,8 +410,8 @@ def block_pairs(fields, bounds, tile_idx, tile_counts, tile_h: int, ph: int,
 def _segment_walk(fields, modes, bounds, tile_idx, tile_counts, target, masks,
                   backdrop_planes, tile_h, mask_target: bool, atlas=None,
                   pixelate: bool = False, subpixel_positioning: bool = False,
-                  cull: bool = False):
-    """The plain walk behind both *_plain versions. Each tile walks its run
+                  cull: bool = False, row0: int = 0):
+    """The plain walk behind both *_plain versions, at band origin row0. Each tile walks its run
     segment in draw order. The walk goes by depth: step k evaluates the
     k-th quad of every tile whose segment is longer than k, in one batched
     eval_quad_planar call over those tiles' pixels, and blends it over them,
@@ -401,8 +433,8 @@ def _segment_walk(fields, modes, bounds, tile_idx, tile_counts, target, masks,
     mask_t = to_tiles(masks, tiles_y, th, tiles_x, tw)
     bd_t = (None if backdrop_planes is None
             else to_tiles(backdrop_planes, tiles_y, th, tiles_x, tw))
-    py_t, px_t = pixel_centers(tiles_y, th, tiles_x, tw, dev)
-    x0_t, y0_t = tile_origins(tiles_y, th, tiles_x, tw, dev)
+    py_t, px_t = pixel_centers(tiles_y, th, tiles_x, tw, dev, row0)
+    x0_t, y0_t = tile_origins(tiles_y, th, tiles_x, tw, dev, row0)
 
     for k in range(int(depth.max()) if depth.numel() else 0):
         act = torch.nonzero(depth > k).squeeze(1)
@@ -448,21 +480,23 @@ def draw_pass_planar_prebinned_plain(fields, modes, bounds, tile_idx,
                                      backdrop_planes=None,
                                      tile_h: int = TILE_H, atlas=None,
                                      pixelate: bool = False,
-                                     subpixel_positioning: bool = False):
+                                     subpixel_positioning: bool = False,
+                                     row0: int = 0):
     """The plain torch version of draw_pass_planar_prebinned (same
     arguments and result, any device)."""
     return _segment_walk(fields, modes, bounds, tile_idx, tile_counts,
                          frame_planes, masks, backdrop_planes, tile_h, False,
-                         atlas, pixelate, subpixel_positioning)
+                         atlas, pixelate, subpixel_positioning, row0=int(row0))
 
 
 def draw_pass_mask_prebinned_plain(fields, modes, bounds, tile_idx,
                                    tile_counts, mask_plane, masks,
                                    tile_h: int = TILE_H, atlas=None,
                                    pixelate: bool = False,
-                                   subpixel_positioning: bool = False):
+                                   subpixel_positioning: bool = False,
+                                   row0: int = 0):
     """The plain torch version of draw_pass_mask_prebinned (same arguments
     and result, any device)."""
     return _segment_walk(fields, modes, bounds, tile_idx, tile_counts,
                          mask_plane, masks, None, tile_h, True, atlas,
-                         pixelate, subpixel_positioning)
+                         pixelate, subpixel_positioning, row0=int(row0))

@@ -207,6 +207,7 @@ class FigRenderer:
         # job, a batch group): the next patch goes into a copy
         self._atlas_shared = False
         self._atlas_stamp = 0  # bumped each time the device atlas changes
+        self._atlas_copies = {}  # device -> (atlas stamp, atlas there), for meshes
         self.atlas_upload_bytes = 0  # bytes of the last device-atlas upload
         self._atlas_pack_cache = None
         self._bus = None
@@ -628,22 +629,26 @@ class FigRenderer:
         if atlas is None and _needs_atlas(plan):
             atlas = self._device_atlas()
         init = self._init_frame(plan.has_init_frame, plan.height, plan.width)
+        self.last_frame = self._execute_on(plan, combo, atlas, init)
+        return self.last_frame
+
+    def _execute_on(self, plan: ExecPlan, combo: torch.Tensor,
+                    atlas: Optional[torch.Tensor], init=None) -> torch.Tensor:
+        """The plan's executor on combo's device: the atlas and init (the
+        previous frame, for a plan that does not clear) there; this
+        renderer's state is not touched."""
         if plan.mega_combo is not None:
             run = get_mega_executor(plan.height, plan.width, plan.n_masks,
                                     plan.has_init_frame, plan.tile_h)
-            frame = run(combo, init, atlas=atlas if plan.mega_atlas else None,
-                        pixelate=self.pixelate,
-                        subpixel_positioning=self.text_subpixel_positioning)
-        else:
-            run = get_frame_executor(plan.structure, plan.height, plan.width,
-                                     plan.n_masks, plan.has_init_frame,
-                                     plan.tile_h,
-                                     rolled=plan.rolled_items is not None)
-            frame = run(combo, init, atlas=atlas, pixelate=self.pixelate,
-                        subpixel_positioning=self.text_subpixel_positioning,
-                        items=plan.rolled_items, radii=plan.rolled_radii)
-        self.last_frame = frame
-        return frame
+            return run(combo, init, atlas=atlas if plan.mega_atlas else None,
+                       pixelate=self.pixelate,
+                       subpixel_positioning=self.text_subpixel_positioning)
+        run = get_frame_executor(plan.structure, plan.height, plan.width,
+                                 plan.n_masks, plan.has_init_frame, plan.tile_h,
+                                 rolled=plan.rolled_items is not None)
+        return run(combo, init, atlas=atlas, pixelate=self.pixelate,
+                   subpixel_positioning=self.text_subpixel_positioning,
+                   items=plan.rolled_items, radii=plan.rolled_radii)
 
     def _walk_plan(self, renders, fs: Vec2, clear_main: bool,
                    clear_color) -> ExecPlan:
@@ -793,14 +798,21 @@ class FigRenderer:
         takes the single-frame path in order. An image update between frames
         changes the device atlas and so starts a new group. The frame axis is
         not padded to a power of two: that padding bounds XLA's jit
-        signatures, which the port does not have. mesh (frame-parallel
-        rendering over several devices) raises NotImplementedError."""
+        signatures, which the port does not have.
+
+        mesh: a parallel.sharding.Mesh (frames_mesh(), or devices of this
+        renderer's type named explicitly) renders frames in parallel: a
+        group holds up to chunk frames a device, dealt to the devices in
+        contiguous blocks, each device running the single-frame executor on
+        its block (parallel.sharding.get_frame_parallel_runner); the frames
+        come back to this renderer's device in order, each equal to
+        render_frame's bit for bit. A mesh of another device type raises
+        ValueError."""
         if mesh is not None:
-            raise NotImplementedError(
-                "render_batch(mesh=...): rendering across several devices is "
-                "not ported yet (ROADMAP.md, module item 10)")
+            self._check_mesh(mesh)
         if chunk <= 0:
             chunk = batch_chunk()
+        limit = chunk * (mesh.size if mesh is not None else 1)
         fs = scaled(frame_size)
         self._assert_render_thread()
         self.drain_async()
@@ -814,7 +826,7 @@ class FigRenderer:
                 return
             key, plan, batch, atlas = group
             group = None
-            parts.append(self._dispatch_batch(key, plan, batch, atlas))
+            parts.append(self._dispatch_batch(key, plan, batch, atlas, mesh=mesh))
 
         for renders in scenes:
             self.process_image_messages()
@@ -827,11 +839,11 @@ class FigRenderer:
                 flush()
                 parts.append(self.execute_plan(plan)[None])
                 continue
-            if group is not None and (group[0] != key or group[2].count >= chunk):
+            if group is not None and (group[0] != key or group[2].count >= limit):
                 flush()
             if group is None:
                 self._atlas_shared |= atlas is not None
-                group = [key, plan, BatchStack(vary, chunk), atlas]
+                group = [key, plan, BatchStack(vary, limit), atlas]
             else:
                 group[2].add(vary)
         flush()
@@ -874,10 +886,22 @@ class FigRenderer:
         return (("unrolled", plan.structure, sizes, plan.combo.shape, atlas_key),
                 {"combo": plan.combo})
 
+    def _check_mesh(self, mesh) -> None:
+        """A frame-parallel mesh is a parallel.sharding.Mesh of devices of
+        this renderer's type; anything else raises ValueError."""
+        from .parallel.sharding import Mesh
+
+        if not isinstance(mesh, Mesh):
+            raise ValueError(f"mesh must be a parallel.sharding.Mesh, got {type(mesh).__name__}")
+        kind = mesh.devices[0].type
+        if kind != self.device.type:
+            raise ValueError(f"a mesh of {kind} devices for a renderer on {self.device}")
+
     def _dispatch_batch(self, key, plan: ExecPlan, batch: BatchStack,
-                        atlas: Optional[torch.Tensor]) -> torch.Tensor:
+                        atlas: Optional[torch.Tensor], mesh=None) -> torch.Tensor:
         """Run one group: its executor (from its first plan) over the
-        stacked frames into a preallocated (F, H, W, 4) output. A failure
+        stacked frames into a preallocated (F, H, W, 4) output, on this
+        renderer's device or dealt over a mesh's devices. A failure
         raises: there is no per-frame retry."""
         if key[0] == "mega":
             run = get_mega_executor(plan.height, plan.width, plan.n_masks, False,
@@ -889,9 +913,13 @@ class FigRenderer:
                                      rolled=key[0] == "rolled")
         out = torch.empty((batch.count, plan.height, plan.width, 4),
                           dtype=torch.float32, device=self.device)
-        return run_batch(run, batch, out, init_frame=None, atlas=atlas,
-                         pixelate=self.pixelate,
-                         subpixel_positioning=self.text_subpixel_positioning)
+        const = dict(init_frame=None, atlas=atlas, pixelate=self.pixelate,
+                     subpixel_positioning=self.text_subpixel_positioning)
+        if mesh is not None:
+            from .parallel.sharding import cached_frame_parallel_runner
+
+            return cached_frame_parallel_runner(run, mesh)(batch, out, **const)
+        return run_batch(run, batch, out, **const)
 
     # --- overlays ----------------------------------------------------------------
 
@@ -1050,6 +1078,7 @@ class FigRenderer:
         scene.combo_dev.view(torch.int32).index_copy_(
             0, staged[:, -1].long(), staged[:, :-1])
         scene.pending_patch = None
+        scene.replicas = None  # a sharded renderer copies the rows again
 
     @staticmethod
     def _partial_ok(scene: DeviceScene, cam) -> bool:
@@ -1125,31 +1154,75 @@ class FigRenderer:
         return frame
 
     def render_views(self, scene: DeviceScene, pans, zooms=1.0,
-                     as_uint8: bool = False) -> torch.Tensor:
+                     as_uint8: bool = False, chunk: int = 0,
+                     mesh=None) -> torch.Tensor:
         """A flythrough of a device-resident scene: (N, H, W, 4) frames, f32
         or (as_uint8) take_screenshot's u8, for N cameras, written into one
         preallocated stack (renderer.render_views). pans: (N, 2); zooms: a
         scalar or (N,). The cameras go to the device in one upload; each
         view equals render_view's. A scene that does not clear composites
-        each view onto the one before."""
+        each view onto the one before.
+
+        mesh: a parallel.sharding.Mesh of this renderer's device type renders
+        the views in parallel, as render_batch(mesh=) renders frames: rounds
+        of up to chunk views a device (default FIGDRAW_BATCH_CHUNK), dealt to
+        the devices in contiguous blocks, each device viewing its own copy
+        of the scene's rows; the views come back in order, each equal to
+        render_view's bit for bit. A scene that does not clear ignores the
+        mesh (each view composites onto the one before). chunk without a
+        mesh changes nothing."""
         self._assert_render_thread()
         self.drain_async()
         self._check_scene_device(scene)
+        if mesh is not None:
+            self._check_mesh(mesh)
         ds = np.asarray(pans, dtype=np.float32).reshape(-1, 2)
         n = ds.shape[0]
         zarr = np.asarray(zooms, dtype=np.float32)
         zs = np.full((n,), zarr, np.float32) if zarr.ndim == 0 else zarr.reshape(n)
         self._flush_scene_patch(scene)
         dev = scene.combo_dev.device
-        cameras = torch.from_numpy(np.column_stack([ds, zs])).to(dev)
+        cameras = np.column_stack([ds, zs])
         plan = scene.plan
         out = torch.empty((n, plan.height, plan.width, 4), device=dev,
                           dtype=torch.uint8 if as_uint8 else torch.float32)
+        if mesh is not None and not plan.has_init_frame:
+            return self._views_parallel(scene, cameras, out, chunk, mesh)
+        cameras = torch.from_numpy(cameras).to(dev)
         for i in range(n):
             viewed = transform_rows(scene.combo_dev, scene.n_quads,
                                     cameras[i, :2], cameras[i, 2:], scene.scratch)
             frame = self._run_plan(plan, viewed)
             out[i] = frames_to_u8(frame) if as_uint8 else frame
+        return out
+
+    def _views_parallel(self, scene: DeviceScene, cameras: np.ndarray,
+                        out: torch.Tensor, chunk: int, mesh) -> torch.Tensor:
+        """render_views over a mesh: rounds of up to chunk views a device,
+        dealt in contiguous blocks (parallel.sharding.deal_blocks); each
+        device views its block with its copy of the scene's rows
+        (scene_rows) and of the atlas, both kept between calls, and gets its
+        block's cameras in one upload."""
+        from .parallel.sharding import deal_blocks, kept_copy, scene_rows
+
+        plan = scene.plan
+        limit = (chunk if chunk > 0 else batch_chunk()) * mesh.size
+        atlas = self._device_atlas() if _needs_atlas(plan) else None
+        as_u8 = out.dtype == torch.uint8
+
+        def block(dev, a, b, part):
+            rows, scratch, _ridx = scene_rows(scene, dev)
+            atl = (None if atlas is None else
+                   kept_copy(self._atlas_copies, atlas, self._atlas_stamp, dev))
+            cams = torch.from_numpy(np.ascontiguousarray(cameras[s + a : s + b])).to(dev)
+            for i in range(b - a):
+                viewed = transform_rows(rows, scene.n_quads, cams[i, :2], cams[i, 2:],
+                                        scratch)
+                frame = self._execute_on(plan, viewed, atl)
+                part[i] = frames_to_u8(frame) if as_u8 else frame
+
+        for s in range(0, cameras.shape[0], limit):
+            deal_blocks(mesh, min(limit, cameras.shape[0] - s), out[s : s + limit], block)
         return out
 
     def _maybe_write_one_frame(self) -> None:

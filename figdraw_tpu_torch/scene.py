@@ -20,12 +20,15 @@ import torch
 
 from . import native
 from .basics import fig_ui_scale
-from .colors import Color
+from .colors import Color, as_color
 from .geometry import Mat3, vec2
 from .nodesarray import RendersArray
-from .ops.layout import PACKED_MODES, PACKED_WIDTH, QI_MASK
+from .ops.layout import PACKED_MODES, PACKED_WIDTH, QF_WIDTH, QI_MASK, pack_fields_np
 from .ops.rows import DAMAGE_RECTS, EMPTY_BBOX
-from .plan import ROLLED_THRESHOLD, ExecPlan, build_rolled_items, from_jax_plan
+from .plan import (
+    ROLLED_THRESHOLD, ExecPlan, build_rolled_items, check_structure, fill_meta,
+    from_jax_plan, meta_rows, pick_tile_h,
+)
 from .tape import DrawItem
 
 
@@ -44,13 +47,15 @@ class DeviceScene:
     an update not yet on the device; pending_damage: scene-space rects the
     edits since the last rendered frame could touch; last_cam and
     last_view_frame: that frame and its camera, the sources of a
-    damage-clipped frame."""
+    damage-clipped frame. replicas: for a scene a ShardedFigRenderer views,
+    {device: [rows, scratch, ridx source, ridx]} on each device of its mesh
+    but the first (parallel/sharding.py), else None."""
 
     __slots__ = ("kind", "plan", "combo_dev", "scratch", "n_quads", "n_pad",
                  "spans", "atlas_generation", "snap_args", "pending_patch",
                  "pending_damage", "last_cam", "last_view_frame",
                  "anim_spans", "anim_order", "anim_slot", "anim_ridx_dev",
-                 "anim_template")
+                 "anim_template", "replicas")
 
     def __init__(self, kind: str, plan: ExecPlan, combo_dev: torch.Tensor,
                  n_quads: int, n_pad: int):
@@ -72,6 +77,7 @@ class DeviceScene:
         self.anim_slot = None
         self.anim_ridx_dev = None
         self.anim_template = None
+        self.replicas = None
 
     def animation_order(self):
         """The (zlevel, root_node_idx) keys in table-slot order for
@@ -317,27 +323,78 @@ def patch_device_scene(renderer, scene: DeviceScene, renders, dirty) -> bool:
     return True
 
 
+def _packed_rows(rows: np.ndarray) -> np.ndarray:
+    """Quad rows of the unpacked wire (68 fields, then the two mode lanes as
+    f32 bits) in the packed one."""
+    rows = np.ascontiguousarray(rows, np.float32)
+    return pack_fields_np(rows[:, :QF_WIDTH],
+                          np.ascontiguousarray(rows[:, QF_WIDTH:]).view(np.int32))
+
+
+def _from_sharded_jax_scene(jax_scene):
+    """(kind, plan, packed resident rows) of a scene figdraw_tpu's
+    ShardedFigRenderer snapshot: its plan is a namespace of host arrays and
+    its resident rows are the unpacked 70-wide wire (pack_tape_upload, or
+    the megakernel's rows with one meta row). The port keeps its packed
+    wire: the quad rows are packed (exact for the walk's k/255 colours) and
+    the meta tail is written in the packed layout."""
+    jp = jax_scene.plan
+    structure = check_structure(jp.structure, int(jp.n_masks))
+    bounds = [tuple(int(v) for v in b) for b in np.asarray(jp.bounds).reshape(-1, 2)]
+    radii = [float(r) for r in np.asarray(jp.radii).reshape(-1)]
+    clear = np.asarray(jp.clear, np.float32)
+    n_pad = int(jp.n_pad)
+    combo = np.zeros((n_pad + meta_rows(len(bounds), len(radii), PACKED_WIDTH),
+                      PACKED_WIDTH), np.float32)
+    pack_fields_np(np.asarray(jp.fields, np.float32)[:n_pad],
+                   np.asarray(jp.modes, np.int32)[:n_pad], out=combo[:n_pad])
+    fill_meta(combo[n_pad:].reshape(-1), bounds, radii, clear)
+    height, width = int(jp.height), int(jp.width)
+    resident = np.asarray(jax_scene.combo_dev, np.float32)
+    n_quads = int(jax_scene.n_quads)
+    mega_combo = None
+    if jax_scene.kind == "mega":
+        mega_combo = np.zeros((n_quads + 1, PACKED_WIDTH), np.float32)
+        mega_combo[:n_quads] = _packed_rows(resident[:n_quads])
+        mega_combo[-1, :4] = clear
+    rolled = jax_scene.kind != "mega" and len(structure) > ROLLED_THRESHOLD
+    items, rolled_radii = (build_rolled_items(structure, bounds, radii) if rolled
+                           else (None, None))
+    plan = ExecPlan(
+        combo=combo, structure=structure, bounds=bounds, radii=radii,
+        height=height, width=width, n_masks=int(jp.n_masks),
+        tile_h=pick_tile_h(np.asarray(jp.fields, np.float32), n_pad, height, width),
+        has_init_frame=bool(jp.has_init_frame), mega_combo=mega_combo,
+        mega_atlas=mega_combo is not None and bool(jp.mega_atlas),
+        rolled_items=items, rolled_radii=rolled_radii)
+    if mega_combo is not None:
+        rows = mega_combo
+    else:
+        rows = combo.copy()
+        rows[:n_quads] = _packed_rows(resident[:n_quads])
+        if rolled:
+            # the rolled form's meta is one row, the clear color
+            rows = np.concatenate([rows[:n_pad], np.zeros((1, PACKED_WIDTH), np.float32)])
+            rows[-1, :4] = clear
+    return plan_kind(plan), plan, rows
+
+
 def from_jax_scene(jax_scene, device) -> DeviceScene:
     """The port's DeviceScene from a figdraw_tpu.renderer.DeviceScene, read
     through its numpy-convertible fields only, so one snapshot can be viewed,
     animated and patched by both packages. device: where the resident rows
     go, the device of the FigRenderer that will view the scene (it refuses a
-    scene on another). The scene keeps the JAX package's
+    scene on another), or the first device of a ShardedFigRenderer's mesh.
+    The scene keeps the JAX package's
     executor: its resident rows, kind, spans and snapshot arguments. A patch
-    still pending on the JAX side is not carried."""
-    plan = from_jax_plan(jax_scene.plan)
-    kind = jax_scene.kind
-    if kind != "mega" and plan.mega_combo is not None:
-        # planned for the megakernel but snapshot without it
-        rolled = len(plan.structure) > ROLLED_THRESHOLD
-        items, radii = (build_rolled_items(plan.structure, plan.bounds, plan.radii)
-                        if rolled else (None, None))
-        plan = dataclasses.replace(plan, mega_combo=None, mega_atlas=False,
-                                   rolled_items=items, rolled_radii=radii)
-    if plan_kind(plan) != kind:
-        raise ValueError(f"a {kind} scene with a {plan_kind(plan)} plan")
-    combo = np.array(jax_scene.combo_dev, np.float32)
-    plan.combo = np.array(plan.combo, np.float32)
+    still pending on the JAX side is not carried. A scene of figdraw_tpu's
+    ShardedFigRenderer (unpacked 70-wide rows; kind "frame" or "mega") comes
+    over in the packed wire, on the unrolled executor (the rolled one past
+    ROLLED_THRESHOLD items) or the megakernel."""
+    if np.asarray(jax_scene.combo_dev).shape[1] == QF_WIDTH + 2:
+        kind, plan, combo = _from_sharded_jax_scene(jax_scene)
+    else:
+        kind, plan, combo = _from_single_jax_scene(jax_scene)
     scene = DeviceScene(kind, plan, torch.from_numpy(combo).to(device),
                         int(jax_scene.n_quads), int(jax_scene.n_pad))
     if jax_scene.spans is not None:
@@ -349,6 +406,26 @@ def from_jax_scene(jax_scene, device) -> DeviceScene:
     scene.atlas_generation = int(jax_scene.atlas_generation)
     if jax_scene.snap_args is not None:
         size, clear_main, cc, reserve, animate = jax_scene.snap_args
-        scene.snap_args = (vec2(size.x, size.y), bool(clear_main),
-                           Color(cc.r, cc.g, cc.b, cc.a), reserve, bool(animate))
+        # a Color of the JAX package, or (a sharded snapshot's) a tuple
+        cc = Color(cc.r, cc.g, cc.b, cc.a) if hasattr(cc, "r") else as_color(cc)
+        scene.snap_args = (vec2(size.x, size.y), bool(clear_main), cc, reserve,
+                           bool(animate))
     return scene
+
+
+def _from_single_jax_scene(jax_scene):
+    """(kind, plan, resident rows) of a scene of figdraw_tpu's FigRenderer
+    (the packed wire)."""
+    plan = from_jax_plan(jax_scene.plan)
+    kind = jax_scene.kind
+    if kind != "mega" and plan.mega_combo is not None:
+        # planned for the megakernel but snapshot without it
+        rolled = len(plan.structure) > ROLLED_THRESHOLD
+        items, radii = (build_rolled_items(plan.structure, plan.bounds, plan.radii)
+                        if rolled else (None, None))
+        plan = dataclasses.replace(plan, mega_combo=None, mega_atlas=False,
+                                   rolled_items=items, rolled_radii=radii)
+    if plan_kind(plan) != kind:
+        raise ValueError(f"a {kind} scene with a {plan_kind(plan)} plan")
+    plan.combo = np.array(plan.combo, np.float32)
+    return kind, plan, np.array(jax_scene.combo_dev, np.float32)

@@ -148,9 +148,17 @@ def test_batch_as_uint8_matches_screenshot():
 
 
 def test_batch_mesh_raises():
+    """render_batch(mesh=) renders frames in parallel over a
+    parallel.sharding.Mesh (tests/test_torch_sharding.py); a mesh that is no
+    Mesh, or one of another device type than the renderer's, raises."""
+    from figdraw_tpu_torch.parallel.sharding import FRAMES_AXIS, Mesh
+
     r = port.FigRenderer(atlas_size=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="parallel.sharding.Mesh"):
         r.render_batch([to_port(simple_scene(0))], port.vec2(160, 128), mesh=object())
+    with pytest.raises(ValueError, match="mesh of cuda devices"):
+        r.render_batch([to_port(simple_scene(0))], port.vec2(160, 128),
+                       mesh=Mesh((torch.device("cuda", 0),), FRAMES_AXIS))
 
 
 # --- groups that sample the atlas ---------------------------------------------------

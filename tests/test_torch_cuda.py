@@ -1362,3 +1362,141 @@ def test_photo_wall_on_the_card(dev, fixture_png):
     assert np.abs(_block_means(got) - np.load(PHOTO_WALL_REFERENCE)).max() <= TOL
     ref.close()
     small_ref.close()
+
+
+# --- band origins: a frame split into row bands (parallel/sharding.py) --------------
+
+
+@pytest.mark.parametrize("row0,th", [(540, 32), (270, 16), (96, 64)])
+def test_tile_kernels_at_a_band_origin_match_plain(row0, th, dev):
+    """The front end, K1 (with the backdrop), K3 and K1-atlas at a non-zero
+    band origin against their plain versions: equal lists, planes within
+    1/255, the band counters moving."""
+    from figdraw_tpu_torch.ops.binning import list_differences
+
+    w, h, bh = 512, 1080, 64
+    fields, modes, n_live = modes_tape(w, h)
+    rng = np.random.RandomState(row0)
+    modes[1:n_live:5, 1] = 1
+    rows = torch.from_numpy(pack_fields_np(fields, modes)).to(dev)
+    n = rows.shape[0]
+    counts = (binning.BAND_LAUNCHES, binning.BAND_DECODE_LAUNCHES)
+    f, m, tile_idx, tile_counts = decode_and_bin(rows, 0, n, bh // th, w // 128, th, 128,
+                                                 cull=True, row0=row0)
+    assert (binning.BAND_LAUNCHES, binning.BAND_DECODE_LAUNCHES) == (counts[0] + 1,
+                                                                     counts[1] + 1)
+    ref = decode_and_bin_plain(rows, 0, n, bh // th, w // 128, th, 128, cull=True,
+                               row0=row0)
+    assert torch.equal(f.view(torch.int32), ref[0].view(torch.int32))
+    diff = list_differences(tile_idx.cpu().numpy(), tile_counts.cpu().numpy(),
+                            ref[2].cpu().numpy(), ref[3].cpu().numpy())
+    assert diff["max_abs_err"] == 0 and tile_counts.sum() > 0
+    planes, backdrop, mask1 = (torch.from_numpy(rng.rand(*s).astype(np.float32)).to(dev)
+                               for s in ((4, bh, w), (4, bh, w), (1, bh, w)))
+    masks = torch.cat([torch.ones_like(mask1), mask1])
+    bounds = torch.tensor([0, n_live], dtype=torch.int32, device=dev)
+    before = planes.clone()
+    launches = raster.BAND_LAUNCHES
+    out = raster.draw_pass_planar_prebinned(f, m, bounds, tile_idx, tile_counts, planes,
+                                            masks, backdrop, tile_h=th, row0=row0)
+    assert raster.BAND_LAUNCHES == launches + 1
+    want = raster.draw_pass_planar_prebinned_plain(f, m, bounds, tile_idx, tile_counts,
+                                                   before, masks, backdrop, tile_h=th,
+                                                   row0=row0)
+    target = masks[1:2].clone()
+    k3 = raster.draw_pass_mask_prebinned(f, m, bounds, tile_idx, tile_counts, target,
+                                         masks, tile_h=th, row0=row0)
+    want_k3 = raster.draw_pass_mask_prebinned_plain(f, m, bounds, tile_idx, tile_counts,
+                                                    masks[1:2], masks, tile_h=th, row0=row0)
+    torch.cuda.synchronize()
+    assert float((out - want).abs().max()) <= TOL
+    assert float((out - before).abs().max()) > 0.1
+    assert float((k3 - want_k3).abs().max()) <= TOL
+    # K1-atlas at the origin on the atlas modes tape
+    af, am, n_atlas, atlas = atlas_modes_tape(w, bh, 256, seed=row0)
+    # the quads moved down into the band: their origins, bboxes and the
+    # rect masks' centers (the rest of a row is relative to its origin)
+    af[:n_atlas, [5, 7, 9]] += row0
+    masked = af[:n_atlas, 54] >= 0
+    af[:n_atlas][masked, 53] += row0
+    af_t, am_t = torch.from_numpy(af).to(dev), torch.from_numpy(am).to(dev)
+    a_idx, a_counts = bin_quads(af_t, 0, af.shape[0], bh // th, w // 128, th, 128,
+                                row0=row0)
+    atlas = torch.from_numpy(atlas).to(dev)
+    whole = torch.tensor([0, af.shape[0]], dtype=torch.int32, device=dev)
+    a_planes = torch.from_numpy(rng.rand(4, bh, w).astype(np.float32)).to(dev)
+    a_before = a_planes.clone()
+    ones = torch.ones((1, bh, w), device=dev)
+    launches = raster.BAND_ATLAS_LAUNCHES
+    got = raster.draw_pass_planar_prebinned(af_t, am_t, whole, a_idx, a_counts, a_planes,
+                                            ones, atlas=atlas, tile_h=th, row0=row0)
+    assert raster.BAND_ATLAS_LAUNCHES == launches + 1
+    want_a = raster.draw_pass_planar_prebinned_plain(af_t, am_t, whole, a_idx, a_counts,
+                                                     a_before, ones, atlas=atlas,
+                                                     tile_h=th, row0=row0)
+    torch.cuda.synchronize()
+    assert float((got - want_a).abs().max()) <= TOL
+    assert float((got - a_before).abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("atlas_size", [None, 256])
+def test_mega_kernel_at_a_band_origin_matches_plain(atlas_size, dev):
+    """K4 and K4-atlas at a non-zero origin against the plain walk; the
+    band's rows equal the whole frame's."""
+    n_masks, th, row0 = 3, 32, 128
+    f, m, tile_idx, tile_counts, planes, atlas = _mega_args(n_masks, th, dev,
+                                                            atlas_size=atlas_size)
+    band_idx, band_counts = bin_quads(f, 0, f.shape[0], 2, 4, th, 128, row0=row0)
+    band = planes[:, row0 : row0 + 64].clone()
+    before = band.clone()
+    counts = (mega.BAND_LAUNCHES, mega.BAND_ATLAS_LAUNCHES)
+    out = mega.draw_pass_mega(f, m, band_idx, band_counts, band, n_masks, tile_h=th,
+                              atlas=atlas, row0=row0)
+    want = (counts[0] + (atlas is None), counts[1] + (atlas is not None))
+    assert (mega.BAND_LAUNCHES, mega.BAND_ATLAS_LAUNCHES) == want
+    ref = mega.draw_pass_mega_plain(f, m, band_idx, band_counts, before, n_masks,
+                                    tile_h=th, atlas=atlas, row0=row0)
+    whole = mega.draw_pass_mega(f, m, tile_idx, tile_counts, planes.clone(), n_masks,
+                                tile_h=th, atlas=atlas)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= TOL
+    assert float((out - whole[:, row0 : row0 + 64]).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("n,rows,radius", [(4, 272, 18.0), (8, 96, 64.0)])
+def test_banded_blur_kernel_matches_plain(n, rows, radius, dev):
+    """X6: X1's kernel passes on the extended bands of a mesh of one card,
+    on the swap and the gather path, bit for bit with the plain version."""
+    rng = np.random.RandomState(n)
+    planes = torch.from_numpy(rng.rand(4, rows, 384).astype(np.float32)).to(dev)
+    bh = rows // n
+    bands = [planes[:, i * bh : (i + 1) * bh].contiguous() for i in range(n)]
+    radii = [torch.tensor(radius, device=dev)] * n
+    before = blur.BAND_LAUNCHES
+    got = blur.banded_blur_planar(bands, radii)
+    want = blur.banded_blur_planar_plain(bands, radii)
+    torch.cuda.synchronize()
+    assert blur.BAND_LAUNCHES == before + n + (n if 65 < bh else 1)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_sharded_frames_on_one_card(dev):
+    """ShardedFigRenderer over [cuda:0] * 4 renders the headline as
+    FigRenderer does (1/255), and render_batch over a mesh of the card
+    equals render_frame bit for bit."""
+    from figdraw_tpu_torch.parallel.sharding import FRAMES_AXIS, Mesh, ShardedFigRenderer
+
+    size = vec2(640, 360)
+    sr = ShardedFigRenderer(Mesh((dev,) * 4), atlas_size=64)
+    got = sr.render_frame(make_render_tree_array(640, 360, 3, copies=30), size)
+    want = FigRenderer(device="cuda").render_frame(
+        make_render_tree_array(640, 360, 3, copies=30), size)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= TOL
+    ren = FigRenderer(device="cuda")
+    out = ren.render_batch([make_render_tree_array(640, 360, f, copies=30) for f in range(5)],
+                           size, chunk=2, mesh=Mesh((dev,) * 2, FRAMES_AXIS))
+    for f in range(5):
+        assert torch.equal(out[f], ren.render_frame(
+            make_render_tree_array(640, 360, f, copies=30), size))
