@@ -94,7 +94,12 @@ FigRenderer(device="cuda").render_frame or execute_plan:
   image modes 13-16 counted where they reach K1-atlas and, beside the main
   path, K4-atlas; and a 1080p photo wall of the loaded image (48 panels,
   12 clipped: the megakernel with the atlas), with the host times of the
-  pipeline's steps and render_frame's perf span means;
+  pipeline's steps and render_frame's perf span means; the stored files
+  of the JPEG, GIF, BMP, ICO and QOI decoders (csrc/image_decode.cpp,
+  g++) against PIL's stored digests, their C++ stages against the plain
+  twins, and the baseline JPEG loaded cold and warm, drawn in the
+  image-file scene (K1-atlas) and the photo wall (K4-atlas) against
+  figdraw_tpu's stored block means;
 - the C ABI for external hosts (capi_phase, lines `check 14`): the
   headline scene fed row by row through the scene-building calls
   fd_renders_* (capi_scene), walked by fd_flatten_renders and exported by
@@ -3290,6 +3295,114 @@ def span_means(entries) -> dict:
     return {k: statistics.mean(v) for k, v in out.items()}
 
 
+CROP_PIXELS = 20000  # pixels of a GIF's or QOI's stream held to the plain twin
+
+
+def split_frames(ren, scene, size, frames: int = FRAMES):
+    """FRAMES frames of render_frame's two halves timed apart: the host
+    (image messages, walk, plan) and the upload, executor and sync. Returns
+    (median total ms, host ms list, device ms list)."""
+    import torch
+
+    from figdraw_tpu_torch.colors import Color
+
+    host, device = [], []
+    for _ in range(frames):
+        t0 = time.perf_counter()
+        ren.process_image_messages()
+        step = ren._walk_plan(scene, size, True, Color(1.0, 1.0, 1.0, 1.0))
+        t1 = time.perf_counter()
+        ren.execute_plan(step)
+        torch.cuda.synchronize()
+        host.append((t1 - t0) * 1e3)
+        device.append((time.perf_counter() - t1) * 1e3)
+    return statistics.median([a + b for a, b in zip(host, device)]), host, device
+
+
+def image_formats_check(tag: str) -> dict:
+    """The stored files of the image decoders (figdraw_tpu_torch/reference/
+    images, written with PIL by tools/make_image_formats.py): each through
+    read_image (the C++ helper, csrc/image_decode.cpp), its RGBA's sha256
+    against PIL's stored digest, its cold (first) and warm (median) decode
+    host ms; the helper's stages against their plain twins: each JPEG's
+    IDCT, upsampling and colour conversion on its whole frame, the entropy
+    decoding on the 64x48 progressive crop with restarts (its whole plain
+    decode), GIF's LZW and QOI's ops on the first CROP_PIXELS pixels.
+    Returns {file: (cold ms, warm ms, shape)}."""
+    import hashlib
+
+    import numpy as np
+
+    from figdraw_tpu_torch.scenes import IMAGE_FORMATS_DIR, IMAGE_FORMATS_REFERENCE
+    from figdraw_tpu_torch.utils import gif, image_lib, imagefile, jpeg, qoi
+
+    with open(IMAGE_FORMATS_REFERENCE) as fh:
+        stored = json.load(fh)["files"]
+    t0 = time.perf_counter()
+    image_lib.load()  # the g++ build, kept out of the first file's cold decode
+    build_ms = (time.perf_counter() - t0) * 1e3
+    times, stages = {}, {}
+    for name, ref in sorted(stored.items()):
+        path = os.path.join(IMAGE_FORMATS_DIR, name)
+        t0 = time.perf_counter()
+        px = imagefile.read_image(path)
+        cold = (time.perf_counter() - t0) * 1e3
+        warm, _ = host_ms(lambda: imagefile.read_image(path))
+        times[name] = (cold, warm, list(px.shape))
+        if (hashlib.sha256(px.tobytes()).hexdigest() != ref["decoded_sha256"]
+                or list(px.shape) != ref["shape"]):
+            fail(f"image formats: {name} decodes to another RGBA than PIL's stored digest")
+        with open(path, "rb") as fh:
+            data = fh.read()
+        held = []
+        if name.endswith(".jpg"):
+            frame = jpeg.read_frame(data)
+            planes = []
+            for c in frame.components:
+                samples = jpeg.idct(c.coefs, c.qt)
+                if not np.array_equal(samples, jpeg.idct_plain(c.coefs, c.qt)):
+                    fail(f"image formats: {name}: fd_jpeg_idct_islow differs from idct_plain")
+                args = (samples, c.cw, c.ch, frame.width, frame.height,
+                        *jpeg.upsample_method(c, frame.hmax, frame.vmax))
+                planes.append(jpeg.upsample(*args))
+                if not np.array_equal(planes[-1], jpeg.upsample_plain(*args)):
+                    fail(f"image formats: {name}: fd_jpeg_upsample differs from its plain twin")
+            held += ["idct", "upsample"]
+            if jpeg.color_space(frame) in ("YCbCr", "YCCK"):
+                kind = jpeg.YCC_RGB if jpeg.color_space(frame) == "YCbCr" else jpeg.YCC_INVERTED
+                if not np.array_equal(jpeg.color(*planes[:3], kind),
+                                      jpeg.color_plain(*planes[:3], kind)):
+                    fail(f"image formats: {name}: fd_jpeg_color differs from color_plain")
+                held.append("color")
+            if name == "small_progressive_rst.jpg":
+                if not np.array_equal(jpeg.decode_jpeg(data, plain=True), px):
+                    fail(f"image formats: {name}: the plain decode (scan_plain and the "
+                         "other twins) differs from the helper's")
+                held.append("scan")
+        elif name.endswith(".gif"):
+            f = gif.read_first_frame(data)
+            n = min(CROP_PIXELS, f["box"][2] * f["box"][3])
+            if not np.array_equal(gif.lzw(f["stream"], f["min_size"], n),
+                                  gif.lzw_plain(f["stream"], f["min_size"], n)):
+                fail(f"image formats: {name}: fd_gif_lzw differs from lzw_plain")
+            held.append("lzw")
+        elif name.endswith(".qoi"):
+            if not np.array_equal(qoi.ops(data[14:], CROP_PIXELS),
+                                  qoi.ops_plain(data[14:], CROP_PIXELS)):
+                fail(f"image formats: {name}: fd_qoi_decode differs from ops_plain")
+            held.append("ops")
+        if held:
+            stages[name] = held
+    print(f"check 13: the {len(stored)} stored image files (JPEG, GIF, BMP, ICO, QOI) "
+          f"decode to PIL's stored sha256 through the C++ helper; stages held to their "
+          f"plain twins: {json.dumps(stages)}", flush=True)
+    print(f"times: image decodes (the helper's g++ build {build_ms:.1f} ms first), host ms "
+          f"cold (first) / warm (median of {IMAGE_REPS}): "
+          + "; ".join(f"{k} {c:.3f} / {w:.3f} ({s[1]}x{s[0]})"
+                      for k, (c, w, s) in times.items()) + f" {tag}", flush=True)
+    return times
+
+
 def image_files_phase(tag: str, dev) -> dict:
     """Images from files and generated SDFs (the slice of load_image, the
     .flippy cache, utils/png.py and utils/sdfgen.py): the Snappy library
@@ -3307,9 +3420,13 @@ def image_files_phase(tag: str, dev) -> dict:
     kernels against their plain versions on its own inputs, and the SDF
     image modes 13-16 counted where they reach an atlas kernel (the SDF
     scenes' tapes also through the megakernel with the atlas, a check
-    beside the main path). Host times of each step of the pipeline, the
-    photo wall's ms/frame with its host and device split and its perf span
-    means."""
+    beside the main path). The same from the stored baseline JPEG
+    (image_formats_check first: every stored format against PIL's
+    digests): load_image cold and warm against figdraw_tpu's sidecar
+    digest, the image-file scene on K1-atlas and the photo wall on
+    K4-atlas, each against figdraw_tpu's stored block means. Host times of
+    each step of the pipeline, each photo wall's ms/frame with its host and
+    device split and its perf span means."""
     import dataclasses
     import hashlib
     import shutil
@@ -3326,7 +3443,8 @@ def image_files_phase(tag: str, dev) -> dict:
     from figdraw_tpu_torch.plan import pack_mega_combo, plan_execution
     from figdraw_tpu_torch.scenes import (
         EXAMPLE_FORMS, EXAMPLE_IMAGES, EXAMPLE_SCENES, IMAGE_FILE_SIZE, IMAGE_FIXTURE,
-        IMAGE_FIXTURE_REFERENCE, PHOTO_WALL_PANELS, PHOTO_WALL_REFERENCE, PHOTO_WALL_SIZE,
+        IMAGE_FIXTURE_REFERENCE, IMAGE_FORMATS_REFERENCE, JPEG_FILE_REFERENCE, JPEG_FIXTURE,
+        JPEG_WALL_REFERENCE, PHOTO_WALL_PANELS, PHOTO_WALL_REFERENCE, PHOTO_WALL_SIZE,
         PHOTO_WALL_SMALL, example_reference_path, make_image_file_scene,
         make_loaded_photo_wall,
     )
@@ -3347,6 +3465,9 @@ def image_files_phase(tag: str, dev) -> dict:
     print(f"check 13: Snappy (native/snappy.cpp) round-trips the fixture's "
           f"{len(raw)} pixel bytes ({len(packed)} compressed) and its decoder equals "
           f"_py_uncompress; the PNG decode equals PIL's stored sha256", flush=True)
+    decodes = image_formats_check(tag)
+    with open(IMAGE_FORMATS_REFERENCE) as fh:
+        jpeg_sidecar = json.load(fh)["sidecar"][os.path.basename(JPEG_FIXTURE)]
     chain_ms, chain = host_ms(lambda: flippy.image_to_flippy(pixels))
     census = {}
     with tempfile.TemporaryDirectory() as td:
@@ -3393,6 +3514,31 @@ def image_files_phase(tag: str, dev) -> dict:
               f"{len(sidecar)} bytes) gives figdraw_tpu's stored sidecar sha256; warm "
               f"(the sidecar) equals it, image and {len(a.mips)} mips; a newer source "
               f"regenerated the same sidecar", flush=True)
+        # the stored baseline JPEG: cold, then warm
+        jpath = os.path.join(td, os.path.basename(JPEG_FIXTURE))
+        shutil.copyfile(JPEG_FIXTURE, jpath)
+        jsub = bus.subscribe()
+        t0 = time.perf_counter()
+        resources.load_image(jpath, bus=bus).close()
+        jcold_ms = (time.perf_counter() - t0) * 1e3
+        with open(jpath + ".flippy", "rb") as fh:
+            jside = fh.read()
+        if hashlib.sha256(jside).hexdigest() != jpeg_sidecar:
+            fail("image files: the JPEG's sidecar differs from figdraw_tpu's stored digest")
+        resources.clear_image_cache(bus=bus)
+        t0 = time.perf_counter()
+        resources.load_image(jpath, bus=bus).close()
+        jwarm_ms = (time.perf_counter() - t0) * 1e3
+        jid = resources.image_id_from_path(jpath)
+        jputs = [m for m in jsub.drain()
+                 if m.kind == resources.ImageMsgKind.PutImage and m.id == jid]
+        if not (len(jputs) == 2 and np.array_equal(jputs[0].image, jputs[1].image)
+                and all(np.array_equal(x, y) for x, y in zip(jputs[0].mips, jputs[1].mips))):
+            fail("image files: the JPEG's warm load (the sidecar) differs from its cold one")
+        print(f"check 13: load_image of the baseline JPEG cold (the C++ decoders, bleed, "
+              f"chain, compress, write {len(jside)} bytes) gives figdraw_tpu's stored "
+              f"sidecar sha256; warm (the sidecar) equals it, image and "
+              f"{len(jputs[0].mips)} mips", flush=True)
 
         # --- render_frame: the image-file scene and the SDF scenes in each form ---
         def checked_frame(what, make, ref_path):
@@ -3472,51 +3618,67 @@ def image_files_phase(tag: str, dev) -> dict:
         if missing:
             fail(f"image files: no quad of (kernel, mode) {missing} reached an atlas kernel")
 
-        # --- the 1080p photo wall of the loaded image ---
-        w, h = PHOTO_WALL_SIZE
-        size = vec2(w, h)
-        ren = FigRenderer(atlas_size=256, device="cuda")
-        wall_bus = resources.ImageMessageBus()
-        ren.ensure_image_message_subscription(wall_bus)
-        refs.append(resources.load_image(path, bus=wall_bus))
-        scene = make_loaded_photo_wall(w, h, PHOTO_WALL_PANELS, refs[-1].id)
-        ren.render_frame(scene, size)
-        torch.cuda.synchronize()
-        plan = plan_execution(ren.flatten(scene, size))
-        if not plan.mega_atlas:
-            fail("photo wall: the planner did not send it to the megakernel with the atlas")
-        perf._global_perf.clear()
-        zero_counts()
-        wall_ms = timed_frames("photo wall", lambda: ren.render_frame(scene, size),
-                               (h, w, 4))
-        spans = span_means(perf._global_perf.entries)
-        perf._global_perf.clear()
-        counted_launches("photo wall", scaled_launches(frame_launches(plan), FRAMES))
-        if set(spans) != {"frame", "messages", "flatten", "execute"}:
-            fail(f"photo wall: render_frame recorded the spans {sorted(spans)}")
-        runs, undo = recorded_frames(ren)
-        ren.render_frame(scene, size)
-        undo()
-        wall_calls = []
-        plan_kernel_checks("photo wall", *runs[0], calls=wall_calls)
-        sw, sh, sn = PHOTO_WALL_SMALL
-        small = FigRenderer(atlas_size=256, device="cuda")
-        small_bus = resources.ImageMessageBus()
-        small.ensure_image_message_subscription(small_bus)
-        refs.append(resources.load_image(path, bus=small_bus))
-        small_scene = make_loaded_photo_wall(sw, sh, sn, refs[-1].id)
-        checked_frame(f"photo wall {sw}x{sh}", lambda: (small, small_scene, vec2(sw, sh)),
-                      PHOTO_WALL_REFERENCE)
-        host, device = [], []
-        for _ in range(FRAMES):
-            t0 = time.perf_counter()
-            ren.process_image_messages()
-            step = ren._walk_plan(scene, size, True, Color(1.0, 1.0, 1.0, 1.0))
-            t1 = time.perf_counter()
-            ren.execute_plan(step)
+        def make_jpeg_file():
+            ren = FigRenderer(atlas_size=512, device="cuda")
+            bus = resources.ImageMessageBus()
+            ren.ensure_image_message_subscription(bus)
+            refs.append(resources.load_image(jpath, bus=bus))
+            w, h = IMAGE_FILE_SIZE
+            return ren, make_image_file_scene(w, h, refs[-1].id), vec2(w, h)
+
+        jren, jplan, jcalls = checked_frame("image_file jpeg 1x", make_jpeg_file,
+                                            JPEG_FILE_REFERENCE)
+        on_k1_atlas = any(kw.get("atlas") is not None for _a, kw in jcalls)
+        if not on_k1_atlas or jplan.mega_combo is not None:
+            fail("image_file jpeg: the frame did not run K1-atlas")
+        jscene = make_image_file_scene(*IMAGE_FILE_SIZE, refs[-1].id)
+        jsize = vec2(*IMAGE_FILE_SIZE)
+        jfile_ms, jfile_host, jfile_dev = split_frames(jren, jscene, jsize)
+
+        # --- the 1080p photo wall of each loaded image ---
+        def photo_wall(src, small_ref, what):
+            """The wall of the image at src: FRAMES counted frames, its perf
+            spans, its kernels against their plain versions, the 480x270
+            wall against small_ref, the host and device split."""
+            w, h = PHOTO_WALL_SIZE
+            size = vec2(w, h)
+            ren = FigRenderer(atlas_size=256, device="cuda")
+            wall_bus = resources.ImageMessageBus()
+            ren.ensure_image_message_subscription(wall_bus)
+            refs.append(resources.load_image(src, bus=wall_bus))
+            scene = make_loaded_photo_wall(w, h, PHOTO_WALL_PANELS, refs[-1].id)
+            ren.render_frame(scene, size)
             torch.cuda.synchronize()
-            host.append((t1 - t0) * 1e3)
-            device.append((time.perf_counter() - t1) * 1e3)
+            plan = plan_execution(ren.flatten(scene, size))
+            if not plan.mega_atlas:
+                fail(f"{what}: the planner did not send it to the megakernel with the atlas")
+            perf._global_perf.clear()
+            zero_counts()
+            wall_ms = timed_frames(what, lambda: ren.render_frame(scene, size), (h, w, 4))
+            spans = span_means(perf._global_perf.entries)
+            perf._global_perf.clear()
+            counted_launches(what, scaled_launches(frame_launches(plan), FRAMES))
+            if set(spans) != {"frame", "messages", "flatten", "execute"}:
+                fail(f"{what}: render_frame recorded the spans {sorted(spans)}")
+            runs, undo = recorded_frames(ren)
+            ren.render_frame(scene, size)
+            undo()
+            wall_calls = []
+            plan_kernel_checks(what, *runs[0], calls=wall_calls)
+            sw, sh, sn = PHOTO_WALL_SMALL
+            small = FigRenderer(atlas_size=256, device="cuda")
+            small_bus = resources.ImageMessageBus()
+            small.ensure_image_message_subscription(small_bus)
+            refs.append(resources.load_image(src, bus=small_bus))
+            small_scene = make_loaded_photo_wall(sw, sh, sn, refs[-1].id)
+            checked_frame(f"{what} {sw}x{sh}", lambda: (small, small_scene, vec2(sw, sh)),
+                          small_ref)
+            _ms, host, device = split_frames(ren, scene, size)
+            return dict(ms=wall_ms, host=host, device=device, spans=spans, plan=plan,
+                        calls=wall_calls, atlas=ren.atlas.size)
+
+        walls = {"png": photo_wall(path, PHOTO_WALL_REFERENCE, "photo wall"),
+                 "jpeg": photo_wall(jpath, JPEG_WALL_REFERENCE, "photo wall jpeg")}
         for ref in refs:
             ref.close()
     med = statistics.median
@@ -3529,7 +3691,7 @@ def image_files_phase(tag: str, dev) -> dict:
                                "raster_tiles_kernel<false, true>"),
         plain_ms=cuda_ms(lambda: raster.draw_pass_planar_prebinned_plain(*star_args, **star_kw), 3),
         work=raster_work(star_args, star_kw))
-    wall_args, wall_kw = wall_calls[0]
+    wall_args, wall_kw = walls["png"]["calls"][0]
     k4a = dict(
         ms=cuda_ms(lambda: mega.draw_pass_mega(*wall_args, **wall_kw), 20),
         device_ms=device_ms_of(lambda: mega.draw_pass_mega(*wall_args, **wall_kw),
@@ -3541,21 +3703,28 @@ def image_files_phase(tag: str, dev) -> dict:
           f"levels); sidecar write {write_ms:.3f} ms; sidecar read {read_ms:.3f} ms; "
           f"Snappy compress {len(raw) / zip_ms / 1e3:.1f} MB/s, uncompress "
           f"{len(raw) / unzip_ms / 1e3:.1f} MB/s; load_image cold {cold_ms:.3f} ms, "
-          f"warm {warm_ms:.3f} ms {tag}", flush=True)
-    print(f"times: photo wall {w}x{h}, {PHOTO_WALL_PANELS} panels of the loaded "
-          f"image, {len(plan.structure)} pass items, atlas {ren.atlas.size}: median "
-          f"{med(wall_ms):.3f} ms/frame (render_frame + sync) = host (messages, walk, "
-          f"plan) {med(host):.3f} ms + upload, executor and sync {med(device):.3f} ms; "
-          f"perf spans, mean ms over {FRAMES} frames: " + ", ".join(
-              f"{k} {spans[k]:.3f}" for k in ("frame", "messages", "flatten", "execute"))
-          + f" {tag}", flush=True)
+          f"warm {warm_ms:.3f} ms; the baseline JPEG's load_image cold {jcold_ms:.3f} ms, "
+          f"warm {jwarm_ms:.3f} ms {tag}", flush=True)
+    print(f"times: image_file scene from the JPEG, 800x600 on K1-atlas: median "
+          f"{jfile_ms:.3f} ms/frame = host (messages, walk, plan) {med(jfile_host):.3f} ms "
+          f"+ upload, executor and sync {med(jfile_dev):.3f} ms {tag}", flush=True)
+    w, h = PHOTO_WALL_SIZE
+    for src, wall in walls.items():
+        print(f"times: photo wall {w}x{h} from the {src.upper()}, {PHOTO_WALL_PANELS} panels "
+              f"of the loaded image, {len(wall['plan'].structure)} pass items, atlas "
+              f"{wall['atlas']}: median {med(wall['ms']):.3f} ms/frame (render_frame + sync) "
+              f"= host (messages, walk, plan) {med(wall['host']):.3f} ms + upload, executor "
+              f"and sync {med(wall['device']):.3f} ms; perf spans, mean ms over {FRAMES} "
+              f"frames: " + ", ".join(f"{k} {wall['spans'][k]:.3f}"
+                                      for k in ("frame", "messages", "flatten", "execute"))
+              + f" {tag}", flush=True)
     print(f"times: K1-atlas on the MSDF star's draw {k1a['ms']:.4f} ms (events), "
           f"{k1a['device_ms']:.4f} ms alone, plain torch {k1a['plain_ms']:.2f} ms, "
           f"{bound_text(k1a['work'])}; K4-atlas on the photo wall {k4a['ms']:.4f} ms "
           f"(events), {k4a['device_ms']:.4f} ms alone, plain torch "
           f"{k4a['plain_ms']:.2f} ms, {bound_text(k4a['work'])} {tag}", flush=True)
     print(f"image files phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return dict(census=census, k1a=k1a, k4a=k4a)
+    return dict(census=census, k1a=k1a, k4a=k4a, decodes=decodes)
 
 
 # --- the C ABI for external hosts (capi_phase) -------------------------------------

@@ -1,0 +1,634 @@
+// Image-file decoding loops that numpy cannot vectorise, host C++ built
+// with g++ by figdraw_tpu_torch/utils/imagefile.py and bound through ctypes
+// by utils/jpeg.py, utils/gif.py and utils/qoi.py. Each entry point has a
+// plain Python/numpy twin beside its binding (the tests' reference).
+//
+// JPEG: the integer arithmetic of libjpeg-turbo 3.1.3, which PIL links:
+//   fd_jpeg_scan        Huffman entropy decoding of one scan into the
+//                       components' coefficient blocks: sequential, and the
+//                       four progressive kinds (DC first/refine, AC
+//                       first/refine, EOB runs, successive approximation),
+//                       restart intervals (jdhuff.c, jdphuff.c);
+//   fd_jpeg_idct_islow  dequantisation and the slow-but-accurate integer
+//                       IDCT in the 16-bit lanes of its x86-64 SIMD form
+//                       (jidctint.c, jidctint-avx2.asm);
+//   fd_jpeg_upsample    one component to the full sampling grid: the fancy
+//                       h2v1, h2v2 and h1v2 upsamplers, the box upsampler
+//                       for the other integral ratios (jdsample.c);
+//   fd_jpeg_color       YCbCr -> RGB and YCCK -> CMYK with the fixed-point
+//                       tables of jdcolor.c (SCALEBITS 16).
+// GIF: fd_gif_lzw, the variable-width LZW decoder of one image's data.
+// QOI: fd_qoi_decode, the six-op QOI stream.
+//
+// Every function returns 0 (or a position) on success and a negative code
+// on malformed input; nothing is allocated here.
+
+#include <cstdint>
+#include <cstring>
+
+extern "C" {
+
+// ------------------------------------------------------------------ JPEG ---
+
+// zigzag position -> natural (row-major) index, with 16 extra entries so
+// that a corrupt run length past 63 writes coefficient 63 (jutils.c)
+static const int kNatural[80] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+struct Huff {
+    // canonical decoding by code length (jdhuff.c jpeg_make_d_derived_tbl)
+    int32_t maxcode[18];
+    int32_t valoffset[18];
+    uint8_t vals[256];
+    // 9-bit lookahead: (length << 8) | value, 0 when the code is longer
+    uint16_t look[512];
+};
+
+// spec: 16 code-length counts then up to 256 symbols
+static int build_huff(const uint8_t* spec, Huff* h) {
+    int huffsize[257], code = 0, p = 0;
+    uint32_t huffcode[257];
+    for (int l = 1; l <= 16; ++l) {
+        int n = spec[l - 1];
+        if (p + n > 256) return -1;
+        while (n--) huffsize[p++] = l;
+    }
+    huffsize[p] = 0;
+    int numsymbols = p, si = huffsize[0];
+    p = 0;
+    while (huffsize[p]) {
+        while (huffsize[p] == si) huffcode[p++] = code++;
+        if (code >= (1 << si)) return -1;  // code lengths overflow
+        code <<= 1;
+        ++si;
+    }
+    std::memcpy(h->vals, spec + 16, numsymbols);
+    p = 0;
+    for (int l = 1; l <= 16; ++l) {
+        if (spec[l - 1]) {
+            h->valoffset[l] = p - (int32_t)huffcode[p];
+            p += spec[l - 1];
+            h->maxcode[l] = (int32_t)huffcode[p - 1];
+        } else {
+            h->maxcode[l] = -1;
+        }
+    }
+    h->valoffset[17] = 0;
+    h->maxcode[17] = 0x7FFFFFFF;  // sentinel: ends the slow search
+    std::memset(h->look, 0, sizeof(h->look));
+    p = 0;
+    for (int l = 1; l <= 9; ++l) {
+        for (int i = 1; i <= spec[l - 1]; ++i, ++p) {
+            int look = (int)huffcode[p] << (9 - l);
+            for (int c = 1 << (9 - l); c > 0; --c) h->look[look++] = (uint16_t)((l << 8) | h->vals[p]);
+        }
+    }
+    return 0;
+}
+
+struct Bits {
+    const uint8_t* data;
+    int64_t len, pos;
+    uint64_t buf;
+    int n;          // valid bits in buf (the top n)
+    bool marker;    // a marker stopped the byte feed: zeros from here
+};
+
+static inline void fill(Bits* b) {
+    while (b->n <= 56) {
+        uint32_t c = 0;
+        if (!b->marker && b->pos < b->len) {
+            c = b->data[b->pos];
+            if (c == 0xFF) {
+                // 0xFF 0x00 is a stuffed 0xFF; 0xFF fill bytes before a
+                // marker are skipped; any other pair is a marker
+                int64_t q = b->pos + 1;
+                while (q < b->len && b->data[q] == 0xFF) ++q;
+                if (q < b->len && b->data[q] == 0x00) {
+                    b->pos = q + 1;
+                } else {
+                    b->marker = true;
+                    b->pos = q - 1;
+                    c = 0;
+                }
+            } else {
+                ++b->pos;
+            }
+        }
+        b->buf |= (uint64_t)c << (56 - b->n);
+        b->n += 8;
+    }
+}
+
+static inline int get_bits(Bits* b, int k) {
+    if (k == 0) return 0;
+    if (b->n < k) fill(b);
+    int v = (int)(b->buf >> (64 - k));
+    b->buf <<= k;
+    b->n -= k;
+    return v;
+}
+
+static inline int extend(int v, int s) {
+    return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
+}
+
+static inline int decode(Bits* b, const Huff* h) {
+    if (b->n < 16) fill(b);
+    int look = (int)(b->buf >> 55);
+    int e = h->look[look];
+    if (e) {
+        int l = e >> 8;
+        b->buf <<= l;
+        b->n -= l;
+        return e & 0xFF;
+    }
+    int l = 10;
+    int code = (int)(b->buf >> (64 - l));
+    while (code > h->maxcode[l]) {
+        ++l;
+        code = (int)(b->buf >> (64 - l));
+    }
+    if (l > 16) return -1;  // a bad code
+    b->buf <<= l;
+    b->n -= l;
+    return h->vals[(code + h->valoffset[l]) & 0xFF];
+}
+
+// Restart: realign to a byte, consume the RSTn marker (n = expect), and
+// reset the reader (jdhuff.c process_restart). Returns 0 or -1.
+static int restart(Bits* b, int expect) {
+    // drop the bits of the current byte and any whole bytes prefetched
+    // (they are the marker's padding); restart the feed at the marker
+    b->buf = 0;
+    b->n = 0;
+    b->marker = false;
+    int64_t q = b->pos;
+    while (q + 1 < b->len && !(b->data[q] == 0xFF && b->data[q + 1] != 0 && b->data[q + 1] != 0xFF))
+        ++q;
+    if (q + 1 >= b->len || b->data[q + 1] != 0xD0 + expect) return -1;
+    b->pos = q + 2;
+    return 0;
+}
+
+// One scan. comps (ncomp rows of 5 int32): H, V (the component's blocks in
+// an MCU), blocks_w (the row pitch of its coefficient array), and the
+// blocks a non-interleaved scan covers across and down. tabs: per component its DC spec then its AC spec (16 + 256 bytes
+// each; a table the scan does not use may be zeros). coefs[i]: the
+// component's (blocks_h, blocks_w, 64) int16 coefficients in natural
+// order, updated in place. mcus_x, mcus_y: the interleaved MCU grid.
+// kind: 0 sequential, 1 progressive. Returns the position of the marker
+// that ends the scan, or a negative code.
+int64_t fd_jpeg_scan(const uint8_t* data, int64_t len, int64_t pos, int ncomp,
+                     const int32_t* comps, const uint8_t* tabs, int16_t* const* coefs,
+                     int mcus_x, int mcus_y, int restart_interval, int ss, int se,
+                     int ah, int al, int kind) {
+    if (ncomp < 1 || ncomp > 4) return -2;
+    Huff dc[4], ac[4];
+    for (int i = 0; i < ncomp; ++i) {
+        if (build_huff(tabs + i * 544, &dc[i]) < 0) return -3;
+        if (build_huff(tabs + i * 544 + 272, &ac[i]) < 0) return -3;
+    }
+    Bits b{data, len, pos, 0, 0, false};
+    int pred[4] = {0, 0, 0, 0};
+    int eobrun = 0;
+    const bool progressive = kind == 1;
+    const bool dc_scan = ss == 0;
+    int64_t total;
+    int per_row;
+    if (ncomp == 1) {
+        per_row = comps[3];
+        total = (int64_t)comps[3] * comps[4];
+    } else {
+        per_row = mcus_x;
+        total = (int64_t)mcus_x * mcus_y;
+    }
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    int rst_left = restart_interval, next_rst = 0;
+    for (int64_t m = 0; m < total; ++m) {
+        if (restart_interval) {
+            if (rst_left == 0) {
+                if (restart(&b, next_rst) < 0) return -4;
+                next_rst = (next_rst + 1) & 7;
+                rst_left = restart_interval;
+                pred[0] = pred[1] = pred[2] = pred[3] = 0;
+                eobrun = 0;
+            }
+            --rst_left;
+        }
+        const int my = (int)(m / per_row), mx = (int)(m % per_row);
+        for (int ci = 0; ci < ncomp; ++ci) {
+            const int32_t* c = comps + ci * 5;
+            const int hh = ncomp == 1 ? 1 : c[0], vv = ncomp == 1 ? 1 : c[1];
+            for (int v = 0; v < vv; ++v) {
+                for (int h = 0; h < hh; ++h) {
+                    const int64_t row = (int64_t)my * vv + v, col = (int64_t)mx * hh + h;
+                    int16_t* blk = coefs[ci] + (row * c[2] + col) * 64;
+                    if (!progressive) {
+                        int s = decode(&b, &dc[ci]);
+                        if (s < 0) return -5;
+                        int diff = s ? extend(get_bits(&b, s), s) : 0;
+                        pred[ci] += diff;
+                        blk[0] = (int16_t)pred[ci];
+                        for (int k = 1; k < 64; ++k) {
+                            int rs = decode(&b, &ac[ci]);
+                            if (rs < 0) return -5;
+                            int r = rs >> 4;
+                            s = rs & 15;
+                            if (s) {
+                                k += r;
+                                blk[kNatural[k]] = (int16_t)extend(get_bits(&b, s), s);
+                            } else {
+                                if (r != 15) break;
+                                k += 15;
+                            }
+                        }
+                    } else if (dc_scan) {
+                        if (ah == 0) {
+                            int s = decode(&b, &dc[ci]);
+                            if (s < 0) return -5;
+                            int diff = s ? extend(get_bits(&b, s), s) : 0;
+                            pred[ci] += diff;
+                            blk[0] = (int16_t)((unsigned)pred[ci] << al);
+                        } else if (get_bits(&b, 1)) {
+                            blk[0] = (int16_t)(blk[0] | p1);
+                        }
+                    } else if (ah == 0) {
+                        if (eobrun > 0) {
+                            --eobrun;
+                            continue;
+                        }
+                        for (int k = ss; k <= se; ++k) {
+                            int rs = decode(&b, &ac[ci]);
+                            if (rs < 0) return -5;
+                            int r = rs >> 4, s = rs & 15;
+                            if (s) {
+                                k += r;
+                                blk[kNatural[k]] =
+                                    (int16_t)((unsigned)extend(get_bits(&b, s), s) << al);
+                            } else if (r == 15) {
+                                k += 15;
+                            } else {
+                                eobrun = 1 << r;
+                                if (r) eobrun += get_bits(&b, r);
+                                --eobrun;
+                                break;
+                            }
+                        }
+                    } else {
+                        int k = ss;
+                        if (eobrun == 0) {
+                            for (; k <= se; ++k) {
+                                int rs = decode(&b, &ac[ci]);
+                                if (rs < 0) return -5;
+                                int r = rs >> 4, s = rs & 15;
+                                if (s) {
+                                    s = get_bits(&b, 1) ? p1 : m1;
+                                } else if (r != 15) {
+                                    eobrun = 1 << r;
+                                    if (r) eobrun += get_bits(&b, r);
+                                    break;
+                                }
+                                do {
+                                    int16_t* t = blk + kNatural[k];
+                                    if (*t != 0) {
+                                        if (get_bits(&b, 1) && (*t & p1) == 0)
+                                            *t = (int16_t)(*t >= 0 ? *t + p1 : *t + m1);
+                                    } else if (--r < 0) {
+                                        break;
+                                    }
+                                    ++k;
+                                } while (k <= se);
+                                if (s) blk[kNatural[k]] = (int16_t)s;
+                            }
+                        }
+                        if (eobrun > 0) {
+                            for (; k <= se; ++k) {
+                                int16_t* t = blk + kNatural[k];
+                                if (*t != 0 && get_bits(&b, 1) && (*t & p1) == 0)
+                                    *t = (int16_t)(*t >= 0 ? *t + p1 : *t + m1);
+                            }
+                            --eobrun;
+                        }
+                    }
+                }
+            }
+        }
+    }
+    // the scan ends at the next marker other than a restart; the bytes the
+    // reader fetched are entropy data, so search from its position
+    int64_t q = b.pos;
+    for (;;) {
+        while (q + 1 < len && !(data[q] == 0xFF && data[q + 1] != 0 && data[q + 1] != 0xFF))
+            ++q;
+        if (q + 1 >= len) return -6;
+        if (data[q + 1] >= 0xD0 && data[q + 1] <= 0xD7) {
+            q += 2;
+            continue;
+        }
+        return q;
+    }
+}
+
+// The islow IDCT as libjpeg-turbo runs it on x86-64 (jsimd_idct_islow,
+// jidctint-avx2.asm), which is what PIL's decode executes there. Its
+// arithmetic is jidctint.c's (CONST_BITS 13, PASS1_BITS 2, the same
+// constants, products regrouped exactly) in 16-bit lanes: the dequantised
+// coefficient is the low 16 bits of coef * quantiser; in0 + in4, in0 - in4,
+// in7 + in3 and in5 + in1 are 16-bit sums; pass 1's descaled results
+// saturate to int16; a block whose rows 1-7 are all zero takes pass 1's
+// shortcut (the DC << 2 in 16 bits); pass 2's results saturate to
+// -128..127 before the +128. For every value that stays inside int16 this
+// equals jidctint.c with its range-limit table; the two part only on
+// coefficients no encoder of 8-bit samples writes (quantisers past 8191).
+static inline int32_t wrap16(int64_t x) { return (int16_t)(uint16_t)(x & 0xFFFF); }
+static inline int32_t sat16(int64_t x) { return x < -32768 ? -32768 : x > 32767 ? 32767 : (int32_t)x; }
+
+static inline void dodct(const int32_t* x, int st, int n, int32_t* o, int ost) {
+    const int64_t x0 = x[0], x1 = x[st], x2 = x[2 * st], x3 = x[3 * st], x4 = x[4 * st],
+                  x5 = x[5 * st], x6 = x[6 * st], x7 = x[7 * st];
+    const int64_t tmp3 = x2 * (4433 + 6270) + x6 * 4433;
+    const int64_t tmp2 = x2 * 4433 + x6 * (4433 - 15137);
+    const int64_t tmp0 = (int64_t)wrap16(x0 + x4) * 8192, tmp1 = (int64_t)wrap16(x0 - x4) * 8192;
+    const int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3, t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
+    const int64_t z3 = wrap16(x7 + x3), z4 = wrap16(x5 + x1);
+    const int64_t z3p = z3 * (9633 - 16069) + z4 * 9633;
+    const int64_t z4p = z3 * 9633 + z4 * (9633 - 3196);
+    const int64_t t0 = x7 * (2446 - 7373) + x1 * -7373 + z3p;
+    const int64_t t3 = x7 * -7373 + x1 * (12299 - 7373) + z4p;
+    const int64_t t1 = x5 * (16819 - 20995) + x3 * -20995 + z4p;
+    const int64_t t2 = x5 * -20995 + x3 * (25172 - 20995) + z3p;
+    const int64_t v[8] = {t10 + t3, t11 + t2, t12 + t1, t13 + t0,
+                          t13 - t0, t12 - t1, t11 - t2, t10 - t3};
+    const int64_t half = (int64_t)1 << (n - 1);
+    for (int i = 0; i < 8; ++i) o[i * ost] = sat16((v[i] + half) >> n);
+}
+
+// coefs: (bh, bw, 64) int16 natural order; qt: 64 quantisers in natural
+// order; out: (bh * 8, bw * 8) uint8 samples.
+int fd_jpeg_idct_islow(const int16_t* coefs, int bh, int bw, const uint16_t* qt,
+                       uint8_t* out) {
+    const int64_t pitch = (int64_t)bw * 8;
+    int32_t q[64];
+    for (int i = 0; i < 64; ++i) q[i] = wrap16(qt[i]);
+    for (int by = 0; by < bh; ++by) {
+        for (int bx = 0; bx < bw; ++bx) {
+            const int16_t* in = coefs + ((int64_t)by * bw + bx) * 64;
+            int32_t d[64], ws[64], o[64];
+            bool ac_zero = true;
+            for (int i = 0; i < 64; ++i) {
+                d[i] = wrap16((int64_t)in[i] * q[i]);
+                if (i >= 8 && in[i]) ac_zero = false;
+            }
+            if (ac_zero) {
+                for (int c = 0; c < 8; ++c) {
+                    const int32_t dc = wrap16((int64_t)d[c] * 4);
+                    for (int r = 0; r < 8; ++r) ws[r * 8 + c] = dc;
+                }
+            } else {
+                for (int c = 0; c < 8; ++c) dodct(d + c, 8, 11, ws + c, 8);  // columns
+            }
+            for (int r = 0; r < 8; ++r) dodct(ws + r * 8, 1, 18, o + r * 8, 1);  // rows
+            uint8_t* dst = out + (int64_t)by * 8 * pitch + (int64_t)bx * 8;
+            for (int r = 0; r < 8; ++r)
+                for (int c = 0; c < 8; ++c) {
+                    const int32_t v = o[r * 8 + c];
+                    dst[r * pitch + c] = (uint8_t)((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
+                }
+        }
+    }
+    return 0;
+}
+
+// One component plane (ch rows of cw samples, row pitch in_pitch) to the
+// (oh, ow) output grid at integral factors (hx, vy). method: 0 box
+// (fullsize when hx = vy = 1, int_upsample otherwise), 1 fancy h2v1,
+// 2 fancy h2v2, 3 fancy h1v2. The fancy methods read the component's
+// edge samples again past its edges (jdsample.c's first/last column cases
+// and jdmainct.c's context rows).
+int fd_jpeg_upsample(const uint8_t* in, int in_pitch, int cw, int ch, uint8_t* out, int ow,
+                     int oh, int hx, int vy, int method) {
+    if (cw < 1 || ch < 1) return -1;
+    for (int y = 0; y < oh; ++y) {
+        uint8_t* o = out + (int64_t)y * ow;
+        int r = y / vy;
+        if (r >= ch) r = ch - 1;
+        const uint8_t* p = in + (int64_t)r * in_pitch;
+        if (method == 0) {
+            for (int x = 0; x < ow; ++x) {
+                int c = x / hx;
+                o[x] = p[c < cw ? c : cw - 1];
+            }
+        } else if (method == 1) {
+            for (int x = 0; x < ow; ++x) {
+                int c = x >> 1;
+                if (c >= cw) c = cw - 1;
+                int v3 = p[c] * 3;
+                if (x & 1) {
+                    int nb = p[c + 1 < cw ? c + 1 : cw - 1];
+                    o[x] = (uint8_t)((v3 + nb + 2) >> 2);
+                } else {
+                    int nb = p[c > 0 ? c - 1 : 0];
+                    o[x] = (uint8_t)((v3 + nb + 1) >> 2);
+                }
+            }
+        } else {
+            int rn = (y & 1) ? r + 1 : r - 1;
+            rn = rn < 0 ? 0 : rn >= ch ? ch - 1 : rn;
+            const uint8_t* q = in + (int64_t)rn * in_pitch;
+            if (method == 3) {
+                const int bias = (y & 1) ? 2 : 1;
+                for (int x = 0; x < ow; ++x) {
+                    int c = x < cw ? x : cw - 1;
+                    o[x] = (uint8_t)((p[c] * 3 + q[c] + bias) >> 2);
+                }
+            } else {
+                for (int x = 0; x < ow; ++x) {
+                    int c = x >> 1;
+                    if (c >= cw) c = cw - 1;
+                    int cn = (x & 1) ? c + 1 : c - 1;
+                    cn = cn < 0 ? 0 : cn >= cw ? cw - 1 : cn;
+                    int t = p[c] * 3 + q[c], n = p[cn] * 3 + q[cn];
+                    o[x] = (uint8_t)((x & 1) ? (t * 3 + n + 7) >> 4 : (t * 3 + n + 8) >> 4);
+                }
+            }
+        }
+    }
+    return 0;
+}
+
+// jdcolor.c build_ycc_rgb_table, SCALEBITS 16
+struct YccTables {
+    int cr_r[256], cb_b[256];
+    int64_t cr_g[256], cb_g[256];
+};
+
+static void ycc_tables(YccTables* t) {
+    const int64_t one_half = (int64_t)1 << 15;
+    auto fix = [](double x) { return (int64_t)(x * 65536.0 + 0.5); };
+    for (int i = 0; i < 256; ++i) {
+        int64_t x = i - 128;
+        t->cr_r[i] = (int)((fix(1.40200) * x + one_half) >> 16);
+        t->cb_b[i] = (int)((fix(1.77200) * x + one_half) >> 16);
+        t->cr_g[i] = -fix(0.71414) * x;
+        t->cb_g[i] = -fix(0.34414) * x + one_half;
+    }
+}
+
+static inline uint8_t clamp255(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
+
+// planes: the n samples of each of the first three components (Y, Cb,
+// Cr). kind 0: YCbCr -> RGB (ycc_rgb_convert); kind 1: YCC -> the
+// inverted RGB of YCCK -> CMYK (ycck_cmyk_convert's first three outputs).
+// out: n pixels of 3 bytes.
+int fd_jpeg_color(const uint8_t* y, const uint8_t* cb, const uint8_t* cr, int64_t n,
+                  uint8_t* out, int kind) {
+    YccTables t;
+    ycc_tables(&t);
+    for (int64_t i = 0; i < n; ++i) {
+        const int Y = y[i], B = cb[i], R = cr[i];
+        int r = Y + t.cr_r[R];
+        int g = Y + (int)((t.cb_g[B] + t.cr_g[R]) >> 16);
+        int b = Y + t.cb_b[B];
+        if (kind == 1) {
+            r = 255 - r;
+            g = 255 - g;
+            b = 255 - b;
+        }
+        out[i * 3] = clamp255(r);
+        out[i * 3 + 1] = clamp255(g);
+        out[i * 3 + 2] = clamp255(b);
+    }
+    return 0;
+}
+
+// ------------------------------------------------------------------- GIF ---
+
+// The LZW stream of one GIF image (the sub-blocks already joined) at the
+// initial code size min_size (2..8 bits a pixel, codes of min_size + 1 to
+// 12 bits) into out[0..n): returns the pixels written (the rest of out is
+// untouched), -1 for a code past the table.
+int64_t fd_gif_lzw(const uint8_t* data, int64_t len, int min_size, uint8_t* out, int64_t n) {
+    if (min_size < 1 || min_size > 11) return -2;
+    static thread_local uint16_t prefix[4096];
+    static thread_local uint8_t suffix[4096], first[4096];
+    static thread_local uint8_t stack[4097];
+    const int clear = 1 << min_size, eoi = clear + 1;
+    int size = min_size + 1, next = clear + 2, prev = -1;
+    for (int i = 0; i < clear; ++i) {
+        prefix[i] = 0xFFFF;
+        suffix[i] = (uint8_t)i;
+        first[i] = (uint8_t)i;
+    }
+    int64_t o = 0, pos = 0;
+    uint32_t buf = 0;
+    int nbits = 0;
+    while (o < n) {
+        while (nbits < size && pos < len) {
+            buf |= (uint32_t)data[pos++] << nbits;
+            nbits += 8;
+        }
+        if (nbits < size) break;  // the data ran out
+        int code = (int)(buf & ((1u << size) - 1));
+        buf >>= size;
+        nbits -= size;
+        if (code == clear) {
+            size = min_size + 1;
+            next = clear + 2;
+            prev = -1;
+            continue;
+        }
+        if (code == eoi) break;
+        int sp = 0, c;
+        if (prev < 0) {
+            if (code >= clear) return -1;
+            out[o++] = (uint8_t)code;
+            prev = code;
+            continue;
+        }
+        if (code < next) {
+            c = code;
+        } else if (code == next) {
+            stack[sp++] = first[prev];
+            c = prev;
+        } else {
+            return -1;
+        }
+        const int f = first[c];
+        while (c >= clear) {
+            stack[sp++] = suffix[c];
+            c = prefix[c];
+        }
+        stack[sp++] = (uint8_t)c;
+        if (next < 4096) {
+            prefix[next] = (uint16_t)prev;
+            suffix[next] = (uint8_t)f;
+            first[next] = first[prev];
+            ++next;
+            if (next == (1 << size) && size < 12) ++size;
+        }
+        while (sp && o < n) out[o++] = stack[--sp];
+        prev = code;
+    }
+    return o;
+}
+
+// ------------------------------------------------------------------- QOI ---
+
+// The QOI op stream data[0..len) (after the 14-byte header) into n RGBA
+// pixels; returns the bytes read, -1 if the stream ends early.
+int64_t fd_qoi_decode(const uint8_t* data, int64_t len, uint8_t* out, int64_t n) {
+    uint8_t index[64][4];
+    std::memset(index, 0, sizeof(index));
+    uint8_t px[4] = {0, 0, 0, 255};
+    int64_t p = 0;
+    int run = 0;
+    for (int64_t i = 0; i < n; ++i) {
+        if (run > 0) {
+            --run;
+        } else {
+            if (p >= len) return -1;
+            const int b1 = data[p++];
+            if (b1 == 0xFE) {
+                if (p + 3 > len) return -1;
+                px[0] = data[p];
+                px[1] = data[p + 1];
+                px[2] = data[p + 2];
+                p += 3;
+            } else if (b1 == 0xFF) {
+                if (p + 4 > len) return -1;
+                std::memcpy(px, data + p, 4);
+                p += 4;
+            } else if ((b1 & 0xC0) == 0x00) {
+                std::memcpy(px, index[b1], 4);
+            } else if ((b1 & 0xC0) == 0x40) {
+                px[0] = (uint8_t)(px[0] + ((b1 >> 4) & 3) - 2);
+                px[1] = (uint8_t)(px[1] + ((b1 >> 2) & 3) - 2);
+                px[2] = (uint8_t)(px[2] + (b1 & 3) - 2);
+            } else if ((b1 & 0xC0) == 0x80) {
+                if (p >= len) return -1;
+                const int b2 = data[p++];
+                const int vg = (b1 & 0x3F) - 32;
+                px[0] = (uint8_t)(px[0] + vg - 8 + ((b2 >> 4) & 0x0F));
+                px[1] = (uint8_t)(px[1] + vg);
+                px[2] = (uint8_t)(px[2] + vg - 8 + (b2 & 0x0F));
+            } else {
+                // a run leaves the index as it is (PIL's QoiDecoder; the
+                // reference decoder also files the pixel before it)
+                run = b1 & 0x3F;
+            }
+            if ((b1 & 0xC0) != 0xC0 || b1 >= 0xFE) {
+                const int h = (px[0] * 3 + px[1] * 5 + px[2] * 7 + px[3] * 11) % 64;
+                std::memcpy(index[h], px, 4);
+            }
+        }
+        std::memcpy(out + i * 4, px, 4);
+    }
+    return p;
+}
+
+}  // extern "C"

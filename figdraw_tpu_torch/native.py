@@ -338,8 +338,12 @@ def _acquire_scratch_ctx(lib, ui_scale, pixel_scale, aa_factor):
 
 # Ping-pong combo buffer pool, two buffers per (owner, ctx, shape): the
 # previous frame's tape stays valid while the current one is exported.
-# Quad rows [0, count) are rewritten by fd_export_combo_packed (which zeroes
-# the padding rows) and the meta tail by fill_meta.
+# Quad rows [0, count) are rewritten by fd_export_combo_packed and the meta
+# tail by fill_meta; the padding rows [count, bucket) are not written: a
+# reused buffer keeps there what an earlier, longer tape left (zeros only in
+# a fresh buffer). No consumer reads them (binning masks indices >= count and
+# every consumer bounds by tape.count), but a whole-combo byte comparison
+# sees them: start it from an empty pool on each side.
 _combo_pool: dict = {}
 
 

@@ -11,8 +11,9 @@ latest put or replace per id, so a new subscriber sees all live images;
 per-id and cache generations let the consumer drop stale messages.
 
 `load_image` reads an image file through the .flippy sidecar cache
-(utils/flippy.py) and the port's own PNG decoder (utils/png.py; another
-format raises NotImplementedError) and publishes it with its mip chain.
+(utils/flippy.py) and the port's own decoders (utils/imagefile.py: PNG,
+JPEG, GIF, BMP, ICO and QOI; another format raises NotImplementedError)
+and publishes it with its mip chain.
 A host cache keeps each published image (and a loaded image's chain) by
 id, as figdraw_tpu's does: put, replace and the clears keep it current,
 and a later load_image of the same path publishes the cached pixels
@@ -181,9 +182,10 @@ def load_image(path: str, bus: Optional[ImageMessageBus] = None,
     Snappy-compressed, regenerated when the source file is newer
     (utils.flippy.read_image_cached); the message carries the chain as
     `mips`. flippy_cache=False (or mipmapped=False) decodes the file's
-    pixels alone. A second load of a cached id reads no file. Only PNG
-    decodes: another format raises NotImplementedError; without g++ the
-    flippy cache raises."""
+    pixels alone. A second load of a cached id reads no file. PNG, JPEG,
+    GIF, BMP, ICO and QOI decode (utils.imagefile); TIFF, WebP and PIL's
+    other formats raise NotImplementedError; without g++ the decoders and
+    the flippy cache raise."""
     image_id = image_id_from_path(path)
     with _image_cache_lock:
         cached = _image_cache.get(image_id)
@@ -196,7 +198,7 @@ def load_image(path: str, bus: Optional[ImageMessageBus] = None,
             cached = flippy.mipmaps[0]
             mips = tuple(flippy.mipmaps[1:])
         else:
-            from .utils.png import read_image
+            from .utils.imagefile import read_image
 
             cached, mips = read_image(path), None
         with _image_cache_lock:

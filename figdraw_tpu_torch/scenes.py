@@ -1695,6 +1695,15 @@ PHOTO_WALL_PANELS = 48
 PHOTO_WALL_EDGES = (400, 200, 100, 50)  # a panel's image edge, by i % 4
 PHOTO_WALL_SMALL = (480, 270, 12)  # the stored reference's frame and panels
 PHOTO_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_480x270_blocks8.npy")
+# the stored files of the image decoders (tools/make_image_formats.py: from
+# IMAGE_FIXTURE with PIL) and their digests; the baseline JPEG draws the
+# image-file scene and the photo wall as the PNG does, against figdraw_tpu's
+# block means of each from the same file
+IMAGE_FORMATS_DIR = os.path.join(REFERENCE_DIR, "images")
+IMAGE_FORMATS_REFERENCE = os.path.join(REFERENCE_DIR, "image_formats.json")
+JPEG_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "baseline_420_q90.jpg")
+JPEG_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_jpeg_1x_blocks8.npy")
+JPEG_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_jpeg_480x270_blocks8.npy")
 
 
 def make_image_file_scene(w: float, h: float, image_id: int) -> Renders:

@@ -14,8 +14,8 @@ The Snappy codec is the shared clean-room native/snappy.cpp, unchanged,
 built with g++ into the package's `_build/` at first use (utils.gxx). There
 is no fallback: a missing toolchain raises (figdraw_tpu writes literal-only
 streams without one). `_py_uncompress` is the codec's plain Python decoder,
-the tests' reference; no load path calls it. PNG sources decode through
-the port's own decoder (utils/png.py) where figdraw_tpu uses PIL.
+the tests' reference; no load path calls it. Sources decode through the
+port's own decoders (utils/imagefile.py) where figdraw_tpu uses PIL.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from typing import List
 import numpy as np
 
 from . import gxx
-from .png import read_image
+from .imagefile import read_image
 
 VERSION = 1
 MAGIC = b"flip"

@@ -31,7 +31,8 @@ left, so a row is sequential: `unfilter` runs them in C++
 raises). `unfilter_plain` is the same in numpy and Python, the tests'
 reference.
 
-Other image formats raise NotImplementedError (NOT_PNG).
+The other formats decode in their own modules; utils/imagefile.py picks
+the decoder by a file's leading bytes.
 """
 
 from __future__ import annotations
@@ -47,12 +48,6 @@ import numpy as np
 from . import gxx
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-NOT_PNG = ("only PNG images are decoded by figdraw_tpu_torch: {} is not ported "
-           "yet (ROADMAP.md, module item 'Image formats other than PNG')")
-# leading bytes of the formats figdraw_tpu reads through PIL
-_OTHER_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
-                  (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
-                  (b"\x00\x00\x01\x00", "ICO"), (b"qoif", "QOI"))
 # the bit depths each colour type allows, and its samples a pixel
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -174,10 +169,12 @@ def _unpack(rows: np.ndarray, w: int, channels: int, depth: int) -> np.ndarray:
     return (bits * weights).sum(axis=2, dtype=np.uint8)[..., None]
 
 
-def decode_png(data: bytes) -> np.ndarray:
+def decode_png(data: bytes, trns: bool = True) -> np.ndarray:
     """A PNG byte string to (H, W, 4) uint8 RGBA, as PIL's
-    `Image.open(...).convert("RGBA")`."""
-    ihdr, plte, trns, stream = _chunks(data)
+    `Image.open(...).convert("RGBA")`. trns=False ignores a tRNS chunk (an
+    ICO's PNG entry: PIL's ICO reader keeps no `transparency`)."""
+    ihdr, plte, trns_chunk, stream = _chunks(data)
+    trns = trns_chunk if trns else None
     w, h, depth, ct, method, filt, interlace = ihdr
     if ct not in _DEPTHS or depth not in _DEPTHS[ct]:
         raise ValueError(f"PNG colour type {ct} at bit depth {depth} is invalid")
@@ -252,14 +249,8 @@ def _to_rgba(samples, ct, depth, plte, trns) -> np.ndarray:
 
 
 def read_image(path: str) -> np.ndarray:
-    """An image file as (H, W, 4) uint8 RGBA. PNG only: another format
-    raises NotImplementedError, a file that is neither raises ValueError."""
-    with open(path, "rb") as fh:
-        data = fh.read()
-    if data[:8] != SIGNATURE:
-        for magic, name in _OTHER_FORMATS:
-            if data.startswith(magic):
-                raise NotImplementedError(NOT_PNG.format(f"{name} ({path})"))
-        if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-            raise NotImplementedError(NOT_PNG.format(f"WebP ({path})"))
-    return decode_png(data)
+    """An image file as (H, W, 4) uint8 RGBA: utils.imagefile.read_image
+    (PNG, JPEG, GIF, BMP, ICO and QOI), kept under this name."""
+    from .imagefile import read_image as read_any
+
+    return read_any(path)

@@ -38,7 +38,7 @@ from figdraw_tpu_torch.scenes import (
     make_image_panels_scene, photo_image,
 )
 from torch_reference import (
-    DEJAVU, IMAGE_H, IMAGE_N, IMAGE_W, block_means, jax_image_frame,
+    DEJAVU, IMAGE_H, IMAGE_N, IMAGE_W, block_means, fresh_combo_pools, jax_image_frame,
     jax_image_scene, text_fixture,
 )
 
@@ -306,6 +306,7 @@ def test_image_variant_matches_reference(variant, monkeypatch):
     # the same tape
     assert pr.atlas.entries == jr.atlas.entries
     assert pr.atlas.data.tobytes() == jr.atlas.data.tobytes()
+    fresh_combo_pools()
     pt = pr.flatten(ours, size)
     jt = jr.flatten(scene, jax_vec2(IMAGE_W, IMAGE_H))
     assert pt.combo.tobytes() == jt.combo.tobytes()

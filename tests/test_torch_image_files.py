@@ -144,13 +144,18 @@ def test_load_image_without_the_flippy_cache(fixture_png):
     ref.close()
 
 
-def test_load_image_of_another_format_raises(tmp_path):
+@pytest.mark.parametrize("ext", ["webp", "tiff"])
+def test_load_image_of_another_format_raises(ext, tmp_path):
+    """A format the port does not decode yet (JPEG decodes since
+    utils/imagefile.py): NotImplementedError naming the format, the path
+    and the ROADMAP item, and no sidecar."""
     from PIL import Image
 
-    path = str(tmp_path / "photo.jpg")
+    path = str(tmp_path / f"photo.{ext}")
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path)
     for cache in (True, False):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(NotImplementedError,
+                           match=r"(WebP|TIFF) images .*photo.*Image formats other than PNG"):
             resources.load_image(path, flippy_cache=cache)
     assert not os.path.exists(path + ".flippy")
 

@@ -30,7 +30,7 @@ from figdraw_tpu_torch.ops.layout import (
 )
 from figdraw_tpu_torch.plan import fill_meta, from_jax_plan, meta_rows, plan_execution
 from figdraw_tpu_torch.scenes import make_clip_table_scene, modes_tape
-from torch_reference import ensure_jax_native
+from torch_reference import ensure_jax_native, fresh_combo_pools
 
 # one intra-op thread: the suite runs a pytest-xdist worker per core, and
 # torch's spinning thread pools, oversubscribed, slow these tests a
@@ -253,6 +253,7 @@ def test_rectmask_table_matches_reference(jax_rectmask):
     scene, jr, first, second = jax_rectmask
     pr = port.FigRenderer(device="cpu")
     ours = make_clip_table_scene("rectmask", W, H, ROWS, COLS)
+    fresh_combo_pools()
     jt = jr.flatten(scene, jax_vec2(W, H))
     pt = pr.flatten(ours, port.vec2(W, H))
     assert pt.combo.tobytes() == jt.combo.tobytes()

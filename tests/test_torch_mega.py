@@ -34,7 +34,7 @@ from figdraw_tpu_torch.plan import (
     bucket, from_jax_plan, pack_mega_combo, plan_execution,
 )
 from figdraw_tpu_torch.scenes import make_clip_table_scene, modes_tape
-from torch_reference import ensure_jax_native, spy_mega_runs, to_port
+from torch_reference import ensure_jax_native, fresh_combo_pools, spy_mega_runs, to_port
 
 # one intra-op thread: the suite runs a pytest-xdist worker per core, and
 # torch's spinning thread pools, oversubscribed, slow these tests a
@@ -103,6 +103,7 @@ def _scenes(name, monkeypatch):
                                   "rectmask_small", "subclip_full"])
 def test_flatten_fast_matches_reference(name, monkeypatch):
     a, b, w, h = _scenes(name, monkeypatch)
+    fresh_combo_pools()
     ref = jax_native.flatten_fast(a, w, h, 1.0, 1.0, 1.2, (1, 1, 1, 1),
                                   min_items=24, bucket=_bucket)
     got = native.flatten_fast(b, w, h, 1.0, 1.0, 1.2, (1, 1, 1, 1))

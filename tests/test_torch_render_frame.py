@@ -17,6 +17,7 @@ from figdraw_tpu import FigRenderer as JaxRenderer, vec2 as jax_vec2
 from figdraw_tpu.scenes import make_render_tree_array as jax_scene
 from figdraw_tpu_torch.plan import from_jax_plan
 from figdraw_tpu_torch.scenes import make_render_tree_array
+from torch_reference import fresh_combo_pools
 
 # one intra-op thread: the suite runs a pytest-xdist worker per core, and
 # torch's spinning thread pools, oversubscribed, slow these tests a
@@ -40,6 +41,7 @@ def test_render_frame_matches_reference(frame, renderers):
     b = make_render_tree_array(W, H, frame, copies=COPIES)
     la, lb = a.layers[0], b.layers[0]
     assert la.nodes[: la.count].tobytes() == lb.nodes[: lb.count].tobytes()
+    fresh_combo_pools()
     jt = jr.flatten(a, jax_vec2(W, H))
     pt = pr.flatten(b, port.vec2(W, H))
     assert jt.combo.shape == pt.combo.shape

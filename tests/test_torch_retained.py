@@ -25,7 +25,7 @@ from figdraw_tpu.renderer import FigRenderer as JaxRenderer
 from figdraw_tpu_torch import native, renderer as port_renderer
 from figdraw_tpu_torch.ops.rows import DAMAGE_RECTS
 from figdraw_tpu_torch.scene import from_jax_scene, merge_damage
-from torch_reference import to_port
+from torch_reference import fresh_combo_pools, to_port
 
 # one intra-op thread: the suite runs a pytest-xdist worker per core, and
 # torch's spinning thread pools, oversubscribed, slow these tests a
@@ -585,6 +585,7 @@ def test_spans_and_reserved_tape_equal_the_jax_walks():
     arr = to_port(jarr)
     reserve = {(0, boxes[2]): 3, (0, boxes[7]): 1}
     for res in (None, reserve):
+        fresh_combo_pools()
         jt = jax_native.flatten_renders_array(
             jarr, W, H, 1.0, 1.0, 1.2, (1, 1, 1, 1), bucket=_bucket, cull=False,
             record_spans=True, reserve=res)

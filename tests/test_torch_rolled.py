@@ -33,7 +33,7 @@ from figdraw_tpu_torch.scenes import (
     make_blurred_cards_scene, make_image_panels_scene, photo_image,
 )
 from torch_reference import (
-    DEJAVU, IMAGE_H, IMAGE_N, IMAGE_W, block_means, ensure_jax_native,
+    DEJAVU, IMAGE_H, IMAGE_N, IMAGE_W, block_means, ensure_jax_native, fresh_combo_pools,
     jax_blurred_cards_scene, jax_clipped_scene, jax_image_frame, jax_image_renderer,
     jax_text_cells_scene, jax_unrolled_frame, port_image_renderer,
 )
@@ -140,6 +140,7 @@ def test_images_clipped_matches_reference(jax_clipped):
     # the same tape: per card a mask clear, the card into the mask plane,
     # and the card with its clipped image into the frame. The port sends it
     # to the megakernel with the atlas
+    fresh_combo_pools()
     pt = pr.flatten(ours, size)
     jt = jr.flatten(scene, jax_vec2(IMAGE_W, IMAGE_H))
     assert pt.combo.tobytes() == jt.combo.tobytes()
@@ -265,6 +266,7 @@ def test_blurred_cards_take_the_rolled_form_and_match_reference(jax_blurred):
     pr = port_image_renderer()
     scene = make_blurred_cards_scene(w, h, n)
     pr.process_image_messages()
+    fresh_combo_pools()
     tape = pr.flatten(scene, port.vec2(w, h))
     jt = jr.flatten(jscene, jax_vec2(w, h))
     assert tape.combo.tobytes() == jt.combo.tobytes()

@@ -170,6 +170,19 @@ def ensure_jax_typeset():
     return _ensure_jax_library(jax_nt, flags)
 
 
+def fresh_combo_pools() -> None:
+    """Empty both packages' ping-pong combo pools (`native._combo_pool`).
+    A pooled buffer's rows past the tape's count keep what an earlier,
+    longer tape wrote there (neither export writes them), so a whole-combo
+    byte comparison starts both sides from fresh, zeroed buffers."""
+    from figdraw_tpu import native as jax_native
+
+    from figdraw_tpu_torch import native as port_native
+
+    jax_native._combo_pool.clear()
+    port_native._combo_pool.clear()
+
+
 def to_port(arr):
     """A figdraw_tpu RendersArray as the port's: the node rows are the same
     bytes, and the drawable side arrays (ops and bezier points) the rows
