@@ -95,11 +95,12 @@ FigRenderer(device="cuda").render_frame or execute_plan:
   path, K4-atlas; and a 1080p photo wall of the loaded image (48 panels,
   12 clipped: the megakernel with the atlas), with the host times of the
   pipeline's steps and render_frame's perf span means; the stored files
-  of the JPEG, GIF, BMP, ICO and QOI decoders (csrc/image_decode.cpp,
-  g++) against PIL's stored digests, their C++ stages against the plain
-  twins, and the baseline JPEG loaded cold and warm, drawn in the
-  image-file scene (K1-atlas) and the photo wall (K4-atlas) against
-  figdraw_tpu's stored block means;
+  of the JPEG, GIF, BMP, ICO, QOI and TIFF decoders
+  (csrc/image_decode.cpp, g++) against PIL's stored digests, their C++
+  stages against the plain twins, and the baseline JPEG and the fixture's
+  LZW + Predictor 2 TIFF loaded cold and warm, each drawn in the
+  image-file scene (K1-atlas) and the photo wall (K4-atlas) within 1e-5
+  of figdraw_tpu's stored block means;
 - the C ABI for external hosts (capi_phase, lines `check 14`): the
   headline scene fed row by row through the scene-building calls
   fd_renders_* (capi_scene), walked by fd_flatten_renders and exported by
@@ -919,13 +920,13 @@ def timed_frames(what: str, render, shape, frames: int = FRAMES) -> list:
     return total_ms
 
 
-def check_blocks(what: str, frame, path: str) -> float:
+def check_blocks(what: str, frame, path: str, tol: float = TOL) -> float:
     import numpy as np
 
     err = float(np.abs(block_means(frame.cpu().numpy()) - np.load(path)).max())
     print(f"check: {what} vs the JAX reference (8x8 block means) max |diff| "
-          f"{err:.3e} (tol {TOL:.3e})", flush=True)
-    if not err <= TOL:
+          f"{err:.3e} (tol {tol:.3e})", flush=True)
+    if not err <= tol:
         fail(f"{what} differs from the JAX reference by {err}")
     return err
 
@@ -3247,6 +3248,7 @@ def blurred_phase(tag: str, dev) -> dict:
 
 
 IMAGE_REPS = 5  # repeats of each host step of the image-file pipeline
+FILE_TOL = 1e-5  # a stored JPEG's or TIFF's frames vs figdraw_tpu's block means
 
 
 def host_ms(fn, reps: int = IMAGE_REPS):
@@ -3327,14 +3329,15 @@ def image_formats_check(tag: str) -> dict:
     host ms; the helper's stages against their plain twins: each JPEG's
     IDCT, upsampling and colour conversion on its whole frame, the entropy
     decoding on the 64x48 progressive crop with restarts (its whole plain
-    decode), GIF's LZW and QOI's ops on the first CROP_PIXELS pixels.
-    Returns {file: (cold ms, warm ms, shape)}."""
+    decode), GIF's LZW and QOI's ops on the first CROP_PIXELS pixels, and
+    each TIFF's PackBits or LZW and predictor on every strip or tile (and
+    its whole plain decode). Returns {file: (cold ms, warm ms, shape)}."""
     import hashlib
 
     import numpy as np
 
     from figdraw_tpu_torch.scenes import IMAGE_FORMATS_DIR, IMAGE_FORMATS_REFERENCE
-    from figdraw_tpu_torch.utils import gif, image_lib, imagefile, jpeg, qoi
+    from figdraw_tpu_torch.utils import gif, image_lib, imagefile, jpeg, qoi, tiff
 
     with open(IMAGE_FORMATS_REFERENCE) as fh:
         stored = json.load(fh)["files"]
@@ -3391,9 +3394,18 @@ def image_formats_check(tag: str) -> dict:
                                   qoi.ops_plain(data[14:], CROP_PIXELS)):
                 fail(f"image formats: {name}: fd_qoi_decode differs from ops_plain")
             held.append("ops")
+        elif name.endswith(".tif"):
+            for stage, got, want in tiff.stage_pairs(data):
+                if not np.array_equal(got, want):
+                    fail(f"image formats: {name}: fd_tiff_{stage} differs from its plain twin")
+                if stage not in held:
+                    held.append(stage)
+            if not np.array_equal(tiff.decode_tiff(data, plain=True), px):
+                fail(f"image formats: {name}: the plain decode differs from the helper's")
+            held.append("plain decode")
         if held:
             stages[name] = held
-    print(f"check 13: the {len(stored)} stored image files (JPEG, GIF, BMP, ICO, QOI) "
+    print(f"check 13: the {len(stored)} stored image files (JPEG, GIF, BMP, ICO, QOI, TIFF) "
           f"decode to PIL's stored sha256 through the C++ helper; stages held to their "
           f"plain twins: {json.dumps(stages)}", flush=True)
     print(f"times: image decodes (the helper's g++ build {build_ms:.1f} ms first), host ms "
@@ -3420,13 +3432,14 @@ def image_files_phase(tag: str, dev) -> dict:
     kernels against their plain versions on its own inputs, and the SDF
     image modes 13-16 counted where they reach an atlas kernel (the SDF
     scenes' tapes also through the megakernel with the atlas, a check
-    beside the main path). The same from the stored baseline JPEG
-    (image_formats_check first: every stored format against PIL's
-    digests): load_image cold and warm against figdraw_tpu's sidecar
-    digest, the image-file scene on K1-atlas and the photo wall on
-    K4-atlas, each against figdraw_tpu's stored block means. Host times of
-    each step of the pipeline, each photo wall's ms/frame with its host and
-    device split and its perf span means."""
+    beside the main path). The same from the stored baseline JPEG and
+    the stored LZW + Predictor 2 TIFF of the fixture (image_formats_check
+    first: every stored format against PIL's digests): load_image cold
+    and warm against figdraw_tpu's sidecar digest, the image-file scene on
+    K1-atlas and the photo wall on K4-atlas, each within FILE_TOL of
+    figdraw_tpu's stored block means. Host times of each step of the
+    pipeline, each photo wall's ms/frame with its host and device split
+    and its perf span means."""
     import dataclasses
     import hashlib
     import shutil
@@ -3445,8 +3458,8 @@ def image_files_phase(tag: str, dev) -> dict:
         EXAMPLE_FORMS, EXAMPLE_IMAGES, EXAMPLE_SCENES, IMAGE_FILE_SIZE, IMAGE_FIXTURE,
         IMAGE_FIXTURE_REFERENCE, IMAGE_FORMATS_REFERENCE, JPEG_FILE_REFERENCE, JPEG_FIXTURE,
         JPEG_WALL_REFERENCE, PHOTO_WALL_PANELS, PHOTO_WALL_REFERENCE, PHOTO_WALL_SIZE,
-        PHOTO_WALL_SMALL, example_reference_path, make_image_file_scene,
-        make_loaded_photo_wall,
+        PHOTO_WALL_SMALL, TIFF_FILE_REFERENCE, TIFF_FIXTURE, TIFF_WALL_REFERENCE,
+        example_reference_path, make_image_file_scene, make_loaded_photo_wall,
     )
     from figdraw_tpu_torch.utils import flippy, perf, png
 
@@ -3467,7 +3480,7 @@ def image_files_phase(tag: str, dev) -> dict:
           f"_py_uncompress; the PNG decode equals PIL's stored sha256", flush=True)
     decodes = image_formats_check(tag)
     with open(IMAGE_FORMATS_REFERENCE) as fh:
-        jpeg_sidecar = json.load(fh)["sidecar"][os.path.basename(JPEG_FIXTURE)]
+        file_sidecars = json.load(fh)["sidecar"]
     chain_ms, chain = host_ms(lambda: flippy.image_to_flippy(pixels))
     census = {}
     with tempfile.TemporaryDirectory() as td:
@@ -3514,38 +3527,51 @@ def image_files_phase(tag: str, dev) -> dict:
               f"{len(sidecar)} bytes) gives figdraw_tpu's stored sidecar sha256; warm "
               f"(the sidecar) equals it, image and {len(a.mips)} mips; a newer source "
               f"regenerated the same sidecar", flush=True)
-        # the stored baseline JPEG: cold, then warm
-        jpath = os.path.join(td, os.path.basename(JPEG_FIXTURE))
-        shutil.copyfile(JPEG_FIXTURE, jpath)
-        jsub = bus.subscribe()
-        t0 = time.perf_counter()
-        resources.load_image(jpath, bus=bus).close()
-        jcold_ms = (time.perf_counter() - t0) * 1e3
-        with open(jpath + ".flippy", "rb") as fh:
-            jside = fh.read()
-        if hashlib.sha256(jside).hexdigest() != jpeg_sidecar:
-            fail("image files: the JPEG's sidecar differs from figdraw_tpu's stored digest")
-        resources.clear_image_cache(bus=bus)
-        t0 = time.perf_counter()
-        resources.load_image(jpath, bus=bus).close()
-        jwarm_ms = (time.perf_counter() - t0) * 1e3
-        jid = resources.image_id_from_path(jpath)
-        jputs = [m for m in jsub.drain()
-                 if m.kind == resources.ImageMsgKind.PutImage and m.id == jid]
-        if not (len(jputs) == 2 and np.array_equal(jputs[0].image, jputs[1].image)
-                and all(np.array_equal(x, y) for x, y in zip(jputs[0].mips, jputs[1].mips))):
-            fail("image files: the JPEG's warm load (the sidecar) differs from its cold one")
-        print(f"check 13: load_image of the baseline JPEG cold (the C++ decoders, bleed, "
-              f"chain, compress, write {len(jside)} bytes) gives figdraw_tpu's stored "
-              f"sidecar sha256; warm (the sidecar) equals it, image and "
-              f"{len(jputs[0].mips)} mips", flush=True)
+        # the stored baseline JPEG and TIFF fixture: cold, then warm
+        def cold_warm(src, what):
+            """load_image of a copy of src cold and warm: (path, cold ms,
+            warm ms, the decoded image); the sidecar against figdraw_tpu's
+            stored digest, the warm image and mips against the cold ones."""
+            fpath = os.path.join(td, os.path.basename(src))
+            shutil.copyfile(src, fpath)
+            fsub = bus.subscribe()
+            t0 = time.perf_counter()
+            resources.load_image(fpath, bus=bus).close()
+            fcold_ms = (time.perf_counter() - t0) * 1e3
+            with open(fpath + ".flippy", "rb") as fh:
+                fside = fh.read()
+            if hashlib.sha256(fside).hexdigest() != file_sidecars[os.path.basename(src)]:
+                fail(f"image files: the {what}'s sidecar differs from figdraw_tpu's stored "
+                     "digest")
+            resources.clear_image_cache(bus=bus)
+            t0 = time.perf_counter()
+            resources.load_image(fpath, bus=bus).close()
+            fwarm_ms = (time.perf_counter() - t0) * 1e3
+            fid = resources.image_id_from_path(fpath)
+            fputs = [m for m in fsub.drain()
+                     if m.kind == resources.ImageMsgKind.PutImage and m.id == fid]
+            if not (len(fputs) == 2 and np.array_equal(fputs[0].image, fputs[1].image)
+                    and all(np.array_equal(x, y) for x, y in zip(fputs[0].mips, fputs[1].mips))):
+                fail(f"image files: the {what}'s warm load (the sidecar) differs from its cold "
+                     "one")
+            print(f"check 13: load_image of the {what} cold (the C++ decoders, bleed, "
+                  f"chain, compress, write {len(fside)} bytes) gives figdraw_tpu's stored "
+                  f"sidecar sha256; warm (the sidecar) equals it, image and "
+                  f"{len(fputs[0].mips)} mips", flush=True)
+            return fpath, fcold_ms, fwarm_ms, fputs[0].image
+
+        jpath, jcold_ms, jwarm_ms, _jimage = cold_warm(JPEG_FIXTURE, "baseline JPEG")
+        tpath, tcold_ms, twarm_ms, timage = cold_warm(TIFF_FIXTURE, "LZW + Predictor 2 TIFF")
+        if hashlib.sha256(np.ascontiguousarray(timage).tobytes()).hexdigest() != \
+                stored["decoded_sha256"]:
+            fail("image files: the TIFF of the fixture decodes to other pixels than the PNG")
 
         # --- render_frame: the image-file scene and the SDF scenes in each form ---
-        def checked_frame(what, make, ref_path):
+        def checked_frame(what, make, ref_path, tol=TOL):
             """make() -> (renderer, scene, frame size): the frame's first
             render uploads the atlas; the counted one runs with the counts
             set to 0 just before; its kernels against their plain versions
-            on its own inputs; its blocks against the stored ones."""
+            on its own inputs; its blocks within tol of the stored ones."""
             ren, scene, size = make()
             ren.render_frame(scene, size)
             torch.cuda.synchronize()
@@ -3560,7 +3586,7 @@ def image_files_phase(tag: str, dev) -> dict:
             calls = []
             plan_kernel_checks(what, *runs[0], calls=calls)
             atlas_modes(plan, calls, census)
-            check_blocks(what, frame, ref_path)
+            check_blocks(what, frame, ref_path, tol)
             if not bool(torch.isfinite(frame).all()):
                 fail(f"{what}: non-finite frame")
             return ren, plan, calls
@@ -3618,28 +3644,33 @@ def image_files_phase(tag: str, dev) -> dict:
         if missing:
             fail(f"image files: no quad of (kernel, mode) {missing} reached an atlas kernel")
 
-        def make_jpeg_file():
-            ren = FigRenderer(atlas_size=512, device="cuda")
-            bus = resources.ImageMessageBus()
-            ren.ensure_image_message_subscription(bus)
-            refs.append(resources.load_image(jpath, bus=bus))
-            w, h = IMAGE_FILE_SIZE
-            return ren, make_image_file_scene(w, h, refs[-1].id), vec2(w, h)
+        def file_scene(src, what, ref_path):
+            """The image-file scene of the image loaded from src on K1-atlas,
+            within FILE_TOL of ref_path: (median ms/frame, host ms, device ms)."""
+            def make():
+                ren = FigRenderer(atlas_size=512, device="cuda")
+                fbus = resources.ImageMessageBus()
+                ren.ensure_image_message_subscription(fbus)
+                refs.append(resources.load_image(src, bus=fbus))
+                w, h = IMAGE_FILE_SIZE
+                return ren, make_image_file_scene(w, h, refs[-1].id), vec2(w, h)
 
-        jren, jplan, jcalls = checked_frame("image_file jpeg 1x", make_jpeg_file,
-                                            JPEG_FILE_REFERENCE)
-        on_k1_atlas = any(kw.get("atlas") is not None for _a, kw in jcalls)
-        if not on_k1_atlas or jplan.mega_combo is not None:
-            fail("image_file jpeg: the frame did not run K1-atlas")
-        jscene = make_image_file_scene(*IMAGE_FILE_SIZE, refs[-1].id)
-        jsize = vec2(*IMAGE_FILE_SIZE)
-        jfile_ms, jfile_host, jfile_dev = split_frames(jren, jscene, jsize)
+            fren, fplan, fcalls = checked_frame(f"image_file {what} 1x", make, ref_path,
+                                                FILE_TOL)
+            on_k1_atlas = any(kw.get("atlas") is not None for _a, kw in fcalls)
+            if not on_k1_atlas or fplan.mega_combo is not None:
+                fail(f"image_file {what}: the frame did not run K1-atlas")
+            fscene = make_image_file_scene(*IMAGE_FILE_SIZE, refs[-1].id)
+            return split_frames(fren, fscene, vec2(*IMAGE_FILE_SIZE))
+
+        file_frames = {"jpeg": file_scene(jpath, "jpeg", JPEG_FILE_REFERENCE),
+                       "tiff": file_scene(tpath, "tiff", TIFF_FILE_REFERENCE)}
 
         # --- the 1080p photo wall of each loaded image ---
-        def photo_wall(src, small_ref, what):
+        def photo_wall(src, small_ref, what, tol=TOL):
             """The wall of the image at src: FRAMES counted frames, its perf
             spans, its kernels against their plain versions, the 480x270
-            wall against small_ref, the host and device split."""
+            wall within tol of small_ref, the host and device split."""
             w, h = PHOTO_WALL_SIZE
             size = vec2(w, h)
             ren = FigRenderer(atlas_size=256, device="cuda")
@@ -3672,13 +3703,14 @@ def image_files_phase(tag: str, dev) -> dict:
             refs.append(resources.load_image(src, bus=small_bus))
             small_scene = make_loaded_photo_wall(sw, sh, sn, refs[-1].id)
             checked_frame(f"{what} {sw}x{sh}", lambda: (small, small_scene, vec2(sw, sh)),
-                          small_ref)
+                          small_ref, tol)
             _ms, host, device = split_frames(ren, scene, size)
             return dict(ms=wall_ms, host=host, device=device, spans=spans, plan=plan,
                         calls=wall_calls, atlas=ren.atlas.size)
 
         walls = {"png": photo_wall(path, PHOTO_WALL_REFERENCE, "photo wall"),
-                 "jpeg": photo_wall(jpath, JPEG_WALL_REFERENCE, "photo wall jpeg")}
+                 "jpeg": photo_wall(jpath, JPEG_WALL_REFERENCE, "photo wall jpeg", FILE_TOL),
+                 "tiff": photo_wall(tpath, TIFF_WALL_REFERENCE, "photo wall tiff", FILE_TOL)}
         for ref in refs:
             ref.close()
     med = statistics.median
@@ -3704,10 +3736,12 @@ def image_files_phase(tag: str, dev) -> dict:
           f"Snappy compress {len(raw) / zip_ms / 1e3:.1f} MB/s, uncompress "
           f"{len(raw) / unzip_ms / 1e3:.1f} MB/s; load_image cold {cold_ms:.3f} ms, "
           f"warm {warm_ms:.3f} ms; the baseline JPEG's load_image cold {jcold_ms:.3f} ms, "
-          f"warm {jwarm_ms:.3f} ms {tag}", flush=True)
-    print(f"times: image_file scene from the JPEG, 800x600 on K1-atlas: median "
-          f"{jfile_ms:.3f} ms/frame = host (messages, walk, plan) {med(jfile_host):.3f} ms "
-          f"+ upload, executor and sync {med(jfile_dev):.3f} ms {tag}", flush=True)
+          f"warm {jwarm_ms:.3f} ms; the LZW + Predictor 2 TIFF's load_image cold "
+          f"{tcold_ms:.3f} ms, warm {twarm_ms:.3f} ms {tag}", flush=True)
+    for src, (f_ms, f_host, f_dev) in file_frames.items():
+        print(f"times: image_file scene from the {src.upper()}, 800x600 on K1-atlas: median "
+              f"{f_ms:.3f} ms/frame = host (messages, walk, plan) {med(f_host):.3f} ms "
+              f"+ upload, executor and sync {med(f_dev):.3f} ms {tag}", flush=True)
     w, h = PHOTO_WALL_SIZE
     for src, wall in walls.items():
         print(f"times: photo wall {w}x{h} from the {src.upper()}, {PHOTO_WALL_PANELS} panels "

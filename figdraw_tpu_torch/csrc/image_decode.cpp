@@ -19,6 +19,13 @@
 //                       tables of jdcolor.c (SCALEBITS 16).
 // GIF: fd_gif_lzw, the variable-width LZW decoder of one image's data.
 // QOI: fd_qoi_decode, the six-op QOI stream.
+// TIFF: as libtiff 4.7.1 decodes a strip or tile:
+//   fd_tiff_packbits    PackBits (tif_packbits.c);
+//   fd_tiff_lzw         LZW with MSB-first codes and the early change of the
+//                       code width (tif_lzw.c, new-style codes);
+//   fd_tiff_predict     the horizontal and floating-point predictors
+//                       (tif_predict.c: horAcc8/16/32/64 with their swab
+//                       forms, fpAcc).
 //
 // Every function returns 0 (or a position) on success and a negative code
 // on malformed input; nothing is allocated here.
@@ -629,6 +636,164 @@ int64_t fd_qoi_decode(const uint8_t* data, int64_t len, uint8_t* out, int64_t n)
         std::memcpy(out + i * 4, px, 4);
     }
     return p;
+}
+
+// ------------------------------------------------------------------ TIFF ---
+
+// PackBits data[0..len) into out[0..n): a header byte h < 128 copies the
+// next h + 1 bytes, h > 128 repeats the next byte 257 - h times, 128 is a
+// no-op. Returns the bytes written (n, or fewer if the data ran out).
+int64_t fd_tiff_packbits(const uint8_t* data, int64_t len, uint8_t* out, int64_t n) {
+    int64_t p = 0, o = 0;
+    while (o < n && p < len) {
+        const int h = data[p++];
+        if (h < 128) {
+            int64_t k = h + 1;
+            if (k > len - p) k = len - p;
+            if (k > n - o) k = n - o;
+            std::memcpy(out + o, data + p, (size_t)k);
+            o += k;
+            p += h + 1;
+        } else if (h > 128) {
+            if (p >= len) break;
+            int64_t k = 257 - h;
+            if (k > n - o) k = n - o;
+            std::memset(out + o, data[p++], (size_t)k);
+            o += k;
+        }
+    }
+    return o;
+}
+
+// TIFF LZW data[0..len) into out[0..n): codes of 9 to 12 bits, most
+// significant bit first; ClearCode 256 resets the table, EOI 257 ends the
+// data; the width grows when the next free entry reaches 2^width - 1.
+// An entry's string is the previous code's string and one byte more, and
+// that byte follows it in the output: so each entry is kept as a run of
+// the output (start, length) and decoded by copying the run forward (the
+// copy may overlap its source when the code is the entry being made).
+// Returns the bytes written (n, or fewer if the data ended), -1 for a code
+// past the table.
+int64_t fd_tiff_lzw(const uint8_t* data, int64_t len, uint8_t* out, int64_t n) {
+    static thread_local int64_t start[4096];
+    static thread_local int32_t length[4096];
+    int size = 9, next = 258, prev = -1;
+    int64_t prev_at = 0, o = 0, pos = 0;
+    int32_t prev_len = 0;
+    uint32_t buf = 0;
+    int nbits = 0;
+    while (o < n) {
+        while (nbits < size && pos < len) {
+            buf = (buf << 8) | data[pos++];
+            nbits += 8;
+        }
+        if (nbits < size) break;  // the data ran out
+        const int code = (int)((buf >> (nbits - size)) & ((1u << size) - 1));
+        nbits -= size;
+        buf &= (1u << nbits) - 1;
+        if (code == 256) {
+            size = 9;
+            next = 258;
+            prev = -1;
+            continue;
+        }
+        if (code == 257) break;
+        if (prev < 0) {
+            if (code > 256) return -1;
+            prev_at = o;
+            prev_len = 1;
+            out[o++] = (uint8_t)code;
+            prev = code;
+            continue;
+        }
+        int64_t src;
+        int32_t k;
+        if (code < 256) {
+            src = -1;
+            k = 1;
+        } else if (code < next) {
+            src = start[code];
+            k = length[code];
+        } else if (code == next) {
+            src = prev_at;
+            k = prev_len + 1;
+        } else {
+            return -1;
+        }
+        if (next < 4096) {
+            start[next] = prev_at;
+            length[next] = prev_len + 1;
+            ++next;
+            if (next == (1 << size) - 1 && size < 12) ++size;
+        }
+        const int64_t at = o;
+        const int64_t m = k < n - o ? k : n - o;
+        if (src < 0) {
+            out[o++] = (uint8_t)code;
+        } else {
+            for (int64_t i = 0; i < m; ++i) out[o + i] = out[src + i];
+            o += m;
+        }
+        prev_at = at;
+        prev_len = k;
+        prev = code;
+    }
+    return o;
+}
+
+static inline uint16_t swap16(uint16_t v) { return (uint16_t)((v >> 8) | (v << 8)); }
+static inline uint32_t swap32(uint32_t v) { return __builtin_bswap32(v); }
+static inline uint64_t swap64(uint64_t v) { return __builtin_bswap64(v); }
+
+}  // extern "C"
+
+// horAcc8/16/32/64 (swabHorAcc* when swap) on one row of `count` samples
+template <typename T>
+static void hor_acc(uint8_t* row, int64_t count, int spp, bool swap) {
+    T* w = reinterpret_cast<T*>(row);  // rows are aligned by the caller
+    if (swap) {
+        for (int64_t i = 0; i < count; ++i) {
+            if (sizeof(T) == 2) w[i] = (T)swap16((uint16_t)w[i]);
+            else if (sizeof(T) == 4) w[i] = (T)swap32((uint32_t)w[i]);
+            else w[i] = (T)swap64((uint64_t)w[i]);
+        }
+    }
+    for (int64_t i = spp; i < count; ++i) w[i] = (T)(w[i] + w[i - spp]);
+}
+
+extern "C" {
+
+// The predictor of `rows` rows of row_bytes bytes in place, each row on
+// its own, samples of `bytes` bytes, spp samples a pixel (1 for a plane
+// of a planar file). kind 2: horizontal differencing, the samples read in
+// the file's byte order (swap: it is not the host's), the sums wrap at
+// the sample's width, written in the host's order. kind 3: floating
+// point: the row's bytes summed spp apart, then its byte planes (most
+// significant first) interleaved into host-order samples. scratch holds
+// row_bytes bytes. Returns 0, or -1 for a row that is not whole samples.
+int fd_tiff_predict(uint8_t* buf, int64_t rows, int64_t row_bytes, int spp, int bytes,
+                    int kind, int swap, uint8_t* scratch) {
+    if (spp < 1 || row_bytes % ((int64_t)bytes * spp)) return -1;
+    const int64_t count = row_bytes / bytes;
+    for (int64_t r = 0; r < rows; ++r) {
+        uint8_t* row = buf + r * row_bytes;
+        if (kind == 2) {
+            if (bytes == 1) hor_acc<uint8_t>(row, count, spp, false);
+            else if (bytes == 2) hor_acc<uint16_t>(row, count, spp, swap != 0);
+            else if (bytes == 4) hor_acc<uint32_t>(row, count, spp, swap != 0);
+            else if (bytes == 8) hor_acc<uint64_t>(row, count, spp, swap != 0);
+            else return -1;
+        } else if (kind == 3) {
+            for (int64_t i = spp; i < row_bytes; ++i) row[i] = (uint8_t)(row[i] + row[i - spp]);
+            std::memcpy(scratch, row, (size_t)row_bytes);
+            for (int64_t i = 0; i < count; ++i)
+                for (int b = 0; b < bytes; ++b)
+                    row[i * bytes + b] = scratch[(int64_t)(bytes - 1 - b) * count + i];
+        } else {
+            return -1;
+        }
+    }
+    return 0;
 }
 
 }  // extern "C"

@@ -1704,6 +1704,10 @@ IMAGE_FORMATS_REFERENCE = os.path.join(REFERENCE_DIR, "image_formats.json")
 JPEG_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "baseline_420_q90.jpg")
 JPEG_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_jpeg_1x_blocks8.npy")
 JPEG_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_jpeg_480x270_blocks8.npy")
+# the fixture as an LZW + Predictor 2 TIFF, drawn likewise
+TIFF_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_lzw_pred2.tif")
+TIFF_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_tiff_1x_blocks8.npy")
+TIFF_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_tiff_480x270_blocks8.npy")
 
 
 def make_image_file_scene(w: float, h: float, image_id: int) -> Renders:

@@ -24,6 +24,9 @@ _SIGNATURES = {
     "fd_jpeg_color": ([_P, _P, _P, _I64, _P, _I], _I),
     "fd_gif_lzw": ([_P, _I64, _I, _P, _I64], _I64),
     "fd_qoi_decode": ([_P, _I64, _P, _I64], _I64),
+    "fd_tiff_packbits": ([_P, _I64, _P, _I64], _I64),
+    "fd_tiff_lzw": ([_P, _I64, _P, _I64], _I64),
+    "fd_tiff_predict": ([_P, _I64, _I64, _I, _I, _I, _I, _P], _I),
 }
 
 

@@ -4,19 +4,20 @@ PIL 12.1.0's `Image.open(path).convert("RGBA")` (figdraw_tpu's decode in
 resources.load_image and utils/flippy.py; the port may not import PIL).
 
 Decoded: PNG (utils/png.py), JPEG (utils/jpeg.py), GIF's first frame
-(utils/gif.py), BMP (utils/bmp.py), ICO (utils/ico.py) and QOI
-(utils/qoi.py); their sequential loops run in C++ (csrc/png_unfilter.cpp,
-csrc/image_decode.cpp, built with g++ at first use; a missing toolchain
-raises). TIFF, WebP and PIL's other readers raise NotImplementedError
-naming the format, the path and the ROADMAP item; bytes of no image
-format raise ValueError.
+(utils/gif.py), BMP (utils/bmp.py), ICO (utils/ico.py), QOI
+(utils/qoi.py) and TIFF and BigTIFF's first image (utils/tiff.py); their
+sequential loops run in C++ (csrc/png_unfilter.cpp, csrc/image_decode.cpp,
+built with g++ at first use; a missing toolchain raises). WebP and PIL's
+other readers raise NotImplementedError naming the format, the path and
+the ROADMAP item, as does a TIFF compression or photometric not ported;
+bytes of no image format raise ValueError.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from . import bmp, gif, ico, jpeg, png, qoi
+from . import bmp, gif, ico, jpeg, png, qoi, tiff
 
 NOT_PORTED = ("{} images are not decoded by figdraw_tpu_torch ({}): not ported yet "
               "(ROADMAP.md, module item 'Image formats other than PNG')")
@@ -30,12 +31,15 @@ DECODERS = (
     (b"BM", "BMP", bmp.decode_bmp),
     (b"\x00\x00\x01\x00", "ICO", ico.decode_ico),
     (qoi.MAGIC, "QOI", qoi.decode_qoi),
+    (b"II*\x00", "TIFF", tiff.decode_tiff),
+    (b"MM\x00*", "TIFF", tiff.decode_tiff),
+    (b"II+\x00", "BigTIFF", tiff.decode_tiff),
+    (b"MM\x00+", "BigTIFF", tiff.decode_tiff),
 )
 
 # leading bytes of the formats PIL reads that the port does not decode
 OTHER_FORMATS = (
-    (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "BigTIFF"),
-    (b"MM\x00+", "BigTIFF"), (b"8BPS", "PSD"), (b"DDS ", "DDS"), (b"icns", "ICNS"),
+    (b"8BPS", "PSD"), (b"DDS ", "DDS"), (b"icns", "ICNS"),
     (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"), (b"\xff\x4f\xff\x51", "JPEG 2000"),
     (b"\x01\xda", "SGI"), (b"BLP1", "BLP"), (b"BLP2", "BLP"), (b"#define", "XBM"),
     (b"/* XPM */", "XPM"), (b"SIMPLE", "FITS"), (b"%!PS", "EPS"),
@@ -69,13 +73,13 @@ def decode_image(data: bytes, where: str = "bytes") -> np.ndarray:
         if data.startswith(magic):
             try:
                 return fn(data)
-            except NotImplementedError as exc:  # a JPEG coding process not ported
+            except NotImplementedError as exc:  # a JPEG process or TIFF layout not ported
                 raise NotImplementedError(f"{exc} [{where}]") from None
     name = format_of(data)
     if name:
         raise NotImplementedError(NOT_PORTED.format(name, where))
     raise ValueError(f"{where} is not an image file figdraw_tpu_torch reads "
-                     "(PNG, JPEG, GIF, BMP, ICO or QOI)")
+                     "(PNG, JPEG, GIF, BMP, ICO, QOI or TIFF)")
 
 
 def read_image(path: str) -> np.ndarray:

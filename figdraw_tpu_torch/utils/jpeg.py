@@ -628,6 +628,44 @@ def cmyk_to_rgba(cmyk: np.ndarray) -> np.ndarray:
     return out
 
 
+def _full_planes(frame: Frame, plain: bool) -> list:
+    """Each component's samples, dequantised, transformed and upsampled to
+    the frame's full (H, W) grid."""
+    planes = []
+    for c in frame.components:
+        samples = (idct_plain if plain else idct)(c.coefs, c.qt)
+        method, hx, vy = upsample_method(c, frame.hmax, frame.vmax)
+        planes.append((upsample_plain if plain else upsample)(
+            samples, c.cw, c.ch, frame.width, frame.height, method, hx, vy))
+    return planes
+
+
+def decode_abbreviated(stream: bytes, tables: bytes, ycbcr: bool, sampling: tuple,
+                       plain: bool = False) -> np.ndarray:
+    """A JPEG stream as a TIFF strip or tile holds it: its tables may come
+    apart (JPEGTables, spliced in after the stream's SOI), and its colour
+    space is the container's, not its markers'. (H, W, n) uint8 samples:
+    YCbCr converted to RGB when ycbcr (libjpeg's JCS_YCbCr to JCS_RGB),
+    else each component as coded (JCS_UNKNOWN). As libtiff checks, the
+    first component's sampling factors must be `sampling` and the others'
+    1, 1 (ValueError otherwise)."""
+    if tables:
+        if tables[:2] != b"\xff\xd8" or tables[-2:] != b"\xff\xd9":
+            raise ValueError("malformed JPEG tables: no SOI or EOI marker")
+        stream = tables[:-2] + stream[2:]
+    frame = read_frame(stream, plain)
+    factors = [(c.h, c.v) for c in frame.components]
+    if factors[0] != tuple(sampling) or any(f != (1, 1) for f in factors[1:]):
+        raise ValueError(f"JPEG sampling factors {factors} where the container names "
+                         f"{tuple(sampling)} for the first component and 1, 1 for the others")
+    planes = _full_planes(frame, plain)
+    if ycbcr:
+        if len(planes) != 3:
+            raise ValueError(f"a YCbCr JPEG stream of {len(planes)} components")
+        return (color_plain if plain else color)(*planes, YCC_RGB)
+    return np.stack(planes, -1)
+
+
 def decode_jpeg(data: bytes, plain: bool = False) -> np.ndarray:
     """A JPEG byte string to (H, W, 4) uint8 RGBA, as PIL's
     `Image.open(...).convert("RGBA")`. plain=True runs every stage's plain
@@ -635,12 +673,7 @@ def decode_jpeg(data: bytes, plain: bool = False) -> np.ndarray:
     frame = read_frame(data, plain)
     space = color_space(frame)
     w, h = frame.width, frame.height
-    planes = []
-    for c in frame.components:
-        samples = (idct_plain if plain else idct)(c.coefs, c.qt)
-        method, hx, vy = upsample_method(c, frame.hmax, frame.vmax)
-        planes.append((upsample_plain if plain else upsample)(
-            samples, c.cw, c.ch, w, h, method, hx, vy))
+    planes = _full_planes(frame, plain)
     out = np.full((h, w, 4), 255, np.uint8)
     if space == "L":
         out[..., :3] = planes[0][..., None]

@@ -144,7 +144,7 @@ def test_load_image_without_the_flippy_cache(fixture_png):
     ref.close()
 
 
-@pytest.mark.parametrize("ext", ["webp", "tiff"])
+@pytest.mark.parametrize("ext", ["webp", "ppm"])
 def test_load_image_of_another_format_raises(ext, tmp_path):
     """A format the port does not decode yet (JPEG decodes since
     utils/imagefile.py): NotImplementedError naming the format, the path
@@ -155,7 +155,7 @@ def test_load_image_of_another_format_raises(ext, tmp_path):
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path)
     for cache in (True, False):
         with pytest.raises(NotImplementedError,
-                           match=r"(WebP|TIFF) images .*photo.*Image formats other than PNG"):
+                           match=r"(WebP|PPM) images .*photo.*Image formats other than PNG"):
             resources.load_image(path, flippy_cache=cache)
     assert not os.path.exists(path + ".flippy")
 

@@ -9,22 +9,27 @@ render_3d_overlay_gaussian.png, 800x600 RGBA), with PIL on the CPU host:
   (crops: OS/2 core 8-bit, INFO 24-bit, INFO RLE8 and RLE4, INFO 1-bit,
   V2 16-bit 5-6-5 bitfields, V3 32-bit BGRA bitfields, V4 32-bit BI_RGB
   top-down, V5 4-bit), an ICO with a PNG entry and one with a DIB entry,
-  and a QOI. The card's machine has no PIL: chip_smoke.py decodes these.
+  a QOI, and TIFFs (`tiff_files`: the whole fixture as LZW + Predictor 2,
+  and crops through each compression, layout and pixel kind). The card's
+  machine has no PIL: chip_smoke.py decodes these.
 - `figdraw_tpu_torch/reference/image_formats.json`: under "files", each
   file's sha256 and the sha256 and shape of PIL's decode,
   `Image.open(p).convert("RGBA")`; under "sidecar", the sha256 of the
   .flippy sidecar figdraw_tpu's read_image_cached writes for the baseline
-  JPEG.
-- `reference/example_image_file_jpeg_1x_blocks8.npy` and
-  `reference/photo_wall_jpeg_480x270_blocks8.npy`: 8x8 block means of
-  figdraw_tpu's frames of the image-file scene and of the photo wall at
-  480x270 (12 panels) with the baseline JPEG loaded by its load_image
-  (FigRenderer(atlas_size=512, use_pallas=False), tests/torch_reference.py).
+  JPEG and for the TIFF fixture.
+- `reference/example_image_file_{jpeg,tiff}_1x_blocks8.npy` and
+  `reference/photo_wall_{jpeg,tiff}_480x270_blocks8.npy`: 8x8 block means
+  of figdraw_tpu's frames of the image-file scene and of the photo wall at
+  480x270 (12 panels) with the baseline JPEG or the TIFF fixture loaded by
+  its load_image (FigRenderer(atlas_size=512, use_pallas=False),
+  tests/torch_reference.py).
 
-The BMP builders (`bmp_bytes`, `rle8`, `rle4`) also serve the tests: PIL
-writes only one BMP header kind.
+The BMP builders (`bmp_bytes`, `rle8`, `rle4`) and the TIFF writer
+(`tiff_bytes`, with `packbits`, `lzw` and `jpeg_parts`) also serve the
+tests: PIL writes only one BMP header kind, and no TIFF tiles, planar or
+big-endian files, FillOrder 2 or subsampled JPEG-in-TIFF.
 
-    JAX_PLATFORMS=cpu python tools/make_image_formats.py   (~40 s)
+    JAX_PLATFORMS=cpu python tools/make_image_formats.py   (~60 s)
 """
 
 from __future__ import annotations
@@ -32,11 +37,13 @@ from __future__ import annotations
 import hashlib
 import io
 import json
+import lzma
 import os
 import shutil
 import struct
 import sys
 import tempfile
+import zlib
 
 import numpy as np
 
@@ -45,6 +52,7 @@ FIXTURE = os.path.join(REPO, "tests", "goldens", "render_3d_overlay_gaussian.png
 OUT_DIR = os.path.join(REPO, "figdraw_tpu_torch", "reference", "images")
 DIGESTS = os.path.join(REPO, "figdraw_tpu_torch", "reference", "image_formats.json")
 BASELINE = "baseline_420_q90.jpg"
+TIFF_FIXTURE = "fixture_lzw_pred2.tif"
 
 
 def _pack_rows(pixels: np.ndarray, bits: int) -> np.ndarray:
@@ -153,6 +161,276 @@ def rle4(indices: np.ndarray) -> bytes:
     return _rle(indices, True)
 
 
+# --- TIFF: a writer for the layouts PIL does not write ------------------------
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits: runs of 3 to 128 equal bytes as (1 - n, byte), the rest as
+    literals of up to 128 bytes."""
+    out, lit, i, n = bytearray(), bytearray(), 0, len(data)
+
+    def flush():
+        while lit:
+            chunk = lit[:128]
+            out.append(len(chunk) - 1)
+            out.extend(chunk)
+            del lit[:128]
+
+    while i < n:
+        run = 1
+        while i + run < n and run < 128 and data[i + run] == data[i]:
+            run += 1
+        if run >= 3:
+            flush()
+            out += bytes([(257 - run) & 0xFF, data[i]])
+            i += run
+        else:
+            lit.append(data[i])
+            i += 1
+    flush()
+    return bytes(out)
+
+
+def lzw(data: bytes) -> bytes:
+    """TIFF LZW as libtiff's encoder writes it: codes MSB-first from 9 to 12
+    bits, the width raised one code before the decoder's (the early change),
+    ClearCode first and whenever the table reaches 4094, EOI last at the
+    width the decoder expects after the last code's entry."""
+    out, acc, nacc = bytearray(), 0, 0
+    nbits = 9
+
+    def put(code):
+        nonlocal acc, nacc
+        acc = (acc << nbits) | code
+        nacc += nbits
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+        acc &= (1 << nacc) - 1
+
+    put(256)
+    table, free = {}, 258
+    if data:
+        ent = data[0]
+        for c in data[1:]:
+            key = (ent, c)
+            if key in table:
+                ent = table[key]
+                continue
+            put(ent)
+            ent = c
+            table[key] = free
+            free += 1
+            if free == 4094:
+                put(256)
+                table, free, nbits = {}, 258, 9
+            elif free > (1 << nbits) - 1:
+                nbits += 1
+        put(ent)
+        free += 1
+        if free == 4094:
+            put(256)
+            nbits = 9
+        elif free > (1 << nbits) - 1:
+            nbits += 1
+    put(257)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+_REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+
+def _sample_rows(block: np.ndarray, bits: int, order: str) -> np.ndarray:
+    """(rows, cols, spp) samples to (rows, row bytes): sub-byte samples
+    packed MSB-first with each row padded to a byte, wider ones in the
+    file's byte order."""
+    rows = block.shape[0]
+    if bits < 8:
+        flat = block.reshape(rows, -1).astype(np.uint8)
+        per = 8 // bits
+        pad = -flat.shape[1] % per
+        flat = np.pad(flat, ((0, 0), (0, pad)))
+        shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
+        return (flat.reshape(rows, -1, per) << shifts).sum(axis=2, dtype=np.uint8)
+    dtype = block.dtype.newbyteorder(order) if block.dtype.itemsize > 1 else block.dtype
+    return np.ascontiguousarray(block.astype(dtype)).view(np.uint8).reshape(rows, -1)
+
+
+def _predict(block: np.ndarray, predictor: int, order: str) -> np.ndarray:
+    """A chunk's samples (rows, cols, spp) encoded by libtiff's predictor to
+    (rows, row bytes): 2 differences each sample from the one spp before it
+    in its row, 3 splits each row into byte planes (most significant first)
+    and differences the bytes spp apart."""
+    rows, cols, spp = block.shape
+    if predictor == 2:
+        flat = block.reshape(rows, cols * spp)
+        if flat.dtype.kind != "u":
+            flat = flat.view(f"u{flat.dtype.itemsize}")
+        diff = flat.copy()
+        diff[:, spp:] = flat[:, spp:] - flat[:, :-spp]
+        return _sample_rows(diff.reshape(block.shape), 8 * block.dtype.itemsize, order)
+    nb = block.dtype.itemsize
+    be = np.ascontiguousarray(block.astype(block.dtype.newbyteorder(">")))
+    planes = be.view(np.uint8).reshape(rows, cols * spp, nb).transpose(0, 2, 1)
+    b = planes.reshape(rows, -1).astype(np.int32)
+    d = b.copy()
+    d[:, spp:] = b[:, spp:] - b[:, :-spp]
+    return (d & 0xFF).astype(np.uint8)
+
+
+def _compress(raw: bytes, compression: int) -> bytes:
+    if compression == 1:
+        return raw
+    if compression == 32773:
+        return packbits(raw)
+    if compression == 5:
+        return lzw(raw)
+    if compression in (8, 32946):
+        return zlib.compress(raw, 6)
+    if compression == 34925:
+        return lzma.compress(raw, format=lzma.FORMAT_XZ, check=lzma.CHECK_NONE)
+    raise ValueError(f"no encoder for TIFF compression {compression}")
+
+
+def jpeg_parts(stream: bytes) -> tuple:
+    """A JPEG file split as TIFF keeps it: (the tables: SOI, DQT and DHT
+    segments, EOI; the abbreviated stream: SOI, then every segment but the
+    tables and APPn, from SOF to EOI)."""
+    tables, rest, pos = bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8"), 2
+    while True:
+        code = stream[pos + 1]
+        if code == 0xDA:
+            rest += stream[pos:]
+            return bytes(tables + b"\xff\xd9"), bytes(rest)
+        (n,) = struct.unpack_from(">H", stream, pos + 2)
+        seg = stream[pos: pos + 2 + n]
+        if code in (0xDB, 0xC4):
+            tables += seg
+        elif not 0xE0 <= code <= 0xEF:
+            rest += seg
+        pos += 2 + n
+
+
+_TYPE_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8,
+               13: 4, 16: 8, 17: 8, 18: 8}
+_TYPE_CODES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 11: "f", 12: "d", 13: "I",
+               16: "Q", 17: "q", 18: "Q"}
+
+
+def _field(order: str, ftype: int, values) -> bytes:
+    if ftype in (2, 7) or (ftype == 1 and isinstance(values, bytes)):
+        return bytes(values)
+    if ftype in (5, 10):
+        code = "I" if ftype == 5 else "i"
+        return b"".join(struct.pack(order + code * 2, *v) for v in values)
+    return struct.pack(order + _TYPE_CODES[ftype] * len(values), *values)
+
+
+def tiff_bytes(samples: np.ndarray, photometric: int, bits: int = None, order: str = "<",
+               big: bool = False, compression: int = 1, predictor: int = 1,
+               planar: int = 1, rows_per_strip: int = None, tile: tuple = None,
+               fill_order: int = 1, extra: tuple = (), sample_format: int = None,
+               colormap: np.ndarray = None, jpeg_chunk=None, tags: dict = None,
+               strip_counts: bool = True) -> bytes:
+    """A TIFF file of one image. samples: (h, w) or (h, w, spp) values (uint
+    of bits <= 8 for sub-byte samples, else the dtype written). Strips of
+    rows_per_strip rows (None: one strip, and no RowsPerStrip tag) or tiles
+    of tile = (width, length), edge tiles padded past the image with zeros;
+    planar 2 writes each sample's plane apart; fill_order 2 reverses the bits
+    of every stored byte. jpeg_chunk(block) -> (tables, abbreviated stream)
+    encodes a JPEG chunk (compression 7). tags: {tag: (type, values)} added
+    or replacing the writer's own."""
+    if samples.ndim == 2:
+        samples = samples[..., None]
+    h, w, spp = samples.shape
+    bits = bits or 8 * samples.dtype.itemsize
+    if sample_format is None:
+        sample_format = 3 if samples.dtype.kind == "f" else 2 if samples.dtype.kind == "i" else 1
+    planes = [samples[..., k: k + 1] for k in range(spp)] if planar == 2 else [samples]
+    if tile:
+        cw, ch = tile
+    else:
+        cw, ch = w, rows_per_strip or h
+    chunks, tables = [], None
+    for plane in planes:
+        for y in range(0, h, ch):
+            for x in range(0, w, cw):
+                if tile:
+                    block = np.zeros((ch, cw, plane.shape[2]), plane.dtype)
+                    part = plane[y: y + ch, x: x + cw]
+                    block[: part.shape[0], : part.shape[1]] = part
+                else:
+                    block = plane[y: y + ch]
+                if compression == 7:
+                    tables, data = jpeg_chunk(block)
+                else:
+                    if predictor in (2, 3):
+                        rows = _predict(block, predictor, order)
+                    else:
+                        rows = _sample_rows(block, bits, order)
+                    data = _compress(rows.tobytes(), compression)
+                if fill_order == 2:
+                    data = _REVERSED[np.frombuffer(data, np.uint8)].tobytes()
+                chunks.append(data)
+    off_type = 16 if big else 4
+    fields = {256: (4, (w,)), 257: (4, (h,)), 258: (3, (bits,) * spp),
+              259: (3, (compression,)), 262: (3, (photometric,)), 277: (3, (spp,)),
+              284: (3, (planar,))}
+    if fill_order != 1:
+        fields[266] = (3, (fill_order,))
+    if predictor != 1:
+        fields[317] = (3, (predictor,))
+    if extra:
+        fields[338] = (3, tuple(extra))
+    if sample_format != 1:
+        fields[339] = (3, (sample_format,) * spp)
+    if colormap is not None:
+        fields[320] = (3, tuple(int(v) for v in np.asarray(colormap).T.reshape(-1)))
+    if tables is not None:
+        fields[347] = (7, tables)
+    if tile:
+        fields[322], fields[323] = (3, (cw,)), (3, (ch,))
+        off_tag, count_tag = 324, 325
+    else:
+        if rows_per_strip:
+            fields[278] = (4, (rows_per_strip,))
+        off_tag, count_tag = 273, 279
+    fields.update(tags or {})
+    head = 16 if big else 8
+    offsets, pos = [], head
+    for data in chunks:
+        offsets.append(pos)
+        pos += len(data) + (len(data) & 1)
+    fields[off_tag] = (off_type, tuple(offsets))
+    if strip_counts:
+        fields[count_tag] = (off_type, tuple(len(d) for d in chunks))
+    ifd_at = pos
+    entry, inline = (20, 8) if big else (12, 4)
+    n = len(fields)
+    spill = ifd_at + (8 if big else 2) + n * entry + (8 if big else 4)
+    entries, extra_data = bytearray(), bytearray()
+    for tag in sorted(fields):
+        ftype, values = fields[tag]
+        raw = _field(order, ftype, values)
+        count = len(raw) // _TYPE_SIZES[ftype]
+        if len(raw) <= inline:
+            value = raw + b"\0" * (inline - len(raw))
+        else:
+            value = struct.pack(order + ("Q" if big else "I"), spill + len(extra_data))
+            extra_data += raw + b"\0" * (len(raw) & 1)
+        entries += struct.pack(order + ("HHQ" if big else "HHI"), tag, ftype, count) + value
+    if big:
+        header = (b"II" if order == "<" else b"MM") + struct.pack(order + "HHHQ", 43, 8, 0, ifd_at)
+        ifd = struct.pack(order + "Q", n) + entries + struct.pack(order + "Q", 0)
+    else:
+        header = (b"II" if order == "<" else b"MM") + struct.pack(order + "HI", 42, ifd_at)
+        ifd = struct.pack(order + "H", n) + entries + struct.pack(order + "I", 0)
+    body = b"".join(d + b"\0" * (len(d) & 1) for d in chunks)
+    return header + body + ifd + bytes(extra_data)
+
+
 def _quantized(img, colors: int):
     """PIL's quantisation of an RGB image: (indices, (n, 3) palette)."""
     q = img.quantize(colors)
@@ -213,6 +491,86 @@ def image_files() -> dict:
     save("png_entry.ico", icon, "ICO", sizes=[(64, 64)])
     save("dib_entry.ico", icon, "ICO", sizes=[(48, 48)], bitmap_format="bmp")
     save("image.qoi", src, "QOI")
+    files.update(tiff_files(src))
+    return files
+
+
+def _jpeg_chunk(quality: int, subsampling: str):
+    """jpeg_chunk for tiff_bytes: PIL's JPEG of a chunk of RGB samples,
+    split as TIFF keeps it."""
+    from PIL import Image
+
+    def encode(block):
+        b = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(block)).save(b, "JPEG", quality=quality,
+                                                          subsampling=subsampling)
+        return jpeg_parts(b.getvalue())
+    return encode
+
+
+def tiff_files(src) -> dict:
+    """The stored TIFFs: the fixture as LZW + Predictor 2 (PIL), files PIL
+    writes (uncompressed strips, PackBits, LZMA, float Deflate with
+    Predictor 3, JPEG as RGB and as YCbCr, CMYK, an uncompressed BigTIFF)
+    and files tiff_bytes builds for what PIL does not write (tiles with
+    edge padding, planar, big-endian, FillOrder 2, strips that do not
+    divide the height, associated alpha, an Orientation, JPEG at 2x2
+    subsampling, a compressed BigTIFF), mostly of 61x47 crops."""
+    from PIL import Image
+
+    files = {}
+
+    def save(name, img, **kw):
+        b = io.BytesIO()
+        img.save(b, "TIFF", **kw)
+        files[name] = b.getvalue()
+
+    save(TIFF_FIXTURE, src, compression="tiff_lzw", tiffinfo={317: 2})
+    crop = src.crop((360, 270, 421, 317))  # 61x47
+    px = np.asarray(crop)
+    rgb = np.ascontiguousarray(px[..., :3])
+    grey = np.asarray(crop.convert("L"))
+    save("raw_rgb_strips.tif", crop.convert("RGB"), tiffinfo={278: 5})
+    save("packbits_rgba.tif", crop, compression="packbits")
+    save("lzma_pred2_grey.tif", crop.convert("L"), compression="lzma", tiffinfo={317: 2})
+    ramp = (grey.astype(np.float32) * 1.25 - 30.5)
+    ramp[0, :4] = (np.nan, np.inf, -np.inf, 254.99)
+    save("deflate_pred3_float.tif", Image.fromarray(ramp, "F"),
+         compression="tiff_adobe_deflate", tiffinfo={317: 3})
+    wide = src.crop((320, 240, 448, 336))  # 128x96: six strips of 16 rows
+    save("jpeg_rgb.tif", wide.convert("RGB"), compression="jpeg", quality=85,
+         tiffinfo={278: 16})
+    save("jpeg_ycbcr_1x1.tif", wide.convert("YCbCr"), compression="jpeg", quality=85,
+         tiffinfo={278: 16})
+    files["jpeg_ycbcr_2x2.tif"] = tiff_bytes(
+        np.asarray(wide.convert("RGB")), 6, compression=7, rows_per_strip=32,
+        jpeg_chunk=_jpeg_chunk(85, "4:2:0"), tags={530: (3, (2, 2))})
+    save("cmyk_lzw.tif", crop.convert("CMYK"), compression="tiff_lzw")
+    save("bigtiff_raw.tif", crop, big_tiff=True)  # PIL writes BigTIFF uncompressed only
+    files["bigtiff_lzw_tiles.tif"] = tiff_bytes(px, 2, big=True, compression=5, predictor=2,
+                                                extra=(2,), tile=(32, 32))
+    files["tiles_deflate_pred2.tif"] = tiff_bytes(rgb, 2, compression=8, predictor=2,
+                                                  tile=(32, 16))
+    files["planar_lzw_rgba.tif"] = tiff_bytes(px, 2, compression=5, planar=2, extra=(2,),
+                                              rows_per_strip=16)
+    g16 = grey.astype(np.uint16) * 3 + np.arange(61, dtype=np.uint16)
+    files["mm_packbits_grey16.tif"] = tiff_bytes(g16, 1, order=">", compression=32773,
+                                                 rows_per_strip=8)
+    files["mm_deflate_pred2_rgb16.tif"] = tiff_bytes(rgb.astype(np.uint16) * 257, 2,
+                                                     order=">", compression=8, predictor=2)
+    files["fill2_bilevel_lzw.tif"] = tiff_bytes((grey < 128).astype(np.uint8), 0, bits=1,
+                                                compression=5, fill_order=2,
+                                                rows_per_strip=10)
+    idx4, pal4 = _quantized(crop.convert("RGB"), 16)
+    cmap = pal4.astype(np.uint16) * 257 + np.arange(16, dtype=np.uint16)[:, None]
+    files["palette4_uneven_strips.tif"] = tiff_bytes(idx4, 3, bits=4, compression=5,
+                                                     rows_per_strip=6, colormap=cmap)
+    alpha = px[..., 3:].astype(np.uint16)
+    alpha[::3, ::5] = 96
+    premul = np.concatenate([(rgb * alpha // 255).astype(np.uint8), alpha.astype(np.uint8)], -1)
+    files["assoc_alpha_deflate.tif"] = tiff_bytes(premul, 2, compression=32946, extra=(1,))
+    files["orientation6_lzw.tif"] = tiff_bytes(rgb, 2, compression=5,
+                                               tags={274: (3, (6,))})
     return files
 
 
@@ -229,14 +587,14 @@ def digests(files: dict) -> dict:
     return out
 
 
-def sidecar_digest() -> str:
-    """The sha256 of figdraw_tpu's .flippy sidecar of the baseline JPEG."""
+def sidecar_digest(name: str) -> str:
+    """The sha256 of figdraw_tpu's .flippy sidecar of the stored file `name`."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_reference import jax_flippy
 
     with tempfile.TemporaryDirectory() as td:
-        path = os.path.join(td, BASELINE)
-        shutil.copyfile(os.path.join(OUT_DIR, BASELINE), path)
+        path = os.path.join(td, name)
+        shutil.copyfile(os.path.join(OUT_DIR, name), path)
         jax_flippy().read_image_cached(path)
         with open(path + ".flippy", "rb") as fh:
             return hashlib.sha256(fh.read()).hexdigest()
@@ -244,24 +602,26 @@ def sidecar_digest() -> str:
 
 def write_frames() -> None:
     """figdraw_tpu's block means of the image-file scene and the photo wall
-    from the baseline JPEG."""
+    from the baseline JPEG and from the TIFF fixture."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_reference import block_means, jax_image_file_frame, jax_photo_wall_frame
 
     from figdraw_tpu_torch.scenes import (
-        JPEG_FILE_REFERENCE, JPEG_WALL_REFERENCE, PHOTO_WALL_SMALL,
+        JPEG_FILE_REFERENCE, JPEG_WALL_REFERENCE, PHOTO_WALL_SMALL, TIFF_FILE_REFERENCE,
+        TIFF_WALL_REFERENCE,
     )
 
-    with tempfile.TemporaryDirectory() as td:
-        path = os.path.join(td, BASELINE)
-        shutil.copyfile(os.path.join(OUT_DIR, BASELINE), path)
-        np.save(JPEG_FILE_REFERENCE,
-                block_means(jax_image_file_frame(path, "1x")).astype(np.float32))
-        print(f"wrote {JPEG_FILE_REFERENCE}")
-        w, h, n = PHOTO_WALL_SMALL
-        np.save(JPEG_WALL_REFERENCE,
-                block_means(jax_photo_wall_frame(path, w, h, n)).astype(np.float32))
-        print(f"wrote {JPEG_WALL_REFERENCE}")
+    for name, scene_ref, wall_ref in ((BASELINE, JPEG_FILE_REFERENCE, JPEG_WALL_REFERENCE),
+                                      (TIFF_FIXTURE, TIFF_FILE_REFERENCE, TIFF_WALL_REFERENCE)):
+        with tempfile.TemporaryDirectory() as td:
+            path = os.path.join(td, name)
+            shutil.copyfile(os.path.join(OUT_DIR, name), path)
+            np.save(scene_ref, block_means(jax_image_file_frame(path, "1x")).astype(np.float32))
+            print(f"wrote {scene_ref}")
+            w, h, n = PHOTO_WALL_SMALL
+            np.save(wall_ref,
+                    block_means(jax_photo_wall_frame(path, w, h, n)).astype(np.float32))
+            print(f"wrote {wall_ref}")
 
 
 def main() -> None:
@@ -272,7 +632,8 @@ def main() -> None:
     for name, data in files.items():
         with open(os.path.join(OUT_DIR, name), "wb") as fh:
             fh.write(data)
-    stored = {"files": digests(files), "sidecar": {BASELINE: sidecar_digest()}}
+    stored = {"files": digests(files),
+              "sidecar": {name: sidecar_digest(name) for name in (BASELINE, TIFF_FIXTURE)}}
     with open(DIGESTS, "w") as fh:
         json.dump(stored, fh, indent=1)
         fh.write("\n")
