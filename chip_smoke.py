@@ -95,12 +95,13 @@ FigRenderer(device="cuda").render_frame or execute_plan:
   path, K4-atlas; and a 1080p photo wall of the loaded image (48 panels,
   12 clipped: the megakernel with the atlas), with the host times of the
   pipeline's steps and render_frame's perf span means; the stored files
-  of the JPEG, GIF, BMP, ICO, QOI and TIFF decoders
-  (csrc/image_decode.cpp, g++) against PIL's stored digests, their C++
-  stages against the plain twins, and the baseline JPEG and the fixture's
-  LZW + Predictor 2 TIFF loaded cold and warm, each drawn in the
-  image-file scene (K1-atlas) and the photo wall (K4-atlas) within 1e-5
-  of figdraw_tpu's stored block means;
+  of the JPEG, GIF, BMP, ICO, QOI, TIFF and WebP decoders
+  (csrc/image_decode.cpp, csrc/webp_decode.cpp, g++) against PIL's stored
+  digests, their C++ stages against the plain twins, and the baseline
+  JPEG, the fixture's LZW + Predictor 2 TIFF and its lossy WebP at q 90
+  loaded cold and warm, each drawn in the image-file scene (K1-atlas) and
+  the photo wall (K4-atlas) within 1e-5 of figdraw_tpu's stored block
+  means, and the fixture's lossless WebP equal to the PNG;
 - the C ABI for external hosts (capi_phase, lines `check 14`): the
   headline scene fed row by row through the scene-building calls
   fd_renders_* (capi_scene), walked by fd_flatten_renders and exported by
@@ -3248,7 +3249,7 @@ def blurred_phase(tag: str, dev) -> dict:
 
 
 IMAGE_REPS = 5  # repeats of each host step of the image-file pipeline
-FILE_TOL = 1e-5  # a stored JPEG's or TIFF's frames vs figdraw_tpu's block means
+FILE_TOL = 1e-5  # a stored JPEG's, TIFF's or WebP's frames vs figdraw_tpu's block means
 
 
 def host_ms(fn, reps: int = IMAGE_REPS):
@@ -3329,20 +3330,25 @@ def image_formats_check(tag: str) -> dict:
     host ms; the helper's stages against their plain twins: each JPEG's
     IDCT, upsampling and colour conversion on its whole frame, the entropy
     decoding on the 64x48 progressive crop with restarts (its whole plain
-    decode), GIF's LZW and QOI's ops on the first CROP_PIXELS pixels, and
+    decode), GIF's LZW and QOI's ops on the first CROP_PIXELS pixels,
     each TIFF's PackBits or LZW and predictor on every strip or tile (and
-    its whole plain decode). Returns {file: (cold ms, warm ms, shape)}."""
+    its whole plain decode), and each WebP's stages (webp.stage_pairs:
+    fd_webp_vp8 and fd_webp_vp8l whole on a frame of at most CROP_PIXELS
+    pixels, fd_webp_upsample and fd_webp_alpha_unfilter on a 64x48 crop;
+    the whole plain decode of each such frame). Returns {file: (cold ms,
+    warm ms, shape)}."""
     import hashlib
 
     import numpy as np
 
     from figdraw_tpu_torch.scenes import IMAGE_FORMATS_DIR, IMAGE_FORMATS_REFERENCE
-    from figdraw_tpu_torch.utils import gif, image_lib, imagefile, jpeg, qoi, tiff
+    from figdraw_tpu_torch.utils import gif, image_lib, imagefile, jpeg, qoi, tiff, webp
 
     with open(IMAGE_FORMATS_REFERENCE) as fh:
         stored = json.load(fh)["files"]
     t0 = time.perf_counter()
-    image_lib.load()  # the g++ build, kept out of the first file's cold decode
+    image_lib.load()  # the g++ builds, kept out of the first file's cold decode
+    image_lib.load_webp()
     build_ms = (time.perf_counter() - t0) * 1e3
     times, stages = {}, {}
     for name, ref in sorted(stored.items()):
@@ -3403,12 +3409,23 @@ def image_formats_check(tag: str) -> dict:
             if not np.array_equal(tiff.decode_tiff(data, plain=True), px):
                 fail(f"image formats: {name}: the plain decode differs from the helper's")
             held.append("plain decode")
+        elif name.endswith(".webp"):
+            for stage, got, want in webp.stage_pairs(data, CROP_PIXELS):
+                if not np.array_equal(got, want):
+                    fail(f"image formats: {name}: fd_webp_{stage} differs from its plain twin")
+                if stage not in held:
+                    held.append(stage)
+            box = webp.read_frame(data).box
+            if box[2] * box[3] <= CROP_PIXELS:
+                if not np.array_equal(webp.decode_webp(data, plain=True), px):
+                    fail(f"image formats: {name}: the plain decode differs from the helper's")
+                held.append("plain decode")
         if held:
             stages[name] = held
-    print(f"check 13: the {len(stored)} stored image files (JPEG, GIF, BMP, ICO, QOI, TIFF) "
+    print(f"check 13: the {len(stored)} stored image files (JPEG, GIF, BMP, ICO, QOI, TIFF, WebP) "
           f"decode to PIL's stored sha256 through the C++ helper; stages held to their "
           f"plain twins: {json.dumps(stages)}", flush=True)
-    print(f"times: image decodes (the helper's g++ build {build_ms:.1f} ms first), host ms "
+    print(f"times: image decodes (the helpers' g++ builds {build_ms:.1f} ms first), host ms "
           f"cold (first) / warm (median of {IMAGE_REPS}): "
           + "; ".join(f"{k} {c:.3f} / {w:.3f} ({s[1]}x{s[0]})"
                       for k, (c, w, s) in times.items()) + f" {tag}", flush=True)
@@ -3432,14 +3449,15 @@ def image_files_phase(tag: str, dev) -> dict:
     kernels against their plain versions on its own inputs, and the SDF
     image modes 13-16 counted where they reach an atlas kernel (the SDF
     scenes' tapes also through the megakernel with the atlas, a check
-    beside the main path). The same from the stored baseline JPEG and
-    the stored LZW + Predictor 2 TIFF of the fixture (image_formats_check
-    first: every stored format against PIL's digests): load_image cold
-    and warm against figdraw_tpu's sidecar digest, the image-file scene on
-    K1-atlas and the photo wall on K4-atlas, each within FILE_TOL of
-    figdraw_tpu's stored block means. Host times of each step of the
-    pipeline, each photo wall's ms/frame with its host and device split
-    and its perf span means."""
+    beside the main path). The same from the stored baseline JPEG, the
+    stored LZW + Predictor 2 TIFF and the stored lossy WebP (q 90) of the
+    fixture (image_formats_check first: every stored format against PIL's
+    digests): load_image cold and warm against figdraw_tpu's sidecar
+    digest, the image-file scene on K1-atlas and the photo wall on
+    K4-atlas, each within FILE_TOL of figdraw_tpu's stored block means;
+    the fixture's lossless WebP decodes to the PNG's pixels. Host times of
+    each step of the pipeline, each photo wall's ms/frame with its host
+    and device split and its perf span means."""
     import dataclasses
     import hashlib
     import shutil
@@ -3459,9 +3477,10 @@ def image_files_phase(tag: str, dev) -> dict:
         IMAGE_FIXTURE_REFERENCE, IMAGE_FORMATS_REFERENCE, JPEG_FILE_REFERENCE, JPEG_FIXTURE,
         JPEG_WALL_REFERENCE, PHOTO_WALL_PANELS, PHOTO_WALL_REFERENCE, PHOTO_WALL_SIZE,
         PHOTO_WALL_SMALL, TIFF_FILE_REFERENCE, TIFF_FIXTURE, TIFF_WALL_REFERENCE,
-        example_reference_path, make_image_file_scene, make_loaded_photo_wall,
+        WEBP_FILE_REFERENCE, WEBP_FIXTURE, WEBP_WALL_REFERENCE, example_reference_path,
+        make_image_file_scene, make_loaded_photo_wall,
     )
-    from figdraw_tpu_torch.utils import flippy, perf, png
+    from figdraw_tpu_torch.utils import flippy, imagefile, perf, png
 
     t_phase = time.perf_counter()
     with open(IMAGE_FIXTURE_REFERENCE) as fh:
@@ -3565,6 +3584,14 @@ def image_files_phase(tag: str, dev) -> dict:
         if hashlib.sha256(np.ascontiguousarray(timage).tobytes()).hexdigest() != \
                 stored["decoded_sha256"]:
             fail("image files: the TIFF of the fixture decodes to other pixels than the PNG")
+        wpath, wcold_ms, wwarm_ms, _wimage = cold_warm(WEBP_FIXTURE, "lossy WebP (q 90)")
+        lossless = imagefile.read_image(os.path.join(os.path.dirname(WEBP_FIXTURE),
+                                                     "fixture_lossless.webp"))
+        if hashlib.sha256(lossless.tobytes()).hexdigest() != stored["decoded_sha256"]:
+            fail("image files: the lossless WebP of the fixture decodes to other pixels than "
+                 "the PNG")
+        print("check 13: the fixture's lossless WebP decodes to the PNG's pixels (sha256)",
+              flush=True)
 
         # --- render_frame: the image-file scene and the SDF scenes in each form ---
         def checked_frame(what, make, ref_path, tol=TOL):
@@ -3664,7 +3691,8 @@ def image_files_phase(tag: str, dev) -> dict:
             return split_frames(fren, fscene, vec2(*IMAGE_FILE_SIZE))
 
         file_frames = {"jpeg": file_scene(jpath, "jpeg", JPEG_FILE_REFERENCE),
-                       "tiff": file_scene(tpath, "tiff", TIFF_FILE_REFERENCE)}
+                       "tiff": file_scene(tpath, "tiff", TIFF_FILE_REFERENCE),
+                       "webp": file_scene(wpath, "webp", WEBP_FILE_REFERENCE)}
 
         # --- the 1080p photo wall of each loaded image ---
         def photo_wall(src, small_ref, what, tol=TOL):
@@ -3710,7 +3738,8 @@ def image_files_phase(tag: str, dev) -> dict:
 
         walls = {"png": photo_wall(path, PHOTO_WALL_REFERENCE, "photo wall"),
                  "jpeg": photo_wall(jpath, JPEG_WALL_REFERENCE, "photo wall jpeg", FILE_TOL),
-                 "tiff": photo_wall(tpath, TIFF_WALL_REFERENCE, "photo wall tiff", FILE_TOL)}
+                 "tiff": photo_wall(tpath, TIFF_WALL_REFERENCE, "photo wall tiff", FILE_TOL),
+                 "webp": photo_wall(wpath, WEBP_WALL_REFERENCE, "photo wall webp", FILE_TOL)}
         for ref in refs:
             ref.close()
     med = statistics.median
@@ -3737,7 +3766,8 @@ def image_files_phase(tag: str, dev) -> dict:
           f"{len(raw) / unzip_ms / 1e3:.1f} MB/s; load_image cold {cold_ms:.3f} ms, "
           f"warm {warm_ms:.3f} ms; the baseline JPEG's load_image cold {jcold_ms:.3f} ms, "
           f"warm {jwarm_ms:.3f} ms; the LZW + Predictor 2 TIFF's load_image cold "
-          f"{tcold_ms:.3f} ms, warm {twarm_ms:.3f} ms {tag}", flush=True)
+          f"{tcold_ms:.3f} ms, warm {twarm_ms:.3f} ms; the lossy WebP's load_image cold "
+          f"{wcold_ms:.3f} ms, warm {wwarm_ms:.3f} ms {tag}", flush=True)
     for src, (f_ms, f_host, f_dev) in file_frames.items():
         print(f"times: image_file scene from the {src.upper()}, 800x600 on K1-atlas: median "
               f"{f_ms:.3f} ms/frame = host (messages, walk, plan) {med(f_host):.3f} ms "

@@ -12,7 +12,8 @@ per-id and cache generations let the consumer drop stale messages.
 
 `load_image` reads an image file through the .flippy sidecar cache
 (utils/flippy.py) and the port's own decoders (utils/imagefile.py: PNG,
-JPEG, GIF, BMP, ICO and QOI; another format raises NotImplementedError)
+JPEG, GIF, BMP, ICO, QOI, TIFF and WebP; another format raises
+NotImplementedError)
 and publishes it with its mip chain.
 A host cache keeps each published image (and a loaded image's chain) by
 id, as figdraw_tpu's does: put, replace and the clears keep it current,
@@ -183,9 +184,9 @@ def load_image(path: str, bus: Optional[ImageMessageBus] = None,
     (utils.flippy.read_image_cached); the message carries the chain as
     `mips`. flippy_cache=False (or mipmapped=False) decodes the file's
     pixels alone. A second load of a cached id reads no file. PNG, JPEG,
-    GIF, BMP, ICO and QOI decode (utils.imagefile); TIFF, WebP and PIL's
-    other formats raise NotImplementedError; without g++ the decoders and
-    the flippy cache raise."""
+    GIF, BMP, ICO, QOI, TIFF and WebP decode (utils.imagefile); AVIF and
+    PIL's other formats raise NotImplementedError; without g++ the decoders
+    and the flippy cache raise."""
     image_id = image_id_from_path(path)
     with _image_cache_lock:
         cached = _image_cache.get(image_id)

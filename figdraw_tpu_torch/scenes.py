@@ -1708,6 +1708,10 @@ JPEG_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_jpeg_480x270_block
 TIFF_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_lzw_pred2.tif")
 TIFF_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_tiff_1x_blocks8.npy")
 TIFF_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_tiff_480x270_blocks8.npy")
+# the fixture as a lossy WebP at q 90, drawn likewise
+WEBP_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_q90.webp")
+WEBP_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_webp_1x_blocks8.npy")
+WEBP_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_webp_480x270_blocks8.npy")
 
 
 def make_image_file_scene(w: float, h: float, image_id: int) -> Renders:

@@ -1,4 +1,5 @@
-"""The image decoders' host library (csrc/image_decode.cpp), built with g++
+"""The image decoders' host libraries (csrc/image_decode.cpp, and
+csrc/webp_decode.cpp with its tables csrc/webp_tables.h), built with g++
 by utils.gxx at first use and bound through ctypes. A missing toolchain or
 a failed build raises: no decoder falls back to its plain Python twin."""
 
@@ -10,11 +11,14 @@ import threading
 
 from . import gxx
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "image_decode.cpp")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+_SRC = os.path.join(_CSRC, "image_decode.cpp")
+_WEBP_SRC = os.path.join(_CSRC, "webp_decode.cpp")
+_WEBP_DEPS = (os.path.join(_CSRC, "webp_tables.h"),)
 _FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 _lock = threading.Lock()
 _lib = None
+_webp = None
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
@@ -28,6 +32,20 @@ _SIGNATURES = {
     "fd_tiff_lzw": ([_P, _I64, _P, _I64], _I64),
     "fd_tiff_predict": ([_P, _I64, _I64, _I, _I, _I, _I, _P], _I),
 }
+_WEBP_SIGNATURES = {
+    "fd_webp_vp8": ([_P, _I64, _I, _I, _P, _P, _P], _I),
+    "fd_webp_upsample": ([_P, _P, _P, _I, _I, _P], _I),
+    "fd_webp_vp8l": ([_P, _I64, _I, _I, _P], _I),
+    "fd_webp_alpha_unfilter": ([_P, _I, _I, _I, _P], _I),
+}
+
+
+def _bind(path: str, signatures: dict) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    for name, (args, res) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, res
+    return lib
 
 
 def load() -> ctypes.CDLL:
@@ -35,9 +53,15 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(gxx.build(_SRC, "figdraw_image_decode", _FLAGS))
-            for name, (args, res) in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes, fn.restype = args, res
-            _lib = lib
+            _lib = _bind(gxx.build(_SRC, "figdraw_image_decode", _FLAGS), _SIGNATURES)
         return _lib
+
+
+def load_webp() -> ctypes.CDLL:
+    """The WebP decoder's library, built and bound at first use."""
+    global _webp
+    with _lock:
+        if _webp is None:
+            _webp = _bind(gxx.build(_WEBP_SRC, "figdraw_webp_decode", _FLAGS, _WEBP_DEPS),
+                          _WEBP_SIGNATURES)
+        return _webp

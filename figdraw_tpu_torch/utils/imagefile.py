@@ -5,24 +5,28 @@ resources.load_image and utils/flippy.py; the port may not import PIL).
 
 Decoded: PNG (utils/png.py), JPEG (utils/jpeg.py), GIF's first frame
 (utils/gif.py), BMP (utils/bmp.py), ICO (utils/ico.py), QOI
-(utils/qoi.py) and TIFF and BigTIFF's first image (utils/tiff.py); their
+(utils/qoi.py), TIFF and BigTIFF's first image (utils/tiff.py) and WebP's
+first frame, lossy, lossless or animated (utils/webp.py); their
 sequential loops run in C++ (csrc/png_unfilter.cpp, csrc/image_decode.cpp,
-built with g++ at first use; a missing toolchain raises). WebP and PIL's
-other readers raise NotImplementedError naming the format, the path and
-the ROADMAP item, as does a TIFF compression or photometric not ported;
-bytes of no image format raise ValueError.
+csrc/webp_decode.cpp, built with g++ at first use; a missing toolchain
+raises). AVIF and PIL's other readers raise NotImplementedError naming the
+format, the path and the ROADMAP item, as does a TIFF compression or
+photometric not ported, a WebP inter frame, a VP8L version other than 0
+or an ALPH compression other than none and lossless; bytes of no image
+format raise ValueError.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from . import bmp, gif, ico, jpeg, png, qoi, tiff
+from . import bmp, gif, ico, jpeg, png, qoi, tiff, webp
 
 NOT_PORTED = ("{} images are not decoded by figdraw_tpu_torch ({}): not ported yet "
               "(ROADMAP.md, module item 'Image formats other than PNG')")
 
-# leading bytes -> (format, decoder)
+# leading bytes -> (format, decoder); a RIFF file is WebP only with the
+# WEBP form type at byte 8 (is_webp), so AVI and WAV files do not reach it
 DECODERS = (
     (png.SIGNATURE, "PNG", png.decode_png),
     (b"\xff\xd8\xff", "JPEG", jpeg.decode_jpeg),
@@ -35,7 +39,25 @@ DECODERS = (
     (b"MM\x00*", "TIFF", tiff.decode_tiff),
     (b"II+\x00", "BigTIFF", tiff.decode_tiff),
     (b"MM\x00+", "BigTIFF", tiff.decode_tiff),
+    (b"RIFF", "WebP", webp.decode_webp),
 )
+
+AVIF_BRANDS = (b"avif", b"avis")
+
+
+def _matches(data: bytes, magic: bytes, name: str) -> bool:
+    return data.startswith(magic) and (name != "WebP" or data[8:12] == b"WEBP")
+
+
+def is_avif(data: bytes) -> bool:
+    """An ISO-BMFF file whose `ftyp` box names an AVIF brand, major or
+    compatible (what PIL's AvifImagePlugin accepts)."""
+    if len(data) < 16 or data[4:8] != b"ftyp":
+        return False
+    size = int.from_bytes(data[:4], "big")
+    end = min(len(data), size if size >= 16 else 16)
+    brands = [data[8:12]] + [data[i: i + 4] for i in range(16, end - 3, 4)]
+    return any(b in AVIF_BRANDS for b in brands)
 
 # leading bytes of the formats PIL reads that the port does not decode
 OTHER_FORMATS = (
@@ -52,13 +74,13 @@ OTHER_FORMATS = (
 def format_of(data: bytes) -> str:
     """The format a byte string's leading bytes name, or "" for none."""
     for magic, name, _fn in DECODERS:
-        if data.startswith(magic):
+        if _matches(data, magic, name):
             return name
     for magic, name in OTHER_FORMATS:
         if data.startswith(magic):
             return name
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "WebP"
+    if is_avif(data):
+        return "AVIF"
     if len(data) > 2 and data[:1] == b"P" and data[1:2] in b"1234567" and data[2:3].isspace():
         return "PPM"
     if len(data) > 1 and data[0] == 10 and data[1] in (0, 2, 3, 5):
@@ -69,17 +91,17 @@ def format_of(data: bytes) -> str:
 def decode_image(data: bytes, where: str = "bytes") -> np.ndarray:
     """An image file's bytes to (H, W, 4) uint8 RGBA. `where` names the
     source in the errors (read_image passes the path)."""
-    for magic, _name, fn in DECODERS:
-        if data.startswith(magic):
+    for magic, name, fn in DECODERS:
+        if _matches(data, magic, name):
             try:
                 return fn(data)
-            except NotImplementedError as exc:  # a JPEG process or TIFF layout not ported
+            except NotImplementedError as exc:  # a JPEG process, TIFF layout or WebP part not ported
                 raise NotImplementedError(f"{exc} [{where}]") from None
     name = format_of(data)
     if name:
         raise NotImplementedError(NOT_PORTED.format(name, where))
     raise ValueError(f"{where} is not an image file figdraw_tpu_torch reads "
-                     "(PNG, JPEG, GIF, BMP, ICO, QOI or TIFF)")
+                     "(PNG, JPEG, GIF, BMP, ICO, QOI, TIFF or WebP)")
 
 
 def read_image(path: str) -> np.ndarray:

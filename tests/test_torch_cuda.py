@@ -441,6 +441,40 @@ def test_image_frame_matches_plain_executor(variant, dev):
         assert float((frame - ref).abs().max()) <= TOL
 
 
+def test_webp_image_file_frame_matches_plain_executor(dev, tmp_path):
+    """The image-file scene (800x600) with the stored lossy WebP fixture
+    loaded by load_image: K1-atlas once a frame, within 1/255 of the same
+    executor with the plain versions, and within 1e-5 of figdraw_tpu's
+    stored block means from the same file."""
+    import shutil
+
+    from figdraw_tpu_torch.scenes import (
+        IMAGE_FILE_SIZE, WEBP_FILE_REFERENCE, WEBP_FIXTURE, make_image_file_scene,
+        render_image_file,
+    )
+
+    path = str(tmp_path / "fixture_q90.webp")
+    shutil.copyfile(WEBP_FIXTURE, path)
+    ren, frame, ref = render_image_file(
+        lambda ps: FigRenderer(atlas_size=512, device="cuda", pixel_scale=ps), path, "1x")
+    scene = make_image_file_scene(*IMAGE_FILE_SIZE, ref.id)
+    w, h = IMAGE_FILE_SIZE
+    counts = _counts()
+    frame = ren.render_frame(scene, vec2(w, h))
+    assert tuple(b - a for a, b in zip(counts, _counts())) == (0, 1, 0, 0, 0)
+    plan = plan_execution(ren.flatten(scene, vec2(w, h)))
+    run = get_frame_executor(plan.structure, h, w, plan.n_masks, False, plan.tile_h)
+    plain = run(torch.from_numpy(plan.combo).to(dev), None,
+                draw=raster.draw_pass_planar_prebinned_plain,
+                draw_mask=raster.draw_pass_mask_prebinned_plain, atlas=ren._device_atlas())
+    torch.cuda.synchronize()
+    assert float((frame - plain).abs().max()) <= TOL
+    got = frame.cpu().numpy()
+    blocks = got.reshape(h // 8, 8, w // 8, 8, 4).mean(axis=(1, 3))
+    assert float(np.abs(blocks - np.load(WEBP_FILE_REFERENCE)).max()) <= 1e-5
+    ref.close()
+
+
 def test_text_table_matches_plain_executor(dev):
     """The stored table of text in clipped cells (1200x800) on the
     megakernel with the atlas: one K4-atlas launch, the frame the plain

@@ -144,18 +144,18 @@ def test_load_image_without_the_flippy_cache(fixture_png):
     ref.close()
 
 
-@pytest.mark.parametrize("ext", ["webp", "ppm"])
+@pytest.mark.parametrize("ext", ["avif", "ppm"])
 def test_load_image_of_another_format_raises(ext, tmp_path):
     """A format the port does not decode yet (JPEG decodes since
-    utils/imagefile.py): NotImplementedError naming the format, the path
-    and the ROADMAP item, and no sidecar."""
+    utils/imagefile.py, WebP since utils/webp.py): NotImplementedError
+    naming the format, the path and the ROADMAP item, and no sidecar."""
     from PIL import Image
 
     path = str(tmp_path / f"photo.{ext}")
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path)
     for cache in (True, False):
         with pytest.raises(NotImplementedError,
-                           match=r"(WebP|PPM) images .*photo.*Image formats other than PNG"):
+                           match=r"(AVIF|PPM) images .*photo.*Image formats other than PNG"):
             resources.load_image(path, flippy_cache=cache)
     assert not os.path.exists(path + ".flippy")
 

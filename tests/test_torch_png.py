@@ -290,11 +290,12 @@ def test_bad_signature_and_filter_raise():
         png.decode_png(data)
 
 
-@pytest.mark.parametrize("fmt", ["PPM", "SGI", "PCX", "DDS", "WEBP"])
+@pytest.mark.parametrize("fmt", ["PPM", "SGI", "PCX", "DDS", "AVIF"])
 def test_other_formats_raise_not_implemented(fmt, tmp_path):
-    """Formats PIL reads that the port does not decode (JPEG, GIF, BMP and
-    TIFF decode since utils/imagefile.py: tests/test_torch_jpeg.py,
-    test_torch_tiff.py and the others hold them to PIL)."""
+    """Formats PIL reads that the port does not decode (JPEG, GIF, BMP,
+    TIFF and WebP decode since utils/imagefile.py: tests/test_torch_jpeg.py,
+    test_torch_tiff.py, test_torch_webp.py and the others hold them to
+    PIL)."""
     path = str(tmp_path / f"x.{fmt.lower()}")
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path, format=fmt)
     with pytest.raises(NotImplementedError, match="Image formats other than PNG"):

@@ -10,30 +10,44 @@ render_3d_overlay_gaussian.png, 800x600 RGBA), with PIL on the CPU host:
   V2 16-bit 5-6-5 bitfields, V3 32-bit BGRA bitfields, V4 32-bit BI_RGB
   top-down, V5 4-bit), an ICO with a PNG entry and one with a DIB entry,
   a QOI, and TIFFs (`tiff_files`: the whole fixture as LZW + Predictor 2,
-  and crops through each compression, layout and pixel kind). The card's
-  machine has no PIL: chip_smoke.py decodes these.
+  and crops through each compression, layout and pixel kind), and WebPs
+  (`webp_files`: the fixture lossy at q 90 and lossless, and crops: lossy
+  at q 5, 50 and 100 with methods 0 and 6, 1x1 and 17x3, with ALPH at
+  alpha qualities 100 and 30, lossless photo, grey and 2 to 200 colours
+  (every pixel bundling),
+  lossless `exact` with transparent pixels, an animation whose first frame
+  is smaller than the canvas and offset in it; and through libwebp's own
+  encoder, `libwebp_encode`, the options PIL's save does not set: the
+  simple loop filter, no filter, sharpness 7, one and four segments, eight
+  token partitions, raw ALPH and each ALPH filter, and lossless tiles that
+  take all 14 predictor modes). The card's machine has
+  no PIL: chip_smoke.py decodes these.
 - `figdraw_tpu_torch/reference/image_formats.json`: under "files", each
   file's sha256 and the sha256 and shape of PIL's decode,
   `Image.open(p).convert("RGBA")`; under "sidecar", the sha256 of the
   .flippy sidecar figdraw_tpu's read_image_cached writes for the baseline
-  JPEG and for the TIFF fixture.
-- `reference/example_image_file_{jpeg,tiff}_1x_blocks8.npy` and
-  `reference/photo_wall_{jpeg,tiff}_480x270_blocks8.npy`: 8x8 block means
-  of figdraw_tpu's frames of the image-file scene and of the photo wall at
-  480x270 (12 panels) with the baseline JPEG or the TIFF fixture loaded by
-  its load_image (FigRenderer(atlas_size=512, use_pallas=False),
-  tests/torch_reference.py).
+  JPEG, the TIFF fixture and the lossy WebP fixture.
+- `reference/example_image_file_{jpeg,tiff,webp}_1x_blocks8.npy` and
+  `reference/photo_wall_{jpeg,tiff,webp}_480x270_blocks8.npy`: 8x8 block
+  means of figdraw_tpu's frames of the image-file scene and of the photo
+  wall at 480x270 (12 panels) with the baseline JPEG, the TIFF fixture or
+  the lossy WebP fixture loaded by its load_image
+  (FigRenderer(atlas_size=512, use_pallas=False), tests/torch_reference.py).
 
-The BMP builders (`bmp_bytes`, `rle8`, `rle4`) and the TIFF writer
-(`tiff_bytes`, with `packbits`, `lzw` and `jpeg_parts`) also serve the
-tests: PIL writes only one BMP header kind, and no TIFF tiles, planar or
-big-endian files, FillOrder 2 or subsampled JPEG-in-TIFF.
+The BMP builders (`bmp_bytes`, `rle8`, `rle4`), the TIFF writer
+(`tiff_bytes`, with `packbits`, `lzw` and `jpeg_parts`) and the WebP
+writers (`libwebp_encode`, `riff`, `anim_bytes`) also serve the tests: PIL
+writes only one BMP header kind, no TIFF tiles, planar or big-endian
+files, FillOrder 2 or subsampled JPEG-in-TIFF, and sets none of libwebp's
+filter, segment, partition or alpha options.
 
     JAX_PLATFORMS=cpu python tools/make_image_formats.py   (~60 s)
 """
 
 from __future__ import annotations
 
+import ctypes
+import glob
 import hashlib
 import io
 import json
@@ -53,6 +67,7 @@ OUT_DIR = os.path.join(REPO, "figdraw_tpu_torch", "reference", "images")
 DIGESTS = os.path.join(REPO, "figdraw_tpu_torch", "reference", "image_formats.json")
 BASELINE = "baseline_420_q90.jpg"
 TIFF_FIXTURE = "fixture_lzw_pred2.tif"
+WEBP_FIXTURE = "fixture_q90.webp"
 
 
 def _pack_rows(pixels: np.ndarray, bits: int) -> np.ndarray:
@@ -492,6 +507,7 @@ def image_files() -> dict:
     save("dib_entry.ico", icon, "ICO", sizes=[(48, 48)], bitmap_format="bmp")
     save("image.qoi", src, "QOI")
     files.update(tiff_files(src))
+    files.update(webp_files(src))
     return files
 
 
@@ -574,6 +590,249 @@ def tiff_files(src) -> dict:
     return files
 
 
+# --- WebP -----------------------------------------------------------------
+
+_ABI = 0x0200  # libwebp's encoder ABI: its major version, 2, must match
+
+
+class _WebPConfig(ctypes.Structure):
+    """libwebp's WebPConfig (src/webp/encode.h)."""
+    _fields_ = [(n, ctypes.c_float if n in ("quality", "target_PSNR") else ctypes.c_int)
+                for n in ("lossless quality method image_hint target_size target_PSNR segments "
+                          "sns_strength filter_strength filter_sharpness filter_type autofilter "
+                          "alpha_compression alpha_filtering alpha_quality pass show_compressed "
+                          "preprocessing partitions partition_limit emulate_jpeg_size "
+                          "thread_level low_memory near_lossless exact use_delta_palette "
+                          "use_sharp_yuv qmin qmax").split()]
+
+
+_P = ctypes.c_void_p
+
+
+class _WebPPicture(ctypes.Structure):
+    """libwebp's WebPPicture (src/webp/encode.h)."""
+    _fields_ = [("use_argb", ctypes.c_int), ("colorspace", ctypes.c_int),
+                ("width", ctypes.c_int), ("height", ctypes.c_int), ("y", _P), ("u", _P),
+                ("v", _P), ("y_stride", ctypes.c_int), ("uv_stride", ctypes.c_int), ("a", _P),
+                ("a_stride", ctypes.c_int), ("pad1", ctypes.c_uint32 * 2), ("argb", _P),
+                ("argb_stride", ctypes.c_int), ("pad2", ctypes.c_uint32 * 3), ("writer", _P),
+                ("custom_ptr", _P), ("extra_info_type", ctypes.c_int), ("extra_info", _P),
+                ("stats", _P), ("error_code", ctypes.c_int), ("progress_hook", _P),
+                ("user_data", _P), ("pad3", ctypes.c_uint32 * 3), ("pad4", _P), ("pad5", _P),
+                ("pad6", ctypes.c_uint32 * 8), ("memory_", _P), ("memory_argb_", _P),
+                ("pad7", _P * 2)]
+
+
+class _WebPMemoryWriter(ctypes.Structure):
+    _fields_ = [("mem", _P), ("size", ctypes.c_size_t), ("max_size", ctypes.c_size_t),
+                ("pad", ctypes.c_uint32)]
+
+
+_LIBWEBP = []
+
+
+def _libwebp():
+    """PIL's libwebp through ctypes (libsharpyuv loaded first, globally)."""
+    if not _LIBWEBP:
+        from make_webp_tables import libwebp_path
+
+        path = libwebp_path()
+        sharp = glob.glob(os.path.join(os.path.dirname(path), "libsharpyuv-*.so*"))
+        for dep in sharp:
+            ctypes.CDLL(dep, mode=ctypes.RTLD_GLOBAL)
+        lib = ctypes.CDLL(path)
+        for name, args, res in (
+                ("WebPConfigInitInternal", [_P, ctypes.c_int, ctypes.c_float, ctypes.c_int],
+                 ctypes.c_int),
+                ("WebPValidateConfig", [_P], ctypes.c_int),
+                ("WebPPictureInitInternal", [_P, ctypes.c_int], ctypes.c_int),
+                ("WebPPictureImportRGBA", [_P, _P, ctypes.c_int], ctypes.c_int),
+                ("WebPMemoryWriterInit", [_P], None), ("WebPMemoryWriterClear", [_P], None),
+                ("WebPPictureFree", [_P], None), ("WebPEncode", [_P, _P], ctypes.c_int)):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, res
+        _LIBWEBP.append(lib)
+    return _LIBWEBP[0]
+
+
+def libwebp_encode(rgba: np.ndarray, quality: float = 75.0, **options) -> bytes:
+    """A WebP file of (h, w, 4) uint8 RGBA from libwebp's WebPEncode with a
+    WebPConfig of the default preset at `quality` and the given fields
+    (filter_type, filter_strength, filter_sharpness, segments, partitions,
+    method, alpha_compression, alpha_filtering, lossless, ...), validated
+    by WebPValidateConfig."""
+    lib = _libwebp()
+    cfg = _WebPConfig()
+    if not lib.WebPConfigInitInternal(ctypes.byref(cfg), 0, quality, _ABI):
+        raise RuntimeError("WebPConfigInit failed")
+    for key, value in options.items():
+        setattr(cfg, key, value)
+    if not lib.WebPValidateConfig(ctypes.byref(cfg)):
+        raise ValueError(f"libwebp refuses the config {options}")
+    pic = _WebPPicture()
+    if not lib.WebPPictureInitInternal(ctypes.byref(pic), _ABI):
+        raise RuntimeError("WebPPictureInit failed")
+    px = np.ascontiguousarray(rgba, np.uint8)
+    pic.height, pic.width = px.shape[:2]
+    pic.use_argb = 1 if cfg.lossless else 0
+    writer = _WebPMemoryWriter()
+    lib.WebPMemoryWriterInit(ctypes.byref(writer))
+    try:
+        if not lib.WebPPictureImportRGBA(ctypes.byref(pic), px.ctypes.data, 4 * pic.width):
+            raise RuntimeError("WebPPictureImportRGBA failed")
+        pic.writer = ctypes.cast(lib.WebPMemoryWrite, _P).value
+        pic.custom_ptr = ctypes.addressof(writer)
+        if not lib.WebPEncode(ctypes.byref(cfg), ctypes.byref(pic)):
+            raise RuntimeError(f"WebPEncode failed with error {pic.error_code}")
+        return ctypes.string_at(writer.mem, writer.size)
+    finally:
+        lib.WebPPictureFree(ctypes.byref(pic))
+        lib.WebPMemoryWriterClear(ctypes.byref(writer))
+
+
+def riff(chunks) -> bytes:
+    """A RIFF WEBP file of (fourcc, payload) chunks, odd payloads padded."""
+    body = b"WEBP" + b"".join(
+        tag + struct.pack("<I", len(data)) + data + b"\0" * (len(data) & 1)
+        for tag, data in chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def webp_chunks(data: bytes) -> list:
+    """A WebP file's top-level (fourcc, payload) chunks."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        size = struct.unpack_from("<I", data, pos + 4)[0]
+        out.append((data[pos: pos + 4], data[pos + 8: pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def _u24(v: int) -> bytes:
+    return struct.pack("<I", v)[:3]
+
+
+def _bitstream_size(tag: bytes, data: bytes):
+    """(width, height) of a VP8 or VP8L chunk's bitstream."""
+    if tag == b"VP8 ":
+        w, h = struct.unpack_from("<HH", data, 6)
+        return w & 0x3FFF, h & 0x3FFF
+    bits = struct.unpack_from("<I", data, 1)[0]
+    return (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
+
+
+def anim_bytes(canvas, frames, alpha: bool = True, background=(0, 0, 0, 0),
+               loops: int = 0) -> bytes:
+    """An animated WebP: VP8X (the alpha flag as given), ANIM, and one ANMF
+    a frame; frames are (x, y, still WebP file, duration ms, flags byte:
+    bit 1 no blend, bit 0 dispose) and each takes its still file's image
+    chunks (ALPH and VP8, or VP8L) at offset (x, y), both even."""
+    w, h = canvas
+    flags = 0x02 | (0x10 if alpha else 0)
+    chunks = [(b"VP8X", bytes([flags, 0, 0, 0]) + _u24(w - 1) + _u24(h - 1)),
+              (b"ANIM", bytes(background[2::-1]) + bytes([background[3]])
+               + struct.pack("<H", loops))]
+    for x, y, still, duration, bits in frames:
+        image = [(t, d) for t, d in webp_chunks(still) if t in (b"ALPH", b"VP8 ", b"VP8L")]
+        fw, fh = _bitstream_size(*image[-1])
+        head = _u24(x // 2) + _u24(y // 2) + _u24(fw - 1) + _u24(fh - 1) + _u24(duration)
+        sub = b"".join(t + struct.pack("<I", len(d)) + d + b"\0" * (len(d) & 1)
+                       for t, d in image)
+        chunks.append((b"ANMF", head + bytes([bits]) + sub))
+    return riff(chunks)
+
+
+def _pil_webp(img, **kw) -> bytes:
+    b = io.BytesIO()
+    img.save(b, "WEBP", **kw)
+    return b.getvalue()
+
+
+def alpha_patterns(h: int, w: int) -> dict:
+    """Alpha planes on which libwebp's alpha encoder picks each filter:
+    "wave" vertical (at alpha_filtering 1 and 2), "blobs" gradient and
+    "half" horizontal (at alpha_filtering 2)."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    return {"wave": (np.sin(xx / 3.0) * 60 + 128 + yy).astype(np.uint8),
+            "blobs": ((np.sin(xx / 5.0) * np.cos(yy / 4.0) * 100) + 128).astype(np.uint8),
+            "half": np.where(xx + yy < 50, 255, 0).astype(np.uint8)}
+
+
+def predictor_tiles(seed: int = 26, size: int = 64, tile: int = 16) -> np.ndarray:
+    """(size, size, 4) opaque tiles of ramps, products, noise and near-black
+    noise, on which libwebp's lossless encoder at method 6 and quality 100
+    picks each of the 14 predictor modes (seed 26)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    out = np.zeros((size, size, 4), np.int64)
+    for i in range(size // tile):
+        for j in range(size // tile):
+            kind = rng.integers(0, 7)
+            full = [xx + yy, xx - yy, xx * 2, yy * 3, rng.integers(0, 256, (size, size)),
+                    (xx * yy) // 8, rng.integers(0, 6, (size, size))][kind]
+            blk = full[i * tile: (i + 1) * tile, j * tile: (j + 1) * tile]
+            for c in range(3):
+                out[i * tile: (i + 1) * tile, j * tile: (j + 1) * tile, c] = (
+                    blk + (40 * c if kind != 6 else 0) + rng.integers(0, 4, blk.shape)) % 256
+    out[..., 3] = 255
+    return out.astype(np.uint8)
+
+
+def webp_files(src) -> dict:
+    """The stored WebPs: the fixture at q 90 and lossless (PIL), crops PIL
+    writes (lossy at three qualities and two methods, odd sizes, with
+    ALPH, lossless of several kinds), an animation built from PIL's
+    stills, and libwebp_encode's files for the options PIL does not set."""
+    from PIL import Image
+
+    files = {WEBP_FIXTURE: _pil_webp(src.convert("RGB"), quality=90),
+             "fixture_lossless.webp": _pil_webp(src, lossless=True)}
+    crop = src.crop((300, 200, 361, 247))  # 61x47 of detail
+    rgb = crop.convert("RGB")
+    for q in (5, 50, 100):
+        for m in (0, 6):
+            files[f"lossy_q{q}_m{m}.webp"] = _pil_webp(rgb, quality=q, method=m)
+    files["lossy_1x1.webp"] = _pil_webp(rgb.crop((20, 20, 21, 21)), quality=80)
+    files["lossy_17x3.webp"] = _pil_webp(rgb.crop((5, 9, 22, 12)), quality=80)
+    px = np.asarray(crop)
+    pats = alpha_patterns(*px.shape[:2])
+    rgba = px.copy()
+    rgba[..., 3] = pats["blobs"]
+    for aq in (100, 30):
+        files[f"alpha_aq{aq}.webp"] = _pil_webp(Image.fromarray(rgba), quality=50,
+                                                alpha_quality=aq)
+    files["lossless_photo.webp"] = _pil_webp(crop, lossless=True)
+    files["lossless_grey.webp"] = _pil_webp(crop.convert("L"), lossless=True)
+    for n in (2, 4, 16, 32, 200):
+        files[f"lossless_{n}_colours.webp"] = _pil_webp(rgb.quantize(n).convert("RGB"),
+                                                        lossless=True)
+    clear = px.copy()
+    clear[::3, ::2, 3] = 0
+    files["lossless_exact.webp"] = _pil_webp(Image.fromarray(clear), lossless=True, exact=True)
+    first = _pil_webp(Image.fromarray(rgba[4:34, 6:46]), quality=60)
+    second = _pil_webp(crop, lossless=True)
+    files["anim_offset_first.webp"] = anim_bytes(
+        (61, 47), [(6, 4, first, 100, 0x02), (0, 0, second, 100, 0)],
+        background=(200, 30, 60, 255), loops=3)
+    # libwebp's encoder options, on the crop (with alpha where ALPH is meant)
+    opaque = np.ascontiguousarray(px)
+    files["vp8_simple_filter.webp"] = libwebp_encode(opaque, filter_type=0)
+    files["vp8_no_filter.webp"] = libwebp_encode(opaque, filter_strength=0)
+    files["vp8_sharpness7.webp"] = libwebp_encode(opaque, filter_sharpness=7)
+    files["vp8_segments1.webp"] = libwebp_encode(opaque, segments=1)
+    files["vp8_segments4.webp"] = libwebp_encode(opaque, segments=4, sns_strength=100)
+    tall = np.asarray(src.crop((300, 100, 364, 260)))  # ten macroblock rows
+    files["vp8_partitions8.webp"] = libwebp_encode(tall, partitions=3, method=0)
+    files["lossless_predictors.webp"] = libwebp_encode(predictor_tiles(), quality=100,
+                                                       lossless=1, method=6)
+    files["alph_raw.webp"] = libwebp_encode(rgba, alpha_compression=0)
+    for filt, pat in ((0, "blobs"), (1, "wave"), (2, "blobs"), (2, "half")):
+        a = px.copy()
+        a[..., 3] = pats[pat]
+        files[f"alph_filtering{filt}_{pat}.webp"] = libwebp_encode(a, alpha_filtering=filt)
+    return files
+
+
 def digests(files: dict) -> dict:
     """Each file's sha256 and PIL's RGBA decode's sha256 and shape."""
     from PIL import Image
@@ -602,17 +861,18 @@ def sidecar_digest(name: str) -> str:
 
 def write_frames() -> None:
     """figdraw_tpu's block means of the image-file scene and the photo wall
-    from the baseline JPEG and from the TIFF fixture."""
+    from the baseline JPEG, the TIFF fixture and the lossy WebP fixture."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_reference import block_means, jax_image_file_frame, jax_photo_wall_frame
 
     from figdraw_tpu_torch.scenes import (
         JPEG_FILE_REFERENCE, JPEG_WALL_REFERENCE, PHOTO_WALL_SMALL, TIFF_FILE_REFERENCE,
-        TIFF_WALL_REFERENCE,
+        TIFF_WALL_REFERENCE, WEBP_FILE_REFERENCE, WEBP_WALL_REFERENCE,
     )
 
     for name, scene_ref, wall_ref in ((BASELINE, JPEG_FILE_REFERENCE, JPEG_WALL_REFERENCE),
-                                      (TIFF_FIXTURE, TIFF_FILE_REFERENCE, TIFF_WALL_REFERENCE)):
+                                      (TIFF_FIXTURE, TIFF_FILE_REFERENCE, TIFF_WALL_REFERENCE),
+                                      (WEBP_FIXTURE, WEBP_FILE_REFERENCE, WEBP_WALL_REFERENCE)):
         with tempfile.TemporaryDirectory() as td:
             path = os.path.join(td, name)
             shutil.copyfile(os.path.join(OUT_DIR, name), path)
@@ -633,7 +893,8 @@ def main() -> None:
         with open(os.path.join(OUT_DIR, name), "wb") as fh:
             fh.write(data)
     stored = {"files": digests(files),
-              "sidecar": {name: sidecar_digest(name) for name in (BASELINE, TIFF_FIXTURE)}}
+              "sidecar": {name: sidecar_digest(name)
+                          for name in (BASELINE, TIFF_FIXTURE, WEBP_FIXTURE)}}
     with open(DIGESTS, "w") as fh:
         json.dump(stored, fh, indent=1)
         fh.write("\n")
