@@ -116,6 +116,16 @@ FigRenderer(device="cuda").render_frame or execute_plan:
   each patched tape a full re-flatten's byte for byte; and the C examples
   native/examples/{scene,shim,typeset}_demo.c built with gcc against the
   port's libraries and run;
+- WOFF and VARC faces (woff_varc_phase, lines `check 17`, after the CFF
+  and variable faces of fonts_phase, lines `check 15`): FigPortSans-VF.woff
+  (inflated by text/woff.py) and FigPortSans-VARC.ttf (variable composites,
+  text/varc.py) against reference/fonts.json: every glyph's outline and
+  advance digests at 7 locations, bench_text from each through
+  render_frame (K1-atlas; the VARC face's accented lines), the VARC face's
+  text table on the megakernel with the atlas (K4-atlas), each kernel
+  within 1e-5 of its plain version, the WOFF face's instance pack, and the
+  face load, a VARC glyph's outline, the cold glyph and warm ms/frame
+  beside FigPort Sans VF's;
 - rendering across several devices (sharded_phase, lines `check 16`), on
   meshes of [cuda:0] * n (one card runs every band): ShardedFigRenderer on
   the headline in 4 bands of 272 rows (the banded blur X6 on its swap path)
@@ -4372,179 +4382,180 @@ def frameloop_phases(tag: str, dev) -> dict:
 
 
 FONT_PHASE_TOL = 3e-4  # K1-atlas and K4-atlas against their plain versions, fonts phase
+NEW_FACE_TOL = 1e-5  # the same for the WOFF and VARC faces' scenes (check 17)
+# the faces of the WOFF and VARC phase (lines `check 17`); the fonts phase
+# (`check 15`) takes the others of scenes.FONT_FACES
+NEW_FACES = ("FigPortSans-VF.woff", "FigPortSans-VARC.ttf")
 
 
-def fonts_phase(tag: str, dev, host: dict) -> dict:
-    """CFF and variable faces on the card's host and through the atlas
-    kernels (lines `check 15`), from the FigPort Sans faces in the checkout
-    (figdraw_tpu_torch/fonts: CFF, glyf + gvar/HVAR/avar, CFF2 + HVAR/avar)
-    and reference/fonts.json, which figdraw_tpu wrote on the CPU:
+def _font_refs() -> dict:
+    from figdraw_tpu_torch.scenes import FONTS_REFERENCE
 
-    a. every glyph of the three faces through the port's reader at the
-       default and at three locations of each axis (scenes.FONT_LOCATIONS):
-       the digests of the outlines and advances against the stored ones;
-    b. bench_text's scene (1200x800, 36 lines at 15 px) from the CFF face
-       and from each variable face at wdth 75 and at wdth 125 with slnt -12
-       (scenes.FONT_TEXT_CASES): the packed combo and the atlas against the
-       stored digests, FRAMES frames through render_frame with the counts
-       set to 0 just before and read just after (K1-atlas and one front end
-       a frame), K1-atlas against its plain version on the frame's own
-       inputs, the frame against the stored block means, and the two
-       instances of each variable face drawing different frames;
-    c. the text table (180x6 at 1200x800) from the CFF2 face at wdth 90,
-       slnt -6, walked and planned by the port: its tape and atlas against
-       the stored digests, TREE_FRAMES frames of its plan on the megakernel
-       with the atlas, K4-atlas against its plain version, the block means;
-    d. the C typesetter's instance packs of the glyf variable face at two
-       locations against the stored sha256, and bench_text's 36 strings
-       typeset with them, glyph for glyph with the Python typesetter.
+    with open(FONTS_REFERENCE) as fh:
+        return json.load(fh)
 
-    Each face's cold typesetting, cold glyph raster and warm ms/frame print
-    beside the bundled DejaVuSans's (the text-host phase's)."""
+
+def _variations(loc) -> tuple:
+    from figdraw_tpu_torch.text.typefaces import FontVariation
+
+    return tuple(FontVariation(t, v) for t, v in loc)
+
+
+def font_outlines_check(face: str, refs: dict, check: str, tag: str) -> dict:
+    """Every glyph of a face at each of scenes.FONT_LOCATIONS through the
+    port's reader: the outline and advance digests against the stored
+    ones (figdraw_tpu's), with the face's load and an outline's cost."""
     import hashlib
 
+    from figdraw_tpu_torch.scenes import FONT_LOCATIONS, font_case_key, outline_digests
+    from figdraw_tpu_torch.text.typefaces import bundled_font_path, get_typeface, load_typeface
+
+    path = bundled_font_path(face)
+    with open(path, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()
+    if digest != refs["faces"][face]["sha256"]:
+        fail(f"{face}'s sha256 is {digest}, not the stored one")
+    t0 = time.perf_counter()
+    tf = get_typeface(load_typeface(path))
+    load_ms = (time.perf_counter() - t0) * 1e3
+    n = len(tf._glyph_order)
+    bad, t0 = [], time.perf_counter()
+    for loc in FONT_LOCATIONS:
+        key = font_case_key(face, loc)
+        want = refs["faces"][face]["outlines"][key]
+        if outline_digests(tf, _variations(loc)) != (want["paths"], want["advances"]):
+            bad.append(key)
+    per_glyph_ms = (time.perf_counter() - t0) * 1e3 / (n * len(FONT_LOCATIONS))
+    print(f"{check}: {face} ({len(refs['faces'][face]['outlines'])} locations x {n} "
+          f"glyphs, sha256 as stored): outline and advance digests "
+          f"{'equal to' if not bad else 'DIFFER from'} figdraw_tpu's at every location"
+          f"{'' if not bad else ' but ' + str(bad)}; face load {load_ms:.3f} ms, an "
+          f"outline with its advance {per_glyph_ms:.4f} ms {tag}", flush=True)
+    if bad:
+        fail(f"{face}: outlines or advances differ from figdraw_tpu's at {bad}")
+    return {"load_ms": load_ms, "outline_ms": per_glyph_ms}
+
+
+def font_text_case(face: str, loc, refs: dict, dev, host: dict, check: str, tol: float,
+                   tag: str, beside: str = "DejaVuSans TTF") -> tuple:
+    """bench_text's scene (1200x800, 36 lines at 15 px; the face's lines
+    from scenes.font_text) from a face at a location: the packed combo and
+    the atlas against the stored digests, FRAMES frames through
+    render_frame with the counts set to 0 just before and read just after
+    (K1-atlas and one front end a frame), K1-atlas against its plain
+    version on the frame's own inputs, the frame against the stored block
+    means. Returns (its numbers, its frame)."""
     import numpy as np
     import torch
 
     from figdraw_tpu_torch import Color, FigRenderer, fill, rgba, vec2
-    from figdraw_tpu_torch.executor import get_frame_executor, get_mega_executor
-    from figdraw_tpu_torch.ops import mega, raster
-    from figdraw_tpu_torch.plan import pack_walked_tape, plan_execution
+    from figdraw_tpu_torch.executor import get_frame_executor
+    from figdraw_tpu_torch.ops import raster
     from figdraw_tpu_torch.scenes import (
-        FONT_FACES, FONT_LOCATIONS, FONT_PACK_CASES, FONT_TABLE_CASE, FONT_TEXT_CASES,
-        FONTS_REFERENCE, array_digest, font_blocks_path, font_case_key,
-        make_text_scene, make_text_table_scene, outline_digests,
+        array_digest, font_blocks_path, font_case_key, font_text, make_text_scene,
     )
-    from figdraw_tpu_torch.text import layout, native_pack, native_typeset
-    from figdraw_tpu_torch.text.typefaces import (
-        FigFont, FontVariation, bundled_font_path, get_typeface, load_typeface,
-    )
+    from figdraw_tpu_torch.text.typefaces import bundled_font_path, load_typeface
 
     med = statistics.median
-    with open(FONTS_REFERENCE) as fh:
-        refs = json.load(fh)
-    variations = lambda loc: tuple(FontVariation(t, v) for t, v in loc)
-    out = {"faces": {}, "text": {}, "launches": {}, "bin_launches": {}, "borderline": {}}
-
-    # --- a. outlines and advances at each location ---
-    for face in FONT_FACES:
-        path = bundled_font_path(face)
-        with open(path, "rb") as fh:
-            digest = hashlib.sha256(fh.read()).hexdigest()
-        if digest != refs["faces"][face]["sha256"]:
-            fail(f"{face}'s sha256 is {digest}, not the stored one")
-        t0 = time.perf_counter()
-        tf = get_typeface(load_typeface(path))
-        load_ms = (time.perf_counter() - t0) * 1e3
-        n = len(tf._glyph_order)
-        bad, t0 = [], time.perf_counter()
-        for loc in FONT_LOCATIONS:
-            key = font_case_key(face, loc)
-            want = refs["faces"][face]["outlines"][key]
-            if outline_digests(tf, variations(loc)) != (want["paths"], want["advances"]):
-                bad.append(key)
-        per_glyph_ms = (time.perf_counter() - t0) * 1e3 / (n * len(FONT_LOCATIONS))
-        print(f"check 15: {face} ({len(refs['faces'][face]['outlines'])} locations x {n} "
-              f"glyphs, sha256 as stored): outline and advance digests "
-              f"{'equal to' if not bad else 'DIFFER from'} figdraw_tpu's at every location"
-              f"{'' if not bad else ' but ' + str(bad)}; face load {load_ms:.3f} ms, an "
-              f"outline with its advance {per_glyph_ms:.4f} ms {tag}", flush=True)
-        if bad:
-            fail(f"{face}: outlines or advances differ from figdraw_tpu's at {bad}")
-        out["faces"][face] = {"load_ms": load_ms, "outline_ms": per_glyph_ms}
-
-    # --- b. bench_text's scene from each face ---
+    key = font_case_key(face, loc)
     ink = fill(rgba(20, 20, 30, 255))
     size = vec2(1200, 800)
-    frames = {}
-    for face, loc in FONT_TEXT_CASES:
-        key = font_case_key(face, loc)
-        tid = load_typeface(bundled_font_path(face))
-        t0 = time.perf_counter()
-        scene, n_glyphs = make_text_scene(tid, ink, 0, variations=variations(loc))
-        cold_ms = (time.perf_counter() - t0) * 1e3
-        ren = FigRenderer(atlas_size=512, device="cuda")
-        before = len(ren.atlas.entries)
-        t0 = time.perf_counter()
-        ren._ensure_packed_glyphs(scene)
-        raster_ms = (time.perf_counter() - t0) * 1e3
-        n_raster = len(ren.atlas.entries) - before
-        plan = ren._walk_plan(scene, size, True, Color(1.0, 1.0, 1.0, 1.0))
-        want = refs["text"][key]
-        same = (array_digest(plan.combo) == want["combo"],
-                array_digest(ren.atlas.data) == want["atlas"])
-        print(f"check 15: bench_text from {key}: {n_glyphs} glyphs, packed combo "
-              f"{plan.combo.shape} {'equal' if same[0] else 'DIFFERS'} to figdraw_tpu's "
-              f"byte for byte (its stored digest), atlas {'equal' if same[1] else 'DIFFERS'}",
-              flush=True)
-        if not all(same):
-            fail(f"bench_text from {key} differs from figdraw_tpu's combo or atlas")
-        ren.render_frame(scene, size)  # the first frame uploads the atlas
-        torch.cuda.synchronize()
-        zero_counts()
-        total_ms = timed_frames(f"fonts {key}", lambda: ren.render_frame(scene, size),
-                                (800, 1200, 4))
-        counts = launch_counts()
-        bins = binning_launches(f"fonts {key}", FRAMES)
-        frame = ren.last_frame
-        print(f"check 15: bench_text from {key}, {FRAMES} frames through render_frame on "
-              f"cuda, finite; launches {counts} (expected {(0, FRAMES, 0, 0, 0)}); binning "
-              f"{bins}", flush=True)
-        if counts != (0, FRAMES, 0, 0, 0):
-            fail(f"fonts {key} launched {counts}")
-        border = binning_check(f"fonts {key}", lambda: ren.render_frame(scene, size))
-        run = get_frame_executor(plan.structure, plan.height, plan.width, plan.n_masks,
-                                 plan.has_init_frame, plan.tile_h)
-        combo = torch.from_numpy(plan.combo).to(dev, copy=True)
-        atlas = ren._device_atlas()
-        errs, calls = [], []
-        run(combo, None, atlas=atlas,
-            draw=compared(raster.draw_pass_planar_prebinned,
-                          raster.draw_pass_planar_prebinned_plain, errs, calls,
-                          f"fonts {key}"))
-        ref = run(combo, None, atlas=atlas, draw=raster.draw_pass_planar_prebinned_plain)
-        torch.cuda.synchronize()
-        frame_err = float((frame - ref).abs().max())
-        err_ref = float(np.abs(block_means(frame.cpu().numpy())
-                               - np.load(font_blocks_path(key))).max())
-        print(f"check 15: bench_text from {key}: K1-atlas vs plain max |diff| "
-              f"{max(errs):.3e} (tol {FONT_PHASE_TOL:.0e}), frame vs the plain executor "
-              f"{frame_err:.3e}, frame vs figdraw_tpu's (8x8 block means) {err_ref:.3e} "
-              f"(tol {TOL:.3e})", flush=True)
-        if not (max(errs) <= FONT_PHASE_TOL and frame_err <= FONT_PHASE_TOL
-                and err_ref <= TOL):
-            fail(f"fonts {key}: kernel, frame or reference differs ({max(errs)}, "
-                 f"{frame_err}, {err_ref})")
-        frames[key] = frame.clone()
-        out["launches"][key] = counts[1]
-        out["bin_launches"][key] = bins
-        out["borderline"][key] = border
-        out["text"][key] = {"typeset_cold_ms": cold_ms, "raster_ms": raster_ms,
-                            "glyphs_rastered": n_raster,
-                            "raster_ms_per_glyph": raster_ms / max(n_raster, 1),
-                            "ms_per_frame": med(total_ms), "err": max(max(errs), frame_err),
-                            "ref_err": err_ref}
-        print(f"times: fonts, bench_text from {key}: typeset cold {cold_ms:.3f} ms "
-              f"(DejaVuSans TTF {host['typeset_cold_ms']:.3f}), glyph raster cold "
-              f"{raster_ms / max(n_raster, 1):.3f} ms a glyph for {n_raster} glyphs "
-              f"(DejaVuSans TTF {host['raster_ms_per_glyph']:.3f}), warm "
-              f"{med(total_ms):.3f} ms/frame (render_frame + sync, median of {FRAMES}; "
-              f"DejaVuSans TTF {host['ms_per_frame']:.3f}) {tag}", flush=True)
-    for face in ("FigPortSans-VF.ttf", "FigPortSans-VF.otf"):
-        a, b = (frames[font_case_key(f, loc)] for f, loc in FONT_TEXT_CASES if f == face)
-        apart = float((a - b).abs().max())
-        print(f"check 15: {face}'s two instances draw different frames: max |diff| "
-              f"{apart:.3f}", flush=True)
-        if not apart > 0.1:
-            fail(f"{face}'s instances drew the same frame")
+    tid = load_typeface(bundled_font_path(face))
+    t0 = time.perf_counter()
+    scene, n_glyphs = make_text_scene(tid, ink, 0, variations=_variations(loc),
+                                      text=font_text(face)[0])
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    ren = FigRenderer(atlas_size=512, device="cuda")
+    before = len(ren.atlas.entries)
+    t0 = time.perf_counter()
+    ren._ensure_packed_glyphs(scene)
+    raster_ms = (time.perf_counter() - t0) * 1e3
+    n_raster = len(ren.atlas.entries) - before
+    plan = ren._walk_plan(scene, size, True, Color(1.0, 1.0, 1.0, 1.0))
+    want = refs["text"][key]
+    same = (array_digest(plan.combo) == want["combo"],
+            array_digest(ren.atlas.data) == want["atlas"])
+    print(f"{check}: bench_text from {key}: {n_glyphs} glyphs, packed combo "
+          f"{plan.combo.shape} {'equal' if same[0] else 'DIFFERS'} to figdraw_tpu's "
+          f"byte for byte (its stored digest), atlas {'equal' if same[1] else 'DIFFERS'}",
+          flush=True)
+    if not all(same):
+        fail(f"bench_text from {key} differs from figdraw_tpu's combo or atlas")
+    ren.render_frame(scene, size)  # the first frame uploads the atlas
+    torch.cuda.synchronize()
+    zero_counts()
+    total_ms = timed_frames(f"fonts {key}", lambda: ren.render_frame(scene, size),
+                            (800, 1200, 4))
+    counts = launch_counts()
+    bins = binning_launches(f"fonts {key}", FRAMES)
+    frame = ren.last_frame
+    print(f"{check}: bench_text from {key}, {FRAMES} frames through render_frame on "
+          f"cuda, finite; launches {counts} (expected {(0, FRAMES, 0, 0, 0)}); binning "
+          f"{bins}", flush=True)
+    if counts != (0, FRAMES, 0, 0, 0):
+        fail(f"fonts {key} launched {counts}")
+    border = binning_check(f"fonts {key}", lambda: ren.render_frame(scene, size))
+    run = get_frame_executor(plan.structure, plan.height, plan.width, plan.n_masks,
+                             plan.has_init_frame, plan.tile_h)
+    combo = torch.from_numpy(plan.combo).to(dev, copy=True)
+    atlas = ren._device_atlas()
+    errs, calls = [], []
+    run(combo, None, atlas=atlas,
+        draw=compared(raster.draw_pass_planar_prebinned,
+                      raster.draw_pass_planar_prebinned_plain, errs, calls,
+                      f"fonts {key}"))
+    ref = run(combo, None, atlas=atlas, draw=raster.draw_pass_planar_prebinned_plain)
+    torch.cuda.synchronize()
+    frame_err = float((frame - ref).abs().max())
+    err_ref = float(np.abs(block_means(frame.cpu().numpy())
+                           - np.load(font_blocks_path(key))).max())
+    print(f"{check}: bench_text from {key}: K1-atlas vs plain max |diff| "
+          f"{max(errs):.3e} (tol {tol:.0e}), frame vs the plain executor "
+          f"{frame_err:.3e}, frame vs figdraw_tpu's (8x8 block means) {err_ref:.3e} "
+          f"(tol {TOL:.3e})", flush=True)
+    if not (max(errs) <= tol and frame_err <= tol and err_ref <= TOL):
+        fail(f"fonts {key}: kernel, frame or reference differs ({max(errs)}, "
+             f"{frame_err}, {err_ref})")
+    entry = {"typeset_cold_ms": cold_ms, "raster_ms": raster_ms,
+             "glyphs_rastered": n_raster, "raster_ms_per_glyph": raster_ms / max(n_raster, 1),
+             "ms_per_frame": med(total_ms), "err": max(max(errs), frame_err),
+             "ref_err": err_ref, "launches": counts[1], "bin_launches": bins,
+             "borderline": border}
+    print(f"times: fonts, bench_text from {key}: typeset cold {cold_ms:.3f} ms "
+          f"({beside} {host['typeset_cold_ms']:.3f}), glyph raster cold "
+          f"{raster_ms / max(n_raster, 1):.3f} ms a glyph for {n_raster} glyphs "
+          f"({beside} {host['raster_ms_per_glyph']:.3f}), warm "
+          f"{med(total_ms):.3f} ms/frame (render_frame + sync, median of {FRAMES}; "
+          f"{beside} {host['ms_per_frame']:.3f}) {tag}", flush=True)
+    return entry, frame.clone()
 
-    # --- c. the text table from the CFF2 face at a location ---
-    face, loc = FONT_TABLE_CASE
+
+def font_table_case(face: str, loc, refs: dict, dev, host: dict, check: str, tol: float,
+                    tag: str, beside: str = "DejaVuSans TTF") -> dict:
+    """The text table (180x6 at 1200x800; the face's cells from
+    scenes.font_text) from a face at a location, walked and planned by the
+    port: its tape and atlas against the stored digests, TREE_FRAMES frames
+    of its plan on the megakernel with the atlas, K4-atlas against its
+    plain version, the block means."""
+    import numpy as np
+    import torch
+
+    from figdraw_tpu_torch import FigRenderer, vec2
+    from figdraw_tpu_torch.executor import get_mega_executor
+    from figdraw_tpu_torch.ops import mega
+    from figdraw_tpu_torch.plan import pack_walked_tape, plan_execution
+    from figdraw_tpu_torch.scenes import (
+        array_digest, font_blocks_path, font_case_key, font_text, make_text_table_scene,
+    )
+    from figdraw_tpu_torch.text.typefaces import bundled_font_path, load_typeface
+
+    med = statistics.median
     key = font_case_key(face, loc)
     tid = load_typeface(bundled_font_path(face))
     t0 = time.perf_counter()
     tree = make_text_table_scene(TABLE_ROWS, TABLE_COLS, float(TABLE_W), float(TABLE_H),
-                                 tid=tid, variations=variations(loc))
+                                 tid=tid, variations=_variations(loc),
+                                 text=font_text(face)[1])
     t1 = time.perf_counter()
     tren = FigRenderer(atlas_size=512, device="cuda")
     tsize = vec2(TABLE_W, TABLE_H)
@@ -4555,7 +4566,7 @@ def fonts_phase(tag: str, dev, host: dict) -> dict:
     want = refs["table"][key]
     same = (array_digest(tape.combo, zero_sign=True) == want["combo"],
             array_digest(tren.atlas.data) == want["atlas"])
-    print(f"check 15: text table from {key} ({tape.count} quads, {len(tape.items)} items): "
+    print(f"{check}: text table from {key} ({tape.count} quads, {len(tape.items)} items): "
           f"tape combo {tape.combo.shape} {'equal' if same[0] else 'DIFFERS'} to "
           f"figdraw_tpu's byte for byte but the sign of zero, atlas "
           f"{'equal' if same[1] else 'DIFFERS'}; planned to the megakernel with the atlas: "
@@ -4570,7 +4581,7 @@ def fonts_phase(tag: str, dev, host: dict) -> dict:
     tcounts = launch_counts()
     tbins = binning_launches(f"fonts table {key}", TREE_FRAMES)
     tframe = tren.last_frame
-    print(f"check 15: text table from {key}, {TREE_FRAMES} frames of its plan through "
+    print(f"{check}: text table from {key}, {TREE_FRAMES} frames of its plan through "
           f"execute_plan: launches {tcounts} (expected {(0, 0, 0, 0, TREE_FRAMES)}); "
           f"binning {tbins}", flush=True)
     if tcounts != (0, 0, 0, 0, TREE_FRAMES):
@@ -4589,57 +4600,215 @@ def fonts_phase(tag: str, dev, host: dict) -> dict:
     tframe_err = float((tframe - tref).abs().max())
     terr_ref = float(np.abs(block_means(tframe.cpu().numpy())
                             - np.load(font_blocks_path(key))).max())
-    print(f"check 15: text table from {key}: K4-atlas vs plain max |diff| {terrs[0]:.3e} "
-          f"(tol {FONT_PHASE_TOL:.0e}), frame vs the plain executor {tframe_err:.3e}, frame "
+    print(f"{check}: text table from {key}: K4-atlas vs plain max |diff| {terrs[0]:.3e} "
+          f"(tol {tol:.0e}), frame vs the plain executor {tframe_err:.3e}, frame "
           f"vs figdraw_tpu's (8x8 block means) {terr_ref:.3e} (tol {TOL:.3e})", flush=True)
-    if not (terrs[0] <= FONT_PHASE_TOL and tframe_err <= FONT_PHASE_TOL
-            and terr_ref <= TOL):
+    if not (terrs[0] <= tol and tframe_err <= tol and terr_ref <= TOL):
         fail(f"fonts table {key}: kernel, frame or reference differs ({terrs}, "
              f"{tframe_err}, {terr_ref})")
-    out["table"] = {"key": key, "launches": tcounts[4], "bin_launches": tbins,
-                    "borderline": tborder, "err": max(terrs[0], tframe_err),
-                    "ref_err": terr_ref, "build_ms": (t1 - t0) * 1e3,
-                    "walk_ms": (t2 - t1) * 1e3, "ms": med(table_ms)}
     print(f"times: fonts, text table from {key}: tree build ({TABLE_ROWS * TABLE_COLS} "
           f"typesets) {(t1 - t0) * 1e3:.1f} ms, Python walk with its glyph rasters "
           f"{(t2 - t1) * 1e3:.1f} ms, execute_plan + sync median {med(table_ms):.3f} ms "
-          f"(DejaVuSans TTF: build {host['table_build_ms']:.1f}, walk "
+          f"({beside}: build {host['table_build_ms']:.1f}, walk "
           f"{host['table_walk_ms']:.1f}, {host['table_ms']:.3f} ms) {tag}", flush=True)
+    return {"key": key, "launches": tcounts[4], "bin_launches": tbins,
+            "borderline": tborder, "err": max(terrs[0], tframe_err),
+            "ref_err": terr_ref, "build_ms": (t1 - t0) * 1e3,
+            "walk_ms": (t2 - t1) * 1e3, "ms": med(table_ms)}
 
-    # --- d. the C typesetter's instance packs ---
-    out["packs"] = {}
-    for face, loc in FONT_PACK_CASES:
+
+def font_pack_case(face: str, loc, refs: dict, check: str, tag: str) -> dict:
+    """The C typesetter's instance pack of a face at a location against the
+    stored sha256 (figdraw_tpu's), and bench_text's 36 strings typeset with
+    it, glyph for glyph with the Python typesetter."""
+    import hashlib
+
+    from figdraw_tpu_torch import fill, rgba, vec2
+    from figdraw_tpu_torch.scenes import font_case_key
+    from figdraw_tpu_torch.text import layout, native_pack, native_typeset
+    from figdraw_tpu_torch.text.typefaces import FigFont, bundled_font_path, load_typeface
+
+    ink = fill(rgba(20, 20, 30, 255))
+    key = font_case_key(face, loc)
+    tid = load_typeface(bundled_font_path(face))
+    t0 = time.perf_counter()
+    blob = native_pack.build_font_pack(tid, _variations(loc))
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    digest = hashlib.sha256(blob).hexdigest()
+    worst, n_cmp = 0.0, 0
+    for s in text_lines():
+        arr_py = layout.typeset(vec2(1180, 22), [(
+            FigFont(typeface_id=tid, size=15.0, variations=_variations(loc)), ink, s)])
+        gids, xs, ys, clus, _size = native_typeset.typeset_box(
+            tid, s, 15.0, bounds=(1180.0, 22.0), variations=_variations(loc))
+        py = arr_py.arranged_glyphs
+        if len(gids) != len(py) or any(int(g) != p.glyph_id or int(c) != p.cluster
+                                       for g, c, p in zip(gids, clus, py)):
+            fail(f"the C typesetter's glyphs differ from the Python one's on {s!r} "
+                 f"({key})")
+        for x, y, p in zip(xs, ys, py):
+            worst = max(worst, abs(float(x) - (p.pos.x + p.offset.x)),
+                        abs(float(y) - (p.pos.y + p.offset.y)))
+        n_cmp += len(py)
+    stored = refs["packs"][key]
+    print(f"{check}: the instance pack of {key}: {len(blob)} bytes, sha256 {digest} "
+          f"({'as' if digest == stored else 'NOT as'} figdraw_tpu's, stored); bench_text's "
+          f"{TEXT_LINES} strings through it: {n_cmp} glyphs equal to the Python "
+          f"typesetter's glyph for glyph, positions max |diff| {worst:.3e} px (tol 1e-3); "
+          f"pack build {pack_ms:.1f} ms {tag}", flush=True)
+    if digest != stored or not worst < 1e-3:
+        fail(f"the instance pack of {key}: sha256 {digest} or positions ({worst})")
+    return {"sha256": digest, "bytes": len(blob), "max_pos_err": worst, "build_ms": pack_ms}
+
+
+def fonts_phase(tag: str, dev, host: dict) -> dict:
+    """CFF and variable faces on the card's host and through the atlas
+    kernels (lines `check 15`), from the FigPort Sans faces in the checkout
+    (figdraw_tpu_torch/fonts: CFF, glyf + gvar/HVAR/avar, CFF2 + HVAR/avar)
+    and reference/fonts.json, which figdraw_tpu wrote on the CPU:
+
+    a. every glyph of the three faces through the port's reader at the
+       default and at three locations of each axis (scenes.FONT_LOCATIONS):
+       the digests of the outlines and advances against the stored ones;
+    b. bench_text's scene (1200x800, 36 lines at 15 px) from the CFF face
+       and from each variable face at wdth 75 and at wdth 125 with slnt -12
+       (scenes.FONT_TEXT_CASES): font_text_case, and the two instances of
+       each variable face drawing different frames;
+    c. the text table (180x6 at 1200x800) from the CFF2 face at wdth 90,
+       slnt -6 (font_table_case);
+    d. the C typesetter's instance packs of the glyf variable face at two
+       locations (font_pack_case).
+
+    The WOFF and VARC faces of the same lists are woff_varc_phase's. Each
+    face's cold typesetting, cold glyph raster and warm ms/frame print
+    beside the bundled DejaVuSans's (the text-host phase's)."""
+    from figdraw_tpu_torch.scenes import (
+        FONT_FACES, FONT_PACK_CASES, FONT_TABLE_CASE, FONT_TEXT_CASES, font_case_key,
+    )
+
+    refs = _font_refs()
+    out = {"faces": {}, "text": {}, "launches": {}, "bin_launches": {}, "borderline": {},
+           "packs": {}}
+    check = "check 15"
+    for face in FONT_FACES:
+        if face not in NEW_FACES:
+            out["faces"][face] = font_outlines_check(face, refs, check, tag)
+    frames = {}
+    for face, loc in FONT_TEXT_CASES:
+        if face in NEW_FACES:
+            continue
         key = font_case_key(face, loc)
-        tid = load_typeface(bundled_font_path(face))
+        entry, frames[key] = font_text_case(face, loc, refs, dev, host, check,
+                                            FONT_PHASE_TOL, tag)
+        out["launches"][key] = entry.pop("launches")
+        out["bin_launches"][key] = entry.pop("bin_launches")
+        out["borderline"][key] = entry.pop("borderline")
+        out["text"][key] = entry
+    for face in ("FigPortSans-VF.ttf", "FigPortSans-VF.otf"):
+        a, b = (frames[font_case_key(f, loc)] for f, loc in FONT_TEXT_CASES if f == face)
+        apart = float((a - b).abs().max())
+        print(f"{check}: {face}'s two instances draw different frames: max |diff| "
+              f"{apart:.3f}", flush=True)
+        if not apart > 0.1:
+            fail(f"{face}'s instances drew the same frame")
+    face, loc = FONT_TABLE_CASE
+    out["table"] = font_table_case(face, loc, refs, dev, host, check, FONT_PHASE_TOL, tag)
+    for face, loc in FONT_PACK_CASES:
+        if face not in NEW_FACES:
+            out["packs"][font_case_key(face, loc)] = font_pack_case(face, loc, refs, check,
+                                                                    tag)
+    return out
+
+
+def varc_outline_ms(face: str) -> tuple:
+    """(ms an outline of a glyph in VARC's Coverage, ms an outline of one
+    outside it) on a fresh load of the face, each glyph drawn once at
+    FONT_TEXT_CASES' location of the face (no cache: glyph_path decodes
+    the components on first use, and draws each time)."""
+    from figdraw_tpu_torch.scenes import FONT_TEXT_CASES
+    from figdraw_tpu_torch.text.otf import OTFont
+    from figdraw_tpu_torch.text.typefaces import bundled_font_path
+
+    with open(bundled_font_path(face), "rb") as fh:
+        font = OTFont(fh.read())
+    loc = dict(next(l for f, l in FONT_TEXT_CASES if f == face))
+    norm = font.normalize_location(loc)
+    cover = font.varc().coverage
+    times = {True: [], False: []}
+    for gid in range(font.num_glyphs):
         t0 = time.perf_counter()
-        blob = native_pack.build_font_pack(tid, variations(loc))
-        pack_ms = (time.perf_counter() - t0) * 1e3
-        digest = hashlib.sha256(blob).hexdigest()
-        worst, n_cmp = 0.0, 0
-        for s in text_lines():
-            arr_py = layout.typeset(vec2(1180, 22), [(
-                FigFont(typeface_id=tid, size=15.0, variations=variations(loc)), ink, s)])
-            gids, xs, ys, clus, _size = native_typeset.typeset_box(
-                tid, s, 15.0, bounds=(1180.0, 22.0), variations=variations(loc))
-            py = arr_py.arranged_glyphs
-            if len(gids) != len(py) or any(int(g) != p.glyph_id or int(c) != p.cluster
-                                           for g, c, p in zip(gids, clus, py)):
-                fail(f"the C typesetter's glyphs differ from the Python one's on {s!r} "
-                     f"({key})")
-            for x, y, p in zip(xs, ys, py):
-                worst = max(worst, abs(float(x) - (p.pos.x + p.offset.x)),
-                            abs(float(y) - (p.pos.y + p.offset.y)))
-            n_cmp += len(py)
-        stored = refs["packs"][key]
-        print(f"check 15: the instance pack of {key}: {len(blob)} bytes, sha256 {digest} "
-              f"({'as' if digest == stored else 'NOT as'} figdraw_tpu's, stored); bench_text's "
-              f"{TEXT_LINES} strings through it: {n_cmp} glyphs equal to the Python "
-              f"typesetter's glyph for glyph, positions max |diff| {worst:.3e} px (tol 1e-3); "
-              f"pack build {pack_ms:.1f} ms {tag}", flush=True)
-        if digest != stored or not worst < 1e-3:
-            fail(f"the instance pack of {key}: sha256 {digest} or positions ({worst})")
-        out["packs"][key] = {"sha256": digest, "bytes": len(blob), "max_pos_err": worst,
-                             "build_ms": pack_ms}
+        font.glyph_path(gid, norm)
+        times[gid in cover].append((time.perf_counter() - t0) * 1e3)
+    return (sum(times[True]) / len(times[True]), sum(times[False]) / len(times[False]),
+            len(times[True]))
+
+
+def woff_varc_phase(tag: str, dev, host: dict, fonts: dict) -> dict:
+    """WOFF and VARC faces (lines `check 17`): FigPortSans-VF.woff (the glyf
+    variable face as WOFF 1.0, inflated by text/woff.py at load) and
+    FigPortSans-VARC.ttf (the same with a VARC table whose variable
+    composites are the accented letters of U+00C0-017F), against
+    reference/fonts.json, which figdraw_tpu wrote on the CPU:
+
+    a. every glyph of each face at the 7 locations: outline and advance
+       digests (font_outlines_check; the face load includes the WOFF
+       inflate), and the VARC face's outline of a glyph in Coverage timed
+       beside one outside it;
+    b. bench_text's scene from each face (scenes.FONT_TEXT_CASES; the VARC
+       face sets accented lines, scenes.font_text) through render_frame,
+       K1-atlas within NEW_FACE_TOL of its plain version (font_text_case);
+    c. the VARC face's text table (scenes.FONT_VARC_TABLE_CASE, accented
+       cells) on the megakernel with the atlas, K4-atlas within
+       NEW_FACE_TOL of its plain version (font_table_case);
+    d. the WOFF face's instance pack against figdraw_tpu's sha256.
+
+    Times print beside FigPort Sans VF's (the fonts phase's)."""
+    from figdraw_tpu_torch.scenes import (
+        FONT_PACK_CASES, FONT_TEXT_CASES, FONT_VARC_TABLE_CASE, font_case_key,
+    )
+
+    t_phase = time.perf_counter()
+    refs = _font_refs()
+    check = "check 17"
+    vf = fonts["text"][font_case_key("FigPortSans-VF.ttf", (("wdth", 75.0),))]
+    host_vf = {"typeset_cold_ms": vf["typeset_cold_ms"],
+               "raster_ms_per_glyph": vf["raster_ms_per_glyph"],
+               "ms_per_frame": vf["ms_per_frame"],
+               "table_build_ms": fonts["table"]["build_ms"],
+               "table_walk_ms": fonts["table"]["walk_ms"], "table_ms": fonts["table"]["ms"]}
+    beside = "FigPort Sans VF"
+    out = {"faces": {}, "text": {}, "launches": {}, "bin_launches": {}, "borderline": {},
+           "packs": {}}
+    for face in NEW_FACES:
+        out["faces"][face] = font_outlines_check(face, refs, check, tag)
+    in_ms, out_ms, n_varc = varc_outline_ms("FigPortSans-VARC.ttf")
+    vf_outline = fonts["faces"]["FigPortSans-VF.ttf"]["outline_ms"]
+    print(f"times: fonts, FigPortSans-VARC.ttf outlines drawn once each at its bench_text "
+          f"location: {in_ms:.4f} ms a glyph in VARC's Coverage ({n_varc} glyphs), "
+          f"{out_ms:.4f} ms a glyph outside it (FigPort Sans VF: an outline with its "
+          f"advance {vf_outline:.4f} ms); face load {out['faces'][NEW_FACES[0]]['load_ms']:.3f} "
+          f"ms with the WOFF inflate (FigPort Sans VF "
+          f"{fonts['faces']['FigPortSans-VF.ttf']['load_ms']:.3f}) {tag}", flush=True)
+    out["varc_outline_ms"], out["plain_outline_ms"] = in_ms, out_ms
+    for face, loc in FONT_TEXT_CASES:
+        if face not in NEW_FACES:
+            continue
+        key = font_case_key(face, loc)
+        entry, _frame = font_text_case(face, loc, refs, dev, host_vf, check, NEW_FACE_TOL,
+                                       tag, beside=beside)
+        out["launches"][key] = entry.pop("launches")
+        out["bin_launches"][key] = entry.pop("bin_launches")
+        out["borderline"][key] = entry.pop("borderline")
+        out["text"][key] = entry
+    face, loc = FONT_VARC_TABLE_CASE
+    out["table"] = font_table_case(face, loc, refs, dev, host_vf, check, NEW_FACE_TOL, tag,
+                                   beside=beside + " (its CFF2 twin's table)")
+    for face, loc in FONT_PACK_CASES:
+        if face in NEW_FACES:
+            out["packs"][font_case_key(face, loc)] = font_pack_case(face, loc, refs, check,
+                                                                    tag)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"{check}: the WOFF and VARC phase took {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -5614,11 +5783,16 @@ def main() -> None:
     # --- 8f. CFF and variable faces ------------------------------------------------
     fonts = fonts_phase(tag, dev, host)
     print(f"fonts: {json.dumps(fonts)}", flush=True)
-    for key, n in fonts["bin_launches"].items():
-        BIN_PATHS[f"fonts {key}"] = n
-        BORDERLINE[f"fonts {key}"] = fonts["borderline"][key]
-    BIN_PATHS[f"fonts table {fonts['table']['key']}"] = fonts["table"]["bin_launches"]
-    BORDERLINE[f"fonts table {fonts['table']['key']}"] = fonts["table"]["borderline"]
+
+    # --- 8f'. WOFF and VARC faces --------------------------------------------------
+    woff_varc = woff_varc_phase(tag, dev, host, fonts)
+    print(f"woff_varc: {json.dumps(woff_varc)}", flush=True)
+    for phase in (fonts, woff_varc):
+        for key, n in phase["bin_launches"].items():
+            BIN_PATHS[f"fonts {key}"] = n
+            BORDERLINE[f"fonts {key}"] = phase["borderline"][key]
+        BIN_PATHS[f"fonts table {phase['table']['key']}"] = phase["table"]["bin_launches"]
+        BORDERLINE[f"fonts table {phase['table']['key']}"] = phase["table"]["borderline"]
 
     # --- 8g. rendering across several devices: row bands on one card ------------------
     shard = sharded_phase(tag, dev)
@@ -5668,6 +5842,7 @@ def main() -> None:
     atlas_paths["text host"] = host["launches"][1]
     atlas_paths.update(loop_paths["K1-atlas"])
     atlas_paths.update({f"fonts {k}": n for k, n in fonts["launches"].items()})
+    atlas_paths.update({f"fonts {k}": n for k, n in woff_varc["launches"].items()})
     k3_paths = {"rectmask": rm["launches"][1], "rolled": rolled["launches"][2],
                 **tree_paths["K3"], **loop_paths["K3"]}
     k4_paths = {"subclip": sc["launches"][2], **tree_paths["K4"], **loop_paths["K4"]}
@@ -5675,7 +5850,8 @@ def main() -> None:
                  "text table host": host["table_launches"][4],
                  **{f"text tree {f}": v["launches"][4] for f, v in host["tree"].items()},
                  **loop_paths["K4-atlas"],
-                 f"fonts table {fonts['table']['key']}": fonts["table"]["launches"]}
+                 f"fonts table {fonts['table']['key']}": fonts["table"]["launches"],
+                 f"fonts table {woff_varc['table']['key']}": woff_varc["table"]["launches"]}
     loop_err = lambda name: FRAMELOOP_ERRS.get(name, 0.0)
 
     def band_entry(key: str, kernel: str, source: str, replaces: str, **more) -> dict:
@@ -5750,7 +5926,8 @@ def main() -> None:
             "max_abs_err": max([images[v]["err"] for v in BENCH_VARIANTS[1:]]
                                + [text["err"], rolled["k1_err"], rolled["frame_err"],
                                   loop_err("K1-atlas"), host["err"]]
-                               + [v["err"] for v in fonts["text"].values()]),
+                               + [v["err"] for v in fonts["text"].values()]
+                               + [v["err"] for v in woff_varc["text"].values()]),
             "ms": images["images_scaled"]["kernel_ms"],
             "device_ms": device_ms_atlas,
             "plain_ms": plain_ms_atlas,
@@ -5808,7 +5985,8 @@ def main() -> None:
             "launches": sum(k4a_paths.values()),
             "launches_by_path": k4a_paths,
             "max_abs_err": max([cards["err"], table["err"], loop_err("K4-atlas"),
-                                host["table_err"], fonts["table"]["err"]]
+                                host["table_err"], fonts["table"]["err"],
+                                woff_varc["table"]["err"]]
                                + [v["err"] for v in host["tree"].values()]),
             "ms": cards["kernel_ms"],
             "device_ms": cards["device_ms"],

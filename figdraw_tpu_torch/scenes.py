@@ -893,12 +893,18 @@ TEXT_SIZE = (1200, 800)  # bench_text.py's W, H
 TEXT_LINES = 36  # bench_text.LINES
 
 
+TEXT_LINE = "The quick brown fox jumps over the lazy dog near the riverbank %d"
+TABLE_CELL = "cell r{row}c{col} spills wide past its clip"
+
+
 def make_text_scene(tid: int, ink, seed: int, w: int = TEXT_SIZE[0],
-                    h: int = TEXT_SIZE[1], lines: int = TEXT_LINES, variations=()):
+                    h: int = TEXT_SIZE[1], lines: int = TEXT_LINES, variations=(),
+                    text: str = TEXT_LINE):
     """bench_text.build_scene with the port's API: a plain background and
     `lines` lines of the typeface `tid` at 15 px (typeset_cached), 22 px
     apart, at the variation location `variations` (FontVariation objects;
-    none by default). Returns (RendersArray, number of arranged glyphs).
+    none by default), each line `text` % (seed + row) (bench_text's line
+    by default). Returns (RendersArray, number of arranged glyphs).
     Its packed combo and its atlas are figdraw_tpu's byte for byte (the
     stored TEXT_REFERENCE holds them, for DejaVuSans, seed 0,
     atlas_size=512; reference/fonts.json their digests for the FigPort Sans
@@ -913,11 +919,7 @@ def make_text_scene(tid: int, ink, seed: int, w: int = TEXT_SIZE[0],
     n = 0
     for row in range(lines):
         f = FigFont(typeface_id=tid, size=15.0, variations=tuple(variations))
-        arr = typeset_cached(vec2(w - 20, 22), [(
-            f, ink,
-            "The quick brown fox jumps over the lazy dog near the riverbank %d"
-            % (seed + row),
-        )])
+        arr = typeset_cached(vec2(w - 20, 22), [(f, ink, text % (seed + row))])
         n += len(arr.arranged_glyphs)
         renders.add_root(0, Fig(kind=FigKind.nkText,
                                 screen_box=rect(8, y, w - 20, 22),
@@ -926,10 +928,11 @@ def make_text_scene(tid: int, ink, seed: int, w: int = TEXT_SIZE[0],
     return from_renders(renders), n
 
 
-# --- the FigPort Sans faces (CFF, and variable glyf and CFF2) ------------------------
+# --- the FigPort Sans faces (CFF, variable glyf and CFF2, WOFF, VARC) -----------------
 
 FONTS_REFERENCE = os.path.join(REFERENCE_DIR, "fonts.json")
-FONT_FACES = ("FigPortSans-CFF.otf", "FigPortSans-VF.ttf", "FigPortSans-VF.otf")
+FONT_FACES = ("FigPortSans-CFF.otf", "FigPortSans-VF.ttf", "FigPortSans-VF.otf",
+              "FigPortSans-VF.woff", "FigPortSans-VARC.ttf")
 # (tag, value) pairs: the default, then each axis at its minimum, a middle
 # (wdth 90 is where avar maps 90 to 85) and its maximum
 FONT_LOCATIONS = ((), (("wdth", 75.0),), (("wdth", 90.0),), (("wdth", 125.0),),
@@ -939,10 +942,25 @@ FONT_TEXT_CASES = (("FigPortSans-CFF.otf", ()),
                    ("FigPortSans-VF.ttf", (("wdth", 75.0),)),
                    ("FigPortSans-VF.ttf", (("wdth", 125.0), ("slnt", -12.0))),
                    ("FigPortSans-VF.otf", (("wdth", 75.0),)),
-                   ("FigPortSans-VF.otf", (("wdth", 125.0), ("slnt", -12.0))))
+                   ("FigPortSans-VF.otf", (("wdth", 125.0), ("slnt", -12.0))),
+                   ("FigPortSans-VF.woff", (("wdth", 75.0),)),
+                   ("FigPortSans-VARC.ttf", (("wdth", 125.0), ("slnt", -12.0))))
 FONT_TABLE_CASE = ("FigPortSans-VF.otf", (("wdth", 90.0), ("slnt", -6.0)))
+# the text table from the VARC face (on the megakernel with the atlas)
+FONT_VARC_TABLE_CASE = ("FigPortSans-VARC.ttf", (("wdth", 112.5), ("slnt", -6.0)))
 FONT_PACK_CASES = (("FigPortSans-VF.ttf", (("wdth", 75.0),)),
-                   ("FigPortSans-VF.ttf", (("wdth", 125.0), ("slnt", -12.0))))
+                   ("FigPortSans-VF.ttf", (("wdth", 125.0), ("slnt", -12.0))),
+                   ("FigPortSans-VF.woff", (("wdth", 75.0),)))
+# the lines a face's scenes set where bench_text's would draw none of its
+# own glyphs: the VARC face's variable composites are the accented letters
+FONT_TEXTS = {"FigPortSans-VARC.ttf": (
+    "ÀÁÂÃÄ ÈÉÊ Ça déjà vu, Ñandú, Œuvre, Žluťoučký kůň úpěl ďábelské ódy %d",
+    "Çéll r{row}c{col} ÀÁÂÃÄ ÈÉÊ spïlls wíde")}
+
+
+def font_text(face: str) -> tuple:
+    """(bench_text's line, the text table's cell) for a face's scenes."""
+    return FONT_TEXTS.get(face, (TEXT_LINE, TABLE_CELL))
 
 
 def font_case_key(face: str, location) -> str:
@@ -991,13 +1009,14 @@ def array_digest(a, zero_sign: bool = False) -> str:
 
 
 def make_text_table_scene(rows: int = 180, cols: int = 6, w: float = 1200.0,
-                          h: float = 800.0, tid: int = None, variations=()) -> Renders:
+                          h: float = 800.0, tid: int = None, variations=(),
+                          text: str = TABLE_CELL) -> Renders:
     """A table of text in clipped cells, as a tree (the text-in-clip scene at
     bench_clipmask.make_table_scene's size and layout): a clipped viewport
     scrolled by 37 px over rows x cols rounded cells of 22 px, each
     clipping a 13 px line of the typeface `tid` (default: the bundled
     DejaVuSans) at the variation location `variations` that runs past its
-    right edge. Its tape is the one TEXT_TABLE_REFERENCE stores, made by
+    right edge (`text` formatted with the cell's row and col). Its tape is the one TEXT_TABLE_REFERENCE stores, made by
     figdraw_tpu's Python walk."""
     from .text.layout import typeset
     from .text.typefaces import FigFont, bundled_font_path, load_typeface
@@ -1025,7 +1044,7 @@ def make_text_table_scene(rows: int = 180, cols: int = 6, w: float = 1200.0,
                 fill=fill(rgba(shade, shade, 255, 255))))
             arr = typeset(vec2(cell_w + 60, 20), [(
                 f, fill(rgba(30, 30 + (row * 7) % 90, 40 + (col * 29) % 120, 255)),
-                f"cell r{row}c{col} spills wide past its clip")])
+                text.format(row=row, col=col))])
             lst.add_child(ci, Fig(
                 kind=FigKind.nkText,
                 screen_box=rect(cell.x + 4, cell.y + 3, cell_w + 60, 20),

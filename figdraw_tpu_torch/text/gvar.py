@@ -27,7 +27,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from .varstore import f2dot14, support_scalar
+from .varstore import f2dot14, packed_values, support_scalar
 
 EMBEDDED_PEAK_TUPLE = 0x8000
 INTERMEDIATE_REGION = 0x4000
@@ -37,8 +37,6 @@ TUPLES_SHARE_POINT_NUMBERS = 0x8000
 TUPLE_COUNT_MASK = 0x0FFF
 POINTS_ARE_WORDS = 0x80
 POINT_RUN_COUNT_MASK = 0x7F
-DELTAS_ARE_ZERO, DELTAS_ARE_WORDS, DELTAS_ARE_LONGS = 0x80, 0x40, 0xC0
-DELTAS_SIZE_MASK, DELTA_RUN_COUNT_MASK = 0xC0, 0x3F
 
 Support = Dict[str, Tuple[float, float, float]]
 
@@ -69,26 +67,6 @@ def _points(data: bytes, pos: int, n_points: int):
         current += d
         absolute.append(current)
     return absolute, pos
-
-
-def _deltas(data: bytes, pos: int, n: int):
-    """Packed deltas: (n integers, the position after them)."""
-    result: List[int] = []
-    while len(result) < n:
-        head = data[pos]
-        pos += 1
-        run = (head & DELTA_RUN_COUNT_MASK) + 1
-        kind = head & DELTAS_SIZE_MASK
-        if kind == DELTAS_ARE_ZERO:
-            result.extend([0] * run)
-            continue
-        code, size = {DELTAS_ARE_LONGS: ("l", 4), DELTAS_ARE_WORDS: ("h", 2)}.get(
-            kind, ("b", 1))
-        result.extend(struct.unpack_from(">%d%s" % (run, code), data, pos))
-        pos += size * run
-    if len(result) != n:
-        raise ValueError("gvar deltas overrun their point count")
-    return result, pos
 
 
 class Gvar:
@@ -164,8 +142,8 @@ class Gvar:
                 points, p = _points(tuple_data, 0, n_points)
             else:
                 points = shared_points
-            xs, p = _deltas(tuple_data, p, len(points))
-            ys, p = _deltas(tuple_data, p, len(points))
+            xs, p = packed_values(tuple_data, p, len(tuple_data), len(points))
+            ys, p = packed_values(tuple_data, p, len(tuple_data), len(points))
             deltas: list = [None] * n_points
             for k, x, y in zip(points, xs, ys):
                 if 0 <= k < n_points:

@@ -4,11 +4,13 @@ reads, in numpy and struct, with no fontTools.
 It stands in for fontTools' TTFont where figdraw_tpu's typefaces.py,
 typeface_info.py and shaper.py use it, and gives the same values:
 
-- the sfnt and TTC headers; head, hhea, maxp, name, post glyph names
+- the sfnt and TTC headers, and WOFF 1.0 files (text/woff.py inflates
+  them to the sfnt they wrap); head, hhea, maxp, name, post glyph names
   (format 2 names, duplicates renamed "name.1" as fontTools does; other
   formats, or no post table, get synthesized unique names: the shaper only
   needs names to be unique and stable);
-- cmap, the subtable fontTools' getBestCmap picks, formats 0, 4, 6 and 12;
+- cmap, the subtable fontTools' getBestCmap picks, formats 0, 2, 4, 6, 12
+  and 13 (8 and 10 raise: fontTools has no reader for them either);
 - hmtx, the last advance repeating past numberOfHMetrics;
 - the legacy kern table, format 0, as {(left name, right name): value};
 - glyf/loca, simple and composite glyphs, parsed per glyph on first use:
@@ -28,7 +30,10 @@ typeface_info.py and shaper.py use it, and gives the same values:
 - variations: fvar axes; a user location normalized through fvar and avar
   (text/varstore.py); at a normalized location, glyf outlines moved by gvar
   (text/gvar.py) as fontTools' instanced glyph set draws them, CFF2
-  charstrings blended by their VarStore, and advances with HVAR's deltas.
+  charstrings blended by their VarStore, and advances with HVAR's deltas;
+- VARC: a glyph in its Coverage drawn as fontTools' VARC glyph set draws
+  it (text/varc.py), its components' locations moving glyf outlines
+  through gvar even where the face's own location is empty.
 
 A location is applied as fontTools' getGlyphSet(location=...) applies it:
 a non-empty normalized location instances every glyph (even at the
@@ -46,7 +51,9 @@ import numpy as np
 
 from .cff import CFFTable
 from .gvar import Gvar, instance_coordinates
+from .varc import VarcTable, emit
 from .varstore import Avar, ItemVariationStore, normalize_location, ot_round, var_idx_map
+from .woff import is_woff, woff_to_sfnt
 
 _U16 = struct.Struct(">H").unpack_from
 _I16 = struct.Struct(">h").unpack_from
@@ -123,7 +130,7 @@ def _f2dot14(v: int) -> float:
 
 def collection_size(data: bytes) -> int:
     """The number of faces in a font file's bytes: a TTC/OTC header's
-    count, else 1."""
+    count, else 1 (an sfnt, or a WOFF file, which wraps one face)."""
     return _U32(data, 8)[0] if data[:4] == b"ttcf" else 1
 
 
@@ -142,14 +149,18 @@ class NameRecord(SimpleNamespace):
 
 class OTFont:
     """One face of an sfnt (.ttf, .otf, or one face of a .ttc/.otc
-    collection), read from its bytes.
+    collection) or of a WOFF 1.0 file (.woff, unwrapped by text/woff.py),
+    read from its bytes.
 
     The tables the pipeline needs are read at construction (they are
     small); cmap, kern, name, GSUB, GPOS, GDEF and the variation tables on
     first use; glyf and gvar per glyph, charstrings per draw."""
 
     def __init__(self, data: bytes, face_index: int = 0):
-        self.data = data = bytes(data)
+        data = bytes(data)
+        if is_woff(data):
+            data = woff_to_sfnt(data)
+        self.data = data
         base = 0
         if data[:4] == b"ttcf":
             n_fonts = _U32(data, 8)[0]
@@ -220,6 +231,7 @@ class OTFont:
         self._layout: Dict[str, object] = {}
         self._var_tables: Optional[tuple] = None
         self._hvar_instancers: Dict[tuple, object] = {}  # per location, as a glyph set's
+        self._varc = None
 
     def __contains__(self, tag: str) -> bool:
         return tag in self.tables
@@ -356,17 +368,52 @@ class OTFont:
             first, count = struct.unpack_from(">HH", data, off + 6)
             gids = list(struct.unpack_from(">%dH" % count, data, off + 10))
             return list(range(first, first + count)), gids
-        if fmt == 12:
+        if fmt in (12, 13):
+            # format 13 maps each group's whole range to its one glyph
             n_groups = _U32(data, off + 12)[0]
             chars, gids = [], []
             for k in range(n_groups):
                 start, end, gid = struct.unpack_from(">III", data, off + 16 + 12 * k)
                 chars.extend(range(start, end + 1))
-                gids.extend(range(gid, gid + end - start + 1))
+                if fmt == 12:
+                    gids.extend(range(gid, gid + end - start + 1))
+                else:
+                    gids.extend([gid] * (end - start + 1))
             return chars, gids
+        if fmt == 2:
+            return self._cmap_format_2(off)
         raise NotImplementedError(
             f"cmap subtable format {fmt} is not read by the port's OpenType "
-            "reader (formats 0, 4, 6 and 12 are)")
+            "reader (formats 0, 2, 4, 6, 12 and 13 are); fontTools 4.61.1 has no "
+            "reader for formats 8 and 10 either, so figdraw_tpu cannot load such a "
+            "face")
+
+    def _cmap_format_2(self, off: int):
+        """cmap_format_2.decompile: a first byte picks a subHeader through
+        subHeaderKeys; subHeader 0 maps the byte itself, any other maps a
+        second byte; a glyph index that is not 0 gets idDelta added."""
+        data = self.data
+        keys = [k // 8 for k in struct.unpack_from(">256H", data, off + 6)]
+        base = off + 6 + 512
+        subs = []
+        for k in range(max(keys) + 1):
+            at = base + 8 * k
+            first, count, delta, range_off = struct.unpack_from(">HHhH", data, at)
+            gia = struct.unpack_from(">%dH" % count, data, at + 6 + range_off)
+            subs.append((first, count, delta, gia))
+        cmap: Dict[int, int] = {}
+        for byte, k in enumerate(keys):
+            first, count, delta, gia = subs[k]
+            if k == 0:
+                if not first <= byte < first + count:
+                    continue
+                codes = ((byte, gia[byte - first]),)
+            else:
+                codes = ((byte * 256 + first + i, gia[i]) for i in range(count))
+            for code, gi in codes:
+                if gi != 0:
+                    cmap[code] = (gi + delta) % 0x10000
+        return list(cmap), list(cmap.values())
 
     # --- metrics and kerning ----------------------------------------------------
 
@@ -600,7 +647,8 @@ class OTFont:
             if not flags & _ARGS_XY:
                 raise NotImplementedError(
                     "composite glyphs placed by point matching are not read by "
-                    "the port's OpenType reader (nor drawn by fontTools' pens)")
+                    "the port's OpenType reader; fontTools 4.61.1 does not draw them "
+                    "either (GlyphComponent.getComponentInfo raises AttributeError)")
             if flags & _HAVE_SCALE:
                 s = _f2dot14(_I16(data, pos)[0])
                 trans = (s, 0, 0, s, a, b)
@@ -640,79 +688,120 @@ class OTFont:
         variations = gvar.variations(gid, len(coords))
         return instance_coordinates(coords, variations, location, ends), g
 
+    def varc(self) -> Optional[VarcTable]:
+        """The VARC table, read on first use; None without one."""
+        if self._varc is None:
+            self._varc = False
+            if "VARC" in self.tables:
+                self._varc = VarcTable(self.data, self.tables["VARC"][0],
+                                       [a.axisTag for a in self.axes], self.num_glyphs)
+        return self._varc or None
+
     def glyph_path(self, gid: int, location: Optional[Dict[str, float]] = None) -> list:
         """The glyph's outline as fontTools' DecomposingRecordingPen value
         list (font units, y up), drawn as TTFont.getGlyphSet(location=...)
-        draws it: CFF/CFF2 charstrings (blended at a non-empty normalized
-        `location`), else glyf (a simple glyph at the top level shifted by
-        its lsb minus its xMin; moved by gvar at a non-empty location)."""
+        draws it: a glyph in VARC's Coverage as variable composites
+        (text/varc.py), else CFF/CFF2 charstrings (blended at a non-empty
+        normalized location), else glyf (a simple glyph at depth 0 shifted
+        by its lsb minus its xMin; moved by gvar at a non-empty location,
+        the face's or one a VARC component pushed)."""
         out: list = []
-        if self.cff is not None:
-            inst = None
-            if location and self.cff.store is not None:
-                inst = self.cff.store.instancer(location)
-            self.cff.draw(gid, out, inst, self._name_to_gid.get)
-            return out
-        if location and self._variation_tables()[1] is not None:
-            self._draw_instance(gid, out, None, True, location)
-        else:
-            self._draw(gid, out, None, True)
+        self._draw_from_set(gid, (), _DrawState(location), out)
         return out
 
-    def _draw(self, gid: int, out: list, trans, top: bool) -> None:
-        g = self._glyph(gid)
+    def _draw_from_set(self, gid: int, chain: tuple, state: "_DrawState", out: list) -> None:
+        """glyphSet[name].draw(pen) of the face's glyph set: the VARC glyph
+        set when the face has VARC, which draws a glyph in its Coverage as
+        VARC and passes any other to the outline glyph set. `chain` holds
+        the pen's TransformPens, innermost first."""
+        varc = self.varc()
+        if varc is not None and gid in varc.coverage:
+            if self.cff is not None:
+                raise NotImplementedError(
+                    "VARC glyphs over CFF or CFF2 outlines are not drawn by the port: "
+                    "fontTools 4.61.1's CFF glyph set keeps the blend location of the "
+                    "last VARC component it drew, so figdraw_tpu's outlines depend on "
+                    "the order glyphs are drawn in")
+            varc.draw(self, gid, chain, state, out)
+        else:
+            self._draw_outline(gid, chain, state, out)
+
+    def _draw_outline(self, gid: int, chain: tuple, state: "_DrawState", out: list) -> None:
+        """The outline glyph set's glyph (CFF/CFF2, else glyf) onto `out`
+        through the pen chain."""
+        if self.cff is None:
+            self._draw_glyf(gid, chain, state, out)
+            return
+        inst = None
+        if state.loc and self.cff.store is not None:
+            inst = self.cff.store.instancer(state.loc)
+        recorded = [] if chain else out
+        self.cff.draw(gid, recorded, inst, self._name_to_gid.get)
+        if chain:
+            emit(recorded, chain, out)
+
+    def _draw_glyf(self, gid: int, chain: tuple, state: "_DrawState", out: list) -> None:
+        """_TTGlyphGlyf.draw: the glyph from glyf, or at a non-empty location
+        _getGlyphInstance's glyph (points or component offsets from gvar);
+        at depth 0 a simple glyph shifted by its lsb minus its xMin (an
+        instance's recomputed ones); a composite's components through the
+        face's glyph set (DecomposingPen.addComponent) one depth down, each
+        transform composed through the pen chain's (TransformPen's
+        addComponent)."""
+        loc = state.loc
+        instanced = bool(loc) and self._variation_tables()[1] is not None
+        if instanced:
+            coords, g = self._instance(gid, loc)
+        else:
+            g = self._glyph(gid)
         if g[0] == "empty":
             return
         if g[0] == "composite":
-            for cgid, ctrans in g[1]:
-                if trans is not None:
-                    ctrans = _compose(trans, ctrans)
-                if tuple(ctrans) == _IDENTITY:
-                    self._draw(cgid, out, None, False)
-                else:
-                    self._draw(cgid, out, ctrans, False)
+            state.depth += 1
+            try:
+                for k, (cgid, ctrans) in enumerate(g[1]):
+                    if instanced:
+                        x, y = coords[k].tolist()
+                        ctrans = ctrans[:4] + (_maybe_int(x), _maybe_int(y))
+                    for t in chain:
+                        ctrans = _compose(t, ctrans)
+                    sub = () if tuple(ctrans) == _IDENTITY else (ctrans,)
+                    self._draw_from_set(cgid, sub, state, out)
+            finally:
+                state.depth -= 1
             return
         _, xs, ys, end_pts, flags, x_min = g
-        offset = int(self.lsbs[gid]) - x_min if top else 0
-        if offset:
-            xs = [x + offset for x in xs]
-        if trans is None:
-            pts = list(zip(xs, ys))
+        top = state.depth == 0
+        if instanced:
+            pts = coords[:-4]
+            if top and len(pts):
+                x_min = ot_round(float(pts[:, 0].min()))
+                offset = ot_round(x_min - float(coords[-4, 0])) - x_min
+                if offset:
+                    pts = pts + np.array([offset, 0.0])
+            pts = [(_maybe_int(x), _maybe_int(y)) for x, y in pts.tolist()]
         else:
-            xx, xy, yx, yy, dx, dy = trans
-            pts = [(xx * x + yx * y + dx, xy * x + yy * y + dy) for x, y in zip(xs, ys)]
-        _trace_contours(pts, end_pts, flags, out)
+            offset = int(self.lsbs[gid]) - x_min if top else 0
+            pts = list(zip([x + offset for x in xs] if offset else xs, ys))
+        if not chain:
+            _trace_contours(pts, end_pts, flags, out)
+            return
+        recorded: list = []
+        _trace_contours(pts, end_pts, flags, recorded)
+        emit(recorded, chain, out)
 
-    def _draw_instance(self, gid: int, out: list, trans, top: bool,
-                       location: Dict[str, float]) -> None:
-        """_draw on _TTGlyphGlyf._getGlyphInstance's glyph: points or
-        component offsets from gvar, and at the top level the shift by the
-        recomputed lsb minus the recomputed xMin."""
-        coords, g = self._instance(gid, location)
-        if g[0] == "empty":
-            return
-        if g[0] == "composite":
-            for (cgid, ctrans), (x, y) in zip(g[1], coords[:-4].tolist()):
-                ctrans = ctrans[:4] + (_maybe_int(x), _maybe_int(y))
-                if trans is not None:
-                    ctrans = _compose(trans, ctrans)
-                if tuple(ctrans) == _IDENTITY:
-                    self._draw_instance(cgid, out, None, False, location)
-                else:
-                    self._draw_instance(cgid, out, ctrans, False, location)
-            return
-        _, _xs, _ys, end_pts, flags, _x_min = g
-        pts = coords[:-4]
-        if top and len(pts):
-            x_min = ot_round(float(pts[:, 0].min()))
-            offset = ot_round(x_min - float(coords[-4, 0])) - x_min
-            if offset:
-                pts = pts + np.array([offset, 0.0])
-        pts = [(_maybe_int(x), _maybe_int(y)) for x, y in pts.tolist()]
-        if trans is not None:
-            xx, xy, yx, yy, dx, dy = trans
-            pts = [(xx * x + yx * y + dx, xy * x + yy * y + dy) for x, y in pts]
-        _trace_contours(pts, end_pts, flags, out)
+
+class _DrawState:
+    """The glyph sets' drawing state for one glyph_path: the location both
+    glyph sets draw at (VARC components push and pop it), the original one
+    a reset component restarts from, and the glyf set's depth."""
+
+    __slots__ = ("loc", "original", "depth")
+
+    def __init__(self, location: Optional[Dict[str, float]]):
+        self.original = dict(location) if location else {}
+        self.loc = self.original
+        self.depth = 0
 
 
 def _maybe_int(v: float):

@@ -15,7 +15,11 @@ faces through fontTools) as numbers:
 - ItemVariationStore.delta / interpolate: varLib.varStore.VarStoreInstancer
   __getitem__ and interpolateFromDeltas;
 - delta_set_index_map / var_idx_map: DeltaSetIndexMap formats 0 and 1 and
-  HVAR's VarIdxMap (the mapping repeated past its end for every glyph).
+  HVAR's VarIdxMap (the mapping repeated past its end for every glyph);
+- MultiVarStore / MultiStoreInstancer: the VARC table's store
+  (varLib/multiVarStore.py): sparse regions (SparseVarRegion_get_support),
+  packed delta rows in a TupleList, and MultiVarStoreInstancer's deltas,
+  one vector per variation index.
 """
 
 from __future__ import annotations
@@ -282,3 +286,123 @@ class Avar:
                 v = min(max(v, -(1 << 14)), 1 << 14)
             out.append(v)
         return {tag: f2dot14(v) for v, tag in zip(out, self.axis_tags) if v != 0}
+
+
+DELTAS_ARE_ZERO, DELTAS_ARE_WORDS, DELTAS_ARE_LONGS = 0x80, 0x40, 0xC0
+DELTAS_SIZE_MASK, DELTA_RUN_COUNT_MASK = 0xC0, 0x3F
+
+
+def packed_values(data: bytes, pos: int, end: int, count: Optional[int] = None):
+    """TupleVariation.decompileDeltas_: packed deltas (zero, byte, word and
+    long runs) from `pos`, `count` of them (gvar's point deltas, VARC's
+    axis values), or whole runs up to `end` when count is None (VARC's
+    TupleList items); (the values, the position after them)."""
+    out: List[int] = []
+    while (len(out) < count) if count is not None else (pos < end):
+        head = data[pos]
+        pos += 1
+        run = (head & DELTA_RUN_COUNT_MASK) + 1
+        kind = head & DELTAS_SIZE_MASK
+        if kind == DELTAS_ARE_ZERO:
+            out.extend([0] * run)
+            continue
+        code, size = {DELTAS_ARE_LONGS: ("l", 4), DELTAS_ARE_WORDS: ("h", 2)}.get(
+            kind, ("b", 1))
+        out.extend(struct.unpack_from(">%d%s" % (run, code), data, pos))
+        pos += size * run
+    if count is not None and len(out) != count:
+        raise ValueError(f"packed values: {len(out)} read, {count} expected")
+    return out, pos
+
+
+def tuple_list(data: bytes, off: int) -> List[Tuple[int, int]]:
+    """A CFF2-style INDEX (uint32 count, offset size, 1-based offsets) as
+    the (start, end) byte range of each item: otConverters' CFF2Index, which
+    VARC's TupleLists and its glyph list are."""
+    count = _U32(data, off)[0]
+    if count == 0:
+        return []
+    size = data[off + 4]
+    at = off + 5
+    offs = [int.from_bytes(data[at + size * i : at + size * (i + 1)], "big")
+            for i in range(count + 1)]
+    base = at + size * (count + 1) - 1
+    for a, b in zip(offs, offs[1:]):
+        if b < a:
+            raise ValueError("a TupleList's offsets go backwards")
+    return [(base + a, base + b) for a, b in zip(offs, offs[1:])]
+
+
+class MultiVarStore:
+    """A MultiVarStore (format 1) read from `data` at `off`: its sparse
+    regions (a support dict each, axes in the region's own order, as
+    SparseVarRegion_get_support builds it) and its MultiVarData (region
+    indices and the flat delta rows, one row per inner index)."""
+
+    def __init__(self, data: bytes, off: int, axis_tags: Sequence[str]):
+        fmt, regions_off, n_data = struct.unpack_from(">HIH", data, off)
+        if fmt != 1:
+            raise NotImplementedError(f"MultiVarStore format {fmt}")
+        data_offs = struct.unpack_from(">%dI" % n_data, data, off + 8)
+        self.regions: List[Dict[str, Tuple[float, float, float]]] = []
+        if regions_off:
+            at = off + regions_off
+            n_regions = _U16(data, at)[0]
+            for r_off in struct.unpack_from(">%dI" % n_regions, data, at + 2):
+                r = at + r_off
+                support = {}
+                for k in range(_U16(data, r)[0]):
+                    axis, start, peak, end = struct.unpack_from(">Hhhh", data, r + 2 + 8 * k)
+                    support[axis_tags[axis]] = (f2dot14(start), f2dot14(peak), f2dot14(end))
+                self.regions.append(support)
+        self.var_data: List[Tuple[List[int], list]] = []
+        for d_off in data_offs:
+            at = off + d_off
+            if data[at] != 1:
+                raise NotImplementedError(f"MultiVarData format {data[at]}")
+            n_regions = _U16(data, at + 1)[0]
+            indices = list(struct.unpack_from(">%dH" % n_regions, data, at + 3))
+            rows = [packed_values(data, a, b)[0]
+                    for a, b in tuple_list(data, at + 3 + 2 * n_regions)]
+            self.var_data.append((indices, rows))
+
+    def instancer(self, location: Dict[str, float]) -> "MultiStoreInstancer":
+        return MultiStoreInstancer(self, location)
+
+
+class MultiStoreInstancer:
+    """MultiVarStoreInstancer: a variation index's delta vector at one
+    normalized location (region scalars cached), summed from 0 in region
+    order with zero scalars skipped; an empty list for NO_VARIATION_INDEX."""
+
+    def __init__(self, store: MultiVarStore, location: Dict[str, float]):
+        self.store = store
+        self.location = dict(location)
+        self._scalars: Dict[int, float] = {}
+
+    def _scalar(self, region: int) -> float:
+        s = self._scalars.get(region)
+        if s is None:
+            s = self._scalars[region] = support_scalar(self.location,
+                                                       self.store.regions[region])
+        return s
+
+    def __getitem__(self, var_idx: int) -> list:
+        if var_idx == NO_VARIATION_INDEX:
+            return []
+        indices, rows = self.store.var_data[var_idx >> 16]
+        deltas = rows[var_idx & 0xFFFF]
+        if not deltas:
+            return []
+        scalars = [self._scalar(r) for r in indices]
+        if len(deltas) % len(scalars):
+            raise ValueError(f"a MultiVarData row of {len(deltas)} deltas over "
+                             f"{len(scalars)} regions")
+        m = len(deltas) // len(scalars)
+        out = [0] * m
+        for k, s in enumerate(scalars[: len(deltas) // m]):
+            if not s:
+                continue
+            row = deltas[k * m : (k + 1) * m]
+            out = [a + d * s for a, d in zip(out, row)]
+        return out

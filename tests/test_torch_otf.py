@@ -17,6 +17,9 @@ the JAX package reads fonts with.
   from its default, equal to fontTools' outlines and figdraw_tpu's advances,
   typesets and rasters;
 - cubic glyf contours (glyphDataFormat 1), drawn as fontTools draws them;
+- a composite placed by point matching: figdraw_tpu raises on it (fontTools'
+  getComponentInfo has no offset to give), the port raises
+  NotImplementedError, and the face's other glyphs agree;
 - the bundled font is DejaVuSans, with its sha256.
 """
 
@@ -435,3 +438,65 @@ def test_face_load_is_lazy_and_quick():
     ours.glyph_path(ours._name_to_gid["A"])
     assert len(ours._glyphs) == 1
     assert elapsed < 1.0
+
+
+def _point_matched_face(path):
+    """A glyf face whose "Adot" places its dot by point matching (dot's
+    point 0 onto A's point 2), beside plain and offset composites."""
+    from fontTools.fontBuilder import FontBuilder
+    from fontTools.pens.ttGlyphPen import TTGlyphPen
+    from fontTools.ttLib.tables._g_l_y_f import Glyph, GlyphComponent
+
+    fb = FontBuilder(1000, isTTF=True)
+    names = [".notdef", "A", "dot", "Adot", "Aacute"]
+    fb.setupGlyphOrder(names)
+    fb.setupCharacterMap({0x41: "A", 0x2E: "dot", 0xC0: "Adot", 0xC1: "Aacute"})
+    a = TTGlyphPen(None)
+    a.moveTo((0, 0)); a.lineTo((300, 700)); a.lineTo((600, 0)); a.closePath()
+    dot = TTGlyphPen(None)
+    dot.moveTo((0, 0)); dot.lineTo((0, 100)); dot.lineTo((100, 100)); dot.closePath()
+    composites = {}
+    for glyph, parts in (("Adot", (("A", (0, 0)), ("dot", None))),
+                         ("Aacute", (("A", (0, 0)), ("dot", (250, 750))))):
+        g = composites[glyph] = Glyph()
+        g.numberOfContours = -1
+        g.components = []
+        for name, offset in parts:
+            comp = GlyphComponent()
+            comp.glyphName, comp.flags = name, 0
+            if offset is None:
+                comp.firstPt, comp.secondPt = 2, 0
+            else:
+                comp.x, comp.y = offset
+            g.components.append(comp)
+    fb.setupGlyf({".notdef": TTGlyphPen(None).glyph(), "A": a.glyph(), "dot": dot.glyph(),
+                  **composites})
+    fb.setupHorizontalMetrics({n: (600, 0) for n in names})
+    fb.setupHorizontalHeader(ascent=800, descent=-200)
+    fb.setupNameTable({"familyName": "Matched", "styleName": "Regular"})
+    fb.setupOS2()
+    fb.setupPost()
+    fb.save(path)
+
+
+def test_point_matched_composite_raises_in_both(tmp_path):
+    """fontTools' glyph set cannot draw a composite placed by point matching
+    (GlyphComponent.getComponentInfo raises AttributeError on its missing
+    x), so figdraw_tpu raises on that glyph; the port raises
+    NotImplementedError saying so. The face's other glyphs, its cmap and
+    its advances agree in both."""
+    path = str(tmp_path / "matched.ttf")
+    _point_matched_face(path)
+    jtf = jax_typefaces.get_typeface(jax_typefaces.load_typeface(path))
+    ptf = port_typefaces.get_typeface(port_typefaces.load_typeface(path))
+    gid = ptf._name_to_gid["Adot"]
+    with pytest.raises(AttributeError):
+        jtf.glyph_path(gid)
+    with pytest.raises(NotImplementedError, match="point matching.*AttributeError"):
+        ptf.glyph_path(gid)
+    assert ptf.cmap == jtf.cmap and len(ptf.cmap) == 4
+    for g, name in enumerate(ptf._glyph_order):
+        assert ptf.advance(g) == jtf.advance(g)
+        if name != "Adot":
+            assert ptf.glyph_path(g) == jtf.glyph_path(g), name
+    assert ptf.glyph_path(ptf._name_to_gid["Aacute"])

@@ -4,8 +4,9 @@ text/typefaces.py) against figdraw_tpu, which instances faces through
 fontTools 4.61.1's getGlyphSet(location=...), and the committed FigPort
 Sans faces with their stored references.
 
-- The faces: tools/make_port_faces.py regenerates the three committed faces
-  byte for byte; their names carry neither "Bitstream" nor "Vera"; fonts/
+- The faces: tools/make_port_faces.py regenerates the five committed faces
+  (CFF, glyf and CFF2 variable, the glyf one as WOFF, and with VARC) byte
+  for byte; their names carry neither "Bitstream" nor "Vera"; fonts/
   README.md gives each file's sha256.
 - Normalization: fvar clamping, avar 1 (the wdth knee) and avar 2 (a face
   built with axis mappings, including a location that normalizes to
@@ -325,10 +326,11 @@ def test_bench_text_scene_equals_figdraw_tpu(case):
 
     face, loc = case
     path = port_tf.bundled_font_path(face)
-    combo, atlas, _ = jax_font_text_plan(path, loc)
+    line = scenes.font_text(face)[0]
+    combo, atlas, _ = jax_font_text_plan(path, loc, text=line)
     tid = port_tf.load_typeface(path)
     scene, n = scenes.make_text_scene(tid, fill(rgba(20, 20, 30, 255)), 0,
-                                      variations=port_variations(loc))
+                                      variations=port_variations(loc), text=line)
     ren = FigRenderer(atlas_size=512, device="cpu")
     ren._ensure_packed_glyphs(scene)
     plan = ren._walk_plan(scene, vec2(1200, 800), True, Color(1.0, 1.0, 1.0, 1.0))
@@ -417,7 +419,8 @@ out = {}
 for face, loc in scenes.FONT_TEXT_CASES:
     tid = load_typeface(bundled_font_path(face))
     scene, _ = scenes.make_text_scene(tid, fill(rgba(20, 20, 30, 255)), 0,
-        variations=tuple(FontVariation(t, v) for t, v in loc))
+        variations=tuple(FontVariation(t, v) for t, v in loc),
+        text=scenes.font_text(face)[0])
     ren = FigRenderer(atlas_size=512, device="cpu")
     ren._ensure_packed_glyphs(scene)
     plan = ren._walk_plan(scene, vec2(1200, 800), True, Color(1.0, 1.0, 1.0, 1.0))
@@ -425,29 +428,32 @@ for face, loc in scenes.FONT_TEXT_CASES:
     out[scenes.font_case_key(face, loc)] = [
         scenes.array_digest(plan.combo) == want["combo"],
         scenes.array_digest(ren.atlas.data) == want["atlas"]]
-face, loc = scenes.FONT_TABLE_CASE
-tid = load_typeface(bundled_font_path(face))
-tree = scenes.make_text_table_scene(180, 6, 1200.0, 800.0, tid=tid,
-    variations=tuple(FontVariation(t, v) for t, v in loc))
-ren = FigRenderer(atlas_size=512, device="cpu")
-tape = ren.flatten(tree, vec2(1200, 800))
-pack_walked_tape(tape)
-want = refs["table"][scenes.font_case_key(face, loc)]
-out["table"] = [scenes.array_digest(tape.combo, zero_sign=True) == want["combo"],
-                scenes.array_digest(ren.atlas.data) == want["atlas"]]
+for name, (face, loc) in (("table", scenes.FONT_TABLE_CASE),
+                          ("varc_table", scenes.FONT_VARC_TABLE_CASE)):
+    tid = load_typeface(bundled_font_path(face))
+    tree = scenes.make_text_table_scene(180, 6, 1200.0, 800.0, tid=tid,
+        variations=tuple(FontVariation(t, v) for t, v in loc),
+        text=scenes.font_text(face)[1])
+    ren = FigRenderer(atlas_size=512, device="cpu")
+    tape = ren.flatten(tree, vec2(1200, 800))
+    pack_walked_tape(tape)
+    want = refs["table"][scenes.font_case_key(face, loc)]
+    out[name] = [scenes.array_digest(tape.combo, zero_sign=True) == want["combo"],
+                 scenes.array_digest(ren.atlas.data) == want["atlas"]]
 print(json.dumps(out))
 """
 
 
 def test_stored_scene_digests_under_the_fixed_hash_seed():
-    """The port's bench_text scenes and full-size text table, built as
-    chip_smoke.py builds them under PYTHONHASHSEED=0, against fonts.json."""
+    """The port's bench_text scenes and full-size text tables (the CFF2
+    face's and the VARC face's), built as chip_smoke.py builds them under
+    PYTHONHASHSEED=0, against fonts.json."""
     env = dict(os.environ, PYTHONHASHSEED="0")
     res = subprocess.run([sys.executable, "-c", _SEEDED_CHECK, REPO], env=env,
                          capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     got = json.loads(res.stdout.strip().splitlines()[-1])
-    assert len(got) == len(scenes.FONT_TEXT_CASES) + 1
+    assert len(got) == len(scenes.FONT_TEXT_CASES) + 2
     assert all(all(v) for v in got.values()), got
 
 

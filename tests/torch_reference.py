@@ -62,8 +62,10 @@ long tapes on the rolled executor):
   bench_text's scene from each of `scenes.FONT_TEXT_CASES` (1200x800, 36
   lines, FigRenderer(atlas_size=512, use_pallas=False)): its plan's combo
   and atlas digests and its frame's 8x8 block means; the text table
-  (180x6 at 1200x800) of `scenes.FONT_TABLE_CASE`: its plan's combo (zero
-  signs folded) and atlas digests and block means; the sha256 of
+  (180x6 at 1200x800) of `scenes.FONT_TABLE_CASE` and of
+  `scenes.FONT_VARC_TABLE_CASE`: its plan's combo (zero signs folded) and
+  atlas digests and block means (each face's lines from
+  `scenes.font_text`); the sha256 of
   figdraw_tpu's instance packs (`build_font_pack`) of
   `scenes.FONT_PACK_CASES`.
 
@@ -458,9 +460,10 @@ def port_variations(location) -> tuple:
     return tuple(FontVariation(tag, float(v)) for tag, v in location)
 
 
-def jax_font_text_scene(path: str, location, seed: int = 0):
+def jax_font_text_scene(path: str, location, seed: int = 0, text: str = None):
     """bench_text.build_scene from the face at `path` at a variation
-    location, with the figdraw_tpu API."""
+    location, with the figdraw_tpu API (each line `text` % row, bench_text's
+    line by default)."""
     from figdraw_tpu import Fig, FigKind, fill, new_renders, rect, rgba, vec2
     from figdraw_tpu.nodesarray import from_renders
     from figdraw_tpu.text.layout import typeset_cached
@@ -468,25 +471,26 @@ def jax_font_text_scene(path: str, location, seed: int = 0):
     renders = new_renders()
     renders.add_root(0, Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, TEXT_W, TEXT_H),
                             fill=fill(rgba(250, 250, 250, 255))))
+    from figdraw_tpu_torch.scenes import TEXT_LINE
+
     f = _text_font(15.0, path, location)
+    text = TEXT_LINE if text is None else text
     y = 4.0
     for row in range(36):
         arr = typeset_cached(vec2(TEXT_W - 20, 22), [(
-            f, fill(rgba(20, 20, 30, 255)),
-            "The quick brown fox jumps over the lazy dog near the riverbank %d"
-            % (seed + row))])
+            f, fill(rgba(20, 20, 30, 255)), text % (seed + row))])
         renders.add_root(0, Fig(kind=FigKind.nkText, screen_box=rect(8, y, TEXT_W - 20, 22),
                                 text_layout=arr))
         y += 22.0
     return from_renders(renders)
 
 
-def jax_font_text_plan(path: str, location, render: bool = False):
+def jax_font_text_plan(path: str, location, render: bool = False, text: str = None):
     """figdraw_tpu's plan of jax_font_text_scene (FigRenderer(atlas_size=512,
     use_pallas=False)): (combo, atlas, the frame or None)."""
     from figdraw_tpu import FigRenderer, vec2
 
-    scene = jax_font_text_scene(path, location)
+    scene = jax_font_text_scene(path, location, text=text)
     ren = FigRenderer(atlas_size=512, use_pallas=False)
     size = vec2(TEXT_W, TEXT_H)
     frame = np.asarray(ren.render_frame(scene, size)) if render else None
@@ -495,13 +499,14 @@ def jax_font_text_plan(path: str, location, render: bool = False):
 
 
 def jax_font_table_plan(path: str, location, render: bool = False,
-                        rows: int = TABLE_ROWS):
+                        rows: int = TABLE_ROWS, text: str = None):
     """figdraw_tpu's plan of the text table from the face at `path` at a
     location (rows x 6 at 1200x800, its default path: the rolled executor):
     (combo, atlas, the frame or None)."""
     from figdraw_tpu import FigRenderer, vec2
 
-    scene = jax_text_table_scene(rows=rows, font=_text_font(13.0, path, location))
+    scene = jax_text_table_scene(rows=rows, font=_text_font(13.0, path, location),
+                                 text=text)
     ren = FigRenderer(atlas_size=512, use_pallas=False)
     size = vec2(TABLE_W, TABLE_H)
     frame = np.asarray(ren.render_frame(scene, size)) if render else None
@@ -552,7 +557,7 @@ def font_references() -> dict:
     from figdraw_tpu.text.typefaces import get_typeface, load_typeface
     from figdraw_tpu_torch.scenes import (
         FONT_FACES, FONT_LOCATIONS, FONT_PACK_CASES, FONT_TABLE_CASE, FONT_TEXT_CASES,
-        array_digest, font_case_key, outline_digests,
+        FONT_VARC_TABLE_CASE, array_digest, font_case_key, font_text, outline_digests,
     )
 
     out = {"faces": {}, "text": {}, "table": {}, "packs": {}}
@@ -567,15 +572,15 @@ def font_references() -> dict:
                                                           "advances": advances}
         out["faces"][face] = entry
     for face, loc in FONT_TEXT_CASES:
-        combo, atlas, _ = jax_font_text_plan(font_path(face), loc)
+        combo, atlas, _ = jax_font_text_plan(font_path(face), loc, text=font_text(face)[0])
         out["text"][font_case_key(face, loc)] = {
             "combo": array_digest(combo), "combo_shape": list(combo.shape),
             "atlas": array_digest(atlas)}
-    face, loc = FONT_TABLE_CASE
-    combo, atlas, _ = jax_font_table_plan(font_path(face), loc)
-    out["table"][font_case_key(face, loc)] = {
-        "combo": array_digest(combo, zero_sign=True), "combo_shape": list(combo.shape),
-        "atlas": array_digest(atlas)}
+    for face, loc in (FONT_TABLE_CASE, FONT_VARC_TABLE_CASE):
+        combo, atlas, _ = jax_font_table_plan(font_path(face), loc, text=font_text(face)[1])
+        out["table"][font_case_key(face, loc)] = {
+            "combo": array_digest(combo, zero_sign=True), "combo_shape": list(combo.shape),
+            "atlas": array_digest(atlas)}
     for face, loc in FONT_PACK_CASES:
         tid = load_typeface(font_path(face))
         out["packs"][font_case_key(face, loc)] = hashlib.sha256(
@@ -585,7 +590,8 @@ def font_references() -> dict:
 
 def write_font_references() -> None:
     from figdraw_tpu_torch.scenes import (
-        FONT_TABLE_CASE, FONT_TEXT_CASES, FONTS_REFERENCE, font_blocks_path, font_case_key,
+        FONT_TABLE_CASE, FONT_TEXT_CASES, FONT_VARC_TABLE_CASE, FONTS_REFERENCE,
+        font_blocks_path, font_case_key, font_text,
     )
 
     refs = font_references()
@@ -594,15 +600,17 @@ def write_font_references() -> None:
         fh.write("\n")
     print(f"wrote {FONTS_REFERENCE}")
     for face, loc in FONT_TEXT_CASES:
-        _combo, _atlas, frame = jax_font_text_plan(font_path(face), loc, render=True)
+        _combo, _atlas, frame = jax_font_text_plan(font_path(face), loc, render=True,
+                                                   text=font_text(face)[0])
         path = font_blocks_path(font_case_key(face, loc))
         np.save(path, block_means(frame).astype(np.float32))
         print(f"wrote {path}")
-    face, loc = FONT_TABLE_CASE
-    _combo, _atlas, frame = jax_font_table_plan(font_path(face), loc, render=True)
-    path = font_blocks_path(font_case_key(face, loc))
-    np.save(path, block_means(frame).astype(np.float32))
-    print(f"wrote {path}")
+    for face, loc in (FONT_TABLE_CASE, FONT_VARC_TABLE_CASE):
+        _combo, _atlas, frame = jax_font_table_plan(font_path(face), loc, render=True,
+                                                    text=font_text(face)[1])
+        path = font_blocks_path(font_case_key(face, loc))
+        np.save(path, block_means(frame).astype(np.float32))
+        print(f"wrote {path}")
 
 
 def jax_text_cells_scene():
@@ -633,11 +641,15 @@ def jax_text_cells_scene():
 
 
 def jax_text_table_scene(rows: int = TABLE_ROWS, cols: int = TABLE_COLS,
-                         w: float = TABLE_W, h: float = TABLE_H, font=None):
+                         w: float = TABLE_W, h: float = TABLE_H, font=None,
+                         text: str = None):
     """The text-in-clip scene at bench_clipmask.make_table_scene's size and
     layout: a clipped viewport scrolled by 37 px over rows x cols rounded
     cells of 22 px, each clipping a 13 px line (DejaVuSans, or `font`) that
-    runs past its right edge."""
+    runs past its right edge (`text` formatted with the cell's row and col,
+    scenes.TABLE_CELL by default)."""
+    from figdraw_tpu_torch.scenes import TABLE_CELL
+
     from figdraw_tpu import Fig, FigFlags, FigKind, fill, rect, rgba, vec2
     from figdraw_tpu.nodes import RenderList, Renders
     from figdraw_tpu.text.layout import typeset
@@ -663,7 +675,7 @@ def jax_text_table_scene(rows: int = TABLE_ROWS, cols: int = TABLE_COLS,
                 fill=fill(rgba(shade, shade, 255, 255))))
             arr = typeset(vec2(cell_w + 60, 20), [(
                 f, fill(rgba(30, 30 + (row * 7) % 90, 40 + (col * 29) % 120, 255)),
-                f"cell r{row}c{col} spills wide past its clip")])
+                (TABLE_CELL if text is None else text).format(row=row, col=col))])
             lst.add_child(ci, Fig(
                 kind=FigKind.nkText,
                 screen_box=rect(cell.x + 4, cell.y + 3, cell_w + 60, 20),
