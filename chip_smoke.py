@@ -95,13 +95,17 @@ FigRenderer(device="cuda").render_frame or execute_plan:
   path, K4-atlas; and a 1080p photo wall of the loaded image (48 panels,
   12 clipped: the megakernel with the atlas), with the host times of the
   pipeline's steps and render_frame's perf span means; the stored files
-  of the JPEG, GIF, BMP, ICO, QOI, TIFF and WebP decoders
-  (csrc/image_decode.cpp, csrc/webp_decode.cpp, g++) against PIL's stored
-  digests, their C++ stages against the plain twins, and the baseline
-  JPEG, the fixture's LZW + Predictor 2 TIFF and its lossy WebP at q 90
-  loaded cold and warm, each drawn in the image-file scene (K1-atlas) and
-  the photo wall (K4-atlas) within 1e-5 of figdraw_tpu's stored block
-  means, and the fixture's lossless WebP equal to the PNG;
+  of the JPEG, GIF, BMP, ICO, QOI, TIFF (with CCITT fax and ZSTD) and
+  WebP decoders (csrc/image_decode.cpp, csrc/webp_decode.cpp,
+  csrc/zstd_decode.cpp, g++) against PIL's stored digests, their C++
+  stages against the plain twins, and the baseline JPEG, the fixture's
+  LZW + Predictor 2 TIFF, its lossy WebP at q 90 and its ZSTD + Predictor
+  2 TIFF loaded cold and warm, each drawn in the image-file scene
+  (K1-atlas) and the photo wall (K4-atlas) within 1e-5 of figdraw_tpu's
+  stored block means, the fixture dithered to a Group 3 fax drawn in the
+  image-file scene, a 1728x1143 Group 4 fax page loaded cold and warm and
+  drawn in the photo wall, and the fixture's lossless WebP and ZSTD tiles
+  equal to the PNG;
 - the C ABI for external hosts (capi_phase, lines `check 14`): the
   headline scene fed row by row through the scene-building calls
   fd_renders_* (capi_scene), walked by fd_flatten_renders and exported by
@@ -3341,8 +3345,10 @@ def image_formats_check(tag: str) -> dict:
     IDCT, upsampling and colour conversion on its whole frame, the entropy
     decoding on the 64x48 progressive crop with restarts (its whole plain
     decode), GIF's LZW and QOI's ops on the first CROP_PIXELS pixels,
-    each TIFF's PackBits or LZW and predictor on every strip or tile (and
-    its whole plain decode), and each WebP's stages (webp.stage_pairs:
+    each TIFF's PackBits, LZW, CCITT fax (fd_tiff_fax, with the state it
+    carries between strips) or Zstandard (fd_zstd_decompress) and
+    predictor on every strip or tile (and its whole plain decode), and
+    each WebP's stages (webp.stage_pairs:
     fd_webp_vp8 and fd_webp_vp8l whole on a frame of at most CROP_PIXELS
     pixels, fd_webp_upsample and fd_webp_alpha_unfilter on a 64x48 crop;
     the whole plain decode of each such frame). Returns {file: (cold ms,
@@ -3359,6 +3365,7 @@ def image_formats_check(tag: str) -> dict:
     t0 = time.perf_counter()
     image_lib.load()  # the g++ builds, kept out of the first file's cold decode
     image_lib.load_webp()
+    image_lib.load_zstd()
     build_ms = (time.perf_counter() - t0) * 1e3
     times, stages = {}, {}
     for name, ref in sorted(stored.items()):
@@ -3413,7 +3420,8 @@ def image_formats_check(tag: str) -> dict:
         elif name.endswith(".tif"):
             for stage, got, want in tiff.stage_pairs(data):
                 if not np.array_equal(got, want):
-                    fail(f"image formats: {name}: fd_tiff_{stage} differs from its plain twin")
+                    fail(f"image formats: {name}: the C++ {stage} stage differs from its "
+                         "plain twin")
                 if stage not in held:
                     held.append(stage)
             if not np.array_equal(tiff.decode_tiff(data, plain=True), px):
@@ -3432,7 +3440,8 @@ def image_formats_check(tag: str) -> dict:
                 held.append("plain decode")
         if held:
             stages[name] = held
-    print(f"check 13: the {len(stored)} stored image files (JPEG, GIF, BMP, ICO, QOI, TIFF, WebP) "
+    print(f"check 13: the {len(stored)} stored image files (JPEG, GIF, BMP, ICO, QOI, TIFF with "
+          f"CCITT fax and ZSTD, WebP) "
           f"decode to PIL's stored sha256 through the C++ helper; stages held to their "
           f"plain twins: {json.dumps(stages)}", flush=True)
     print(f"times: image decodes (the helpers' g++ builds {build_ms:.1f} ms first), host ms "
@@ -3460,12 +3469,16 @@ def image_files_phase(tag: str, dev) -> dict:
     image modes 13-16 counted where they reach an atlas kernel (the SDF
     scenes' tapes also through the megakernel with the atlas, a check
     beside the main path). The same from the stored baseline JPEG, the
-    stored LZW + Predictor 2 TIFF and the stored lossy WebP (q 90) of the
-    fixture (image_formats_check first: every stored format against PIL's
-    digests): load_image cold and warm against figdraw_tpu's sidecar
-    digest, the image-file scene on K1-atlas and the photo wall on
-    K4-atlas, each within FILE_TOL of figdraw_tpu's stored block means;
-    the fixture's lossless WebP decodes to the PNG's pixels. Host times of
+    stored LZW + Predictor 2 TIFF, the stored lossy WebP (q 90) and the
+    stored ZSTD + Predictor 2 TIFF of the fixture (image_formats_check
+    first: every stored format against PIL's digests): load_image cold and
+    warm against figdraw_tpu's sidecar digest, the image-file scene on
+    K1-atlas and the photo wall on K4-atlas, each within FILE_TOL of
+    figdraw_tpu's stored block means; the fixture dithered to 1 bit as a
+    Group 3 fax in the image-file scene, and the TIFF-F Group 4 fax page
+    (1728x1143) loaded cold and warm and on the photo wall (its atlas
+    started at FAX_ATLAS, as figdraw_tpu's reference), likewise; the
+    fixture's lossless WebP and ZSTD tiles decode to the PNG's pixels. Host times of
     each step of the pipeline, each photo wall's ms/frame with its host
     and device split and its perf span means."""
     import dataclasses
@@ -3483,12 +3496,14 @@ def image_files_phase(tag: str, dev) -> dict:
     from figdraw_tpu_torch.ops import mega, raster
     from figdraw_tpu_torch.plan import pack_mega_combo, plan_execution
     from figdraw_tpu_torch.scenes import (
-        EXAMPLE_FORMS, EXAMPLE_IMAGES, EXAMPLE_SCENES, IMAGE_FILE_SIZE, IMAGE_FIXTURE,
+        EXAMPLE_FORMS, EXAMPLE_IMAGES, EXAMPLE_SCENES, FAX_ATLAS, FAX_PAGE, G3_FILE_REFERENCE,
+        G3_FIXTURE, G4_WALL_REFERENCE, IMAGE_FILE_SIZE, IMAGE_FIXTURE,
         IMAGE_FIXTURE_REFERENCE, IMAGE_FORMATS_REFERENCE, JPEG_FILE_REFERENCE, JPEG_FIXTURE,
         JPEG_WALL_REFERENCE, PHOTO_WALL_PANELS, PHOTO_WALL_REFERENCE, PHOTO_WALL_SIZE,
         PHOTO_WALL_SMALL, TIFF_FILE_REFERENCE, TIFF_FIXTURE, TIFF_WALL_REFERENCE,
-        WEBP_FILE_REFERENCE, WEBP_FIXTURE, WEBP_WALL_REFERENCE, example_reference_path,
-        make_image_file_scene, make_loaded_photo_wall,
+        WEBP_FILE_REFERENCE, WEBP_FIXTURE, WEBP_WALL_REFERENCE, ZSTD_FILE_REFERENCE,
+        ZSTD_FIXTURE, ZSTD_WALL_REFERENCE, example_reference_path, make_image_file_scene,
+        make_loaded_photo_wall,
     )
     from figdraw_tpu_torch.utils import flippy, imagefile, perf, png
 
@@ -3602,6 +3617,18 @@ def image_files_phase(tag: str, dev) -> dict:
                  "the PNG")
         print("check 13: the fixture's lossless WebP decodes to the PNG's pixels (sha256)",
               flush=True)
+        zpath, zcold_ms, zwarm_ms, zimage = cold_warm(ZSTD_FIXTURE, "ZSTD + Predictor 2 TIFF")
+        ztiles = imagefile.read_image(os.path.join(os.path.dirname(ZSTD_FIXTURE),
+                                                   "fixture_zstd_tiles.tif"))
+        for what, img in (("ZSTD + Predictor 2 TIFF", zimage), ("ZSTD tiles", ztiles)):
+            if hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest() != \
+                    stored["decoded_sha256"]:
+                fail(f"image files: the fixture's {what} decodes to other pixels than the PNG")
+        print("check 13: the fixture's ZSTD TIFFs (Predictor 2 strips, tiles) decode to the "
+              "PNG's pixels (sha256)", flush=True)
+        gpath, gcold_ms, gwarm_ms, _gimage = cold_warm(FAX_PAGE, "Group 4 fax page (1728x1143)")
+        g3path = os.path.join(td, os.path.basename(G3_FIXTURE))
+        shutil.copyfile(G3_FIXTURE, g3path)
 
         # --- render_frame: the image-file scene and the SDF scenes in each form ---
         def checked_frame(what, make, ref_path, tol=TOL):
@@ -3702,16 +3729,19 @@ def image_files_phase(tag: str, dev) -> dict:
 
         file_frames = {"jpeg": file_scene(jpath, "jpeg", JPEG_FILE_REFERENCE),
                        "tiff": file_scene(tpath, "tiff", TIFF_FILE_REFERENCE),
-                       "webp": file_scene(wpath, "webp", WEBP_FILE_REFERENCE)}
+                       "webp": file_scene(wpath, "webp", WEBP_FILE_REFERENCE),
+                       "zstd": file_scene(zpath, "zstd", ZSTD_FILE_REFERENCE),
+                       "g3": file_scene(g3path, "g3", G3_FILE_REFERENCE)}
 
         # --- the 1080p photo wall of each loaded image ---
-        def photo_wall(src, small_ref, what, tol=TOL):
+        def photo_wall(src, small_ref, what, tol=TOL, atlas=256):
             """The wall of the image at src: FRAMES counted frames, its perf
             spans, its kernels against their plain versions, the 480x270
-            wall within tol of small_ref, the host and device split."""
+            wall within tol of small_ref, the host and device split; the
+            atlases start at `atlas`."""
             w, h = PHOTO_WALL_SIZE
             size = vec2(w, h)
-            ren = FigRenderer(atlas_size=256, device="cuda")
+            ren = FigRenderer(atlas_size=atlas, device="cuda")
             wall_bus = resources.ImageMessageBus()
             ren.ensure_image_message_subscription(wall_bus)
             refs.append(resources.load_image(src, bus=wall_bus))
@@ -3735,7 +3765,7 @@ def image_files_phase(tag: str, dev) -> dict:
             wall_calls = []
             plan_kernel_checks(what, *runs[0], calls=wall_calls)
             sw, sh, sn = PHOTO_WALL_SMALL
-            small = FigRenderer(atlas_size=256, device="cuda")
+            small = FigRenderer(atlas_size=atlas, device="cuda")
             small_bus = resources.ImageMessageBus()
             small.ensure_image_message_subscription(small_bus)
             refs.append(resources.load_image(src, bus=small_bus))
@@ -3749,7 +3779,10 @@ def image_files_phase(tag: str, dev) -> dict:
         walls = {"png": photo_wall(path, PHOTO_WALL_REFERENCE, "photo wall"),
                  "jpeg": photo_wall(jpath, JPEG_WALL_REFERENCE, "photo wall jpeg", FILE_TOL),
                  "tiff": photo_wall(tpath, TIFF_WALL_REFERENCE, "photo wall tiff", FILE_TOL),
-                 "webp": photo_wall(wpath, WEBP_WALL_REFERENCE, "photo wall webp", FILE_TOL)}
+                 "webp": photo_wall(wpath, WEBP_WALL_REFERENCE, "photo wall webp", FILE_TOL),
+                 "zstd": photo_wall(zpath, ZSTD_WALL_REFERENCE, "photo wall zstd", FILE_TOL),
+                 "g4": photo_wall(gpath, G4_WALL_REFERENCE, "photo wall g4", FILE_TOL,
+                                  FAX_ATLAS)}
         for ref in refs:
             ref.close()
     med = statistics.median
@@ -3777,7 +3810,10 @@ def image_files_phase(tag: str, dev) -> dict:
           f"warm {warm_ms:.3f} ms; the baseline JPEG's load_image cold {jcold_ms:.3f} ms, "
           f"warm {jwarm_ms:.3f} ms; the LZW + Predictor 2 TIFF's load_image cold "
           f"{tcold_ms:.3f} ms, warm {twarm_ms:.3f} ms; the lossy WebP's load_image cold "
-          f"{wcold_ms:.3f} ms, warm {wwarm_ms:.3f} ms {tag}", flush=True)
+          f"{wcold_ms:.3f} ms, warm {wwarm_ms:.3f} ms; the ZSTD + Predictor 2 TIFF's "
+          f"load_image cold {zcold_ms:.3f} ms, warm {zwarm_ms:.3f} ms; the Group 4 fax page's "
+          f"(1728x1143) load_image cold {gcold_ms:.3f} ms, warm {gwarm_ms:.3f} ms {tag}",
+          flush=True)
     for src, (f_ms, f_host, f_dev) in file_frames.items():
         print(f"times: image_file scene from the {src.upper()}, 800x600 on K1-atlas: median "
               f"{f_ms:.3f} ms/frame = host (messages, walk, plan) {med(f_host):.3f} ms "

@@ -25,13 +25,19 @@
 //                       code width (tif_lzw.c, new-style codes);
 //   fd_tiff_predict     the horizontal and floating-point predictors
 //                       (tif_predict.c: horAcc8/16/32/64 with their swab
-//                       forms, fpAcc).
+//                       forms, fpAcc);
+//   fd_tiff_fax         CCITT Modified Huffman, T.4 and T.6 (tif_fax3.c,
+//                       tif_fax3.h, with the code tables of fax_tables.h).
 //
 // Every function returns 0 (or a position) on success and a negative code
 // on malformed input; nothing is allocated here.
 
 #include <cstdint>
 #include <cstring>
+#include <mutex>
+#include <utility>
+
+#include "fax_tables.h"
 
 extern "C" {
 
@@ -794,6 +800,394 @@ int fd_tiff_predict(uint8_t* buf, int64_t rows, int64_t row_bytes, int spp, int 
         }
     }
     return 0;
+}
+
+}  // extern "C"
+
+// -------------------------------------------------------------- CCITT fax ---
+//
+// libtiff 4.7.1's decoders of compressions 2, 3 and 4, step for step
+// (utils/fax.py's decode_plain is the twin and says which leniencies they
+// keep). Bits are read MSB first from the accumulator; at the end of the
+// data a request is padded with zeros while any bit is left, as NeedBits
+// does. The caller keeps `state` across an image's strips: a flag word
+// (1: T.4 read without EOLs) and the two run arrays, which libtiff keeps
+// too and whose stale entries a corrupt reference line reads.
+
+namespace fax {
+
+enum { S_Null, S_Pass, S_Horiz, S_V0, S_VR, S_VL, S_Ext, S_TermW, S_TermB, S_MakeUpW,
+       S_MakeUpB, S_MakeUp, S_EOL };
+enum { kOk = 0, kEof = 1, kFailed = -1, kUncompressed = -2 };
+
+struct Ent { uint8_t state, width; uint16_t param; };
+static Ent white_t[1 << 12], black_t[1 << 13], main_t[1 << 7];
+static std::once_flag tables_once;
+
+template <size_t N>
+static void fill_table(Ent* t, int bits, const FaxCode (&codes)[N]) {
+    for (const FaxCode& c : codes) {
+        const int base = c.code << (bits - c.length);
+        for (int i = 0; i < (1 << (bits - c.length)); ++i)
+            t[base + i] = Ent{c.state, c.length, c.param};
+    }
+}
+
+static void build_tables() {
+    fill_table(white_t, 12, kFaxWhite);
+    fill_table(black_t, 13, kFaxBlack);
+    fill_table(main_t, 7, kFaxMain);
+}
+
+struct Dec {
+    const uint8_t* data;
+    int64_t len, cp;
+    uint32_t acc;   // `avail` valid bits, the next one highest
+    int avail;
+    int lastx, nruns, eolcnt;
+    bool noeol;
+    uint32_t* runs;  // 2 * nruns + 1 entries: curruns, refruns, a spare
+    int cur, ref;    // offsets of curruns and refruns in runs
+
+    bool need(int n) {  // NeedBits8 / NeedBits16
+        while (avail < n) {
+            if (cp >= len) {
+                if (avail == 0) return false;
+                acc <<= (n - avail);  // pad with zeros
+                avail = n;
+                return true;
+            }
+            acc = (acc << 8) | data[cp++];
+            avail += 8;
+        }
+        return true;
+    }
+    int peek(int n) const { return (int)((acc >> (avail - n)) & ((1u << n) - 1)); }
+    void clr(int n) {
+        avail -= n;
+        acc &= (avail >= 32) ? 0xFFFFFFFFu : ((1u << avail) - 1);
+    }
+    int ahead(int n) const {  // the next n bits, zeros past the end, state untouched
+        uint64_t a = acc;
+        int av = avail;
+        int64_t p = cp;
+        while (av < n) {
+            a = (a << 8) | (p < len ? data[p] : 0);
+            ++p;
+            av += 8;
+        }
+        return (int)((a >> (av - n)) & ((1u << n) - 1));
+    }
+    bool lookup(const Ent* t, int bits, Ent* e) {  // LOOKUP8 / LOOKUP16
+        if (!need(bits)) return false;
+        *e = t[peek(bits)];
+        clr(e->width);
+        return true;
+    }
+};
+
+struct Row {
+    Dec* d;
+    int thisrun, pa;
+    int32_t a0, run_length;
+
+    int setvalue(int32_t x) {  // SETVALUE; kFailed on "Buffer overflow"
+        if (pa >= thisrun + d->nruns) return kFailed;
+        d->runs[pa++] = (uint32_t)run_length + (uint32_t)x;
+        a0 = (int32_t)((uint32_t)a0 + (uint32_t)x);
+        run_length = 0;
+        return kOk;
+    }
+    void make_up(uint32_t run) {
+        a0 = (int32_t)((uint32_t)a0 + run);
+        run_length = (int32_t)((uint32_t)run_length + run);
+    }
+    int cleanup() {  // CLEANUP_RUNS
+        const int32_t lastx = d->lastx;
+        if (run_length && setvalue(0)) return kFailed;
+        if (a0 != lastx) {
+            while (a0 > lastx && pa > thisrun) a0 = (int32_t)((uint32_t)a0 - d->runs[--pa]);
+            if (a0 < lastx) {
+                if (a0 < 0) a0 = 0;
+                if (((pa - thisrun) & 1) && setvalue(0)) return kFailed;
+                if (setvalue((int32_t)((uint32_t)lastx - (uint32_t)a0))) return kFailed;
+            } else if (a0 > lastx) {
+                if (setvalue(lastx) || setvalue(0)) return kFailed;
+            }
+        }
+        return kOk;
+    }
+};
+
+// _TIFFFax3fillruns: runs [start, end) to the row's bits (the row zeroed
+// first, black runs set), each run cut to the row and the cut written back
+static void fill(uint32_t* runs, int start, int end, uint32_t lastx, uint8_t* row,
+                 int64_t row_bytes) {
+    if ((end - start) & 1) runs[end++] = 0;
+    std::memset(row, 0, (size_t)row_bytes);
+    uint32_t x = 0;
+    for (int k = start; k < end; k += 2) {
+        for (int j = 0; j < 2; ++j) {
+            uint32_t run = runs[k + j];
+            if (x + run > lastx || run > lastx) run = runs[k + j] = lastx - x;
+            if (run) {
+                if (j) {
+                    for (uint32_t i = x; i < x + run; ++i) row[i >> 3] |= (uint8_t)(0x80 >> (i & 7));
+                }
+                x += run;
+            }
+        }
+    }
+}
+
+// EXPAND1D: kOk, kEof (the row cleaned up), kFailed
+static int expand1d(Dec& d, Row& r) {
+    Ent e;
+    const int32_t lastx = d.lastx;
+    for (;;) {
+        for (;;) {
+            if (!d.lookup(white_t, 12, &e)) goto eof;
+            if (e.state == S_EOL) { d.eolcnt = 1; return r.cleanup(); }
+            if (e.state == S_TermW) { if (r.setvalue(e.param)) return kFailed; break; }
+            if (e.state == S_MakeUpW || e.state == S_MakeUp) {
+                r.make_up(e.param);
+                continue;
+            }
+            return r.cleanup();  // unexpected("WhiteTable")
+        }
+        if (r.a0 >= lastx) return r.cleanup();
+        for (;;) {
+            if (!d.lookup(black_t, 13, &e)) goto eof;
+            if (e.state == S_EOL) { d.eolcnt = 1; return r.cleanup(); }
+            if (e.state == S_TermB) { if (r.setvalue(e.param)) return kFailed; break; }
+            if (e.state == S_MakeUpB || e.state == S_MakeUp) {
+                r.make_up(e.param);
+                continue;
+            }
+            return r.cleanup();  // unexpected("BlackTable")
+        }
+        if (r.a0 >= lastx) return r.cleanup();
+        if (d.runs[r.pa - 1] == 0 && d.runs[r.pa - 2] == 0) r.pa -= 2;
+    }
+eof:
+    return r.cleanup() ? kFailed : kEof;  // prematureEOF
+}
+
+// one run of a horizontal mode code; kOk, kEof, or 2 for a bad code word
+static int horizontal_run(Dec& d, Row& r, const Ent* t, int bits, int term, int make) {
+    Ent e;
+    for (;;) {
+        if (!d.lookup(t, bits, &e)) return kEof;
+        if (e.state == term) return r.setvalue(e.param) ? kFailed : kOk;
+        if (e.state == make || e.state == S_MakeUp) {
+            r.make_up(e.param);
+            continue;
+        }
+        return 2;
+    }
+}
+
+// EXPAND2D against the reference line: kOk, kEof (the row cleaned up),
+// kFailed, kUncompressed
+static int expand2d(Dec& d, Row& r) {
+    Ent e;
+    uint32_t* runs = d.runs;
+    const int32_t lastx = d.lastx;
+    const int ref_end = d.ref + d.nruns;
+    int pb = d.ref;
+    int32_t b1 = (int32_t)runs[pb++];
+    auto check_b1 = [&]() -> bool {
+        if (r.pa != r.thisrun)
+            while (b1 <= r.a0 && b1 < lastx) {
+                if (pb + 1 >= ref_end) return false;
+                b1 = (int32_t)((uint32_t)b1 + runs[pb] + runs[pb + 1]);
+                pb += 2;
+            }
+        return true;
+    };
+    while (r.a0 < lastx) {
+        if (r.pa >= r.thisrun + d.nruns) return kFailed;
+        if (!d.lookup(main_t, 7, &e)) goto eof;
+        switch (e.state) {
+            case S_Pass:
+                if (!check_b1() || pb + 1 >= ref_end) return kFailed;
+                b1 = (int32_t)((uint32_t)b1 + runs[pb++]);
+                r.run_length = (int32_t)((uint32_t)r.run_length + (uint32_t)b1 - (uint32_t)r.a0);
+                r.a0 = b1;
+                b1 = (int32_t)((uint32_t)b1 + runs[pb++]);
+                break;
+            case S_Horiz: {
+                int rc;
+                if ((r.pa - r.thisrun) & 1) {
+                    rc = horizontal_run(d, r, black_t, 13, S_TermB, S_MakeUpB);
+                    if (rc == kOk) rc = horizontal_run(d, r, white_t, 12, S_TermW, S_MakeUpW);
+                } else {
+                    rc = horizontal_run(d, r, white_t, 12, S_TermW, S_MakeUpW);
+                    if (rc == kOk) rc = horizontal_run(d, r, black_t, 13, S_TermB, S_MakeUpB);
+                }
+                if (rc == kFailed) return kFailed;
+                if (rc == kEof) goto eof;
+                if (rc == 2) goto eol;  // unexpected("BlackTable" / "WhiteTable")
+                if (!check_b1()) return kFailed;
+                break;
+            }
+            case S_V0:
+            case S_VR:
+                if (!check_b1()) return kFailed;
+                if (r.setvalue((int32_t)((uint32_t)b1 - (uint32_t)r.a0 +
+                                         (e.state == S_VR ? e.param : 0u))))
+                    return kFailed;
+                if (pb >= ref_end) return kFailed;
+                b1 = (int32_t)((uint32_t)b1 + runs[pb++]);
+                break;
+            case S_VL:
+                if (!check_b1()) return kFailed;
+                if (b1 < (int32_t)((uint32_t)r.a0 + e.param)) goto eol;  // unexpected("VL")
+                if (r.setvalue((int32_t)((uint32_t)b1 - (uint32_t)r.a0 - e.param)))
+                    return kFailed;
+                b1 = (int32_t)((uint32_t)b1 - runs[--pb]);
+                break;
+            case S_Ext:  // libtiff: "Uncompressed data (not supported)"
+                if (d.ahead(3) == 7) return kUncompressed;
+                runs[r.pa++] = (uint32_t)(lastx - r.a0);
+                goto eol;
+            case S_EOL:
+                runs[r.pa++] = (uint32_t)(lastx - r.a0);
+                if (!d.need(4)) goto eof;
+                d.clr(4);  // unexpected("EOL") unless zeros
+                d.eolcnt = 1;
+                goto eol;
+            default:
+                goto eol;  // unexpected("MainTable")
+        }
+    }
+    if (r.run_length) {
+        if ((int32_t)((uint32_t)r.run_length + (uint32_t)r.a0) < lastx) {
+            if (!d.need(1)) goto eof;
+            if (!d.peek(1)) goto eol;  // badMain2d
+            d.clr(1);
+        }
+        if (r.setvalue(0)) return kFailed;
+    }
+eol:
+    return r.cleanup();
+eof:
+    return r.cleanup() ? kFailed : kEof;  // prematureEOF
+}
+
+// SYNC_EOL: kOk, kEof, or 2 when the data ends after an EOL's zeros
+static int sync_eol(Dec& d) {
+    if (d.noeol) return kOk;
+    if (d.eolcnt == 0) {
+        for (;;) {
+            if (!d.need(11)) return kEof;
+            if (d.peek(11) == 0) break;
+            d.clr(1);
+        }
+    }
+    for (;;) {
+        if (!d.need(8)) return 2;  // noEOLFound
+        if (d.peek(8)) break;
+        d.clr(8);
+    }
+    while (d.peek(1) == 0) d.clr(1);
+    d.clr(1);
+    d.eolcnt = 0;
+    return kOk;
+}
+
+}  // namespace fax
+
+extern "C" {
+
+// One CCITT strip or tile of `rows` rows of `width` pixels into out
+// (row_bytes a row, MSB first, 1 for black; rows the data never reaches
+// keep their bytes). mode: the TIFF compression, 2 (Modified Huffman),
+// 3 (T.4: t4options bit 0 two-dimensional) or 4 (T.6). state: the image's
+// flag word and run arrays (utils/fax.py: new_state), carried to its next
+// strip. Returns the rows decoded, -1 where libtiff fails the strip, -2 at
+// the extension code that enters uncompressed mode.
+int fd_tiff_fax(const uint8_t* data, int64_t len, int width, int rows, int mode,
+                int t4options, uint8_t* out, int64_t row_bytes, uint32_t* state) {
+    using namespace fax;
+    std::call_once(tables_once, build_tables);
+    if (width < 1 || rows < 0 || row_bytes * 8 < width) return kFailed;
+    const bool two_d = mode == 4 || (mode == 3 && (t4options & 1));
+    Dec d{};
+    d.data = data;
+    d.len = len;
+    d.lastx = width;
+    d.nruns = (width + 1 + 31) / 32 * 32 * (two_d ? 2 : 1);
+    d.runs = state + 1;
+    d.cur = 0;
+    d.ref = d.nruns;
+    d.noeol = (state[0] & 1) != 0;
+    if (two_d) {
+        d.runs[d.ref] = (uint32_t)width;
+        d.runs[d.ref + 1] = 0;
+    }
+    int line = 0, rc = kOk;
+    while (line < rows && rc >= 0) {
+        uint8_t* row = out + (int64_t)line * row_bytes;
+        Row r{&d, d.cur, d.cur, 0, 0};
+        if (mode == 2) {
+            rc = expand1d(d, r);
+            if (rc == kFailed) break;
+            fill(d.runs, r.thisrun, r.pa, width, row, row_bytes);
+            if (rc == kEof) { rc = kFailed; break; }
+            d.clr(d.avail % 8);  // each row starts on a byte
+        } else if (mode == 3) {
+            int s = sync_eol(d);
+            int is1d = 1;
+            if (s == 2) {  // retry the strip from its start without EOLs
+                d.noeol = true;
+                d.cp = 0;
+                d.acc = 0;
+                d.avail = d.eolcnt = 0;
+                continue;
+            }
+            if (s == kOk && two_d) {
+                if (!d.need(1)) {
+                    s = kEof;
+                } else {
+                    is1d = d.peek(1);
+                    d.clr(1);
+                }
+            }
+            if (s == kEof) {
+                if (r.cleanup()) { rc = kFailed; break; }
+                fill(d.runs, r.thisrun, r.pa, width, row, row_bytes);
+                rc = kFailed;
+                break;
+            }
+            rc = (!two_d || is1d) ? expand1d(d, r) : expand2d(d, r);
+            if (rc < 0) break;
+            fill(d.runs, r.thisrun, r.pa, width, row, row_bytes);
+            if (rc == kEof) { rc = kFailed; break; }
+            if (two_d) {
+                if (r.pa < r.thisrun + d.nruns && r.setvalue(0)) { rc = kFailed; break; }
+                std::swap(d.cur, d.ref);
+            }
+        } else if (mode == 4) {
+            rc = expand2d(d, r);
+            if (rc < 0) break;
+            if (rc == kEof || d.eolcnt) {  // EOFB, or the end of the data
+                if (d.need(13)) d.clr(13);
+                fill(d.runs, r.thisrun, r.pa, width, row, row_bytes);
+                rc = line ? kOk : kFailed;
+                break;
+            }
+            fill(d.runs, r.thisrun, r.pa, width, row, row_bytes);
+            if (r.setvalue(0)) { rc = kFailed; break; }
+            std::swap(d.cur, d.ref);
+        } else {
+            rc = kFailed;
+            break;
+        }
+        ++line;
+    }
+    state[0] = d.noeol ? 1 : 0;
+    return rc < 0 ? rc : line;
 }
 
 }  // extern "C"

@@ -1731,6 +1731,19 @@ TIFF_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_tiff_480x270_block
 WEBP_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_q90.webp")
 WEBP_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_webp_1x_blocks8.npy")
 WEBP_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_webp_480x270_blocks8.npy")
+# the fixture as a ZSTD + Predictor 2 TIFF, drawn likewise; the fixture
+# dithered to 1 bit as a Group 3 2D fax, drawn in the image-file scene; a
+# TIFF-F fax page (1728x1143) as Group 4, drawn in the photo wall, whose
+# references start figdraw_tpu's atlas at FAX_ATLAS (it asserts on an image
+# more than twice its edge)
+ZSTD_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_zstd_pred2.tif")
+ZSTD_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_zstd_1x_blocks8.npy")
+ZSTD_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_zstd_480x270_blocks8.npy")
+G3_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_dither_g3_2d.tif")
+G3_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_g3_1x_blocks8.npy")
+FAX_PAGE = os.path.join(IMAGE_FORMATS_DIR, "fax_page_g4.tif")
+G4_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_g4_480x270_blocks8.npy")
+FAX_ATLAS = 1024
 
 
 def make_image_file_scene(w: float, h: float, image_id: int) -> Renders:

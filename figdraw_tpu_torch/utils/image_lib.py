@@ -1,5 +1,6 @@
-"""The image decoders' host libraries (csrc/image_decode.cpp, and
-csrc/webp_decode.cpp with its tables csrc/webp_tables.h), built with g++
+"""The image decoders' host libraries (csrc/image_decode.cpp with its fax
+code tables csrc/fax_tables.h, csrc/webp_decode.cpp with its tables
+csrc/webp_tables.h, and csrc/zstd_decode.cpp), built with g++
 by utils.gxx at first use and bound through ctypes. A missing toolchain or
 a failed build raises: no decoder falls back to its plain Python twin."""
 
@@ -13,12 +14,15 @@ from . import gxx
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _SRC = os.path.join(_CSRC, "image_decode.cpp")
+_DEPS = (os.path.join(_CSRC, "fax_tables.h"),)
 _WEBP_SRC = os.path.join(_CSRC, "webp_decode.cpp")
 _WEBP_DEPS = (os.path.join(_CSRC, "webp_tables.h"),)
+_ZSTD_SRC = os.path.join(_CSRC, "zstd_decode.cpp")
 _FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 _lock = threading.Lock()
 _lib = None
 _webp = None
+_zstd = None
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
@@ -31,6 +35,7 @@ _SIGNATURES = {
     "fd_tiff_packbits": ([_P, _I64, _P, _I64], _I64),
     "fd_tiff_lzw": ([_P, _I64, _P, _I64], _I64),
     "fd_tiff_predict": ([_P, _I64, _I64, _I, _I, _I, _I, _P], _I),
+    "fd_tiff_fax": ([_P, _I64, _I, _I, _I, _I, _P, _I64, _P], _I),
 }
 _WEBP_SIGNATURES = {
     "fd_webp_vp8": ([_P, _I64, _I, _I, _P, _P, _P], _I),
@@ -38,6 +43,7 @@ _WEBP_SIGNATURES = {
     "fd_webp_vp8l": ([_P, _I64, _I, _I, _P], _I),
     "fd_webp_alpha_unfilter": ([_P, _I, _I, _I, _P], _I),
 }
+_ZSTD_SIGNATURES = {"fd_zstd_decompress": ([_P, _I64, _P, _I64], _I64)}
 
 
 def _bind(path: str, signatures: dict) -> ctypes.CDLL:
@@ -53,7 +59,7 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            _lib = _bind(gxx.build(_SRC, "figdraw_image_decode", _FLAGS), _SIGNATURES)
+            _lib = _bind(gxx.build(_SRC, "figdraw_image_decode", _FLAGS, _DEPS), _SIGNATURES)
         return _lib
 
 
@@ -65,3 +71,12 @@ def load_webp() -> ctypes.CDLL:
             _webp = _bind(gxx.build(_WEBP_SRC, "figdraw_webp_decode", _FLAGS, _WEBP_DEPS),
                           _WEBP_SIGNATURES)
         return _webp
+
+
+def load_zstd() -> ctypes.CDLL:
+    """The Zstandard decoder's library, built and bound at first use."""
+    global _zstd
+    with _lock:
+        if _zstd is None:
+            _zstd = _bind(gxx.build(_ZSTD_SRC, "figdraw_zstd_decode", _FLAGS), _ZSTD_SIGNATURES)
+        return _zstd

@@ -5,9 +5,10 @@ resources.load_image and utils/flippy.py; the port may not import PIL).
 
 Decoded: PNG (utils/png.py), JPEG (utils/jpeg.py), GIF's first frame
 (utils/gif.py), BMP (utils/bmp.py), ICO (utils/ico.py), QOI
-(utils/qoi.py), TIFF and BigTIFF's first image (utils/tiff.py) and WebP's
-first frame, lossy, lossless or animated (utils/webp.py); their
-sequential loops run in C++ (csrc/png_unfilter.cpp, csrc/image_decode.cpp,
+(utils/qoi.py), TIFF and BigTIFF's first image (utils/tiff.py, CCITT fax
+and ZSTD through utils/fax.py and utils/zstd.py) and WebP's first frame,
+lossy, lossless or animated (utils/webp.py); their sequential loops run
+in C++ (csrc/png_unfilter.cpp, csrc/image_decode.cpp, csrc/zstd_decode.cpp,
 csrc/webp_decode.cpp, built with g++ at first use; a missing toolchain
 raises). AVIF and PIL's other readers raise NotImplementedError naming the
 format, the path and the ROADMAP item, as does a TIFF compression or

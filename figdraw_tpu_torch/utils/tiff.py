@@ -12,15 +12,21 @@ missing) and tiles (edge tiles padded past the image, cropped);
 PlanarConfiguration 1 and 2; FillOrder 2 (every stored byte's bits
 reversed before decoding, as libtiff and PIL's ";R" unpackers do).
 Compression: none, PackBits, LZW, Adobe and old Deflate (stdlib zlib),
-LZMA (stdlib lzma), each with the horizontal (Predictor 2, 8 to 64 bits a
-sample) or floating-point predictor (3) where libtiff applies one, and
-JPEG (7): each strip or tile an abbreviated stream completed by
+LZMA (stdlib lzma), ZSTD (utils/zstd.py: libtiff's reading of one
+Zstandard frame a strip), each with the horizontal (Predictor 2, 8 to 64
+bits a sample) or floating-point predictor (3) where libtiff applies one;
+CCITT Modified Huffman (2), T.4 (3, one- and two-dimensional) and T.6 (4)
+on one 1-bit sample (utils/fax.py, with libtiff's leniency: fax_context
+carries PIL's strip buffer and libtiff's run arrays from strip to strip);
+and JPEG (7): each strip or tile an abbreviated stream completed by
 JPEGTables and decoded by utils/jpeg.py in the colour space the
 photometric tag names (YCbCr converted to RGB per strip, as libjpeg does
 under Pillow's JPEGCOLORMODE_RGB; RGB, grey and CMYK samples kept).
-PackBits, LZW and the predictors run in C++ (csrc/image_decode.cpp:
-fd_tiff_packbits, fd_tiff_lzw, fd_tiff_predict); `packbits_plain`,
-`lzw_plain` and `predict_plain` are their twins, the tests' reference.
+PackBits, LZW, the predictors and CCITT run in C++ (csrc/image_decode.cpp:
+fd_tiff_packbits, fd_tiff_lzw, fd_tiff_predict, fd_tiff_fax), Zstandard
+too (csrc/zstd_decode.cpp: fd_zstd_decompress); `packbits_plain`,
+`lzw_plain`, `predict_plain`, `fax_plain` and `zstd_plain` are their
+twins, the tests' reference.
 
 Pixels: the keys of PIL's OPEN_INFO (TiffImagePlugin.py:151) in FORMATS
 below, each unpacked as PIL's rawmode and converted as PIL's Convert.c:
@@ -35,11 +41,13 @@ signed or float samples reads byte-swapped (libtiff hands over host-order
 samples that PIL's rawmode swaps again), and planar files of one sample
 or with other extra samples than alpha raise (PIL misreads them).
 
-Raises NotImplementedError naming what is not ported (CCITT, old-style
-JPEG, ZSTD, WebP, JBIG, SGILog and other compressions; Lab, LogLuv and
-other photometrics; YCbCr without JPEG, which libtiff reads through
-TIFFRGBAImage; separated files with inks other than CMYK; a pixel key of
-no test), and ValueError for a malformed file.
+Raises NotImplementedError naming what is not ported (old-style JPEG,
+CCITT RLE-W, a fax strip in uncompressed mode, WebP, JBIG, SGILog and
+other compressions; Lab, LogLuv and other photometrics; YCbCr without
+JPEG, which libtiff reads through TIFFRGBAImage; separated files with
+inks other than CMYK; a pixel key of no test), and ValueError for a
+malformed file (CCITT on samples of more than 1 bit among them, which
+libtiff refuses).
 """
 
 from __future__ import annotations
@@ -51,12 +59,12 @@ import zlib
 
 import numpy as np
 
-from . import image_lib, jpeg
+from . import fax, image_lib, jpeg, zstd
 
 # tags
 WIDTH, LENGTH, BITS, COMPRESSION, PHOTOMETRIC, FILL_ORDER = 256, 257, 258, 259, 262, 266
 STRIP_OFFSETS, ORIENTATION, SAMPLES, ROWS_PER_STRIP, STRIP_COUNTS = 273, 274, 277, 278, 279
-PLANAR, PREDICTOR, COLORMAP = 284, 317, 320
+T4_OPTIONS, PLANAR, PREDICTOR, COLORMAP = 292, 284, 317, 320
 TILE_WIDTH, TILE_LENGTH, TILE_OFFSETS, TILE_COUNTS = 322, 323, 324, 325
 INK_SET, EXTRA_SAMPLES, SAMPLE_FORMAT, JPEG_TABLES = 332, 338, 339, 347
 YCBCR_SUBSAMPLING = 530
@@ -69,12 +77,13 @@ FIELD_TYPES = {1: (1, "B"), 2: (1, "B"), 3: (2, "H"), 4: (4, "I"), 5: (8, "II"),
                18: (8, "Q")}
 
 NONE, LZW, JPEG, ADOBE_DEFLATE, PACKBITS, DEFLATE, LZMA = 1, 5, 7, 8, 32773, 32946, 34925
-COMPRESSIONS = (NONE, LZW, JPEG, ADOBE_DEFLATE, PACKBITS, DEFLATE, LZMA)
-PREDICTED = (LZW, ADOBE_DEFLATE, DEFLATE, LZMA)  # the codecs libtiff runs a predictor in
+CCITT_MH, CCITT_T4, CCITT_T6, ZSTD = 2, 3, 4, 50000
+FAX = (CCITT_MH, CCITT_T4, CCITT_T6)
+COMPRESSIONS = (NONE, LZW, JPEG, ADOBE_DEFLATE, PACKBITS, DEFLATE, LZMA, ZSTD) + FAX
+PREDICTED = (LZW, ADOBE_DEFLATE, DEFLATE, LZMA, ZSTD)  # the codecs libtiff runs a predictor in
 NOT_PORTED_COMPRESSION = {
-    2: "CCITT modified Huffman", 3: "CCITT Group 3 fax", 4: "CCITT Group 4 fax",
     6: "old-style JPEG", 32771: "CCITT RLE (word-aligned)", 32809: "ThunderScan",
-    34661: "JBIG", 34676: "SGILog", 34677: "SGILog24", 50000: "ZSTD", 50001: "WebP"}
+    34661: "JBIG", 34676: "SGILog", 34677: "SGILog24", 50001: "WebP"}
 NOT_PORTED_PHOTOMETRIC = {
     4: "transparency mask", 8: "CIE L*a*b*", 9: "ICC L*a*b*", 10: "ITU L*a*b*",
     32803: "colour filter array", 32844: "LogL", 32845: "LogLuv", 34892: "linear raw"}
@@ -260,6 +269,11 @@ class Image:
             bits = bits * spp
         if len(bits) != spp:
             raise ValueError("TIFF whose BitsPerSample does not match SamplesPerPixel")
+        if self.compression in FAX and (bits[0] != 1 or spp != 1 and self.planar == 1):
+            raise ValueError(f"TIFF CCITT fax of {spp} sample(s) of {bits[0]} bits (libtiff: "
+                             "\"Bits/sample must be 1 for Group 3/4 encoding/decoding\", "
+                             "one sample unless planar)")
+        self.t4options = _ints(tags, T4_OPTIONS, (0,))[0]
         key = (order, photo, fmt, fill, bits, extra)
         self.mode = FORMATS.get(key)
         if self.mode is None:
@@ -445,6 +459,50 @@ def inflate(data: bytes, n: int, compression: int) -> np.ndarray:
     return np.frombuffer(out, np.uint8).copy()
 
 
+def zstd_strip(data: bytes, n: int) -> np.ndarray:
+    """The first n bytes a ZSTD strip decodes to, in C++ (utils/zstd.py),
+    as libtiff's ZSTDDecode reads them: its first frame; ValueError for
+    corrupt data or one that ends first."""
+    return _enough(zstd.decompress(data, n), n)
+
+
+def zstd_plain(data: bytes, n: int) -> np.ndarray:
+    """zstd_strip in Python."""
+    return _enough(zstd.decompress_plain(data, n), n)
+
+
+def _enough(out: np.ndarray, n: int) -> np.ndarray:
+    if len(out) < n:
+        raise ValueError(f"truncated TIFF ZSTD data ({len(out)} of {n} bytes)")
+    return out
+
+
+def fax_context(img: "Image") -> tuple:
+    """What PIL's libtiff decoder keeps across an image's strips or tiles:
+    its strip buffer (rows the data never reaches keep the last strip's
+    bytes there; the first strip's start as zeros) and libtiff's fax
+    state (utils/fax.py: new_state)."""
+    two_d = img.compression == CCITT_T6 or (img.compression == CCITT_T4
+                                            and bool(img.t4options & fax.T4_2D))
+    return (np.zeros((img.ch, img.row_bytes), np.uint8), fax.new_state(img.cw, two_d))
+
+
+def fax_rows(data: bytes, img: "Image", rows: int, ctx: tuple) -> np.ndarray:
+    """A CCITT strip or tile of `rows` rows in C++ (csrc/image_decode.cpp:
+    fd_tiff_fax) into the context's buffer: its rows x row_bytes bytes."""
+    out, state = ctx
+    fax.decode(data, img.cw, rows, img.compression, img.t4options, out[:rows], state, img.tiled)
+    return out[:rows].reshape(-1).copy()
+
+
+def fax_plain(data: bytes, img: "Image", rows: int, ctx: tuple) -> np.ndarray:
+    """fax_rows in Python."""
+    out, state = ctx
+    fax.decode_plain(data, img.cw, rows, img.compression, img.t4options, out[:rows], state,
+                     img.tiled)
+    return out[:rows].reshape(-1).copy()
+
+
 def predict(buf: np.ndarray, rows: int, row_bytes: int, spp: int, nbytes: int, kind: int,
             swap: bool) -> np.ndarray:
     """libtiff's predictor (kind 2 horizontal, 3 floating point) on a
@@ -501,9 +559,11 @@ def _predictor_args(img: Image, rows: int) -> tuple:
             img.order != _NATIVE)
 
 
-def _chunk(data: bytes, img: Image, y: int, offset: int, count: int, plain: bool):
+def _chunk(data: bytes, img: Image, y: int, offset: int, count: int, plain: bool,
+           ctx: tuple = None):
     """One strip or tile to (rows, cw, plane_spp) samples: unsigned ints of
-    the sample's width in the host's byte order, or sub-byte values."""
+    the sample's width in the host's byte order, or sub-byte values. ctx:
+    a CCITT image's fax_context."""
     rows = img.chunk_rows(y)
     n = rows * img.row_bytes
     stored = _stored(data, img, offset, count)
@@ -516,6 +576,10 @@ def _chunk(data: bytes, img: Image, y: int, offset: int, count: int, plain: bool
         buf = (packbits_plain if plain else packbits)(stored, n)
     elif c == LZW:
         buf = (lzw_plain if plain else lzw)(stored, n)
+    elif c in FAX:
+        buf = (fax_plain if plain else fax_rows)(stored, img, rows, ctx)
+    elif c == ZSTD:
+        buf = (zstd_plain if plain else zstd_strip)(stored, n)
     else:
         buf = inflate(stored, n, c)
     native = False
@@ -537,13 +601,15 @@ def _chunk(data: bytes, img: Image, y: int, offset: int, count: int, plain: bool
 def stage_pairs(data: bytes):
     """Each strip's or tile's C++ stages beside their plain twins on the
     same input: yields (stage, C++ output, plain output) for the
-    decompressor ("packbits": fd_tiff_packbits, "lzw": fd_tiff_lzw) and
-    the predictor ("predict": fd_tiff_predict); nothing for a file that
-    runs neither."""
+    decompressor ("packbits": fd_tiff_packbits, "lzw": fd_tiff_lzw, "fax":
+    fd_tiff_fax, "zstd": fd_zstd_decompress) and the predictor
+    ("predict": fd_tiff_predict); nothing for a file that runs none."""
     order, _big, tags = read_ifd(data)
     img = Image(order, tags)
-    if img.compression not in (PACKBITS, LZW) and img.predictor == 1:
+    if img.compression not in (PACKBITS, LZW, ZSTD) + FAX and img.predictor == 1:
         return
+    if img.compression in FAX:
+        ctx, plain_ctx = fax_context(img), fax_context(img)
     for _plane, y, _x, offset, count in img.chunks():
         rows = img.chunk_rows(y)
         n = rows * img.row_bytes
@@ -554,6 +620,12 @@ def stage_pairs(data: bytes):
         elif img.compression == LZW:
             buf = lzw(stored, n)
             yield "lzw", buf, lzw_plain(stored, n)
+        elif img.compression in FAX:
+            yield "fax", fax_rows(stored, img, rows, ctx), fax_plain(stored, img, rows, plain_ctx)
+            continue
+        elif img.compression == ZSTD:
+            buf = zstd_strip(stored, n)
+            yield "zstd", buf, zstd_plain(stored, n)
         else:
             buf = inflate(stored, n, img.compression)
         if img.predictor != 1:
@@ -565,8 +637,9 @@ def _samples(data: bytes, img: Image, plain: bool) -> np.ndarray:
     """Every strip or tile placed: (H, W, spp) samples in the host's order."""
     dt = np.uint8 if img.bits <= 8 else np.dtype(f"u{img.bits // 8}")
     out = np.zeros((img.height, img.width, img.spp), dt)
+    ctx = fax_context(img) if img.compression in FAX else None
     for plane, y, x, offset, count in img.chunks():
-        vals = _chunk(data, img, y, offset, count, plain)
+        vals = _chunk(data, img, y, offset, count, plain, ctx)
         h, w = min(vals.shape[0], img.height - y), min(img.cw, img.width - x)
         k = plane * img.plane_spp
         out[y: y + h, x: x + w, k: k + img.plane_spp] = vals[:h, :w]

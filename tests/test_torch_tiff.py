@@ -632,9 +632,8 @@ def _tagged(compression=5, photometric=2, tags=None, samples=None) -> bytes:
 
 
 @pytest.mark.parametrize("code,what", [
-    (2, "CCITT modified Huffman"), (3, "CCITT Group 3"), (4, "CCITT Group 4"),
     (6, "old-style JPEG"), (32771, "CCITT RLE"), (32809, "ThunderScan"), (34661, "JBIG"),
-    (34676, "SGILog"), (34677, "SGILog24"), (50000, "ZSTD"), (50001, "WebP")])
+    (34676, "SGILog"), (34677, "SGILog24"), (50001, "WebP")])
 def test_unported_compressions_raise(code, what, tmp_path):
     path = str(tmp_path / "x.tif")
     with open(path, "wb") as fh:
@@ -642,6 +641,46 @@ def test_unported_compressions_raise(code, what, tmp_path):
     with pytest.raises(NotImplementedError,
                        match=rf"{what}.*\({code}\).*{ROADMAP_ITEM}.*x\.tif"):
         imagefile.read_image(path)
+
+
+@pytest.mark.parametrize("code", [2, 3, 4])
+def test_ccitt_on_eight_bit_samples_raises(code, tmp_path):
+    """libtiff refuses CCITT on samples of more than 1 bit (Fax3SetupState:
+    "Bits/sample must be 1 for Group 3/4 encoding/decoding"), and PIL
+    fails; the port raises ValueError."""
+    for samples, photometric in ((_crop()[..., 0], 1), (_crop()[..., :3], 2)):
+        data = _tagged(code, photometric, samples=samples)
+        with pytest.raises(OSError):
+            _pil(data)
+        with pytest.raises(ValueError, match="Bits/sample must be 1"):
+            imagefile.decode_image(data)
+
+
+@pytest.mark.parametrize("code", [3, 4])
+def test_uncompressed_mode_raises(code):
+    """A two-dimensional row holding the extension code that enters
+    uncompressed mode (0000001111): libtiff reports "Uncompressed data (not
+    supported)" and reads the rest of the strip as codes, so PIL returns
+    rows that are not the image; the port raises NotImplementedError."""
+    from make_image_formats import FaxBits, fax_row_2d
+
+    row = np.zeros(40, np.uint8)
+    row[5:12] = 1
+    bits = FaxBits()
+    if code == 3:
+        bits.put("000000000001" + "0")
+    fax_row_2d(bits, row, np.zeros(40, np.uint8))
+    if code == 3:
+        bits.put("000000000001" + "0")
+    bits.put("0000001111").put("0101000011").put("000000000001" * 2)
+    data = tiff_bytes(np.zeros((3, 40), np.uint8), 0, bits=1, compression=code,
+                      tags={292: (4, (1,))} if code == 3 else None,
+                      codec=lambda _b: bits.to_bytes())
+    assert _pil(data).shape == (3, 40, 4)
+    with pytest.raises(NotImplementedError, match=rf"uncompressed mode.*{ROADMAP_ITEM}"):
+        imagefile.decode_image(data)
+    with pytest.raises(NotImplementedError, match="uncompressed mode"):
+        tiff.decode_tiff(data, plain=True)
 
 
 @pytest.mark.parametrize("photo,what,comp,tags", [

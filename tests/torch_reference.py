@@ -1116,10 +1116,11 @@ def jax_image_file_frame(path: str, form: str) -> np.ndarray:
         set_fig_ui_scale(old)
 
 
-def jax_photo_wall_frame(path: str, w: int, h: int, n: int) -> np.ndarray:
+def jax_photo_wall_frame(path: str, w: int, h: int, n: int,
+                         atlas_size: int = 512) -> np.ndarray:
     from figdraw_tpu import vec2
 
-    ren, ref = jax_loaded_renderer(path)
+    ren, ref = jax_loaded_renderer(path, atlas_size=atlas_size)
     return np.asarray(ren.render_frame(jax_photo_wall(w, h, n, ref.id), vec2(w, h)))
 
 

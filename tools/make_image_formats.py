@@ -10,7 +10,13 @@ render_3d_overlay_gaussian.png, 800x600 RGBA), with PIL on the CPU host:
   V2 16-bit 5-6-5 bitfields, V3 32-bit BGRA bitfields, V4 32-bit BI_RGB
   top-down, V5 4-bit), an ICO with a PNG entry and one with a DIB entry,
   a QOI, and TIFFs (`tiff_files`: the whole fixture as LZW + Predictor 2,
-  and crops through each compression, layout and pixel kind), and WebPs
+  and crops through each compression, layout and pixel kind;
+  `fax_zstd_files`: the fixture as ZSTD + Predictor 2, a ZSTD float crop
+  with Predictor 3, a fax page at TIFF-F resolution (`fax_page`) as Group
+  4, Group 3 2D with fill bits, FillOrder 2 and MinIsWhite, and Modified
+  Huffman, the fixture dithered to a Group 3 fax, Group 4 tiles;
+  `libzstd_files`: the fixture in ZSTD tiles and libzstd's frames at
+  levels 1 to 22 with a checksum, through PIL's libzstd), and WebPs
   (`webp_files`: the fixture lossy at q 90 and lossless, and crops: lossy
   at q 5, 50 and 100 with methods 0 and 6, 1x1 and 17x3, with ALPH at
   alpha qualities 100 and 30, lossless photo, grey and 2 to 200 colours
@@ -26,20 +32,25 @@ render_3d_overlay_gaussian.png, 800x600 RGBA), with PIL on the CPU host:
   file's sha256 and the sha256 and shape of PIL's decode,
   `Image.open(p).convert("RGBA")`; under "sidecar", the sha256 of the
   .flippy sidecar figdraw_tpu's read_image_cached writes for the baseline
-  JPEG, the TIFF fixture and the lossy WebP fixture.
-- `reference/example_image_file_{jpeg,tiff,webp}_1x_blocks8.npy` and
-  `reference/photo_wall_{jpeg,tiff,webp}_480x270_blocks8.npy`: 8x8 block
-  means of figdraw_tpu's frames of the image-file scene and of the photo
-  wall at 480x270 (12 panels) with the baseline JPEG, the TIFF fixture or
-  the lossy WebP fixture loaded by its load_image
-  (FigRenderer(atlas_size=512, use_pallas=False), tests/torch_reference.py).
+  JPEG, the TIFF fixture, the lossy WebP fixture, the ZSTD fixture and
+  the Group 4 fax page.
+- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3}_1x_blocks8.npy`
+  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4}_480x270_blocks8.npy`:
+  8x8 block means of figdraw_tpu's frames of the image-file scene and of
+  the photo wall at 480x270 (12 panels) with the baseline JPEG, the TIFF,
+  WebP or ZSTD fixture, the dithered Group 3 fixture or the Group 4 page
+  loaded by its load_image (FigRenderer(atlas_size=512, use_pallas=False),
+  the page's from scenes.FAX_ATLAS; tests/torch_reference.py).
 
 The BMP builders (`bmp_bytes`, `rle8`, `rle4`), the TIFF writer
-(`tiff_bytes`, with `packbits`, `lzw` and `jpeg_parts`) and the WebP
-writers (`libwebp_encode`, `riff`, `anim_bytes`) also serve the tests: PIL
+(`tiff_bytes`, with `packbits`, `lzw`, `jpeg_parts` and the CCITT encoder
+`fax_encode` with its bit writer `FaxBits`) and the WebP writers
+(`libwebp_encode`, `riff`, `anim_bytes`) also serve the tests: PIL
 writes only one BMP header kind, no TIFF tiles, planar or big-endian
-files, FillOrder 2 or subsampled JPEG-in-TIFF, and sets none of libwebp's
-filter, segment, partition or alpha options.
+files, FillOrder 2 or subsampled JPEG-in-TIFF, no hand-made fax strip,
+and sets none of libwebp's filter, segment, partition or alpha options.
+The tests rerun `image_files` but never `libzstd_files`: they load no
+libzstd.
 
     JAX_PLATFORMS=cpu python tools/make_image_formats.py   (~60 s)
 """
@@ -257,6 +268,131 @@ def lzw(data: bytes) -> bytes:
 _REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
 
+class FaxBits:
+    """A CCITT bit string written MSB first, with T.4's codes from
+    figdraw_tpu_torch/utils/fax.py: runs, two-dimensional modes, EOLs."""
+
+    def __init__(self):
+        self.bits = []
+
+    def put(self, code: str) -> "FaxBits":
+        self.bits += [int(c) for c in code]
+        return self
+
+    def align(self, to: int = 8, before: int = 0) -> "FaxBits":
+        """Zero bits until `before` bits from now end on a multiple of `to`."""
+        self.bits += [0] * (-(len(self.bits) + before) % to)
+        return self
+
+    def run(self, span: int, black: bool) -> "FaxBits":
+        """A run as libtiff's putspan codes it: 2560 make-ups while 2624 or
+        more are left, one make-up, then the terminating code."""
+        from figdraw_tpu_torch.utils import fax
+
+        k = 2 if black else 1
+        make = {c[0]: c[k] for c in fax.MAKE_UP}
+        make.update(fax.EXTENDED_MAKE_UP)
+        while span >= 2624:
+            self.put(make[2560])
+            span -= 2560
+        if span >= 64:
+            self.put(make[span // 64 * 64])
+            span %= 64
+        return self.put(fax.TERMINATING[span][k])
+
+    def to_bytes(self) -> bytes:
+        self.align()
+        return np.packbits(np.array(self.bits, np.uint8)).tobytes() if self.bits else b""
+
+
+def _changes(row: np.ndarray, start: int, colour: int) -> int:
+    """The first index >= start whose bit is not `colour` (libtiff's finddiff)."""
+    rest = np.flatnonzero(row[start:] != colour)
+    return start + int(rest[0]) if len(rest) else len(row)
+
+
+def fax_row_1d(out: FaxBits, row: np.ndarray) -> None:
+    """Fax3Encode1DRow: alternating white and black runs (bit 1 black)."""
+    x, black = 0, False
+    while True:
+        nxt = _changes(row, x, int(black))
+        out.run(nxt - x, black)
+        x = nxt
+        if x >= len(row):
+            return
+        black = not black
+
+
+_VCODES = {-3: "0000011", -2: "000011", -1: "011", 0: "1", 1: "010", 2: "000010",
+           3: "0000010"}  # by b1 - a1
+
+
+def fax_row_2d(out: FaxBits, row: np.ndarray, ref: np.ndarray) -> None:
+    """Fax3Encode2DRow: the row coded against the reference row."""
+    n = len(row)
+
+    def px(buf, i):
+        return int(buf[i]) if i < n else 0
+
+    a0 = 0
+    a1 = 0 if row[0] else _changes(row, 0, 0)
+    b1 = 0 if ref[0] else _changes(ref, 0, 0)
+    while True:
+        b2 = _changes(ref, b1, px(ref, b1)) if b1 < n else n
+        if b2 >= a1:
+            d = b1 - a1
+            if not -3 <= d <= 3:
+                a2 = _changes(row, a1, px(row, a1)) if a1 < n else n
+                out.put("001")
+                first_black = not (a0 + a1 == 0 or px(row, a0) == 0)
+                out.run(a1 - a0, first_black).run(a2 - a1, not first_black)
+                a0 = a2
+            else:
+                out.put(_VCODES[d])
+                a0 = a1
+        else:
+            out.put("0001")
+            a0 = b2
+        if a0 >= n:
+            return
+        c = px(row, a0)
+        a1 = _changes(row, a0, c)
+        b1 = _changes(ref, a0, 1 - c)
+        b1 = _changes(ref, b1, c) if b1 < n else n
+
+
+def fax_encode(bits: np.ndarray, compression: int, t4options: int = 0, k: int = 2,
+               rtc: bool = True) -> bytes:
+    """(rows, width) 0/1 bits (1 black) as one CCITT strip the way
+    libtiff's encoder writes it: Modified Huffman (2) rows byte-aligned;
+    T.4 (3) an EOL before each row (fill bits before it with T4Options
+    bit 2), one- or, with bit 0, two-dimensional with a 1D row every k
+    rows and a tag bit after each EOL, and an RTC (six EOLs) at the end;
+    T.6 (4) two-dimensional from an all-white reference, then EOFB."""
+    out = FaxBits()
+    two_d = compression == 4 or (compression == 3 and t4options & 1)
+    ref = np.zeros(bits.shape[1], np.uint8)
+    eol = "000000000001"
+    for i, row in enumerate(bits.astype(np.uint8)):
+        one_d = compression == 2 or (compression == 3 and (not two_d or i % k == 0))
+        if compression == 3:
+            if t4options & 4:
+                out.align(8, 12)
+            out.put(eol + ("1" if one_d else "0") * bool(two_d))
+        if one_d:
+            fax_row_1d(out, row)
+        else:
+            fax_row_2d(out, row, ref)
+        if compression == 2:
+            out.align()
+        ref = row
+    if compression == 3 and rtc:
+        out.put((eol + "1" * bool(two_d)) * 6)
+    elif compression == 4:
+        out.put(eol * 2)
+    return out.to_bytes()
+
+
 def _sample_rows(block: np.ndarray, bits: int, order: str) -> np.ndarray:
     """(rows, cols, spp) samples to (rows, row bytes): sub-byte samples
     packed MSB-first with each row padded to a byte, wider ones in the
@@ -306,6 +442,8 @@ def _compress(raw: bytes, compression: int) -> bytes:
         return zlib.compress(raw, 6)
     if compression == 34925:
         return lzma.compress(raw, format=lzma.FORMAT_XZ, check=lzma.CHECK_NONE)
+    if compression == 50000:
+        return libzstd_compress(raw, 3, checksum=False)
     raise ValueError(f"no encoder for TIFF compression {compression}")
 
 
@@ -348,15 +486,16 @@ def tiff_bytes(samples: np.ndarray, photometric: int, bits: int = None, order: s
                planar: int = 1, rows_per_strip: int = None, tile: tuple = None,
                fill_order: int = 1, extra: tuple = (), sample_format: int = None,
                colormap: np.ndarray = None, jpeg_chunk=None, tags: dict = None,
-               strip_counts: bool = True) -> bytes:
+               strip_counts: bool = True, codec=None) -> bytes:
     """A TIFF file of one image. samples: (h, w) or (h, w, spp) values (uint
     of bits <= 8 for sub-byte samples, else the dtype written). Strips of
     rows_per_strip rows (None: one strip, and no RowsPerStrip tag) or tiles
     of tile = (width, length), edge tiles padded past the image with zeros;
     planar 2 writes each sample's plane apart; fill_order 2 reverses the bits
     of every stored byte. jpeg_chunk(block) -> (tables, abbreviated stream)
-    encodes a JPEG chunk (compression 7). tags: {tag: (type, values)} added
-    or replacing the writer's own."""
+    encodes a JPEG chunk (compression 7); codec(block) -> bytes any other
+    compression (a CCITT one: fax_encode). tags: {tag: (type, values)}
+    added or replacing the writer's own."""
     if samples.ndim == 2:
         samples = samples[..., None]
     h, w, spp = samples.shape
@@ -380,6 +519,8 @@ def tiff_bytes(samples: np.ndarray, photometric: int, bits: int = None, order: s
                     block = plane[y: y + ch]
                 if compression == 7:
                     tables, data = jpeg_chunk(block)
+                elif codec is not None:
+                    data = codec(block)
                 else:
                     if predictor in (2, 3):
                         rows = _predict(block, predictor, order)
@@ -507,6 +648,7 @@ def image_files() -> dict:
     save("dib_entry.ico", icon, "ICO", sizes=[(48, 48)], bitmap_format="bmp")
     save("image.qoi", src, "QOI")
     files.update(tiff_files(src))
+    files.update(fax_zstd_files(src))
     files.update(webp_files(src))
     return files
 
@@ -587,6 +729,137 @@ def tiff_files(src) -> dict:
     files["assoc_alpha_deflate.tif"] = tiff_bytes(premul, 2, compression=32946, extra=(1,))
     files["orientation6_lzw.tif"] = tiff_bytes(rgb, 2, compression=5,
                                                tags={274: (3, (6,))})
+    return files
+
+
+# --- CCITT fax and ZSTD -------------------------------------------------------
+
+ZSTD_FIXTURE = "fixture_zstd_pred2.tif"
+G3_FIXTURE = "fixture_dither_g3_2d.tif"
+FAX_PAGE = "fax_page_g4.tif"
+FAX_PAGE_SIZE = (1728, 1143)  # TIFF-F standard resolution: an A4 page at 204 x 98 dpi
+FAX_DPI = (204, 98)
+_ZSTD_LEVEL, _ZSTD_CHECKSUM = 100, 201  # ZSTD_cParameter values (zstd.h)
+
+
+def _libzstd():
+    """PIL's libzstd (pillow.libs) through ctypes."""
+    import PIL
+
+    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
+    lib = ctypes.CDLL(glob.glob(os.path.join(libs, "libzstd-*.so*"))[0])
+    lib.ZSTD_compressBound.restype = ctypes.c_size_t
+    lib.ZSTD_compressBound.argtypes = [ctypes.c_size_t]
+    lib.ZSTD_createCCtx.restype = ctypes.c_void_p
+    lib.ZSTD_freeCCtx.argtypes = [ctypes.c_void_p]
+    lib.ZSTD_CCtx_setParameter.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    lib.ZSTD_CCtx_setParameter.restype = ctypes.c_size_t
+    lib.ZSTD_compress2.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
+                                   ctypes.c_void_p, ctypes.c_size_t]
+    lib.ZSTD_compress2.restype = ctypes.c_size_t
+    lib.ZSTD_isError.argtypes = [ctypes.c_size_t]
+    return lib
+
+
+def libzstd_compress(data: bytes, level: int, checksum: bool = True) -> bytes:
+    """One Zstandard frame of `data` from libzstd's ZSTD_compress2 at
+    `level`, with or without the content checksum."""
+    lib = _libzstd()
+    cctx = lib.ZSTD_createCCtx()
+    try:
+        lib.ZSTD_CCtx_setParameter(cctx, _ZSTD_LEVEL, level)
+        lib.ZSTD_CCtx_setParameter(cctx, _ZSTD_CHECKSUM, int(checksum))
+        cap = lib.ZSTD_compressBound(len(data))
+        out = ctypes.create_string_buffer(cap)
+        n = lib.ZSTD_compress2(cctx, out, cap, data, len(data))
+        if lib.ZSTD_isError(n):
+            raise RuntimeError("ZSTD_compress2 failed")
+        return out.raw[:n]
+    finally:
+        lib.ZSTD_freeCCtx(cctx)
+
+
+def fax_page():
+    """A page of text at TIFF-F standard resolution drawn by PIL with the
+    bundled DejaVuSans: a mode "1" image, black text on white."""
+    from PIL import Image, ImageDraw, ImageFont
+
+    font_path = os.path.join(REPO, "figdraw_tpu_torch", "fonts", "DejaVuSans.ttf")
+    page = Image.new("1", FAX_PAGE_SIZE, 1)
+    draw = ImageDraw.Draw(page)
+    draw.text((96, 60), "FACSIMILE TRANSMISSION", font=ImageFont.truetype(font_path, 56),
+              fill=0)
+    draw.line((96, 140, 1632, 140), fill=0, width=4)
+    body = ImageFont.truetype(font_path, 30)
+    words = ("the quick brown fox jumps over the lazy dog while five boxing wizards "
+             "jump quickly and a sphinx of black quartz judges my vow").split()
+    rng = np.random.default_rng(20)
+    y = 180
+    while y < FAX_PAGE_SIZE[1] - 120:
+        line = " ".join(words[i] for i in rng.integers(0, len(words), 11))
+        draw.text((96, y), line[:1].upper() + line[1:] + ".", font=body, fill=0)
+        y += 44
+    draw.rectangle((1320, 1020, 1632, 1090), outline=0, width=3)
+    draw.text((1340, 1032), "Page 1 of 1", font=body, fill=0)
+    return page
+
+
+def fax_zstd_files(src) -> dict:
+    """The stored CCITT and ZSTD TIFFs PIL and fax_encode write: the
+    fixture as ZSTD + Predictor 2 in strips, a ZSTD float crop with
+    Predictor 3 (PIL); the fax page (fax_page) as Group 4 and as Modified
+    Huffman (PIL), and
+    as Group 3 2D with fill bits, FillOrder 2 and MinIsWhite in strips of
+    128 rows (fax_encode: libtiff's encoder, a 1D row every second at 98
+    dpi); the fixture dithered to 1 bit as Group 3 2D (PIL); a crop of the
+    page in Group 4 tiles (fax_encode)."""
+    from PIL import Image
+
+    files = {}
+
+    def save(name, img, **kw):
+        b = io.BytesIO()
+        img.save(b, "TIFF", **kw)
+        files[name] = b.getvalue()
+
+    save(ZSTD_FIXTURE, src, compression="zstd", tiffinfo={317: 2})
+    grey = np.asarray(src.convert("L"))[270:317, 360:421]
+    ramp = grey.astype(np.float32) * 1.5 - 40.25
+    save("zstd_pred3_float.tif", Image.fromarray(ramp, "F"), compression="zstd",
+         tiffinfo={317: 3})
+    page = fax_page()
+    save(FAX_PAGE, page, compression="group4", dpi=FAX_DPI)
+    bits = 1 - np.asarray(page, np.uint8)  # 1 black
+    res = {282: (5, ((FAX_DPI[0], 1),)), 283: (5, ((FAX_DPI[1], 1),)), 296: (3, (2,)),
+           292: (4, (5,))}
+    # PIL's writer garbles a MinIsWhite page (it reads back all black): written here
+    files["fax_page_g3_2d_fill_lsb_white.tif"] = tiff_bytes(
+        bits, 0, bits=1, compression=3, rows_per_strip=128, fill_order=2, tags=res,
+        codec=lambda b: fax_encode(b[..., 0], 3, 5, k=2 if FAX_DPI[1] <= 150 else 4))
+    save("fax_page_mh.tif", page, compression="tiff_ccitt", dpi=FAX_DPI)
+    save(G3_FIXTURE, src.convert("1"), compression="group3", tiffinfo={292: 1})
+    crop = bits[40:240, 80:680]
+    files["fax_tiles_g4.tif"] = tiff_bytes(crop, 0, bits=1, compression=4, tile=(128, 64),
+                                           codec=lambda b: fax_encode(b[..., 0], 4))
+    return files
+
+
+def libzstd_files(src) -> dict:
+    """The stored ZSTD TIFFs libzstd writes (kept apart from image_files,
+    which the tests rerun, since they never load libzstd): the fixture in
+    256x256 ZSTD tiles at libtiff's level, 3; frames at levels 1, 3, 19 and
+    22 with a checksum on random, constant and photo strips."""
+    files = {"fixture_zstd_tiles.tif": tiff_bytes(np.asarray(src), 2, compression=50000,
+                                                  extra=(2,), tile=(256, 256))}
+    rng = np.random.default_rng(50000)
+    photo = np.ascontiguousarray(np.asarray(src.convert("RGB"))[250:297, 340:401])
+    strips = {"random": rng.integers(0, 256, photo.shape, dtype=np.uint8),
+              "constant": np.full(photo.shape, 173, np.uint8), "photo": photo}
+    for level in (1, 3, 19, 22):
+        for kind, px in strips.items():
+            files[f"zstd_l{level}_{kind}.tif"] = tiff_bytes(
+                px, 2, compression=50000, rows_per_strip=16,
+                codec=lambda b, level=level: libzstd_compress(b.tobytes(), level))
     return files
 
 
@@ -861,40 +1134,55 @@ def sidecar_digest(name: str) -> str:
 
 def write_frames() -> None:
     """figdraw_tpu's block means of the image-file scene and the photo wall
-    from the baseline JPEG, the TIFF fixture and the lossy WebP fixture."""
+    from the baseline JPEG, the TIFF fixture, the lossy WebP fixture and
+    the ZSTD fixture, of the image-file scene from the dithered Group 3
+    fixture, and of the photo wall from the Group 4 fax page (its atlas
+    started at scenes.FAX_ATLAS)."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_reference import block_means, jax_image_file_frame, jax_photo_wall_frame
 
     from figdraw_tpu_torch.scenes import (
-        JPEG_FILE_REFERENCE, JPEG_WALL_REFERENCE, PHOTO_WALL_SMALL, TIFF_FILE_REFERENCE,
-        TIFF_WALL_REFERENCE, WEBP_FILE_REFERENCE, WEBP_WALL_REFERENCE,
+        FAX_ATLAS, G3_FILE_REFERENCE, G4_WALL_REFERENCE, JPEG_FILE_REFERENCE,
+        JPEG_WALL_REFERENCE, PHOTO_WALL_SMALL, TIFF_FILE_REFERENCE, TIFF_WALL_REFERENCE,
+        WEBP_FILE_REFERENCE, WEBP_WALL_REFERENCE, ZSTD_FILE_REFERENCE, ZSTD_WALL_REFERENCE,
     )
 
-    for name, scene_ref, wall_ref in ((BASELINE, JPEG_FILE_REFERENCE, JPEG_WALL_REFERENCE),
-                                      (TIFF_FIXTURE, TIFF_FILE_REFERENCE, TIFF_WALL_REFERENCE),
-                                      (WEBP_FIXTURE, WEBP_FILE_REFERENCE, WEBP_WALL_REFERENCE)):
+    for name, scene_ref, wall_ref, atlas in (
+            (BASELINE, JPEG_FILE_REFERENCE, JPEG_WALL_REFERENCE, 512),
+            (TIFF_FIXTURE, TIFF_FILE_REFERENCE, TIFF_WALL_REFERENCE, 512),
+            (WEBP_FIXTURE, WEBP_FILE_REFERENCE, WEBP_WALL_REFERENCE, 512),
+            (ZSTD_FIXTURE, ZSTD_FILE_REFERENCE, ZSTD_WALL_REFERENCE, 512),
+            (G3_FIXTURE, G3_FILE_REFERENCE, None, 512),
+            (FAX_PAGE, None, G4_WALL_REFERENCE, FAX_ATLAS)):
         with tempfile.TemporaryDirectory() as td:
             path = os.path.join(td, name)
             shutil.copyfile(os.path.join(OUT_DIR, name), path)
-            np.save(scene_ref, block_means(jax_image_file_frame(path, "1x")).astype(np.float32))
-            print(f"wrote {scene_ref}")
-            w, h, n = PHOTO_WALL_SMALL
-            np.save(wall_ref,
-                    block_means(jax_photo_wall_frame(path, w, h, n)).astype(np.float32))
-            print(f"wrote {wall_ref}")
+            if scene_ref:
+                np.save(scene_ref,
+                        block_means(jax_image_file_frame(path, "1x")).astype(np.float32))
+                print(f"wrote {scene_ref}")
+            if wall_ref:
+                w, h, n = PHOTO_WALL_SMALL
+                np.save(wall_ref, block_means(jax_photo_wall_frame(path, w, h, n, atlas))
+                        .astype(np.float32))
+                print(f"wrote {wall_ref}")
 
 
 def main() -> None:
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
+    from PIL import Image
+
     files = image_files()
+    files.update(libzstd_files(Image.open(FIXTURE).convert("RGBA")))
     os.makedirs(OUT_DIR, exist_ok=True)
     for name, data in files.items():
         with open(os.path.join(OUT_DIR, name), "wb") as fh:
             fh.write(data)
     stored = {"files": digests(files),
               "sidecar": {name: sidecar_digest(name)
-                          for name in (BASELINE, TIFF_FIXTURE, WEBP_FIXTURE)}}
+                          for name in (BASELINE, TIFF_FIXTURE, WEBP_FIXTURE, ZSTD_FIXTURE,
+                                       FAX_PAGE)}}
     with open(DIGESTS, "w") as fh:
         json.dump(stored, fh, indent=1)
         fh.write("\n")
