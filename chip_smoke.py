@@ -130,6 +130,18 @@ FigRenderer(device="cuda").render_frame or execute_plan:
   within 1e-5 of its plain version, the WOFF face's instance pack, and the
   face load, a VARC glyph's outline, the cold glyph and warm ms/frame
   beside FigPort Sans VF's;
+- WOFF 2.0 faces (woff2_phase, lines `check 18`, after the WOFF and VARC
+  faces): DejaVuSans.woff2 (the face as the web serves it, glyf and loca
+  transformed), FigPortSans-VF.woff2 (glyf, loca and hmtx transformed) and
+  FigPortSans-CFF.woff2, rebuilt by text/woff2.py through the port's own
+  Brotli decoder (csrc/brotli_decode.cpp, g++): every glyph's outline and
+  advance digests at 7 locations against reference/fonts.json, the C++
+  decoder against the stored size and sha256 of each face's stream and
+  against its plain twin, bench_text from each through render_frame
+  (K1-atlas) and the VF face's text table on the megakernel with the atlas
+  (K4-atlas), each kernel within 1e-5 of its plain version and the frames
+  within 1/255 of figdraw_tpu's, and the Brotli decode, the WOFF2
+  rebuild and the face load cold and warm beside each TTF or OTF twin's;
 - rendering across several devices (sharded_phase, lines `check 16`), on
   meshes of [cuda:0] * n (one card runs every band): ShardedFigRenderer on
   the headline in 4 bands of 272 rows (the banded blur X6 on its swap path)
@@ -4418,10 +4430,19 @@ def frameloop_phases(tag: str, dev) -> dict:
 
 
 FONT_PHASE_TOL = 3e-4  # K1-atlas and K4-atlas against their plain versions, fonts phase
-NEW_FACE_TOL = 1e-5  # the same for the WOFF and VARC faces' scenes (check 17)
-# the faces of the WOFF and VARC phase (lines `check 17`); the fonts phase
-# (`check 15`) takes the others of scenes.FONT_FACES
+NEW_FACE_TOL = 1e-5  # the same for the WOFF, VARC and WOFF2 faces' scenes (checks 17, 18)
+# the faces of the WOFF and VARC phase (lines `check 17`) and of the WOFF2
+# phase (`check 18`: scenes.WOFF2_FACES); the fonts phase (`check 15`)
+# takes the others of scenes.FONT_FACES
 NEW_FACES = ("FigPortSans-VF.woff", "FigPortSans-VARC.ttf")
+WOFF2_TWINS = {"DejaVuSans.woff2": "DejaVuSans.ttf",
+               "FigPortSans-VF.woff2": "FigPortSans-VF.ttf",
+               "FigPortSans-CFF.woff2": "FigPortSans-CFF.otf"}
+
+
+def later_face(face: str) -> bool:
+    """Whether a face is a later phase's than the fonts phase's."""
+    return face in NEW_FACES or face in WOFF2_TWINS
 
 
 def _font_refs() -> dict:
@@ -4715,7 +4736,8 @@ def fonts_phase(tag: str, dev, host: dict) -> dict:
     d. the C typesetter's instance packs of the glyf variable face at two
        locations (font_pack_case).
 
-    The WOFF and VARC faces of the same lists are woff_varc_phase's. Each
+    The WOFF and VARC faces of the same lists are woff_varc_phase's, the
+    WOFF2 faces woff2_phase's. Each
     face's cold typesetting, cold glyph raster and warm ms/frame print
     beside the bundled DejaVuSans's (the text-host phase's)."""
     from figdraw_tpu_torch.scenes import (
@@ -4727,11 +4749,11 @@ def fonts_phase(tag: str, dev, host: dict) -> dict:
            "packs": {}}
     check = "check 15"
     for face in FONT_FACES:
-        if face not in NEW_FACES:
+        if not later_face(face):
             out["faces"][face] = font_outlines_check(face, refs, check, tag)
     frames = {}
     for face, loc in FONT_TEXT_CASES:
-        if face in NEW_FACES:
+        if later_face(face):
             continue
         key = font_case_key(face, loc)
         entry, frames[key] = font_text_case(face, loc, refs, dev, host, check,
@@ -4750,7 +4772,7 @@ def fonts_phase(tag: str, dev, host: dict) -> dict:
     face, loc = FONT_TABLE_CASE
     out["table"] = font_table_case(face, loc, refs, dev, host, check, FONT_PHASE_TOL, tag)
     for face, loc in FONT_PACK_CASES:
-        if face not in NEW_FACES:
+        if not later_face(face):
             out["packs"][font_case_key(face, loc)] = font_pack_case(face, loc, refs, check,
                                                                     tag)
     return out
@@ -4845,6 +4867,150 @@ def woff_varc_phase(tag: str, dev, host: dict, fonts: dict) -> dict:
                                                                     tag)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"{check}: the WOFF and VARC phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def woff2_times(face: str, tag: str) -> dict:
+    """The WOFF2 face's Brotli stream decoded by fd_brotli_decompress, the
+    whole file rebuilt into its sfnt (text/woff2.py), and the face loaded
+    (Typeface: the rebuild and the OpenType reader's tables), each cold
+    (the first in the process) and warm (the median of 5), beside the
+    load of its TTF or OTF twin."""
+    from figdraw_tpu_torch.text import woff2
+    from figdraw_tpu_torch.text.typefaces import Typeface, bundled_font_path
+    from figdraw_tpu_torch.utils import brotli
+
+    med = statistics.median
+
+    def cold_warm(fn) -> tuple:
+        times = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times[0], med(times[1:])
+
+    with open(bundled_font_path(face), "rb") as fh:
+        data = fh.read()
+    head, entries, at = woff2.directory(data)
+    stream = data[at: at + head[6]]
+    total = sum(e[3] for e in entries)
+    twin = WOFF2_TWINS[face]
+    with open(bundled_font_path(twin), "rb") as fh:
+        twin_data = fh.read()
+    out = {}
+    out["brotli_cold_ms"], out["brotli_ms"] = cold_warm(lambda: brotli.decompress(stream, total))
+    out["rebuild_cold_ms"], out["rebuild_ms"] = cold_warm(lambda: woff2.woff2_to_sfnt(data))
+    out["load_cold_ms"], out["load_ms"] = cold_warm(lambda: Typeface(face, data, 0))
+    out["twin_load_cold_ms"], out["twin_load_ms"] = cold_warm(
+        lambda: Typeface(twin, twin_data, 0))
+    print(f"times: fonts, {face} ({len(data)} bytes, a Brotli stream of {len(stream)} bytes "
+          f"to {total}): Brotli decode (fd_brotli_decompress) cold {out['brotli_cold_ms']:.3f} "
+          f"ms, warm {out['brotli_ms']:.3f} ms; the WOFF2 rebuild with it cold "
+          f"{out['rebuild_cold_ms']:.3f} ms, warm {out['rebuild_ms']:.3f} ms; the face load "
+          f"cold {out['load_cold_ms']:.3f} ms, warm {out['load_ms']:.3f} ms (its twin {twin}: "
+          f"cold {out['twin_load_cold_ms']:.3f} ms, warm {out['twin_load_ms']:.3f} ms) {tag}",
+          flush=True)
+    return out
+
+
+def brotli_check(refs: dict, check: str, tag: str) -> dict:
+    """fd_brotli_decompress on each WOFF2 face's stream against the stored
+    size and sha256 (libbrotlidec's output, written on the CPU host) and
+    against decompress_plain."""
+    import hashlib
+
+    from figdraw_tpu_torch.scenes import WOFF2_FACES
+    from figdraw_tpu_torch.text import woff2
+    from figdraw_tpu_torch.text.typefaces import bundled_font_path
+    from figdraw_tpu_torch.utils import brotli
+
+    out = {"streams": {}}
+    for face in WOFF2_FACES:
+        with open(bundled_font_path(face), "rb") as fh:
+            data = fh.read()
+        head, entries, at = woff2.directory(data)
+        stream = data[at: at + head[6]]
+        got = brotli.decompress(stream, sum(e[3] for e in entries))
+        t0 = time.perf_counter()
+        plain = brotli.decompress_plain(stream)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        want = refs["woff2"][face]
+        same = (len(got) == want["bytes"] and hashlib.sha256(got).hexdigest() == want["sha256"],
+                got == plain)
+        print(f"{check}: fd_brotli_decompress on {face}'s stream ({len(stream)} bytes): "
+              f"{len(got)} bytes, {'equal to' if same[0] else 'DIFFERENT FROM'} libbrotlidec's "
+              f"(stored sha256), {'equal to' if same[1] else 'DIFFERENT FROM'} "
+              f"decompress_plain ({plain_ms:.1f} ms) {tag}", flush=True)
+        if not all(same):
+            fail(f"fd_brotli_decompress on {face}'s stream differs ({same})")
+        out["streams"][face] = {"bytes": len(got), "plain_ms": plain_ms}
+    return out
+
+
+def woff2_phase(tag: str, dev, host: dict, fonts: dict) -> dict:
+    """WOFF 2.0 faces (lines `check 18`): scenes.WOFF2_FACES, each rebuilt
+    into its sfnt at load by text/woff2.py with the port's Brotli decoder,
+    against reference/fonts.json, which figdraw_tpu wrote on the CPU
+    through fontTools:
+
+    a. the Brotli decoder's library built from csrc/brotli_decode.cpp, and
+       each face's Brotli decode, rebuild and load cold (the first in the
+       process) and warm beside its TTF or OTF twin's load (woff2_times);
+    b. fd_brotli_decompress on each face's stream against the stored size
+       and sha256 and against decompress_plain (brotli_check), and every
+       glyph of each face at the 7 locations: outline and advance digests
+       (font_outlines_check);
+    c. bench_text's scene from each face (scenes.FONT_TEXT_CASES) through
+       render_frame, K1-atlas within NEW_FACE_TOL of its plain version and
+       the frame within TOL of figdraw_tpu's block means (font_text_case),
+       the cold glyph and warm ms/frame beside the twin's;
+    d. the VF face's text table (scenes.FONT_WOFF2_TABLE_CASE) on the
+       megakernel with the atlas, K4-atlas within NEW_FACE_TOL of its
+       plain version (font_table_case)."""
+    from figdraw_tpu_torch.scenes import (
+        FONT_TEXT_CASES, FONT_WOFF2_TABLE_CASE, WOFF2_FACES, font_case_key,
+    )
+    from figdraw_tpu_torch.utils import image_lib
+
+    t_phase = time.perf_counter()
+    refs = _font_refs()
+    check = "check 18"
+    out = {"faces": {}, "times": {}, "text": {}, "launches": {}, "bin_launches": {},
+           "borderline": {}}
+    t0 = time.perf_counter()
+    image_lib.load_brotli()
+    out["build_ms"] = (time.perf_counter() - t0) * 1e3
+    print(f"{check}: the Brotli decoder's library (csrc/brotli_decode.cpp, g++) built and "
+          f"bound in {out['build_ms']:.1f} ms {tag}", flush=True)
+    for face in WOFF2_FACES:
+        out["times"][face] = woff2_times(face, tag)
+    out["brotli"] = brotli_check(refs, check, tag)
+    for face in WOFF2_FACES:
+        out["faces"][face] = font_outlines_check(face, refs, check, tag)
+    twin_cases = {"DejaVuSans.woff2": ("DejaVuSans TTF", host),
+                  "FigPortSans-VF.woff2": ("FigPortSans-VF.ttf@wdth=75", fonts["text"][
+                      font_case_key("FigPortSans-VF.ttf", (("wdth", 75.0),))]),
+                  "FigPortSans-CFF.woff2": ("FigPortSans-CFF.otf", fonts["text"][
+                      font_case_key("FigPortSans-CFF.otf", ())])}
+    for face, loc in FONT_TEXT_CASES:
+        if face not in WOFF2_TWINS:
+            continue
+        key = font_case_key(face, loc)
+        beside, twin = twin_cases[face]
+        entry, _frame = font_text_case(face, loc, refs, dev, twin, check, NEW_FACE_TOL, tag,
+                                       beside=beside)
+        out["launches"][key] = entry.pop("launches")
+        out["bin_launches"][key] = entry.pop("bin_launches")
+        out["borderline"][key] = entry.pop("borderline")
+        out["text"][key] = entry
+    face, loc = FONT_WOFF2_TABLE_CASE
+    table_host = {"table_build_ms": fonts["table"]["build_ms"],
+                  "table_walk_ms": fonts["table"]["walk_ms"], "table_ms": fonts["table"]["ms"]}
+    out["table"] = font_table_case(face, loc, refs, dev, table_host, check, NEW_FACE_TOL, tag,
+                                   beside="FigPort Sans VF (its CFF2 twin's table)")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"{check}: the WOFF2 phase took {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -5830,6 +5996,15 @@ def main() -> None:
         BIN_PATHS[f"fonts table {phase['table']['key']}"] = phase["table"]["bin_launches"]
         BORDERLINE[f"fonts table {phase['table']['key']}"] = phase["table"]["borderline"]
 
+    # --- 8f''. WOFF2 faces through the port's Brotli decoder ----------------------------
+    woff2_fonts = woff2_phase(tag, dev, host, fonts)
+    print(f"woff2: {json.dumps(woff2_fonts)}", flush=True)
+    for key, n in woff2_fonts["bin_launches"].items():
+        BIN_PATHS[f"fonts {key}"] = n
+        BORDERLINE[f"fonts {key}"] = woff2_fonts["borderline"][key]
+    BIN_PATHS[f"fonts table {woff2_fonts['table']['key']}"] = woff2_fonts["table"]["bin_launches"]
+    BORDERLINE[f"fonts table {woff2_fonts['table']['key']}"] = woff2_fonts["table"]["borderline"]
+
     # --- 8g. rendering across several devices: row bands on one card ------------------
     shard = sharded_phase(tag, dev)
     print(f"sharded: {json.dumps(shard)}", flush=True)
@@ -5879,6 +6054,7 @@ def main() -> None:
     atlas_paths.update(loop_paths["K1-atlas"])
     atlas_paths.update({f"fonts {k}": n for k, n in fonts["launches"].items()})
     atlas_paths.update({f"fonts {k}": n for k, n in woff_varc["launches"].items()})
+    atlas_paths.update({f"fonts {k}": n for k, n in woff2_fonts["launches"].items()})
     k3_paths = {"rectmask": rm["launches"][1], "rolled": rolled["launches"][2],
                 **tree_paths["K3"], **loop_paths["K3"]}
     k4_paths = {"subclip": sc["launches"][2], **tree_paths["K4"], **loop_paths["K4"]}
@@ -5887,7 +6063,8 @@ def main() -> None:
                  **{f"text tree {f}": v["launches"][4] for f, v in host["tree"].items()},
                  **loop_paths["K4-atlas"],
                  f"fonts table {fonts['table']['key']}": fonts["table"]["launches"],
-                 f"fonts table {woff_varc['table']['key']}": woff_varc["table"]["launches"]}
+                 f"fonts table {woff_varc['table']['key']}": woff_varc["table"]["launches"],
+                 f"fonts table {woff2_fonts['table']['key']}": woff2_fonts["table"]["launches"]}
     loop_err = lambda name: FRAMELOOP_ERRS.get(name, 0.0)
 
     def band_entry(key: str, kernel: str, source: str, replaces: str, **more) -> dict:
@@ -5963,7 +6140,8 @@ def main() -> None:
                                + [text["err"], rolled["k1_err"], rolled["frame_err"],
                                   loop_err("K1-atlas"), host["err"]]
                                + [v["err"] for v in fonts["text"].values()]
-                               + [v["err"] for v in woff_varc["text"].values()]),
+                               + [v["err"] for v in woff_varc["text"].values()]
+                               + [v["err"] for v in woff2_fonts["text"].values()]),
             "ms": images["images_scaled"]["kernel_ms"],
             "device_ms": device_ms_atlas,
             "plain_ms": plain_ms_atlas,
@@ -6022,7 +6200,7 @@ def main() -> None:
             "launches_by_path": k4a_paths,
             "max_abs_err": max([cards["err"], table["err"], loop_err("K4-atlas"),
                                 host["table_err"], fonts["table"]["err"],
-                                woff_varc["table"]["err"]]
+                                woff_varc["table"]["err"], woff2_fonts["table"]["err"]]
                                + [v["err"] for v in host["tree"].values()]),
             "ms": cards["kernel_ms"],
             "device_ms": cards["device_ms"],

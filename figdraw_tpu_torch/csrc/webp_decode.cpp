@@ -15,7 +15,9 @@
 //                           fixed-point YUV -> RGB (dsp/yuv.h), to RGBA;
 //   fd_webp_vp8l            a VP8L image stream after its header (or an
 //                           ALPH chunk's, which has none) to ARGB
-//                           (vp8l_dec.c, huffman_utils.c, lossless.c);
+//                           (vp8l_dec.c, huffman_utils.c, lossless.c; an
+//                           ALPH stream of colour indices as
+//                           DecodeAlphaData reads it);
 //   fd_webp_alpha_unfilter  the ALPH unfilters (dsp/filters.c).
 //
 // Every function returns 0 on success and a negative code on malformed
@@ -883,6 +885,81 @@ struct Code {
     }
 };
 
+// libwebp's VP8LBitReader as DecodeAlphaData reads it, from an LBits
+// position on: a 64-bit window over the stream's last 8 bytes once they are
+// loaded (`base`), a peek past the end reading zeros up to the window's 64
+// bits and wrapping to its start beyond (the shift is taken mod 64), and the
+// end of stream found only where the window is refilled or the loop asks,
+// which sets the position back to the window's start (the plain twin is
+// utils/webp.py _WindowBits)
+struct WindowBits {
+    const uint8_t* d;
+    int64_t n, pos, limit, base;
+    uint64_t window = 0;
+    bool eos = false;
+
+    explicit WindowBits(const LBits& br) : d(br.d), n(br.n), pos(br.pos), limit(br.limit) {
+        base = limit - 64;
+        for (int i = 0; i < 8 && base / 8 + i < n; ++i)
+            window |= (uint64_t)d[base / 8 + i] << (8 * i);
+    }
+    inline uint32_t peek() const {
+        if (pos < base) {
+            const int64_t byte = pos >> 3;
+            uint64_t v = 0;
+            for (int i = 0; i < 8 && byte + i < n; ++i) v |= (uint64_t)d[byte + i] << (8 * i);
+            return (uint32_t)(v >> (pos & 7));
+        }
+        return (uint32_t)(window >> ((pos - base) & 63));
+    }
+    inline void shift() {
+        if (eos || pos > limit) {
+            eos = true;
+            pos = base;
+        }
+    }
+    inline void fill() {
+        if (pos - base >= 32) shift();
+    }
+    inline uint32_t read(int k) {
+        if (eos) {
+            pos = base;
+            return 0;
+        }
+        const uint32_t v = peek() & ((1u << k) - 1);
+        pos += k;
+        shift();
+        return v;
+    }
+    // ReadSymbol: the first 8 bits from one peek, the rest of a longer code
+    // from a second peek 8 bits on (libwebp's two-level table)
+    inline int symbol(const Code& c, bool& bad) {
+        if (c.single >= 0) return c.single;
+        const uint32_t low = peek() & 0xff;
+        pos += 8;
+        const uint64_t bits = low | ((uint64_t)peek() << 8);
+        pos -= 8;
+        int code = 0, first = 0, index = 0;
+        for (int ln = 1; ln < 16; ++ln) {
+            code |= (int)((bits >> (ln - 1)) & 1);
+            const int cnt = c.counts[ln];
+            if (code - first < cnt) {
+                pos += ln;
+                return c.syms[index + code - first];
+            }
+            index += cnt;
+            first = (first + cnt) << 1;
+            code <<= 1;
+        }
+        bad = true;
+        return 0;
+    }
+    inline bool at_end() {
+        eos = eos || pos > limit;
+        return eos;
+    }
+};
+
 bool read_code(LBits& br, int size, Code& out) {
     std::vector<int> lengths(size > 256 ? size : 256, 0);
     if (br.read(1)) {
@@ -986,11 +1063,14 @@ struct Transform {
 
 struct Vp8l {
     LBits br;
-    Vp8l(const uint8_t* d, int64_t n) : br(d, n) {}
+    bool alpha;
+    Vp8l(const uint8_t* d, int64_t n, bool alpha_stream) : br(d, n), alpha(alpha_stream) {}
 
     bool image(int xsize, int ysize, bool level0, std::vector<uint32_t>& out);
     bool pixels(int w, int h, const std::vector<Code>& codes, const std::vector<uint32_t>& meta,
                 int meta_bits, int cache_bits, std::vector<uint32_t>& out);
+    bool pixels_8b(int w, int h, const std::vector<Code>& codes,
+                   const std::vector<uint32_t>& meta, int meta_bits, std::vector<uint32_t>& out);
 };
 
 bool inverse(const Transform& t, int h, std::vector<uint32_t>& px) {
@@ -1040,7 +1120,8 @@ bool inverse(const Transform& t, int h, std::vector<uint32_t>& px) {
     return true;
 }
 
-inline int prefix_value(int sym, LBits& br) {
+template <class Bits>
+inline int prefix_value(int sym, Bits& br) {
     if (sym < 4) return sym + 1;
     const int extra = (sym - 2) >> 1;
     return ((2 + (sym & 1)) << extra) + (int)br.read(extra) + 1;
@@ -1095,7 +1176,15 @@ bool Vp8l::image(int xsize, int ysize, bool level0, std::vector<uint32_t>& out) 
     for (int g = 0; g < ngroups; ++g)
         for (int j = 0; j < 5; ++j)
             if (!read_code(br, sizes[j], codes[(size_t)g * 5 + j])) return false;
-    if (!pixels(xsize, ysize, codes, meta, meta_bits, cache_bits, out)) return false;
+    // libwebp decodes an ALPH stream of colour indices alone (no colour cache,
+    // red, blue and alpha of one symbol each) with DecodeAlphaData
+    bool eight_bit = level0 && alpha && transforms.size() == 1 && transforms[0].kind == 3 &&
+                     cache_bits == 0;
+    for (int g = 0; eight_bit && g < ngroups; ++g)
+        for (int j = 1; j < 4; ++j) eight_bit = eight_bit && codes[(size_t)g * 5 + j].single >= 0;
+    if (!(eight_bit ? pixels_8b(xsize, ysize, codes, meta, meta_bits, out)
+                    : pixels(xsize, ysize, codes, meta, meta_bits, cache_bits, out)))
+        return false;
     for (size_t k = transforms.size(); k-- > 0;)
         if (!inverse(transforms[k], ysize, out)) return false;
     return out.size() == (size_t)width * ysize;
@@ -1156,6 +1245,55 @@ bool Vp8l::pixels(int w, int h, const std::vector<Code>& codes, const std::vecto
             for (; cached < pos; ++cached)
                 cache[(out[cached] * 0x1e35a7bdu) >> (32 - cache_bits)] = out[cached];
     }
+    return true;
+}
+
+// DecodeAlphaData: the end of the stream is asked for only after each
+// symbol and its copy, and the image fails only when the stream ended
+// before its last pixel, so the last symbols may be read past the end
+bool Vp8l::pixels_8b(int w, int h, const std::vector<Code>& codes,
+                     const std::vector<uint32_t>& meta, int meta_bits,
+                     std::vector<uint32_t>& out) {
+    const int64_t n = (int64_t)w * h;
+    out.assign((size_t)n, 0);
+    const int mw = meta.empty() ? 0 : sub_size(w, meta_bits);
+    WindowBits wb(br);
+    bool bad = false;
+    int64_t pos = 0;
+    while (!wb.eos && pos < n) {
+        const int x = (int)(pos % w), y = (int)(pos / w);
+        const Code* g =
+            meta.empty() ? codes.data()
+                         : codes.data() + (size_t)meta[(size_t)(y >> meta_bits) * mw +
+                                                       (x >> meta_bits)] * 5;
+        wb.fill();
+        const int code = wb.symbol(g[0], bad);
+        if (bad) return false;
+        if (code < 256) {
+            out[pos++] = ((uint32_t)g[3].single << 24) | ((uint32_t)g[1].single << 16) |
+                         ((uint32_t)code << 8) | (uint32_t)g[2].single;
+        } else if (code < 280) {
+            const int length = prefix_value(code - 256, wb);
+            const int dsym = wb.symbol(g[4], bad);
+            if (bad) return false;
+            wb.fill();
+            int64_t dist = prefix_value(dsym, wb);
+            if (dist > 120) {
+                dist -= 120;
+            } else {
+                const int c = kCODE_TO_PLANE[dist - 1];
+                dist = (int64_t)(c >> 4) * w + 8 - (c & 0xf);
+                if (dist < 1) dist = 1;
+            }
+            if (dist > pos || n - pos < length) return false;
+            for (int k = 0; k < length; ++k, ++pos) out[pos] = out[pos - dist];
+        } else {
+            return false;
+        }
+        wb.at_end();
+    }
+    if (wb.at_end() && pos < n) return false;
+    br.pos = wb.pos;
     return true;
 }
 
@@ -1304,9 +1442,9 @@ int fd_webp_upsample(const uint8_t* y, const uint8_t* u, const uint8_t* v, int w
     return 0;
 }
 
-int fd_webp_vp8l(const uint8_t* data, int64_t len, int w, int h, uint32_t* argb) {
+int fd_webp_vp8l(const uint8_t* data, int64_t len, int w, int h, int alpha, uint32_t* argb) {
     if (w < 1 || h < 1 || w > 16384 || h > 16384 || len < 0) return kArgs;
-    Vp8l dec(data, len);
+    Vp8l dec(data, len, alpha != 0);
     std::vector<uint32_t> px;
     if (!dec.image(w, h, true, px) || dec.br.err) return kVp8l;
     memcpy(argb, px.data(), px.size() * sizeof(uint32_t));

@@ -928,11 +928,18 @@ def make_text_scene(tid: int, ink, seed: int, w: int = TEXT_SIZE[0],
     return from_renders(renders), n
 
 
-# --- the FigPort Sans faces (CFF, variable glyf and CFF2, WOFF, VARC) -----------------
+# --- the FigPort Sans faces (CFF, variable glyf and CFF2, WOFF, VARC, WOFF2) ---------
 
 FONTS_REFERENCE = os.path.join(REFERENCE_DIR, "fonts.json")
+# the faces tools/make_port_faces.py writes
 FONT_FACES = ("FigPortSans-CFF.otf", "FigPortSans-VF.ttf", "FigPortSans-VF.otf",
-              "FigPortSans-VF.woff", "FigPortSans-VARC.ttf")
+              "FigPortSans-VF.woff", "FigPortSans-VARC.ttf", "FigPortSans-VF.woff2",
+              "FigPortSans-CFF.woff2")
+# the WOFF 2.0 faces: DejaVu Sans as the web serves it, and two written
+# through fontTools' WOFF2Writer (glyf, loca and hmtx transformed; CFF)
+WOFF2_FACES = ("DejaVuSans.woff2", "FigPortSans-VF.woff2", "FigPortSans-CFF.woff2")
+# every face whose outline digests reference/fonts.json holds
+FONT_OUTLINE_FACES = FONT_FACES + ("DejaVuSans.woff2",)
 # (tag, value) pairs: the default, then each axis at its minimum, a middle
 # (wdth 90 is where avar maps 90 to 85) and its maximum
 FONT_LOCATIONS = ((), (("wdth", 75.0),), (("wdth", 90.0),), (("wdth", 125.0),),
@@ -944,10 +951,16 @@ FONT_TEXT_CASES = (("FigPortSans-CFF.otf", ()),
                    ("FigPortSans-VF.otf", (("wdth", 75.0),)),
                    ("FigPortSans-VF.otf", (("wdth", 125.0), ("slnt", -12.0))),
                    ("FigPortSans-VF.woff", (("wdth", 75.0),)),
-                   ("FigPortSans-VARC.ttf", (("wdth", 125.0), ("slnt", -12.0))))
+                   ("FigPortSans-VARC.ttf", (("wdth", 125.0), ("slnt", -12.0))),
+                   ("DejaVuSans.woff2", ()),
+                   ("FigPortSans-VF.woff2", (("wdth", 75.0),)),
+                   ("FigPortSans-CFF.woff2", ()))
 FONT_TABLE_CASE = ("FigPortSans-VF.otf", (("wdth", 90.0), ("slnt", -6.0)))
 # the text table from the VARC face (on the megakernel with the atlas)
 FONT_VARC_TABLE_CASE = ("FigPortSans-VARC.ttf", (("wdth", 112.5), ("slnt", -6.0)))
+# the text table from the glyf variable face as WOFF 2.0
+FONT_WOFF2_TABLE_CASE = ("FigPortSans-VF.woff2", (("wdth", 125.0), ("slnt", -6.0)))
+FONT_TABLE_CASES = (FONT_TABLE_CASE, FONT_VARC_TABLE_CASE, FONT_WOFF2_TABLE_CASE)
 FONT_PACK_CASES = (("FigPortSans-VF.ttf", (("wdth", 75.0),)),
                    ("FigPortSans-VF.ttf", (("wdth", 125.0), ("slnt", -12.0))),
                    ("FigPortSans-VF.woff", (("wdth", 75.0),)))

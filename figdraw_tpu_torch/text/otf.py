@@ -4,8 +4,8 @@ reads, in numpy and struct, with no fontTools.
 It stands in for fontTools' TTFont where figdraw_tpu's typefaces.py,
 typeface_info.py and shaper.py use it, and gives the same values:
 
-- the sfnt and TTC headers, and WOFF 1.0 files (text/woff.py inflates
-  them to the sfnt they wrap); head, hhea, maxp, name, post glyph names
+- the sfnt and TTC headers, WOFF 1.0 files (text/woff.py inflates them to
+  the sfnt they wrap) and WOFF 2.0 files (text/woff2.py rebuilds theirs); head, hhea, maxp, name, post glyph names
   (format 2 names, duplicates renamed "name.1" as fontTools does; other
   formats, or no post table, get synthesized unique names: the shaper only
   needs names to be unique and stable);
@@ -130,7 +130,8 @@ def _f2dot14(v: int) -> float:
 
 def collection_size(data: bytes) -> int:
     """The number of faces in a font file's bytes: a TTC/OTC header's
-    count, else 1 (an sfnt, or a WOFF file, which wraps one face)."""
+    count, else 1 (an sfnt, or a WOFF or WOFF2 file, which wraps one
+    face)."""
     return _U32(data, 8)[0] if data[:4] == b"ttcf" else 1
 
 
@@ -149,8 +150,8 @@ class NameRecord(SimpleNamespace):
 
 class OTFont:
     """One face of an sfnt (.ttf, .otf, or one face of a .ttc/.otc
-    collection) or of a WOFF 1.0 file (.woff, unwrapped by text/woff.py),
-    read from its bytes.
+    collection) or of a WOFF 1.0 or 2.0 file (.woff, unwrapped by
+    text/woff.py; .woff2, rebuilt by text/woff2.py), read from its bytes.
 
     The tables the pipeline needs are read at construction (they are
     small); cmap, kern, name, GSUB, GPOS, GDEF and the variation tables on

@@ -12,9 +12,9 @@ reads it with flavor "woff" (ttLib/sfnt.py and WOFFDirectoryEntry):
 
 The result is an sfnt that OTFont reads as it reads a .ttf or .otf: the
 directory in tag order, each table at a 4-aligned offset and padded with
-zeros. A WOFF 2.0 file ("wOF2") raises NotImplementedError: it needs a
-Brotli decoder, which the port does not have (fontTools reads WOFF2 only
-through the optional brotli module).
+zeros. A WOFF 2.0 file ("wOF2") goes to text/woff2.py, which rebuilds its
+sfnt with the port's own Brotli decoder (fontTools reads WOFF2 through the
+optional brotli module).
 """
 
 from __future__ import annotations
@@ -36,12 +36,11 @@ def is_woff(data: bytes) -> bool:
 
 
 def woff_to_sfnt(data: bytes) -> bytes:
-    """The sfnt a WOFF 1.0 file wraps, its tables decoded."""
+    """The sfnt a WOFF 1.0 or WOFF 2.0 file wraps, its tables decoded."""
     if data[:4] == WOFF2_SIGNATURE:
-        raise NotImplementedError(
-            "WOFF2 fonts are not read by the port's OpenType reader: they need a "
-            "Brotli decoder (ROADMAP, queue 1 item 2: \"Font tables the port's "
-            "reader raises on, where figdraw_tpu reads them through fontTools\")")
+        from .woff2 import woff2_to_sfnt
+
+        return woff2_to_sfnt(data)
     if len(data) < _HEADER.size or data[:4] != WOFF_SIGNATURE:
         raise ValueError("Not a WOFF font (not enough data)")
     (_sig, flavor, _length, num_tables, _reserved, _total, _major, _minor,

@@ -1,8 +1,9 @@
-"""The image decoders' host libraries (csrc/image_decode.cpp with its fax
-code tables csrc/fax_tables.h, csrc/webp_decode.cpp with its tables
-csrc/webp_tables.h, and csrc/zstd_decode.cpp), built with g++
-by utils.gxx at first use and bound through ctypes. A missing toolchain or
-a failed build raises: no decoder falls back to its plain Python twin."""
+"""The decoders' host libraries (csrc/image_decode.cpp with its fax code
+tables csrc/fax_tables.h, csrc/webp_decode.cpp with its tables
+csrc/webp_tables.h, csrc/zstd_decode.cpp, and the Brotli decoder of WOFF2
+fonts, csrc/brotli_decode.cpp with csrc/brotli_tables.h), built with g++ by
+utils.gxx at first use and bound through ctypes. A missing toolchain or a
+failed build raises: no decoder falls back to its plain Python twin."""
 
 from __future__ import annotations
 
@@ -18,11 +19,14 @@ _DEPS = (os.path.join(_CSRC, "fax_tables.h"),)
 _WEBP_SRC = os.path.join(_CSRC, "webp_decode.cpp")
 _WEBP_DEPS = (os.path.join(_CSRC, "webp_tables.h"),)
 _ZSTD_SRC = os.path.join(_CSRC, "zstd_decode.cpp")
+_BROTLI_SRC = os.path.join(_CSRC, "brotli_decode.cpp")
+_BROTLI_DEPS = (os.path.join(_CSRC, "brotli_tables.h"),)
 _FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 _lock = threading.Lock()
 _lib = None
 _webp = None
 _zstd = None
+_brotli = None
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
@@ -40,10 +44,11 @@ _SIGNATURES = {
 _WEBP_SIGNATURES = {
     "fd_webp_vp8": ([_P, _I64, _I, _I, _P, _P, _P], _I),
     "fd_webp_upsample": ([_P, _P, _P, _I, _I, _P], _I),
-    "fd_webp_vp8l": ([_P, _I64, _I, _I, _P], _I),
+    "fd_webp_vp8l": ([_P, _I64, _I, _I, _I, _P], _I),
     "fd_webp_alpha_unfilter": ([_P, _I, _I, _I, _P], _I),
 }
 _ZSTD_SIGNATURES = {"fd_zstd_decompress": ([_P, _I64, _P, _I64], _I64)}
+_BROTLI_SIGNATURES = {"fd_brotli_decompress": ([_P, _I64, _P, _P, _I64], _I64)}
 
 
 def _bind(path: str, signatures: dict) -> ctypes.CDLL:
@@ -80,3 +85,13 @@ def load_zstd() -> ctypes.CDLL:
         if _zstd is None:
             _zstd = _bind(gxx.build(_ZSTD_SRC, "figdraw_zstd_decode", _FLAGS), _ZSTD_SIGNATURES)
         return _zstd
+
+
+def load_brotli() -> ctypes.CDLL:
+    """The Brotli decoder's library, built and bound at first use."""
+    global _brotli
+    with _lock:
+        if _brotli is None:
+            _brotli = _bind(gxx.build(_BROTLI_SRC, "figdraw_brotli_decode", _FLAGS, _BROTLI_DEPS),
+                            _BROTLI_SIGNATURES)
+        return _brotli

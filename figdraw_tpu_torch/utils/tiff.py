@@ -218,6 +218,34 @@ def read_ifd(data: bytes) -> tuple:
     return o, big, tags
 
 
+# TIFFDataWidth: the bytes of one value of each field type (0: unknown)
+_TYPE_WIDTH = {1: 1, 2: 1, 6: 1, 7: 1, 3: 2, 8: 2, 4: 4, 9: 4, 11: 4, 13: 4,
+               5: 8, 10: 8, 12: 8, 16: 8, 17: 8, 18: 8}
+
+
+def _directory_bytes(data: bytes, order: str, big: bool) -> int:
+    """libtiff's EstimateStripByteCounts `space` before the file size: the
+    header, the first IFD and every value stored outside it."""
+    if big:
+        (at,) = struct.unpack_from(order + "Q", data, 8)
+        (n,) = struct.unpack_from(order + "Q", data, at)
+        space, entry, inline, fmt = 16 + 8 + n * 20 + 8, 20, 8, "HHQ"
+    else:
+        (at,) = struct.unpack_from(order + "I", data, 4)
+        (n,) = struct.unpack_from(order + "H", data, at)
+        space, entry, inline, fmt = 8 + 2 + n * 12 + 4, 12, 4, "HHI"
+    for k in range(n):
+        _tag, ftype, count = struct.unpack_from(order + fmt, data, at + (8 if big else 2)
+                                                + k * entry)
+        width = _TYPE_WIDTH.get(ftype, 0)
+        if width == 0:
+            raise ValueError(f"TIFF tag of unknown type {ftype}: libtiff cannot estimate "
+                             "the strip's byte count")
+        size = width * count
+        space += size if size > inline else 0
+    return space
+
+
 def _ints(tags: dict, tag: int, default=None) -> tuple:
     v = tags.get(tag)
     if v is None:
@@ -229,7 +257,9 @@ class Image:
     """The first IFD's image: geometry, its PIL key and mode, where its
     strips or tiles lie."""
 
-    def __init__(self, order: str, tags: dict):
+    def __init__(self, order: str, tags: dict, data: bytes = None, big: bool = False):
+        """data (the file's bytes) and big let a single strip's byte count
+        be repaired as libtiff repairs it."""
         self.order, self.tags = order, tags
         self.compression = _ints(tags, COMPRESSION, (1,))[0]
         if self.compression in NOT_PORTED_COMPRESSION:
@@ -328,7 +358,40 @@ class Image:
                 raise ValueError("compressed TIFF without StripByteCounts or TileByteCounts")
             counts = tuple(self.chunk_bytes(self.ch) for _ in range(n))
         self.offsets, self.counts = offsets[:n], counts[:n]
+        if data is not None and n == 1 and not self.tiled and self._count_looks_bad(len(data)):
+            self.counts = (self._estimated_count(data, big),)
         self.row_bytes = (self.cw * self.plane_spp * self.bits + 7) // 8
+
+    def _count_looks_bad(self, file_size: int) -> bool:
+        """libtiff's ByteCountLooksBad (tif_dirread.c) for a single strip:
+        a count of 0 beside a non-zero offset, or an uncompressed strip's
+        count past the end of the file or short of its rows."""
+        offset, count = self.offsets[0], self.counts[0]
+        if offset == 0:
+            return False
+        if count == 0:
+            return True
+        if self.compression != NONE:
+            return False
+        if offset <= file_size and count > file_size - offset:
+            return True
+        return count < self.chunk_bytes(self.height)
+
+    def _estimated_count(self, data: bytes, big: bool) -> int:
+        """libtiff's EstimateStripByteCounts for a single strip: a
+        compressed strip runs over what the header and the IFD leave of
+        the file, cut at the end of the file; an uncompressed one holds
+        its rows."""
+        if self.compression == NONE:
+            return self.chunk_bytes(self.height)
+        file_size = len(data)
+        space = max(file_size - _directory_bytes(data, self.order, big), 0)
+        if self.planar == 2:
+            space //= self.spp
+        offset = self.offsets[0]
+        if offset + space > file_size:
+            space = max(file_size - offset, 0)
+        return space
 
     def chunk_bytes(self, rows: int) -> int:
         return rows * ((self.cw * self.plane_spp * self.bits + 7) // 8)
@@ -604,8 +667,8 @@ def stage_pairs(data: bytes):
     decompressor ("packbits": fd_tiff_packbits, "lzw": fd_tiff_lzw, "fax":
     fd_tiff_fax, "zstd": fd_zstd_decompress) and the predictor
     ("predict": fd_tiff_predict); nothing for a file that runs none."""
-    order, _big, tags = read_ifd(data)
-    img = Image(order, tags)
+    order, big, tags = read_ifd(data)
+    img = Image(order, tags, data, big)
     if img.compression not in (PACKBITS, LZW, ZSTD) + FAX and img.predictor == 1:
         return
     if img.compression in FAX:
@@ -767,8 +830,8 @@ def decode_tiff(data: bytes, plain: bool = False) -> np.ndarray:
     """A TIFF or BigTIFF byte string's first image to (H, W, 4) uint8 RGBA,
     as PIL's `Image.open(...).convert("RGBA")`. plain=True runs the plain
     twins of the C++ stages (the tests' reference)."""
-    order, _big, tags = read_ifd(data)
-    img = Image(order, tags)
+    order, big, tags = read_ifd(data)
+    img = Image(order, tags, data, big)
     if img.compression == JPEG:
         s = _jpeg_samples(data, img, plain)
     else:

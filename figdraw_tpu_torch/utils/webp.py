@@ -110,6 +110,31 @@ def _image(data: bytes, chunks: list, where: str):
     raise ValueError(f"corrupt WebP file: no VP8 or VP8L image in {where}")
 
 
+def _anmf_frame(data: bytes, start: int, size: int, seen_anim: bool, canvas, first: bool):
+    """(codec, stream, alph, box) of an ANMF frame, checked as libwebp's
+    demuxer checks every frame of an animation before its first is drawn
+    (ParseAnimationFrame, StoreFrame, IsValidExtendedFormat): the ANMF's
+    own width and height only bounded in area (StoreFrame replaces them by
+    the bitstream's), the bitstream's header read, the frame inside the
+    canvas. A later frame's fault is a ValueError whatever it is."""
+    try:
+        if not seen_anim or size < 16:
+            raise ValueError("corrupt WebP file: a bad ANMF chunk")
+        x0, y0 = 2 * _u24(data, start), 2 * _u24(data, start + 3)
+        if (_u24(data, start + 6) + 1) * (_u24(data, start + 9) + 1) >= 1 << 32:
+            raise ValueError("corrupt WebP file: an ANMF frame of 2^32 pixels or more")
+        sub = list(_chunks(data, start + 16, start + size))
+        codec, stream, head, alph = _image(data, sub, "an ANMF frame")
+        w, h, _a = bitstream_size(codec, head)
+    except NotImplementedError as err:
+        if first:
+            raise
+        raise ValueError(f"corrupt WebP file: a later ANMF frame: {err}") from None
+    if x0 + w > canvas[0] or y0 + h > canvas[1]:
+        raise ValueError("corrupt WebP file: an ANMF frame does not fit the canvas")
+    return codec, stream, alph, (x0, y0, w, h)
+
+
 def bitstream_size(codec: str, stream: bytes):
     """(width, height, has_alpha) from a VP8 or VP8L chunk's payload, as
     WebPGetFeatures reads it; raises as libwebp's VP8GetInfo and
@@ -165,27 +190,20 @@ def read_frame(data: bytes) -> Frame:
     if flags & ANIM_FLAG:
         if not any(t == b"ANIM" for t, _s, _n in rest):
             raise ValueError("corrupt WebP file: an animation without an ANIM chunk")
-        seen_anim = False
+        seen_anim, first = False, None
         for tag, start, size in rest:
             if tag == b"ANIM":
                 seen_anim = True
             elif tag == b"ANMF":
-                if not seen_anim or size < 16:
-                    raise ValueError("corrupt WebP file: a bad ANMF chunk")
-                x0, y0 = 2 * _u24(data, start), 2 * _u24(data, start + 3)
-                fw, fh = _u24(data, start + 6) + 1, _u24(data, start + 9) + 1
-                sub = list(_chunks(data, start + 16, start + size))
-                codec, stream, head, alph = _image(data, sub, "the first ANMF frame")
-                w, h, _a = bitstream_size(codec, head)
-                if (w, h) != (fw, fh) or x0 + w > cw or y0 + h > ch:
-                    raise ValueError("corrupt WebP file: the first frame does not fit its "
-                                     "ANMF box or the canvas")
-                return Frame((cw, ch), (x0, y0, w, h), codec, stream, alph,
-                             bool(flags & ALPHA_FLAG))
-            elif tag in (b"ALPH", b"VP8 ", b"VP8L"):
-                raise ValueError("corrupt WebP file: an image chunk outside ANMF in an "
+                frame = _anmf_frame(data, start, size, seen_anim, (cw, ch), first is None)
+                first = first or frame
+            elif tag in (b"ALPH", b"VP8 ", b"VP8L", b"VP8X"):
+                raise ValueError(f"corrupt WebP file: a {tag!r} chunk outside ANMF in an "
                                  "animation")
-        raise ValueError("corrupt WebP file: an animation without frames")
+        if first is None:
+            raise ValueError("corrupt WebP file: an animation without frames")
+        codec, stream, alph, box = first
+        return Frame((cw, ch), box, codec, stream, alph, bool(flags & ALPHA_FLAG))
     for i, (tag, _s, _n) in enumerate(rest):
         if tag in (b"ALPH", b"VP8 ", b"VP8L"):
             codec, stream, head, alph = _image(data, rest[i:], "the file")
@@ -254,7 +272,7 @@ def alpha_deltas(alph: bytes, w: int, h: int, plain: bool = False) -> np.ndarray
         if len(alph) - 1 < w * h:
             raise ValueError("truncated WebP ALPH data")
         return np.frombuffer(alph, np.uint8, w * h, 1).reshape(h, w).copy()
-    argb = (vp8l_plain if plain else vp8l)(alph[1:], w, h)
+    argb = (vp8l_plain if plain else vp8l)(alph[1:], w, h, alpha=True)
     return ((argb >> 8) & 0xFF).astype(np.uint8)
 
 
@@ -297,12 +315,13 @@ def upsample(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
     return out
 
 
-def vp8l(stream: bytes, w: int, h: int) -> np.ndarray:
+def vp8l(stream: bytes, w: int, h: int, alpha: bool = False) -> np.ndarray:
     """A VP8L image stream (after its 5-byte header, or an ALPH chunk's
-    headerless one) of w x h pixels to (H, W) uint32 ARGB, in C++."""
+    headerless one, alpha=True) of w x h pixels to (H, W) uint32 ARGB, in
+    C++."""
     src = np.frombuffer(stream, np.uint8)
     out = np.empty((h, w), np.uint32)
-    _check(image_lib.load_webp().fd_webp_vp8l(src.ctypes.data, len(stream), w, h,
+    _check(image_lib.load_webp().fd_webp_vp8l(src.ctypes.data, len(stream), w, h, int(alpha),
                                               out.ctypes.data), "VP8L")
     return out
 
@@ -1136,6 +1155,61 @@ class _LBits:
         return v
 
 
+class _WindowBits:
+    """libwebp's VP8LBitReader as DecodeAlphaData reads it, from a bit
+    position of _LBits on: its 64-bit window over the stream's last 8 bytes
+    once they are loaded (`base`), a peek past the end that reads zeros up
+    to the window's 64 bits and wraps to its start beyond (the shift is
+    taken mod 64), and the end of stream found only where the window is
+    refilled (VP8LFillBitWindow, VP8LReadBits) or the loop asks, which sets
+    the position back to the window's start."""
+
+    def __init__(self, br: _LBits):
+        self.val, self.pos, self.limit, self.eos = br.val, br.pos, br.limit, False
+        self.base = self.limit - 64
+        self.window = (self.val >> self.base) & ((1 << 64) - 1)
+
+    def peek(self) -> int:
+        if self.pos < self.base:
+            return (self.val >> self.pos) & 0xFFFFFFFF
+        return (self.window >> ((self.pos - self.base) & 63)) & 0xFFFFFFFF
+
+    def _shift(self) -> None:
+        if self.eos or self.pos > self.limit:
+            self.eos, self.pos = True, self.base
+
+    def fill(self) -> None:
+        if self.pos - self.base >= 32:
+            self._shift()
+
+    def read(self, n: int) -> int:
+        if self.eos:
+            self.pos = self.base
+            return 0
+        v = self.peek() & ((1 << n) - 1)
+        self.pos += n
+        self._shift()
+        return v
+
+    def symbol(self, code: "_Code") -> int:
+        """ReadSymbol: the first 8 bits from one peek, the rest of a longer
+        code from a second peek 8 bits on (libwebp's two-level table)."""
+        if code.single is not None:
+            return code.single
+        low = self.peek()
+        self.pos += 8
+        high = self.peek()
+        self.pos -= 8
+        bits = (low & 0xFF) | (high << 8)
+        sym, length = code.decode_bits(bits)
+        self.pos += length
+        return sym
+
+    def at_end(self) -> bool:
+        self.eos = self.eos or self.pos > self.limit
+        return self.eos
+
+
 class _Code:
     """A canonical prefix code decoded bit by bit (a single symbol reads
     no bit)."""
@@ -1169,6 +1243,20 @@ class _Code:
             n = self.counts[ln]
             if code - first < n:
                 return self.syms[index + code - first]
+            index += n
+            first = (first + n) << 1
+            code <<= 1
+        raise ValueError("corrupt VP8L stream: a bad prefix code")
+
+    def decode_bits(self, bits: int) -> tuple:
+        """(symbol, code length) of the code at the start of `bits` (LSB
+        first)."""
+        code = first = index = 0
+        for ln in range(1, 16):
+            code |= (bits >> (ln - 1)) & 1
+            n = self.counts[ln]
+            if code - first < n:
+                return self.syms[index + code - first], ln
             index += n
             first = (first + n) << 1
             code <<= 1
@@ -1278,8 +1366,8 @@ def _predict(mode: int, L: int, T_: int, TL: int, TR: int) -> int:
 class _Vp8l:
     """The plain VP8L decoder (libwebp's vp8l_dec.c and lossless.c)."""
 
-    def __init__(self, data: bytes):
-        self.br = _LBits(data)
+    def __init__(self, data: bytes, alpha: bool = False):
+        self.br, self.alpha = _LBits(data), alpha
         self.used = {"transforms": set(), "bundling": set(), "cache": set(), "meta": 0,
                      "predictors": set(), "simple_codes": 0, "copies": 0}
 
@@ -1330,7 +1418,11 @@ class _Vp8l:
         for _g in range(ngroups):
             sizes = (256 + 24 + ((1 << cache_bits) if cache_bits else 0), 256, 256, 256, 40)
             groups.append([_read_code(br, s, self.used) for s in sizes])
-        px = self.pixels(xsize, ysize, groups, meta, meta_bits, cache_bits)
+        if level0 and self.alpha and [t[0] for t in transforms] == [3] and not cache_bits \
+                and all(c.single is not None for g in groups for c in g[1:4]):
+            px = self.pixels_8b(xsize, ysize, groups, meta, meta_bits)
+        else:
+            px = self.pixels(xsize, ysize, groups, meta, meta_bits, cache_bits)
         for kind, width, bits, data in reversed(transforms):
             px = _inverse(kind, width, ysize, bits, data, px)
         return px
@@ -1382,6 +1474,51 @@ class _Vp8l:
                     cache[((out[cached] * 0x1E35A7BD) & 0xFFFFFFFF) >> (32 - cache_bits)] = \
                         out[cached]
                     cached += 1
+        return out
+
+
+    def pixels_8b(self, w, h, groups, meta, meta_bits):
+        """libwebp's DecodeAlphaData: an ALPH stream of colour indices
+        alone (no colour cache, red, blue and alpha of one symbol each),
+        read through libwebp's bit window. The end of the stream is asked
+        for only after each symbol and its copy, and the image fails only
+        when the stream ended before its last pixel: the last symbols may
+        be read past the end."""
+        br = _WindowBits(self.br)
+        n = w * h
+        out = [0] * n
+        mw = _sub(w, meta_bits) if meta else 0
+        pos = 0
+        while not br.eos and pos < n:
+            y, x = divmod(pos, w)
+            g = groups[meta[(y >> meta_bits) * mw + (x >> meta_bits)]] if meta else groups[0]
+            br.fill()
+            code = br.symbol(g[0])
+            if code < 256:
+                out[pos] = (g[3].single << 24) | (g[1].single << 16) | (code << 8) | g[2].single
+                pos += 1
+            elif code < 280:
+                length = _prefix_value(code - 256, br)
+                dsym = br.symbol(g[4])
+                br.fill()
+                dist = _prefix_value(dsym, br)
+                if dist > 120:
+                    dist -= 120
+                else:
+                    c = int(T.CODE_TO_PLANE[dist - 1])
+                    dist = max((c >> 4) * w + 8 - (c & 0xF), 1)
+                if dist > pos or n - pos < length:
+                    raise ValueError("corrupt VP8L stream: a copy out of the image")
+                self.used["copies"] += 1
+                for _k in range(length):
+                    out[pos] = out[pos - dist]
+                    pos += 1
+            else:
+                raise ValueError("corrupt VP8L stream: a colour cache code without a cache")
+            br.at_end()
+        if br.at_end() and pos < n:
+            raise ValueError("corrupt VP8L stream: " + ERRORS[-1])
+        self.br.pos = br.pos
         return out
 
 
@@ -1439,9 +1576,9 @@ def _s8(v: int) -> int:
     return v - 256 if v & 0x80 else v
 
 
-def vp8l_plain(stream: bytes, w: int, h: int) -> np.ndarray:
+def vp8l_plain(stream: bytes, w: int, h: int, alpha: bool = False) -> np.ndarray:
     """vp8l in Python."""
-    px = _Vp8l(stream).image(w, h, True)
+    px = _Vp8l(stream, alpha).image(w, h, True)
     return np.array(px, np.uint32).reshape(h, w)
 
 
@@ -1460,7 +1597,7 @@ def features(data: bytes) -> dict:
         dec.decode()
         out["vp8"] = dict(dec.header, **dec.used)
         if f.alph is not None and out["alph"][0] == 1:
-            lossless = _Vp8l(f.alph[1:])
+            lossless = _Vp8l(f.alph[1:], alpha=True)
             lossless.image(f.box[2], f.box[3], True)
             out["vp8l"] = lossless.used
     else:
@@ -1495,6 +1632,6 @@ def stage_pairs(data: bytes, max_pixels: int = 20000):
     if f.alph is not None:
         method, filt = alpha_header(f.alph)
         if method == 1 and small:
-            yield "vp8l", vp8l(f.alph[1:], w, h), vp8l_plain(f.alph[1:], w, h)
+            yield "vp8l", vp8l(f.alph[1:], w, h, True), vp8l_plain(f.alph[1:], w, h, True)
         deltas = alpha_deltas(f.alph, w, h)[:48, :64]
         yield "alpha_unfilter", alpha_unfilter(deltas, filt), alpha_unfilter_plain(deltas, filt)

@@ -1,7 +1,9 @@
 """figdraw_tpu_torch's CUDA kernels (K1, K1-atlas and K3 in csrc/raster.cu,
 K4 and K4-atlas in csrc/mega.cu, the row transform in csrc/rows.cu, the
 backdrop blur in csrc/blur.cu and the tile binning in csrc/binning.cu)
-against their plain torch versions on an NVIDIA card. Every
+against their plain torch versions on an NVIDIA card, and the card's
+machine building and running the host helpers of the frames' inputs (the
+Brotli decoder of WOFF2 faces). Every
 test here needs the card (marker `cuda`) and skips without one. The file
 imports neither jax nor figdraw_tpu, so it also runs on a machine without
 them:
@@ -27,7 +29,7 @@ from figdraw_tpu_torch.ops.layout import PACKED_WIDTH, QF_WIDTH, QI_MODE, pack_f
 from figdraw_tpu_torch.plan import atlas_from_jax, plan_execution, plan_rolled
 from figdraw_tpu_torch.resources import ImageMessageBus, put_image
 from figdraw_tpu_torch.scenes import (
-    IMAGE_ID, atlas_modes_tape, binning_tape, load_text_tape, make_clip_table_scene,
+    FONT_TEXT_CASES, IMAGE_ID, atlas_modes_tape, binning_tape, load_text_tape, make_clip_table_scene,
     build_grid, make_image_panels_scene, make_render_tree_array, mega_modes_tape,
     modes_tape, photo_image,
 )
@@ -1534,3 +1536,93 @@ def test_sharded_frames_on_one_card(dev):
     for f in range(5):
         assert torch.equal(out[f], ren.render_frame(
             make_render_tree_array(640, 360, f, copies=30), size))
+
+
+# --- WOFF 2.0 faces, rebuilt through the port's Brotli decoder ----------------------
+
+WOFF2_TEXT_CASES = [c for c in FONT_TEXT_CASES if c[0].endswith(".woff2")]
+
+
+@pytest.mark.parametrize("case", WOFF2_TEXT_CASES, ids=[c[0] for c in WOFF2_TEXT_CASES])
+def test_woff2_bench_text_on_the_card(case, dev):
+    """bench_text from a WOFF2 face through render_frame on the card: one
+    K1-atlas launch, the frame the plain executor's and within 1/255 of
+    figdraw_tpu's stored block means."""
+    from figdraw_tpu_torch import Color, fill, rgba
+    from figdraw_tpu_torch.scenes import (
+        font_blocks_path, font_case_key, font_text, make_text_scene,
+    )
+    from figdraw_tpu_torch.text.typefaces import FontVariation, bundled_font_path, load_typeface
+
+    face, loc = case
+    scene, _n = make_text_scene(load_typeface(bundled_font_path(face)),
+                                fill(rgba(20, 20, 30, 255)), 0,
+                                variations=tuple(FontVariation(t, v) for t, v in loc),
+                                text=font_text(face)[0])
+    ren = FigRenderer(atlas_size=512, device="cuda")
+    plan = ren._walk_plan(scene, vec2(1200, 800), True, Color(1.0, 1.0, 1.0, 1.0))
+    ren.render_frame(scene, vec2(1200, 800))
+    counts = _counts()
+    frame = ren.render_frame(scene, vec2(1200, 800))
+    assert tuple(b - a for a, b in zip(counts, _counts())) == (0, 1, 0, 0, 0)
+    run = get_frame_executor(plan.structure, plan.height, plan.width, plan.n_masks,
+                             plan.has_init_frame, plan.tile_h)
+    ref = run(torch.from_numpy(plan.combo).to(dev), None, atlas=ren._device_atlas(),
+              draw=raster.draw_pass_planar_prebinned_plain)
+    torch.cuda.synchronize()
+    assert float((frame - ref).abs().max()) <= 1e-5
+    blocks = np.load(font_blocks_path(font_case_key(face, loc)))
+    assert np.abs(_block_means(frame) - blocks).max() <= TOL
+
+
+def test_woff2_text_table_on_the_card(dev):
+    """The WOFF2 VF face's text table walked and planned by the port on the
+    megakernel with the atlas: one K4-atlas launch, the frame the plain
+    walk's and within 1/255 of figdraw_tpu's stored block means."""
+    from figdraw_tpu_torch.scenes import (
+        FONT_WOFF2_TABLE_CASE, font_blocks_path, font_case_key, make_text_table_scene,
+    )
+    from figdraw_tpu_torch.text.typefaces import FontVariation, bundled_font_path, load_typeface
+
+    face, loc = FONT_WOFF2_TABLE_CASE
+    tree = make_text_table_scene(180, 6, 1200.0, 800.0,
+                                 tid=load_typeface(bundled_font_path(face)),
+                                 variations=tuple(FontVariation(t, v) for t, v in loc))
+    ren = FigRenderer(atlas_size=512, device="cuda")
+    plan = plan_execution(ren.flatten(tree, vec2(1200, 800)))
+    assert plan.mega_atlas
+    counts = _counts()
+    frame = ren.execute_plan(plan)
+    assert tuple(b - a for a, b in zip(counts, _counts())) == (0, 0, 0, 0, 1)
+    run = get_mega_executor(plan.height, plan.width, plan.n_masks, False, plan.tile_h)
+    ref = run(torch.from_numpy(plan.mega_combo).to(dev), None, atlas=ren._device_atlas(),
+              draw=mega.draw_pass_mega_plain)
+    torch.cuda.synchronize()
+    assert float((frame - ref).abs().max()) <= 1e-5
+    blocks = np.load(font_blocks_path(font_case_key(face, loc)))
+    assert np.abs(_block_means(frame) - blocks).max() <= TOL
+
+
+def test_brotli_decoder_on_the_cards_host(dev):
+    """fd_brotli_decompress, built on the card's machine, on each WOFF2
+    face's stream: the stored size and sha256 (libbrotlidec's output) and
+    decompress_plain's bytes."""
+    import hashlib
+    import json
+
+    from figdraw_tpu_torch.scenes import FONTS_REFERENCE, WOFF2_FACES
+    from figdraw_tpu_torch.text.typefaces import bundled_font_path
+    from figdraw_tpu_torch.text.woff2 import directory
+    from figdraw_tpu_torch.utils import brotli
+
+    with open(FONTS_REFERENCE) as fh:
+        refs = json.load(fh)["woff2"]
+    for face in WOFF2_FACES:
+        with open(bundled_font_path(face), "rb") as fh:
+            data = fh.read()
+        head, _entries, at = directory(data)
+        stream = data[at: at + head[6]]
+        got = brotli.decompress(stream)
+        assert len(got) == refs[face]["bytes"]
+        assert hashlib.sha256(got).hexdigest() == refs[face]["sha256"]
+        assert got == brotli.decompress_plain(stream)

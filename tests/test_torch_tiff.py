@@ -832,3 +832,90 @@ def test_photo_wall_from_tiff_matches_jax(tiff_copies):
     np.testing.assert_allclose(stored, block_means(want), rtol=0, atol=1e-6)
     assert float(np.abs(block_means(got) - stored).max()) <= 1e-5
     ref.close()
+
+
+# --- a single strip's byte count repaired as libtiff repairs it --------------------
+
+
+def _set_strip_count(data: bytes, value: int) -> bytes:
+    """The file with its one StripByteCounts value set to `value` (a
+    writer that did not know the size leaves 0)."""
+    order, big, _tags = tiff.read_ifd(data)
+    fmt, entry, head = ("HHQ", 20, 8) if big else ("HHI", 12, 2)
+    (at,) = struct.unpack_from(order + ("Q" if big else "I"), data, 8 if big else 4)
+    (n,) = struct.unpack_from(order + ("Q" if big else "H"), data, at)
+    out = bytearray(data)
+    for k in range(n):
+        pos = at + head + k * entry
+        tag, ftype, count = struct.unpack_from(order + fmt, data, pos)
+        if tag == tiff.STRIP_COUNTS:
+            assert count == 1
+            code = {3: "H", 4: "I", 16: "Q"}[ftype]
+            struct.pack_into(order + code, out, pos + (12 if big else 8), value)
+            return bytes(out)
+    raise ValueError("no StripByteCounts")
+
+
+ZERO_COUNT_CASES = ["none", "tiff_lzw", "packbits", "tiff_adobe_deflate", "tiff_deflate",
+                    "zstd", "mm_lzw", "mm_none", "bigtiff_lzw", "bigtiff_none"]
+
+
+def _one_strip(case: str) -> bytes:
+    px = _crop()[..., :3]
+    if case.startswith(("mm_", "bigtiff_")):
+        kw = {"order": ">"} if case.startswith("mm_") else {"order": "<", "big": True}
+        comp = 5 if case.endswith("lzw") else 1
+        return tiff_bytes(px, 2, compression=comp, rows_per_strip=px.shape[0], **kw)
+    kw = {} if case == "none" else {"compression": case}
+    return _pil_save(Image.fromarray(px), rowsperstrip=px.shape[0], **kw)
+
+
+@pytest.mark.parametrize("case", ZERO_COUNT_CASES)
+def test_a_single_strip_of_count_zero_reads_as_pil(case):
+    """libtiff's ByteCountLooksBad and EstimateStripByteCounts: a single
+    strip whose StripByteCounts is 0 runs over what the header and the IFD
+    leave of the file (compressed) or holds its rows (uncompressed), and
+    PIL reads the image: so does the port, through load_image's decoder."""
+    data = _set_strip_count(_one_strip(case), 0)
+    order, big, tags = tiff.read_ifd(data)
+    assert tags[tiff.STRIP_COUNTS] == (0,) and big == case.startswith("bigtiff")
+    assert order == (">" if case.startswith("mm_") else "<")
+    _same(data)
+
+
+def test_uncompressed_single_strip_counts_that_look_bad_are_estimated():
+    """An uncompressed single strip's count short of its rows or past the
+    end of the file is estimated from its rows (ByteCountLooksBad); a
+    compressed strip's non-zero count is kept, and a strip of a multi-strip
+    file is never repaired: both packages then fail."""
+    data = _one_strip("none")
+    for value in (5, 10 ** 6):
+        _same(_set_strip_count(data, value))
+    short = _set_strip_count(_one_strip("tiff_lzw"), 40)
+    with pytest.raises(Exception):
+        _pil(short)
+    with pytest.raises(ValueError):
+        imagefile.decode_image(short)
+    px = _crop()[..., :3]
+    multi = bytearray(tiff_bytes(px, 2, compression=5, rows_per_strip=16))
+    order, _big, tags = tiff.read_ifd(bytes(multi))
+    where, n = _count_offsets(bytes(multi))
+    struct.pack_into(order + "I", multi, where, 0)
+    with pytest.raises(Exception):
+        _pil(bytes(multi))
+    with pytest.raises(ValueError):
+        imagefile.decode_image(bytes(multi))
+
+
+def _count_offsets(data: bytes) -> tuple:
+    """(file offset of the first StripByteCounts value, the count) of a
+    classic TIFF whose counts are LONGs stored outside the IFD."""
+    order = "<" if data[:2] == b"II" else ">"
+    (at,) = struct.unpack_from(order + "I", data, 4)
+    (n,) = struct.unpack_from(order + "H", data, at)
+    for k in range(n):
+        tag, ftype, count, value = struct.unpack_from(order + "HHII", data, at + 2 + 12 * k)
+        if tag == tiff.STRIP_COUNTS:
+            assert ftype == 4 and count > 1
+            return value, count
+    raise ValueError("no StripByteCounts")

@@ -4,10 +4,12 @@ text/typefaces.py) against figdraw_tpu, which instances faces through
 fontTools 4.61.1's getGlyphSet(location=...), and the committed FigPort
 Sans faces with their stored references.
 
-- The faces: tools/make_port_faces.py regenerates the five committed faces
-  (CFF, glyf and CFF2 variable, the glyf one as WOFF, and with VARC) byte
-  for byte; their names carry neither "Bitstream" nor "Vera"; fonts/
-  README.md gives each file's sha256.
+- The faces: tools/make_port_faces.py regenerates the seven committed faces
+  (CFF, glyf and CFF2 variable, the glyf one as WOFF, and with VARC, the
+  glyf one and the CFF one as WOFF2) byte for byte; their names carry
+  neither "Bitstream" nor "Vera"; fonts/README.md gives each file's sha256.
+  figdraw_tpu reads the WOFF2 faces through tools/brotli_shim.py, installed
+  for each test (`_brotli`).
 - Normalization: fvar clamping, avar 1 (the wdth knee) and avar 2 (a face
   built with axis mappings, including a location that normalizes to
   nothing) equal TTFont.normalizeLocation.
@@ -59,6 +61,7 @@ from torch_reference import (
 torch.set_num_threads(1)
 
 sys.path.insert(0, os.path.join(REPO, "tools"))
+import brotli_shim  # noqa: E402
 import make_port_faces  # noqa: E402
 
 VF_TTF = port_tf.bundled_font_path("FigPortSans-VF.ttf")
@@ -74,6 +77,16 @@ GRID = [
     (("wdth", 90.0), ("slnt", -6.0)), (("wdth", 125.0), ("slnt", -12.0)),
     (("wght", 700.0),),
 ]
+
+
+@pytest.fixture(autouse=True)
+def _brotli(monkeypatch):
+    """fontTools' WOFF2 reader through tools/brotli_shim.py, for this test
+    only."""
+    from fontTools.ttLib import woff2
+
+    monkeypatch.setattr(woff2, "brotli", brotli_shim, raising=False)
+    monkeypatch.setattr(woff2, "haveBrotli", True)
 
 
 def _loc_id(loc):
@@ -387,7 +400,7 @@ def test_typeface_info_equals_figdraw_tpu(face):
     got = port_info.get_typeface_info(port_tf.load_typeface(path))
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert [a.tag for a in got.variation_axes] == (
-        [] if face == "FigPortSans-CFF.otf" else ["wdth", "slnt"])
+        [] if face.startswith("FigPortSans-CFF") else ["wdth", "slnt"])
 
 
 # --- the stored references ------------------------------------------------------------------
@@ -428,8 +441,7 @@ for face, loc in scenes.FONT_TEXT_CASES:
     out[scenes.font_case_key(face, loc)] = [
         scenes.array_digest(plan.combo) == want["combo"],
         scenes.array_digest(ren.atlas.data) == want["atlas"]]
-for name, (face, loc) in (("table", scenes.FONT_TABLE_CASE),
-                          ("varc_table", scenes.FONT_VARC_TABLE_CASE)):
+for face, loc in scenes.FONT_TABLE_CASES:
     tid = load_typeface(bundled_font_path(face))
     tree = scenes.make_text_table_scene(180, 6, 1200.0, 800.0, tid=tid,
         variations=tuple(FontVariation(t, v) for t, v in loc),
@@ -438,22 +450,23 @@ for name, (face, loc) in (("table", scenes.FONT_TABLE_CASE),
     tape = ren.flatten(tree, vec2(1200, 800))
     pack_walked_tape(tape)
     want = refs["table"][scenes.font_case_key(face, loc)]
-    out[name] = [scenes.array_digest(tape.combo, zero_sign=True) == want["combo"],
-                 scenes.array_digest(ren.atlas.data) == want["atlas"]]
+    out["table " + scenes.font_case_key(face, loc)] = [
+        scenes.array_digest(tape.combo, zero_sign=True) == want["combo"],
+        scenes.array_digest(ren.atlas.data) == want["atlas"]]
 print(json.dumps(out))
 """
 
 
 def test_stored_scene_digests_under_the_fixed_hash_seed():
     """The port's bench_text scenes and full-size text tables (the CFF2
-    face's and the VARC face's), built as chip_smoke.py builds them under
-    PYTHONHASHSEED=0, against fonts.json."""
+    face's, the VARC face's and the WOFF2 VF face's), built as
+    chip_smoke.py builds them under PYTHONHASHSEED=0, against fonts.json."""
     env = dict(os.environ, PYTHONHASHSEED="0")
     res = subprocess.run([sys.executable, "-c", _SEEDED_CHECK, REPO], env=env,
                          capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     got = json.loads(res.stdout.strip().splitlines()[-1])
-    assert len(got) == len(scenes.FONT_TEXT_CASES) + 2
+    assert len(got) == len(scenes.FONT_TEXT_CASES) + len(scenes.FONT_TABLE_CASES)
     assert all(all(v) for v in got.values()), got
 
 

@@ -8,7 +8,9 @@ each part of the decoder; the constant tables found whole in the libwebp
 binary PIL links; each C++ stage against its plain twin; the container
 (ICC and EXIF ignored, an animation's first frame on its canvas, alpha by
 PIL's mode rules, padding, unknown chunks); a fuzz of truncations and byte
-flips that returns an image or raises; what is not ported raising
+flips that returns an image or raises, and the corrupt files where the
+port and PIL once parted (tools/webp_fuzz_agreement.py's cases, libwebp's
+checks and leniency copied); what is not ported raising
 NotImplementedError with the ROADMAP title, AVIF among it; load_image of
 the lossy fixture against figdraw_tpu's (image, mips, sidecar) and its
 frames against figdraw_tpu's block means."""
@@ -366,6 +368,66 @@ def test_truncated_or_flipped_streams_return_or_raise(name, kind, cut, flips):
     except (ValueError, NotImplementedError):
         return
     assert got.dtype == np.uint8 and got.ndim == 3 and got.shape[2] == 4
+
+
+# the corrupt files on which tools/webp_fuzz_agreement.py (its default seeds)
+# found the port and PIL parting before libwebp's checks were copied:
+# (seed, index, what libwebp does)
+WEBP_FUZZ_CASES = [
+    (0, 224, "the demuxer checks every ANMF frame: a later one off the canvas"),
+    (0, 1525, "DecodeAlphaData: the last alpha symbols read past the end"),
+    (0, 2111, "DecodeAlphaData: the last alpha symbols read past the end"),
+    (2, 375, "DecodeAlphaData: the last alpha symbols read past the end"),
+    (2, 747, "DecodeAlphaData: the last alpha symbols read past the end"),
+    (2, 1866, "DecodeAlphaData: the last alpha symbols read past the end"),
+    (2, 1867, "the demuxer checks every ANMF frame: a later one off the canvas"),
+    (2, 2177, "StoreFrame takes a frame's size from its bitstream, not its ANMF box"),
+    (2, 2921, "the demuxer checks every ANMF frame: a later one of VP8L version 2"),
+]
+
+
+@pytest.mark.parametrize("case", WEBP_FUZZ_CASES, ids=[f"seed{c[0]}-{c[1]}" for c in WEBP_FUZZ_CASES])
+def test_fuzz_cases_equal_pil(case):
+    """Each case rebuilt from its seed and index: the port (C++ and plain)
+    gives PIL's image byte for byte, or raises where PIL fails."""
+    import webp_fuzz_agreement
+
+    seed, index, _why = case
+    _name, data = webp_fuzz_agreement.case(seed, index)
+    want = webp_fuzz_agreement.pil_result(data)
+    if want is None:
+        for plain in (False, True):
+            with pytest.raises(ValueError):
+                webp.decode_webp(data, plain=plain)
+        with pytest.raises(ValueError):
+            imagefile.decode_image(data)
+    else:
+        _same(data)
+
+
+def test_alpha_stream_read_past_its_end():
+    """An ALPH chunk of colour indices (libwebp's DecodeAlphaData) whose
+    last symbols are read past its end decodes as PIL does; cut by a few
+    more bytes, the C++ and plain alpha decoders agree, on a plane or a
+    failure."""
+    import webp_fuzz_agreement
+
+    _name, data = webp_fuzz_agreement.case(0, 1525)
+    f = webp.read_frame(data)
+    assert f.alph is not None and webp.alpha_header(f.alph)[0] == 1
+    assert webp.features(data)["vp8l"]["transforms"] == {3}  # colour indexing alone
+    _same(data)
+    w, h = f.box[2], f.box[3]
+    for cut in range(1, 12):
+        got = []
+        for plain in (False, True):
+            try:
+                got.append(webp.decode_alpha(f.alph[: len(f.alph) - cut], w, h, plain=plain))
+            except ValueError:
+                got.append(None)
+        assert (got[0] is None) == (got[1] is None), cut
+        if got[0] is not None:
+            np.testing.assert_array_equal(got[0], got[1])
 
 
 # --- what is not ported, and the dispatch ----------------------------------------

@@ -10,9 +10,10 @@ fontTools 4.61.1's TTFont, and against the sfnt the WOFF wraps.
   kern pairs and advances equal figdraw_tpu's, and the sfnt's but the id;
   every glyph's outline at each of `scenes.FONT_LOCATIONS` equals
   figdraw_tpu's as numbers and types, and the sfnt's.
-- A "wOF2" file raises NotImplementedError naming WOFF2 and the ROADMAP
-  item; a table whose compLength exceeds its origLength is refused by both
-  packages.
+- A WOFF 1.0 file under the "wOF2" signature raises ValueError naming
+  WOFF2 (text/woff2.py reads WOFF2 since the Brotli decoder came; its own
+  tests are tests/test_torch_woff2.py) where fontTools fails too; a table
+  whose compLength exceeds its origLength is refused by both packages.
 
 bench_text's combo and atlas from the WOFF face, its typeface_info and its
 instance pack are held to figdraw_tpu's in tests/test_torch_variations.py
@@ -119,12 +120,24 @@ def test_every_glyph_path_equals_figdraw_tpu_and_the_sfnt(faces, loc):
 
 
 def test_woff2_raises_naming_woff2(tmp_path):
+    """A WOFF 1.0 file under the "wOF2" signature: its directory is no
+    WOFF2 directory, and both packages refuse it (the port with ValueError
+    naming WOFF2; fontTools, reading WOFF2 through tools/brotli_shim.py
+    here, with its own error)."""
+    from fontTools.ttLib import woff2 as ft_woff2
+
+    import brotli_shim
+
     path = str(tmp_path / "face.woff2")
     with open(path, "wb") as fh:
         fh.write(b"wOF2" + _read(WOFF)[4:])
-    with pytest.raises(NotImplementedError, match="WOFF2.*Brotli") as err:
+    with pytest.raises(ValueError, match="WOFF2"):
         port_tf.load_typeface(path)
-    assert "Font tables the port's reader raises on" in str(err.value)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ft_woff2, "brotli", brotli_shim, raising=False)
+        mp.setattr(ft_woff2, "haveBrotli", True)
+        with pytest.raises(Exception):
+            TTFont(path)["glyf"]
 
 
 def test_a_table_larger_compressed_than_stored_is_refused(tmp_path):

@@ -55,19 +55,22 @@ long tapes on the rolled executor):
   use_pallas=False).
 
 - `fonts.json` and `font_<case>_blocks8.npy`, for the FigPort Sans faces
-  (figdraw_tpu_torch/fonts, written by tools/make_port_faces.py): each
+  (figdraw_tpu_torch/fonts, written by tools/make_port_faces.py) and
+  DejaVuSans.woff2 (`scenes.FONT_OUTLINE_FACES`; figdraw_tpu opens the
+  WOFF2 faces through tools/brotli_shim.py): each
   face's sha256 and, at each of `scenes.FONT_LOCATIONS`, the digests of
   its every glyph's outline and advance as figdraw_tpu gives them
   (`scenes.outline_digests` over figdraw_tpu's typeface, on fontTools);
   bench_text's scene from each of `scenes.FONT_TEXT_CASES` (1200x800, 36
   lines, FigRenderer(atlas_size=512, use_pallas=False)): its plan's combo
   and atlas digests and its frame's 8x8 block means; the text table
-  (180x6 at 1200x800) of `scenes.FONT_TABLE_CASE` and of
-  `scenes.FONT_VARC_TABLE_CASE`: its plan's combo (zero signs folded) and
+  (180x6 at 1200x800) of each of `scenes.FONT_TABLE_CASES`: its plan's
+  combo (zero signs folded) and
   atlas digests and block means (each face's lines from
   `scenes.font_text`); the sha256 of
   figdraw_tpu's instance packs (`build_font_pack`) of
-  `scenes.FONT_PACK_CASES`.
+  `scenes.FONT_PACK_CASES`; each of `scenes.WOFF2_FACES`' Brotli stream
+  as fontTools decodes it (its size and sha256).
 
 Rewrite them all (needs jax, fontTools, PIL and the DejaVu font), only the
 example scenes' (needs jax), only the frame loop's two (needs jax), only
@@ -556,12 +559,12 @@ def font_references() -> dict:
     from figdraw_tpu.text import native_pack as jax_pack
     from figdraw_tpu.text.typefaces import get_typeface, load_typeface
     from figdraw_tpu_torch.scenes import (
-        FONT_FACES, FONT_LOCATIONS, FONT_PACK_CASES, FONT_TABLE_CASE, FONT_TEXT_CASES,
-        FONT_VARC_TABLE_CASE, array_digest, font_case_key, font_text, outline_digests,
+        FONT_LOCATIONS, FONT_OUTLINE_FACES, FONT_PACK_CASES, FONT_TABLE_CASES,
+        FONT_TEXT_CASES, array_digest, font_case_key, font_text, outline_digests,
     )
 
     out = {"faces": {}, "text": {}, "table": {}, "packs": {}}
-    for face in FONT_FACES:
+    for face in FONT_OUTLINE_FACES:
         path = font_path(face)
         with open(path, "rb") as fh:
             entry = {"sha256": hashlib.sha256(fh.read()).hexdigest(), "outlines": {}}
@@ -576,7 +579,7 @@ def font_references() -> dict:
         out["text"][font_case_key(face, loc)] = {
             "combo": array_digest(combo), "combo_shape": list(combo.shape),
             "atlas": array_digest(atlas)}
-    for face, loc in (FONT_TABLE_CASE, FONT_VARC_TABLE_CASE):
+    for face, loc in FONT_TABLE_CASES:
         combo, atlas, _ = jax_font_table_plan(font_path(face), loc, text=font_text(face)[1])
         out["table"][font_case_key(face, loc)] = {
             "combo": array_digest(combo, zero_sign=True), "combo_shape": list(combo.shape),
@@ -585,32 +588,58 @@ def font_references() -> dict:
         tid = load_typeface(font_path(face))
         out["packs"][font_case_key(face, loc)] = hashlib.sha256(
             jax_pack.build_font_pack(tid, jax_variations(loc))).hexdigest()
+    out["woff2"] = woff2_stream_references()
+    return out
+
+
+def woff2_stream_references() -> dict:
+    """Each WOFF2 face's Brotli stream as fontTools' WOFF2Reader decodes it
+    (through the installed brotli module: libbrotlidec, by
+    tools/brotli_shim.py): {face: {"bytes", "sha256"}}."""
+    import hashlib
+    import io
+
+    from fontTools.ttLib.woff2 import WOFF2Reader
+
+    from figdraw_tpu_torch.scenes import WOFF2_FACES
+
+    out = {}
+    for face in WOFF2_FACES:
+        with open(font_path(face), "rb") as fh:
+            stream = WOFF2Reader(io.BytesIO(fh.read())).transformBuffer.getvalue()
+        out[face] = {"bytes": len(stream), "sha256": hashlib.sha256(stream).hexdigest()}
     return out
 
 
 def write_font_references() -> None:
+    """fonts.json and the font block means; figdraw_tpu opens the WOFF2
+    faces through tools/brotli_shim.py."""
     from figdraw_tpu_torch.scenes import (
-        FONT_TABLE_CASE, FONT_TEXT_CASES, FONT_VARC_TABLE_CASE, FONTS_REFERENCE,
-        font_blocks_path, font_case_key, font_text,
+        FONT_TABLE_CASES, FONT_TEXT_CASES, FONTS_REFERENCE, font_blocks_path, font_case_key,
+        font_text,
     )
 
-    refs = font_references()
-    with open(FONTS_REFERENCE, "w") as fh:
-        json.dump(refs, fh, indent=1, sort_keys=True)
-        fh.write("\n")
-    print(f"wrote {FONTS_REFERENCE}")
-    for face, loc in FONT_TEXT_CASES:
-        _combo, _atlas, frame = jax_font_text_plan(font_path(face), loc, render=True,
-                                                   text=font_text(face)[0])
-        path = font_blocks_path(font_case_key(face, loc))
-        np.save(path, block_means(frame).astype(np.float32))
-        print(f"wrote {path}")
-    for face, loc in (FONT_TABLE_CASE, FONT_VARC_TABLE_CASE):
-        _combo, _atlas, frame = jax_font_table_plan(font_path(face), loc, render=True,
-                                                    text=font_text(face)[1])
-        path = font_blocks_path(font_case_key(face, loc))
-        np.save(path, block_means(frame).astype(np.float32))
-        print(f"wrote {path}")
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import brotli_shim
+
+    with brotli_shim.installed():
+        refs = font_references()
+        with open(FONTS_REFERENCE, "w") as fh:
+            json.dump(refs, fh, indent=1, sort_keys=True)
+            fh.write("\n")
+        print(f"wrote {FONTS_REFERENCE}")
+        for face, loc in FONT_TEXT_CASES:
+            _combo, _atlas, frame = jax_font_text_plan(font_path(face), loc, render=True,
+                                                       text=font_text(face)[0])
+            path = font_blocks_path(font_case_key(face, loc))
+            np.save(path, block_means(frame).astype(np.float32))
+            print(f"wrote {path}")
+        for face, loc in FONT_TABLE_CASES:
+            _combo, _atlas, frame = jax_font_table_plan(font_path(face), loc, render=True,
+                                                        text=font_text(face)[1])
+            path = font_blocks_path(font_case_key(face, loc))
+            np.save(path, block_means(frame).astype(np.float32))
+            print(f"wrote {path}")
 
 
 def jax_text_cells_scene():

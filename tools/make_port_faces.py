@@ -34,6 +34,12 @@ regenerates the faces and compares them).
    VARC drawing (varc_face). Together they use every VarComponentFlags bit
    but GID_IS_24BIT and every condition format; check_varc_face reads the
    table back with fontTools and checks that.
+7. FigPortSans-VF.woff2: FigPortSans-VF.ttf as WOFF 2.0 through fontTools'
+   WOFF2Writer with its glyf, loca and hmtx tables transformed, and
+   FigPortSans-CFF.woff2: FigPortSans-CFF.otf as WOFF 2.0, no table
+   transformed. The host has no brotli module, so tools/brotli_shim.py
+   stands in for it: its compress writes uncompressed meta-blocks, which
+   keeps the files deterministic and every Brotli decoder reads them.
 """
 
 from __future__ import annotations
@@ -48,7 +54,8 @@ FONTS = os.path.join(REPO, "figdraw_tpu_torch", "fonts")
 SOURCE = os.path.join(FONTS, "DejaVuSans.ttf")
 FAMILY = "FigPort Sans"
 FACES = ("FigPortSans-CFF.otf", "FigPortSans-VF.ttf", "FigPortSans-VF.otf",
-         "FigPortSans-VF.woff", "FigPortSans-VARC.ttf")
+         "FigPortSans-VF.woff", "FigPortSans-VARC.ttf", "FigPortSans-VF.woff2",
+         "FigPortSans-CFF.woff2")
 UNICODES = list(range(0x20, 0x7F)) + list(range(0xA0, 0x180))
 TIMESTAMP = 0x00000000E0000000  # head.created and head.modified (2023-02-22)
 SLANT = math.tan(math.radians(12.0))
@@ -246,6 +253,27 @@ def woff(sfnt: bytes) -> bytes:
     font = _load(sfnt)
     font.flavor = "woff"
     return _bytes(font)
+
+
+def woff2(sfnt: bytes, transformed=("glyf", "loca", "hmtx")) -> bytes:
+    """A face's bytes as WOFF 2.0 (fontTools' WOFF2Writer, the tables named
+    transformed, through tools/brotli_shim.py); raises if fontTools leaves
+    one of them untransformed."""
+    from fontTools.ttLib import woff2 as ft_woff2
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import brotli_shim
+
+    font = _load(sfnt)
+    font.flavor = "woff2"
+    with brotli_shim.installed():
+        font.flavorData = ft_woff2.WOFF2FlavorData(transformedTables=transformed)
+        data = _bytes(font)
+        reader = ft_woff2.WOFF2Reader(io.BytesIO(data))
+    done = sorted(str(tag) for tag, entry in reader.tables.items() if entry.transformed)
+    if done != sorted(t for t in transformed if t in reader.tables):
+        raise ValueError(f"fontTools transformed {done}, not {sorted(transformed)}")
+    return data
 
 
 # axis indices (fvar order) of the VARC components' axes
@@ -486,16 +514,19 @@ def check_varc_face(data: bytes) -> dict:
 
 
 def faces(path: str = SOURCE) -> dict:
-    """{file name: bytes} of the five faces."""
+    """{file name: bytes} of the seven faces."""
     base = subset_source(path)
     vf = variable(base, cff=False)
     vf_bytes = _bytes(vf)
+    cff_bytes = _bytes(to_cff(base))
     return {
-        "FigPortSans-CFF.otf": _bytes(to_cff(base)),
+        "FigPortSans-CFF.otf": cff_bytes,
         "FigPortSans-VF.ttf": vf_bytes,
         "FigPortSans-VF.otf": _bytes(variable(base, cff=True)),
         "FigPortSans-VF.woff": woff(vf_bytes),
         "FigPortSans-VARC.ttf": _bytes(varc_face(_load(vf_bytes))),
+        "FigPortSans-VF.woff2": woff2(vf_bytes),
+        "FigPortSans-CFF.woff2": woff2(cff_bytes, transformed=()),
     }
 
 
