@@ -3356,7 +3356,9 @@ def image_formats_check(tag: str) -> dict:
     host ms; the helper's stages against their plain twins: each JPEG's
     IDCT, upsampling and colour conversion on its whole frame, the entropy
     decoding on the 64x48 progressive crop with restarts (its whole plain
-    decode), GIF's LZW and QOI's ops on the first CROP_PIXELS pixels,
+    decode), the arithmetic (fd_jpeg_arith_scan) and lossless
+    (fd_jpeg_lossless_scan) scans on each such file of at most 64x48 (every
+    component, then its whole plain decode), GIF's LZW and QOI's ops on the first CROP_PIXELS pixels,
     each TIFF's PackBits, LZW, CCITT fax (fd_tiff_fax, with the state it
     carries between strips) or Zstandard (fd_zstd_decompress) and
     predictor on every strip or tile (and its whole plain decode), and
@@ -3395,17 +3397,38 @@ def image_formats_check(tag: str) -> dict:
         held = []
         if name.endswith(".jpg"):
             frame = jpeg.read_frame(data)
+            lossless = frame.kind == jpeg.LOSSLESS
             planes = []
             for c in frame.components:
-                samples = jpeg.idct(c.coefs, c.qt)
-                if not np.array_equal(samples, jpeg.idct_plain(c.coefs, c.qt)):
-                    fail(f"image formats: {name}: fd_jpeg_idct_islow differs from idct_plain")
-                args = (samples, c.cw, c.ch, frame.width, frame.height,
-                        *jpeg.upsample_method(c, frame.hmax, frame.vmax))
+                if lossless:  # no IDCT; replication upsampling (jpeg._full_planes)
+                    samples = c.samples
+                    method, hx, vy = jpeg.upsample_method(c, frame.hmax, frame.vmax)
+                    args = (samples, c.cw, c.ch, frame.width, frame.height, jpeg.BOX, hx, vy)
+                else:
+                    samples = jpeg.idct(c.coefs, c.qt)
+                    if not np.array_equal(samples, jpeg.idct_plain(c.coefs, c.qt)):
+                        fail(f"image formats: {name}: fd_jpeg_idct_islow differs from "
+                             "idct_plain")
+                    args = (samples, c.cw, c.ch, frame.width, frame.height,
+                            *jpeg.upsample_method(c, frame.hmax, frame.vmax))
                 planes.append(jpeg.upsample(*args))
                 if not np.array_equal(planes[-1], jpeg.upsample_plain(*args)):
                     fail(f"image formats: {name}: fd_jpeg_upsample differs from its plain twin")
-            held += ["idct", "upsample"]
+            held += ["upsample"] if lossless else ["idct", "upsample"]
+            if (frame.arith or lossless) and frame.width * frame.height <= 64 * 48:
+                # fd_jpeg_arith_scan or fd_jpeg_lossless_scan against its plain
+                # twin: every component's coefficients or samples, then the
+                # whole plain decode
+                plain = jpeg.read_frame(data, plain=True)
+                for a, b in zip(frame.components, plain.components):
+                    if not np.array_equal(a.samples if lossless else a.coefs,
+                                          b.samples if lossless else b.coefs):
+                        fail(f"image formats: {name}: fd_jpeg_"
+                             f"{'lossless' if lossless else 'arith'}_scan differs from its "
+                             "plain twin")
+                if not np.array_equal(jpeg.decode_jpeg(data, plain=True), px):
+                    fail(f"image formats: {name}: the plain decode differs from the helper's")
+                held += ["lossless scan" if lossless else "arith scan", "plain decode"]
             if jpeg.color_space(frame) in ("YCbCr", "YCCK"):
                 kind = jpeg.YCC_RGB if jpeg.color_space(frame) == "YCbCr" else jpeg.YCC_INVERTED
                 if not np.array_equal(jpeg.color(*planes[:3], kind),
@@ -3452,8 +3475,8 @@ def image_formats_check(tag: str) -> dict:
                 held.append("plain decode")
         if held:
             stages[name] = held
-    print(f"check 13: the {len(stored)} stored image files (JPEG, GIF, BMP, ICO, QOI, TIFF with "
-          f"CCITT fax and ZSTD, WebP) "
+    print(f"check 13: the {len(stored)} stored image files (JPEG with Huffman, arithmetic and "
+          f"lossless coding, GIF, BMP, ICO, QOI, TIFF with CCITT fax and ZSTD, WebP) "
           f"decode to PIL's stored sha256 through the C++ helper; stages held to their "
           f"plain twins: {json.dumps(stages)}", flush=True)
     print(f"times: image decodes (the helpers' g++ builds {build_ms:.1f} ms first), host ms "
@@ -3482,7 +3505,9 @@ def image_files_phase(tag: str, dev) -> dict:
     scenes' tapes also through the megakernel with the atlas, a check
     beside the main path). The same from the stored baseline JPEG, the
     stored LZW + Predictor 2 TIFF, the stored lossy WebP (q 90) and the
-    stored ZSTD + Predictor 2 TIFF of the fixture (image_formats_check
+    stored ZSTD + Predictor 2 TIFF of the fixture, the stored progressive
+    arithmetic-coded JPEG (SOF10) of the fixture and the lossless JPEG
+    (SOF3) of a 224x168 crop (equal to the PNG's pixels), image_formats_check
     first: every stored format against PIL's digests): load_image cold and
     warm against figdraw_tpu's sidecar digest, the image-file scene on
     K1-atlas and the photo wall on K4-atlas, each within FILE_TOL of
@@ -3508,7 +3533,8 @@ def image_files_phase(tag: str, dev) -> dict:
     from figdraw_tpu_torch.ops import mega, raster
     from figdraw_tpu_torch.plan import pack_mega_combo, plan_execution
     from figdraw_tpu_torch.scenes import (
-        EXAMPLE_FORMS, EXAMPLE_IMAGES, EXAMPLE_SCENES, FAX_ATLAS, FAX_PAGE, G3_FILE_REFERENCE,
+        ARITH_FILE_REFERENCE, ARITH_FIXTURE, EXAMPLE_FORMS, EXAMPLE_IMAGES, EXAMPLE_SCENES,
+        FAX_ATLAS, FAX_PAGE, G3_FILE_REFERENCE, LOSSLESS_FIXTURE, LOSSLESS_WALL_REFERENCE,
         G3_FIXTURE, G4_WALL_REFERENCE, IMAGE_FILE_SIZE, IMAGE_FIXTURE,
         IMAGE_FIXTURE_REFERENCE, IMAGE_FORMATS_REFERENCE, JPEG_FILE_REFERENCE, JPEG_FIXTURE,
         JPEG_WALL_REFERENCE, PHOTO_WALL_PANELS, PHOTO_WALL_REFERENCE, PHOTO_WALL_SIZE,
@@ -3639,6 +3665,13 @@ def image_files_phase(tag: str, dev) -> dict:
         print("check 13: the fixture's ZSTD TIFFs (Predictor 2 strips, tiles) decode to the "
               "PNG's pixels (sha256)", flush=True)
         gpath, gcold_ms, gwarm_ms, _gimage = cold_warm(FAX_PAGE, "Group 4 fax page (1728x1143)")
+        apath, acold_ms, awarm_ms, _aimage = cold_warm(ARITH_FIXTURE,
+                                                       "progressive arithmetic JPEG (SOF10)")
+        lpath, lcold_ms, lwarm_ms, limage = cold_warm(LOSSLESS_FIXTURE,
+                                                      "lossless JPEG crop (SOF3, 224x168)")
+        if not np.array_equal(np.asarray(limage)[..., :3], pixels[216:384, 288:512, :3]):
+            fail("image files: the lossless JPEG crop decodes to other pixels than the PNG's")
+        print("check 13: the lossless JPEG crop decodes to the PNG's pixels", flush=True)
         g3path = os.path.join(td, os.path.basename(G3_FIXTURE))
         shutil.copyfile(G3_FIXTURE, g3path)
 
@@ -3743,7 +3776,8 @@ def image_files_phase(tag: str, dev) -> dict:
                        "tiff": file_scene(tpath, "tiff", TIFF_FILE_REFERENCE),
                        "webp": file_scene(wpath, "webp", WEBP_FILE_REFERENCE),
                        "zstd": file_scene(zpath, "zstd", ZSTD_FILE_REFERENCE),
-                       "g3": file_scene(g3path, "g3", G3_FILE_REFERENCE)}
+                       "g3": file_scene(g3path, "g3", G3_FILE_REFERENCE),
+                       "arith": file_scene(apath, "arith", ARITH_FILE_REFERENCE)}
 
         # --- the 1080p photo wall of each loaded image ---
         def photo_wall(src, small_ref, what, tol=TOL, atlas=256):
@@ -3794,7 +3828,9 @@ def image_files_phase(tag: str, dev) -> dict:
                  "webp": photo_wall(wpath, WEBP_WALL_REFERENCE, "photo wall webp", FILE_TOL),
                  "zstd": photo_wall(zpath, ZSTD_WALL_REFERENCE, "photo wall zstd", FILE_TOL),
                  "g4": photo_wall(gpath, G4_WALL_REFERENCE, "photo wall g4", FILE_TOL,
-                                  FAX_ATLAS)}
+                                  FAX_ATLAS),
+                 "lossless": photo_wall(lpath, LOSSLESS_WALL_REFERENCE, "photo wall lossless",
+                                        FILE_TOL)}
         for ref in refs:
             ref.close()
     med = statistics.median
@@ -3824,7 +3860,9 @@ def image_files_phase(tag: str, dev) -> dict:
           f"{tcold_ms:.3f} ms, warm {twarm_ms:.3f} ms; the lossy WebP's load_image cold "
           f"{wcold_ms:.3f} ms, warm {wwarm_ms:.3f} ms; the ZSTD + Predictor 2 TIFF's "
           f"load_image cold {zcold_ms:.3f} ms, warm {zwarm_ms:.3f} ms; the Group 4 fax page's "
-          f"(1728x1143) load_image cold {gcold_ms:.3f} ms, warm {gwarm_ms:.3f} ms {tag}",
+          f"(1728x1143) load_image cold {gcold_ms:.3f} ms, warm {gwarm_ms:.3f} ms; the SOF10 "
+          f"JPEG's load_image cold {acold_ms:.3f} ms, warm {awarm_ms:.3f} ms; the SOF3 crop's "
+          f"(224x168) load_image cold {lcold_ms:.3f} ms, warm {lwarm_ms:.3f} ms {tag}",
           flush=True)
     for src, (f_ms, f_host, f_dev) in file_frames.items():
         print(f"times: image_file scene from the {src.upper()}, 800x600 on K1-atlas: median "

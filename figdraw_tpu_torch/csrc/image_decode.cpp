@@ -9,6 +9,14 @@
 //                       four progressive kinds (DC first/refine, AC
 //                       first/refine, EOB runs, successive approximation),
 //                       restart intervals (jdhuff.c, jdphuff.c);
+//   fd_jpeg_arith_scan  arithmetic decoding of one scan into the
+//                       coefficient blocks: sequential and the four
+//                       progressive kinds, the DAC conditioning, restarts
+//                       resynchronised as libjpeg does (jdarith.c with the
+//                       Qe table of jaricom.c);
+//   fd_jpeg_lossless_scan  one lossless scan into the components' samples:
+//                       Huffman-coded differences, predictors 1-7, the
+//                       point transform (jdlhuff.c, jddiffct.c, jdlossls.c);
 //   fd_jpeg_idct_islow  dequantisation and the slow-but-accurate integer
 //                       IDCT in the 16-bit lanes of its x86-64 SIMD form
 //                       (jidctint.c, jidctint-avx2.asm);
@@ -30,12 +38,15 @@
 //                       tif_fax3.h, with the code tables of fax_tables.h).
 //
 // Every function returns 0 (or a position) on success and a negative code
-// on malformed input; nothing is allocated here.
+// on malformed input; only the lossless scan allocates (its rows of
+// differences).
 
 #include <cstdint>
 #include <cstring>
 #include <mutex>
 #include <utility>
+#include <vector>
+#include <algorithm>
 
 #include "fax_tables.h"
 
@@ -345,6 +356,576 @@ int64_t fd_jpeg_scan(const uint8_t* data, int64_t len, int64_t pos, int ncomp,
         }
         return q;
     }
+}
+
+// ----------------------------------------------- JPEG: libjpeg's data source
+// The arithmetic and lossless decoders read bytes as libjpeg's jdmarker.c
+// hands them: `unread` is the marker a decoder ran into (0 for none);
+// reading past the end sets `eof` (PIL reports such a file as truncated).
+
+struct Src {
+    const uint8_t* data;
+    int64_t len, pos;
+    int unread;
+    bool eof;
+};
+
+static inline int src_byte(Src* s) {
+    if (s->pos >= s->len) {
+        s->eof = true;
+        return 0;
+    }
+    return s->data[s->pos++];
+}
+
+// next_marker: skip to an 0xFF, swallow 0xFF fill, skip FF 00 pairs
+static bool next_marker(Src* s) {
+    for (;;) {
+        int c = src_byte(s);
+        while (c != 0xFF && !s->eof) c = src_byte(s);
+        do c = src_byte(s);
+        while (c == 0xFF && !s->eof);
+        if (s->eof) return false;
+        if (c != 0) {
+            s->unread = c;
+            return true;
+        }
+    }
+}
+
+// read_restart_marker with jpeg_resync_to_restart; false at the end of data
+static bool read_restart(Src* s, int expect) {
+    if (s->unread == 0 && !next_marker(s)) return false;
+    if (s->unread == 0xD0 + expect) {
+        s->unread = 0;
+        return true;
+    }
+    int marker = s->unread;
+    for (;;) {
+        int action;
+        if (marker < 0xC0) {
+            action = 2;
+        } else if (marker < 0xD0 || marker > 0xD7) {
+            action = 3;
+        } else if (marker == 0xD0 + ((expect + 1) & 7) || marker == 0xD0 + ((expect + 2) & 7)) {
+            action = 3;
+        } else if (marker == 0xD0 + ((expect - 1) & 7) || marker == 0xD0 + ((expect - 2) & 7)) {
+            action = 2;
+        } else {
+            action = 1;
+        }
+        if (action == 1) {
+            s->unread = 0;
+            return true;
+        }
+        if (action == 3) return true;
+        if (!next_marker(s)) return false;
+        marker = s->unread;
+    }
+}
+
+// the position of the marker that ends a scan (its last 0xFF), or the end
+// of the data when none follows (the caller decides whether a file may end
+// there); -6 when the scan itself ran past the end
+static int64_t scan_end(Src* s) {
+    if (s->eof) return -6;
+    if (s->unread == 0 && !next_marker(s)) return s->len;
+    return s->pos - 2;
+}
+
+// ------------------------------------------ JPEG: arithmetic decoding (F, D)
+// jaricom.c's jpeg_aritab: (Qe << 16) | (Next_Index_MPS << 8) |
+// (Switch_MPS << 7) | Next_Index_LPS; state 113 is the fixed bin's.
+static const int32_t kQe[114] = {
+    0x5A1D0181, 0x2586020E, 0x11140310, 0x080B0412, 0x03D80514, 0x01DA0617, 0x00E50719,
+    0x006F081C, 0x0036091E, 0x001A0A21, 0x000D0B23, 0x00060C09, 0x00030D0A, 0x00010D0C,
+    0x5A7F0F8F, 0x3F251024, 0x2CF21126, 0x207C1227, 0x17B91328, 0x1182142A, 0x0CEF152B,
+    0x09A1162D, 0x072F172E, 0x055C1830, 0x04061931, 0x03031A33, 0x02401B34, 0x01B11C36,
+    0x01441D38, 0x00F51E39, 0x00B71F3B, 0x008A203C, 0x0068213E, 0x004E223F, 0x003B2320,
+    0x002C0921, 0x5AE125A5, 0x484C2640, 0x3A0D2741, 0x2EF12843, 0x261F2944, 0x1F332A45,
+    0x19A82B46, 0x15182C48, 0x11772D49, 0x0E742E4A, 0x0BFB2F4B, 0x09F8304D, 0x0861314E,
+    0x0706324F, 0x05CD3330, 0x04DE3432, 0x040F3532, 0x03633633, 0x02D43734, 0x025C3835,
+    0x01F83936, 0x01A43A37, 0x01603B38, 0x01253C39, 0x00F63D3A, 0x00CB3E3B, 0x00AB3F3D,
+    0x008F203D, 0x5B1241C1, 0x4D044250, 0x412C4351, 0x37D84452, 0x2FE84553, 0x293C4654,
+    0x23794756, 0x1EDF4857, 0x1AA94957, 0x174E4A48, 0x14244B48, 0x119C4C4A, 0x0F6B4D4A,
+    0x0D514E4B, 0x0BB64F4D, 0x0A40304D, 0x583251D0, 0x4D1C5258, 0x438E5359, 0x3BDD545A,
+    0x34EE555B, 0x2EAE565C, 0x299A575D, 0x25164756, 0x557059D8, 0x4CA95A5F, 0x44D95B60,
+    0x3E225C61, 0x38245D63, 0x32B45E63, 0x2E17565D, 0x56A860DF, 0x4F466165, 0x47E56266,
+    0x41CF6367, 0x3C3D6468, 0x375E5D63, 0x52316669, 0x4C0F676A, 0x4639686B, 0x415E6367,
+    0x56276AE9, 0x50E76B6C, 0x4B85676D, 0x55976D6E, 0x504F6B6F, 0x5A106FEE, 0x55226D70,
+    0x59EB6FF0, 0x5A1D7171};
+
+struct Arith {
+    Src* src;
+    int64_t c, a;
+    int ct;  // -16: fetch two bytes first; 0..7 running; -1 after a bad code
+};
+
+// jdarith.c arith_decode: renormalisation and byte input (D.2.6), then the
+// decision and the estimation of bin *st (D.2.4, D.2.5)
+static inline int arith_decode(Arith* e, uint8_t* st) {
+    while (e->a < 0x8000) {
+        if (--e->ct < 0) {
+            int data = 0;
+            Src* s = e->src;
+            if (!s->unread) {
+                data = src_byte(s);
+                if (data == 0xFF) {
+                    do data = src_byte(s);
+                    while (data == 0xFF && !s->eof);
+                    if (data == 0) {
+                        data = 0xFF;
+                    } else {
+                        s->unread = data;
+                        data = 0;
+                    }
+                }
+            }
+            e->c = (e->c << 8) | data;
+            if ((e->ct += 8) < 0)
+                if (++e->ct == 0) e->a = 0x8000;
+        }
+        e->a <<= 1;
+    }
+    int sv = *st;
+    int32_t qe = kQe[sv & 0x7F];
+    const int nl = qe & 0xFF;
+    qe >>= 8;
+    const int nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = e->a - qe;
+    e->a = temp;
+    temp <<= e->ct;
+    if (e->c >= temp) {
+        e->c -= temp;
+        if (e->a < qe) {
+            e->a = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        } else {
+            e->a = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        }
+    } else if (e->a < 0x8000) {
+        if (e->a < qe) {
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        } else {
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        }
+    }
+    return sv >> 7;
+}
+
+struct ArithScan {
+    Arith e;
+    uint8_t dc_stats[16][64], ac_stats[16][256], fixed_bin[1];
+    int last_dc[4], dc_context[4], dc_tbl[4], ac_tbl[4];
+    const uint8_t* cond;  // DC L[16], DC U[16], AC Kx[16]
+    int ncomp, ss, se, ah, al;
+    bool progressive;
+};
+
+// start_pass and process_restart: statistics zeroed for the scan's tables,
+// predictions and contexts 0, the coder reset
+static void arith_start(ArithScan* s) {
+    for (int ci = 0; ci < s->ncomp; ++ci) {
+        if (!s->progressive || (s->ss == 0 && s->ah == 0)) {
+            std::memset(s->dc_stats[s->dc_tbl[ci]], 0, 64);
+            s->last_dc[ci] = 0;
+            s->dc_context[ci] = 0;
+        }
+        if (!s->progressive || s->ss) std::memset(s->ac_stats[s->ac_tbl[ci]], 0, 256);
+    }
+    s->e.c = 0;
+    s->e.a = 0;
+    s->e.ct = -16;
+}
+
+// Decode_DC_DIFF (F.19, F.21-F.24) into last_dc[ci]; false after a bad code
+static bool arith_dc(ArithScan* s, int ci) {
+    const int tbl = s->dc_tbl[ci];
+    uint8_t* st = s->dc_stats[tbl] + s->dc_context[ci];
+    if (arith_decode(&s->e, st) == 0) {
+        s->dc_context[ci] = 0;
+        return true;
+    }
+    const int sign = arith_decode(&s->e, st + 1);
+    st += 2 + sign;
+    int m = arith_decode(&s->e, st);
+    if (m != 0) {
+        st = s->dc_stats[tbl] + 20;
+        while (arith_decode(&s->e, st)) {
+            if ((m <<= 1) == 0x8000) return false;
+            st += 1;
+        }
+    }
+    if (m < (int)((1L << s->cond[tbl]) >> 1))
+        s->dc_context[ci] = 0;
+    else if (m > (int)((1L << s->cond[16 + tbl]) >> 1))
+        s->dc_context[ci] = 12 + sign * 4;
+    else
+        s->dc_context[ci] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+        if (arith_decode(&s->e, st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    s->last_dc[ci] = (s->last_dc[ci] + v) & 0xFFFF;
+    return true;
+}
+
+// Decode_AC_coefficients (F.20-F.24) lo..hi into blk, scaled by al
+static bool arith_ac(ArithScan* s, int ci, int16_t* blk, int lo, int hi, int al) {
+    const int tbl = s->ac_tbl[ci];
+    for (int k = lo; k <= hi; k++) {
+        uint8_t* st = s->ac_stats[tbl] + 3 * (k - 1);
+        if (arith_decode(&s->e, st)) break;  // EOB
+        while (arith_decode(&s->e, st + 1) == 0) {
+            st += 3;
+            if (++k > hi) return false;
+        }
+        const int sign = arith_decode(&s->e, s->fixed_bin);
+        st += 2;
+        int m = arith_decode(&s->e, st);
+        if (m != 0) {
+            if (arith_decode(&s->e, st)) {
+                m <<= 1;
+                st = s->ac_stats[tbl] + (k <= s->cond[32 + tbl] ? 189 : 217);
+                while (arith_decode(&s->e, st)) {
+                    if ((m <<= 1) == 0x8000) return false;
+                    st += 1;
+                }
+            }
+        }
+        int v = m;
+        st += 14;
+        while (m >>= 1)
+            if (arith_decode(&s->e, st)) v |= m;
+        v += 1;
+        if (sign) v = -v;
+        blk[kNatural[k]] = (int16_t)((unsigned)v << al);
+    }
+    return true;
+}
+
+// decode_mcu_AC_refine on one block
+static bool arith_ac_refine(ArithScan* s, int ci, int16_t* blk) {
+    const int tbl = s->ac_tbl[ci];
+    const int p1 = 1 << s->al, m1 = -1 * (1 << s->al);
+    int kex;
+    for (kex = s->se; kex > 0; kex--)
+        if (blk[kNatural[kex]]) break;
+    for (int k = s->ss; k <= s->se; k++) {
+        uint8_t* st = s->ac_stats[tbl] + 3 * (k - 1);
+        if (k > kex)
+            if (arith_decode(&s->e, st)) break;  // EOB
+        for (;;) {
+            int16_t* t = blk + kNatural[k];
+            if (*t) {
+                if (arith_decode(&s->e, st + 2)) *t = (int16_t)(*t + (*t < 0 ? m1 : p1));
+                break;
+            }
+            if (arith_decode(&s->e, st + 1)) {
+                *t = (int16_t)(arith_decode(&s->e, s->fixed_bin) ? m1 : p1);
+                break;
+            }
+            st += 3;
+            if (++k > s->se) return false;
+        }
+    }
+    return true;
+}
+
+// one block of the scan's kind; false after a bad code
+static bool arith_block(ArithScan* s, int ci, int16_t* blk) {
+    if (!s->progressive) {
+        if (!arith_dc(s, ci)) return false;
+        blk[0] = (int16_t)s->last_dc[ci];
+        return arith_ac(s, ci, blk, 1, 63, 0);
+    }
+    if (s->ss == 0) {
+        if (s->ah) {
+            if (arith_decode(&s->e, s->fixed_bin)) blk[0] = (int16_t)(blk[0] | (1 << s->al));
+            return true;
+        }
+        if (!arith_dc(s, ci)) return false;
+        blk[0] = (int16_t)((unsigned)s->last_dc[ci] << s->al);
+        return true;
+    }
+    if (s->ah) return arith_ac_refine(s, ci, blk);
+    return arith_ac(s, ci, blk, s->ss, s->se, s->al);
+}
+
+// One arithmetic-coded scan (jdarith.c decode_mcu, decode_mcu_DC_first,
+// _AC_first, _DC_refine, _AC_refine, process_restart). comps: ncomp rows
+// of 7 int32: H, V, blocks_w, blocks across and down (non-interleaved), DC
+// table, AC table. cond: the DAC values, DC L[16], DC U[16], AC Kx[16].
+// coefs, mcus_x, mcus_y, the restart interval, ss, se, ah, al and kind as
+// fd_jpeg_scan. After a bad code (a category or spectral overflow) the
+// rest of the restart interval decodes nothing, as libjpeg's ct = -1.
+// Returns the position of the marker that ends the scan, or -6 when the
+// data ends first.
+int64_t fd_jpeg_arith_scan(const uint8_t* data, int64_t len, int64_t pos, int ncomp,
+                           const int32_t* comps, const uint8_t* cond, int16_t* const* coefs,
+                           int mcus_x, int mcus_y, int restart_interval, int ss, int se,
+                           int ah, int al, int kind) {
+    if (ncomp < 1 || ncomp > 4) return -2;
+    Src src{data, len, pos, 0, false};
+    ArithScan s;
+    s.e.src = &src;
+    s.fixed_bin[0] = 113;
+    s.cond = cond;
+    s.ncomp = ncomp;
+    s.ss = ss;
+    s.se = se;
+    s.ah = ah;
+    s.al = al;
+    s.progressive = kind == 1;
+    for (int ci = 0; ci < ncomp; ++ci) {
+        s.dc_tbl[ci] = comps[ci * 7 + 5] & 15;
+        s.ac_tbl[ci] = comps[ci * 7 + 6] & 15;
+    }
+    arith_start(&s);
+    int64_t total;
+    int per_row;
+    if (ncomp == 1) {
+        per_row = comps[3];
+        total = (int64_t)comps[3] * comps[4];
+    } else {
+        per_row = mcus_x;
+        total = (int64_t)mcus_x * mcus_y;
+    }
+    int rst_left = restart_interval, next_rst = 0;
+    for (int64_t m = 0; m < total; ++m) {
+        if (restart_interval) {
+            if (rst_left == 0) {
+                if (!read_restart(&src, next_rst)) return -6;
+                next_rst = (next_rst + 1) & 7;
+                rst_left = restart_interval;
+                arith_start(&s);
+            }
+            --rst_left;
+        }
+        if (s.e.ct == -1) continue;
+        const int my = (int)(m / per_row), mx = (int)(m % per_row);
+        bool ok = true;
+        for (int ci = 0; ci < ncomp && ok; ++ci) {
+            const int32_t* c = comps + ci * 7;
+            const int hh = ncomp == 1 ? 1 : c[0], vv = ncomp == 1 ? 1 : c[1];
+            for (int v = 0; v < vv && ok; ++v) {
+                for (int h = 0; h < hh && ok; ++h) {
+                    const int64_t row = (int64_t)my * vv + v, col = (int64_t)mx * hh + h;
+                    ok = arith_block(&s, ci, coefs[ci] + (row * c[2] + col) * 64);
+                }
+            }
+        }
+        if (!ok) s.e.ct = -1;
+        if (src.eof) return -6;
+    }
+    return scan_end(&src);
+}
+
+// ------------------------------------------------ JPEG: lossless (H, jdlhuff)
+// jdhuff.c's bit reader as jdlhuff.c drives it: each fill loads bytes until
+// 57 bits are buffered (MIN_GET_BITS), reading ahead of the bits used (data
+// that ends first sets the source's eof: PIL finds the file truncated); a
+// marker stops the feed and zero bits follow, `short_data` set once a fill
+// needs bits past it (insufficient_data).
+struct LBits {
+    Src* src;
+    uint64_t acc;
+    int n;
+    bool short_data;
+};
+
+static void lbits_fill(LBits* b, int need) {
+    Src* s = b->src;
+    if (!s->unread) {
+        while (b->n < 57) {
+            int c = src_byte(s);
+            if (s->eof) return;
+            if (c == 0xFF) {
+                do c = src_byte(s);
+                while (c == 0xFF && !s->eof);
+                if (s->eof) return;
+                if (c != 0) {
+                    s->unread = c;
+                    break;
+                }
+                c = 0xFF;
+            }
+            b->acc = (b->acc << 8) | (uint64_t)c;
+            b->n += 8;
+        }
+        if (b->n >= 57) return;
+    }
+    if (need > b->n) {
+        b->short_data = true;
+        b->acc <<= 57 - b->n;
+        b->n = 57;
+    }
+}
+
+static inline int lbits_get(LBits* b, int k) {
+    if (b->n < k) lbits_fill(b, k);
+    if (b->n < k) return 0;  // only at the end of the data (eof)
+    b->n -= k;
+    const int v = (int)(b->acc >> b->n);
+    b->acc &= ((uint64_t)1 << b->n) - 1;
+    return v;
+}
+
+// HUFF_DECODE: the 8-bit lookahead, else jpeg_huff_decode bit by bit from
+// 9 bits (from 1 when fewer than 8 are buffered); a code past 16 bits
+// decodes as 0 with 17 read
+static inline int lbits_decode(LBits* b, const Huff* h) {
+    if (b->n < 8) lbits_fill(b, 0);
+    int l = 1;
+    if (b->n >= 8) {
+        const int look = (int)(b->acc >> (b->n - 8));
+        for (int k = 1; k <= 8; ++k) {
+            const int code = look >> (8 - k);
+            if (code <= h->maxcode[k]) {
+                b->n -= k;
+                b->acc &= ((uint64_t)1 << b->n) - 1;
+                return h->vals[(code + h->valoffset[k]) & 0xFF];
+            }
+        }
+        l = 9;
+    }
+    int code = lbits_get(b, l);
+    while (l <= 16 && code > h->maxcode[l]) {
+        code = (code << 1) | lbits_get(b, 1);
+        ++l;
+    }
+    if (l > 16) return 0;
+    return h->vals[(code + h->valoffset[l]) & 0xFF];
+}
+
+static inline int predict(int psv, int ra, int rb, int rc) {
+    switch (psv) {
+        case 1: return ra;
+        case 2: return rb;
+        case 3: return rc;
+        case 4: return ra + rb - rc;
+        case 5: return ra + ((rb - rc) >> 1);
+        case 6: return rb + ((ra - rc) >> 1);
+        default: return (ra + rb) >> 1;
+    }
+}
+
+// One lossless scan (jdlhuff.c decode_mcus, jddiffct.c decompress_data and
+// process_restart, jdlossls.c's undifferencers and scaler). comps: ncomp
+// rows of 4 int32: H, V, samples across (width_in_blocks), samples down.
+// tabs: per component its DC Huffman spec (272 bytes; symbols 0-16, 16
+// meaning 32768 with no extra bits). planes[i]: the component's (down,
+// across) uint8 samples. mcus_x, mcus_y: the interleaved MCU grid (one
+// sample a data unit), also the scan's iMCU rows. psv: the predictor
+// (1-7); pt: the point transform. A restart (every restart_interval MCUs,
+// a whole number of MCU rows) and data that ran out at a marker reset
+// every component to the first-row rule, which takes effect at the next
+// row undifferenced (libjpeg undifferences an iMCU row once all its MCU
+// rows are decoded). Returns the position of the marker that ends the
+// scan, -3 for a bad table, -4 for a restart interval that is not whole
+// MCU rows, -6 when the data ends first.
+int64_t fd_jpeg_lossless_scan(const uint8_t* data, int64_t len, int64_t pos, int ncomp,
+                              const int32_t* comps, const uint8_t* tabs,
+                              uint8_t* const* planes, int mcus_x, int mcus_y,
+                              int restart_interval, int psv, int pt) {
+    if (ncomp < 1 || ncomp > 4 || psv < 1 || psv > 7 || pt < 0 || pt > 7) return -2;
+    Huff huff[4];
+    for (int i = 0; i < ncomp; ++i)
+        if (build_huff(tabs + i * 272, &huff[i]) < 0) return -3;
+    const bool interleaved = ncomp > 1;
+    const int per_row = interleaved ? mcus_x : comps[2];
+    if (per_row < 1 || restart_interval % per_row) return -4;
+    const int rows_per_restart = restart_interval / per_row;
+    int mw[4], mh[4], width[4];
+    std::vector<int32_t> diff[4], prev[4], cur[4];
+    for (int ci = 0; ci < ncomp; ++ci) {
+        const int32_t* c = comps + ci * 4;
+        mw[ci] = interleaved ? c[0] : 1;
+        mh[ci] = interleaved ? c[1] : 1;
+        width[ci] = per_row * mw[ci];
+        diff[ci].assign((size_t)c[1] * width[ci], 0);
+        prev[ci].assign(c[2], 0);
+        cur[ci].assign(c[2], 0);
+    }
+    Src src{data, len, pos, 0, false};
+    LBits b{&src, 0, 0, false};
+    bool first[4] = {true, true, true, true};
+    int to_go = rows_per_restart, next_rst = 0;
+    const int initial = 1 << (8 - pt - 1);
+    for (int r = 0; r < mcus_y; ++r) {
+        const bool last = r == mcus_y - 1;
+        int heights[4];
+        for (int ci = 0; ci < ncomp; ++ci) {
+            const int v = comps[ci * 4 + 1], ch = comps[ci * 4 + 3];
+            heights[ci] = last ? (ch % v ? ch % v : v) : v;
+            std::fill(diff[ci].begin(), diff[ci].end(), 0);
+        }
+        const int mcu_rows = interleaved ? 1 : heights[0];
+        for (int y = 0; y < mcu_rows; ++y) {
+            if (restart_interval && to_go == 0) {
+                b.acc = 0;
+                b.n = 0;
+                if (!read_restart(&src, next_rst)) return -6;
+                next_rst = (next_rst + 1) & 7;
+                if (src.unread == 0) b.short_data = false;
+                for (int ci = 0; ci < 4; ++ci) first[ci] = true;
+                to_go = rows_per_restart;
+            }
+            if (b.short_data) {
+                for (int ci = 0; ci < 4; ++ci) first[ci] = true;  // zero differences
+            } else {
+                for (int mx = 0; mx < per_row; ++mx) {
+                    for (int ci = 0; ci < ncomp; ++ci) {
+                        for (int yy = 0; yy < mh[ci]; ++yy) {
+                            int32_t* d = diff[ci].data() + (size_t)(y + yy) * width[ci] + mx * mw[ci];
+                            for (int xx = 0; xx < mw[ci]; ++xx) {
+                                const int s = lbits_decode(&b, &huff[ci]);
+                                int v = 0;
+                                if (s == 16) {
+                                    v = 32768;
+                                } else if (s) {
+                                    v = extend(lbits_get(&b, s), s);
+                                }
+                                d[xx] = v;
+                            }
+                        }
+                    }
+                }
+                if (src.eof) return -6;
+            }
+            if (restart_interval) --to_go;
+        }
+        for (int ci = 0; ci < ncomp; ++ci) {
+            const int cw = comps[ci * 4 + 2], v = comps[ci * 4 + 1];
+            for (int y = 0; y < heights[ci]; ++y) {
+                const int32_t* d = diff[ci].data() + (size_t)y * width[ci];
+                int32_t* out = cur[ci].data();
+                const int32_t* up = prev[ci].data();
+                int ra;
+                if (first[ci]) {
+                    ra = (d[0] + initial) & 0xFFFF;
+                    out[0] = ra;
+                    for (int x = 1; x < cw; ++x) out[x] = ra = (d[x] + ra) & 0xFFFF;
+                    first[ci] = false;
+                } else {
+                    ra = (d[0] + up[0]) & 0xFFFF;
+                    out[0] = ra;
+                    for (int x = 1; x < cw; ++x)
+                        out[x] = ra = (d[x] + predict(psv, ra, up[x], up[x - 1])) & 0xFFFF;
+                }
+                uint8_t* dst = planes[ci] + ((int64_t)r * v + y) * cw;
+                for (int x = 0; x < cw; ++x) dst[x] = (uint8_t)(out[x] << pt);
+                std::swap(cur[ci], prev[ci]);
+            }
+        }
+    }
+    return scan_end(&src);
 }
 
 // The islow IDCT as libjpeg-turbo runs it on x86-64 (jsimd_idct_islow,

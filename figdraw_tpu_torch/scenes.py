@@ -1757,6 +1757,13 @@ G3_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_g3_1x_blocks
 FAX_PAGE = os.path.join(IMAGE_FORMATS_DIR, "fax_page_g4.tif")
 G4_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_g4_480x270_blocks8.npy")
 FAX_ATLAS = 1024
+# the fixture as a progressive arithmetic-coded JPEG (SOF10) with restarts,
+# drawn in the image-file scene; a 224x168 crop of it as a lossless JPEG
+# (SOF3, predictor 1), drawn in the photo wall
+ARITH_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "arith_progressive_rst.jpg")
+ARITH_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_arith_1x_blocks8.npy")
+LOSSLESS_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "lossless_crop_p1.jpg")
+LOSSLESS_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_lossless_480x270_blocks8.npy")
 
 
 def make_image_file_scene(w: float, h: float, image_id: int) -> Renders:

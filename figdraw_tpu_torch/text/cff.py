@@ -69,6 +69,8 @@ _UNIMPLEMENTED = frozenset((
 _CHARSET, _CHARSTRINGS, _PRIVATE, _SUBRS = 15, 17, 18, 19
 _DEFAULT_WIDTH, _NOMINAL_WIDTH, _VSINDEX, _BLEND, _VSTORE = 20, 21, 22, 23, 24
 _CHARSTRING_TYPE, _ROS, _FDARRAY, _FDSELECT = (12, 6), (12, 30), (12, 36), (12, 37)
+# Top DICT operators whose operands are string ids (ROS: its first two)
+_SID_OPERATORS = (0, 1, 2, 3, 4, (12, 0), (12, 21), (12, 22), (12, 38), _ROS)
 
 
 def subr_bias(n: int) -> int:
@@ -80,24 +82,56 @@ def subr_bias(n: int) -> int:
     return 32768
 
 
-def read_index(data: bytes, pos: int, cff2: bool = False) -> Tuple[List[bytes], int]:
+class Index:
+    """A CFF INDEX read as cffLib's Index reads it: its count, offSize and
+    offsets at construction (ValueError where they run past the table),
+    each item when it is taken (ValueError where it does not lie within
+    the table: cffLib asserts it reads an item's whole size)."""
+
+    def __init__(self, data: bytes, pos: int, cff2: bool = False):
+        self.data = data
+        size = 4 if cff2 else 2
+        if pos < 0 or pos + size > len(data):
+            raise ValueError("malformed CFF INDEX: its count lies past the table")
+        self.count = int.from_bytes(data[pos: pos + size], "big")
+        pos += size
+        self.offsets: List[int] = []
+        if self.count == 0:
+            self.end = pos
+            return
+        if pos >= len(data):
+            raise ValueError("malformed CFF INDEX: its offSize lies past the table")
+        off_size = data[pos]
+        pos += 1
+        if not 1 <= off_size <= 4:
+            raise ValueError(f"CFF INDEX offSize {off_size}")
+        if pos + off_size * (self.count + 1) > len(data):
+            raise ValueError("malformed CFF INDEX: its offsets run past the table")
+        self.offsets = [int.from_bytes(data[pos + off_size * i: pos + off_size * (i + 1)], "big")
+                        for i in range(self.count + 1)]
+        self.base = pos + off_size * (self.count + 1) - 1
+        self.end = self.base + self.offsets[-1]
+
+    def __len__(self) -> int:
+        return self.count
+
+    def __getitem__(self, i: int) -> bytes:
+        if not 0 <= i < self.count:
+            raise ValueError(f"CFF INDEX item {i} of {self.count}")
+        start, stop = self.base + self.offsets[i], self.base + self.offsets[i + 1]
+        if stop < start or stop > len(self.data):
+            raise ValueError(f"malformed CFF INDEX: item {i} does not lie within the table")
+        return self.data[start:stop]
+
+    def __iter__(self):
+        return (self[i] for i in range(self.count))
+
+
+def read_index(data: bytes, pos: int, cff2: bool = False) -> Tuple[Index, int]:
     """An INDEX at `pos` (a 16-bit count, or CFF2's 32-bit one): (its items,
-    the position after it)."""
-    if cff2:
-        count, pos = _U32(data, pos)[0], pos + 4
-    else:
-        count, pos = _U16(data, pos)[0], pos + 2
-    if count == 0:
-        return [], pos
-    off_size = data[pos]
-    pos += 1
-    if not 1 <= off_size <= 4:
-        raise ValueError(f"CFF INDEX offSize {off_size}")
-    offsets = [int.from_bytes(data[pos + off_size * i : pos + off_size * (i + 1)], "big")
-               for i in range(count + 1)]
-    base = pos + off_size * (count + 1) - 1
-    items = [data[base + offsets[i] : base + offsets[i + 1]] for i in range(count)]
-    return items, base + offsets[-1]
+    taken lazily and checked, the position after it)."""
+    index = Index(data, pos, cff2)
+    return index, index.end
 
 
 def read_dict(data: bytes) -> Dict[object, list]:
@@ -161,11 +195,13 @@ class Private:
     and the default vsindex."""
 
     def __init__(self, data: bytes, size: int, off: int, cff2: bool):
+        if off < 0 or size < 0 or off + size > len(data):
+            raise ValueError("malformed CFF Private DICT: it does not lie within the table")
         d = read_dict(data[off : off + size])
         self.default_width = None if cff2 else d.get(_DEFAULT_WIDTH, [0])[0]
         self.nominal_width = None if cff2 else d.get(_NOMINAL_WIDTH, [0])[0]
         self.vsindex = d[_VSINDEX][0] if _VSINDEX in d else None
-        self.subrs: List[bytes] = []
+        self.subrs: Sequence[bytes] = []
         if _SUBRS in d:
             self.subrs = read_index(data, off + d[_SUBRS][0], cff2)[0]
         self.bias = subr_bias(len(self.subrs))
@@ -202,18 +238,37 @@ class CFFTable:
         self.cff2 = cff2
         self.store: Optional[ItemVariationStore] = None
         if cff2:
+            if len(table) < 5:
+                raise ValueError("malformed 'CFF2' table: no header")
             major, _minor, hdr_size, top_len = struct.unpack_from(">BBBH", table, 0)
+            if hdr_size + top_len > len(table):
+                raise ValueError("malformed 'CFF2' table: its Top DICT runs past it")
             top = read_dict(table[hdr_size : hdr_size + top_len])
             self.global_subrs, _ = read_index(table, hdr_size + top_len, True)
             strings: List[str] = []
         else:
+            if len(table) < 4:
+                raise ValueError("malformed 'CFF ' table: no header")
             major, _minor, hdr_size, _off_size = struct.unpack_from(">BBBB", table, 0)
-            _names, pos = read_index(table, hdr_size)
+            names, pos = read_index(table, hdr_size)
+            for name in names:  # cffLib decodes the font names as ASCII
+                if not name.isascii():
+                    raise ValueError("malformed 'CFF ' table: a font name that is not ASCII")
             tops, pos = read_index(table, pos)
             raw_strings, pos = read_index(table, pos)
             self.global_subrs, _ = read_index(table, pos)
             strings = [s.decode("latin1") for s in raw_strings]
             top = read_dict(tops[0])
+            # cffLib resolves a DICT's string operands as it decompiles it,
+            # popping them from the end of the operands (ROS: SID SID number)
+            for op in _SID_OPERATORS:
+                if op in top:
+                    ops = top[op]
+                    sids = ops[-3:-1] if op == _ROS else ops[-1:]
+                    if len(sids) < (2 if op == _ROS else 1) or any(
+                            isinstance(v, int) and v >= 391 + len(strings) for v in sids):
+                        raise ValueError("malformed 'CFF ' Top DICT: a string id missing or "
+                                         "past its strings")
         if top.get(_CHARSTRING_TYPE, [2])[0] != 2:
             raise NotImplementedError("CFF with Type 1 charstrings")
         self.global_bias = subr_bias(len(self.global_subrs))
@@ -231,8 +286,9 @@ class CFFTable:
         else:
             size, p_off = top[_PRIVATE]
             self.privates = [Private(table, size, p_off, cff2)]
-        if cff2 and _VSTORE in top:
-            self.store = ItemVariationStore(table, top[_VSTORE][0] + 2, axis_tags)
+        if _VSTORE in top:  # cffLib reads it with the CharStrings, in CFF too
+            self.store = ItemVariationStore(table, top[_VSTORE][0] + 2, axis_tags,
+                                            name=f"'{'CFF2' if cff2 else 'CFF '}' VarStore")
         self.glyph_names: Optional[List[str]] = None
         if not cff2:
             self.glyph_names = self._charset(table, top, strings, n, _ROS in top)
@@ -240,19 +296,35 @@ class CFFTable:
     @staticmethod
     def _charset(table: bytes, top, strings: List[str], n: int, is_cid: bool) -> List[str]:
         value = top.get(_CHARSET, [0])[0]
-        sid = lambda s: STANDARD_STRINGS[s] if s < 391 else strings[s - 391]
-        if value > 2:
+
+        def sid(s: int) -> str:
+            if s < 391:
+                return STANDARD_STRINGS[s]
+            if s - 391 >= len(strings):
+                raise ValueError(f"CFF charset names string {s} of {391 + len(strings)}")
+            return strings[s - 391]
+
+        def u16(at: int) -> int:
+            if at + 2 > len(table):
+                raise ValueError("malformed CFF charset: it runs past the table")
+            return _U16(table, at)[0]
+
+        if value > 2 or value < 0:
+            if not 0 <= value < len(table):
+                raise ValueError(f"CFF charset offset {value} outside the table")
             fmt = table[value]
             at = value + 1
             names = [".notdef"]
             if fmt == 0:
                 for k in range(n - 1):
-                    code = _U16(table, at + 2 * k)[0]
+                    code = u16(at + 2 * k)
                     names.append("cid%05d" % code if is_cid else sid(code))
             elif fmt in (1, 2):
                 while len(names) < n:
-                    first = _U16(table, at)[0]
-                    left = table[at + 2] if fmt == 1 else _U16(table, at + 2)[0]
+                    first = u16(at)
+                    if at + 3 > len(table):
+                        raise ValueError("malformed CFF charset: it runs past the table")
+                    left = table[at + 2] if fmt == 1 else u16(at + 2)
                     at += 3 if fmt == 1 else 4
                     for code in range(first, first + left + 1):
                         names.append("cid%05d" % code if is_cid else sid(code))
@@ -340,6 +412,8 @@ class _Extractor:
     # --- the pen ---------------------------------------------------------------
 
     def _point(self, d):
+        if len(d) < 2:
+            raise ValueError("a CFF charstring path operator with too few operands")
         x, y = self.current
         p = x + d[0], y + d[1]
         self.current = p
@@ -401,6 +475,10 @@ class _Extractor:
         while i < n:
             b0 = code[i]
             i += 1
+            need = (0 if 32 <= b0 <= 246 else 4 if b0 == 255 else 2 if b0 == 28
+                    else 1 if b0 >= 247 or b0 == 12 else 0)
+            if i + need > n:
+                raise ValueError("a CFF charstring operand runs past its end")
             if b0 >= 32:
                 if b0 <= 246:
                     self.stack.append(b0 - 139)
@@ -435,17 +513,20 @@ class _Extractor:
                 continue
             if op in ("callsubr", "callgsubr"):
                 index = self._pop()
-                if op == "callsubr":
-                    subr = self.private.subrs[index + self.private.bias]
-                else:
-                    subr = self.table.global_subrs[index + self.table.global_bias]
-                self.run(subr)
+                subrs, bias = ((self.private.subrs, self.private.bias) if op == "callsubr"
+                               else (self.table.global_subrs, self.table.global_bias))
+                if not 0 <= index + bias < len(subrs):
+                    raise ValueError(f"a CFF charstring calls subr {index + bias} of "
+                                     f"{len(subrs)}")
+                self.run(subrs[index + bias])
                 continue
             if op in _UNIMPLEMENTED:
                 raise NotImplementedError(f"the Type 2 operator {op}")
             getattr(self, "op_" + op)()
 
     def _pop(self):
+        if not self.stack:
+            raise ValueError("a CFF charstring operator with too few operands")
         return self.stack.pop()
 
     # --- hints and control ------------------------------------------------------
@@ -500,17 +581,25 @@ class _Extractor:
 
     def op_hmoveto(self):
         self._end_path()
-        self._move((self._popall_width(1)[0], 0))
+        self._move((self._first(self._popall_width(1)), 0))
 
     def op_vmoveto(self):
         self._end_path()
-        self._move((0, self._popall_width(1)[0]))
+        self._move((0, self._first(self._popall_width(1))))
+
+    @staticmethod
+    def _first(args):
+        if not args:
+            raise ValueError("a CFF charstring moveto with no operand")
+        return args[0]
 
     def op_endchar(self):
         self._end_path()
         args = self._popall_width()
         if args:
             adx, ady, bchar, achar = args
+            if not (0 <= bchar < 256 and 0 <= achar < 256):
+                raise ValueError("a CFF seac component code outside StandardEncoding")
             self._component(_STANDARD_ENCODING[bchar], (1, 0, 0, 1, 0, 0))
             self._component(_STANDARD_ENCODING[achar], (1, 0, 0, 1, adx, ady))
 
@@ -519,7 +608,7 @@ class _Extractor:
         place through the transform (composed with this extractor's)."""
         gid = self.glyph_lookup(name) if self.glyph_lookup is not None else None
         if gid is None:
-            raise KeyError(f"seac component {name!r} is not in the face")
+            raise ValueError(f"seac component {name!r} is not in the face")
         if self.transform is not None:
             transform = _compose(self.transform, transform)
         if tuple(transform) == (1, 0, 0, 1, 0, 0):

@@ -5,10 +5,13 @@ It stands in for fontTools' TTFont where figdraw_tpu's typefaces.py,
 typeface_info.py and shaper.py use it, and gives the same values:
 
 - the sfnt and TTC headers, WOFF 1.0 files (text/woff.py inflates them to
-  the sfnt they wrap) and WOFF 2.0 files (text/woff2.py rebuilds theirs); head, hhea, maxp, name, post glyph names
-  (format 2 names, duplicates renamed "name.1" as fontTools does; other
-  formats, or no post table, get synthesized unique names: the shaper only
-  needs names to be unique and stable);
+  the sfnt they wrap) and WOFF 2.0 files (text/woff2.py rebuilds theirs); head, hhea, maxp, name;
+  the glyph order as TTFont.getGlyphOrder gives it: a 'CFF ' table's
+  charset, else post names (format 1, the standard order; format 2, its
+  names, duplicates renamed "name.1"; format 4, AGL names by code), else
+  names from the Unicode cmaps (post format 3, no post table, format 1
+  over 258 glyphs: _getGlyphNamesFromCmap's AGL names, uniXXXX or uXXXXX,
+  ".altN" for a name used again, glyphNNNNN for the rest);
 - cmap, the subtable fontTools' getBestCmap picks, formats 0, 2, 4, 6, 12
   and 13 (8 and 10 raise: fontTools has no reader for them either);
 - hmtx, the last advance repeating past numberOfHMetrics;
@@ -35,6 +38,10 @@ typeface_info.py and shaper.py use it, and gives the same values:
   it (text/varc.py), its components' locations moving glyf outlines
   through gvar even where the face's own location is empty.
 
+A malformed table raises ValueError naming it where fontTools' reading of
+the tables figdraw_tpu's load touches fails (its size checks and struct
+formats, each read here bounded by the table or glyph it belongs to).
+
 A location is applied as fontTools' getGlyphSet(location=...) applies it:
 a non-empty normalized location instances every glyph (even at the
 default, where the deltas are 0), an empty one or None draws the default
@@ -49,6 +56,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .agl_data import UV2AGL
 from .cff import CFFTable
 from .gvar import Gvar, instance_coordinates
 from .varc import VarcTable, emit
@@ -120,12 +128,31 @@ _NAME_ENCODINGS = {
 _ON_CURVE, _X_SHORT, _Y_SHORT, _REPEAT, _X_SAME, _Y_SAME = 1, 2, 4, 8, 16, 32
 _CUBIC = 0x80
 _ARG_WORDS, _ARGS_XY, _HAVE_SCALE = 0x1, 0x2, 0x8
-_MORE_COMPONENTS, _HAVE_XY_SCALE, _HAVE_2X2 = 0x20, 0x40, 0x80
+_MORE_COMPONENTS, _HAVE_XY_SCALE, _HAVE_2X2, _HAVE_INSTRUCTIONS = 0x20, 0x40, 0x80, 0x100
 _IDENTITY = (1, 0, 0, 1, 0, 0)
 
 
 def _f2dot14(v: int) -> float:
     return v / 16384.0
+
+
+def _ps_name_mapping(order: List[str]) -> List[str]:
+    """fontTools' build_psNameMapping: an empty name becomes "glyph%05d",
+    and a repeated name takes the first free ".N" suffix."""
+    in_order = set(order)
+    seen: Dict[str, int] = {}
+    for gid, name in enumerate(order):
+        if name == "":
+            name = "glyph%.5d" % gid
+        if name in seen:
+            k = seen[name]
+            while f"{name}.{k}" in in_order:
+                k += 1
+            seen[name] = k + 1
+            name = f"{name}.{k}"
+        seen[name] = 1
+        order[gid] = name
+    return order
 
 
 def collection_size(data: bytes) -> int:
@@ -159,6 +186,7 @@ class OTFont:
 
     def __init__(self, data: bytes, face_index: int = 0):
         data = bytes(data)
+        woff2 = data[:4] == b"wOF2"  # fontTools' WOFF2Reader checks no flavor
         if is_woff(data):
             data = woff_to_sfnt(data)
         self.data = data
@@ -168,7 +196,13 @@ class OTFont:
             if not 0 <= face_index < n_fonts:
                 raise IndexError(f"face {face_index} of a {n_fonts}-face collection")
             base = _U32(data, 12 + 4 * face_index)[0]
+        if base + 12 > len(data):
+            raise ValueError("not an OpenType face: the sfnt header runs past the file")
+        if not woff2 and data[base: base + 4] not in (b"\x00\x01\x00\x00", b"OTTO", b"true"):
+            raise ValueError("Not a TrueType or OpenType font (bad sfntVersion)")
         num_tables = _U16(data, base + 4)[0]
+        if base + 12 + 16 * num_tables > len(data):
+            raise ValueError("malformed sfnt table directory: it runs past the file")
         self.tables: Dict[str, Tuple[int, int]] = {}
         for i in range(num_tables):
             rec = base + 12 + 16 * i
@@ -179,18 +213,32 @@ class OTFont:
             if tag not in self.tables:
                 raise ValueError(f"not an OpenType face: no '{tag}' table")
 
-        head = self.tables["head"][0]
+        # the sizes fontTools' decompilers need (head: 54 bytes or two zero
+        # bytes more; hhea exactly 36; maxp 6 for version 0.5, 32 for 1.0)
+        head, head_len = self._table("head", 54)
+        if head_len > 54 and data[head + 54: head + head_len] != b"\0\0":
+            raise ValueError("malformed 'head' table: bytes past its 54 other than two zeros")
         self.units_per_em = _U16(data, head + 18)[0]
         self.index_to_loc_format = _I16(data, head + 50)[0]
-        hhea = self.tables["hhea"][0]
+        hhea, hhea_len = self._table("hhea", 36)
+        if hhea_len != 36:
+            raise ValueError(f"malformed 'hhea' table: {hhea_len} bytes, not 36")
         self.ascent, self.descent, self.line_gap = struct.unpack_from(">hhh", data, hhea + 4)
         n_hmetrics = _U16(data, hhea + 34)[0]
-        self.num_glyphs = _U16(data, self.tables["maxp"][0] + 4)[0]
+        maxp, maxp_len = self._table("maxp", 6)
+        if maxp_len != (6 if _U32(data, maxp)[0] == 0x00005000 else 32):
+            raise ValueError(f"malformed 'maxp' table: {maxp_len} bytes for its version")
+        self.num_glyphs = _U16(data, maxp + 4)[0]
 
         # advances and left side bearings; the last advance repeats
-        hmtx = self.tables["hmtx"][0]
         n = self.num_glyphs
         n_h = min(n_hmetrics, n)
+        hmtx, hmtx_len = self._table("hmtx")
+        if hmtx_len < 4 * n_h + 2 * (n - n_h):
+            raise ValueError(f"not enough 'hmtx' table data: expected {4 * n_h + 2 * (n - n_h)}"
+                             f" bytes, got {hmtx_len}")
+        if n > 0 and n_h == 0:
+            raise ValueError("malformed 'hmtx' table: numberOfHMetrics is 0")
         metrics = np.frombuffer(data, dtype=">i2", count=2 * n_h, offset=hmtx).reshape(n_h, 2)
         self.advances = np.empty(n, np.int64)
         self.lsbs = np.empty(n, np.int64)
@@ -217,14 +265,9 @@ class OTFont:
         self._name_to_gid = {nm: i for i, nm in enumerate(self.glyph_order)}
 
         self._loca = None
-        if "glyf" in self.tables and "loca" in self.tables:
-            loca = self.tables["loca"][0]
-            if self.index_to_loc_format == 0:
-                self._loca = np.frombuffer(data, dtype=">u2", count=n + 1,
-                                           offset=loca).astype(np.int64) * 2
-            else:
-                self._loca = np.frombuffer(data, dtype=">u4", count=n + 1,
-                                           offset=loca).astype(np.int64)
+        if self.cff is None and "glyf" in self.tables:
+            self._loca = self._read_loca()
+            self._check_gvar()
         self._glyphs: Dict[int, tuple] = {}
         self._cmap: Optional[Dict[int, str]] = None
         self._kern: Optional[Dict[Tuple[str, str], int]] = None
@@ -236,6 +279,18 @@ class OTFont:
 
     def __contains__(self, tag: str) -> bool:
         return tag in self.tables
+
+    def _table(self, tag: str, least: int = 0) -> Tuple[int, int]:
+        """(offset, length) of a table that lies within the file and holds
+        at least `least` bytes (ValueError naming it otherwise: fontTools'
+        reader asserts a table's whole length is read, and its struct
+        formats need their bytes)."""
+        off, length = self.tables[tag]
+        if off + length > len(self.data):
+            raise ValueError(f"malformed '{tag}' table: it runs past the end of the file")
+        if length < least:
+            raise ValueError(f"malformed '{tag}' table: {length} bytes, fewer than {least}")
+        return off, length
 
     def get(self, tag: str, default=None):
         """SimpleNamespace(table=...) for GSUB, GPOS or GDEF (decoded on
@@ -257,32 +312,40 @@ class OTFont:
         return "glyph%.5d" % gid
 
     def _read_glyph_order(self) -> List[str]:
+        """TTFont.getGlyphOrder without a 'CFF ' table: the post table's
+        names (format 1, the standard order; 2, its own names; 4, AGL names
+        by code), else names from the Unicode cmaps: post format 3, no post
+        table, or format 1 over more glyphs than its 258 names."""
         n = self.num_glyphs
         names = None
         if "post" in self.tables:
-            post = self.tables["post"][0]
+            post, length = self._table("post", 32)
             fmt = _U32(self.data, post)[0]
-            if fmt == 0x00010000 and n <= len(STANDARD_GLYPH_ORDER):
-                names = STANDARD_GLYPH_ORDER[:n]
+            if fmt == 0x00010000:
+                names = STANDARD_GLYPH_ORDER[:n] if n <= len(STANDARD_GLYPH_ORDER) else None
             elif fmt == 0x00020000:
-                names = self._post_format2(post + 32)
-        if names is None:
-            # no names to read (post format 3, or none): unique, stable ones
-            return [".notdef"] + ["glyph%.5d" % i for i in range(1, n)]
-        return names
+                names = self._post_format2(post + 32, post + length)
+            elif fmt == 0x00040000:
+                names = self._post_format4(post + 32, post + length)
+            elif fmt != 0x00030000:
+                raise ValueError(f"'post' table format {fmt / 65536:f} not supported")
+        return self._names_from_cmap() if names is None else names
 
-    def _post_format2(self, pos: int) -> List[str]:
-        """post format 2 names, as fontTools' decode_format_2_0 and
-        build_psNameMapping give them: empty names become "glyph%05d", and
-        a repeated name takes the first free ".N" suffix."""
+    def _post_format2(self, pos: int, end: int) -> List[str]:
+        """post format 2 names, as fontTools' decode_format_2_0 gives them:
+        a count past maxp's is maxp's, and an index past the names gives
+        an empty name."""
         data = self.data
         n = self.num_glyphs
+        if pos + 2 > end:
+            raise ValueError("malformed 'post' table: no format 2 glyph count")
         count = min(_U16(data, pos)[0], n)
+        if count == 0 or pos + 2 + 2 * count > end:
+            raise ValueError("malformed 'post' table: format 2 indices cut short")
         indices = struct.unpack_from(">%dH" % count, data, pos + 2)
         pos += 2 + 2 * count
-        end = self.tables["post"][0] + self.tables["post"][1]
         extra = []
-        for _ in range(max(indices, default=0) - 257):
+        for _ in range(max(indices) - 257):
             length = data[pos] if pos < end else 0
             pos += 1
             extra.append("" if end <= pos + length - 1
@@ -294,87 +357,169 @@ class OTFont:
                 order[gid] = extra[index - 258] if index - 258 < len(extra) else ""
             else:
                 order[gid] = STANDARD_GLYPH_ORDER[index]
-        in_order = set(order)
-        seen: Dict[str, int] = {}
-        for gid in range(n):
-            name = order[gid]
-            if name == "":
-                name = "glyph%.5d" % gid
-            if name in seen:
-                k = seen[name]
-                while f"{name}.{k}" in in_order:
-                    k += 1
-                seen[name] = k + 1
-                name = f"{name}.{k}"
-            seen[name] = 1
-            order[gid] = name
+        return _ps_name_mapping(order)
+
+    def _post_format4(self, pos: int, end: int) -> List[str]:
+        """post format 4 (decode_format_4_0): a code a glyph, 0xFFFF for
+        none, named through the AGL or as uniXXXX."""
+        if (end - pos) % 2:
+            raise ValueError("malformed 'post' table: format 4 codes of an odd length")
+        codes = struct.unpack_from(">%dH" % ((end - pos) // 2), self.data, pos)
+        order = [""] * self.num_glyphs
+        for gid, code in enumerate(codes[: self.num_glyphs]):
+            if code != 0xFFFF:
+                order[gid] = UV2AGL.get(code) or "uni%04X" % code
+        return _ps_name_mapping(order)
+
+    def _names_from_cmap(self) -> List[str]:
+        """TTFont._getGlyphNamesFromCmap: glyph 0 is ".notdef"; a glyph a
+        Unicode cmap subtable maps is named from its least code point (the
+        AGL name, else uniXXXX or uXXXXX; a name used again takes ".altN"
+        in glyph order); every other glyph is "glyphNNNNN"."""
+        n = self.num_glyphs
+        if n == 0:
+            raise ValueError("a face of no glyphs has no name for glyph 0")
+        least: Dict[int, int] = {}
+        for pid, eid, fmt, sub in self._cmap_subtables():
+            if not (pid == 0 or (pid == 3 and eid in (0, 1, 10))):
+                continue
+            if fmt == 14:
+                continue  # variation sequences: an empty map in fontTools
+            mapped: Dict[int, int] = {}
+            for c, g in zip(*self._cmap_subtable(fmt, sub)):
+                if g != 0:
+                    mapped[c] = g
+            for c, g in mapped.items():
+                if g < n:
+                    least[g] = min(least.get(g, c), c)
+        order = [".notdef"] + ["glyph%.5d" % i for i in range(1, n)]
+        uses: Dict[str, int] = {}
+        for gid in sorted(least):
+            code = least[gid]
+            name = UV2AGL.get(code) or ("uni%04X" % code if code <= 0xFFFF else "u%X" % code)
+            uses[name] = uses.get(name, 0) + 1
+            order[gid] = name if uses[name] == 1 else "%s.alt%d" % (name, uses[name] - 1)
         return order
 
     # --- cmap ------------------------------------------------------------------
 
     def getBestCmap(self) -> Optional[Dict[int, str]]:  # noqa: N802 - fontTools' name
         """{codepoint: glyph name} of the first subtable in CMAP_PREFERENCES
-        order (gid 0 left out), or None without a Unicode subtable."""
+        order (gid 0 left out), or None without a Unicode subtable; a face
+        with no cmap table raises ValueError (fontTools' getBestCmap raises
+        KeyError, so figdraw_tpu loads no such face)."""
+        if "cmap" not in self.tables:
+            raise ValueError("not an OpenType face figdraw_tpu loads: no 'cmap' table")
         if self._cmap is None:
             self._cmap = self._read_cmap()
         return self._cmap if self._cmap is not False else None
 
+    def _cmap_subtables(self) -> List[Tuple[int, int, int, bytes]]:
+        """(platform, encoding, format, bytes) of each cmap subtable in
+        directory order, sliced from the table's bytes as fontTools' cmap
+        decompile slices them (a signed offset; a subtable of zero length
+        left out), each header checked as its decompileHeader checks it."""
+        if "cmap" not in self.tables:
+            return []
+        off0, length = self._table("cmap")
+        c = self.data[off0: off0 + length]
+        if len(c) < 4:
+            raise ValueError("malformed 'cmap' table: no header")
+        out, seen = [], {}
+        for i in range(_U16(c, 2)[0]):
+            rec = c[4 + 8 * i: 12 + 8 * i]
+            if len(rec) != 8:
+                raise ValueError("malformed 'cmap' table: its encoding records run past it")
+            pid, eid, off = struct.unpack(">HHl", rec)
+            fmt = _U16(c[off: off + 2], 0)[0] if len(c[off: off + 2]) == 2 else None
+            need = 8 if fmt in (8, 10, 12, 13) else 6 if fmt == 14 else 4
+            head = c[off: off + need]
+            if len(head) != need:
+                raise ValueError("malformed 'cmap' table: a subtable header past its end")
+            size = (_U32(head, 4)[0] if need == 8 else _U32(head, 2)[0] if need == 6
+                    else _U16(head, 2)[0])
+            if not size:
+                continue
+            sub = c[off: off + size]
+            if fmt in (0, 2, 4, 6) and (len(sub) < 6 or len(sub) != size):
+                raise ValueError(f"corrupt cmap table format {fmt}: {len(sub)} bytes, "
+                                 f"its header says {size}")
+            if fmt in (12, 13) and (len(sub) < 16 or
+                                    not len(sub) == 16 + 12 * _U32(sub, 12)[0] == size):
+                raise ValueError(f"corrupt cmap table format {fmt}: {len(sub)} bytes")
+            if fmt == 14 and len(sub) < 10:
+                raise ValueError("corrupt cmap table format 14: no header")
+            if off in seen:  # fontTools shares the first one's map: decompiled now
+                if fmt != 14:
+                    self._cmap_subtable(*seen[off])
+            else:
+                seen[off] = (fmt, sub)
+            out.append((pid, eid, fmt, sub))
+        return out
+
     def _read_cmap(self):
         if "cmap" not in self.tables:
             return False
-        data = self.data
-        cmap = self.tables["cmap"][0]
-        n_sub = _U16(data, cmap + 2)[0]
         subtables = {}
-        for i in range(n_sub):
-            pid, eid, off = struct.unpack_from(">HHI", data, cmap + 4 + 8 * i)
-            subtables.setdefault((pid, eid), cmap + off)
+        for pid, eid, fmt, sub in self._cmap_subtables():
+            subtables.setdefault((pid, eid), (fmt, sub))
         for key in CMAP_PREFERENCES:
             if key in subtables:
-                chars, gids = self._cmap_subtable(subtables[key])
+                chars, gids = self._cmap_subtable(*subtables[key])
                 names = self.glyph_name
                 return {c: names(g) for c, g in zip(chars, gids) if g != 0}
         return False
 
-    def _cmap_subtable(self, off: int):
-        data = self.data
-        fmt = _U16(data, off)[0]
+    def _cmap_subtable(self, fmt: int, sub: bytes):
+        """A subtable's (codes, glyph ids) as fontTools decompiles its bytes:
+        ValueError where its unpacking or asserts fail."""
         if fmt == 0:
-            return list(range(256)), list(data[off + 6 : off + 262])
+            if len(sub) != 262:
+                raise ValueError("Format 0 cmap subtable not 262 bytes")
+            return list(range(256)), list(sub[6:262])
         if fmt == 4:
-            seg2 = _U16(data, off + 6)[0]
-            seg = seg2 // 2
-            words = np.frombuffer(data, dtype=">u2", count=(_U16(data, off + 2)[0] - 14) // 2,
-                                  offset=off + 14).astype(np.int64)
+            if len(sub) < 14 or len(sub) % 2:
+                raise ValueError("malformed cmap format 4 subtable")
+            seg = _U16(sub, 6)[0] // 2
+            words = np.frombuffer(sub, dtype=">u2", offset=14).astype(np.int64)
             end_code = words[:seg]
-            start_code = words[seg + 1 : 2 * seg + 1]
-            id_delta = words[2 * seg + 1 : 3 * seg + 1]
-            range_off = words[3 * seg + 1 : 4 * seg + 1]
-            gia = words[4 * seg + 1 :]
+            start_code = words[seg + 1: 2 * seg + 1]
+            id_delta = words[2 * seg + 1: 3 * seg + 1]
+            range_off = words[3 * seg + 1: 4 * seg + 1]
+            gia = words[4 * seg + 1:]
             chars, gids = [], []
-            for i in range(seg - 1):  # the last segment (0xFFFF) is skipped
+            for i in range(len(start_code) - 1):  # the last segment (0xFFFF) is skipped
+                if i >= min(len(end_code), len(id_delta), len(range_off)):
+                    raise ValueError("malformed cmap format 4 subtable: its arrays cut short")
                 codes = np.arange(start_code[i], end_code[i] + 1, dtype=np.int64)
+                chars.extend(codes.tolist())
                 if codes.size == 0:
                     continue
                 if range_off[i] == 0:
                     g = (codes + id_delta[i]) & 0xFFFF
                 else:
-                    idx = codes + (range_off[i] // 2 - start_code[i] + i - seg)
+                    idx = codes + (range_off[i] // 2 - start_code[i] + i - len(range_off))
+                    if (idx >= len(gia)).any() or (idx < -len(gia)).any():
+                        raise ValueError("In format 4 cmap, an index into the glyph index "
+                                         "array past its length")
                     raw = gia[idx]
                     g = np.where(raw != 0, (raw + id_delta[i]) & 0xFFFF, 0)
-                chars.extend(codes.tolist())
                 gids.extend(g.tolist())
             return chars, gids
         if fmt == 6:
-            first, count = struct.unpack_from(">HH", data, off + 6)
-            gids = list(struct.unpack_from(">%dH" % count, data, off + 10))
-            return list(range(first, first + count)), gids
+            if len(sub) < 10:
+                raise ValueError("malformed cmap format 6 subtable")
+            first, count = struct.unpack_from(">HH", sub, 6)
+            body = sub[10: 10 + 2 * count]
+            if len(body) % 2:
+                raise ValueError("malformed cmap format 6 subtable: an odd byte")
+            gids = list(struct.unpack(">%dH" % (len(body) // 2), body))
+            return list(range(first, first + len(gids))), gids
         if fmt in (12, 13):
             # format 13 maps each group's whole range to its one glyph
-            n_groups = _U32(data, off + 12)[0]
             chars, gids = [], []
-            for k in range(n_groups):
-                start, end, gid = struct.unpack_from(">III", data, off + 16 + 12 * k)
+            for k in range(_U32(sub, 12)[0]):
+                start, end, gid = struct.unpack_from(">III", sub, 16 + 12 * k)
                 chars.extend(range(start, end + 1))
                 if fmt == 12:
                     gids.extend(range(gid, gid + end - start + 1))
@@ -382,25 +527,30 @@ class OTFont:
                     gids.extend([gid] * (end - start + 1))
             return chars, gids
         if fmt == 2:
-            return self._cmap_format_2(off)
+            return self._cmap_format_2(sub)
         raise NotImplementedError(
             f"cmap subtable format {fmt} is not read by the port's OpenType "
             "reader (formats 0, 2, 4, 6, 12 and 13 are); fontTools 4.61.1 has no "
             "reader for formats 8 and 10 either, so figdraw_tpu cannot load such a "
             "face")
 
-    def _cmap_format_2(self, off: int):
+    @staticmethod
+    def _cmap_format_2(sub: bytes):
         """cmap_format_2.decompile: a first byte picks a subHeader through
         subHeaderKeys; subHeader 0 maps the byte itself, any other maps a
         second byte; a glyph index that is not 0 gets idDelta added."""
-        data = self.data
-        keys = [k // 8 for k in struct.unpack_from(">256H", data, off + 6)]
-        base = off + 6 + 512
+        def unpack(fmt: str, at: int) -> tuple:
+            if at < 0 or at + struct.calcsize(fmt) > len(sub):
+                raise ValueError("malformed cmap format 2 subtable: a read past its end")
+            return struct.unpack_from(fmt, sub, at)
+
+        keys = [k // 8 for k in unpack(">256H", 6)]
+        base = 6 + 512
         subs = []
         for k in range(max(keys) + 1):
             at = base + 8 * k
-            first, count, delta, range_off = struct.unpack_from(">HHhH", data, at)
-            gia = struct.unpack_from(">%dH" % count, data, at + 6 + range_off)
+            first, count, delta, range_off = unpack(">HHhH", at)
+            gia = unpack(">%dH" % count, at + 6 + range_off)
             subs.append((first, count, delta, gia))
         cmap: Dict[int, int] = {}
         for byte, k in enumerate(keys):
@@ -504,8 +654,21 @@ class OTFont:
         if "fvar" not in self.tables:
             return []
         data = self.data
-        pos = self.tables["fvar"][0]
-        axes_off, _res, count, size = struct.unpack_from(">HHHH", data, pos + 4)
+        pos, length = self._table("fvar", 16)
+        if _U32(data, pos)[0] != 0x00010000:
+            raise ValueError("unsupported 'fvar' version")
+        axes_off, _res, count, size, n_inst, inst_size = struct.unpack_from(">HHHHHH", data,
+                                                                           pos + 4)
+        # fontTools unpacks each axis (20 bytes) and instance (4 bytes and a
+        # coordinate an axis) from its record's bytes within the table
+        for k in range(count):
+            at = axes_off + size * k
+            if min(size, length - at) < 20:
+                raise ValueError("malformed 'fvar' table: an axis record cut short")
+        for k in range(n_inst):
+            at = axes_off + size * count + inst_size * k
+            if min(inst_size, length - at) < 4 + 4 * count:
+                raise ValueError("malformed 'fvar' table: an instance record cut short")
         axes = []
         for i in range(count):
             at = pos + axes_off + size * i
@@ -540,9 +703,10 @@ class OTFont:
             if "gvar" in self.tables and "fvar" in self.tables:
                 gvar = Gvar(self.data, self.tables["gvar"][0], tags)
             if "HVAR" in self.tables and "fvar" in self.tables:
-                pos = self.tables["HVAR"][0]
+                pos, length = self._table("HVAR", 20)
                 store_off, adv_off = struct.unpack_from(">II", self.data, pos + 4)
-                store = ItemVariationStore(self.data, pos + store_off, tags)
+                store = ItemVariationStore(self.data, pos + store_off, tags, pos + length,
+                                           "'HVAR' ItemVariationStore")
                 if adv_off:
                     adv_map = var_idx_map(self.data, pos + adv_off, self.num_glyphs)
             self._var_tables = (avar, gvar, store, adv_map)
@@ -572,6 +736,45 @@ class OTFont:
 
     # --- outlines ------------------------------------------------------------------
 
+    def _read_loca(self) -> np.ndarray:
+        """loca as fontTools' glyf table reads it with its glyphs, when a
+        glyph set is made: each glyph's data must lie within glyf (an entry
+        before the one above it, or past glyf's end, is refused; one glyph
+        between two entries past the end is empty)."""
+        if "loca" not in self.tables:
+            raise ValueError("a glyf face without a 'loca' table")
+        loca, length = self._table("loca")
+        glyf_len = self._table("glyf")[1]
+        short = self.index_to_loc_format == 0
+        if length % (2 if short else 4):
+            raise ValueError(f"malformed 'loca' table: {length} bytes")
+        offsets = np.frombuffer(self.data, dtype=">u2" if short else ">u4",
+                                count=length // (2 if short else 4), offset=loca).astype(np.int64)
+        if short:
+            offsets *= 2
+        start, end = offsets[:-1], offsets[1:]
+        if ((end < start) | ((end > glyf_len) & (end != start))).any():
+            raise ValueError("not enough 'glyf' table data")
+        return offsets
+
+    def _check_gvar(self) -> None:
+        """fontTools' gvar decompile, which a glyf face's glyph set runs: its
+        header, its axis count against fvar's, its shared tuples and a glyph
+        count within the glyph order."""
+        if "gvar" not in self.tables:
+            return
+        pos, length = self._table("gvar", 20)
+        if "fvar" not in self.tables:
+            raise ValueError("a 'gvar' table without 'fvar'")
+        axis_count, shared, shared_off, glyph_count = struct.unpack_from(">HHIH", self.data,
+                                                                         pos + 4)
+        if axis_count != len(self.axes):
+            raise ValueError("malformed 'gvar' table: its axis count is not fvar's")
+        if shared and shared_off + 2 * axis_count * shared > length:
+            raise ValueError("malformed 'gvar' table: its shared tuples run past it")
+        if glyph_count > len(self.glyph_order):
+            raise ValueError("malformed 'gvar' table: more glyphs than the face")
+
     def _glyph(self, gid: int) -> tuple:
         """The parsed glyf entry: ("empty",), ("simple", xs, ys, end_pts,
         flags, x_min) or ("composite", [(component gid, transform)],
@@ -581,91 +784,106 @@ class OTFont:
             return g
         if self._loca is None:
             raise ValueError("a face with neither glyf/loca nor CFF outlines")
-        data = self.data
-        start = self.tables["glyf"][0] + int(self._loca[gid])
-        end = self.tables["glyf"][0] + int(self._loca[gid + 1])
+        if not 0 <= gid < min(self.num_glyphs, len(self._loca) - 1):
+            raise ValueError(f"glyph {gid} is not in 'glyf' ({len(self._loca) - 1} entries, "
+                             f"{self.num_glyphs} glyphs)")
+        glyf = self.tables["glyf"][0]
+        start, end = glyf + int(self._loca[gid]), glyf + int(self._loca[gid + 1])
         if end <= start:
             g = ("empty",)
         else:
-            n_contours, x_min = struct.unpack_from(">hh", data, start)
+            # fontTools decompiles a glyph from its own bytes: every read
+            # below is bounded by them (_read_loca keeps them in the file)
+            body = self.data[start:end]
+            if len(body) < 10:
+                raise ValueError(f"malformed 'glyf' glyph {gid}: no header")
+            n_contours, x_min = struct.unpack_from(">hh", body)
             if n_contours >= 0:
-                g = self._simple_glyph(start + 10, n_contours, x_min)
-            else:
-                g = self._composite_glyph(start + 10, x_min)
+                g = self._simple_glyph(body[10:], n_contours, x_min)
+            elif n_contours == -1:
+                g = self._composite_glyph(body[10:], x_min)
+            else:  # fontTools takes it for a simple glyph of a negative count
+                raise ValueError(f"malformed 'glyf' glyph {gid}: {n_contours} contours")
         self._glyphs[gid] = g
         return g
 
-    def _simple_glyph(self, pos: int, n_contours: int, x_min: int) -> tuple:
-        data = self.data
+    @staticmethod
+    def _simple_glyph(g: bytes, n_contours: int, x_min: int) -> tuple:
+        """Glyph.decompileCoordinates on the bytes after the header: the
+        instruction length signed, the flags' repeats held to the points,
+        the coordinates' bytes whole (ValueError where fontTools' unpacking
+        fails)."""
         if n_contours == 0:
             return ("simple", [], [], [], [], x_min)
-        end_pts = list(struct.unpack_from(">%dH" % n_contours, data, pos))
-        pos += 2 * n_contours
-        pos += 2 + _U16(data, pos)[0]  # instructions
+        pos = 2 * n_contours
+        if len(g) < pos + 2:
+            raise ValueError("malformed 'glyf' glyph: its end points run past it")
+        end_pts = list(struct.unpack_from(">%dH" % n_contours, g))
+        pos += 2 + struct.unpack_from(">h", g, pos)[0]  # past the instructions
         n_points = end_pts[-1] + 1
-        flags = []
+        flags: List[int] = []
         while len(flags) < n_points:
-            f = data[pos]
+            f = _byte_at(g, pos)
             pos += 1
             repeat = 1
             if f & _REPEAT:
-                repeat = data[pos] + 1
+                repeat = _byte_at(g, pos) + 1
                 pos += 1
+            if len(flags) + repeat > n_points:
+                raise ValueError("malformed 'glyf' glyph: its flags repeat past its points")
             flags.extend([f] * repeat)
-        flags = flags[:n_points]
-        xs, pos = self._coords(flags, pos, _X_SHORT, _X_SAME)
-        ys, pos = self._coords(flags, pos, _Y_SHORT, _Y_SAME)
+        x_len = sum(1 if f & _X_SHORT else 0 if f & _X_SAME else 2 for f in flags)
+        y_len = sum(1 if f & _Y_SHORT else 0 if f & _Y_SAME else 2 for f in flags)
+        xb, yb = g[pos: pos + x_len], g[pos + x_len: pos + x_len + y_len]
+        if len(xb) != x_len or len(yb) != y_len:
+            raise ValueError("malformed 'glyf' glyph: its coordinates run past it")
+        xs = _coords(flags, xb, _X_SHORT, _X_SAME)
+        ys = _coords(flags, yb, _Y_SHORT, _Y_SAME)
         keep = [f & (_ON_CURVE | 0x40 | _CUBIC) for f in flags]
         return ("simple", xs, ys, end_pts, keep, x_min)
 
-    def _coords(self, flags, pos: int, short: int, same: int):
-        data = self.data
-        out = []
-        v = 0
-        for f in flags:
-            if f & short:
-                d = data[pos]
-                pos += 1
-                v += d if f & same else -d
-            elif not f & same:
-                v += _I16(data, pos)[0]
-                pos += 2
-            out.append(v)
-        return out, pos
-
-    def _composite_glyph(self, pos: int, x_min: int) -> tuple:
-        data = self.data
+    @staticmethod
+    def _composite_glyph(g: bytes, x_min: int) -> tuple:
+        """Glyph.decompileComponents on the bytes after the header, the
+        instruction length's 2 bytes included."""
         comps = []
+        pos, instructions = 0, False
+
+        def read(fmt: str):
+            nonlocal pos
+            size = struct.calcsize(fmt)
+            if pos + size > len(g):
+                raise ValueError("malformed 'glyf' composite: a component runs past it")
+            pos += size
+            return struct.unpack_from(fmt, g, pos - size)
+
         while True:
-            flags, gid = struct.unpack_from(">HH", data, pos)
-            pos += 4
+            flags, gid = read(">HH")
             if flags & _ARG_WORDS:
-                fmt, step = (">hh", 4) if flags & _ARGS_XY else (">HH", 4)
+                a, b = read(">hh" if flags & _ARGS_XY else ">HH")
             else:
-                fmt, step = (">bb", 2) if flags & _ARGS_XY else (">BB", 2)
-            a, b = struct.unpack_from(fmt, data, pos)
-            pos += step
+                a, b = read(">bb" if flags & _ARGS_XY else ">BB")
             if not flags & _ARGS_XY:
                 raise NotImplementedError(
                     "composite glyphs placed by point matching are not read by "
                     "the port's OpenType reader; fontTools 4.61.1 does not draw them "
                     "either (GlyphComponent.getComponentInfo raises AttributeError)")
             if flags & _HAVE_SCALE:
-                s = _f2dot14(_I16(data, pos)[0])
+                s = _f2dot14(read(">h")[0])
                 trans = (s, 0, 0, s, a, b)
-                pos += 2
             elif flags & _HAVE_XY_SCALE:
-                sx, sy = struct.unpack_from(">hh", data, pos)
+                sx, sy = read(">hh")
                 trans = (_f2dot14(sx), 0, 0, _f2dot14(sy), a, b)
-                pos += 4
             elif flags & _HAVE_2X2:
-                xx, xy, yx, yy = struct.unpack_from(">hhhh", data, pos)
+                xx, xy, yx, yy = read(">hhhh")
                 trans = (_f2dot14(xx), _f2dot14(xy), _f2dot14(yx), _f2dot14(yy), a, b)
-                pos += 8
             else:
                 trans = (1, 0, 0, 1, a, b)
+            instructions = instructions or bool(flags & _HAVE_INSTRUCTIONS)
             comps.append((gid, trans))
             if not flags & _MORE_COMPONENTS:
+                if instructions:
+                    read(">h")
                 return ("composite", comps, x_min)
 
     def _instance(self, gid: int, location: Dict[str, float]):
@@ -825,6 +1043,29 @@ def _mid(a, b):
     return int(v) if v == int(v) else v
 
 
+def _byte_at(g: bytes, pos: int) -> int:
+    """g[pos] with Python's indexing, as fontTools reads a glyph's flags;
+    ValueError past its bytes."""
+    if not -len(g) <= pos < len(g):
+        raise ValueError("malformed 'glyf' glyph: its flags run past it")
+    return g[pos]
+
+
+def _coords(flags, b: bytes, short: int, same: int) -> list:
+    """One axis of a simple glyph's coordinates from its bytes b, summed."""
+    out, v, pos = [], 0, 0
+    for f in flags:
+        if f & short:
+            d = b[pos]
+            pos += 1
+            v += d if f & same else -d
+        elif not f & same:
+            v += _I16(b, pos)[0]
+            pos += 2
+        out.append(v)
+    return out
+
+
 def _trace_contours(pts, end_pts, flags, out: list) -> None:
     """fontTools' Glyph.draw contour walk onto a recording list: pts are
     the (already transformed) points, flags the kept point flags."""
@@ -835,6 +1076,8 @@ def _trace_contours(pts, end_pts, flags, out: list) -> None:
         c_flags = [_ON_CURVE & f for f in flags[start:end]]
         cu_flags = [_CUBIC & f for f in flags[start:end]]
         start = end
+        if not contour:
+            raise ValueError("an empty glyf contour (fontTools' Glyph.draw fails on one)")
         if 1 not in c_flags:
             if any(cu_flags) and not all(cu_flags):
                 raise ValueError("a glyf contour mixes cubic and quadratic off-curves")

@@ -116,40 +116,52 @@ class ItemVariationStore:
     support dict each, over the axis tags in fvar order) and its delta sets
     (VarData: region indices and rows of integer deltas)."""
 
-    def __init__(self, data: bytes, off: int, axis_tags: Sequence[str]):
-        fmt, regions_off, n_data = struct.unpack_from(">HIH", data, off)
+    def __init__(self, data: bytes, off: int, axis_tags: Sequence[str], end: int = None,
+                 name: str = "ItemVariationStore"):
+        # every read lies within data[:end] (the table holding the store), as
+        # fontTools' reader of the table's own bytes requires
+        self.end = len(data) if end is None else min(end, len(data))
+        self.name = name
+        fmt, regions_off, n_data = self._unpack(data, ">HIH", off)
         if fmt != 1:
             raise NotImplementedError(f"ItemVariationStore format {fmt}")
-        data_offs = struct.unpack_from(">%dI" % n_data, data, off + 8)
+        data_offs = self._unpack(data, ">%dI" % n_data, off + 8)
         self.regions: List[Dict[str, Tuple[float, float, float]]] = []
         if regions_off:
             at = off + regions_off
-            n_axes, n_regions = struct.unpack_from(">HH", data, at)
+            n_axes, n_regions = self._unpack(data, ">HH", at)
             at += 4
             for _ in range(n_regions):
-                coords = struct.unpack_from(">%dh" % (3 * n_axes), data, at)
+                coords = self._unpack(data, ">%dh" % (3 * n_axes), at)
                 at += 6 * n_axes
                 support = {}
                 for i in range(n_axes):
                     start, peak, end = (f2dot14(c) for c in coords[3 * i : 3 * i + 3])
                     if peak != 0:
-                        support[axis_tags[i]] = (start, peak, end)
+                        # an axis past fvar's has no tag, so no location moves it
+                        support[axis_tags[i] if i < len(axis_tags) else None] = (start, peak, end)
                 self.regions.append(support)
         self.var_data: List[Tuple[List[int], List[List[int]]]] = []
         for d_off in data_offs:
             self.var_data.append(self._var_data(data, off + d_off))
 
-    @staticmethod
-    def _var_data(data: bytes, at: int):
-        n_items, word_count, n_regions = struct.unpack_from(">HHH", data, at)
+    def _unpack(self, data: bytes, fmt: str, at: int) -> tuple:
+        if at < 0 or at + struct.calcsize(fmt) > self.end:
+            raise ValueError(f"malformed {self.name}: a read at {at} runs past its table")
+        return struct.unpack_from(fmt, data, at)
+
+    def _var_data(self, data: bytes, at: int):
+        n_items, word_count, n_regions = self._unpack(data, ">HHH", at)
         at += 6
-        region_indices = list(struct.unpack_from(">%dH" % n_regions, data, at))
+        region_indices = list(self._unpack(data, ">%dH" % n_regions, at))
         at += 2 * n_regions
         long_words = bool(word_count & 0x8000)
         word_count &= 0x7FFF
         big, small = ("i", "h") if long_words else ("h", "b")
         n1, n2 = min(n_regions, word_count), max(n_regions, word_count)
         row = struct.Struct(">%d%s%d%s" % (n1, big, n2 - n1, small))
+        if at + row.size * n_items > self.end:
+            raise ValueError(f"malformed {self.name}: its delta rows run past its table")
         rows = []
         for _ in range(n_items):
             rows.append(list(row.unpack_from(data, at))[:n_regions])

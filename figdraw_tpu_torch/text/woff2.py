@@ -151,8 +151,10 @@ def woff2_to_sfnt(data: bytes) -> bytes:
         _fail("reported 'length' doesn't match the actual file size")
     if meta_length:
         raw = data[meta_offset: meta_offset + meta_length]
+        if len(raw) != meta_length:
+            _fail("the metadata block runs past the end")
         try:
-            meta = brotli.decompress(raw, meta_orig) if len(raw) == meta_length else b""
+            meta = brotli.decompress(raw, meta_orig)
         except ValueError as err:
             _fail(f"the metadata block's {err}")
         if len(meta) != meta_orig:

@@ -8,18 +8,30 @@ numpy twin in this module (`scan_plain`, `idct_plain`, `upsample_plain`,
 `color_plain`), the tests' reference.
 
 Read: SOI, APPn (APP0's JFIF and APP14's Adobe transform flag), DQT (8-
-and 16-bit tables), SOF0/SOF1 (baseline and extended Huffman, 8-bit) and
-SOF2 (progressive), DHT, DRI with RST0-7, SOS, EOI, COM; any number of
-components (1, 3 or 4 decode to pixels) with any integral sampling
+and 16-bit tables), SOF0/SOF1 (baseline and extended Huffman, 8-bit),
+SOF2 (progressive Huffman), SOF9 and SOF10 (sequential and progressive
+arithmetic coding), SOF3 (lossless, Huffman-coded differences), DHT, DAC
+(the arithmetic conditioning: DC L and U, AC Kx; libjpeg's defaults 0, 1
+and 5 until a DAC sets them), DRI with RST0-7, SOS, EOI, COM; any number
+of components (1, 3 or 4 decode to pixels) with any integral sampling
 factors. Scans: sequential Huffman, interleaved or not, and progressive
 (DC first and refine, AC first and refine, EOB runs, successive
-approximation). Arithmetic coding (SOF9-11, SOF13-15), lossless (SOF3,
-SOF7, SOF11, SOF15), hierarchical (SOF5-7) and 12-bit samples raise
-NotImplementedError; a malformed file raises ValueError.
+approximation); the same processes arithmetic-coded (jdarith.c:
+`arith_scan_plain`, fd_jpeg_arith_scan); lossless scans with predictors 1-7
+and a point transform (jdlhuff.c, jddiffct.c, jdlossls.c:
+`lossless_scan_plain`, fd_jpeg_lossless_scan). A restart marker out of
+sequence in an arithmetic or lossless scan is resynchronised as
+jpeg_resync_to_restart does. Arithmetic lossless (SOF11), hierarchical
+(SOF5-7, SOF13-15) and 12-bit samples raise NotImplementedError (PIL
+12.1.0 reads none of them); a malformed file raises ValueError.
 
 The pixel pipeline is libjpeg-turbo's integer arithmetic with PIL's
 settings (JDCT_ISLOW, do_fancy_upsampling, no block smoothing: a complete
-progressive file has every coefficient refined):
+progressive file has every coefficient refined). A lossless frame skips
+the IDCT: its samples are upsampled by replication (libjpeg's fancy
+upsamplers need a DCT scaling above 1) and keep their colour space, so
+one that asks for a colour conversion (YCbCr, YCCK) raises ValueError as
+libjpeg refuses it ("Unsupported color conversion request"). A DCT frame:
 - dequantisation and jpeg_idct_islow as libjpeg-turbo runs it on x86-64
   (jsimd_idct_islow, jidctint-avx2.asm): jidctint.c's arithmetic in
   16-bit lanes (see fd_jpeg_idct_islow). It equals jidctint.c with its
@@ -63,20 +75,50 @@ NATURAL = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63] + [63] * 16)
 
-SEQUENTIAL, PROGRESSIVE = 0, 1
+SEQUENTIAL, PROGRESSIVE, LOSSLESS = 0, 1, 2
 # upsampling methods (fd_jpeg_upsample)
 BOX, H2V1, H2V2, H1V2 = 0, 1, 2, 3
 # colour conversions (fd_jpeg_color)
 YCC_RGB, YCC_INVERTED = 0, 1
 
-_SOF_KIND = {0xC0: SEQUENTIAL, 0xC1: SEQUENTIAL, 0xC2: PROGRESSIVE}
-_SOF_OTHER = {0xC3: "lossless (SOF3)", 0xC5: "hierarchical (SOF5)",
+# SOF marker -> (kind, arithmetic-coded)
+_SOF_KIND = {0xC0: (SEQUENTIAL, False), 0xC1: (SEQUENTIAL, False),
+             0xC2: (PROGRESSIVE, False), 0xC3: (LOSSLESS, False),
+             0xC9: (SEQUENTIAL, True), 0xCA: (PROGRESSIVE, True)}
+_SOF_OTHER = {0xC5: "hierarchical (SOF5)",
               0xC6: "hierarchical (SOF6)", 0xC7: "hierarchical lossless (SOF7)",
-              0xC9: "arithmetic-coded (SOF9)", 0xCA: "arithmetic-coded (SOF10)",
               0xCB: "arithmetic-coded lossless (SOF11)",
               0xCD: "hierarchical arithmetic-coded (SOF13)",
               0xCE: "hierarchical arithmetic-coded (SOF14)",
               0xCF: "hierarchical arithmetic-coded lossless (SOF15)"}
+
+# jaricom.c's jpeg_aritab: (Qe << 16) | (Next_Index_MPS << 8) |
+# (Switch_MPS << 7) | Next_Index_LPS for the 113 states of Table D.2, and
+# state 113, the fixed bin's non-adapting 0x5a1d
+QE_TABLE = np.array([
+    0x5A1D0181, 0x2586020E, 0x11140310, 0x080B0412, 0x03D80514, 0x01DA0617,
+    0x00E50719, 0x006F081C, 0x0036091E, 0x001A0A21, 0x000D0B23, 0x00060C09,
+    0x00030D0A, 0x00010D0C, 0x5A7F0F8F, 0x3F251024, 0x2CF21126, 0x207C1227,
+    0x17B91328, 0x1182142A, 0x0CEF152B, 0x09A1162D, 0x072F172E, 0x055C1830,
+    0x04061931, 0x03031A33, 0x02401B34, 0x01B11C36, 0x01441D38, 0x00F51E39,
+    0x00B71F3B, 0x008A203C, 0x0068213E, 0x004E223F, 0x003B2320, 0x002C0921,
+    0x5AE125A5, 0x484C2640, 0x3A0D2741, 0x2EF12843, 0x261F2944, 0x1F332A45,
+    0x19A82B46, 0x15182C48, 0x11772D49, 0x0E742E4A, 0x0BFB2F4B, 0x09F8304D,
+    0x0861314E, 0x0706324F, 0x05CD3330, 0x04DE3432, 0x040F3532, 0x03633633,
+    0x02D43734, 0x025C3835, 0x01F83936, 0x01A43A37, 0x01603B38, 0x01253C39,
+    0x00F63D3A, 0x00CB3E3B, 0x00AB3F3D, 0x008F203D, 0x5B1241C1, 0x4D044250,
+    0x412C4351, 0x37D84452, 0x2FE84553, 0x293C4654, 0x23794756, 0x1EDF4857,
+    0x1AA94957, 0x174E4A48, 0x14244B48, 0x119C4C4A, 0x0F6B4D4A, 0x0D514E4B,
+    0x0BB64F4D, 0x0A40304D, 0x583251D0, 0x4D1C5258, 0x438E5359, 0x3BDD545A,
+    0x34EE555B, 0x2EAE565C, 0x299A575D, 0x25164756, 0x557059D8, 0x4CA95A5F,
+    0x44D95B60, 0x3E225C61, 0x38245D63, 0x32B45E63, 0x2E17565D, 0x56A860DF,
+    0x4F466165, 0x47E56266, 0x41CF6367, 0x3C3D6468, 0x375E5D63, 0x52316669,
+    0x4C0F676A, 0x4639686B, 0x415E6367, 0x56276AE9, 0x50E76B6C, 0x4B85676D,
+    0x55976D6E, 0x504F6B6F, 0x5A106FEE, 0x55226D70, 0x59EB6FF0, 0x5A1D7171],
+    np.int64)
+DC_STAT_BINS, AC_STAT_BINS = 64, 256
+# the DAC defaults (jdmarker.c get_soi): DC L and U, AC Kx, for each of 16 tables
+DAC_DEFAULT = np.array([0] * 16 + [1] * 16 + [5] * 16, np.uint8)
 
 
 class Component:
@@ -88,9 +130,14 @@ class Component:
         self.id, self.h, self.v, self.tq = cid, h, v, tq
         self.qt = None  # 64 uint16 quantisers, natural order
 
-    def place(self, w, hgt, hmax, vmax, mcux, mcuy):
+    def place(self, w, hgt, hmax, vmax, mcux, mcuy, lossless=False):
         self.cw = -(-w * self.h // hmax)  # downsampled_width
         self.ch = -(-hgt * self.v // vmax)
+        self.scanned = False
+        if lossless:
+            # a lossless frame's data unit is one sample: its samples, (ch, cw)
+            self.samples = np.zeros((self.ch, self.cw), np.uint8)
+            return
         self.nbw, self.nbh = -(-self.cw // 8), -(-self.ch // 8)
         self.bw, self.bh = mcux * self.h, mcuy * self.v
         self.coefs = np.zeros((self.bh, self.bw, 64), np.int16)
@@ -102,19 +149,41 @@ class Frame:
 
     def __init__(self):
         self.kind = None
+        self.arith = False
         self.width = self.height = 0
         self.components = []
         self.jfif = False
         self.adobe = None  # APP14's transform flag
         self.restart = 0
+        self.cond = DAC_DEFAULT.copy()  # DC L[16], DC U[16], AC Kx[16]
+        self.multi = None  # more than one scan (set at the first)
 
 
-def _segment(data: bytes, pos: int):
+class _Truncated(ValueError):
+    """The data ended inside a marker segment (libjpeg suspends there)."""
+
+
+# markers libjpeg's read_markers takes: those with a segment, and those
+# without one (RSTn and TEM are ignored between scans); any other code
+# (DHP, EXP, JPGn, RESn, JPG) is a fatal error (JERR_UNKNOWN_MARKER)
+_SEGMENT_MARKERS = (set(_SOF_KIND) | set(_SOF_OTHER) | {0xC4, 0xCC, 0xDA, 0xDB, 0xDC, 0xDD, 0xFE}
+                    | set(range(0xE0, 0xF0)))
+
+
+def _segment(data: bytes, pos: int, code: int):
+    """The segment of the marker at `pos` and the position after it. An
+    APPn, COM or DNL segment whose length is below 2 ends after its length
+    field (libjpeg's skip_variable and get_interesting_appn read no data
+    then)."""
     if pos + 4 > len(data):
-        raise ValueError("truncated JPEG file: a marker segment runs past the end")
+        raise _Truncated("truncated JPEG file: a marker segment runs past the end")
     (n,) = struct.unpack_from(">H", data, pos + 2)
-    if n < 2 or pos + 2 + n > len(data):
-        raise ValueError("truncated JPEG file: a marker segment runs past the end")
+    if n < 2 and (0xE0 <= code <= 0xEF or code in (0xFE, 0xDC)):
+        return b"", pos + 4
+    if n < 2:
+        raise ValueError("malformed JPEG marker segment: a length below 2")
+    if pos + 2 + n > len(data):
+        raise _Truncated("truncated JPEG file: a marker segment runs past the end")
     return data[pos + 4: pos + 2 + n], pos + 2 + n
 
 
@@ -149,6 +218,24 @@ def _read_dht(seg: bytes, htables: dict) -> None:
         i += 17 + n
 
 
+def _read_dac(seg: bytes, cond: np.ndarray) -> None:
+    """jdmarker.c get_dac: (index, value) pairs; index 0-15 sets DC table
+    index's L (low nibble) and U (high nibble), 16-31 sets AC table
+    index - 16's Kx."""
+    if len(seg) % 2:
+        raise ValueError("malformed JPEG DAC segment")
+    for i in range(0, len(seg), 2):
+        index, val = seg[i], seg[i + 1]
+        if index >= 32:
+            raise ValueError("malformed JPEG DAC segment: a table index past 31")
+        if index >= 16:
+            cond[32 + index - 16] = val
+        else:
+            if (val & 15) > (val >> 4):
+                raise ValueError("malformed JPEG DAC segment: DC L above U")
+            cond[index], cond[16 + index] = val & 15, val >> 4
+
+
 def _read_sof(seg: bytes, frame: Frame, kind: int) -> None:
     if len(seg) < 6:
         raise ValueError("malformed JPEG SOF segment")
@@ -157,34 +244,42 @@ def _read_sof(seg: bytes, frame: Frame, kind: int) -> None:
         raise NotImplementedError(UNSUPPORTED.format(f"a {p}-bit JPEG"))
     if hgt == 0:
         raise ValueError("JPEG with no height in its SOF (a DNL marker) is not supported")
-    if w == 0 or nc == 0 or len(seg) < 6 + 3 * nc:
+    if w == 0 or nc == 0 or len(seg) != 6 + 3 * nc:
         raise ValueError("malformed JPEG SOF segment")
     frame.kind, frame.width, frame.height = kind, w, hgt
     for k in range(nc):
         cid, hv, tq = seg[6 + 3 * k: 9 + 3 * k]
         h, v = hv >> 4, hv & 15
-        if not (1 <= h <= 4 and 1 <= v <= 4) or tq > 3:
+        if not (1 <= h <= 4 and 1 <= v <= 4):
             raise ValueError("malformed JPEG SOF segment")
         frame.components.append(Component(cid, h, v, tq))
     hmax = max(c.h for c in frame.components)
     vmax = max(c.v for c in frame.components)
     frame.hmax, frame.vmax = hmax, vmax
-    frame.mcux, frame.mcuy = -(-w // (8 * hmax)), -(-hgt // (8 * vmax))
+    unit = 1 if kind == LOSSLESS else 8
+    frame.mcux, frame.mcuy = -(-w // (unit * hmax)), -(-hgt // (unit * vmax))
     for c in frame.components:
-        c.place(w, hgt, hmax, vmax, frame.mcux, frame.mcuy)
+        c.place(w, hgt, hmax, vmax, frame.mcux, frame.mcuy, kind == LOSSLESS)
 
 
 def _scan_args(seg: bytes, frame: Frame, qtables: dict, htables: dict):
     """The SOS header: the scan's components (their quantisation tables
-    latched), the int32 rows and Huffman specs fd_jpeg_scan takes, and
-    Ss, Se, Ah, Al."""
+    latched), the int32 rows and table specs its scan function takes, and
+    Ss, Se, Ah, Al. Rows: Huffman DCT scans H, V, blocks_w, blocks across,
+    blocks down (tables: each component's DC then AC Huffman spec);
+    arithmetic scans the same and the DC and AC table numbers (no tables:
+    the statistics start empty); lossless scans H, V, samples across,
+    samples down (tables: each component's DC Huffman spec)."""
     if frame.kind is None:
         raise ValueError("JPEG SOS before a frame header")
     ns = seg[0] if seg else 0
-    if not 1 <= ns <= 4 or len(seg) < 4 + 2 * ns:
+    if not 1 <= ns <= 4 or len(seg) != 4 + 2 * ns:
         raise ValueError("malformed JPEG SOS segment")
     by_id = {c.id: c for c in frame.components}
-    comps, rows, tabs = [], np.zeros((ns, 5), np.int32), np.zeros((ns, 544), np.uint8)
+    lossless = frame.kind == LOSSLESS
+    width = 4 if lossless else 7 if frame.arith else 5
+    comps, rows = [], np.zeros((ns, width), np.int32)
+    tabs = np.zeros((ns, 272 if lossless else 544), np.uint8)
     ss, se, a = seg[1 + 2 * ns: 4 + 2 * ns]
     ah, al = a >> 4, a & 15
     for k in range(ns):
@@ -192,11 +287,25 @@ def _scan_args(seg: bytes, frame: Frame, qtables: dict, htables: dict):
         if cid not in by_id:
             raise ValueError("JPEG scan names a component the frame does not have")
         c = by_id[cid]
+        c.scanned = True
+        comps.append(c)
+        if lossless:
+            rows[k] = (c.h, c.v, c.cw, c.ch)
+            if (0, t >> 4) not in htables:
+                raise ValueError("JPEG scan uses an undefined Huffman table")
+            tabs[k] = htables[(0, t >> 4)]
+            n = int(tabs[k, :16].sum())
+            if (tabs[k, 16: 16 + n] > 16).any():
+                raise ValueError("malformed JPEG DHT segment: a lossless difference "
+                                 "category past 16")
+            continue
         if c.qt is None:
             if c.tq not in qtables:
                 raise ValueError("JPEG component without a quantisation table")
             c.qt = qtables[c.tq].copy()
-        comps.append(c)
+        if frame.arith:
+            rows[k] = (c.h, c.v, c.bw, c.nbw, c.nbh, t >> 4, t & 15)
+            continue
         rows[k] = (c.h, c.v, c.bw, c.nbw, c.nbh)
         dc_needed = ss == 0 and (frame.kind == SEQUENTIAL or ah == 0)
         ac_needed = frame.kind == SEQUENTIAL or ss > 0
@@ -205,20 +314,33 @@ def _scan_args(seg: bytes, frame: Frame, qtables: dict, htables: dict):
                 if key not in htables:
                     raise ValueError("JPEG scan uses an undefined Huffman table")
                 tabs[k, slot: slot + 272] = htables[key]
-    if frame.kind == SEQUENTIAL:
+    if lossless:
+        # jdlossls.c start_pass_lossless: Ss is the predictor, Al the point transform
+        if not 1 <= ss <= 7 or se != 0 or ah != 0 or al >= 8:
+            raise ValueError("malformed JPEG lossless scan parameters")
+    elif frame.kind == SEQUENTIAL:
         ss, se, ah, al = 0, 63, 0, 0
     elif (ss == 0) != (se == 0) or se > 63 or ss > se or (ss > 0 and ns != 1) or al > 13:
+        raise ValueError("malformed JPEG progressive scan parameters")
+    elif frame.arith and ah != 0 and ah - 1 != al:
         raise ValueError("malformed JPEG progressive scan parameters")
     return comps, rows, tabs, (ss, se, ah, al)
 
 
 def read_frame(data: bytes, plain: bool = False) -> Frame:
     """Read the markers of `data` and decode each scan into the components'
-    coefficients (fd_jpeg_scan, or scan_plain when plain)."""
+    coefficients (fd_jpeg_scan, fd_jpeg_arith_scan, fd_jpeg_lossless_scan,
+    or their plain twins when plain).
+
+    As PIL drives libjpeg: a file of several scans (progressive, or
+    components in scans of their own) is read to its EOI before any row
+    comes out, so one that ends first is truncated; a file of one scan has
+    every row once that scan is decoded, and what follows is read only for
+    its errors (data that runs out there is not one; a second SOS is)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file: no SOI marker")
     frame, qtables, htables = Frame(), {}, {}
-    pos, seen_eoi = 2, False
+    pos, seen_eoi, single_done = 2, False, False
     while pos < len(data):
         if data[pos] != 0xFF:
             pos += 1  # libjpeg skips junk before a marker (with a warning)
@@ -230,44 +352,66 @@ def read_frame(data: bytes, plain: bool = False) -> Frame:
         if code == 0xD9:
             seen_eoi = True
             break
-        if code == 0x00 or 0xD0 <= code <= 0xD8 or code == 0x01:
+        if code == 0x00 or 0xD0 <= code <= 0xD7 or code == 0x01:
             pos += 2
             continue
-        seg, nxt = _segment(data, pos)
+        if code == 0xD8:
+            raise ValueError("JPEG file with a second SOI marker")
+        if code not in _SEGMENT_MARKERS:
+            raise ValueError(f"JPEG file with an unknown marker 0xFF{code:02X}")
+        # the checks libjpeg makes before it reads a segment's length
         if code in _SOF_KIND or code in _SOF_OTHER:
             if frame.kind is not None:
                 raise ValueError("JPEG file with two frame headers")
             if code in _SOF_OTHER:
                 raise NotImplementedError(UNSUPPORTED.format(f"a {_SOF_OTHER[code]} JPEG"))
-            _read_sof(seg, frame, _SOF_KIND[code])
+        if code == 0xDA and frame.kind is None:
+            raise ValueError("JPEG SOS before a frame header")
+        try:
+            seg, nxt = _segment(data, pos, code)
+        except _Truncated:
+            if single_done:
+                break
+            raise
+        if code in _SOF_KIND:
+            kind, frame.arith = _SOF_KIND[code]
+            _read_sof(seg, frame, kind)
         elif code == 0xC4:
             _read_dht(seg, htables)
         elif code == 0xCC:
-            raise NotImplementedError(UNSUPPORTED.format("an arithmetic-coded JPEG (DAC)"))
+            _read_dac(seg, frame.cond)
         elif code == 0xDB:
             _read_dqt(seg, qtables)
         elif code == 0xDD:
-            if len(seg) < 2:
+            if len(seg) != 2:
                 raise ValueError("malformed JPEG DRI segment")
             (frame.restart,) = struct.unpack_from(">H", seg)
-        elif code == 0xDC:
-            raise ValueError("JPEG DNL markers are not supported")
         elif code == 0xE0:
             frame.jfif = frame.jfif or (len(seg) >= 14 and seg[:5] == b"JFIF\x00")
         elif code == 0xEE:
             if len(seg) >= 12 and seg[:5] == b"Adobe":
                 frame.adobe = seg[11]
         elif code == 0xDA:
+            if single_done:
+                raise ValueError("JPEG file with a scan after its only one (EOI expected)")
             comps, rows, tabs, params = _scan_args(seg, frame, qtables, htables)
-            scan = scan_plain if plain else scan_native
+            if frame.multi is None:  # jdinput.c's has_multiple_scans, at the first scan
+                frame.multi = frame.kind == PROGRESSIVE or len(comps) < len(frame.components)
+            if frame.kind == LOSSLESS:
+                scan = lossless_scan_plain if plain else lossless_scan_native
+            elif frame.arith:
+                scan = arith_scan_plain if plain else arith_scan_native
+            else:
+                scan = scan_plain if plain else scan_native
             nxt = scan(data, nxt, frame, comps, rows, tabs, params)
+            single_done = not frame.multi
         pos = nxt
     if frame.kind is None:
         raise ValueError("JPEG file without a frame header")
-    if not seen_eoi:
+    if not seen_eoi and not single_done:
         raise ValueError("truncated JPEG file: no EOI marker")
     for c in frame.components:
-        if c.qt is None:
+        if not c.scanned:
             raise ValueError("JPEG component that no scan carries")
     return frame
 
@@ -469,6 +613,522 @@ def scan_plain(data, pos, frame, comps, rows, tabs, params) -> int:
         return q
 
 
+class _Source:
+    """libjpeg's data source as the arithmetic and lossless decoders see it
+    (jdmarker.c): bytes from `pos`, the marker a decoder ran into
+    (`unread`, 0 for none), next_marker, and read_restart_marker with
+    jpeg_resync_to_restart. Reading past the end raises ValueError: PIL
+    reports a file cut there as truncated."""
+
+    def __init__(self, data, pos):
+        self.data, self.pos, self.unread = data, pos, 0
+
+    def byte(self):
+        if self.pos >= len(self.data):
+            raise ValueError("truncated JPEG file: a scan runs past the end")
+        self.pos += 1
+        return self.data[self.pos - 1]
+
+    def next_marker(self):
+        while True:
+            c = self.byte()
+            while c != 0xFF:
+                c = self.byte()
+            c = self.byte()
+            while c == 0xFF:
+                c = self.byte()
+            if c != 0:
+                self.unread = c
+                return
+
+    def read_restart(self, expect: int) -> None:
+        if self.unread == 0:
+            self.next_marker()
+        if self.unread == 0xD0 + expect:
+            self.unread = 0
+            return
+        marker = self.unread
+        while True:  # jpeg_resync_to_restart
+            if marker < 0xC0:
+                action = 2
+            elif marker < 0xD0 or marker > 0xD7:
+                action = 3
+            elif marker in (0xD0 + ((expect + 1) & 7), 0xD0 + ((expect + 2) & 7)):
+                action = 3
+            elif marker in (0xD0 + ((expect - 1) & 7), 0xD0 + ((expect - 2) & 7)):
+                action = 2
+            else:
+                action = 1
+            if action == 1:
+                self.unread = 0
+                return
+            if action == 3:
+                return
+            self.next_marker()
+            marker = self.unread
+
+    def end(self) -> int:
+        """The position of the marker that ends the scan (its last 0xFF), or
+        the end of the data when none follows (read_frame decides whether a
+        file may end there)."""
+        if self.unread == 0:
+            try:
+                self.next_marker()
+            except ValueError:
+                return len(self.data)
+        return self.pos - 2
+
+
+class _PlainArith:
+    """jdarith.c's decoder: arith_decode with the C and A registers, the
+    bit counter ct (-16 to fetch two bytes first, -1 after a bad code) and
+    get_byte's 0xFF00 unstuffing; a marker feeds zeros from then on."""
+
+    def __init__(self, src: _Source):
+        self.src = src
+        self.reset()
+
+    def reset(self):
+        self.c = self.a = 0
+        self.ct = -16
+
+    def decode(self, st: np.ndarray, i: int) -> int:
+        while self.a < 0x8000:
+            self.ct -= 1
+            if self.ct < 0:
+                src = self.src
+                if src.unread:
+                    data = 0
+                else:
+                    data = src.byte()
+                    if data == 0xFF:
+                        data = src.byte()
+                        while data == 0xFF:
+                            data = src.byte()
+                        if data == 0:
+                            data = 0xFF
+                        else:
+                            src.unread, data = data, 0
+                self.c = (self.c << 8) | data
+                self.ct += 8
+                if self.ct < 0:
+                    self.ct += 1
+                    if self.ct == 0:
+                        self.a = 0x8000
+            self.a <<= 1
+        sv = int(st[i])
+        qe = int(QE_TABLE[sv & 0x7F])
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        temp = self.a - qe
+        self.a = temp
+        temp <<= self.ct
+        if self.c >= temp:
+            self.c -= temp
+            if self.a < qe:
+                self.a = qe
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                self.a = qe
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+        elif self.a < 0x8000:
+            if self.a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        return sv >> 7
+
+
+def _arith_magnitude(d: _PlainArith, st: np.ndarray, i: int, x_bins):
+    """Figures F.23 and F.24 after the sign: the magnitude category's
+    decisions from bin i (for AC a second one at i, then the X bins from
+    x_bins; for DC, x_bins None, the X bins from bin 20), then its bits 14
+    bins past the last. Returns (v - 1, category), or None when the
+    category overflows (JWRN_ARITH_BAD_CODE)."""
+    m = d.decode(st, i)
+    if m:
+        if x_bins is None:
+            i, more = 20, True
+        else:
+            more = d.decode(st, i)
+            if more:
+                m, i = m << 1, x_bins
+        if more:
+            while d.decode(st, i):
+                m <<= 1
+                if m == 0x8000:
+                    return None
+                i += 1
+    v, cat = m, m
+    i += 14
+    m >>= 1
+    while m:
+        if d.decode(st, i):
+            v |= m
+        m >>= 1
+    return v, cat
+
+
+class _ArithState:
+    """One arithmetic scan's statistics (a 64-bin DC and a 256-bin AC area
+    for each of the 16 tables, and the fixed bin) and each scan
+    component's DC prediction and context."""
+
+    def __init__(self, frame, rows, params):
+        self.ss, self.se, self.ah, self.al = params
+        self.progressive = frame.kind == PROGRESSIVE
+        self.cond = frame.cond
+        self.dc_tbl = [int(r[5]) for r in rows]
+        self.ac_tbl = [int(r[6]) for r in rows]
+        self.dc_stats = np.zeros((16, DC_STAT_BINS), np.uint8)
+        self.ac_stats = np.zeros((16, AC_STAT_BINS), np.uint8)
+        self.fixed = np.array([113], np.uint8)
+
+    def start(self, d: _PlainArith) -> None:
+        """start_pass and process_restart: the scan's statistics areas
+        zeroed, its predictions and contexts 0, the coder reset."""
+        for k in range(len(self.dc_tbl)):
+            if not self.progressive or (self.ss == 0 and self.ah == 0):
+                self.dc_stats[self.dc_tbl[k]] = 0
+            if not self.progressive or self.ss:
+                self.ac_stats[self.ac_tbl[k]] = 0
+        n = len(self.dc_tbl)
+        self.last, self.context = [0] * n, [0] * n
+        d.reset()
+
+    def dc(self, d: _PlainArith, ci: int) -> bool:
+        """Decode_DC_DIFF into last[ci], its context updated; False after a
+        bad code."""
+        t = self.dc_tbl[ci]
+        st = self.dc_stats[t]
+        s0 = self.context[ci]
+        if d.decode(st, s0) == 0:
+            self.context[ci] = 0
+            return True
+        sign = d.decode(st, s0 + 1)
+        got = _arith_magnitude(d, st, s0 + 2 + sign, None)
+        if got is None:
+            return False
+        v, m = got
+        if m < (1 << int(self.cond[t])) >> 1:
+            self.context[ci] = 0
+        elif m > (1 << int(self.cond[16 + t])) >> 1:
+            self.context[ci] = 12 + sign * 4
+        else:
+            self.context[ci] = 4 + sign * 4
+        v += 1
+        self.last[ci] = (self.last[ci] + (-v if sign else v)) & 0xFFFF
+        return True
+
+    def ac(self, d: _PlainArith, ci: int, blk, lo: int, hi: int, al: int) -> bool:
+        """Decode_AC_coefficients lo..hi into blk, scaled by al; False after
+        a bad code."""
+        t = self.ac_tbl[ci]
+        st = self.ac_stats[t]
+        kx = int(self.cond[32 + t])
+        k = lo
+        while k <= hi:
+            i = 3 * (k - 1)
+            if d.decode(st, i):
+                break
+            while d.decode(st, i + 1) == 0:
+                i += 3
+                k += 1
+                if k > hi:
+                    return False
+            sign = d.decode(self.fixed, 0)
+            got = _arith_magnitude(d, st, i + 2, 189 if k <= kx else 217)
+            if got is None:
+                return False
+            v = got[0] + 1
+            blk[NATURAL[k]] = _int16((-v if sign else v) << al)
+            k += 1
+        return True
+
+    def ac_refine(self, d: _PlainArith, ci: int, blk) -> bool:
+        """decode_mcu_AC_refine on one block; False after a bad code."""
+        st = self.ac_stats[self.ac_tbl[ci]]
+        ss, se = self.ss, self.se
+        p1, m1 = 1 << self.al, -(1 << self.al)
+        kex = se
+        while kex > 0 and not blk[NATURAL[kex]]:
+            kex -= 1
+        k = ss
+        while k <= se:
+            i = 3 * (k - 1)
+            if k > kex and d.decode(st, i):
+                break
+            while True:
+                z = NATURAL[k]
+                t = int(blk[z])
+                if t:
+                    if d.decode(st, i + 2):
+                        blk[z] = _int16(t + (m1 if t < 0 else p1))
+                    break
+                if d.decode(st, i + 1):
+                    blk[z] = m1 if d.decode(self.fixed, 0) else p1
+                    break
+                i += 3
+                k += 1
+                if k > se:
+                    return False
+            k += 1
+        return True
+
+    def block(self, d: _PlainArith, ci: int, blk) -> bool:
+        """One block of the scan's kind; False after a bad code."""
+        if not self.progressive:
+            if not self.dc(d, ci):
+                return False
+            blk[0] = _int16(self.last[ci])
+            return self.ac(d, ci, blk, 1, 63, 0)
+        if self.ss == 0:
+            if self.ah:
+                if d.decode(self.fixed, 0):
+                    blk[0] = _int16(int(blk[0]) | (1 << self.al))
+                return True
+            if not self.dc(d, ci):
+                return False
+            blk[0] = _int16(self.last[ci] << self.al)
+            return True
+        if self.ah:
+            return self.ac_refine(d, ci, blk)
+        return self.ac(d, ci, blk, self.ss, self.se, self.al)
+
+
+def arith_scan_plain(data, pos, frame, comps, rows, tabs, params) -> int:
+    """arith_scan_native in Python, decision by decision (jdarith.c
+    decode_mcu and its four progressive kinds, process_restart): the
+    tests' reference."""
+    src = _Source(data, pos)
+    d = _PlainArith(src)
+    state = _ArithState(frame, rows, params)
+    state.start(d)
+    ns = len(comps)
+    if ns == 1:
+        per_row, total = comps[0].nbw, comps[0].nbw * comps[0].nbh
+    else:
+        per_row, total = frame.mcux, frame.mcux * frame.mcuy
+    left, nxt = frame.restart, 0
+    for m in range(total):
+        if frame.restart:
+            if left == 0:
+                src.read_restart(nxt)
+                nxt, left = (nxt + 1) & 7, frame.restart
+                state.start(d)
+            left -= 1
+        if d.ct == -1:
+            continue  # after a bad code the interval decodes nothing
+        my, mx = divmod(m, per_row)
+        blocks = [(ci, c.coefs[my * vv + v, mx * hh + h])
+                  for ci, c in enumerate(comps)
+                  for hh, vv in [(1, 1) if ns == 1 else (c.h, c.v)]
+                  for v in range(vv) for h in range(hh)]
+        for ci, blk in blocks:
+            if not state.block(d, ci, blk):
+                d.ct = -1
+                break
+    return src.end()
+
+
+def arith_scan_native(data, pos, frame, comps, rows, tabs, params) -> int:
+    """One arithmetic-coded scan from `pos` into the components'
+    coefficients, in C++ (fd_jpeg_arith_scan); returns the position of the
+    marker after it."""
+    ss, se, ah, al = params
+    buf = np.frombuffer(data, np.uint8)
+    ptrs = (ctypes.c_void_p * len(comps))(*[c.coefs.ctypes.data for c in comps])
+    end = image_lib.load().fd_jpeg_arith_scan(
+        buf.ctypes.data, len(data), pos, len(comps), rows.ctypes.data,
+        frame.cond.ctypes.data, ptrs, frame.mcux, frame.mcuy, frame.restart, ss, se, ah,
+        al, frame.kind)
+    if end < 0:
+        raise ValueError(f"corrupt JPEG scan data (code {end})")
+    return int(end)
+
+
+class _LosslessBits:
+    """jdhuff.c's bit reader as jdlhuff.c drives it: each fill loads bytes
+    until 57 bits are buffered (MIN_GET_BITS), so it reads ahead of the
+    bits used, and data that ends before a marker stops the decode as PIL
+    finds it truncated; a marker stops the feed and zero bits follow,
+    `short` set once a fill needs bits past it (insufficient_data);
+    HUFF_DECODE's 8-bit lookahead, and a bad code decodes as 0 after 17
+    bits (jpeg_huff_decode)."""
+
+    def __init__(self, src: _Source):
+        self.src = src
+        self.acc = self.n = 0
+        self.short = False
+
+    def fill(self, need: int) -> None:
+        src = self.src
+        if not src.unread:
+            while self.n < 57:
+                c = src.byte()
+                if c == 0xFF:
+                    c = src.byte()
+                    while c == 0xFF:
+                        c = src.byte()
+                    if c != 0:
+                        src.unread = c
+                        break
+                    c = 0xFF
+                self.acc = (self.acc << 8) | c
+                self.n += 8
+            else:
+                return
+        if need > self.n:
+            self.short = True
+            self.acc <<= 57 - self.n
+            self.n = 57
+
+    def bits(self, k: int) -> int:
+        if self.n < k:
+            self.fill(k)
+        self.n -= k
+        v = self.acc >> self.n
+        self.acc &= (1 << self.n) - 1
+        return v
+
+    def decode(self, huff: _PlainHuff) -> int:
+        if self.n < 8:
+            self.fill(0)
+        length = 1
+        if self.n >= 8:
+            look = self.acc >> (self.n - 8)
+            for l in range(1, 9):
+                sym = huff.codes.get((l, look >> (8 - l)))
+                if sym is not None:
+                    self.bits(l)
+                    return sym
+            length = 9
+        code = self.bits(length)
+        while length <= 16:
+            sym = huff.codes.get((length, code))
+            if sym is not None:
+                return sym
+            code = (code << 1) | self.bits(1)
+            length += 1
+        return 0
+
+
+def _lossless_geometry(frame, rows):
+    """(interleaved, MCUs a row, iMCU rows, and per scan component its MCU
+    width and height): jdinput.c per_scan_setup with a one-sample data
+    unit."""
+    if len(rows) > 1:
+        return True, frame.mcux, frame.mcuy, [(int(r[0]), int(r[1])) for r in rows]
+    return False, int(rows[0][2]), frame.mcuy, [(1, 1)]
+
+
+def _predict(psv: int, ra: int, rb: int, rc: int) -> int:
+    """jdlossls.c's predictors 1-7 (RIGHT_SHIFT is arithmetic)."""
+    if psv == 1:
+        return ra
+    if psv == 2:
+        return rb
+    if psv == 3:
+        return rc
+    if psv == 4:
+        return ra + rb - rc
+    if psv == 5:
+        return ra + ((rb - rc) >> 1)
+    if psv == 6:
+        return rb + ((ra - rc) >> 1)
+    return (ra + rb) >> 1
+
+
+def lossless_scan_plain(data, pos, frame, comps, rows, tabs, params) -> int:
+    """lossless_scan_native in Python, sample by sample (jdlhuff.c
+    decode_mcus, jddiffct.c decompress_data and process_restart, jdlossls.c
+    undifferencing and scaling): the tests' reference."""
+    psv, _se, _ah, pt = params
+    src = _Source(data, pos)
+    b = _LosslessBits(src)
+    huffs = [_PlainHuff(t) for t in tabs]
+    interleaved, per_row, imcu_rows, units = _lossless_geometry(frame, rows)
+    if frame.restart % per_row:
+        raise ValueError("corrupt JPEG scan: a lossless restart interval that is not "
+                         "a whole number of MCU rows")
+    rows_per_restart = frame.restart // per_row
+    to_go, nxt = rows_per_restart, 0
+    first = [True] * len(comps)  # the first-row undifferencer, per component
+    prev = [None] * len(comps)
+    initial = 1 << (8 - pt - 1)
+    for r in range(imcu_rows):
+        last = r == imcu_rows - 1
+        heights = []
+        for c in comps:
+            tail = c.ch % c.v or c.v
+            heights.append(tail if last else c.v)
+        mcu_rows = 1 if interleaved else heights[0]
+        diff = [np.zeros((c.v if interleaved else mcu_rows, per_row * u[0]), np.int64)
+                for c, u in zip(comps, units)]
+        for y in range(mcu_rows):
+            if frame.restart and to_go == 0:
+                b.acc = b.n = 0  # the buffered bits are dropped
+                src.read_restart(nxt)
+                nxt = (nxt + 1) & 7
+                if src.unread == 0:
+                    b.short = False
+                first = [True] * len(comps)
+                to_go = rows_per_restart
+            if b.short:
+                first = [True] * len(comps)  # the rows decode as zeros
+            else:
+                for mx in range(per_row):
+                    for ci, (mw, mh) in enumerate(units):
+                        for yy in range(mh):
+                            for xx in range(mw):
+                                s = b.decode(huffs[ci])
+                                if s == 16:
+                                    v = 32768
+                                elif s:
+                                    v = _extend(b.bits(s), s)
+                                else:
+                                    v = 0
+                                diff[ci][y + yy, mx * mw + xx] = v
+            if frame.restart:
+                to_go -= 1
+        for ci, c in enumerate(comps):
+            for y in range(heights[ci]):
+                dr = diff[ci][y]
+                out = np.zeros(c.cw, np.int64)
+                if first[ci]:
+                    ra = (int(dr[0]) + initial) & 0xFFFF
+                    out[0] = ra
+                    for x in range(1, c.cw):
+                        ra = (int(dr[x]) + ra) & 0xFFFF
+                        out[x] = ra
+                    first[ci] = False
+                else:
+                    up = prev[ci]
+                    ra = (int(dr[0]) + int(up[0])) & 0xFFFF
+                    out[0] = ra
+                    for x in range(1, c.cw):
+                        ra = (int(dr[x]) + _predict(psv, ra, int(up[x]), int(up[x - 1]))) & 0xFFFF
+                        out[x] = ra
+                prev[ci] = out
+                c.samples[r * c.v + y] = (out << pt) & 0xFF
+    return src.end()
+
+
+def lossless_scan_native(data, pos, frame, comps, rows, tabs, params) -> int:
+    """One lossless scan from `pos` into the components' samples, in C++
+    (fd_jpeg_lossless_scan); returns the position of the marker after it."""
+    psv, _se, _ah, pt = params
+    buf = np.frombuffer(data, np.uint8)
+    ptrs = (ctypes.c_void_p * len(comps))(*[c.samples.ctypes.data for c in comps])
+    end = image_lib.load().fd_jpeg_lossless_scan(
+        buf.ctypes.data, len(data), pos, len(comps), rows.ctypes.data, tabs.ctypes.data,
+        ptrs, frame.mcux, frame.mcuy, frame.restart, psv, pt)
+    if end < 0:
+        raise ValueError(f"corrupt JPEG scan data (code {end})")
+    return int(end)
+
+
 def idct(coefs: np.ndarray, qt: np.ndarray) -> np.ndarray:
     """(bh, bw, 64) int16 coefficients and 64 natural-order quantisers to
     the (bh * 8, bw * 8) uint8 samples, in C++ (fd_jpeg_idct_islow)."""
@@ -608,7 +1268,8 @@ def color_space(frame: Frame) -> str:
         if frame.adobe is not None:
             return "RGB" if frame.adobe == 0 else "YCbCr"
         ids = tuple(c.id for c in frame.components)
-        return "RGB" if ids == (82, 71, 66) else "YCbCr"
+        # libjpeg-turbo 3 takes a lossless frame without markers for RGB
+        return "RGB" if ids == (82, 71, 66) or frame.kind == LOSSLESS else "YCbCr"
     if n == 4:
         if frame.adobe is not None:
             return "CMYK" if frame.adobe == 0 else "YCCK"
@@ -633,8 +1294,13 @@ def _full_planes(frame: Frame, plain: bool) -> list:
     the frame's full (H, W) grid."""
     planes = []
     for c in frame.components:
-        samples = (idct_plain if plain else idct)(c.coefs, c.qt)
-        method, hx, vy = upsample_method(c, frame.hmax, frame.vmax)
+        if frame.kind == LOSSLESS:
+            samples = c.samples
+            _method, hx, vy = upsample_method(c, frame.hmax, frame.vmax)
+            method = BOX  # replication: fancy upsampling needs a DCT scaling above 1
+        else:
+            samples = (idct_plain if plain else idct)(c.coefs, c.qt)
+            method, hx, vy = upsample_method(c, frame.hmax, frame.vmax)
         planes.append((upsample_plain if plain else upsample)(
             samples, c.cw, c.ch, frame.width, frame.height, method, hx, vy))
     return planes
@@ -672,6 +1338,9 @@ def decode_jpeg(data: bytes, plain: bool = False) -> np.ndarray:
     twin instead of the C++ helper (the tests' reference)."""
     frame = read_frame(data, plain)
     space = color_space(frame)
+    if frame.kind == LOSSLESS and space in ("YCbCr", "YCCK"):
+        raise ValueError(f"a lossless JPEG in {space}: libjpeg converts no colour space "
+                         "of a lossless frame (Unsupported color conversion request)")
     w, h = frame.width, frame.height
     planes = _full_planes(frame, plain)
     out = np.full((h, w, 4), 255, np.uint8)

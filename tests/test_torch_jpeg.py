@@ -288,10 +288,13 @@ def _with_marker(data: bytes, old: bytes, new: bytes) -> bytes:
     return data[:at] + new + data[at + len(old):]
 
 
-@pytest.mark.parametrize("sof,what", [(b"\xff\xc9", "arithmetic-coded"),
-                                      (b"\xff\xc3", "lossless"),
+@pytest.mark.parametrize("sof,what", [(b"\xff\xcb", "arithmetic-coded lossless"),
+                                      (b"\xff\xcd", "hierarchical arithmetic-coded"),
                                       (b"\xff\xc5", "hierarchical")])
 def test_unported_coding_processes_raise(sof, what, tmp_path):
+    """The processes PIL 12.1.0 cannot read either: arithmetic lossless
+    (SOF11) and hierarchical (SOF5, SOF13). SOF9, SOF10 and SOF3 are read
+    (tests/test_torch_jpeg_arith.py, test_torch_jpeg_lossless.py)."""
     data = _with_marker(_encode(_source(16, 16)), b"\xff\xc0", sof)
     path = str(tmp_path / "x.jpg")
     with open(path, "wb") as fh:

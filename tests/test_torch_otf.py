@@ -10,7 +10,13 @@ the JAX package reads fonts with.
   compiled on the port's tables equals the JAX shaper compiled on
   fontTools' (every GSUB and GPOS lookup, the mark, cursive and kerning
   tables, the GDEF classes, the mark filtering sets);
-- cmap formats 0, 6 and 12 and post format 3 names on fonts built for them;
+- cmap formats 0, 6 and 12 on fonts built for them; the glyph names of
+  faces whose post table names no glyph (format 3, none, format 1 over
+  258 glyphs) and of post format 4, against figdraw_tpu's typeface, and
+  the AGL table against fontTools.agl;
+- malformed tables (hmtx, maxp, post, loca, fvar, a table or the
+  directory past the end, no cmap) refused with ValueError where fontTools
+  fails;
 - names, axes, feature tags and scripts (typeface_info) against the JAX
   package's;
 - a CFF face built with FontBuilder and a variable face at locations away
@@ -25,7 +31,10 @@ the JAX package reads fonts with.
 
 import dataclasses
 import hashlib
+import io
 import os
+import struct
+import sys
 
 import pytest
 from fontTools.pens.recordingPen import DecomposingRecordingPen
@@ -245,8 +254,9 @@ def test_context_positioning_subtables_equal_fonttools(built_fonts, tmp_path):
 
 def test_cmap_formats_and_post_format_3(tmp_path):
     """getBestCmap's pick among subtables of formats 0, 4, 6 and 12, and a
-    font without glyph names (post format 3): unique, stable names, the
-    same gids through the shaper."""
+    font without glyph names (post format 3): fontTools' names from the
+    cmap (TTFont._getGlyphNamesFromCmap), figdraw_tpu's typeface's glyph
+    order and glyph_name, the same gids through the shaper."""
     from fontTools.ttLib.tables._c_m_a_p import CmapSubtable
 
     base = TTFont(DEJAVU)
@@ -271,6 +281,9 @@ def test_cmap_formats_and_post_format_3(tmp_path):
     base.save(path)
     ours = _reader(path)
     assert len(set(ours.glyph_order)) == len(ours.glyph_order) == 6253
+    jtf = jax_typefaces.get_typeface(jax_typefaces.load_typeface(path))
+    assert ours.glyph_order == jtf._glyph_order
+    assert ours.glyph_order[:4] == [".notdef", "glyph00001", "glyph00002", "space"]
     tid = port_typefaces.load_typeface(path)
     tf = port_typefaces.get_typeface(tid)
     names = [tf.glyph_name(tf.glyph_id(ord(c))) for c in "office AV"]
@@ -281,6 +294,148 @@ def test_cmap_formats_and_post_format_3(tmp_path):
     ref_out, _ = port_shaper.get_shaper(ref).substitute(
         ref_names, [(i, i + 1) for i in range(len(ref_names))])
     assert [tf._name_to_gid[n] for n in out] == [ref._name_to_gid[n] for n in ref_out]
+    assert [tf.glyph_name(g) for g in range(6254)] == [jtf.glyph_name(g) for g in range(6254)]
+
+
+@pytest.mark.parametrize("post", ["format 3", "none", "format 4", "format 1 over 258 glyphs"])
+@pytest.mark.parametrize("face", ["FigPortSans-VF.ttf", "DejaVuSans.ttf"])
+def test_glyph_names_without_post_names_are_figdraw_tpus(face, post, tmp_path):
+    """A glyf face whose post table names no glyph (format 3, no post
+    table, format 1 over more glyphs than its 258 names) takes fontTools'
+    names from its cmap (AGL names, uniXXXX and uXXXXX, ".altN" for a name
+    used again, glyphNNNNN for the rest); post format 4 names its glyphs
+    by code through the AGL: the port's glyph_order and glyph_name equal
+    figdraw_tpu's typeface's, name for name."""
+    from figdraw_tpu_torch.text.typefaces import bundled_font_path
+
+    tt = TTFont(bundled_font_path(face))
+    if post == "none":
+        del tt["post"]
+    elif post == "format 1 over 258 glyphs":
+        tt["post"].formatType = 1.0
+    else:
+        tt["post"].formatType = 3.0
+    path = str(tmp_path / "twin.ttf")
+    tt.save(path)
+    if post == "format 4":  # fontTools writes no format 4: the codes are set by hand
+        data = bytearray(open(path, "rb").read())
+        ours = OTFont(bytes(data))
+        off, _length = ours.tables["post"]
+        cmap = {g: c for c, g in sorted(TTFont(path).getBestCmap().items(), reverse=True)
+                if c <= 0xFFFF}
+        codes = [cmap.get(name, 0xFFFF) for name in TTFont(path).getGlyphOrder()]
+        body = struct.pack(">I", 0x00040000) + bytes(data[off + 4: off + 32]) + \
+            struct.pack(">%dH" % len(codes), *codes)
+        data = _replace_table(bytes(data), "post", body)
+        with open(path, "wb") as fh:
+            fh.write(data)
+    ours = _reader(path)
+    jtf = jax_typefaces.get_typeface(jax_typefaces.load_typeface(path))
+    assert ours.glyph_order == jtf._glyph_order == TTFont(path).getGlyphOrder()
+    n = len(ours.glyph_order)
+    tf = port_typefaces.get_typeface(port_typefaces.load_typeface(path))
+    assert [tf.glyph_name(g) for g in range(n + 1)] == [jtf.glyph_name(g) for g in range(n + 1)]
+    if face == "FigPortSans-VF.ttf" and post != "format 1 over 258 glyphs":
+        # the port's earlier rule (".notdef", then glyph00001 on) parted
+        # from these names on most glyphs: 319 of 391 for post format 3
+        synthesized = [".notdef"] + ["glyph%.5d" % g for g in range(1, n)]
+        assert sum(a != b for a, b in zip(ours.glyph_order, synthesized)) >= 300
+
+
+def _replace_table(data: bytes, tag: str, body: bytes) -> bytes:
+    """The sfnt `data` with table `tag`'s bytes replaced by `body`, appended
+    at the end (its directory entry's offset and length rewritten)."""
+    out = bytearray(data)
+    n = struct.unpack_from(">H", data, 4)[0]
+    for i in range(n):
+        rec = 12 + 16 * i
+        if data[rec: rec + 4] == tag.encode():
+            while len(out) % 4:
+                out.append(0)
+            struct.pack_into(">II", out, rec + 8, len(out), len(body))
+            out += body
+            return bytes(out)
+    raise KeyError(tag)
+
+
+def test_agl_table_is_what_the_tool_writes():
+    """text/agl_data.py against fontTools.agl.UV2AGL, as
+    tools/make_agl_table.py writes it."""
+    from fontTools import agl
+
+    from figdraw_tpu_torch.text.agl_data import UV2AGL
+    from torch_reference import REPO
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import make_agl_table
+
+    assert UV2AGL == agl.UV2AGL
+    for path, data in make_agl_table.outputs().items():
+        with open(path, "rb") as fh:
+            assert fh.read() == data, path
+
+
+def _malformed(name: str) -> bytes:
+    """FigPortSans-VF.ttf with one table made malformed as `name` says."""
+    from figdraw_tpu_torch.text.typefaces import bundled_font_path
+
+    data = open(bundled_font_path("FigPortSans-VF.ttf"), "rb").read()
+    face = OTFont(data)
+    if name == "hmtx shorter than its metrics":
+        off, length = face.tables["hmtx"]
+        return _replace_table(data, "hmtx", data[off: off + length - 6])
+    if name == "maxp of another length":
+        off, length = face.tables["maxp"]
+        return _replace_table(data, "maxp", data[off: off + length] + b"\0\0")
+    if name == "a table past the end":
+        return data[: face.tables["glyf"][0] + face.tables["glyf"][1] - 10] \
+            if face.tables["glyf"][0] > face.tables["hmtx"][0] else data[:-10]
+    if name == "no cmap":
+        return data.replace(b"cmap", b"cmaq", 1)
+    if name == "post format 2.5":
+        off, length = face.tables["post"]
+        return _replace_table(data, "post", struct.pack(">I", 0x00025000) +
+                              data[off + 4: off + length])
+    if name == "a loca entry before the one above it":
+        off, length = face.tables["loca"]
+        loca = bytearray(data[off: off + length])
+        loca[8:10], loca[10:12] = loca[10:12], loca[8:10]
+        loca[8:10] = struct.pack(">H", struct.unpack(">H", loca[10:12])[0] + 10)
+        return _replace_table(data, "loca", bytes(loca))
+    if name == "fvar of another version":
+        off, length = face.tables["fvar"]
+        return _replace_table(data, "fvar", b"\x00\x02" + data[off + 2: off + length])
+    if name == "a directory past the end":
+        return data[:30]
+    raise KeyError(name)
+
+
+MALFORMED = ["hmtx shorter than its metrics", "maxp of another length", "a table past the end",
+             "no cmap", "post format 2.5", "a loca entry before the one above it",
+             "fvar of another version", "a directory past the end"]
+
+
+@pytest.mark.parametrize("name", MALFORMED)
+def test_malformed_tables_raise_valueerror_where_fonttools_fails(name):
+    """fontTools' checks on the tables figdraw_tpu's load reads: each
+    malformed face fails in fontTools (as figdraw_tpu's Typeface opens it)
+    and raises ValueError naming the table in the port."""
+    from fontTools.pens.recordingPen import DecomposingRecordingPen
+
+    data = _malformed(name)
+    with pytest.raises(Exception):  # noqa: B017 - any fontTools failure
+        tt = TTFont(io.BytesIO(data), lazy=True)
+        tt["head"], tt["hhea"]  # noqa: B018
+        order = tt.getGlyphOrder()
+        gs = tt.getGlyphSet()
+        for gname in order:
+            gs[gname].draw(DecomposingRecordingPen(gs))
+        tt.getBestCmap()
+    with pytest.raises(ValueError):
+        face = OTFont(data)
+        face.getBestCmap()
+        for gid in range(len(face.glyph_order)):
+            face.glyph_path(gid)
 
 
 @pytest.mark.parametrize("key", ["dejavu", "serif", "var", "fea"])

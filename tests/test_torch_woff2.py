@@ -23,9 +23,10 @@ test by `_brotli` and never for the session).
   from each face is held to figdraw_tpu's combo and atlas byte for byte in
   test_torch_variations.py (scenes.FONT_TEXT_CASES).
 - Faults: seeded cuts and flips of the two FigPort faces
-  (tools/woff2_fuzz_agreement.py's cases) fail in the port where they fail
-  in fontTools and read its values elsewhere; a WOFF2 collection raises
-  ValueError, as fontTools fails on one.
+  (tools/woff2_fuzz_agreement.py's cases) fail in the port, with
+  ValueError, where they fail in fontTools and read its values elsewhere;
+  the cases the port once read apart from fontTools, rebuilt from their
+  seeds; a WOFF2 collection raises ValueError, as fontTools fails on one.
 - A corrupt "wOF2" header raises ValueError naming WOFF2 where fontTools
   raises: tests/test_torch_woff.py::test_woff2_raises_naming_woff2.
 """
@@ -219,10 +220,41 @@ def test_corrupt_faces_fail_where_fonttools_fails(seed):
         if name == "DejaVuSans.woff2":
             continue
         kinds.append(woff2_fuzz_agreement.classify(data))
-    # both refuse: the port's own ValueError, or its CFF and sfnt readers'
-    # errors on a table the flip corrupted ("both_raise (IndexError)")
-    assert all(k == "equal" or k.startswith("both_raise") for k in kinds), kinds
+    # both refuse, the port with ValueError or NotImplementedError only
+    # (classify names any other refusal: "both_raise (IndexError)")
+    assert all(k in ("equal", "both_raise") for k in kinds), kinds
     assert len(kinds) == 25
+
+
+# (pass, seed, index) of tools/woff2_fuzz_agreement.py's cases the port once
+# read apart from fontTools, and what each holds
+REPAIRED_FUZZ_CASES = [
+    ("woff2", 0, 124, "no post table: fontTools names the glyphs from cmap"),
+    ("woff2", 1, 170, "no post table: fontTools names the glyphs from cmap"),
+    ("woff2", 1, 9, "an hmtx shorter than its numberOfHMetrics"),
+    ("woff2", 0, 267, "a CFF Top DICT with a VarStore cut short"),
+    ("woff2", 1, 49, "a CFF offset before the table's start"),
+    ("woff2", 1, 299, "a CFF INDEX item past the table"),
+    ("woff2", 1, 337, "a WOFF2 metadata block past the file"),
+    ("woff2", 1, 350, "the cmap entry's tag flipped: no cmap table"),
+    ("woff2", 2, 33, "a CFF font name that is not ASCII"),
+    ("woff2", 1, 97, "a Top DICT string id past the CFF strings"),
+    ("woff2", 0, 217, "a table directory past the end (was struct.error)"),
+    ("woff2", 1, 59, "a charstring operator short of operands (was IndexError)"),
+    ("woff2", 1, 163, "a CFF charset offset below 0 (was KeyError)"),
+    ("woff2", 0, 198, "a composite's component past the glyphs (was IndexError)"),
+]
+
+
+@pytest.mark.parametrize("case", REPAIRED_FUZZ_CASES,
+                         ids=[f"{c[0]}-seed{c[1]}-{c[2]}" for c in REPAIRED_FUZZ_CASES])
+def test_repaired_fuzz_cases_agree_with_fonttools(case):
+    """Each case rebuilt from its seed and index: the port reads fontTools'
+    values, or refuses with ValueError where fontTools fails."""
+    which, seed, index, _why = case
+    rebuild = woff2_fuzz_agreement.case if which == "woff2" else woff2_fuzz_agreement.sfnt_case
+    _name, data = rebuild(seed, index)
+    assert woff2_fuzz_agreement.classify(data) in ("equal", "both_raise")
 
 
 def test_a_woff2_collection_raises():

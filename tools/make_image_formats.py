@@ -26,21 +26,28 @@ render_3d_overlay_gaussian.png, 800x600 RGBA), with PIL on the CPU host:
   encoder, `libwebp_encode`, the options PIL's save does not set: the
   simple loop filter, no filter, sharpness 7, one and four segments, eight
   token partitions, raw ALPH and each ALPH filter, and lossless tiles that
-  take all 14 predictor modes). The card's machine has
+  take all 14 predictor modes), and arithmetic-coded and lossless JPEGs
+  (`arith_lossless_files`, through libjpeg-turbo's own encoder, which
+  PIL's save does not reach: tools/jpeg_arith_lossless_writer.c, built by
+  `arith_lossless_writer` with gcc and linked to PIL's libjpeg: the
+  fixture as SOF9 and as SOF10 with restarts, crops with DAC conditioning
+  other than the defaults, a grey and a CMYK crop, a 224x168 lossless crop
+  and crops through each lossless predictor). The card's machine has
   no PIL: chip_smoke.py decodes these.
 - `figdraw_tpu_torch/reference/image_formats.json`: under "files", each
   file's sha256 and the sha256 and shape of PIL's decode,
   `Image.open(p).convert("RGBA")`; under "sidecar", the sha256 of the
   .flippy sidecar figdraw_tpu's read_image_cached writes for the baseline
-  JPEG, the TIFF fixture, the lossy WebP fixture, the ZSTD fixture and
-  the Group 4 fax page.
-- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3}_1x_blocks8.npy`
-  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4}_480x270_blocks8.npy`:
+  JPEG, the TIFF fixture, the lossy WebP fixture, the ZSTD fixture, the
+  Group 4 fax page, the SOF10 fixture and the SOF3 crop.
+- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3,arith}_1x_blocks8.npy`
+  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4,lossless}_480x270_blocks8.npy`:
   8x8 block means of figdraw_tpu's frames of the image-file scene and of
   the photo wall at 480x270 (12 panels) with the baseline JPEG, the TIFF,
-  WebP or ZSTD fixture, the dithered Group 3 fixture or the Group 4 page
-  loaded by its load_image (FigRenderer(atlas_size=512, use_pallas=False),
-  the page's from scenes.FAX_ATLAS; tests/torch_reference.py).
+  WebP or ZSTD fixture, the dithered Group 3 fixture, the Group 4 page,
+  the SOF10 fixture or the SOF3 crop loaded by its load_image
+  (FigRenderer(atlas_size=512, use_pallas=False), the page's from
+  scenes.FAX_ATLAS; tests/torch_reference.py).
 
 The BMP builders (`bmp_bytes`, `rle8`, `rle4`), the TIFF writer
 (`tiff_bytes`, with `packbits`, `lzw`, `jpeg_parts` and the CCITT encoder
@@ -650,6 +657,7 @@ def image_files() -> dict:
     files.update(tiff_files(src))
     files.update(fax_zstd_files(src))
     files.update(webp_files(src))
+    files.update(arith_lossless_files(src))
     return files
 
 
@@ -841,6 +849,96 @@ def fax_zstd_files(src) -> dict:
     crop = bits[40:240, 80:680]
     files["fax_tiles_g4.tif"] = tiff_bytes(crop, 0, bits=1, compression=4, tile=(128, 64),
                                            codec=lambda b: fax_encode(b[..., 0], 4))
+    return files
+
+
+ARITH_FIXTURE = "arith_progressive_rst.jpg"
+LOSSLESS_FIXTURE = "lossless_crop_p1.jpg"
+WRITER_SRC = os.path.join(REPO, "tools", "jpeg_arith_lossless_writer.c")
+_WRITER = []
+
+
+def _libjpeg_path() -> str:
+    """PIL's libjpeg-turbo 3.1.3 (pillow.libs)."""
+    import PIL
+
+    libs = os.path.join(os.path.dirname(PIL.__file__), "..", "pillow.libs")
+    return os.path.realpath(glob.glob(os.path.join(libs, "libjpeg-*.so*"))[0])
+
+
+def arith_lossless_writer(build_dir: str = None) -> str:
+    """tools/jpeg_arith_lossless_writer.c built with gcc against the host's
+    jpeglib.h and linked to PIL's libjpeg-turbo (once a process, in a
+    temporary directory unless `build_dir` is given); its path."""
+    import subprocess
+
+    if build_dir is None and _WRITER:
+        return _WRITER[1]
+    if build_dir is None:  # removed when the process ends
+        _WRITER.append(tempfile.TemporaryDirectory(prefix="jpeg_writer_"))
+    exe = os.path.join(build_dir or _WRITER[0].name, "jpeg_arith_lossless_writer")
+    lib = _libjpeg_path()
+    subprocess.run(["gcc", "-O2", "-o", exe, WRITER_SRC, lib,
+                    f"-Wl,-rpath,{os.path.dirname(lib)}"], check=True)
+    if build_dir is None:
+        _WRITER.append(exe)
+    return exe
+
+
+def arith_lossless_jpeg(pixels: np.ndarray, *options: str, writer: str = None) -> bytes:
+    """(H, W), (H, W, 3) or (H, W, 4) uint8 pixels (gray, RGB or CMYK)
+    written by the C writer with its options (`arith`, `progressive`,
+    `lossless=P,T`, `quality=Q`, `space=S`, `sampling=HxV,...`,
+    `restart=N`, `restart_rows=N`, `dc=T,L,U`, `ac=T,K`)."""
+    import subprocess
+
+    pixels = np.ascontiguousarray(pixels, np.uint8)
+    h, w = pixels.shape[:2]
+    inp = {2: "gray", 3: "rgb", 4: "cmyk"}[pixels.ndim if pixels.ndim == 2 else pixels.shape[2]]
+    with tempfile.TemporaryDirectory() as td:
+        raw, out = os.path.join(td, "in.raw"), os.path.join(td, "out.jpg")
+        pixels.tofile(raw)
+        subprocess.run([writer or arith_lossless_writer(), raw, out, str(w), str(h), inp,
+                        *options], check=True, capture_output=True)
+        with open(out, "rb") as fh:
+            return fh.read()
+
+
+def arith_lossless_files(src) -> dict:
+    """The stored arithmetic-coded and lossless JPEGs (the C writer): the
+    fixture as SOF9 (4:2:0 at q 90) and as SOF10 with a restart interval
+    of 100 MCUs; SOF9 and SOF10 crops with DAC conditioning other than
+    libjpeg's defaults (DC L and U, AC Kx in both tables), grey with
+    restarts, and Adobe CMYK; a 224x168 lossless crop (predictor 1), and
+    32x24 crops through each predictor 1-7 with point transforms 0-2, one
+    with a restart every two rows, and a grey one. The crops but the
+    224x168 one carry seeded noise."""
+    rgb = np.asarray(src.convert("RGB"))
+    files = {}
+    files["arith_420_q90.jpg"] = arith_lossless_jpeg(rgb, "arith")
+    files[ARITH_FIXTURE] = arith_lossless_jpeg(rgb, "arith", "progressive", "restart=100")
+    files[LOSSLESS_FIXTURE] = arith_lossless_jpeg(rgb[216:384, 288:512], "lossless=1,0")
+    # the crops with seeded noise, so that large differences and long
+    # magnitude categories occur
+    noise = np.random.default_rng(22).integers(-48, 49, rgb.shape)
+    rgb = np.clip(rgb.astype(np.int64) + noise, 0, 255).astype(np.uint8)
+    crop = rgb[250:290, 360:408]
+    files["arith_dac_444_rst.jpg"] = arith_lossless_jpeg(
+        crop, "arith", "quality=75", "sampling=1x1,1x1,1x1", "dc=0,2,6", "dc=1,1,3",
+        "ac=0,20", "ac=1,2", "restart=3")
+    files["arith_dac_progressive_420.jpg"] = arith_lossless_jpeg(
+        rgb[300:340, 420:468], "arith", "progressive", "quality=85", "dc=0,3,4", "dc=1,0,0",
+        "ac=0,40", "ac=1,1")
+    files["arith_gray_progressive_rst.jpg"] = arith_lossless_jpeg(
+        rgb[200:229, 300:337, 1], "arith", "progressive", "restart=2")
+    cmyk = np.concatenate([255 - rgb[280:296, 380:404], rgb[280:296, 380:404, :1] // 2], -1)
+    files["arith_cmyk.jpg"] = arith_lossless_jpeg(cmyk, "arith", "quality=80")
+    for p in range(1, 8):
+        files[f"lossless_p{p}_pt{p % 3}.jpg"] = arith_lossless_jpeg(
+            rgb[300 + 4 * p: 324 + 4 * p, 400:432], f"lossless={p},{p % 3}")
+    files["lossless_p4_rst2.jpg"] = arith_lossless_jpeg(
+        rgb[260:284, 350:382], "lossless=4,0", "restart_rows=2")
+    files["lossless_gray_p6.jpg"] = arith_lossless_jpeg(rgb[310:331, 420:447, 0], "lossless=6,1")
     return files
 
 
@@ -1136,15 +1234,16 @@ def write_frames() -> None:
     """figdraw_tpu's block means of the image-file scene and the photo wall
     from the baseline JPEG, the TIFF fixture, the lossy WebP fixture and
     the ZSTD fixture, of the image-file scene from the dithered Group 3
-    fixture, and of the photo wall from the Group 4 fax page (its atlas
-    started at scenes.FAX_ATLAS)."""
+    fixture and the SOF10 fixture, and of the photo wall from the Group 4
+    fax page (its atlas started at scenes.FAX_ATLAS) and the SOF3 crop."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_reference import block_means, jax_image_file_frame, jax_photo_wall_frame
 
     from figdraw_tpu_torch.scenes import (
-        FAX_ATLAS, G3_FILE_REFERENCE, G4_WALL_REFERENCE, JPEG_FILE_REFERENCE,
-        JPEG_WALL_REFERENCE, PHOTO_WALL_SMALL, TIFF_FILE_REFERENCE, TIFF_WALL_REFERENCE,
-        WEBP_FILE_REFERENCE, WEBP_WALL_REFERENCE, ZSTD_FILE_REFERENCE, ZSTD_WALL_REFERENCE,
+        ARITH_FILE_REFERENCE, FAX_ATLAS, G3_FILE_REFERENCE, G4_WALL_REFERENCE,
+        JPEG_FILE_REFERENCE, JPEG_WALL_REFERENCE, LOSSLESS_WALL_REFERENCE, PHOTO_WALL_SMALL,
+        TIFF_FILE_REFERENCE, TIFF_WALL_REFERENCE, WEBP_FILE_REFERENCE, WEBP_WALL_REFERENCE,
+        ZSTD_FILE_REFERENCE, ZSTD_WALL_REFERENCE,
     )
 
     for name, scene_ref, wall_ref, atlas in (
@@ -1153,7 +1252,9 @@ def write_frames() -> None:
             (WEBP_FIXTURE, WEBP_FILE_REFERENCE, WEBP_WALL_REFERENCE, 512),
             (ZSTD_FIXTURE, ZSTD_FILE_REFERENCE, ZSTD_WALL_REFERENCE, 512),
             (G3_FIXTURE, G3_FILE_REFERENCE, None, 512),
-            (FAX_PAGE, None, G4_WALL_REFERENCE, FAX_ATLAS)):
+            (FAX_PAGE, None, G4_WALL_REFERENCE, FAX_ATLAS),
+            (ARITH_FIXTURE, ARITH_FILE_REFERENCE, None, 512),
+            (LOSSLESS_FIXTURE, None, LOSSLESS_WALL_REFERENCE, 512)):
         with tempfile.TemporaryDirectory() as td:
             path = os.path.join(td, name)
             shutil.copyfile(os.path.join(OUT_DIR, name), path)
@@ -1182,7 +1283,7 @@ def main() -> None:
     stored = {"files": digests(files),
               "sidecar": {name: sidecar_digest(name)
                           for name in (BASELINE, TIFF_FIXTURE, WEBP_FIXTURE, ZSTD_FIXTURE,
-                                       FAX_PAGE)}}
+                                       FAX_PAGE, ARITH_FIXTURE, LOSSLESS_FIXTURE)}}
     with open(DIGESTS, "w") as fh:
         json.dump(stored, fh, indent=1)
         fh.write("\n")

@@ -6,9 +6,14 @@ faces (figdraw_tpu_torch/fonts/*.woff2), each read whole on both sides:
 the glyph order, the best cmap, every glyph's advance and its outline as
 fontTools' DecomposingRecordingPen records it at the default location.
 A third of the flips land in the first 160 bytes (the header and the table
-directory), the rest anywhere. Agreement is the same values, or a failure
-on both sides; the counts of each kind are printed by face, with each
-disagreement by its seed and index (`case(seed, index)` rebuilds it).
+directory), the rest anywhere. A second pass does the same to the sfnt
+twins of those faces (FigPortSans-VF.ttf, FigPortSans-CFF.otf and
+DejaVuSans.ttf, read by text/otf.py and fontTools' TTFont), a third of
+their flips in the table directory. Agreement is the same values, or a
+failure on both sides; the counts of each kind are printed by face, with
+each disagreement by its pass, seed and index (`case(seed, index)` and
+`sfnt_case(seed, index)` rebuild it). A refusal of the port other than
+ValueError or NotImplementedError is counted under its own name.
 Needs fontTools and PIL (the CPU host's).
 
     python tools/woff2_fuzz_agreement.py [cases per seed, default 400] [seeds, default 3]
@@ -27,41 +32,61 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FACES = ("FigPortSans-VF.woff2", "FigPortSans-CFF.woff2", "DejaVuSans.woff2")
+SFNT_FACES = ("FigPortSans-VF.ttf", "FigPortSans-CFF.otf", "DejaVuSans.ttf")
 # DejaVu Sans has 6253 glyphs: one case in this many is taken from it
 DEJAVU_EVERY = 8
 
 
-def stored_faces() -> dict:
-    """{name: bytes} of the committed WOFF2 faces."""
+def stored_faces(names: tuple = FACES) -> dict:
+    """{name: bytes} of the committed faces `names` (the WOFF2 faces by
+    default)."""
     sys.path.insert(0, REPO)
     from figdraw_tpu_torch.text.typefaces import bundled_font_path
 
     out = {}
-    for name in FACES:
+    for name in names:
         with open(bundled_font_path(name), "rb") as fh:
             out[name] = fh.read()
     return out
 
 
-def corrupt_cases(faces: dict, seed: int, cases: int):
-    """Yields (index, face, corrupt bytes) of one seed's cases."""
+def _head(name: str, data: bytes) -> int:
+    """The bytes a third of the flips land in: a WOFF2 file's first 160, an
+    sfnt's table directory."""
+    if name.endswith(".woff2"):
+        return 160
+    return 12 + 16 * int.from_bytes(data[4:6], "big")
+
+
+def corrupt_cases(faces: dict, seed: int, cases: int, names: tuple = FACES):
+    """Yields (index, face, corrupt bytes) of one seed's cases of the faces
+    `names` (names[2], DejaVu Sans, one case in DEJAVU_EVERY)."""
     rng = np.random.default_rng(seed)
     for i in range(cases):
-        name = FACES[2] if i % DEJAVU_EVERY == DEJAVU_EVERY - 1 else FACES[i % 2]
+        name = names[2] if i % DEJAVU_EVERY == DEJAVU_EVERY - 1 else names[i % 2]
         data = bytearray(faces[name])
         if rng.integers(3) == 0:
             data = data[: rng.integers(0, len(data))]
         else:
             head = rng.integers(3) == 0
             for _ in range(rng.integers(1, 4)):
-                at = rng.integers(0, 160) if head else rng.integers(0, len(data))
+                at = rng.integers(0, _head(name, data)) if head else rng.integers(0, len(data))
                 data[at] ^= 1 << rng.integers(8)
         yield i, name, bytes(data)
 
 
 def case(seed: int, index: int) -> tuple:
-    """(face, corrupt bytes) of case `index` of `seed`."""
+    """(face, corrupt bytes) of case `index` of `seed` of the WOFF2 pass."""
     for i, name, data in corrupt_cases(stored_faces(), seed, index + 1):
+        if i == index:
+            return name, data
+    raise IndexError(index)
+
+
+def sfnt_case(seed: int, index: int) -> tuple:
+    """(face, corrupt bytes) of case `index` of `seed` of the sfnt pass."""
+    faces = stored_faces(SFNT_FACES)
+    for i, name, data in corrupt_cases(faces, seed, index + 1, SFNT_FACES):
         if i == index:
             return name, data
     raise IndexError(index)
@@ -106,6 +131,7 @@ def fonttools_result(data: bytes):
         with brotli_shim.installed(), warnings.catch_warnings():
             warnings.simplefilter("ignore")
             tt = TTFont(io.BytesIO(data), lazy=True)
+            tt["head"], tt["hhea"]  # noqa: B018 - figdraw_tpu's Typeface reads both at load
             order = tt.getGlyphOrder()
             gs = tt.getGlyphSet()
             paths = []
@@ -141,24 +167,26 @@ def main() -> None:
     logging.disable(logging.CRITICAL)  # fontTools logs what it then raises on
     cases = int(sys.argv[1]) if len(sys.argv) > 1 else 400
     seeds = int(sys.argv[2]) if len(sys.argv) > 2 else 3
-    faces = stored_faces()
-    counts = collections.defaultdict(collections.Counter)
-    for seed in range(seeds):
-        for i, name, data in corrupt_cases(faces, seed, cases):
-            kind = classify(data)
-            counts[name][kind] += 1
-            if kind not in ("equal", "both_raise"):
-                print(f"seed {seed} case {i} ({name}, {len(data)} bytes): {kind}", flush=True)
-    total = agree = 0
-    for name in FACES:
-        c = counts[name]
-        n = sum(c.values())
-        ok = sum(v for k, v in c.items() if k == "equal" or k.startswith("both_raise"))
-        total, agree = total + n, agree + ok
-        print(f"{name}: {n} corrupt cases: {dict(c)}; agreeing {ok} "
-              f"({100.0 * ok / max(n, 1):.2f}%)")
-    print(f"{len(FACES)} faces, {total} cases in all; agreeing {agree} "
-          f"({100.0 * agree / max(total, 1):.2f}%)")
+    for label, names in (("woff2", FACES), ("sfnt", SFNT_FACES)):
+        faces = stored_faces(names)
+        counts = collections.defaultdict(collections.Counter)
+        for seed in range(seeds):
+            for i, name, data in corrupt_cases(faces, seed, cases, names):
+                kind = classify(data)
+                counts[name][kind] += 1
+                if kind not in ("equal", "both_raise"):
+                    print(f"{label} seed {seed} case {i} ({name}, {len(data)} bytes): {kind}",
+                          flush=True)
+        total = agree = 0
+        for name in names:
+            c = counts[name]
+            n = sum(c.values())
+            ok = sum(v for k, v in c.items() if k in ("equal", "both_raise"))
+            total, agree = total + n, agree + ok
+            print(f"{name}: {n} corrupt cases: {dict(c)}; agreeing {ok} "
+                  f"({100.0 * ok / max(n, 1):.2f}%)")
+        print(f"{label}: {len(names)} faces, {total} cases in all; agreeing {agree} "
+              f"({100.0 * agree / max(total, 1):.2f}%)", flush=True)
 
 
 if __name__ == "__main__":
