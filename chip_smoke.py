@@ -3348,18 +3348,28 @@ def split_frames(ren, scene, size, frames: int = FRAMES):
     return statistics.median([a + b for a, b in zip(host, device)]), host, device
 
 
+# the stored JPEGs decoded whole through the plain twins beside the helper:
+# the progressive crop with restarts, the one-scan file without its EOI
+# (libjpeg's read-ahead at the end of the data) and the incomplete
+# progressive files (block smoothing, Huffman and arithmetic)
+PLAIN_JPEGS = ("small_progressive_rst.jpg", "baseline_no_eoi.jpg",
+               "progressive_incomplete_huff.jpg", "progressive_incomplete_arith.jpg")
+
+
 def image_formats_check(tag: str) -> dict:
     """The stored files of the image decoders (figdraw_tpu_torch/reference/
     images, written with PIL by tools/make_image_formats.py): each through
     read_image (the C++ helper, csrc/image_decode.cpp), its RGBA's sha256
     against PIL's stored digest, its cold (first) and warm (median) decode
     host ms; the helper's stages against their plain twins: each JPEG's
+    block smoothing (fd_jpeg_smooth, on an incomplete progressive file),
     IDCT, upsampling and colour conversion on its whole frame, the entropy
-    decoding on the 64x48 progressive crop with restarts (its whole plain
-    decode), the arithmetic (fd_jpeg_arith_scan) and lossless
+    decoding on PLAIN_JPEGS (their whole plain decodes), the arithmetic
+    (fd_jpeg_arith_scan) and lossless
     (fd_jpeg_lossless_scan) scans on each such file of at most 64x48 (every
     component, then its whole plain decode), GIF's LZW and QOI's ops on the first CROP_PIXELS pixels,
-    each TIFF's PackBits, LZW, CCITT fax (fd_tiff_fax, with the state it
+    each TIFF's PackBits, LZW, CCITT fax (fd_tiff_fax, its RLE-W mode among
+    them, with the state it
     carries between strips) or Zstandard (fd_zstd_decompress) and
     predictor on every strip or tile (and its whole plain decode), and
     each WebP's stages (webp.stage_pairs:
@@ -3398,15 +3408,23 @@ def image_formats_check(tag: str) -> dict:
         if name.endswith(".jpg"):
             frame = jpeg.read_frame(data)
             lossless = frame.kind == jpeg.LOSSLESS
+            latch = jpeg.smoothing_latch(frame)
             planes = []
-            for c in frame.components:
+            for i, c in enumerate(frame.components):
                 if lossless:  # no IDCT; replication upsampling (jpeg._full_planes)
                     samples = c.samples
                     method, hx, vy = jpeg.upsample_method(c, frame.hmax, frame.vmax)
                     args = (samples, c.cw, c.ch, frame.width, frame.height, jpeg.BOX, hx, vy)
                 else:
-                    samples = jpeg.idct(c.coefs, c.qt)
-                    if not np.array_equal(samples, jpeg.idct_plain(c.coefs, c.qt)):
+                    coefs = c.coefs
+                    if latch is not None:  # block smoothing (an incomplete progressive file)
+                        sargs = jpeg.smooth_args(frame, c, latch[i])
+                        coefs = jpeg.smooth(*sargs)
+                        if not np.array_equal(coefs, jpeg.smooth_plain(*sargs)):
+                            fail(f"image formats: {name}: fd_jpeg_smooth differs from "
+                                 "smooth_plain")
+                    samples = jpeg.idct(coefs, c.qt)
+                    if not np.array_equal(samples, jpeg.idct_plain(coefs, c.qt)):
                         fail(f"image formats: {name}: fd_jpeg_idct_islow differs from "
                              "idct_plain")
                     args = (samples, c.cw, c.ch, frame.width, frame.height,
@@ -3414,7 +3432,8 @@ def image_formats_check(tag: str) -> dict:
                 planes.append(jpeg.upsample(*args))
                 if not np.array_equal(planes[-1], jpeg.upsample_plain(*args)):
                     fail(f"image formats: {name}: fd_jpeg_upsample differs from its plain twin")
-            held += ["upsample"] if lossless else ["idct", "upsample"]
+            held += (["upsample"] if lossless else ["idct", "upsample"]
+                     + ["smooth"] * (latch is not None))
             if (frame.arith or lossless) and frame.width * frame.height <= 64 * 48:
                 # fd_jpeg_arith_scan or fd_jpeg_lossless_scan against its plain
                 # twin: every component's coefficients or samples, then the
@@ -3435,11 +3454,12 @@ def image_formats_check(tag: str) -> dict:
                                       jpeg.color_plain(*planes[:3], kind)):
                     fail(f"image formats: {name}: fd_jpeg_color differs from color_plain")
                 held.append("color")
-            if name == "small_progressive_rst.jpg":
+            if name in PLAIN_JPEGS:
                 if not np.array_equal(jpeg.decode_jpeg(data, plain=True), px):
-                    fail(f"image formats: {name}: the plain decode (scan_plain and the "
-                         "other twins) differs from the helper's")
-                held.append("scan")
+                    fail(f"image formats: {name}: the plain decode (scan_plain or "
+                         "arith_scan_plain, smooth_plain and the other twins) differs from "
+                         "the helper's")
+                held.append("arith scan" if frame.arith else "scan")
         elif name.endswith(".gif"):
             f = gif.read_first_frame(data)
             n = min(CROP_PIXELS, f["box"][2] * f["box"][3])
@@ -3476,7 +3496,8 @@ def image_formats_check(tag: str) -> dict:
         if held:
             stages[name] = held
     print(f"check 13: the {len(stored)} stored image files (JPEG with Huffman, arithmetic and "
-          f"lossless coding, GIF, BMP, ICO, QOI, TIFF with CCITT fax and ZSTD, WebP) "
+          f"lossless coding, incomplete progressive ones smoothed, one without its EOI; GIF, "
+          f"BMP, ICO, QOI, TIFF with CCITT fax, RLE-W, uncompressed mode and ZSTD, WebP) "
           f"decode to PIL's stored sha256 through the C++ helper; stages held to their "
           f"plain twins: {json.dumps(stages)}", flush=True)
     print(f"times: image decodes (the helpers' g++ builds {build_ms:.1f} ms first), host ms "
@@ -3506,8 +3527,10 @@ def image_files_phase(tag: str, dev) -> dict:
     beside the main path). The same from the stored baseline JPEG, the
     stored LZW + Predictor 2 TIFF, the stored lossy WebP (q 90) and the
     stored ZSTD + Predictor 2 TIFF of the fixture, the stored progressive
-    arithmetic-coded JPEG (SOF10) of the fixture and the lossless JPEG
-    (SOF3) of a 224x168 crop (equal to the PNG's pixels), image_formats_check
+    arithmetic-coded JPEG (SOF10) of the fixture, the lossless JPEG (SOF3)
+    of a 224x168 crop (equal to the PNG's pixels), the incomplete
+    progressive JPEG of the fixture (block smoothing) and the RLE-W TIFF of
+    its dithered centre, image_formats_check
     first: every stored format against PIL's digests): load_image cold and
     warm against figdraw_tpu's sidecar digest, the image-file scene on
     K1-atlas and the photo wall on K4-atlas, each within FILE_TOL of
@@ -3536,6 +3559,8 @@ def image_files_phase(tag: str, dev) -> dict:
         ARITH_FILE_REFERENCE, ARITH_FIXTURE, EXAMPLE_FORMS, EXAMPLE_IMAGES, EXAMPLE_SCENES,
         FAX_ATLAS, FAX_PAGE, G3_FILE_REFERENCE, LOSSLESS_FIXTURE, LOSSLESS_WALL_REFERENCE,
         G3_FIXTURE, G4_WALL_REFERENCE, IMAGE_FILE_SIZE, IMAGE_FIXTURE,
+        INCOMPLETE_FILE_REFERENCE, INCOMPLETE_FIXTURE, INCOMPLETE_WALL_REFERENCE,
+        RLEW_FILE_REFERENCE, RLEW_FIXTURE, RLEW_WALL_REFERENCE,
         IMAGE_FIXTURE_REFERENCE, IMAGE_FORMATS_REFERENCE, JPEG_FILE_REFERENCE, JPEG_FIXTURE,
         JPEG_WALL_REFERENCE, PHOTO_WALL_PANELS, PHOTO_WALL_REFERENCE, PHOTO_WALL_SIZE,
         PHOTO_WALL_SMALL, TIFF_FILE_REFERENCE, TIFF_FIXTURE, TIFF_WALL_REFERENCE,
@@ -3672,6 +3697,9 @@ def image_files_phase(tag: str, dev) -> dict:
         if not np.array_equal(np.asarray(limage)[..., :3], pixels[216:384, 288:512, :3]):
             fail("image files: the lossless JPEG crop decodes to other pixels than the PNG's")
         print("check 13: the lossless JPEG crop decodes to the PNG's pixels", flush=True)
+        ipath, icold_ms, iwarm_ms, _iimage = cold_warm(
+            INCOMPLETE_FIXTURE, "incomplete progressive JPEG (block smoothing)")
+        rpath, rcold_ms, rwarm_ms, _rimage = cold_warm(RLEW_FIXTURE, "RLE-W TIFF (400x300)")
         g3path = os.path.join(td, os.path.basename(G3_FIXTURE))
         shutil.copyfile(G3_FIXTURE, g3path)
 
@@ -3777,7 +3805,9 @@ def image_files_phase(tag: str, dev) -> dict:
                        "webp": file_scene(wpath, "webp", WEBP_FILE_REFERENCE),
                        "zstd": file_scene(zpath, "zstd", ZSTD_FILE_REFERENCE),
                        "g3": file_scene(g3path, "g3", G3_FILE_REFERENCE),
-                       "arith": file_scene(apath, "arith", ARITH_FILE_REFERENCE)}
+                       "arith": file_scene(apath, "arith", ARITH_FILE_REFERENCE),
+                       "incomplete": file_scene(ipath, "incomplete", INCOMPLETE_FILE_REFERENCE),
+                       "rlew": file_scene(rpath, "rlew", RLEW_FILE_REFERENCE)}
 
         # --- the 1080p photo wall of each loaded image ---
         def photo_wall(src, small_ref, what, tol=TOL, atlas=256):
@@ -3830,7 +3860,10 @@ def image_files_phase(tag: str, dev) -> dict:
                  "g4": photo_wall(gpath, G4_WALL_REFERENCE, "photo wall g4", FILE_TOL,
                                   FAX_ATLAS),
                  "lossless": photo_wall(lpath, LOSSLESS_WALL_REFERENCE, "photo wall lossless",
-                                        FILE_TOL)}
+                                        FILE_TOL),
+                 "incomplete": photo_wall(ipath, INCOMPLETE_WALL_REFERENCE,
+                                          "photo wall incomplete", FILE_TOL),
+                 "rlew": photo_wall(rpath, RLEW_WALL_REFERENCE, "photo wall rlew", FILE_TOL)}
         for ref in refs:
             ref.close()
     med = statistics.median
@@ -3862,8 +3895,10 @@ def image_files_phase(tag: str, dev) -> dict:
           f"load_image cold {zcold_ms:.3f} ms, warm {zwarm_ms:.3f} ms; the Group 4 fax page's "
           f"(1728x1143) load_image cold {gcold_ms:.3f} ms, warm {gwarm_ms:.3f} ms; the SOF10 "
           f"JPEG's load_image cold {acold_ms:.3f} ms, warm {awarm_ms:.3f} ms; the SOF3 crop's "
-          f"(224x168) load_image cold {lcold_ms:.3f} ms, warm {lwarm_ms:.3f} ms {tag}",
-          flush=True)
+          f"(224x168) load_image cold {lcold_ms:.3f} ms, warm {lwarm_ms:.3f} ms; the incomplete "
+          f"progressive JPEG's load_image cold {icold_ms:.3f} ms, warm {iwarm_ms:.3f} ms; the "
+          f"RLE-W TIFF's (400x300) load_image cold {rcold_ms:.3f} ms, warm {rwarm_ms:.3f} ms "
+          f"{tag}", flush=True)
     for src, (f_ms, f_host, f_dev) in file_frames.items():
         print(f"times: image_file scene from the {src.upper()}, 800x600 on K1-atlas: median "
               f"{f_ms:.3f} ms/frame = host (messages, walk, plan) {med(f_host):.3f} ms "

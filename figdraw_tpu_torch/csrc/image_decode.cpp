@@ -8,7 +8,9 @@
 //                       components' coefficient blocks: sequential, and the
 //                       four progressive kinds (DC first/refine, AC
 //                       first/refine, EOB runs, successive approximation),
-//                       restart intervals (jdhuff.c, jdphuff.c);
+//                       restart intervals, read as jdhuff.c and jdphuff.c
+//                       read the bytes PIL hands over (the fast path, the
+//                       57-bit fills, the end of the data);
 //   fd_jpeg_arith_scan  arithmetic decoding of one scan into the
 //                       coefficient blocks: sequential and the four
 //                       progressive kinds, the DAC conditioning, restarts
@@ -17,6 +19,9 @@
 //   fd_jpeg_lossless_scan  one lossless scan into the components' samples:
 //                       Huffman-coded differences, predictors 1-7, the
 //                       point transform (jdlhuff.c, jddiffct.c, jdlossls.c);
+//   fd_jpeg_smooth      block smoothing of an incomplete progressive file:
+//                       the still-zero low coefficients estimated from the
+//                       DC neighbourhood (jdcoefct.c decompress_smooth_data);
 //   fd_jpeg_idct_islow  dequantisation and the slow-but-accurate integer
 //                       IDCT in the 16-bit lanes of its x86-64 SIMD form
 //                       (jidctint.c, jidctint-avx2.asm);
@@ -34,8 +39,9 @@
 //   fd_tiff_predict     the horizontal and floating-point predictors
 //                       (tif_predict.c: horAcc8/16/32/64 with their swab
 //                       forms, fpAcc);
-//   fd_tiff_fax         CCITT Modified Huffman, T.4 and T.6 (tif_fax3.c,
-//                       tif_fax3.h, with the code tables of fax_tables.h).
+//   fd_tiff_fax         CCITT Modified Huffman, RLE-W, T.4 and T.6
+//                       (tif_fax3.c, tif_fax3.h, with the code tables of
+//                       fax_tables.h).
 //
 // Every function returns 0 (or a position) on success and a negative code
 // on malformed input; only the lossless scan allocates (its rows of
@@ -68,8 +74,9 @@ struct Huff {
     int32_t maxcode[18];
     int32_t valoffset[18];
     uint8_t vals[256];
-    // 9-bit lookahead: (length << 8) | value, 0 when the code is longer
-    uint16_t look[512];
+    // HUFF_LOOKAHEAD (8 bits): (length << 8) | value, length 9 when the
+    // code is longer or no code starts with the byte
+    uint16_t look[256];
 };
 
 // spec: 16 code-length counts then up to 256 symbols
@@ -103,275 +110,39 @@ static int build_huff(const uint8_t* spec, Huff* h) {
     }
     h->valoffset[17] = 0;
     h->maxcode[17] = 0x7FFFFFFF;  // sentinel: ends the slow search
-    std::memset(h->look, 0, sizeof(h->look));
+    for (int i = 0; i < 256; ++i) h->look[i] = 9 << 8;
     p = 0;
-    for (int l = 1; l <= 9; ++l) {
+    for (int l = 1; l <= 8; ++l) {
         for (int i = 1; i <= spec[l - 1]; ++i, ++p) {
-            int look = (int)huffcode[p] << (9 - l);
-            for (int c = 1 << (9 - l); c > 0; --c) h->look[look++] = (uint16_t)((l << 8) | h->vals[p]);
+            int look = (int)huffcode[p] << (8 - l);
+            for (int c = 1 << (8 - l); c > 0; --c)
+                h->look[look++] = (uint16_t)((l << 8) | h->vals[p]);
         }
     }
     return 0;
-}
-
-struct Bits {
-    const uint8_t* data;
-    int64_t len, pos;
-    uint64_t buf;
-    int n;          // valid bits in buf (the top n)
-    bool marker;    // a marker stopped the byte feed: zeros from here
-};
-
-static inline void fill(Bits* b) {
-    while (b->n <= 56) {
-        uint32_t c = 0;
-        if (!b->marker && b->pos < b->len) {
-            c = b->data[b->pos];
-            if (c == 0xFF) {
-                // 0xFF 0x00 is a stuffed 0xFF; 0xFF fill bytes before a
-                // marker are skipped; any other pair is a marker
-                int64_t q = b->pos + 1;
-                while (q < b->len && b->data[q] == 0xFF) ++q;
-                if (q < b->len && b->data[q] == 0x00) {
-                    b->pos = q + 1;
-                } else {
-                    b->marker = true;
-                    b->pos = q - 1;
-                    c = 0;
-                }
-            } else {
-                ++b->pos;
-            }
-        }
-        b->buf |= (uint64_t)c << (56 - b->n);
-        b->n += 8;
-    }
-}
-
-static inline int get_bits(Bits* b, int k) {
-    if (k == 0) return 0;
-    if (b->n < k) fill(b);
-    int v = (int)(b->buf >> (64 - k));
-    b->buf <<= k;
-    b->n -= k;
-    return v;
 }
 
 static inline int extend(int v, int s) {
     return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
 }
 
-static inline int decode(Bits* b, const Huff* h) {
-    if (b->n < 16) fill(b);
-    int look = (int)(b->buf >> 55);
-    int e = h->look[look];
-    if (e) {
-        int l = e >> 8;
-        b->buf <<= l;
-        b->n -= l;
-        return e & 0xFF;
-    }
-    int l = 10;
-    int code = (int)(b->buf >> (64 - l));
-    while (code > h->maxcode[l]) {
-        ++l;
-        code = (int)(b->buf >> (64 - l));
-    }
-    if (l > 16) return -1;  // a bad code
-    b->buf <<= l;
-    b->n -= l;
-    return h->vals[(code + h->valoffset[l]) & 0xFF];
-}
-
-// Restart: realign to a byte, consume the RSTn marker (n = expect), and
-// reset the reader (jdhuff.c process_restart). Returns 0 or -1.
-static int restart(Bits* b, int expect) {
-    // drop the bits of the current byte and any whole bytes prefetched
-    // (they are the marker's padding); restart the feed at the marker
-    b->buf = 0;
-    b->n = 0;
-    b->marker = false;
-    int64_t q = b->pos;
-    while (q + 1 < b->len && !(b->data[q] == 0xFF && b->data[q + 1] != 0 && b->data[q + 1] != 0xFF))
-        ++q;
-    if (q + 1 >= b->len || b->data[q + 1] != 0xD0 + expect) return -1;
-    b->pos = q + 2;
-    return 0;
-}
-
-// One scan. comps (ncomp rows of 5 int32): H, V (the component's blocks in
-// an MCU), blocks_w (the row pitch of its coefficient array), and the
-// blocks a non-interleaved scan covers across and down. tabs: per component its DC spec then its AC spec (16 + 256 bytes
-// each; a table the scan does not use may be zeros). coefs[i]: the
-// component's (blocks_h, blocks_w, 64) int16 coefficients in natural
-// order, updated in place. mcus_x, mcus_y: the interleaved MCU grid.
-// kind: 0 sequential, 1 progressive. Returns the position of the marker
-// that ends the scan, or a negative code.
-int64_t fd_jpeg_scan(const uint8_t* data, int64_t len, int64_t pos, int ncomp,
-                     const int32_t* comps, const uint8_t* tabs, int16_t* const* coefs,
-                     int mcus_x, int mcus_y, int restart_interval, int ss, int se,
-                     int ah, int al, int kind) {
-    if (ncomp < 1 || ncomp > 4) return -2;
-    Huff dc[4], ac[4];
-    for (int i = 0; i < ncomp; ++i) {
-        if (build_huff(tabs + i * 544, &dc[i]) < 0) return -3;
-        if (build_huff(tabs + i * 544 + 272, &ac[i]) < 0) return -3;
-    }
-    Bits b{data, len, pos, 0, 0, false};
-    int pred[4] = {0, 0, 0, 0};
-    int eobrun = 0;
-    const bool progressive = kind == 1;
-    const bool dc_scan = ss == 0;
-    int64_t total;
-    int per_row;
-    if (ncomp == 1) {
-        per_row = comps[3];
-        total = (int64_t)comps[3] * comps[4];
-    } else {
-        per_row = mcus_x;
-        total = (int64_t)mcus_x * mcus_y;
-    }
-    const int p1 = 1 << al, m1 = -1 * (1 << al);
-    int rst_left = restart_interval, next_rst = 0;
-    for (int64_t m = 0; m < total; ++m) {
-        if (restart_interval) {
-            if (rst_left == 0) {
-                if (restart(&b, next_rst) < 0) return -4;
-                next_rst = (next_rst + 1) & 7;
-                rst_left = restart_interval;
-                pred[0] = pred[1] = pred[2] = pred[3] = 0;
-                eobrun = 0;
-            }
-            --rst_left;
-        }
-        const int my = (int)(m / per_row), mx = (int)(m % per_row);
-        for (int ci = 0; ci < ncomp; ++ci) {
-            const int32_t* c = comps + ci * 5;
-            const int hh = ncomp == 1 ? 1 : c[0], vv = ncomp == 1 ? 1 : c[1];
-            for (int v = 0; v < vv; ++v) {
-                for (int h = 0; h < hh; ++h) {
-                    const int64_t row = (int64_t)my * vv + v, col = (int64_t)mx * hh + h;
-                    int16_t* blk = coefs[ci] + (row * c[2] + col) * 64;
-                    if (!progressive) {
-                        int s = decode(&b, &dc[ci]);
-                        if (s < 0) return -5;
-                        int diff = s ? extend(get_bits(&b, s), s) : 0;
-                        pred[ci] += diff;
-                        blk[0] = (int16_t)pred[ci];
-                        for (int k = 1; k < 64; ++k) {
-                            int rs = decode(&b, &ac[ci]);
-                            if (rs < 0) return -5;
-                            int r = rs >> 4;
-                            s = rs & 15;
-                            if (s) {
-                                k += r;
-                                blk[kNatural[k]] = (int16_t)extend(get_bits(&b, s), s);
-                            } else {
-                                if (r != 15) break;
-                                k += 15;
-                            }
-                        }
-                    } else if (dc_scan) {
-                        if (ah == 0) {
-                            int s = decode(&b, &dc[ci]);
-                            if (s < 0) return -5;
-                            int diff = s ? extend(get_bits(&b, s), s) : 0;
-                            pred[ci] += diff;
-                            blk[0] = (int16_t)((unsigned)pred[ci] << al);
-                        } else if (get_bits(&b, 1)) {
-                            blk[0] = (int16_t)(blk[0] | p1);
-                        }
-                    } else if (ah == 0) {
-                        if (eobrun > 0) {
-                            --eobrun;
-                            continue;
-                        }
-                        for (int k = ss; k <= se; ++k) {
-                            int rs = decode(&b, &ac[ci]);
-                            if (rs < 0) return -5;
-                            int r = rs >> 4, s = rs & 15;
-                            if (s) {
-                                k += r;
-                                blk[kNatural[k]] =
-                                    (int16_t)((unsigned)extend(get_bits(&b, s), s) << al);
-                            } else if (r == 15) {
-                                k += 15;
-                            } else {
-                                eobrun = 1 << r;
-                                if (r) eobrun += get_bits(&b, r);
-                                --eobrun;
-                                break;
-                            }
-                        }
-                    } else {
-                        int k = ss;
-                        if (eobrun == 0) {
-                            for (; k <= se; ++k) {
-                                int rs = decode(&b, &ac[ci]);
-                                if (rs < 0) return -5;
-                                int r = rs >> 4, s = rs & 15;
-                                if (s) {
-                                    s = get_bits(&b, 1) ? p1 : m1;
-                                } else if (r != 15) {
-                                    eobrun = 1 << r;
-                                    if (r) eobrun += get_bits(&b, r);
-                                    break;
-                                }
-                                do {
-                                    int16_t* t = blk + kNatural[k];
-                                    if (*t != 0) {
-                                        if (get_bits(&b, 1) && (*t & p1) == 0)
-                                            *t = (int16_t)(*t >= 0 ? *t + p1 : *t + m1);
-                                    } else if (--r < 0) {
-                                        break;
-                                    }
-                                    ++k;
-                                } while (k <= se);
-                                if (s) blk[kNatural[k]] = (int16_t)s;
-                            }
-                        }
-                        if (eobrun > 0) {
-                            for (; k <= se; ++k) {
-                                int16_t* t = blk + kNatural[k];
-                                if (*t != 0 && get_bits(&b, 1) && (*t & p1) == 0)
-                                    *t = (int16_t)(*t >= 0 ? *t + p1 : *t + m1);
-                            }
-                            --eobrun;
-                        }
-                    }
-                }
-            }
-        }
-    }
-    // the scan ends at the next marker other than a restart; the bytes the
-    // reader fetched are entropy data, so search from its position
-    int64_t q = b.pos;
-    for (;;) {
-        while (q + 1 < len && !(data[q] == 0xFF && data[q + 1] != 0 && data[q + 1] != 0xFF))
-            ++q;
-        if (q + 1 >= len) return -6;
-        if (data[q + 1] >= 0xD0 && data[q + 1] <= 0xD7) {
-            q += 2;
-            continue;
-        }
-        return q;
-    }
-}
-
 // ----------------------------------------------- JPEG: libjpeg's data source
-// The arithmetic and lossless decoders read bytes as libjpeg's jdmarker.c
-// hands them: `unread` is the marker a decoder ran into (0 for none);
-// reading past the end sets `eof` (PIL reports such a file as truncated).
+// The entropy decoders read bytes as libjpeg's jdmarker.c hands them:
+// `unread` is the marker a decoder ran into (0 for none); reading at `avail`
+// (the end of the bytes handed over so far: the file's end unless the
+// Huffman scan sets it) sets `eof` (past the file's end PIL reports it
+// truncated).
 
 struct Src {
     const uint8_t* data;
     int64_t len, pos;
     int unread;
     bool eof;
+    int64_t avail;
 };
 
 static inline int src_byte(Src* s) {
-    if (s->pos >= s->len) {
+    if (s->pos >= s->avail) {
         s->eof = true;
         return 0;
     }
@@ -672,7 +443,7 @@ int64_t fd_jpeg_arith_scan(const uint8_t* data, int64_t len, int64_t pos, int nc
                            int mcus_x, int mcus_y, int restart_interval, int ss, int se,
                            int ah, int al, int kind) {
     if (ncomp < 1 || ncomp > 4) return -2;
-    Src src{data, len, pos, 0, false};
+    Src src{data, len, pos, 0, false, len};
     ArithScan s;
     s.e.src = &src;
     s.fixed_bin[0] = 113;
@@ -727,18 +498,24 @@ int64_t fd_jpeg_arith_scan(const uint8_t* data, int64_t len, int64_t pos, int nc
     return scan_end(&src);
 }
 
-// ------------------------------------------------ JPEG: lossless (H, jdlhuff)
-// jdhuff.c's bit reader as jdlhuff.c drives it: each fill loads bytes until
+// ---------------------------------------------- JPEG: jdhuff.c's bit reader
+// As jdhuff.c, jdphuff.c and jdlhuff.c drive it: each fill loads bytes until
 // 57 bits are buffered (MIN_GET_BITS), reading ahead of the bits used (data
-// that ends first sets the source's eof: PIL finds the file truncated); a
-// marker stops the feed and zero bits follow, `short_data` set once a fill
-// needs bits past it (insufficient_data).
+// that ends first sets the source's eof); a marker stops the feed and zero
+// bits follow, `short_data` set once a fill needs bits past it
+// (insufficient_data). The top n bits of acc's low bits are the buffer
+// (bits above them are stale, as in libjpeg's get_buffer).
 struct LBits {
     Src* src;
     uint64_t acc;
     int n;
     bool short_data;
+    bool hit_marker;  // the fast path met a marker: decode the MCU again
 };
+
+static inline int peek(const LBits* b, int k) {
+    return (int)((b->acc >> (b->n - k)) & (((uint64_t)1 << k) - 1));
+}
 
 static void lbits_fill(LBits* b, int need) {
     Src* s = b->src;
@@ -771,9 +548,8 @@ static void lbits_fill(LBits* b, int need) {
 static inline int lbits_get(LBits* b, int k) {
     if (b->n < k) lbits_fill(b, k);
     if (b->n < k) return 0;  // only at the end of the data (eof)
+    const int v = peek(b, k);
     b->n -= k;
-    const int v = (int)(b->acc >> b->n);
-    b->acc &= ((uint64_t)1 << b->n) - 1;
     return v;
 }
 
@@ -784,19 +560,15 @@ static inline int lbits_decode(LBits* b, const Huff* h) {
     if (b->n < 8) lbits_fill(b, 0);
     int l = 1;
     if (b->n >= 8) {
-        const int look = (int)(b->acc >> (b->n - 8));
-        for (int k = 1; k <= 8; ++k) {
-            const int code = look >> (8 - k);
-            if (code <= h->maxcode[k]) {
-                b->n -= k;
-                b->acc &= ((uint64_t)1 << b->n) - 1;
-                return h->vals[(code + h->valoffset[k]) & 0xFF];
-            }
+        const int e = h->look[peek(b, 8)];
+        l = e >> 8;
+        if (l <= 8) {
+            b->n -= l;
+            return e & 0xFF;
         }
-        l = 9;
     }
     int code = lbits_get(b, l);
-    while (l <= 16 && code > h->maxcode[l]) {
+    while (code > h->maxcode[l]) {
         code = (code << 1) | lbits_get(b, 1);
         ++l;
     }
@@ -804,6 +576,281 @@ static inline int lbits_decode(LBits* b, const Huff* h) {
     return h->vals[(code + h->valoffset[l]) & 0xFF];
 }
 
+// decode_mcu_fast's FILL_BIT_BUFFER_FAST: six bytes once 16 bits or fewer
+// remain; an 0xFF not followed by 0 feeds a zero byte in its place, stays
+// unread and sends the MCU to the slow path
+static inline void fast_fill(LBits* b) {
+    if (b->n > 16) return;
+    Src* s = b->src;
+    int64_t p = s->pos;
+    for (int i = 0; i < 6; ++i) {
+        const int c0 = p < s->len ? s->data[p] : 0, c1 = p + 1 < s->len ? s->data[p + 1] : 0;
+        ++p;
+        b->acc = (b->acc << 8) | (uint64_t)c0;
+        b->n += 8;
+        if (c0 == 0xFF) {
+            ++p;
+            if (c1 != 0) {
+                b->hit_marker = true;
+                p -= 2;
+                b->acc &= ~(uint64_t)0xFF;
+            }
+        }
+    }
+    s->pos = p;
+}
+
+static inline int fast_get(LBits* b, int k) {
+    fast_fill(b);
+    b->n -= k;
+    return (int)((b->acc >> b->n) & (((uint64_t)1 << k) - 1));
+}
+
+// HUFF_DECODE_FAST: the same code read after FILL_BIT_BUFFER_FAST
+static inline int fast_decode(LBits* b, const Huff* h) {
+    fast_fill(b);
+    const int e = h->look[peek(b, 8)];
+    int l = e >> 8;
+    b->n -= l;
+    if (l <= 8) return e & 0xFF;
+    int code = (int)((b->acc >> b->n) & (((uint64_t)1 << l) - 1));
+    while (code > h->maxcode[l]) {
+        --b->n;
+        code = (code << 1) | (int)((b->acc >> b->n) & 1);
+        ++l;
+    }
+    if (l > 16) return 0;
+    return h->vals[(code + h->valoffset[l]) & 0xFF];
+}
+
+// ------------------------------------------------------ JPEG: Huffman scans
+// jdhuff.c decode_mcu_slow, or decode_mcu_fast when fast, on one MCU's
+// blocks: each block's DC difference (its prediction wraps as libjpeg's
+// unsigned sum) and AC run/size codes
+static inline void sequential_mcu(bool fast, LBits* b, int nblk, int16_t* const* blks,
+                                  const int* blk_ci, const Huff* dc, const Huff* ac, int* pred) {
+    for (int i = 0; i < nblk; ++i) {
+        const int ci = blk_ci[i];
+        int16_t* blk = blks[i];
+        int s = fast ? fast_decode(b, &dc[ci]) : lbits_decode(b, &dc[ci]);
+        if (s) s = extend(fast ? fast_get(b, s) : lbits_get(b, s), s);
+        pred[ci] = (int)((unsigned)pred[ci] + (unsigned)s);
+        blk[0] = (int16_t)pred[ci];
+        for (int k = 1; k < 64; ++k) {
+            const int rs = fast ? fast_decode(b, &ac[ci]) : lbits_decode(b, &ac[ci]);
+            const int r = rs >> 4;
+            s = rs & 15;
+            if (s) {
+                k += r;
+                blk[kNatural[k]] = (int16_t)extend(fast ? fast_get(b, s) : lbits_get(b, s), s);
+            } else {
+                if (r != 15) break;
+                k += 15;
+            }
+        }
+    }
+}
+
+// jdphuff.c decode_mcu_DC_first, _DC_refine, _AC_first and _AC_refine on
+// one MCU's blocks
+static void progressive_mcu(LBits* b, int nblk, int16_t* const* blks, const int* blk_ci,
+                            const Huff* dc, const Huff* ac, int* pred, int* eobrun, int ss,
+                            int se, int ah, int al) {
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    for (int i = 0; i < nblk; ++i) {
+        const int ci = blk_ci[i];
+        int16_t* blk = blks[i];
+        if (ss == 0) {
+            if (ah == 0) {
+                int s = lbits_decode(b, &dc[ci]);
+                if (s) s = extend(lbits_get(b, s), s);
+                pred[ci] += s;
+                blk[0] = (int16_t)((unsigned)pred[ci] << al);
+            } else if (lbits_get(b, 1)) {
+                blk[0] = (int16_t)(blk[0] | p1);
+            }
+        } else if (ah == 0) {
+            if (*eobrun > 0) {
+                --*eobrun;
+                continue;
+            }
+            for (int k = ss; k <= se; ++k) {
+                const int rs = lbits_decode(b, &ac[ci]);
+                const int r = rs >> 4, s = rs & 15;
+                if (s) {
+                    k += r;
+                    blk[kNatural[k]] = (int16_t)((unsigned)extend(lbits_get(b, s), s) << al);
+                } else if (r == 15) {
+                    k += 15;
+                } else {
+                    *eobrun = 1 << r;
+                    if (r) *eobrun += lbits_get(b, r);
+                    --*eobrun;
+                    break;
+                }
+            }
+        } else {
+            int k = ss;
+            if (*eobrun == 0) {
+                for (; k <= se; ++k) {
+                    const int rs = lbits_decode(b, &ac[ci]);
+                    int r = rs >> 4, s = rs & 15;
+                    if (s) {
+                        s = lbits_get(b, 1) ? p1 : m1;
+                    } else if (r != 15) {
+                        *eobrun = 1 << r;
+                        if (r) *eobrun += lbits_get(b, r);
+                        break;
+                    }
+                    do {
+                        int16_t* t = blk + kNatural[k];
+                        if (*t != 0) {
+                            if (lbits_get(b, 1) && (*t & p1) == 0)
+                                *t = (int16_t)(*t >= 0 ? *t + p1 : *t + m1);
+                        } else if (--r < 0) {
+                            break;
+                        }
+                        ++k;
+                    } while (k <= se);
+                    if (s) blk[kNatural[k]] = (int16_t)s;
+                }
+            }
+            if (*eobrun > 0) {
+                for (; k <= se; ++k) {
+                    int16_t* t = blk + kNatural[k];
+                    if (*t != 0 && lbits_get(b, 1) && (*t & p1) == 0)
+                        *t = (int16_t)(*t >= 0 ? *t + p1 : *t + m1);
+                }
+                --*eobrun;
+            }
+        }
+    }
+}
+
+// PIL hands libjpeg a file in reads of 65536 bytes (ImageFile.MAXBLOCK);
+// the fast path needs 512 bytes a block of the MCU in the source buffer
+static const int64_t kChunk = 65536, kFastBytes = 512;
+
+// One Huffman scan (jdhuff.c decode_mcu, jdphuff.c, process_restart) fed
+// as PIL feeds libjpeg: the bytes handed over end at the read that held the
+// scan's header, and an MCU that runs past them is decoded again with the
+// next read (which may let it take the fast path); past the file's end the
+// file is truncated (-6). comps (ncomp rows of 5 int32): H, V (the
+// component's blocks in an MCU), blocks_w (the row pitch of its
+// coefficient array), and the blocks a non-interleaved scan covers across
+// and down. tabs: per component its DC spec then its AC spec (16 + 256
+// bytes each; a table the scan does not use may be zeros). coefs[i]: the
+// component's (blocks_h, blocks_w, 64) int16 coefficients in natural
+// order, updated in place. mcus_x, mcus_y: the interleaved MCU grid. kind:
+// 0 sequential, 1 progressive. After a marker cuts the data short, the rest
+// of the restart interval decodes nothing (a DC refinement reads zeros).
+// last_good: the iMCU row of the last MCU begun with data left. Returns
+// the position of the marker that ends the scan, the end of the data when
+// none follows, or a negative code.
+int64_t fd_jpeg_scan(const uint8_t* data, int64_t len, int64_t pos, int ncomp,
+                     const int32_t* comps, const uint8_t* tabs, int16_t* const* coefs,
+                     int mcus_x, int mcus_y, int restart_interval, int ss, int se,
+                     int ah, int al, int kind, int32_t* last_good) {
+    if (ncomp < 1 || ncomp > 4) return -2;
+    Huff dc[4], ac[4];
+    for (int i = 0; i < ncomp; ++i) {
+        if (build_huff(tabs + i * 544, &dc[i]) < 0) return -3;
+        if (build_huff(tabs + i * 544 + 272, &ac[i]) < 0) return -3;
+    }
+    const bool progressive = kind == 1, fast_ok = !progressive && restart_interval == 0;
+    const bool refine_dc = progressive && ss == 0 && ah != 0;
+    Src src{data, len, pos, 0, false, len};
+    if (fast_ok) src.avail = std::min(len, std::max(kChunk, (pos + kChunk - 1) / kChunk * kChunk));
+    LBits b{&src, 0, 0, false, false};
+    int pred[4] = {0, 0, 0, 0};
+    int eobrun = 0;
+    int64_t total;
+    int per_row, imcu_v;
+    if (ncomp == 1) {
+        per_row = comps[3];
+        total = (int64_t)comps[3] * comps[4];
+        imcu_v = comps[1];
+    } else {
+        per_row = mcus_x;
+        total = (int64_t)mcus_x * mcus_y;
+        imcu_v = 1;
+    }
+    int16_t* blks[64];
+    int blk_ci[64], nblk = 0;
+    int16_t saved[64 * 64];
+    int rst_left = restart_interval, next_rst = 0;
+    for (int64_t m = 0; m < total; ++m) {
+        const int my = (int)(m / per_row), mx = (int)(m % per_row);
+        if (!b.short_data) *last_good = my / imcu_v;
+        if (restart_interval && rst_left == 0) {
+            b.acc = 0;
+            b.n = 0;
+            if (!read_restart(&src, next_rst)) return -6;
+            next_rst = (next_rst + 1) & 7;
+            rst_left = restart_interval;
+            pred[0] = pred[1] = pred[2] = pred[3] = 0;
+            eobrun = 0;
+            if (src.unread == 0) b.short_data = false;
+        }
+        nblk = 0;
+        for (int ci = 0; ci < ncomp; ++ci) {
+            const int32_t* c = comps + ci * 5;
+            const int hh = ncomp == 1 ? 1 : c[0], vv = ncomp == 1 ? 1 : c[1];
+            for (int v = 0; v < vv; ++v)
+                for (int h = 0; h < hh; ++h) {
+                    const int64_t row = (int64_t)my * vv + v, col = (int64_t)mx * hh + h;
+                    blk_ci[nblk] = ci;
+                    blks[nblk++] = coefs[ci] + (row * c[2] + col) * 64;
+                }
+        }
+        if (!b.short_data || refine_dc) {
+            for (;;) {
+                const int64_t pos0 = src.pos;
+                const int unread0 = src.unread, n0 = b.n, eob0 = eobrun;
+                const uint64_t acc0 = b.acc;
+                const bool short0 = b.short_data;
+                int pred0[4];
+                std::memcpy(pred0, pred, sizeof(pred));
+                for (int i = 0; i < nblk; ++i) std::memcpy(saved + i * 64, blks[i], 128);
+                if (progressive) {
+                    progressive_mcu(&b, nblk, blks, blk_ci, dc, ac, pred, &eobrun, ss, se, ah, al);
+                } else {
+                    bool done = false;
+                    if (fast_ok && src.unread == 0 && src.avail - src.pos >= kFastBytes * nblk) {
+                        b.hit_marker = false;
+                        sequential_mcu(true, &b, nblk, blks, blk_ci, dc, ac, pred);
+                        done = !b.hit_marker;
+                        if (!done) {
+                            src.pos = pos0;
+                            src.unread = unread0;
+                            b.acc = acc0;
+                            b.n = n0;
+                            std::memcpy(pred, pred0, sizeof(pred));
+                        }
+                    }
+                    if (!done) sequential_mcu(false, &b, nblk, blks, blk_ci, dc, ac, pred);
+                }
+                if (!src.eof) break;
+                if (src.avail >= len) return -6;
+                src.pos = pos0;
+                src.unread = unread0;
+                src.eof = false;
+                src.avail = std::min(len, src.avail + kChunk);
+                b.acc = acc0;
+                b.n = n0;
+                b.short_data = short0;
+                eobrun = eob0;
+                std::memcpy(pred, pred0, sizeof(pred));
+                for (int i = 0; i < nblk; ++i) std::memcpy(blks[i], saved + i * 64, 128);
+            }
+        }
+        if (restart_interval) --rst_left;
+    }
+    src.avail = len;
+    return scan_end(&src);
+}
+
+// ------------------------------------------------ JPEG: lossless (H, jdlhuff)
 static inline int predict(int psv, int ra, int rb, int rc) {
     switch (psv) {
         case 1: return ra;
@@ -853,7 +900,7 @@ int64_t fd_jpeg_lossless_scan(const uint8_t* data, int64_t len, int64_t pos, int
         prev[ci].assign(c[2], 0);
         cur[ci].assign(c[2], 0);
     }
-    Src src{data, len, pos, 0, false};
+    Src src{data, len, pos, 0, false, len};
     LBits b{&src, 0, 0, false};
     bool first[4] = {true, true, true, true};
     int to_go = rows_per_restart, next_rst = 0;
@@ -926,6 +973,104 @@ int64_t fd_jpeg_lossless_scan(const uint8_t* data, int64_t len, int64_t pos, int
         }
     }
     return scan_end(&src);
+}
+
+// ------------------------------------------- JPEG: block smoothing (jdcoefct)
+// decompress_smooth_data's estimate of one still-zero coefficient: num / (q
+// << 8) rounded, its magnitude capped below 1 << al when al > 0
+static inline int16_t smooth_pred(int64_t num, int64_t q, int al) {
+    int64_t pred = ((q << 7) + (num >= 0 ? num : -num)) / (q << 8);
+    if (al > 0 && pred >= ((int64_t)1 << al)) pred = ((int64_t)1 << al) - 1;
+    return (int16_t)(num >= 0 ? pred : -pred);
+}
+
+// Block smoothing of an incomplete progressive component (jdcoefct.c
+// decompress_smooth_data, libjpeg-turbo 3.1.3): out is a copy of coefs
+// (bh, bw, 64) in which each block within (nbh, nbw) has its still-zero
+// coefficients 1-5 (and, for a component no AC scan reached, 6-9 and its
+// DC) estimated from the DC values of its 5x5 neighbourhood. rows (nbh, 5)
+// and cols (nbw, 5): the block rows and columns the neighbourhood reads
+// (jpeg.smooth_geometry); qt: the natural-order quantisers; latches (2, 10):
+// the coef_bits latch of DC and coefficients 1-9 (a coefficient is
+// estimated unless its latch is 0) for the iMCU rows (v block rows each)
+// up to last_good, and the one for the rows past it.
+int fd_jpeg_smooth(const int16_t* coefs, int bh, int bw, int nbh, int nbw, const int32_t* rows,
+                   const int32_t* cols, const uint16_t* qt, const int32_t* latches, int v,
+                   int last_good, int16_t* out) {
+    std::memcpy(out, coefs, (size_t)bh * bw * 64 * sizeof(int16_t));
+    const int64_t Q00 = qt[0], Q01 = qt[1], Q10 = qt[8], Q20 = qt[16], Q11 = qt[9],
+                  Q02 = qt[2], Q03 = qt[3], Q12 = qt[10], Q21 = qt[17], Q30 = qt[24];
+    for (int by = 0; by < nbh; ++by) {
+        const int32_t* bits = latches + (by / v > last_good ? 10 : 0);
+        bool change_dc = true;
+        for (int k = 1; k <= 9; ++k) change_dc = change_dc && bits[k] == -1;
+        for (int bx = 0; bx < nbw; ++bx) {
+            int64_t d[26];  // DC01..DC25 as libjpeg numbers them (d[0] unused)
+            for (int i = 0; i < 5; ++i)
+                for (int j = 0; j < 5; ++j)
+                    d[1 + i * 5 + j] =
+                        coefs[((int64_t)rows[by * 5 + i] * bw + cols[bx * 5 + j]) * 64];
+            int16_t* ws = out + ((int64_t)by * bw + bx) * 64;
+            int al;
+            if ((al = bits[1]) != 0 && ws[1] == 0) {
+                const int64_t num = Q00 * (change_dc ?
+                    (-d[1] - d[2] + d[4] + d[5] - 3 * d[6] + 13 * d[7] - 13 * d[9] + 3 * d[10] -
+                     3 * d[11] + 38 * d[12] - 38 * d[14] + 3 * d[15] - 3 * d[16] + 13 * d[17] -
+                     13 * d[19] + 3 * d[20] - d[21] - d[22] + d[24] + d[25]) :
+                    (-7 * d[11] + 50 * d[12] - 50 * d[14] + 7 * d[15]));
+                ws[1] = smooth_pred(num, Q01, al);
+            }
+            if ((al = bits[2]) != 0 && ws[8] == 0) {
+                const int64_t num = Q00 * (change_dc ?
+                    (-d[1] - 3 * d[2] - 3 * d[3] - 3 * d[4] - d[5] - d[6] + 13 * d[7] +
+                     38 * d[8] + 13 * d[9] - d[10] + d[16] - 13 * d[17] - 38 * d[18] -
+                     13 * d[19] + d[20] + d[21] + 3 * d[22] + 3 * d[23] + 3 * d[24] + d[25]) :
+                    (-7 * d[3] + 50 * d[8] - 50 * d[18] + 7 * d[23]));
+                ws[8] = smooth_pred(num, Q10, al);
+            }
+            if ((al = bits[3]) != 0 && ws[16] == 0) {
+                const int64_t num = Q00 * (change_dc ?
+                    (d[3] + 2 * d[7] + 7 * d[8] + 2 * d[9] - 5 * d[12] - 14 * d[13] -
+                     5 * d[14] + 2 * d[17] + 7 * d[18] + 2 * d[19] + d[23]) :
+                    (-d[3] + 13 * d[8] - 24 * d[13] + 13 * d[18] - d[23]));
+                ws[16] = smooth_pred(num, Q20, al);
+            }
+            if ((al = bits[4]) != 0 && ws[9] == 0) {
+                const int64_t num = Q00 * (change_dc ?
+                    (-d[1] + d[5] + 9 * d[7] - 9 * d[9] - 9 * d[17] + 9 * d[19] + d[21] - d[25]) :
+                    (d[10] + d[16] - 10 * d[17] + 10 * d[19] - d[2] - d[20] + d[22] - d[24] +
+                     d[4] - d[6] + 10 * d[7] - 10 * d[9]));
+                ws[9] = smooth_pred(num, Q11, al);
+            }
+            if ((al = bits[5]) != 0 && ws[2] == 0) {
+                const int64_t num = Q00 * (change_dc ?
+                    (2 * d[7] - 5 * d[8] + 2 * d[9] + d[11] + 7 * d[12] - 14 * d[13] +
+                     7 * d[14] + d[15] + 2 * d[17] - 5 * d[18] + 2 * d[19]) :
+                    (-d[11] + 13 * d[12] - 24 * d[13] + 13 * d[14] - d[15]));
+                ws[2] = smooth_pred(num, Q02, al);
+            }
+            if (!change_dc) continue;
+            if ((al = bits[6]) != 0 && ws[3] == 0)
+                ws[3] = smooth_pred(Q00 * (d[7] - d[9] + 2 * d[12] - 2 * d[14] + d[17] - d[19]),
+                                    Q03, al);
+            if ((al = bits[7]) != 0 && ws[10] == 0)
+                ws[10] = smooth_pred(Q00 * (d[7] - 3 * d[8] + d[9] - d[17] + 3 * d[18] - d[19]),
+                                     Q12, al);
+            if ((al = bits[8]) != 0 && ws[17] == 0)
+                ws[17] = smooth_pred(Q00 * (d[7] - d[9] - 3 * d[12] + 3 * d[14] + d[17] - d[19]),
+                                     Q21, al);
+            if ((al = bits[9]) != 0 && ws[24] == 0)
+                ws[24] = smooth_pred(Q00 * (d[7] + 2 * d[8] + d[9] - d[17] - 2 * d[18] - d[19]),
+                                     Q30, al);
+            const int64_t num = Q00 *
+                (-2 * d[1] - 6 * d[2] - 8 * d[3] - 6 * d[4] - 2 * d[5] - 6 * d[6] + 6 * d[7] +
+                 42 * d[8] + 6 * d[9] - 6 * d[10] - 8 * d[11] + 42 * d[12] + 152 * d[13] +
+                 42 * d[14] - 8 * d[15] - 6 * d[16] + 6 * d[17] + 42 * d[18] + 6 * d[19] -
+                 6 * d[20] - 2 * d[21] - 6 * d[22] - 8 * d[23] - 6 * d[24] - 2 * d[25]);
+            ws[0] = smooth_pred(num, Q00, 0);
+        }
+    }
+    return 0;
 }
 
 // The islow IDCT as libjpeg-turbo runs it on x86-64 (jsimd_idct_islow,
@@ -1399,7 +1544,7 @@ namespace fax {
 
 enum { S_Null, S_Pass, S_Horiz, S_V0, S_VR, S_VL, S_Ext, S_TermW, S_TermB, S_MakeUpW,
        S_MakeUpB, S_MakeUp, S_EOL };
-enum { kOk = 0, kEof = 1, kFailed = -1, kUncompressed = -2 };
+enum { kOk = 0, kEof = 1, kFailed = -1 };
 
 struct Ent { uint8_t state, width; uint16_t param; };
 static Ent white_t[1 << 12], black_t[1 << 13], main_t[1 << 7];
@@ -1447,17 +1592,6 @@ struct Dec {
     void clr(int n) {
         avail -= n;
         acc &= (avail >= 32) ? 0xFFFFFFFFu : ((1u << avail) - 1);
-    }
-    int ahead(int n) const {  // the next n bits, zeros past the end, state untouched
-        uint64_t a = acc;
-        int av = avail;
-        int64_t p = cp;
-        while (av < n) {
-            a = (a << 8) | (p < len ? data[p] : 0);
-            ++p;
-            av += 8;
-        }
-        return (int)((a >> (av - n)) & ((1u << n) - 1));
     }
     bool lookup(const Ent* t, int bits, Ent* e) {  // LOOKUP8 / LOOKUP16
         if (!need(bits)) return false;
@@ -1569,7 +1703,7 @@ static int horizontal_run(Dec& d, Row& r, const Ent* t, int bits, int term, int 
 }
 
 // EXPAND2D against the reference line: kOk, kEof (the row cleaned up),
-// kFailed, kUncompressed
+// kFailed
 static int expand2d(Dec& d, Row& r) {
     Ent e;
     uint32_t* runs = d.runs;
@@ -1628,8 +1762,7 @@ static int expand2d(Dec& d, Row& r) {
                     return kFailed;
                 b1 = (int32_t)((uint32_t)b1 - runs[--pb]);
                 break;
-            case S_Ext:  // libtiff: "Uncompressed data (not supported)"
-                if (d.ahead(3) == 7) return kUncompressed;
+            case S_Ext:  // extension(a0): "Uncompressed data (not supported)", reported
                 runs[r.pa++] = (uint32_t)(lastx - r.a0);
                 goto eol;
             case S_EOL:
@@ -1683,13 +1816,15 @@ extern "C" {
 
 // One CCITT strip or tile of `rows` rows of `width` pixels into out
 // (row_bytes a row, MSB first, 1 for black; rows the data never reaches
-// keep their bytes). mode: the TIFF compression, 2 (Modified Huffman),
-// 3 (T.4: t4options bit 0 two-dimensional) or 4 (T.6). state: the image's
+// keep their bytes). mode: the TIFF compression, 2 (Modified Huffman, each
+// row byte-aligned), 32771 (RLE-W: the same, each row word-aligned as
+// Fax3DecodeRLE aligns it; odd: the data starts at an odd offset of its
+// file, the parity of libtiff's read pointer in the file's mapping), 3
+// (T.4: t4options bit 0 two-dimensional) or 4 (T.6). state: the image's
 // flag word and run arrays (utils/fax.py: new_state), carried to its next
-// strip. Returns the rows decoded, -1 where libtiff fails the strip, -2 at
-// the extension code that enters uncompressed mode.
+// strip. Returns the rows decoded, or -1 where libtiff fails the strip.
 int fd_tiff_fax(const uint8_t* data, int64_t len, int width, int rows, int mode,
-                int t4options, uint8_t* out, int64_t row_bytes, uint32_t* state) {
+                int t4options, uint8_t* out, int64_t row_bytes, uint32_t* state, int odd) {
     using namespace fax;
     std::call_once(tables_once, build_tables);
     if (width < 1 || rows < 0 || row_bytes * 8 < width) return kFailed;
@@ -1711,12 +1846,17 @@ int fd_tiff_fax(const uint8_t* data, int64_t len, int width, int rows, int mode,
     while (line < rows && rc >= 0) {
         uint8_t* row = out + (int64_t)line * row_bytes;
         Row r{&d, d.cur, d.cur, 0, 0};
-        if (mode == 2) {
+        if (mode == 2 || mode == 32771) {
             rc = expand1d(d, r);
             if (rc == kFailed) break;
             fill(d.runs, r.thisrun, r.pa, width, row, row_bytes);
             if (rc == kEof) { rc = kFailed; break; }
-            d.clr(d.avail % 8);  // each row starts on a byte
+            if (mode == 2) {
+                d.clr(d.avail % 8);  // each row starts on a byte
+            } else {  // on a word: the bits down to 0 or 16, then an even address
+                d.clr(d.avail % 16);
+                if (d.avail == 0 && ((d.cp + odd) & 1)) ++d.cp;
+            }
         } else if (mode == 3) {
             int s = sync_eol(d);
             int is1d = 1;

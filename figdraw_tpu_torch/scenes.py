@@ -1764,6 +1764,18 @@ ARITH_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "arith_progressive_rst.jpg")
 ARITH_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_arith_1x_blocks8.npy")
 LOSSLESS_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "lossless_crop_p1.jpg")
 LOSSLESS_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_lossless_480x270_blocks8.npy")
+# the fixture as a progressive Huffman JPEG whose scans leave the last
+# bit of every AC coefficient unrefined (libjpeg smooths its blocks), and
+# its centre (400x300) dithered to 1 bit as a CCITT RLE-W TIFF: each drawn
+# in the image-file scene and on the photo wall
+INCOMPLETE_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "progressive_incomplete_huff.jpg")
+INCOMPLETE_FILE_REFERENCE = os.path.join(REFERENCE_DIR,
+                                         "example_image_file_incomplete_1x_blocks8.npy")
+INCOMPLETE_WALL_REFERENCE = os.path.join(REFERENCE_DIR,
+                                         "photo_wall_incomplete_480x270_blocks8.npy")
+RLEW_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "rlew_dither.tif")
+RLEW_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_rlew_1x_blocks8.npy")
+RLEW_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_rlew_480x270_blocks8.npy")
 
 
 def make_image_file_scene(w: float, h: float, image_id: int) -> Renders:

@@ -1,6 +1,7 @@
 """CCITT fax decoding as libtiff 4.7.1 does it for TIFF compressions 2
-(Modified Huffman), 3 (T.4, one- or two-dimensional) and 4 (T.6), the
-decoder PIL 12.1.0 reads such a TIFF through: `decode` in C++
+(Modified Huffman), 3 (T.4, one- or two-dimensional), 4 (T.6) and 32771
+(CCITT RLE-W: Modified Huffman with each row word-aligned), the decoder
+PIL 12.1.0 reads such a TIFF through: `decode` in C++
 (csrc/image_decode.cpp: fd_tiff_fax), `decode_plain` its twin in Python.
 
 The code tables are T.4's (ITU-T T.4, tables 2, 3 and 4): `TERMINATING`,
@@ -14,8 +15,14 @@ libtiff's tif_fax3.c and tif_fax3.h step for step, its leniency included:
   runs past it loses the runs that cross it and is padded with white too
   ("Line length mismatch"); a bad code word ends the row as a short one,
   and the next row goes on;
+- a Modified Huffman row ends on a byte, an RLE-W row on a 16-bit word
+  (Fax3DecodeRLE with libtiff's FAXMODE_BYTEALIGN or FAXMODE_WORDALIGN:
+  the buffered bits dropped down to a multiple of 16, then, with none
+  left, a byte skipped where the read pointer's address is odd: libtiff
+  reads the strip in the file's mapping, so the address has the parity of
+  the strip's offset in the file plus the bytes read);
 - past the end of the data, codes read zero bits up to the width asked
-  for while any bit is left. Then a Modified Huffman strip fails; a T.4
+  for while any bit is left. Then a Modified Huffman or RLE-W strip fails; a T.4
   strip that ran out inside the zeros of an EOL is read again from its
   start without EOLs into the rows left ("Try to decode (read) fax Group 3
   data without EOL"), and so are the image's later strips; a T.4 strip
@@ -28,9 +35,13 @@ libtiff's tif_fax3.c and tif_fax3.h step for step, its leniency included:
   buffer, which it reuses, the previous strip's rows (for the first strip,
   whatever the allocation held; here zeros); a reference line walked past
   its end reads the runs earlier rows left (`new_state` carries them);
-- libtiff reports the extension code that enters uncompressed mode
-  (0000001111) and reads on from it; the port refuses the strip
-  (NotImplementedError), uncompressed mode not being ported.
+- a two-dimensional row that meets the extension code (0000001, whether
+  the three bits after it enter uncompressed mode, 0000001111, or not)
+  ends there as EXPAND2D's S_Ext ends it: its remaining width one run of
+  the current colour, the row cleaned up; libtiff reports "Uncompressed
+  data (not supported)" and goes on, reading the bits after the seven of
+  the code as the next row's (the one-dimensional tables hold no
+  extension code: there it is a bad code word).
 
 Out: each row `row_bytes` bytes, MSB first, a bit 1 where a black run
 lies (libtiff's output; the photometric tag says which is dark).
@@ -40,7 +51,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import image_lib, jpeg
+from . import image_lib
 
 # T.4 table 2: (run, white code, black code) for the terminating runs 0-63
 TERMINATING = (
@@ -115,10 +126,10 @@ S_TERMW, S_TERMB, S_MAKEUPW, S_MAKEUPB, S_MAKEUP, S_EOL = 7, 8, 9, 10, 11, 12
 _MODE_STATES = {"pass": S_PASS, "horiz": S_HORIZ, "v0": S_V0, "vr": S_VR, "vl": S_VL,
                 "ext": S_EXT, "eol": S_EOL}
 
-# the modes of fd_tiff_fax (the TIFF compression) and its results
-MH, T4, T6 = 2, 3, 4
+# the modes of fd_tiff_fax (the TIFF compression) and its result
+MH, T4, T6, RLEW = 2, 3, 4, 32771
 T4_2D = 1  # T4Options bit 0; bit 2 (fill bits) needs nothing of a decoder
-FAILED, UNCOMPRESSED = -1, -2
+FAILED = -1
 NOEOL = 1  # the state's flag word: T.4 read without EOLs from here on
 
 
@@ -175,14 +186,15 @@ def _tables():
 
 
 def decode(data: bytes, width: int, rows: int, mode: int, t4options: int, out: np.ndarray,
-           state: np.ndarray, tile: bool = False) -> np.ndarray:
+           state: np.ndarray, tile: bool = False, odd: bool = False) -> np.ndarray:
     """A strip or tile of `rows` rows of `width` pixels into `out`
     ((rows, row_bytes) uint8: rows the data never reaches keep what they
     held), in C++; `state` (new_state) carries over to the image's next
-    strip. ValueError where libtiff fails a strip, NotImplementedError
-    for uncompressed mode. A tile never fails: libtiff's
-    TIFFReadEncodedTile takes the fax decoder's -1 for success (its
-    TIFFReadEncodedStrip does not), so PIL keeps what the tile decoded."""
+    strip; odd: the strip starts at an odd offset in its file (RLE-W's word
+    alignment reads it). ValueError where libtiff fails a strip. A tile
+    never fails: libtiff's TIFFReadEncodedTile takes the fax decoder's -1
+    for success (its TIFFReadEncodedStrip does not), so PIL keeps what the
+    tile decoded."""
     if out.dtype != np.uint8 or not out.flags.c_contiguous or out.shape[0] < rows \
             or out.shape[1] * 8 < width or state.dtype != np.uint32 \
             or len(state) != len(new_state(width, _two_d(mode, t4options))):
@@ -190,7 +202,7 @@ def decode(data: bytes, width: int, rows: int, mode: int, t4options: int, out: n
     src = np.frombuffer(data, np.uint8)
     rc = image_lib.load().fd_tiff_fax(src.ctypes.data, len(data), width, rows, mode,
                                       t4options, out.ctypes.data, out.shape[1],
-                                      state.ctypes.data)
+                                      state.ctypes.data, int(odd))
     _check(rc, tile)
     return out
 
@@ -200,10 +212,6 @@ def _two_d(mode: int, t4options: int) -> bool:
 
 
 def _check(rc: int, tile: bool) -> None:
-    if rc == UNCOMPRESSED:
-        raise NotImplementedError(jpeg.UNSUPPORTED.format(
-            "a TIFF fax strip in uncompressed mode (libtiff: \"Uncompressed data (not "
-            "supported)\")"))
     if rc < 0 and not tile:
         raise ValueError("corrupt TIFF fax data: libtiff fails this strip")
 
@@ -269,15 +277,6 @@ class _Plain:
     def clr(self, n: int) -> None:
         self.avail -= n
         self.acc &= (1 << self.avail) - 1
-
-    def ahead(self, n: int) -> int:
-        """The next n bits, zeros past the end, the state untouched."""
-        acc, avail, cp = self.acc, self.avail, self.cp
-        while avail < n:
-            acc = (acc << 8) | (self.data[cp] if cp < len(self.data) else 0)
-            cp += 1
-            avail += 8
-        return (acc >> (avail - n)) & ((1 << n) - 1)
 
     def lookup(self, table: list, bits: int) -> tuple:
         self.need(bits)
@@ -493,9 +492,7 @@ def _expand2d(st: _Plain, r: _Row, white: list, black: list, main: list) -> None
                 r.setvalue(b1 - r.a0 - param)
                 pb -= 1
                 b1 = _i32(b1 - runs[pb])
-            elif state == S_EXT:
-                if st.ahead(3) == 0b111:
-                    raise _Failed(UNCOMPRESSED)
+            elif state == S_EXT:  # extension(a0): reported, the row ended
                 runs[r.pa] = _u32(lastx - r.a0)
                 r.pa += 1
                 break
@@ -524,34 +521,40 @@ def _expand2d(st: _Plain, r: _Row, white: list, black: list, main: list) -> None
 
 
 def decode_plain(data: bytes, width: int, rows: int, mode: int, t4options: int,
-                 out: np.ndarray, state: np.ndarray, tile: bool = False) -> np.ndarray:
+                 out: np.ndarray, state: np.ndarray, tile: bool = False,
+                 odd: bool = False) -> np.ndarray:
     """decode in Python."""
     st = _Plain(data, width, _two_d(mode, t4options), state)
     try:
-        rc = _decode_rows(st, rows, mode, out)
+        rc = _decode_rows(st, rows, mode, out, odd)
     finally:
         st.save(state)
     _check(rc, tile)
     return out
 
 
-def _decode_rows(st: _Plain, rows: int, mode: int, out: np.ndarray) -> int:
+def _decode_rows(st: _Plain, rows: int, mode: int, out: np.ndarray, odd: bool) -> int:
     """Fax3DecodeRLE, Fax3Decode1D, Fax3Decode2D or Fax4Decode on one
-    strip: the rows decoded, or FAILED, or UNCOMPRESSED."""
+    strip: the rows decoded, or FAILED."""
     white, black, main = _tables()
     width, two_d = st.lastx, st.nruns != nruns(st.lastx, False)
     line = 0
     try:
         while line < rows:
             r = _Row(st)
-            if mode == MH:
+            if mode in (MH, RLEW):
                 try:
                     _expand1d(st, r, white, black)
                 except _Eof:
                     _fill(st.runs, r.thisrun, r.pa, width, out[line])
                     return FAILED
                 _fill(st.runs, r.thisrun, r.pa, width, out[line])
-                st.clr(st.avail % 8)  # each row starts on a byte
+                if mode == MH:
+                    st.clr(st.avail % 8)  # each row starts on a byte
+                else:  # on a word: the bits down to 0 or 16, then an even address
+                    st.clr(st.avail % 16)
+                    if st.avail == 0 and (st.cp + odd) & 1:
+                        st.cp += 1
             elif mode == T4:
                 try:
                     st.sync_eol()

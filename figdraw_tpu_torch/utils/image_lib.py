@@ -30,10 +30,12 @@ _brotli = None
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
-    "fd_jpeg_scan": ([_P, _I64, _I64, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I], _I64),
+    "fd_jpeg_scan": ([_P, _I64, _I64, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                     _I64),
     "fd_jpeg_arith_scan": ([_P, _I64, _I64, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
                            _I64),
     "fd_jpeg_lossless_scan": ([_P, _I64, _I64, _I, _P, _P, _P, _I, _I, _I, _I, _I], _I64),
+    "fd_jpeg_smooth": ([_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P], _I),
     "fd_jpeg_idct_islow": ([_P, _I, _I, _P, _P], _I),
     "fd_jpeg_upsample": ([_P, _I, _I, _I, _P, _I, _I, _I, _I, _I], _I),
     "fd_jpeg_color": ([_P, _P, _P, _I64, _P, _I], _I),
@@ -42,7 +44,7 @@ _SIGNATURES = {
     "fd_tiff_packbits": ([_P, _I64, _P, _I64], _I64),
     "fd_tiff_lzw": ([_P, _I64, _P, _I64], _I64),
     "fd_tiff_predict": ([_P, _I64, _I64, _I, _I, _I, _I, _P], _I),
-    "fd_tiff_fax": ([_P, _I64, _I, _I, _I, _I, _P, _I64, _P], _I),
+    "fd_tiff_fax": ([_P, _I64, _I, _I, _I, _I, _P, _I64, _P, _I], _I),
 }
 _WEBP_SIGNATURES = {
     "fd_webp_vp8": ([_P, _I64, _I, _I, _P, _P, _P], _I),

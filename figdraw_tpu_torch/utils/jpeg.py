@@ -4,8 +4,8 @@ libjpeg-turbo 3.1.3 (figdraw_tpu decodes through PIL; the port may not
 import it). The markers are read here with struct; the entropy decoding,
 the IDCT, the upsampling and the colour conversion run in C++
 (csrc/image_decode.cpp, utils.image_lib), each beside its plain Python or
-numpy twin in this module (`scan_plain`, `idct_plain`, `upsample_plain`,
-`color_plain`), the tests' reference.
+numpy twin in this module (`scan_plain`, `smooth_plain`, `idct_plain`,
+`upsample_plain`, `color_plain`), the tests' reference.
 
 Read: SOI, APPn (APP0's JFIF and APP14's Adobe transform flag), DQT (8-
 and 16-bit tables), SOF0/SOF1 (baseline and extended Huffman, 8-bit),
@@ -16,18 +16,28 @@ and 5 until a DAC sets them), DRI with RST0-7, SOS, EOI, COM; any number
 of components (1, 3 or 4 decode to pixels) with any integral sampling
 factors. Scans: sequential Huffman, interleaved or not, and progressive
 (DC first and refine, AC first and refine, EOB runs, successive
-approximation); the same processes arithmetic-coded (jdarith.c:
+approximation), read as jdhuff.c and jdphuff.c read them from the bytes
+PIL hands libjpeg (`scan_plain`, fd_jpeg_scan: 57-bit fills, the fast
+path while 512 bytes a block remain, a bad code as 0, zeros after a
+marker; so a one-scan file without its EOI decodes exactly when PIL's
+does, Annex K's tables standing in for a sequential file's missing
+ones); the same processes arithmetic-coded (jdarith.c:
 `arith_scan_plain`, fd_jpeg_arith_scan); lossless scans with predictors 1-7
 and a point transform (jdlhuff.c, jddiffct.c, jdlossls.c:
 `lossless_scan_plain`, fd_jpeg_lossless_scan). A restart marker out of
-sequence in an arithmetic or lossless scan is resynchronised as
-jpeg_resync_to_restart does. Arithmetic lossless (SOF11), hierarchical
+sequence is resynchronised as jpeg_resync_to_restart does. Arithmetic lossless (SOF11), hierarchical
 (SOF5-7, SOF13-15) and 12-bit samples raise NotImplementedError (PIL
 12.1.0 reads none of them); a malformed file raises ValueError.
 
 The pixel pipeline is libjpeg-turbo's integer arithmetic with PIL's
-settings (JDCT_ISLOW, do_fancy_upsampling, no block smoothing: a complete
-progressive file has every coefficient refined). A lossless frame skips
+settings (JDCT_ISLOW, do_fancy_upsampling, do_block_smoothing). Block
+smoothing runs only on a progressive file whose scans leave one of the
+first nine AC coefficients unrefined in some component (a scan lost,
+cut short or changed): its still-zero low coefficients are estimated
+from the 5x5 DC neighbourhood before the IDCT (jdcoefct.c's
+decompress_smooth_data; `smoothing_latch`, `smooth`, `smooth_plain`). A
+complete file refines every coefficient to Al 0, so it is never
+smoothed and takes the same path as a sequential one. A lossless frame skips
 the IDCT: its samples are upsampled by replication (libjpeg's fancy
 upsamplers need a DCT scaling above 1) and keep their colour space, so
 one that asks for a colour conversion (YCbCr, YCCK) raises ValueError as
@@ -117,6 +127,23 @@ QE_TABLE = np.array([
     0x55976D6E, 0x504F6B6F, 0x5A106FEE, 0x55226D70, 0x59EB6FF0, 0x5A1D7171],
     np.int64)
 DC_STAT_BINS, AC_STAT_BINS = 64, 256
+# Annex K.3's tables (jstdhuff.c), which libjpeg's sequential Huffman
+# decoder takes for DC and AC tables 0 and 1 a file leaves undefined (a
+# progressive or lossless one does not): (class, id) -> counts and symbols
+STD_HUFFMAN = {key: bytes.fromhex(h) for key, h in {
+    (0, 0): "00010501010101010100000000000000000102030405060708090a0b",
+    (0, 1): "00030101010101010101010000000000000102030405060708090a0b",
+    (1, 0): "0002010303020403050504040000017d01020300041105122131410613516107227114328191a1"
+            "082342b1c11552d1f02433627282090a161718191a25262728292a3435363738393a4344454647"
+            "48494a535455565758595a636465666768696a737475767778797a838485868788898a92939495"
+            "969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8"
+            "d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa",
+    (1, 1): "00020102040403040705040400010277000102031104052131061241510761711322328108144291"
+            "a1b1c109233352f0156272d10a162434e125f11718191a262728292a35363738393a4344454647"
+            "48494a535455565758595a636465666768696a737475767778797a82838485868788898a929394"
+            "95969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7"
+            "d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"}.items()}
+MAX_BLOCKS_IN_MCU = 10  # D_MAX_BLOCKS_IN_MCU
 # the DAC defaults (jdmarker.c get_soi): DC L and U, AC Kx, for each of 16 tables
 DAC_DEFAULT = np.array([0] * 16 + [1] * 16 + [5] * 16, np.uint8)
 
@@ -134,6 +161,11 @@ class Component:
         self.cw = -(-w * self.h // hmax)  # downsampled_width
         self.ch = -(-hgt * self.v // vmax)
         self.scanned = False
+        # libjpeg's coef_bits for a progressive frame, in zigzag order: the
+        # Al of each coefficient's last scan (-1 before any), and the values
+        # before the component's latest scan (its prev_coef_bits)
+        self.coef_bits = np.full(64, -1, np.int32)
+        self.prev_bits = np.zeros(64, np.int32)
         if lossless:
             # a lossless frame's data unit is one sample: its samples, (ch, cw)
             self.samples = np.zeros((self.ch, self.cw), np.uint8)
@@ -157,6 +189,10 @@ class Frame:
         self.restart = 0
         self.cond = DAC_DEFAULT.copy()  # DC L[16], DC U[16], AC Kx[16]
         self.multi = None  # more than one scan (set at the first)
+        self.scans = 0  # scans started (libjpeg's input_scan_number)
+        # the last iMCU row begun with data left in the last scan that ran
+        # short (jdcoefct.c's last_good_iMCU_row); None: every row
+        self.last_good = None
 
 
 class _Truncated(ValueError):
@@ -262,6 +298,21 @@ def _read_sof(seg: bytes, frame: Frame, kind: int) -> None:
         c.place(w, hgt, hmax, vmax, frame.mcux, frame.mcuy, kind == LOSSLESS)
 
 
+def _scan_component(frame: Frame, cid: int, k: int, earlier) -> Component:
+    """jdmarker.c get_sos's search for the k-th scan component: the first of
+    the frame's first four components with id cid whose index is not a scan
+    slot already filled (libjpeg tests cur_comp_info[ci], so a scan lists
+    its components in frame order), and not one the scan named before."""
+    for ci in range(k, min(len(frame.components), 4)):
+        c = frame.components[ci]
+        if c.id == cid and not any(c is e for e in earlier):
+            return c
+        if c.id == cid:
+            break
+    raise ValueError("JPEG scan names a component the frame does not have, names one "
+                     "twice, or names them out of frame order")
+
+
 def _scan_args(seg: bytes, frame: Frame, qtables: dict, htables: dict):
     """The SOS header: the scan's components (their quantisation tables
     latched), the int32 rows and table specs its scan function takes, and
@@ -275,7 +326,6 @@ def _scan_args(seg: bytes, frame: Frame, qtables: dict, htables: dict):
     ns = seg[0] if seg else 0
     if not 1 <= ns <= 4 or len(seg) != 4 + 2 * ns:
         raise ValueError("malformed JPEG SOS segment")
-    by_id = {c.id: c for c in frame.components}
     lossless = frame.kind == LOSSLESS
     width = 4 if lossless else 7 if frame.arith else 5
     comps, rows = [], np.zeros((ns, width), np.int32)
@@ -284,9 +334,7 @@ def _scan_args(seg: bytes, frame: Frame, qtables: dict, htables: dict):
     ah, al = a >> 4, a & 15
     for k in range(ns):
         cid, t = seg[1 + 2 * k: 3 + 2 * k]
-        if cid not in by_id:
-            raise ValueError("JPEG scan names a component the frame does not have")
-        c = by_id[cid]
+        c = _scan_component(frame, cid, k, comps)
         c.scanned = True
         comps.append(c)
         if lossless:
@@ -294,10 +342,7 @@ def _scan_args(seg: bytes, frame: Frame, qtables: dict, htables: dict):
             if (0, t >> 4) not in htables:
                 raise ValueError("JPEG scan uses an undefined Huffman table")
             tabs[k] = htables[(0, t >> 4)]
-            n = int(tabs[k, :16].sum())
-            if (tabs[k, 16: 16 + n] > 16).any():
-                raise ValueError("malformed JPEG DHT segment: a lossless difference "
-                                 "category past 16")
+            check_huffman(tabs[k], True, 16)
             continue
         if c.qt is None:
             if c.tq not in qtables:
@@ -307,13 +352,18 @@ def _scan_args(seg: bytes, frame: Frame, qtables: dict, htables: dict):
             rows[k] = (c.h, c.v, c.bw, c.nbw, c.nbh, t >> 4, t & 15)
             continue
         rows[k] = (c.h, c.v, c.bw, c.nbw, c.nbh)
-        dc_needed = ss == 0 and (frame.kind == SEQUENTIAL or ah == 0)
+        # a sequential scan builds both tables whatever its Ss (libjpeg
+        # only warns of one that is not 0)
+        dc_needed = frame.kind == SEQUENTIAL or (ss == 0 and ah == 0)
         ac_needed = frame.kind == SEQUENTIAL or ss > 0
         for slot, key, needed in ((0, (0, t >> 4), dc_needed), (272, (1, t & 15), ac_needed)):
             if needed:
+                if key not in htables and frame.kind == SEQUENTIAL and key in STD_HUFFMAN:
+                    htables[key] = np.frombuffer(STD_HUFFMAN[key].ljust(272, b"\0"), np.uint8)
                 if key not in htables:
                     raise ValueError("JPEG scan uses an undefined Huffman table")
                 tabs[k, slot: slot + 272] = htables[key]
+                check_huffman(htables[key], slot == 0)
     if lossless:
         # jdlossls.c start_pass_lossless: Ss is the predictor, Al the point transform
         if not 1 <= ss <= 7 or se != 0 or ah != 0 or al >= 8:
@@ -322,9 +372,82 @@ def _scan_args(seg: bytes, frame: Frame, qtables: dict, htables: dict):
         ss, se, ah, al = 0, 63, 0, 0
     elif (ss == 0) != (se == 0) or se > 63 or ss > se or (ss > 0 and ns != 1) or al > 13:
         raise ValueError("malformed JPEG progressive scan parameters")
-    elif frame.arith and ah != 0 and ah - 1 != al:
+    elif ah != 0 and ah - 1 != al:
         raise ValueError("malformed JPEG progressive scan parameters")
+    if ns > 1 and sum(c.h * c.v for c in comps) > MAX_BLOCKS_IN_MCU:
+        raise ValueError("JPEG scan with more than 10 blocks in its MCU (libjpeg: "
+                         "sampling factors too large for an interleaved scan)")
     return comps, rows, tabs, (ss, se, ah, al)
+
+
+def _cut_segment_errors(code: int, data: bytes, pos: int, frame: Frame) -> None:
+    """libjpeg reads a marker segment byte by byte, so in one that the end
+    of the file cuts short it meets some errors before it runs out (after a
+    file's only scan PIL keeps the image when it runs out first): get_dri's
+    length, get_dqt's table numbers and length, get_dht's counts, table
+    numbers and length, get_dac's indices and values, get_sos's length and
+    components. Raises ValueError for those; returns when the bytes run out
+    first."""
+    if pos + 4 > len(data):
+        return
+    (n,) = struct.unpack_from(">H", data, pos + 2)
+    body, left, i = data[pos + 4:], n - 2, 0
+    bad = ValueError(f"malformed JPEG marker segment 0xFF{code:02X} (cut short by the end "
+                     "of the file)")
+    if code == 0xDD and n != 4:
+        raise bad
+    if code == 0xDB:
+        while left > 0:
+            if i >= len(body):
+                return
+            size = 1 + 64 * (2 if body[i] >> 4 else 1)
+            if body[i] >> 4 > 1 or body[i] & 15 > 3:
+                raise bad
+            if i + size > len(body):
+                return
+            i, left = i + size, left - size
+        raise bad
+    if code == 0xC4:
+        while left > 16:
+            if i + 17 > len(body):
+                return
+            count, left = sum(body[i + 1: i + 17]), left - 17
+            if count > 256 or count > left:
+                raise bad
+            if i + 17 + count > len(body):
+                return
+            if body[i] & 0xEF > 3:
+                raise bad
+            i, left = i + 17 + count, left - count
+        raise bad
+    if code == 0xCC:
+        while left > 0:
+            if i + 2 > len(body):
+                return
+            index, val = body[i], body[i + 1]
+            if index >= 32 or (index < 16 and (val & 15) > (val >> 4)):
+                raise bad
+            i, left = i + 2, left - 2
+        raise bad
+    if code == 0xDA and body:
+        ns = body[0]
+        if n != 6 + 2 * ns or not 1 <= ns <= 4:
+            raise bad
+        named = []
+        for k in range(min(ns, (len(body) - 1) // 2)):
+            named.append(_scan_component(frame, body[1 + 2 * k], k, named))
+
+
+def _track_progression(frame: Frame, comps, params) -> None:
+    """start_pass_phuff_decoder's (and jdarith.c's) progression status:
+    each scan component's prev_coef_bits for coefficients min(Ss, 1) to
+    max(Se, 9) takes its coef_bits (0 in the file's first scan), then Ss to
+    Se take Al."""
+    ss, se, _ah, al = params
+    for c in comps:
+        lo, hi = min(ss, 1), max(se, 9)
+        c.prev_bits[lo: hi + 1] = c.coef_bits[lo: hi + 1] if frame.scans > 1 else 0
+        c.coef_bits[ss: se + 1] = al
 
 
 def read_frame(data: bytes, plain: bool = False) -> Frame:
@@ -371,6 +494,7 @@ def read_frame(data: bytes, plain: bool = False) -> Frame:
             seg, nxt = _segment(data, pos, code)
         except _Truncated:
             if single_done:
+                _cut_segment_errors(code, data, pos, frame)
                 break
             raise
         if code in _SOF_KIND:
@@ -395,6 +519,9 @@ def read_frame(data: bytes, plain: bool = False) -> Frame:
             if single_done:
                 raise ValueError("JPEG file with a scan after its only one (EOI expected)")
             comps, rows, tabs, params = _scan_args(seg, frame, qtables, htables)
+            frame.scans += 1
+            if frame.kind == PROGRESSIVE:
+                _track_progression(frame, comps, params)
             if frame.multi is None:  # jdinput.c's has_multiple_scans, at the first scan
                 frame.multi = frame.kind == PROGRESSIVE or len(comps) < len(frame.components)
             if frame.kind == LOSSLESS:
@@ -417,80 +544,73 @@ def read_frame(data: bytes, plain: bool = False) -> Frame:
 
 
 def scan_native(data, pos, frame, comps, rows, tabs, params) -> int:
-    """One scan's entropy-coded data from `pos` into the components'
-    coefficients, in C++; returns the position of the marker after it."""
+    """One Huffman scan's entropy-coded data from `pos` into the components'
+    coefficients, in C++ (fd_jpeg_scan), as libjpeg decodes it from the
+    reads PIL hands over (an MCU read past them is read again with the
+    next; past the file's end the file is truncated); returns the position
+    of the marker after it, or the end of the data. Sets frame.last_good,
+    the iMCU row of the scan's last MCU begun with data left (jdcoefct.c's
+    last_good_iMCU_row)."""
     ss, se, ah, al = params
     buf = np.frombuffer(data, np.uint8)
     ptrs = (ctypes.c_void_p * len(comps))(*[c.coefs.ctypes.data for c in comps])
+    last_good = np.zeros(1, np.int32)
     end = image_lib.load().fd_jpeg_scan(
         buf.ctypes.data, len(data), pos, len(comps), rows.ctypes.data, tabs.ctypes.data,
-        ptrs, frame.mcux, frame.mcuy, frame.restart, ss, se, ah, al, frame.kind)
+        ptrs, frame.mcux, frame.mcuy, frame.restart, ss, se, ah, al, frame.kind,
+        last_good.ctypes.data)
     if end < 0:
-        raise ValueError(f"corrupt JPEG scan data (code {end})")
+        raise ValueError("truncated JPEG file: a scan runs past the end" if end == -6
+                         else f"corrupt JPEG scan data (code {end})")
+    frame.last_good = int(last_good[0])
     return int(end)
 
 
 class _PlainHuff:
+    """A Huffman table as jdhuff.c's jpeg_make_d_derived_tbl derives it:
+    the 8-bit lookahead (HUFF_LOOKAHEAD: the length and symbol of each code
+    of at most 8 bits, length 9 for any other byte) and maxcode /
+    valoffset for longer codes (maxcode[17] the sentinel)."""
+
     def __init__(self, spec):
-        self.codes, code, k = {}, 0, 16
+        self.maxcode, self.valoffset = [-1] * 18, [0] * 18
+        self.vals = [int(v) for v in spec[16:]]
+        self.look = [(9, 0)] * 256
+        code, k = 0, 0
         for length in range(1, 17):
-            for _ in range(int(spec[length - 1])):
-                self.codes[(length, code)] = int(spec[k])
+            count = int(spec[length - 1])
+            if count:
+                self.valoffset[length] = k - code
+                self.maxcode[length] = code + count - 1
+            for _ in range(count):
+                if length <= 8:
+                    base = code << (8 - length)
+                    self.look[base: base + (1 << (8 - length))] = \
+                        [(length, self.vals[k])] * (1 << (8 - length))
                 code += 1
                 k += 1
             code <<= 1
+        self.maxcode[17] = 0xFFFFF
+
+    def value(self, length: int, code: int) -> int:
+        return self.vals[(code + self.valoffset[length]) & 0xFF]
 
 
-class _PlainBits:
-    """jdhuff.c's bit reader: 0xFF 0x00 is a stuffed 0xFF; a marker stops
-    the feed, which then gives zero bits."""
-
-    def __init__(self, data, pos):
-        self.data, self.pos, self.acc, self.n, self.marker = data, pos, 0, 0, False
-
-    def _byte(self):
-        d = self.data
-        if self.marker or self.pos >= len(d):
-            return 0
-        c = d[self.pos]
-        if c != 0xFF:
-            self.pos += 1
-            return c
-        q = self.pos + 1
-        while q < len(d) and d[q] == 0xFF:
-            q += 1
-        if q < len(d) and d[q] == 0:
-            self.pos = q + 1
-            return 0xFF
-        self.marker, self.pos = True, q - 1
-        return 0
-
-    def bits(self, k):
-        while self.n < k:
-            self.acc = (self.acc << 8) | self._byte()
-            self.n += 8
-        self.n -= k
-        v = self.acc >> self.n
-        self.acc &= (1 << self.n) - 1
-        return v
-
-    def decode(self, huff):
-        code = 0
-        for length in range(1, 17):
-            code = (code << 1) | self.bits(1)
-            if (length, code) in huff.codes:
-                return huff.codes[(length, code)]
-        raise ValueError("corrupt JPEG scan data: a bad Huffman code")
-
-    def restart(self, expect):
-        d, q = self.data, self.pos
-        self.acc = self.n = 0
-        self.marker = False
-        while q + 1 < len(d) and not (d[q] == 0xFF and d[q + 1] not in (0, 0xFF)):
-            q += 1
-        if q + 1 >= len(d) or d[q + 1] != 0xD0 + expect:
-            raise ValueError("corrupt JPEG scan data: a restart marker is missing")
-        self.pos = q + 2
+def check_huffman(spec, dc: bool, top: int = 15) -> None:
+    """jpeg_make_d_derived_tbl's checks: the counts fit in 256 symbols and
+    make a code tree with no length overfull (and no code all ones); a DC
+    table's symbols are categories 0 to `top` (15, or 16 for a lossless
+    frame). ValueError otherwise, as libjpeg's JERR_BAD_HUFF_TABLE."""
+    code, total = 0, 0
+    for length in range(1, 17):
+        total += int(spec[length - 1])
+        code += int(spec[length - 1])
+        if total > 256 or (int(spec[length - 1]) and code >= 1 << length):
+            raise ValueError("malformed JPEG DHT segment: a bad Huffman table")
+        code <<= 1
+    if dc and (np.asarray(spec[16: 16 + total]) > top).any():
+        raise ValueError("malformed JPEG DHT segment: a DC category past "
+                         f"{top}")
 
 
 def _extend(v, s):
@@ -501,131 +621,192 @@ def _int16(v):
     return ((v + 0x8000) & 0xFFFF) - 0x8000
 
 
+# PIL hands libjpeg a file in reads of ImageFile.MAXBLOCK bytes; jdhuff.c's
+# fast path needs BUFSIZE bytes a block of the MCU in the source buffer
+CHUNK, FAST_BYTES = 65536, 512
+
+
+def fed_end(pos: int, n: int) -> int:
+    """The end of the bytes PIL has handed libjpeg when a scan's data starts
+    at `pos` of an n-byte file: the reads that held its headers."""
+    return min(n, max(CHUNK, -(-pos // CHUNK) * CHUNK))
+
+
+def _mcu_blocks(frame, comps, m, per_row):
+    my, mx = divmod(m, per_row)
+    if len(comps) == 1:
+        return [(0, comps[0].coefs[my, mx])]
+    return [(ci, c.coefs[my * c.v + v, mx * c.h + h])
+            for ci, c in enumerate(comps) for v in range(c.v) for h in range(c.h)]
+
+
+def _sequential_mcu(b, blocks, dc, ac, pred, fast: bool) -> None:
+    """decode_mcu_slow, or decode_mcu_fast when fast (the same codes read
+    through FILL_BIT_BUFFER_FAST), on one MCU's blocks."""
+    decode, bits = (b.fast_decode, b.fast_bits) if fast else (b.decode, b.bits)
+    for ci, blk in blocks:
+        s = decode(dc[ci])
+        pred[ci] += _extend(bits(s), s) if s else 0
+        blk[0] = _int16(pred[ci])
+        k = 1
+        while k < 64:
+            rs = decode(ac[ci])
+            r, s = rs >> 4, rs & 15
+            if s:
+                k += r
+                blk[NATURAL[k]] = _extend(bits(s), s)
+            elif r == 15:
+                k += 15
+            else:
+                break
+            k += 1
+
+
+def _progressive_mcu(b, blocks, dc, ac, pred, eob, params) -> None:
+    """jdphuff.c's decode_mcu_DC_first, _DC_refine, _AC_first and
+    _AC_refine on one MCU's blocks; eob is the EOB run, a list of one."""
+    ss, se, ah, al = params
+    p1, m1 = 1 << al, -(1 << al)
+    for ci, blk in blocks:
+        if ss == 0:
+            if ah == 0:
+                s = b.decode(dc[ci])
+                pred[ci] += _extend(b.bits(s), s) if s else 0
+                blk[0] = _int16(pred[ci] << al)
+            elif b.bits(1):
+                blk[0] = _int16(int(blk[0]) | p1)
+        elif ah == 0:
+            if eob[0] > 0:
+                eob[0] -= 1
+                continue
+            k = ss
+            while k <= se:
+                rs = b.decode(ac[ci])
+                r, s = rs >> 4, rs & 15
+                if s:
+                    k += r
+                    blk[NATURAL[k]] = _int16(_extend(b.bits(s), s) << al)
+                elif r == 15:
+                    k += 15
+                else:
+                    eob[0] = (1 << r) + (b.bits(r) if r else 0) - 1
+                    break
+                k += 1
+        else:
+            k = ss
+            if eob[0] == 0:
+                while k <= se:
+                    rs = b.decode(ac[ci])
+                    r, s = rs >> 4, rs & 15
+                    if s:
+                        s = p1 if b.bits(1) else m1
+                    elif r != 15:
+                        eob[0] = (1 << r) + (b.bits(r) if r else 0)
+                        break
+                    while k <= se:
+                        z = NATURAL[k]
+                        t = int(blk[z])
+                        if t != 0:
+                            if b.bits(1) and (t & p1) == 0:
+                                blk[z] = t + p1 if t >= 0 else t + m1
+                        else:
+                            r -= 1
+                            if r < 0:
+                                break
+                        k += 1
+                    if s:
+                        blk[NATURAL[k]] = s
+                    k += 1
+            if eob[0] > 0:
+                while k <= se:
+                    z = NATURAL[k]
+                    t = int(blk[z])
+                    if t != 0 and b.bits(1) and (t & p1) == 0:
+                        blk[z] = t + p1 if t >= 0 else t + m1
+                    k += 1
+                eob[0] -= 1
+
+
 def scan_plain(data, pos, frame, comps, rows, tabs, params) -> int:
     """scan_native in Python, bit by bit (jdhuff.c decode_mcu, jdphuff.c's
-    four decode_mcu_* kinds): the tests' reference."""
-    ss, se, ah, al = params
+    four decode_mcu_* kinds, process_restart), fed as PIL feeds libjpeg: the
+    tests' reference. Sets frame.last_good (see scan_native)."""
+    progressive = frame.kind == PROGRESSIVE
     dc = [_PlainHuff(t[:272]) for t in tabs]
     ac = [_PlainHuff(t[272:]) for t in tabs]
-    b = _PlainBits(data, pos)
-    pred, eobrun = [0] * len(comps), 0
+    src = _Source(data, pos)
+    fast_ok = not progressive and not frame.restart
+    src.avail = fed_end(pos, len(data)) if fast_ok else len(data)
+    b = _HuffBits(src)
     if len(comps) == 1:
-        per_row, total = comps[0].nbw, comps[0].nbw * comps[0].nbh
+        per_row, total, v = comps[0].nbw, comps[0].nbw * comps[0].nbh, comps[0].v
     else:
-        per_row, total = frame.mcux, frame.mcux * frame.mcuy
-    p1, m1 = 1 << al, -(1 << al)
+        per_row, total, v = frame.mcux, frame.mcux * frame.mcuy, 1
+    refine_dc = progressive and params[0] == 0 and params[2] != 0
+    pred, eob = [0] * len(comps), [0]
     left, nxt = frame.restart, 0
     for m in range(total):
+        if not b.short:
+            frame.last_good = m // per_row // v
+        if frame.restart and left == 0:
+            b.acc = b.n = 0  # the buffered bits are dropped
+            src.read_restart(nxt)
+            nxt, left = (nxt + 1) & 7, frame.restart
+            pred, eob = [0] * len(comps), [0]
+            if src.unread == 0:
+                b.short = False
+        blocks = _mcu_blocks(frame, comps, m, per_row)
+        if not b.short or refine_dc:
+            while True:  # an MCU that runs past the bytes PIL has handed over is read again
+                saved = (src.pos, src.unread, b.acc, b.n, b.short, pred[:], eob[0],
+                         [blk.copy() for _ci, blk in blocks])
+                try:
+                    if progressive:
+                        _progressive_mcu(b, blocks, dc, ac, pred, eob, params)
+                        break
+                    if (fast_ok and src.unread == 0
+                            and src.avail - src.pos >= FAST_BYTES * len(blocks)):
+                        b.hit_marker = False
+                        _sequential_mcu(b, blocks, dc, ac, pred, True)
+                        if not b.hit_marker:
+                            break
+                        src.pos, src.unread, b.acc, b.n = saved[:4]
+                        pred[:] = saved[5]
+                    _sequential_mcu(b, blocks, dc, ac, pred, False)
+                    break
+                except _Suspend:
+                    if src.avail >= len(data):
+                        raise
+                    src.pos, src.unread, b.acc, b.n, b.short, pred[:], eob[0] = saved[:7]
+                    for (_ci, blk), old in zip(blocks, saved[7]):
+                        blk[:] = old
+                    src.avail = min(len(data), src.avail + CHUNK)
         if frame.restart:
-            if left == 0:
-                b.restart(nxt)
-                nxt, left = (nxt + 1) & 7, frame.restart
-                pred, eobrun = [0] * len(comps), 0
             left -= 1
-        my, mx = divmod(m, per_row)
-        for ci, c in enumerate(comps):
-            hh, vv = (1, 1) if len(comps) == 1 else (c.h, c.v)
-            for v in range(vv):
-                for h in range(hh):
-                    blk = c.coefs[my * vv + v, mx * hh + h]
-                    if frame.kind == SEQUENTIAL:
-                        s = b.decode(dc[ci])
-                        pred[ci] += _extend(b.bits(s), s) if s else 0
-                        blk[0] = _int16(pred[ci])
-                        k = 1
-                        while k < 64:
-                            rs = b.decode(ac[ci])
-                            r, s = rs >> 4, rs & 15
-                            if s:
-                                k += r
-                                blk[NATURAL[k]] = _extend(b.bits(s), s)
-                            elif r == 15:
-                                k += 15
-                            else:
-                                break
-                            k += 1
-                    elif ss == 0:
-                        if ah == 0:
-                            s = b.decode(dc[ci])
-                            pred[ci] += _extend(b.bits(s), s) if s else 0
-                            blk[0] = _int16(pred[ci] << al)
-                        elif b.bits(1):
-                            blk[0] = _int16(int(blk[0]) | p1)
-                    elif ah == 0:
-                        if eobrun > 0:
-                            eobrun -= 1
-                            continue
-                        k = ss
-                        while k <= se:
-                            rs = b.decode(ac[ci])
-                            r, s = rs >> 4, rs & 15
-                            if s:
-                                k += r
-                                blk[NATURAL[k]] = _int16(_extend(b.bits(s), s) << al)
-                            elif r == 15:
-                                k += 15
-                            else:
-                                eobrun = (1 << r) + (b.bits(r) if r else 0) - 1
-                                break
-                            k += 1
-                    else:
-                        k = ss
-                        if eobrun == 0:
-                            while k <= se:
-                                rs = b.decode(ac[ci])
-                                r, s = rs >> 4, rs & 15
-                                if s:
-                                    s = p1 if b.bits(1) else m1
-                                elif r != 15:
-                                    eobrun = (1 << r) + (b.bits(r) if r else 0)
-                                    break
-                                while k <= se:
-                                    z = NATURAL[k]
-                                    t = int(blk[z])
-                                    if t != 0:
-                                        if b.bits(1) and (t & p1) == 0:
-                                            blk[z] = t + p1 if t >= 0 else t + m1
-                                    else:
-                                        r -= 1
-                                        if r < 0:
-                                            break
-                                    k += 1
-                                if s:
-                                    blk[NATURAL[k]] = s
-                                k += 1
-                        if eobrun > 0:
-                            while k <= se:
-                                z = NATURAL[k]
-                                t = int(blk[z])
-                                if t != 0 and b.bits(1) and (t & p1) == 0:
-                                    blk[z] = t + p1 if t >= 0 else t + m1
-                                k += 1
-                            eobrun -= 1
-    q, d = b.pos, data
-    while True:
-        while q + 1 < len(d) and not (d[q] == 0xFF and d[q + 1] not in (0, 0xFF)):
-            q += 1
-        if q + 1 >= len(d):
-            raise ValueError("truncated JPEG file: a scan runs past the end")
-        if 0xD0 <= d[q + 1] <= 0xD7:
-            q += 2
-            continue
-        return q
+    src.avail = len(data)
+    return src.end()
+
+
+class _Suspend(ValueError):
+    """libjpeg's source ran out of bytes (a suspension): past the end of the
+    file PIL reports it truncated."""
 
 
 class _Source:
-    """libjpeg's data source as the arithmetic and lossless decoders see it
-    (jdmarker.c): bytes from `pos`, the marker a decoder ran into
-    (`unread`, 0 for none), next_marker, and read_restart_marker with
-    jpeg_resync_to_restart. Reading past the end raises ValueError: PIL
+    """libjpeg's data source as the entropy decoders see it (jdmarker.c):
+    bytes from `pos`, the marker a decoder ran into (`unread`, 0 for none),
+    next_marker, and read_restart_marker with jpeg_resync_to_restart.
+    Reading at `avail` (the end of the bytes handed over so far; the file's
+    end unless the Huffman scan sets it) raises _Suspend, a ValueError: PIL
     reports a file cut there as truncated."""
 
     def __init__(self, data, pos):
         self.data, self.pos, self.unread = data, pos, 0
+        self.avail = len(data)
 
     def byte(self):
-        if self.pos >= len(self.data):
-            raise ValueError("truncated JPEG file: a scan runs past the end")
+        if self.pos >= self.avail:
+            raise _Suspend("truncated JPEG file: a scan runs past the end")
         self.pos += 1
         return self.data[self.pos - 1]
 
@@ -948,19 +1129,22 @@ def arith_scan_native(data, pos, frame, comps, rows, tabs, params) -> int:
     return int(end)
 
 
-class _LosslessBits:
-    """jdhuff.c's bit reader as jdlhuff.c drives it: each fill loads bytes
-    until 57 bits are buffered (MIN_GET_BITS), so it reads ahead of the
-    bits used, and data that ends before a marker stops the decode as PIL
-    finds it truncated; a marker stops the feed and zero bits follow,
-    `short` set once a fill needs bits past it (insufficient_data);
-    HUFF_DECODE's 8-bit lookahead, and a bad code decodes as 0 after 17
-    bits (jpeg_huff_decode)."""
+class _HuffBits:
+    """jdhuff.c's bit reader as jdhuff.c, jdphuff.c and jdlhuff.c drive it:
+    each fill loads bytes until 57 bits are buffered (MIN_GET_BITS), so it
+    reads ahead of the bits used (data that ends first suspends the decode:
+    _Suspend); a marker stops the feed and zero bits follow, `short` set
+    once a fill needs bits past it (insufficient_data); HUFF_DECODE's 8-bit
+    lookahead, and a bad code decodes as 0 after 17 bits (jpeg_huff_decode).
+    The fast_* methods are decode_mcu_fast's: FILL_BIT_BUFFER_FAST loads six
+    bytes once 16 bits or fewer remain, and an 0xFF not followed by 0 sets
+    hit_marker (the MCU is then decoded again the slow way). The buffer
+    holds n bits, acc < 1 << n."""
 
     def __init__(self, src: _Source):
         self.src = src
         self.acc = self.n = 0
-        self.short = False
+        self.short = self.hit_marker = False
 
     def fill(self, need: int) -> None:
         src = self.src
@@ -997,21 +1181,49 @@ class _LosslessBits:
             self.fill(0)
         length = 1
         if self.n >= 8:
-            look = self.acc >> (self.n - 8)
-            for l in range(1, 9):
-                sym = huff.codes.get((l, look >> (8 - l)))
-                if sym is not None:
-                    self.bits(l)
-                    return sym
-            length = 9
-        code = self.bits(length)
-        while length <= 16:
-            sym = huff.codes.get((length, code))
-            if sym is not None:
+            length, sym = huff.look[self.acc >> (self.n - 8)]
+            if length <= 8:
+                self.bits(length)
                 return sym
+        code = self.bits(length)
+        while code > huff.maxcode[length]:
             code = (code << 1) | self.bits(1)
             length += 1
-        return 0
+        return 0 if length > 16 else huff.value(length, code)
+
+    def fast_fill(self) -> None:
+        if self.n > 16:
+            return
+        d, p = self.src.data, self.src.pos
+        for _ in range(6):
+            c0 = d[p] if p < len(d) else 0
+            c1 = d[p + 1] if p + 1 < len(d) else 0
+            p += 1
+            self.acc = (self.acc << 8) | c0
+            self.n += 8
+            if c0 == 0xFF:
+                p += 1
+                if c1 != 0:  # a marker: zeros in its place, and the slow path
+                    self.hit_marker = True
+                    p -= 2
+                    self.acc &= ~0xFF
+        self.src.pos = p
+
+    def fast_bits(self, k: int) -> int:
+        self.fast_fill()
+        return self.bits(k)
+
+    def fast_decode(self, huff: _PlainHuff) -> int:
+        self.fast_fill()
+        length, sym = huff.look[self.acc >> (self.n - 8)]
+        if length <= 8:
+            self.bits(length)
+            return sym
+        code = self.bits(length)
+        while code > huff.maxcode[length]:
+            code = (code << 1) | self.bits(1)
+            length += 1
+        return 0 if length > 16 else huff.value(length, code)
 
 
 def _lossless_geometry(frame, rows):
@@ -1046,7 +1258,7 @@ def lossless_scan_plain(data, pos, frame, comps, rows, tabs, params) -> int:
     undifferencing and scaling): the tests' reference."""
     psv, _se, _ah, pt = params
     src = _Source(data, pos)
-    b = _LosslessBits(src)
+    b = _HuffBits(src)
     huffs = [_PlainHuff(t) for t in tabs]
     interleaved, per_row, imcu_rows, units = _lossless_geometry(frame, rows)
     if frame.restart % per_row:
@@ -1289,17 +1501,170 @@ def cmyk_to_rgba(cmyk: np.ndarray) -> np.ndarray:
     return out
 
 
+# jdcoefct.c's block smoothing: the natural positions of zigzag
+# coefficients 1-9 (Q01, Q10, Q20, Q11, Q02, Q03, Q12, Q21, Q30)
+SMOOTH_NATURAL = (1, 8, 16, 9, 2, 3, 10, 17, 24)
+
+
+def _rows5(*rows):
+    return [list(r) for r in rows]
+
+
+_Z = (0, 0, 0, 0, 0)
+# decompress_smooth_data's estimates as weights on the 5x5 DC neighbourhood
+# (rows two above to two below, columns two left to two right), for
+# coefficients 1-9 and then DC: [0] the Annex K.8-like estimate of a
+# component with AC data, [1] the DC interpolation of one without (only
+# then are coefficients 6-9 and DC estimated)
+SMOOTH_WEIGHTS = np.array([
+    [_rows5(_Z, _Z, (-7, 50, 0, -50, 7), _Z, _Z),
+     _rows5((0, 0, -7, 0, 0), (0, 0, 50, 0, 0), _Z, (0, 0, -50, 0, 0), (0, 0, 7, 0, 0)),
+     _rows5((0, 0, -1, 0, 0), (0, 0, 13, 0, 0), (0, 0, -24, 0, 0), (0, 0, 13, 0, 0),
+            (0, 0, -1, 0, 0)),
+     _rows5((0, -1, 0, 1, 0), (-1, 10, 0, -10, 1), _Z, (1, -10, 0, 10, -1), (0, 1, 0, -1, 0)),
+     _rows5(_Z, _Z, (-1, 13, -24, 13, -1), _Z, _Z),
+     _rows5(_Z, _Z, _Z, _Z, _Z), _rows5(_Z, _Z, _Z, _Z, _Z), _rows5(_Z, _Z, _Z, _Z, _Z),
+     _rows5(_Z, _Z, _Z, _Z, _Z), _rows5(_Z, _Z, _Z, _Z, _Z)],
+    [_rows5((-1, -1, 0, 1, 1), (-3, 13, 0, -13, 3), (-3, 38, 0, -38, 3), (-3, 13, 0, -13, 3),
+            (-1, -1, 0, 1, 1)),
+     _rows5((-1, -3, -3, -3, -1), (-1, 13, 38, 13, -1), _Z, (1, -13, -38, -13, 1),
+            (1, 3, 3, 3, 1)),
+     _rows5((0, 0, 1, 0, 0), (0, 2, 7, 2, 0), (0, -5, -14, -5, 0), (0, 2, 7, 2, 0),
+            (0, 0, 1, 0, 0)),
+     _rows5((-1, 0, 0, 0, 1), (0, 9, 0, -9, 0), _Z, (0, -9, 0, 9, 0), (1, 0, 0, 0, -1)),
+     _rows5(_Z, (0, 2, -5, 2, 0), (1, 7, -14, 7, 1), (0, 2, -5, 2, 0), _Z),
+     _rows5(_Z, (0, 1, 0, -1, 0), (0, 2, 0, -2, 0), (0, 1, 0, -1, 0), _Z),
+     _rows5(_Z, (0, 1, -3, 1, 0), _Z, (0, -1, 3, -1, 0), _Z),
+     _rows5(_Z, (0, 1, 0, -1, 0), (0, -3, 0, 3, 0), (0, 1, 0, -1, 0), _Z),
+     _rows5(_Z, (0, 1, 2, 1, 0), _Z, (0, -1, -2, -1, 0), _Z),
+     _rows5((-2, -6, -8, -6, -2), (-6, 6, 42, 6, -6), (-8, 42, 152, 42, -8),
+            (-6, 6, 42, 6, -6), (-2, -6, -8, -6, -2))]], np.int64)
+
+
+def smoothing_latch(frame: Frame):
+    """jdcoefct.c smoothing_ok as PIL reaches it, with every scan read: None
+    when no block is smoothed (not progressive; a component whose DC no
+    scan reached, or a zero among its DC and first nine AC quantisers; or
+    coefficients 1-9 fully refined in every component), else each
+    component's latches, int32 (2, 10): its coef_bits for DC and
+    coefficients 1-9, and for 1-9 the values before its latest scan (-1
+    after a file's first scan), which the iMCU rows past frame.last_good
+    use. A complete progressive file refines every coefficient to Al 0, so
+    it is never smoothed."""
+    if frame.kind != PROGRESSIVE:
+        return None
+    latches = []
+    for c in frame.components:
+        if c.qt is None or (c.qt[[0, *SMOOTH_NATURAL]] == 0).any() or c.coef_bits[0] < 0:
+            return None
+        prev = c.prev_bits[:10] if frame.scans > 1 else np.full(10, -1, np.int32)
+        latches.append(np.stack([c.coef_bits[:10], prev]).astype(np.int32))
+    if not any((b[0, 1:] != 0).any() for b in latches):
+        return None
+    return latches
+
+
+def smooth_geometry(c: Component, imcu_rows: int):
+    """For each of the component's block rows and columns, the rows (two
+    above to two below) and columns (two left to two right) whose DC values
+    decompress_smooth_data reads, int32 (nbh, 5) and (nbw, 5). Columns are
+    clamped to the picture. Rows: an iMCU row's block rows read their
+    neighbours' rows, an edge's own row standing in past it, as libjpeg
+    finds the edges: image_block_row counted with the iMCU row's own block
+    count, so a short last iMCU row sees its edges where that count puts
+    them, and a row two above the last full iMCU row may read a padding
+    row."""
+    v, nbh = c.v, c.nbh
+    rows = np.zeros((nbh, 5), np.int32)
+    for r in range(imcu_rows):
+        count = v if r < imcu_rows - 1 else (nbh % v or v)
+        for b in range(count):
+            g, ibr, ibrs = r * v + b, r * count + b, count * imcu_rows
+            p = g - 1 if ibr > 0 else g
+            n = g + 1 if ibr < ibrs - 1 else g
+            rows[g] = (g - 2 if ibr > 1 else p, p, g, n, g + 2 if ibr < ibrs - 2 else n)
+    cols = np.clip(np.arange(c.nbw)[:, None] + np.arange(-2, 3), 0, c.nbw - 1)
+    return rows, cols.astype(np.int32)
+
+
+def smooth_args(frame: Frame, c: Component, bits: np.ndarray) -> tuple:
+    """The arguments smooth and smooth_plain take for component c of frame
+    with its latches `bits` (smoothing_latch)."""
+    rows, cols = smooth_geometry(c, frame.mcuy)
+    last_good = frame.mcuy if frame.last_good is None else frame.last_good
+    return c.coefs, c.qt, bits, rows, cols, c.v, last_good
+
+
+def smooth(coefs, qt, bits, rows, cols, v: int, last_good: int) -> np.ndarray:
+    """The coefficients the IDCT reads for a component under block
+    smoothing, in C++ (fd_jpeg_smooth): a copy of coefs (bh, bw, 64) whose
+    blocks within (len(rows), len(cols)) have their still-zero low
+    coefficients estimated, with bits[0] (smoothing_latch) in iMCU rows (v
+    block rows each) up to last_good and bits[1] past it; the stored
+    coefficients stay as they are."""
+    coefs = np.ascontiguousarray(coefs, np.int16)
+    out = np.empty_like(coefs)
+    bh, bw = coefs.shape[:2]
+    rows, cols = np.ascontiguousarray(rows, np.int32), np.ascontiguousarray(cols, np.int32)
+    qt, bits = np.ascontiguousarray(qt, np.uint16), np.ascontiguousarray(bits, np.int32)
+    image_lib.load().fd_jpeg_smooth(coefs.ctypes.data, bh, bw, len(rows), len(cols),
+                                    rows.ctypes.data, cols.ctypes.data, qt.ctypes.data,
+                                    bits.ctypes.data, v, last_good, out.ctypes.data)
+    return out
+
+
+def _estimate(num, q, al):
+    """decompress_smooth_data's rounding of num / (q << 8), capped below
+    1 << Al when Al > 0, the sign restored."""
+    mag = ((q << 7) + np.abs(num)) // (q << 8)
+    if al > 0:
+        mag = np.minimum(mag, (1 << al) - 1)
+    return np.where(num >= 0, mag, -mag)
+
+
+def smooth_plain(coefs, qt, bits, rows, cols, v: int, last_good: int) -> np.ndarray:
+    """smooth in numpy, the blocks of each latch at once."""
+    nbh, nbw = len(rows), len(cols)
+    out = coefs.copy()
+    dc = coefs[:, :, 0].astype(np.int64)
+    past = np.arange(nbh) // v > last_good
+    q00 = int(qt[0])
+    for latch, where in ((bits[0], ~past), (bits[1], past)):
+        if not where.any():
+            continue
+        hood = dc[rows[where][:, None, :, None], cols[None, :, None, :]]  # (n, nbw, 5, 5)
+        change_dc = bool((latch[1:10] == -1).all())
+        weights = SMOOTH_WEIGHTS[int(change_dc)]
+        ws = out[:nbh, :nbw][where]
+        for k, pos in enumerate(SMOOTH_NATURAL[:9 if change_dc else 5]):
+            al = int(latch[k + 1])
+            if al == 0:
+                continue
+            num = q00 * np.einsum("hwij,ij->hw", hood, weights[k])
+            pred = _estimate(num, int(qt[pos]), al)
+            ws[..., pos] = np.where(ws[..., pos] == 0, _int16(pred), ws[..., pos])
+        if change_dc:
+            num = q00 * np.einsum("hwij,ij->hw", hood, weights[9])
+            ws[..., 0] = _int16(_estimate(num, q00, 0))
+        out[:nbh, :nbw][where] = ws
+    return out
+
+
 def _full_planes(frame: Frame, plain: bool) -> list:
     """Each component's samples, dequantised, transformed and upsampled to
     the frame's full (H, W) grid."""
     planes = []
-    for c in frame.components:
+    latch = smoothing_latch(frame)
+    for i, c in enumerate(frame.components):
         if frame.kind == LOSSLESS:
             samples = c.samples
             _method, hx, vy = upsample_method(c, frame.hmax, frame.vmax)
             method = BOX  # replication: fancy upsampling needs a DCT scaling above 1
         else:
-            samples = (idct_plain if plain else idct)(c.coefs, c.qt)
+            coefs = c.coefs
+            if latch is not None:
+                coefs = (smooth_plain if plain else smooth)(*smooth_args(frame, c, latch[i]))
+            samples = (idct_plain if plain else idct)(coefs, c.qt)
             method, hx, vy = upsample_method(c, frame.hmax, frame.vmax)
         planes.append((upsample_plain if plain else upsample)(
             samples, c.cw, c.ch, frame.width, frame.height, method, hx, vy))

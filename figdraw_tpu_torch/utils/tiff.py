@@ -15,9 +15,11 @@ Compression: none, PackBits, LZW, Adobe and old Deflate (stdlib zlib),
 LZMA (stdlib lzma), ZSTD (utils/zstd.py: libtiff's reading of one
 Zstandard frame a strip), each with the horizontal (Predictor 2, 8 to 64
 bits a sample) or floating-point predictor (3) where libtiff applies one;
-CCITT Modified Huffman (2), T.4 (3, one- and two-dimensional) and T.6 (4)
-on one 1-bit sample (utils/fax.py, with libtiff's leniency: fax_context
-carries PIL's strip buffer and libtiff's run arrays from strip to strip);
+CCITT Modified Huffman (2), T.4 (3, one- and two-dimensional), T.6 (4)
+and RLE-W (32771: Modified Huffman, each row word-aligned) on one 1-bit
+sample (utils/fax.py, with libtiff's leniency: fax_context carries PIL's
+strip buffer and libtiff's run arrays from strip to strip; the extension
+code of uncompressed mode ends its row, as libtiff reads it);
 and JPEG (7): each strip or tile an abbreviated stream completed by
 JPEGTables and decoded by utils/jpeg.py in the colour space the
 photometric tag names (YCbCr converted to RGB per strip, as libjpeg does
@@ -42,10 +44,10 @@ samples that PIL's rawmode swaps again), and planar files of one sample
 or with other extra samples than alpha raise (PIL misreads them).
 
 Raises NotImplementedError naming what is not ported (old-style JPEG,
-CCITT RLE-W, a fax strip in uncompressed mode, WebP, JBIG, SGILog and
-other compressions; Lab, LogLuv and other photometrics; YCbCr without
-JPEG, which libtiff reads through TIFFRGBAImage; separated files with
-inks other than CMYK; a pixel key of no test), and ValueError for a
+ThunderScan, WebP, JBIG, SGILog and other compressions; Lab, LogLuv and
+other photometrics; YCbCr without JPEG, which libtiff reads through
+TIFFRGBAImage; separated files with inks other than CMYK; a pixel key of
+no test), and ValueError for a
 malformed file (CCITT on samples of more than 1 bit among them, which
 libtiff refuses).
 """
@@ -77,12 +79,12 @@ FIELD_TYPES = {1: (1, "B"), 2: (1, "B"), 3: (2, "H"), 4: (4, "I"), 5: (8, "II"),
                18: (8, "Q")}
 
 NONE, LZW, JPEG, ADOBE_DEFLATE, PACKBITS, DEFLATE, LZMA = 1, 5, 7, 8, 32773, 32946, 34925
-CCITT_MH, CCITT_T4, CCITT_T6, ZSTD = 2, 3, 4, 50000
-FAX = (CCITT_MH, CCITT_T4, CCITT_T6)
+CCITT_MH, CCITT_T4, CCITT_T6, CCITT_RLEW, ZSTD = 2, 3, 4, 32771, 50000
+FAX = (CCITT_MH, CCITT_T4, CCITT_T6, CCITT_RLEW)
 COMPRESSIONS = (NONE, LZW, JPEG, ADOBE_DEFLATE, PACKBITS, DEFLATE, LZMA, ZSTD) + FAX
 PREDICTED = (LZW, ADOBE_DEFLATE, DEFLATE, LZMA, ZSTD)  # the codecs libtiff runs a predictor in
 NOT_PORTED_COMPRESSION = {
-    6: "old-style JPEG", 32771: "CCITT RLE (word-aligned)", 32809: "ThunderScan",
+    6: "old-style JPEG", 32809: "ThunderScan",
     34661: "JBIG", 34676: "SGILog", 34677: "SGILog24", 50001: "WebP"}
 NOT_PORTED_PHOTOMETRIC = {
     4: "transparency mask", 8: "CIE L*a*b*", 9: "ICC L*a*b*", 10: "ITU L*a*b*",
@@ -550,19 +552,22 @@ def fax_context(img: "Image") -> tuple:
     return (np.zeros((img.ch, img.row_bytes), np.uint8), fax.new_state(img.cw, two_d))
 
 
-def fax_rows(data: bytes, img: "Image", rows: int, ctx: tuple) -> np.ndarray:
+def fax_rows(data: bytes, img: "Image", rows: int, ctx: tuple, offset: int) -> np.ndarray:
     """A CCITT strip or tile of `rows` rows in C++ (csrc/image_decode.cpp:
-    fd_tiff_fax) into the context's buffer: its rows x row_bytes bytes."""
+    fd_tiff_fax) into the context's buffer: its rows x row_bytes bytes.
+    offset: the strip's or tile's offset in the file (RLE-W aligns to its
+    parity)."""
     out, state = ctx
-    fax.decode(data, img.cw, rows, img.compression, img.t4options, out[:rows], state, img.tiled)
+    fax.decode(data, img.cw, rows, img.compression, img.t4options, out[:rows], state, img.tiled,
+               bool(offset & 1))
     return out[:rows].reshape(-1).copy()
 
 
-def fax_plain(data: bytes, img: "Image", rows: int, ctx: tuple) -> np.ndarray:
+def fax_plain(data: bytes, img: "Image", rows: int, ctx: tuple, offset: int) -> np.ndarray:
     """fax_rows in Python."""
     out, state = ctx
     fax.decode_plain(data, img.cw, rows, img.compression, img.t4options, out[:rows], state,
-                     img.tiled)
+                     img.tiled, bool(offset & 1))
     return out[:rows].reshape(-1).copy()
 
 
@@ -640,7 +645,7 @@ def _chunk(data: bytes, img: Image, y: int, offset: int, count: int, plain: bool
     elif c == LZW:
         buf = (lzw_plain if plain else lzw)(stored, n)
     elif c in FAX:
-        buf = (fax_plain if plain else fax_rows)(stored, img, rows, ctx)
+        buf = (fax_plain if plain else fax_rows)(stored, img, rows, ctx, offset)
     elif c == ZSTD:
         buf = (zstd_plain if plain else zstd_strip)(stored, n)
     else:
@@ -684,7 +689,8 @@ def stage_pairs(data: bytes):
             buf = lzw(stored, n)
             yield "lzw", buf, lzw_plain(stored, n)
         elif img.compression in FAX:
-            yield "fax", fax_rows(stored, img, rows, ctx), fax_plain(stored, img, rows, plain_ctx)
+            yield ("fax", fax_rows(stored, img, rows, ctx, offset),
+                   fax_plain(stored, img, rows, plain_ctx, offset))
             continue
         elif img.compression == ZSTD:
             buf = zstd_strip(stored, n)

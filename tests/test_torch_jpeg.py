@@ -21,6 +21,7 @@ import io
 import json
 import os
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -31,7 +32,9 @@ from figdraw_tpu_torch.scenes import (
     IMAGE_FIXTURE, IMAGE_FORMATS_DIR, IMAGE_FORMATS_REFERENCE, JPEG_FIXTURE,
 )
 from figdraw_tpu_torch.utils import image_lib, imagefile, jpeg
+from torch_reference import REPO
 
+sys.path.insert(0, os.path.join(REPO, "tools"))
 torch.set_num_threads(1)
 
 SUBSAMPLING = ["4:4:4", "4:2:2", "4:2:0"]
@@ -347,6 +350,191 @@ def test_a_failed_build_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(gxx, "build", broken)
     with pytest.raises(subprocess.CalledProcessError):
         imagefile.decode_image(_encode(_source(8, 8)))
+
+
+# --- libjpeg's Huffman reader at the end of the data, and its marker checks ------
+
+
+def _pil_or_none(data: bytes):
+    try:
+        return _pil(data)
+    except Exception:  # noqa: BLE001 - any PIL failure is a refusal
+        return None
+
+
+def _same_or_both_refuse(data: bytes, plain: bool = False) -> None:
+    """The port gives PIL's image byte for byte, or refuses where PIL does."""
+    want = _pil_or_none(data)
+    for dec in (imagefile.decode_image,) + ((lambda d: jpeg.decode_jpeg(d, plain=True),)
+                                           if plain else ()):
+        if want is None:
+            with pytest.raises((ValueError, NotImplementedError)):
+                dec(data)
+        else:
+            np.testing.assert_array_equal(dec(data), want)
+
+
+HUFFMAN_STORED = ["baseline_420_q90.jpg", "gray.jpg", "cmyk.jpg", "crop_797x599.jpg",
+                  "restart_444.jpg"]
+
+
+def _stored(name: str) -> bytes:
+    with open(os.path.join(IMAGE_FORMATS_DIR, name), "rb") as fh:
+        return fh.read()
+
+
+@pytest.mark.parametrize("tail", [b"\x00\x00", b"\xfd\xd9", b"", b"\xff"])
+def test_huffman_end_without_eoi_follows_libjpegs_read_ahead(tail):
+    """A file of one Huffman scan needs no EOI: PIL has every row once the
+    scan is decoded, unless jdhuff.c's reader, which fills 57 bits at a time
+    (and six bytes at a time on its fast path), asked for bytes past the
+    end first (PIL then finds it truncated)."""
+    for name in HUFFMAN_STORED:
+        _same_or_both_refuse(_stored(name)[:-2] + tail)
+
+
+@pytest.mark.parametrize("name", HUFFMAN_STORED)
+def test_huffman_cuts_in_the_last_600_bytes_equal_pil(name):
+    data = _stored(name)
+    for k in range(1, 601):
+        _same_or_both_refuse(data[:-k])
+
+
+def test_fast_path_decides_where_the_read_ahead_ends():
+    """A 136x82 crop whose EOI is replaced by zero bytes: decode_mcu_fast,
+    taken while 512 bytes a block remain, leaves other bits buffered than
+    the slow path would, and with three to six zero bytes PIL's libjpeg
+    asks for a byte past the end (a reader without the fast path would
+    return the image); with seven it has enough."""
+    b = io.BytesIO()
+    Image.open(IMAGE_FIXTURE).convert("RGB").crop((268, 233, 404, 315)).save(
+        b, "JPEG", quality=77, subsampling="4:4:4")
+    data = b.getvalue()
+    for k in range(9):
+        padded = data[:-2] + b"\0" * k
+        assert (_pil_or_none(padded) is None) == (k < 7)
+        _same_or_both_refuse(padded, plain=k in (6, 7))
+
+
+def test_reads_of_65536_bytes_decide_the_fast_path():
+    """A 206823-byte file (400x320 with seeded noise at q 95): PIL hands
+    libjpeg the file in reads of 65536 bytes, and an MCU near a read's end
+    takes the slow path, then the fast one again once the next read is
+    there; that history decides where the read-ahead ends. PIL refuses the
+    file with up to three zero bytes in place of its EOI and reads it with
+    four (a reader fed the whole file at once would read it with none)."""
+    rng = np.random.default_rng(2)
+    base = np.asarray(Image.open(IMAGE_FIXTURE).convert("RGB"))[:320, :400].astype(np.int64)
+    noisy = np.clip(base + rng.integers(-50, 51, base.shape), 0, 255).astype(np.uint8)
+    data = _encode(noisy, quality=95, subsampling="4:4:4")
+    assert len(data) > 3 * jpeg.CHUNK
+    for k in range(6):
+        padded = data[:-2] + b"\0" * k
+        assert (_pil_or_none(padded) is None) == (k < 4)
+        _same_or_both_refuse(padded)
+
+
+def test_stored_file_without_eoi_equals_pil():
+    data = _stored("baseline_no_eoi.jpg")
+    assert not data.endswith(b"\xff\xd9")
+    _same_or_both_refuse(data, plain=True)
+    _same_or_both_refuse(data[:-1])
+
+
+# seed, index of `tools/jpeg_fuzz_agreement.py --huffman`'s cases, and what they hold
+HUFFMAN_FUZZ_CASES = [
+    (2, 286, "an RST3 flipped to DQT whose length runs past the end: its table number "
+             "is refused before the data runs out"),
+    (1, 1135, "a sequential scan's Ss of 8: libjpeg only warns, and builds both tables"),
+    (1, 1142, "a scan naming component 3 twice"),
+]
+
+
+@pytest.mark.parametrize("case", HUFFMAN_FUZZ_CASES,
+                         ids=[f"seed{c[0]}-{c[1]}" for c in HUFFMAN_FUZZ_CASES])
+def test_huffman_fuzz_cases_equal_pil(case):
+    seed, index, _why = case
+    import jpeg_fuzz_agreement
+
+    _name, data = jpeg_fuzz_agreement.case(seed, index, huffman=True)
+    assert jpeg_fuzz_agreement.classify(data) in ("equal", "both_raise")
+    _same_or_both_refuse(data)
+
+
+def _segments(data: bytes) -> list:
+    import make_image_formats
+
+    return make_image_formats.jpeg_segments(data)
+
+
+def test_missing_huffman_tables_are_the_standard_ones_when_sequential():
+    """libjpeg's sequential Huffman decoder takes Annex K.3's tables for
+    tables 0 and 1 a file leaves undefined (jstdhuff.c); the progressive
+    decoder does not, and PIL refuses such a file."""
+    for kw, refused in (({}, False), ({"progressive": True}, True)):
+        data = _encode(_source(40, 24), quality=80, **kw)
+        bare = b"".join(seg for code, seg in _segments(data) if code != 0xC4)
+        assert (_pil_or_none(bare) is None) == refused
+        _same_or_both_refuse(bare, plain=True)
+    for key, table in jpeg.STD_HUFFMAN.items():  # PIL writes them when it does not optimise
+        spec = bytes([16 * key[0] + key[1]]) + table
+        assert spec in _encode(_source(16, 16), quality=80)
+
+
+def test_refinement_scan_whose_al_is_not_ah_less_one_is_refused():
+    import make_image_formats
+
+    data = _encode(_source(40, 24), quality=80, progressive=True)
+    segs = _segments(data)
+    at = [i for i, (code, seg) in enumerate(segs)
+          if code == 0xDA and make_image_formats.scan_params(seg)[3]][0]
+    seg = bytearray(segs[at][1])
+    k = 7 + 2 * seg[4]  # the Ah, Al byte
+    seg[k] = (seg[k] & 0xF0) | (seg[k] >> 4)  # Al = Ah
+    bad = b"".join(bytes(seg) if i == at else s for i, (_c, s) in enumerate(segs))
+    assert _pil_or_none(bad) is None
+    with pytest.raises(ValueError, match="progressive scan parameters"):
+        jpeg.decode_jpeg(bad)
+
+
+@pytest.mark.parametrize("hv", [0x41, 0x42, 0x24, 0x43, 0x44])
+def test_interleaved_scan_of_more_than_ten_blocks_is_refused(hv):
+    data = _encode(_source(40, 24), quality=80, subsampling="4:2:0")
+    at = data.index(b"\xff\xc0") + 11  # the first component's sampling factors
+    bad = data[:at] + bytes([hv]) + data[at + 1:]
+    blocks = (hv >> 4) * (hv & 15) + 2
+    assert (_pil_or_none(bad) is None) == (blocks > 10)
+    _same_or_both_refuse(bad)
+
+
+@pytest.mark.parametrize("ids", [(2, 1, 3), (1, 3, 2), (3, 2, 1), (1, 1, 3), (1, 2, 2),
+                                 (3, 2, 3)])
+def test_scan_components_out_of_frame_order_or_twice_are_refused(ids):
+    """get_sos takes a scan's components in frame order, each once (it
+    skips frame components whose scan slot is filled)."""
+    data = _encode(_source(40, 24), quality=80, subsampling="4:4:4")
+    at = data.index(b"\xff\xda") + 5
+    bad = bytearray(data)
+    for k, cid in enumerate(ids):
+        bad[at + 2 * k] = cid
+    assert _pil_or_none(bytes(bad)) is None
+    with pytest.raises(ValueError, match="frame order"):
+        jpeg.decode_jpeg(bytes(bad))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_corrupt_entropy_data_decodes_as_libjpeg(seed):
+    """A bad Huffman code decodes as 0 after 17 bits, a marker in the data
+    feeds zero bits and leaves the rest of the restart interval empty: PIL
+    returns such an image, and so does the port."""
+    rng = np.random.default_rng(seed)
+    for name in ("baseline_420_q90.jpg", "restart_444.jpg", "small_progressive_rst.jpg"):
+        data = bytearray(_stored(name))
+        start = data.index(b"\xff\xda") + 20
+        for _ in range(3):
+            at = int(rng.integers(start, len(data) - 2))
+            data[at] ^= 1 << int(rng.integers(8))
+        _same_or_both_refuse(bytes(data), plain=name.startswith("small"))
 
 
 # --- against the JAX package: load_image, the sidecar and the frames -------------

@@ -632,7 +632,7 @@ def _tagged(compression=5, photometric=2, tags=None, samples=None) -> bytes:
 
 
 @pytest.mark.parametrize("code,what", [
-    (6, "old-style JPEG"), (32771, "CCITT RLE"), (32809, "ThunderScan"), (34661, "JBIG"),
+    (6, "old-style JPEG"), (32809, "ThunderScan"), (34661, "JBIG"),
     (34676, "SGILog"), (34677, "SGILog24"), (50001, "WebP")])
 def test_unported_compressions_raise(code, what, tmp_path):
     path = str(tmp_path / "x.tif")
@@ -660,8 +660,10 @@ def test_ccitt_on_eight_bit_samples_raises(code, tmp_path):
 def test_uncompressed_mode_raises(code):
     """A two-dimensional row holding the extension code that enters
     uncompressed mode (0000001111): libtiff reports "Uncompressed data (not
-    supported)" and reads the rest of the strip as codes, so PIL returns
-    rows that are not the image; the port raises NotImplementedError."""
+    supported)", which raises nothing, ends the row there (EXPAND2D's
+    S_Ext: its remaining width one white run) and reads the rest of the
+    strip as codes, so PIL returns rows that are not the image; the port
+    reads them as PIL does, through the C++ decoder and its plain twin."""
     from make_image_formats import FaxBits, fax_row_2d
 
     row = np.zeros(40, np.uint8)
@@ -676,11 +678,11 @@ def test_uncompressed_mode_raises(code):
     data = tiff_bytes(np.zeros((3, 40), np.uint8), 0, bits=1, compression=code,
                       tags={292: (4, (1,))} if code == 3 else None,
                       codec=lambda _b: bits.to_bytes())
-    assert _pil(data).shape == (3, 40, 4)
-    with pytest.raises(NotImplementedError, match=rf"uncompressed mode.*{ROADMAP_ITEM}"):
-        imagefile.decode_image(data)
-    with pytest.raises(NotImplementedError, match="uncompressed mode"):
-        tiff.decode_tiff(data, plain=True)
+    want = _pil(data)
+    assert want.shape == (3, 40, 4)
+    np.testing.assert_array_equal(imagefile.decode_image(data), want)
+    np.testing.assert_array_equal(tiff.decode_tiff(data, plain=True), want)
+    assert (want[1, :, :3] == 255).all()  # the row the extension code ends is white
 
 
 @pytest.mark.parametrize("photo,what,comp,tags", [

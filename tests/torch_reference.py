@@ -1145,6 +1145,25 @@ def jax_image_file_frame(path: str, form: str) -> np.ndarray:
         set_fig_ui_scale(old)
 
 
+def image_file_scene_pair(port_path: str, jax_path: str):
+    """The image-file scene at 1x from each package's load_image of its own
+    copy of one file: (the port's frame, figdraw_tpu's frame, the port's
+    atlas bytes, figdraw_tpu's atlas bytes, the two ImageRefs, to close)."""
+    import figdraw_tpu_torch as port
+    from figdraw_tpu import vec2
+
+    from figdraw_tpu_torch.scenes import IMAGE_FILE_SIZE, render_image_file
+
+    w, h = IMAGE_FILE_SIZE
+    jren, jref = jax_loaded_renderer(jax_path)
+    want = np.asarray(jren.render_frame(jax_image_file_scene(w, h, jref.id), vec2(w, h)))
+    ren, frame, ref = render_image_file(
+        lambda ps: port.FigRenderer(atlas_size=512, device="cpu", pixel_scale=ps),
+        port_path, "1x")
+    return (frame.numpy(), want, ren.atlas.data.tobytes(),
+            np.asarray(jren.atlas.data).tobytes(), (ref, jref))
+
+
 def jax_photo_wall_frame(path: str, w: int, h: int, n: int,
                          atlas_size: int = 512) -> np.ndarray:
     from figdraw_tpu import vec2

@@ -1,15 +1,18 @@
-"""How often the port's JPEG reader and PIL agree on corrupt arithmetic-
-coded and lossless JPEGs: seeded truncations and one to three bit flips of
-the stored SOF9, SOF10 and SOF3 files (figdraw_tpu_torch/reference/images,
-`arith_*.jpg` and `lossless_*.jpg`), each decoded by
-`utils/imagefile.decode_image` and by PIL's `Image.open(...).convert("RGBA")`.
+"""How often the port's JPEG reader and PIL agree on corrupt JPEGs: seeded
+truncations and one to three bit flips of the stored SOF9, SOF10 and SOF3
+files (figdraw_tpu_torch/reference/images, `arith_*.jpg` and
+`lossless_*.jpg`), or with --huffman of the stored Huffman-coded baseline
+and progressive files (every other `*.jpg` but the arithmetic-coded
+`*arith*`), each decoded by `utils/imagefile.decode_image` and by PIL's
+`Image.open(...).convert("RGBA")`.
 A third of the flips land in the first 400 bytes (the markers before the
 entropy-coded data), the rest anywhere. Agreement is an image equal byte for
 byte, or an error on both sides; the counts of each kind are printed, and
 each disagreement by its seed and index (`case(seed, index)` rebuilds it).
 Needs PIL (the CPU host's).
 
-    python tools/jpeg_fuzz_agreement.py [cases per seed, default 1000] [seeds, default 3]
+    python tools/jpeg_fuzz_agreement.py [--huffman] [cases per seed, default 1000]
+        [seeds, default 3]
 """
 
 from __future__ import annotations
@@ -24,15 +27,21 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def stored_files() -> dict:
-    """{name: bytes} of the stored arithmetic-coded and lossless JPEGs, by
-    name."""
+def _in_set(name: str, huffman: bool) -> bool:
+    if name.startswith(("arith_", "lossless_")):
+        return not huffman
+    return huffman and "arith" not in name
+
+
+def stored_files(huffman: bool = False) -> dict:
+    """{name: bytes} of the stored arithmetic-coded and lossless JPEGs, or
+    of the Huffman-coded ones, by name."""
     sys.path.insert(0, REPO)
     from figdraw_tpu_torch.scenes import IMAGE_FORMATS_DIR
 
     files = {}
     for name in sorted(os.listdir(IMAGE_FORMATS_DIR)):
-        if name.endswith(".jpg") and name.startswith(("arith_", "lossless_")):
+        if name.endswith(".jpg") and _in_set(name, huffman):
             with open(os.path.join(IMAGE_FORMATS_DIR, name), "rb") as fh:
                 files[name] = fh.read()
     return files
@@ -57,9 +66,9 @@ def corrupt_cases(files: dict, seed: int, cases: int):
         yield i, name, bytes(data)
 
 
-def case(seed: int, index: int) -> tuple:
+def case(seed: int, index: int, huffman: bool = False) -> tuple:
     """(file name, corrupt bytes) of case `index` of `seed`."""
-    for i, name, data in corrupt_cases(stored_files(), seed, index + 1):
+    for i, name, data in corrupt_cases(stored_files(huffman), seed, index + 1):
         if i == index:
             return name, data
     raise IndexError(index)
@@ -102,9 +111,12 @@ def classify(data: bytes) -> str:
 
 
 def main() -> None:
-    cases = int(sys.argv[1]) if len(sys.argv) > 1 else 1000
-    seeds = int(sys.argv[2]) if len(sys.argv) > 2 else 3
-    files = stored_files()
+    args = sys.argv[1:]
+    huffman = "--huffman" in args
+    args = [a for a in args if a != "--huffman"]
+    cases = int(args[0]) if args else 1000
+    seeds = int(args[1]) if len(args) > 1 else 3
+    files = stored_files(huffman)
     counts = dict(equal=0, both_raise=0, port_only_raises=0, pil_only_raises=0, differ=0)
     for seed in range(seeds):
         for i, name, data in corrupt_cases(files, seed, cases):

@@ -32,20 +32,26 @@ render_3d_overlay_gaussian.png, 800x600 RGBA), with PIL on the CPU host:
   `arith_lossless_writer` with gcc and linked to PIL's libjpeg: the
   fixture as SOF9 and as SOF10 with restarts, crops with DAC conditioning
   other than the defaults, a grey and a CMYK crop, a 224x168 lossless crop
-  and crops through each lossless predictor). The card's machine has
-  no PIL: chip_smoke.py decodes these.
+  and crops through each lossless predictor), and the files of libjpeg's
+  and libtiff's quirks (`jpeg_repair_files`: progressive JPEGs whose scans
+  leave coefficients unrefined, Huffman and arithmetic, and a one-scan
+  JPEG without its EOI; `ccitt_repair_files`: RLE-W TIFFs, one with strips
+  at odd offsets, and a T.6 strip with the extension code of uncompressed
+  mode). The card's machine has no PIL: chip_smoke.py decodes these.
 - `figdraw_tpu_torch/reference/image_formats.json`: under "files", each
   file's sha256 and the sha256 and shape of PIL's decode,
   `Image.open(p).convert("RGBA")`; under "sidecar", the sha256 of the
   .flippy sidecar figdraw_tpu's read_image_cached writes for the baseline
   JPEG, the TIFF fixture, the lossy WebP fixture, the ZSTD fixture, the
-  Group 4 fax page, the SOF10 fixture and the SOF3 crop.
-- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3,arith}_1x_blocks8.npy`
-  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4,lossless}_480x270_blocks8.npy`:
+  Group 4 fax page, the SOF10 fixture, the SOF3 crop, the incomplete
+  progressive JPEG and the RLE-W fixture.
+- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3,arith,incomplete,rlew}_1x_blocks8.npy`
+  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4,lossless,incomplete,rlew}_480x270_blocks8.npy`:
   8x8 block means of figdraw_tpu's frames of the image-file scene and of
   the photo wall at 480x270 (12 panels) with the baseline JPEG, the TIFF,
   WebP or ZSTD fixture, the dithered Group 3 fixture, the Group 4 page,
-  the SOF10 fixture or the SOF3 crop loaded by its load_image
+  the SOF10 fixture, the SOF3 crop, the incomplete progressive JPEG or the
+  RLE-W fixture loaded by its load_image
   (FigRenderer(atlas_size=512, use_pallas=False), the page's from
   scenes.FAX_ATLAS; tests/torch_reference.py).
 
@@ -371,7 +377,8 @@ def fax_row_2d(out: FaxBits, row: np.ndarray, ref: np.ndarray) -> None:
 def fax_encode(bits: np.ndarray, compression: int, t4options: int = 0, k: int = 2,
                rtc: bool = True) -> bytes:
     """(rows, width) 0/1 bits (1 black) as one CCITT strip the way
-    libtiff's encoder writes it: Modified Huffman (2) rows byte-aligned;
+    libtiff's encoder writes it: Modified Huffman (2) rows byte-aligned,
+    RLE-W (32771) rows aligned to 16 bits of the strip;
     T.4 (3) an EOL before each row (fill bits before it with T4Options
     bit 2), one- or, with bit 0, two-dimensional with a 1D row every k
     rows and a tag bit after each EOL, and an RTC (six EOLs) at the end;
@@ -381,7 +388,7 @@ def fax_encode(bits: np.ndarray, compression: int, t4options: int = 0, k: int = 
     ref = np.zeros(bits.shape[1], np.uint8)
     eol = "000000000001"
     for i, row in enumerate(bits.astype(np.uint8)):
-        one_d = compression == 2 or (compression == 3 and (not two_d or i % k == 0))
+        one_d = compression in (2, 32771) or (compression == 3 and (not two_d or i % k == 0))
         if compression == 3:
             if t4options & 4:
                 out.align(8, 12)
@@ -390,8 +397,8 @@ def fax_encode(bits: np.ndarray, compression: int, t4options: int = 0, k: int = 
             fax_row_1d(out, row)
         else:
             fax_row_2d(out, row, ref)
-        if compression == 2:
-            out.align()
+        if compression in (2, 32771):
+            out.align(16 if compression == 32771 else 8)
         ref = row
     if compression == 3 and rtc:
         out.put((eol + "1" * bool(two_d)) * 6)
@@ -493,7 +500,7 @@ def tiff_bytes(samples: np.ndarray, photometric: int, bits: int = None, order: s
                planar: int = 1, rows_per_strip: int = None, tile: tuple = None,
                fill_order: int = 1, extra: tuple = (), sample_format: int = None,
                colormap: np.ndarray = None, jpeg_chunk=None, tags: dict = None,
-               strip_counts: bool = True, codec=None) -> bytes:
+               strip_counts: bool = True, codec=None, pad: bool = True) -> bytes:
     """A TIFF file of one image. samples: (h, w) or (h, w, spp) values (uint
     of bits <= 8 for sub-byte samples, else the dtype written). Strips of
     rows_per_strip rows (None: one strip, and no RowsPerStrip tag) or tiles
@@ -502,7 +509,9 @@ def tiff_bytes(samples: np.ndarray, photometric: int, bits: int = None, order: s
     of every stored byte. jpeg_chunk(block) -> (tables, abbreviated stream)
     encodes a JPEG chunk (compression 7); codec(block) -> bytes any other
     compression (a CCITT one: fax_encode). tags: {tag: (type, values)}
-    added or replacing the writer's own."""
+    added or replacing the writer's own. pad=False stores each strip or
+    tile right after the last (at an odd offset after an odd length; the
+    IFD stays on a word)."""
     if samples.ndim == 2:
         samples = samples[..., None]
     h, w, spp = samples.shape
@@ -565,7 +574,8 @@ def tiff_bytes(samples: np.ndarray, photometric: int, bits: int = None, order: s
     offsets, pos = [], head
     for data in chunks:
         offsets.append(pos)
-        pos += len(data) + (len(data) & 1)
+        pos += len(data) + (len(data) & 1) * pad
+    pos += pos & 1
     fields[off_tag] = (off_type, tuple(offsets))
     if strip_counts:
         fields[count_tag] = (off_type, tuple(len(d) for d in chunks))
@@ -590,8 +600,8 @@ def tiff_bytes(samples: np.ndarray, photometric: int, bits: int = None, order: s
     else:
         header = (b"II" if order == "<" else b"MM") + struct.pack(order + "HI", 42, ifd_at)
         ifd = struct.pack(order + "H", n) + entries + struct.pack(order + "I", 0)
-    body = b"".join(d + b"\0" * (len(d) & 1) for d in chunks)
-    return header + body + ifd + bytes(extra_data)
+    body = b"".join(d + b"\0" * (len(d) & 1) * pad for d in chunks)
+    return header + body + b"\0" * (len(body) & 1) + ifd + bytes(extra_data)
 
 
 def _quantized(img, colors: int):
@@ -658,6 +668,8 @@ def image_files() -> dict:
     files.update(fax_zstd_files(src))
     files.update(webp_files(src))
     files.update(arith_lossless_files(src))
+    files.update(jpeg_repair_files(src))
+    files.update(ccitt_repair_files(src))
     return files
 
 
@@ -852,7 +864,67 @@ def fax_zstd_files(src) -> dict:
     return files
 
 
+RLEW_FIXTURE = "rlew_dither.tif"
+RLEW_ODD = "rlew_odd_strips.tif"
+UNCOMPRESSED_MODE = "ccitt_uncompressed_mode.tif"
+
+
+def uncompressed_mode_strip(bits: np.ndarray) -> tuple:
+    """(T.6 strip, the rows libtiff decodes from it) of (rows, width) 0/1
+    bits (1 black): from the ninth row of every sixteen, the extension code
+    that enters uncompressed mode (0000001111) in place of four rows. libtiff
+    ends a row at the code's first seven bits (all white) and reads the
+    three ones after them as vertical codes V0 on white references (three
+    more white rows); coding goes on against a white reference."""
+    out, ref = FaxBits(), np.zeros(bits.shape[1], np.uint8)
+    decoded = bits.astype(np.uint8).copy()
+    for i, row in enumerate(decoded):
+        if i % 16 in (8, 9, 10, 11):
+            if i % 16 == 8:
+                out.put("0000001111")
+            row[:] = 0
+            ref = row
+            continue
+        fax_row_2d(out, row, ref)
+        ref = row
+    out.put("000000000001" * 2)
+    return out.to_bytes(), decoded
+
+
+def ccitt_repair_files(src) -> dict:
+    """The stored RLE-W TIFFs and the fax strip in uncompressed mode: the
+    fixture dithered to 1 bit, its centre (400x300) as RLE-W in strips of
+    64 rows (PIL's
+    `tiff_raw_16`, whose rows libtiff's decoder word-aligns otherwise than
+    its encoder: the picture PIL reads back is not the one written), a
+    200x120 crop of it as RLE-W in strips of 16 rows stored unpadded, each
+    one byte off its word (fax_encode: the strips after the first start at
+    odd offsets), and a 120x80 crop as one T.6 strip with the extension
+    code of uncompressed mode every sixteen rows (uncompressed_mode_strip)."""
+    files = {}
+    dither = src.convert("1")
+    b = io.BytesIO()
+    dither.crop((200, 150, 600, 450)).save(b, "TIFF", compression="tiff_raw_16",
+                                          tiffinfo={278: 64})
+    files[RLEW_FIXTURE] = b.getvalue()
+    bits = 1 - np.asarray(dither, np.uint8)  # 1 black
+
+    def odd(block):
+        data = fax_encode(block[..., 0], 32771)
+        return data[:-1] if data[-1] == 0 else data + b"\0"
+
+    files[RLEW_ODD] = tiff_bytes(bits[240:360, 300:500], 0, bits=1, compression=32771,
+                                 rows_per_strip=16, codec=odd, pad=False)
+    strip, _decoded = uncompressed_mode_strip(bits[260:340, 340:460])
+    files[UNCOMPRESSED_MODE] = tiff_bytes(bits[260:340, 340:460], 0, bits=1, compression=4,
+                                          codec=lambda _b: strip)
+    return files
+
+
 ARITH_FIXTURE = "arith_progressive_rst.jpg"
+INCOMPLETE_HUFF = "progressive_incomplete_huff.jpg"
+INCOMPLETE_ARITH = "progressive_incomplete_arith.jpg"
+NO_EOI = "baseline_no_eoi.jpg"
 LOSSLESS_FIXTURE = "lossless_crop_p1.jpg"
 WRITER_SRC = os.path.join(REPO, "tools", "jpeg_arith_lossless_writer.c")
 _WRITER = []
@@ -939,6 +1011,68 @@ def arith_lossless_files(src) -> dict:
     files["lossless_p4_rst2.jpg"] = arith_lossless_jpeg(
         rgb[260:284, 350:382], "lossless=4,0", "restart_rows=2")
     files["lossless_gray_p6.jpg"] = arith_lossless_jpeg(rgb[310:331, 420:447, 0], "lossless=6,1")
+    return files
+
+
+def jpeg_segments(data: bytes) -> list:
+    """A JPEG file cut at its markers: [(code, bytes)] from SOI to EOI, each
+    SOS segment with its entropy-coded data (restart markers included)."""
+    out, pos = [(0xD8, data[:2])], 2
+    while pos < len(data):
+        code = data[pos + 1]
+        if code == 0xD9:
+            out.append((code, data[pos: pos + 2]))
+            break
+        end = pos + 2 + struct.unpack_from(">H", data, pos + 2)[0]
+        if code == 0xDA:
+            while not (data[end] == 0xFF and data[end + 1] not in (0, 0xFF)
+                       and not 0xD0 <= data[end + 1] <= 0xD7):
+                end += 1
+        out.append((code, data[pos: end]))
+        pos = end
+    return out
+
+
+def scan_params(segment: bytes) -> tuple:
+    """(component ids, Ss, Se, Ah, Al) of an SOS segment."""
+    ns = segment[4]
+    ss, se, a = segment[5 + 2 * ns: 8 + 2 * ns]
+    return tuple(segment[5: 5 + 2 * ns: 2]), ss, se, a >> 4, a & 15
+
+
+def drop_scans(data: bytes, drop) -> bytes:
+    """The JPEG file without the scans drop(index, last index, component
+    ids, Ss, Se, Ah, Al) picks."""
+    segs = jpeg_segments(data)
+    scans = [i for i, (code, _s) in enumerate(segs) if code == 0xDA]
+    return b"".join(seg for i, (code, seg) in enumerate(segs)
+                    if code != 0xDA or not drop(scans.index(i), len(scans) - 1,
+                                                *scan_params(seg)))
+
+
+def final_refinement(k, last, ids, ss, se, ah, al) -> bool:
+    """An AC scan that refines to Al 0: the scans libjpeg's progression
+    ends with."""
+    return ss > 0 and ah > 0 and al == 0
+
+
+def jpeg_repair_files(src) -> dict:
+    """The stored JPEGs that libjpeg reads with its output-side quirks: the
+    fixture as PIL's Huffman progressive 4:2:0 at q 90 and a 200x150 crop
+    as libjpeg-turbo's arithmetic progressive file, each without the AC
+    scans that refine to Al 0 (the decoder then smooths the blocks), and a
+    one-scan baseline crop whose EOI is replaced by three zero bytes (the
+    fewest after which libjpeg's read-ahead stays in the file)."""
+    rgb = src.convert("RGB")
+    b = io.BytesIO()
+    rgb.save(b, "JPEG", quality=90, subsampling="4:2:0", progressive=True)
+    files = {INCOMPLETE_HUFF: drop_scans(b.getvalue(), final_refinement)}
+    crop = np.asarray(rgb)[220:370, 300:500]
+    files[INCOMPLETE_ARITH] = drop_scans(arith_lossless_jpeg(crop, "arith", "progressive"),
+                                         final_refinement)
+    b = io.BytesIO()
+    rgb.crop((300, 220, 500, 370)).save(b, "JPEG", quality=85)
+    files[NO_EOI] = b.getvalue()[:-2] + b"\0\0\0"
     return files
 
 
@@ -1234,13 +1368,16 @@ def write_frames() -> None:
     """figdraw_tpu's block means of the image-file scene and the photo wall
     from the baseline JPEG, the TIFF fixture, the lossy WebP fixture and
     the ZSTD fixture, of the image-file scene from the dithered Group 3
-    fixture and the SOF10 fixture, and of the photo wall from the Group 4
-    fax page (its atlas started at scenes.FAX_ATLAS) and the SOF3 crop."""
+    fixture and the SOF10 fixture, of the photo wall from the Group 4 fax
+    page (its atlas started at scenes.FAX_ATLAS) and the SOF3 crop, and of
+    both from the incomplete progressive JPEG and the RLE-W fixture."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_reference import block_means, jax_image_file_frame, jax_photo_wall_frame
 
     from figdraw_tpu_torch.scenes import (
         ARITH_FILE_REFERENCE, FAX_ATLAS, G3_FILE_REFERENCE, G4_WALL_REFERENCE,
+        INCOMPLETE_FILE_REFERENCE, INCOMPLETE_WALL_REFERENCE, RLEW_FILE_REFERENCE,
+        RLEW_WALL_REFERENCE,
         JPEG_FILE_REFERENCE, JPEG_WALL_REFERENCE, LOSSLESS_WALL_REFERENCE, PHOTO_WALL_SMALL,
         TIFF_FILE_REFERENCE, TIFF_WALL_REFERENCE, WEBP_FILE_REFERENCE, WEBP_WALL_REFERENCE,
         ZSTD_FILE_REFERENCE, ZSTD_WALL_REFERENCE,
@@ -1254,7 +1391,9 @@ def write_frames() -> None:
             (G3_FIXTURE, G3_FILE_REFERENCE, None, 512),
             (FAX_PAGE, None, G4_WALL_REFERENCE, FAX_ATLAS),
             (ARITH_FIXTURE, ARITH_FILE_REFERENCE, None, 512),
-            (LOSSLESS_FIXTURE, None, LOSSLESS_WALL_REFERENCE, 512)):
+            (LOSSLESS_FIXTURE, None, LOSSLESS_WALL_REFERENCE, 512),
+            (INCOMPLETE_HUFF, INCOMPLETE_FILE_REFERENCE, INCOMPLETE_WALL_REFERENCE, 512),
+            (RLEW_FIXTURE, RLEW_FILE_REFERENCE, RLEW_WALL_REFERENCE, 512)):
         with tempfile.TemporaryDirectory() as td:
             path = os.path.join(td, name)
             shutil.copyfile(os.path.join(OUT_DIR, name), path)
@@ -1283,7 +1422,8 @@ def main() -> None:
     stored = {"files": digests(files),
               "sidecar": {name: sidecar_digest(name)
                           for name in (BASELINE, TIFF_FIXTURE, WEBP_FIXTURE, ZSTD_FIXTURE,
-                                       FAX_PAGE, ARITH_FIXTURE, LOSSLESS_FIXTURE)}}
+                                       FAX_PAGE, ARITH_FIXTURE, LOSSLESS_FIXTURE,
+                                       INCOMPLETE_HUFF, RLEW_FIXTURE)}}
     with open(DIGESTS, "w") as fh:
         json.dump(stored, fh, indent=1)
         fh.write("\n")

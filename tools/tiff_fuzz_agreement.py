@@ -1,6 +1,7 @@
 """How often the port's CCITT fax and ZSTD decoding and PIL agree on corrupt
 TIFFs: seeded cuts and bit flips of one strip or tile of the stored fax and
-ZSTD files under 50000 bytes (figdraw_tpu_torch/reference/images), each
+ZSTD files under 50000 bytes (figdraw_tpu_torch/reference/images), and of
+the RLE-W ones (`rlew_*.tif`, a fifth as many cases, seeded from 100), each
 decoded by `utils/imagefile.decode_image` and by PIL's
 `Image.open(...).convert("RGBA")` (libtiff 4.7.1). A cut shortens the
 strip's byte count, so the IFD stays whole; a flip changes one to three
@@ -9,6 +10,9 @@ on both sides; the counts of each kind are printed by codec, with the
 files and cases of each disagreement. Needs PIL (the CPU host's).
 
     python tools/tiff_fuzz_agreement.py [cases per seed, default 1500] [seeds, default 2]
+
+(the fax and ZSTD case `i` of seed `s` is the i-th of `np.random.default_rng(s)`,
+as before the RLE-W cases were added)
 """
 
 from __future__ import annotations
@@ -84,63 +88,78 @@ def _unreached_rows_only(data: bytes, got: np.ndarray, want: np.ndarray) -> bool
         (got[r, :cw] == got[r, :1]).all() for r in rows)
 
 
-def main() -> None:
-    sys.path.insert(0, REPO)
-    from PIL import Image
-
+def _stored(keep) -> dict:
     from figdraw_tpu_torch.scenes import IMAGE_FORMATS_DIR
-    from figdraw_tpu_torch.utils import imagefile
 
-    cases = int(sys.argv[1]) if len(sys.argv) > 1 else 1500
-    seeds = int(sys.argv[2]) if len(sys.argv) > 2 else 2
     files = {}
     for name in sorted(os.listdir(IMAGE_FORMATS_DIR)):
-        if name.endswith(".tif") and ("fax" in name or "g3" in name or "zstd" in name):
+        if name.endswith(".tif") and keep(name):
             with open(os.path.join(IMAGE_FORMATS_DIR, name), "rb") as fh:
                 data = fh.read()
             if len(data) < 50000:
                 files[name] = data
+    return files
+
+
+def _kind(data: bytes, strip: int) -> str:
+    from PIL import Image
+
+    from figdraw_tpu_torch.utils import imagefile
+
+    try:
+        got = imagefile.decode_image(data)
+    except (ValueError, NotImplementedError) as exc:
+        got = type(exc).__name__
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            want = np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+    except Exception:  # noqa: BLE001 - any PIL failure counts as an error
+        want = None
+    if isinstance(got, str) and want is None:
+        return "both_raise"
+    if isinstance(got, str):
+        return f"port_only_raises ({got})"
+    if want is None:
+        return "pil_only_raises"
+    if got.shape == want.shape and np.array_equal(got, want):
+        return "equal"
+    if strip == 0 and _unreached_rows_only(data, got, want):
+        return "differ in rows the first strip or tile never reached"
+    return "differ"
+
+
+def _run(files: dict, codec_of, seeds: range, cases: int, counts, odd) -> None:
     names = list(files)
-    counts = collections.defaultdict(collections.Counter)
-    odd = []
-    for seed in range(seeds):
+    for seed in seeds:
         rng = np.random.default_rng(seed)
         for i in range(cases):
             name = names[i % len(names)]
-            codec = "zstd" if "zstd" in name else "fax"
             data, what, strip = corrupt(files[name], rng)
-            try:
-                got = imagefile.decode_image(data)
-            except (ValueError, NotImplementedError) as exc:
-                got = type(exc).__name__
-            try:
-                with warnings.catch_warnings():
-                    warnings.simplefilter("ignore")
-                    want = np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
-            except Exception:  # noqa: BLE001 - any PIL failure counts as an error
-                want = None
-            if isinstance(got, str) and want is None:
-                kind = "both_raise"
-            elif isinstance(got, str):
-                kind = f"port_only_raises ({got})"
-            elif want is None:
-                kind = "pil_only_raises"
-            elif got.shape == want.shape and np.array_equal(got, want):
-                kind = "equal"
-            elif strip == 0 and _unreached_rows_only(data, got, want):
-                kind = "differ in rows the first strip or tile never reached"
-            else:
-                kind = "differ"
-            counts[codec][kind] += 1
+            kind = _kind(data, strip)
+            counts[codec_of(name)][kind] += 1
             if kind not in ("both_raise", "equal"):
                 odd.append((kind, name, seed, i, what))
-    total = cases * seeds
+
+
+def main() -> None:
+    sys.path.insert(0, REPO)
+    cases = int(sys.argv[1]) if len(sys.argv) > 1 else 1500
+    seeds = int(sys.argv[2]) if len(sys.argv) > 2 else 2
+    files = _stored(lambda n: "fax" in n or "g3" in n or "zstd" in n)
+    counts = collections.defaultdict(collections.Counter)
+    odd = []
+    _run(files, lambda n: "zstd" if "zstd" in n else "fax", range(seeds), cases, counts, odd)
+    # the RLE-W files, seeded apart (seeds from 100) so that the cases above
+    # keep their numbers
+    rlew = _stored(lambda n: n.startswith("rlew_"))
+    _run(rlew, lambda n: "rlew", range(100, 100 + seeds), cases // 5, counts, odd)
     for codec, c in sorted(counts.items()):
         n = sum(c.values())
         agree = c["equal"] + c["both_raise"]
         print(f"{codec}: {n} corrupt cases: {dict(c)}; agreeing {agree} "
               f"({100.0 * agree / n:.2f}%)")
-    print(f"{len(files)} files, {total} cases in all")
+    print(f"{len(files) + len(rlew)} files, {(cases + cases // 5) * seeds} cases in all")
     for case in odd:
         print("  ", *case)
 
