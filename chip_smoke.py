@@ -145,7 +145,10 @@ FigRenderer(device="cuda").render_frame or execute_plan:
 - rendering across several devices (sharded_phase, lines `check 16`), on
   meshes of [cuda:0] * n (one card runs every band): ShardedFigRenderer on
   the headline in 4 bands of 272 rows (the banded blur X6 on its swap path)
-  and 24 of 48 (its gather path), the clip tables in 2 bands of 400 (K4 and
+  and 24 of 48 (its gather path; on each X6 bit for bit with its plain
+  version at the frame's radius, at r = 17.3 and through the route of bands
+  on several cards, in 2 launches a blur item, copying nothing), the clip
+  tables in 2 bands of 400 (K4 and
   K3 at a band origin), bench_text's scene in 4 (K1-atlas, glyph runs
   across the boundaries), the clipped cards in 4 (K4-atlas), a
   device-resident 12000-box grid in 4 (render_view, render_views, a patch
@@ -171,7 +174,10 @@ commit beside this one, copy this script into it, and run the command in
 each checkout alternately, one process after the other on the same card,
 so both see the same card and power limit. `python3 chip_smoke.py
 band_turns` does the same for the sharded headline: ms/frame through
-render_frame and on 1, 2 and 4 bands of one card (band_times).
+render_frame and on 1, 2 and 4 bands of one card (band_times); `python3
+chip_smoke.py x6_turns` times the banded blur X6 alone on both its paths
+(CUDA events, its whole device time by torch.profiler, its launches) and
+X1 beside it, then band_times.
 
 It checks the frames and the launch counts of each path, holds reduced
 frames against stored block means of the JAX package's frames, and prints
@@ -5111,20 +5117,18 @@ def band_expected(plan, n: int) -> dict:
     """A sharded frame's band-origin launches on n bands of one card (the
     wrappers count a launch at an origin other than 0): one front end and
     each kernel of the plan's executor a band but band 0; X6 a horizontal
-    pass a band and a vertical pass a band (the swap path) or one (the
-    gather path, every band on one device)."""
-    from figdraw_tpu_torch.ops.blur import BLUR_HALO
-    from figdraw_tpu_torch.parallel.sharding import band_geometry
+    and a vertical launch a blur item (every band on one device, at most
+    MAX_BANDS of them a launch), on both paths."""
+    from figdraw_tpu_torch.ops.blur import MAX_BANDS
     from figdraw_tpu_torch.tape import FRAME_TARGET
 
-    pband = band_geometry(n, plan.height, plan.width)[3]
     want = {"front": n - 1, "tiles": n - 1}
     if plan.mega_combo is not None:
         want["K4-atlas" if plan.mega_atlas else "K4"] = n - 1
         return want
     for item in plan.structure:
         if item[0] == "blur":
-            want["X6"] = want.get("X6", 0) + n + (n if BLUR_HALO < pband else 1)
+            want["X6"] = want.get("X6", 0) + 2 * -(-n // MAX_BANDS)
         elif item[0] == "draw":
             key = "K3" if item[1] != FRAME_TARGET else "K1-atlas" if item[2] else "K1"
             want[key] = want.get(key, 0) + n - 1
@@ -5346,49 +5350,84 @@ def band_front_times(what: str, call, tag: str) -> None:
           f"{t_bound:.5f} ms, {t_by}); plain front end {plain_ms:.3f} ms {tag}", flush=True)
 
 
+X6_NAMES = ("BandRowsH", "BandLinesV")  # X6's kernels: blur.cu's banded row policies
+
+
 def banded_blur_check(what: str, bands, radii, tag: str, timed: bool) -> None:
     """X6 against its plain version on a sharded frame's own bands, bit for
-    bit; with timed, its times, the halo and copy bytes and its bound."""
+    bit: at the frame's radius, at r = 17.3, and through the halo-buffer
+    route (the bands grouped by stand-in keys round robin over four, so
+    that a neighbour's rows are copied into the scratch as from another
+    card); the launches a blur item. With timed, its times by CUDA events
+    and alone by torch.profiler, X1's on the same rows beside them, the
+    copy bytes and its bounds."""
     import torch
 
     from figdraw_tpu_torch.ops import blur
 
     n, (c, band_h, pw) = len(bands), bands[0].shape
-    got = blur.banded_blur_planar(bands, radii)
-    want = blur.banded_blur_planar_plain(bands, radii)
-    torch.cuda.synchronize()
-    diff = max(words_differ(a, b)[1] for a, b in zip(got, want))
-    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    SHARD_ERRS["X6"] = max(SHARD_ERRS.get("X6", 0.0), err)
+    dev = bands[0].device
     swap = blur.BLUR_HALO < band_h
-    print(f"check 16: X6 on the {what}'s {n} bands of {band_h} rows "
-          f"({'swap' if swap else 'gather'} path, r={float(radii[0]):g}) vs plain: {diff} "
-          f"words differ, max |diff| {err:.3e} (bit for bit expected)", flush=True)
-    if diff:
-        fail(f"X6 on the {what} differs from its plain version")
+    path = "swap" if swap else "gather"
+    r173 = [torch.tensor(17.3, device=dev)] * n
+    keys = [i % 4 for i in range(n)]
+    launches = blur.BAND_LAUNCHES
+    got = blur.banded_blur_planar(bands, radii)
+    launches = blur.BAND_LAUNCHES - launches
+    cases = [(f"r={float(radii[0]):g}", got, blur.banded_blur_planar_plain(bands, radii)),
+             ("r=17.3", blur.banded_blur_planar(bands, r173),
+              blur.banded_blur_planar_plain(bands, r173)),
+             (f"halo-buffer route, groups {keys[:4]}...",
+              blur.banded_blur_kernels(bands, radii, keys),
+              blur.banded_blur_planar_plain(bands, radii))]
+    torch.cuda.synchronize()
+    for case, got, want in cases:
+        diff = sum(words_differ(a, b)[1] for a, b in zip(got, want))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        SHARD_ERRS["X6"] = max(SHARD_ERRS.get("X6", 0.0), err)
+        print(f"check 16: X6 on the {what}'s {n} bands of {band_h} rows ({path} path, "
+              f"{case}) vs plain: {diff} words differ, max |diff| {err:.3e} (bit for bit "
+              "expected)", flush=True)
+        if diff:
+            fail(f"X6 on the {what} ({case}) differs from its plain version")
+    groups = blur.band_table([b.device for b in bands], band_h)
+    copied = blur.copy_bytes(groups, c, pw)
+    want_launches = 2 * len(groups) * -(-n // blur.MAX_BANDS)
+    print(f"check 16: X6 on the {what}: {launches} launches a blur item (expected "
+          f"{want_launches}), {copied} bytes copied", flush=True)
+    if launches != want_launches or copied:
+        fail(f"X6 on the {what}: {launches} launches, {copied} bytes copied; expected "
+             f"{want_launches} and 0 on one card")
     if not timed:
         return
-    ms = cuda_ms(lambda: blur.banded_blur_planar(bands, radii), 20)
+    call = lambda: blur.banded_blur_planar(bands, radii)
+    ms = cuda_ms(call, 20)
+    alone = device_ms_of(call, X6_NAMES)
+    parts = kernel_parts(call, X6_NAMES)
     plain_ms = cuda_ms(lambda: blur.banded_blur_planar_plain(bands, radii), 3)
+    frame = torch.cat(bands, dim=1)  # X1 on the same rows: the yardstick
+    whole = lambda: blur.backdrop_blur_planar(frame, radii[0])
+    x1_ms = cuda_ms(whole, 20)
+    x1_alone = device_ms_of(whole, ("blur_h_kernel", "blur_v_kernel"))
     rows = n * band_h
     plane_row = c * pw * 4  # bytes of one row of every plane
     n_bytes = 2 * rows * plane_row  # the bands read once, the result written once
     n_ops = (2 * c * rows * pw * (BLUR_TAPS * BLUR_OPS_PER_TAP + 1)
              + BLUR_TAPS * BLUR_OPS_PER_POSITION * (rows + pw))
     bound, by = bound_of(n_bytes, n_ops)
-    halo = blur.BLUR_HALO
-    halo_bytes = (2 * (n - 1) * halo * plane_row if swap else rows * plane_row)
-    ext_bytes = (n * 2 * ((band_h + 2 * halo) + band_h) * plane_row if swap
-                 else 2 * (rows + band_h * n) * plane_row)
-    SHARD_TIMES["X6"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                         "halo_bytes": halo_bytes, "copy_bytes": ext_bytes,
+    two_pass, two_by = bound_of(2 * n_bytes, n_ops)  # each pass reads and writes once, as X1's
+    SHARD_TIMES["X6"] = {"ms": ms, "device_ms": alone, "plain_ms": plain_ms,
+                         "bound_ms": bound, "bound_by": by, "bound_two_pass_ms": two_pass,
+                         "x1_ms": x1_ms, "x1_device_ms": x1_alone,
+                         "launches_a_blur": launches, "copy_bytes": copied,
                          "at": f"{what}, {n} bands of {band_h} rows"}
     print(f"times: X6 on the {what}'s {n} bands ({tuple(bands[0].shape)} each, one card): "
-          f"{ms:.4f} ms (CUDA events: both passes a band, the halo rows' copies, the "
-          f"extended bands and the crops), plain torch {plain_ms:.3f} ms; bound "
-          f"{bound:.4f} ms ({by}: the frame read and written once); halo rows moved "
-          f"{halo_bytes} bytes, extended-band and crop copies {ext_bytes} bytes "
-          f"({ext_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM rate) {tag}", flush=True)
+          f"{ms:.4f} ms (CUDA events), {alone:.4f} ms (the two kernels alone, torch.profiler; "
+          f"{parts}), plain torch {plain_ms:.3f} ms; X1 on the same {rows} rows "
+          f"{x1_ms:.4f} ms by events, {x1_alone:.4f} ms alone (X6 alone {alone / x1_alone:.2f} "
+          f"times X1 alone); bound {bound:.4f} ms ({by}: the frame read and written once), "
+          f"{two_pass:.4f} ms ({two_by}: each pass reading and writing the planes once, "
+          f"X1's count); {launches} launches, {copied} bytes copied {tag}", flush=True)
 
 
 def recorded_blur_bands(sr, plan) -> tuple:
@@ -5462,6 +5501,89 @@ def band_turns_phase(tag: str) -> None:
     cache = {}
     band_times(lambda f: make_render_tree_array(WIDTH, HEIGHT, f, copies=COPIES, cache=cache),
                FigRenderer(device="cuda"), lambda n: Mesh((dev,) * n), 5, tag)
+
+
+def device_total_ms(fn, reps: int = 5) -> tuple:
+    """(ms, {name: ms}) per run of fn(): every kernel, copy and fill that ran
+    on the device in a torch.profiler trace of reps runs, whatever launched
+    it (taken again as device_ms_of takes an empty trace)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(TRACE_TAKES):
+        if attempt:
+            time.sleep(0.5 * attempt)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        parts = {}
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) != DeviceType.CUDA:
+                continue
+            us = max(getattr(e, a, 0) or 0 for a in (
+                "self_device_time_total", "device_time_total", "self_cuda_time_total",
+                "cuda_time_total"))
+            if us > 0:
+                parts[e.key] = us / 1e3 / reps
+        if parts:
+            return sum(parts.values()), parts
+        print(f"note: the profiler's trace came back with no device activity (take "
+              f"{attempt + 1} of {TRACE_TAKES})", flush=True)
+    fail("the profiler saw no device activity")
+
+
+def x6_turns_phase(tag: str) -> None:
+    """`python3 chip_smoke.py x6_turns`: X6 (banded_blur_planar, the entry
+    point every commit with sharded rendering has) on seeded planes of the sharded
+    headline's geometry, 4 bands of 272 rows (the swap path) and 24 of 48
+    (the gather path), at r = 18: by CUDA events, its whole device time by
+    torch.profiler (every kernel and copy it ran) and its launches; X1 on
+    (4, 1088, 1920) planes beside it; then band_times' headline ms/frame on
+    1, 2 and 4 bands beside render_frame, 3 turns. No checks: run it from
+    two checkouts in turns to compare them."""
+    import numpy as np
+    import torch
+
+    from figdraw_tpu_torch import FigRenderer, native
+    from figdraw_tpu_torch.ops import binning, blur, mega, raster
+    from figdraw_tpu_torch.parallel.sharding import Mesh
+    from figdraw_tpu_torch.scenes import make_render_tree_array
+
+    with ThreadPoolExecutor(5) as pool:
+        list(pool.map(lambda load: load(), (native.load, raster.load, mega.load,
+                                            blur.load, binning.load)))
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(24)
+    frame = torch.from_numpy(rng.rand(4, 1152, 1920).astype(np.float32)).to(dev)
+    r18 = torch.tensor(18.0, device=dev)
+    for n, pband in ((4, 272), (24, 48)):
+        bands = [frame[:, i * pband : (i + 1) * pband].contiguous() for i in range(n)]
+        radii = [r18] * n
+        call = lambda: blur.banded_blur_planar(bands, radii)
+        launches = blur.BAND_LAUNCHES
+        call()
+        launches = blur.BAND_LAUNCHES - launches
+        ms = cuda_ms(call, 20)
+        total, parts = device_total_ms(call)
+        top = sorted(parts.items(), key=lambda kv: -kv[1])[:6]
+        print(f"times: X6 turns, {n} bands of {pband} rows at r=18: {ms:.4f} ms by CUDA "
+              f"events, {total:.4f} ms of device time (torch.profiler, every kernel and "
+              f"copy: " + ", ".join(f"{k[:60]} {v:.4f}" for k, v in top)
+              + f"), {launches} launches of the blur kernels {tag}", flush=True)
+    whole = frame[:, :1088].contiguous()
+    x1 = lambda: blur.backdrop_blur_planar(whole, r18)
+    total, parts = device_total_ms(x1)
+    print(f"times: X6 turns, X1 on {tuple(whole.shape)} at r=18: {cuda_ms(x1, 20):.4f} ms "
+          f"by CUDA events, {total:.4f} ms of device time ("
+          + ", ".join(f"{k[:60]} {v:.4f}" for k, v in parts.items()) + f") {tag}",
+          flush=True)
+    cache = {}
+    band_times(lambda f: make_render_tree_array(WIDTH, HEIGHT, f, copies=COPIES, cache=cache),
+               FigRenderer(device="cuda"), lambda k: Mesh((dev,) * k), 3, tag)
 
 
 def sharded_phase(tag: str, dev) -> dict:
@@ -5740,8 +5862,9 @@ def main() -> None:
     tag = f"[{card}]"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:] in (["turns"], ["band_turns"]):
-        (turns_phase if sys.argv[1] == "turns" else band_turns_phase)(tag)
+    if sys.argv[1:] in (["turns"], ["band_turns"], ["x6_turns"]):
+        {"turns": turns_phase, "band_turns": band_turns_phase,
+         "x6_turns": x6_turns_phase}[sys.argv[1]](tag)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
@@ -6176,8 +6299,8 @@ def main() -> None:
                    "raster_pallas.prebin :399); XLA ops, no Pallas"),
         # no one PyTorch call computes the banded blur: its tap step is a
         # device value and not whole pixels, as the whole blur's
-        band_entry("X6", "blur_h_kernel + blur_v_kernel on extended bands (X6, the banded "
-                   "blur)", "figdraw_tpu_torch/csrc/blur.cu",
+        band_entry("X6", "blur_h_kernel<BandRowsH> + blur_v_kernel<VEC, BandLinesV> (X6, the "
+                   "banded blur: two launches a device)", "figdraw_tpu_torch/csrc/blur.cu",
                    "figdraw_tpu/parallel/sharding.py:165 (_banded_blur_planar: ppermute "
                    "halo exchange or all_gather, then _blur_axis); XLA ops, no Pallas"),
     ]

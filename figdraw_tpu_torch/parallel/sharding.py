@@ -14,9 +14,10 @@ The JAX package drives every device of a 1-D `Mesh` from one process with
   (get_sharded_mega_executor);
 - the backdrop blur's vertical pass swaps BLUR_HALO rows with the
   neighbouring bands, or gathers every band where a band is shorter than
-  the halo (ops/blur.banded_blur_planar, X1's kernel passes on the
-  extended band); the rows move between devices by tensor copies, no
-  collective library is needed;
+  the halo (ops/blur.banded_blur_planar, X6: two launches a device that
+  read the bands' rows in place and write the backdrops); only rows of
+  bands on another device move, by tensor copies, no collective library
+  is needed;
 - ShardedFigRenderer carries render_frame, execute, device-resident scenes
   (snapshot_scene, update_scene, render_view with per-root animation and
   the damage clip, render_views), the result an (H, W, 4) tensor on the
@@ -308,15 +309,11 @@ def get_sharded_frame_executor(structure: Tuple, height: int, width: int,
 
         for item, row in zip(structure, rows_of):
             if item[0] == "blur":
-                blurred = banded_blur_planar(
-                    [b.planes[:, :pband].contiguous() for b in bands],
-                    [b.radii[row] for b in bands])
-                for b, out in zip(bands, blurred):
-                    with _on(b.device):
-                        if kh == pband:
-                            b.backdrop = out
-                        else:
-                            b.backdrop[:, :pband] = out
+                # X6 reads each band's rows [0, pband) in place and writes
+                # them into its backdrop
+                banded_blur_planar([b.planes[:, :pband] for b in bands],
+                                   [b.radii[row] for b in bands],
+                                   out=[b.backdrop[:, :pband] for b in bands])
                 continue
             for b in bands:
                 with _on(b.device):

@@ -1501,8 +1501,9 @@ def test_mega_kernel_at_a_band_origin_matches_plain(atlas_size, dev):
 
 @pytest.mark.parametrize("n,rows,radius", [(4, 272, 18.0), (8, 96, 64.0)])
 def test_banded_blur_kernel_matches_plain(n, rows, radius, dev):
-    """X6: X1's kernel passes on the extended bands of a mesh of one card,
-    on the swap and the gather path, bit for bit with the plain version."""
+    """X6: the two banded kernels over the bands of a mesh of one card, on
+    the swap and the gather path, bit for bit with the plain version; two
+    launches whatever the number of bands."""
     rng = np.random.RandomState(n)
     planes = torch.from_numpy(rng.rand(4, rows, 384).astype(np.float32)).to(dev)
     bh = rows // n
@@ -1512,9 +1513,82 @@ def test_banded_blur_kernel_matches_plain(n, rows, radius, dev):
     got = blur.banded_blur_planar(bands, radii)
     want = blur.banded_blur_planar_plain(bands, radii)
     torch.cuda.synchronize()
-    assert blur.BAND_LAUNCHES == before + n + (n if 65 < bh else 1)
+    assert blur.BAND_LAUNCHES == before + 2
     for a, b in zip(got, want):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _tall_bands(n, pband, kh, pw, seed, dev):
+    """n bands of pband rows, each the first pband rows of (4, kh, pw)
+    planes on the card whose extra rows hold other values."""
+    rng = np.random.RandomState(seed)
+    planes = [torch.from_numpy(rng.rand(4, kh, pw).astype(np.float32)).to(dev)
+              for _ in range(n)]
+    return [p[:, :pband] for p in planes]
+
+
+@pytest.mark.parametrize("n,pband,kh,radius", [
+    (4, 272, 288, 17.3), (4, 272, 272, 13.7), (3, 80, 96, 0.4), (24, 48, 64, 17.3),
+    (1, 120, 128, 13.7), (2, 72, 80, 100.0)])
+def test_banded_blur_kernel_tall_planes_into_views(n, pband, kh, radius, dev):
+    """X6 at non-dyadic radii (and the identity at r <= 0.5, the clamp past
+    64) on bands that are the first pband rows of taller planes, written
+    into the first pband rows of taller backdrops as the sharded executor
+    calls it: bit for bit with the plain version, the backdrops' other rows
+    and the inputs untouched, per-band radii that differ each taken."""
+    bands = _tall_bands(n, pband, kh, 392, n * kh, dev)
+    before = [b.clone() for b in bands]
+    radii = [torch.tensor(radius + 0.7 * (i % 2), device=dev) for i in range(n)]
+    backdrops = [torch.full((4, kh, 392), -1.0, device=dev) for _ in range(n)]
+    out = [b[:, :pband] for b in backdrops]
+    launches = blur.BAND_LAUNCHES
+    got = blur.banded_blur_planar(bands, radii, out=out)
+    assert blur.BAND_LAUNCHES == launches + 2
+    want = blur.banded_blur_planar_plain(bands, radii)
+    torch.cuda.synchronize()
+    assert all(g is o for g, o in zip(got, out))
+    for a, b in zip(got, want):
+        assert torch.equal(a.contiguous().view(torch.int32), b.view(torch.int32))
+    assert all(bool((b[:, pband:] == -1.0).all()) for b in backdrops)
+    assert all(torch.equal(a, b) for a, b in zip(bands, before))
+
+
+@pytest.mark.parametrize("pattern", [[0, 1, 0, 1], [0, 0, 1, 1], [0, 1, 2, 3]])
+@pytest.mark.parametrize("pband,radius", [(272, 18.0), (272, 17.3), (48, 17.3)])
+def test_banded_blur_kernel_halo_buffer_route(pattern, pband, radius, dev):
+    """The route bands on several devices take, on one card: the bands
+    grouped by stand-in keys, each group its own scratch and launches, the
+    rows of a neighbour in another group copied into the scratch (one copy
+    a neighbour edge, or a band on the gather path) and read from there by
+    the vertical kernel; bit for bit with the plain version and with the
+    plain passes through the same table."""
+    n = len(pattern)
+    bands = _tall_bands(n, pband, pband + 16, 256, pband, dev)
+    radii = [torch.tensor(radius, device=dev)] * n
+    groups = blur.band_table(pattern, pband)
+    assert blur.copy_bytes(groups, 4, 256) > 0
+    launches = blur.BAND_LAUNCHES
+    got = blur.banded_blur_kernels(bands, radii, pattern)
+    assert blur.BAND_LAUNCHES == launches + 2 * len(groups)
+    want = blur.banded_blur_planar_plain(bands, radii)
+    table = blur.banded_blur_table_plain(bands, radii, keys=pattern)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, table):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+
+
+def test_whole_blur_keeps_its_results_beside_the_bands(dev):
+    """X1 on (4, 1088, 1920) planes, whose kernels X6 shares, bit for bit
+    with the plain blur at r = 18 and r = 17.3."""
+    rng = np.random.RandomState(1088)
+    planes = torch.from_numpy(rng.rand(4, 1088, 1920).astype(np.float32)).to(dev)
+    for r in (18.0, 17.3):
+        rt = torch.tensor(r, device=dev)
+        got = blur.backdrop_blur_planar(planes, rt)
+        want = blur.backdrop_blur_planar_plain(planes, rt)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_sharded_frames_on_one_card(dev):
