@@ -3331,6 +3331,7 @@ def span_means(entries) -> dict:
 
 
 CROP_PIXELS = 20000  # pixels of a GIF's or QOI's stream held to the plain twin
+AVIF_STAGE_CALLS = 150  # traced calls of each AV1 stage kind held to its numpy twin
 
 
 def split_frames(ren, scene, size, frames: int = FRAMES):
@@ -3381,14 +3382,21 @@ def image_formats_check(tag: str) -> dict:
     each WebP's stages (webp.stage_pairs:
     fd_webp_vp8 and fd_webp_vp8l whole on a frame of at most CROP_PIXELS
     pixels, fd_webp_upsample and fd_webp_alpha_unfilter on a 64x48 crop;
-    the whole plain decode of each such frame). Returns {file: (cold ms,
-    warm ms, shape)}."""
+    the whole plain decode of each such frame), and the AVIF fixture's
+    (csrc/av1_decode.cpp through the stage trace: up to AVIF_STAGE_CALLS
+    calls of each of the intra predictor, CfL, the inverse transform and
+    the loop filter against av1.py's twins, fd_av1_to_rgb whole against
+    to_rgba_plain; its decode split in the tiles and loop filter, then the
+    RGB conversion). Returns {file: (cold ms, warm ms, shape)}, with
+    "avif stages" {stage: (cold ms, warm ms)}."""
     import hashlib
 
     import numpy as np
 
     from figdraw_tpu_torch.scenes import IMAGE_FORMATS_DIR, IMAGE_FORMATS_REFERENCE
-    from figdraw_tpu_torch.utils import gif, image_lib, imagefile, jpeg, qoi, tiff, webp
+    from figdraw_tpu_torch.utils import (
+        av1, avif, gif, image_lib, imagefile, jpeg, qoi, tiff, webp,
+    )
 
     with open(IMAGE_FORMATS_REFERENCE) as fh:
         stored = json.load(fh)["files"]
@@ -3396,6 +3404,7 @@ def image_formats_check(tag: str) -> dict:
     image_lib.load()  # the g++ builds, kept out of the first file's cold decode
     image_lib.load_webp()
     image_lib.load_zstd()
+    image_lib.load_av1()
     build_ms = (time.perf_counter() - t0) * 1e3
     times, stages = {}, {}
     for name, ref in sorted(stored.items()):
@@ -3499,17 +3508,55 @@ def image_formats_check(tag: str) -> dict:
                 if not np.array_equal(webp.decode_webp(data, plain=True), px):
                     fail(f"image formats: {name}: the plain decode differs from the helper's")
                 held.append("plain decode")
+        elif name.endswith(".avif"):
+            still = avif.parse(data)
+            lib = image_lib.load_av1()
+            trace = np.zeros(40 * 1024 * 1024 // 4 * 3, np.int32)
+            lib.fd_av1_trace(trace.ctypes.data, trace.size)
+            frame = av1.decode(still.color)
+            n = lib.fd_av1_trace(None, 0)
+            if n <= 0:
+                fail(f"image formats: {name}: the AV1 stage trace overflowed")
+            try:
+                checked = av1.check_trace(trace[:n], limit=AVIF_STAGE_CALLS)
+            except RuntimeError as exc:
+                fail(f"image formats: {name}: {exc}")
+            if min(checked.values()) == 0:
+                fail(f"image formats: {name}: a stage kind never ran: {checked}")
+            y, u, v = frame.planes
+            rgb = av1.to_rgba(frame, None, 1, 6)
+            if not (np.array_equal(rgb, av1.to_rgba_plain(y, u, v, None, frame.width,
+                                                         frame.height))
+                    and np.array_equal(rgb, px)):
+                fail(f"image formats: {name}: fd_av1_to_rgb differs from to_rgba_plain")
+            held += [f"{k} x{c}" for k, c in checked.items()] + ["to_rgb"]
+            t0 = time.perf_counter()
+            av1.decode(still.color)
+            tiles_cold = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            av1.to_rgba(frame, None, 1, 6)
+            rgb_cold = (time.perf_counter() - t0) * 1e3
+            tiles_warm, _ = host_ms(lambda: av1.decode(still.color))
+            rgb_warm, _ = host_ms(lambda: av1.to_rgba(frame, None, 1, 6))
+            times["avif stages"] = {"tiles + loop filter": (tiles_cold, tiles_warm),
+                                    "yuv -> rgba": (rgb_cold, rgb_warm)}
         if held:
             stages[name] = held
     print(f"check 13: the {len(stored)} stored image files (JPEG with Huffman, arithmetic and "
           f"lossless coding, incomplete progressive ones smoothed, one without its EOI; GIF, "
-          f"BMP, ICO, QOI, TIFF with CCITT fax, RLE-W, uncompressed mode and ZSTD, WebP) "
-          f"decode to PIL's stored sha256 through the C++ helper; stages held to their "
+          f"BMP, ICO, QOI, TIFF with CCITT fax, RLE-W, uncompressed mode and ZSTD, WebP, "
+          f"AVIF) decode to PIL's stored sha256 through the C++ helper; stages held to their "
           f"plain twins: {json.dumps(stages)}", flush=True)
+    avif_stages = times.pop("avif stages", {})
     print(f"times: image decodes (the helpers' g++ builds {build_ms:.1f} ms first), host ms "
           f"cold (first) / warm (median of {IMAGE_REPS}): "
           + "; ".join(f"{k} {c:.3f} / {w:.3f} ({s[1]}x{s[0]})"
                       for k, (c, w, s) in times.items()) + f" {tag}", flush=True)
+    print("times: the AVIF fixture's decode (800x600, 4:2:0 q 75), host ms cold / warm "
+          f"(median of {IMAGE_REPS}): "
+          + "; ".join(f"{k} {c:.3f} / {w:.3f}" for k, (c, w) in avif_stages.items())
+          + f" {tag}", flush=True)
+    times["avif stages"] = avif_stages
     return times
 
 
@@ -3562,7 +3609,8 @@ def image_files_phase(tag: str, dev) -> dict:
     from figdraw_tpu_torch.ops import mega, raster
     from figdraw_tpu_torch.plan import pack_mega_combo, plan_execution
     from figdraw_tpu_torch.scenes import (
-        ARITH_FILE_REFERENCE, ARITH_FIXTURE, EXAMPLE_FORMS, EXAMPLE_IMAGES, EXAMPLE_SCENES,
+        ARITH_FILE_REFERENCE, ARITH_FIXTURE, AVIF_FILE_REFERENCE, AVIF_FIXTURE,
+        AVIF_WALL_REFERENCE, EXAMPLE_FORMS, EXAMPLE_IMAGES, EXAMPLE_SCENES,
         FAX_ATLAS, FAX_PAGE, G3_FILE_REFERENCE, LOSSLESS_FIXTURE, LOSSLESS_WALL_REFERENCE,
         G3_FIXTURE, G4_WALL_REFERENCE, IMAGE_FILE_SIZE, IMAGE_FIXTURE,
         INCOMPLETE_FILE_REFERENCE, INCOMPLETE_FIXTURE, INCOMPLETE_WALL_REFERENCE,
@@ -3706,6 +3754,7 @@ def image_files_phase(tag: str, dev) -> dict:
         ipath, icold_ms, iwarm_ms, _iimage = cold_warm(
             INCOMPLETE_FIXTURE, "incomplete progressive JPEG (block smoothing)")
         rpath, rcold_ms, rwarm_ms, _rimage = cold_warm(RLEW_FIXTURE, "RLE-W TIFF (400x300)")
+        vpath, vcold_ms, vwarm_ms, _vimage = cold_warm(AVIF_FIXTURE, "AVIF (q 75, 4:2:0)")
         g3path = os.path.join(td, os.path.basename(G3_FIXTURE))
         shutil.copyfile(G3_FIXTURE, g3path)
 
@@ -3813,7 +3862,8 @@ def image_files_phase(tag: str, dev) -> dict:
                        "g3": file_scene(g3path, "g3", G3_FILE_REFERENCE),
                        "arith": file_scene(apath, "arith", ARITH_FILE_REFERENCE),
                        "incomplete": file_scene(ipath, "incomplete", INCOMPLETE_FILE_REFERENCE),
-                       "rlew": file_scene(rpath, "rlew", RLEW_FILE_REFERENCE)}
+                       "rlew": file_scene(rpath, "rlew", RLEW_FILE_REFERENCE),
+                       "avif": file_scene(vpath, "avif", AVIF_FILE_REFERENCE)}
 
         # --- the 1080p photo wall of each loaded image ---
         def photo_wall(src, small_ref, what, tol=TOL, atlas=256):
@@ -3869,7 +3919,8 @@ def image_files_phase(tag: str, dev) -> dict:
                                         FILE_TOL),
                  "incomplete": photo_wall(ipath, INCOMPLETE_WALL_REFERENCE,
                                           "photo wall incomplete", FILE_TOL),
-                 "rlew": photo_wall(rpath, RLEW_WALL_REFERENCE, "photo wall rlew", FILE_TOL)}
+                 "rlew": photo_wall(rpath, RLEW_WALL_REFERENCE, "photo wall rlew", FILE_TOL),
+                 "avif": photo_wall(vpath, AVIF_WALL_REFERENCE, "photo wall avif", FILE_TOL)}
         for ref in refs:
             ref.close()
     med = statistics.median
@@ -3903,8 +3954,9 @@ def image_files_phase(tag: str, dev) -> dict:
           f"JPEG's load_image cold {acold_ms:.3f} ms, warm {awarm_ms:.3f} ms; the SOF3 crop's "
           f"(224x168) load_image cold {lcold_ms:.3f} ms, warm {lwarm_ms:.3f} ms; the incomplete "
           f"progressive JPEG's load_image cold {icold_ms:.3f} ms, warm {iwarm_ms:.3f} ms; the "
-          f"RLE-W TIFF's (400x300) load_image cold {rcold_ms:.3f} ms, warm {rwarm_ms:.3f} ms "
-          f"{tag}", flush=True)
+          f"RLE-W TIFF's (400x300) load_image cold {rcold_ms:.3f} ms, warm {rwarm_ms:.3f} ms; "
+          f"the AVIF's load_image cold {vcold_ms:.3f} ms, warm {vwarm_ms:.3f} ms {tag}",
+          flush=True)
     for src, (f_ms, f_host, f_dev) in file_frames.items():
         print(f"times: image_file scene from the {src.upper()}, 800x600 on K1-atlas: median "
               f"{f_ms:.3f} ms/frame = host (messages, walk, plan) {med(f_host):.3f} ms "

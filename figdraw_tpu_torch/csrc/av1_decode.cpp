@@ -1,0 +1,2526 @@
+// AV1 intra decoding for AVIF still images, host C++ built with g++ by
+// figdraw_tpu_torch/utils/image_lib.py and bound through ctypes by
+// utils/av1.py, which parses the sequence and frame headers and holds the
+// plain numpy twin of each self-contained stage. The decoding process is
+// the AV1 specification's (section 7) for a shown key frame of profile 0,
+// 8-bit 4:2:0 or monochrome, without superres, CDEF, loop restoration or
+// film grain; the tables are libaom's (csrc/av1_tables.h).
+//   fd_av1_tile       one tile: the symbol decoder with CDF adaptation,
+//                     partitions, intra frame mode info (segment id, skip,
+//                     delta q / lf, y and uv modes with angle deltas, CfL
+//                     alphas, palettes with their colour cache and index
+//                     maps, filter intra), tx sizes and types, coefficients
+//                     and their contexts, dequantisation, prediction and
+//                     reconstruction, into the frame's planes and its
+//                     per-4x4 block info;
+//   fd_av1_deblock    the loop filter of the whole frame;
+//   fd_av1_to_rgb     YUV to RGBA as libavif 1.3.0 converts it for PIL
+//                     (libyuv's full-range BT.601 fixed point with bilinear
+//                     4:2:0 upsampling), the alpha item's plane to alpha;
+//   fd_av1_predict, fd_av1_cfl, fd_av1_inv_txfm, fd_av1_lf_edge
+//                     the stages alone, for the twins' tests.
+//
+// Every entry point returns 0 (or a count) on success and a negative code
+// on bad input (utils/av1.py ERRORS); reads of the input are bounded.
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <vector>
+
+#include "av1_tables.h"
+
+namespace {
+
+enum { kArgs = -2, kGolomb = -3 };
+
+inline int clip3(int lo, int hi, int v) { return v < lo ? lo : (v > hi ? hi : v); }
+inline int round2(int64_t x, int n) { return n == 0 ? (int)x : (int)((x + ((int64_t)1 << (n - 1))) >> n); }
+inline int round2signed(int64_t x, int n) { return x >= 0 ? round2(x, n) : -round2(-x, n); }
+inline int floorlog2(uint32_t x) { int s = 0; while (x > 1) { x >>= 1; s++; } return s; }
+inline int ceillog2(uint32_t x) { if (x < 2) return 0; int i = 1; uint32_t p = 2; while (p < x) { i++; p <<= 1; } return i; }
+inline int clip1(int v) { return v < 0 ? 0 : (v > 255 ? 255 : v); }
+
+// ---------------------------------------------------------------- geometry ---
+
+enum BlockSize { B4X4, B4X8, B8X4, B8X8, B8X16, B16X8, B16X16, B16X32, B32X16, B32X32, B32X64,
+                 B64X32, B64X64, B64X128, B128X64, B128X128, B4X16, B16X4, B8X32, B32X8,
+                 B16X64, B64X16, BLOCK_INVALID };
+const int kBW[22] = {4, 4, 8, 8, 8, 16, 16, 16, 32, 32, 32, 64, 64, 64, 128, 128, 4, 16, 8, 32, 16, 64};
+const int kBH[22] = {4, 8, 4, 8, 16, 8, 16, 32, 16, 32, 64, 32, 64, 128, 64, 128, 16, 4, 32, 8, 64, 16};
+
+int block_of(int w, int h) {
+    for (int b = 0; b < 22; b++) if (kBW[b] == w && kBH[b] == h) return b;
+    return BLOCK_INVALID;
+}
+inline int mi_wlog2(int b) { return floorlog2(kBW[b] >> 2); }
+inline int mi_hlog2(int b) { return floorlog2(kBH[b] >> 2); }
+
+enum TxSize { T4X4, T8X8, T16X16, T32X32, T64X64, T4X8, T8X4, T8X16, T16X8, T16X32, T32X16,
+              T32X64, T64X32, T4X16, T16X4, T8X32, T32X8, T16X64, T64X16 };
+const int kTW[19] = {4, 8, 16, 32, 64, 4, 8, 8, 16, 16, 32, 32, 64, 4, 16, 8, 32, 16, 64};
+const int kTH[19] = {4, 8, 16, 32, 64, 8, 4, 16, 8, 32, 16, 64, 32, 16, 4, 32, 8, 64, 16};
+const int kMaxTxRect[22] = {T4X4, T4X8, T8X4, T8X8, T8X16, T16X8, T16X16, T16X32, T32X16, T32X32,
+                            T32X64, T64X32, T64X64, T64X64, T64X64, T64X64, T4X16, T16X4, T8X32,
+                            T32X8, T16X64, T64X16};
+const int kMaxTxDepth[22] = {0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4, 4, 4, 4, 4, 2, 2, 3, 3, 4, 4};
+const int kSplitTx[19] = {T4X4, T4X4, T8X8, T16X16, T32X32, T4X4, T4X4, T8X8, T8X8, T16X16,
+                          T16X16, T32X32, T32X32, T4X8, T8X4, T8X16, T16X8, T16X32, T32X16};
+const int kRowShift[19] = {0, 1, 2, 2, 2, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2};
+
+inline int tx_wlog2(int t) { return floorlog2(kTW[t]); }
+inline int tx_hlog2(int t) { return floorlog2(kTH[t]); }
+inline int sqr_index(int n) { return floorlog2(n) - 2; }  // 4 -> 0 ... 64 -> 4
+inline int tx_sqr(int t) { return sqr_index(std::min(kTW[t], kTH[t])); }
+inline int tx_sqr_up(int t) { return sqr_index(std::max(kTW[t], kTH[t])); }
+int adjusted_tx(int t) {
+    switch (t) {
+        case T64X64: case T32X64: case T64X32: return T32X32;
+        case T16X64: return T16X32;
+        case T64X16: return T32X16;
+        default: return t;
+    }
+}
+
+// plane residual size of a block (4:2:0 or luma)
+int plane_size(int b, int ssx, int ssy) {
+    int w = kBW[b] >> ssx, h = kBH[b] >> ssy;
+    if (w < 4) w = 4;
+    if (h < 4) h = 4;
+    return block_of(w, h);
+}
+
+enum Mode { DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED, D203_PRED,
+            D67_PRED, SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED, PAETH_PRED, UV_CFL_PRED };
+inline bool directional(int m) { return m >= V_PRED && m <= D67_PRED; }
+
+enum TxType { DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST,
+              FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST, IDTX, V_DCT, H_DCT, V_ADST,
+              H_ADST, V_FLIPADST, H_FLIPADST };
+enum { T_DCT, T_ADST, T_FLIP, T_ID };
+const int kColType[16] = {T_DCT, T_ADST, T_DCT, T_ADST, T_FLIP, T_DCT, T_FLIP, T_ADST, T_FLIP,
+                          T_ID, T_DCT, T_ID, T_ADST, T_ID, T_FLIP, T_ID};
+const int kRowType[16] = {T_DCT, T_DCT, T_ADST, T_ADST, T_DCT, T_FLIP, T_FLIP, T_FLIP, T_ADST,
+                          T_ID, T_ID, T_DCT, T_ID, T_ADST, T_ID, T_FLIP};
+enum { CLASS_2D, CLASS_HORIZ, CLASS_VERT };
+inline int tx_class(int t) {
+    if (t == V_DCT || t == V_ADST || t == V_FLIPADST) return CLASS_VERT;
+    if (t == H_DCT || t == H_ADST || t == H_FLIPADST) return CLASS_HORIZ;
+    return CLASS_2D;
+}
+const int kModeToTxfm[14] = {DCT_DCT, ADST_DCT, DCT_ADST, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST,
+                             DCT_ADST, ADST_DCT, ADST_ADST, ADST_DCT, DCT_ADST, ADST_ADST, DCT_DCT};
+enum { SET_DCTONLY, SET_INTRA_1, SET_INTRA_2, SET_INTER_1, SET_INTER_2, SET_INTER_3 };
+// TX_TYPE_INV's rows, the tx type of each symbol of a set (libaom's av1_ext_tx_inv)
+enum { INV_INTER_3, INV_INTRA_2, INV_INTRA_1, INV_INTER_2, INV_INTER_1 };
+
+// ------------------------------------------------------------ transforms ---
+
+inline int cos_lookup(int i) { return i == 64 ? 0 : COS128[i]; }
+inline int cos128(int angle) {
+    int a = angle & 255;
+    if (a <= 64) return cos_lookup(a);
+    if (a <= 128) return -cos_lookup(128 - a);
+    if (a <= 192) return -cos_lookup(a - 128);
+    return cos_lookup(256 - a);
+}
+inline int sin128(int angle) { return cos128(angle - 64); }
+
+struct Tx1D {
+    int32_t T[64];
+    int r;  // clamp range in bits
+
+    int clampr(int64_t v) const {
+        int64_t lo = -((int64_t)1 << (r - 1)), hi = ((int64_t)1 << (r - 1)) - 1;
+        return (int)(v < lo ? lo : (v > hi ? hi : v));
+    }
+    void B(int a, int b, int angle, int flip) {
+        int64_t x = (int64_t)T[a] * cos128(angle) - (int64_t)T[b] * sin128(angle);
+        int64_t y = (int64_t)T[a] * sin128(angle) + (int64_t)T[b] * cos128(angle);
+        T[a] = round2(x, 12);
+        T[b] = round2(y, 12);
+        if (flip) std::swap(T[a], T[b]);
+    }
+    void H(int a, int b, int flip) {
+        if (flip) std::swap(a, b);
+        int x = T[a], y = T[b];
+        T[a] = clampr((int64_t)x + y);
+        T[b] = clampr((int64_t)x - y);
+    }
+    static int brev(int n, int x) {
+        int v = 0;
+        for (int i = 0; i < n; i++) if (x & (1 << i)) v |= 1 << (n - 1 - i);
+        return v;
+    }
+    void dct(int n) {
+        int n0 = 1 << n;
+        int32_t c[64];
+        std::memcpy(c, T, sizeof(int32_t) * n0);
+        for (int i = 0; i < n0; i++) T[i] = c[brev(n, i)];
+        if (n == 6) for (int i = 0; i < 16; i++) B(32 + i, 63 - i, 63 - 4 * brev(4, i), 0);
+        if (n >= 5) for (int i = 0; i < 8; i++) B(16 + i, 31 - i, 6 + (brev(3, 7 - i) << 3), 0);
+        if (n == 6) for (int i = 0; i < 16; i++) H(32 + i * 2, 33 + i * 2, i & 1);
+        if (n >= 4) for (int i = 0; i < 4; i++) B(8 + i, 15 - i, 12 + (brev(2, 3 - i) << 4), 0);
+        if (n >= 5) for (int i = 0; i < 8; i++) H(16 + 2 * i, 17 + 2 * i, i & 1);
+        if (n == 6) for (int i = 0; i < 4; i++) for (int j = 0; j < 2; j++)
+            B(62 - i * 4 - j, 33 + i * 4 + j, 60 - 16 * brev(2, i) + 64 * j, 1);
+        if (n >= 3) for (int i = 0; i < 2; i++) B(4 + i, 7 - i, 56 - 32 * i, 0);
+        if (n >= 4) for (int i = 0; i < 4; i++) H(8 + 2 * i, 9 + 2 * i, i & 1);
+        if (n >= 5) for (int i = 0; i < 2; i++) for (int j = 0; j < 2; j++)
+            B(30 - 4 * i - j, 17 + 4 * i + j, 24 + (j << 6) + ((1 - i) << 5), 1);
+        if (n == 6) for (int i = 0; i < 8; i++) for (int j = 0; j < 2; j++)
+            H(32 + i * 4 + j, 35 + i * 4 - j, i & 1);
+        for (int i = 0; i < 2; i++) B(2 * i, 1 + 2 * i, 32 + 16 * i, 1 - i);
+        if (n >= 3) for (int i = 0; i < 2; i++) H(4 + 2 * i, 5 + 2 * i, i);
+        if (n >= 4) for (int i = 0; i < 2; i++) B(14 - i, 9 + i, 48 + 64 * i, 1);
+        if (n >= 5) for (int i = 0; i < 4; i++) for (int j = 0; j < 2; j++)
+            H(16 + 4 * i + j, 19 + 4 * i - j, i & 1);
+        if (n == 6) for (int i = 0; i < 2; i++) for (int j = 0; j < 4; j++)
+            B(61 - i * 8 - j, 34 + i * 8 + j, 56 - i * 32 + (j >> 1) * 64, 1);
+        for (int i = 0; i < 2; i++) H(i, 3 - i, 0);
+        if (n >= 3) B(6, 5, 32, 1);
+        if (n >= 4) for (int i = 0; i < 2; i++) for (int j = 0; j < 2; j++)
+            H(8 + 4 * i + j, 11 + 4 * i - j, i);
+        if (n >= 5) for (int i = 0; i < 4; i++) B(29 - i, 18 + i, 48 + (i >> 1) * 64, 1);
+        if (n == 6) for (int i = 0; i < 4; i++) for (int j = 0; j < 4; j++)
+            H(32 + 8 * i + j, 39 + 8 * i - j, i & 1);
+        if (n >= 3) for (int i = 0; i < 4; i++) H(i, 7 - i, 0);
+        if (n >= 4) for (int i = 0; i < 2; i++) B(13 - i, 10 + i, 32, 1);
+        if (n >= 5) for (int i = 0; i < 2; i++) for (int j = 0; j < 4; j++)
+            H(16 + i * 8 + j, 23 + i * 8 - j, i);
+        if (n == 6) for (int i = 0; i < 8; i++) B(59 - i, 36 + i, i < 4 ? 48 : 112, 1);
+        if (n >= 4) for (int i = 0; i < 8; i++) H(i, 15 - i, 0);
+        if (n >= 5) for (int i = 0; i < 4; i++) B(27 - i, 20 + i, 32, 1);
+        if (n == 6) {
+            for (int i = 0; i < 8; i++) H(32 + i, 47 - i, 0);
+            for (int i = 0; i < 8; i++) H(48 + i, 63 - i, 1);
+        }
+        if (n >= 5) for (int i = 0; i < 16; i++) H(i, 31 - i, 0);
+        if (n == 6) for (int i = 0; i < 8; i++) B(55 - i, 40 + i, 32, 1);
+        if (n == 6) for (int i = 0; i < 32; i++) H(i, 63 - i, 0);
+    }
+    void adst4() {
+        int64_t s0 = (int64_t)SINPI[1] * T[0], s1 = (int64_t)SINPI[2] * T[0];
+        int64_t s2 = (int64_t)SINPI[3] * T[1], s3 = (int64_t)SINPI[4] * T[2];
+        int64_t s4 = (int64_t)SINPI[1] * T[2], s5 = (int64_t)SINPI[2] * T[3];
+        int64_t s6 = (int64_t)SINPI[4] * T[3];
+        int a7 = T[0] - T[2];
+        int b7 = a7 + T[3];
+        s0 = s0 + s3;
+        s1 = s1 - s4;
+        s3 = s2;
+        s2 = (int64_t)SINPI[3] * b7;
+        s0 = s0 + s5;
+        s1 = s1 - s6;
+        int64_t x0 = s0 + s3, x1 = s1 + s3, x2 = s2, x3 = s0 + s1;
+        x3 = x3 - s3;
+        T[0] = round2(x0, 12);
+        T[1] = round2(x1, 12);
+        T[2] = round2(x2, 12);
+        T[3] = round2(x3, 12);
+    }
+    void adst_in_perm(int n) {
+        int n0 = 1 << n;
+        int32_t c[16];
+        std::memcpy(c, T, sizeof(int32_t) * n0);
+        for (int i = 0; i < n0; i++) T[i] = c[(i & 1) ? (i - 1) : (n0 - i - 1)];
+    }
+    void adst_out_perm(int n) {
+        int n0 = 1 << n;
+        int32_t c[16];
+        std::memcpy(c, T, sizeof(int32_t) * n0);
+        for (int i = 0; i < n0; i++) {
+            int a = (i >> 3) & 1, b = ((i >> 2) & 1) ^ ((i >> 3) & 1);
+            int cc = ((i >> 1) & 1) ^ ((i >> 2) & 1), d = (i & 1) ^ ((i >> 1) & 1);
+            int idx = ((d << 3) | (cc << 2) | (b << 1) | a) >> (4 - n);
+            T[i] = (i & 1) ? -c[idx] : c[idx];
+        }
+    }
+    void adst8() {
+        adst_in_perm(3);
+        for (int i = 0; i < 4; i++) B(2 * i, 1 + 2 * i, 60 - 16 * i, 1);
+        for (int i = 0; i < 4; i++) H(i, 4 + i, 0);
+        for (int i = 0; i < 2; i++) B(4 + 3 * i, 5 + i, 48 - 32 * i, 1);
+        for (int i = 0; i < 2; i++) for (int j = 0; j < 2; j++) H(4 * j + i, 2 + 4 * j + i, 0);
+        for (int i = 0; i < 2; i++) B(2 + 4 * i, 3 + 4 * i, 32, 1);
+        adst_out_perm(3);
+    }
+    void adst16() {
+        adst_in_perm(4);
+        for (int i = 0; i < 8; i++) B(2 * i, 1 + 2 * i, 62 - 8 * i, 1);
+        for (int i = 0; i < 8; i++) H(i, 8 + i, 0);
+        for (int i = 0; i < 2; i++) {
+            B(8 + 2 * i, 9 + 2 * i, 56 - 32 * i, 1);
+            B(13 + 2 * i, 12 + 2 * i, 8 + 32 * i, 1);
+        }
+        for (int i = 0; i < 4; i++) for (int j = 0; j < 2; j++) H(8 * j + i, 4 + 8 * j + i, 0);
+        for (int i = 0; i < 2; i++) for (int j = 0; j < 2; j++) {
+            B(4 + 8 * j + 3 * i, 5 + 8 * j + i, 48 - 32 * i, 1);
+        }
+        for (int i = 0; i < 2; i++) for (int j = 0; j < 4; j++) H(4 * j + i, 2 + 4 * j + i, 0);
+        for (int i = 0; i < 4; i++) B(2 + 4 * i, 3 + 4 * i, 32, 1);
+        adst_out_perm(4);
+    }
+    void identity(int n) {
+        int n0 = 1 << n;
+        for (int i = 0; i < n0; i++) {
+            if (n == 2) T[i] = round2((int64_t)T[i] * 5793, 12);
+            else if (n == 3) T[i] = T[i] * 2;
+            else if (n == 4) T[i] = round2((int64_t)T[i] * 11586, 12);
+            else T[i] = T[i] * 4;
+        }
+    }
+    void run(int type, int n) {
+        if (type == T_DCT) dct(n);
+        else if (type == T_ID) identity(n);
+        else if (n == 2) adst4();
+        else if (n == 3) adst8();
+        else adst16();
+    }
+};
+
+void wht(int32_t* T, int shift) {
+    int a = T[0] >> shift, c = T[1] >> shift, d = T[2] >> shift, b = T[3] >> shift;
+    a += c;
+    d -= b;
+    int e = (a - d) >> 1;
+    b = e - b;
+    c = e - c;
+    a -= b;
+    d += c;
+    T[0] = a;
+    T[1] = b;
+    T[2] = c;
+    T[3] = d;
+}
+
+// The 2D inverse transform of a txSz block: `deq` holds Dequant[i][j] at
+// i * 64 + j (rows and columns past 32 zero), `res` gets Residual at
+// i * w + j.
+void inverse_transform(const int32_t* deq, int txSz, int txType, int lossless, int32_t* res) {
+    int log2W = tx_wlog2(txSz), log2H = tx_hlog2(txSz);
+    int w = 1 << log2W, h = 1 << log2H;
+    int rowShift = lossless ? 0 : kRowShift[txSz];
+    int colShift = lossless ? 0 : 4;
+    int rowClamp = 8 + 8, colClamp = std::max(8 + 6, 16);
+    int rt = kRowType[txType], ct = kColType[txType];
+    Tx1D t;
+    std::vector<int32_t> tmp((size_t)w * h);
+    for (int i = 0; i < h; i++) {
+        for (int j = 0; j < w; j++) t.T[j] = (i < 32 && j < 32) ? deq[i * 64 + j] : 0;
+        if (lossless) {
+            wht(t.T, 2);
+        } else {
+            if (std::abs(log2W - log2H) == 1)
+                for (int j = 0; j < w; j++) t.T[j] = round2((int64_t)t.T[j] * 2896, 12);
+            t.r = rowClamp;
+            for (int j = 0; j < w; j++) t.T[j] = t.clampr(t.T[j]);
+            t.run(rt == T_FLIP ? T_ADST : rt, log2W);
+        }
+        for (int j = 0; j < w; j++) {
+            int v = round2((int64_t)t.T[j], rowShift);
+            if (!lossless) v = clip3(-(1 << (colClamp - 1)), (1 << (colClamp - 1)) - 1, v);
+            tmp[(size_t)i * w + (rt == T_FLIP ? w - 1 - j : j)] = v;
+        }
+    }
+    for (int j = 0; j < w; j++) {
+        for (int i = 0; i < h; i++) t.T[i] = tmp[(size_t)i * w + j];
+        if (lossless) {
+            wht(t.T, 0);
+        } else {
+            t.r = colClamp;
+            t.run(ct == T_FLIP ? T_ADST : ct, log2H);
+        }
+        for (int i = 0; i < h; i++)
+            res[(size_t)(ct == T_FLIP ? h - 1 - i : i) * w + j] = round2((int64_t)t.T[i], colShift);
+    }
+}
+
+// ------------------------------------------------------------ prediction ---
+
+struct PredParams {
+    int mode, log2W, log2H, haveLeft, haveAbove, angleDelta, filterType, edgeFilter;
+    int useFilterIntra, filterIntraMode, aboveLimit, leftLimit;  // limits: maxX - x + 1, maxY - y + 1
+};
+
+inline const int16_t* sm_weights(int log2) {
+    static const int off[7] = {0, 0, 0, 4, 12, 28, 60};  // by log2 of the size (4 -> 0)
+    return SM_WEIGHTS + off[log2];
+}
+
+int edge_strength(int w, int h, int filterType, int delta) {
+    int d = std::abs(delta), blkWh = w + h, s = 0;
+    if (filterType == 0) {
+        if (blkWh <= 8) { if (d >= 56) s = 1; }
+        else if (blkWh <= 12) { if (d >= 40) s = 1; }
+        else if (blkWh <= 16) { if (d >= 40) s = 1; }
+        else if (blkWh <= 24) { if (d >= 8) s = 1; if (d >= 16) s = 2; if (d >= 32) s = 3; }
+        else if (blkWh <= 32) { if (d >= 1) s = 1; if (d >= 4) s = 2; if (d >= 32) s = 3; }
+        else { if (d >= 1) s = 3; }
+    } else {
+        if (blkWh <= 8) { if (d >= 40) s = 1; if (d >= 64) s = 2; }
+        else if (blkWh <= 16) { if (d >= 20) s = 1; if (d >= 48) s = 2; }
+        else if (blkWh <= 24) { if (d >= 4) s = 3; }
+        else { if (d >= 1) s = 3; }
+    }
+    return s;
+}
+
+int use_upsample(int w, int h, int filterType, int delta) {
+    int d = std::abs(delta), blkWh = w + h;
+    if (d <= 0 || d >= 40) return 0;
+    return filterType == 0 ? blkWh <= 16 : blkWh <= 8;
+}
+
+// `e` points at index 0 of an edge with valid indices -16 .. 271
+void edge_filter(int* e, int sz, int strength) {
+    if (strength == 0) return;
+    int edge[300];
+    for (int i = 0; i < sz; i++) edge[i] = e[i - 1];
+    for (int i = 1; i < sz; i++) {
+        int s = 0;
+        for (int j = 0; j < 5; j++) {
+            int k = clip3(0, sz - 1, i - 2 + j);
+            s += INTRA_EDGE_KERNEL[(strength - 1) * 5 + j] * edge[k];
+        }
+        e[i - 1] = (s + 8) >> 4;
+    }
+}
+
+void edge_upsample(int* buf, int numPx) {
+    int dup[300];
+    dup[0] = buf[-1];
+    for (int i = -1; i < numPx; i++) dup[i + 2] = buf[i];
+    dup[numPx + 2] = buf[numPx - 1];
+    buf[-2] = dup[0];
+    for (int i = 0; i < numPx; i++) {
+        int s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3];
+        s = clip1(round2(s, 4));
+        buf[2 * i - 1] = s;
+        buf[2 * i] = dup[i + 2];
+    }
+}
+
+// The intra prediction of one block from its edges: `above` and `left` point
+// at index 0 of arrays valid from -16 (AboveRow / LeftCol, w + h entries and
+// the corner at -1, which the edge processes modify). `pred` gets w * h.
+void predict(const PredParams& p, int* above, int* left, uint8_t* pred) {
+    int w = 1 << p.log2W, h = 1 << p.log2H;
+    if (p.useFilterIntra) {
+        int w4 = w >> 2, h2 = h >> 1;
+        for (int i2 = 0; i2 < h2; i2++) {
+            for (int j4 = 0; j4 < w4; j4++) {
+                int pv[7];
+                for (int i = 0; i < 7; i++) {
+                    if (i < 5) {
+                        if (i2 == 0) pv[i] = above[(j4 << 2) + i - 1];
+                        else if (j4 == 0 && i == 0) pv[i] = left[(i2 << 1) - 1];
+                        else pv[i] = pred[((i2 << 1) - 1) * w + (j4 << 2) + i - 1];
+                    } else {
+                        if (j4 == 0) pv[i] = left[(i2 << 1) + i - 5];
+                        else pv[i] = pred[((i2 << 1) + i - 5) * w + (j4 << 2) - 1];
+                    }
+                }
+                for (int i = 0; i < 8; i++) {
+                    int pr = 0;
+                    for (int j = 0; j < 7; j++)
+                        pr += FILTER_INTRA_TAPS[(p.filterIntraMode * 8 + i) * 8 + j] * pv[j];
+                    pred[((i2 << 1) + (i >> 2)) * w + (j4 << 2) + (i & 3)] = clip1(round2signed(pr, 4));
+                }
+            }
+        }
+        return;
+    }
+    int mode = p.mode;
+    if (directional(mode)) {
+        int pAngle = MODE_TO_ANGLE[mode] + p.angleDelta * 3;
+        int upA = 0, upL = 0;
+        if (p.edgeFilter) {
+            if (pAngle != 90 && pAngle != 180) {
+                if (pAngle > 90 && pAngle < 180 && (w + h) >= 24) {
+                    int s = left[0] * 5 + above[-1] * 6 + above[0] * 5;
+                    above[-1] = left[-1] = round2(s, 4);
+                }
+                if (p.haveAbove) {
+                    int strength = edge_strength(w, h, p.filterType, pAngle - 90);
+                    int numPx = std::min(w, p.aboveLimit) + (pAngle < 90 ? h : 0) + 1;
+                    edge_filter(above, numPx, strength);
+                }
+                if (p.haveLeft) {
+                    int strength = edge_strength(w, h, p.filterType, pAngle - 180);
+                    int numPx = std::min(h, p.leftLimit) + (pAngle > 180 ? w : 0) + 1;
+                    edge_filter(left, numPx, strength);
+                }
+            }
+            upA = use_upsample(w, h, p.filterType, pAngle - 90);
+            if (upA) edge_upsample(above, w + (pAngle < 90 ? h : 0));
+            upL = use_upsample(w, h, p.filterType, pAngle - 180);
+            if (upL) edge_upsample(left, h + (pAngle > 180 ? w : 0));
+        }
+        int dx = 0, dy = 0;
+        if (pAngle < 90) dx = DR_INTRA_DERIVATIVE[pAngle];
+        else if (pAngle > 90 && pAngle < 180) dx = DR_INTRA_DERIVATIVE[180 - pAngle];
+        if (pAngle > 90 && pAngle < 180) dy = DR_INTRA_DERIVATIVE[pAngle - 90];
+        else if (pAngle > 180) dy = DR_INTRA_DERIVATIVE[270 - pAngle];
+        for (int i = 0; i < h; i++) {
+            for (int j = 0; j < w; j++) {
+                int v;
+                if (pAngle < 90) {
+                    int idx = (i + 1) * dx;
+                    int base = (idx >> (6 - upA)) + (j << upA);
+                    int shift = ((idx << upA) >> 1) & 0x1F;
+                    int maxBaseX = (w + h - 1) << upA;
+                    if (base < maxBaseX)
+                        v = round2(above[base] * (32 - shift) + above[base + 1] * shift, 5);
+                    else
+                        v = above[maxBaseX];
+                } else if (pAngle > 90 && pAngle < 180) {
+                    int idx = (j << 6) - (i + 1) * dx;
+                    int base = idx >> (6 - upA);
+                    if (base >= -(1 << upA)) {
+                        int shift = ((idx * (1 << upA)) >> 1) & 0x1F;
+                        v = round2(above[base] * (32 - shift) + above[base + 1] * shift, 5);
+                    } else {
+                        idx = (i << 6) - (j + 1) * dy;
+                        base = idx >> (6 - upL);
+                        int shift = ((idx * (1 << upL)) >> 1) & 0x1F;
+                        v = round2(left[base] * (32 - shift) + left[base + 1] * shift, 5);
+                    }
+                } else if (pAngle > 180) {
+                    int idx = (j + 1) * dy;
+                    int base = (idx >> (6 - upL)) + (i << upL);
+                    int shift = ((idx << upL) >> 1) & 0x1F;
+                    v = round2(left[base] * (32 - shift) + left[base + 1] * shift, 5);
+                } else if (pAngle == 90) {
+                    v = above[j];
+                } else {
+                    v = left[i];
+                }
+                pred[i * w + j] = (uint8_t)v;
+            }
+        }
+        return;
+    }
+    if (mode == SMOOTH_PRED) {
+        const int16_t* wx = sm_weights(p.log2W);
+        const int16_t* wy = sm_weights(p.log2H);
+        for (int i = 0; i < h; i++)
+            for (int j = 0; j < w; j++) {
+                int s = wy[i] * above[j] + (256 - wy[i]) * left[h - 1] + wx[j] * left[i] +
+                        (256 - wx[j]) * above[w - 1];
+                pred[i * w + j] = (uint8_t)round2(s, 9);
+            }
+        return;
+    }
+    if (mode == SMOOTH_V_PRED) {
+        const int16_t* wy = sm_weights(p.log2H);
+        for (int i = 0; i < h; i++)
+            for (int j = 0; j < w; j++)
+                pred[i * w + j] = (uint8_t)round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1], 8);
+        return;
+    }
+    if (mode == SMOOTH_H_PRED) {
+        const int16_t* wx = sm_weights(p.log2W);
+        for (int i = 0; i < h; i++)
+            for (int j = 0; j < w; j++)
+                pred[i * w + j] = (uint8_t)round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8);
+        return;
+    }
+    if (mode == DC_PRED) {
+        int avg;
+        if (p.haveLeft && p.haveAbove) {
+            int sum = 0;
+            for (int k = 0; k < w; k++) sum += above[k];
+            for (int k = 0; k < h; k++) sum += left[k];
+            avg = (sum + ((w + h) >> 1)) / (w + h);
+        } else if (p.haveLeft) {
+            int sum = 0;
+            for (int k = 0; k < h; k++) sum += left[k];
+            avg = clip1((sum + (h >> 1)) >> p.log2H);
+        } else if (p.haveAbove) {
+            int sum = 0;
+            for (int k = 0; k < w; k++) sum += above[k];
+            avg = clip1((sum + (w >> 1)) >> p.log2W);
+        } else {
+            avg = 128;
+        }
+        std::memset(pred, avg, (size_t)w * h);
+        return;
+    }
+    // PAETH
+    for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) {
+            int base = above[j] + left[i] - above[-1];
+            int pL = std::abs(base - left[i]), pT = std::abs(base - above[j]);
+            int pTL = std::abs(base - above[-1]);
+            int v;
+            if (pL <= pT && pL <= pTL) v = left[i];
+            else if (pT <= pTL) v = above[j];
+            else v = above[-1];
+            pred[i * w + j] = (uint8_t)v;
+        }
+}
+
+// CfL: `luma` holds the (padded) luma samples the block averages, lw x lh
+// of subsampled positions already summed as in the specification (L[i][j]),
+// `pred` the DC prediction of w x h, modified in place.
+void cfl_apply(const int32_t* L, int w, int h, int alpha, uint8_t* pred) {
+    int64_t sum = 0;
+    for (int k = 0; k < w * h; k++) sum += L[k];
+    int avg = round2(sum, floorlog2(w) + floorlog2(h));
+    for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) {
+            int dc = pred[i * w + j];
+            int scaled = round2signed((int64_t)alpha * (L[i * w + j] - avg), 6);
+            pred[i * w + j] = (uint8_t)clip1(dc + scaled);
+        }
+}
+
+// ----------------------------------------------------------- loop filter ---
+
+struct LfParams {
+    int filterSize, plane, limit, blimit, thresh;
+};
+
+// One position across an edge: s[k] for k = -8 .. 7 (s + 8 is q0), in place.
+void lf_sample(int* s, const LfParams& lp) {
+    int q0 = s[0], q1 = s[1], q2 = s[2], q3 = s[3];
+    int p0 = s[-1], p1 = s[-2], p2 = s[-3], p3 = s[-4];
+    int hevMask = std::abs(p1 - p0) > lp.thresh || std::abs(q1 - q0) > lp.thresh;
+    int filterLen;
+    if (lp.filterSize == 4) filterLen = 4;
+    else if (lp.plane != 0) filterLen = 6;
+    else if (lp.filterSize == 8) filterLen = 8;
+    else filterLen = 16;
+    int mask = std::abs(p1 - p0) <= lp.limit && std::abs(q1 - q0) <= lp.limit &&
+               std::abs(p0 - q0) * 2 + std::abs(p1 - q1) / 2 <= lp.blimit;
+    if (filterLen >= 6) mask = mask && std::abs(p2 - p1) <= lp.limit && std::abs(q2 - q1) <= lp.limit;
+    if (filterLen >= 8) mask = mask && std::abs(p3 - p2) <= lp.limit && std::abs(q3 - q2) <= lp.limit;
+    if (!mask) return;
+    int flat = 0, flat2 = 0;
+    if (lp.filterSize >= 8) {
+        flat = std::abs(p1 - p0) <= 1 && std::abs(q1 - q0) <= 1 && std::abs(p2 - p0) <= 1 &&
+               std::abs(q2 - q0) <= 1;
+        if (filterLen >= 8) flat = flat && std::abs(p3 - p0) <= 1 && std::abs(q3 - q0) <= 1;
+    }
+    if (lp.filterSize >= 16) {
+        flat2 = std::abs(s[-7] - p0) <= 1 && std::abs(s[6] - q0) <= 1 && std::abs(s[-6] - p0) <= 1 &&
+                std::abs(s[5] - q0) <= 1 && std::abs(s[-5] - p0) <= 1 && std::abs(s[4] - q0) <= 1;
+    }
+    if (lp.filterSize == 4 || !flat) {
+        auto c = [](int v) { return clip3(-128, 127, v); };
+        int ps1 = p1 - 128, ps0 = p0 - 128, qs0 = q0 - 128, qs1 = q1 - 128;
+        int filter = hevMask ? c(ps1 - qs1) : 0;
+        filter = c(filter + 3 * (qs0 - ps0));
+        int filter1 = c(filter + 4) >> 3;
+        int filter2 = c(filter + 3) >> 3;
+        s[0] = c(qs0 - filter1) + 128;
+        s[-1] = c(ps0 + filter2) + 128;
+        if (!hevMask) {
+            filter = round2(filter1, 1);
+            s[1] = c(qs1 - filter) + 128;
+            s[-2] = c(ps1 + filter) + 128;
+        }
+        return;
+    }
+    int log2Size = (lp.filterSize == 8 || !flat2) ? 3 : 4;
+    int n, n2;
+    if (log2Size == 4) n = 6;
+    else if (lp.plane == 0) n = 3;
+    else n = 2;
+    n2 = (log2Size == 3 && lp.plane == 0) ? 0 : 1;
+    int F[16], out[16];
+    for (int k = -8; k < 8; k++) F[k + 8] = s[k];
+    for (int i = -n; i < n; i++) {
+        int t = 0;
+        for (int j = -n; j <= n; j++) {
+            int pp = clip3(-(n + 1), n, i + j);
+            int tap = (std::abs(j) <= n2) ? 2 : 1;
+            t += F[pp + 8] * tap;
+        }
+        out[i + 8] = round2(t, log2Size);
+    }
+    for (int i = -n; i < n; i++) s[i] = out[i + 8];
+}
+
+// ------------------------------------------------------------------ trace ---
+
+// A trace of the stage calls for utils/av1.py's plain twins: records of
+// int32 appended while they fit (kinds TRACE_*), off unless fd_av1_trace set
+// a buffer. Not thread-safe; the load path never sets one.
+enum { TRACE_PREDICT = 1, TRACE_CFL = 2, TRACE_TXFM = 3, TRACE_LF = 4 };
+int32_t* g_trace = nullptr;
+int64_t g_trace_cap = 0, g_trace_len = 0, g_trace_lost = 0;
+
+struct TraceRecord {
+    int64_t start;
+    bool ok;
+    explicit TraceRecord(int64_t need) : start(g_trace_len), ok(g_trace && g_trace_len + need <= g_trace_cap) {
+        if (g_trace && !ok) g_trace_lost++;
+    }
+    void put(int32_t v) { if (ok) g_trace[g_trace_len++] = v; }
+};
+
+// ---------------------------------------------------------- symbol decoder ---
+
+struct SymbolDecoder {
+    const uint8_t* buf = nullptr;
+    int64_t size = 0, bitpos = 0, maxBits = 0;
+    uint32_t value = 0, range = 0;
+    int disableUpdate = 0;
+
+    int bits(int n) {
+        uint32_t v = 0;
+        for (int i = 0; i < n; i++) {
+            int bit = 0;
+            if (bitpos < size * 8) bit = (buf[bitpos >> 3] >> (7 - (bitpos & 7))) & 1;
+            bitpos++;
+            v = (v << 1) | bit;
+        }
+        return (int)v;
+    }
+    void init(const uint8_t* b, int64_t sz, int disable) {
+        buf = b;
+        size = sz;
+        bitpos = 0;
+        disableUpdate = disable;
+        int numBits = (int)std::min<int64_t>(sz * 8, 15);
+        uint32_t v = (uint32_t)bits(numBits);
+        uint32_t padded = v << (15 - numBits);
+        value = ((1u << 15) - 1) ^ padded;
+        range = 1u << 15;
+        maxBits = 8 * sz - 15;
+    }
+    int decode(const uint16_t* cdf, int N) {
+        uint32_t cur = range, prev;
+        int symbol = -1;
+        do {
+            symbol++;
+            prev = cur;
+            uint32_t f = cdf[symbol];
+            cur = (((range >> 8) * (f >> 6)) >> 1) + 4 * (uint32_t)(N - symbol - 1);
+        } while (value < cur);
+        range = prev - cur;
+        value -= cur;
+        int b = 15 - floorlog2(range);
+        range <<= b;
+        int numBits = (int)std::min<int64_t>(b, std::max<int64_t>(0, maxBits));
+        uint32_t newData = (uint32_t)this->bits(numBits);
+        uint32_t padded = newData << (b - numBits);
+        value = padded ^ (((value + 1) << b) - 1);
+        maxBits -= b;
+        return symbol;
+    }
+    int symbol(uint16_t* cdf, int N) {
+        int s = decode(cdf, N);
+        if (!disableUpdate) {
+            int rate = 3 + (cdf[N] > 15) + (cdf[N] > 31) + std::min(floorlog2(N), 2);
+            int tmp = 32768;
+            for (int i = 0; i < N - 1; i++) {
+                if (i == s) tmp = 0;
+                if (tmp < cdf[i]) cdf[i] -= (uint16_t)((cdf[i] - tmp) >> rate);
+                else cdf[i] += (uint16_t)((tmp - cdf[i]) >> rate);
+            }
+            cdf[N] += (cdf[N] < 32);
+        }
+        return s;
+    }
+    int boolean() {
+        static const uint16_t half[3] = {16384, 0, 0};
+        return decode(half, 2);
+    }
+    int literal(int n) {
+        int x = 0;
+        for (int i = 0; i < n; i++) x = 2 * x + boolean();
+        return x;
+    }
+    int ns(int n) {
+        int w = floorlog2(n) + 1;
+        int m = (1 << w) - n;
+        int v = literal(w - 1);
+        if (v < m) return v;
+        int extra = literal(1);
+        return (v << 1) - m + extra;
+    }
+};
+
+// ------------------------------------------------------------------ CDFs ---
+
+struct Cdfs {
+    uint16_t kf_y_mode[5][5][14];
+    uint16_t uv_cfl_not[13][14];
+    uint16_t uv_cfl[13][15];
+    uint16_t angle_delta[8][8];
+    uint16_t partition_w8[4][5], partition_w16[4][11], partition_w32[4][11], partition_w64[4][11];
+    uint16_t partition_w128[4][9];
+    uint16_t segment_id[3][9];
+    uint16_t tx_8x8[3][3], tx_16x16[3][4], tx_32x32[3][4], tx_64x64[3][4];
+    uint16_t filter_intra_mode[6];
+    uint16_t filter_intra[22][3];
+    uint16_t skip[3][3];
+    uint16_t delta_q[5], delta_lf[5], delta_lf_multi[4][5];
+    uint16_t intra_tx_set1[2][13][8];
+    uint16_t intra_tx_set2[3][13][6];
+    uint16_t cfl_sign[9];
+    uint16_t cfl_alpha[6][17];
+    uint16_t palette_y_size[7][8], palette_uv_size[7][8];
+    uint16_t palette_y_color[7][5][9], palette_uv_color[7][5][9];
+    uint16_t palette_y_mode[7][3][3], palette_uv_mode[2][3];
+    uint16_t intrabc[3];
+    uint16_t txfm_split[21][3];
+    uint16_t inter_tx_set1[4][17], inter_tx_set2[4][13], inter_tx_set3[4][3];
+    uint16_t mv_joint[5];
+    uint16_t mv_class[2][12], mv_sign[2][3], mv_class0[2][3], mv_bits[2][10][3];
+    uint16_t txb_skip[5][13][3];
+    uint16_t eob_pt16[2][2][6], eob_pt32[2][2][7], eob_pt64[2][2][8], eob_pt128[2][2][9];
+    uint16_t eob_pt256[2][2][10], eob_pt512[2][2][11], eob_pt1024[2][2][12];
+    uint16_t eob_extra[5][2][9][3];
+    uint16_t dc_sign[2][3][3];
+    uint16_t coeff_base_eob[5][2][4][4];
+    uint16_t coeff_base[5][2][42][5];
+    uint16_t coeff_br[5][2][21][5];
+};
+
+template <typename D, typename S>
+void copy_table(D& dst, const S& src) {
+    static_assert(sizeof(D) == sizeof(S), "table shapes differ");
+    std::memcpy(&dst, &src, sizeof(D));
+}
+
+void init_cdfs(Cdfs& c, int baseQ) {
+    copy_table(c.kf_y_mode, KF_Y_MODE);
+    copy_table(c.uv_cfl_not, UV_MODE_CFL_NOT_ALLOWED);
+    copy_table(c.uv_cfl, UV_MODE_CFL_ALLOWED);
+    copy_table(c.angle_delta, ANGLE_DELTA);
+    copy_table(c.partition_w8, PARTITION_W8);
+    copy_table(c.partition_w16, PARTITION_W16);
+    copy_table(c.partition_w32, PARTITION_W32);
+    copy_table(c.partition_w64, PARTITION_W64);
+    copy_table(c.partition_w128, PARTITION_W128);
+    copy_table(c.segment_id, SEGMENT_ID);
+    copy_table(c.tx_8x8, TX_8X8);
+    copy_table(c.tx_16x16, TX_16X16);
+    copy_table(c.tx_32x32, TX_32X32);
+    copy_table(c.tx_64x64, TX_64X64);
+    copy_table(c.filter_intra_mode, FILTER_INTRA_MODE);
+    copy_table(c.filter_intra, FILTER_INTRA);
+    copy_table(c.skip, SKIP);
+    copy_table(c.delta_q, DELTA_Q);
+    copy_table(c.delta_lf, DELTA_LF);
+    copy_table(c.delta_lf_multi, DELTA_LF_MULTI);
+    copy_table(c.intra_tx_set1, INTRA_TX_SET1);
+    copy_table(c.intra_tx_set2, INTRA_TX_SET2);
+    copy_table(c.cfl_sign, CFL_SIGN);
+    copy_table(c.cfl_alpha, CFL_ALPHA);
+    copy_table(c.palette_y_size, PALETTE_Y_SIZE);
+    copy_table(c.palette_uv_size, PALETTE_UV_SIZE);
+    copy_table(c.palette_y_color, PALETTE_Y_COLOR);
+    copy_table(c.palette_uv_color, PALETTE_UV_COLOR);
+    copy_table(c.palette_y_mode, PALETTE_Y_MODE);
+    copy_table(c.palette_uv_mode, PALETTE_UV_MODE);
+    copy_table(c.intrabc, INTRABC);
+    copy_table(c.txfm_split, TXFM_SPLIT);
+    copy_table(c.inter_tx_set1, INTER_TX_SET1);
+    copy_table(c.inter_tx_set2, INTER_TX_SET2);
+    copy_table(c.inter_tx_set3, INTER_TX_SET3);
+    copy_table(c.mv_joint, MV_JOINT);
+    for (int comp = 0; comp < 2; comp++) {  // the two components start alike
+        copy_table(c.mv_class[comp], MV_CLASS);
+        copy_table(c.mv_sign[comp], MV_SIGN);
+        copy_table(c.mv_class0[comp], MV_CLASS0);
+        copy_table(c.mv_bits[comp], MV_BITS);
+    }
+    int q = baseQ <= 20 ? 0 : baseQ <= 60 ? 1 : baseQ <= 120 ? 2 : 3;
+    copy_table(c.txb_skip, TXB_SKIP[q]);
+    copy_table(c.eob_pt16, EOB_PT_16[q]);
+    copy_table(c.eob_pt32, EOB_PT_32[q]);
+    copy_table(c.eob_pt64, EOB_PT_64[q]);
+    copy_table(c.eob_pt128, EOB_PT_128[q]);
+    copy_table(c.eob_pt256, EOB_PT_256[q]);
+    copy_table(c.eob_pt512, EOB_PT_512[q]);
+    copy_table(c.eob_pt1024, EOB_PT_1024[q]);
+    copy_table(c.eob_extra, EOB_EXTRA[q]);
+    copy_table(c.dc_sign, DC_SIGN[q]);
+    copy_table(c.coeff_base_eob, COEFF_BASE_EOB[q]);
+    copy_table(c.coeff_base, COEFF_BASE[q]);
+    copy_table(c.coeff_br, COEFF_BR[q]);
+}
+
+// ---------------------------------------------------------------- header ---
+
+// The frame header as utils/av1.py packs it (HDR_* there).
+enum {
+    H_WIDTH, H_HEIGHT, H_MI_COLS, H_MI_ROWS, H_MONO, H_USE128, H_FILTER_INTRA, H_EDGE_FILTER,
+    H_DISABLE_CDF_UPDATE, H_SCREEN_CONTENT, H_ALLOW_INTRABC, H_BASE_Q, H_DQ_Y_DC, H_DQ_U_DC, H_DQ_U_AC, H_DQ_V_DC,
+    H_DQ_V_AC, H_SEG_ENABLED, H_SEG_PRE_SKIP, H_LAST_ACTIVE_SEG, H_DELTA_Q_PRESENT, H_DELTA_Q_RES,
+    H_DELTA_LF_PRESENT, H_DELTA_LF_RES, H_DELTA_LF_MULTI, H_TX_MODE, H_REDUCED_TX_SET, H_LF_LEVEL0,
+    H_SHARPNESS = H_LF_LEVEL0 + 4, H_LF_DELTA_ENABLED, H_REF_DELTAS,
+    H_ROW_START = H_REF_DELTAS + 8, H_ROW_END, H_COL_START, H_COL_END,
+    H_FEATURE_ENABLED, H_FEATURE_DATA = H_FEATURE_ENABLED + 64, H_LOSSLESS = H_FEATURE_DATA + 64,
+    H_STRIDE_Y = H_LOSSLESS + 8, H_STRIDE_UV, H_USING_QM, H_QM_Y, H_QM_U, H_QM_V, H_SIZE
+};
+enum { TX_ONLY_4X4, TX_LARGEST, TX_SELECT };
+
+// The planes are allocated to whole 128x128 superblocks (the strides in the
+// header), since a transform block may run past the frame's last 4x4.
+
+// per 4x4 (MI) info the tile writes and the loop filter reads
+enum { M_SIZE, M_SKIP, M_SEG, M_TX_Y, M_TX_UV, M_DLF0, M_DLF1, M_DLF2, M_DLF3, M_YMODE,
+       M_UVMODE, M_INTER, M_MV_ROW, M_MV_COL, M_WRITTEN, M_FIELDS };
+
+// ------------------------------------------------------------------ tile ---
+
+struct Tile {
+    const int32_t* hdr;
+    int miCols, miRows, rowStart, rowEnd, colStart, colEnd;
+    // 4:2:0 (a monochrome frame has no chroma planes)
+    static constexpr int ssx = 1, ssy = 1;
+    int mono, numPlanes, use128, sbSize4;
+    uint8_t* plane[3];
+    int stride[3];
+    int32_t* mi;  // [miRows][miCols][M_FIELDS]
+    SymbolDecoder sd;
+    Cdfs cdf;
+    // frame-wide block state read by the contexts
+    std::vector<uint8_t> palSize[2];
+    std::vector<uint8_t> palColors[2];  // 8 a 4x4
+    std::vector<uint8_t> txTypes;
+    std::vector<uint8_t> txSizes;
+    std::vector<uint8_t> aboveLevel[3], aboveDc[3], leftLevel[3], leftDc[3];
+    uint8_t blockDecoded[3][35][35];
+    int currentQ;
+    int deltaLF[4];
+    int readDeltas;
+    int err = 0;
+
+    // the block being decoded
+    int miRow, miCol, miSize, bw4, bh4, hasChroma, availU, availL, availUC, availLC;
+    int skip, segmentId, lossless, yMode, uvMode, angleDeltaY, angleDeltaUV, cflAlphaU, cflAlphaV;
+    int useFilterIntra, filterIntraMode, paletteSizeY, paletteSizeUV, txSize, isInter;
+    int mvRow, mvCol;  // an intra block copy's vector, 1/8 pel
+    int paletteColors[3][8];
+    uint8_t colorMapY[64][64], colorMapUV[64][64];
+    int maxLumaW, maxLumaH;
+    int planeTxType;
+
+    int32_t* m(int r, int c) { return mi + ((size_t)r * miCols + c) * M_FIELDS; }
+    bool inside(int r, int c) const {
+        return c >= colStart && c < colEnd && r >= rowStart && r < rowEnd;
+    }
+    int feature(int seg, int f) const { return hdr[H_FEATURE_ENABLED + seg * 8 + f]; }
+    int feature_data(int seg, int f) const { return hdr[H_FEATURE_DATA + seg * 8 + f]; }
+    int qidx(int ignoreDelta, int seg) const {
+        if (hdr[H_SEG_ENABLED] && feature(seg, 0)) {
+            int data = feature_data(seg, 0);
+            int q = hdr[H_BASE_Q] + data;
+            if (!ignoreDelta && hdr[H_DELTA_Q_PRESENT]) q = currentQ + data;
+            return clip3(0, 255, q);
+        }
+        if (!ignoreDelta && hdr[H_DELTA_Q_PRESENT]) return currentQ;
+        return hdr[H_BASE_Q];
+    }
+
+    void clear_block_decoded(int r, int c) {
+        for (int p = 0; p < numPlanes; p++) {
+            int sx = p ? ssx : 0, sy = p ? ssy : 0;
+            int sbW4 = (colEnd - c) >> sx, sbH4 = (rowEnd - r) >> sy;
+            for (int y = -1; y <= (sbSize4 >> sy); y++)
+                for (int x = -1; x <= (sbSize4 >> sx); x++) {
+                    int v;
+                    if (y < 0 && x < sbW4) v = 1;
+                    else if (x < 0 && y < sbH4) v = 1;
+                    else v = 0;
+                    blockDecoded[p][y + 1][x + 1] = (uint8_t)v;
+                }
+            blockDecoded[p][(sbSize4 >> sy) + 1][0] = 0;
+        }
+    }
+
+    // ---- partitions
+    void decode_partition(int r, int c, int bSize) {
+        if (err) return;
+        if (r >= miRows || c >= miCols) return;
+        int aU = inside(r - 1, c), aL = inside(r, c - 1);
+        int num4 = kBW[bSize] >> 2, half = num4 >> 1, quarter = half >> 1;
+        int hasRows = (r + half) < miRows, hasCols = (c + half) < miCols;
+        int partition;
+        if (bSize < B8X8) {
+            partition = 0;
+        } else {
+            int bsl = mi_wlog2(bSize);
+            int above = aU && mi_wlog2(m(r - 1, c)[M_SIZE]) < bsl;
+            int left = aL && mi_hlog2(m(r, c - 1)[M_SIZE]) < bsl;
+            int ctx = left * 2 + above;
+            uint16_t* pc;
+            int N;
+            if (bSize == B8X8) { pc = cdf.partition_w8[ctx]; N = 4; }
+            else if (bSize == B16X16) { pc = cdf.partition_w16[ctx]; N = 10; }
+            else if (bSize == B32X32) { pc = cdf.partition_w32[ctx]; N = 10; }
+            else if (bSize == B64X64) { pc = cdf.partition_w64[ctx]; N = 10; }
+            else { pc = cdf.partition_w128[ctx]; N = 8; }
+            if (hasRows && hasCols) {
+                partition = sd.symbol(pc, N);
+            } else if (hasCols || hasRows) {
+                auto P = [&](int s) { return s >= N ? 0 : (s == 0 ? 32768 : pc[s - 1]) - pc[s]; };
+                int psum;
+                if (hasCols)  // split_or_horz
+                    psum = P(2) + P(3) + P(4) + P(6) + P(7) + (bSize != B128X128 ? P(9) : 0);
+                else          // split_or_vert
+                    psum = P(1) + P(3) + P(4) + P(5) + P(6) + (bSize != B128X128 ? P(8) : 0);
+                uint16_t tmp[3] = {(uint16_t)psum, 0, 0};
+                int bit = sd.decode(tmp, 2);
+                partition = bit ? 3 : (hasCols ? 1 : 2);
+            } else {
+                partition = 3;
+            }
+        }
+        int w = kBW[bSize], h = kBH[bSize];
+        int subSize, splitSize = block_of(w / 2, h / 2);
+        switch (partition) {
+            case 0: subSize = bSize; break;
+            case 1: case 4: case 5: subSize = block_of(w, h / 2); break;
+            case 2: case 6: case 7: subSize = block_of(w / 2, h); break;
+            case 3: subSize = splitSize; break;
+            case 8: subSize = block_of(w, h / 4); break;
+            default: subSize = block_of(w / 4, h); break;
+        }
+        switch (partition) {
+            case 0: decode_block(r, c, subSize); break;
+            case 1:
+                decode_block(r, c, subSize);
+                if (hasRows) decode_block(r + half, c, subSize);
+                break;
+            case 2:
+                decode_block(r, c, subSize);
+                if (hasCols) decode_block(r, c + half, subSize);
+                break;
+            case 3:
+                decode_partition(r, c, subSize);
+                decode_partition(r, c + half, subSize);
+                decode_partition(r + half, c, subSize);
+                decode_partition(r + half, c + half, subSize);
+                break;
+            case 4:
+                decode_block(r, c, splitSize);
+                decode_block(r, c + half, splitSize);
+                decode_block(r + half, c, subSize);
+                break;
+            case 5:
+                decode_block(r, c, subSize);
+                decode_block(r + half, c, splitSize);
+                decode_block(r + half, c + half, splitSize);
+                break;
+            case 6:
+                decode_block(r, c, splitSize);
+                decode_block(r + half, c, splitSize);
+                decode_block(r, c + half, subSize);
+                break;
+            case 7:
+                decode_block(r, c, subSize);
+                decode_block(r, c + half, splitSize);
+                decode_block(r + half, c + half, splitSize);
+                break;
+            case 8:
+                for (int i = 0; i < 4; i++)
+                    if (i < 3 || r + quarter * 3 < miRows) decode_block(r + quarter * i, c, subSize);
+                break;
+            default:
+                for (int i = 0; i < 4; i++)
+                    if (i < 3 || c + quarter * 3 < miCols) decode_block(r, c + quarter * i, subSize);
+                break;
+        }
+    }
+
+    // ---- mode info
+    void read_segment_id() {
+        int prevUL = -1, prevU = -1, prevL = -1;
+        if (availU && availL) prevUL = m(miRow - 1, miCol - 1)[M_SEG];
+        if (availU) prevU = m(miRow - 1, miCol)[M_SEG];
+        if (availL) prevL = m(miRow, miCol - 1)[M_SEG];
+        int ctx;
+        if (prevUL < 0) ctx = 0;
+        else if (prevUL == prevU && prevUL == prevL) ctx = 2;
+        else if (prevUL == prevU || prevUL == prevL || prevU == prevL) ctx = 1;
+        else ctx = 0;
+        int pred;
+        if (prevU == -1) pred = prevL == -1 ? 0 : prevL;
+        else if (prevL == -1) pred = prevU;
+        else pred = prevUL == prevU ? prevU : prevL;
+        if (skip) {
+            segmentId = pred;
+            return;
+        }
+        int s = sd.symbol(cdf.segment_id[ctx], 8);
+        int mx = hdr[H_LAST_ACTIVE_SEG] + 1;
+        int v;
+        if (!pred) v = s;
+        else if (pred >= mx - 1) v = mx - s - 1;
+        else if (2 * pred < mx) {
+            if (s <= 2 * pred) v = (s & 1) ? pred + ((s + 1) >> 1) : pred - (s >> 1);
+            else v = s;
+        } else {
+            if (s <= 2 * (mx - pred - 1)) v = (s & 1) ? pred + ((s + 1) >> 1) : pred - (s >> 1);
+            else v = mx - (s + 1);
+        }
+        segmentId = clip3(0, hdr[H_LAST_ACTIVE_SEG], v);
+    }
+    void intra_segment_id() {
+        if (hdr[H_SEG_ENABLED]) read_segment_id();
+        else segmentId = 0;
+        lossless = hdr[H_LOSSLESS + segmentId];
+    }
+    void read_skip() {
+        if (hdr[H_SEG_PRE_SKIP] && feature(segmentId, 6)) {
+            skip = 1;
+            return;
+        }
+        int ctx = 0;
+        if (availU) ctx += m(miRow - 1, miCol)[M_SKIP];
+        if (availL) ctx += m(miRow, miCol - 1)[M_SKIP];
+        skip = sd.symbol(cdf.skip[ctx], 2);
+    }
+    int read_delta_abs(uint16_t* c) {
+        int a = sd.symbol(c, 4);
+        if (a == 3) {
+            int rem = sd.literal(3) + 1;
+            a = sd.literal(rem) + (1 << rem) + 1;
+        }
+        return a;
+    }
+    void read_delta_qindex() {
+        int sbSize = use128 ? B128X128 : B64X64;
+        if (miSize == sbSize && skip) return;
+        if (readDeltas) {
+            int a = read_delta_abs(cdf.delta_q);
+            if (a) {
+                int sign = sd.literal(1);
+                int red = sign ? -a : a;
+                currentQ = clip3(1, 255, currentQ + (red << hdr[H_DELTA_Q_RES]));
+            }
+        }
+    }
+    void read_delta_lf() {
+        int sbSize = use128 ? B128X128 : B64X64;
+        if (miSize == sbSize && skip) return;
+        if (readDeltas && hdr[H_DELTA_LF_PRESENT]) {
+            int n = 1;
+            if (hdr[H_DELTA_LF_MULTI]) n = mono ? 2 : 4;
+            for (int i = 0; i < n; i++) {
+                int a = read_delta_abs(hdr[H_DELTA_LF_MULTI] ? cdf.delta_lf_multi[i] : cdf.delta_lf);
+                if (a) {
+                    int sign = sd.literal(1);
+                    int red = sign ? -a : a;
+                    deltaLF[i] = clip3(-63, 63, deltaLF[i] + (red << hdr[H_DELTA_LF_RES]));
+                }
+            }
+        }
+    }
+    void read_cfl_alphas() {
+        int signs = sd.symbol(cdf.cfl_sign, 8);
+        int signU = (signs + 1) / 3, signV = (signs + 1) % 3;
+        if (signU) {
+            int a = sd.symbol(cdf.cfl_alpha[(signU - 1) * 3 + signV], 16);
+            cflAlphaU = signU == 1 ? -(a + 1) : a + 1;
+        } else {
+            cflAlphaU = 0;
+        }
+        if (signV) {
+            int a = sd.symbol(cdf.cfl_alpha[(signV - 1) * 3 + signU], 16);
+            cflAlphaV = signV == 1 ? -(a + 1) : a + 1;
+        } else {
+            cflAlphaV = 0;
+        }
+    }
+    int palette_cache(int p, int* cache) {
+        int aboveN = 0, leftN = 0;
+        if (((miRow * 4) % 64) && availU) aboveN = palSize[p][(size_t)(miRow - 1) * miCols + miCol];
+        if (availL) leftN = palSize[p][(size_t)miRow * miCols + miCol - 1];
+        const uint8_t* ac = &palColors[p][((size_t)(miRow - 1) * miCols + miCol) * 8];
+        const uint8_t* lc = &palColors[p][((size_t)miRow * miCols + miCol - 1) * 8];
+        int ai = 0, li = 0, n = 0;
+        while (ai < aboveN && li < leftN) {
+            int a = ac[ai], l = lc[li];
+            if (l < a) {
+                if (n == 0 || l != cache[n - 1]) cache[n++] = l;
+                li++;
+            } else {
+                if (n == 0 || a != cache[n - 1]) cache[n++] = a;
+                ai++;
+                if (l == a) li++;
+            }
+        }
+        while (ai < aboveN) {
+            int v = ac[ai++];
+            if (n == 0 || v != cache[n - 1]) cache[n++] = v;
+        }
+        while (li < leftN) {
+            int v = lc[li++];
+            if (n == 0 || v != cache[n - 1]) cache[n++] = v;
+        }
+        return n;
+    }
+    void read_palette_colors(int p, int size, int* colors) {
+        int cache[16];
+        int cacheN = palette_cache(p, cache);
+        int idx = 0;
+        for (int i = 0; i < cacheN && idx < size; i++)
+            if (sd.literal(1)) colors[idx++] = cache[i];
+        if (idx < size) colors[idx++] = sd.literal(8);
+        int paletteBits = 0;
+        if (idx < size) paletteBits = 5 + sd.literal(2);
+        while (idx < size) {
+            int delta = sd.literal(paletteBits);
+            if (p == 0) delta++;
+            colors[idx] = clip1(colors[idx - 1] + delta);
+            int range = 256 - colors[idx] - (p == 0 ? 1 : 0);
+            idx++;
+            paletteBits = std::min(paletteBits, ceillog2(range));
+        }
+        std::sort(colors, colors + size);
+    }
+    void palette_mode_info() {
+        int bsizeCtx = mi_wlog2(miSize) + mi_hlog2(miSize) - 2;
+        if (yMode == DC_PRED) {
+            int ctx = 0;
+            if (availU && palSize[0][(size_t)(miRow - 1) * miCols + miCol] > 0) ctx++;
+            if (availL && palSize[0][(size_t)miRow * miCols + miCol - 1] > 0) ctx++;
+            if (sd.symbol(cdf.palette_y_mode[bsizeCtx][ctx], 2)) {
+                paletteSizeY = sd.symbol(cdf.palette_y_size[bsizeCtx], 7) + 2;
+                read_palette_colors(0, paletteSizeY, paletteColors[0]);
+            }
+        }
+        if (hasChroma && uvMode == DC_PRED) {
+            int ctx = paletteSizeY > 0;
+            if (sd.symbol(cdf.palette_uv_mode[ctx], 2)) {
+                paletteSizeUV = sd.symbol(cdf.palette_uv_size[bsizeCtx], 7) + 2;
+                read_palette_colors(1, paletteSizeUV, paletteColors[1]);
+                if (sd.literal(1)) {
+                    int bits = 4 + sd.literal(2);
+                    paletteColors[2][0] = sd.literal(8);
+                    for (int idx = 1; idx < paletteSizeUV; idx++) {
+                        int d = sd.literal(bits);
+                        if (d && sd.literal(1)) d = -d;
+                        int val = paletteColors[2][idx - 1] + d;
+                        if (val < 0) val += 256;
+                        if (val >= 256) val -= 256;
+                        paletteColors[2][idx] = clip1(val);
+                    }
+                } else {
+                    for (int idx = 0; idx < paletteSizeUV; idx++) paletteColors[2][idx] = sd.literal(8);
+                }
+            }
+        }
+    }
+    void intra_frame_mode_info() {
+        if (hdr[H_SEG_PRE_SKIP]) intra_segment_id();
+        read_skip();
+        if (!hdr[H_SEG_PRE_SKIP]) intra_segment_id();
+        read_delta_qindex();
+        read_delta_lf();
+        readDeltas = 0;
+        useFilterIntra = 0;
+        paletteSizeY = paletteSizeUV = 0;
+        angleDeltaY = angleDeltaUV = 0;
+        cflAlphaU = cflAlphaV = 0;
+        isInter = 0;
+        yMode = uvMode = DC_PRED;
+        if (hdr[H_ALLOW_INTRABC] && sd.symbol(cdf.intrabc, 2)) {
+            isInter = 1;
+            find_mv_stack();
+            assign_mv();
+            return;
+        }
+        int above = availU ? m(miRow - 1, miCol)[M_YMODE] : DC_PRED;
+        int left = availL ? m(miRow, miCol - 1)[M_YMODE] : DC_PRED;
+        yMode = sd.symbol(cdf.kf_y_mode[INTRA_MODE_CONTEXT[above]][INTRA_MODE_CONTEXT[left]], 13);
+        if (miSize >= B8X8 && directional(yMode))
+            angleDeltaY = sd.symbol(cdf.angle_delta[yMode - V_PRED], 7) - 3;
+        uvMode = DC_PRED;
+        if (hasChroma) {
+            int cflAllowed;
+            if (lossless && plane_size(miSize, ssx, ssy) == B4X4) cflAllowed = 1;
+            else if (!lossless && std::max(kBW[miSize], kBH[miSize]) <= 32) cflAllowed = 1;
+            else cflAllowed = 0;
+            uvMode = cflAllowed ? sd.symbol(cdf.uv_cfl[yMode], 14) : sd.symbol(cdf.uv_cfl_not[yMode], 13);
+            if (uvMode == UV_CFL_PRED) read_cfl_alphas();
+            if (miSize >= B8X8 && directional(uvMode))
+                angleDeltaUV = sd.symbol(cdf.angle_delta[uvMode - V_PRED], 7) - 3;
+        }
+        if (miSize >= B8X8 && kBW[miSize] <= 64 && kBH[miSize] <= 64 && hdr[H_SCREEN_CONTENT])
+            palette_mode_info();
+        if (hdr[H_FILTER_INTRA] && yMode == DC_PRED && paletteSizeY == 0 &&
+            std::max(kBW[miSize], kBH[miSize]) <= 32) {
+            useFilterIntra = sd.symbol(cdf.filter_intra[miSize], 2);
+            if (useFilterIntra) filterIntraMode = sd.symbol(cdf.filter_intra_mode, 5);
+        }
+    }
+
+    // ---- palette tokens
+    void color_context(uint8_t map[64][64], int r, int c, int n, int* order, int* ctx) {
+        int scores[8] = {0};
+        for (int i = 0; i < 8; i++) order[i] = i;
+        if (c > 0) scores[map[r][c - 1]] += 2;
+        if (r > 0 && c > 0) scores[map[r - 1][c - 1]] += 1;
+        if (r > 0) scores[map[r - 1][c]] += 2;
+        for (int i = 0; i < 3; i++) {
+            int maxScore = scores[i], maxIdx = i;
+            for (int j = i + 1; j < n; j++)
+                if (scores[j] > maxScore) { maxScore = scores[j]; maxIdx = j; }
+            if (maxIdx != i) {
+                maxScore = scores[maxIdx];
+                int maxOrder = order[maxIdx];
+                for (int k = maxIdx; k > i; k--) {
+                    scores[k] = scores[k - 1];
+                    order[k] = order[k - 1];
+                }
+                scores[i] = maxScore;
+                order[i] = maxOrder;
+            }
+        }
+        int hash = 0;
+        for (int i = 0; i < 3; i++) hash += scores[i] * PALETTE_COLOR_HASH_MULTIPLIERS[i];
+        *ctx = PALETTE_COLOR_CONTEXT[hash];
+    }
+    void read_color_map(uint8_t map[64][64], int n, int bw, int bh, int onW, int onH, int plane) {
+        map[0][0] = (uint8_t)sd.ns(n);
+        for (int i = 1; i < onH + onW - 1; i++) {
+            for (int j = std::min(i, onW - 1); j >= std::max(0, i - onH + 1); j--) {
+                int order[8], ctx;
+                color_context(map, i - j, j, n, order, &ctx);
+                uint16_t* c = plane ? cdf.palette_uv_color[n - 2][ctx] : cdf.palette_y_color[n - 2][ctx];
+                int idx = sd.symbol(c, n);
+                map[i - j][j] = (uint8_t)order[idx];
+            }
+        }
+        for (int i = 0; i < onH; i++)
+            for (int j = onW; j < bw; j++) map[i][j] = map[i][onW - 1];
+        for (int i = onH; i < bh; i++)
+            for (int j = 0; j < bw; j++) map[i][j] = map[onH - 1][j];
+    }
+    void palette_tokens() {
+        int bh = kBH[miSize], bw = kBW[miSize];
+        int onH = std::min(bh, (miRows - miRow) * 4), onW = std::min(bw, (miCols - miCol) * 4);
+        if (paletteSizeY) read_color_map(colorMapY, paletteSizeY, bw, bh, onW, onH, 0);
+        if (paletteSizeUV) {
+            bh >>= ssy;
+            bw >>= ssx;
+            onH = std::min(bh, ((miRows - miRow) * 4) >> ssy);
+            onW = std::min(bw, ((miCols - miCol) * 4) >> ssx);
+            if (bw < 4) { bw += 2; onW += 2; }
+            if (bh < 4) { bh += 2; onH += 2; }
+            read_color_map(colorMapUV, paletteSizeUV, bw, bh, onW, onH, 1);
+        }
+    }
+
+    // ---- tx size
+    int above_tx_width(int r, int c) {
+        if (r == miRow) {
+            if (!availU) return 64;
+            int32_t* a = m(r - 1, c);
+            if (a[M_SKIP] && a[M_INTER]) return kBW[a[M_SIZE]];
+        }
+        return kTW[txSizes[(size_t)(r - 1) * miCols + c]];
+    }
+    int left_tx_height(int r, int c) {
+        if (c == miCol) {
+            if (!availL) return 64;
+            int32_t* l = m(r, c - 1);
+            if (l[M_SKIP] && l[M_INTER]) return kBH[l[M_SIZE]];
+        }
+        return kTH[txSizes[(size_t)r * miCols + c - 1]];
+    }
+    void set_tx_sizes(int r, int c, int w4, int h4, int tx) {
+        for (int i = 0; i < h4; i++)
+            for (int j = 0; j < w4; j++)
+                if (r + i < miRows && c + j < miCols) txSizes[(size_t)(r + i) * miCols + c + j] = (uint8_t)tx;
+    }
+    void read_var_tx_size(int r, int c, int tx, int depth) {
+        if (r >= miRows || c >= miCols) return;
+        int split = 0;
+        if (tx != T4X4 && depth != 2) {
+            int above = above_tx_width(r, c) < kTW[tx];
+            int left = left_tx_height(r, c) < kTH[tx];
+            int size = std::min(64, std::max(kBW[miSize], kBH[miSize]));
+            int maxTx = sqr_index(size);
+            int ctx = (tx_sqr_up(tx) != maxTx) * 3 + (5 - 1 - maxTx) * 6 + above + left;
+            split = sd.symbol(cdf.txfm_split[ctx], 2);
+        }
+        int w4 = kTW[tx] >> 2, h4 = kTH[tx] >> 2;
+        if (split) {
+            int sub = kSplitTx[tx];
+            for (int i = 0; i < h4; i += kTH[sub] >> 2)
+                for (int j = 0; j < w4; j += kTW[sub] >> 2) read_var_tx_size(r + i, c + j, sub, depth + 1);
+        } else {
+            set_tx_sizes(r, c, w4, h4, tx);
+            txSize = tx;
+        }
+    }
+    void read_block_tx_size() {
+        if (hdr[H_TX_MODE] == TX_SELECT && miSize > B4X4 && isInter && !skip && !lossless) {
+            int maxTx = kMaxTxRect[miSize];
+            for (int r = miRow; r < miRow + bh4; r += kTH[maxTx] >> 2)
+                for (int c = miCol; c < miCol + bw4; c += kTW[maxTx] >> 2) read_var_tx_size(r, c, maxTx, 0);
+            return;
+        }
+        read_tx_size(!skip || !isInter);
+        set_tx_sizes(miRow, miCol, bw4, bh4, txSize);
+    }
+    void read_tx_size(int allowSelect) {
+        if (lossless) {
+            txSize = T4X4;
+            return;
+        }
+        int maxRect = kMaxTxRect[miSize];
+        int maxDepth = kMaxTxDepth[miSize];
+        txSize = maxRect;
+        if (miSize > B4X4 && allowSelect && hdr[H_TX_MODE] == TX_SELECT) {
+            int aboveW = 0, leftH = 0;
+            if (availU) {
+                int32_t* a = m(miRow - 1, miCol);
+                aboveW = a[M_INTER] ? kBW[a[M_SIZE]] : above_tx_width(miRow, miCol);
+            }
+            if (availL) {
+                int32_t* l = m(miRow, miCol - 1);
+                leftH = l[M_INTER] ? kBH[l[M_SIZE]] : left_tx_height(miRow, miCol);
+            }
+            int ctx = (aboveW >= kTW[maxRect]) + (leftH >= kTH[maxRect]);
+            int depth;
+            if (maxDepth == 1) depth = sd.symbol(cdf.tx_8x8[ctx], 2);
+            else if (maxDepth == 2) depth = sd.symbol(cdf.tx_16x16[ctx], 3);
+            else if (maxDepth == 3) depth = sd.symbol(cdf.tx_32x32[ctx], 3);
+            else depth = sd.symbol(cdf.tx_64x64[ctx], 3);
+            for (int i = 0; i < depth; i++) txSize = kSplitTx[txSize];
+        }
+    }
+
+    // ---- intra block copy: the vector stack, the vector and the prediction
+    int numMvFound, refStack[8][2], weightStack[8], foundMatch;
+    void add_ref_mv(int r, int c, int weight) {
+        int32_t* b = m(r, c);
+        if (!b[M_INTER]) return;  // a neighbour coded by intra block copy (RefFrame INTRA_FRAME)
+        int mv[2] = {b[M_MV_ROW], b[M_MV_COL]};  // integer already (force_integer_mv)
+        foundMatch = 1;
+        int idx = 0;
+        while (idx < numMvFound && !(refStack[idx][0] == mv[0] && refStack[idx][1] == mv[1])) idx++;
+        if (idx < numMvFound) {
+            weightStack[idx] += weight;
+        } else if (numMvFound < 8) {
+            refStack[numMvFound][0] = mv[0];
+            refStack[numMvFound][1] = mv[1];
+            weightStack[numMvFound] = weight;
+            numMvFound++;
+        }
+    }
+    void scan_row(int deltaRow) {
+        int end4 = std::min(std::min(bw4, miCols - miCol), 16), deltaCol = 0;
+        int useStep16 = bw4 >= 16;
+        if (std::abs(deltaRow) > 1) {
+            deltaRow += miRow & 1;
+            deltaCol = 1 - (miCol & 1);
+        }
+        for (int i = 0; i < end4;) {
+            int r = miRow + deltaRow, c = miCol + deltaCol + i;
+            if (!inside(r, c)) break;
+            int len = std::min(bw4, kBW[m(r, c)[M_SIZE]] >> 2);
+            if (std::abs(deltaRow) > 1) len = std::max(2, len);
+            if (useStep16) len = std::max(4, len);
+            add_ref_mv(r, c, len * 2);
+            i += len;
+        }
+    }
+    void scan_col(int deltaCol) {
+        int end4 = std::min(std::min(bh4, miRows - miRow), 16), deltaRow = 0;
+        int useStep16 = bh4 >= 16;
+        if (std::abs(deltaCol) > 1) {
+            deltaRow = 1 - (miRow & 1);
+            deltaCol += miCol & 1;
+        }
+        for (int i = 0; i < end4;) {
+            int r = miRow + deltaRow + i, c = miCol + deltaCol;
+            if (!inside(r, c)) break;
+            int len = std::min(bh4, kBH[m(r, c)[M_SIZE]] >> 2);
+            if (std::abs(deltaCol) > 1) len = std::max(2, len);
+            if (useStep16) len = std::max(4, len);
+            add_ref_mv(r, c, len * 2);
+            i += len;
+        }
+    }
+    void scan_point(int deltaRow, int deltaCol) {
+        int r = miRow + deltaRow, c = miCol + deltaCol;
+        if (inside(r, c) && m(r, c)[M_WRITTEN]) add_ref_mv(r, c, 4);
+    }
+    void sort_stack(int start, int end) {
+        while (end > start) {
+            int newEnd = start;
+            for (int idx = start + 1; idx < end; idx++)
+                if (weightStack[idx - 1] < weightStack[idx]) {
+                    std::swap(weightStack[idx - 1], weightStack[idx]);
+                    std::swap(refStack[idx - 1][0], refStack[idx][0]);
+                    std::swap(refStack[idx - 1][1], refStack[idx][1]);
+                    newEnd = idx;
+                }
+            end = newEnd;
+        }
+    }
+    // find_mv_stack for RefFrame INTRA_FRAME: no temporal, global or
+    // compound candidates; extra_search adds none (no neighbour refers to
+    // another frame) and fills the stack to 2 with the zero global vector
+    void find_mv_stack() {
+        numMvFound = 0;
+        std::memset(refStack, 0, sizeof(refStack));
+        foundMatch = 0;
+        scan_row(-1);
+        foundMatch = 0;
+        scan_col(-1);
+        foundMatch = 0;
+        if (std::max(bw4, bh4) <= 16) scan_point(-1, bw4);
+        int numNearest = numMvFound;
+        for (int idx = 0; idx < numNearest; idx++) weightStack[idx] += 640;  // REF_CAT_LEVEL
+        scan_point(-1, -1);
+        scan_row(-3);
+        scan_col(-3);
+        if (bh4 > 1) scan_row(-5);
+        if (bw4 > 1) scan_col(-5);
+        sort_stack(0, numNearest);
+        sort_stack(numNearest, numMvFound);
+        for (int idx = numMvFound; idx < 2; idx++) refStack[idx][0] = refStack[idx][1] = 0;
+        int border = 128;  // MV_BORDER
+        for (int idx = 0; idx < numMvFound; idx++) {
+            int top = -(miRow * 4 * 8), bottom = (miRows - bh4 - miRow) * 4 * 8;
+            int left = -(miCol * 4 * 8), right = (miCols - bw4 - miCol) * 4 * 8;
+            refStack[idx][0] = clip3(top - border - bh4 * 4 * 8, bottom + border + bh4 * 4 * 8, refStack[idx][0]);
+            refStack[idx][1] = clip3(left - border - bw4 * 4 * 8, right + border + bw4 * 4 * 8, refStack[idx][1]);
+        }
+    }
+    int read_mv_component(int comp) {
+        int sign = sd.symbol(cdf.mv_sign[comp], 2);
+        int cls = sd.symbol(cdf.mv_class[comp], 11);
+        int mag;
+        if (cls == 0) {
+            int bit = sd.symbol(cdf.mv_class0[comp], 2);
+            mag = ((bit << 3) | (3 << 1) | 1) + 1;  // fr 3, hp 1: integer vectors
+        } else {
+            int d = 0;
+            for (int i = 0; i < cls; i++) d |= sd.symbol(cdf.mv_bits[comp][i], 2) << i;
+            mag = (2 << (cls + 2)) + ((d << 3) | (3 << 1) | 1) + 1;
+        }
+        return sign ? -mag : mag;
+    }
+    void assign_mv() {
+        int pred[2] = {refStack[0][0], refStack[0][1]};
+        if (pred[0] == 0 && pred[1] == 0) {
+            pred[0] = refStack[1][0];
+            pred[1] = refStack[1][1];
+        }
+        if (pred[0] == 0 && pred[1] == 0) {
+            int sb4 = use128 ? 32 : 16;
+            if (miRow - sb4 < rowStart) {
+                pred[0] = 0;
+                pred[1] = -(sb4 * 4 + 256) * 8;  // INTRABC_DELAY_PIXELS
+            } else {
+                pred[0] = -(sb4 * 4 * 8);
+                pred[1] = 0;
+            }
+        }
+        int joint = sd.symbol(cdf.mv_joint, 4);
+        int diff[2] = {0, 0};
+        if (joint == 2 || joint == 3) diff[0] = read_mv_component(0);
+        if (joint == 1 || joint == 3) diff[1] = read_mv_component(1);
+        mvRow = pred[0] + diff[0];
+        mvCol = pred[1] + diff[1];
+    }
+    // The block copied from the frame decoded so far (BILINEAR at the
+    // chroma's half pels; rounding of a single prediction at 8 bits)
+    void predict_intrabc() {
+        for (int p = 0; p < 1 + hasChroma * 2; p++) {
+            int sx = p ? ssx : 0, sy = p ? ssy : 0;
+            int planeSz = plane_size(miSize, sx, sy);
+            int w = kBW[planeSz], h = kBH[planeSz];
+            int baseX = (miCol >> sx) * 4, baseY = (miRow >> sy) * 4;
+            int64_t startX = ((int64_t)(baseX << 4) + ((2 * mvCol) >> sx)) * 64 + 32;
+            int64_t startY = ((int64_t)(baseY << 4) + ((2 * mvRow) >> sy)) * 64 + 32;
+            int lastX = ((hdr[H_WIDTH] + sx) >> sx) - 1, lastY = ((hdr[H_HEIGHT] + sy) >> sy) - 1;
+            const uint8_t* f = plane[p];
+            int st = stride[p];
+            static int32_t inter[(128 + 8) * 128];
+            static uint8_t out[128 * 128];
+            int ih = h + 7;
+            for (int r = 0; r < ih; r++)
+                for (int c = 0; c < w; c++) {
+                    int64_t pos = startX + 1024 * c;
+                    int k = (int)((pos >> 6) & 15);
+                    int y = clip3(0, lastY, (int)(startY >> 10) + r - 3);
+                    int x0 = clip3(0, lastX, (int)(pos >> 10));
+                    int x1 = clip3(0, lastX, (int)(pos >> 10) + 1);
+                    int s = (128 - 8 * k) * f[(size_t)y * st + x0] + 8 * k * f[(size_t)y * st + x1];
+                    inter[r * w + c] = round2(s, 3);
+                }
+            for (int r = 0; r < h; r++)
+                for (int c = 0; c < w; c++) {
+                    int64_t pos = (startY & 1023) + 1024 * r;
+                    int k = (int)((pos >> 6) & 15);
+                    int row = (int)(pos >> 10) + 3;
+                    int s = (128 - 8 * k) * inter[row * w + c] + 8 * k * inter[(row + 1) * w + c];
+                    out[r * w + c] = (uint8_t)clip1(round2(s, 11));
+                }
+            uint8_t* dst = plane[p] + (size_t)baseY * st + baseX;
+            for (int r = 0; r < h; r++) std::memcpy(dst + (size_t)r * st, out + r * w, w);
+        }
+    }
+
+    // ---- coefficients
+    int tx_set(int txSz) {
+        int sqr = tx_sqr(txSz), up = tx_sqr_up(txSz);
+        if (up > 3) return SET_DCTONLY;
+        if (isInter) {
+            if (hdr[H_REDUCED_TX_SET] || up == 3) return SET_INTER_3;
+            if (sqr == 2) return SET_INTER_2;
+            return SET_INTER_1;
+        }
+        if (up == 3) return SET_DCTONLY;
+        if (hdr[H_REDUCED_TX_SET]) return SET_INTRA_2;
+        if (sqr == 2) return SET_INTRA_2;
+        return SET_INTRA_1;
+    }
+    static bool in_set(int set, int t) {
+        switch (set) {
+            case SET_DCTONLY: return t == DCT_DCT;
+            case SET_INTRA_1: return t == DCT_DCT || t == ADST_DCT || t == DCT_ADST || t == ADST_ADST ||
+                                     t == IDTX || t == V_DCT || t == H_DCT;
+            case SET_INTRA_2: return t == DCT_DCT || t == ADST_DCT || t == DCT_ADST || t == ADST_ADST ||
+                                     t == IDTX;
+            case SET_INTER_1: return true;
+            case SET_INTER_2: return t != V_ADST && t != H_ADST && t != V_FLIPADST && t != H_FLIPADST;
+            default: return t == IDTX || t == DCT_DCT;
+        }
+    }
+    void transform_type(int x4, int y4, int txSz) {
+        int set = tx_set(txSz);
+        int q = hdr[H_SEG_ENABLED] ? qidx(1, segmentId) : hdr[H_BASE_Q];
+        int type = DCT_DCT;
+        if (set > 0 && q > 0) {
+            static const int kFilterDir[5] = {DC_PRED, V_PRED, H_PRED, D157_PRED, DC_PRED};
+            int dir = useFilterIntra ? kFilterDir[filterIntraMode] : yMode;
+            int sqr = tx_sqr(txSz);
+            const int32_t(*inv)[16] = TX_TYPE_INV;
+            if (set == SET_INTRA_1) type = inv[INV_INTRA_1][sd.symbol(cdf.intra_tx_set1[sqr][dir], 7)];
+            else if (set == SET_INTRA_2) type = inv[INV_INTRA_2][sd.symbol(cdf.intra_tx_set2[sqr][dir], 5)];
+            else if (set == SET_INTER_1) type = inv[INV_INTER_1][sd.symbol(cdf.inter_tx_set1[sqr], 16)];
+            else if (set == SET_INTER_2) type = inv[INV_INTER_2][sd.symbol(cdf.inter_tx_set2[sqr], 12)];
+            else type = inv[INV_INTER_3][sd.symbol(cdf.inter_tx_set3[sqr], 2)];
+        }
+        for (int i = 0; i < (kTW[txSz] >> 2); i++)
+            for (int j = 0; j < (kTH[txSz] >> 2); j++)
+                if (y4 + j < miRows && x4 + i < miCols) txTypes[(size_t)(y4 + j) * miCols + x4 + i] = (uint8_t)type;
+    }
+    int compute_tx_type(int plane, int txSz, int x4, int y4) {
+        if (lossless || tx_sqr_up(txSz) > 3) return DCT_DCT;
+        int set = tx_set(txSz);
+        if (plane == 0) return txTypes[(size_t)y4 * miCols + x4];
+        int t;
+        if (isInter) {
+            int lx = std::max(miCol, x4 << ssx), ly = std::max(miRow, y4 << ssy);
+            t = txTypes[(size_t)ly * miCols + lx];
+        } else {
+            t = kModeToTxfm[uvMode];
+        }
+        return in_set(set, t) ? t : DCT_DCT;
+    }
+    const int16_t* scan_of(int txSz) {
+        static int16_t mrow[19][256], mcol[19][256];
+        static bool made = false;
+        if (!made) {
+            for (int t = 0; t < 19; t++) {
+                int w = kTW[t], h = kTH[t];
+                if (w > 16 || h > 16) continue;
+                int k = 0;
+                for (int i = 0; i < h; i++) for (int j = 0; j < w; j++) mrow[t][k++] = (int16_t)(i * w + j);
+                k = 0;
+                for (int j = 0; j < w; j++) for (int i = 0; i < h; i++) mcol[t][k++] = (int16_t)(i * w + j);
+            }
+            made = true;
+        }
+        if (txSz == T16X64) return DEFAULT_SCAN_16X32;
+        if (txSz == T64X16) return DEFAULT_SCAN_32X16;
+        if (tx_sqr_up(txSz) == 4) return DEFAULT_SCAN_32X32;
+        if (planeTxType != IDTX) {
+            int cls = tx_class(planeTxType);
+            if (cls == CLASS_VERT) return mrow[txSz];
+            if (cls == CLASS_HORIZ) return mcol[txSz];
+        }
+        switch (txSz) {
+            case T4X4: return DEFAULT_SCAN_4X4;
+            case T8X8: return DEFAULT_SCAN_8X8;
+            case T16X16: return DEFAULT_SCAN_16X16;
+            case T32X32: return DEFAULT_SCAN_32X32;
+            case T4X8: return DEFAULT_SCAN_4X8;
+            case T8X4: return DEFAULT_SCAN_8X4;
+            case T8X16: return DEFAULT_SCAN_8X16;
+            case T16X8: return DEFAULT_SCAN_16X8;
+            case T16X32: return DEFAULT_SCAN_16X32;
+            case T32X16: return DEFAULT_SCAN_32X16;
+            case T4X16: return DEFAULT_SCAN_4X16;
+            case T16X4: return DEFAULT_SCAN_16X4;
+            case T8X32: return DEFAULT_SCAN_8X32;
+            default: return DEFAULT_SCAN_32X8;
+        }
+    }
+    int quant[1024];
+    int base_ctx_offset(int txSz, int row, int col) {
+        int w = kTW[txSz], h = kTH[txSz];
+        static const int sq[5][5] = {{0, 1, 6, 6, 21}, {1, 6, 6, 21, 21}, {6, 6, 21, 21, 21},
+                                     {6, 21, 21, 21, 21}, {21, 21, 21, 21, 21}};
+        static const int wide[5][5] = {{0, 16, 6, 6, 21}, {16, 16, 6, 21, 21}, {16, 16, 21, 21, 21},
+                                       {16, 16, 21, 21, 21}, {16, 16, 21, 21, 21}};
+        static const int tall[5][5] = {{0, 11, 11, 11, 11}, {11, 11, 11, 11, 11}, {6, 6, 21, 21, 21},
+                                       {6, 21, 21, 21, 21}, {21, 21, 21, 21, 21}};
+        int r = std::min(row, 4), c = std::min(col, 4);
+        if (w == h) return sq[r][c];
+        if (w > h) return wide[r][c];
+        return tall[r][c];
+    }
+    int coeff_base_ctx(int txSz, int bwl, int txh, int pos, int c, int isEob) {
+        if (isEob) {
+            if (c == 0) return 42 - 4;
+            if (c <= (txh << bwl) / 8) return 42 - 3;
+            if (c <= (txh << bwl) / 4) return 42 - 2;
+            return 42 - 1;
+        }
+        static const int off[3][5][2] = {{{0, 1}, {1, 0}, {1, 1}, {0, 2}, {2, 0}},
+                                         {{0, 1}, {1, 0}, {0, 2}, {0, 3}, {0, 4}},
+                                         {{0, 1}, {1, 0}, {2, 0}, {3, 0}, {4, 0}}};
+        int cls = tx_class(planeTxType);
+        int row = pos >> bwl, col = pos - (row << bwl);
+        int mag = 0;
+        for (int i = 0; i < 5; i++) {
+            int rr = row + off[cls][i][0], cc = col + off[cls][i][1];
+            if (rr < txh && cc < (1 << bwl)) mag += std::min(std::abs(quant[(rr << bwl) + cc]), 3);
+        }
+        int ctx = std::min((mag + 1) >> 1, 4);
+        if (cls == CLASS_2D) {
+            if (row == 0 && col == 0) return 0;
+            return ctx + base_ctx_offset(txSz, row, col);
+        }
+        int idx = cls == CLASS_VERT ? row : col;
+        static const int posOff[3] = {26, 31, 36};
+        return ctx + posOff[std::min(idx, 2)];
+    }
+    int coeff_br_ctx(int bwl, int txh, int pos) {
+        static const int off[3][3][2] = {{{0, 1}, {1, 0}, {1, 1}}, {{0, 1}, {1, 0}, {0, 2}},
+                                         {{0, 1}, {1, 0}, {2, 0}}};
+        int cls = tx_class(planeTxType);
+        int row = pos >> bwl, col = pos - (row << bwl);
+        int mag = 0;
+        for (int i = 0; i < 3; i++) {
+            int rr = row + off[cls][i][0], cc = col + off[cls][i][1];
+            if (rr < txh && cc < (1 << bwl)) mag += std::min(quant[(rr << bwl) + cc], 15);
+        }
+        mag = std::min((mag + 1) >> 1, 6);
+        if (pos == 0) return mag;
+        if (cls == CLASS_2D) return (row < 2 && col < 2) ? mag + 7 : mag + 14;
+        if (cls == CLASS_HORIZ) return col == 0 ? mag + 7 : mag + 14;
+        return row == 0 ? mag + 7 : mag + 14;
+    }
+    int coeffs(int plane, int startX, int startY, int txSz) {
+        int x4 = startX >> 2, y4 = startY >> 2, w4 = kTW[txSz] >> 2, h4 = kTH[txSz] >> 2;
+        int txSzCtx = (tx_sqr(txSz) + tx_sqr_up(txSz) + 1) >> 1;
+        int ptype = plane > 0;
+        int segEob = (txSz == T16X64 || txSz == T64X16) ? 512 : std::min(1024, kTW[txSz] * kTH[txSz]);
+        for (int c = 0; c < segEob; c++) quant[c] = 0;
+        int eob = 0, culLevel = 0, dcCategory = 0;
+        int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+        int maxX4 = miCols >> sx, maxY4 = miRows >> sy;
+        // all_zero ctx
+        int ctx;
+        int bsize = plane_size(miSize, sx, sy);
+        int w = kTW[txSz], h = kTH[txSz];
+        if (plane == 0) {
+            int top = 0, left = 0;
+            for (int k = 0; k < w4; k++) if (x4 + k < maxX4) top = std::max(top, (int)aboveLevel[0][x4 + k]);
+            for (int k = 0; k < h4; k++) if (y4 + k < maxY4) left = std::max(left, (int)leftLevel[0][y4 + k]);
+            top = std::min(top, 255);
+            left = std::min(left, 255);
+            if (kBW[bsize] == w && kBH[bsize] == h) ctx = 0;
+            else if (top == 0 && left == 0) ctx = 1;
+            else if (top == 0 || left == 0) ctx = 2 + (std::max(top, left) > 3);
+            else if (std::max(top, left) <= 3) ctx = 4;
+            else if (std::min(top, left) <= 3) ctx = 5;
+            else ctx = 6;
+        } else {
+            int above = 0, left = 0;
+            for (int i = 0; i < w4; i++) if (x4 + i < maxX4) above |= aboveLevel[plane][x4 + i] | aboveDc[plane][x4 + i];
+            for (int i = 0; i < h4; i++) if (y4 + i < maxY4) left |= leftLevel[plane][y4 + i] | leftDc[plane][y4 + i];
+            ctx = (above != 0) + (left != 0) + 7;
+            if (kBW[bsize] * kBH[bsize] > w * h) ctx += 3;
+        }
+        int allZero = sd.symbol(cdf.txb_skip[txSzCtx][ctx], 2);
+        if (allZero) {
+            if (plane == 0)
+                for (int i = 0; i < w4; i++)
+                    for (int j = 0; j < h4; j++)
+                        if (y4 + j < miRows && x4 + i < miCols) txTypes[(size_t)(y4 + j) * miCols + x4 + i] = DCT_DCT;
+        } else {
+            if (plane == 0) transform_type(x4, y4, txSz);
+            planeTxType = compute_tx_type(plane, txSz, x4, y4);
+            const int16_t* scan = scan_of(txSz);
+            int eobMultisize = std::min(tx_wlog2(txSz), 5) + std::min(tx_hlog2(txSz), 5) - 4;
+            int ectx = tx_class(planeTxType) == CLASS_2D ? 0 : 1;
+            int eobPt;
+            switch (eobMultisize) {
+                case 0: eobPt = sd.symbol(cdf.eob_pt16[ptype][ectx], 5); break;
+                case 1: eobPt = sd.symbol(cdf.eob_pt32[ptype][ectx], 6); break;
+                case 2: eobPt = sd.symbol(cdf.eob_pt64[ptype][ectx], 7); break;
+                case 3: eobPt = sd.symbol(cdf.eob_pt128[ptype][ectx], 8); break;
+                case 4: eobPt = sd.symbol(cdf.eob_pt256[ptype][ectx], 9); break;
+                case 5: eobPt = sd.symbol(cdf.eob_pt512[ptype][0], 10); break;
+                default: eobPt = sd.symbol(cdf.eob_pt1024[ptype][0], 11); break;
+            }
+            eobPt += 1;
+            eob = eobPt < 2 ? eobPt : (1 << (eobPt - 2)) + 1;
+            int eobShift = eobPt - 3;
+            if (eobShift >= 0) {
+                if (sd.symbol(cdf.eob_extra[txSzCtx][ptype][eobPt - 3], 2)) eob += 1 << eobShift;
+                for (int i = 1; i < std::max(0, eobPt - 2); i++) {
+                    eobShift = std::max(0, eobPt - 2) - 1 - i;
+                    if (sd.literal(1)) eob += 1 << eobShift;
+                }
+            }
+            int adj = adjusted_tx(txSz);
+            int bwl = tx_wlog2(adj), txh = kTH[adj];
+            for (int c = eob - 1; c >= 0; c--) {
+                int pos = scan[c];
+                int level;
+                if (c == eob - 1) {
+                    int cctx = coeff_base_ctx(txSz, bwl, txh, pos, c, 1) - 42 + 4;
+                    level = sd.symbol(cdf.coeff_base_eob[txSzCtx][ptype][cctx], 3) + 1;
+                } else {
+                    int cctx = coeff_base_ctx(txSz, bwl, txh, pos, c, 0);
+                    level = sd.symbol(cdf.coeff_base[txSzCtx][ptype][cctx], 4);
+                }
+                if (level > 2) {
+                    int bctx = coeff_br_ctx(bwl, txh, pos);
+                    for (int idx = 0; idx < 4; idx++) {
+                        int br = sd.symbol(cdf.coeff_br[std::min(txSzCtx, 3)][ptype][bctx], 4);
+                        level += br;
+                        if (br < 3) break;
+                    }
+                }
+                quant[pos] = level;
+            }
+            for (int c = 0; c < eob; c++) {
+                int pos = scan[c];
+                int sign = 0;
+                if (quant[pos] != 0) {
+                    if (c == 0) {
+                        int dcSign = 0;
+                        for (int k = 0; k < w4; k++)
+                            if (x4 + k < maxX4) {
+                                int s = aboveDc[plane][x4 + k];
+                                if (s == 1) dcSign--;
+                                else if (s == 2) dcSign++;
+                            }
+                        for (int k = 0; k < h4; k++)
+                            if (y4 + k < maxY4) {
+                                int s = leftDc[plane][y4 + k];
+                                if (s == 1) dcSign--;
+                                else if (s == 2) dcSign++;
+                            }
+                        int dctx = dcSign < 0 ? 1 : (dcSign > 0 ? 2 : 0);
+                        sign = sd.symbol(cdf.dc_sign[ptype][dctx], 2);
+                    } else {
+                        sign = sd.literal(1);
+                    }
+                }
+                if (quant[pos] > 14) {
+                    int length = 0, bit;
+                    do {
+                        length++;
+                        bit = sd.literal(1);
+                        if (length > 20) {
+                            err = kGolomb;
+                            return 0;
+                        }
+                    } while (!bit);
+                    int x = 1;
+                    for (int i = length - 2; i >= 0; i--) x = (x << 1) | sd.literal(1);
+                    quant[pos] = x + 14;
+                }
+                if (pos == 0 && quant[pos] > 0) dcCategory = sign ? 1 : 2;
+                quant[pos] &= 0xFFFFF;
+                culLevel += quant[pos];
+                if (sign) quant[pos] = -quant[pos];
+            }
+            culLevel = std::min(63, culLevel);
+        }
+        for (int i = 0; i < w4; i++)
+            if (x4 + i < (int)aboveLevel[plane].size()) {
+                aboveLevel[plane][x4 + i] = (uint8_t)culLevel;
+                aboveDc[plane][x4 + i] = (uint8_t)dcCategory;
+            }
+        for (int i = 0; i < h4; i++)
+            if (y4 + i < (int)leftLevel[plane].size()) {
+                leftLevel[plane][y4 + i] = (uint8_t)culLevel;
+                leftDc[plane][y4 + i] = (uint8_t)dcCategory;
+            }
+        return eob;
+    }
+
+    // ---- reconstruction
+    int dc_q(int b) const { return DC_QLOOKUP[clip3(0, 255, b)]; }
+    int ac_q(int b) const { return AC_QLOOKUP[clip3(0, 255, b)]; }
+    void reconstruct(int plane, int x, int y, int txSz) {
+        int pels = kTW[txSz] * kTH[txSz];
+        int dqShift = (pels > 256) + (pels > 1024);
+        int log2W = tx_wlog2(txSz), log2H = tx_hlog2(txSz);
+        int w = 1 << log2W, h = 1 << log2H;
+        int tw = std::min(32, w), th = std::min(32, h);
+        int q0 = qidx(0, segmentId);
+        int dcQ, acQ;
+        if (plane == 0) { dcQ = dc_q(q0 + hdr[H_DQ_Y_DC]); acQ = ac_q(q0); }
+        else if (plane == 1) { dcQ = dc_q(q0 + hdr[H_DQ_U_DC]); acQ = ac_q(q0 + hdr[H_DQ_U_AC]); }
+        else { dcQ = dc_q(q0 + hdr[H_DQ_V_DC]); acQ = ac_q(q0 + hdr[H_DQ_V_AC]); }
+        static int32_t deq[64 * 64];
+        static int32_t res[64 * 64];
+        std::memset(deq, 0, sizeof(deq));
+        // the quantiser matrix of the plane's level (15: none; none for the
+        // identity and 1D types), at the adjusted size's offset in QM_IWT
+        // (sizes in order, 64s reusing 32s)
+        int qmLevel = (lossless || !hdr[H_USING_QM] || planeTxType >= IDTX) ? 15 : hdr[H_QM_Y + plane];
+        const uint8_t* qm = nullptr;
+        if (qmLevel < 15) {
+            int off = 0, adj = adjusted_tx(txSz);
+            for (int t = 0; t < adj; t++)
+                if (adjusted_tx(t) == t) off += kTW[t] * kTH[t];
+            qm = QM_IWT[qmLevel][plane > 0] + off;
+        }
+        for (int i = 0; i < th; i++)
+            for (int j = 0; j < tw; j++) {
+                int qv = quant[i * tw + j];
+                if (!qv) continue;
+                int q = (i == 0 && j == 0) ? dcQ : acQ;
+                if (qm) q = round2((int64_t)q * qm[i * tw + j], 5);
+                int64_t v = ((int64_t)std::abs(qv) * q) & 0xFFFFFF;
+                v >>= dqShift;
+                if (qv < 0) v = -v;
+                deq[i * 64 + j] = (int32_t)std::max<int64_t>(-32768, std::min<int64_t>(32767, v));
+            }
+        int nnz = 0;
+        for (int i = 0; i < th; i++)
+            for (int j = 0; j < tw; j++) nnz += deq[i * 64 + j] != 0;
+        TraceRecord tr(g_trace ? 5 + 2 * nnz + w * h : 0);
+        tr.put(TRACE_TXFM);
+        tr.put(txSz);
+        tr.put(planeTxType);
+        tr.put(lossless);
+        tr.put(nnz);
+        for (int i = 0; i < th; i++)
+            for (int j = 0; j < tw; j++)
+                if (deq[i * 64 + j]) {
+                    tr.put(i * 64 + j);
+                    tr.put(deq[i * 64 + j]);
+                }
+        inverse_transform(deq, txSz, planeTxType, lossless, res);
+        for (int k = 0; k < w * h; k++) tr.put(res[k]);
+        uint8_t* p = plane_ptr(plane, x, y);
+        int st = stride[plane];
+        for (int i = 0; i < h; i++)
+            for (int j = 0; j < w; j++) p[(size_t)i * st + j] = (uint8_t)clip1(p[(size_t)i * st + j] + res[i * w + j]);
+    }
+    uint8_t* plane_ptr(int p, int x, int y) { return plane[p] + (size_t)y * stride[p] + x; }
+
+    // ---- intra prediction of one tx block
+    int is_smooth(int r, int c, int p) {
+        int mode = m(r, c)[p == 0 ? M_YMODE : M_UVMODE];
+        return mode == SMOOTH_PRED || mode == SMOOTH_V_PRED || mode == SMOOTH_H_PRED;
+    }
+    int filter_type(int p) {
+        int aboveSmooth = 0, leftSmooth = 0;
+        if (p == 0 ? availU : availUC) {
+            int r = miRow - 1, c = miCol;
+            if (p > 0) {
+                if (ssx && !(miCol & 1)) c++;
+                if (ssy && (miRow & 1)) r--;
+            }
+            aboveSmooth = is_smooth(r, c, p);
+        }
+        if (p == 0 ? availL : availLC) {
+            int r = miRow, c = miCol - 1;
+            if (p > 0) {
+                if (ssx && (miCol & 1)) c--;
+                if (ssy && !(miRow & 1)) r++;
+            }
+            leftSmooth = is_smooth(r, c, p);
+        }
+        return aboveSmooth || leftSmooth;
+    }
+    void predict_intra(int p, int x, int y, int haveLeft, int haveAbove, int haveAboveRight,
+                       int haveBelowLeft, int mode, int log2W, int log2H) {
+        int w = 1 << log2W, h = 1 << log2H;
+        int sx = p ? ssx : 0, sy = p ? ssy : 0;
+        int maxX = ((miCols * 4) >> sx) - 1, maxY = ((miRows * 4) >> sy) - 1;
+        int aboveBuf[320], leftBuf[320];
+        int* above = aboveBuf + 16;
+        int* left = leftBuf + 16;
+        uint8_t* f = plane[p];
+        int st = stride[p];
+        auto px = [&](int yy, int xx) { return (int)f[(size_t)yy * st + xx]; };
+        for (int i = 0; i < w + h; i++) {
+            if (!haveAbove && haveLeft) above[i] = px(y, x - 1);
+            else if (!haveAbove && !haveLeft) above[i] = 127;
+            else {
+                int aboveLimit = std::min(maxX, x + (haveAboveRight ? 2 * w : w) - 1);
+                above[i] = px(y - 1, std::min(aboveLimit, x + i));
+            }
+            if (!haveLeft && haveAbove) left[i] = px(y - 1, x);
+            else if (!haveLeft && !haveAbove) left[i] = 129;
+            else {
+                int leftLimit = std::min(maxY, y + (haveBelowLeft ? 2 * h : h) - 1);
+                left[i] = px(std::min(leftLimit, y + i), x - 1);
+            }
+        }
+        if (haveAbove && haveLeft) above[-1] = px(y - 1, x - 1);
+        else if (haveAbove) above[-1] = px(y - 1, x);
+        else if (haveLeft) above[-1] = px(y, x - 1);
+        else above[-1] = 128;
+        left[-1] = above[-1];
+        PredParams pp;
+        pp.mode = mode;
+        pp.log2W = log2W;
+        pp.log2H = log2H;
+        pp.haveLeft = haveLeft;
+        pp.haveAbove = haveAbove;
+        pp.angleDelta = p == 0 ? angleDeltaY : angleDeltaUV;
+        pp.filterType = hdr[H_EDGE_FILTER] ? filter_type(p) : 0;
+        pp.edgeFilter = hdr[H_EDGE_FILTER];
+        pp.useFilterIntra = p == 0 && useFilterIntra;
+        pp.filterIntraMode = filterIntraMode;
+        pp.aboveLimit = maxX - x + 1;
+        pp.leftLimit = maxY - y + 1;
+        uint8_t pred[64 * 64];
+        int n = w + h + 1;
+        TraceRecord tr(g_trace ? 14 + 2 * n + w * h : 0);
+        if (tr.ok) {
+            const int32_t pv[12] = {pp.mode, pp.log2W, pp.log2H, pp.haveLeft, pp.haveAbove, pp.angleDelta,
+                                    pp.filterType, pp.edgeFilter, pp.useFilterIntra, pp.filterIntraMode,
+                                    pp.aboveLimit, pp.leftLimit};
+            tr.put(TRACE_PREDICT);
+            for (int k = 0; k < 12; k++) tr.put(pv[k]);
+            tr.put(n);
+            for (int k = -1; k < n - 1; k++) tr.put(above[k]);
+            for (int k = -1; k < n - 1; k++) tr.put(left[k]);
+        }
+        predict(pp, above, left, pred);
+        for (int k = 0; k < w * h; k++) tr.put(pred[k]);
+        for (int i = 0; i < h; i++) std::memcpy(f + (size_t)(y + i) * st + x, pred + i * w, w);
+    }
+    void predict_cfl(int p, int startX, int startY, int txSz) {
+        int w = kTW[txSz], h = kTH[txSz];
+        int alpha = p == 1 ? cflAlphaU : cflAlphaV;
+        static int32_t L[64 * 64];
+        int lx0 = startX << ssx, ly0 = startY << ssy;
+        int maxLX = ((maxLumaW - lx0) >> ssx) - 1, maxLY = ((maxLumaH - ly0) >> ssy) - 1;
+        for (int i = 0; i < h; i++) {
+            int lumaY = std::min(i, maxLY);
+            for (int j = 0; j < w; j++) {
+                int lumaX = std::min(j, maxLX);
+                int t = 0;
+                for (int dy = 0; dy <= ssy; dy++)
+                    for (int dx = 0; dx <= ssx; dx++)
+                        t += plane[0][(size_t)(ly0 + (lumaY << ssy) + dy) * stride[0] + lx0 + (lumaX << ssx) + dx];
+                L[i * w + j] = t << (3 - ssx - ssy);
+            }
+        }
+        uint8_t pred[64 * 64];
+        uint8_t* f = plane_ptr(p, startX, startY);
+        for (int i = 0; i < h; i++) std::memcpy(pred + i * w, f + (size_t)i * stride[p], w);
+        TraceRecord tr(g_trace ? 4 + 3 * w * h : 0);
+        tr.put(TRACE_CFL);
+        tr.put(w);
+        tr.put(h);
+        tr.put(alpha);
+        for (int k = 0; k < w * h; k++) tr.put(L[k]);
+        for (int k = 0; k < w * h; k++) tr.put(pred[k]);
+        cfl_apply(L, w, h, alpha, pred);
+        for (int k = 0; k < w * h; k++) tr.put(pred[k]);
+        for (int i = 0; i < h; i++) std::memcpy(f + (size_t)i * stride[p], pred + i * w, w);
+    }
+    void predict_palette(int p, int startX, int startY, int x, int y, int txSz) {
+        int w = kTW[txSz], h = kTH[txSz];
+        const int* pal = paletteColors[p];
+        uint8_t* f = plane_ptr(p, startX, startY);
+        for (int i = 0; i < h; i++)
+            for (int j = 0; j < w; j++) {
+                int idx = p == 0 ? colorMapY[y * 4 + i][x * 4 + j] : colorMapUV[y * 4 + i][x * 4 + j];
+                f[(size_t)i * stride[p] + j] = (uint8_t)pal[idx];
+            }
+    }
+    void transform_block(int p, int baseX, int baseY, int txSz, int x, int y) {
+        int startX = baseX + 4 * x, startY = baseY + 4 * y;
+        int sx = p ? ssx : 0, sy = p ? ssy : 0;
+        int row = (startY << sy) >> 2, col = (startX << sx) >> 2;
+        int sbMask = use128 ? 31 : 15;
+        int subRow = row & sbMask, subCol = col & sbMask;
+        int stepX = kTW[txSz] >> 2, stepY = kTH[txSz] >> 2;
+        int maxX = (miCols * 4) >> sx, maxY = (miRows * 4) >> sy;
+        if (startX >= maxX || startY >= maxY) return;
+        if (isInter) {
+            // predicted whole by predict_intrabc
+        } else if (paletteSizeY && p == 0) {
+            predict_palette(p, startX, startY, x, y, txSz);
+        } else if (paletteSizeUV && p != 0) {
+            predict_palette(p, startX, startY, x, y, txSz);
+        } else {
+            int isCfl = p > 0 && uvMode == UV_CFL_PRED;
+            int mode = p == 0 ? yMode : (isCfl ? DC_PRED : uvMode);
+            int bdR = (subRow >> sy), bdC = (subCol >> sx);
+            predict_intra(p, startX, startY, (p == 0 ? availL : availLC) || x > 0,
+                          (p == 0 ? availU : availUC) || y > 0,
+                          blockDecoded[p][bdR - 1 + 1][bdC + stepX + 1],
+                          blockDecoded[p][bdR + stepY + 1][bdC - 1 + 1], mode, tx_wlog2(txSz),
+                          tx_hlog2(txSz));
+            if (isCfl) predict_cfl(p, startX, startY, txSz);
+        }
+        if (p == 0 && !isInter) {
+            maxLumaW = startX + stepX * 4;
+            maxLumaH = startY + stepY * 4;
+        }
+        if (!skip) {
+            int eob = coeffs(p, startX, startY, txSz);
+            if (err) return;
+            if (eob > 0) reconstruct(p, startX, startY, txSz);
+        }
+        for (int i = 0; i < stepY; i++)
+            for (int j = 0; j < stepX; j++) {
+                int rr = (row >> sy) + i, cc = (col >> sx) + j;
+                int mr = rr << sy, mc = cc << sx;  // the MI holding this plane 4x4
+                if (mr < miRows && mc < miCols) m(mr, mc)[p == 0 ? M_TX_Y : M_TX_UV] = txSz;
+                int br = (subRow >> sy) + i + 1, bc = (subCol >> sx) + j + 1;
+                if (br < 35 && bc < 35) blockDecoded[p][br][bc] = 1;
+            }
+    }
+    int get_tx_size(int p, int txSz) {
+        if (p == 0) return txSz;
+        int uvTx = kMaxTxRect[plane_size(miSize, ssx, ssy)];
+        if (kTW[uvTx] == 64 || kTH[uvTx] == 64) {
+            if (kTW[uvTx] == 16) return T16X32;
+            if (kTH[uvTx] == 16) return T32X16;
+            return T32X32;
+        }
+        return uvTx;
+    }
+    void residual() {
+        int widthChunks = std::max(1, kBW[miSize] >> 6), heightChunks = std::max(1, kBH[miSize] >> 6);
+        for (int cy = 0; cy < heightChunks; cy++)
+            for (int cx = 0; cx < widthChunks; cx++) {
+                for (int p = 0; p < 1 + hasChroma * 2; p++) {
+                    int txSz = lossless ? T4X4 : get_tx_size(p, txSize);
+                    int stepX = kTW[txSz] >> 2, stepY = kTH[txSz] >> 2;
+                    int sx = p ? ssx : 0, sy = p ? ssy : 0;
+                    int planeSz = plane_size(miSize, sx, sy);
+                    int num4W = kBW[planeSz] >> 2, num4H = kBH[planeSz] >> 2;
+                    int baseX = (miCol >> sx) * 4, baseY = (miRow >> sy) * 4;
+                    if (isInter && !lossless && p == 0) {
+                        transform_tree(baseX + (cx << 6), baseY + (cy << 6), std::min(64, num4W * 4),
+                                       std::min(64, num4H * 4));
+                        if (err) return;
+                        continue;
+                    }
+                    for (int y = 0; y < std::min(num4H, 16 >> sy); y += stepY)
+                        for (int x = 0; x < std::min(num4W, 16 >> sx); x += stepX) {
+                            transform_block(p, baseX, baseY, txSz, x + ((cx << 4) >> sx), y + ((cy << 4) >> sy));
+                            if (err) return;
+                        }
+                }
+            }
+    }
+    int find_tx_size(int w, int h) {
+        for (int t = 0; t < 19; t++) if (kTW[t] == w && kTH[t] == h) return t;
+        return -1;
+    }
+    void transform_tree(int startX, int startY, int w, int h) {
+        if (startX >= miCols * 4 || startY >= miRows * 4) return;
+        int tx = txSizes[(size_t)(startY >> 2) * miCols + (startX >> 2)];
+        if (find_tx_size(w, h) == tx) {
+            transform_block(0, startX, startY, tx, 0, 0);
+        } else if (w > h) {
+            transform_tree(startX, startY, w / 2, h);
+            transform_tree(startX + w / 2, startY, w / 2, h);
+        } else if (w < h) {
+            transform_tree(startX, startY, w, h / 2);
+            transform_tree(startX, startY + h / 2, w, h / 2);
+        } else {
+            transform_tree(startX, startY, w / 2, h / 2);
+            transform_tree(startX + w / 2, startY, w / 2, h / 2);
+            transform_tree(startX, startY + h / 2, w / 2, h / 2);
+            transform_tree(startX + w / 2, startY + h / 2, w / 2, h / 2);
+        }
+    }
+    void reset_block_context() {
+        for (int p = 0; p < 1 + 2 * hasChroma; p++) {
+            int sx = p ? ssx : 0, sy = p ? ssy : 0;
+            for (int i = miCol >> sx; i < ((miCol + bw4) >> sx); i++)
+                if (i < (int)aboveLevel[p].size()) aboveLevel[p][i] = aboveDc[p][i] = 0;
+            for (int i = miRow >> sy; i < ((miRow + bh4) >> sy); i++)
+                if (i < (int)leftLevel[p].size()) leftLevel[p][i] = leftDc[p][i] = 0;
+        }
+    }
+    void decode_block(int r, int c, int subSize) {
+        if (err) return;
+        miRow = r;
+        miCol = c;
+        miSize = subSize;
+        bw4 = kBW[subSize] >> 2;
+        bh4 = kBH[subSize] >> 2;
+        if (bh4 == 1 && ssy && (miRow & 1) == 0) hasChroma = 0;
+        else if (bw4 == 1 && ssx && (miCol & 1) == 0) hasChroma = 0;
+        else hasChroma = numPlanes > 1;
+        availU = inside(r - 1, c);
+        availL = inside(r, c - 1);
+        availUC = availU;
+        availLC = availL;
+        if (hasChroma) {
+            if (ssy && bh4 == 1) availUC = inside(r - 2, c);
+            if (ssx && bw4 == 1) availLC = inside(r, c - 2);
+        } else {
+            availUC = availLC = 0;
+        }
+        intra_frame_mode_info();
+        if (err) return;
+        palette_tokens();
+        read_block_tx_size();
+        if (skip) reset_block_context();
+        for (int y = 0; y < bh4; y++)
+            for (int x = 0; x < bw4; x++) {
+                int rr = r + y, cc = c + x;
+                if (rr >= miRows || cc >= miCols) continue;
+                int32_t* b = m(rr, cc);
+                b[M_SIZE] = miSize;
+                b[M_SKIP] = skip;
+                b[M_SEG] = segmentId;
+                b[M_YMODE] = yMode;
+                b[M_UVMODE] = uvMode;
+                b[M_INTER] = isInter;
+                b[M_MV_ROW] = isInter ? mvRow : 0;
+                b[M_MV_COL] = isInter ? mvCol : 0;
+                b[M_WRITTEN] = 1;
+                for (int k = 0; k < 4; k++) b[M_DLF0 + k] = deltaLF[k];
+                size_t i = (size_t)rr * miCols + cc;
+                palSize[0][i] = (uint8_t)paletteSizeY;
+                palSize[1][i] = (uint8_t)paletteSizeUV;
+                for (int k = 0; k < 8; k++) {
+                    palColors[0][i * 8 + k] = (uint8_t)(k < paletteSizeY ? paletteColors[0][k] : 0);
+                    palColors[1][i * 8 + k] = (uint8_t)(k < paletteSizeUV ? paletteColors[1][k] : 0);
+                }
+            }
+        if (isInter) predict_intrabc();
+        residual();
+    }
+
+    int run(const uint8_t* data, int64_t size) {
+        miCols = hdr[H_MI_COLS];
+        miRows = hdr[H_MI_ROWS];
+        rowStart = hdr[H_ROW_START];
+        rowEnd = hdr[H_ROW_END];
+        colStart = hdr[H_COL_START];
+        colEnd = hdr[H_COL_END];
+        mono = hdr[H_MONO];
+        numPlanes = mono ? 1 : 3;
+        use128 = hdr[H_USE128];
+        sbSize4 = use128 ? 32 : 16;
+        size_t n = (size_t)miRows * miCols;
+        for (int p = 0; p < 2; p++) {
+            palSize[p].assign(n, 0);
+            palColors[p].assign(n * 8, 0);
+        }
+        txTypes.assign(n, 0);
+        txSizes.assign(n, 0);
+        for (int p = 0; p < 3; p++) {
+            aboveLevel[p].assign(miCols + 32, 0);
+            aboveDc[p].assign(miCols + 32, 0);
+            leftLevel[p].assign(miRows + 32, 0);
+            leftDc[p].assign(miRows + 32, 0);
+        }
+        init_cdfs(cdf, hdr[H_BASE_Q]);
+        sd.init(data, size, hdr[H_DISABLE_CDF_UPDATE]);
+        currentQ = hdr[H_BASE_Q];
+        for (int i = 0; i < 4; i++) deltaLF[i] = 0;
+        int sbBlock = use128 ? B128X128 : B64X64;
+        for (int r = rowStart; r < rowEnd; r += sbSize4) {
+            for (int p = 0; p < 3; p++) {
+                std::fill(leftLevel[p].begin(), leftLevel[p].end(), 0);
+                std::fill(leftDc[p].begin(), leftDc[p].end(), 0);
+            }
+            for (int c = colStart; c < colEnd; c += sbSize4) {
+                readDeltas = hdr[H_DELTA_Q_PRESENT];
+                clear_block_decoded(r, c);
+                decode_partition(r, c, sbBlock);
+                if (err) return err;
+            }
+        }
+        return 0;
+    }
+};
+
+// ---------------------------------------------------------------- deblock ---
+
+struct Deblock {
+    static constexpr int ssx = 1, ssy = 1;
+    const int32_t* hdr;
+    int miCols, miRows, numPlanes, width, height;
+    uint8_t* plane[3];
+    int stride[3];
+    const int32_t* mi;
+
+    const int32_t* m(int r, int c) const { return mi + ((size_t)r * miCols + c) * M_FIELDS; }
+
+    void strength(int row, int col, int p, int pass, int* lvl, int* limit, int* blimit, int* thresh) const {
+        const int32_t* b = m(row, col);
+        int segment = b[M_SEG];
+        int deltaLF = hdr[H_DELTA_LF_MULTI] ? b[M_DLF0 + (p == 0 ? pass : p + 1)] : b[M_DLF0];
+        int i = p == 0 ? pass : p + 1;
+        int base = clip3(0, 63, deltaLF + hdr[H_LF_LEVEL0 + i]);
+        int l = base;
+        int feature = 1 + i;
+        if (hdr[H_SEG_ENABLED] && hdr[H_FEATURE_ENABLED + segment * 8 + feature]) {
+            l = clip3(0, 63, hdr[H_FEATURE_DATA + segment * 8 + feature] + l);
+        }
+        if (hdr[H_LF_DELTA_ENABLED]) {
+            int nShift = l >> 5;
+            l = l + (hdr[H_REF_DELTAS + 0] * (1 << nShift));  // every block of a key frame is intra
+            l = clip3(0, 63, l);
+        }
+        int sharp = hdr[H_SHARPNESS];
+        int shift = sharp > 4 ? 2 : (sharp > 0 ? 1 : 0);
+        int lim = sharp > 0 ? clip3(1, 9 - sharp, l >> shift) : std::max(1, l >> shift);
+        *lvl = l;
+        *limit = lim;
+        *blimit = 2 * (l + 2) + lim;
+        *thresh = l >> 4;
+    }
+
+    void edge(int p, int pass, int row, int col) {
+        int sx = p ? ssx : 0, sy = p ? ssy : 0;
+        int dx = pass == 0 ? 1 : 0, dy = pass == 1 ? 1 : 0;
+        int x = col * 4, y = row * 4;
+        row |= sy;
+        col |= sx;
+        int onScreen;
+        if (x >= width) onScreen = 0;
+        else if (y >= height) onScreen = 0;
+        else if (pass == 0 && x == 0) onScreen = 0;
+        else if (pass == 1 && y == 0) onScreen = 0;
+        else onScreen = 1;
+        if (!onScreen) return;
+        int xP = x >> sx, yP = y >> sy;
+        int prevRow = row - (dy << sy), prevCol = col - (dx << sx);
+        int txSz = m((row >> sy) << sy, (col >> sx) << sx)[p == 0 ? M_TX_Y : M_TX_UV];
+        int prevTx = m((prevRow >> sy) << sy, (prevCol >> sx) << sx)[p == 0 ? M_TX_Y : M_TX_UV];
+        // every block of a key frame is intra: each transform edge is filtered
+        int applyFilter = pass == 0 ? (xP % kTW[txSz] == 0) : (yP % kTH[txSz] == 0);
+        int baseSize = pass == 0 ? std::min(kTW[prevTx], kTW[txSz]) : std::min(kTH[prevTx], kTH[txSz]);
+        int filterSize = p == 0 ? std::min(16, baseSize) : std::min(8, baseSize);
+        int lvl, limit, blimit, thresh;
+        strength(row, col, p, pass, &lvl, &limit, &blimit, &thresh);
+        if (lvl == 0) strength(prevRow, prevCol, p, pass, &lvl, &limit, &blimit, &thresh);
+        if (!applyFilter || lvl == 0) return;
+        LfParams lp{filterSize, p, limit, blimit, thresh};
+        uint8_t* f = plane[p];
+        int st = stride[p], ph = (miRows * 4) >> sy;
+        for (int i = 0; i < 4; i++) {
+            int xx = xP + dy * i, yy = yP + dx * i;
+            int s[16];
+            int pw = (miCols * 4) >> sx;
+            auto ok = [&](int px, int py) { return px >= 0 && py >= 0 && px < pw && py < ph; };
+            for (int k = -8; k < 8; k++) {
+                int px = xx + dx * k, py = yy + dy * k;
+                s[k + 8] = ok(px, py) ? f[(size_t)py * st + px] : 0;
+            }
+            TraceRecord tr(g_trace ? 38 : 0);
+            tr.put(TRACE_LF);
+            tr.put(lp.filterSize);
+            tr.put(lp.plane);
+            tr.put(lp.limit);
+            tr.put(lp.blimit);
+            tr.put(lp.thresh);
+            for (int k = 0; k < 16; k++) tr.put(s[k]);
+            lf_sample(s + 8, lp);
+            for (int k = 0; k < 16; k++) tr.put(s[k]);
+            for (int k = -7; k < 7; k++) {
+                int px = xx + dx * k, py = yy + dy * k;
+                if (ok(px, py)) f[(size_t)py * st + px] = (uint8_t)s[k + 8];
+            }
+        }
+    }
+
+    void run() {
+        if (!hdr[H_LF_LEVEL0] && !hdr[H_LF_LEVEL0 + 1]) return;
+        for (int p = 0; p < numPlanes; p++) {
+            if (p == 1 && !hdr[H_LF_LEVEL0 + 2]) continue;
+            if (p == 2 && !hdr[H_LF_LEVEL0 + 3]) continue;
+            for (int pass = 0; pass < 2; pass++) {
+                int rowStep = p == 0 ? 1 : (1 << ssy), colStep = p == 0 ? 1 : (1 << ssx);
+                for (int row = 0; row < miRows; row += rowStep)
+                    for (int col = 0; col < miCols; col += colStep) edge(p, pass, row, col);
+            }
+        }
+    }
+};
+
+// ------------------------------------------------------------ YUV -> RGB ---
+
+// libyuv's full-range BT.601 ("JPEG") constants for I420ToRGBAMatrix, as
+// YuvPixel computes them (row_common.cc): Y scaled by 0x0101 * yg >> 16,
+// U and V biased by 128 * coefficient, 6 fractional bits.
+inline void yuv_pixel(int y, int u, int v, uint8_t* rgb) {
+    const int ub = 113, ug = 22, vg = 46, vr = 90, yg = 16320;
+    uint32_t y1 = (uint32_t)(y * 0x0101 * yg) >> 16;
+    int b16 = (int)y1 + (u - 128) * ub + 32;
+    int g16 = (int)y1 - (u - 128) * ug - (v - 128) * vg + 32;
+    int r16 = (int)y1 + (v - 128) * vr + 32;
+    rgb[0] = (uint8_t)clip1(r16 >> 6);
+    rgb[1] = (uint8_t)clip1(g16 >> 6);
+    rgb[2] = (uint8_t)clip1(b16 >> 6);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Start (buf, cap) or stop (null) tracing the stage calls; returns the
+// int32s written since the last start, or -1 if records were lost.
+int64_t fd_av1_trace(int32_t* buf, int64_t cap) {
+    int64_t n = g_trace_lost ? -1 : g_trace_len;
+    g_trace = buf;
+    g_trace_cap = buf ? cap : 0;
+    g_trace_len = 0;
+    g_trace_lost = 0;
+    return n;
+}
+
+// One tile into the planes and the per-4x4 info; `left` gets the symbol
+// decoder's SymbolMaxBits at the tile's end (negative: bits read past it).
+int fd_av1_tile(const uint8_t* data, int64_t size, const int32_t* hdr, uint8_t* y, uint8_t* u,
+                uint8_t* v, int32_t* mi, int64_t* left) {
+    if (!data || size < 0 || !hdr || !y || !mi) return kArgs;
+    Tile* t = new Tile();
+    t->hdr = hdr;
+    t->plane[0] = y;
+    t->plane[1] = u;
+    t->plane[2] = v;
+    t->stride[0] = hdr[H_STRIDE_Y];
+    t->stride[1] = t->stride[2] = hdr[H_STRIDE_UV];
+    t->mi = mi;
+    int r = t->run(data, size);
+    if (left) *left = t->sd.maxBits;
+    delete t;
+    return r;
+}
+
+int fd_av1_deblock(const int32_t* hdr, uint8_t* y, uint8_t* u, uint8_t* v, const int32_t* mi) {
+    if (!hdr || !y || !mi) return kArgs;
+    Deblock d;
+    d.hdr = hdr;
+    d.miCols = hdr[H_MI_COLS];
+    d.miRows = hdr[H_MI_ROWS];
+    d.numPlanes = hdr[H_MONO] ? 1 : 3;
+    d.width = hdr[H_WIDTH];
+    d.height = hdr[H_HEIGHT];
+    d.plane[0] = y;
+    d.plane[1] = u;
+    d.plane[2] = v;
+    d.stride[0] = hdr[H_STRIDE_Y];
+    d.stride[1] = d.stride[2] = hdr[H_STRIDE_UV];
+    d.mi = mi;
+    d.run();
+    return 0;
+}
+
+// Y (ys stride), U and V (cs stride, 4:2:0, or null for monochrome, read as
+// 128), alpha (as stride, or null: 255) of a w x h image to RGBA.
+int fd_av1_to_rgb(const uint8_t* y, int ys, const uint8_t* u, const uint8_t* v, int cs,
+                  const uint8_t* a, int as, int w, int h, uint8_t* out) {
+    if (!y || !out || w <= 0 || h <= 0) return kArgs;
+    int cw = (w + 1) >> 1, ch = (h + 1) >> 1;
+    std::vector<uint8_t> urow(w + 1), vrow(w + 1);
+    for (int row = 0; row < h; row++) {
+        if (u && v) {
+            // bilinear 4:2:0 upsampling: the two chroma rows nearest, 3:1,
+            // then across, 3:1 (libyuv's ScaleRowUp2_Bilinear, 9-3-3-1 / 16)
+            int c0 = (row - 1) >> 1;
+            int near = (row & 1) ? c0 : c0 + 1, far = (row & 1) ? c0 + 1 : c0;
+            if (row == 0) near = far = 0;
+            near = std::min(std::max(near, 0), ch - 1);
+            far = std::min(std::max(far, 0), ch - 1);
+            const uint8_t* un = u + (size_t)near * cs;
+            const uint8_t* uf = u + (size_t)far * cs;
+            const uint8_t* vn = v + (size_t)near * cs;
+            const uint8_t* vf = v + (size_t)far * cs;
+            for (int x = 0; x < w; x++) {
+                int cx = (x - 1) >> 1;
+                int nx = (x & 1) ? cx : cx + 1, fx = (x & 1) ? cx + 1 : cx;
+                if (x == 0) nx = fx = 0;
+                if (x == w - 1) nx = fx = (w - 1) >> 1;
+                nx = std::min(std::max(nx, 0), cw - 1);
+                fx = std::min(std::max(fx, 0), cw - 1);
+                urow[x] = (uint8_t)((9 * un[nx] + 3 * uf[nx] + 3 * un[fx] + uf[fx] + 8) >> 4);
+                vrow[x] = (uint8_t)((9 * vn[nx] + 3 * vf[nx] + 3 * vn[fx] + vf[fx] + 8) >> 4);
+            }
+        }
+        for (int x = 0; x < w; x++) {
+            uint8_t* o = out + ((size_t)row * w + x) * 4;
+            int uu = u ? urow[x] : 128, vv = v ? vrow[x] : 128;
+            yuv_pixel(y[(size_t)row * ys + x], uu, vv, o);
+            o[3] = a ? a[(size_t)row * as + x] : 255;
+        }
+    }
+    return 0;
+}
+
+// One block's intra prediction: params = {mode, log2W, log2H, haveLeft,
+// haveAbove, angleDelta, filterType, edgeFilter, useFilterIntra,
+// filterIntraMode, aboveLimit, leftLimit}; above / left hold w + h + 1
+// values each, the corner first; pred gets w * h.
+int fd_av1_predict(const int32_t* params, const int32_t* above_in, const int32_t* left_in,
+                   uint8_t* pred) {
+    PredParams p{params[0], params[1], params[2], params[3], params[4], params[5],
+                 params[6], params[7], params[8], params[9], params[10], params[11]};
+    if (p.log2W < 2 || p.log2W > 6 || p.log2H < 2 || p.log2H > 6) return kArgs;
+    int n = (1 << p.log2W) + (1 << p.log2H);
+    int ab[320], lb[320];
+    for (int i = 0; i <= n; i++) {
+        ab[15 + i] = above_in[i];
+        lb[15 + i] = left_in[i];
+    }
+    predict(p, ab + 16, lb + 16, pred);
+    return 0;
+}
+
+// CfL on a w x h DC prediction from the averaged luma L (w * h, the
+// specification's L[i][j]).
+int fd_av1_cfl(const int32_t* L, int w, int h, int alpha, uint8_t* pred) {
+    if (w < 4 || h < 4 || w > 32 || h > 32) return kArgs;
+    cfl_apply(L, w, h, alpha, pred);
+    return 0;
+}
+
+// The inverse transform of tx size `tx` (0-18) and type `type` (0-15):
+// deq is 64 x 64 (Dequant[i][j] at i * 64 + j), res gets w * h.
+int fd_av1_inv_txfm(const int32_t* deq, int tx, int type, int lossless, int32_t* res) {
+    if (tx < 0 || tx > 18 || type < 0 || type > 15) return kArgs;
+    inverse_transform(deq, tx, type, lossless, res);
+    return 0;
+}
+
+// One loop filter position: s holds 16 samples, q0 at s[8]; params =
+// {filterSize, plane, limit, blimit, thresh}; filtered in place.
+int fd_av1_lf_edge(int32_t* s, const int32_t* params) {
+    LfParams lp{params[0], params[1], params[2], params[3], params[4]};
+    int v[16];
+    for (int i = 0; i < 16; i++) v[i] = s[i];
+    lf_sample(v + 8, lp);
+    for (int i = 0; i < 16; i++) s[i] = v[i];
+    return 0;
+}
+
+}  // extern "C"

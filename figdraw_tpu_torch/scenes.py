@@ -1776,6 +1776,11 @@ INCOMPLETE_WALL_REFERENCE = os.path.join(REFERENCE_DIR,
 RLEW_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "rlew_dither.tif")
 RLEW_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_rlew_1x_blocks8.npy")
 RLEW_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_rlew_480x270_blocks8.npy")
+# the fixture as PIL's default AVIF (quality 75, speed 6, 4:2:0), drawn in
+# the image-file scene and on the photo wall
+AVIF_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_q75.avif")
+AVIF_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_avif_1x_blocks8.npy")
+AVIF_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_avif_480x270_blocks8.npy")
 
 
 def make_image_file_scene(w: float, h: float, image_id: int) -> Renders:

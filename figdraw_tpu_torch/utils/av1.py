@@ -1,0 +1,1219 @@
+"""The port's AV1 intra decoder for AVIF still images (utils/avif.py reads
+the container): the OBUs, the sequence header and the frame header of a
+shown key frame in Python, the tiles and the loop filter in C++
+(csrc/av1_decode.cpp, built by utils/image_lib.py), then YUV -> RGBA as
+libavif 1.3.0 converts it for PIL 12.1.0 (libyuv's full-range BT.601).
+
+Decoded: profile 0, 8-bit, 4:2:0 colour or monochrome (an alpha item),
+the reduced still-picture header or a full one with one shown key frame,
+uniform and non-uniform tiles, segmentation, delta q and delta lf,
+palettes, intra block copy (its vector stack, vectors and copies, the
+inter transform sets and split transform sizes it brings) and filter
+intra, coded-lossless frames (WHT). Refused with NotImplementedError
+naming AVIF and the feature: profiles 1 and 2 (4:4:4, 4:2:2), 10 and 12
+bits, superres, CDEF, loop restoration, film grain, and any frame that
+is not a shown key frame. Quantiser matrices (aom's `enable-qm`) are
+read. A malformed stream raises
+ValueError.
+
+The C++ stages and their numpy twins here, the tests' reference (nothing
+on the load path uses the twins unless `plain` is asked for):
+- inv_txfm_plain: the inverse transforms (DCT 4-64, ADST 4-16, flipped
+  ADST, identity, WHT) of csrc's inverse_transform;
+- predict_plain, cfl_plain: the intra predictors with the edge filter and
+  upsampling, CfL, filter intra;
+- lf_edge_plain: the loop filter at one position of an edge;
+- to_rgba_plain: libyuv's bilinear 4:2:0 upsampling and fixed-point
+  BT.601.
+`decode(stream, plain=True)` decodes the tiles in C++ with a trace of each
+prediction, transform and filter call, checks every traced call against
+its twin, and converts with the plain conversion.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+
+from . import av1_tables as T
+from . import image_lib
+
+NOT_PORTED = ("AVIF images with {} are not decoded by figdraw_tpu_torch ({}): not ported yet "
+              "(ROADMAP.md, module item 'Image formats other than PNG')")
+
+# the C++ entry points' error codes
+ERRORS = {-2: "bad arguments", -3: "a Golomb code past 20 bits"}
+
+# OBU types read (temporal delimiters, metadata and padding are skipped)
+OBU_SEQUENCE_HEADER, OBU_FRAME_HEADER, OBU_TILE_GROUP, OBU_FRAME = 1, 3, 4, 6
+
+# the frame header as csrc/av1_decode.cpp reads it (H_* there)
+(H_WIDTH, H_HEIGHT, H_MI_COLS, H_MI_ROWS, H_MONO, H_USE128, H_FILTER_INTRA, H_EDGE_FILTER,
+ H_DISABLE_CDF_UPDATE, H_SCREEN_CONTENT, H_ALLOW_INTRABC, H_BASE_Q, H_DQ_Y_DC, H_DQ_U_DC,
+ H_DQ_U_AC, H_DQ_V_DC, H_DQ_V_AC, H_SEG_ENABLED, H_SEG_PRE_SKIP, H_LAST_ACTIVE_SEG,
+ H_DELTA_Q_PRESENT, H_DELTA_Q_RES, H_DELTA_LF_PRESENT, H_DELTA_LF_RES, H_DELTA_LF_MULTI,
+ H_TX_MODE, H_REDUCED_TX_SET, H_LF_LEVEL0) = range(28)
+H_SHARPNESS = H_LF_LEVEL0 + 4
+H_LF_DELTA_ENABLED = H_SHARPNESS + 1
+H_REF_DELTAS = H_LF_DELTA_ENABLED + 1
+H_ROW_START = H_REF_DELTAS + 8
+H_ROW_END, H_COL_START, H_COL_END = H_ROW_START + 1, H_ROW_START + 2, H_ROW_START + 3
+H_FEATURE_ENABLED = H_COL_END + 1
+H_FEATURE_DATA = H_FEATURE_ENABLED + 64
+H_LOSSLESS = H_FEATURE_DATA + 64
+H_STRIDE_Y = H_LOSSLESS + 8
+H_STRIDE_UV = H_STRIDE_Y + 1
+H_USING_QM, H_QM_Y, H_QM_U, H_QM_V = H_STRIDE_UV + 1, H_STRIDE_UV + 2, H_STRIDE_UV + 3, H_STRIDE_UV + 4
+H_SIZE = H_QM_V + 1
+# the per-4x4 block info csrc/av1_decode.cpp writes (M_* there)
+(M_SIZE, M_SKIP, M_SEG, M_TX_Y, M_TX_UV, M_DLF0, M_DLF1, M_DLF2, M_DLF3, M_YMODE, M_UVMODE,
+ M_INTER, M_MV_ROW, M_MV_COL, M_WRITTEN, M_FIELDS) = range(16)
+
+# the specification's exit process requires SymbolMaxBits >= -14 at a
+# tile's end (its symbols read at most 14 bits past the data); dav1d in
+# PIL's libavif rejects a tile past that, and so does the port
+# (tools/avif_fuzz_agreement.py --corrupt)
+OVERREAD = -14
+
+SEG_BITS = (8, 6, 6, 6, 6, 3, 0, 0)
+SEG_SIGNED = (1, 1, 1, 1, 1, 0, 0, 0)
+SEG_MAX = (255, 63, 63, 63, 63, 7, 0, 0)
+
+
+class Refused(NotImplementedError):
+    """An AV1 or HEIF feature outside the slice; imagefile.decode_image
+    names the path in its message."""
+
+    def __init__(self, feature: str):
+        self.feature = feature
+        super().__init__(NOT_PORTED.format(feature, "bytes"))
+
+
+def refuse(feature: str) -> Refused:
+    return Refused(feature)
+
+
+class BitReader:
+    def __init__(self, data: bytes, pos: int = 0):
+        self.data, self.bit = data, pos * 8
+
+    def f(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            byte = self.bit >> 3
+            if byte >= len(self.data):
+                raise ValueError("AV1: a header runs past its OBU")
+            v = (v << 1) | ((self.data[byte] >> (7 - (self.bit & 7))) & 1)
+            self.bit += 1
+        return v
+
+    def su(self, n: int) -> int:
+        v = self.f(n)
+        return v - (1 << n) if v & (1 << (n - 1)) else v
+
+    def ns(self, n: int) -> int:
+        w = n.bit_length()
+        m = (1 << w) - n
+        v = self.f(w - 1)
+        if v < m:
+            return v
+        return (v << 1) - m + self.f(1)
+
+    def uvlc(self) -> int:
+        zeros = 0
+        while not self.f(1):
+            zeros += 1
+            if zeros >= 32:
+                return (1 << 32) - 1
+        return self.f(zeros) + (1 << zeros) - 1
+
+    def align(self) -> None:
+        self.bit = (self.bit + 7) & ~7
+
+
+def leb128(data: bytes, pos: int) -> tuple:
+    value = 0
+    for i in range(8):
+        if pos >= len(data):
+            raise ValueError("AV1: a truncated leb128")
+        b = data[pos]
+        pos += 1
+        value |= (b & 0x7F) << (7 * i)
+        if not b & 0x80:
+            break
+    return value, pos
+
+
+def obus(data: bytes):
+    """(type, payload bytes) of each OBU of a low-overhead stream."""
+    pos = 0
+    while pos < len(data):
+        head = data[pos]
+        if head & 0x80:
+            raise ValueError("AV1: an OBU's forbidden bit is set")
+        kind = (head >> 3) & 15
+        ext = (head >> 2) & 1
+        has_size = (head >> 1) & 1
+        pos += 1 + ext
+        if has_size:
+            size, pos = leb128(data, pos)
+        else:
+            size = len(data) - pos
+        if pos + size > len(data):
+            raise ValueError("AV1: an OBU runs past the stream")
+        yield kind, data[pos:pos + size]
+        pos += size
+
+
+class Sequence:
+    pass
+
+
+def parse_sequence(payload: bytes) -> Sequence:
+    r = BitReader(payload)
+    s = Sequence()
+    s.profile = r.f(3)
+    s.still = r.f(1)
+    s.reduced = r.f(1)
+    s.decoder_model = 0
+    s.equal_picture_interval = 0
+    s.op_idc = [0]
+    s.decoder_model_present = [0]
+    if s.reduced:
+        r.f(5)
+    else:
+        timing = r.f(1)
+        if timing:
+            r.f(32)
+            r.f(32)
+            s.equal_picture_interval = r.f(1)
+            if s.equal_picture_interval:
+                r.uvlc()
+            s.decoder_model = r.f(1)
+            if s.decoder_model:
+                s.buffer_delay_len = r.f(5) + 1
+                r.f(32)
+                s.removal_len = r.f(5) + 1
+                s.presentation_len = r.f(5) + 1
+        initial_delay = r.f(1)
+        count = r.f(5) + 1
+        s.op_idc, s.decoder_model_present = [], []
+        for _ in range(count):
+            s.op_idc.append(r.f(12))
+            level = r.f(5)
+            if level > 7:
+                r.f(1)
+            present = 0
+            if s.decoder_model:
+                present = r.f(1)
+                if present:
+                    n = s.buffer_delay_len
+                    r.f(n)
+                    r.f(n)
+                    r.f(1)
+            s.decoder_model_present.append(present)
+            if initial_delay and r.f(1):
+                r.f(4)
+    if s.profile == 1:
+        raise refuse("AV1 profile 1 (4:4:4 chroma)")
+    if s.profile != 0:
+        raise refuse(f"AV1 profile {s.profile} (4:2:2 chroma or 12-bit samples)")
+    wbits, hbits = r.f(4) + 1, r.f(4) + 1
+    s.max_width, s.max_height = r.f(wbits) + 1, r.f(hbits) + 1
+    s.wbits, s.hbits = wbits, hbits
+    s.frame_ids = 0 if s.reduced else r.f(1)
+    if s.frame_ids:
+        s.delta_frame_id_len = r.f(4) + 2
+        s.frame_id_len = r.f(3) + 1 + s.delta_frame_id_len
+    s.use128 = r.f(1)
+    s.filter_intra = r.f(1)
+    s.edge_filter = r.f(1)
+    s.order_hint_bits = 0
+    s.force_screen_content = 2
+    s.force_integer_mv = 2
+    if not s.reduced:
+        r.f(1)  # interintra compound
+        r.f(1)  # masked compound
+        r.f(1)  # warped motion
+        r.f(1)  # dual filter
+        order_hint = r.f(1)
+        if order_hint:
+            r.f(1)
+            r.f(1)
+        if r.f(1):  # seq_choose_screen_content_tools
+            s.force_screen_content = 2
+        else:
+            s.force_screen_content = r.f(1)
+        if s.force_screen_content > 0:
+            if r.f(1):
+                s.force_integer_mv = 2
+            else:
+                s.force_integer_mv = r.f(1)
+        if order_hint:
+            s.order_hint_bits = r.f(3) + 1
+    if r.f(1):
+        raise refuse("superres")
+    if r.f(1):
+        raise refuse("CDEF")
+    if r.f(1):
+        raise refuse("loop restoration")
+    high = r.f(1)
+    if high:
+        raise refuse("10- or 12-bit samples")
+    s.mono = r.f(1)
+    s.primaries, s.transfer, s.matrix = 2, 2, 2
+    if r.f(1):
+        s.primaries, s.transfer, s.matrix = r.f(8), r.f(8), r.f(8)
+    if s.mono:
+        s.full_range = r.f(1)
+        s.separate_uv_dq = 0
+    else:
+        s.full_range = r.f(1)
+        r.f(2)  # chroma sample position (4:2:0 in profile 0)
+        s.separate_uv_dq = r.f(1)
+    if r.f(1):
+        raise refuse("film grain")
+    return s
+
+
+class Frame:
+    """A decoded frame: its planes (the padded decode buffers: Y, then U and
+    V or None), their visible size, and the colour description."""
+
+    def __init__(self, planes, width, height, full_range, matrix, mono):
+        self.planes, self.width, self.height = planes, width, height
+        self.full_range, self.matrix, self.mono = full_range, matrix, mono
+        self.checked = None  # the stage calls checked against their twins (plain)
+        self.mi = None  # the per-4x4 block info the tiles wrote (M_FIELDS int32 each)
+
+
+def _tile_log2(blk: int, target: int) -> int:
+    k = 0
+    while (blk << k) < target:
+        k += 1
+    return k
+
+
+def parse_frame_header(r: BitReader, s: Sequence) -> dict:
+    """The uncompressed header of a shown key frame as an HDR array and
+    its tile layout."""
+    hdr = np.zeros(H_SIZE, np.int32)
+    if not s.reduced:
+        if r.f(1):
+            raise refuse("a shown existing frame")
+        frame_type = r.f(2)
+        show = r.f(1)
+        if frame_type != 0 or not show:
+            raise refuse("frames other than one shown key frame")
+        if s.decoder_model and not s.equal_picture_interval:
+            r.f(s.presentation_len)
+    disable_cdf_update = r.f(1)
+    screen = r.f(1) if s.force_screen_content == 2 else s.force_screen_content
+    if screen and s.force_integer_mv == 2:
+        r.f(1)
+    if s.frame_ids:
+        r.f(s.frame_id_len)
+    override = 0 if s.reduced else r.f(1)
+    r.f(s.order_hint_bits)
+    if s.decoder_model:
+        if r.f(1):
+            for op, present in enumerate(s.decoder_model_present):
+                if present:
+                    r.f(s.removal_len)
+    if override:
+        width, height = r.f(s.wbits) + 1, r.f(s.hbits) + 1
+    else:
+        width, height = s.max_width, s.max_height
+    if r.f(1):  # render_and_frame_size_different
+        r.f(16)
+        r.f(16)
+    allow_intrabc = r.f(1) if screen else 0
+    if not s.reduced and not disable_cdf_update:
+        r.f(1)  # disable_frame_end_update_cdf (one frame: nothing to save)
+    mi_cols, mi_rows = 2 * ((width + 7) >> 3), 2 * ((height + 7) >> 3)
+    # tile info
+    sb_cols = (mi_cols + 31) >> 5 if s.use128 else (mi_cols + 15) >> 4
+    sb_rows = (mi_rows + 31) >> 5 if s.use128 else (mi_rows + 15) >> 4
+    sb_shift = 5 if s.use128 else 4
+    sb_size = sb_shift + 2
+    max_tile_width_sb = 4096 >> sb_size
+    max_tile_area_sb = (4096 * 2304) >> (2 * sb_size)
+    min_log2_cols = _tile_log2(max_tile_width_sb, sb_cols)
+    max_log2_cols = _tile_log2(1, min(sb_cols, 64))
+    max_log2_rows = _tile_log2(1, min(sb_rows, 64))
+    min_log2_tiles = max(min_log2_cols, _tile_log2(max_tile_area_sb, sb_rows * sb_cols))
+    col_starts, row_starts = [], []
+    if r.f(1):  # uniform
+        cols_log2 = min_log2_cols
+        while cols_log2 < max_log2_cols and r.f(1):
+            cols_log2 += 1
+        w_sb = (sb_cols + (1 << cols_log2) - 1) >> cols_log2
+        col_starts = [sb << sb_shift for sb in range(0, sb_cols, w_sb)]
+        rows_log2 = max(min_log2_tiles - cols_log2, 0)
+        while rows_log2 < max_log2_rows and r.f(1):
+            rows_log2 += 1
+        h_sb = (sb_rows + (1 << rows_log2) - 1) >> rows_log2
+        row_starts = [sb << sb_shift for sb in range(0, sb_rows, h_sb)]
+    else:
+        widest, start = 0, 0
+        while start < sb_cols:
+            col_starts.append(start << sb_shift)
+            size = r.ns(min(sb_cols - start, max_tile_width_sb)) + 1
+            widest = max(widest, size)
+            start += size
+        cols_log2 = _tile_log2(1, len(col_starts))
+        area = (sb_rows * sb_cols) >> (min_log2_tiles + 1) if min_log2_tiles else sb_rows * sb_cols
+        max_h = max(area // widest, 1)
+        start = 0
+        while start < sb_rows:
+            row_starts.append(start << sb_shift)
+            start += r.ns(min(sb_rows - start, max_h)) + 1
+        rows_log2 = _tile_log2(1, len(row_starts))
+    col_starts.append(mi_cols)
+    row_starts.append(mi_rows)
+    tile_size_bytes = 4
+    if cols_log2 or rows_log2:
+        r.f(rows_log2 + cols_log2)  # context_update_tile_id
+        tile_size_bytes = r.f(2) + 1
+    # quantisation
+    base_q = r.f(8)
+
+    def delta_q():
+        return r.su(7) if r.f(1) else 0
+
+    dq = [delta_q(), 0, 0, 0, 0]
+    if not s.mono:
+        diff = r.f(1) if s.separate_uv_dq else 0
+        dq[1], dq[2] = delta_q(), delta_q()
+        if diff:
+            dq[3], dq[4] = delta_q(), delta_q()
+        else:
+            dq[3], dq[4] = dq[1], dq[2]
+    using_qm = r.f(1)
+    qm = [15, 15, 15]
+    if using_qm:
+        qm[0] = r.f(4)
+        qm[1] = r.f(4)
+        qm[2] = r.f(4) if s.separate_uv_dq else qm[1]
+    # segmentation
+    seg_enabled = r.f(1)
+    fe = np.zeros((8, 8), np.int32)
+    fd = np.zeros((8, 8), np.int32)
+    if seg_enabled:
+        for i in range(8):
+            for j in range(8):
+                if r.f(1):
+                    fe[i, j] = 1
+                    bits = SEG_BITS[j]
+                    if SEG_SIGNED[j]:
+                        fd[i, j] = max(-SEG_MAX[j], min(SEG_MAX[j], r.su(1 + bits)))
+                    else:
+                        fd[i, j] = min(SEG_MAX[j], r.f(bits))
+    pre_skip, last_active = 0, 0
+    for i in range(8):
+        for j in range(8):
+            if fe[i, j]:
+                last_active = i
+                if j >= 5:
+                    pre_skip = 1
+    # delta q / lf
+    dq_present = dq_res = dlf_present = dlf_res = dlf_multi = 0
+    if base_q > 0:
+        dq_present = r.f(1)
+    if dq_present:
+        dq_res = r.f(2)
+        dlf_present = 0 if allow_intrabc else r.f(1)
+        if dlf_present:
+            dlf_res = r.f(2)
+            dlf_multi = r.f(1)
+    lossless = np.zeros(8, np.int32)
+    for seg in range(8):
+        q = base_q
+        if seg_enabled and fe[seg, 0]:
+            q = max(0, min(255, base_q + fd[seg, 0]))
+        lossless[seg] = int(q == 0 and not any(dq))
+    coded_lossless = int(lossless.all())
+    # loop filter
+    levels = [0, 0, 0, 0]
+    sharpness = 0
+    ref_deltas = [1, 0, 0, 0, -1, 0, -1, -1]
+    delta_enabled = 1
+    if not coded_lossless and not allow_intrabc:  # else no loop filter
+        levels[0], levels[1] = r.f(6), r.f(6)
+        if not s.mono and (levels[0] or levels[1]):
+            levels[2], levels[3] = r.f(6), r.f(6)
+        sharpness = r.f(3)
+        delta_enabled = r.f(1)
+        if delta_enabled and r.f(1):
+            for i in range(8):
+                if r.f(1):
+                    ref_deltas[i] = r.su(7)
+            for i in range(2):  # the mode deltas, which no intra block reads
+                if r.f(1):
+                    r.su(7)
+    # cdef and lr are off (the sequence header refuses them); tx mode
+    tx_mode = 0 if coded_lossless else (2 if r.f(1) else 1)
+    reduced_tx_set = r.f(1)
+    hdr[[H_WIDTH, H_HEIGHT, H_MI_COLS, H_MI_ROWS]] = width, height, mi_cols, mi_rows
+    hdr[H_MONO] = s.mono
+    hdr[H_USE128], hdr[H_FILTER_INTRA], hdr[H_EDGE_FILTER] = s.use128, s.filter_intra, s.edge_filter
+    hdr[H_DISABLE_CDF_UPDATE], hdr[H_SCREEN_CONTENT] = disable_cdf_update, screen
+    hdr[H_ALLOW_INTRABC], hdr[H_BASE_Q] = allow_intrabc, base_q
+    hdr[H_DQ_Y_DC:H_DQ_V_AC + 1] = dq
+    hdr[H_SEG_ENABLED], hdr[H_SEG_PRE_SKIP], hdr[H_LAST_ACTIVE_SEG] = seg_enabled, pre_skip, last_active
+    hdr[H_DELTA_Q_PRESENT], hdr[H_DELTA_Q_RES] = dq_present, dq_res
+    hdr[H_DELTA_LF_PRESENT], hdr[H_DELTA_LF_RES], hdr[H_DELTA_LF_MULTI] = dlf_present, dlf_res, dlf_multi
+    hdr[H_TX_MODE], hdr[H_REDUCED_TX_SET] = tx_mode, reduced_tx_set
+    hdr[H_LF_LEVEL0:H_LF_LEVEL0 + 4] = levels
+    hdr[H_SHARPNESS], hdr[H_LF_DELTA_ENABLED] = sharpness, delta_enabled
+    hdr[H_REF_DELTAS:H_REF_DELTAS + 8] = ref_deltas
+    hdr[H_FEATURE_ENABLED:H_FEATURE_ENABLED + 64] = fe.reshape(-1)
+    hdr[H_FEATURE_DATA:H_FEATURE_DATA + 64] = fd.reshape(-1)
+    hdr[H_LOSSLESS:H_LOSSLESS + 8] = lossless
+    hdr[H_USING_QM], hdr[H_QM_Y:H_QM_V + 1] = using_qm, qm
+    return {"hdr": hdr, "col_starts": col_starts, "row_starts": row_starts,
+            "cols_log2": cols_log2, "rows_log2": rows_log2, "tile_size_bytes": tile_size_bytes}
+
+
+def _tiles(data: bytes, pos: int, end: int, fh: dict) -> list:
+    """(tile row, tile col, bytes) of a tile group OBU from byte `pos`."""
+    ncols, nrows = len(fh["col_starts"]) - 1, len(fh["row_starts"]) - 1
+    num = ncols * nrows
+    r = BitReader(data, pos)
+    start, last = 0, num - 1
+    if num > 1 and r.f(1):
+        bits = fh["cols_log2"] + fh["rows_log2"]
+        start, last = r.f(bits), r.f(bits)
+    r.align()
+    p = r.bit >> 3
+    out = []
+    for t in range(start, last + 1):
+        if t == last:
+            size = end - p
+        else:
+            n = fh["tile_size_bytes"]
+            if p + n > end:
+                raise ValueError("AV1: a truncated tile size")
+            size = int.from_bytes(data[p:p + n], "little") + 1
+            p += n
+        if size < 0 or p + size > end:
+            raise ValueError("AV1: a tile runs past its OBU")
+        out.append((t // ncols, t % ncols, data[p:p + size]))
+        p += size
+    return out
+
+
+def _lib():
+    return image_lib.load_av1()
+
+
+def decode(stream: bytes, plain: bool = False) -> Frame:
+    """An AV1 stream (one shown key frame) to its decoded planes."""
+    seq, fh, tiles = None, None, []
+    for kind, payload in obus(stream):
+        if kind == OBU_SEQUENCE_HEADER:
+            seq = parse_sequence(payload)
+        elif kind in (OBU_FRAME_HEADER, OBU_FRAME):
+            if seq is None:
+                raise ValueError("AV1: a frame before the sequence header")
+            if fh is not None:
+                raise refuse("more than one frame")
+            r = BitReader(payload)
+            fh = parse_frame_header(r, seq)
+            if kind == OBU_FRAME:
+                r.align()
+                tiles += _tiles(payload, r.bit >> 3, len(payload), fh)
+        elif kind == OBU_TILE_GROUP:
+            if fh is None:
+                raise ValueError("AV1: a tile group before the frame header")
+            tiles += _tiles(payload, 0, len(payload), fh)
+    if fh is None:
+        raise ValueError("AV1: no frame in the stream")
+    ncols, nrows = len(fh["col_starts"]) - 1, len(fh["row_starts"]) - 1
+    if len(tiles) != ncols * nrows:
+        raise ValueError("AV1: tiles missing from the frame")
+    hdr = fh["hdr"]
+    mi_cols, mi_rows = int(hdr[H_MI_COLS]), int(hdr[H_MI_ROWS])
+    # planes of whole 128x128 superblocks: a transform block may run past
+    # the frame's last 4x4
+    ph, pw = (mi_rows * 4 + 127) & ~127, (mi_cols * 4 + 127) & ~127
+    y = np.zeros((ph, pw), np.uint8)
+    u = v = None
+    if not seq.mono:
+        u = np.zeros((ph // 2, pw // 2), np.uint8)
+        v = np.zeros((ph // 2, pw // 2), np.uint8)
+    hdr[H_STRIDE_Y], hdr[H_STRIDE_UV] = pw, pw // 2
+    mi = np.zeros((mi_rows, mi_cols, M_FIELDS), np.int32)
+    lib = _lib()
+    null = ctypes.c_void_p(0)
+    left = np.zeros(1, np.int64)
+    trace = None
+    if plain:
+        trace = np.zeros(40 * y.size + (1 << 20), np.int32)
+        lib.fd_av1_trace(trace.ctypes.data, trace.size)
+    for trow, tcol, data in tiles:
+        h = hdr.copy()
+        h[H_ROW_START], h[H_ROW_END] = fh["row_starts"][trow], fh["row_starts"][trow + 1]
+        h[H_COL_START], h[H_COL_END] = fh["col_starts"][tcol], fh["col_starts"][tcol + 1]
+        buf = np.frombuffer(data, np.uint8) if data else np.zeros(1, np.uint8)
+        rc = lib.fd_av1_tile(buf.ctypes.data, len(data), h.ctypes.data, y.ctypes.data,
+                             u.ctypes.data if u is not None else null,
+                             v.ctypes.data if v is not None else null, mi.ctypes.data,
+                             left.ctypes.data)
+        if rc < 0:
+            raise ValueError(f"AV1: {ERRORS.get(rc, rc)}")
+        if left[0] < OVERREAD:
+            raise ValueError("AV1: a tile's symbols run past its data")
+    lib.fd_av1_deblock(hdr.ctypes.data, y.ctypes.data, u.ctypes.data if u is not None else null,
+                       v.ctypes.data if v is not None else null, mi.ctypes.data)
+    frame = Frame((y, u, v), int(hdr[H_WIDTH]), int(hdr[H_HEIGHT]), seq.full_range, seq.matrix,
+                  seq.mono)
+    frame.mi = mi
+    if plain:
+        n = lib.fd_av1_trace(null, 0)
+        if n < 0:
+            raise RuntimeError("AV1: the stage trace overflowed")
+        frame.checked = check_trace(trace[:n])
+    return frame
+
+
+def to_rgba(frame: Frame, alpha, full_range: int, matrix: int, plain: bool = False) -> np.ndarray:
+    """A decoded colour frame (and alpha plane) to RGBA as libavif converts
+    it for PIL."""
+    if not full_range:
+        raise refuse("limited-range colour")
+    if not frame.mono and matrix not in (2, 5, 6):  # BT.601, which libavif reads 2 as
+        raise refuse(f"matrix coefficients {matrix}")
+    w, h = frame.width, frame.height
+    y, u, v = frame.planes
+    out = np.zeros((h, w, 4), np.uint8)
+    lib = _lib()
+    a = np.ascontiguousarray(alpha) if alpha is not None else None
+    null = ctypes.c_void_p(0)
+    rc = lib.fd_av1_to_rgb(y.ctypes.data, y.shape[1], u.ctypes.data if u is not None else null,
+                           v.ctypes.data if v is not None else null,
+                           u.shape[1] if u is not None else 0,
+                           a.ctypes.data if a is not None else null,
+                           a.shape[1] if a is not None else 0, w, h, out.ctypes.data)
+    if rc < 0:
+        raise ValueError(f"AV1: {ERRORS.get(rc, rc)}")
+    if plain:
+        want = to_rgba_plain(y, u, v, a, w, h)
+        if not np.array_equal(want, out):
+            raise RuntimeError("fd_av1_to_rgb differs from to_rgba_plain")
+    return out
+
+
+# --------------------------------------------------------------- plain twins
+
+def _round2(x, n: int):
+    return x if n == 0 else (x + (1 << (n - 1))) >> n
+
+
+def _cos128(angle: int) -> int:
+    def look(i):
+        return 0 if i == 64 else int(T.COS128[i])
+    a = angle & 255
+    if a <= 64:
+        return look(a)
+    if a <= 128:
+        return -look(128 - a)
+    if a <= 192:
+        return -look(a - 128)
+    return look(256 - a)
+
+
+def _sin128(angle: int) -> int:
+    return _cos128(angle - 64)
+
+
+def _brev(n: int, x: int) -> int:
+    return int(format(x, f"0{n}b")[::-1], 2)
+
+
+class _Lanes:
+    """The specification's 1D transform array T over a batch of lanes:
+    t[i] is an int64 vector (one value a lane)."""
+
+    def __init__(self, t: np.ndarray, r: int):
+        self.t, self.r = t, r
+
+    def clamp(self, v):
+        return np.clip(v, -(1 << (self.r - 1)), (1 << (self.r - 1)) - 1)
+
+    def B(self, a, b, angle, flip):
+        t = self.t
+        x = t[a] * _cos128(angle) - t[b] * _sin128(angle)
+        y = t[a] * _sin128(angle) + t[b] * _cos128(angle)
+        t[a], t[b] = _round2(x, 12), _round2(y, 12)
+        if flip:
+            t[[a, b]] = t[[b, a]]
+
+    def H(self, a, b, flip):
+        if flip:
+            a, b = b, a
+        t = self.t
+        x, y = t[a].copy(), t[b].copy()
+        t[a], t[b] = self.clamp(x + y), self.clamp(x - y)
+
+
+def _dct_plain(L: _Lanes, n: int) -> None:
+    L.t[: 1 << n] = L.t[[_brev(n, i) for i in range(1 << n)]]
+    B, H = L.B, L.H
+    if n == 6:
+        for i in range(16):
+            B(32 + i, 63 - i, 63 - 4 * _brev(4, i), 0)
+    if n >= 5:
+        for i in range(8):
+            B(16 + i, 31 - i, 6 + (_brev(3, 7 - i) << 3), 0)
+    if n == 6:
+        for i in range(16):
+            H(32 + i * 2, 33 + i * 2, i & 1)
+    if n >= 4:
+        for i in range(4):
+            B(8 + i, 15 - i, 12 + (_brev(2, 3 - i) << 4), 0)
+    if n >= 5:
+        for i in range(8):
+            H(16 + 2 * i, 17 + 2 * i, i & 1)
+    if n == 6:
+        for i in range(4):
+            for j in range(2):
+                B(62 - i * 4 - j, 33 + i * 4 + j, 60 - 16 * _brev(2, i) + 64 * j, 1)
+    if n >= 3:
+        for i in range(2):
+            B(4 + i, 7 - i, 56 - 32 * i, 0)
+    if n >= 4:
+        for i in range(4):
+            H(8 + 2 * i, 9 + 2 * i, i & 1)
+    if n >= 5:
+        for i in range(2):
+            for j in range(2):
+                B(30 - 4 * i - j, 17 + 4 * i + j, 24 + (j << 6) + ((1 - i) << 5), 1)
+    if n == 6:
+        for i in range(8):
+            for j in range(2):
+                H(32 + i * 4 + j, 35 + i * 4 - j, i & 1)
+    for i in range(2):
+        B(2 * i, 1 + 2 * i, 32 + 16 * i, 1 - i)
+    if n >= 3:
+        for i in range(2):
+            H(4 + 2 * i, 5 + 2 * i, i)
+    if n >= 4:
+        for i in range(2):
+            B(14 - i, 9 + i, 48 + 64 * i, 1)
+    if n >= 5:
+        for i in range(4):
+            for j in range(2):
+                H(16 + 4 * i + j, 19 + 4 * i - j, i & 1)
+    if n == 6:
+        for i in range(2):
+            for j in range(4):
+                B(61 - i * 8 - j, 34 + i * 8 + j, 56 - i * 32 + (j >> 1) * 64, 1)
+    for i in range(2):
+        H(i, 3 - i, 0)
+    if n >= 3:
+        B(6, 5, 32, 1)
+    if n >= 4:
+        for i in range(2):
+            for j in range(2):
+                H(8 + 4 * i + j, 11 + 4 * i - j, i)
+    if n >= 5:
+        for i in range(4):
+            B(29 - i, 18 + i, 48 + (i >> 1) * 64, 1)
+    if n == 6:
+        for i in range(4):
+            for j in range(4):
+                H(32 + 8 * i + j, 39 + 8 * i - j, i & 1)
+    if n >= 3:
+        for i in range(4):
+            H(i, 7 - i, 0)
+    if n >= 4:
+        for i in range(2):
+            B(13 - i, 10 + i, 32, 1)
+    if n >= 5:
+        for i in range(2):
+            for j in range(4):
+                H(16 + i * 8 + j, 23 + i * 8 - j, i)
+    if n == 6:
+        for i in range(8):
+            B(59 - i, 36 + i, 48 if i < 4 else 112, 1)
+    if n >= 4:
+        for i in range(8):
+            H(i, 15 - i, 0)
+    if n >= 5:
+        for i in range(4):
+            B(27 - i, 20 + i, 32, 1)
+    if n == 6:
+        for i in range(8):
+            H(32 + i, 47 - i, 0)
+        for i in range(8):
+            H(48 + i, 63 - i, 1)
+    if n >= 5:
+        for i in range(16):
+            H(i, 31 - i, 0)
+    if n == 6:
+        for i in range(8):
+            B(55 - i, 40 + i, 32, 1)
+        for i in range(32):
+            H(i, 63 - i, 0)
+
+
+def _adst_plain(L: _Lanes, n: int) -> None:
+    t = L.t
+    if n == 2:
+        s = [int(v) for v in T.SINPI]
+        s0, s1, s2 = s[1] * t[0], s[2] * t[0], s[3] * t[1]
+        s3, s4, s5, s6 = s[4] * t[2], s[1] * t[2], s[2] * t[3], s[4] * t[3]
+        b7 = t[0] - t[2] + t[3]
+        s0, s1 = s0 + s3 + s5, s1 - s4 - s6
+        s3, s2 = s2, s[3] * b7
+        x0, x1, x2, x3 = s0 + s3, s1 + s3, s2, s0 + s1 - s3
+        t[0], t[1], t[2], t[3] = (_round2(x, 12) for x in (x0, x1, x2, x3))
+        return
+    n0 = 1 << n
+    t[:n0] = t[[(i - 1) if i & 1 else (n0 - i - 1) for i in range(n0)]]
+    B, H = L.B, L.H
+    if n == 3:
+        for i in range(4):
+            B(2 * i, 1 + 2 * i, 60 - 16 * i, 1)
+        for i in range(4):
+            H(i, 4 + i, 0)
+        for i in range(2):
+            B(4 + 3 * i, 5 + i, 48 - 32 * i, 1)
+        for i in range(2):
+            for j in range(2):
+                H(4 * j + i, 2 + 4 * j + i, 0)
+        for i in range(2):
+            B(2 + 4 * i, 3 + 4 * i, 32, 1)
+    else:
+        for i in range(8):
+            B(2 * i, 1 + 2 * i, 62 - 8 * i, 1)
+        for i in range(8):
+            H(i, 8 + i, 0)
+        for i in range(2):
+            B(8 + 2 * i, 9 + 2 * i, 56 - 32 * i, 1)
+            B(13 + 2 * i, 12 + 2 * i, 8 + 32 * i, 1)
+        for i in range(4):
+            for j in range(2):
+                H(8 * j + i, 4 + 8 * j + i, 0)
+        for i in range(2):
+            for j in range(2):
+                B(4 + 8 * j + 3 * i, 5 + 8 * j + i, 48 - 32 * i, 1)
+        for i in range(2):
+            for j in range(4):
+                H(4 * j + i, 2 + 4 * j + i, 0)
+        for i in range(4):
+            B(2 + 4 * i, 3 + 4 * i, 32, 1)
+    out = t[:n0].copy()
+    for i in range(n0):
+        a, b = (i >> 3) & 1, ((i >> 2) & 1) ^ ((i >> 3) & 1)
+        c, d = ((i >> 1) & 1) ^ ((i >> 2) & 1), (i & 1) ^ ((i >> 1) & 1)
+        idx = ((d << 3) | (c << 2) | (b << 1) | a) >> (4 - n)
+        out[i] = -t[idx] if i & 1 else t[idx]
+    t[:n0] = out
+
+
+def _identity_plain(L: _Lanes, n: int) -> None:
+    t = L.t[: 1 << n]
+    if n == 2:
+        L.t[: 1 << n] = _round2(t * 5793, 12)
+    elif n == 3:
+        L.t[: 1 << n] = t * 2
+    elif n == 4:
+        L.t[: 1 << n] = _round2(t * 11586, 12)
+    else:
+        L.t[: 1 << n] = t * 4
+
+
+def _wht_plain(t: np.ndarray, shift: int) -> None:
+    a, c, d, b = (t[k] >> shift for k in range(4))
+    a = a + c
+    d = d - b
+    e = (a - d) >> 1
+    b = e - b
+    c = e - c
+    a = a - b
+    d = d + c
+    t[0], t[1], t[2], t[3] = a, b, c, d
+
+
+TX_W = (4, 8, 16, 32, 64, 4, 8, 8, 16, 16, 32, 32, 64, 4, 16, 8, 32, 16, 64)
+TX_H = (4, 8, 16, 32, 64, 8, 4, 16, 8, 32, 16, 64, 32, 16, 4, 32, 8, 64, 16)
+ROW_SHIFT = (0, 1, 2, 2, 2, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2)
+# 1D types of each 2D type: 0 DCT, 1 ADST, 2 flipped ADST, 3 identity
+COL_TYPE = (0, 1, 0, 1, 2, 0, 2, 1, 2, 3, 0, 3, 1, 3, 2, 3)
+ROW_TYPE = (0, 0, 1, 1, 0, 2, 2, 2, 1, 3, 3, 0, 3, 1, 3, 2)
+
+
+def _run_1d(L: _Lanes, kind: int, n: int) -> None:
+    if kind == 0:
+        _dct_plain(L, n)
+    elif kind == 3:
+        _identity_plain(L, n)
+    else:
+        _adst_plain(L, n)
+
+
+def inv_txfm_plain(deq: np.ndarray, tx: int, tx_type: int, lossless: int) -> np.ndarray:
+    """The 2D inverse transform of csrc's inverse_transform: deq is the
+    64 x 64 Dequant (rows and columns past 32 zero), the result h x w."""
+    w, h = TX_W[tx], TX_H[tx]
+    lw, lh = w.bit_length() - 1, h.bit_length() - 1
+    row_shift, col_shift = (0, 0) if lossless else (ROW_SHIFT[tx], 4)
+    t = np.zeros((64, h), np.int64)  # lanes are the rows
+    t[: min(w, 32), : min(h, 32)] = deq[: min(h, 32), : min(w, 32)].T
+    rt, ct = ROW_TYPE[tx_type], COL_TYPE[tx_type]
+    if lossless:
+        _wht_plain(t, 2)
+    else:
+        if abs(lw - lh) == 1:
+            t[:w] = _round2(t[:w] * 2896, 12)
+        L = _Lanes(t, 16)
+        t[:w] = L.clamp(t[:w])
+        _run_1d(L, rt, lw)
+    rows = _round2(t[:w], row_shift).T  # h x w
+    if rt == 2:
+        rows = rows[:, ::-1]
+    if not lossless:
+        rows = np.clip(rows, -(1 << 15), (1 << 15) - 1)
+    c = np.zeros((64, w), np.int64)  # lanes are the columns
+    c[:h] = rows
+    if lossless:
+        _wht_plain(c, 0)
+    else:
+        _run_1d(_Lanes(c, 16), ct, lh)
+    out = _round2(c[:h], col_shift)
+    if ct == 2:
+        out = out[::-1]
+    return out.astype(np.int32)
+
+
+SM_OFFSET = {2: 0, 3: 4, 4: 12, 5: 28, 6: 60}
+
+
+def _edge_strength(w, h, filter_type, delta):
+    d, wh = abs(delta), w + h
+    if filter_type == 0:
+        table = ((8, ((56, 1),)), (12, ((40, 1),)), (16, ((40, 1),)),
+                 (24, ((8, 1), (16, 2), (32, 3))), (32, ((1, 1), (4, 2), (32, 3))))
+        last = ((1, 3),)
+    else:
+        table = ((8, ((40, 1), (64, 2))), (16, ((20, 1), (48, 2))), (24, ((4, 3),)))
+        last = ((1, 3),)
+    steps = last
+    for limit, st in table:
+        if wh <= limit:
+            steps = st
+            break
+    strength = 0
+    for thr, v in steps:
+        if d >= thr:
+            strength = v
+    return strength
+
+
+def _edge_filter(e: dict, sz: int, strength: int) -> None:
+    if strength == 0:
+        return
+    edge = [e[i - 1] for i in range(sz)]
+    k = T.INTRA_EDGE_KERNEL.reshape(3, 5)[strength - 1]
+    for i in range(1, sz):
+        s = sum(int(k[j]) * edge[min(max(i - 2 + j, 0), sz - 1)] for j in range(5))
+        e[i - 1] = (s + 8) >> 4
+
+
+def _upsample(e: dict, num: int) -> None:
+    dup = [0] * (num + 3)
+    dup[0] = e[-1]
+    for i in range(-1, num):
+        dup[i + 2] = e[i]
+    dup[num + 2] = e[num - 1]
+    e[-2] = dup[0]
+    for i in range(num):
+        s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3]
+        e[2 * i - 1] = min(max(_round2(s, 4), 0), 255)
+        e[2 * i] = dup[i + 2]
+
+
+def predict_plain(params, above, left) -> np.ndarray:
+    """csrc's predict: params as fd_av1_predict takes them, above / left
+    with the corner first; the prediction h x w uint8."""
+    (mode, lw, lh, have_left, have_above, angle_delta, filter_type, edge_filter,
+     use_filter, filter_mode, above_limit, left_limit) = (int(v) for v in params)
+    w, h = 1 << lw, 1 << lh
+    A = {i - 1: int(v) for i, v in enumerate(above)}
+    Lf = {i - 1: int(v) for i, v in enumerate(left)}
+    pred = np.zeros((h, w), np.int64)
+    if use_filter:
+        taps = T.FILTER_INTRA_TAPS.reshape(5, 8, 8)[filter_mode]
+        for i2 in range(h >> 1):
+            for j4 in range(w >> 2):
+                p = []
+                for i in range(7):
+                    if i < 5:
+                        if i2 == 0:
+                            p.append(A[(j4 << 2) + i - 1])
+                        elif j4 == 0 and i == 0:
+                            p.append(Lf[(i2 << 1) - 1])
+                        else:
+                            p.append(int(pred[(i2 << 1) - 1, (j4 << 2) + i - 1]))
+                    elif j4 == 0:
+                        p.append(Lf[(i2 << 1) + i - 5])
+                    else:
+                        p.append(int(pred[(i2 << 1) + i - 5, (j4 << 2) - 1]))
+                for i in range(8):
+                    pr = sum(int(taps[i, j]) * p[j] for j in range(7))
+                    v = _round2(pr, 4) if pr >= 0 else -_round2(-pr, 4)
+                    pred[(i2 << 1) + (i >> 2), (j4 << 2) + (i & 3)] = min(max(v, 0), 255)
+        return pred.astype(np.uint8)
+    if 1 <= mode <= 8:
+        p_angle = int(T.MODE_TO_ANGLE[mode]) + angle_delta * 3
+        up_a = up_l = 0
+        if edge_filter:
+            if p_angle not in (90, 180):
+                if 90 < p_angle < 180 and w + h >= 24:
+                    A[-1] = Lf[-1] = _round2(Lf[0] * 5 + A[-1] * 6 + A[0] * 5, 4)
+                if have_above:
+                    _edge_filter(A, min(w, above_limit) + (h if p_angle < 90 else 0) + 1,
+                                 _edge_strength(w, h, filter_type, p_angle - 90))
+                if have_left:
+                    _edge_filter(Lf, min(h, left_limit) + (w if p_angle > 180 else 0) + 1,
+                                 _edge_strength(w, h, filter_type, p_angle - 180))
+
+            def ups(delta):
+                d = abs(delta)
+                if d <= 0 or d >= 40:
+                    return 0
+                return int(w + h <= (16 if filter_type == 0 else 8))
+            up_a = ups(p_angle - 90)
+            if up_a:
+                _upsample(A, w + (h if p_angle < 90 else 0))
+            up_l = ups(p_angle - 180)
+            if up_l:
+                _upsample(Lf, h + (w if p_angle > 180 else 0))
+        dr = T.DR_INTRA_DERIVATIVE
+        dx = int(dr[p_angle]) if p_angle < 90 else (int(dr[180 - p_angle]) if 90 < p_angle < 180 else 0)
+        dy = int(dr[p_angle - 90]) if 90 < p_angle < 180 else (int(dr[270 - p_angle]) if p_angle > 180 else 0)
+        for i in range(h):
+            for j in range(w):
+                if p_angle < 90:
+                    idx = (i + 1) * dx
+                    base = (idx >> (6 - up_a)) + (j << up_a)
+                    shift = ((idx << up_a) >> 1) & 0x1F
+                    max_base = (w + h - 1) << up_a
+                    v = (_round2(A[base] * (32 - shift) + A[base + 1] * shift, 5)
+                         if base < max_base else A[max_base])
+                elif 90 < p_angle < 180:
+                    idx = (j << 6) - (i + 1) * dx
+                    base = idx >> (6 - up_a)
+                    if base >= -(1 << up_a):
+                        shift = ((idx << up_a) >> 1) & 0x1F
+                        v = _round2(A[base] * (32 - shift) + A[base + 1] * shift, 5)
+                    else:
+                        idx = (i << 6) - (j + 1) * dy
+                        base = idx >> (6 - up_l)
+                        shift = ((idx << up_l) >> 1) & 0x1F
+                        v = _round2(Lf[base] * (32 - shift) + Lf[base + 1] * shift, 5)
+                elif p_angle > 180:
+                    idx = (j + 1) * dy
+                    base = (idx >> (6 - up_l)) + (i << up_l)
+                    shift = ((idx << up_l) >> 1) & 0x1F
+                    v = _round2(Lf[base] * (32 - shift) + Lf[base + 1] * shift, 5)
+                elif p_angle == 90:
+                    v = A[j]
+                else:
+                    v = Lf[i]
+                pred[i, j] = v
+        return pred.astype(np.uint8)
+    a = np.array([A[j] for j in range(w)], np.int64)
+    lc = np.array([Lf[i] for i in range(h)], np.int64)
+    sw = T.SM_WEIGHTS.astype(np.int64)
+    wx, wy = sw[SM_OFFSET[lw]:SM_OFFSET[lw] + w], sw[SM_OFFSET[lh]:SM_OFFSET[lh] + h]
+    if mode == 9:
+        pred = _round2(wy[:, None] * a[None, :] + (256 - wy[:, None]) * lc[h - 1]
+                       + wx[None, :] * lc[:, None] + (256 - wx[None, :]) * a[w - 1], 9)
+    elif mode == 10:
+        pred = _round2(wy[:, None] * a[None, :] + (256 - wy[:, None]) * lc[h - 1], 8) + 0 * wx[None, :]
+    elif mode == 11:
+        pred = _round2(wx[None, :] * lc[:, None] + (256 - wx[None, :]) * a[w - 1], 8) + 0 * wy[:, None]
+    elif mode == 0:
+        if have_left and have_above:
+            avg = (int(a.sum() + lc.sum()) + ((w + h) >> 1)) // (w + h)
+        elif have_left:
+            avg = min(max((int(lc.sum()) + (h >> 1)) >> lh, 0), 255)
+        elif have_above:
+            avg = min(max((int(a.sum()) + (w >> 1)) >> lw, 0), 255)
+        else:
+            avg = 128
+        pred = np.full((h, w), avg, np.int64)
+    else:
+        base = a[None, :] + lc[:, None] - A[-1]
+        pl, pt, ptl = np.abs(base - lc[:, None]), np.abs(base - a[None, :]), np.abs(base - A[-1])
+        pred = np.where((pl <= pt) & (pl <= ptl), lc[:, None] + 0 * a[None, :],
+                        np.where(pt <= ptl, a[None, :] + 0 * lc[:, None], A[-1]))
+    return pred.astype(np.uint8)
+
+
+def cfl_plain(L: np.ndarray, alpha: int, pred: np.ndarray) -> np.ndarray:
+    """CfL on a DC prediction from the averaged luma L (h x w)."""
+    h, w = pred.shape
+    L = L.astype(np.int64)
+    avg = _round2(int(L.sum()), (w.bit_length() - 1) + (h.bit_length() - 1))
+    x = alpha * (L - avg)
+    scaled = np.where(x >= 0, _round2(x, 6), -_round2(-x, 6))
+    return np.clip(pred.astype(np.int64) + scaled, 0, 255).astype(np.uint8)
+
+
+def lf_edge_plain(s: np.ndarray, params) -> np.ndarray:
+    """csrc's lf_sample on a batch: s is (K, 16) with q0 at column 8."""
+    size, plane, limit, blimit, thresh = (int(v) for v in params)
+    s = s.astype(np.int64).copy()
+    q = [s[:, 8 + k] for k in range(8)]
+    p = [s[:, 7 - k] for k in range(8)]
+    hev = (np.abs(p[1] - p[0]) > thresh) | (np.abs(q[1] - q[0]) > thresh)
+    length = 4 if size == 4 else (6 if plane else (8 if size == 8 else 16))
+    mask = ((np.abs(p[1] - p[0]) <= limit) & (np.abs(q[1] - q[0]) <= limit)
+            & (np.abs(p[0] - q[0]) * 2 + np.abs(p[1] - q[1]) // 2 <= blimit))
+    if length >= 6:
+        mask &= (np.abs(p[2] - p[1]) <= limit) & (np.abs(q[2] - q[1]) <= limit)
+    if length >= 8:
+        mask &= (np.abs(p[3] - p[2]) <= limit) & (np.abs(q[3] - q[2]) <= limit)
+    flat = np.zeros_like(mask)
+    flat2 = np.zeros_like(mask)
+    if size >= 8:
+        flat = ((np.abs(p[1] - p[0]) <= 1) & (np.abs(q[1] - q[0]) <= 1) & (np.abs(p[2] - p[0]) <= 1)
+                & (np.abs(q[2] - q[0]) <= 1))
+        if length >= 8:
+            flat &= (np.abs(p[3] - p[0]) <= 1) & (np.abs(q[3] - q[0]) <= 1)
+    if size >= 16:
+        flat2 = np.ones_like(mask)
+        for k in (4, 5, 6):
+            flat2 &= (np.abs(p[k] - p[0]) <= 1) & (np.abs(q[k] - q[0]) <= 1)
+    out = s.copy()
+    narrow = mask & ((size == 4) | ~flat)
+
+    def c(v):
+        return np.clip(v, -128, 127)
+    ps1, ps0, qs0, qs1 = p[1] - 128, p[0] - 128, q[0] - 128, q[1] - 128
+    f = np.where(hev, c(ps1 - qs1), 0)
+    f = c(f + 3 * (qs0 - ps0))
+    f1, f2 = c(f + 4) >> 3, c(f + 3) >> 3
+    oq0, op0 = c(qs0 - f1) + 128, c(ps0 + f2) + 128
+    fr = _round2(f1, 1)
+    oq1, op1 = c(qs1 - fr) + 128, c(ps1 + fr) + 128
+    out[:, 8] = np.where(narrow, oq0, out[:, 8])
+    out[:, 7] = np.where(narrow, op0, out[:, 7])
+    out[:, 9] = np.where(narrow & ~hev, oq1, out[:, 9])
+    out[:, 6] = np.where(narrow & ~hev, op1, out[:, 6])
+    wide = mask & ~narrow
+    for log2 in (3, 4):
+        sel = wide & ((flat2 if log2 == 4 else ~flat2) if size >= 16 else (log2 == 3))
+        if size == 8 and log2 == 4:
+            continue
+        n = 6 if log2 == 4 else (3 if plane == 0 else 2)
+        n2 = 0 if (log2 == 3 and plane == 0) else 1
+        for i in range(-n, n):
+            t = 0
+            for j in range(-n, n + 1):
+                t = t + s[:, 8 + min(max(i + j, -(n + 1)), n)] * (2 if abs(j) <= n2 else 1)
+            out[:, 8 + i] = np.where(sel, _round2(t, log2), out[:, 8 + i])
+    return out.astype(np.int32)
+
+
+def to_rgba_plain(y, u, v, alpha, w: int, h: int) -> np.ndarray:
+    """libyuv's bilinear 4:2:0 upsampling and full-range BT.601 fixed point
+    (fd_av1_to_rgb): planes as decoded (padded), alpha h x w or None."""
+    yy = y[:h, :w].astype(np.int64)
+    if u is not None:
+        ch, cw = (h + 1) >> 1, (w + 1) >> 1
+        rows = np.arange(h)
+        c0 = (rows - 1) >> 1
+        near = np.where(rows & 1, c0, c0 + 1)
+        far = np.where(rows & 1, c0 + 1, c0)
+        near[0] = far[0] = 0
+        near, far = np.clip(near, 0, ch - 1), np.clip(far, 0, ch - 1)
+        cols = np.arange(w)
+        cx = (cols - 1) >> 1
+        nx = np.where(cols & 1, cx, cx + 1)
+        fx = np.where(cols & 1, cx + 1, cx)
+        nx[0] = fx[0] = 0
+        nx[w - 1] = fx[w - 1] = (w - 1) >> 1
+        nx, fx = np.clip(nx, 0, cw - 1), np.clip(fx, 0, cw - 1)
+
+        def up(c):
+            c = c.astype(np.int64)
+            return (9 * c[near][:, nx] + 3 * c[far][:, nx] + 3 * c[near][:, fx]
+                    + c[far][:, fx] + 8) >> 4
+        uu, vv = up(u) - 128, up(v) - 128
+    else:
+        uu = vv = np.zeros_like(yy)
+    y1 = (yy * 0x0101 * 16320) >> 16
+    r = (y1 + vv * 90 + 32) >> 6
+    g = (y1 - uu * 22 - vv * 46 + 32) >> 6
+    b = (y1 + uu * 113 + 32) >> 6
+    out = np.zeros((h, w, 4), np.uint8)
+    out[..., 0], out[..., 1], out[..., 2] = (np.clip(c, 0, 255) for c in (r, g, b))
+    out[..., 3] = 255 if alpha is None else alpha[:h, :w]
+    return out
+
+
+def check_trace(buf: np.ndarray, limit: int = 0) -> dict:
+    """Checks the traced stage calls against their twins; `limit` caps the
+    calls checked of each kind (0: all). Returns the counts checked;
+    raises RuntimeError at the first call that differs."""
+    counts = {"predict": 0, "cfl": 0, "txfm": 0, "lf": 0}
+    lf_batches = {}
+    pos, n = 0, len(buf)
+    while pos < n:
+        kind = int(buf[pos])
+        if kind == 1:
+            params = buf[pos + 1:pos + 13]
+            m = int(buf[pos + 13])
+            above = buf[pos + 14:pos + 14 + m]
+            left = buf[pos + 14 + m:pos + 14 + 2 * m]
+            w, h = 1 << int(params[1]), 1 << int(params[2])
+            got = buf[pos + 14 + 2 * m:pos + 14 + 2 * m + w * h]
+            pos += 14 + 2 * m + w * h
+            if not limit or counts["predict"] < limit:
+                want = predict_plain(params, above, left)
+                if not np.array_equal(want.reshape(-1), got):
+                    raise RuntimeError(f"predict {params.tolist()} differs from predict_plain")
+                counts["predict"] += 1
+        elif kind == 2:
+            w, h, alpha = (int(v) for v in buf[pos + 1:pos + 4])
+            k = w * h
+            L = buf[pos + 4:pos + 4 + k].reshape(h, w)
+            dc = buf[pos + 4 + k:pos + 4 + 2 * k].reshape(h, w)
+            got = buf[pos + 4 + 2 * k:pos + 4 + 3 * k]
+            pos += 4 + 3 * k
+            if not limit or counts["cfl"] < limit:
+                if not np.array_equal(cfl_plain(L, alpha, dc).reshape(-1), got):
+                    raise RuntimeError("cfl differs from cfl_plain")
+                counts["cfl"] += 1
+        elif kind == 3:
+            tx, ty, lossless, nnz = (int(v) for v in buf[pos + 1:pos + 5])
+            pairs = buf[pos + 5:pos + 5 + 2 * nnz].reshape(-1, 2)
+            w, h = TX_W[tx], TX_H[tx]
+            got = buf[pos + 5 + 2 * nnz:pos + 5 + 2 * nnz + w * h]
+            pos += 5 + 2 * nnz + w * h
+            if not limit or counts["txfm"] < limit:
+                deq = np.zeros(64 * 64, np.int64)
+                deq[pairs[:, 0]] = pairs[:, 1]
+                want = inv_txfm_plain(deq.reshape(64, 64), tx, ty, lossless)
+                if not np.array_equal(want.reshape(-1), got):
+                    raise RuntimeError(f"inverse transform {tx} {ty} differs from inv_txfm_plain")
+                counts["txfm"] += 1
+        elif kind == 4:
+            key = tuple(int(v) for v in buf[pos + 1:pos + 6])
+            lf_batches.setdefault(key, []).append(buf[pos + 6:pos + 38])
+            pos += 38
+        else:
+            raise RuntimeError(f"a trace record of kind {kind}")
+    for key, rows in lf_batches.items():
+        rows = np.array(rows[:limit] if limit else rows)
+        want = lf_edge_plain(rows[:, :16], key)
+        if not np.array_equal(want, rows[:, 16:]):
+            raise RuntimeError(f"loop filter {key} differs from lf_edge_plain")
+        counts["lf"] += len(rows)
+    return counts

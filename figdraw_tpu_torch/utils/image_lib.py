@@ -1,7 +1,8 @@
 """The decoders' host libraries (csrc/image_decode.cpp with its fax code
 tables csrc/fax_tables.h, csrc/webp_decode.cpp with its tables
 csrc/webp_tables.h, csrc/zstd_decode.cpp, and the Brotli decoder of WOFF2
-fonts, csrc/brotli_decode.cpp with csrc/brotli_tables.h), built with g++ by
+fonts, csrc/brotli_decode.cpp with csrc/brotli_tables.h, and the AV1 intra
+decoder of AVIF images, csrc/av1_decode.cpp with csrc/av1_tables.h), built with g++ by
 utils.gxx at first use and bound through ctypes. A missing toolchain or a
 failed build raises: no decoder falls back to its plain Python twin."""
 
@@ -21,12 +22,15 @@ _WEBP_DEPS = (os.path.join(_CSRC, "webp_tables.h"),)
 _ZSTD_SRC = os.path.join(_CSRC, "zstd_decode.cpp")
 _BROTLI_SRC = os.path.join(_CSRC, "brotli_decode.cpp")
 _BROTLI_DEPS = (os.path.join(_CSRC, "brotli_tables.h"),)
+_AV1_SRC = os.path.join(_CSRC, "av1_decode.cpp")
+_AV1_DEPS = (os.path.join(_CSRC, "av1_tables.h"),)
 _FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 _lock = threading.Lock()
 _lib = None
 _webp = None
 _zstd = None
 _brotli = None
+_av1 = None
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
@@ -51,6 +55,16 @@ _WEBP_SIGNATURES = {
     "fd_webp_upsample": ([_P, _P, _P, _I, _I, _P], _I),
     "fd_webp_vp8l": ([_P, _I64, _I, _I, _I, _P], _I),
     "fd_webp_alpha_unfilter": ([_P, _I, _I, _I, _P], _I),
+}
+_AV1_SIGNATURES = {
+    "fd_av1_tile": ([_P, _I64, _P, _P, _P, _P, _P, _P], _I),
+    "fd_av1_deblock": ([_P, _P, _P, _P, _P], _I),
+    "fd_av1_to_rgb": ([_P, _I, _P, _P, _I, _P, _I, _I, _I, _P], _I),
+    "fd_av1_predict": ([_P, _P, _P, _P], _I),
+    "fd_av1_cfl": ([_P, _I, _I, _I, _P], _I),
+    "fd_av1_inv_txfm": ([_P, _I, _I, _I, _P], _I),
+    "fd_av1_lf_edge": ([_P, _P], _I),
+    "fd_av1_trace": ([_P, _I64], _I64),
 }
 _ZSTD_SIGNATURES = {"fd_zstd_decompress": ([_P, _I64, _P, _I64], _I64)}
 _BROTLI_SIGNATURES = {"fd_brotli_decompress": ([_P, _I64, _P, _P, _I64], _I64)}
@@ -100,3 +114,13 @@ def load_brotli() -> ctypes.CDLL:
             _brotli = _bind(gxx.build(_BROTLI_SRC, "figdraw_brotli_decode", _FLAGS, _BROTLI_DEPS),
                             _BROTLI_SIGNATURES)
         return _brotli
+
+
+def load_av1() -> ctypes.CDLL:
+    """The AV1 decoder's library, built and bound at first use."""
+    global _av1
+    with _lock:
+        if _av1 is None:
+            _av1 = _bind(gxx.build(_AV1_SRC, "figdraw_av1_decode", _FLAGS, _AV1_DEPS),
+                         _AV1_SIGNATURES)
+        return _av1

@@ -6,28 +6,32 @@ resources.load_image and utils/flippy.py; the port may not import PIL).
 Decoded: PNG (utils/png.py), JPEG (utils/jpeg.py), GIF's first frame
 (utils/gif.py), BMP (utils/bmp.py), ICO (utils/ico.py), QOI
 (utils/qoi.py), TIFF and BigTIFF's first image (utils/tiff.py, CCITT fax
-and ZSTD through utils/fax.py and utils/zstd.py) and WebP's first frame,
-lossy, lossless or animated (utils/webp.py); their sequential loops run
-in C++ (csrc/png_unfilter.cpp, csrc/image_decode.cpp, csrc/zstd_decode.cpp,
-csrc/webp_decode.cpp, built with g++ at first use; a missing toolchain
-raises). AVIF and PIL's other readers raise NotImplementedError naming the
-format, the path and the ROADMAP item, as does a TIFF compression or
-photometric not ported, a WebP inter frame, a VP8L version other than 0
-or an ALPH compression other than none and lossless; bytes of no image
-format raise ValueError.
+and ZSTD through utils/fax.py and utils/zstd.py), WebP's first frame,
+lossy, lossless or animated (utils/webp.py) and AVIF still images of AV1
+profile 0, 8-bit 4:2:0 with an optional alpha item (utils/avif.py,
+utils/av1.py); their sequential loops run in C++ (csrc/png_unfilter.cpp,
+csrc/image_decode.cpp, csrc/zstd_decode.cpp, csrc/webp_decode.cpp,
+csrc/av1_decode.cpp, built with g++ at first use; a missing toolchain
+raises). PIL's other readers raise NotImplementedError naming the format,
+the path and the ROADMAP item, as does a TIFF compression or photometric
+not ported, a WebP inter frame, a VP8L version other than 0, an ALPH
+compression other than none and lossless, or an AV1 or HEIF feature
+outside the slice (utils/avif.py); bytes of no image format raise
+ValueError.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from . import bmp, gif, ico, jpeg, png, qoi, tiff, webp
+from . import av1, avif, bmp, gif, ico, jpeg, png, qoi, tiff, webp
 
 NOT_PORTED = ("{} images are not decoded by figdraw_tpu_torch ({}): not ported yet "
               "(ROADMAP.md, module item 'Image formats other than PNG')")
 
 # leading bytes -> (format, decoder); a RIFF file is WebP only with the
-# WEBP form type at byte 8 (is_webp), so AVI and WAV files do not reach it
+# WEBP form type at byte 8, so AVI and WAV files do not reach it, and an
+# ISO-BMFF file is AVIF when its ftyp box names an AVIF brand (is_avif)
 DECODERS = (
     (png.SIGNATURE, "PNG", png.decode_png),
     (b"\xff\xd8\xff", "JPEG", jpeg.decode_jpeg),
@@ -41,19 +45,24 @@ DECODERS = (
     (b"II+\x00", "BigTIFF", tiff.decode_tiff),
     (b"MM\x00+", "BigTIFF", tiff.decode_tiff),
     (b"RIFF", "WebP", webp.decode_webp),
+    (b"", "AVIF", avif.decode_avif),
 )
 
 AVIF_BRANDS = (b"avif", b"avis")
+AVIF_MAJOR_BRANDS = (b"avif", b"avis", b"mif1", b"msf1")
 
 
 def _matches(data: bytes, magic: bytes, name: str) -> bool:
+    if name == "AVIF":
+        return is_avif(data)
     return data.startswith(magic) and (name != "WebP" or data[8:12] == b"WEBP")
 
 
 def is_avif(data: bytes) -> bool:
-    """An ISO-BMFF file whose `ftyp` box names an AVIF brand, major or
-    compatible (what PIL's AvifImagePlugin accepts)."""
-    if len(data) < 16 or data[4:8] != b"ftyp":
+    """An ISO-BMFF file that PIL's AvifImagePlugin opens: a major brand it
+    accepts (avif, avis, mif1 or msf1) and an AVIF brand, major or
+    compatible, which libavif requires."""
+    if len(data) < 16 or data[4:8] != b"ftyp" or data[8:12] not in AVIF_MAJOR_BRANDS:
         return False
     size = int.from_bytes(data[:4], "big")
     end = min(len(data), size if size >= 16 else 16)
@@ -80,8 +89,6 @@ def format_of(data: bytes) -> str:
     for magic, name in OTHER_FORMATS:
         if data.startswith(magic):
             return name
-    if is_avif(data):
-        return "AVIF"
     if len(data) > 2 and data[:1] == b"P" and data[1:2] in b"1234567" and data[2:3].isspace():
         return "PPM"
     if len(data) > 1 and data[0] == 10 and data[1] in (0, 2, 3, 5):
@@ -89,20 +96,26 @@ def format_of(data: bytes) -> str:
     return ""
 
 
+def _decode(fn, data: bytes, where: str) -> np.ndarray:
+    try:
+        return fn(data)
+    except av1.Refused as exc:  # an AV1 or HEIF feature outside the AVIF slice
+        raise NotImplementedError(av1.NOT_PORTED.format(exc.feature, where)) from None
+    except NotImplementedError as exc:  # a JPEG process, TIFF layout or WebP part not ported
+        raise NotImplementedError(f"{exc} [{where}]") from None
+
+
 def decode_image(data: bytes, where: str = "bytes") -> np.ndarray:
     """An image file's bytes to (H, W, 4) uint8 RGBA. `where` names the
     source in the errors (read_image passes the path)."""
     for magic, name, fn in DECODERS:
         if _matches(data, magic, name):
-            try:
-                return fn(data)
-            except NotImplementedError as exc:  # a JPEG process, TIFF layout or WebP part not ported
-                raise NotImplementedError(f"{exc} [{where}]") from None
+            return _decode(fn, data, where)
     name = format_of(data)
     if name:
         raise NotImplementedError(NOT_PORTED.format(name, where))
     raise ValueError(f"{where} is not an image file figdraw_tpu_torch reads "
-                     "(PNG, JPEG, GIF, BMP, ICO, QOI, TIFF or WebP)")
+                     "(PNG, JPEG, GIF, BMP, ICO, QOI, TIFF, WebP or AVIF)")
 
 
 def read_image(path: str) -> np.ndarray:

@@ -1,0 +1,537 @@
+"""The port's AV1 intra decoder (figdraw_tpu_torch/utils/av1.py, its C++ in
+csrc/av1_decode.cpp) against PIL 12.1.0, which decodes AVIF through
+libavif 1.3.0 and dav1d: the corpus PIL writes here (the fixture at
+qualities 0-100, a 224x168 crop at speeds 0 and 10, seeded noise and crops
+at 1x1 to 257x129, a gradient alpha, a flat UI picture at speeds 0 and 6,
+4:0:0, tiles, a grid of repeated icons that aom codes with intra block
+copy) equal byte for byte or refused with the feature named; the
+headers of those files; the constant tables (tools/make_av1_tables.py)
+pinned by sha256 and found whole in libaom's binary; each C++ stage (the
+inverse transforms, the intra predictors with the edge filter and
+upsampling, CfL, filter intra, one loop-filter position at each length,
+YUV -> RGB) equal to its numpy twin on seeded inputs and, through the
+stage trace, on the corpus; seeded files of tools/avif_fuzz_agreement.py;
+and no fallback when the C++ does not build."""
+
+import ctypes
+import hashlib
+import io
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from figdraw_tpu_torch.scenes import AVIF_FIXTURE, IMAGE_FIXTURE
+from figdraw_tpu_torch.utils import av1, av1_tables, avif, image_lib, imagefile
+from torch_reference import REPO
+
+sys.path.insert(0, os.path.join(REPO, "tools"))
+import avif_fuzz_agreement as fuzz  # noqa: E402
+from make_av1_tables import CDFS, STORED, libaom_path, read_tables  # noqa: E402
+
+torch.set_num_threads(1)
+
+TABLES_HEADER = os.path.join(REPO, "figdraw_tpu_torch", "csrc", "av1_tables.h")
+
+
+def _fixture() -> np.ndarray:
+    return np.asarray(Image.open(IMAGE_FIXTURE).convert("RGB"))
+
+
+def _pil_avif(px: np.ndarray, **kw) -> bytes:
+    out = io.BytesIO()
+    Image.fromarray(px).save(out, "AVIF", **kw)
+    return out.getvalue()
+
+
+def _pil(data: bytes) -> np.ndarray:
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+
+
+def _flat_ui() -> np.ndarray:
+    ui = np.full((240, 320, 3), 245, np.uint8)
+    ui[20:60, 20:300] = (30, 90, 200)
+    ui[80:200, 40:150] = (220, 50, 50)
+    ui[100:180, 180:290] = (40, 160, 70)
+    ui[210:225, 20:300] = (10, 10, 10)
+    return ui
+
+
+def _tiles(w: int, h: int) -> np.ndarray:
+    """A flat picture of one seeded 12x12 icon repeated on a grid, which
+    aom codes with intra block copy (screen content at speeds 5-7)."""
+    icon = np.random.default_rng(3).integers(0, 2, (12, 12)) * 200 + 20
+    img = np.full((h, w, 3), 240, np.uint8)
+    for y in range(8, h - 16, 20):
+        for x in range(8, w - 16, 20):
+            img[y:y + 12, x:x + 12] = icon[..., None]
+    return img
+
+
+def _corpus(name: str) -> bytes:
+    fix = _fixture()
+    rng = np.random.default_rng(7)
+    kind, _, arg = name.partition(":")
+    if kind == "fixture":
+        return _pil_avif(fix, quality=int(arg))
+    if kind == "crop":
+        return _pil_avif(np.ascontiguousarray(fix[100:268, 200:424]), speed=int(arg))
+    if kind in ("noise", "fixcrop"):
+        w, h = (int(v) for v in arg.split("x"))
+        px = (rng.integers(0, 256, (h, w, 3), dtype=np.uint8) if kind == "noise"
+              else np.ascontiguousarray(fix[:h, :w]))
+        return _pil_avif(px)
+    if kind == "alpha":
+        rgba = np.dstack([fix, np.tile(np.linspace(0, 255, 800).astype(np.uint8), (600, 1))])
+        return _pil_avif(np.ascontiguousarray(rgba))
+    if kind == "ui":
+        return _pil_avif(_flat_ui(), speed=int(arg))
+    if kind == "orient6":
+        exif = Image.Exif()
+        exif[0x0112] = 6
+        return _pil_avif(np.ascontiguousarray(fix[:96, :130]), exif=exif.tobytes())
+    if kind == "mono":
+        return _pil_avif(np.ascontiguousarray(fix[:129, :257]), subsampling="4:0:0",
+                         quality=int(arg))
+    if kind == "tiles":
+        return _pil_avif(np.ascontiguousarray(fix[:300, :520]), tile_cols=1, tile_rows=1)
+    if kind == "lossless":
+        return _pil_avif(np.ascontiguousarray(fix[:65, :65]), quality=100)
+    if kind == "aom":  # aom options PIL's save passes through `advanced`
+        options = dict(kv.split("=") for kv in arg.split(","))
+        quality = int(options.pop("quality", 60))
+        return _pil_avif(np.ascontiguousarray(fix[100:356, 150:470]), quality=quality,
+                         advanced=options)
+    if kind == "icons":
+        speed, _, rest = arg.partition(",")
+        kw = {"quality": 100} if rest == "lossless" else ({"subsampling": "4:0:0"} if rest else {})
+        return _pil_avif(_tiles(257, 131), speed=int(speed), **kw)
+    raise KeyError(name)
+
+
+DECODED = (["fixture:%d" % q for q in (0, 10, 25, 50, 75, 90, 100)] + ["crop:10"]
+           + ["%s:%s" % (k, s) for k in ("noise", "fixcrop")
+              for s in ("1x1", "17x3", "65x65", "130x96", "257x129")]
+           + ["alpha:", "ui:6", "orient6:", "mono:50", "mono:100", "tiles:", "lossless:"]
+           + ["icons:5", "icons:6", "icons:7", "icons:6,lossless", "icons:6,mono"]
+           + ["aom:deltaq-mode=2", "aom:sharpness=3", "aom:sharpness=7",
+              "aom:reduced-tx-type-set=1", "aom:enable-chroma-deltaq=1",
+              "aom:enable-qm=1", "aom:enable-qm=1,qm-min=0,qm-max=4,quality=95",
+              "aom:enable-qm=1,qm-min=10,qm-max=14,quality=30"])
+# speed 0 turns on loop restoration (ROADMAP item 1.3, slice 2)
+REFUSED = {"crop:0": "loop restoration", "ui:0": "loop restoration"}
+
+
+@pytest.mark.parametrize("name", DECODED)
+def test_corpus_equals_pil(name):
+    data = _corpus(name)
+    got = imagefile.decode_image(data)
+    want = _pil(data)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_corpus_outside_the_slice_is_refused(name):
+    with pytest.raises(NotImplementedError, match=rf"AVIF images with {REFUSED[name]}"):
+        imagefile.decode_image(_corpus(name))
+
+
+@pytest.mark.parametrize("name", ["noise:65x65", "fixcrop:130x96", "ui:6", "lossless:",
+                                  "mono:100", "fixcrop:17x3", "icons:6"])
+def test_plain_decode_checks_every_stage_against_its_twin(name):
+    """decode(plain=True): every traced prediction, CfL, inverse transform
+    and loop-filter call equal to its twin, and the YUV -> RGB twin's
+    image equal to PIL's."""
+    data = _corpus(name)
+    still = avif.parse(data)
+    frame = av1.decode(still.color, plain=True)
+    assert frame.checked["predict"] > 0
+    np.testing.assert_array_equal(avif.decode_avif(data, plain=True), _pil(data))
+
+
+def test_the_fixtures_stages_include_every_kind():
+    """The stored fixture traces all four kinds of stage call, each equal
+    to its twin (a capped number of each)."""
+    with open(AVIF_FIXTURE, "rb") as fh:
+        still = avif.parse(fh.read())
+    lib = image_lib.load_av1()
+    trace = np.zeros(60 * 1024 * 1024 // 4, np.int32)
+    lib.fd_av1_trace(trace.ctypes.data, trace.size)
+    av1.decode(still.color)
+    n = lib.fd_av1_trace(ctypes.c_void_p(0), 0)
+    assert n > 0
+    counts = av1.check_trace(trace[:n], limit=300)
+    assert all(counts[k] > 0 for k in ("predict", "cfl", "txfm", "lf")), counts
+
+
+# --- headers ----------------------------------------------------------------------
+
+def _headers(data: bytes):
+    still = avif.parse(data)
+    seq, fh = None, None
+    for kind, payload in av1.obus(still.color):
+        if kind == av1.OBU_SEQUENCE_HEADER:
+            seq = av1.parse_sequence(payload)
+        elif kind == av1.OBU_FRAME:
+            fh = av1.parse_frame_header(av1.BitReader(payload), seq)
+    return seq, fh
+
+
+def test_fixture_headers():
+    """PIL's default save: a reduced still-picture header, 128x128
+    superblocks, filter intra and the edge filter on, two tile columns
+    (PIL's autotiling), the colour in the colr box (BT.601 full range)."""
+    with open(AVIF_FIXTURE, "rb") as fh:
+        seq, fh = _headers(fh.read())
+    assert seq.profile == 0 and seq.still and seq.reduced
+    assert seq.use128 and seq.filter_intra and seq.edge_filter and not seq.mono
+    assert (seq.max_width, seq.max_height) == (800, 600)
+    assert (seq.primaries, seq.transfer, seq.matrix, seq.full_range) == (2, 2, 2, 1)
+    assert avif.parse(open(AVIF_FIXTURE, "rb").read()).nclx == (1, 13, 6, 1)  # the colr box
+    hdr = fh["hdr"]
+    assert (hdr[av1.H_MI_COLS], hdr[av1.H_MI_ROWS]) == (200, 150)
+    assert fh["col_starts"] == [0, 128, 200] and fh["row_starts"] == [0, 150]
+    assert 0 < hdr[av1.H_BASE_Q] < 255 and hdr[av1.H_TX_MODE] == 2
+    assert hdr[av1.H_LF_LEVEL0] > 0
+
+
+@pytest.mark.parametrize("name", ["icons:5", "icons:6", "icons:7", "icons:6,lossless",
+                                  "icons:6,mono"])
+def test_repeated_icons_are_coded_with_intra_block_copy(name):
+    """The icon grid: allow_intrabc set (no loop filter), blocks coded as
+    copies of earlier ones (the vector stack, split transform sizes, the
+    inter transform sets), decoded equal to PIL (test_corpus_equals_pil)."""
+    still = avif.parse(_corpus(name))
+    frame = av1.decode(still.color)
+    assert frame.mi[..., av1.M_INTER].sum() > 0
+    vectors = frame.mi[..., av1.M_MV_ROW][frame.mi[..., av1.M_INTER] > 0]
+    assert np.all(vectors % 8 == 0)  # whole pels
+
+
+def test_flat_ui_turns_on_screen_content_and_palettes():
+    seq, fh = _headers(_corpus("ui:6"))
+    assert fh["hdr"][av1.H_SCREEN_CONTENT] == 1
+
+
+@pytest.mark.parametrize("name, field, value", [
+    ("aom:deltaq-mode=2", "H_DELTA_Q_PRESENT", 1), ("aom:sharpness=7", "H_SHARPNESS", 7),
+    ("aom:reduced-tx-type-set=1", "H_REDUCED_TX_SET", 1), ("aom:enable-chroma-deltaq=1", "H_DQ_U_AC", 2),
+    ("aom:enable-qm=1", "H_USING_QM", 1),
+])
+def test_aom_options_reach_the_header(name, field, value):
+    """The header fields the aom options set (delta q, loop filter
+    sharpness, the reduced transform sets, chroma delta q, quantiser
+    matrices, which apply to 2D transform types only), each file decoded
+    equal to PIL (test_corpus_equals_pil)."""
+    _seq, fh = _headers(_corpus(name))
+    assert fh["hdr"][getattr(av1, field)] == value
+
+
+def test_lossless_frame_is_coded_lossless():
+    _seq, fh = _headers(_corpus("lossless:"))
+    hdr = fh["hdr"]
+    assert hdr[av1.H_LOSSLESS:av1.H_LOSSLESS + 8].all() and hdr[av1.H_BASE_Q] == 0
+    assert hdr[av1.H_LF_LEVEL0] == 0 and hdr[av1.H_TX_MODE] == 0
+
+
+def test_tiles_are_read():
+    _seq, fh = _headers(_corpus("tiles:"))
+    assert len(fh["col_starts"]) - 1 == 2 and len(fh["row_starts"]) - 1 == 2
+
+
+@pytest.mark.parametrize("kw, feature", [
+    (dict(subsampling="4:4:4"), "AV1 profile 1"),
+    (dict(subsampling="4:2:2"), "AV1 profile 2"),
+    (dict(range="limited"), "limited-range colour"),
+])
+def test_header_features_outside_the_slice_are_refused(kw, feature):
+    with pytest.raises(NotImplementedError, match=rf"AVIF images with {feature}"):
+        imagefile.decode_image(_pil_avif(np.ascontiguousarray(_fixture()[:47, :61]), **kw))
+
+
+def test_obus_and_leb128():
+    assert av1.leb128(bytes([0x80, 0x01]), 0) == (128, 2)
+    assert av1.leb128(bytes([0x05]), 0) == (5, 1)
+    stream = bytes([0x12, 0x00, 0x7A, 0x02, 0xAB, 0xCD])  # temporal delimiter, padding
+    assert [(k, p) for k, p in av1.obus(stream)] == [(2, b""), (15, b"\xab\xcd")]
+    with pytest.raises(ValueError):
+        list(av1.obus(bytes([0x12, 0x05, 0x00])))
+
+
+# --- the tables -------------------------------------------------------------------
+
+def _header_tables() -> dict:
+    with open(TABLES_HEADER) as fh:
+        text = fh.read()
+    out = {}
+    for m in re.finditer(r"static const \w+ (\w+)((?:\[\d+\])+) = \{([^}]*)\};", text):
+        out[m.group(1)] = np.array([int(v) for v in m.group(3).replace("\n", " ").split(",")
+                                    if v.strip()], np.int64)
+    return out
+
+
+def test_every_table_is_pinned_by_its_sha256():
+    header = _header_tables()
+    assert set(header) == set(av1_tables.SHA256)
+    for name, values in header.items():
+        digest = hashlib.sha256(values.astype("<i4").tobytes()).hexdigest()
+        assert digest == av1_tables.SHA256[name], name
+        if hasattr(av1_tables, name):
+            np.testing.assert_array_equal(getattr(av1_tables, name).reshape(-1), values)
+
+
+def _libaom() -> bytes:
+    path = libaom_path()
+    if not path:
+        pytest.skip("no libaom on this host to find the tables in")
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def test_tables_are_what_the_tool_reads_from_libaom():
+    tables = read_tables(libaom_path() if _libaom() else "")
+    header = _header_tables()
+    for name, (arr, _off, _what) in tables.items():
+        np.testing.assert_array_equal(arr.reshape(-1), header[name], err_msg=name)
+
+
+@pytest.mark.parametrize("name", [n for n in STORED] + ["DEFAULT_SCAN_%dX%d" % s for s in (
+    (4, 4), (8, 8), (16, 16), (32, 32), (4, 8), (8, 4), (8, 16), (16, 8), (16, 32), (32, 16),
+    (4, 16), (16, 4), (8, 32), (32, 8))])
+def test_stored_tables_occur_whole_in_libaom(name):
+    binary = _libaom()
+    fmt = STORED[name][0] if name in STORED else "<i2"
+    values = _header_tables()[name].astype(fmt)
+    assert values.tobytes() in binary
+
+
+@pytest.mark.parametrize("name", list(CDFS))
+def test_cdfs_occur_in_libaom(name):
+    """Each CDF's inverse values occur in libaom's binary; the last CfL
+    alpha CDF's run there repeats two values (read as the 15 falling
+    ones), so its two falling parts occur."""
+    binary = _libaom()
+    header = _header_tables()[name]
+    grid, ns, _anchor, _what = CDFS[name]
+    count = int(np.prod(grid)) if grid else 1
+    nlist = ns if isinstance(ns, list) else [ns] * count
+    slot = max(nlist) + 1
+    rows = header.reshape(count, slot)
+    for k, n in enumerate(nlist):
+        vals = rows[k, :n - 1]
+        assert np.all(vals[:-1] > vals[1:]) and vals[-1] > 0 and rows[k, n - 1] == 0
+        parts = [vals[:11], vals[11:]] if name == "CFL_ALPHA" and k == 5 else [vals]
+        for part in parts:
+            assert part.astype("<u2").tobytes() in binary, (name, k)
+
+
+def test_scans_are_permutations():
+    for w, h in ((4, 4), (8, 8), (16, 16), (32, 32), (4, 8), (8, 4), (8, 16), (16, 8),
+                 (16, 32), (32, 16), (4, 16), (16, 4), (8, 32), (32, 8)):
+        scan = getattr(av1_tables, f"DEFAULT_SCAN_{w}X{h}")
+        assert sorted(scan.tolist()) == list(range(w * h))
+
+
+# --- the C++ stages against their twins ---------------------------------------------
+
+INTRA_TYPES = {  # the 2D types each size may take in an intra frame, and a flipped one
+    0: range(16), 1: range(16), 2: range(16), 3: (0, 9), 4: (0,),
+    5: range(16), 6: range(16), 7: range(16), 8: range(16), 9: (0, 9), 10: (0, 9),
+    11: (0,), 12: (0,), 13: range(16), 14: range(16), 15: (0, 9), 16: (0, 9), 17: (0,), 18: (0,),
+}
+
+
+@pytest.mark.parametrize("tx", range(19))
+def test_inverse_transforms_equal_their_twin(tx):
+    lib = image_lib.load_av1()
+    rng = np.random.default_rng(tx)
+    w, h = av1.TX_W[tx], av1.TX_H[tx]
+    for tx_type in INTRA_TYPES[tx]:
+        for trial in range(3):
+            deq = np.zeros((64, 64), np.int32)
+            tw, th = min(w, 32), min(h, 32)
+            k = rng.integers(1, tw * th + 1)
+            idx = rng.choice(tw * th, k, replace=False)
+            scale = (8, 200, 2000)[trial]
+            deq[idx // tw, idx % tw] = rng.integers(-scale, scale + 1, k)
+            got = np.zeros(w * h, np.int32)
+            assert lib.fd_av1_inv_txfm(deq.ctypes.data, tx, tx_type, 0, got.ctypes.data) == 0
+            want = av1.inv_txfm_plain(deq, tx, tx_type, 0)
+            np.testing.assert_array_equal(got.reshape(h, w), want, err_msg=f"{tx} {tx_type}")
+    deq = np.zeros((64, 64), np.int32)
+    deq[:4, :4] = rng.integers(-300, 300, (4, 4))
+    got = np.zeros(16, np.int32)
+    lib.fd_av1_inv_txfm(deq.ctypes.data, 0, 0, 1, got.ctypes.data)
+    np.testing.assert_array_equal(got.reshape(4, 4), av1.inv_txfm_plain(deq, 0, 0, 1))
+
+
+@pytest.mark.parametrize("n, kind", [(2, 0), (3, 0), (4, 0), (5, 0), (6, 0), (2, 1), (3, 1), (4, 1)])
+def test_transforms_follow_their_float_bases(n, kind):
+    """The DCT and ADST twins against float bases (the AV1 DCT-II and
+    its ADSTs: sin(pi (i + 1)(2k + 1) / 9) at 4, the DST-IV above)."""
+    N = 1 << n
+    tx = {2: 0, 3: 1, 4: 2, 5: 3, 6: 4}[n]
+    for k in range(min(N, 32)):
+        deq = np.zeros((64, 64), np.int64)
+        deq[k, 0] = 2000
+        col = av1.inv_txfm_plain(deq, tx, 1 if kind else 0, 0)[:, 0].astype(float)
+        i = np.arange(N)
+        if kind == 0:
+            basis = np.cos(np.pi * (2 * i + 1) * k / (2 * N))
+        elif N == 4:
+            basis = np.sin(np.pi * (i + 1) * (2 * k + 1) / 9)
+        else:
+            basis = np.sin(np.pi * (2 * i + 1) * (2 * k + 1) / (4 * N))
+        corr = np.dot(col, basis) / np.linalg.norm(col) / np.linalg.norm(basis)
+        assert corr > 0.999, (n, kind, k)
+
+
+def _edges(rng, n, flat=False):
+    if flat:
+        return np.full(n, rng.integers(0, 256), np.int32)
+    base = rng.integers(0, 256)
+    return np.clip(base + np.cumsum(rng.integers(-12, 13, n)), 0, 255).astype(np.int32)
+
+
+PREDICT_CASES = [(mode, lw, lh) for mode in range(13) for lw, lh in
+                 ((2, 2), (3, 3), (4, 4), (5, 5), (6, 6), (2, 3), (3, 2), (2, 4), (4, 2),
+                  (3, 5), (5, 3), (4, 6), (6, 4))]
+
+
+@pytest.mark.parametrize("mode, lw, lh", PREDICT_CASES)
+def test_predictors_equal_their_twin(mode, lw, lh):
+    """Each mode and size, with the edge filter on and off, each angle
+    delta, both filter types, edges available or not and cut by the frame
+    (aboveLimit / leftLimit), filter intra's five modes at the sizes it
+    takes."""
+    lib = image_lib.load_av1()
+    rng = np.random.default_rng(mode * 100 + lw * 10 + lh)
+    w, h = 1 << lw, 1 << lh
+    deltas = range(-3, 4) if 1 <= mode <= 8 else (0,)
+    for delta in deltas:
+        for trial in range(4):
+            have_left, have_above = int(trial != 1), int(trial != 2)
+            params = [mode, lw, lh, have_left, have_above, delta, trial & 1, int(trial < 3),
+                      0, 0, int(rng.integers(1, 2 * w)), int(rng.integers(1, 2 * h))]
+            n = w + h + 1
+            above, left = _edges(rng, n, trial == 3), _edges(rng, n)
+            left[0] = above[0]
+            p = np.array(params, np.int32)
+            got = np.zeros(w * h, np.uint8)
+            assert lib.fd_av1_predict(p.ctypes.data, above.ctypes.data, left.ctypes.data,
+                                      got.ctypes.data) == 0
+            want = av1.predict_plain(params, above, left)
+            np.testing.assert_array_equal(got.reshape(h, w), want, err_msg=str(params))
+    if mode == 0 and w <= 32 and h <= 32:
+        for fmode in range(5):
+            params = [0, lw, lh, 1, 1, 0, 0, 1, 1, fmode, w, h]
+            above, left = _edges(rng, w + h + 1), _edges(rng, w + h + 1)
+            left[0] = above[0]
+            p = np.array(params, np.int32)
+            got = np.zeros(w * h, np.uint8)
+            lib.fd_av1_predict(p.ctypes.data, above.ctypes.data, left.ctypes.data, got.ctypes.data)
+            np.testing.assert_array_equal(got.reshape(h, w), av1.predict_plain(params, above, left))
+
+
+@pytest.mark.parametrize("w, h", [(4, 4), (8, 4), (4, 16), (16, 16), (32, 8), (32, 32)])
+def test_cfl_equals_its_twin(w, h):
+    lib = image_lib.load_av1()
+    rng = np.random.default_rng(w * h)
+    for alpha in (-16, -5, -1, 0, 1, 7, 16):
+        L = (rng.integers(0, 256 * 4, (h, w)) * 2).astype(np.int32)
+        dc = np.full((h, w), rng.integers(0, 256), np.uint8)
+        got = dc.copy()
+        assert lib.fd_av1_cfl(L.ctypes.data, w, h, alpha, got.ctypes.data) == 0
+        np.testing.assert_array_equal(got, av1.cfl_plain(L, alpha, dc))
+
+
+@pytest.mark.parametrize("size, plane", [(4, 0), (8, 0), (16, 0), (4, 1), (8, 1)])
+def test_loop_filter_edge_equals_its_twin(size, plane):
+    """One position at each filter length (4, 6 for chroma, 8, 14), smooth
+    and sharp sides, at levels from low to high (sharpness 0 and 4)."""
+    lib = image_lib.load_av1()
+    rng = np.random.default_rng(size * 3 + plane)
+    rows = []
+    for trial in range(400):
+        step = int(rng.integers(0, 40))
+        base = int(rng.integers(0, 200))
+        s = np.concatenate([np.full(8, base), np.full(8, base + step)])
+        s = np.clip(s + rng.integers(-2, 3, 16) * (trial % 3), 0, 255).astype(np.int32)
+        rows.append(s)
+    for lvl in (4, 20, 40, 63):
+        for sharp in (0, 4):
+            shift = 2 if sharp > 4 else (1 if sharp else 0)
+            limit = max(1, lvl >> shift) if not sharp else min(max(lvl >> shift, 1), 9 - sharp)
+            params = [size, plane, limit, 2 * (lvl + 2) + limit, lvl >> 4]
+            p = np.array(params, np.int32)
+            got = []
+            for s in rows:
+                x = s.copy()
+                lib.fd_av1_lf_edge(x.ctypes.data, p.ctypes.data)
+                got.append(x)
+            np.testing.assert_array_equal(np.array(got), av1.lf_edge_plain(np.array(rows), params))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 3), (3, 17), (47, 61), (96, 130)])
+def test_yuv_to_rgb_equals_its_twin(shape):
+    lib = image_lib.load_av1()
+    rng = np.random.default_rng(shape[0] * shape[1])
+    h, w = shape
+    pad = lambda a: np.ascontiguousarray(np.pad(a, ((0, 3), (0, 5))))  # noqa: E731
+    y = pad(rng.integers(0, 256, (h, w), np.uint8))
+    u = pad(rng.integers(0, 256, ((h + 1) // 2, (w + 1) // 2), np.uint8))
+    v = pad(rng.integers(0, 256, u.shape[:1] and ((h + 1) // 2, (w + 1) // 2), np.uint8))
+    a = rng.integers(0, 256, (h, w), np.uint8)
+    for alpha in (None, a):
+        out = np.zeros((h, w, 4), np.uint8)
+        ap = alpha.ctypes.data if alpha is not None else ctypes.c_void_p(0)
+        lib.fd_av1_to_rgb(y.ctypes.data, y.shape[1], u.ctypes.data, v.ctypes.data, u.shape[1],
+                          ap, w, w, h, out.ctypes.data)
+        np.testing.assert_array_equal(out, av1.to_rgba_plain(y, u, v, alpha, w, h))
+
+
+def test_flat_colours_convert_as_libyuv():
+    """Flat 4:2:0 pictures of seeded colours: PIL's RGB is libyuv's
+    fixed-point BT.601 of the decoded YUV (no chroma upsampling error on a
+    flat picture)."""
+    rng = np.random.default_rng(11)
+    for _ in range(6):
+        px = np.full((16, 16, 3), rng.integers(0, 256, 3), np.uint8)
+        data = _pil_avif(px, quality=100)
+        np.testing.assert_array_equal(imagefile.decode_image(data), _pil(data))
+
+
+# --- seeded files of the agreement tool, and no fallback ------------------------------
+
+@pytest.mark.parametrize("seed, index", [(3, i) for i in range(6)] + [(1, 66)])
+def test_fuzz_agreement_cases(seed, index):
+    """Seeded files of the agreement tool; (1, 66) is an alpha item whose
+    intra block copies take H_ADST (the inter transform sets' symbol
+    order, libaom's av1_ext_tx_inv, once read wrong here)."""
+    options, data = fuzz.case(seed, index)
+    kind, detail = fuzz.outcome(data)
+    assert kind in ("equal", "refused"), (options, detail)
+    if kind == "refused":
+        assert options["speed"] <= 4 and detail == "loop restoration"
+
+
+def test_a_failed_build_raises(monkeypatch):
+    """The C++ AV1 library does not build: the decode raises, never runs
+    the plain twins."""
+    from figdraw_tpu_torch.utils import gxx
+
+    def broken(*_a, **_k):
+        raise subprocess.CalledProcessError(1, ["g++"], "", "error")
+
+    monkeypatch.setattr(image_lib, "_av1", None)
+    monkeypatch.setattr(gxx, "build", broken)
+    with open(AVIF_FIXTURE, "rb") as fh:
+        data = fh.read()
+    with pytest.raises(subprocess.CalledProcessError):
+        imagefile.decode_image(data)

@@ -1,0 +1,416 @@
+"""The port's AVIF container reader (figdraw_tpu_torch/utils/avif.py)
+against PIL 12.1.0's `Image.open(...).convert("RGBA")`, which reads AVIF
+through libavif 1.3.0 as figdraw_tpu does: the stored fixture equal to
+PIL and its digests; the HEIF boxes as libavif reads a still image, on
+files PIL writes and on the same items re-muxed here (iloc versions 0-2,
+field sizes 0/4/8, construction method 1 from idat, split extents, infe
+version 3, 15-bit ipma indices, an alpha item named by auxl), each equal
+to PIL's decode of the same bytes; irot / imir read and not applied, as
+PIL; the features outside the slice refused with NotImplementedError
+naming AVIF, the feature, the path and the ROADMAP item (grid, avis,
+clap, a1op, lsel, prem); truncated and corrupt files raising or decoding
+as PIL does (tools/avif_fuzz_agreement.py's cases); load_image of the
+fixture against figdraw_tpu's (image, mips, sidecar) and its frames against
+figdraw_tpu's block means."""
+
+import hashlib
+import io
+import json
+import os
+import shutil
+import struct
+import sys
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from figdraw_tpu_torch.scenes import AVIF_FIXTURE, IMAGE_FIXTURE, IMAGE_FORMATS_REFERENCE
+from figdraw_tpu_torch.utils import avif, imagefile
+from torch_reference import REPO
+
+sys.path.insert(0, os.path.join(REPO, "tools"))
+import avif_fuzz_agreement as fuzz  # noqa: E402
+
+torch.set_num_threads(1)
+
+ROADMAP_ITEM = "Image formats other than PNG"
+
+
+def _pil(data: bytes) -> np.ndarray:
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+
+
+def _crop(w=130, h=96, alpha=False) -> np.ndarray:
+    px = np.asarray(Image.open(IMAGE_FIXTURE).convert("RGBA"))[200:200 + h, 300:300 + w].copy()
+    if alpha:
+        px[..., 3] = np.linspace(0, 255, w).astype(np.uint8)[None, :]
+        return px
+    return np.ascontiguousarray(px[..., :3])
+
+
+def _pil_avif(px: np.ndarray, **kw) -> bytes:
+    out = io.BytesIO()
+    Image.fromarray(px).save(out, "AVIF", **kw)
+    return out.getvalue()
+
+
+def _same(data: bytes) -> np.ndarray:
+    want = _pil(data)
+    got = imagefile.decode_image(data)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    return got
+
+
+# --- a small HEIF writer: PIL's items re-muxed ----------------------------------------
+
+def box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(payload)) + kind + payload
+
+
+def full(kind: bytes, version: int, flags: int, payload: bytes) -> bytes:
+    return box(kind, struct.pack(">I", (version << 24) | flags) + payload)
+
+
+def _props(data: bytes) -> tuple:
+    """PIL's file: (ipco children as bytes, each item's (id, type, property
+    indices, stream), auxl reference or None)."""
+    still = avif.parse(data)
+    top = list(avif._boxes(data, 0, len(data), top=True))
+    _k, ms, me = [b for b in top if b[0] == b"meta"][0]
+    ipco, ipma = [], {}
+    for kind, s, e in avif._boxes(data, ms + 4, me):
+        if kind == b"iprp":
+            for pk, ps, pe in avif._boxes(data, s, e):
+                if pk == b"ipco":
+                    ipco = [data[a - 8:b] for _kk, a, b in avif._boxes(data, ps, pe)]
+                elif pk == b"ipma":
+                    c = avif._Cursor(data, ps, pe)
+                    _v, flags = c.full((0, 1))
+                    for _ in range(c.uint(4)):
+                        item = c.uint(2)
+                        ipma[item] = [c.uint(2 if flags & 1 else 1) & (0x7FFF if flags & 1 else 0x7F)
+                                      for _a in range(c.uint(1))]
+    items = [(1, b"av01", ipma[1], still.color)]
+    if still.alpha:
+        items.append((2, b"av01", ipma[2], still.alpha))
+    return ipco, items
+
+
+def remux(data: bytes, iloc_version=0, sizes=(4, 4, 0, 0), method=0, split=1,
+          infe_version=2, ipma_15bit=False, extra_props=(), primary_type=b"av01",
+          refs=None, ftyp=b"avif\0\0\0\0avifmif1miafMA1B", moov=False) -> bytes:
+    """PIL's file with its meta rebuilt: the given iloc version, field
+    sizes (offset, length, base offset, index), construction method (1:
+    the streams in idat), each stream split in `split` extents, infe
+    version, 15-bit ipma indices, extra properties (kind, payload) on the
+    primary item, the primary item's type and the iref children."""
+    ipco, items = _props(data)
+    for kind, payload in extra_props:
+        ipco.append(box(kind, payload))
+    n_extra = len(extra_props)
+    off_size, len_size, base_size, index_size = sizes
+    if refs is None:
+        refs = [(b"auxl", 2, [1])] if len(items) > 1 else []
+    head = box(b"ftyp", ftyp)
+    hdlr = full(b"hdlr", 0, 0, b"\0" * 4 + b"pict" + b"\0" * 12 + b"\0")
+    pitm = full(b"pitm", 0, 0, struct.pack(">H", 1))
+    infe = b"".join(full(b"infe", infe_version, 0,
+                         (struct.pack(">H", i) if infe_version == 2 else struct.pack(">I", i))
+                         + b"\0\0" + (primary_type if i == 1 else t) + b"\0")
+                    for i, t, _p, _s in items)
+    iinf = full(b"iinf", 0, 0, struct.pack(">H", len(items)) + infe)
+    iref = full(b"iref", 0, 0, b"".join(
+        box(k, struct.pack(">HH", f, len(to)) + b"".join(struct.pack(">H", t) for t in to))
+        for k, f, to in refs)) if refs else b""
+    assoc = b""
+    for i, _t, props, _s in items:
+        plist = list(props) + (list(range(len(ipco) - n_extra + 1, len(ipco) + 1)) if i == 1 else [])
+        assoc += struct.pack(">HB", i, len(plist))
+        for p in plist:
+            assoc += struct.pack(">H", p | 0x8000) if ipma_15bit else bytes([p | 0x80])
+    ipma = full(b"ipma", 0, 1 if ipma_15bit else 0, struct.pack(">I", len(items)) + assoc)
+    iprp = box(b"iprp", box(b"ipco", b"".join(ipco)) + ipma)
+
+    def sized(v, n):
+        return v.to_bytes(n, "big") if n else b""
+
+    def build(offsets):
+        body = struct.pack(">H", (off_size << 12) | (len_size << 8) | (base_size << 4)
+                           | (index_size if iloc_version else 0))
+        body += struct.pack(">I" if iloc_version == 2 else ">H", len(items))
+        for (i, _t, _p, stream), exts in zip(items, offsets):
+            body += struct.pack(">I" if iloc_version == 2 else ">H", i)
+            if iloc_version:
+                body += struct.pack(">H", method)
+            body += struct.pack(">H", 0) + sized(0, base_size) + struct.pack(">H", len(exts))
+            for k, (o, ln) in enumerate(exts):
+                if iloc_version and index_size:
+                    body += sized(k, index_size)
+                body += sized(o, off_size) + sized(ln, len_size)
+        iloc = full(b"iloc", iloc_version, 0, body)
+        parts = [hdlr, pitm, iloc, iinf] + ([iref] if iref else []) + [iprp]
+        if method == 1:
+            parts.append(box(b"idat", b"".join(s for _i, _t, _p, s in items)))
+        return head + full(b"meta", 0, 0, b"".join(parts))
+
+    def extents(base):
+        out, pos = [], base
+        for _i, _t, _p, stream in items:
+            cuts = np.linspace(0, len(stream), split + 1).astype(int)
+            out.append([(pos + int(a), int(b - a)) for a, b in zip(cuts[:-1], cuts[1:])])
+            pos += len(stream)
+        return out
+
+    streams = b"".join(s for _i, _t, _p, s in items)
+    meta = build(extents(0))
+    if method == 1:
+        out = meta
+    else:
+        base = len(meta) + 8
+        meta = build(extents(base))
+        out = meta + box(b"mdat", streams)
+    if moov:
+        out += box(b"moov", b"")
+    return out
+
+
+# --- the stored fixture ------------------------------------------------------------
+
+def test_stored_fixture_equals_pil_and_its_digests():
+    with open(AVIF_FIXTURE, "rb") as fh:
+        data = fh.read()
+    with open(IMAGE_FORMATS_REFERENCE) as fh:
+        ref = json.load(fh)["files"][os.path.basename(AVIF_FIXTURE)]
+    assert hashlib.sha256(data).hexdigest() == ref["sha256"]
+    got = _same(data)
+    assert hashlib.sha256(got.tobytes()).hexdigest() == ref["decoded_sha256"]
+    assert list(got.shape) == ref["shape"] == [600, 800, 4]
+
+
+def test_fixture_boxes():
+    """PIL's default save: ftyp avif, one av01 item of 800x600, av1C of
+    profile 0, 8 bits, 4:2:0, colr nclx BT.709 primaries, sRGB transfer,
+    BT.601 matrix, full range; no alpha (PIL drops an opaque one)."""
+    with open(AVIF_FIXTURE, "rb") as fh:
+        still = avif.parse(fh.read())
+    assert (still.width, still.height) == (800, 600)
+    assert still.av1c == (0, 0, 0, 0, 1, 1)
+    assert still.nclx == (1, 13, 6, 1)
+    assert not still.alpha and still.alpha_av1c is None
+
+
+def test_alpha_item_is_read_through_auxl():
+    data = _pil_avif(_crop(alpha=True))
+    still = avif.parse(data)
+    assert still.alpha and still.alpha_av1c[3] == 1  # monochrome
+    got = _same(data)
+    assert got[..., 3].min() == 0 and got[..., 3].max() == 255
+
+
+# --- re-muxed items ----------------------------------------------------------------
+
+@pytest.mark.parametrize("alpha", [False, True])
+@pytest.mark.parametrize("layout", [
+    dict(iloc_version=0, sizes=(4, 4, 0, 0)),
+    dict(iloc_version=0, sizes=(8, 8, 4, 0), split=3),
+    dict(iloc_version=1, sizes=(4, 4, 0, 4), split=2),
+    dict(iloc_version=2, sizes=(8, 4, 8, 8)),
+    dict(iloc_version=1, sizes=(4, 4, 0, 0), method=1),
+    dict(iloc_version=2, sizes=(4, 4, 0, 0), method=1, split=2),
+    dict(infe_version=3),
+    dict(ipma_15bit=True),
+])
+def test_remuxed_items_equal_pil(layout, alpha):
+    data = remux(_pil_avif(_crop(61, 47, alpha=alpha)), **layout)
+    _same(data)
+
+
+def test_remux_round_trips_pils_file():
+    src = _pil_avif(_crop(alpha=True))
+    np.testing.assert_array_equal(_pil(remux(src)), _pil(src))
+
+
+def test_irot_and_imir_are_not_applied():
+    """PIL writes EXIF orientation 6 as irot (and others with imir) and
+    returns the pixels unrotated, reporting the orientation as EXIF."""
+    px = _crop()
+    for orientation, rot, mirror in ((6, 3, None), (3, 2, None), (2, 0, 1), (5, 1, 0)):
+        exif = Image.Exif()
+        exif[0x0112] = orientation
+        data = _pil_avif(px, exif=exif.tobytes())
+        still = avif.parse(data)
+        assert (still.rotation, still.mirror) == (rot, mirror)
+        assert _same(data).shape == (96, 130, 4)
+
+
+def test_icc_profile_is_ignored():
+    from PIL import ImageCms
+
+    icc = ImageCms.ImageCmsProfile(ImageCms.createProfile("sRGB")).tobytes()
+    _same(_pil_avif(_crop(), icc_profile=icc))
+
+
+# --- refused features ---------------------------------------------------------------
+
+def _refused(data: bytes, feature: str, tmp_path) -> None:
+    path = str(tmp_path / "photo.avif")
+    with open(path, "wb") as fh:
+        fh.write(data)
+    assert imagefile.format_of(data) == "AVIF"
+    with pytest.raises(NotImplementedError,
+                       match=rf"AVIF images with {feature}.*photo\.avif.*{ROADMAP_ITEM}"):
+        imagefile.read_image(path)
+
+
+@pytest.mark.parametrize("feature, kw", [
+    ("derived images \\(grid\\)", dict(primary_type=b"grid")),
+    ("derived images \\(iovl\\)", dict(primary_type=b"iovl")),
+    ("clean-aperture cropping", dict(extra_props=[(b"clap", b"\0" * 32)])),
+    ("operating point selection", dict(extra_props=[(b"a1op", b"\0")])),
+    ("layer selection", dict(extra_props=[(b"lsel", b"\0\0")])),
+    ("premultiplied alpha", dict(refs=[(b"auxl", 2, [1]), (b"prem", 1, [2])])),
+    ("image sequences", dict(moov=True)),
+])
+def test_features_outside_the_slice_are_refused(feature, kw, tmp_path):
+    src = _pil_avif(_crop(61, 47, alpha=True))
+    _refused(remux(src, **kw), feature, tmp_path)
+
+
+def test_pils_image_sequence_is_refused(tmp_path):
+    frames = [Image.fromarray(_crop(32, 24)), Image.fromarray(_crop(32, 24)[::-1].copy())]
+    out = io.BytesIO()
+    frames[0].save(out, "AVIF", save_all=True, append_images=frames[1:])
+    _refused(out.getvalue(), "image sequences", tmp_path)
+
+
+def test_pils_premultiplied_alpha_is_refused(tmp_path):
+    _refused(_pil_avif(_crop(61, 47, alpha=True), alpha_premultiplied=True),
+             "premultiplied alpha", tmp_path)
+
+
+# --- truncated and corrupt files ----------------------------------------------------
+
+def test_truncations_raise_value_error():
+    data = _pil_avif(_crop(65, 65, alpha=True))
+    for cut in list(range(0, 300, 7)) + list(range(300, len(data), max(1, len(data) // 40))):
+        with pytest.raises((ValueError, NotImplementedError)):
+            imagefile.decode_image(data[:cut])
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_corrupt_cases_raise_or_decode_as_pil(seed):
+    """Seeded truncations and bit flips (tools/avif_fuzz_agreement.py
+    --corrupt): the port raises ValueError or NotImplementedError, or
+    decodes as PIL does; where PIL raises, the port raises too (the
+    symbol decoder's overread past 14 bits, libavif's box checks)."""
+    for _i, _options, data in fuzz.corrupt_cases(seed, 40):
+        try:
+            want = _pil(data)
+        except Exception:  # noqa: BLE001 - PIL's own error
+            want = None
+        try:
+            got = imagefile.decode_image(data)
+        except (ValueError, NotImplementedError):
+            continue
+        assert want is not None
+        np.testing.assert_array_equal(got, want)
+
+
+# --- against the JAX package: load_image, the sidecar and the frames ----------------
+
+@pytest.fixture
+def avif_copies(tmp_path):
+    """The stored fixture copied twice (each package writes its own sidecar
+    beside its file)."""
+    paths = []
+    for sub in ("port", "jax"):
+        os.makedirs(tmp_path / sub)
+        paths.append(str(tmp_path / sub / os.path.basename(AVIF_FIXTURE)))
+        shutil.copyfile(AVIF_FIXTURE, paths[-1])
+    return paths
+
+
+def test_load_image_gives_figdraw_tpus_image_mips_and_sidecar(avif_copies):
+    """Cold (decode, bleed, chain, sidecar) and warm (the sidecar) in both
+    packages: the same pixels, mips and sidecar bytes, whose digest
+    chip_smoke.py holds the card to."""
+    import figdraw_tpu.resources as jres
+    from torch_reference import jax_flippy
+
+    from figdraw_tpu_torch import resources
+
+    port_path, jax_path = avif_copies
+    jax_flippy()
+    bus, jbus = resources.ImageMessageBus(), jres.ImageMessageBus()
+    sub, jsub = bus.subscribe(), jbus.subscribe()
+    with open(AVIF_FIXTURE, "rb") as fh:
+        pil = _pil(fh.read())
+    for _ in range(2):
+        ref, jref = resources.load_image(port_path, bus=bus), jres.load_image(jax_path, bus=jbus)
+        a = [m for m in sub.drain() if m.kind == resources.ImageMsgKind.PutImage][0]
+        b = [m for m in jsub.drain() if m.kind == jres.ImageMsgKind.PutImage][0]
+        np.testing.assert_array_equal(a.image, np.asarray(b.image))
+        np.testing.assert_array_equal(a.image, pil)
+        assert len(a.mips) == len(b.mips) == 10
+        for x, y in zip(a.mips, b.mips):
+            np.testing.assert_array_equal(x, np.asarray(y))
+        with open(port_path + ".flippy", "rb") as fh, open(jax_path + ".flippy", "rb") as jfh:
+            sidecar = fh.read()
+            assert sidecar == jfh.read()
+        with open(IMAGE_FORMATS_REFERENCE) as fh:
+            want = json.load(fh)["sidecar"][os.path.basename(AVIF_FIXTURE)]
+        assert hashlib.sha256(sidecar).hexdigest() == want
+        ref.close()
+        jref.close()
+        resources.clear_image_cache(bus=bus)
+        jres.clear_image_cache(bus=jbus)
+
+
+def test_image_file_scene_from_avif_matches_jax(avif_copies):
+    """The image-file scene with the AVIF loaded: within 1e-5 of
+    figdraw_tpu's block means, which the stored reference holds (chip_smoke.py
+    holds the card to it), and within 1/255 of its frame."""
+    import figdraw_tpu_torch as port
+    from torch_reference import block_means, jax_image_file_frame
+
+    from figdraw_tpu_torch.scenes import AVIF_FILE_REFERENCE, render_image_file
+
+    port_path, jax_path = avif_copies
+    want = jax_image_file_frame(jax_path, "1x")
+    _ren, frame, ref = render_image_file(
+        lambda ps: port.FigRenderer(atlas_size=512, device="cpu", pixel_scale=ps),
+        port_path, "1x")
+    got = frame.numpy()
+    assert got.shape == want.shape
+    assert float(np.abs(got - want).max()) <= 1.0 / 255.0
+    stored = np.load(AVIF_FILE_REFERENCE)
+    np.testing.assert_allclose(stored, block_means(want), rtol=0, atol=1e-6)
+    assert float(np.abs(block_means(got) - stored).max()) <= 1e-5
+    ref.close()
+
+
+def test_photo_wall_from_avif_matches_jax(avif_copies):
+    import figdraw_tpu_torch as port
+    from torch_reference import block_means, jax_photo_wall_frame
+
+    from figdraw_tpu_torch import resources
+    from figdraw_tpu_torch.scenes import (
+        AVIF_WALL_REFERENCE, PHOTO_WALL_SMALL, make_loaded_photo_wall,
+    )
+
+    port_path, jax_path = avif_copies
+    w, h, n = PHOTO_WALL_SMALL
+    want = jax_photo_wall_frame(jax_path, w, h, n)
+    ren = port.FigRenderer(atlas_size=512, device="cpu")
+    bus = resources.ImageMessageBus()
+    ren.ensure_image_message_subscription(bus)
+    ref = resources.load_image(port_path, bus=bus)
+    got = ren.render_frame(make_loaded_photo_wall(w, h, n, ref.id), port.vec2(w, h)).numpy()
+    assert float(np.abs(got - want).max()) <= 1.0 / 255.0
+    stored = np.load(AVIF_WALL_REFERENCE)
+    np.testing.assert_allclose(stored, block_means(want), rtol=0, atol=1e-6)
+    assert float(np.abs(block_means(got) - stored).max()) <= 1e-5
+    ref.close()

@@ -293,11 +293,12 @@ def test_bad_signature_and_filter_raise():
 @pytest.mark.parametrize("fmt", ["PPM", "SGI", "PCX", "DDS", "AVIF"])
 def test_other_formats_raise_not_implemented(fmt, tmp_path):
     """Formats PIL reads that the port does not decode (JPEG, GIF, BMP,
-    TIFF and WebP decode since utils/imagefile.py: tests/test_torch_jpeg.py,
-    test_torch_tiff.py, test_torch_webp.py and the others hold them to
-    PIL)."""
+    TIFF, WebP and AVIF decode since utils/imagefile.py: tests/test_torch_jpeg.py,
+    test_torch_tiff.py, test_torch_webp.py, test_torch_avif.py and the others
+    hold them to PIL), and an AVIF outside the port's slice (4:4:4 chroma)."""
     path = str(tmp_path / f"x.{fmt.lower()}")
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path, format=fmt)
+    extra = {"subsampling": "4:4:4"} if fmt == "AVIF" else {}
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path, format=fmt, **extra)
     with pytest.raises(NotImplementedError, match="Image formats other than PNG"):
         png.read_image(path)
 

@@ -1,0 +1,187 @@
+"""How often the port's AVIF reader and PIL agree: seeded pictures written
+by PIL 12.1.0 (libavif 1.3.0 with aom) over sizes, qualities, speeds 0-10
+and alpha, each decoded by `utils/imagefile.decode_image` and by PIL's
+`Image.open(...).convert("RGBA")`; with --corrupt, seeded truncations and
+one to three bit flips of such files instead.
+
+A picture is one of: seeded noise, a crop of the PNG fixture
+(tests/goldens/render_3d_overlay_gaussian.png), a flat UI-like picture of
+a few solid rectangles (which turns on aom's screen content tools), or a
+smooth gradient; a quarter carry an alpha channel. Each case ends as
+`equal` (byte for byte), `refused` (NotImplementedError naming a feature
+outside the slice; its feature is counted), `differ` or `error` (the port
+raised something else, or, with --corrupt, one side raised and the other
+decoded). With --corrupt an error on both sides agrees. The counts are
+printed by speed, and each disagreement by its seed and index
+(`case(seed, index)` rebuilds it). Needs PIL (the CPU host's).
+
+    python tools/avif_fuzz_agreement.py [--corrupt] [cases per seed, default 200]
+        [seeds, default 1]
+"""
+
+from __future__ import annotations
+
+import io
+import os
+import re
+import sys
+from collections import Counter, defaultdict
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURE = os.path.join(REPO, "tests", "goldens", "render_3d_overlay_gaussian.png")
+
+
+def _fixture() -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.open(FIXTURE).convert("RGB"))
+
+
+def picture(rng: np.random.Generator, fixture: np.ndarray, w: int, h: int) -> np.ndarray:
+    """One of the four kinds of seeded picture, (h, w, 3) uint8."""
+    kind = int(rng.integers(4))
+    if kind == 0:
+        return rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    if kind == 1:
+        y = int(rng.integers(0, fixture.shape[0] - min(h, fixture.shape[0]) + 1))
+        x = int(rng.integers(0, fixture.shape[1] - min(w, fixture.shape[1]) + 1))
+        crop = fixture[y:y + h, x:x + w]
+        return np.ascontiguousarray(np.pad(crop, ((0, h - crop.shape[0]), (0, w - crop.shape[1]), (0, 0)),
+                                           mode="reflect" if min(crop.shape[:2]) > 1 else "edge"))
+    if kind == 2:
+        out = np.full((h, w, 3), rng.integers(0, 256, 3), np.uint8)
+        for _ in range(int(rng.integers(1, 6))):
+            x0, y0 = int(rng.integers(0, w)), int(rng.integers(0, h))
+            x1, y1 = int(rng.integers(x0, w + 1)), int(rng.integers(y0, h + 1))
+            out[y0:y1, x0:x1] = rng.integers(0, 256, 3)
+        return out
+    gy, gx = np.mgrid[0:h, 0:w]
+    a = rng.uniform(-2, 2, 3)
+    b = rng.uniform(-2, 2, 3)
+    return np.clip(gx[..., None] * a + gy[..., None] * b + rng.integers(0, 256, 3), 0, 255).astype(np.uint8)
+
+
+def pil_avif(px: np.ndarray, **options) -> bytes:
+    from PIL import Image
+
+    out = io.BytesIO()
+    Image.fromarray(px).save(out, "AVIF", **options)
+    return out.getvalue()
+
+
+def written_cases(seed: int, cases: int, start: int = 0):
+    """Yields (index, options, bytes) of one seed's PIL-written AVIFs from
+    index `start` (the pictures before it are drawn, not written)."""
+    rng = np.random.default_rng(seed)
+    fixture = _fixture()
+    for i in range(cases):
+        w, h = int(rng.integers(1, 300)), int(rng.integers(1, 300))
+        px = picture(rng, fixture, w, h)
+        options = {"quality": int(rng.integers(0, 101)), "speed": int(rng.integers(0, 11))}
+        if rng.integers(4) == 0:
+            alpha = picture(rng, fixture, w, h)[..., 0]
+            px = np.ascontiguousarray(np.dstack([px, alpha]))
+        options["size"] = (w, h)
+        if i >= start:
+            yield i, options, pil_avif(px, quality=options["quality"], speed=options["speed"])
+
+
+def corrupt_cases(seed: int, cases: int):
+    """Yields (index, options, bytes): a third of PIL-written files cut at a
+    random length, the others with one to three bits flipped (a third of
+    those in the first 400 bytes, the container and headers)."""
+    rng = np.random.default_rng(seed + 1000)
+    sources = [(o, d) for _i, o, d in written_cases(seed, 12)]
+    for i in range(cases):
+        options, src = sources[i % len(sources)]
+        data = bytearray(src)
+        if rng.integers(3) == 0:
+            data = data[: int(rng.integers(0, len(data)))]
+        else:
+            head = rng.integers(3) == 0
+            for _ in range(int(rng.integers(1, 4))):
+                at = int(rng.integers(0, min(400, len(data)))) if head else int(rng.integers(0, len(data)))
+                data[at] ^= 1 << int(rng.integers(8))
+        yield i, options, bytes(data)
+
+
+def case(seed: int, index: int, corrupt: bool = False) -> tuple:
+    """(options, bytes) of case `index` of `seed`."""
+    gen = corrupt_cases(seed, index + 1) if corrupt else written_cases(seed, index + 1, index)
+    for i, options, data in gen:
+        if i == index:
+            return options, data
+    raise IndexError(index)
+
+
+def outcome(data: bytes, corrupt: bool = False) -> tuple:
+    """(kind, detail) of one file: equal, refused (the feature), differ or
+    error."""
+    import warnings
+
+    from PIL import Image
+
+    sys.path.insert(0, REPO)
+    from figdraw_tpu_torch.utils import imagefile
+
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            want = np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+    except Exception as exc:  # noqa: BLE001 - PIL's own error on a corrupt file
+        want = exc
+    try:
+        got = imagefile.decode_image(data)
+    except NotImplementedError as exc:
+        m = re.search(r"AVIF images with (.*) are not decoded", str(exc))
+        return "refused", m.group(1) if m else str(exc)
+    except ValueError as exc:
+        if isinstance(want, Exception):
+            return "equal", "both raise"
+        return "error", f"ValueError: {exc}"
+    if isinstance(want, Exception):
+        return "error", f"PIL raises {type(want).__name__}, the port decodes"
+    if got.shape == want.shape and np.array_equal(got, want):
+        return "equal", ""
+    return "differ", f"max |diff| {np.abs(got.astype(int) - want.astype(int)).max() if got.shape == want.shape else 'shape'}"
+
+
+def run(cases: int, seeds: int, corrupt: bool) -> dict:
+    counts = Counter()
+    by_speed = defaultdict(Counter)
+    features = Counter()
+    bad = []
+    for seed in range(seeds):
+        gen = corrupt_cases(seed, cases) if corrupt else written_cases(seed, cases)
+        for i, options, data in gen:
+            kind, detail = outcome(data, corrupt)
+            counts[kind] += 1
+            by_speed[options["speed"]][kind] += 1
+            if kind == "refused":
+                features[detail] += 1
+            if kind in ("differ", "error"):
+                bad.append((seed, i, options, detail))
+    return {"counts": counts, "by_speed": by_speed, "features": features, "bad": bad}
+
+
+def main(argv) -> int:
+    corrupt = "--corrupt" in argv
+    nums = [int(a) for a in argv if not a.startswith("--")]
+    cases = nums[0] if nums else 200
+    seeds = nums[1] if len(nums) > 1 else 1
+    res = run(cases, seeds, corrupt)
+    print(f"{'corrupt' if corrupt else 'written'}: {cases} cases x {seeds} seeds:",
+          dict(res["counts"]))
+    for speed in sorted(res["by_speed"]):
+        print(f"  speed {speed}: {dict(res['by_speed'][speed])}")
+    for feature, n in res["features"].most_common():
+        print(f"  refused, {feature}: {n}")
+    for seed, i, options, detail in res["bad"]:
+        print(f"  disagreement seed {seed} index {i} {options}: {detail}")
+    return 0 if not res["bad"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -37,21 +37,23 @@ render_3d_overlay_gaussian.png, 800x600 RGBA), with PIL on the CPU host:
   leave coefficients unrefined, Huffman and arithmetic, and a one-scan
   JPEG without its EOI; `ccitt_repair_files`: RLE-W TIFFs, one with strips
   at odd offsets, and a T.6 strip with the extension code of uncompressed
-  mode). The card's machine has no PIL: chip_smoke.py decodes these.
+  mode), and the fixture as an AVIF with PIL's default save (quality 75,
+  speed 6, 4:2:0; PIL drops the opaque alpha). The card's machine has no
+  PIL: chip_smoke.py decodes these.
 - `figdraw_tpu_torch/reference/image_formats.json`: under "files", each
   file's sha256 and the sha256 and shape of PIL's decode,
   `Image.open(p).convert("RGBA")`; under "sidecar", the sha256 of the
   .flippy sidecar figdraw_tpu's read_image_cached writes for the baseline
   JPEG, the TIFF fixture, the lossy WebP fixture, the ZSTD fixture, the
   Group 4 fax page, the SOF10 fixture, the SOF3 crop, the incomplete
-  progressive JPEG and the RLE-W fixture.
-- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3,arith,incomplete,rlew}_1x_blocks8.npy`
-  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4,lossless,incomplete,rlew}_480x270_blocks8.npy`:
+  progressive JPEG, the RLE-W fixture and the AVIF fixture.
+- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3,arith,incomplete,rlew,avif}_1x_blocks8.npy`
+  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4,lossless,incomplete,rlew,avif}_480x270_blocks8.npy`:
   8x8 block means of figdraw_tpu's frames of the image-file scene and of
   the photo wall at 480x270 (12 panels) with the baseline JPEG, the TIFF,
   WebP or ZSTD fixture, the dithered Group 3 fixture, the Group 4 page,
-  the SOF10 fixture, the SOF3 crop, the incomplete progressive JPEG or the
-  RLE-W fixture loaded by its load_image
+  the SOF10 fixture, the SOF3 crop, the incomplete progressive JPEG, the
+  RLE-W fixture or the AVIF fixture loaded by its load_image
   (FigRenderer(atlas_size=512, use_pallas=False), the page's from
   scenes.FAX_ATLAS; tests/torch_reference.py).
 
@@ -92,6 +94,7 @@ DIGESTS = os.path.join(REPO, "figdraw_tpu_torch", "reference", "image_formats.js
 BASELINE = "baseline_420_q90.jpg"
 TIFF_FIXTURE = "fixture_lzw_pred2.tif"
 WEBP_FIXTURE = "fixture_q90.webp"
+AVIF_FIXTURE = "fixture_q75.avif"
 
 
 def _pack_rows(pixels: np.ndarray, bits: int) -> np.ndarray:
@@ -670,6 +673,7 @@ def image_files() -> dict:
     files.update(arith_lossless_files(src))
     files.update(jpeg_repair_files(src))
     files.update(ccitt_repair_files(src))
+    save(AVIF_FIXTURE, src, "AVIF")
     return files
 
 
@@ -1370,12 +1374,13 @@ def write_frames() -> None:
     the ZSTD fixture, of the image-file scene from the dithered Group 3
     fixture and the SOF10 fixture, of the photo wall from the Group 4 fax
     page (its atlas started at scenes.FAX_ATLAS) and the SOF3 crop, and of
-    both from the incomplete progressive JPEG and the RLE-W fixture."""
+    both from the incomplete progressive JPEG, the RLE-W fixture and the
+    AVIF fixture."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_reference import block_means, jax_image_file_frame, jax_photo_wall_frame
 
     from figdraw_tpu_torch.scenes import (
-        ARITH_FILE_REFERENCE, FAX_ATLAS, G3_FILE_REFERENCE, G4_WALL_REFERENCE,
+        ARITH_FILE_REFERENCE, AVIF_FILE_REFERENCE, AVIF_WALL_REFERENCE, FAX_ATLAS, G3_FILE_REFERENCE, G4_WALL_REFERENCE,
         INCOMPLETE_FILE_REFERENCE, INCOMPLETE_WALL_REFERENCE, RLEW_FILE_REFERENCE,
         RLEW_WALL_REFERENCE,
         JPEG_FILE_REFERENCE, JPEG_WALL_REFERENCE, LOSSLESS_WALL_REFERENCE, PHOTO_WALL_SMALL,
@@ -1393,7 +1398,8 @@ def write_frames() -> None:
             (ARITH_FIXTURE, ARITH_FILE_REFERENCE, None, 512),
             (LOSSLESS_FIXTURE, None, LOSSLESS_WALL_REFERENCE, 512),
             (INCOMPLETE_HUFF, INCOMPLETE_FILE_REFERENCE, INCOMPLETE_WALL_REFERENCE, 512),
-            (RLEW_FIXTURE, RLEW_FILE_REFERENCE, RLEW_WALL_REFERENCE, 512)):
+            (RLEW_FIXTURE, RLEW_FILE_REFERENCE, RLEW_WALL_REFERENCE, 512),
+            (AVIF_FIXTURE, AVIF_FILE_REFERENCE, AVIF_WALL_REFERENCE, 512)):
         with tempfile.TemporaryDirectory() as td:
             path = os.path.join(td, name)
             shutil.copyfile(os.path.join(OUT_DIR, name), path)
@@ -1423,7 +1429,7 @@ def main() -> None:
               "sidecar": {name: sidecar_digest(name)
                           for name in (BASELINE, TIFF_FIXTURE, WEBP_FIXTURE, ZSTD_FIXTURE,
                                        FAX_PAGE, ARITH_FIXTURE, LOSSLESS_FIXTURE,
-                                       INCOMPLETE_HUFF, RLEW_FIXTURE)}}
+                                       INCOMPLETE_HUFF, RLEW_FIXTURE, AVIF_FIXTURE)}}
     with open(DIGESTS, "w") as fh:
         json.dump(stored, fh, indent=1)
         fh.write("\n")
