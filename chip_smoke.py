@@ -3332,6 +3332,11 @@ def span_means(entries) -> dict:
 
 CROP_PIXELS = 20000  # pixels of a GIF's or QOI's stream held to the plain twin
 AVIF_STAGE_CALLS = 150  # traced calls of each AV1 stage kind held to its numpy twin
+# the stage kinds each stored AVIF's trace must reach: PIL's default save
+# runs no post-filter; the speed-2 CDEF file also CDEF, Wiener and
+# self-guided restoration
+AVIF_KINDS = {"fixture_q75.avif": ("predict", "cfl", "txfm", "lf"),
+              "fixture_s2_cdef.avif": ("predict", "cfl", "txfm", "lf", "cdef", "wiener", "sgr")}
 
 
 def split_frames(ren, scene, size, frames: int = FRAMES):
@@ -3382,13 +3387,15 @@ def image_formats_check(tag: str) -> dict:
     each WebP's stages (webp.stage_pairs:
     fd_webp_vp8 and fd_webp_vp8l whole on a frame of at most CROP_PIXELS
     pixels, fd_webp_upsample and fd_webp_alpha_unfilter on a 64x48 crop;
-    the whole plain decode of each such frame), and the AVIF fixture's
+    the whole plain decode of each such frame), and each AVIF's
     (csrc/av1_decode.cpp through the stage trace: up to AVIF_STAGE_CALLS
-    calls of each of the intra predictor, CfL, the inverse transform and
-    the loop filter against av1.py's twins, fd_av1_to_rgb whole against
-    to_rgba_plain; its decode split in the tiles and loop filter, then the
-    RGB conversion). Returns {file: (cold ms, warm ms, shape)}, with
-    "avif stages" {stage: (cold ms, warm ms)}."""
+    calls of each of the intra predictor, CfL, the inverse transform, the
+    loop filter, CDEF and the Wiener and self-guided filters against
+    av1.py's twins, every kind of AVIF_KINDS reached, fd_av1_to_rgb whole
+    against to_rgba_plain; its decode split in the tiles and loop filter,
+    CDEF, loop restoration and the RGB conversion). Returns {file: (cold
+    ms, warm ms, shape)}, with "avif stages" {file: {stage: (cold ms, warm
+    ms)}}."""
     import hashlib
 
     import numpy as np
@@ -3406,7 +3413,7 @@ def image_formats_check(tag: str) -> dict:
     image_lib.load_zstd()
     image_lib.load_av1()
     build_ms = (time.perf_counter() - t0) * 1e3
-    times, stages = {}, {}
+    times, stages, avif_stages = {}, {}, {}
     for name, ref in sorted(stored.items()):
         path = os.path.join(IMAGE_FORMATS_DIR, name)
         t0 = time.perf_counter()
@@ -3521,25 +3528,27 @@ def image_formats_check(tag: str) -> dict:
                 checked = av1.check_trace(trace[:n], limit=AVIF_STAGE_CALLS)
             except RuntimeError as exc:
                 fail(f"image formats: {name}: {exc}")
-            if min(checked.values()) == 0:
-                fail(f"image formats: {name}: a stage kind never ran: {checked}")
+            missing = [k for k in AVIF_KINDS.get(name, ("predict",)) if not checked[k]]
+            if missing:
+                fail(f"image formats: {name}: the stage kinds {missing} never ran: {checked}")
             y, u, v = frame.planes
             rgb = av1.to_rgba(frame, None, 1, 6)
             if not (np.array_equal(rgb, av1.to_rgba_plain(y, u, v, None, frame.width,
                                                          frame.height))
                     and np.array_equal(rgb, px)):
                 fail(f"image formats: {name}: fd_av1_to_rgb differs from to_rgba_plain")
-            held += [f"{k} x{c}" for k, c in checked.items()] + ["to_rgb"]
-            t0 = time.perf_counter()
-            av1.decode(still.color)
-            tiles_cold = (time.perf_counter() - t0) * 1e3
+            held += [f"{k} x{c}" for k, c in checked.items() if c] + ["to_rgb"]
+            # the decode's stages: the first run without the trace (cold)
+            # and the median of IMAGE_REPS more (warm)
+            first = av1.decode(still.color)
             t0 = time.perf_counter()
             av1.to_rgba(frame, None, 1, 6)
             rgb_cold = (time.perf_counter() - t0) * 1e3
-            tiles_warm, _ = host_ms(lambda: av1.decode(still.color))
+            runs = [av1.decode(still.color).ms for _ in range(IMAGE_REPS)]
             rgb_warm, _ = host_ms(lambda: av1.to_rgba(frame, None, 1, 6))
-            times["avif stages"] = {"tiles + loop filter": (tiles_cold, tiles_warm),
-                                    "yuv -> rgba": (rgb_cold, rgb_warm)}
+            avif_stages[name] = {k: (first.ms[k], statistics.median(r[k] for r in runs))
+                                 for k in first.ms}
+            avif_stages[name]["yuv -> rgba"] = (rgb_cold, rgb_warm)
         if held:
             stages[name] = held
     print(f"check 13: the {len(stored)} stored image files (JPEG with Huffman, arithmetic and "
@@ -3547,15 +3556,14 @@ def image_formats_check(tag: str) -> dict:
           f"BMP, ICO, QOI, TIFF with CCITT fax, RLE-W, uncompressed mode and ZSTD, WebP, "
           f"AVIF) decode to PIL's stored sha256 through the C++ helper; stages held to their "
           f"plain twins: {json.dumps(stages)}", flush=True)
-    avif_stages = times.pop("avif stages", {})
     print(f"times: image decodes (the helpers' g++ builds {build_ms:.1f} ms first), host ms "
           f"cold (first) / warm (median of {IMAGE_REPS}): "
           + "; ".join(f"{k} {c:.3f} / {w:.3f} ({s[1]}x{s[0]})"
                       for k, (c, w, s) in times.items()) + f" {tag}", flush=True)
-    print("times: the AVIF fixture's decode (800x600, 4:2:0 q 75), host ms cold / warm "
-          f"(median of {IMAGE_REPS}): "
-          + "; ".join(f"{k} {c:.3f} / {w:.3f}" for k, (c, w) in avif_stages.items())
-          + f" {tag}", flush=True)
+    for name, split in avif_stages.items():
+        print(f"times: {name}'s decode (800x600, 4:2:0), host ms cold / warm (median of "
+              f"{IMAGE_REPS}): " + "; ".join(f"{k} {c:.3f} / {w:.3f}" for k, (c, w) in split.items())
+              + f" {tag}", flush=True)
     times["avif stages"] = avif_stages
     return times
 
@@ -3609,7 +3617,8 @@ def image_files_phase(tag: str, dev) -> dict:
     from figdraw_tpu_torch.ops import mega, raster
     from figdraw_tpu_torch.plan import pack_mega_combo, plan_execution
     from figdraw_tpu_torch.scenes import (
-        ARITH_FILE_REFERENCE, ARITH_FIXTURE, AVIF_FILE_REFERENCE, AVIF_FIXTURE,
+        ARITH_FILE_REFERENCE, ARITH_FIXTURE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_FIXTURE,
+        AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE, AVIF_FIXTURE,
         AVIF_WALL_REFERENCE, EXAMPLE_FORMS, EXAMPLE_IMAGES, EXAMPLE_SCENES,
         FAX_ATLAS, FAX_PAGE, G3_FILE_REFERENCE, LOSSLESS_FIXTURE, LOSSLESS_WALL_REFERENCE,
         G3_FIXTURE, G4_WALL_REFERENCE, IMAGE_FILE_SIZE, IMAGE_FIXTURE,
@@ -3619,7 +3628,8 @@ def image_files_phase(tag: str, dev) -> dict:
         JPEG_WALL_REFERENCE, PHOTO_WALL_PANELS, PHOTO_WALL_REFERENCE, PHOTO_WALL_SIZE,
         PHOTO_WALL_SMALL, TIFF_FILE_REFERENCE, TIFF_FIXTURE, TIFF_WALL_REFERENCE,
         WEBP_FILE_REFERENCE, WEBP_FIXTURE, WEBP_WALL_REFERENCE, ZSTD_FILE_REFERENCE,
-        ZSTD_FIXTURE, ZSTD_WALL_REFERENCE, example_reference_path, make_image_file_scene,
+        ZSTD_FIXTURE, ZSTD_TILES_BOX, ZSTD_WALL_REFERENCE, example_reference_path,
+        make_image_file_scene,
         make_loaded_photo_wall,
     )
     from figdraw_tpu_torch.utils import flippy, imagefile, perf, png
@@ -3737,12 +3747,15 @@ def image_files_phase(tag: str, dev) -> dict:
         zpath, zcold_ms, zwarm_ms, zimage = cold_warm(ZSTD_FIXTURE, "ZSTD + Predictor 2 TIFF")
         ztiles = imagefile.read_image(os.path.join(os.path.dirname(ZSTD_FIXTURE),
                                                    "fixture_zstd_tiles.tif"))
-        for what, img in (("ZSTD + Predictor 2 TIFF", zimage), ("ZSTD tiles", ztiles)):
-            if hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest() != \
-                    stored["decoded_sha256"]:
-                fail(f"image files: the fixture's {what} decodes to other pixels than the PNG")
-        print("check 13: the fixture's ZSTD TIFFs (Predictor 2 strips, tiles) decode to the "
-              "PNG's pixels (sha256)", flush=True)
+        if hashlib.sha256(np.ascontiguousarray(zimage).tobytes()).hexdigest() != \
+                stored["decoded_sha256"]:
+            fail("image files: the fixture's ZSTD + Predictor 2 TIFF decodes to other pixels "
+                 "than the PNG")
+        x0, y0, x1, y1 = ZSTD_TILES_BOX
+        if not np.array_equal(np.asarray(ztiles), pixels[y0:y1, x0:x1]):
+            fail("image files: the ZSTD tiles decode to other pixels than the PNG's crop")
+        print("check 13: the fixture's ZSTD TIFFs decode to the PNG's pixels (Predictor 2 "
+              "strips, sha256) and to its crop ZSTD_TILES_BOX (64x64 tiles)", flush=True)
         gpath, gcold_ms, gwarm_ms, _gimage = cold_warm(FAX_PAGE, "Group 4 fax page (1728x1143)")
         apath, acold_ms, awarm_ms, _aimage = cold_warm(ARITH_FIXTURE,
                                                        "progressive arithmetic JPEG (SOF10)")
@@ -3755,6 +3768,8 @@ def image_files_phase(tag: str, dev) -> dict:
             INCOMPLETE_FIXTURE, "incomplete progressive JPEG (block smoothing)")
         rpath, rcold_ms, rwarm_ms, _rimage = cold_warm(RLEW_FIXTURE, "RLE-W TIFF (400x300)")
         vpath, vcold_ms, vwarm_ms, _vimage = cold_warm(AVIF_FIXTURE, "AVIF (q 75, 4:2:0)")
+        cpath, ccold_ms, cwarm_ms, _cimage = cold_warm(
+            AVIF_CDEF_FIXTURE, "AVIF (speed 2, CDEF and loop restoration)")
         g3path = os.path.join(td, os.path.basename(G3_FIXTURE))
         shutil.copyfile(G3_FIXTURE, g3path)
 
@@ -3863,7 +3878,8 @@ def image_files_phase(tag: str, dev) -> dict:
                        "arith": file_scene(apath, "arith", ARITH_FILE_REFERENCE),
                        "incomplete": file_scene(ipath, "incomplete", INCOMPLETE_FILE_REFERENCE),
                        "rlew": file_scene(rpath, "rlew", RLEW_FILE_REFERENCE),
-                       "avif": file_scene(vpath, "avif", AVIF_FILE_REFERENCE)}
+                       "avif": file_scene(vpath, "avif", AVIF_FILE_REFERENCE),
+                       "avif cdef": file_scene(cpath, "avif cdef", AVIF_CDEF_FILE_REFERENCE)}
 
         # --- the 1080p photo wall of each loaded image ---
         def photo_wall(src, small_ref, what, tol=TOL, atlas=256):
@@ -3920,7 +3936,9 @@ def image_files_phase(tag: str, dev) -> dict:
                  "incomplete": photo_wall(ipath, INCOMPLETE_WALL_REFERENCE,
                                           "photo wall incomplete", FILE_TOL),
                  "rlew": photo_wall(rpath, RLEW_WALL_REFERENCE, "photo wall rlew", FILE_TOL),
-                 "avif": photo_wall(vpath, AVIF_WALL_REFERENCE, "photo wall avif", FILE_TOL)}
+                 "avif": photo_wall(vpath, AVIF_WALL_REFERENCE, "photo wall avif", FILE_TOL),
+                 "avif cdef": photo_wall(cpath, AVIF_CDEF_WALL_REFERENCE, "photo wall avif cdef",
+                                         FILE_TOL)}
         for ref in refs:
             ref.close()
     med = statistics.median
@@ -3955,7 +3973,8 @@ def image_files_phase(tag: str, dev) -> dict:
           f"(224x168) load_image cold {lcold_ms:.3f} ms, warm {lwarm_ms:.3f} ms; the incomplete "
           f"progressive JPEG's load_image cold {icold_ms:.3f} ms, warm {iwarm_ms:.3f} ms; the "
           f"RLE-W TIFF's (400x300) load_image cold {rcold_ms:.3f} ms, warm {rwarm_ms:.3f} ms; "
-          f"the AVIF's load_image cold {vcold_ms:.3f} ms, warm {vwarm_ms:.3f} ms {tag}",
+          f"the AVIF's load_image cold {vcold_ms:.3f} ms, warm {vwarm_ms:.3f} ms; the speed-2 "
+          f"CDEF AVIF's load_image cold {ccold_ms:.3f} ms, warm {cwarm_ms:.3f} ms {tag}",
           flush=True)
     for src, (f_ms, f_host, f_dev) in file_frames.items():
         print(f"times: image_file scene from the {src.upper()}, 800x600 on K1-atlas: median "

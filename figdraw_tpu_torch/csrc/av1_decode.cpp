@@ -3,8 +3,8 @@
 // utils/av1.py, which parses the sequence and frame headers and holds the
 // plain numpy twin of each self-contained stage. The decoding process is
 // the AV1 specification's (section 7) for a shown key frame of profile 0,
-// 8-bit 4:2:0 or monochrome, without superres, CDEF, loop restoration or
-// film grain; the tables are libaom's (csrc/av1_tables.h).
+// 8-bit 4:2:0 or monochrome, without superres or film grain; the tables
+// are libaom's (csrc/av1_tables.h).
 //   fd_av1_tile       one tile: the symbol decoder with CDF adaptation,
 //                     partitions, intra frame mode info (segment id, skip,
 //                     delta q / lf, y and uv modes with angle deltas, CfL
@@ -12,12 +12,21 @@
 //                     maps, filter intra), tx sizes and types, coefficients
 //                     and their contexts, dequantisation, prediction and
 //                     reconstruction, into the frame's planes and its
-//                     per-4x4 block info;
+//                     per-4x4 block info, with the CDEF index of each 64x64
+//                     and the loop restoration units' types and
+//                     coefficients;
 //   fd_av1_deblock    the loop filter of the whole frame;
+//   fd_av1_cdef       CDEF (specification 7.15) of the deblocked frame;
+//   fd_av1_lr         loop restoration (7.17): Wiener and self-guided
+//                     filters over stripes of 64 luma rows;
+//   fd_av1_scale      one plane to another size, as libavif 1.3.0 scales a
+//                     decoded frame to its item's ispe (libyuv's ScalePlane
+//                     with kFilterBox and its x86 column filter);
 //   fd_av1_to_rgb     YUV to RGBA as libavif 1.3.0 converts it for PIL
 //                     (libyuv's full-range BT.601 fixed point with bilinear
 //                     4:2:0 upsampling), the alpha item's plane to alpha;
-//   fd_av1_predict, fd_av1_cfl, fd_av1_inv_txfm, fd_av1_lf_edge
+//   fd_av1_predict, fd_av1_cfl, fd_av1_inv_txfm, fd_av1_lf_edge,
+//   fd_av1_cdef_block, fd_av1_wiener, fd_av1_sgr
 //                     the stages alone, for the twins' tests.
 //
 // Every entry point returns 0 (or a count) on success and a negative code
@@ -33,7 +42,7 @@
 
 namespace {
 
-enum { kArgs = -2, kGolomb = -3 };
+enum { kArgs = -2, kGolomb = -3, kScaleRatio = -4 };
 
 inline int clip3(int lo, int hi, int v) { return v < lo ? lo : (v > hi ? hi : v); }
 inline int round2(int64_t x, int n) { return n == 0 ? (int)x : (int)((x + ((int64_t)1 << (n - 1))) >> n); }
@@ -649,7 +658,8 @@ void lf_sample(int* s, const LfParams& lp) {
 // A trace of the stage calls for utils/av1.py's plain twins: records of
 // int32 appended while they fit (kinds TRACE_*), off unless fd_av1_trace set
 // a buffer. Not thread-safe; the load path never sets one.
-enum { TRACE_PREDICT = 1, TRACE_CFL = 2, TRACE_TXFM = 3, TRACE_LF = 4 };
+enum { TRACE_PREDICT = 1, TRACE_CFL = 2, TRACE_TXFM = 3, TRACE_LF = 4, TRACE_CDEF = 5, TRACE_WIENER = 6,
+       TRACE_SGR = 7 };
 int32_t* g_trace = nullptr;
 int64_t g_trace_cap = 0, g_trace_len = 0, g_trace_lost = 0;
 
@@ -780,6 +790,7 @@ struct Cdfs {
     uint16_t coeff_base_eob[5][2][4][4];
     uint16_t coeff_base[5][2][42][5];
     uint16_t coeff_br[5][2][21][5];
+    uint16_t restoration_type[4], use_wiener[3], use_sgrproj[3];
 };
 
 template <typename D, typename S>
@@ -825,6 +836,9 @@ void init_cdfs(Cdfs& c, int baseQ) {
     copy_table(c.inter_tx_set2, INTER_TX_SET2);
     copy_table(c.inter_tx_set3, INTER_TX_SET3);
     copy_table(c.mv_joint, MV_JOINT);
+    copy_table(c.restoration_type, RESTORATION_TYPE);
+    copy_table(c.use_wiener, USE_WIENER);
+    copy_table(c.use_sgrproj, USE_SGRPROJ);
     for (int comp = 0; comp < 2; comp++) {  // the two components start alike
         copy_table(c.mv_class[comp], MV_CLASS);
         copy_table(c.mv_sign[comp], MV_SIGN);
@@ -858,8 +872,22 @@ enum {
     H_SHARPNESS = H_LF_LEVEL0 + 4, H_LF_DELTA_ENABLED, H_REF_DELTAS,
     H_ROW_START = H_REF_DELTAS + 8, H_ROW_END, H_COL_START, H_COL_END,
     H_FEATURE_ENABLED, H_FEATURE_DATA = H_FEATURE_ENABLED + 64, H_LOSSLESS = H_FEATURE_DATA + 64,
-    H_STRIDE_Y = H_LOSSLESS + 8, H_STRIDE_UV, H_USING_QM, H_QM_Y, H_QM_U, H_QM_V, H_SIZE
+    H_STRIDE_Y = H_LOSSLESS + 8, H_STRIDE_UV, H_USING_QM, H_QM_Y, H_QM_U, H_QM_V,
+    // CDEF: read_cdef reads (enable_cdef, not coded lossless, no intra block
+    // copy), damping, cdef_bits, the strengths of each index (secondary 3
+    // read as 4)
+    H_CDEF_READ, H_CDEF_DAMPING, H_CDEF_BITS, H_CDEF_Y_PRI, H_CDEF_Y_SEC = H_CDEF_Y_PRI + 8,
+    H_CDEF_UV_PRI = H_CDEF_Y_SEC + 8, H_CDEF_UV_SEC = H_CDEF_UV_PRI + 8,
+    // loop restoration: each plane's FrameRestorationType, unit size in
+    // samples, units down and across, and the units of a plane in the
+    // out-array (its stride)
+    H_LR_TYPE = H_CDEF_UV_SEC + 8, H_LR_SIZE = H_LR_TYPE + 3, H_LR_ROWS = H_LR_SIZE + 3,
+    H_LR_COLS = H_LR_ROWS + 3, H_LR_STRIDE = H_LR_COLS + 3, H_SIZE
 };
+enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
+// a restoration unit in the out-array: its type, the Wiener taps 0-2 of the
+// vertical then the horizontal filter, the self-guided set and weights
+enum { L_TYPE, L_WIENER, L_SET = L_WIENER + 6, L_XQD, L_FIELDS = L_XQD + 2 };
 enum { TX_ONLY_4X4, TX_LARGEST, TX_SELECT };
 
 // The planes are allocated to whole 128x128 superblocks (the strides in the
@@ -880,6 +908,9 @@ struct Tile {
     uint8_t* plane[3];
     int stride[3];
     int32_t* mi;  // [miRows][miCols][M_FIELDS]
+    int32_t* cdefIdx;  // [(miRows + 15) / 16][(miCols + 15) / 16], -1 unread
+    int32_t* lrUnits;  // [3][H_LR_STRIDE][L_FIELDS]
+    int refLrWiener[3][2][3], refSgrXqd[3][2];
     SymbolDecoder sd;
     Cdfs cdf;
     // frame-wide block state read by the contexts
@@ -1080,6 +1111,94 @@ struct Tile {
         if (availL) ctx += m(miRow, miCol - 1)[M_SKIP];
         skip = sd.symbol(cdf.skip[ctx], 2);
     }
+    // ---- CDEF index and loop restoration units (specification 5.11.56-58)
+    int cdefCols() const { return (miCols + 15) >> 4; }
+    void set_cdef(int r, int c, int h4, int w4, int v) {
+        int rows = (miRows + 15) >> 4;
+        for (int y = r; y < r + h4; y += 16)
+            for (int x = c; x < c + w4; x += 16)
+                if ((y >> 4) < rows && (x >> 4) < cdefCols()) cdefIdx[(y >> 4) * cdefCols() + (x >> 4)] = v;
+    }
+    void read_cdef() {
+        if (skip || !hdr[H_CDEF_READ]) return;
+        int r = miRow & ~15, c = miCol & ~15;
+        if (cdefIdx[(r >> 4) * cdefCols() + (c >> 4)] != -1) return;
+        set_cdef(r, c, bh4, bw4, sd.literal(hdr[H_CDEF_BITS]));
+    }
+    int decode_subexp_bool(int numSyms, int k) {
+        int i = 0, mk = 0;
+        while (true) {
+            int b2 = i ? k + i - 1 : k;
+            int a = 1 << b2;
+            if (numSyms <= mk + 3 * a) return sd.ns(numSyms - mk) + mk;
+            if (!sd.literal(1)) return sd.literal(b2) + mk;
+            i++;
+            mk += a;
+        }
+    }
+    static int inverse_recenter(int r, int v) {
+        if (v > 2 * r) return v;
+        if (v & 1) return r - ((v + 1) >> 1);
+        return r + (v >> 1);
+    }
+    int decode_signed_subexp_with_ref_bool(int low, int high, int k, int r) {
+        int mx = high - low;
+        r -= low;
+        int v = decode_subexp_bool(mx, k);
+        int x = (r << 1) <= mx ? inverse_recenter(r, v) : mx - 1 - inverse_recenter(mx - 1 - r, v);
+        return x + low;
+    }
+    void read_lr_unit(int p, int unitRow, int unitCol) {
+        int32_t* u = lrUnits + ((size_t)p * hdr[H_LR_STRIDE] + (size_t)unitRow * hdr[H_LR_COLS + p] + unitCol) * L_FIELDS;
+        int frameType = hdr[H_LR_TYPE + p], type;
+        if (frameType == RESTORE_WIENER) type = sd.symbol(cdf.use_wiener, 2) ? RESTORE_WIENER : RESTORE_NONE;
+        else if (frameType == RESTORE_SGRPROJ) type = sd.symbol(cdf.use_sgrproj, 2) ? RESTORE_SGRPROJ : RESTORE_NONE;
+        else type = sd.symbol(cdf.restoration_type, 3);
+        u[L_TYPE] = type;
+        if (type == RESTORE_WIENER) {
+            for (int pass = 0; pass < 2; pass++) {
+                int first = p ? 1 : 0;
+                if (p) u[L_WIENER + pass * 3] = 0;
+                for (int j = first; j < 3; j++) {
+                    int v = decode_signed_subexp_with_ref_bool(WIENER_TAPS_MIN[j], WIENER_TAPS_MAX[j] + 1,
+                                                               WIENER_TAPS_K[j], refLrWiener[p][pass][j]);
+                    u[L_WIENER + pass * 3 + j] = v;
+                    refLrWiener[p][pass][j] = v;
+                }
+            }
+        } else if (type == RESTORE_SGRPROJ) {
+            int set = sd.literal(4);
+            u[L_SET] = set;
+            for (int i = 0; i < 2; i++) {
+                int radius = SGR_PARAMS[set][i];
+                int mn = SGRPROJ_XQD_MIN[i], mx = SGRPROJ_XQD_MAX[i], v;
+                if (radius) {
+                    v = decode_signed_subexp_with_ref_bool(mn, mx + 1, 4, refSgrXqd[p][i]);
+                } else {
+                    v = 0;
+                    if (i == 1) v = clip3(mn, mx, (1 << 7) - refSgrXqd[p][0]);
+                }
+                u[L_XQD + i] = v;
+                refSgrXqd[p][i] = v;
+            }
+        }
+    }
+    void read_lr(int r, int c) {
+        if (hdr[H_ALLOW_INTRABC]) return;
+        for (int p = 0; p < numPlanes; p++) {
+            if (hdr[H_LR_TYPE + p] == RESTORE_NONE) continue;
+            int sx = p ? ssx : 0, sy = p ? ssy : 0;
+            int unitSize = hdr[H_LR_SIZE + p];
+            int unitRows = hdr[H_LR_ROWS + p], unitCols = hdr[H_LR_COLS + p];
+            int rowStart = (r * (4 >> sy) + unitSize - 1) / unitSize;
+            int rowEnd = std::min(unitRows, ((r + sbSize4) * (4 >> sy) + unitSize - 1) / unitSize);
+            int colStart = (c * (4 >> sx) + unitSize - 1) / unitSize;
+            int colEnd = std::min(unitCols, ((c + sbSize4) * (4 >> sx) + unitSize - 1) / unitSize);
+            for (int ur = rowStart; ur < rowEnd; ur++)
+                for (int uc = colStart; uc < colEnd; uc++) read_lr_unit(p, ur, uc);
+        }
+    }
+
     int read_delta_abs(uint16_t* c) {
         int a = sd.symbol(c, 4);
         if (a == 3) {
@@ -1216,6 +1335,7 @@ struct Tile {
         if (hdr[H_SEG_PRE_SKIP]) intra_segment_id();
         read_skip();
         if (!hdr[H_SEG_PRE_SKIP]) intra_segment_id();
+        read_cdef();
         read_delta_qindex();
         read_delta_lf();
         readDeltas = 0;
@@ -2245,6 +2365,11 @@ struct Tile {
         sd.init(data, size, hdr[H_DISABLE_CDF_UPDATE]);
         currentQ = hdr[H_BASE_Q];
         for (int i = 0; i < 4; i++) deltaLF[i] = 0;
+        for (int p = 0; p < 3; p++)
+            for (int pass = 0; pass < 2; pass++) {
+                refSgrXqd[p][pass] = SGRPROJ_XQD_MID[pass];
+                for (int i = 0; i < 3; i++) refLrWiener[p][pass][i] = WIENER_TAPS_MID[i];
+            }
         int sbBlock = use128 ? B128X128 : B64X64;
         for (int r = rowStart; r < rowEnd; r += sbSize4) {
             for (int p = 0; p < 3; p++) {
@@ -2253,7 +2378,9 @@ struct Tile {
             }
             for (int c = colStart; c < colEnd; c += sbSize4) {
                 readDeltas = hdr[H_DELTA_Q_PRESENT];
+                set_cdef(r, c, sbSize4, sbSize4, -1);  // clear_cdef
                 clear_block_decoded(r, c);
+                read_lr(r, c);
                 decode_partition(r, c, sbBlock);
                 if (err) return err;
             }
@@ -2367,6 +2494,590 @@ struct Deblock {
     }
 };
 
+// ------------------------------------------------------------------- CDEF ---
+
+// The direction search of one 8x8 (specification 7.15.2) on its samples
+// `b` (row stride `st`): the best of the 8 directions and the variance.
+int cdef_direction(const int* b, int st, int* var) {
+    int cost[8] = {0}, partial[8][15] = {{0}};
+    for (int i = 0; i < 8; i++)
+        for (int j = 0; j < 8; j++) {
+            int x = b[i * st + j] - 128;
+            partial[0][i + j] += x;
+            partial[1][i + j / 2] += x;
+            partial[2][i] += x;
+            partial[3][3 + i - j / 2] += x;
+            partial[4][7 + i - j] += x;
+            partial[5][3 - i / 2 + j] += x;
+            partial[6][j] += x;
+            partial[7][i / 2 + j] += x;
+        }
+    for (int i = 0; i < 8; i++) {
+        cost[2] += partial[2][i] * partial[2][i];
+        cost[6] += partial[6][i] * partial[6][i];
+    }
+    cost[2] *= CDEF_DIV_TABLE[8];
+    cost[6] *= CDEF_DIV_TABLE[8];
+    for (int i = 0; i < 7; i++) {
+        cost[0] += (partial[0][i] * partial[0][i] + partial[0][14 - i] * partial[0][14 - i]) * CDEF_DIV_TABLE[i + 1];
+        cost[4] += (partial[4][i] * partial[4][i] + partial[4][14 - i] * partial[4][14 - i]) * CDEF_DIV_TABLE[i + 1];
+    }
+    cost[0] += partial[0][7] * partial[0][7] * CDEF_DIV_TABLE[8];
+    cost[4] += partial[4][7] * partial[4][7] * CDEF_DIV_TABLE[8];
+    for (int i = 1; i < 8; i += 2) {
+        for (int j = 0; j < 5; j++) cost[i] += partial[i][3 + j] * partial[i][3 + j];
+        cost[i] *= CDEF_DIV_TABLE[8];
+        for (int j = 0; j < 3; j++)
+            cost[i] += (partial[i][j] * partial[i][j] + partial[i][10 - j] * partial[i][10 - j]) * CDEF_DIV_TABLE[2 * j + 2];
+    }
+    int best = 0, dir = 0;
+    for (int d = 0; d < 8; d++)
+        if (cost[d] > best) {
+            best = cost[d];
+            dir = d;
+        }
+    *var = (best - cost[(dir + 4) & 7]) >> 10;
+    return dir;
+}
+
+// constrain() of 7.15.3 with its damping shift max(0, damping -
+// FloorLog2(threshold)) computed once a block
+inline int cdef_constrain(int diff, int threshold, int shift) {
+    int a = std::abs(diff);
+    int val = std::min(a, std::max(0, threshold - (a >> shift)));
+    return diff < 0 ? -val : val;
+}
+
+// The CDEF filter (7.15.3) of a w x h block from its window `win`: (h + 4)
+// rows of w + 4 samples, the block at (2, 2), -1 where a sample lies
+// outside the frame (CdefAvailable 0); `out` gets w * h.
+void cdef_filter(const int* win, int w, int h, int pri, int sec, int damping, int dir, uint8_t* out) {
+    int ws = w + 4;
+    const int16_t* pt = CDEF_PRI_TAPS[pri & 1];
+    const int16_t* st = CDEF_SEC_TAPS[pri & 1];
+    int priShift = pri ? std::max(0, damping - floorlog2(pri)) : 0;
+    int secShift = sec ? std::max(0, damping - floorlog2(sec)) : 0;
+    // the window offsets of the primary taps (k = 0, 1) and of the
+    // secondary ones (directions dir - 2 and dir + 2), one side each
+    int po[2], so[2][2];
+    for (int k = 0; k < 2; k++) {
+        po[k] = CDEF_DIRECTIONS[dir][k][0] * ws + CDEF_DIRECTIONS[dir][k][1];
+        for (int e = 0; e < 2; e++) {
+            int d2 = (dir + (e ? 2 : -2)) & 7;
+            so[k][e] = CDEF_DIRECTIONS[d2][k][0] * ws + CDEF_DIRECTIONS[d2][k][1];
+        }
+    }
+    // A group of taps of strength 0 adds nothing, and leaving its samples
+    // out of the clamp changes nothing: each group's taps weigh 12 / 16 in
+    // all, so the other group moves x no further than its own samples.
+    for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) {
+            const int* c = win + (i + 2) * ws + j + 2;
+            int x = *c;
+            int sum = 0, mx = x, mn = x;
+            for (int k = 0; k < 2; k++)
+                for (int sign = -1; sign <= 1; sign += 2) {
+                    int p = c[sign * po[k]];
+                    if (pri && p >= 0) {
+                        sum += pt[k] * cdef_constrain(p - x, pri, priShift);
+                        mx = std::max(p, mx);
+                        mn = std::min(p, mn);
+                    }
+                    for (int e = 0; sec && e < 2; e++) {
+                        int q = c[sign * so[k][e]];
+                        if (q >= 0) {
+                            sum += st[k] * cdef_constrain(q - x, sec, secShift);
+                            mx = std::max(q, mx);
+                            mn = std::min(q, mn);
+                        }
+                    }
+                }
+            out[i * w + j] = (uint8_t)clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4));
+        }
+}
+
+// One block's CDEF (7.15.1) from its window: luma turns its primary
+// strength off with the direction where it is 0 and adjusts it by the
+// variance; chroma takes the luma direction yDir (Cdef_Uv_Dir for 4:2:0 is
+// the identity). Returns the direction used.
+int cdef_apply(const int* win, int w, int h, int plane, int pri, int sec, int damping, int yDir, int var,
+               uint8_t* out) {
+    int dir;
+    if (plane == 0) {
+        dir = pri ? yDir : 0;
+        int varStr = (var >> 6) ? std::min(floorlog2(var >> 6), 12) : 0;
+        pri = var ? (pri * (4 + varStr) + 8) >> 4 : 0;
+    } else {
+        dir = pri ? CDEF_UV_DIR[1][1][yDir] : 0;
+    }
+    cdef_filter(win, w, h, pri, sec, damping, dir, out);
+    return dir;
+}
+
+struct Cdef {
+    const int32_t* hdr;
+    int miCols, miRows, numPlanes;
+    const uint8_t* src[3];
+    uint8_t* dst[3];
+    int stride[3];
+    const int32_t* mi;
+    const int32_t* idx;
+
+    int skip(int r, int c) const { return mi[((size_t)r * miCols + c) * M_FIELDS + M_SKIP]; }
+
+    // the window of the 8x8's plane-p block at MI (r, c)
+    void window(int p, int r, int c, int* win) const {
+        int sx = p ? 1 : 0, sy = p ? 1 : 0;
+        int w = 8 >> sx, h = 8 >> sy;
+        int x0 = (c * 4) >> sx, y0 = (r * 4) >> sy;
+        bool inside = y0 >= 2 && x0 >= 2 && ((y0 + h + 2) << sy) <= miRows * 4 &&
+                      ((x0 + w + 2) << sx) <= miCols * 4;
+        for (int i = -2; i < h + 2; i++)
+            for (int j = -2; j < w + 2; j++) {
+                int y = y0 + i, x = x0 + j;
+                bool in = inside || (y >= 0 && x >= 0 && (y << sy) < miRows * 4 && (x << sx) < miCols * 4);
+                win[(i + 2) * (w + 4) + j + 2] = in ? src[p][(size_t)y * stride[p] + x] : -1;
+            }
+    }
+
+    // one plane's filtered block into dst, traced: for luma `pri` is the
+    // strength before the variance adjustment and yDir / var the search's
+    void filter(int p, int r, int c, int pri, int sec, int damping, int yDir, int var) {
+        int sx = p ? 1 : 0, sy = p ? 1 : 0;
+        int w = 8 >> sx, h = 8 >> sy;
+        int win[12 * 12];
+        uint8_t out[64];
+        window(p, r, c, win);
+        int dir = cdef_apply(win, w, h, p, pri, sec, damping, yDir, var, out);
+        int x0 = (c * 4) >> sx, y0 = (r * 4) >> sy;
+        for (int i = 0; i < h; i++)
+            for (int j = 0; j < w; j++) dst[p][(size_t)(y0 + i) * stride[p] + x0 + j] = out[i * w + j];
+        int n = (w + 4) * (h + 4);
+        TraceRecord tr(g_trace ? 10 + n + w * h : 0);
+        tr.put(TRACE_CDEF);
+        tr.put(p);
+        tr.put(w);
+        tr.put(h);
+        tr.put(pri);
+        tr.put(sec);
+        tr.put(damping);
+        tr.put(p ? yDir : -1);
+        for (int k = 0; k < n; k++) tr.put(win[k]);
+        tr.put(p ? dir : yDir);
+        tr.put(p ? 0 : var);
+        for (int k = 0; k < w * h; k++) tr.put(out[k]);
+    }
+
+    void run() {
+        int cols = (miCols + 15) >> 4;
+        for (int r = 0; r < miRows; r += 2)
+            for (int c = 0; c < miCols; c += 2) {
+                int id = idx[(r >> 4) * cols + (c >> 4)];
+                if (id == -1) continue;
+                if (skip(r, c) && skip(r + 1, c) && skip(r, c + 1) && skip(r + 1, c + 1)) continue;
+                int yPri = hdr[H_CDEF_Y_PRI + id], ySec = hdr[H_CDEF_Y_SEC + id];
+                int uvPri = hdr[H_CDEF_UV_PRI + id], uvSec = hdr[H_CDEF_UV_SEC + id];
+                int damping = hdr[H_CDEF_DAMPING];
+                int var = 0, yDir = 0;
+                if (yPri || ySec || (numPlanes > 1 && (uvPri || uvSec))) {
+                    int b[64];
+                    for (int i = 0; i < 8; i++)
+                        for (int j = 0; j < 8; j++) b[i * 8 + j] = src[0][(size_t)(r * 4 + i) * stride[0] + c * 4 + j];
+                    yDir = cdef_direction(b, 8, &var);
+                }
+                if (yPri || ySec) filter(0, r, c, yPri, ySec, damping, yDir, var);
+                if (numPlanes > 1 && (uvPri || uvSec))
+                    for (int p = 1; p < 3; p++) filter(p, r, c, uvPri, uvSec, damping - 1, yDir, 0);
+            }
+    }
+};
+
+// ------------------------------------------------------- loop restoration ---
+
+// The Wiener filter (7.17.4) of a w x h block from its window `win`: (h + 6)
+// rows of w + 6 samples, the block at (3, 3); the vertical and horizontal
+// taps 0-2 (tap 3 is 128 less twice their sum); 8-bit rounding
+// (InterRound0 3, InterRound1 11) with the intermediate clipped.
+void wiener_filter(const int* win, int w, int h, const int* vtaps, const int* htaps, uint8_t* out) {
+    int vf[7], hf[7];
+    vf[3] = hf[3] = 128;
+    for (int i = 0; i < 3; i++) {
+        vf[i] = vf[6 - i] = vtaps[i];
+        hf[i] = hf[6 - i] = htaps[i];
+        vf[3] -= 2 * vtaps[i];
+        hf[3] -= 2 * htaps[i];
+    }
+    const int offset = 1 << (8 + 7 - 3 - 1), limit = (1 << (8 + 1 + 7 - 3)) - 1;
+    int ws = w + 6;
+    std::vector<int> mid((size_t)(h + 6) * w);
+    for (int r = 0; r < h + 6; r++)
+        for (int c = 0; c < w; c++) {
+            int s = 0;
+            for (int t = 0; t < 7; t++) s += hf[t] * win[r * ws + c + t];
+            mid[(size_t)r * w + c] = clip3(-offset, limit - offset, round2(s, 3));
+        }
+    for (int r = 0; r < h; r++)
+        for (int c = 0; c < w; c++) {
+            int s = 0;
+            for (int t = 0; t < 7; t++) s += vf[t] * mid[(size_t)(r + t) * w + c];
+            out[r * w + c] = (uint8_t)clip1(round2(s, 11));
+        }
+}
+
+// One box filter pass (7.17.3) of the self-guided filter: F (h x w) from the
+// window (as wiener_filter's) with radius r and scale s.
+void sgr_box(const int* win, int w, int h, int r, int s, int pass, std::vector<int>& F) {
+    int ws = w + 6, n = (2 * r + 1) * (2 * r + 1);
+    int aw = w + 2;
+    std::vector<int> A((size_t)(h + 2) * aw), B((size_t)(h + 2) * aw);
+    int oneOverN = ONE_BY_X[n - 1];
+    for (int i = -1; i < h + 1; i++)
+        for (int j = -1; j < w + 1; j++) {
+            int64_t a = 0, b = 0;
+            for (int dy = -r; dy <= r; dy++)
+                for (int dx = -r; dx <= r; dx++) {
+                    int c = win[(i + 3 + dy) * ws + j + 3 + dx];
+                    a += c * c;
+                    b += c;
+                }
+            int64_t p = std::max<int64_t>(0, a * n - b * b);
+            int64_t z = (p * s + (1 << 19)) >> 20;
+            int a2 = X_BY_XPLUS1[std::min<int64_t>(z, 255)];
+            int64_t b2 = (int64_t)((1 << 8) - a2) * b * oneOverN;
+            A[(size_t)(i + 1) * aw + j + 1] = a2;
+            B[(size_t)(i + 1) * aw + j + 1] = (int)((b2 + (1 << 11)) >> 12);
+        }
+    F.assign((size_t)h * w, 0);
+    for (int i = 0; i < h; i++) {
+        int shift = (pass == 0 && (i & 1)) ? 4 : 5;
+        for (int j = 0; j < w; j++) {
+            int64_t a = 0, b = 0;
+            for (int dy = -1; dy <= 1; dy++)
+                for (int dx = -1; dx <= 1; dx++) {
+                    int weight;
+                    if (pass == 0) weight = ((i + dy) & 1) ? (dx == 0 ? 6 : 5) : 0;
+                    else weight = (dx == 0 || dy == 0) ? 4 : 3;
+                    a += weight * A[(size_t)(i + 1 + dy) * aw + j + 1 + dx];
+                    b += weight * B[(size_t)(i + 1 + dy) * aw + j + 1 + dx];
+                }
+            int64_t v = a * win[(i + 3) * ws + j + 3] + b;
+            F[(size_t)i * w + j] = round2(v, 8 + shift - 4);
+        }
+    }
+}
+
+// The self-guided filter (7.17.3) of a w x h block from its window: the
+// set's two box passes (a radius of 0 leaves one out) and the projection
+// with weights xqd.
+void sgr_filter(const int* win, int w, int h, int set, const int* xqd, uint8_t* out) {
+    std::vector<int> f0, f1;
+    int r0 = SGR_PARAMS[set][0], r1 = SGR_PARAMS[set][1];
+    if (r0) sgr_box(win, w, h, r0, SGR_PARAMS[set][2], 0, f0);
+    if (r1) sgr_box(win, w, h, r1, SGR_PARAMS[set][3], 1, f1);
+    int w0 = xqd[0], w1 = xqd[1], w2 = (1 << 7) - w0 - w1;
+    int ws = w + 6;
+    for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) {
+            int u = win[(i + 3) * ws + j + 3] << 4;
+            int64_t v = (int64_t)w1 * u;
+            v += (int64_t)w0 * (r0 ? f0[(size_t)i * w + j] : u);
+            v += (int64_t)w2 * (r1 ? f1[(size_t)i * w + j] : u);
+            out[i * w + j] = (uint8_t)clip1(round2(v, 4 + 7));
+        }
+}
+
+struct Restoration {
+    const int32_t* hdr;
+    int numPlanes, width, height;
+    const uint8_t* pre[3];   // deblocked, before CDEF
+    const uint8_t* cdef[3];  // CDEF's output
+    uint8_t* dst[3];
+    int stride[3];
+    const int32_t* units;
+
+    void run() {
+        for (int p = 0; p < numPlanes; p++) {
+            if (hdr[H_LR_TYPE + p] == RESTORE_NONE) continue;
+            int sx = p ? 1 : 0, sy = p ? 1 : 0;
+            int unitSize = hdr[H_LR_SIZE + p], unitRows = hdr[H_LR_ROWS + p], unitCols = hdr[H_LR_COLS + p];
+            int planeW = (width + sx) >> sx, planeH = (height + sy) >> sy;
+            for (int k = 0;; k++) {
+                // stripes of 64 luma rows, the first 8 short
+                int stripeStart = k ? (64 * k - 8) >> sy : -(8 >> sy);
+                if (stripeStart > planeH - 1) break;
+                int stripeEnd = stripeStart + (64 >> sy) - 1;
+                int y0 = std::max(0, stripeStart), y1 = std::min(planeH - 1, stripeEnd);
+                int unitRow = std::min(unitRows - 1, ((64 * k) >> sy) / unitSize);
+                for (int uc = 0; uc < unitCols; uc++) {
+                    int x0 = uc * unitSize, x1 = uc == unitCols - 1 ? planeW : std::min(planeW, x0 + unitSize);
+                    const int32_t* u = units + ((size_t)p * hdr[H_LR_STRIDE] + (size_t)unitRow * unitCols + uc) * L_FIELDS;
+                    if (u[L_TYPE] == RESTORE_NONE || x0 >= x1) continue;
+                    block(p, u, x0, y0, x1 - x0, y1 - y0 + 1, stripeStart, stripeEnd, planeW, planeH);
+                }
+            }
+        }
+    }
+
+    // get_source_sample of 7.17.6: clamped to the plane, rows past the stripe
+    // (at most 2) from the deblocked frame, the rest from CDEF's output
+    int sample(int p, int x, int y, int stripeStart, int stripeEnd, int planeW, int planeH) const {
+        x = clip3(0, planeW - 1, x);
+        y = clip3(0, planeH - 1, y);
+        if (y < stripeStart) return pre[p][(size_t)std::max(stripeStart - 2, y) * stride[p] + x];
+        if (y > stripeEnd) return pre[p][(size_t)std::min(stripeEnd + 2, y) * stride[p] + x];
+        return cdef[p][(size_t)y * stride[p] + x];
+    }
+
+    void block(int p, const int32_t* u, int x0, int y0, int w, int h, int stripeStart, int stripeEnd, int planeW,
+               int planeH) {
+        int ws = w + 6, n = ws * (h + 6);
+        std::vector<int> win(n);
+        for (int r = 0; r < h + 6; r++)
+            for (int c = 0; c < ws; c++)
+                win[(size_t)r * ws + c] = sample(p, x0 + c - 3, y0 + r - 3, stripeStart, stripeEnd, planeW, planeH);
+        std::vector<uint8_t> out((size_t)w * h);
+        int wiener = u[L_TYPE] == RESTORE_WIENER;
+        if (wiener) wiener_filter(win.data(), w, h, u + L_WIENER, u + L_WIENER + 3, out.data());
+        else sgr_filter(win.data(), w, h, u[L_SET], u + L_XQD, out.data());
+        for (int i = 0; i < h; i++)
+            std::memcpy(dst[p] + (size_t)(y0 + i) * stride[p] + x0, out.data() + (size_t)i * w, w);
+        TraceRecord tr(g_trace ? 9 + n + w * h : 0);
+        tr.put(wiener ? TRACE_WIENER : TRACE_SGR);
+        tr.put(w);
+        tr.put(h);
+        if (wiener) {
+            for (int k = 0; k < 6; k++) tr.put(u[L_WIENER + k]);
+        } else {
+            tr.put(u[L_SET]);
+            tr.put(u[L_XQD]);
+            tr.put(u[L_XQD + 1]);
+            for (int k = 0; k < 3; k++) tr.put(0);
+        }
+        for (int k = 0; k < n; k++) tr.put(win[k]);
+        for (int k = 0; k < w * h; k++) tr.put(out[k]);
+    }
+};
+
+// ------------------------------------------------------------------ scale ---
+
+// libyuv's ScalePlane as libavif's avifImageScale calls it (kFilterBox,
+// reduced by ScaleFilterReduce), each path as libyuv takes it: a vertical
+// interpolation where the width is kept; exact halves and quarters as 2x2
+// and 4x4 means; box means where both sides shrink below half; the 2x
+// linear and bilinear upsamplers; bilinear filtering (rows interpolated at
+// 8 bits, columns at 7 bits with the x86 column filter's rounding) up or
+// down; point sampling where a side is 1 wide. The 3/4 and 3/8 filters are
+// not ported (kScaleRatio).
+namespace scale {
+
+enum { F_NONE, F_LINEAR, F_BILINEAR, F_BOX };
+
+int fixed_div(int num, int div) { return (int)(((int64_t)num << 16) / div); }
+int fixed_div1(int num, int div) { return (int)((((int64_t)num << 16) - 0x00010001) / (div - 1)); }
+int centerstart(int dx, int s) { return dx < 0 ? -((-dx >> 1) + s) : ((dx >> 1) + s); }
+
+int reduce(int sw, int sh, int dw, int dh, int f) {
+    if (f == F_BOX && (dw * 2 >= sw || dh * 2 >= sh)) f = F_BILINEAR;
+    if (f == F_BILINEAR) {
+        if (sh == 1) f = F_LINEAR;
+        if (dh == sh || dh * 3 == sh) f = F_LINEAR;
+        if (sw == 1) f = F_NONE;
+    }
+    if (f == F_LINEAR) {
+        if (sw == 1) f = F_NONE;
+        if (dw == sw || dw * 3 == sw) f = F_NONE;
+    }
+    return f;
+}
+
+void interp_row(const uint8_t* a, const uint8_t* b, int n, int f, uint8_t* out) {
+    for (int x = 0; x < n; x++) out[x] = f ? (uint8_t)((a[x] * (256 - f) + b[x] * f + 128) >> 8) : a[x];
+}
+
+// the x86 column filter: 7-bit fractions, (128 - f) a + f b rounded
+void filter_cols(const uint8_t* row, int dw, int x, int dx, uint8_t* out) {
+    for (int j = 0; j < dw; j++, x += dx) {
+        int xi = x >> 16, f = (x >> 9) & 127;
+        int a = row[xi], b = f ? row[xi + 1] : 0;
+        out[j] = (uint8_t)(((128 - f) * a + f * b + 64) >> 7);
+    }
+}
+
+void slope(int sw, int sh, int dw, int dh, int f, int* x, int* y, int* dx, int* dy) {
+    *x = *y = *dx = *dy = 0;
+    if (f == F_BILINEAR || f == F_LINEAR) {
+        if (dw <= sw) {
+            *dx = fixed_div(sw, dw);
+            *x = centerstart(*dx, -32768);
+        } else if (sw > 1 && dw > 1) {
+            *dx = fixed_div1(sw, dw);
+        }
+        if (f == F_LINEAR) {
+            *dy = fixed_div(sh, dh);
+            *y = *dy >> 1;
+        } else if (dh <= sh) {
+            *dy = fixed_div(sh, dh);
+            *y = centerstart(*dy, -32768);
+        } else if (sh > 1 && dh > 1) {
+            *dy = fixed_div1(sh, dh);
+        }
+    } else {
+        *dx = fixed_div(sw, dw);
+        *dy = fixed_div(sh, dh);
+        if (f == F_NONE) {
+            *x = centerstart(*dx, 0);
+            *y = centerstart(*dy, 0);
+        }
+    }
+}
+
+int plane(const uint8_t* src, int ss, int sw, int sh, uint8_t* dst, int ds, int dw, int dh) {
+    int f = reduce(sw, sh, dw, dh, F_BOX);
+    auto S = [&](int r) { return src + (size_t)r * ss; };
+    auto D = [&](int r) { return dst + (size_t)r * ds; };
+    if (dw == sw && dh == sh) {
+        for (int r = 0; r < dh; r++) std::memcpy(D(r), S(r), dw);
+        return 0;
+    }
+    if (dw == sw && f != F_BOX) {  // ScalePlaneVertical
+        int dy = 0, y = 0;
+        if (dh <= sh) {
+            dy = fixed_div(sh, dh);
+            y = centerstart(dy, -32768);
+        } else if (sh > 1 && dh > 1) {
+            dy = fixed_div1(sh, dh);
+        }
+        int maxY = sh > 1 ? ((sh - 1) << 16) - 1 : 0;
+        for (int j = 0; j < dh; j++, y += dy) {
+            y = std::min(y, maxY);
+            int yi = y >> 16, yf = f ? (y >> 8) & 255 : 0;
+            interp_row(S(yi), S(std::min(yi + 1, sh - 1)), dw, yf, D(j));
+        }
+        return 0;
+    }
+    if (dw <= sw && dh <= sh) {
+        if (4 * dw == 3 * sw && 4 * dh == 3 * sh) return kScaleRatio;
+        if (2 * dw == sw && 2 * dh == sh) {  // 2x2 means
+            for (int j = 0; j < dh; j++)
+                for (int i = 0; i < dw; i++)
+                    D(j)[i] = (uint8_t)((S(2 * j)[2 * i] + S(2 * j)[2 * i + 1] + S(2 * j + 1)[2 * i] +
+                                         S(2 * j + 1)[2 * i + 1] + 2) >> 2);
+            return 0;
+        }
+        if (8 * dw == 3 * sw && 8 * dh == 3 * sh) return kScaleRatio;
+        if (4 * dw == sw && 4 * dh == sh) {  // 4x4 means
+            for (int j = 0; j < dh; j++)
+                for (int i = 0; i < dw; i++) {
+                    int t = 8;
+                    for (int a = 0; a < 4; a++)
+                        for (int b = 0; b < 4; b++) t += S(4 * j + a)[4 * i + b];
+                    D(j)[i] = (uint8_t)(t >> 4);
+                }
+            return 0;
+        }
+    }
+    if (f == F_BOX && dh * 2 < sh) {  // ScalePlaneBox: both sides below half, boxes 2 or more wide
+        int dx = fixed_div(sw, dw), dy = fixed_div(sh, dh), y = 0, maxY = sh << 16;
+        std::vector<uint16_t> row(sw);  // libyuv's uint16 row sums
+        for (int j = 0; j < dh; j++) {
+            int iy = y >> 16;
+            y = std::min(y + dy, maxY);
+            int bh = std::max(1, (y >> 16) - iy);
+            std::fill(row.begin(), row.end(), 0);
+            for (int k = 0; k < bh; k++)
+                for (int i = 0; i < sw; i++) row[i] = (uint16_t)(row[i] + S(iy + k)[i]);
+            for (int i = 0, x = 0; i < dw; i++) {
+                // a fractional step gives boxes of dx >> 16 or one more
+                int ix = (dx & 0xffff) ? x >> 16 : i * (dx >> 16);
+                x += dx;
+                int bw = (dx & 0xffff) ? (x >> 16) - ix : dx >> 16;
+                int t = 0;
+                for (int k = 0; k < bw; k++) t += row[ix + k];
+                D(j)[i] = (uint8_t)((t * (65536 / (bw * bh))) >> 16);
+            }
+        }
+        return 0;
+    }
+    if ((dw + 1) / 2 == sw && f == F_LINEAR) {  // ScalePlaneUp2_Linear
+        auto up = [&](const uint8_t* r, uint8_t* o) {
+            o[0] = r[0];
+            int n = ((dw - 1) & ~1) / 2;
+            for (int x = 0; x < n; x++) {
+                o[1 + 2 * x] = (uint8_t)((3 * r[x] + r[x + 1] + 2) >> 2);
+                o[2 + 2 * x] = (uint8_t)((r[x] + 3 * r[x + 1] + 2) >> 2);
+            }
+            o[dw - 1] = r[(dw - 1) / 2];
+        };
+        if (dh == 1) {
+            up(S((sh - 1) / 2), D(0));
+        } else {
+            int dy = fixed_div(sh - 1, dh - 1), y = (1 << 15) - 1;
+            for (int j = 0; j < dh; j++, y += dy) up(S(y >> 16), D(j));
+        }
+        return 0;
+    }
+    if ((dh + 1) / 2 == sh && (dw + 1) / 2 == sw && (f == F_BILINEAR || f == F_BOX)) {  // ScalePlaneUp2_Bilinear
+        auto two = [&](const uint8_t* a, const uint8_t* b, uint8_t* da, uint8_t* db) {
+            da[0] = (uint8_t)((3 * a[0] + b[0] + 2) >> 2);
+            if (db) db[0] = (uint8_t)((a[0] + 3 * b[0] + 2) >> 2);
+            int n = ((dw - 1) & ~1) / 2;
+            for (int x = 0; x < n; x++) {
+                int s0 = a[x], s1 = a[x + 1], t0 = b[x], t1 = b[x + 1];
+                da[1 + 2 * x] = (uint8_t)((s0 * 9 + s1 * 3 + t0 * 3 + t1 + 8) >> 4);
+                da[2 + 2 * x] = (uint8_t)((s0 * 3 + s1 * 9 + t0 + t1 * 3 + 8) >> 4);
+                if (db) {
+                    db[1 + 2 * x] = (uint8_t)((s0 * 3 + s1 + t0 * 9 + t1 * 3 + 8) >> 4);
+                    db[2 + 2 * x] = (uint8_t)((s0 + s1 * 3 + t0 * 3 + t1 * 9 + 8) >> 4);
+                }
+            }
+            int k = (dw - 1) / 2;
+            da[dw - 1] = (uint8_t)((3 * a[k] + b[k] + 2) >> 2);
+            if (db) db[dw - 1] = (uint8_t)((a[k] + 3 * b[k] + 2) >> 2);
+        };
+        two(S(0), S(0), D(0), nullptr);
+        int r = 1;
+        for (int k = 0; k < sh - 1; k++, r += 2) two(S(k), S(k + 1), D(r), r + 1 < dh ? D(r + 1) : nullptr);
+        if (!(dh & 1)) two(S(sh - 1), S(sh - 1), D(r), nullptr);
+        return 0;
+    }
+    int x, y, dx, dy;
+    if (f) {
+        slope(sw, sh, dw, dh, f, &x, &y, &dx, &dy);
+        int maxY = (sh - 1) << 16;
+        y = std::min(y, maxY);
+        std::vector<uint8_t> top(dw), bot(dw), row(sw + 1, 0);
+        for (int j = 0; j < dh; j++) {
+            int yi = y >> 16;
+            if (dh > sh) {  // ScalePlaneBilinearUp: the columns of two rows, then the rows
+                filter_cols(S(yi), dw, x, dx, top.data());
+                if (f == F_LINEAR) {
+                    std::memcpy(D(j), top.data(), dw);
+                } else {
+                    filter_cols(S(std::min(yi + 1, sh - 1)), dw, x, dx, bot.data());
+                    interp_row(top.data(), bot.data(), dw, (y >> 8) & 255, D(j));
+                }
+                y = std::min(y + dy, maxY);
+            } else {  // ScalePlaneBilinearDown: the rows, then the columns
+                if (f == F_LINEAR) std::memcpy(row.data(), S(yi), sw);
+                else interp_row(S(yi), S(std::min(yi + 1, sh - 1)), sw, (y >> 8) & 255, row.data());
+                filter_cols(row.data(), dw, x, dx, D(j));
+                y = std::min(y + dy, maxY);
+            }
+        }
+        return 0;
+    }
+    // ScalePlaneSimple: point sampling (2x across by repetition)
+    slope(sw, sh, dw, dh, F_NONE, &x, &y, &dx, &dy);
+    bool up2 = sw * 2 == dw && x < 0x8000;
+    for (int j = 0; j < dh; j++, y += dy) {
+        int xx = x;
+        for (int i = 0; i < dw; i++, xx += dx) D(j)[i] = S(y >> 16)[up2 ? i >> 1 : xx >> 16];
+    }
+    return 0;
+}
+
+}  // namespace scale
+
 // ------------------------------------------------------------ YUV -> RGB ---
 
 // libyuv's full-range BT.601 ("JPEG") constants for I420ToRGBAMatrix, as
@@ -2400,9 +3111,11 @@ int64_t fd_av1_trace(int32_t* buf, int64_t cap) {
 
 // One tile into the planes and the per-4x4 info; `left` gets the symbol
 // decoder's SymbolMaxBits at the tile's end (negative: bits read past it).
+// `cdef` gets each 64x64's CDEF index (-1 where read_cdef read none), `lr`
+// each restoration unit ([3][H_LR_STRIDE][L_FIELDS]).
 int fd_av1_tile(const uint8_t* data, int64_t size, const int32_t* hdr, uint8_t* y, uint8_t* u,
-                uint8_t* v, int32_t* mi, int64_t* left) {
-    if (!data || size < 0 || !hdr || !y || !mi) return kArgs;
+                uint8_t* v, int32_t* mi, int64_t* left, int32_t* cdef, int32_t* lr) {
+    if (!data || size < 0 || !hdr || !y || !mi || !cdef || !lr) return kArgs;
     Tile* t = new Tile();
     t->hdr = hdr;
     t->plane[0] = y;
@@ -2411,6 +3124,8 @@ int fd_av1_tile(const uint8_t* data, int64_t size, const int32_t* hdr, uint8_t* 
     t->stride[0] = hdr[H_STRIDE_Y];
     t->stride[1] = t->stride[2] = hdr[H_STRIDE_UV];
     t->mi = mi;
+    t->cdefIdx = cdef;
+    t->lrUnits = lr;
     int r = t->run(data, size);
     if (left) *left = t->sd.maxBits;
     delete t;
@@ -2433,6 +3148,57 @@ int fd_av1_deblock(const int32_t* hdr, uint8_t* y, uint8_t* u, uint8_t* v, const
     d.stride[1] = d.stride[2] = hdr[H_STRIDE_UV];
     d.mi = mi;
     d.run();
+    return 0;
+}
+
+// CDEF of the deblocked planes y, u, v (null for monochrome) into dy, du, dv
+// (copies of them), by the per-4x4 info and the 64x64 indices.
+int fd_av1_cdef(const int32_t* hdr, const uint8_t* y, const uint8_t* u, const uint8_t* v, uint8_t* dy,
+                uint8_t* du, uint8_t* dv, const int32_t* mi, const int32_t* cdef) {
+    if (!hdr || !y || !dy || !mi || !cdef) return kArgs;
+    Cdef c;
+    c.hdr = hdr;
+    c.miCols = hdr[H_MI_COLS];
+    c.miRows = hdr[H_MI_ROWS];
+    c.numPlanes = hdr[H_MONO] ? 1 : 3;
+    if (c.numPlanes > 1 && !(u && v && du && dv)) return kArgs;
+    c.src[0] = y;
+    c.src[1] = u;
+    c.src[2] = v;
+    c.dst[0] = dy;
+    c.dst[1] = du;
+    c.dst[2] = dv;
+    c.stride[0] = hdr[H_STRIDE_Y];
+    c.stride[1] = c.stride[2] = hdr[H_STRIDE_UV];
+    c.mi = mi;
+    c.idx = cdef;
+    c.run();
+    return 0;
+}
+
+// Loop restoration of CDEF's planes (cy, cu, cv) into dy, du, dv (copies of
+// them), the stripes' edge rows from the deblocked planes (py, pu, pv).
+int fd_av1_lr(const int32_t* hdr, const uint8_t* py, const uint8_t* pu, const uint8_t* pv, const uint8_t* cy,
+              const uint8_t* cu, const uint8_t* cv, uint8_t* dy, uint8_t* du, uint8_t* dv, const int32_t* lr) {
+    if (!hdr || !py || !cy || !dy || !lr) return kArgs;
+    Restoration R;
+    R.hdr = hdr;
+    R.numPlanes = hdr[H_MONO] ? 1 : 3;
+    if (R.numPlanes > 1 && !(pu && pv && cu && cv && du && dv)) return kArgs;
+    R.width = hdr[H_WIDTH];
+    R.height = hdr[H_HEIGHT];
+    const uint8_t* p[3] = {py, pu, pv};
+    const uint8_t* c[3] = {cy, cu, cv};
+    uint8_t* d[3] = {dy, du, dv};
+    for (int i = 0; i < 3; i++) {
+        R.pre[i] = p[i];
+        R.cdef[i] = c[i];
+        R.dst[i] = d[i];
+    }
+    R.stride[0] = hdr[H_STRIDE_Y];
+    R.stride[1] = R.stride[2] = hdr[H_STRIDE_UV];
+    R.units = lr;
+    R.run();
     return 0;
 }
 
@@ -2474,6 +3240,60 @@ int fd_av1_to_rgb(const uint8_t* y, int ys, const uint8_t* u, const uint8_t* v, 
             o[3] = a ? a[(size_t)row * as + x] : 255;
         }
     }
+    return 0;
+}
+
+// A sw x sh plane (src, stride ss) to dw x dh (dst, stride ds) as libavif
+// scales a decoded frame to its ispe; kScaleRatio for the 3/4 and 3/8
+// scales, which are not ported.
+int fd_av1_scale(const uint8_t* src, int ss, int sw, int sh, uint8_t* dst, int ds, int dw, int dh) {
+    if (!src || !dst || sw <= 0 || sh <= 0 || dw <= 0 || dh <= 0 || ss < sw || ds < dw) return kArgs;
+    return scale::plane(src, ss, sw, sh, dst, ds, dw, dh);
+}
+
+// CDEF of one block from its window ((h + 4) x (w + 4) samples, -1
+// outside the frame): luma (plane 0, 8x8) searches its direction on the
+// window's centre, chroma (4x4) takes ydir; out gets w * h, dv the
+// direction and variance as the trace records them.
+int fd_av1_cdef_block(const int32_t* win, int w, int h, int plane, int pri, int sec, int damping, int ydir,
+                      uint8_t* out, int32_t* dv) {
+    if (!win || !out || !dv || w != (plane ? 4 : 8) || h != w || pri < 0 || pri > 15 || sec < 0 || sec > 4 ||
+        damping < 2 || damping > 6 || ydir < -1 || ydir > 7)
+        return kArgs;
+    std::vector<int> v(win, win + (w + 4) * (h + 4));
+    int var = 0;
+    if (plane == 0) {
+        int b[64];
+        for (int i = 0; i < 8; i++)
+            for (int j = 0; j < 8; j++) b[i * 8 + j] = v[(i + 2) * 12 + j + 2];
+        ydir = cdef_direction(b, 8, &var);
+    } else if (ydir < 0) {
+        return kArgs;
+    }
+    int dir = cdef_apply(v.data(), w, h, plane, pri, sec, damping, ydir, var, out);
+    dv[0] = plane ? dir : ydir;
+    dv[1] = plane ? 0 : var;
+    return 0;
+}
+
+// The Wiener filter of a w x h block from its window ((h + 6) x (w + 6)):
+// taps = the vertical then the horizontal taps 0-2; out gets w * h.
+int fd_av1_wiener(const int32_t* win, int w, int h, const int32_t* taps, uint8_t* out) {
+    if (!win || !taps || !out || w <= 0 || h <= 0) return kArgs;
+    std::vector<int> v(win, win + (size_t)(w + 6) * (h + 6));
+    int t[6];
+    for (int i = 0; i < 6; i++) t[i] = taps[i];
+    wiener_filter(v.data(), w, h, t, t + 3, out);
+    return 0;
+}
+
+// The self-guided filter of a w x h block from its window (as
+// fd_av1_wiener's) with parameter set `set` and weights xqd[2].
+int fd_av1_sgr(const int32_t* win, int w, int h, int set, const int32_t* xqd, uint8_t* out) {
+    if (!win || !xqd || !out || w <= 0 || h <= 0 || set < 0 || set > 15) return kArgs;
+    std::vector<int> v(win, win + (size_t)(w + 6) * (h + 6));
+    int x[2] = {xqd[0], xqd[1]};
+    sgr_filter(v.data(), w, h, set, x, out);
     return 0;
 }
 

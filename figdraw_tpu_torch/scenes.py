@@ -1751,6 +1751,9 @@ WEBP_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_webp_480x270_block
 # more than twice its edge)
 ZSTD_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_zstd_pred2.tif")
 ZSTD_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_zstd_1x_blocks8.npy")
+# the crop (left, top, right, bottom) of the fixture stored in 64x64 ZSTD
+# tiles (fixture_zstd_tiles.tif), partial tiles at its right and bottom
+ZSTD_TILES_BOX = (200, 150, 450, 340)
 ZSTD_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_zstd_480x270_blocks8.npy")
 G3_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_dither_g3_2d.tif")
 G3_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_g3_1x_blocks8.npy")
@@ -1781,6 +1784,13 @@ RLEW_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_rlew_480x270_block
 AVIF_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_q75.avif")
 AVIF_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_avif_1x_blocks8.npy")
 AVIF_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_avif_480x270_blocks8.npy")
+# the fixture as PIL's AVIF at speed 2 with aom's CDEF on (quality 75,
+# 4:2:0; the frame turns on CDEF and loop restoration), drawn in the
+# image-file scene and on the photo wall
+AVIF_CDEF_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_s2_cdef.avif")
+AVIF_CDEF_FILE_REFERENCE = os.path.join(REFERENCE_DIR,
+                                        "example_image_file_avif_cdef_1x_blocks8.npy")
+AVIF_CDEF_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_avif_cdef_480x270_blocks8.npy")
 
 
 def make_image_file_scene(w: float, h: float, image_id: int) -> Renders:

@@ -1,20 +1,22 @@
 """The port's AV1 intra decoder for AVIF still images (utils/avif.py reads
 the container): the OBUs, the sequence header and the frame header of a
-shown key frame in Python, the tiles and the loop filter in C++
-(csrc/av1_decode.cpp, built by utils/image_lib.py), then YUV -> RGBA as
-libavif 1.3.0 converts it for PIL 12.1.0 (libyuv's full-range BT.601).
+shown key frame in Python, the tiles, the loop filter, CDEF and loop
+restoration in C++ (csrc/av1_decode.cpp, built by utils/image_lib.py),
+then YUV -> RGBA as libavif 1.3.0 converts it for PIL 12.1.0 (libyuv's
+full-range BT.601).
 
 Decoded: profile 0, 8-bit, 4:2:0 colour or monochrome (an alpha item),
 the reduced still-picture header or a full one with one shown key frame,
 uniform and non-uniform tiles, segmentation, delta q and delta lf,
 palettes, intra block copy (its vector stack, vectors and copies, the
 inter transform sets and split transform sizes it brings) and filter
-intra, coded-lossless frames (WHT). Refused with NotImplementedError
-naming AVIF and the feature: profiles 1 and 2 (4:4:4, 4:2:2), 10 and 12
-bits, superres, CDEF, loop restoration, film grain, and any frame that
-is not a shown key frame. Quantiser matrices (aom's `enable-qm`) are
-read. A malformed stream raises
-ValueError.
+intra, coded-lossless frames (WHT), CDEF (its 64x64 indices, the
+direction search, the primary and secondary taps) and loop restoration
+(Wiener and self-guided units, switchable or not, over stripes of 64
+luma rows). Refused with NotImplementedError naming AVIF and the
+feature: profiles 1 and 2 (4:4:4, 4:2:2), 10 and 12 bits, superres, film
+grain, and any frame that is not a shown key frame. Quantiser matrices
+(aom's `enable-qm`) are read. A malformed stream raises ValueError.
 
 The C++ stages and their numpy twins here, the tests' reference (nothing
 on the load path uses the twins unless `plain` is asked for):
@@ -23,16 +25,24 @@ on the load path uses the twins unless `plain` is asked for):
 - predict_plain, cfl_plain: the intra predictors with the edge filter and
   upsampling, CfL, filter intra;
 - lf_edge_plain: the loop filter at one position of an edge;
+- cdef_block_plain: CDEF of one 8x8 (its direction and variance for
+  luma) or of its 4x4 chroma blocks, from the window the C++ read;
+- wiener_plain, sgr_plain: the Wiener and self-guided filters of one
+  restoration unit's part of a stripe, from the window the C++ read;
+- scale_plain: libyuv's ScalePlane as libavif scales a frame to the size
+  its item's ispe gives;
 - to_rgba_plain: libyuv's bilinear 4:2:0 upsampling and fixed-point
   BT.601.
 `decode(stream, plain=True)` decodes the tiles in C++ with a trace of each
-prediction, transform and filter call, checks every traced call against
-its twin, and converts with the plain conversion.
+prediction, transform, loop filter, CDEF and restoration call, checks
+every traced call against its twin, and converts with the plain
+conversion.
 """
 
 from __future__ import annotations
 
 import ctypes
+import time
 
 import numpy as np
 
@@ -44,6 +54,7 @@ NOT_PORTED = ("AVIF images with {} are not decoded by figdraw_tpu_torch ({}): no
 
 # the C++ entry points' error codes
 ERRORS = {-2: "bad arguments", -3: "a Golomb code past 20 bits"}
+SCALE_RATIO = -4  # fd_av1_scale: a 3/4 or 3/8 scale (not ported)
 
 # OBU types read (temporal delimiters, metadata and padding are skipped)
 OBU_SEQUENCE_HEADER, OBU_FRAME_HEADER, OBU_TILE_GROUP, OBU_FRAME = 1, 3, 4, 6
@@ -65,7 +76,26 @@ H_LOSSLESS = H_FEATURE_DATA + 64
 H_STRIDE_Y = H_LOSSLESS + 8
 H_STRIDE_UV = H_STRIDE_Y + 1
 H_USING_QM, H_QM_Y, H_QM_U, H_QM_V = H_STRIDE_UV + 1, H_STRIDE_UV + 2, H_STRIDE_UV + 3, H_STRIDE_UV + 4
-H_SIZE = H_QM_V + 1
+# CDEF: read_cdef reads, damping, cdef_bits, the strengths of each index
+H_CDEF_READ, H_CDEF_DAMPING, H_CDEF_BITS = H_QM_V + 1, H_QM_V + 2, H_QM_V + 3
+H_CDEF_Y_PRI = H_CDEF_BITS + 1
+H_CDEF_Y_SEC = H_CDEF_Y_PRI + 8
+H_CDEF_UV_PRI = H_CDEF_Y_SEC + 8
+H_CDEF_UV_SEC = H_CDEF_UV_PRI + 8
+# loop restoration: each plane's type, unit size, units down and across,
+# and the units of a plane in fd_av1_tile's out-array
+H_LR_TYPE = H_CDEF_UV_SEC + 8
+H_LR_SIZE = H_LR_TYPE + 3
+H_LR_ROWS = H_LR_SIZE + 3
+H_LR_COLS = H_LR_ROWS + 3
+H_LR_STRIDE = H_LR_COLS + 3
+H_SIZE = H_LR_STRIDE + 1
+RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE = range(4)
+REMAP_LR_TYPE = (RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER, RESTORE_SGRPROJ)
+# a restoration unit as fd_av1_tile writes it (L_* there): its type, the
+# Wiener taps 0-2 of the vertical then the horizontal filter, the
+# self-guided set and its two weights
+L_TYPE, L_WIENER, L_SET, L_XQD, L_FIELDS = 0, 1, 7, 8, 10
 # the per-4x4 block info csrc/av1_decode.cpp writes (M_* there)
 (M_SIZE, M_SKIP, M_SEG, M_TX_Y, M_TX_UV, M_DLF0, M_DLF1, M_DLF2, M_DLF3, M_YMODE, M_UVMODE,
  M_INTER, M_MV_ROW, M_MV_COL, M_WRITTEN, M_FIELDS) = range(16)
@@ -149,9 +179,7 @@ def obus(data: bytes):
     """(type, payload bytes) of each OBU of a low-overhead stream."""
     pos = 0
     while pos < len(data):
-        head = data[pos]
-        if head & 0x80:
-            raise ValueError("AV1: an OBU's forbidden bit is set")
+        head = data[pos]  # dav1d reads past a set forbidden bit (its default, not strict)
         kind = (head >> 3) & 15
         ext = (head >> 2) & 1
         has_size = (head >> 1) & 1
@@ -254,10 +282,8 @@ def parse_sequence(payload: bytes) -> Sequence:
             s.order_hint_bits = r.f(3) + 1
     if r.f(1):
         raise refuse("superres")
-    if r.f(1):
-        raise refuse("CDEF")
-    if r.f(1):
-        raise refuse("loop restoration")
+    s.enable_cdef = r.f(1)
+    s.enable_restoration = r.f(1)
     high = r.f(1)
     if high:
         raise refuse("10- or 12-bit samples")
@@ -286,6 +312,9 @@ class Frame:
         self.full_range, self.matrix, self.mono = full_range, matrix, mono
         self.checked = None  # the stage calls checked against their twins (plain)
         self.mi = None  # the per-4x4 block info the tiles wrote (M_FIELDS int32 each)
+        self.cdef = None  # each 64x64's CDEF index (-1: none read)
+        self.lr = None  # the restoration units (3, H_LR_STRIDE, L_FIELDS)
+        self.ms = {}  # host ms of each decode stage
 
 
 def _tile_log2(blk: int, target: int) -> int:
@@ -452,7 +481,44 @@ def parse_frame_header(r: BitReader, s: Sequence) -> dict:
             for i in range(2):  # the mode deltas, which no intra block reads
                 if r.f(1):
                     r.su(7)
-    # cdef and lr are off (the sequence header refuses them); tx mode
+    # CDEF (cdef_params)
+    cdef_read = int(not (coded_lossless or allow_intrabc or not s.enable_cdef))
+    damping, cdef_bits = 3, 0
+    strengths = np.zeros((4, 8), np.int32)  # y pri, y sec, uv pri, uv sec
+    if cdef_read:
+        damping = r.f(2) + 3
+        cdef_bits = r.f(2)
+        for i in range(1 << cdef_bits):
+            strengths[0, i] = r.f(4)
+            strengths[1, i] = r.f(2)
+            if not s.mono:
+                strengths[2, i] = r.f(4)
+                strengths[3, i] = r.f(2)
+        strengths[[1, 3]] += strengths[[1, 3]] == 3
+    # loop restoration (lr_params; AllLossless is CodedLossless without superres)
+    lr_type, lr_size = [RESTORE_NONE] * 3, [0, 0, 0]
+    if not (coded_lossless or allow_intrabc or not s.enable_restoration):
+        planes = 1 if s.mono else 3
+        for i in range(planes):
+            lr_type[i] = REMAP_LR_TYPE[r.f(2)]
+        if any(lr_type):
+            if s.use128:
+                shift = r.f(1) + 1
+            else:
+                shift = r.f(1)
+                if shift:
+                    shift += r.f(1)
+            size = 256 >> (2 - shift)
+            uv_shift = r.f(1) if any(lr_type[1:]) else 0  # 4:2:0 with chroma units
+            lr_size = [size, size >> uv_shift, size >> uv_shift]
+    units = [(0, 0)] * 3
+    for p in range(3):
+        if lr_type[p]:
+            ss = int(p > 0)
+            # count_units_in_frame of the plane's rows and columns
+            units[p] = tuple(max((((n + ss) >> ss) + (lr_size[p] >> 1)) // lr_size[p], 1)
+                             for n in (height, width))
+    # tx mode
     tx_mode = 0 if coded_lossless else (2 if r.f(1) else 1)
     reduced_tx_set = r.f(1)
     hdr[[H_WIDTH, H_HEIGHT, H_MI_COLS, H_MI_ROWS]] = width, height, mi_cols, mi_rows
@@ -472,6 +538,14 @@ def parse_frame_header(r: BitReader, s: Sequence) -> dict:
     hdr[H_FEATURE_DATA:H_FEATURE_DATA + 64] = fd.reshape(-1)
     hdr[H_LOSSLESS:H_LOSSLESS + 8] = lossless
     hdr[H_USING_QM], hdr[H_QM_Y:H_QM_V + 1] = using_qm, qm
+    hdr[H_CDEF_READ], hdr[H_CDEF_DAMPING], hdr[H_CDEF_BITS] = cdef_read, damping, cdef_bits
+    for k, at in enumerate((H_CDEF_Y_PRI, H_CDEF_Y_SEC, H_CDEF_UV_PRI, H_CDEF_UV_SEC)):
+        hdr[at:at + 8] = strengths[k]
+    hdr[H_LR_TYPE:H_LR_TYPE + 3] = lr_type
+    hdr[H_LR_SIZE:H_LR_SIZE + 3] = lr_size
+    hdr[H_LR_ROWS:H_LR_ROWS + 3] = [u[0] for u in units]
+    hdr[H_LR_COLS:H_LR_COLS + 3] = [u[1] for u in units]
+    hdr[H_LR_STRIDE] = max(1, max(a * b for a, b in units))
     return {"hdr": hdr, "col_starts": col_starts, "row_starts": row_starts,
             "cols_log2": cols_log2, "rows_log2": rows_log2, "tile_size_bytes": tile_size_bytes}
 
@@ -545,13 +619,16 @@ def decode(stream: bytes, plain: bool = False) -> Frame:
         v = np.zeros((ph // 2, pw // 2), np.uint8)
     hdr[H_STRIDE_Y], hdr[H_STRIDE_UV] = pw, pw // 2
     mi = np.zeros((mi_rows, mi_cols, M_FIELDS), np.int32)
+    cdef = np.full(((mi_rows + 15) >> 4, (mi_cols + 15) >> 4), -1, np.int32)
+    lr = np.zeros((3, int(hdr[H_LR_STRIDE]), L_FIELDS), np.int32)
     lib = _lib()
     null = ctypes.c_void_p(0)
     left = np.zeros(1, np.int64)
     trace = None
     if plain:
-        trace = np.zeros(40 * y.size + (1 << 20), np.int32)
+        trace = np.zeros(56 * y.size + (1 << 20), np.int32)
         lib.fd_av1_trace(trace.ctypes.data, trace.size)
+    t0 = time.perf_counter()
     for trow, tcol, data in tiles:
         h = hdr.copy()
         h[H_ROW_START], h[H_ROW_END] = fh["row_starts"][trow], fh["row_starts"][trow + 1]
@@ -560,22 +637,59 @@ def decode(stream: bytes, plain: bool = False) -> Frame:
         rc = lib.fd_av1_tile(buf.ctypes.data, len(data), h.ctypes.data, y.ctypes.data,
                              u.ctypes.data if u is not None else null,
                              v.ctypes.data if v is not None else null, mi.ctypes.data,
-                             left.ctypes.data)
+                             left.ctypes.data, cdef.ctypes.data, lr.ctypes.data)
         if rc < 0:
             raise ValueError(f"AV1: {ERRORS.get(rc, rc)}")
         if left[0] < OVERREAD:
             raise ValueError("AV1: a tile's symbols run past its data")
     lib.fd_av1_deblock(hdr.ctypes.data, y.ctypes.data, u.ctypes.data if u is not None else null,
                        v.ctypes.data if v is not None else null, mi.ctypes.data)
-    frame = Frame((y, u, v), int(hdr[H_WIDTH]), int(hdr[H_HEIGHT]), seq.full_range, seq.matrix,
+
+    def ptrs(planes):
+        return [p.ctypes.data if p is not None else null for p in planes]
+
+    t1 = time.perf_counter()
+    deblocked = (y, u, v)
+    planes = deblocked
+    if (cdef >= 0).any():
+        planes = tuple(p.copy() if p is not None else None for p in deblocked)
+        lib.fd_av1_cdef(hdr.ctypes.data, *ptrs(deblocked), *ptrs(planes), mi.ctypes.data,
+                        cdef.ctypes.data)
+    t2 = time.perf_counter()
+    if hdr[H_LR_TYPE:H_LR_TYPE + 3].any():
+        out = tuple(p.copy() if p is not None else None for p in planes)
+        lib.fd_av1_lr(hdr.ctypes.data, *ptrs(deblocked), *ptrs(planes), *ptrs(out),
+                      lr.ctypes.data)
+        planes = out
+    t3 = time.perf_counter()
+    frame = Frame(planes, int(hdr[H_WIDTH]), int(hdr[H_HEIGHT]), seq.full_range, seq.matrix,
                   seq.mono)
-    frame.mi = mi
+    frame.mi, frame.cdef, frame.lr = mi, cdef, lr
+    frame.ms = {"tiles + loop filter": (t1 - t0) * 1e3, "cdef": (t2 - t1) * 1e3,
+                "loop restoration": (t3 - t2) * 1e3}
     if plain:
         n = lib.fd_av1_trace(null, 0)
         if n < 0:
             raise RuntimeError("AV1: the stage trace overflowed")
         frame.checked = check_trace(trace[:n])
     return frame
+
+
+def scale(plane: np.ndarray, width: int, height: int, dw: int, dh: int,
+          plain: bool = False) -> np.ndarray:
+    """The top-left width x height of a decoded plane scaled to dw x dh as
+    libavif scales a frame to its item's ispe (fd_av1_scale)."""
+    src = np.ascontiguousarray(plane[:height, :width])
+    out = np.zeros((dh, dw), np.uint8)
+    rc = _lib().fd_av1_scale(src.ctypes.data, width, width, height, out.ctypes.data, dw, dw, dh)
+    if rc == SCALE_RATIO:
+        raise refuse(f"an AV1 frame of another size than ispe ({width}x{height} to {dw}x{dh}, "
+                     "libyuv's 3/4 or 3/8 filter)")
+    if rc < 0:
+        raise ValueError(f"AV1: {ERRORS.get(rc, rc)}")
+    if plain and not np.array_equal(out, scale_plain(src, dw, dh)):
+        raise RuntimeError("fd_av1_scale differs from scale_plain")
+    return out
 
 
 def to_rgba(frame: Frame, alpha, full_range: int, matrix: int, plain: bool = False) -> np.ndarray:
@@ -1121,6 +1235,148 @@ def lf_edge_plain(s: np.ndarray, params) -> np.ndarray:
     return out.astype(np.int32)
 
 
+def _fixed_div(num: int, div: int) -> int:
+    return (num << 16) // div
+
+
+def _centerstart(dx: int, s: int) -> int:
+    return -((-dx >> 1) + s) if dx < 0 else (dx >> 1) + s
+
+
+def _interp_rows(a, b, f: int):
+    a, b = a.astype(np.int64), b.astype(np.int64)
+    return a if f == 0 else (a * (256 - f) + b * f + 128) >> 8
+
+
+def _filter_cols(row, dw: int, x: int, dx: int):
+    row = np.concatenate([row.astype(np.int64), [0]])
+    xs = x + dx * np.arange(dw, dtype=np.int64)
+    xi, f = xs >> 16, (xs >> 9) & 127
+    return ((128 - f) * row[xi] + f * row[xi + 1] + 64) >> 7
+
+
+def _up2_row(a, b, dw: int):
+    """One row of libyuv's 2x upsamplers: b weighs 1/4 against a's 3/4
+    (b = a: the linear one), the pixels between across 3:1."""
+    out = np.zeros(dw, np.int64)
+    out[0] = (3 * a[0] + b[0] + 2) >> 2
+    n = ((dw - 1) & ~1) // 2
+    s0, s1, t0, t1 = a[:n], a[1:n + 1], b[:n], b[1:n + 1]
+    out[1:1 + 2 * n:2] = (s0 * 9 + s1 * 3 + t0 * 3 + t1 + 8) >> 4
+    out[2:2 + 2 * n:2] = (s0 * 3 + s1 * 9 + t0 + t1 * 3 + 8) >> 4
+    k = (dw - 1) // 2
+    out[dw - 1] = (3 * a[k] + b[k] + 2) >> 2
+    return out
+
+
+def scale_plain(src: np.ndarray, dw: int, dh: int):
+    """libyuv's ScalePlane with kFilterBox, as libavif 1.3.0's avifImageScale
+    calls it (fd_av1_scale): ScaleFilterReduce, then the path libyuv takes
+    (csrc's scale::plane names them); None for the 3/4 and 3/8 filters."""
+    sh, sw = src.shape
+    s = src.astype(np.int64)
+    f = 3  # box
+    if f == 3 and (dw * 2 >= sw or dh * 2 >= sh):
+        f = 2
+    if f == 2 and (sh == 1 or dh == sh or dh * 3 == sh):
+        f = 1
+    if f == 2 and sw == 1:
+        f = 0
+    if f == 1 and (sw == 1 or dw == sw or dw * 3 == sw):
+        f = 0
+    out = np.zeros((dh, dw), np.int64)
+    if dw == sw and dh == sh:
+        return src.copy()
+    if dw == sw and f != 3:  # vertical
+        dy = y = 0
+        if dh <= sh:
+            dy = _fixed_div(sh, dh)
+            y = _centerstart(dy, -32768)
+        elif sh > 1 and dh > 1:
+            dy = ((sh << 16) - 0x10001) // (dh - 1)
+        max_y = ((sh - 1) << 16) - 1 if sh > 1 else 0
+        for j in range(dh):
+            y = min(y, max_y)
+            out[j] = _interp_rows(s[y >> 16], s[min((y >> 16) + 1, sh - 1)],
+                                  ((y >> 8) & 255) if f else 0)
+            y += dy
+        return out.astype(np.uint8)
+    if dw <= sw and dh <= sh:
+        if (4 * dw == 3 * sw and 4 * dh == 3 * sh) or (8 * dw == 3 * sw and 8 * dh == 3 * sh):
+            return None
+        for k in (2, 4):
+            if k * dw == sw and k * dh == sh:
+                total = sum(s[a::k, b::k][:dh, :dw] for a in range(k) for b in range(k))
+                return ((total + k * k // 2) >> (2 if k == 2 else 4)).astype(np.uint8)
+    if f == 3 and dh * 2 < sh:  # box means (both sides below half: widths of 2 or more)
+        dx, dy, y = _fixed_div(sw, dw), _fixed_div(sh, dh), 0
+        if dx & 0xFFFF:  # widths of dx >> 16 or one more
+            xs = (dx * np.arange(dw + 1, dtype=np.int64)) >> 16
+            ix, bw = xs[:-1], xs[1:] - xs[:-1]
+        else:
+            bw = np.full(dw, dx >> 16)
+            ix = np.arange(dw) * bw
+        for j in range(dh):
+            iy = y >> 16
+            y = min(y + dy, sh << 16)
+            bh = max(1, (y >> 16) - iy)
+            row = s[iy:iy + bh].sum(0) & 0xFFFF  # libyuv's uint16 row sums
+            sums = np.array([row[a:a + b].sum() for a, b in zip(ix, bw)], np.int64)
+            out[j] = (sums * (65536 // (bw * bh))) >> 16
+        return (out & 255).astype(np.uint8)
+    if (dw + 1) // 2 == sw and f == 1:  # 2x linear across
+        if dh == 1:
+            return _up2_row(s[(sh - 1) // 2], s[(sh - 1) // 2], dw)[None].astype(np.uint8)
+        dy, y = _fixed_div(sh - 1, dh - 1), (1 << 15) - 1
+        for j in range(dh):
+            out[j] = _up2_row(s[y >> 16], s[y >> 16], dw)
+            y += dy
+        return out.astype(np.uint8)
+    if (dh + 1) // 2 == sh and (dw + 1) // 2 == sw and f in (2, 3):  # 2x bilinear
+        out[0] = _up2_row(s[0], s[0], dw)
+        for k in range(sh - 1):
+            out[1 + 2 * k] = _up2_row(s[k], s[k + 1], dw)
+            if 2 + 2 * k < dh:
+                out[2 + 2 * k] = _up2_row(s[k + 1], s[k], dw)
+        if not dh & 1:
+            out[dh - 1] = _up2_row(s[sh - 1], s[sh - 1], dw)
+        return out.astype(np.uint8)
+    if f:  # bilinear (ScaleSlope's steps, then rows and columns)
+        x = y = dx = dy = 0
+        if dw <= sw:
+            dx = _fixed_div(sw, dw)
+            x = _centerstart(dx, -32768)
+        elif sw > 1 and dw > 1:
+            dx = ((sw << 16) - 0x10001) // (dw - 1)
+        if f == 1:
+            dy = _fixed_div(sh, dh)
+            y = dy >> 1
+        elif dh <= sh:
+            dy = _fixed_div(sh, dh)
+            y = _centerstart(dy, -32768)
+        elif sh > 1 and dh > 1:
+            dy = ((sh << 16) - 0x10001) // (dh - 1)
+        max_y = (sh - 1) << 16
+        y = min(y, max_y)
+        for j in range(dh):
+            yi, yf = y >> 16, ((y >> 8) & 255) if f == 2 else 0
+            below = s[min(yi + 1, sh - 1)]
+            if dh > sh:  # columns of both rows, then the rows
+                out[j] = _interp_rows(_filter_cols(s[yi], dw, x, dx),
+                                      _filter_cols(below, dw, x, dx), yf)
+            else:  # the rows, then the columns
+                out[j] = _filter_cols(_interp_rows(s[yi], below, yf), dw, x, dx)
+            y = min(y + dy, max_y)
+        return out.astype(np.uint8)
+    dx, dy = _fixed_div(sw, dw), _fixed_div(sh, dh)  # point sampling
+    x, y = _centerstart(dx, 0), _centerstart(dy, 0)
+    xs = (np.arange(dw) >> 1) if (sw * 2 == dw and x < 0x8000) else \
+        (x + dx * np.arange(dw, dtype=np.int64)) >> 16
+    for j in range(dh):
+        out[j] = s[(y + dy * j) >> 16][xs]
+    return out.astype(np.uint8)
+
+
 def to_rgba_plain(y, u, v, alpha, w: int, h: int) -> np.ndarray:
     """libyuv's bilinear 4:2:0 upsampling and full-range BT.601 fixed point
     (fd_av1_to_rgb): planes as decoded (padded), alpha h x w or None."""
@@ -1158,11 +1414,148 @@ def to_rgba_plain(y, u, v, alpha, w: int, h: int) -> np.ndarray:
     return out
 
 
+def _constrain(diff, threshold: int, damping: int):
+    if not threshold:
+        return np.zeros_like(diff)
+    adj = max(0, damping - (threshold.bit_length() - 1))
+    val = np.minimum(np.abs(diff), np.maximum(0, threshold - (np.abs(diff) >> adj)))
+    return np.sign(diff) * val
+
+
+def cdef_direction_plain(b: np.ndarray) -> tuple:
+    """The direction search of 7.15.2 on an 8x8: (direction, variance)."""
+    x = b.astype(np.int64) - 128
+    i, j = np.mgrid[0:8, 0:8]
+    lines = (i + j, i + j // 2, i, 3 + i - j // 2, 7 + i - j, 3 - i // 2 + j, j, i // 2 + j)
+    partial = np.array([np.bincount(ln.ravel(), weights=x.ravel(), minlength=15)
+                        for ln in lines]).astype(np.int64)
+    div = T.CDEF_DIV_TABLE.astype(np.int64)
+    cost = np.zeros(8, np.int64)
+    cost[2] = (partial[2, :8] ** 2).sum() * div[8]
+    cost[6] = (partial[6, :8] ** 2).sum() * div[8]
+    for d in (0, 4):
+        k = np.arange(7)
+        cost[d] = ((partial[d, k] ** 2 + partial[d, 14 - k] ** 2) * div[k + 1]).sum()
+        cost[d] += partial[d, 7] ** 2 * div[8]
+    for d in (1, 3, 5, 7):
+        cost[d] = (partial[d, 3:8] ** 2).sum() * div[8]
+        k = np.arange(3)
+        cost[d] += ((partial[d, k] ** 2 + partial[d, 10 - k] ** 2) * div[2 * k + 2]).sum()
+    best = int(np.argmax(cost)) if cost.max() > 0 else 0
+    return best, int(cost[best] - cost[(best + 4) & 7]) >> 10
+
+
+def cdef_block_plain(win: np.ndarray, plane: int, pri: int, sec: int, damping: int,
+                     ydir: int) -> tuple:
+    """CDEF (7.15) of one block from its window: (h + 4, w + 4) samples, the
+    block at (2, 2), -1 outside the frame. Luma searches its direction
+    (ydir is ignored) and adjusts `pri` by the variance; chroma takes the
+    luma direction `ydir`. Returns (direction, variance, filtered h x w):
+    for luma the search's direction and variance, for chroma the direction
+    used and 0."""
+    win = win.astype(np.int64)
+    h, w = win.shape[0] - 4, win.shape[1] - 4
+    if plane == 0:
+        ydir, var = cdef_direction_plain(win[2:10, 2:10])
+        direction = ydir if pri else 0
+        var_str = min((var >> 6).bit_length() - 1, 12) if var >> 6 else 0
+        pri = (pri * (4 + var_str) + 8) >> 4 if var else 0
+        result = ydir
+    else:
+        var = 0
+        direction = int(T.CDEF_UV_DIR[1, 1, ydir]) if pri else 0
+        result = direction
+    x = win[2:2 + h, 2:2 + w]
+    total = np.zeros_like(x)
+    hi, lo = x.copy(), x.copy()
+    pri_taps, sec_taps = T.CDEF_PRI_TAPS[pri & 1], T.CDEF_SEC_TAPS[pri & 1]
+
+    def tap(d, k, sign, strength, weight):
+        nonlocal total, hi, lo
+        dy, dx = (int(v) * sign for v in T.CDEF_DIRECTIONS[d, k])
+        p = win[2 + dy:2 + dy + h, 2 + dx:2 + dx + w]
+        ok = p >= 0
+        total = total + np.where(ok, int(weight) * _constrain(p - x, strength, damping), 0)
+        hi = np.where(ok, np.maximum(p, hi), hi)
+        lo = np.where(ok, np.minimum(p, lo), lo)
+
+    for k in range(2):
+        for sign in (-1, 1):
+            tap(direction, k, sign, pri, pri_taps[k])
+            for off in (-2, 2):
+                tap((direction + off) & 7, k, sign, sec, sec_taps[k])
+    out = np.clip(x + ((8 + total - (total < 0)) >> 4), lo, hi)
+    return result, var, out.astype(np.uint8)
+
+
+def wiener_plain(win: np.ndarray, vtaps, htaps) -> np.ndarray:
+    """The Wiener filter (7.17.4) of a block from its window ((h + 6, w + 6),
+    the block at (3, 3)): 7 taps each way, tap 3 = 128 - 2 (taps 0-2), the
+    8-bit rounding and the clip of the horizontal intermediate."""
+    win = win.astype(np.int64)
+    h, w = win.shape[0] - 6, win.shape[1] - 6
+
+    def taps(t):
+        t = [int(v) for v in t]
+        return t + [128 - 2 * sum(t)] + t[::-1]
+    hf, vf = taps(htaps), taps(vtaps)
+    mid = sum(hf[t] * win[:, t:t + w] for t in range(7))
+    mid = np.clip(_round2(mid, 3), -2048, 8191 - 2048)
+    out = sum(vf[t] * mid[t:t + h] for t in range(7))
+    return np.clip(_round2(out, 11), 0, 255).astype(np.uint8)
+
+
+def _sgr_box_plain(win: np.ndarray, r: int, s: int, pass_: int) -> np.ndarray:
+    h, w = win.shape[0] - 6, win.shape[1] - 6
+    n = (2 * r + 1) ** 2
+    a = np.zeros((h + 2, w + 2), np.int64)
+    b = np.zeros((h + 2, w + 2), np.int64)
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            c = win[2 + dy:2 + dy + h + 2, 2 + dx:2 + dx + w + 2]
+            a += c * c
+            b += c
+    p = np.maximum(0, a * n - b * b)
+    z = _round2(p * s, 20)
+    A = T.X_BY_XPLUS1.astype(np.int64)[np.minimum(z, 255)]
+    B = _round2((256 - A) * b * int(T.ONE_BY_X[n - 1]), 12)
+    fa = np.zeros((h, w), np.int64)
+    fb = np.zeros((h, w), np.int64)
+    rows = np.arange(h)[:, None]
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if pass_ == 0:
+                weight = np.where((rows + dy) & 1, 6 if dx == 0 else 5, 0)
+            else:
+                weight = 4 if (dx == 0 or dy == 0) else 3
+            fa += weight * A[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+            fb += weight * B[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+    shift = np.where((rows & 1) & (pass_ == 0), 4, 5)
+    v = fa * win[3:3 + h, 3:3 + w] + fb
+    return (v + (1 << (8 + shift - 4 - 1))) >> (8 + shift - 4)
+
+
+def sgr_plain(win: np.ndarray, sgr_set: int, xqd) -> np.ndarray:
+    """The self-guided filter (7.17.3) of a block from its window (as
+    wiener_plain's): the set's box passes at radius 2 (every other row) and
+    1, then the projection with weights xqd."""
+    win = win.astype(np.int64)
+    h, w = win.shape[0] - 6, win.shape[1] - 6
+    r0, r1, s0, s1 = (int(v) for v in T.SGR_PARAMS[sgr_set])
+    u = win[3:3 + h, 3:3 + w] << 4
+    w0, w1 = int(xqd[0]), int(xqd[1])
+    w2 = (1 << 7) - w0 - w1
+    v = w1 * u
+    v = v + w0 * (_sgr_box_plain(win, r0, s0, 0) if r0 else u)
+    v = v + w2 * (_sgr_box_plain(win, r1, s1, 1) if r1 else u)
+    return np.clip(_round2(v, 11), 0, 255).astype(np.uint8)
+
+
 def check_trace(buf: np.ndarray, limit: int = 0) -> dict:
     """Checks the traced stage calls against their twins; `limit` caps the
     calls checked of each kind (0: all). Returns the counts checked;
     raises RuntimeError at the first call that differs."""
-    counts = {"predict": 0, "cfl": 0, "txfm": 0, "lf": 0}
+    counts = {"predict": 0, "cfl": 0, "txfm": 0, "lf": 0, "cdef": 0, "wiener": 0, "sgr": 0}
     lf_batches = {}
     pos, n = 0, len(buf)
     while pos < n:
@@ -1208,6 +1601,34 @@ def check_trace(buf: np.ndarray, limit: int = 0) -> dict:
             key = tuple(int(v) for v in buf[pos + 1:pos + 6])
             lf_batches.setdefault(key, []).append(buf[pos + 6:pos + 38])
             pos += 38
+        elif kind == 5:
+            plane, w, h, pri, sec, damping, ydir = (int(v) for v in buf[pos + 1:pos + 8])
+            k = (w + 4) * (h + 4)
+            win = buf[pos + 8:pos + 8 + k].reshape(h + 4, w + 4)
+            got_dir, got_var = (int(v) for v in buf[pos + 8 + k:pos + 10 + k])
+            got = buf[pos + 10 + k:pos + 10 + k + w * h]
+            pos += 10 + k + w * h
+            if not limit or counts["cdef"] < limit:
+                d, var, out = cdef_block_plain(win, plane, pri, sec, damping, ydir)
+                if (d, var) != (got_dir, got_var) or not np.array_equal(out.reshape(-1), got):
+                    raise RuntimeError(f"CDEF of plane {plane} (strengths {pri}, {sec}) differs "
+                                       "from cdef_block_plain")
+                counts["cdef"] += 1
+        elif kind in (6, 7):
+            w, h = int(buf[pos + 1]), int(buf[pos + 2])
+            params = buf[pos + 3:pos + 9]
+            k = (w + 6) * (h + 6)
+            win = buf[pos + 9:pos + 9 + k].reshape(h + 6, w + 6)
+            got = buf[pos + 9 + k:pos + 9 + k + w * h]
+            pos += 9 + k + w * h
+            name = "wiener" if kind == 6 else "sgr"
+            if not limit or counts[name] < limit:
+                want = (wiener_plain(win, params[:3], params[3:]) if kind == 6
+                        else sgr_plain(win, int(params[0]), params[1:3]))
+                if not np.array_equal(want.reshape(-1), got):
+                    raise RuntimeError(f"{'Wiener' if kind == 6 else 'self-guided'} filter "
+                                       f"{params.tolist()} differs from {name}_plain")
+                counts[name] += 1
         else:
             raise RuntimeError(f"a trace record of kind {kind}")
     for key, rows in lf_batches.items():

@@ -19,14 +19,17 @@ file, and 1, `idat`, several extents joined in order), `iinf` / `infe`
 pixels (it reports the orientation as EXIF for ImageOps.exif_transpose),
 so they are read and left unapplied here too.
 
-utils/av1.py decodes the items' AV1 streams. Refused with
-NotImplementedError naming AVIF, the feature and the ROADMAP item: a
-derived primary item (`grid`, `iovl`), an image sequence (`avis`, a
-`moov` track, which PIL reads instead of the primary item), `clap` cropping, `a1op` / `lsel` layer selection, a
-premultiplied alpha (`prem`), and the AV1 features utils/av1.py refuses
-(profiles 1 and 2, 10 and 12 bits, superres, CDEF, loop restoration,
-film grain). A truncated or malformed file raises
-ValueError.
+utils/av1.py decodes the items' AV1 streams. An item whose AV1 frame has
+another size than its `ispe` is scaled to ispe's size before the colour
+conversion, plane by plane (the chroma planes to half of it, rounded up),
+as libavif 1.3.0 scales it (avifImageScale over libyuv's ScalePlane,
+av1.scale). Refused with NotImplementedError naming AVIF, the feature and
+the ROADMAP item: a derived primary item (`grid`, `iovl`), an image
+sequence (`avis`, a `moov` track, which PIL reads instead of the primary
+item), `clap` cropping, `a1op` / `lsel` layer selection, a premultiplied
+alpha (`prem`), a scale to ispe by libyuv's 3/4 or 3/8 filters, and the
+AV1 features utils/av1.py refuses (profiles 1 and 2, 10 and 12 bits,
+superres, film grain). A truncated or malformed file raises ValueError.
 """
 
 from __future__ import annotations
@@ -38,6 +41,14 @@ import numpy as np
 from . import av1
 
 ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha", b"urn:mpeg:hevc:2015:auxid:1")
+# an item's largest width or height (libavif's default decoder limit) and
+# area (PIL's open raises DecompressionBombError past twice its
+# MAX_IMAGE_PIXELS, 89478485)
+DIMENSION_LIMIT, SIZE_LIMIT = 32768, 2 * 89478485
+# the property types libavif reads; an item with an essential property of
+# another type is skipped (the primary item then is missing)
+KNOWN_PROPERTIES = {b"ispe", b"auxC", b"colr", b"av1C", b"pasp", b"clap", b"irot", b"imir", b"pixi",
+                    b"a1op", b"lsel", b"a1lx", b"clli"}
 REFUSED_PROPERTIES = {b"clap": "clean-aperture cropping (clap)",
                       b"a1op": "operating point selection (a1op)",
                       b"lsel": "layer selection (lsel)"}
@@ -117,6 +128,7 @@ class Still:
         self.color = b""       # the primary item's AV1 stream
         self.alpha = b""       # the alpha item's, or b""
         self.width = self.height = 0
+        self.alpha_size = None  # the alpha item's ispe (width, height)
         self.av1c = None       # (profile, high bitdepth, twelve bit, mono, ssx, ssy)
         self.alpha_av1c = None
         self.nclx = None       # (primaries, transfer, matrix, full range)
@@ -214,6 +226,10 @@ def parse(data: bytes) -> Still:
                 item = items.setdefault_item(ib.uint(2 if iv == 2 else 4))
                 ib.uint(2)
                 item.type = ib.take(4)
+                for _s in range(2 if item.type == b"mime" else 1):  # item_name (content_type)
+                    if data.find(b"\0", ib.pos, iend) < 0:
+                        raise ValueError("AVIF: an infe string is not null-terminated")
+                    ib.cstring()
         elif kind == b"iref":
             version, _ = b.full((0, 1))
             for rk, rs, re_ in _boxes(data, b.pos, e):
@@ -248,6 +264,11 @@ def parse(data: bytes) -> Still:
         raise ValueError(f"AVIF: primary item of type {item.type!r}")
     out = Still()
 
+    def unsupported(it: Item) -> bool:
+        """An essential property of a type libavif does not read."""
+        return any(essential and 0 < index <= len(props) and props[index - 1][0] not in
+                   KNOWN_PROPERTIES for index, essential in it.props)
+
     def item_props(it: Item) -> dict:
         found = {}
         for index, _essential in it.props:
@@ -267,16 +288,25 @@ def parse(data: bytes) -> Still:
         ps, pe = span
         if pe - ps < 4:
             raise ValueError("AVIF: a short av1C")
+        if data[ps] != 0x81:
+            raise ValueError("AVIF: av1C's marker and version are not 1")
         b1, b2 = data[ps + 1], data[ps + 2]
         return (b1 >> 5, (b2 >> 6) & 1, (b2 >> 5) & 1, (b2 >> 4) & 1, (b2 >> 3) & 1, (b2 >> 2) & 1)
 
+    def ispe(span) -> tuple:
+        if span is None:
+            raise ValueError("AVIF: an av01 item without ispe")
+        ic = _Cursor(data, *span)
+        ic.full()
+        w, h = ic.uint(4), ic.uint(4)
+        if not (0 < w <= DIMENSION_LIMIT and 0 < h <= DIMENSION_LIMIT) or w * h > SIZE_LIMIT:
+            raise ValueError(f"AVIF: an ispe of {w}x{h}, past libavif's or PIL's limits")
+        return w, h
+
+    if unsupported(item):
+        raise ValueError("AVIF: the primary item has an unsupported essential property")
     p = item_props(item)
-    if b"ispe" not in p:
-        raise ValueError("AVIF: the primary item has no ispe")
-    ps, pe = p[b"ispe"]
-    ic = _Cursor(data, ps, pe)
-    ic.full()
-    out.width, out.height = ic.uint(4), ic.uint(4)
+    out.width, out.height = ispe(p.get(b"ispe"))
     out.av1c = av1c(p.get(b"av1C"))
     if b"pixi" in p:
         xc = _Cursor(data, *p[b"pixi"])
@@ -303,6 +333,8 @@ def parse(data: bytes) -> Still:
         if rk != b"auxl" or primary not in to or frm not in items:
             continue
         alpha = items[frm]
+        if unsupported(alpha):  # libavif skips the item: no alpha
+            continue
         ap = item_props(alpha)
         aux = ap.get(b"auxC")
         if aux is None:
@@ -314,8 +346,28 @@ def parse(data: bytes) -> Still:
         if alpha.type != b"av01":
             raise ValueError(f"AVIF: alpha item of type {alpha.type!r}")
         out.alpha_av1c = av1c(ap.get(b"av1C"))
+        out.alpha_size = ispe(ap.get(b"ispe"))
         out.alpha = _item_bytes(data, alpha, idat)
         break
+    return out
+
+
+def to_ispe(frame: av1.Frame, width: int, height: int, plain: bool = False) -> av1.Frame:
+    """The frame itself where its size is the item's ispe, else a frame of
+    its planes scaled to it as libavif scales them (each plane to its own
+    size: 4:2:0 chroma to half of ispe's, rounded up)."""
+    if (frame.width, frame.height) == (width, height):
+        return frame
+    planes = []
+    for k, p in enumerate(frame.planes):
+        if p is None:
+            planes.append(None)
+            continue
+        sub = int(k > 0)
+        planes.append(av1.scale(p, (frame.width + sub) >> sub, (frame.height + sub) >> sub,
+                                (width + sub) >> sub, (height + sub) >> sub, plain=plain))
+    out = av1.Frame(tuple(planes), width, height, frame.full_range, frame.matrix, frame.mono)
+    out.mi, out.cdef, out.lr, out.ms = frame.mi, frame.cdef, frame.lr, frame.ms
     return out
 
 
@@ -323,12 +375,10 @@ def decode_avif(data: bytes, plain: bool = False) -> np.ndarray:
     """An AVIF file's bytes to (H, W, 4) uint8 RGBA. `plain` runs the
     numpy twins of utils/av1.py's stages around the C++ tile syntax."""
     still = parse(data)
-    color = av1.decode(still.color, plain=plain)
-    if color.width != still.width or color.height != still.height:
-        raise ValueError("AVIF: the AV1 frame and ispe differ in size")
+    color = to_ispe(av1.decode(still.color, plain=plain), still.width, still.height, plain)
     alpha = None
     if still.alpha:
-        a = av1.decode(still.alpha, plain=plain)
+        a = to_ispe(av1.decode(still.alpha, plain=plain), *still.alpha_size, plain)
         if a.width != still.width or a.height != still.height:
             raise ValueError("AVIF: the alpha and colour items differ in size")
         if not a.full_range:

@@ -4,14 +4,20 @@ libavif 1.3.0 and dav1d: the corpus PIL writes here (the fixture at
 qualities 0-100, a 224x168 crop at speeds 0 and 10, seeded noise and crops
 at 1x1 to 257x129, a gradient alpha, a flat UI picture at speeds 0 and 6,
 4:0:0, tiles, a grid of repeated icons that aom codes with intra block
-copy) equal byte for byte or refused with the feature named; the
-headers of those files; the constant tables (tools/make_av1_tables.py)
-pinned by sha256 and found whole in libaom's binary; each C++ stage (the
-inverse transforms, the intra predictors with the edge filter and
-upsampling, CfL, filter intra, one loop-filter position at each length,
-YUV -> RGB) equal to its numpy twin on seeded inputs and, through the
-stage trace, on the corpus; seeded files of tools/avif_fuzz_agreement.py;
-and no fallback when the C++ does not build."""
+copy; with aom's CDEF on: the crop at speeds 0-8 and qualities 30-95,
+64x64 and 128x128 superblocks, 2x2 tiles, noisy gradients of 1x1 to
+257x129 whose restoration units and 8x8s meet the frame's edges, the
+alpha item, 4:0:0; loop restoration at speeds 0-4) equal byte for byte
+or refused with the feature named (film grain); the headers of those
+files; the constant tables (tools/make_av1_tables.py) pinned by sha256
+and found whole in libaom's binary; each C++ stage (the inverse
+transforms, the intra predictors with the edge filter and upsampling,
+CfL, filter intra, one loop-filter position at each length, YUV -> RGB)
+equal to its numpy twin on seeded inputs and, through the stage trace,
+on the corpus (CDEF and the restoration filters too:
+tests/test_torch_av1_postfilter.py holds them alone); seeded files of
+tools/avif_fuzz_agreement.py; and no fallback when the C++ does not
+build."""
 
 import ctypes
 import hashlib
@@ -26,7 +32,7 @@ import pytest
 import torch
 from PIL import Image
 
-from figdraw_tpu_torch.scenes import AVIF_FIXTURE, IMAGE_FIXTURE
+from figdraw_tpu_torch.scenes import AVIF_CDEF_FIXTURE, AVIF_FIXTURE, IMAGE_FIXTURE
 from figdraw_tpu_torch.utils import av1, av1_tables, avif, image_lib, imagefile
 from torch_reference import REPO
 
@@ -73,10 +79,50 @@ def _tiles(w: int, h: int) -> np.ndarray:
     return img
 
 
+def _grain(w: int, h: int) -> np.ndarray:
+    """A gradient under seeded noise (sigma 10), which aom restores with
+    Wiener and self-guided units at speed 2, quality 70."""
+    gy, gx = np.mgrid[0:h, 0:w]
+    base = np.dstack([gx * 200 / w + 30, gy * 200 / h + 20, (gx + gy) * 100 / (w + h) + 80])
+    return np.clip(base + np.random.default_rng(w).normal(0, 10, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+CDEF = {"enable-cdef": "1"}
+
+
 def _corpus(name: str) -> bytes:
     fix = _fixture()
     rng = np.random.default_rng(7)
     kind, _, arg = name.partition(":")
+    if kind == "cdef":  # the crop with CDEF at a speed (loop restoration at 0-4)
+        return _pil_avif(np.ascontiguousarray(fix[100:268, 200:424]), speed=int(arg), advanced=CDEF)
+    if kind == "cdefq":
+        return _pil_avif(np.ascontiguousarray(fix[100:268, 200:424]), speed=2, quality=int(arg),
+                         advanced=CDEF)
+    if kind == "sb":
+        return _pil_avif(np.ascontiguousarray(fix[:300, :520]), speed=2,
+                         advanced=dict(CDEF, **{"sb-size": arg}))
+    if kind == "lr":  # speed, quality: Wiener and self-guided units
+        speed, quality = (int(v) for v in arg.split(","))
+        return _pil_avif(np.ascontiguousarray(fix[:300, :520]), speed=speed, quality=quality,
+                         advanced=CDEF)
+    if kind == "lrtiles":
+        return _pil_avif(np.ascontiguousarray(fix[:300, :520]), speed=2, quality=40, tile_cols=1,
+                         tile_rows=1, advanced=CDEF)
+    if kind == "grain":
+        w, h = (int(v) for v in arg.split("x"))
+        return _pil_avif(_grain(w, h), speed=2, quality=70, advanced=CDEF)
+    if kind == "cdefalpha":  # the monochrome alpha item takes CDEF and Wiener units
+        grain = _grain(200, 120)
+        return _pil_avif(np.ascontiguousarray(np.dstack([grain, grain[..., 1]])), speed=2,
+                         quality=50, advanced=CDEF)
+    if kind == "cdefmono":  # 4:0:0 with CDEF and self-guided units
+        return _pil_avif(_grain(257, 129), speed=0, quality=50, subsampling="4:0:0",
+                         advanced=CDEF)
+    if kind == "cdeflossless":  # both tools on in the sequence, off by coded lossless
+        return _pil_avif(np.ascontiguousarray(fix[:65, :65]), quality=100, speed=2, advanced=CDEF)
+    if kind == "cdeficons":  # CDEF on in the sequence, off by intra block copy
+        return _pil_avif(_tiles(257, 131), speed=6, advanced=CDEF)
     if kind == "fixture":
         return _pil_avif(fix, quality=int(arg))
     if kind == "crop":
@@ -117,14 +163,19 @@ def _corpus(name: str) -> bytes:
 DECODED = (["fixture:%d" % q for q in (0, 10, 25, 50, 75, 90, 100)] + ["crop:10"]
            + ["%s:%s" % (k, s) for k in ("noise", "fixcrop")
               for s in ("1x1", "17x3", "65x65", "130x96", "257x129")]
-           + ["alpha:", "ui:6", "orient6:", "mono:50", "mono:100", "tiles:", "lossless:"]
+           + ["alpha:", "ui:0", "ui:6", "orient6:", "mono:50", "mono:100", "tiles:", "lossless:",
+              "crop:0"]
            + ["icons:5", "icons:6", "icons:7", "icons:6,lossless", "icons:6,mono"]
            + ["aom:deltaq-mode=2", "aom:sharpness=3", "aom:sharpness=7",
               "aom:reduced-tx-type-set=1", "aom:enable-chroma-deltaq=1",
               "aom:enable-qm=1", "aom:enable-qm=1,qm-min=0,qm-max=4,quality=95",
-              "aom:enable-qm=1,qm-min=10,qm-max=14,quality=30"])
-# speed 0 turns on loop restoration (ROADMAP item 1.3, slice 2)
-REFUSED = {"crop:0": "loop restoration", "ui:0": "loop restoration"}
+              "aom:enable-qm=1,qm-min=10,qm-max=14,quality=30"]
+           + ["cdef:%d" % s for s in (0, 2, 4, 6, 8)] + ["cdefq:%d" % q for q in (30, 75, 95)]
+           + ["sb:64", "sb:128", "lr:2,40", "lr:0,20", "lrtiles:"]
+           + ["grain:%s" % s for s in ("1x1", "17x3", "65x65", "130x96", "201x77", "257x129")]
+           + ["cdefalpha:", "cdefmono:", "cdeflossless:", "cdeficons:"])
+# film grain (ROADMAP item 1.3, a later AVIF slice)
+REFUSED = {"aom:film-grain-test=1": "film grain", "aom:film-grain-test=1,quality=30": "film grain"}
 
 
 @pytest.mark.parametrize("name", DECODED)
@@ -142,23 +193,39 @@ def test_corpus_outside_the_slice_is_refused(name):
         imagefile.decode_image(_corpus(name))
 
 
+# the post-filters each file's plain decode must reach
+PLAIN_KINDS = {"grain:257x129": ("wiener", "sgr"), "lr:2,40": ("cdef", "wiener", "sgr"),
+               "cdef:6": ("cdef",), "cdefmono:": ("cdef", "sgr"), "cdefalpha:": ("cdef", "wiener")}
+
+
 @pytest.mark.parametrize("name", ["noise:65x65", "fixcrop:130x96", "ui:6", "lossless:",
-                                  "mono:100", "fixcrop:17x3", "icons:6"])
+                                  "mono:100", "fixcrop:17x3", "icons:6"] + list(PLAIN_KINDS))
 def test_plain_decode_checks_every_stage_against_its_twin(name):
-    """decode(plain=True): every traced prediction, CfL, inverse transform
-    and loop-filter call equal to its twin, and the YUV -> RGB twin's
-    image equal to PIL's."""
+    """decode(plain=True): every traced prediction, CfL, inverse transform,
+    loop-filter, CDEF, Wiener and self-guided call equal to its twin (the
+    files with the post-filters reach those named in PLAIN_KINDS), and the
+    YUV -> RGB twin's image equal to PIL's. The alpha item's calls count
+    with the colour's."""
     data = _corpus(name)
     still = avif.parse(data)
     frame = av1.decode(still.color, plain=True)
     assert frame.checked["predict"] > 0
+    checked = dict(frame.checked)
+    if still.alpha:
+        for k, n in av1.decode(still.alpha, plain=True).checked.items():
+            checked[k] += n
+    assert all(checked[k] > 0 for k in PLAIN_KINDS.get(name, ())), checked
     np.testing.assert_array_equal(avif.decode_avif(data, plain=True), _pil(data))
 
 
-def test_the_fixtures_stages_include_every_kind():
-    """The stored fixture traces all four kinds of stage call, each equal
-    to its twin (a capped number of each)."""
-    with open(AVIF_FIXTURE, "rb") as fh:
+@pytest.mark.parametrize("path, kinds", [
+    (AVIF_FIXTURE, ("predict", "cfl", "txfm", "lf")),
+    (AVIF_CDEF_FIXTURE, ("predict", "cfl", "txfm", "lf", "cdef", "wiener", "sgr"))])
+def test_the_fixtures_stages_include_every_kind(path, kinds):
+    """Each stored fixture traces its kinds of stage call, each equal to
+    its twin (a capped number of each): the speed-2 CDEF fixture also
+    CDEF, Wiener and self-guided calls."""
+    with open(path, "rb") as fh:
         still = avif.parse(fh.read())
     lib = image_lib.load_av1()
     trace = np.zeros(60 * 1024 * 1024 // 4, np.int32)
@@ -167,7 +234,7 @@ def test_the_fixtures_stages_include_every_kind():
     n = lib.fd_av1_trace(ctypes.c_void_p(0), 0)
     assert n > 0
     counts = av1.check_trace(trace[:n], limit=300)
-    assert all(counts[k] > 0 for k in ("predict", "cfl", "txfm", "lf")), counts
+    assert all(counts[k] > 0 for k in kinds), counts
 
 
 # --- headers ----------------------------------------------------------------------
@@ -511,14 +578,70 @@ def test_flat_colours_convert_as_libyuv():
 
 @pytest.mark.parametrize("seed, index", [(3, i) for i in range(6)] + [(1, 66)])
 def test_fuzz_agreement_cases(seed, index):
-    """Seeded files of the agreement tool; (1, 66) is an alpha item whose
-    intra block copies take H_ADST (the inter transform sets' symbol
-    order, libaom's av1_ext_tx_inv, once read wrong here)."""
+    """Seeded files of the agreement tool, equal to PIL at every speed
+    (loop restoration at speeds 0-4, CDEF where the case draws it); (1, 66)
+    is an alpha item whose intra block copies take H_ADST (the inter
+    transform sets' symbol order, libaom's av1_ext_tx_inv, once read wrong
+    here)."""
     options, data = fuzz.case(seed, index)
     kind, detail = fuzz.outcome(data)
-    assert kind in ("equal", "refused"), (options, detail)
-    if kind == "refused":
-        assert options["speed"] <= 4 and detail == "loop restoration"
+    assert kind == "equal", (options, detail)
+
+
+def _clamped_coefficients(data: bytes) -> int:
+    """The dequantised coefficients at the dequantiser's clamp (|c| >=
+    32767) in the traced transform calls of a file's items."""
+    lib = image_lib.load_av1()
+    still, count = avif.parse(data), 0
+    for stream in (still.color, still.alpha):
+        if not stream:
+            continue
+        buf = np.zeros(40 * 1024 * 1024 // 4, np.int32)
+        lib.fd_av1_trace(buf.ctypes.data, buf.size)
+        av1.decode(stream)
+        n = lib.fd_av1_trace(ctypes.c_void_p(0), 0)
+        pos = 0
+        while pos < n:  # the record layouts of check_trace
+            kind = int(buf[pos])
+            if kind == 1:
+                m, w, h = int(buf[pos + 13]), 1 << int(buf[pos + 2]), 1 << int(buf[pos + 3])
+                pos += 14 + 2 * m + w * h
+            elif kind == 2:
+                pos += 4 + 3 * int(buf[pos + 1]) * int(buf[pos + 2])
+            elif kind == 3:
+                tx, nnz = int(buf[pos + 1]), int(buf[pos + 4])
+                values = buf[pos + 6:pos + 5 + 2 * nnz:2].astype(np.int64)
+                count += int((np.abs(values) >= 32767).sum())
+                pos += 5 + 2 * nnz + av1.TX_W[tx] * av1.TX_H[tx]
+            elif kind == 4:
+                pos += 38
+            elif kind == 5:
+                w, h = int(buf[pos + 2]), int(buf[pos + 3])
+                pos += 10 + (w + 4) * (h + 4) + w * h
+            else:
+                w, h = int(buf[pos + 1]), int(buf[pos + 2])
+                pos += 9 + (w + 6) * (h + 6) + w * h
+    return count
+
+
+# open (ROADMAP.md §3): tools/avif_fuzz_agreement.py --corrupt 200 3 cases
+# that decode and differ from PIL
+OPEN_CORRUPT = [(0, 78), (2, 26), (2, 74), (2, 110)]
+
+
+@pytest.mark.parametrize("seed, index", OPEN_CORRUPT)
+def test_corrupt_streams_at_the_coefficient_clamp_part_from_pil(seed, index):
+    """Open: in each, bit flips send a tile's symbols into garbage that
+    dequantises coefficients to the clamp (+-32767); the inverse transform
+    then leaves its 16-bit range, where the specification's arithmetic
+    (the port's) and dav1d's x86 transforms part. The uncorrupted source
+    has no such coefficient and equals PIL; neither CDEF nor loop
+    restoration is involved (the written cases, 1200 of 1200 equal)."""
+    options, data = fuzz.case(seed, index, corrupt=True)
+    assert fuzz.outcome(data, True)[0] == "differ"
+    assert _clamped_coefficients(data) > 0
+    source = fuzz.case(seed, index % 12)[1]
+    assert fuzz.outcome(source)[0] == "equal" and _clamped_coefficients(source) == 0
 
 
 def test_a_failed_build_raises(monkeypatch):
@@ -531,7 +654,10 @@ def test_a_failed_build_raises(monkeypatch):
 
     monkeypatch.setattr(image_lib, "_av1", None)
     monkeypatch.setattr(gxx, "build", broken)
-    with open(AVIF_FIXTURE, "rb") as fh:
-        data = fh.read()
-    with pytest.raises(subprocess.CalledProcessError):
-        imagefile.decode_image(data)
+    for path in (AVIF_FIXTURE, AVIF_CDEF_FIXTURE):
+        with open(path, "rb") as fh:
+            data = fh.read()
+        with pytest.raises(subprocess.CalledProcessError):
+            imagefile.decode_image(data)
+    with pytest.raises(subprocess.CalledProcessError):  # the scale to ispe
+        av1.scale(np.zeros((4, 4), np.uint8), 4, 4, 3, 2)

@@ -8,11 +8,18 @@ version 3, 15-bit ipma indices, an alpha item named by auxl), each equal
 to PIL's decode of the same bytes; irot / imir read and not applied, as
 PIL; the features outside the slice refused with NotImplementedError
 naming AVIF, the feature, the path and the ROADMAP item (grid, avis,
-clap, a1op, lsel, prem); truncated and corrupt files raising or decoding
-as PIL does (tools/avif_fuzz_agreement.py's cases); load_image of the
-fixture against figdraw_tpu's (image, mips, sidecar) and its frames against
-figdraw_tpu's block means."""
+clap, a1op, lsel, prem); an AV1 frame of another size than its item's
+ispe scaled to it as libavif scales it (libyuv's ScalePlane: the C++
+scaler and its twin held to libavif's own avifImageScale, and PIL's
+decodes of files whose ispe is patched), the 3/4 and 3/8 scales refused;
+truncated and corrupt files raising or decoding as PIL does
+(tools/avif_fuzz_agreement.py's cases, and the libavif and dav1d rules
+they found); load_image of each stored fixture (PIL's default save and the
+speed-2 CDEF file) against figdraw_tpu's (image, mips, sidecar) and its
+frames against figdraw_tpu's block means."""
 
+import ctypes
+import glob
 import hashlib
 import io
 import json
@@ -26,8 +33,11 @@ import pytest
 import torch
 from PIL import Image
 
-from figdraw_tpu_torch.scenes import AVIF_FIXTURE, IMAGE_FIXTURE, IMAGE_FORMATS_REFERENCE
-from figdraw_tpu_torch.utils import avif, imagefile
+from figdraw_tpu_torch.scenes import (
+    AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_FIXTURE, AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE,
+    AVIF_FIXTURE, AVIF_WALL_REFERENCE, IMAGE_FIXTURE, IMAGE_FORMATS_REFERENCE,
+)
+from figdraw_tpu_torch.utils import av1, avif, imagefile
 from torch_reference import REPO
 
 sys.path.insert(0, os.path.join(REPO, "tools"))
@@ -177,17 +187,36 @@ def remux(data: bytes, iloc_version=0, sizes=(4, 4, 0, 0), method=0, split=1,
     return out
 
 
-# --- the stored fixture ------------------------------------------------------------
+# --- the stored fixtures -----------------------------------------------------------
 
-def test_stored_fixture_equals_pil_and_its_digests():
-    with open(AVIF_FIXTURE, "rb") as fh:
+# each stored AVIF with figdraw_tpu's block means of its image-file scene
+# and of its 480x270 photo wall
+FIXTURES = {"q75": (AVIF_FIXTURE, AVIF_FILE_REFERENCE, AVIF_WALL_REFERENCE),
+            "s2_cdef": (AVIF_CDEF_FIXTURE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_WALL_REFERENCE)}
+
+
+@pytest.mark.parametrize("fixture", sorted(FIXTURES))
+def test_stored_fixture_equals_pil_and_its_digests(fixture):
+    path = FIXTURES[fixture][0]
+    with open(path, "rb") as fh:
         data = fh.read()
     with open(IMAGE_FORMATS_REFERENCE) as fh:
-        ref = json.load(fh)["files"][os.path.basename(AVIF_FIXTURE)]
+        ref = json.load(fh)["files"][os.path.basename(path)]
     assert hashlib.sha256(data).hexdigest() == ref["sha256"]
     got = _same(data)
     assert hashlib.sha256(got.tobytes()).hexdigest() == ref["decoded_sha256"]
     assert list(got.shape) == ref["shape"] == [600, 800, 4]
+
+
+def test_the_cdef_fixture_turns_on_both_post_filters():
+    """PIL's speed-2 save with aom's CDEF: CDEF indices at its 64x64s and
+    Wiener and self-guided restoration units (chip_smoke.py holds the
+    card's decode of it to PIL's digest and its stages to their twins)."""
+    with open(AVIF_CDEF_FIXTURE, "rb") as fh:
+        frame = av1.decode(avif.parse(fh.read()).color)
+    assert (frame.cdef >= 0).any()
+    types = set(frame.lr[..., av1.L_TYPE].ravel().tolist())
+    assert {av1.RESTORE_WIENER, av1.RESTORE_SGRPROJ} <= types
 
 
 def test_fixture_boxes():
@@ -291,6 +320,136 @@ def test_pils_premultiplied_alpha_is_refused(tmp_path):
              "premultiplied alpha", tmp_path)
 
 
+# --- an AV1 frame of another size than ispe -----------------------------------------
+
+def _with_ispe(data: bytes, w: int, h: int) -> bytes:
+    """The file with every ispe box set to w x h (PIL's items share one)."""
+    out = bytearray(data)
+    at = out.find(b"ispe")
+    while at >= 0:
+        out[at + 8:at + 16] = struct.pack(">II", w, h)
+        at = out.find(b"ispe", at + 4)
+    return bytes(out)
+
+
+# ispe sizes over a 96x64 frame: the four the ROADMAP's probe tried, then
+# each axis alone, odd sizes, exact halves, quarters and doubles, 1x1
+ISPE_SIZES = [(80, 64), (96, 48), (128, 64), (96, 80), (61, 37), (97, 65), (33, 100),
+              (48, 32), (24, 16), (192, 128), (191, 127), (200, 129), (1, 1)]
+
+
+@pytest.mark.parametrize("kind", ["rgb", "alpha", "mono", "cdef"])
+@pytest.mark.parametrize("size", ISPE_SIZES)
+def test_a_frame_of_another_size_than_ispe_is_scaled_as_pil(size, kind):
+    """libavif scales the decoded planes to the item's ispe before its
+    colour conversion (the alpha item's plane too); the port equals PIL
+    byte for byte with and without alpha, in 4:0:0, with CDEF on."""
+    kw = {"mono": dict(subsampling="4:0:0"),
+          "cdef": dict(speed=2, advanced={"enable-cdef": "1"})}.get(kind, {})
+    data = _with_ispe(_pil_avif(_crop(96, 64, alpha=kind == "alpha"), **kw), *size)
+    assert _same(data).shape == (size[1], size[0], 4)
+
+
+@pytest.mark.parametrize("size", [(40000, 10), (14000, 14000), (0, 64)])
+def test_an_ispe_past_the_limits_raises(size):
+    """A side past libavif's 32768, an area past twice PIL's
+    MAX_IMAGE_PIXELS, or an empty side: PIL raises on open, the port
+    raises ValueError before it decodes or scales."""
+    data = _with_ispe(_pil_avif(_crop(96, 64)), *size)
+    with pytest.raises(Exception):
+        _pil(data)
+    with pytest.raises(ValueError, match="ispe"):
+        imagefile.decode_image(data)
+
+
+@pytest.mark.parametrize("size", [(72, 48), (36, 24)])
+def test_a_three_quarter_or_three_eighth_scale_is_refused(size, tmp_path):
+    _refused(_with_ispe(_pil_avif(_crop(96, 64)), *size), "an AV1 frame of another size than ispe",
+             tmp_path)
+
+
+def _libavif():
+    paths = glob.glob(os.path.join(os.path.dirname(os.path.dirname(Image.__file__)),
+                                   "pillow.libs", "libavif-*.so*"))
+    if not paths:
+        pytest.skip("no libavif beside PIL on this host")
+    lib = ctypes.CDLL(paths[0])
+    lib.avifImageCreate.restype = ctypes.c_void_p
+    lib.avifImageCreate.argtypes = [ctypes.c_uint32] * 3 + [ctypes.c_int]
+    lib.avifImageAllocatePlanes.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.avifImageScale.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32,
+                                   ctypes.c_void_p]
+    lib.avifImageDestroy.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def _avif_scale(lib, plane: np.ndarray, dw: int, dh: int) -> np.ndarray:
+    """libavif 1.3.0's avifImageScale of a 4:0:0 image: its Y plane
+    (avifImage: width, height, depth, format, range, chroma position, then
+    the three plane pointers at byte 24 and their row bytes at 48)."""
+    h, w = plane.shape
+    img = lib.avifImageCreate(w, h, 8, 4)
+    assert lib.avifImageAllocatePlanes(img, 1) == 0
+
+    def y_plane():
+        raw = bytes((ctypes.c_uint8 * 56).from_address(img))
+        return int.from_bytes(raw[24:32], "little"), int.from_bytes(raw[48:52], "little")
+
+    ptr, stride = y_plane()
+    for r in range(h):
+        ctypes.memmove(ptr + r * stride, plane[r].ctypes.data, w)
+    diag = ctypes.create_string_buffer(1024)
+    assert lib.avifImageScale(img, dw, dh, diag) == 0
+    ptr, stride = y_plane()
+    out = np.frombuffer(bytes((ctypes.c_uint8 * (stride * dh)).from_address(ptr)), np.uint8)
+    lib.avifImageDestroy(img)
+    return out.reshape(dh, stride)[:, :dw]
+
+
+def test_scale_and_its_twin_equal_libavifs_scale():
+    """fd_av1_scale and scale_plain against libavif's own avifImageScale
+    (PIL's libavif, through ctypes) on seeded planes over every path of
+    libyuv's ScalePlane the port takes: vertical only, exact halves and
+    quarters, box means, 2x linear and bilinear, bilinear up and down,
+    point sampling of one-wide planes; the 3/4 and 3/8 scales refused."""
+    lib = _libavif()
+    rng = np.random.default_rng(26)
+    refused = 0
+    for trial in range(400):
+        sw, sh = int(rng.integers(1, 70)), int(rng.integers(1, 70))
+        dw, dh = int(rng.integers(1, 140)), int(rng.integers(1, 140))
+        k = trial % 10
+        if k == 0:
+            dw = sw
+        elif k == 1:
+            dh = sh
+        elif k in (2, 3):
+            dw, dh = max(1, sw // (2 * (k - 1))), max(1, sh // (2 * (k - 1)))
+        elif k == 4:
+            dw, dh = 2 * sw - (trial & 1), 2 * sh - ((trial >> 1) & 1)
+        elif k == 5:
+            dw = 2 * sw - (trial & 1)
+        elif k == 6:
+            sw = 1
+        elif k == 7:
+            sw, sh = 4 * int(rng.integers(1, 12)), 8 * int(rng.integers(1, 6))
+            dw, dh = (3 * sw // 4, 3 * sh // 4) if trial & 1 else (3 * sw // 8, 3 * sh // 8)
+        dw, dh = max(1, dw), max(1, dh)
+        src = rng.integers(0, 256, (sh, sw), np.uint8)
+        if trial % 3 == 0:
+            src = np.clip(np.add.outer(np.arange(sh) * 5, np.arange(sw) * 3) + 20, 0, 255).astype(np.uint8)
+        want = _avif_scale(lib, src, dw, dh)
+        twin = av1.scale_plain(src, dw, dh)
+        if twin is None:
+            with pytest.raises(NotImplementedError, match="another size than ispe"):
+                av1.scale(src, sw, sh, dw, dh)
+            refused += 1
+            continue
+        np.testing.assert_array_equal(twin, want, err_msg=f"{sw}x{sh} to {dw}x{dh}")
+        np.testing.assert_array_equal(av1.scale(src, sw, sh, dw, dh, plain=True), want)
+    assert refused == 40  # every 3/4 and 3/8 trial
+
+
 # --- truncated and corrupt files ----------------------------------------------------
 
 def test_truncations_raise_value_error():
@@ -298,6 +457,44 @@ def test_truncations_raise_value_error():
     for cut in list(range(0, 300, 7)) + list(range(300, len(data), max(1, len(data) // 40))):
         with pytest.raises((ValueError, NotImplementedError)):
             imagefile.decode_image(data[:cut])
+
+
+def _patched(data: bytes, old: bytes, new: bytes, nth: int = 0) -> bytes:
+    at = -1
+    for _ in range(nth + 1):
+        at = data.find(old, at + 1)
+    assert at >= 0
+    return data[:at] + new + data[at + len(old):]
+
+
+@pytest.mark.parametrize("case", ["infe name", "av1C version", "alpha av1C type", "forbidden bit"])
+def test_container_rules_found_by_the_corrupt_cases(case):
+    """The four rules `--corrupt` found once CDEF was drawn (PERF.md): an
+    infe item name without its terminator and an av1C of another marker or
+    version fail in libavif (ValueError); an essential property of an
+    unknown type makes libavif skip the item (the alpha item here: no
+    alpha); dav1d reads past an OBU's forbidden bit."""
+    src = _pil_avif(_crop(66, 40, alpha=True))
+    if case == "infe name":
+        data = _patched(src, b"Color\0", b"Color\4")
+    elif case == "av1C version":
+        at = src.find(b"av1C") + 4
+        data = src[:at] + bytes([src[at] | 2]) + src[at + 1:]
+    elif case == "alpha av1C type":
+        data = _patched(src, b"av1C", b"!v1C", nth=1)
+    else:
+        still = avif.parse(src)
+        at = src.find(still.color)
+        data = src[:at] + bytes([src[at] | 0x80]) + src[at + 1:]
+    if case in ("infe name", "av1C version"):
+        with pytest.raises(Exception):
+            _pil(data)
+        with pytest.raises(ValueError):
+            imagefile.decode_image(data)
+        return
+    got = _same(data)
+    if case == "alpha av1C type":
+        assert (got[..., 3] == 255).all()
 
 
 @pytest.mark.parametrize("seed", range(2))
@@ -321,16 +518,17 @@ def test_corrupt_cases_raise_or_decode_as_pil(seed):
 
 # --- against the JAX package: load_image, the sidecar and the frames ----------------
 
-@pytest.fixture
-def avif_copies(tmp_path):
-    """The stored fixture copied twice (each package writes its own sidecar
-    beside its file)."""
+@pytest.fixture(params=sorted(FIXTURES))
+def avif_copies(request, tmp_path):
+    """Each stored fixture copied twice (each package writes its own
+    sidecar beside its file): (port path, jax path, the fixture's name)."""
+    src = FIXTURES[request.param][0]
     paths = []
     for sub in ("port", "jax"):
         os.makedirs(tmp_path / sub)
-        paths.append(str(tmp_path / sub / os.path.basename(AVIF_FIXTURE)))
-        shutil.copyfile(AVIF_FIXTURE, paths[-1])
-    return paths
+        paths.append(str(tmp_path / sub / os.path.basename(src)))
+        shutil.copyfile(src, paths[-1])
+    return paths + [request.param]
 
 
 def test_load_image_gives_figdraw_tpus_image_mips_and_sidecar(avif_copies):
@@ -342,11 +540,11 @@ def test_load_image_gives_figdraw_tpus_image_mips_and_sidecar(avif_copies):
 
     from figdraw_tpu_torch import resources
 
-    port_path, jax_path = avif_copies
+    port_path, jax_path, fixture = avif_copies
     jax_flippy()
     bus, jbus = resources.ImageMessageBus(), jres.ImageMessageBus()
     sub, jsub = bus.subscribe(), jbus.subscribe()
-    with open(AVIF_FIXTURE, "rb") as fh:
+    with open(port_path, "rb") as fh:
         pil = _pil(fh.read())
     for _ in range(2):
         ref, jref = resources.load_image(port_path, bus=bus), jres.load_image(jax_path, bus=jbus)
@@ -361,7 +559,7 @@ def test_load_image_gives_figdraw_tpus_image_mips_and_sidecar(avif_copies):
             sidecar = fh.read()
             assert sidecar == jfh.read()
         with open(IMAGE_FORMATS_REFERENCE) as fh:
-            want = json.load(fh)["sidecar"][os.path.basename(AVIF_FIXTURE)]
+            want = json.load(fh)["sidecar"][os.path.basename(FIXTURES[fixture][0])]
         assert hashlib.sha256(sidecar).hexdigest() == want
         ref.close()
         jref.close()
@@ -376,9 +574,9 @@ def test_image_file_scene_from_avif_matches_jax(avif_copies):
     import figdraw_tpu_torch as port
     from torch_reference import block_means, jax_image_file_frame
 
-    from figdraw_tpu_torch.scenes import AVIF_FILE_REFERENCE, render_image_file
+    from figdraw_tpu_torch.scenes import render_image_file
 
-    port_path, jax_path = avif_copies
+    port_path, jax_path, fixture = avif_copies
     want = jax_image_file_frame(jax_path, "1x")
     _ren, frame, ref = render_image_file(
         lambda ps: port.FigRenderer(atlas_size=512, device="cpu", pixel_scale=ps),
@@ -386,7 +584,7 @@ def test_image_file_scene_from_avif_matches_jax(avif_copies):
     got = frame.numpy()
     assert got.shape == want.shape
     assert float(np.abs(got - want).max()) <= 1.0 / 255.0
-    stored = np.load(AVIF_FILE_REFERENCE)
+    stored = np.load(FIXTURES[fixture][1])
     np.testing.assert_allclose(stored, block_means(want), rtol=0, atol=1e-6)
     assert float(np.abs(block_means(got) - stored).max()) <= 1e-5
     ref.close()
@@ -397,11 +595,9 @@ def test_photo_wall_from_avif_matches_jax(avif_copies):
     from torch_reference import block_means, jax_photo_wall_frame
 
     from figdraw_tpu_torch import resources
-    from figdraw_tpu_torch.scenes import (
-        AVIF_WALL_REFERENCE, PHOTO_WALL_SMALL, make_loaded_photo_wall,
-    )
+    from figdraw_tpu_torch.scenes import PHOTO_WALL_SMALL, make_loaded_photo_wall
 
-    port_path, jax_path = avif_copies
+    port_path, jax_path, fixture = avif_copies
     w, h, n = PHOTO_WALL_SMALL
     want = jax_photo_wall_frame(jax_path, w, h, n)
     ren = port.FigRenderer(atlas_size=512, device="cpu")
@@ -410,7 +606,7 @@ def test_photo_wall_from_avif_matches_jax(avif_copies):
     ref = resources.load_image(port_path, bus=bus)
     got = ren.render_frame(make_loaded_photo_wall(w, h, n, ref.id), port.vec2(w, h)).numpy()
     assert float(np.abs(got - want).max()) <= 1.0 / 255.0
-    stored = np.load(AVIF_WALL_REFERENCE)
+    stored = np.load(FIXTURES[fixture][2])
     np.testing.assert_allclose(stored, block_means(want), rtol=0, atol=1e-6)
     assert float(np.abs(block_means(got) - stored).max()) <= 1e-5
     ref.close()

@@ -477,6 +477,75 @@ def test_webp_image_file_frame_matches_plain_executor(dev, tmp_path):
     ref.close()
 
 
+def test_cdef_avif_image_file_frame_on_k1_atlas(dev, tmp_path):
+    """The image-file scene (800x600) with the speed-2 CDEF and loop
+    restoration AVIF loaded by load_image: K1-atlas once a frame, within
+    1/255 of the same executor with the plain versions and within 1e-5 of
+    figdraw_tpu's stored block means from the same file."""
+    import shutil
+
+    from figdraw_tpu_torch.scenes import (
+        AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_FIXTURE, IMAGE_FILE_SIZE, make_image_file_scene,
+    )
+
+    path = str(tmp_path / "fixture_s2_cdef.avif")
+    shutil.copyfile(AVIF_CDEF_FIXTURE, path)
+    ren, ref = _loaded(path)
+    w, h = IMAGE_FILE_SIZE
+    scene = make_image_file_scene(w, h, ref.id)
+    ren.render_frame(scene, vec2(w, h))
+    counts = _counts()
+    frame = ren.render_frame(scene, vec2(w, h))
+    assert tuple(b - a for a, b in zip(counts, _counts())) == (0, 1, 0, 0, 0)
+    plan = plan_execution(ren.flatten(scene, vec2(w, h)))
+    run = get_frame_executor(plan.structure, h, w, plan.n_masks, False, plan.tile_h)
+    plain = run(torch.from_numpy(plan.combo).to(dev), None,
+                draw=raster.draw_pass_planar_prebinned_plain,
+                draw_mask=raster.draw_pass_mask_prebinned_plain, atlas=ren._device_atlas())
+    torch.cuda.synchronize()
+    assert float((frame - plain).abs().max()) <= TOL
+    blocks = frame.cpu().numpy().reshape(h // 8, 8, w // 8, 8, 4).mean(axis=(1, 3))
+    assert float(np.abs(blocks - np.load(AVIF_CDEF_FILE_REFERENCE)).max()) <= 1e-5
+    ref.close()
+
+
+def test_cdef_avif_photo_wall_on_k4_atlas(dev, tmp_path):
+    """The 1080p photo wall of the speed-2 CDEF AVIF: K4-atlas once a
+    frame, within 1/255 of the megakernel executor with its plain version;
+    its 480x270 wall within 1e-5 of figdraw_tpu's stored block means."""
+    import shutil
+
+    from figdraw_tpu_torch.scenes import (
+        AVIF_CDEF_FIXTURE, AVIF_CDEF_WALL_REFERENCE, PHOTO_WALL_PANELS, PHOTO_WALL_SIZE,
+        PHOTO_WALL_SMALL, make_loaded_photo_wall,
+    )
+
+    path = str(tmp_path / "fixture_s2_cdef.avif")
+    shutil.copyfile(AVIF_CDEF_FIXTURE, path)
+    w, h = PHOTO_WALL_SIZE
+    ren, ref = _loaded(path, atlas_size=256)
+    scene = make_loaded_photo_wall(w, h, PHOTO_WALL_PANELS, ref.id)
+    ren.render_frame(scene, vec2(w, h))
+    counts = _counts()
+    frame = ren.render_frame(scene, vec2(w, h))
+    assert tuple(b - a for a, b in zip(counts, _counts())) == (0, 0, 0, 0, 1)
+    plan = plan_execution(ren.flatten(scene, vec2(w, h)))
+    assert plan.mega_atlas
+    run = get_mega_executor(h, w, plan.n_masks, False, plan.tile_h)
+    plain = run(torch.from_numpy(plan.mega_combo).to(dev), None, atlas=ren._device_atlas(),
+                draw=mega.draw_pass_mega_plain)
+    torch.cuda.synchronize()
+    assert float((frame - plain).abs().max()) <= TOL
+    sw, sh, sn = PHOTO_WALL_SMALL
+    small, small_ref = _loaded(path, atlas_size=256)
+    got = small.render_frame(make_loaded_photo_wall(sw, sh, sn, small_ref.id), vec2(sw, sh))
+    bh, bw = sh // 8 * 8, sw // 8 * 8  # the whole 8x8 blocks (270 = 33 * 8 + 6)
+    blocks = got.cpu().numpy()[:bh, :bw].reshape(bh // 8, 8, bw // 8, 8, 4).mean(axis=(1, 3))
+    assert float(np.abs(blocks - np.load(AVIF_CDEF_WALL_REFERENCE)).max()) <= 1e-5
+    ref.close()
+    small_ref.close()
+
+
 def test_text_table_matches_plain_executor(dev):
     """The stored table of text in clipped cells (1200x800) on the
     megakernel with the atlas: one K4-atlas launch, the frame the plain

@@ -34,7 +34,7 @@ from PIL import Image
 
 from figdraw_tpu_torch.scenes import (
     IMAGE_FIXTURE, IMAGE_FIXTURE_REFERENCE, IMAGE_FORMATS_DIR, IMAGE_FORMATS_REFERENCE,
-    ZSTD_FIXTURE,
+    ZSTD_FIXTURE, ZSTD_TILES_BOX,
 )
 from figdraw_tpu_torch.utils import imagefile, tiff, zstd
 from torch_reference import REPO
@@ -151,9 +151,17 @@ def test_stored_zstd_files_equal_pil_and_their_digests(name):
 
 @pytest.mark.parametrize("name", ["fixture_zstd_pred2.tif", "fixture_zstd_tiles.tif"])
 def test_the_zstd_fixtures_decode_to_the_pngs_pixels(name):
+    """The strips hold the PNG's pixels; the 64x64 tiles its crop
+    ZSTD_TILES_BOX, partial tiles at the right and bottom."""
+    got = imagefile.read_image(os.path.join(IMAGE_FORMATS_DIR, name))
+    if name == "fixture_zstd_tiles.tif":
+        x0, y0, x1, y1 = ZSTD_TILES_BOX
+        assert (x1 - x0) % 64 and (y1 - y0) % 64
+        png = np.asarray(Image.open(IMAGE_FIXTURE).convert("RGBA"))
+        np.testing.assert_array_equal(got, png[y0:y1, x0:x1])
+        return
     with open(IMAGE_FIXTURE_REFERENCE) as fh:
         want = json.load(fh)["decoded_sha256"]
-    got = imagefile.read_image(os.path.join(IMAGE_FORMATS_DIR, name))
     assert hashlib.sha256(got.tobytes()).hexdigest() == want
 
 

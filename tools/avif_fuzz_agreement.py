@@ -1,6 +1,9 @@
 """How often the port's AVIF reader and PIL agree: seeded pictures written
-by PIL 12.1.0 (libavif 1.3.0 with aom) over sizes, qualities, speeds 0-10
-and alpha, each decoded by `utils/imagefile.decode_image` and by PIL's
+by PIL 12.1.0 (libavif 1.3.0 with aom) over sizes, qualities, speeds 0-10,
+alpha and aom's CDEF (`enable-cdef`, drawn for half the cases from a
+stream of its own, so the pictures and options of each case stay as they
+were before it was drawn; speeds 0-4 turn on loop restoration by
+themselves), each decoded by `utils/imagefile.decode_image` and by PIL's
 `Image.open(...).convert("RGBA")`; with --corrupt, seeded truncations and
 one to three bit flips of such files instead.
 
@@ -75,6 +78,7 @@ def written_cases(seed: int, cases: int, start: int = 0):
     """Yields (index, options, bytes) of one seed's PIL-written AVIFs from
     index `start` (the pictures before it are drawn, not written)."""
     rng = np.random.default_rng(seed)
+    cdef_rng = np.random.default_rng([seed, 7])
     fixture = _fixture()
     for i in range(cases):
         w, h = int(rng.integers(1, 300)), int(rng.integers(1, 300))
@@ -84,8 +88,10 @@ def written_cases(seed: int, cases: int, start: int = 0):
             alpha = picture(rng, fixture, w, h)[..., 0]
             px = np.ascontiguousarray(np.dstack([px, alpha]))
         options["size"] = (w, h)
+        options["cdef"] = int(cdef_rng.integers(2))
         if i >= start:
-            yield i, options, pil_avif(px, quality=options["quality"], speed=options["speed"])
+            yield i, options, pil_avif(px, quality=options["quality"], speed=options["speed"],
+                                       advanced={"enable-cdef": str(options["cdef"])})
 
 
 def corrupt_cases(seed: int, cases: int):

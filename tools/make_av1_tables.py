@@ -14,9 +14,11 @@ merged (the filter-intra CDFs of the sizes that may not use filter intra,
 the last CfL alpha CDF, whose 16 symbols are read here as the 15 falling
 values of its run); those are read as noted beside them. The quantiser
 lookups, the default scans, the smooth weights, the directional
-derivatives, the filter-intra taps and the 12-bit cosine and sine tables
-are read as stored (int16, uint8, int8, int32). The remaining small
-tables are the specification's and are written here.
+derivatives, the filter-intra taps, the 12-bit cosine and sine tables and
+the self-guided restoration's parameter sets and divisors are read as
+stored (int16, uint8, int8, int32). The remaining small tables (among
+them CDEF's directions, taps and divisors and the Wiener and self-guided
+coefficient ranges) are the specification's and are written here.
 
 Both outputs carry the sha256 of every table (the C++ values as
 little-endian int32), and tests/test_torch_av1.py finds each read table
@@ -104,6 +106,9 @@ CDFS = {
     "COEFF_BASE_EOB": ((4, 5, 2, 4), 3, (17837, 29055), "coeff base at the eob [q ctx][tx size ctx][plane type][ctx]"),
     "COEFF_BASE": ((4, 5, 2, 42), 4, (4034, 8930, 12727), "coeff base [q ctx][tx size ctx][plane type][ctx]"),
     "COEFF_BR": ((4, 5, 2, 21), 4, (14298, 20718, 24174), "coeff br [q ctx][tx size ctx (max 3)][plane type][ctx]"),
+    "RESTORATION_TYPE": ((), 3, (9413, 22581), "switchable restoration type of a unit"),
+    "USE_WIENER": ((), 2, (11570,), "use wiener of a unit"),
+    "USE_SGRPROJ": ((), 2, (16855,), "use self-guided of a unit"),
 }
 
 # tables that follow the one before them in libaom's binary
@@ -120,8 +125,11 @@ FILTER_INTRA_UNUSED = (11, 12, 13, 14, 15, 20, 21)
 # zero after the values), and the delta tables, whose CDFs are all the one
 # found (read once, written to every slot)
 UNENDED = {"FILTER_INTRA_MODE", "PALETTE_UV_MODE", "DELTA_Q", "DELTA_LF", "DELTA_LF_MULTI",
-           "INTRABC"}
+           "INTRABC", "RESTORATION_TYPE", "USE_WIENER", "USE_SGRPROJ"}
 REPEATED = {"DELTA_LF_MULTI"}
+# the restoration CDFs are immediates of one function, 25 bytes apart: the
+# second and third are found at their anchor's first match after the first
+NEAR_PREVIOUS = {"USE_WIENER", "USE_SGRPROJ"}
 
 # CDFs of libaom's tables that the specification's do not have, skipped
 # after the table: INTRA_1 of 16x16 and 32x32 (libaom keeps four sizes),
@@ -169,12 +177,14 @@ class _Reader:
         return vals
 
 
-def _locate(blob: bytes, name: str, nlist: list, anchor) -> "_Reader":
-    """The reader at the first offset whose CDFs open with the anchor:
-    a tuple of the first CDF's leading values, or a list of the first CDFs'
-    leading values."""
+def _locate(blob: bytes, name: str, nlist: list, anchor, after: int = 0) -> "_Reader":
+    """The reader at the first offset from `after` whose CDFs open with the
+    anchor: a tuple of the first CDF's leading values, or a list of the
+    first CDFs' leading values."""
     rows = anchor if isinstance(anchor, list) else [anchor]
     for off in _find(blob, [32768 - v for v in rows[0]], "<u2"):
+        if off < after:
+            continue
         try:
             probe = _Reader(blob, off)
             got = [probe.cdf(nlist[k], ended=name not in UNENDED) for k in range(len(rows))]
@@ -195,7 +205,8 @@ def read_cdfs(blob: bytes) -> dict:
         nlist = ns if isinstance(ns, list) else [ns] * count
         slot = max(nlist) + 1
         if name not in FOLLOWS:
-            reader = _locate(blob, name, nlist, anchor)
+            reader = _locate(blob, name, nlist, anchor,
+                             reader.off if name in NEAR_PREVIOUS else 0)
         start = reader.off + 2 * reader.i
         rows = []
         for k, n in enumerate(nlist):
@@ -248,6 +259,12 @@ STORED = {
     "TX_TYPE_INV": ("<i4", 80, (9,) + (0,) * 15 + (9, 0, 3, 1, 2),
                     "tx type by symbol [set: DCT_IDTX (inter 3), DTT4_IDTX (intra 2), "
                     "DTT4_IDTX_1DDCT (intra 1), DTT9_IDTX_1DDCT (inter 2), ALL16 (inter 1)][16]"),
+    "SGR_PARAMS": ("<i4", 64, (2, 1, 140, 3236),
+                   "self-guided parameter sets [set][r0, r1, s0, s1] (libaom's av1_sgr_params)"),
+    "X_BY_XPLUS1": ("<i4", 256, (1, 128, 171, 192, 205, 213),
+                    "self-guided a by z: 256 z / (z + 1) rounded, 1 at 0, 256 at 255"),
+    "ONE_BY_X": ("<i4", 25, (4096, 2048, 1365, 1024, 819, 683),
+                 "self-guided 1 / n at 12 bits, n = 1 .. 25"),
 }
 
 
@@ -259,7 +276,8 @@ def read_stored(blob: bytes) -> dict:
             raise ValueError(f"{name}: anchor not found")
         size = np.dtype(fmt).itemsize
         arr = np.frombuffer(blob[offs[0]:offs[0] + size * count], dtype=fmt).astype(np.int32)
-        shape = {"TX_TYPE_INV": (-1, 16), "QM_IWT": (15, 2, 3344)}.get(name, (-1,))
+        shape = {"TX_TYPE_INV": (-1, 16), "QM_IWT": (15, 2, 3344),
+                 "SGR_PARAMS": (16, 4)}.get(name, (-1,))
         out[name] = (arr.reshape(shape), offs[0])
     for w, h in SCAN_SIZES:
         scan = default_scan(w, h)
@@ -280,7 +298,26 @@ SPEC = {
     "PALETTE_COLOR_CONTEXT": ([-1, -1, 0, -1, -1, 4, 3, 2, 1], "palette colour context by hash"),
     "PALETTE_COLOR_HASH_MULTIPLIERS": ([1, 2, 2], "palette colour hash multipliers"),
     "INTRA_MODE_CONTEXT": ([0, 1, 2, 3, 4, 4, 4, 4, 3, 0, 1, 2, 0], "y mode context by neighbour mode"),
+    "CDEF_DIRECTIONS": ([-1, 1, -2, 2, 0, 1, -1, 2, 0, 1, 0, 2, 0, 1, 1, 2,
+                         1, 1, 2, 2, 1, 0, 2, 1, 1, 0, 2, 0, 1, 0, 2, -1],
+                        "CDEF tap offsets [direction][k][dy, dx]"),
+    "CDEF_UV_DIR": ([0, 1, 2, 3, 4, 5, 6, 7, 1, 2, 2, 2, 3, 4, 6, 0,
+                     7, 0, 2, 4, 5, 6, 6, 6, 0, 1, 2, 3, 4, 5, 6, 7],
+                    "CDEF chroma direction [ss_x][ss_y][luma direction]"),
+    "CDEF_PRI_TAPS": ([4, 2, 3, 3], "CDEF primary taps [strength & 1][k]"),
+    "CDEF_SEC_TAPS": ([2, 1, 2, 1], "CDEF secondary taps [strength & 1][k]"),
+    "CDEF_DIV_TABLE": ([0, 840, 420, 280, 210, 168, 140, 120, 105], "CDEF direction cost divisors"),
+    "WIENER_TAPS_MIN": ([-5, -23, -17], "Wiener taps 0-2, least"),
+    "WIENER_TAPS_MAX": ([10, 8, 46], "Wiener taps 0-2, most"),
+    "WIENER_TAPS_MID": ([3, -7, 15], "Wiener taps 0-2, the reference at a tile's start"),
+    "WIENER_TAPS_K": ([1, 2, 3], "Wiener taps 0-2, subexponential k"),
+    "SGRPROJ_XQD_MIN": ([-96, -32], "self-guided projection weights, least"),
+    "SGRPROJ_XQD_MAX": ([31, 95], "self-guided projection weights, most"),
+    "SGRPROJ_XQD_MID": ([-32, 31], "self-guided projection weights, the reference at a tile's start"),
 }
+
+SPEC_SHAPES = {"CDEF_DIRECTIONS": (8, 2, 2), "CDEF_UV_DIR": (2, 2, 8), "CDEF_PRI_TAPS": (2, 2),
+               "CDEF_SEC_TAPS": (2, 2)}
 
 
 # ----------------------------------------------------------------- write ---
@@ -300,7 +337,7 @@ def read_tables(path: str = "") -> dict:
         what = STORED[name][3] if name in STORED else "default scan (raster positions)"
         out[name] = (arr, off, what)
     for name, (vals, what) in SPEC.items():
-        out[name] = (np.asarray(vals, np.int32), -1, what)
+        out[name] = (np.asarray(vals, np.int32).reshape(SPEC_SHAPES.get(name, (-1,))), -1, what)
     return out
 
 
@@ -329,7 +366,9 @@ def write(tables: dict) -> None:
         where = f"libaom byte {off}" if off >= 0 else "AV1 specification"
         ctype = "uint16_t" if name in CDFS else ("uint8_t" if name == "QM_IWT" else
                                                   "int8_t" if name == "FILTER_INTRA_TAPS" else
-                                                  "int32_t" if name in ("COS128", "TX_TYPE_INV")
+                                                  "int32_t" if name in ("COS128", "TX_TYPE_INV",
+                                                                        "SGR_PARAMS", "X_BY_XPLUS1",
+                                                                        "ONE_BY_X")
                                                   else "int16_t")
         if name.startswith("DEFAULT_SCAN"):
             ctype = "int16_t"

@@ -15,7 +15,7 @@ render_3d_overlay_gaussian.png, 800x600 RGBA), with PIL on the CPU host:
   with Predictor 3, a fax page at TIFF-F resolution (`fax_page`) as Group
   4, Group 3 2D with fill bits, FillOrder 2 and MinIsWhite, and Modified
   Huffman, the fixture dithered to a Group 3 fax, Group 4 tiles;
-  `libzstd_files`: the fixture in ZSTD tiles and libzstd's frames at
+  `libzstd_files`: a crop of the fixture in ZSTD tiles and libzstd's frames at
   levels 1 to 22 with a checksum, through PIL's libzstd), and WebPs
   (`webp_files`: the fixture lossy at q 90 and lossless, and crops: lossy
   at q 5, 50 and 100 with methods 0 and 6, 1x1 and 17x3, with ALPH at
@@ -38,22 +38,23 @@ render_3d_overlay_gaussian.png, 800x600 RGBA), with PIL on the CPU host:
   JPEG without its EOI; `ccitt_repair_files`: RLE-W TIFFs, one with strips
   at odd offsets, and a T.6 strip with the extension code of uncompressed
   mode), and the fixture as an AVIF with PIL's default save (quality 75,
-  speed 6, 4:2:0; PIL drops the opaque alpha). The card's machine has no
-  PIL: chip_smoke.py decodes these.
+  speed 6, 4:2:0; PIL drops the opaque alpha) and at speed 2 with aom's
+  CDEF on (`fixture_s2_cdef.avif`: CDEF and loop restoration). The card's
+  machine has no PIL: chip_smoke.py decodes these.
 - `figdraw_tpu_torch/reference/image_formats.json`: under "files", each
   file's sha256 and the sha256 and shape of PIL's decode,
   `Image.open(p).convert("RGBA")`; under "sidecar", the sha256 of the
   .flippy sidecar figdraw_tpu's read_image_cached writes for the baseline
   JPEG, the TIFF fixture, the lossy WebP fixture, the ZSTD fixture, the
   Group 4 fax page, the SOF10 fixture, the SOF3 crop, the incomplete
-  progressive JPEG, the RLE-W fixture and the AVIF fixture.
-- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3,arith,incomplete,rlew,avif}_1x_blocks8.npy`
-  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4,lossless,incomplete,rlew,avif}_480x270_blocks8.npy`:
+  progressive JPEG, the RLE-W fixture and the two AVIF fixtures.
+- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3,arith,incomplete,rlew,avif,avif_cdef}_1x_blocks8.npy`
+  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4,lossless,incomplete,rlew,avif,avif_cdef}_480x270_blocks8.npy`:
   8x8 block means of figdraw_tpu's frames of the image-file scene and of
   the photo wall at 480x270 (12 panels) with the baseline JPEG, the TIFF,
   WebP or ZSTD fixture, the dithered Group 3 fixture, the Group 4 page,
   the SOF10 fixture, the SOF3 crop, the incomplete progressive JPEG, the
-  RLE-W fixture or the AVIF fixture loaded by its load_image
+  RLE-W fixture or either AVIF fixture loaded by its load_image
   (FigRenderer(atlas_size=512, use_pallas=False), the page's from
   scenes.FAX_ATLAS; tests/torch_reference.py).
 
@@ -95,6 +96,7 @@ BASELINE = "baseline_420_q90.jpg"
 TIFF_FIXTURE = "fixture_lzw_pred2.tif"
 WEBP_FIXTURE = "fixture_q90.webp"
 AVIF_FIXTURE = "fixture_q75.avif"
+AVIF_CDEF_FIXTURE = "fixture_s2_cdef.avif"
 
 
 def _pack_rows(pixels: np.ndarray, bits: int) -> np.ndarray:
@@ -674,6 +676,7 @@ def image_files() -> dict:
     files.update(jpeg_repair_files(src))
     files.update(ccitt_repair_files(src))
     save(AVIF_FIXTURE, src, "AVIF")
+    save(AVIF_CDEF_FIXTURE, src, "AVIF", speed=2, advanced={"enable-cdef": "1"})
     return files
 
 
@@ -1082,11 +1085,14 @@ def jpeg_repair_files(src) -> dict:
 
 def libzstd_files(src) -> dict:
     """The stored ZSTD TIFFs libzstd writes (kept apart from image_files,
-    which the tests rerun, since they never load libzstd): the fixture in
-    256x256 ZSTD tiles at libtiff's level, 3; frames at levels 1, 3, 19 and
-    22 with a checksum on random, constant and photo strips."""
-    files = {"fixture_zstd_tiles.tif": tiff_bytes(np.asarray(src), 2, compression=50000,
-                                                  extra=(2,), tile=(256, 256))}
+    which the tests rerun, since they never load libzstd): a 250x190 crop
+    of the fixture (scenes.ZSTD_TILES_BOX) in 64x64 ZSTD tiles at
+    libtiff's level, 3, the right and bottom ones partial; frames at levels
+    1, 3, 19 and 22 with a checksum on random, constant and photo strips."""
+    from figdraw_tpu_torch.scenes import ZSTD_TILES_BOX
+
+    files = {"fixture_zstd_tiles.tif": tiff_bytes(np.asarray(src.crop(ZSTD_TILES_BOX)), 2,
+                                                  compression=50000, extra=(2,), tile=(64, 64))}
     rng = np.random.default_rng(50000)
     photo = np.ascontiguousarray(np.asarray(src.convert("RGB"))[250:297, 340:401])
     strips = {"random": rng.integers(0, 256, photo.shape, dtype=np.uint8),
@@ -1375,12 +1381,13 @@ def write_frames() -> None:
     fixture and the SOF10 fixture, of the photo wall from the Group 4 fax
     page (its atlas started at scenes.FAX_ATLAS) and the SOF3 crop, and of
     both from the incomplete progressive JPEG, the RLE-W fixture and the
-    AVIF fixture."""
+    two AVIF fixtures."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_reference import block_means, jax_image_file_frame, jax_photo_wall_frame
 
     from figdraw_tpu_torch.scenes import (
-        ARITH_FILE_REFERENCE, AVIF_FILE_REFERENCE, AVIF_WALL_REFERENCE, FAX_ATLAS, G3_FILE_REFERENCE, G4_WALL_REFERENCE,
+        ARITH_FILE_REFERENCE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_WALL_REFERENCE,
+        AVIF_FILE_REFERENCE, AVIF_WALL_REFERENCE, FAX_ATLAS, G3_FILE_REFERENCE, G4_WALL_REFERENCE,
         INCOMPLETE_FILE_REFERENCE, INCOMPLETE_WALL_REFERENCE, RLEW_FILE_REFERENCE,
         RLEW_WALL_REFERENCE,
         JPEG_FILE_REFERENCE, JPEG_WALL_REFERENCE, LOSSLESS_WALL_REFERENCE, PHOTO_WALL_SMALL,
@@ -1399,7 +1406,8 @@ def write_frames() -> None:
             (LOSSLESS_FIXTURE, None, LOSSLESS_WALL_REFERENCE, 512),
             (INCOMPLETE_HUFF, INCOMPLETE_FILE_REFERENCE, INCOMPLETE_WALL_REFERENCE, 512),
             (RLEW_FIXTURE, RLEW_FILE_REFERENCE, RLEW_WALL_REFERENCE, 512),
-            (AVIF_FIXTURE, AVIF_FILE_REFERENCE, AVIF_WALL_REFERENCE, 512)):
+            (AVIF_FIXTURE, AVIF_FILE_REFERENCE, AVIF_WALL_REFERENCE, 512),
+            (AVIF_CDEF_FIXTURE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_WALL_REFERENCE, 512)):
         with tempfile.TemporaryDirectory() as td:
             path = os.path.join(td, name)
             shutil.copyfile(os.path.join(OUT_DIR, name), path)
@@ -1429,7 +1437,8 @@ def main() -> None:
               "sidecar": {name: sidecar_digest(name)
                           for name in (BASELINE, TIFF_FIXTURE, WEBP_FIXTURE, ZSTD_FIXTURE,
                                        FAX_PAGE, ARITH_FIXTURE, LOSSLESS_FIXTURE,
-                                       INCOMPLETE_HUFF, RLEW_FIXTURE, AVIF_FIXTURE)}}
+                                       INCOMPLETE_HUFF, RLEW_FIXTURE, AVIF_FIXTURE,
+                                       AVIF_CDEF_FIXTURE)}}
     with open(DIGESTS, "w") as fh:
         json.dump(stored, fh, indent=1)
         fh.write("\n")
