@@ -3333,10 +3333,14 @@ def span_means(entries) -> dict:
 CROP_PIXELS = 20000  # pixels of a GIF's or QOI's stream held to the plain twin
 AVIF_STAGE_CALLS = 150  # traced calls of each AV1 stage kind held to its numpy twin
 # the stage kinds each stored AVIF's trace must reach: PIL's default save
-# runs no post-filter; the speed-2 CDEF file also CDEF, Wiener and
-# self-guided restoration
+# (4:2:0 and 4:4:4) runs no post-filter; the speed-2 CDEF file and the
+# limited-range 4:2:2 file (4:2:2's CDEF direction map, chroma restoration
+# units at ssy 0) also CDEF, Wiener and self-guided restoration
 AVIF_KINDS = {"fixture_q75.avif": ("predict", "cfl", "txfm", "lf"),
-              "fixture_s2_cdef.avif": ("predict", "cfl", "txfm", "lf", "cdef", "wiener", "sgr")}
+              "fixture_s2_cdef.avif": ("predict", "cfl", "txfm", "lf", "cdef", "wiener", "sgr"),
+              "fixture_444.avif": ("predict", "cfl", "txfm", "lf"),
+              "fixture_422_limited_cdef.avif": ("predict", "cfl", "txfm", "lf", "cdef", "wiener",
+                                                "sgr")}
 
 
 def split_frames(ren, scene, size, frames: int = FRAMES):
@@ -3413,7 +3417,7 @@ def image_formats_check(tag: str) -> dict:
     image_lib.load_zstd()
     image_lib.load_av1()
     build_ms = (time.perf_counter() - t0) * 1e3
-    times, stages, avif_stages = {}, {}, {}
+    times, stages, avif_stages, avif_formats = {}, {}, {}, {}
     for name, ref in sorted(stored.items()):
         path = os.path.join(IMAGE_FORMATS_DIR, name)
         t0 = time.perf_counter()
@@ -3532,9 +3536,13 @@ def image_formats_check(tag: str) -> dict:
             if missing:
                 fail(f"image formats: {name}: the stage kinds {missing} never ran: {checked}")
             y, u, v = frame.planes
-            rgb = av1.to_rgba(frame, None, 1, 6)
+            # the colr box's colour description, else the sequence header's
+            cp, _tc, mc, full = still.nclx or (frame.primaries, 2, frame.matrix,
+                                               frame.full_range)
+            conv = av1.conversion(frame.mono, frame.ssx, frame.ssy, full, mc, cp, False)
+            rgb = av1.to_rgba(frame, None, full, mc, cp)
             if not (np.array_equal(rgb, av1.to_rgba_plain(y, u, v, None, frame.width,
-                                                         frame.height))
+                                                         frame.height, conv))
                     and np.array_equal(rgb, px)):
                 fail(f"image formats: {name}: fd_av1_to_rgb differs from to_rgba_plain")
             held += [f"{k} x{c}" for k, c in checked.items() if c] + ["to_rgb"]
@@ -3542,10 +3550,13 @@ def image_formats_check(tag: str) -> dict:
             # and the median of IMAGE_REPS more (warm)
             first = av1.decode(still.color)
             t0 = time.perf_counter()
-            av1.to_rgba(frame, None, 1, 6)
+            av1.to_rgba(frame, None, full, mc, cp)
             rgb_cold = (time.perf_counter() - t0) * 1e3
             runs = [av1.decode(still.color).ms for _ in range(IMAGE_REPS)]
-            rgb_warm, _ = host_ms(lambda: av1.to_rgba(frame, None, 1, 6))
+            rgb_warm, _ = host_ms(lambda: av1.to_rgba(frame, None, full, mc, cp))
+            chroma = {(0, 0): "4:4:4", (1, 0): "4:2:2"}.get((frame.ssx, frame.ssy), "4:2:0")
+            avif_formats[name] = (f"{frame.width}x{frame.height}, {chroma}, "
+                                  f"{'full' if full else 'limited'} range, matrix {mc}")
             avif_stages[name] = {k: (first.ms[k], statistics.median(r[k] for r in runs))
                                  for k in first.ms}
             avif_stages[name]["yuv -> rgba"] = (rgb_cold, rgb_warm)
@@ -3561,7 +3572,7 @@ def image_formats_check(tag: str) -> dict:
           + "; ".join(f"{k} {c:.3f} / {w:.3f} ({s[1]}x{s[0]})"
                       for k, (c, w, s) in times.items()) + f" {tag}", flush=True)
     for name, split in avif_stages.items():
-        print(f"times: {name}'s decode (800x600, 4:2:0), host ms cold / warm (median of "
+        print(f"times: {name}'s decode ({avif_formats[name]}), host ms cold / warm (median of "
               f"{IMAGE_REPS}): " + "; ".join(f"{k} {c:.3f} / {w:.3f}" for k, (c, w) in split.items())
               + f" {tag}", flush=True)
     times["avif stages"] = avif_stages
@@ -3590,8 +3601,10 @@ def image_files_phase(tag: str, dev) -> dict:
     stored ZSTD + Predictor 2 TIFF of the fixture, the stored progressive
     arithmetic-coded JPEG (SOF10) of the fixture, the lossless JPEG (SOF3)
     of a 224x168 crop (equal to the PNG's pixels), the incomplete
-    progressive JPEG of the fixture (block smoothing) and the RLE-W TIFF of
-    its dithered centre, image_formats_check
+    progressive JPEG of the fixture (block smoothing), the RLE-W TIFF of
+    its dithered centre and the fixture's four AVIFs (PIL's default save,
+    speed 2 with CDEF, 4:4:4, and limited-range BT.709 4:2:2 with CDEF and
+    loop restoration), image_formats_check
     first: every stored format against PIL's digests): load_image cold and
     warm against figdraw_tpu's sidecar digest, the image-file scene on
     K1-atlas and the photo wall on K4-atlas, each within FILE_TOL of
@@ -3617,7 +3630,9 @@ def image_files_phase(tag: str, dev) -> dict:
     from figdraw_tpu_torch.ops import mega, raster
     from figdraw_tpu_torch.plan import pack_mega_combo, plan_execution
     from figdraw_tpu_torch.scenes import (
-        ARITH_FILE_REFERENCE, ARITH_FIXTURE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_FIXTURE,
+        ARITH_FILE_REFERENCE, ARITH_FIXTURE, AVIF_422_FILE_REFERENCE, AVIF_422_FIXTURE,
+        AVIF_422_WALL_REFERENCE, AVIF_444_FILE_REFERENCE, AVIF_444_FIXTURE,
+        AVIF_444_WALL_REFERENCE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_FIXTURE,
         AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE, AVIF_FIXTURE,
         AVIF_WALL_REFERENCE, EXAMPLE_FORMS, EXAMPLE_IMAGES, EXAMPLE_SCENES,
         FAX_ATLAS, FAX_PAGE, G3_FILE_REFERENCE, LOSSLESS_FIXTURE, LOSSLESS_WALL_REFERENCE,
@@ -3770,6 +3785,9 @@ def image_files_phase(tag: str, dev) -> dict:
         vpath, vcold_ms, vwarm_ms, _vimage = cold_warm(AVIF_FIXTURE, "AVIF (q 75, 4:2:0)")
         cpath, ccold_ms, cwarm_ms, _cimage = cold_warm(
             AVIF_CDEF_FIXTURE, "AVIF (speed 2, CDEF and loop restoration)")
+        fpath, fcold_ms, fwarm_ms, _fimage = cold_warm(AVIF_444_FIXTURE, "AVIF (4:4:4)")
+        kpath, kcold_ms, kwarm_ms, _kimage = cold_warm(
+            AVIF_422_FIXTURE, "AVIF (4:2:2, limited-range BT.709, CDEF and loop restoration)")
         g3path = os.path.join(td, os.path.basename(G3_FIXTURE))
         shutil.copyfile(G3_FIXTURE, g3path)
 
@@ -3879,7 +3897,9 @@ def image_files_phase(tag: str, dev) -> dict:
                        "incomplete": file_scene(ipath, "incomplete", INCOMPLETE_FILE_REFERENCE),
                        "rlew": file_scene(rpath, "rlew", RLEW_FILE_REFERENCE),
                        "avif": file_scene(vpath, "avif", AVIF_FILE_REFERENCE),
-                       "avif cdef": file_scene(cpath, "avif cdef", AVIF_CDEF_FILE_REFERENCE)}
+                       "avif cdef": file_scene(cpath, "avif cdef", AVIF_CDEF_FILE_REFERENCE),
+                       "avif 444": file_scene(fpath, "avif 444", AVIF_444_FILE_REFERENCE),
+                       "avif 422": file_scene(kpath, "avif 422", AVIF_422_FILE_REFERENCE)}
 
         # --- the 1080p photo wall of each loaded image ---
         def photo_wall(src, small_ref, what, tol=TOL, atlas=256):
@@ -3938,7 +3958,11 @@ def image_files_phase(tag: str, dev) -> dict:
                  "rlew": photo_wall(rpath, RLEW_WALL_REFERENCE, "photo wall rlew", FILE_TOL),
                  "avif": photo_wall(vpath, AVIF_WALL_REFERENCE, "photo wall avif", FILE_TOL),
                  "avif cdef": photo_wall(cpath, AVIF_CDEF_WALL_REFERENCE, "photo wall avif cdef",
-                                         FILE_TOL)}
+                                         FILE_TOL),
+                 "avif 444": photo_wall(fpath, AVIF_444_WALL_REFERENCE, "photo wall avif 444",
+                                        FILE_TOL),
+                 "avif 422": photo_wall(kpath, AVIF_422_WALL_REFERENCE, "photo wall avif 422",
+                                        FILE_TOL)}
         for ref in refs:
             ref.close()
     med = statistics.median
@@ -3974,7 +3998,9 @@ def image_files_phase(tag: str, dev) -> dict:
           f"progressive JPEG's load_image cold {icold_ms:.3f} ms, warm {iwarm_ms:.3f} ms; the "
           f"RLE-W TIFF's (400x300) load_image cold {rcold_ms:.3f} ms, warm {rwarm_ms:.3f} ms; "
           f"the AVIF's load_image cold {vcold_ms:.3f} ms, warm {vwarm_ms:.3f} ms; the speed-2 "
-          f"CDEF AVIF's load_image cold {ccold_ms:.3f} ms, warm {cwarm_ms:.3f} ms {tag}",
+          f"CDEF AVIF's load_image cold {ccold_ms:.3f} ms, warm {cwarm_ms:.3f} ms; the 4:4:4 "
+          f"AVIF's load_image cold {fcold_ms:.3f} ms, warm {fwarm_ms:.3f} ms; the 4:2:2 "
+          f"limited-range AVIF's load_image cold {kcold_ms:.3f} ms, warm {kwarm_ms:.3f} ms {tag}",
           flush=True)
     for src, (f_ms, f_host, f_dev) in file_frames.items():
         print(f"times: image_file scene from the {src.upper()}, 800x600 on K1-atlas: median "

@@ -2,9 +2,9 @@
 // figdraw_tpu_torch/utils/image_lib.py and bound through ctypes by
 // utils/av1.py, which parses the sequence and frame headers and holds the
 // plain numpy twin of each self-contained stage. The decoding process is
-// the AV1 specification's (section 7) for a shown key frame of profile 0,
-// 8-bit 4:2:0 or monochrome, without superres or film grain; the tables
-// are libaom's (csrc/av1_tables.h).
+// the AV1 specification's (section 7) for a shown key frame of profiles 0-2
+// at 8 bits (4:2:0, 4:2:2, 4:4:4 or monochrome), without superres or film
+// grain; the tables are libaom's (csrc/av1_tables.h).
 //   fd_av1_tile       one tile: the symbol decoder with CDF adaptation,
 //                     partitions, intra frame mode info (segment id, skip,
 //                     delta q / lf, y and uv modes with angle deltas, CfL
@@ -23,8 +23,9 @@
 //                     decoded frame to its item's ispe (libyuv's ScalePlane
 //                     with kFilterBox and its x86 column filter);
 //   fd_av1_to_rgb     YUV to RGBA as libavif 1.3.0 converts it for PIL
-//                     (libyuv's full-range BT.601 fixed point with bilinear
-//                     4:2:0 upsampling), the alpha item's plane to alpha;
+//                     (libyuv's fixed point with its chroma upsampling, or
+//                     libavif's own float conversion), the alpha item's
+//                     plane to alpha;
 //   fd_av1_predict, fd_av1_cfl, fd_av1_inv_txfm, fd_av1_lf_edge,
 //   fd_av1_cdef_block, fd_av1_wiener, fd_av1_sgr
 //                     the stages alone, for the twins' tests.
@@ -33,6 +34,7 @@
 // on bad input (utils/av1.py ERRORS); reads of the input are bounded.
 
 #include <algorithm>
+#include <cstddef>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -42,7 +44,7 @@
 
 namespace {
 
-enum { kArgs = -2, kGolomb = -3, kScaleRatio = -4 };
+enum { kArgs = -2, kGolomb = -3, kScaleRatio = -4, kPartition422 = -5 };
 
 inline int clip3(int lo, int hi, int v) { return v < lo ? lo : (v > hi ? hi : v); }
 inline int round2(int64_t x, int n) { return n == 0 ? (int)x : (int)((x + ((int64_t)1 << (n - 1))) >> n); }
@@ -92,7 +94,9 @@ int adjusted_tx(int t) {
     }
 }
 
-// plane residual size of a block (4:2:0 or luma)
+// plane residual size of a block (Subsampled_Size wherever it is valid:
+// 4:2:2 has no size for the blocks twice as tall as wide, whose partitions
+// the tile refuses)
 int plane_size(int b, int ssx, int ssy) {
     int w = kBW[b] >> ssx, h = kBH[b] >> ssy;
     if (w < 4) w = 4;
@@ -882,7 +886,9 @@ enum {
     // samples, units down and across, and the units of a plane in the
     // out-array (its stride)
     H_LR_TYPE = H_CDEF_UV_SEC + 8, H_LR_SIZE = H_LR_TYPE + 3, H_LR_ROWS = H_LR_SIZE + 3,
-    H_LR_COLS = H_LR_ROWS + 3, H_LR_STRIDE = H_LR_COLS + 3, H_SIZE
+    H_LR_COLS = H_LR_ROWS + 3, H_LR_STRIDE = H_LR_COLS + 3,
+    // the chroma planes' subsampling across and down (1 for monochrome)
+    H_SSX, H_SSY, H_SIZE
 };
 enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
 // a restoration unit in the out-array: its type, the Wiener taps 0-2 of the
@@ -902,8 +908,8 @@ enum { M_SIZE, M_SKIP, M_SEG, M_TX_Y, M_TX_UV, M_DLF0, M_DLF1, M_DLF2, M_DLF3, M
 struct Tile {
     const int32_t* hdr;
     int miCols, miRows, rowStart, rowEnd, colStart, colEnd;
-    // 4:2:0 (a monochrome frame has no chroma planes)
-    static constexpr int ssx = 1, ssy = 1;
+    // 4:2:0, 4:2:2 or 4:4:4 (a monochrome frame has no chroma planes)
+    int ssx, ssy;
     int mono, numPlanes, use128, sbSize4;
     uint8_t* plane[3];
     int stride[3];
@@ -1004,6 +1010,12 @@ struct Tile {
                 partition = bit ? 3 : (hasCols ? 1 : 2);
             } else {
                 partition = 3;
+            }
+            // 4:2:2 has no chroma size for a block twice as tall as wide:
+            // dav1d rejects the partitions that make one
+            if (ssx && !ssy && (partition == 2 || partition == 6 || partition == 7 || partition == 9)) {
+                err = kPartition422;
+                return;
             }
         }
         int w = kBW[bSize], h = kBH[bSize];
@@ -2346,6 +2358,8 @@ struct Tile {
         colEnd = hdr[H_COL_END];
         mono = hdr[H_MONO];
         numPlanes = mono ? 1 : 3;
+        ssx = hdr[H_SSX];
+        ssy = hdr[H_SSY];
         use128 = hdr[H_USE128];
         sbSize4 = use128 ? 32 : 16;
         size_t n = (size_t)miRows * miCols;
@@ -2392,7 +2406,7 @@ struct Tile {
 // ---------------------------------------------------------------- deblock ---
 
 struct Deblock {
-    static constexpr int ssx = 1, ssy = 1;
+    int ssx, ssy;
     const int32_t* hdr;
     int miCols, miRows, numPlanes, width, height;
     uint8_t* plane[3];
@@ -2598,8 +2612,9 @@ void cdef_filter(const int* win, int w, int h, int pri, int sec, int damping, in
 
 // One block's CDEF (7.15.1) from its window: luma turns its primary
 // strength off with the direction where it is 0 and adjusts it by the
-// variance; chroma takes the luma direction yDir (Cdef_Uv_Dir for 4:2:0 is
-// the identity). Returns the direction used.
+// variance; chroma maps the luma direction yDir through Cdef_Uv_Dir by its
+// subsampling, which the block's size gives (8 >> ssx wide, 8 >> ssy tall;
+// the identity for 4:2:0 and 4:4:4). Returns the direction used.
 int cdef_apply(const int* win, int w, int h, int plane, int pri, int sec, int damping, int yDir, int var,
                uint8_t* out) {
     int dir;
@@ -2608,7 +2623,7 @@ int cdef_apply(const int* win, int w, int h, int plane, int pri, int sec, int da
         int varStr = (var >> 6) ? std::min(floorlog2(var >> 6), 12) : 0;
         pri = var ? (pri * (4 + varStr) + 8) >> 4 : 0;
     } else {
-        dir = pri ? CDEF_UV_DIR[1][1][yDir] : 0;
+        dir = pri ? CDEF_UV_DIR[w == 4][h == 4][yDir] : 0;
     }
     cdef_filter(win, w, h, pri, sec, damping, dir, out);
     return dir;
@@ -2616,7 +2631,7 @@ int cdef_apply(const int* win, int w, int h, int plane, int pri, int sec, int da
 
 struct Cdef {
     const int32_t* hdr;
-    int miCols, miRows, numPlanes;
+    int miCols, miRows, numPlanes, ssx, ssy;
     const uint8_t* src[3];
     uint8_t* dst[3];
     int stride[3];
@@ -2627,7 +2642,7 @@ struct Cdef {
 
     // the window of the 8x8's plane-p block at MI (r, c)
     void window(int p, int r, int c, int* win) const {
-        int sx = p ? 1 : 0, sy = p ? 1 : 0;
+        int sx = p ? ssx : 0, sy = p ? ssy : 0;
         int w = 8 >> sx, h = 8 >> sy;
         int x0 = (c * 4) >> sx, y0 = (r * 4) >> sy;
         bool inside = y0 >= 2 && x0 >= 2 && ((y0 + h + 2) << sy) <= miRows * 4 &&
@@ -2643,7 +2658,7 @@ struct Cdef {
     // one plane's filtered block into dst, traced: for luma `pri` is the
     // strength before the variance adjustment and yDir / var the search's
     void filter(int p, int r, int c, int pri, int sec, int damping, int yDir, int var) {
-        int sx = p ? 1 : 0, sy = p ? 1 : 0;
+        int sx = p ? ssx : 0, sy = p ? ssy : 0;
         int w = 8 >> sx, h = 8 >> sy;
         int win[12 * 12];
         uint8_t out[64];
@@ -2788,7 +2803,7 @@ void sgr_filter(const int* win, int w, int h, int set, const int* xqd, uint8_t* 
 
 struct Restoration {
     const int32_t* hdr;
-    int numPlanes, width, height;
+    int numPlanes, width, height, ssx, ssy;
     const uint8_t* pre[3];   // deblocked, before CDEF
     const uint8_t* cdef[3];  // CDEF's output
     uint8_t* dst[3];
@@ -2798,7 +2813,7 @@ struct Restoration {
     void run() {
         for (int p = 0; p < numPlanes; p++) {
             if (hdr[H_LR_TYPE + p] == RESTORE_NONE) continue;
-            int sx = p ? 1 : 0, sy = p ? 1 : 0;
+            int sx = p ? ssx : 0, sy = p ? ssy : 0;
             int unitSize = hdr[H_LR_SIZE + p], unitRows = hdr[H_LR_ROWS + p], unitCols = hdr[H_LR_COLS + p];
             int planeW = (width + sx) >> sx, planeH = (height + sy) >> sy;
             for (int k = 0;; k++) {
@@ -3080,18 +3095,128 @@ int plane(const uint8_t* src, int ss, int sw, int sh, uint8_t* dst, int ds, int 
 
 // ------------------------------------------------------------ YUV -> RGB ---
 
-// libyuv's full-range BT.601 ("JPEG") constants for I420ToRGBAMatrix, as
-// YuvPixel computes them (row_common.cc): Y scaled by 0x0101 * yg >> 16,
-// U and V biased by 128 * coefficient, 6 fractional bits.
-inline void yuv_pixel(int y, int u, int v, uint8_t* rgb) {
-    const int ub = 113, ug = 22, vg = 46, vr = 90, yg = 16320;
-    uint32_t y1 = (uint32_t)(y * 0x0101 * yg) >> 16;
-    int b16 = (int)y1 + (u - 128) * ub + 32;
-    int g16 = (int)y1 - (u - 128) * ug - (v - 128) * vg + 32;
-    int r16 = (int)y1 + (v - 128) * vr + 32;
+// The conversion utils/av1.py's `conversion` picks as libavif 1.3.0 does
+// for PIL: its route (libyuv's fixed point with one set of YuvConstants, or
+// libavif's own float conversion), the chroma subsampling, the range, the
+// float route's mode and kr / kb (float bits), the constants' YG, YB, UB,
+// UG, VG and VR.
+enum { C_ROUTE, C_SSX, C_SSY, C_FULL, C_MODE, C_KR, C_KB, C_YG, C_YB, C_UB, C_UG, C_VG, C_VR, C_FIELDS };
+enum { ROUTE_LIBYUV, ROUTE_FLOAT };
+enum { MODE_YUV, MODE_IDENTITY, MODE_YCGCO };
+
+// libyuv's YuvPixel (row_common.cc): Y scaled by 0x0101 * YG >> 16, U and
+// V with the biases folded into the constants, 6 fractional bits.
+inline void yuv_pixel(const int32_t* c, int y, int u, int v, uint8_t* rgb) {
+    int yg = c[C_YG], yb = c[C_YB], ub = c[C_UB], ug = c[C_UG], vg = c[C_VG], vr = c[C_VR];
+    int y1 = (int)((uint32_t)(y * 0x0101 * yg) >> 16);
+    int b16 = y1 + u * ub - (ub * 128 - yb);
+    int g16 = y1 + (ug * 128 + vg * 128 + yb) - (u * ug + v * vg);
+    int r16 = y1 + v * vr - (vr * 128 - yb);
     rgb[0] = (uint8_t)clip1(r16 >> 6);
     rgb[1] = (uint8_t)clip1(g16 >> 6);
     rgb[2] = (uint8_t)clip1(b16 >> 6);
+}
+
+// libyuv's chroma upsampling of one output row into urow / vrow: none for
+// 4:4:4; 4:2:2 across only (ScaleRowUp2_Linear, 3:1); 4:2:0 the two
+// chroma rows nearest, 3:1, then across, 3:1 (ScaleRowUp2_Bilinear,
+// 9-3-3-1 / 16). The first and last columns take their chroma sample.
+void libyuv_chroma_row(const uint8_t* u, const uint8_t* v, int cs, int ssx, int ssy, int row, int w, int h,
+                       uint8_t* urow, uint8_t* vrow) {
+    int cw = (w + ssx) >> ssx, ch = (h + ssy) >> ssy;
+    int near = row, far = row;
+    if (ssy) {
+        int c0 = (row - 1) >> 1;
+        near = (row & 1) ? c0 : c0 + 1;
+        far = (row & 1) ? c0 + 1 : c0;
+        if (row == 0) near = far = 0;
+        near = std::min(std::max(near, 0), ch - 1);
+        far = std::min(std::max(far, 0), ch - 1);
+    }
+    const uint8_t* un = u + (size_t)near * cs;
+    const uint8_t* uf = u + (size_t)far * cs;
+    const uint8_t* vn = v + (size_t)near * cs;
+    const uint8_t* vf = v + (size_t)far * cs;
+    for (int x = 0; x < w; x++) {
+        if (!ssx) {
+            urow[x] = un[x];
+            vrow[x] = vn[x];
+            continue;
+        }
+        int cx = (x - 1) >> 1;
+        int nx = (x & 1) ? cx : cx + 1, fx = (x & 1) ? cx + 1 : cx;
+        if (x == 0) nx = fx = 0;
+        if (x == w - 1) nx = fx = (w - 1) >> 1;
+        nx = std::min(std::max(nx, 0), cw - 1);
+        fx = std::min(std::max(fx, 0), cw - 1);
+        if (ssy) {
+            urow[x] = (uint8_t)((9 * un[nx] + 3 * uf[nx] + 3 * un[fx] + uf[fx] + 8) >> 4);
+            vrow[x] = (uint8_t)((9 * vn[nx] + 3 * vf[nx] + 3 * vn[fx] + vf[fx] + 8) >> 4);
+        } else {
+            urow[x] = (uint8_t)((3 * un[nx] + un[fx] + 2) >> 2);
+            vrow[x] = (uint8_t)((3 * vn[nx] + vn[fx] + 2) >> 2);
+        }
+    }
+}
+
+// libavif's own conversion (reformat.c, avifImageYUVAnyToRGBAnySlow and
+// its 8-bit fast paths, which compute the same): float unorm tables, 4:2:x
+// chroma upsampled bilinearly on the floats (the nearest sample 9/16, the
+// adjacent column and row 3/16, the diagonal 1/16; 4:2:2 takes the row
+// itself as its adjacent row), then the mode's formulas, a clamp to [0, 1]
+// and 0.5 + x * 255 truncated. Built without contraction (no FMA), as each
+// operation rounds in libavif.
+void float_pixel_row(const int32_t* c, const float* tY, const float* tUV, const uint8_t* yr, const uint8_t* u,
+                     const uint8_t* v, int cs, int row, int w, int h, uint8_t* out) {
+    int ssx = c[C_SSX], ssy = c[C_SSY], mode = c[C_MODE];
+    float kr, kb;
+    std::memcpy(&kr, &c[C_KR], 4);
+    std::memcpy(&kb, &c[C_KB], 4);
+    float kg = 1.0f - kr - kb;
+    int uvJ = row >> ssy;
+    int adjRow = 0;
+    if (!(row == 0 || (row == h - 1 && (row % 2) != 0) || !ssy)) adjRow = (row % 2) != 0 ? 1 : -1;
+    for (int i = 0; i < w; i++) {
+        float Y = tY[yr[i]], R, G, B;
+        if (!u) {
+            R = G = B = Y;
+        } else {
+            float Cb, Cr;
+            int uvI = i >> ssx;
+            if (!ssx && !ssy) {
+                Cb = tUV[u[(size_t)uvJ * cs + uvI]];
+                Cr = tUV[v[(size_t)uvJ * cs + uvI]];
+            } else {
+                int adjCol = 0;
+                if (!(i == 0 || (i == w - 1 && (i % 2) != 0))) adjCol = (i % 2) != 0 ? 1 : -1;
+                std::ptrdiff_t p00 = (std::ptrdiff_t)uvJ * cs + uvI, p10 = p00 + adjCol,
+                               p01 = p00 + (std::ptrdiff_t)adjRow * cs, p11 = p01 + adjCol;
+                Cb = (tUV[u[p00]] * (9.0f / 16.0f)) + (tUV[u[p10]] * (3.0f / 16.0f)) +
+                     (tUV[u[p01]] * (3.0f / 16.0f)) + (tUV[u[p11]] * (1.0f / 16.0f));
+                Cr = (tUV[v[p00]] * (9.0f / 16.0f)) + (tUV[v[p10]] * (3.0f / 16.0f)) +
+                     (tUV[v[p01]] * (3.0f / 16.0f)) + (tUV[v[p11]] * (1.0f / 16.0f));
+            }
+            if (mode == MODE_IDENTITY) {
+                G = Y;
+                B = Cb;
+                R = Cr;
+            } else if (mode == MODE_YCGCO) {
+                float t = Y - Cb;
+                G = Y + Cb;
+                B = t - Cr;
+                R = t + Cr;
+            } else {
+                R = Y + (2 * (1 - kr)) * Cr;
+                B = Y + (2 * (1 - kb)) * Cb;
+                G = Y - ((2 * ((kr * (1 - kr) * Cr) + (kb * (1 - kb) * Cb))) / kg);
+            }
+        }
+        const float rgb[3] = {R, G, B};
+        for (int k = 0; k < 3; k++) {
+            float x = rgb[k] < 0.0f ? 0.0f : (rgb[k] > 1.0f ? 1.0f : rgb[k]);
+            out[(size_t)i * 4 + k] = (uint8_t)(0.5f + (x * 255.0f));
+        }
+    }
 }
 
 }  // namespace
@@ -3139,6 +3264,8 @@ int fd_av1_deblock(const int32_t* hdr, uint8_t* y, uint8_t* u, uint8_t* v, const
     d.miCols = hdr[H_MI_COLS];
     d.miRows = hdr[H_MI_ROWS];
     d.numPlanes = hdr[H_MONO] ? 1 : 3;
+    d.ssx = hdr[H_SSX];
+    d.ssy = hdr[H_SSY];
     d.width = hdr[H_WIDTH];
     d.height = hdr[H_HEIGHT];
     d.plane[0] = y;
@@ -3161,6 +3288,8 @@ int fd_av1_cdef(const int32_t* hdr, const uint8_t* y, const uint8_t* u, const ui
     c.miCols = hdr[H_MI_COLS];
     c.miRows = hdr[H_MI_ROWS];
     c.numPlanes = hdr[H_MONO] ? 1 : 3;
+    c.ssx = hdr[H_SSX];
+    c.ssy = hdr[H_SSY];
     if (c.numPlanes > 1 && !(u && v && du && dv)) return kArgs;
     c.src[0] = y;
     c.src[1] = u;
@@ -3184,6 +3313,8 @@ int fd_av1_lr(const int32_t* hdr, const uint8_t* py, const uint8_t* pu, const ui
     Restoration R;
     R.hdr = hdr;
     R.numPlanes = hdr[H_MONO] ? 1 : 3;
+    R.ssx = hdr[H_SSX];
+    R.ssy = hdr[H_SSY];
     if (R.numPlanes > 1 && !(pu && pv && cu && cv && du && dv)) return kArgs;
     R.width = hdr[H_WIDTH];
     R.height = hdr[H_HEIGHT];
@@ -3202,43 +3333,38 @@ int fd_av1_lr(const int32_t* hdr, const uint8_t* py, const uint8_t* pu, const ui
     return 0;
 }
 
-// Y (ys stride), U and V (cs stride, 4:2:0, or null for monochrome, read as
-// 128), alpha (as stride, or null: 255) of a w x h image to RGBA.
+// Y (ys stride), U and V (cs stride, or null for monochrome), alpha (as
+// stride, or null: 255) of a w x h image to RGBA by the conversion `conv`
+// (C_FIELDS values).
 int fd_av1_to_rgb(const uint8_t* y, int ys, const uint8_t* u, const uint8_t* v, int cs,
-                  const uint8_t* a, int as, int w, int h, uint8_t* out) {
-    if (!y || !out || w <= 0 || h <= 0) return kArgs;
-    int cw = (w + 1) >> 1, ch = (h + 1) >> 1;
+                  const uint8_t* a, int as, int w, int h, const int32_t* conv, uint8_t* out) {
+    if (!y || !out || !conv || w <= 0 || h <= 0 || (!u != !v)) return kArgs;
+    int route = conv[C_ROUTE], ssx = conv[C_SSX], ssy = conv[C_SSY], full = conv[C_FULL];
+    if ((route != ROUTE_LIBYUV && route != ROUTE_FLOAT) || ssx < 0 || ssx > 1 || ssy < 0 || ssy > ssx ||
+        conv[C_MODE] < MODE_YUV || conv[C_MODE] > MODE_YCGCO)
+        return kArgs;
+    float tY[256], tUV[256];
+    float biasY = full ? 0.0f : 16.0f, rangeY = full ? 255.0f : 219.0f, rangeUV = full ? 255.0f : 224.0f;
+    for (int cp = 0; cp < 256; cp++) {
+        tY[cp] = ((float)cp - biasY) / rangeY;
+        tUV[cp] = conv[C_MODE] == MODE_IDENTITY ? tY[cp] : ((float)cp - 128.0f) / rangeUV;
+    }
     std::vector<uint8_t> urow(w + 1), vrow(w + 1);
     for (int row = 0; row < h; row++) {
-        if (u && v) {
-            // bilinear 4:2:0 upsampling: the two chroma rows nearest, 3:1,
-            // then across, 3:1 (libyuv's ScaleRowUp2_Bilinear, 9-3-3-1 / 16)
-            int c0 = (row - 1) >> 1;
-            int near = (row & 1) ? c0 : c0 + 1, far = (row & 1) ? c0 + 1 : c0;
-            if (row == 0) near = far = 0;
-            near = std::min(std::max(near, 0), ch - 1);
-            far = std::min(std::max(far, 0), ch - 1);
-            const uint8_t* un = u + (size_t)near * cs;
-            const uint8_t* uf = u + (size_t)far * cs;
-            const uint8_t* vn = v + (size_t)near * cs;
-            const uint8_t* vf = v + (size_t)far * cs;
+        const uint8_t* yr = y + (size_t)row * ys;
+        uint8_t* o = out + (size_t)row * w * 4;
+        if (route == ROUTE_FLOAT) {
+            float_pixel_row(conv, tY, tUV, yr, u, v, cs, row, w, h, o);
+        } else if (!u) {  // libyuv's YPixel: grey
             for (int x = 0; x < w; x++) {
-                int cx = (x - 1) >> 1;
-                int nx = (x & 1) ? cx : cx + 1, fx = (x & 1) ? cx + 1 : cx;
-                if (x == 0) nx = fx = 0;
-                if (x == w - 1) nx = fx = (w - 1) >> 1;
-                nx = std::min(std::max(nx, 0), cw - 1);
-                fx = std::min(std::max(fx, 0), cw - 1);
-                urow[x] = (uint8_t)((9 * un[nx] + 3 * uf[nx] + 3 * un[fx] + uf[fx] + 8) >> 4);
-                vrow[x] = (uint8_t)((9 * vn[nx] + 3 * vf[nx] + 3 * vn[fx] + vf[fx] + 8) >> 4);
+                int y1 = (int)((uint32_t)(yr[x] * 0x0101 * conv[C_YG]) >> 16);
+                o[x * 4] = o[x * 4 + 1] = o[x * 4 + 2] = (uint8_t)clip1((y1 + conv[C_YB]) >> 6);
             }
+        } else {
+            libyuv_chroma_row(u, v, cs, ssx, ssy, row, w, h, urow.data(), vrow.data());
+            for (int x = 0; x < w; x++) yuv_pixel(conv, yr[x], urow[x], vrow[x], o + x * 4);
         }
-        for (int x = 0; x < w; x++) {
-            uint8_t* o = out + ((size_t)row * w + x) * 4;
-            int uu = u ? urow[x] : 128, vv = v ? vrow[x] : 128;
-            yuv_pixel(y[(size_t)row * ys + x], uu, vv, o);
-            o[3] = a ? a[(size_t)row * as + x] : 255;
-        }
+        for (int x = 0; x < w; x++) o[x * 4 + 3] = a ? a[(size_t)row * as + x] : 255;
     }
     return 0;
 }
@@ -3253,11 +3379,13 @@ int fd_av1_scale(const uint8_t* src, int ss, int sw, int sh, uint8_t* dst, int d
 
 // CDEF of one block from its window ((h + 4) x (w + 4) samples, -1
 // outside the frame): luma (plane 0, 8x8) searches its direction on the
-// window's centre, chroma (4x4) takes ydir; out gets w * h, dv the
+// window's centre, chroma (4x4, 4 wide and 8 tall for 4:2:2, 8x8 for
+// 4:4:4) maps ydir by its size; out gets w * h, dv the
 // direction and variance as the trace records them.
 int fd_av1_cdef_block(const int32_t* win, int w, int h, int plane, int pri, int sec, int damping, int ydir,
                       uint8_t* out, int32_t* dv) {
-    if (!win || !out || !dv || w != (plane ? 4 : 8) || h != w || pri < 0 || pri > 15 || sec < 0 || sec > 4 ||
+    if (!win || !out || !dv || (w != 4 && w != 8) || (h != 4 && h != 8) || (!plane && (w != 8 || h != 8)) ||
+        pri < 0 || pri > 15 || sec < 0 || sec > 4 ||
         damping < 2 || damping > 6 || ydir < -1 || ydir > 7)
         return kArgs;
     std::vector<int> v(win, win + (w + 4) * (h + 4));

@@ -1791,6 +1791,18 @@ AVIF_CDEF_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_s2_cdef.avif")
 AVIF_CDEF_FILE_REFERENCE = os.path.join(REFERENCE_DIR,
                                         "example_image_file_avif_cdef_1x_blocks8.npy")
 AVIF_CDEF_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_avif_cdef_480x270_blocks8.npy")
+# the fixture as PIL's AVIF at 4:4:4 (AV1 profile 1; avifenc's default
+# chroma), quality 75, speed 6, drawn in the image-file scene and on the
+# photo wall
+AVIF_444_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_444.avif")
+AVIF_444_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_avif_444_1x_blocks8.npy")
+AVIF_444_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_avif_444_480x270_blocks8.npy")
+# the fixture as PIL's AVIF at 4:2:2 (profile 2), speed 0 with CDEF (4:2:2's
+# CDEF direction map, Wiener and self-guided units), marked limited-range
+# BT.709 as camera and video files are
+AVIF_422_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_422_limited_cdef.avif")
+AVIF_422_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_avif_422_1x_blocks8.npy")
+AVIF_422_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_avif_422_480x270_blocks8.npy")
 
 
 def make_image_file_scene(w: float, h: float, image_id: int) -> Renders:

@@ -3,9 +3,11 @@ the container): the OBUs, the sequence header and the frame header of a
 shown key frame in Python, the tiles, the loop filter, CDEF and loop
 restoration in C++ (csrc/av1_decode.cpp, built by utils/image_lib.py),
 then YUV -> RGBA as libavif 1.3.0 converts it for PIL 12.1.0 (libyuv's
-full-range BT.601).
+fixed point where it has constants for the matrix and range, else
+libavif's own float conversion: `conversion`).
 
-Decoded: profile 0, 8-bit, 4:2:0 colour or monochrome (an alpha item),
+Decoded: profiles 0-2 at 8 bits, 4:2:0, 4:2:2 and 4:4:4 colour or
+monochrome (an alpha item),
 the reduced still-picture header or a full one with one shown key frame,
 uniform and non-uniform tiles, segmentation, delta q and delta lf,
 palettes, intra block copy (its vector stack, vectors and copies, the
@@ -14,9 +16,10 @@ intra, coded-lossless frames (WHT), CDEF (its 64x64 indices, the
 direction search, the primary and secondary taps) and loop restoration
 (Wiener and self-guided units, switchable or not, over stripes of 64
 luma rows). Refused with NotImplementedError naming AVIF and the
-feature: profiles 1 and 2 (4:4:4, 4:2:2), 10 and 12 bits, superres, film
-grain, and any frame that is not a shown key frame. Quantiser matrices
-(aom's `enable-qm`) are read. A malformed stream raises ValueError.
+feature: 10 and 12 bits, superres, film grain, and any frame that is not
+a shown key frame. Quantiser matrices (aom's `enable-qm`) are read. A
+malformed stream raises ValueError, as does a 4:2:2 partition whose
+chroma block has no size (dav1d rejects it).
 
 The C++ stages and their numpy twins here, the tests' reference (nothing
 on the load path uses the twins unless `plain` is asked for):
@@ -31,8 +34,8 @@ on the load path uses the twins unless `plain` is asked for):
   restoration unit's part of a stripe, from the window the C++ read;
 - scale_plain: libyuv's ScalePlane as libavif scales a frame to the size
   its item's ispe gives;
-- to_rgba_plain: libyuv's bilinear 4:2:0 upsampling and fixed-point
-  BT.601.
+- to_rgba_plain: libyuv's chroma upsampling (4:2:2 across, 4:2:0
+  bilinear) and fixed point, or libavif's float conversion.
 `decode(stream, plain=True)` decodes the tiles in C++ with a trace of each
 prediction, transform, loop filter, CDEF and restoration call, checks
 every traced call against its twin, and converts with the plain
@@ -53,7 +56,8 @@ NOT_PORTED = ("AVIF images with {} are not decoded by figdraw_tpu_torch ({}): no
               "(ROADMAP.md, module item 'Image formats other than PNG')")
 
 # the C++ entry points' error codes
-ERRORS = {-2: "bad arguments", -3: "a Golomb code past 20 bits"}
+ERRORS = {-2: "bad arguments", -3: "a Golomb code past 20 bits",
+          -5: "a partition whose 4:2:2 chroma block has no size (dav1d rejects it)"}
 SCALE_RATIO = -4  # fd_av1_scale: a 3/4 or 3/8 scale (not ported)
 
 # OBU types read (temporal delimiters, metadata and padding are skipped)
@@ -89,7 +93,9 @@ H_LR_SIZE = H_LR_TYPE + 3
 H_LR_ROWS = H_LR_SIZE + 3
 H_LR_COLS = H_LR_ROWS + 3
 H_LR_STRIDE = H_LR_COLS + 3
-H_SIZE = H_LR_STRIDE + 1
+# the chroma planes' subsampling across and down (1 for monochrome)
+H_SSX, H_SSY = H_LR_STRIDE + 1, H_LR_STRIDE + 2
+H_SIZE = H_SSY + 1
 RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE = range(4)
 REMAP_LR_TYPE = (RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER, RESTORE_SGRPROJ)
 # a restoration unit as fd_av1_tile writes it (L_* there): its type, the
@@ -243,10 +249,8 @@ def parse_sequence(payload: bytes) -> Sequence:
             s.decoder_model_present.append(present)
             if initial_delay and r.f(1):
                 r.f(4)
-    if s.profile == 1:
-        raise refuse("AV1 profile 1 (4:4:4 chroma)")
-    if s.profile != 0:
-        raise refuse(f"AV1 profile {s.profile} (4:2:2 chroma or 12-bit samples)")
+    if s.profile > 2:  # dav1d rejects the stream
+        raise ValueError(f"AV1: profile {s.profile}")
     wbits, hbits = r.f(4) + 1, r.f(4) + 1
     s.max_width, s.max_height = r.f(wbits) + 1, r.f(hbits) + 1
     s.wbits, s.hbits = wbits, hbits
@@ -287,16 +291,26 @@ def parse_sequence(payload: bytes) -> Sequence:
     high = r.f(1)
     if high:
         raise refuse("10- or 12-bit samples")
-    s.mono = r.f(1)
+    # color_config at 8 bits: profile 0 is 4:2:0 or monochrome, 1 is 4:4:4
+    # (never monochrome), 2 is 4:2:2 (its subsampling bits are 12-bit only)
+    s.mono = 0 if s.profile == 1 else r.f(1)
     s.primaries, s.transfer, s.matrix = 2, 2, 2
     if r.f(1):
         s.primaries, s.transfer, s.matrix = r.f(8), r.f(8), r.f(8)
+    s.ssx, s.ssy = (0, 0) if s.profile == 1 else ((1, 0) if s.profile == 2 else (1, 1))
+    s.separate_uv_dq = 0
     if s.mono:
+        s.ssx = s.ssy = 1
         s.full_range = r.f(1)
-        s.separate_uv_dq = 0
     else:
-        s.full_range = r.f(1)
-        r.f(2)  # chroma sample position (4:2:0 in profile 0)
+        if (s.primaries, s.transfer, s.matrix) == (1, 13, 0):  # sRGB: 4:4:4 full range, unread
+            if s.profile != 1:  # dav1d rejects it outside profile 1 at 8 bits
+                raise ValueError("AV1: sRGB identity colour outside profile 1")
+            s.full_range = 1
+        else:
+            s.full_range = r.f(1)
+            if s.ssx and s.ssy:
+                r.f(2)  # chroma sample position
         s.separate_uv_dq = r.f(1)
     if r.f(1):
         raise refuse("film grain")
@@ -307,9 +321,12 @@ class Frame:
     """A decoded frame: its planes (the padded decode buffers: Y, then U and
     V or None), their visible size, and the colour description."""
 
-    def __init__(self, planes, width, height, full_range, matrix, mono):
+    def __init__(self, planes, width, height, full_range, matrix, mono, ssx=1, ssy=1,
+                 primaries=2):
         self.planes, self.width, self.height = planes, width, height
         self.full_range, self.matrix, self.mono = full_range, matrix, mono
+        self.ssx, self.ssy = ssx, ssy  # the chroma planes' subsampling
+        self.primaries = primaries
         self.checked = None  # the stage calls checked against their twins (plain)
         self.mi = None  # the per-4x4 block info the tiles wrote (M_FIELDS int32 each)
         self.cdef = None  # each 64x64's CDEF index (-1: none read)
@@ -509,15 +526,15 @@ def parse_frame_header(r: BitReader, s: Sequence) -> dict:
                 if shift:
                     shift += r.f(1)
             size = 256 >> (2 - shift)
-            uv_shift = r.f(1) if any(lr_type[1:]) else 0  # 4:2:0 with chroma units
+            uv_shift = r.f(1) if s.ssx and s.ssy and any(lr_type[1:]) else 0  # 4:2:0 only
             lr_size = [size, size >> uv_shift, size >> uv_shift]
     units = [(0, 0)] * 3
     for p in range(3):
         if lr_type[p]:
-            ss = int(p > 0)
+            sy, sx = (s.ssy, s.ssx) if p else (0, 0)
             # count_units_in_frame of the plane's rows and columns
             units[p] = tuple(max((((n + ss) >> ss) + (lr_size[p] >> 1)) // lr_size[p], 1)
-                             for n in (height, width))
+                             for n, ss in ((height, sy), (width, sx)))
     # tx mode
     tx_mode = 0 if coded_lossless else (2 if r.f(1) else 1)
     reduced_tx_set = r.f(1)
@@ -546,6 +563,7 @@ def parse_frame_header(r: BitReader, s: Sequence) -> dict:
     hdr[H_LR_ROWS:H_LR_ROWS + 3] = [u[0] for u in units]
     hdr[H_LR_COLS:H_LR_COLS + 3] = [u[1] for u in units]
     hdr[H_LR_STRIDE] = max(1, max(a * b for a, b in units))
+    hdr[H_SSX], hdr[H_SSY] = s.ssx, s.ssy
     return {"hdr": hdr, "col_starts": col_starts, "row_starts": row_starts,
             "cols_log2": cols_log2, "rows_log2": rows_log2, "tile_size_bytes": tile_size_bytes}
 
@@ -615,9 +633,9 @@ def decode(stream: bytes, plain: bool = False) -> Frame:
     y = np.zeros((ph, pw), np.uint8)
     u = v = None
     if not seq.mono:
-        u = np.zeros((ph // 2, pw // 2), np.uint8)
-        v = np.zeros((ph // 2, pw // 2), np.uint8)
-    hdr[H_STRIDE_Y], hdr[H_STRIDE_UV] = pw, pw // 2
+        u = np.zeros((ph >> seq.ssy, pw >> seq.ssx), np.uint8)
+        v = np.zeros((ph >> seq.ssy, pw >> seq.ssx), np.uint8)
+    hdr[H_STRIDE_Y], hdr[H_STRIDE_UV] = pw, pw >> seq.ssx
     mi = np.zeros((mi_rows, mi_cols, M_FIELDS), np.int32)
     cdef = np.full(((mi_rows + 15) >> 4, (mi_cols + 15) >> 4), -1, np.int32)
     lr = np.zeros((3, int(hdr[H_LR_STRIDE]), L_FIELDS), np.int32)
@@ -663,7 +681,7 @@ def decode(stream: bytes, plain: bool = False) -> Frame:
         planes = out
     t3 = time.perf_counter()
     frame = Frame(planes, int(hdr[H_WIDTH]), int(hdr[H_HEIGHT]), seq.full_range, seq.matrix,
-                  seq.mono)
+                  seq.mono, seq.ssx, seq.ssy, seq.primaries)
     frame.mi, frame.cdef, frame.lr = mi, cdef, lr
     frame.ms = {"tiles + loop filter": (t1 - t0) * 1e3, "cdef": (t2 - t1) * 1e3,
                 "loop restoration": (t3 - t2) * 1e3}
@@ -692,13 +710,89 @@ def scale(plane: np.ndarray, width: int, height: int, dw: int, dh: int,
     return out
 
 
-def to_rgba(frame: Frame, alpha, full_range: int, matrix: int, plain: bool = False) -> np.ndarray:
+# the conversion as fd_av1_to_rgb takes it (C_* there)
+(C_ROUTE, C_SSX, C_SSY, C_FULL, C_MODE, C_KR, C_KB, C_YG, C_YB, C_UB, C_UG, C_VG, C_VR,
+ C_FIELDS) = range(14)
+ROUTE_LIBYUV, ROUTE_FLOAT = 0, 1
+MODE_YUV, MODE_IDENTITY, MODE_YCGCO = 0, 1, 2
+# libyuv's YuvConstants (row_common.cc) that libavif 1.3.0 picks: YG, YB,
+# UB, UG, VG, VR of full-range BT.601 (JPEG), BT.709 and BT.2020, then of
+# the limited ranges (UB capped at 128 there)
+LIBYUV_CONSTANTS = {
+    (1, "601"): (16320, 32, 113, 22, 46, 90), (1, "709"): (16320, 32, 119, 12, 30, 101),
+    (1, "2020"): (16320, 32, 120, 11, 37, 94), (0, "601"): (18997, -1160, 128, 25, 52, 102),
+    (0, "709"): (18997, -1160, 128, 14, 34, 115), (0, "2020"): (19003, -1160, 128, 12, 42, 107)}
+# the matrices libyuv converts (getLibYUVConstants): BT.709, BT.601 (2, 5, 6)
+# and BT.2020 NCL; 12 (chroma-derived NCL) by its primaries
+LIBYUV_MATRIX = {1: "709", 2: "601", 5: "601", 6: "601", 9: "2020"}
+LIBYUV_PRIMARIES = {1: "709", 2: "709", 5: "601", 6: "601", 9: "2020"}
+# the matrices libavif converts at 8 bits (0 identity in 4:4:4 and 4:0:0
+# only, 8 YCgCo at full range only; 15 takes its default kr and kb); its
+# own kr, kb of the matrices that reach its float conversion
+CONVERTED = {0, 1, 2, 4, 5, 6, 7, 8, 9, 12, 15}
+KR_KB = {4: (0.30, 0.11), 7: (0.212, 0.087)}
+KR_KB_DEFAULT = (0.299, 0.114)
+# libavif's colour primaries (avifColorPrimariesGetValues: x, y of red,
+# green, blue and white), BT.709's for any value not listed
+PRIMARIES_XY = {
+    4: (0.67, 0.33, 0.21, 0.71, 0.14, 0.08, 0.310, 0.316),
+    5: (0.64, 0.33, 0.29, 0.60, 0.15, 0.06, 0.3127, 0.3290),
+    6: (0.630, 0.340, 0.310, 0.595, 0.155, 0.070, 0.3127, 0.3290),
+    7: (0.630, 0.340, 0.310, 0.595, 0.155, 0.070, 0.3127, 0.3290),
+    8: (0.681, 0.319, 0.243, 0.692, 0.145, 0.049, 0.310, 0.316),
+    9: (0.708, 0.292, 0.170, 0.797, 0.131, 0.046, 0.3127, 0.3290),
+    10: (1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.3333, 0.3333),
+    11: (0.680, 0.320, 0.265, 0.690, 0.150, 0.060, 0.314, 0.351),
+    12: (0.680, 0.320, 0.265, 0.690, 0.150, 0.060, 0.3127, 0.3290),
+    22: (0.630, 0.340, 0.295, 0.605, 0.155, 0.077, 0.3127, 0.3290)}
+BT709_XY = (0.64, 0.33, 0.3, 0.6, 0.15, 0.06, 0.3127, 0.329)
+
+
+def kr_kb_from_primaries(primaries: int) -> tuple:
+    """kr and kb (float32) of matrix 12 from the primaries, as libavif's
+    calcYUVInfoFromCICP computes them (H.273 equations 32-37)."""
+    rX, rY, gX, gY, bX, bY, wX, wY = (np.float32(v) for v in PRIMARIES_XY.get(primaries, BT709_XY))
+    one = np.float32(1)
+    rZ, gZ, bZ, wZ = one - (rX + rY), one - (gX + gY), one - (bX + bY), one - (wX + wY)
+    den = wY * (rX * (gY * bZ - bY * gZ) + gX * (bY * rZ - rY * bZ) + bX * (rY * gZ - gY * rZ))
+    kr = (rY * (wX * (gY * bZ - bY * gZ) + wY * (bX * gZ - gX * bZ) + wZ * (gX * bY - bX * gY))) / den
+    kb = (bY * (wX * (rY * gZ - gY * rZ) + wY * (gX * rZ - rX * gZ) + wZ * (rX * gY - gX * rY))) / den
+    return np.float32(kr), np.float32(kb)
+
+
+def conversion(mono: int, ssx: int, ssy: int, full_range: int, matrix: int, primaries: int,
+               alpha: bool) -> np.ndarray:
+    """The YUV -> RGB conversion libavif 1.3.0's avifImageYUVToRGB makes for
+    PIL (RGBA where the image has alpha, else RGB) as fd_av1_to_rgb takes
+    it: libyuv's fixed point where getLibYUVConstants finds constants
+    (colour, and 4:0:0 at limited range with alpha), else libavif's float
+    conversion. Raises ValueError where libavif fails ("Reformat failed"
+    in PIL)."""
+    if (matrix not in CONVERTED or (matrix == 8 and not full_range)
+            or (matrix == 0 and not mono and (ssx or ssy))):
+        raise ValueError(f"AVIF: libavif converts no {'full' if full_range else 'limited'}-range "
+                         f"YUV of matrix coefficients {matrix} here (Reformat failed)")
+    conv = np.zeros(C_FIELDS, np.int32)
+    conv[C_SSX], conv[C_SSY], conv[C_FULL] = ssx, ssy, int(bool(full_range))
+    m = 6 if (mono and matrix == 0) else matrix  # libavif's BT.601 for 4:0:0 identity
+    family = LIBYUV_PRIMARIES.get(primaries) if m == 12 else LIBYUV_MATRIX.get(m)
+    if family and (not mono or (alpha and not full_range)):
+        conv[C_ROUTE] = ROUTE_LIBYUV
+        conv[C_YG:C_VR + 1] = LIBYUV_CONSTANTS[(int(bool(full_range)), family)]
+        return conv
+    conv[C_ROUTE] = ROUTE_FLOAT
+    conv[C_MODE] = {0: MODE_IDENTITY, 8: MODE_YCGCO}.get(matrix, MODE_YUV)
+    kr, kb = kr_kb_from_primaries(primaries) if matrix == 12 else KR_KB.get(matrix, KR_KB_DEFAULT)
+    conv[C_KR:C_KB + 1] = np.array([kr, kb], np.float32).view(np.int32)
+    return conv
+
+
+def to_rgba(frame: Frame, alpha, full_range: int, matrix: int, primaries: int = 2,
+            plain: bool = False) -> np.ndarray:
     """A decoded colour frame (and alpha plane) to RGBA as libavif converts
     it for PIL."""
-    if not full_range:
-        raise refuse("limited-range colour")
-    if not frame.mono and matrix not in (2, 5, 6):  # BT.601, which libavif reads 2 as
-        raise refuse(f"matrix coefficients {matrix}")
+    conv = conversion(frame.mono, frame.ssx, frame.ssy, full_range, matrix, primaries,
+                      alpha is not None)
     w, h = frame.width, frame.height
     y, u, v = frame.planes
     out = np.zeros((h, w, 4), np.uint8)
@@ -709,11 +803,12 @@ def to_rgba(frame: Frame, alpha, full_range: int, matrix: int, plain: bool = Fal
                            v.ctypes.data if v is not None else null,
                            u.shape[1] if u is not None else 0,
                            a.ctypes.data if a is not None else null,
-                           a.shape[1] if a is not None else 0, w, h, out.ctypes.data)
+                           a.shape[1] if a is not None else 0, w, h, conv.ctypes.data,
+                           out.ctypes.data)
     if rc < 0:
         raise ValueError(f"AV1: {ERRORS.get(rc, rc)}")
     if plain:
-        want = to_rgba_plain(y, u, v, a, w, h)
+        want = to_rgba_plain(y, u, v, a, w, h, conv)
         if not np.array_equal(want, out):
             raise RuntimeError("fd_av1_to_rgb differs from to_rgba_plain")
     return out
@@ -1377,39 +1472,92 @@ def scale_plain(src: np.ndarray, dw: int, dh: int):
     return out.astype(np.uint8)
 
 
-def to_rgba_plain(y, u, v, alpha, w: int, h: int) -> np.ndarray:
-    """libyuv's bilinear 4:2:0 upsampling and full-range BT.601 fixed point
-    (fd_av1_to_rgb): planes as decoded (padded), alpha h x w or None."""
-    yy = y[:h, :w].astype(np.int64)
-    if u is not None:
-        ch, cw = (h + 1) >> 1, (w + 1) >> 1
-        rows = np.arange(h)
-        c0 = (rows - 1) >> 1
-        near = np.where(rows & 1, c0, c0 + 1)
-        far = np.where(rows & 1, c0 + 1, c0)
-        near[0] = far[0] = 0
-        near, far = np.clip(near, 0, ch - 1), np.clip(far, 0, ch - 1)
-        cols = np.arange(w)
-        cx = (cols - 1) >> 1
-        nx = np.where(cols & 1, cx, cx + 1)
-        fx = np.where(cols & 1, cx + 1, cx)
-        nx[0] = fx[0] = 0
-        nx[w - 1] = fx[w - 1] = (w - 1) >> 1
-        nx, fx = np.clip(nx, 0, cw - 1), np.clip(fx, 0, cw - 1)
+def _libyuv_chroma(c, ssx: int, ssy: int, w: int, h: int):
+    """libyuv's chroma upsampling to h x w: none (4:4:4), across 3:1
+    (4:2:2), the nearest rows 3:1 then across 3:1 (4:2:0)."""
+    c = c.astype(np.int64)
+    if not ssx:
+        return c[:h, :w]
+    cw = (w + 1) >> 1
+    cols = np.arange(w)
+    cx = (cols - 1) >> 1
+    nx = np.where(cols & 1, cx, cx + 1)
+    fx = np.where(cols & 1, cx + 1, cx)
+    nx[0] = fx[0] = 0
+    nx[w - 1] = fx[w - 1] = (w - 1) >> 1
+    nx, fx = np.clip(nx, 0, cw - 1), np.clip(fx, 0, cw - 1)
+    if not ssy:
+        c = c[:h]
+        return (3 * c[:, nx] + c[:, fx] + 2) >> 2
+    ch = (h + 1) >> 1
+    rows = np.arange(h)
+    c0 = (rows - 1) >> 1
+    near = np.where(rows & 1, c0, c0 + 1)
+    far = np.where(rows & 1, c0 + 1, c0)
+    near[0] = far[0] = 0
+    near, far = np.clip(near, 0, ch - 1), np.clip(far, 0, ch - 1)
+    return (9 * c[near][:, nx] + 3 * c[far][:, nx] + 3 * c[near][:, fx] + c[far][:, fx] + 8) >> 4
 
-        def up(c):
-            c = c.astype(np.int64)
-            return (9 * c[near][:, nx] + 3 * c[far][:, nx] + 3 * c[near][:, fx]
-                    + c[far][:, fx] + 8) >> 4
-        uu, vv = up(u) - 128, up(v) - 128
-    else:
-        uu = vv = np.zeros_like(yy)
-    y1 = (yy * 0x0101 * 16320) >> 16
-    r = (y1 + vv * 90 + 32) >> 6
-    g = (y1 - uu * 22 - vv * 46 + 32) >> 6
-    b = (y1 + uu * 113 + 32) >> 6
+
+def _float_chroma(t, c, ssx: int, ssy: int, w: int, h: int):
+    """libavif's float chroma: the table's values, 4:2:x upsampled on the
+    floats (9/16 nearest, 3/16 the adjacent column and row, 1/16 the
+    diagonal; 4:2:2's adjacent row is its own)."""
+    if not ssx and not ssy:
+        return t[c[:h, :w]]
+    f32 = np.float32
+    i, j = np.arange(w), np.arange(h)
+    ci, cj = i >> ssx, j >> ssy
+    adjc = np.where((i == 0) | ((i == w - 1) & (i % 2 != 0)), 0, np.where(i % 2 != 0, 1, -1))
+    adjr = np.where((j == 0) | ((j == h - 1) & (j % 2 != 0)) | (not ssy), 0,
+                    np.where(j % 2 != 0, 1, -1))
+    c00, c10 = c[cj][:, ci], c[cj][:, ci + adjc]
+    c01, c11 = c[cj + adjr][:, ci], c[cj + adjr][:, ci + adjc]
+    return (((t[c00] * f32(9 / 16)) + (t[c10] * f32(3 / 16))) + (t[c01] * f32(3 / 16))
+            + (t[c11] * f32(1 / 16)))
+
+
+def to_rgba_plain(y, u, v, alpha, w: int, h: int, conv) -> np.ndarray:
+    """fd_av1_to_rgb's twin: planes as decoded (padded), alpha h x w or
+    None, `conv` from conversion()."""
+    conv = np.asarray(conv)
+    ssx, ssy, full = int(conv[C_SSX]), int(conv[C_SSY]), int(conv[C_FULL])
     out = np.zeros((h, w, 4), np.uint8)
-    out[..., 0], out[..., 1], out[..., 2] = (np.clip(c, 0, 255) for c in (r, g, b))
+    if conv[C_ROUTE] == ROUTE_LIBYUV:
+        yg, yb, ub, ug, vg, vr = (int(x) for x in conv[C_YG:C_VR + 1])
+        y1 = (y[:h, :w].astype(np.int64) * 0x0101 * yg) >> 16
+        if u is None:
+            rgb = [(y1 + yb) >> 6] * 3
+        else:
+            uu, vv = _libyuv_chroma(u, ssx, ssy, w, h), _libyuv_chroma(v, ssx, ssy, w, h)
+            rgb = [(y1 + vv * vr - (vr * 128 - yb)) >> 6,
+                   (y1 + (ug * 128 + vg * 128 + yb) - (uu * ug + vv * vg)) >> 6,
+                   (y1 + uu * ub - (ub * 128 - yb)) >> 6]
+        for k in range(3):
+            out[..., k] = np.clip(rgb[k], 0, 255)
+    else:
+        f32 = np.float32
+        kr, kb = conv[C_KR:C_KB + 1].astype(np.int32).view(np.float32)
+        kg = f32(1) - kr - kb
+        cp = np.arange(256, dtype=f32)
+        ty = (cp - f32(0 if full else 16)) / f32(255 if full else 219)
+        tuv = ty if conv[C_MODE] == MODE_IDENTITY else (cp - f32(128)) / f32(255 if full else 224)
+        Y = ty[y[:h, :w]]
+        if u is None:
+            R = G = B = Y
+        else:
+            Cb, Cr = _float_chroma(tuv, u, ssx, ssy, w, h), _float_chroma(tuv, v, ssx, ssy, w, h)
+            if conv[C_MODE] == MODE_IDENTITY:
+                G, B, R = Y, Cb, Cr
+            elif conv[C_MODE] == MODE_YCGCO:
+                t = Y - Cb
+                G, B, R = Y + Cb, t - Cr, t + Cr
+            else:
+                R = Y + (f32(2) * (f32(1) - kr)) * Cr
+                B = Y + (f32(2) * (f32(1) - kb)) * Cb
+                G = Y - ((f32(2) * ((kr * (f32(1) - kr) * Cr) + (kb * (f32(1) - kb) * Cb))) / kg)
+        for k, c in enumerate((R, G, B)):
+            out[..., k] = (f32(0.5) + np.clip(c, f32(0), f32(1)) * f32(255)).astype(np.uint8)
     out[..., 3] = 255 if alpha is None else alpha[:h, :w]
     return out
 
@@ -1450,9 +1598,10 @@ def cdef_block_plain(win: np.ndarray, plane: int, pri: int, sec: int, damping: i
     """CDEF (7.15) of one block from its window: (h + 4, w + 4) samples, the
     block at (2, 2), -1 outside the frame. Luma searches its direction
     (ydir is ignored) and adjusts `pri` by the variance; chroma takes the
-    luma direction `ydir`. Returns (direction, variance, filtered h x w):
-    for luma the search's direction and variance, for chroma the direction
-    used and 0."""
+    luma direction `ydir` through Cdef_Uv_Dir of its subsampling, which
+    its size gives (8 >> ssx wide, 8 >> ssy tall). Returns (direction,
+    variance, filtered h x w): for luma the search's direction and
+    variance, for chroma the direction used and 0."""
     win = win.astype(np.int64)
     h, w = win.shape[0] - 4, win.shape[1] - 4
     if plane == 0:
@@ -1463,7 +1612,7 @@ def cdef_block_plain(win: np.ndarray, plane: int, pri: int, sec: int, damping: i
         result = ydir
     else:
         var = 0
-        direction = int(T.CDEF_UV_DIR[1, 1, ydir]) if pri else 0
+        direction = int(T.CDEF_UV_DIR[int(w == 4), int(h == 4), ydir]) if pri else 0
         result = direction
     x = win[2:2 + h, 2:2 + w]
     total = np.zeros_like(x)

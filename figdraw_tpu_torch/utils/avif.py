@@ -15,7 +15,9 @@ file, and 1, `idat`, several extents joined in order), `iinf` / `infe`
 15-bit indices). The properties read are `ispe` (size), `pixi`, `av1C`
 (profile, bit depth, monochrome, subsampling), `colr` (`nclx`; an ICC
 `prof` or `rICC` is ignored, as PIL leaves the pixels alone) and `auxC`
-(the alpha URN). PIL 12.1.0 applies neither `irot` nor `imir` to the
+(the alpha URN). libavif holds pixi's depths to av1C's and neither to
+the AV1 sequence header, nor av1C's profile, monochrome and subsampling
+fields: the stream decides them. PIL 12.1.0 applies neither `irot` nor `imir` to the
 pixels (it reports the orientation as EXIF for ImageOps.exif_transpose),
 so they are read and left unapplied here too.
 
@@ -23,13 +25,16 @@ utils/av1.py decodes the items' AV1 streams. An item whose AV1 frame has
 another size than its `ispe` is scaled to ispe's size before the colour
 conversion, plane by plane (the chroma planes to half of it, rounded up),
 as libavif 1.3.0 scales it (avifImageScale over libyuv's ScalePlane,
-av1.scale). Refused with NotImplementedError naming AVIF, the feature and
+av1.scale). The colr box's nclx (else the sequence header's colour
+description) picks the YUV -> RGB conversion (av1.conversion); a matrix
+and range libavif does not convert raise ValueError, as PIL raises. Refused with NotImplementedError naming AVIF, the feature and
 the ROADMAP item: a derived primary item (`grid`, `iovl`), an image
 sequence (`avis`, a `moov` track, which PIL reads instead of the primary
 item), `clap` cropping, `a1op` / `lsel` layer selection, a premultiplied
-alpha (`prem`), a scale to ispe by libyuv's 3/4 or 3/8 filters, and the
-AV1 features utils/av1.py refuses (profiles 1 and 2, 10 and 12 bits,
-superres, film grain). A truncated or malformed file raises ValueError.
+alpha (`prem`), a limited-range alpha item, a scale to ispe by libyuv's
+3/4 or 3/8 filters, and the AV1 features utils/av1.py refuses (10 and 12
+bits, superres, film grain). A truncated or malformed file raises
+ValueError.
 """
 
 from __future__ import annotations
@@ -303,17 +308,28 @@ def parse(data: bytes) -> Still:
             raise ValueError(f"AVIF: an ispe of {w}x{h}, past libavif's or PIL's limits")
         return w, h
 
+    def pixi(span, config: tuple) -> None:
+        """libavif's checks of pixi: one to four depths, all equal, equal to
+        av1C's (12 for twelve_bit, else 10 for high_bitdepth, else 8; the
+        stream's own depth is not held to them)."""
+        if span is None:
+            return
+        xc = _Cursor(data, *span)
+        xc.full()
+        count = xc.uint(1)
+        depths = [xc.uint(1) for _ in range(count)]
+        if not 0 < count <= 4 or any(d != depths[0] for d in depths):
+            raise ValueError(f"AVIF: pixi depths {depths}, which libavif does not read")
+        want = 12 if config[2] else (10 if config[1] else 8)
+        if depths[0] != want:
+            raise ValueError(f"AVIF: pixi depths {depths} differ from av1C's {want}")
+
     if unsupported(item):
         raise ValueError("AVIF: the primary item has an unsupported essential property")
     p = item_props(item)
     out.width, out.height = ispe(p.get(b"ispe"))
     out.av1c = av1c(p.get(b"av1C"))
-    if b"pixi" in p:
-        xc = _Cursor(data, *p[b"pixi"])
-        xc.full()
-        depths = [xc.uint(1) for _ in range(xc.uint(1))]
-        if any(d != 8 for d in depths):
-            raise ValueError(f"AVIF: pixi depths {depths} for an 8-bit AV1 item")
+    pixi(p.get(b"pixi"), out.av1c)
     if b"colr" in p:
         ps, pe = p[b"colr"]
         if data[ps:ps + 4] == b"nclx" and pe - ps >= 11:
@@ -333,8 +349,12 @@ def parse(data: bytes) -> Still:
         if rk != b"auxl" or primary not in to or frm not in items:
             continue
         alpha = items[frm]
-        if unsupported(alpha):  # libavif skips the item: no alpha
+        # libavif skips an item with an unknown essential property or of a
+        # type it does not decode (avifDecoderItemShouldBeSkipped): no alpha
+        if unsupported(alpha) or alpha.type not in (b"av01", b"grid"):
             continue
+        if alpha.type == b"grid":
+            raise refuse("derived images (grid)")
         ap = item_props(alpha)
         aux = ap.get(b"auxC")
         if aux is None:
@@ -343,9 +363,8 @@ def parse(data: bytes) -> Still:
         ac.full()
         if ac.cstring() not in ALPHA_URNS:
             continue
-        if alpha.type != b"av01":
-            raise ValueError(f"AVIF: alpha item of type {alpha.type!r}")
         out.alpha_av1c = av1c(ap.get(b"av1C"))
+        pixi(ap.get(b"pixi"), out.alpha_av1c)
         out.alpha_size = ispe(ap.get(b"ispe"))
         out.alpha = _item_bytes(data, alpha, idat)
         break
@@ -355,7 +374,7 @@ def parse(data: bytes) -> Still:
 def to_ispe(frame: av1.Frame, width: int, height: int, plain: bool = False) -> av1.Frame:
     """The frame itself where its size is the item's ispe, else a frame of
     its planes scaled to it as libavif scales them (each plane to its own
-    size: 4:2:0 chroma to half of ispe's, rounded up)."""
+    size: each chroma plane by its own subsampling, rounded up)."""
     if (frame.width, frame.height) == (width, height):
         return frame
     planes = []
@@ -363,10 +382,11 @@ def to_ispe(frame: av1.Frame, width: int, height: int, plain: bool = False) -> a
         if p is None:
             planes.append(None)
             continue
-        sub = int(k > 0)
-        planes.append(av1.scale(p, (frame.width + sub) >> sub, (frame.height + sub) >> sub,
-                                (width + sub) >> sub, (height + sub) >> sub, plain=plain))
-    out = av1.Frame(tuple(planes), width, height, frame.full_range, frame.matrix, frame.mono)
+        sx, sy = (frame.ssx, frame.ssy) if k else (0, 0)
+        planes.append(av1.scale(p, (frame.width + sx) >> sx, (frame.height + sy) >> sy,
+                                (width + sx) >> sx, (height + sy) >> sy, plain=plain))
+    out = av1.Frame(tuple(planes), width, height, frame.full_range, frame.matrix, frame.mono,
+                    frame.ssx, frame.ssy, frame.primaries)
     out.mi, out.cdef, out.lr, out.ms = frame.mi, frame.cdef, frame.lr, frame.ms
     return out
 
@@ -384,6 +404,7 @@ def decode_avif(data: bytes, plain: bool = False) -> np.ndarray:
         if not a.full_range:
             raise refuse("limited-range alpha")
         alpha = a.planes[0][: a.height, : a.width]
-    full = still.nclx[3] if still.nclx else color.full_range
-    matrix = still.nclx[2] if still.nclx else color.matrix
-    return av1.to_rgba(color, alpha, full, matrix, plain=plain)
+    # the colr box's nclx where there is one, else the sequence header's
+    primaries, _transfer, matrix, full = still.nclx or (color.primaries, 2, color.matrix,
+                                                        color.full_range)
+    return av1.to_rgba(color, alpha, full, matrix, primaries, plain=plain)

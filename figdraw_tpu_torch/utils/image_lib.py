@@ -61,7 +61,7 @@ _AV1_SIGNATURES = {
     "fd_av1_deblock": ([_P, _P, _P, _P, _P], _I),
     "fd_av1_cdef": ([_P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
     "fd_av1_lr": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
-    "fd_av1_to_rgb": ([_P, _I, _P, _P, _I, _P, _I, _I, _I, _P], _I),
+    "fd_av1_to_rgb": ([_P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P], _I),
     "fd_av1_scale": ([_P, _I, _I, _I, _P, _I, _I, _I], _I),
     "fd_av1_cdef_block": ([_P, _I, _I, _I, _I, _I, _I, _I, _P, _P], _I),
     "fd_av1_wiener": ([_P, _I, _I, _P, _P], _I),
@@ -127,6 +127,9 @@ def load_av1() -> ctypes.CDLL:
     global _av1
     with _lock:
         if _av1 is None:
-            _av1 = _bind(gxx.build(_AV1_SRC, "figdraw_av1_decode", _FLAGS, _AV1_DEPS),
+            # no contraction into FMA: the float YUV -> RGB rounds each
+            # operation, as libavif's does
+            _av1 = _bind(gxx.build(_AV1_SRC, "figdraw_av1_decode", _FLAGS + ("-ffp-contract=off",),
+                                   _AV1_DEPS),
                          _AV1_SIGNATURES)
         return _av1

@@ -9,7 +9,9 @@ copy; with aom's CDEF on: the crop at speeds 0-8 and qualities 30-95,
 257x129 whose restoration units and 8x8s meet the frame's edges, the
 alpha item, 4:0:0; loop restoration at speeds 0-4) equal byte for byte
 or refused with the feature named (film grain); the headers of those
-files; the constant tables (tools/make_av1_tables.py) pinned by sha256
+files (4:4:4, 4:2:2 and limited range since they were ported:
+tests/test_torch_av1_chroma.py); the constant tables
+(tools/make_av1_tables.py) pinned by sha256
 and found whole in libaom's binary; each C++ stage (the inverse
 transforms, the intra predictors with the edge filter and upsampling,
 CfL, filter intra, one loop-filter position at each length, YUV -> RGB)
@@ -32,7 +34,9 @@ import pytest
 import torch
 from PIL import Image
 
-from figdraw_tpu_torch.scenes import AVIF_CDEF_FIXTURE, AVIF_FIXTURE, IMAGE_FIXTURE
+from figdraw_tpu_torch.scenes import (
+    AVIF_422_FIXTURE, AVIF_444_FIXTURE, AVIF_CDEF_FIXTURE, AVIF_FIXTURE, IMAGE_FIXTURE,
+)
 from figdraw_tpu_torch.utils import av1, av1_tables, avif, image_lib, imagefile
 from torch_reference import REPO
 
@@ -312,14 +316,19 @@ def test_tiles_are_read():
     assert len(fh["col_starts"]) - 1 == 2 and len(fh["row_starts"]) - 1 == 2
 
 
-@pytest.mark.parametrize("kw, feature", [
-    (dict(subsampling="4:4:4"), "AV1 profile 1"),
-    (dict(subsampling="4:2:2"), "AV1 profile 2"),
-    (dict(range="limited"), "limited-range colour"),
+@pytest.mark.parametrize("kw, profile", [
+    (dict(subsampling="4:4:4"), 1),
+    (dict(subsampling="4:2:2"), 2),
+    (dict(range="limited"), 0),
 ])
-def test_header_features_outside_the_slice_are_refused(kw, feature):
-    with pytest.raises(NotImplementedError, match=rf"AVIF images with {feature}"):
-        imagefile.decode_image(_pil_avif(np.ascontiguousarray(_fixture()[:47, :61]), **kw))
+def test_header_features_once_refused_equal_pil(kw, profile):
+    """4:4:4 (AV1 profile 1), 4:2:2 (profile 2) and limited range, refused
+    before they were ported (tests/test_torch_av1_chroma.py holds them
+    whole): decoded equal to PIL byte for byte."""
+    data = _pil_avif(np.ascontiguousarray(_fixture()[:47, :61]), **kw)
+    seq, _fh = _headers(data)
+    assert seq.profile == profile
+    np.testing.assert_array_equal(imagefile.decode_image(data), _pil(data))
 
 
 def test_obus_and_leb128():
@@ -556,11 +565,15 @@ def test_yuv_to_rgb_equals_its_twin(shape):
     v = pad(rng.integers(0, 256, u.shape[:1] and ((h + 1) // 2, (w + 1) // 2), np.uint8))
     a = rng.integers(0, 256, (h, w), np.uint8)
     for alpha in (None, a):
-        out = np.zeros((h, w, 4), np.uint8)
-        ap = alpha.ctypes.data if alpha is not None else ctypes.c_void_p(0)
-        lib.fd_av1_to_rgb(y.ctypes.data, y.shape[1], u.ctypes.data, v.ctypes.data, u.shape[1],
-                          ap, w, w, h, out.ctypes.data)
-        np.testing.assert_array_equal(out, av1.to_rgba_plain(y, u, v, alpha, w, h))
+        # 4:2:0 full-range BT.601 (libyuv's), limited-range BT.709 (libyuv's)
+        # and SMPTE 240 (libavif's float conversion)
+        for full, matrix in ((1, 6), (0, 1), (1, 7)):
+            conv = av1.conversion(0, 1, 1, full, matrix, 1, alpha is not None)
+            out = np.zeros((h, w, 4), np.uint8)
+            ap = alpha.ctypes.data if alpha is not None else ctypes.c_void_p(0)
+            lib.fd_av1_to_rgb(y.ctypes.data, y.shape[1], u.ctypes.data, v.ctypes.data, u.shape[1],
+                              ap, w, w, h, conv.ctypes.data, out.ctypes.data)
+            np.testing.assert_array_equal(out, av1.to_rgba_plain(y, u, v, alpha, w, h, conv))
 
 
 def test_flat_colours_convert_as_libyuv():
@@ -624,21 +637,29 @@ def _clamped_coefficients(data: bytes) -> int:
     return count
 
 
-# open (ROADMAP.md §3): tools/avif_fuzz_agreement.py --corrupt 200 3 cases
-# that decode and differ from PIL
-OPEN_CORRUPT = [(0, 78), (2, 26), (2, 74), (2, 110)]
+# tools/avif_fuzz_agreement.py --corrupt 200 3 cases that differ from PIL
+# where PIL's dav1d runs its SSSE3 or AVX2 transforms (ROADMAP.md §3, kept:
+# not a fault of the port)
+CLAMP_CORRUPT = [(0, 78), (2, 26), (2, 74), (2, 110)]
 
 
-@pytest.mark.parametrize("seed, index", OPEN_CORRUPT)
-def test_corrupt_streams_at_the_coefficient_clamp_part_from_pil(seed, index):
-    """Open: in each, bit flips send a tile's symbols into garbage that
+@pytest.fixture
+def dav1d_c_path():
+    with fuzz.dav1d_c_path():
+        yield
+
+
+@pytest.mark.parametrize("seed, index", CLAMP_CORRUPT)
+def test_corrupt_streams_at_the_coefficient_clamp_equal_dav1d_c_path(seed, index, dav1d_c_path):
+    """In each, bit flips send a tile's symbols into garbage that
     dequantises coefficients to the clamp (+-32767); the inverse transform
-    then leaves its 16-bit range, where the specification's arithmetic
-    (the port's) and dav1d's x86 transforms part. The uncorrupted source
-    has no such coefficient and equals PIL; neither CDEF nor loop
-    restoration is involved (the written cases, 1200 of 1200 equal)."""
+    then leaves its 16-bit range, where dav1d's x86 SIMD transforms part
+    from its own C code and the specification (PIL's output depends on
+    the CPU's instruction set). With dav1d's C code forced
+    (dav1d_set_cpu_flags_mask(0) in PIL's libavif) PIL equals the port.
+    The uncorrupted source has no such coefficient and equals PIL."""
     options, data = fuzz.case(seed, index, corrupt=True)
-    assert fuzz.outcome(data, True)[0] == "differ"
+    assert fuzz.outcome(data, True) == ("equal", "")
     assert _clamped_coefficients(data) > 0
     source = fuzz.case(seed, index % 12)[1]
     assert fuzz.outcome(source)[0] == "equal" and _clamped_coefficients(source) == 0
@@ -654,10 +675,14 @@ def test_a_failed_build_raises(monkeypatch):
 
     monkeypatch.setattr(image_lib, "_av1", None)
     monkeypatch.setattr(gxx, "build", broken)
-    for path in (AVIF_FIXTURE, AVIF_CDEF_FIXTURE):
+    for path in (AVIF_FIXTURE, AVIF_CDEF_FIXTURE, AVIF_444_FIXTURE, AVIF_422_FIXTURE):
         with open(path, "rb") as fh:
             data = fh.read()
         with pytest.raises(subprocess.CalledProcessError):
             imagefile.decode_image(data)
     with pytest.raises(subprocess.CalledProcessError):  # the scale to ispe
         av1.scale(np.zeros((4, 4), np.uint8), 4, 4, 3, 2)
+    frame = av1.Frame((np.zeros((8, 8), np.uint8), np.zeros((8, 8), np.uint8),
+                       np.zeros((8, 8), np.uint8)), 8, 8, 0, 9, 0, 0, 0)
+    with pytest.raises(subprocess.CalledProcessError):  # the conversion alone
+        av1.to_rgba(frame, None, 0, 9)

@@ -14,9 +14,10 @@ scaler and its twin held to libavif's own avifImageScale, and PIL's
 decodes of files whose ispe is patched), the 3/4 and 3/8 scales refused;
 truncated and corrupt files raising or decoding as PIL does
 (tools/avif_fuzz_agreement.py's cases, and the libavif and dav1d rules
-they found); load_image of each stored fixture (PIL's default save and the
-speed-2 CDEF file) against figdraw_tpu's (image, mips, sidecar) and its
-frames against figdraw_tpu's block means."""
+they found); load_image of each stored fixture (PIL's default save, the
+speed-2 CDEF file, the 4:4:4 file and the limited-range BT.709 4:2:2 file
+with CDEF and loop restoration) against figdraw_tpu's (image, mips,
+sidecar) and its frames against figdraw_tpu's block means."""
 
 import ctypes
 import glob
@@ -34,8 +35,10 @@ import torch
 from PIL import Image
 
 from figdraw_tpu_torch.scenes import (
-    AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_FIXTURE, AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE,
-    AVIF_FIXTURE, AVIF_WALL_REFERENCE, IMAGE_FIXTURE, IMAGE_FORMATS_REFERENCE,
+    AVIF_422_FILE_REFERENCE, AVIF_422_FIXTURE, AVIF_422_WALL_REFERENCE, AVIF_444_FILE_REFERENCE,
+    AVIF_444_FIXTURE, AVIF_444_WALL_REFERENCE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_FIXTURE,
+    AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE, AVIF_FIXTURE, AVIF_WALL_REFERENCE, IMAGE_FIXTURE,
+    IMAGE_FORMATS_REFERENCE,
 )
 from figdraw_tpu_torch.utils import av1, avif, imagefile
 from torch_reference import REPO
@@ -192,7 +195,10 @@ def remux(data: bytes, iloc_version=0, sizes=(4, 4, 0, 0), method=0, split=1,
 # each stored AVIF with figdraw_tpu's block means of its image-file scene
 # and of its 480x270 photo wall
 FIXTURES = {"q75": (AVIF_FIXTURE, AVIF_FILE_REFERENCE, AVIF_WALL_REFERENCE),
-            "s2_cdef": (AVIF_CDEF_FIXTURE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_WALL_REFERENCE)}
+            "s2_cdef": (AVIF_CDEF_FIXTURE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_WALL_REFERENCE),
+            "444": (AVIF_444_FIXTURE, AVIF_444_FILE_REFERENCE, AVIF_444_WALL_REFERENCE),
+            "422_limited_cdef": (AVIF_422_FIXTURE, AVIF_422_FILE_REFERENCE,
+                                 AVIF_422_WALL_REFERENCE)}
 
 
 @pytest.mark.parametrize("fixture", sorted(FIXTURES))
@@ -338,14 +344,17 @@ ISPE_SIZES = [(80, 64), (96, 48), (128, 64), (96, 80), (61, 37), (97, 65), (33, 
               (48, 32), (24, 16), (192, 128), (191, 127), (200, 129), (1, 1)]
 
 
-@pytest.mark.parametrize("kind", ["rgb", "alpha", "mono", "cdef"])
+@pytest.mark.parametrize("kind", ["rgb", "alpha", "mono", "cdef", "444", "422"])
 @pytest.mark.parametrize("size", ISPE_SIZES)
 def test_a_frame_of_another_size_than_ispe_is_scaled_as_pil(size, kind):
     """libavif scales the decoded planes to the item's ispe before its
-    colour conversion (the alpha item's plane too); the port equals PIL
-    byte for byte with and without alpha, in 4:0:0, with CDEF on."""
+    colour conversion (the alpha item's plane too; each chroma plane by its
+    own subsampling); the port equals PIL byte for byte with and without
+    alpha, in 4:0:0, 4:4:4 and limited-range 4:2:2, with CDEF on."""
     kw = {"mono": dict(subsampling="4:0:0"),
-          "cdef": dict(speed=2, advanced={"enable-cdef": "1"})}.get(kind, {})
+          "cdef": dict(speed=2, advanced={"enable-cdef": "1"}),
+          "444": dict(subsampling="4:4:4"),
+          "422": dict(subsampling="4:2:2", range="limited")}.get(kind, {})
     data = _with_ispe(_pil_avif(_crop(96, 64, alpha=kind == "alpha"), **kw), *size)
     assert _same(data).shape == (size[1], size[0], 4)
 

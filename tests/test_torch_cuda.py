@@ -11,6 +11,8 @@ them:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -477,19 +479,17 @@ def test_webp_image_file_frame_matches_plain_executor(dev, tmp_path):
     ref.close()
 
 
-def test_cdef_avif_image_file_frame_on_k1_atlas(dev, tmp_path):
-    """The image-file scene (800x600) with the speed-2 CDEF and loop
-    restoration AVIF loaded by load_image: K1-atlas once a frame, within
-    1/255 of the same executor with the plain versions and within 1e-5 of
-    figdraw_tpu's stored block means from the same file."""
+def _avif_image_file_frame(dev, tmp_path, fixture, reference):
+    """The image-file scene (800x600) with a stored AVIF loaded by
+    load_image: K1-atlas once a frame, within 1/255 of the same executor
+    with the plain versions and within 1e-5 of figdraw_tpu's stored block
+    means from the same file."""
     import shutil
 
-    from figdraw_tpu_torch.scenes import (
-        AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_FIXTURE, IMAGE_FILE_SIZE, make_image_file_scene,
-    )
+    from figdraw_tpu_torch.scenes import IMAGE_FILE_SIZE, make_image_file_scene
 
-    path = str(tmp_path / "fixture_s2_cdef.avif")
-    shutil.copyfile(AVIF_CDEF_FIXTURE, path)
+    path = str(tmp_path / os.path.basename(fixture))
+    shutil.copyfile(fixture, path)
     ren, ref = _loaded(path)
     w, h = IMAGE_FILE_SIZE
     scene = make_image_file_scene(w, h, ref.id)
@@ -505,23 +505,22 @@ def test_cdef_avif_image_file_frame_on_k1_atlas(dev, tmp_path):
     torch.cuda.synchronize()
     assert float((frame - plain).abs().max()) <= TOL
     blocks = frame.cpu().numpy().reshape(h // 8, 8, w // 8, 8, 4).mean(axis=(1, 3))
-    assert float(np.abs(blocks - np.load(AVIF_CDEF_FILE_REFERENCE)).max()) <= 1e-5
+    assert float(np.abs(blocks - np.load(reference)).max()) <= 1e-5
     ref.close()
 
 
-def test_cdef_avif_photo_wall_on_k4_atlas(dev, tmp_path):
-    """The 1080p photo wall of the speed-2 CDEF AVIF: K4-atlas once a
-    frame, within 1/255 of the megakernel executor with its plain version;
-    its 480x270 wall within 1e-5 of figdraw_tpu's stored block means."""
+def _avif_photo_wall(dev, tmp_path, fixture, reference):
+    """The 1080p photo wall of a stored AVIF: K4-atlas once a frame, within
+    1/255 of the megakernel executor with its plain version; its 480x270
+    wall within 1e-5 of figdraw_tpu's stored block means."""
     import shutil
 
     from figdraw_tpu_torch.scenes import (
-        AVIF_CDEF_FIXTURE, AVIF_CDEF_WALL_REFERENCE, PHOTO_WALL_PANELS, PHOTO_WALL_SIZE,
-        PHOTO_WALL_SMALL, make_loaded_photo_wall,
+        PHOTO_WALL_PANELS, PHOTO_WALL_SIZE, PHOTO_WALL_SMALL, make_loaded_photo_wall,
     )
 
-    path = str(tmp_path / "fixture_s2_cdef.avif")
-    shutil.copyfile(AVIF_CDEF_FIXTURE, path)
+    path = str(tmp_path / os.path.basename(fixture))
+    shutil.copyfile(fixture, path)
     w, h = PHOTO_WALL_SIZE
     ren, ref = _loaded(path, atlas_size=256)
     scene = make_loaded_photo_wall(w, h, PHOTO_WALL_PANELS, ref.id)
@@ -541,9 +540,68 @@ def test_cdef_avif_photo_wall_on_k4_atlas(dev, tmp_path):
     got = small.render_frame(make_loaded_photo_wall(sw, sh, sn, small_ref.id), vec2(sw, sh))
     bh, bw = sh // 8 * 8, sw // 8 * 8  # the whole 8x8 blocks (270 = 33 * 8 + 6)
     blocks = got.cpu().numpy()[:bh, :bw].reshape(bh // 8, 8, bw // 8, 8, 4).mean(axis=(1, 3))
-    assert float(np.abs(blocks - np.load(AVIF_CDEF_WALL_REFERENCE)).max()) <= 1e-5
+    assert float(np.abs(blocks - np.load(reference)).max()) <= 1e-5
     ref.close()
     small_ref.close()
+
+
+def test_cdef_avif_image_file_frame_on_k1_atlas(dev, tmp_path):
+    """The speed-2 CDEF and loop restoration AVIF in the image-file scene."""
+    from figdraw_tpu_torch.scenes import AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_FIXTURE
+
+    _avif_image_file_frame(dev, tmp_path, AVIF_CDEF_FIXTURE, AVIF_CDEF_FILE_REFERENCE)
+
+
+def test_cdef_avif_photo_wall_on_k4_atlas(dev, tmp_path):
+    """The speed-2 CDEF AVIF on the 1080p photo wall."""
+    from figdraw_tpu_torch.scenes import AVIF_CDEF_FIXTURE, AVIF_CDEF_WALL_REFERENCE
+
+    _avif_photo_wall(dev, tmp_path, AVIF_CDEF_FIXTURE, AVIF_CDEF_WALL_REFERENCE)
+
+
+def _chroma_avif(kind: str) -> tuple:
+    """(file, scene reference, wall reference) of the stored 4:4:4 or
+    limited-range BT.709 4:2:2 AVIF."""
+    from figdraw_tpu_torch import scenes
+
+    if kind == "444":
+        return scenes.AVIF_444_FIXTURE, scenes.AVIF_444_FILE_REFERENCE, scenes.AVIF_444_WALL_REFERENCE
+    return scenes.AVIF_422_FIXTURE, scenes.AVIF_422_FILE_REFERENCE, scenes.AVIF_422_WALL_REFERENCE
+
+
+@pytest.mark.parametrize("kind", ["444", "422"])
+def test_chroma_avif_decodes_to_its_digest(kind):
+    """The stored 4:4:4 and 4:2:2 AVIFs on the card's host: the C++ decode
+    (its stages held to their twins through the trace) and the conversion
+    to PIL's stored digest."""
+    import hashlib
+    import json
+
+    from figdraw_tpu_torch.scenes import IMAGE_FORMATS_REFERENCE
+    from figdraw_tpu_torch.utils import av1, avif, imagefile
+
+    path = _chroma_avif(kind)[0]
+    with open(path, "rb") as fh:
+        data = fh.read()
+    with open(IMAGE_FORMATS_REFERENCE) as fh:
+        want = json.load(fh)["files"][os.path.basename(path)]["decoded_sha256"]
+    assert hashlib.sha256(imagefile.decode_image(data).tobytes()).hexdigest() == want
+    still = avif.parse(data)
+    frame = av1.decode(still.color, plain=True)
+    assert (frame.ssx, frame.ssy) == ((0, 0) if kind == "444" else (1, 0))
+    assert hashlib.sha256(avif.decode_avif(data, plain=True).tobytes()).hexdigest() == want
+
+
+@pytest.mark.parametrize("kind", ["444", "422"])
+def test_chroma_avif_image_file_frame_on_k1_atlas(dev, tmp_path, kind):
+    fixture, scene_ref, _wall_ref = _chroma_avif(kind)
+    _avif_image_file_frame(dev, tmp_path, fixture, scene_ref)
+
+
+@pytest.mark.parametrize("kind", ["444", "422"])
+def test_chroma_avif_photo_wall_on_k4_atlas(dev, tmp_path, kind):
+    fixture, _scene_ref, wall_ref = _chroma_avif(kind)
+    _avif_photo_wall(dev, tmp_path, fixture, wall_ref)
 
 
 def test_text_table_matches_plain_executor(dev):

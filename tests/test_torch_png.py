@@ -295,9 +295,9 @@ def test_other_formats_raise_not_implemented(fmt, tmp_path):
     """Formats PIL reads that the port does not decode (JPEG, GIF, BMP,
     TIFF, WebP and AVIF decode since utils/imagefile.py: tests/test_torch_jpeg.py,
     test_torch_tiff.py, test_torch_webp.py, test_torch_avif.py and the others
-    hold them to PIL), and an AVIF outside the port's slice (4:4:4 chroma)."""
+    hold them to PIL), and an AVIF outside the port's slice (film grain)."""
     path = str(tmp_path / f"x.{fmt.lower()}")
-    extra = {"subsampling": "4:4:4"} if fmt == "AVIF" else {}
+    extra = {"advanced": {"film-grain-test": "1"}} if fmt == "AVIF" else {}
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path, format=fmt, **extra)
     with pytest.raises(NotImplementedError, match="Image formats other than PNG"):
         png.read_image(path)

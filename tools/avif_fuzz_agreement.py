@@ -5,7 +5,15 @@ stream of its own, so the pictures and options of each case stay as they
 were before it was drawn; speeds 0-4 turn on loop restoration by
 themselves), each decoded by `utils/imagefile.decode_image` and by PIL's
 `Image.open(...).convert("RGBA")`; with --corrupt, seeded truncations and
-one to three bit flips of such files instead.
+one to three bit flips of such files instead. With --formats each case
+also draws, from seeded streams of their own, its chroma subsampling
+(4:2:0, 4:2:2, 4:4:4 or 4:0:0), its range (full or limited) and a matrix
+coefficient written into the colr box's nclx (or none: aom's BT.601); the
+cases without --formats keep their bytes. With --dav1d-c PIL's dav1d runs
+its C code only (`dav1d_set_cpu_flags_mask(0)` in PIL's libavif): on
+coefficients that corrupt data drives to the clamp, dav1d's SSSE3 and AVX2
+transforms part from its C code and the specification, which the port
+follows.
 
 A picture is one of: seeded noise, a crop of the PNG fixture
 (tests/goldens/render_3d_overlay_gaussian.png), a flat UI-like picture of
@@ -18,12 +26,15 @@ decoded). With --corrupt an error on both sides agrees. The counts are
 printed by speed, and each disagreement by its seed and index
 (`case(seed, index)` rebuilds it). Needs PIL (the CPU host's).
 
-    python tools/avif_fuzz_agreement.py [--corrupt] [cases per seed, default 200]
-        [seeds, default 1]
+    python tools/avif_fuzz_agreement.py [--corrupt] [--formats] [--dav1d-c]
+        [cases per seed, default 200] [seeds, default 1]
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import glob
 import io
 import os
 import re
@@ -74,11 +85,25 @@ def pil_avif(px: np.ndarray, **options) -> bytes:
     return out.getvalue()
 
 
-def written_cases(seed: int, cases: int, start: int = 0):
+SUBSAMPLINGS = ("4:2:0", "4:2:2", "4:4:4", "4:0:0")
+# the nclx matrices --formats writes (None: PIL's own, BT.601), among them
+# those libavif does not convert (3, 10, 11, 13, 14, limited-range 8, and
+# 0 on subsampled chroma)
+MATRICES = (None, None, None, None, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+
+
+def with_matrix(data: bytes, matrix: int) -> bytes:
+    """The file with its colr box's nclx matrix coefficients set."""
+    at = data.find(b"nclx")
+    return data[:at + 8] + matrix.to_bytes(2, "big") + data[at + 10:]
+
+
+def written_cases(seed: int, cases: int, start: int = 0, formats: bool = False):
     """Yields (index, options, bytes) of one seed's PIL-written AVIFs from
     index `start` (the pictures before it are drawn, not written)."""
     rng = np.random.default_rng(seed)
     cdef_rng = np.random.default_rng([seed, 7])
+    sub_rng, range_rng, matrix_rng = (np.random.default_rng([seed, k]) for k in (8, 9, 10))
     fixture = _fixture()
     for i in range(cases):
         w, h = int(rng.integers(1, 300)), int(rng.integers(1, 300))
@@ -89,17 +114,26 @@ def written_cases(seed: int, cases: int, start: int = 0):
             px = np.ascontiguousarray(np.dstack([px, alpha]))
         options["size"] = (w, h)
         options["cdef"] = int(cdef_rng.integers(2))
+        extra = {}
+        if formats:
+            options["subsampling"] = SUBSAMPLINGS[int(sub_rng.integers(4))]
+            options["range"] = ("full", "limited")[int(range_rng.integers(2))]
+            options["matrix"] = MATRICES[int(matrix_rng.integers(len(MATRICES)))]
+            extra = {"subsampling": options["subsampling"], "range": options["range"]}
         if i >= start:
-            yield i, options, pil_avif(px, quality=options["quality"], speed=options["speed"],
-                                       advanced={"enable-cdef": str(options["cdef"])})
+            data = pil_avif(px, quality=options["quality"], speed=options["speed"],
+                            advanced={"enable-cdef": str(options["cdef"])}, **extra)
+            if formats and options["matrix"] is not None:
+                data = with_matrix(data, options["matrix"])
+            yield i, options, data
 
 
-def corrupt_cases(seed: int, cases: int):
+def corrupt_cases(seed: int, cases: int, formats: bool = False):
     """Yields (index, options, bytes): a third of PIL-written files cut at a
     random length, the others with one to three bits flipped (a third of
     those in the first 400 bytes, the container and headers)."""
     rng = np.random.default_rng(seed + 1000)
-    sources = [(o, d) for _i, o, d in written_cases(seed, 12)]
+    sources = [(o, d) for _i, o, d in written_cases(seed, 12, formats=formats)]
     for i in range(cases):
         options, src = sources[i % len(sources)]
         data = bytearray(src)
@@ -113,13 +147,40 @@ def corrupt_cases(seed: int, cases: int):
         yield i, options, bytes(data)
 
 
-def case(seed: int, index: int, corrupt: bool = False) -> tuple:
+def case(seed: int, index: int, corrupt: bool = False, formats: bool = False) -> tuple:
     """(options, bytes) of case `index` of `seed`."""
-    gen = corrupt_cases(seed, index + 1) if corrupt else written_cases(seed, index + 1, index)
+    gen = (corrupt_cases(seed, index + 1, formats) if corrupt
+           else written_cases(seed, index + 1, index, formats))
     for i, options, data in gen:
         if i == index:
             return options, data
     raise IndexError(index)
+
+
+def libavif() -> ctypes.CDLL:
+    """PIL's own libavif (pillow.libs), which holds its dav1d."""
+    from PIL import Image
+
+    paths = glob.glob(os.path.join(os.path.dirname(os.path.dirname(Image.__file__)),
+                                   "pillow.libs", "libavif-*.so*"))
+    if not paths:
+        raise FileNotFoundError("no libavif beside PIL on this host")
+    lib = ctypes.CDLL(paths[0])
+    lib.dav1d_set_cpu_flags_mask.argtypes = [ctypes.c_uint]
+    return lib
+
+
+@contextlib.contextmanager
+def dav1d_c_path():
+    """PIL's dav1d on its C code only while the block runs (libavif opens
+    a dav1d context for each image, which takes the mask), then every SIMD
+    level again: the mask is process-wide."""
+    lib = libavif()
+    lib.dav1d_set_cpu_flags_mask(0)
+    try:
+        yield
+    finally:
+        lib.dav1d_set_cpu_flags_mask(0xFFFFFFFF)
 
 
 def outcome(data: bytes, corrupt: bool = False) -> tuple:
@@ -154,34 +215,42 @@ def outcome(data: bytes, corrupt: bool = False) -> tuple:
     return "differ", f"max |diff| {np.abs(got.astype(int) - want.astype(int)).max() if got.shape == want.shape else 'shape'}"
 
 
-def run(cases: int, seeds: int, corrupt: bool) -> dict:
+def run(cases: int, seeds: int, corrupt: bool, formats: bool = False) -> dict:
     counts = Counter()
-    by_speed = defaultdict(Counter)
+    by_speed, by_format = defaultdict(Counter), defaultdict(Counter)
     features = Counter()
     bad = []
     for seed in range(seeds):
-        gen = corrupt_cases(seed, cases) if corrupt else written_cases(seed, cases)
+        gen = corrupt_cases(seed, cases, formats) if corrupt else written_cases(seed, cases,
+                                                                                 formats=formats)
         for i, options, data in gen:
             kind, detail = outcome(data, corrupt)
             counts[kind] += 1
             by_speed[options["speed"]][kind] += 1
+            if formats:
+                by_format[(options["subsampling"], options["range"])][kind] += 1
             if kind == "refused":
                 features[detail] += 1
             if kind in ("differ", "error"):
                 bad.append((seed, i, options, detail))
-    return {"counts": counts, "by_speed": by_speed, "features": features, "bad": bad}
+    return {"counts": counts, "by_speed": by_speed, "by_format": by_format, "features": features,
+            "bad": bad}
 
 
 def main(argv) -> int:
-    corrupt = "--corrupt" in argv
+    corrupt, formats = "--corrupt" in argv, "--formats" in argv
     nums = [int(a) for a in argv if not a.startswith("--")]
     cases = nums[0] if nums else 200
     seeds = nums[1] if len(nums) > 1 else 1
-    res = run(cases, seeds, corrupt)
-    print(f"{'corrupt' if corrupt else 'written'}: {cases} cases x {seeds} seeds:",
+    with dav1d_c_path() if "--dav1d-c" in argv else contextlib.nullcontext():
+        res = run(cases, seeds, corrupt, formats)
+    flags = " ".join(a for a in argv if a.startswith("--"))
+    print(f"{'corrupt' if corrupt else 'written'} {flags}: {cases} cases x {seeds} seeds:",
           dict(res["counts"]))
     for speed in sorted(res["by_speed"]):
         print(f"  speed {speed}: {dict(res['by_speed'][speed])}")
+    for (sub, rng), n in sorted(res["by_format"].items()):
+        print(f"  {sub} {rng} range: {dict(n)}")
     for feature, n in res["features"].most_common():
         print(f"  refused, {feature}: {n}")
     for seed, i, options, detail in res["bad"]:

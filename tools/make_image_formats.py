@@ -39,22 +39,26 @@ render_3d_overlay_gaussian.png, 800x600 RGBA), with PIL on the CPU host:
   at odd offsets, and a T.6 strip with the extension code of uncompressed
   mode), and the fixture as an AVIF with PIL's default save (quality 75,
   speed 6, 4:2:0; PIL drops the opaque alpha) and at speed 2 with aom's
-  CDEF on (`fixture_s2_cdef.avif`: CDEF and loop restoration). The card's
-  machine has no PIL: chip_smoke.py decodes these.
+  CDEF on (`fixture_s2_cdef.avif`: CDEF and loop restoration), at 4:4:4
+  (`fixture_444.avif`, AV1 profile 1, PIL's default otherwise) and at
+  4:2:2, speed 0 with CDEF, marked limited-range BT.709
+  (`fixture_422_limited_cdef.avif`, profile 2: 4:2:2's CDEF direction
+  map, its Wiener and self-guided units, libyuv's limited BT.709). The card's machine has no
+  PIL: chip_smoke.py decodes these.
 - `figdraw_tpu_torch/reference/image_formats.json`: under "files", each
   file's sha256 and the sha256 and shape of PIL's decode,
   `Image.open(p).convert("RGBA")`; under "sidecar", the sha256 of the
   .flippy sidecar figdraw_tpu's read_image_cached writes for the baseline
   JPEG, the TIFF fixture, the lossy WebP fixture, the ZSTD fixture, the
   Group 4 fax page, the SOF10 fixture, the SOF3 crop, the incomplete
-  progressive JPEG, the RLE-W fixture and the two AVIF fixtures.
-- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3,arith,incomplete,rlew,avif,avif_cdef}_1x_blocks8.npy`
-  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4,lossless,incomplete,rlew,avif,avif_cdef}_480x270_blocks8.npy`:
+  progressive JPEG, the RLE-W fixture and the four AVIF fixtures.
+- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3,arith,incomplete,rlew,avif,avif_cdef,avif_444,avif_422}_1x_blocks8.npy`
+  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4,lossless,incomplete,rlew,avif,avif_cdef,avif_444,avif_422}_480x270_blocks8.npy`:
   8x8 block means of figdraw_tpu's frames of the image-file scene and of
   the photo wall at 480x270 (12 panels) with the baseline JPEG, the TIFF,
   WebP or ZSTD fixture, the dithered Group 3 fixture, the Group 4 page,
   the SOF10 fixture, the SOF3 crop, the incomplete progressive JPEG, the
-  RLE-W fixture or either AVIF fixture loaded by its load_image
+  RLE-W fixture or an AVIF fixture loaded by its load_image
   (FigRenderer(atlas_size=512, use_pallas=False), the page's from
   scenes.FAX_ATLAS; tests/torch_reference.py).
 
@@ -97,6 +101,8 @@ TIFF_FIXTURE = "fixture_lzw_pred2.tif"
 WEBP_FIXTURE = "fixture_q90.webp"
 AVIF_FIXTURE = "fixture_q75.avif"
 AVIF_CDEF_FIXTURE = "fixture_s2_cdef.avif"
+AVIF_444_FIXTURE = "fixture_444.avif"
+AVIF_422_FIXTURE = "fixture_422_limited_cdef.avif"
 
 
 def _pack_rows(pixels: np.ndarray, bits: int) -> np.ndarray:
@@ -677,7 +683,37 @@ def image_files() -> dict:
     files.update(ccitt_repair_files(src))
     save(AVIF_FIXTURE, src, "AVIF")
     save(AVIF_CDEF_FIXTURE, src, "AVIF", speed=2, advanced={"enable-cdef": "1"})
+    save(AVIF_444_FIXTURE, src, "AVIF", subsampling="4:4:4")
+    # aom turns every loop filter off on this smooth picture at limited
+    # range: it is coded at full range (speed 0, CDEF on), then marked
+    # limited-range BT.709, as camera and video files are
+    save(AVIF_422_FIXTURE, src, "AVIF", subsampling="4:2:2", speed=0,
+         advanced={"enable-cdef": "1"})
+    files[AVIF_422_FIXTURE] = limited_bt709(files[AVIF_422_FIXTURE])
     return files
+
+
+def limited_bt709(data: bytes) -> bytes:
+    """A PIL-written AVIF marked limited-range BT.709: the colr box's nclx
+    (matrix 1, full_range_flag 0) and the AV1 sequence header's color_range
+    bit wherever the header occurs (av1C's configOBUs and the item), which
+    leave the decoded planes as they are."""
+    from figdraw_tpu_torch.utils import av1, avif
+
+    at = data.find(b"nclx") + 8
+    data = data[:at] + (1).to_bytes(2, "big") + bytes([data[at + 2] & 0x7F]) + data[at + 3:]
+    head = next(p for k, p in av1.obus(avif.parse(data).color) if k == av1.OBU_SEQUENCE_HEADER)
+    seq = vars(av1.parse_sequence(head))
+    for bit in range(len(head) * 8):  # the one bit that turns full_range alone
+        flipped = bytearray(head)
+        flipped[bit >> 3] ^= 0x80 >> (bit & 7)
+        try:
+            other = vars(av1.parse_sequence(bytes(flipped)))
+        except (ValueError, NotImplementedError):
+            continue
+        if {k for k in seq if seq[k] != other[k]} == {"full_range"}:
+            return data.replace(head, bytes(flipped))
+    raise ValueError("no color_range bit in the sequence header")
 
 
 def _jpeg_chunk(quality: int, subsampling: str):
@@ -1381,13 +1417,14 @@ def write_frames() -> None:
     fixture and the SOF10 fixture, of the photo wall from the Group 4 fax
     page (its atlas started at scenes.FAX_ATLAS) and the SOF3 crop, and of
     both from the incomplete progressive JPEG, the RLE-W fixture and the
-    two AVIF fixtures."""
+    four AVIF fixtures."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_reference import block_means, jax_image_file_frame, jax_photo_wall_frame
 
     from figdraw_tpu_torch.scenes import (
-        ARITH_FILE_REFERENCE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_WALL_REFERENCE,
-        AVIF_FILE_REFERENCE, AVIF_WALL_REFERENCE, FAX_ATLAS, G3_FILE_REFERENCE, G4_WALL_REFERENCE,
+        ARITH_FILE_REFERENCE, AVIF_422_FILE_REFERENCE, AVIF_422_WALL_REFERENCE,
+        AVIF_444_FILE_REFERENCE, AVIF_444_WALL_REFERENCE, AVIF_CDEF_FILE_REFERENCE,
+        AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE, AVIF_WALL_REFERENCE, FAX_ATLAS, G3_FILE_REFERENCE, G4_WALL_REFERENCE,
         INCOMPLETE_FILE_REFERENCE, INCOMPLETE_WALL_REFERENCE, RLEW_FILE_REFERENCE,
         RLEW_WALL_REFERENCE,
         JPEG_FILE_REFERENCE, JPEG_WALL_REFERENCE, LOSSLESS_WALL_REFERENCE, PHOTO_WALL_SMALL,
@@ -1407,7 +1444,9 @@ def write_frames() -> None:
             (INCOMPLETE_HUFF, INCOMPLETE_FILE_REFERENCE, INCOMPLETE_WALL_REFERENCE, 512),
             (RLEW_FIXTURE, RLEW_FILE_REFERENCE, RLEW_WALL_REFERENCE, 512),
             (AVIF_FIXTURE, AVIF_FILE_REFERENCE, AVIF_WALL_REFERENCE, 512),
-            (AVIF_CDEF_FIXTURE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_WALL_REFERENCE, 512)):
+            (AVIF_CDEF_FIXTURE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_WALL_REFERENCE, 512),
+            (AVIF_444_FIXTURE, AVIF_444_FILE_REFERENCE, AVIF_444_WALL_REFERENCE, 512),
+            (AVIF_422_FIXTURE, AVIF_422_FILE_REFERENCE, AVIF_422_WALL_REFERENCE, 512)):
         with tempfile.TemporaryDirectory() as td:
             path = os.path.join(td, name)
             shutil.copyfile(os.path.join(OUT_DIR, name), path)
@@ -1438,7 +1477,7 @@ def main() -> None:
                           for name in (BASELINE, TIFF_FIXTURE, WEBP_FIXTURE, ZSTD_FIXTURE,
                                        FAX_PAGE, ARITH_FIXTURE, LOSSLESS_FIXTURE,
                                        INCOMPLETE_HUFF, RLEW_FIXTURE, AVIF_FIXTURE,
-                                       AVIF_CDEF_FIXTURE)}}
+                                       AVIF_CDEF_FIXTURE, AVIF_444_FIXTURE, AVIF_422_FIXTURE)}}
     with open(DIGESTS, "w") as fh:
         json.dump(stored, fh, indent=1)
         fh.write("\n")
