@@ -97,8 +97,10 @@ FigRenderer(device="cuda").render_frame or execute_plan:
   pipeline's steps and render_frame's perf span means; the stored files
   of the JPEG, GIF, BMP, ICO, QOI, TIFF (with CCITT fax and ZSTD) and
   WebP decoders (csrc/image_decode.cpp, csrc/webp_decode.cpp,
-  csrc/zstd_decode.cpp, g++) against PIL's stored digests, their C++
-  stages against the plain twins, and the baseline JPEG, the fixture's
+  csrc/zstd_decode.cpp, g++) and of the AVIF decoder (csrc/av1_decode.cpp:
+  8-bit files and three made 10- and 12-bit) against PIL's stored
+  digests, their C++ stages against the plain twins, and the baseline
+  JPEG, the fixture's
   LZW + Predictor 2 TIFF, its lossy WebP at q 90 and its ZSTD + Predictor
   2 TIFF loaded cold and warm, each drawn in the image-file scene
   (K1-atlas) and the photo wall (K4-atlas) within 1e-5 of figdraw_tpu's
@@ -3335,12 +3337,17 @@ AVIF_STAGE_CALLS = 150  # traced calls of each AV1 stage kind held to its numpy 
 # the stage kinds each stored AVIF's trace must reach: PIL's default save
 # (4:2:0 and 4:4:4) runs no post-filter; the speed-2 CDEF file and the
 # limited-range 4:2:2 file (4:2:2's CDEF direction map, chroma restoration
-# units at ssy 0) also CDEF, Wiener and self-guided restoration
+# units at ssy 0) also CDEF, Wiener and self-guided restoration; so do
+# their 10- and 12-bit rewrites, each stage at its bit depth
 AVIF_KINDS = {"fixture_q75.avif": ("predict", "cfl", "txfm", "lf"),
               "fixture_s2_cdef.avif": ("predict", "cfl", "txfm", "lf", "cdef", "wiener", "sgr"),
               "fixture_444.avif": ("predict", "cfl", "txfm", "lf"),
               "fixture_422_limited_cdef.avif": ("predict", "cfl", "txfm", "lf", "cdef", "wiener",
-                                                "sgr")}
+                                                "sgr"),
+              "fixture_s2_cdef_10bit.avif": ("predict", "cfl", "txfm", "lf", "cdef", "wiener",
+                                             "sgr"),
+              "fixture_444_10bit.avif": ("predict", "cfl", "txfm", "lf"),
+              "fixture_422_12bit.avif": ("predict", "cfl", "txfm", "lf", "cdef", "wiener", "sgr")}
 
 
 def split_frames(ren, scene, size, frames: int = FRAMES):
@@ -3539,7 +3546,8 @@ def image_formats_check(tag: str) -> dict:
             # the colr box's colour description, else the sequence header's
             cp, _tc, mc, full = still.nclx or (frame.primaries, 2, frame.matrix,
                                                frame.full_range)
-            conv = av1.conversion(frame.mono, frame.ssx, frame.ssy, full, mc, cp, False)
+            conv = av1.conversion(frame.mono, frame.ssx, frame.ssy, full, mc, cp, False,
+                                  frame.bit_depth)
             rgb = av1.to_rgba(frame, None, full, mc, cp)
             if not (np.array_equal(rgb, av1.to_rgba_plain(y, u, v, None, frame.width,
                                                          frame.height, conv))
@@ -3555,8 +3563,8 @@ def image_formats_check(tag: str) -> dict:
             runs = [av1.decode(still.color).ms for _ in range(IMAGE_REPS)]
             rgb_warm, _ = host_ms(lambda: av1.to_rgba(frame, None, full, mc, cp))
             chroma = {(0, 0): "4:4:4", (1, 0): "4:2:2"}.get((frame.ssx, frame.ssy), "4:2:0")
-            avif_formats[name] = (f"{frame.width}x{frame.height}, {chroma}, "
-                                  f"{'full' if full else 'limited'} range, matrix {mc}")
+            avif_formats[name] = (f"{frame.width}x{frame.height}, {frame.bit_depth}-bit "
+                                  f"{chroma}, {'full' if full else 'limited'} range, matrix {mc}")
             avif_stages[name] = {k: (first.ms[k], statistics.median(r[k] for r in runs))
                                  for k in first.ms}
             avif_stages[name]["yuv -> rgba"] = (rgb_cold, rgb_warm)
@@ -3602,9 +3610,10 @@ def image_files_phase(tag: str, dev) -> dict:
     arithmetic-coded JPEG (SOF10) of the fixture, the lossless JPEG (SOF3)
     of a 224x168 crop (equal to the PNG's pixels), the incomplete
     progressive JPEG of the fixture (block smoothing), the RLE-W TIFF of
-    its dithered centre and the fixture's four AVIFs (PIL's default save,
+    its dithered centre and the fixture's seven AVIFs (PIL's default save,
     speed 2 with CDEF, 4:4:4, and limited-range BT.709 4:2:2 with CDEF and
-    loop restoration), image_formats_check
+    loop restoration; the CDEF file and the 4:4:4 file at 10 bits, the
+    4:2:2 file at 12), image_formats_check
     first: every stored format against PIL's digests): load_image cold and
     warm against figdraw_tpu's sidecar digest, the image-file scene on
     K1-atlas and the photo wall on K4-atlas, each within FILE_TOL of
@@ -3631,8 +3640,11 @@ def image_files_phase(tag: str, dev) -> dict:
     from figdraw_tpu_torch.plan import pack_mega_combo, plan_execution
     from figdraw_tpu_torch.scenes import (
         ARITH_FILE_REFERENCE, ARITH_FIXTURE, AVIF_422_FILE_REFERENCE, AVIF_422_FIXTURE,
-        AVIF_422_WALL_REFERENCE, AVIF_444_FILE_REFERENCE, AVIF_444_FIXTURE,
-        AVIF_444_WALL_REFERENCE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_FIXTURE,
+        AVIF_422_WALL_REFERENCE, AVIF_422_12_FILE_REFERENCE, AVIF_422_12_FIXTURE,
+        AVIF_422_12_WALL_REFERENCE, AVIF_444_10_FILE_REFERENCE, AVIF_444_10_FIXTURE,
+        AVIF_444_10_WALL_REFERENCE, AVIF_444_FILE_REFERENCE, AVIF_444_FIXTURE,
+        AVIF_444_WALL_REFERENCE, AVIF_CDEF10_FILE_REFERENCE, AVIF_CDEF10_FIXTURE,
+        AVIF_CDEF10_WALL_REFERENCE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_FIXTURE,
         AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE, AVIF_FIXTURE,
         AVIF_WALL_REFERENCE, EXAMPLE_FORMS, EXAMPLE_IMAGES, EXAMPLE_SCENES,
         FAX_ATLAS, FAX_PAGE, G3_FILE_REFERENCE, LOSSLESS_FIXTURE, LOSSLESS_WALL_REFERENCE,
@@ -3788,6 +3800,14 @@ def image_files_phase(tag: str, dev) -> dict:
         fpath, fcold_ms, fwarm_ms, _fimage = cold_warm(AVIF_444_FIXTURE, "AVIF (4:4:4)")
         kpath, kcold_ms, kwarm_ms, _kimage = cold_warm(
             AVIF_422_FIXTURE, "AVIF (4:2:2, limited-range BT.709, CDEF and loop restoration)")
+        # the three rewritten to 10 and 12 bits
+        c10path, c10cold_ms, c10warm_ms, _c10image = cold_warm(
+            AVIF_CDEF10_FIXTURE, "10-bit AVIF (speed 2, CDEF and loop restoration)")
+        f10path, f10cold_ms, f10warm_ms, _f10image = cold_warm(AVIF_444_10_FIXTURE,
+                                                               "10-bit AVIF (4:4:4)")
+        k12path, k12cold_ms, k12warm_ms, _k12image = cold_warm(
+            AVIF_422_12_FIXTURE,
+            "12-bit AVIF (4:2:2, limited-range BT.709, CDEF and loop restoration)")
         g3path = os.path.join(td, os.path.basename(G3_FIXTURE))
         shutil.copyfile(G3_FIXTURE, g3path)
 
@@ -3899,7 +3919,13 @@ def image_files_phase(tag: str, dev) -> dict:
                        "avif": file_scene(vpath, "avif", AVIF_FILE_REFERENCE),
                        "avif cdef": file_scene(cpath, "avif cdef", AVIF_CDEF_FILE_REFERENCE),
                        "avif 444": file_scene(fpath, "avif 444", AVIF_444_FILE_REFERENCE),
-                       "avif 422": file_scene(kpath, "avif 422", AVIF_422_FILE_REFERENCE)}
+                       "avif 422": file_scene(kpath, "avif 422", AVIF_422_FILE_REFERENCE),
+                       "avif cdef 10-bit": file_scene(c10path, "avif cdef 10-bit",
+                                                      AVIF_CDEF10_FILE_REFERENCE),
+                       "avif 444 10-bit": file_scene(f10path, "avif 444 10-bit",
+                                                     AVIF_444_10_FILE_REFERENCE),
+                       "avif 422 12-bit": file_scene(k12path, "avif 422 12-bit",
+                                                     AVIF_422_12_FILE_REFERENCE)}
 
         # --- the 1080p photo wall of each loaded image ---
         def photo_wall(src, small_ref, what, tol=TOL, atlas=256):
@@ -3962,7 +3988,13 @@ def image_files_phase(tag: str, dev) -> dict:
                  "avif 444": photo_wall(fpath, AVIF_444_WALL_REFERENCE, "photo wall avif 444",
                                         FILE_TOL),
                  "avif 422": photo_wall(kpath, AVIF_422_WALL_REFERENCE, "photo wall avif 422",
-                                        FILE_TOL)}
+                                        FILE_TOL),
+                 "avif cdef 10-bit": photo_wall(c10path, AVIF_CDEF10_WALL_REFERENCE,
+                                                "photo wall avif cdef 10-bit", FILE_TOL),
+                 "avif 444 10-bit": photo_wall(f10path, AVIF_444_10_WALL_REFERENCE,
+                                               "photo wall avif 444 10-bit", FILE_TOL),
+                 "avif 422 12-bit": photo_wall(k12path, AVIF_422_12_WALL_REFERENCE,
+                                               "photo wall avif 422 12-bit", FILE_TOL)}
         for ref in refs:
             ref.close()
     med = statistics.median
@@ -4000,7 +4032,11 @@ def image_files_phase(tag: str, dev) -> dict:
           f"the AVIF's load_image cold {vcold_ms:.3f} ms, warm {vwarm_ms:.3f} ms; the speed-2 "
           f"CDEF AVIF's load_image cold {ccold_ms:.3f} ms, warm {cwarm_ms:.3f} ms; the 4:4:4 "
           f"AVIF's load_image cold {fcold_ms:.3f} ms, warm {fwarm_ms:.3f} ms; the 4:2:2 "
-          f"limited-range AVIF's load_image cold {kcold_ms:.3f} ms, warm {kwarm_ms:.3f} ms {tag}",
+          f"limited-range AVIF's load_image cold {kcold_ms:.3f} ms, warm {kwarm_ms:.3f} ms; "
+          f"the 10-bit CDEF AVIF's load_image cold {c10cold_ms:.3f} ms, warm "
+          f"{c10warm_ms:.3f} ms; the 10-bit 4:4:4 AVIF's load_image cold {f10cold_ms:.3f} ms, "
+          f"warm {f10warm_ms:.3f} ms; the 12-bit 4:2:2 AVIF's load_image cold "
+          f"{k12cold_ms:.3f} ms, warm {k12warm_ms:.3f} ms {tag}",
           flush=True)
     for src, (f_ms, f_host, f_dev) in file_frames.items():
         print(f"times: image_file scene from the {src.upper()}, 800x600 on K1-atlas: median "

@@ -3,8 +3,10 @@
 // utils/av1.py, which parses the sequence and frame headers and holds the
 // plain numpy twin of each self-contained stage. The decoding process is
 // the AV1 specification's (section 7) for a shown key frame of profiles 0-2
-// at 8 bits (4:2:0, 4:2:2, 4:4:4 or monochrome), without superres or film
-// grain; the tables are libaom's (csrc/av1_tables.h).
+// at 8, 10 or 12 bits (4:2:0, 4:2:2, 4:4:4 or monochrome), without superres
+// or film grain; the tables are libaom's (csrc/av1_tables.h). Planes hold
+// uint8_t samples at 8 bits and uint16_t at 10 and 12 (the stages are
+// templated on the sample type; the header's H_BITDEPTH picks it).
 //   fd_av1_tile       one tile: the symbol decoder with CDF adaptation,
 //                     partitions, intra frame mode info (segment id, skip,
 //                     delta q / lf, y and uv modes with angle deltas, CfL
@@ -21,23 +23,27 @@
 //                     filters over stripes of 64 luma rows;
 //   fd_av1_scale      one plane to another size, as libavif 1.3.0 scales a
 //                     decoded frame to its item's ispe (libyuv's ScalePlane
-//                     with kFilterBox and its x86 column filter);
+//                     with kFilterBox and its x86 column filter; its
+//                     ScalePlane_16 past 8 bits);
 //   fd_av1_to_rgb     YUV to RGBA as libavif 1.3.0 converts it for PIL
 //                     (libyuv's fixed point with its chroma upsampling, or
 //                     libavif's own float conversion), the alpha item's
 //                     plane to alpha;
 //   fd_av1_predict, fd_av1_cfl, fd_av1_inv_txfm, fd_av1_lf_edge,
 //   fd_av1_cdef_block, fd_av1_wiener, fd_av1_sgr
-//                     the stages alone, for the twins' tests.
+//                     the stages alone at a bit depth (samples out as
+//                     uint16_t), for the twins' tests.
 //
 // Every entry point returns 0 (or a count) on success and a negative code
 // on bad input (utils/av1.py ERRORS); reads of the input are bounded.
 
 #include <algorithm>
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <type_traits>
 #include <vector>
 
 #include "av1_tables.h"
@@ -51,7 +57,8 @@ inline int round2(int64_t x, int n) { return n == 0 ? (int)x : (int)((x + ((int6
 inline int round2signed(int64_t x, int n) { return x >= 0 ? round2(x, n) : -round2(-x, n); }
 inline int floorlog2(uint32_t x) { int s = 0; while (x > 1) { x >>= 1; s++; } return s; }
 inline int ceillog2(uint32_t x) { if (x < 2) return 0; int i = 1; uint32_t p = 2; while (p < x) { i++; p <<= 1; } return i; }
-inline int clip1(int v) { return v < 0 ? 0 : (v > 255 ? 255 : v); }
+// Clip1 at BitDepth bd
+inline int clip1(int v, int bd) { return v < 0 ? 0 : (v > (1 << bd) - 1 ? (1 << bd) - 1 : v); }
 
 // ---------------------------------------------------------------- geometry ---
 
@@ -310,13 +317,14 @@ void wht(int32_t* T, int shift) {
 
 // The 2D inverse transform of a txSz block: `deq` holds Dequant[i][j] at
 // i * 64 + j (rows and columns past 32 zero), `res` gets Residual at
-// i * w + j.
-void inverse_transform(const int32_t* deq, int txSz, int txType, int lossless, int32_t* res) {
+// i * w + j; the clamps of the rows (BitDepth + 8 bits) and columns
+// (Max(BitDepth + 6, 16) bits) follow the bit depth bd.
+void inverse_transform(const int32_t* deq, int txSz, int txType, int lossless, int32_t* res, int bd) {
     int log2W = tx_wlog2(txSz), log2H = tx_hlog2(txSz);
     int w = 1 << log2W, h = 1 << log2H;
     int rowShift = lossless ? 0 : kRowShift[txSz];
     int colShift = lossless ? 0 : 4;
-    int rowClamp = 8 + 8, colClamp = std::max(8 + 6, 16);
+    int rowClamp = bd + 8, colClamp = std::max(bd + 6, 16);
     int rt = kRowType[txType], ct = kColType[txType];
     Tx1D t;
     std::vector<int32_t> tmp((size_t)w * h);
@@ -401,7 +409,7 @@ void edge_filter(int* e, int sz, int strength) {
     }
 }
 
-void edge_upsample(int* buf, int numPx) {
+void edge_upsample(int* buf, int numPx, int bd) {
     int dup[300];
     dup[0] = buf[-1];
     for (int i = -1; i < numPx; i++) dup[i + 2] = buf[i];
@@ -409,7 +417,7 @@ void edge_upsample(int* buf, int numPx) {
     buf[-2] = dup[0];
     for (int i = 0; i < numPx; i++) {
         int s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3];
-        s = clip1(round2(s, 4));
+        s = clip1(round2(s, 4), bd);
         buf[2 * i - 1] = s;
         buf[2 * i] = dup[i + 2];
     }
@@ -417,8 +425,10 @@ void edge_upsample(int* buf, int numPx) {
 
 // The intra prediction of one block from its edges: `above` and `left` point
 // at index 0 of arrays valid from -16 (AboveRow / LeftCol, w + h entries and
-// the corner at -1, which the edge processes modify). `pred` gets w * h.
-void predict(const PredParams& p, int* above, int* left, uint8_t* pred) {
+// the corner at -1, which the edge processes modify). `pred` gets w * h
+// samples of bd bits.
+template <typename P>
+void predict(const PredParams& p, int* above, int* left, P* pred, int bd) {
     int w = 1 << p.log2W, h = 1 << p.log2H;
     if (p.useFilterIntra) {
         int w4 = w >> 2, h2 = h >> 1;
@@ -439,7 +449,7 @@ void predict(const PredParams& p, int* above, int* left, uint8_t* pred) {
                     int pr = 0;
                     for (int j = 0; j < 7; j++)
                         pr += FILTER_INTRA_TAPS[(p.filterIntraMode * 8 + i) * 8 + j] * pv[j];
-                    pred[((i2 << 1) + (i >> 2)) * w + (j4 << 2) + (i & 3)] = clip1(round2signed(pr, 4));
+                    pred[((i2 << 1) + (i >> 2)) * w + (j4 << 2) + (i & 3)] = (P)clip1(round2signed(pr, 4), bd);
                 }
             }
         }
@@ -467,9 +477,9 @@ void predict(const PredParams& p, int* above, int* left, uint8_t* pred) {
                 }
             }
             upA = use_upsample(w, h, p.filterType, pAngle - 90);
-            if (upA) edge_upsample(above, w + (pAngle < 90 ? h : 0));
+            if (upA) edge_upsample(above, w + (pAngle < 90 ? h : 0), bd);
             upL = use_upsample(w, h, p.filterType, pAngle - 180);
-            if (upL) edge_upsample(left, h + (pAngle > 180 ? w : 0));
+            if (upL) edge_upsample(left, h + (pAngle > 180 ? w : 0), bd);
         }
         int dx = 0, dy = 0;
         if (pAngle < 90) dx = DR_INTRA_DERIVATIVE[pAngle];
@@ -510,7 +520,7 @@ void predict(const PredParams& p, int* above, int* left, uint8_t* pred) {
                 } else {
                     v = left[i];
                 }
-                pred[i * w + j] = (uint8_t)v;
+                pred[i * w + j] = (P)v;
             }
         }
         return;
@@ -522,7 +532,7 @@ void predict(const PredParams& p, int* above, int* left, uint8_t* pred) {
             for (int j = 0; j < w; j++) {
                 int s = wy[i] * above[j] + (256 - wy[i]) * left[h - 1] + wx[j] * left[i] +
                         (256 - wx[j]) * above[w - 1];
-                pred[i * w + j] = (uint8_t)round2(s, 9);
+                pred[i * w + j] = (P)round2(s, 9);
             }
         return;
     }
@@ -530,14 +540,14 @@ void predict(const PredParams& p, int* above, int* left, uint8_t* pred) {
         const int16_t* wy = sm_weights(p.log2H);
         for (int i = 0; i < h; i++)
             for (int j = 0; j < w; j++)
-                pred[i * w + j] = (uint8_t)round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1], 8);
+                pred[i * w + j] = (P)round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1], 8);
         return;
     }
     if (mode == SMOOTH_H_PRED) {
         const int16_t* wx = sm_weights(p.log2W);
         for (int i = 0; i < h; i++)
             for (int j = 0; j < w; j++)
-                pred[i * w + j] = (uint8_t)round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8);
+                pred[i * w + j] = (P)round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8);
         return;
     }
     if (mode == DC_PRED) {
@@ -550,15 +560,15 @@ void predict(const PredParams& p, int* above, int* left, uint8_t* pred) {
         } else if (p.haveLeft) {
             int sum = 0;
             for (int k = 0; k < h; k++) sum += left[k];
-            avg = clip1((sum + (h >> 1)) >> p.log2H);
+            avg = clip1((sum + (h >> 1)) >> p.log2H, bd);
         } else if (p.haveAbove) {
             int sum = 0;
             for (int k = 0; k < w; k++) sum += above[k];
-            avg = clip1((sum + (w >> 1)) >> p.log2W);
+            avg = clip1((sum + (w >> 1)) >> p.log2W, bd);
         } else {
-            avg = 128;
+            avg = 1 << (bd - 1);
         }
-        std::memset(pred, avg, (size_t)w * h);
+        std::fill(pred, pred + (size_t)w * h, (P)avg);
         return;
     }
     // PAETH
@@ -571,14 +581,15 @@ void predict(const PredParams& p, int* above, int* left, uint8_t* pred) {
             if (pL <= pT && pL <= pTL) v = left[i];
             else if (pT <= pTL) v = above[j];
             else v = above[-1];
-            pred[i * w + j] = (uint8_t)v;
+            pred[i * w + j] = (P)v;
         }
 }
 
 // CfL: `luma` holds the (padded) luma samples the block averages, lw x lh
 // of subsampled positions already summed as in the specification (L[i][j]),
-// `pred` the DC prediction of w x h, modified in place.
-void cfl_apply(const int32_t* L, int w, int h, int alpha, uint8_t* pred) {
+// `pred` the DC prediction of w x h, modified in place (bd bits).
+template <typename P>
+void cfl_apply(const int32_t* L, int w, int h, int alpha, P* pred, int bd) {
     int64_t sum = 0;
     for (int k = 0; k < w * h; k++) sum += L[k];
     int avg = round2(sum, floorlog2(w) + floorlog2(h));
@@ -586,7 +597,7 @@ void cfl_apply(const int32_t* L, int w, int h, int alpha, uint8_t* pred) {
         for (int j = 0; j < w; j++) {
             int dc = pred[i * w + j];
             int scaled = round2signed((int64_t)alpha * (L[i * w + j] - avg), 6);
-            pred[i * w + j] = (uint8_t)clip1(dc + scaled);
+            pred[i * w + j] = (P)clip1(dc + scaled, bd);
         }
 }
 
@@ -596,44 +607,49 @@ struct LfParams {
     int filterSize, plane, limit, blimit, thresh;
 };
 
-// One position across an edge: s[k] for k = -8 .. 7 (s + 8 is q0), in place.
-void lf_sample(int* s, const LfParams& lp) {
+// One position across an edge: s[k] for k = -8 .. 7 (s + 8 is q0), in place;
+// the limits (given at 8 bits) and the flatness threshold scale by bd - 8,
+// the narrow filter's lanes are bd bits around 0x80 << (bd - 8).
+void lf_sample(int* s, const LfParams& lp, int bd) {
     int q0 = s[0], q1 = s[1], q2 = s[2], q3 = s[3];
     int p0 = s[-1], p1 = s[-2], p2 = s[-3], p3 = s[-4];
-    int hevMask = std::abs(p1 - p0) > lp.thresh || std::abs(q1 - q0) > lp.thresh;
+    int shift = bd - 8, limit = lp.limit << shift, blimit = lp.blimit << shift, thresh = lp.thresh << shift;
+    int one = 1 << shift;
+    int hevMask = std::abs(p1 - p0) > thresh || std::abs(q1 - q0) > thresh;
     int filterLen;
     if (lp.filterSize == 4) filterLen = 4;
     else if (lp.plane != 0) filterLen = 6;
     else if (lp.filterSize == 8) filterLen = 8;
     else filterLen = 16;
-    int mask = std::abs(p1 - p0) <= lp.limit && std::abs(q1 - q0) <= lp.limit &&
-               std::abs(p0 - q0) * 2 + std::abs(p1 - q1) / 2 <= lp.blimit;
-    if (filterLen >= 6) mask = mask && std::abs(p2 - p1) <= lp.limit && std::abs(q2 - q1) <= lp.limit;
-    if (filterLen >= 8) mask = mask && std::abs(p3 - p2) <= lp.limit && std::abs(q3 - q2) <= lp.limit;
+    int mask = std::abs(p1 - p0) <= limit && std::abs(q1 - q0) <= limit &&
+               std::abs(p0 - q0) * 2 + std::abs(p1 - q1) / 2 <= blimit;
+    if (filterLen >= 6) mask = mask && std::abs(p2 - p1) <= limit && std::abs(q2 - q1) <= limit;
+    if (filterLen >= 8) mask = mask && std::abs(p3 - p2) <= limit && std::abs(q3 - q2) <= limit;
     if (!mask) return;
     int flat = 0, flat2 = 0;
     if (lp.filterSize >= 8) {
-        flat = std::abs(p1 - p0) <= 1 && std::abs(q1 - q0) <= 1 && std::abs(p2 - p0) <= 1 &&
-               std::abs(q2 - q0) <= 1;
-        if (filterLen >= 8) flat = flat && std::abs(p3 - p0) <= 1 && std::abs(q3 - q0) <= 1;
+        flat = std::abs(p1 - p0) <= one && std::abs(q1 - q0) <= one && std::abs(p2 - p0) <= one &&
+               std::abs(q2 - q0) <= one;
+        if (filterLen >= 8) flat = flat && std::abs(p3 - p0) <= one && std::abs(q3 - q0) <= one;
     }
     if (lp.filterSize >= 16) {
-        flat2 = std::abs(s[-7] - p0) <= 1 && std::abs(s[6] - q0) <= 1 && std::abs(s[-6] - p0) <= 1 &&
-                std::abs(s[5] - q0) <= 1 && std::abs(s[-5] - p0) <= 1 && std::abs(s[4] - q0) <= 1;
+        flat2 = std::abs(s[-7] - p0) <= one && std::abs(s[6] - q0) <= one && std::abs(s[-6] - p0) <= one &&
+                std::abs(s[5] - q0) <= one && std::abs(s[-5] - p0) <= one && std::abs(s[4] - q0) <= one;
     }
     if (lp.filterSize == 4 || !flat) {
-        auto c = [](int v) { return clip3(-128, 127, v); };
-        int ps1 = p1 - 128, ps0 = p0 - 128, qs0 = q0 - 128, qs1 = q1 - 128;
+        int lo = -(1 << (bd - 1)), hi = (1 << (bd - 1)) - 1, mid = 0x80 << shift;
+        auto c = [lo, hi](int v) { return clip3(lo, hi, v); };
+        int ps1 = p1 - mid, ps0 = p0 - mid, qs0 = q0 - mid, qs1 = q1 - mid;
         int filter = hevMask ? c(ps1 - qs1) : 0;
         filter = c(filter + 3 * (qs0 - ps0));
         int filter1 = c(filter + 4) >> 3;
         int filter2 = c(filter + 3) >> 3;
-        s[0] = c(qs0 - filter1) + 128;
-        s[-1] = c(ps0 + filter2) + 128;
+        s[0] = c(qs0 - filter1) + mid;
+        s[-1] = c(ps0 + filter2) + mid;
         if (!hevMask) {
             filter = round2(filter1, 1);
-            s[1] = c(qs1 - filter) + 128;
-            s[-2] = c(ps1 + filter) + 128;
+            s[1] = c(qs1 - filter) + mid;
+            s[-2] = c(ps1 + filter) + mid;
         }
         return;
     }
@@ -663,7 +679,7 @@ void lf_sample(int* s, const LfParams& lp) {
 // int32 appended while they fit (kinds TRACE_*), off unless fd_av1_trace set
 // a buffer. Not thread-safe; the load path never sets one.
 enum { TRACE_PREDICT = 1, TRACE_CFL = 2, TRACE_TXFM = 3, TRACE_LF = 4, TRACE_CDEF = 5, TRACE_WIENER = 6,
-       TRACE_SGR = 7 };
+       TRACE_SGR = 7, TRACE_DEPTH = 8 };
 int32_t* g_trace = nullptr;
 int64_t g_trace_cap = 0, g_trace_len = 0, g_trace_lost = 0;
 
@@ -675,6 +691,16 @@ struct TraceRecord {
     }
     void put(int32_t v) { if (ok) g_trace[g_trace_len++] = v; }
 };
+
+// A record of kind TRACE_DEPTH sets the bit depth of the records after it
+// (8 until one does): each entry point of a frame at 10 or 12 bits writes
+// one first, so an 8-bit frame's trace is as it was.
+void trace_depth(int bd) {
+    if (bd == 8) return;
+    TraceRecord tr(g_trace ? 2 : 0);
+    tr.put(TRACE_DEPTH);
+    tr.put(bd);
+}
 
 // ---------------------------------------------------------- symbol decoder ---
 
@@ -887,8 +913,9 @@ enum {
     // out-array (its stride)
     H_LR_TYPE = H_CDEF_UV_SEC + 8, H_LR_SIZE = H_LR_TYPE + 3, H_LR_ROWS = H_LR_SIZE + 3,
     H_LR_COLS = H_LR_ROWS + 3, H_LR_STRIDE = H_LR_COLS + 3,
-    // the chroma planes' subsampling across and down (1 for monochrome)
-    H_SSX, H_SSY, H_SIZE
+    // the chroma planes' subsampling across and down (1 for monochrome),
+    // BitDepth (8, 10 or 12)
+    H_SSX, H_SSY, H_BITDEPTH, H_SIZE
 };
 enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
 // a restoration unit in the out-array: its type, the Wiener taps 0-2 of the
@@ -905,13 +932,15 @@ enum { M_SIZE, M_SKIP, M_SEG, M_TX_Y, M_TX_UV, M_DLF0, M_DLF1, M_DLF2, M_DLF3, M
 
 // ------------------------------------------------------------------ tile ---
 
+template <typename P>
 struct Tile {
     const int32_t* hdr;
     int miCols, miRows, rowStart, rowEnd, colStart, colEnd;
     // 4:2:0, 4:2:2 or 4:4:4 (a monochrome frame has no chroma planes)
     int ssx, ssy;
     int mono, numPlanes, use128, sbSize4;
-    uint8_t* plane[3];
+    int bd;  // BitDepth: 8 (P uint8_t), 10 or 12 (uint16_t)
+    P* plane[3];
     int stride[3];
     int32_t* mi;  // [miRows][miCols][M_FIELDS]
     int32_t* cdefIdx;  // [(miRows + 15) / 16][(miCols + 15) / 16], -1 unread
@@ -921,7 +950,7 @@ struct Tile {
     Cdfs cdf;
     // frame-wide block state read by the contexts
     std::vector<uint8_t> palSize[2];
-    std::vector<uint8_t> palColors[2];  // 8 a 4x4
+    std::vector<uint16_t> palColors[2];  // 8 a 4x4
     std::vector<uint8_t> txTypes;
     std::vector<uint8_t> txSizes;
     std::vector<uint8_t> aboveLevel[3], aboveDc[3], leftLevel[3], leftDc[3];
@@ -999,12 +1028,12 @@ struct Tile {
             if (hasRows && hasCols) {
                 partition = sd.symbol(pc, N);
             } else if (hasCols || hasRows) {
-                auto P = [&](int s) { return s >= N ? 0 : (s == 0 ? 32768 : pc[s - 1]) - pc[s]; };
+                auto Pr = [&](int s) { return s >= N ? 0 : (s == 0 ? 32768 : pc[s - 1]) - pc[s]; };
                 int psum;
                 if (hasCols)  // split_or_horz
-                    psum = P(2) + P(3) + P(4) + P(6) + P(7) + (bSize != B128X128 ? P(9) : 0);
+                    psum = Pr(2) + Pr(3) + Pr(4) + Pr(6) + Pr(7) + (bSize != B128X128 ? Pr(9) : 0);
                 else          // split_or_vert
-                    psum = P(1) + P(3) + P(4) + P(5) + P(6) + (bSize != B128X128 ? P(8) : 0);
+                    psum = Pr(1) + Pr(3) + Pr(4) + Pr(5) + Pr(6) + (bSize != B128X128 ? Pr(8) : 0);
                 uint16_t tmp[3] = {(uint16_t)psum, 0, 0};
                 int bit = sd.decode(tmp, 2);
                 partition = bit ? 3 : (hasCols ? 1 : 2);
@@ -1267,8 +1296,8 @@ struct Tile {
         int aboveN = 0, leftN = 0;
         if (((miRow * 4) % 64) && availU) aboveN = palSize[p][(size_t)(miRow - 1) * miCols + miCol];
         if (availL) leftN = palSize[p][(size_t)miRow * miCols + miCol - 1];
-        const uint8_t* ac = &palColors[p][((size_t)(miRow - 1) * miCols + miCol) * 8];
-        const uint8_t* lc = &palColors[p][((size_t)miRow * miCols + miCol - 1) * 8];
+        const uint16_t* ac = &palColors[p][((size_t)(miRow - 1) * miCols + miCol) * 8];
+        const uint16_t* lc = &palColors[p][((size_t)miRow * miCols + miCol - 1) * 8];
         int ai = 0, li = 0, n = 0;
         while (ai < aboveN && li < leftN) {
             int a = ac[ai], l = lc[li];
@@ -1297,14 +1326,14 @@ struct Tile {
         int idx = 0;
         for (int i = 0; i < cacheN && idx < size; i++)
             if (sd.literal(1)) colors[idx++] = cache[i];
-        if (idx < size) colors[idx++] = sd.literal(8);
+        if (idx < size) colors[idx++] = sd.literal(bd);
         int paletteBits = 0;
-        if (idx < size) paletteBits = 5 + sd.literal(2);
+        if (idx < size) paletteBits = bd - 3 + sd.literal(2);
         while (idx < size) {
             int delta = sd.literal(paletteBits);
             if (p == 0) delta++;
-            colors[idx] = clip1(colors[idx - 1] + delta);
-            int range = 256 - colors[idx] - (p == 0 ? 1 : 0);
+            colors[idx] = clip1(colors[idx - 1] + delta, bd);
+            int range = (1 << bd) - colors[idx] - (p == 0 ? 1 : 0);
             idx++;
             paletteBits = std::min(paletteBits, ceillog2(range));
         }
@@ -1327,18 +1356,18 @@ struct Tile {
                 paletteSizeUV = sd.symbol(cdf.palette_uv_size[bsizeCtx], 7) + 2;
                 read_palette_colors(1, paletteSizeUV, paletteColors[1]);
                 if (sd.literal(1)) {
-                    int bits = 4 + sd.literal(2);
-                    paletteColors[2][0] = sd.literal(8);
+                    int bits = bd - 4 + sd.literal(2), maxVal = 1 << bd;
+                    paletteColors[2][0] = sd.literal(bd);
                     for (int idx = 1; idx < paletteSizeUV; idx++) {
                         int d = sd.literal(bits);
                         if (d && sd.literal(1)) d = -d;
                         int val = paletteColors[2][idx - 1] + d;
-                        if (val < 0) val += 256;
-                        if (val >= 256) val -= 256;
-                        paletteColors[2][idx] = clip1(val);
+                        if (val < 0) val += maxVal;
+                        if (val >= maxVal) val -= maxVal;
+                        paletteColors[2][idx] = clip1(val, bd);
                     }
                 } else {
-                    for (int idx = 0; idx < paletteSizeUV; idx++) paletteColors[2][idx] = sd.literal(8);
+                    for (int idx = 0; idx < paletteSizeUV; idx++) paletteColors[2][idx] = sd.literal(bd);
                 }
             }
         }
@@ -1663,8 +1692,10 @@ struct Tile {
         mvCol = pred[1] + diff[1];
     }
     // The block copied from the frame decoded so far (BILINEAR at the
-    // chroma's half pels; rounding of a single prediction at 8 bits)
+    // chroma's half pels; the rounding of a single prediction, InterRound0
+    // 3 and InterRound1 11, at 12 bits 5 and 9)
     void predict_intrabc() {
+        int round0 = bd == 12 ? 5 : 3, round1 = bd == 12 ? 9 : 11;
         for (int p = 0; p < 1 + hasChroma * 2; p++) {
             int sx = p ? ssx : 0, sy = p ? ssy : 0;
             int planeSz = plane_size(miSize, sx, sy);
@@ -1673,10 +1704,10 @@ struct Tile {
             int64_t startX = ((int64_t)(baseX << 4) + ((2 * mvCol) >> sx)) * 64 + 32;
             int64_t startY = ((int64_t)(baseY << 4) + ((2 * mvRow) >> sy)) * 64 + 32;
             int lastX = ((hdr[H_WIDTH] + sx) >> sx) - 1, lastY = ((hdr[H_HEIGHT] + sy) >> sy) - 1;
-            const uint8_t* f = plane[p];
+            const P* f = plane[p];
             int st = stride[p];
             static int32_t inter[(128 + 8) * 128];
-            static uint8_t out[128 * 128];
+            static P out[128 * 128];
             int ih = h + 7;
             for (int r = 0; r < ih; r++)
                 for (int c = 0; c < w; c++) {
@@ -1686,7 +1717,7 @@ struct Tile {
                     int x0 = clip3(0, lastX, (int)(pos >> 10));
                     int x1 = clip3(0, lastX, (int)(pos >> 10) + 1);
                     int s = (128 - 8 * k) * f[(size_t)y * st + x0] + 8 * k * f[(size_t)y * st + x1];
-                    inter[r * w + c] = round2(s, 3);
+                    inter[r * w + c] = round2(s, round0);
                 }
             for (int r = 0; r < h; r++)
                 for (int c = 0; c < w; c++) {
@@ -1694,10 +1725,10 @@ struct Tile {
                     int k = (int)((pos >> 6) & 15);
                     int row = (int)(pos >> 10) + 3;
                     int s = (128 - 8 * k) * inter[row * w + c] + 8 * k * inter[(row + 1) * w + c];
-                    out[r * w + c] = (uint8_t)clip1(round2(s, 11));
+                    out[r * w + c] = (P)clip1(round2(s, round1), bd);
                 }
-            uint8_t* dst = plane[p] + (size_t)baseY * st + baseX;
-            for (int r = 0; r < h; r++) std::memcpy(dst + (size_t)r * st, out + r * w, w);
+            P* dst = plane[p] + (size_t)baseY * st + baseX;
+            for (int r = 0; r < h; r++) std::memcpy(dst + (size_t)r * st, out + r * w, sizeof(P) * w);
         }
     }
 
@@ -1999,8 +2030,15 @@ struct Tile {
     }
 
     // ---- reconstruction
-    int dc_q(int b) const { return DC_QLOOKUP[clip3(0, 255, b)]; }
-    int ac_q(int b) const { return AC_QLOOKUP[clip3(0, 255, b)]; }
+    // Dc_Qlookup and Ac_Qlookup, the row of the bit depth
+    int dc_q(int b) const {
+        const int16_t* t = bd == 12 ? DC_QLOOKUP_12 : (bd == 10 ? DC_QLOOKUP_10 : DC_QLOOKUP);
+        return t[clip3(0, 255, b)];
+    }
+    int ac_q(int b) const {
+        const int16_t* t = bd == 12 ? AC_QLOOKUP_12 : (bd == 10 ? AC_QLOOKUP_10 : AC_QLOOKUP);
+        return t[clip3(0, 255, b)];
+    }
     void reconstruct(int plane, int x, int y, int txSz) {
         int pels = kTW[txSz] * kTH[txSz];
         int dqShift = (pels > 256) + (pels > 1024);
@@ -2015,6 +2053,7 @@ struct Tile {
         static int32_t deq[64 * 64];
         static int32_t res[64 * 64];
         std::memset(deq, 0, sizeof(deq));
+        const int64_t dqMax = ((int64_t)1 << (7 + bd)) - 1;
         // the quantiser matrix of the plane's level (15: none; none for the
         // identity and 1D types), at the adjusted size's offset in QM_IWT
         // (sizes in order, 64s reusing 32s)
@@ -2035,7 +2074,7 @@ struct Tile {
                 int64_t v = ((int64_t)std::abs(qv) * q) & 0xFFFFFF;
                 v >>= dqShift;
                 if (qv < 0) v = -v;
-                deq[i * 64 + j] = (int32_t)std::max<int64_t>(-32768, std::min<int64_t>(32767, v));
+                deq[i * 64 + j] = (int32_t)std::max<int64_t>(-dqMax - 1, std::min<int64_t>(dqMax, v));
             }
         int nnz = 0;
         for (int i = 0; i < th; i++)
@@ -2052,14 +2091,14 @@ struct Tile {
                     tr.put(i * 64 + j);
                     tr.put(deq[i * 64 + j]);
                 }
-        inverse_transform(deq, txSz, planeTxType, lossless, res);
+        inverse_transform(deq, txSz, planeTxType, lossless, res, bd);
         for (int k = 0; k < w * h; k++) tr.put(res[k]);
-        uint8_t* p = plane_ptr(plane, x, y);
+        P* p = plane_ptr(plane, x, y);
         int st = stride[plane];
         for (int i = 0; i < h; i++)
-            for (int j = 0; j < w; j++) p[(size_t)i * st + j] = (uint8_t)clip1(p[(size_t)i * st + j] + res[i * w + j]);
+            for (int j = 0; j < w; j++) p[(size_t)i * st + j] = (P)clip1(p[(size_t)i * st + j] + res[i * w + j], bd);
     }
-    uint8_t* plane_ptr(int p, int x, int y) { return plane[p] + (size_t)y * stride[p] + x; }
+    P* plane_ptr(int p, int x, int y) { return plane[p] + (size_t)y * stride[p] + x; }
 
     // ---- intra prediction of one tx block
     int is_smooth(int r, int c, int p) {
@@ -2094,18 +2133,19 @@ struct Tile {
         int aboveBuf[320], leftBuf[320];
         int* above = aboveBuf + 16;
         int* left = leftBuf + 16;
-        uint8_t* f = plane[p];
+        P* f = plane[p];
         int st = stride[p];
         auto px = [&](int yy, int xx) { return (int)f[(size_t)yy * st + xx]; };
+        int base = 1 << (bd - 1);
         for (int i = 0; i < w + h; i++) {
             if (!haveAbove && haveLeft) above[i] = px(y, x - 1);
-            else if (!haveAbove && !haveLeft) above[i] = 127;
+            else if (!haveAbove && !haveLeft) above[i] = base - 1;
             else {
                 int aboveLimit = std::min(maxX, x + (haveAboveRight ? 2 * w : w) - 1);
                 above[i] = px(y - 1, std::min(aboveLimit, x + i));
             }
             if (!haveLeft && haveAbove) left[i] = px(y - 1, x);
-            else if (!haveLeft && !haveAbove) left[i] = 129;
+            else if (!haveLeft && !haveAbove) left[i] = base + 1;
             else {
                 int leftLimit = std::min(maxY, y + (haveBelowLeft ? 2 * h : h) - 1);
                 left[i] = px(std::min(leftLimit, y + i), x - 1);
@@ -2114,7 +2154,7 @@ struct Tile {
         if (haveAbove && haveLeft) above[-1] = px(y - 1, x - 1);
         else if (haveAbove) above[-1] = px(y - 1, x);
         else if (haveLeft) above[-1] = px(y, x - 1);
-        else above[-1] = 128;
+        else above[-1] = base;
         left[-1] = above[-1];
         PredParams pp;
         pp.mode = mode;
@@ -2129,7 +2169,7 @@ struct Tile {
         pp.filterIntraMode = filterIntraMode;
         pp.aboveLimit = maxX - x + 1;
         pp.leftLimit = maxY - y + 1;
-        uint8_t pred[64 * 64];
+        P pred[64 * 64];
         int n = w + h + 1;
         TraceRecord tr(g_trace ? 14 + 2 * n + w * h : 0);
         if (tr.ok) {
@@ -2142,9 +2182,9 @@ struct Tile {
             for (int k = -1; k < n - 1; k++) tr.put(above[k]);
             for (int k = -1; k < n - 1; k++) tr.put(left[k]);
         }
-        predict(pp, above, left, pred);
+        predict(pp, above, left, pred, bd);
         for (int k = 0; k < w * h; k++) tr.put(pred[k]);
-        for (int i = 0; i < h; i++) std::memcpy(f + (size_t)(y + i) * st + x, pred + i * w, w);
+        for (int i = 0; i < h; i++) std::memcpy(f + (size_t)(y + i) * st + x, pred + i * w, sizeof(P) * w);
     }
     void predict_cfl(int p, int startX, int startY, int txSz) {
         int w = kTW[txSz], h = kTH[txSz];
@@ -2163,9 +2203,9 @@ struct Tile {
                 L[i * w + j] = t << (3 - ssx - ssy);
             }
         }
-        uint8_t pred[64 * 64];
-        uint8_t* f = plane_ptr(p, startX, startY);
-        for (int i = 0; i < h; i++) std::memcpy(pred + i * w, f + (size_t)i * stride[p], w);
+        P pred[64 * 64];
+        P* f = plane_ptr(p, startX, startY);
+        for (int i = 0; i < h; i++) std::memcpy(pred + i * w, f + (size_t)i * stride[p], sizeof(P) * w);
         TraceRecord tr(g_trace ? 4 + 3 * w * h : 0);
         tr.put(TRACE_CFL);
         tr.put(w);
@@ -2173,18 +2213,18 @@ struct Tile {
         tr.put(alpha);
         for (int k = 0; k < w * h; k++) tr.put(L[k]);
         for (int k = 0; k < w * h; k++) tr.put(pred[k]);
-        cfl_apply(L, w, h, alpha, pred);
+        cfl_apply(L, w, h, alpha, pred, bd);
         for (int k = 0; k < w * h; k++) tr.put(pred[k]);
-        for (int i = 0; i < h; i++) std::memcpy(f + (size_t)i * stride[p], pred + i * w, w);
+        for (int i = 0; i < h; i++) std::memcpy(f + (size_t)i * stride[p], pred + i * w, sizeof(P) * w);
     }
     void predict_palette(int p, int startX, int startY, int x, int y, int txSz) {
         int w = kTW[txSz], h = kTH[txSz];
         const int* pal = paletteColors[p];
-        uint8_t* f = plane_ptr(p, startX, startY);
+        P* f = plane_ptr(p, startX, startY);
         for (int i = 0; i < h; i++)
             for (int j = 0; j < w; j++) {
                 int idx = p == 0 ? colorMapY[y * 4 + i][x * 4 + j] : colorMapUV[y * 4 + i][x * 4 + j];
-                f[(size_t)i * stride[p] + j] = (uint8_t)pal[idx];
+                f[(size_t)i * stride[p] + j] = (P)pal[idx];
             }
     }
     void transform_block(int p, int baseX, int baseY, int txSz, int x, int y) {
@@ -2341,8 +2381,8 @@ struct Tile {
                 palSize[0][i] = (uint8_t)paletteSizeY;
                 palSize[1][i] = (uint8_t)paletteSizeUV;
                 for (int k = 0; k < 8; k++) {
-                    palColors[0][i * 8 + k] = (uint8_t)(k < paletteSizeY ? paletteColors[0][k] : 0);
-                    palColors[1][i * 8 + k] = (uint8_t)(k < paletteSizeUV ? paletteColors[1][k] : 0);
+                    palColors[0][i * 8 + k] = (uint16_t)(k < paletteSizeY ? paletteColors[0][k] : 0);
+                    palColors[1][i * 8 + k] = (uint16_t)(k < paletteSizeUV ? paletteColors[1][k] : 0);
                 }
             }
         if (isInter) predict_intrabc();
@@ -2360,6 +2400,8 @@ struct Tile {
         numPlanes = mono ? 1 : 3;
         ssx = hdr[H_SSX];
         ssy = hdr[H_SSY];
+        bd = hdr[H_BITDEPTH];
+        trace_depth(bd);
         use128 = hdr[H_USE128];
         sbSize4 = use128 ? 32 : 16;
         size_t n = (size_t)miRows * miCols;
@@ -2405,11 +2447,12 @@ struct Tile {
 
 // ---------------------------------------------------------------- deblock ---
 
+template <typename P>
 struct Deblock {
-    int ssx, ssy;
+    int ssx, ssy, bd;
     const int32_t* hdr;
     int miCols, miRows, numPlanes, width, height;
-    uint8_t* plane[3];
+    P* plane[3];
     int stride[3];
     const int32_t* mi;
 
@@ -2466,7 +2509,7 @@ struct Deblock {
         if (lvl == 0) strength(prevRow, prevCol, p, pass, &lvl, &limit, &blimit, &thresh);
         if (!applyFilter || lvl == 0) return;
         LfParams lp{filterSize, p, limit, blimit, thresh};
-        uint8_t* f = plane[p];
+        P* f = plane[p];
         int st = stride[p], ph = (miRows * 4) >> sy;
         for (int i = 0; i < 4; i++) {
             int xx = xP + dy * i, yy = yP + dx * i;
@@ -2485,17 +2528,18 @@ struct Deblock {
             tr.put(lp.blimit);
             tr.put(lp.thresh);
             for (int k = 0; k < 16; k++) tr.put(s[k]);
-            lf_sample(s + 8, lp);
+            lf_sample(s + 8, lp, bd);
             for (int k = 0; k < 16; k++) tr.put(s[k]);
             for (int k = -7; k < 7; k++) {
                 int px = xx + dx * k, py = yy + dy * k;
-                if (ok(px, py)) f[(size_t)py * st + px] = (uint8_t)s[k + 8];
+                if (ok(px, py)) f[(size_t)py * st + px] = (P)s[k + 8];
             }
         }
     }
 
     void run() {
         if (!hdr[H_LF_LEVEL0] && !hdr[H_LF_LEVEL0 + 1]) return;
+        trace_depth(bd);
         for (int p = 0; p < numPlanes; p++) {
             if (p == 1 && !hdr[H_LF_LEVEL0 + 2]) continue;
             if (p == 2 && !hdr[H_LF_LEVEL0 + 3]) continue;
@@ -2511,12 +2555,13 @@ struct Deblock {
 // ------------------------------------------------------------------- CDEF ---
 
 // The direction search of one 8x8 (specification 7.15.2) on its samples
-// `b` (row stride `st`): the best of the 8 directions and the variance.
-int cdef_direction(const int* b, int st, int* var) {
+// `b` (row stride `st`, bd bits, searched at 8): the best of the 8
+// directions and the variance.
+int cdef_direction(const int* b, int st, int* var, int bd) {
     int cost[8] = {0}, partial[8][15] = {{0}};
     for (int i = 0; i < 8; i++)
         for (int j = 0; j < 8; j++) {
-            int x = b[i * st + j] - 128;
+            int x = (b[i * st + j] >> (bd - 8)) - 128;
             partial[0][i + j] += x;
             partial[1][i + j / 2] += x;
             partial[2][i] += x;
@@ -2564,11 +2609,14 @@ inline int cdef_constrain(int diff, int threshold, int shift) {
 
 // The CDEF filter (7.15.3) of a w x h block from its window `win`: (h + 4)
 // rows of w + 4 samples, the block at (2, 2), -1 where a sample lies
-// outside the frame (CdefAvailable 0); `out` gets w * h.
-void cdef_filter(const int* win, int w, int h, int pri, int sec, int damping, int dir, uint8_t* out) {
+// outside the frame (CdefAvailable 0); `out` gets w * h. The strengths and
+// damping are the bit depth's (shifted by coeffShift = bd - 8), and the
+// taps follow the primary strength at 8 bits.
+template <typename P>
+void cdef_filter(const int* win, int w, int h, int pri, int sec, int damping, int dir, P* out, int bd) {
     int ws = w + 4;
-    const int16_t* pt = CDEF_PRI_TAPS[pri & 1];
-    const int16_t* st = CDEF_SEC_TAPS[pri & 1];
+    const int16_t* pt = CDEF_PRI_TAPS[(pri >> (bd - 8)) & 1];
+    const int16_t* st = CDEF_SEC_TAPS[(pri >> (bd - 8)) & 1];
     int priShift = pri ? std::max(0, damping - floorlog2(pri)) : 0;
     int secShift = sec ? std::max(0, damping - floorlog2(sec)) : 0;
     // the window offsets of the primary taps (k = 0, 1) and of the
@@ -2606,18 +2654,24 @@ void cdef_filter(const int* win, int w, int h, int pri, int sec, int damping, in
                         }
                     }
                 }
-            out[i * w + j] = (uint8_t)clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4));
+            out[i * w + j] = (P)clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4));
         }
 }
 
-// One block's CDEF (7.15.1) from its window: luma turns its primary
-// strength off with the direction where it is 0 and adjusts it by the
-// variance; chroma maps the luma direction yDir through Cdef_Uv_Dir by its
-// subsampling, which the block's size gives (8 >> ssx wide, 8 >> ssy tall;
-// the identity for 4:2:0 and 4:4:4). Returns the direction used.
+// One block's CDEF (7.15.1) from its window: the strengths and damping as
+// the header gives them (damping one less for chroma), shifted by bd - 8;
+// luma turns its primary strength off with the direction where it is 0 and
+// adjusts it by the variance; chroma maps the luma direction yDir through
+// Cdef_Uv_Dir by its subsampling, which the block's size gives (8 >> ssx
+// wide, 8 >> ssy tall; the identity for 4:2:0 and 4:4:4). Returns the
+// direction used.
+template <typename P>
 int cdef_apply(const int* win, int w, int h, int plane, int pri, int sec, int damping, int yDir, int var,
-               uint8_t* out) {
-    int dir;
+               P* out, int bd) {
+    int dir, coeffShift = bd - 8;
+    pri <<= coeffShift;
+    sec <<= coeffShift;
+    damping += coeffShift;
     if (plane == 0) {
         dir = pri ? yDir : 0;
         int varStr = (var >> 6) ? std::min(floorlog2(var >> 6), 12) : 0;
@@ -2625,15 +2679,16 @@ int cdef_apply(const int* win, int w, int h, int plane, int pri, int sec, int da
     } else {
         dir = pri ? CDEF_UV_DIR[w == 4][h == 4][yDir] : 0;
     }
-    cdef_filter(win, w, h, pri, sec, damping, dir, out);
+    cdef_filter(win, w, h, pri, sec, damping, dir, out, bd);
     return dir;
 }
 
+template <typename P>
 struct Cdef {
     const int32_t* hdr;
-    int miCols, miRows, numPlanes, ssx, ssy;
-    const uint8_t* src[3];
-    uint8_t* dst[3];
+    int miCols, miRows, numPlanes, ssx, ssy, bd;
+    const P* src[3];
+    P* dst[3];
     int stride[3];
     const int32_t* mi;
     const int32_t* idx;
@@ -2661,9 +2716,9 @@ struct Cdef {
         int sx = p ? ssx : 0, sy = p ? ssy : 0;
         int w = 8 >> sx, h = 8 >> sy;
         int win[12 * 12];
-        uint8_t out[64];
+        P out[64];
         window(p, r, c, win);
-        int dir = cdef_apply(win, w, h, p, pri, sec, damping, yDir, var, out);
+        int dir = cdef_apply(win, w, h, p, pri, sec, damping, yDir, var, out, bd);
         int x0 = (c * 4) >> sx, y0 = (r * 4) >> sy;
         for (int i = 0; i < h; i++)
             for (int j = 0; j < w; j++) dst[p][(size_t)(y0 + i) * stride[p] + x0 + j] = out[i * w + j];
@@ -2684,6 +2739,7 @@ struct Cdef {
     }
 
     void run() {
+        trace_depth(bd);
         int cols = (miCols + 15) >> 4;
         for (int r = 0; r < miRows; r += 2)
             for (int c = 0; c < miCols; c += 2) {
@@ -2698,7 +2754,7 @@ struct Cdef {
                     int b[64];
                     for (int i = 0; i < 8; i++)
                         for (int j = 0; j < 8; j++) b[i * 8 + j] = src[0][(size_t)(r * 4 + i) * stride[0] + c * 4 + j];
-                    yDir = cdef_direction(b, 8, &var);
+                    yDir = cdef_direction(b, 8, &var, bd);
                 }
                 if (yPri || ySec) filter(0, r, c, yPri, ySec, damping, yDir, var);
                 if (numPlanes > 1 && (uvPri || uvSec))
@@ -2711,9 +2767,11 @@ struct Cdef {
 
 // The Wiener filter (7.17.4) of a w x h block from its window `win`: (h + 6)
 // rows of w + 6 samples, the block at (3, 3); the vertical and horizontal
-// taps 0-2 (tap 3 is 128 less twice their sum); 8-bit rounding
-// (InterRound0 3, InterRound1 11) with the intermediate clipped.
-void wiener_filter(const int* win, int w, int h, const int* vtaps, const int* htaps, uint8_t* out) {
+// taps 0-2 (tap 3 is 128 less twice their sum); the rounding of the bit
+// depth bd (InterRound0 3, InterRound1 11; 5 and 9 at 12 bits) with the
+// intermediate clipped.
+template <typename P>
+void wiener_filter(const int* win, int w, int h, const int* vtaps, const int* htaps, P* out, int bd) {
     int vf[7], hf[7];
     vf[3] = hf[3] = 128;
     for (int i = 0; i < 3; i++) {
@@ -2722,26 +2780,28 @@ void wiener_filter(const int* win, int w, int h, const int* vtaps, const int* ht
         vf[3] -= 2 * vtaps[i];
         hf[3] -= 2 * htaps[i];
     }
-    const int offset = 1 << (8 + 7 - 3 - 1), limit = (1 << (8 + 1 + 7 - 3)) - 1;
+    const int round0 = bd == 12 ? 5 : 3, round1 = bd == 12 ? 9 : 11;
+    const int offset = 1 << (bd + 7 - round0 - 1), limit = (1 << (bd + 1 + 7 - round0)) - 1;
     int ws = w + 6;
     std::vector<int> mid((size_t)(h + 6) * w);
     for (int r = 0; r < h + 6; r++)
         for (int c = 0; c < w; c++) {
             int s = 0;
             for (int t = 0; t < 7; t++) s += hf[t] * win[r * ws + c + t];
-            mid[(size_t)r * w + c] = clip3(-offset, limit - offset, round2(s, 3));
+            mid[(size_t)r * w + c] = clip3(-offset, limit - offset, round2(s, round0));
         }
     for (int r = 0; r < h; r++)
         for (int c = 0; c < w; c++) {
             int s = 0;
             for (int t = 0; t < 7; t++) s += vf[t] * mid[(size_t)(r + t) * w + c];
-            out[r * w + c] = (uint8_t)clip1(round2(s, 11));
+            out[r * w + c] = (P)clip1(round2(s, round1), bd);
         }
 }
 
 // One box filter pass (7.17.3) of the self-guided filter: F (h x w) from the
-// window (as wiener_filter's) with radius r and scale s.
-void sgr_box(const int* win, int w, int h, int r, int s, int pass, std::vector<int>& F) {
+// window (as wiener_filter's) with radius r and scale s; the variance is
+// taken at 8 bits (the sums rounded by bd - 8 and twice that).
+void sgr_box(const int* win, int w, int h, int r, int s, int pass, std::vector<int>& F, int bd) {
     int ws = w + 6, n = (2 * r + 1) * (2 * r + 1);
     int aw = w + 2;
     std::vector<int> A((size_t)(h + 2) * aw), B((size_t)(h + 2) * aw);
@@ -2755,7 +2815,9 @@ void sgr_box(const int* win, int w, int h, int r, int s, int pass, std::vector<i
                     a += c * c;
                     b += c;
                 }
-            int64_t p = std::max<int64_t>(0, a * n - b * b);
+            int64_t a8 = bd == 8 ? a : (a + ((int64_t)1 << (2 * (bd - 8) - 1))) >> (2 * (bd - 8));
+            int64_t d8 = bd == 8 ? b : (b + ((int64_t)1 << (bd - 9))) >> (bd - 8);
+            int64_t p = std::max<int64_t>(0, a8 * n - d8 * d8);
             int64_t z = (p * s + (1 << 19)) >> 20;
             int a2 = X_BY_XPLUS1[std::min<int64_t>(z, 255)];
             int64_t b2 = (int64_t)((1 << 8) - a2) * b * oneOverN;
@@ -2784,11 +2846,12 @@ void sgr_box(const int* win, int w, int h, int r, int s, int pass, std::vector<i
 // The self-guided filter (7.17.3) of a w x h block from its window: the
 // set's two box passes (a radius of 0 leaves one out) and the projection
 // with weights xqd.
-void sgr_filter(const int* win, int w, int h, int set, const int* xqd, uint8_t* out) {
+template <typename P>
+void sgr_filter(const int* win, int w, int h, int set, const int* xqd, P* out, int bd) {
     std::vector<int> f0, f1;
     int r0 = SGR_PARAMS[set][0], r1 = SGR_PARAMS[set][1];
-    if (r0) sgr_box(win, w, h, r0, SGR_PARAMS[set][2], 0, f0);
-    if (r1) sgr_box(win, w, h, r1, SGR_PARAMS[set][3], 1, f1);
+    if (r0) sgr_box(win, w, h, r0, SGR_PARAMS[set][2], 0, f0, bd);
+    if (r1) sgr_box(win, w, h, r1, SGR_PARAMS[set][3], 1, f1, bd);
     int w0 = xqd[0], w1 = xqd[1], w2 = (1 << 7) - w0 - w1;
     int ws = w + 6;
     for (int i = 0; i < h; i++)
@@ -2797,20 +2860,22 @@ void sgr_filter(const int* win, int w, int h, int set, const int* xqd, uint8_t* 
             int64_t v = (int64_t)w1 * u;
             v += (int64_t)w0 * (r0 ? f0[(size_t)i * w + j] : u);
             v += (int64_t)w2 * (r1 ? f1[(size_t)i * w + j] : u);
-            out[i * w + j] = (uint8_t)clip1(round2(v, 4 + 7));
+            out[i * w + j] = (P)clip1(round2(v, 4 + 7), bd);
         }
 }
 
+template <typename P>
 struct Restoration {
     const int32_t* hdr;
-    int numPlanes, width, height, ssx, ssy;
-    const uint8_t* pre[3];   // deblocked, before CDEF
-    const uint8_t* cdef[3];  // CDEF's output
-    uint8_t* dst[3];
+    int numPlanes, width, height, ssx, ssy, bd;
+    const P* pre[3];   // deblocked, before CDEF
+    const P* cdef[3];  // CDEF's output
+    P* dst[3];
     int stride[3];
     const int32_t* units;
 
     void run() {
+        trace_depth(bd);
         for (int p = 0; p < numPlanes; p++) {
             if (hdr[H_LR_TYPE + p] == RESTORE_NONE) continue;
             int sx = p ? ssx : 0, sy = p ? ssy : 0;
@@ -2850,12 +2915,12 @@ struct Restoration {
         for (int r = 0; r < h + 6; r++)
             for (int c = 0; c < ws; c++)
                 win[(size_t)r * ws + c] = sample(p, x0 + c - 3, y0 + r - 3, stripeStart, stripeEnd, planeW, planeH);
-        std::vector<uint8_t> out((size_t)w * h);
+        std::vector<P> out((size_t)w * h);
         int wiener = u[L_TYPE] == RESTORE_WIENER;
-        if (wiener) wiener_filter(win.data(), w, h, u + L_WIENER, u + L_WIENER + 3, out.data());
-        else sgr_filter(win.data(), w, h, u[L_SET], u + L_XQD, out.data());
+        if (wiener) wiener_filter(win.data(), w, h, u + L_WIENER, u + L_WIENER + 3, out.data(), bd);
+        else sgr_filter(win.data(), w, h, u[L_SET], u + L_XQD, out.data(), bd);
         for (int i = 0; i < h; i++)
-            std::memcpy(dst[p] + (size_t)(y0 + i) * stride[p] + x0, out.data() + (size_t)i * w, w);
+            std::memcpy(dst[p] + (size_t)(y0 + i) * stride[p] + x0, out.data() + (size_t)i * w, sizeof(P) * w);
         TraceRecord tr(g_trace ? 9 + n + w * h : 0);
         tr.put(wiener ? TRACE_WIENER : TRACE_SGR);
         tr.put(w);
@@ -2882,7 +2947,10 @@ struct Restoration {
 // linear and bilinear upsamplers; bilinear filtering (rows interpolated at
 // 8 bits, columns at 7 bits with the x86 column filter's rounding) up or
 // down; point sampling where a side is 1 wide. The 3/4 and 3/8 filters are
-// not ported (kScaleRatio).
+// not ported (kScaleRatio). The 16-bit planes of a 10- or 12-bit frame
+// take ScalePlane_16's paths, the same but for two: its box sums are 32
+// bits wide (the 8-bit ones wrap at 16), and its column filter is the C
+// one, 16-bit fractions (libyuv has no x86 form of it).
 namespace scale {
 
 enum { F_NONE, F_LINEAR, F_BILINEAR, F_BOX };
@@ -2905,16 +2973,27 @@ int reduce(int sw, int sh, int dw, int dh, int f) {
     return f;
 }
 
-void interp_row(const uint8_t* a, const uint8_t* b, int n, int f, uint8_t* out) {
-    for (int x = 0; x < n; x++) out[x] = f ? (uint8_t)((a[x] * (256 - f) + b[x] * f + 128) >> 8) : a[x];
+template <typename P>
+void interp_row(const P* a, const P* b, int n, int f, P* out) {
+    for (int x = 0; x < n; x++) out[x] = f ? (P)((a[x] * (256 - f) + b[x] * f + 128) >> 8) : a[x];
 }
 
-// the x86 column filter: 7-bit fractions, (128 - f) a + f b rounded
+// the x86 column filter of 8-bit rows: 7-bit fractions, (128 - f) a + f b
+// rounded
 void filter_cols(const uint8_t* row, int dw, int x, int dx, uint8_t* out) {
     for (int j = 0; j < dw; j++, x += dx) {
         int xi = x >> 16, f = (x >> 9) & 127;
         int a = row[xi], b = f ? row[xi + 1] : 0;
         out[j] = (uint8_t)(((128 - f) * a + f * b + 64) >> 7);
+    }
+}
+
+// ScaleFilterCols_16_C: 16-bit fractions, a + (f (b - a) + 0x8000) >> 16
+void filter_cols(const uint16_t* row, int dw, int x, int dx, uint16_t* out) {
+    for (int j = 0; j < dw; j++, x += dx) {
+        int xi = x >> 16, f = x & 0xffff;
+        int a = row[xi], b = f ? row[xi + 1] : a;
+        out[j] = (uint16_t)(a + (int)(((int64_t)f * (b - a) + 0x8000) >> 16));
     }
 }
 
@@ -2946,12 +3025,15 @@ void slope(int sw, int sh, int dw, int dh, int f, int* x, int* y, int* dx, int* 
     }
 }
 
-int plane(const uint8_t* src, int ss, int sw, int sh, uint8_t* dst, int ds, int dw, int dh) {
+template <typename P>
+int plane(const P* src, int ss, int sw, int sh, P* dst, int ds, int dw, int dh) {
+    // libyuv's ScaleAddRow sums: uint16_t for 8-bit rows (they wrap), uint32_t for 16-bit
+    using Sum = typename std::conditional<sizeof(P) == 1, uint16_t, uint32_t>::type;
     int f = reduce(sw, sh, dw, dh, F_BOX);
     auto S = [&](int r) { return src + (size_t)r * ss; };
     auto D = [&](int r) { return dst + (size_t)r * ds; };
     if (dw == sw && dh == sh) {
-        for (int r = 0; r < dh; r++) std::memcpy(D(r), S(r), dw);
+        for (int r = 0; r < dh; r++) std::memcpy(D(r), S(r), sizeof(P) * dw);
         return 0;
     }
     if (dw == sw && f != F_BOX) {  // ScalePlaneVertical
@@ -2975,8 +3057,8 @@ int plane(const uint8_t* src, int ss, int sw, int sh, uint8_t* dst, int ds, int 
         if (2 * dw == sw && 2 * dh == sh) {  // 2x2 means
             for (int j = 0; j < dh; j++)
                 for (int i = 0; i < dw; i++)
-                    D(j)[i] = (uint8_t)((S(2 * j)[2 * i] + S(2 * j)[2 * i + 1] + S(2 * j + 1)[2 * i] +
-                                         S(2 * j + 1)[2 * i + 1] + 2) >> 2);
+                    D(j)[i] = (P)((S(2 * j)[2 * i] + S(2 * j)[2 * i + 1] + S(2 * j + 1)[2 * i] +
+                                   S(2 * j + 1)[2 * i + 1] + 2) >> 2);
             return 0;
         }
         if (8 * dw == 3 * sw && 8 * dh == 3 * sh) return kScaleRatio;
@@ -2986,40 +3068,40 @@ int plane(const uint8_t* src, int ss, int sw, int sh, uint8_t* dst, int ds, int 
                     int t = 8;
                     for (int a = 0; a < 4; a++)
                         for (int b = 0; b < 4; b++) t += S(4 * j + a)[4 * i + b];
-                    D(j)[i] = (uint8_t)(t >> 4);
+                    D(j)[i] = (P)(t >> 4);
                 }
             return 0;
         }
     }
     if (f == F_BOX && dh * 2 < sh) {  // ScalePlaneBox: both sides below half, boxes 2 or more wide
         int dx = fixed_div(sw, dw), dy = fixed_div(sh, dh), y = 0, maxY = sh << 16;
-        std::vector<uint16_t> row(sw);  // libyuv's uint16 row sums
+        std::vector<Sum> row(sw);
         for (int j = 0; j < dh; j++) {
             int iy = y >> 16;
             y = std::min(y + dy, maxY);
             int bh = std::max(1, (y >> 16) - iy);
             std::fill(row.begin(), row.end(), 0);
             for (int k = 0; k < bh; k++)
-                for (int i = 0; i < sw; i++) row[i] = (uint16_t)(row[i] + S(iy + k)[i]);
+                for (int i = 0; i < sw; i++) row[i] = (Sum)(row[i] + S(iy + k)[i]);
             for (int i = 0, x = 0; i < dw; i++) {
                 // a fractional step gives boxes of dx >> 16 or one more
                 int ix = (dx & 0xffff) ? x >> 16 : i * (dx >> 16);
                 x += dx;
                 int bw = (dx & 0xffff) ? (x >> 16) - ix : dx >> 16;
-                int t = 0;
+                uint32_t t = 0;
                 for (int k = 0; k < bw; k++) t += row[ix + k];
-                D(j)[i] = (uint8_t)((t * (65536 / (bw * bh))) >> 16);
+                D(j)[i] = (P)((t * (uint32_t)(65536 / (bw * bh))) >> 16);
             }
         }
         return 0;
     }
     if ((dw + 1) / 2 == sw && f == F_LINEAR) {  // ScalePlaneUp2_Linear
-        auto up = [&](const uint8_t* r, uint8_t* o) {
+        auto up = [&](const P* r, P* o) {
             o[0] = r[0];
             int n = ((dw - 1) & ~1) / 2;
             for (int x = 0; x < n; x++) {
-                o[1 + 2 * x] = (uint8_t)((3 * r[x] + r[x + 1] + 2) >> 2);
-                o[2 + 2 * x] = (uint8_t)((r[x] + 3 * r[x + 1] + 2) >> 2);
+                o[1 + 2 * x] = (P)((3 * r[x] + r[x + 1] + 2) >> 2);
+                o[2 + 2 * x] = (P)((r[x] + 3 * r[x + 1] + 2) >> 2);
             }
             o[dw - 1] = r[(dw - 1) / 2];
         };
@@ -3032,22 +3114,22 @@ int plane(const uint8_t* src, int ss, int sw, int sh, uint8_t* dst, int ds, int 
         return 0;
     }
     if ((dh + 1) / 2 == sh && (dw + 1) / 2 == sw && (f == F_BILINEAR || f == F_BOX)) {  // ScalePlaneUp2_Bilinear
-        auto two = [&](const uint8_t* a, const uint8_t* b, uint8_t* da, uint8_t* db) {
-            da[0] = (uint8_t)((3 * a[0] + b[0] + 2) >> 2);
-            if (db) db[0] = (uint8_t)((a[0] + 3 * b[0] + 2) >> 2);
+        auto two = [&](const P* a, const P* b, P* da, P* db) {
+            da[0] = (P)((3 * a[0] + b[0] + 2) >> 2);
+            if (db) db[0] = (P)((a[0] + 3 * b[0] + 2) >> 2);
             int n = ((dw - 1) & ~1) / 2;
             for (int x = 0; x < n; x++) {
                 int s0 = a[x], s1 = a[x + 1], t0 = b[x], t1 = b[x + 1];
-                da[1 + 2 * x] = (uint8_t)((s0 * 9 + s1 * 3 + t0 * 3 + t1 + 8) >> 4);
-                da[2 + 2 * x] = (uint8_t)((s0 * 3 + s1 * 9 + t0 + t1 * 3 + 8) >> 4);
+                da[1 + 2 * x] = (P)((s0 * 9 + s1 * 3 + t0 * 3 + t1 + 8) >> 4);
+                da[2 + 2 * x] = (P)((s0 * 3 + s1 * 9 + t0 + t1 * 3 + 8) >> 4);
                 if (db) {
-                    db[1 + 2 * x] = (uint8_t)((s0 * 3 + s1 + t0 * 9 + t1 * 3 + 8) >> 4);
-                    db[2 + 2 * x] = (uint8_t)((s0 + s1 * 3 + t0 * 3 + t1 * 9 + 8) >> 4);
+                    db[1 + 2 * x] = (P)((s0 * 3 + s1 + t0 * 9 + t1 * 3 + 8) >> 4);
+                    db[2 + 2 * x] = (P)((s0 + s1 * 3 + t0 * 3 + t1 * 9 + 8) >> 4);
                 }
             }
             int k = (dw - 1) / 2;
-            da[dw - 1] = (uint8_t)((3 * a[k] + b[k] + 2) >> 2);
-            if (db) db[dw - 1] = (uint8_t)((a[k] + 3 * b[k] + 2) >> 2);
+            da[dw - 1] = (P)((3 * a[k] + b[k] + 2) >> 2);
+            if (db) db[dw - 1] = (P)((a[k] + 3 * b[k] + 2) >> 2);
         };
         two(S(0), S(0), D(0), nullptr);
         int r = 1;
@@ -3060,20 +3142,20 @@ int plane(const uint8_t* src, int ss, int sw, int sh, uint8_t* dst, int ds, int 
         slope(sw, sh, dw, dh, f, &x, &y, &dx, &dy);
         int maxY = (sh - 1) << 16;
         y = std::min(y, maxY);
-        std::vector<uint8_t> top(dw), bot(dw), row(sw + 1, 0);
+        std::vector<P> top(dw), bot(dw), row(sw + 1, 0);
         for (int j = 0; j < dh; j++) {
             int yi = y >> 16;
             if (dh > sh) {  // ScalePlaneBilinearUp: the columns of two rows, then the rows
                 filter_cols(S(yi), dw, x, dx, top.data());
                 if (f == F_LINEAR) {
-                    std::memcpy(D(j), top.data(), dw);
+                    std::memcpy(D(j), top.data(), sizeof(P) * dw);
                 } else {
                     filter_cols(S(std::min(yi + 1, sh - 1)), dw, x, dx, bot.data());
                     interp_row(top.data(), bot.data(), dw, (y >> 8) & 255, D(j));
                 }
                 y = std::min(y + dy, maxY);
             } else {  // ScalePlaneBilinearDown: the rows, then the columns
-                if (f == F_LINEAR) std::memcpy(row.data(), S(yi), sw);
+                if (f == F_LINEAR) std::memcpy(row.data(), S(yi), sizeof(P) * sw);
                 else interp_row(S(yi), S(std::min(yi + 1, sh - 1)), sw, (y >> 8) & 255, row.data());
                 filter_cols(row.data(), dw, x, dx, D(j));
                 y = std::min(y + dy, maxY);
@@ -3099,75 +3181,99 @@ int plane(const uint8_t* src, int ss, int sw, int sh, uint8_t* dst, int ds, int 
 // for PIL: its route (libyuv's fixed point with one set of YuvConstants, or
 // libavif's own float conversion), the chroma subsampling, the range, the
 // float route's mode and kr / kb (float bits), the constants' YG, YB, UB,
-// UG, VG and VR.
-enum { C_ROUTE, C_SSX, C_SSY, C_FULL, C_MODE, C_KR, C_KB, C_YG, C_YB, C_UB, C_UG, C_VG, C_VR, C_FIELDS };
+// UG, VG and VR; then the planes' bit depth (8, 10 or 12: uint16_t samples
+// past 8), C_DOWN (the planes brought to 8 bits first, >> (depth - 8) as
+// libyuv's Convert16To8Plane, where libavif downshifts an image that libyuv
+// has no high-bit-depth function for, and converted as an 8-bit image),
+// C_NEAREST (libyuv's I012ToARGBMatrix: each 4:2:0 chroma sample for its
+// 2x2, no filter) and C_ALPHA_ROUND (the alpha plane to 8 bits as libavif
+// rounds it, a * 255 / max; else shifted, as libyuv takes it).
+enum { C_ROUTE, C_SSX, C_SSY, C_FULL, C_MODE, C_KR, C_KB, C_YG, C_YB, C_UB, C_UG, C_VG, C_VR, C_DEPTH, C_DOWN,
+       C_NEAREST, C_ALPHA_ROUND, C_FIELDS };
 enum { ROUTE_LIBYUV, ROUTE_FLOAT };
-enum { MODE_YUV, MODE_IDENTITY, MODE_YCGCO };
+enum { MODE_YUV, MODE_IDENTITY, MODE_YCGCO, MODE_YCGCO_RE };
 
-// libyuv's YuvPixel (row_common.cc): Y scaled by 0x0101 * YG >> 16, U and
-// V with the biases folded into the constants, 6 fractional bits.
-inline void yuv_pixel(const int32_t* c, int y, int u, int v, uint8_t* rgb) {
+// libyuv's YuvPixel (row_common.cc): Y as 16 bits (y * 0x0101 at 8 bits,
+// the sample's bits repeated at 10 and 12) scaled by YG >> 16, U and V at
+// 8 bits with the biases folded into the constants, 6 fractional bits.
+inline void yuv_pixel(const int32_t* c, uint32_t y32, int u, int v, uint8_t* rgb) {
     int yg = c[C_YG], yb = c[C_YB], ub = c[C_UB], ug = c[C_UG], vg = c[C_VG], vr = c[C_VR];
-    int y1 = (int)((uint32_t)(y * 0x0101 * yg) >> 16);
+    int y1 = (int)((y32 * (uint32_t)yg) >> 16);
     int b16 = y1 + u * ub - (ub * 128 - yb);
     int g16 = y1 + (ug * 128 + vg * 128 + yb) - (u * ug + v * vg);
     int r16 = y1 + v * vr - (vr * 128 - yb);
-    rgb[0] = (uint8_t)clip1(r16 >> 6);
-    rgb[1] = (uint8_t)clip1(g16 >> 6);
-    rgb[2] = (uint8_t)clip1(b16 >> 6);
+    rgb[0] = (uint8_t)clip1(r16 >> 6, 8);
+    rgb[1] = (uint8_t)clip1(g16 >> 6, 8);
+    rgb[2] = (uint8_t)clip1(b16 >> 6, 8);
 }
 
-// libyuv's chroma upsampling of one output row into urow / vrow: none for
-// 4:4:4; 4:2:2 across only (ScaleRowUp2_Linear, 3:1); 4:2:0 the two
-// chroma rows nearest, 3:1, then across, 3:1 (ScaleRowUp2_Bilinear,
-// 9-3-3-1 / 16). The first and last columns take their chroma sample.
-void libyuv_chroma_row(const uint8_t* u, const uint8_t* v, int cs, int ssx, int ssy, int row, int w, int h,
-                       uint8_t* urow, uint8_t* vrow) {
-    int cw = (w + ssx) >> ssx, ch = (h + ssy) >> ssy;
+// a sample of `depth` bits as libyuv's 16-bit Y
+inline uint32_t libyuv_y16(int y, int depth) { return ((uint32_t)y << (16 - depth)) | ((uint32_t)y >> (2 * depth - 16)); }
+
+// libyuv's chroma upsampling of one output row into urow / vrow, then to
+// 8 bits (>> (depth - 8), at most 255): none for 4:4:4; 4:2:2 across only
+// (ScaleRowUp2_Linear, 3:1); 4:2:0 the two chroma rows nearest, 3:1, then
+// across, 3:1 (ScaleRowUp2_Bilinear, 9-3-3-1 / 16), or with `nearest` the
+// sample of the 2x2. The first and last columns take their chroma sample.
+template <typename P>
+void libyuv_chroma_row(const P* u, const P* v, int cs, int ssx, int ssy, int nearest, int depth, int row, int w,
+                       int h, int* urow, int* vrow) {
+    int cw = (w + ssx) >> ssx, ch = (h + ssy) >> ssy, s = depth - 8;
     int near = row, far = row;
     if (ssy) {
         int c0 = (row - 1) >> 1;
         near = (row & 1) ? c0 : c0 + 1;
         far = (row & 1) ? c0 + 1 : c0;
         if (row == 0) near = far = 0;
+        if (nearest) near = far = row >> 1;
         near = std::min(std::max(near, 0), ch - 1);
         far = std::min(std::max(far, 0), ch - 1);
     }
-    const uint8_t* un = u + (size_t)near * cs;
-    const uint8_t* uf = u + (size_t)far * cs;
-    const uint8_t* vn = v + (size_t)near * cs;
-    const uint8_t* vf = v + (size_t)far * cs;
+    const P* un = u + (size_t)near * cs;
+    const P* uf = u + (size_t)far * cs;
+    const P* vn = v + (size_t)near * cs;
+    const P* vf = v + (size_t)far * cs;
     for (int x = 0; x < w; x++) {
+        int uu, vv;
         if (!ssx) {
-            urow[x] = un[x];
-            vrow[x] = vn[x];
-            continue;
-        }
-        int cx = (x - 1) >> 1;
-        int nx = (x & 1) ? cx : cx + 1, fx = (x & 1) ? cx + 1 : cx;
-        if (x == 0) nx = fx = 0;
-        if (x == w - 1) nx = fx = (w - 1) >> 1;
-        nx = std::min(std::max(nx, 0), cw - 1);
-        fx = std::min(std::max(fx, 0), cw - 1);
-        if (ssy) {
-            urow[x] = (uint8_t)((9 * un[nx] + 3 * uf[nx] + 3 * un[fx] + uf[fx] + 8) >> 4);
-            vrow[x] = (uint8_t)((9 * vn[nx] + 3 * vf[nx] + 3 * vn[fx] + vf[fx] + 8) >> 4);
+            uu = un[x];
+            vv = vn[x];
+        } else if (nearest) {
+            uu = un[x >> 1];
+            vv = vn[x >> 1];
         } else {
-            urow[x] = (uint8_t)((3 * un[nx] + un[fx] + 2) >> 2);
-            vrow[x] = (uint8_t)((3 * vn[nx] + vn[fx] + 2) >> 2);
+            int cx = (x - 1) >> 1;
+            int nx = (x & 1) ? cx : cx + 1, fx = (x & 1) ? cx + 1 : cx;
+            if (x == 0) nx = fx = 0;
+            if (x == w - 1) nx = fx = (w - 1) >> 1;
+            nx = std::min(std::max(nx, 0), cw - 1);
+            fx = std::min(std::max(fx, 0), cw - 1);
+            if (ssy) {
+                uu = (9 * un[nx] + 3 * uf[nx] + 3 * un[fx] + uf[fx] + 8) >> 4;
+                vv = (9 * vn[nx] + 3 * vf[nx] + 3 * vn[fx] + vf[fx] + 8) >> 4;
+            } else {
+                uu = (3 * un[nx] + un[fx] + 2) >> 2;
+                vv = (3 * vn[nx] + vn[fx] + 2) >> 2;
+            }
         }
+        urow[x] = std::min(uu >> s, 255);
+        vrow[x] = std::min(vv >> s, 255);
     }
 }
 
 // libavif's own conversion (reformat.c, avifImageYUVAnyToRGBAnySlow and
-// its 8-bit fast paths, which compute the same): float unorm tables, 4:2:x
-// chroma upsampled bilinearly on the floats (the nearest sample 9/16, the
-// adjacent column and row 3/16, the diagonal 1/16; 4:2:2 takes the row
-// itself as its adjacent row), then the mode's formulas, a clamp to [0, 1]
-// and 0.5 + x * 255 truncated. Built without contraction (no FMA), as each
-// operation rounds in libavif.
-void float_pixel_row(const int32_t* c, const float* tY, const float* tUV, const uint8_t* yr, const uint8_t* u,
-                     const uint8_t* v, int cs, int row, int w, int h, uint8_t* out) {
+// its fast paths, which compute the same): float unorm tables of the bit
+// depth, 4:2:x chroma upsampled bilinearly on the floats (the nearest
+// sample 9/16, the adjacent column and row 3/16, the diagonal 1/16; 4:2:2
+// takes the row itself as its adjacent row), then the mode's formulas, a
+// clamp to [0, 1] and 0.5 + x * 255 truncated. Built without contraction
+// (no FMA), as each operation rounds in libavif. YCgCo-Re (10-bit samples
+// of 8-bit RGB) takes the integers back from the floats (Cg and Co rounded
+// from the upsampled chroma) and libavif's lifting steps, each of G and B
+// clamped before R is made from B.
+template <typename P>
+void float_pixel_row(const int32_t* c, const float* tY, const float* tUV, const P* yr, const P* u, const P* v,
+                     int cs, int row, int w, int h, uint8_t* out) {
     int ssx = c[C_SSX], ssy = c[C_SSY], mode = c[C_MODE];
     float kr, kb;
     std::memcpy(&kr, &c[C_KR], 4);
@@ -3196,7 +3302,16 @@ void float_pixel_row(const int32_t* c, const float* tY, const float* tUV, const 
                 Cr = (tUV[v[p00]] * (9.0f / 16.0f)) + (tUV[v[p10]] * (3.0f / 16.0f)) +
                      (tUV[v[p01]] * (3.0f / 16.0f)) + (tUV[v[p11]] * (1.0f / 16.0f));
             }
-            if (mode == MODE_IDENTITY) {
+            if (mode == MODE_YCGCO_RE) {
+                int max = c[C_DEPTH] == 8 ? 255 : (1 << c[C_DEPTH]) - 1;
+                int cg = (int)std::floor(Cb * (float)max + 0.5f), co = (int)std::floor(Cr * (float)max + 0.5f);
+                int t = (int)yr[i] - (cg >> 1);
+                int g = clip1(t + cg, 8), b = clip1(t - (co >> 1), 8), r = clip1(b + co, 8);
+                out[(size_t)i * 4] = (uint8_t)r;
+                out[(size_t)i * 4 + 1] = (uint8_t)g;
+                out[(size_t)i * 4 + 2] = (uint8_t)b;
+                continue;
+            } else if (mode == MODE_IDENTITY) {
                 G = Y;
                 B = Cb;
                 R = Cr;
@@ -3219,6 +3334,47 @@ void float_pixel_row(const int32_t* c, const float* tY, const float* tUV, const 
     }
 }
 
+// The colour of a w x h image (samples of `depth` bits) into RGBA's R, G
+// and B by the conversion `c`.
+template <typename P>
+void to_rgb(const int32_t* c, int depth, const P* y, int ys, const P* u, const P* v, int cs, int w, int h,
+            uint8_t* out) {
+    int n = 1 << depth, s = depth - 8, full = c[C_FULL];
+    std::vector<float> tY(n), tUV(n);
+    float biasY = full ? 0.0f : (float)(16 << s), rangeY = full ? (float)(n - 1) : (float)(219 << s);
+    float biasUV = (float)(128 << s), rangeUV = full ? (float)(n - 1) : (float)(224 << s);
+    for (int cp = 0; cp < n; cp++) {
+        tY[cp] = ((float)cp - biasY) / rangeY;
+        tUV[cp] = c[C_MODE] == MODE_IDENTITY ? tY[cp] : ((float)cp - biasUV) / rangeUV;
+    }
+    std::vector<int> urow(w + 1), vrow(w + 1);
+    for (int row = 0; row < h; row++) {
+        const P* yr = y + (size_t)row * ys;
+        uint8_t* o = out + (size_t)row * w * 4;
+        if (c[C_ROUTE] == ROUTE_FLOAT) {
+            float_pixel_row(c, tY.data(), tUV.data(), yr, u, v, cs, row, w, h, o);
+        } else if (!u) {  // libyuv's YPixel: grey
+            for (int x = 0; x < w; x++) {
+                int y1 = (int)((libyuv_y16(yr[x], depth) * (uint32_t)c[C_YG]) >> 16);
+                o[x * 4] = o[x * 4 + 1] = o[x * 4 + 2] = (uint8_t)clip1((y1 + c[C_YB]) >> 6, 8);
+            }
+        } else {
+            libyuv_chroma_row(u, v, cs, c[C_SSX], c[C_SSY], c[C_NEAREST], depth, row, w, h, urow.data(),
+                              vrow.data());
+            for (int x = 0; x < w; x++) yuv_pixel(c, libyuv_y16(yr[x], depth), urow[x], vrow[x], o + x * 4);
+        }
+    }
+}
+
+// rows x cols samples of `depth` bits (stride st) brought to 8 bits
+std::vector<uint8_t> downshift(const uint16_t* p, int st, int cols, int rows, int depth) {
+    std::vector<uint8_t> out((size_t)cols * rows);
+    for (int r = 0; r < rows; r++)
+        for (int x = 0; x < cols; x++)
+            out[(size_t)r * cols + x] = (uint8_t)std::min(p[(size_t)r * st + x] >> (depth - 8), 255);
+    return out;
+}
+
 }  // namespace
 
 extern "C" {
@@ -3234,18 +3390,20 @@ int64_t fd_av1_trace(int32_t* buf, int64_t cap) {
     return n;
 }
 
-// One tile into the planes and the per-4x4 info; `left` gets the symbol
-// decoder's SymbolMaxBits at the tile's end (negative: bits read past it).
-// `cdef` gets each 64x64's CDEF index (-1 where read_cdef read none), `lr`
-// each restoration unit ([3][H_LR_STRIDE][L_FIELDS]).
-int fd_av1_tile(const uint8_t* data, int64_t size, const int32_t* hdr, uint8_t* y, uint8_t* u,
-                uint8_t* v, int32_t* mi, int64_t* left, int32_t* cdef, int32_t* lr) {
-    if (!data || size < 0 || !hdr || !y || !mi || !cdef || !lr) return kArgs;
-    Tile* t = new Tile();
+}  // extern "C"
+
+namespace {
+
+inline bool valid_depth(int bd) { return bd == 8 || bd == 10 || bd == 12; }
+
+template <typename P>
+int tile_at(const uint8_t* data, int64_t size, const int32_t* hdr, void* y, void* u, void* v, int32_t* mi,
+            int64_t* left, int32_t* cdef, int32_t* lr) {
+    Tile<P>* t = new Tile<P>();
     t->hdr = hdr;
-    t->plane[0] = y;
-    t->plane[1] = u;
-    t->plane[2] = v;
+    t->plane[0] = (P*)y;
+    t->plane[1] = (P*)u;
+    t->plane[2] = (P*)v;
     t->stride[0] = hdr[H_STRIDE_Y];
     t->stride[1] = t->stride[2] = hdr[H_STRIDE_UV];
     t->mi = mi;
@@ -3257,136 +3415,78 @@ int fd_av1_tile(const uint8_t* data, int64_t size, const int32_t* hdr, uint8_t* 
     return r;
 }
 
-int fd_av1_deblock(const int32_t* hdr, uint8_t* y, uint8_t* u, uint8_t* v, const int32_t* mi) {
-    if (!hdr || !y || !mi) return kArgs;
-    Deblock d;
+template <typename P>
+void deblock_at(const int32_t* hdr, void* y, void* u, void* v, const int32_t* mi) {
+    Deblock<P> d;
     d.hdr = hdr;
     d.miCols = hdr[H_MI_COLS];
     d.miRows = hdr[H_MI_ROWS];
     d.numPlanes = hdr[H_MONO] ? 1 : 3;
     d.ssx = hdr[H_SSX];
     d.ssy = hdr[H_SSY];
+    d.bd = hdr[H_BITDEPTH];
     d.width = hdr[H_WIDTH];
     d.height = hdr[H_HEIGHT];
-    d.plane[0] = y;
-    d.plane[1] = u;
-    d.plane[2] = v;
+    d.plane[0] = (P*)y;
+    d.plane[1] = (P*)u;
+    d.plane[2] = (P*)v;
     d.stride[0] = hdr[H_STRIDE_Y];
     d.stride[1] = d.stride[2] = hdr[H_STRIDE_UV];
     d.mi = mi;
     d.run();
-    return 0;
 }
 
-// CDEF of the deblocked planes y, u, v (null for monochrome) into dy, du, dv
-// (copies of them), by the per-4x4 info and the 64x64 indices.
-int fd_av1_cdef(const int32_t* hdr, const uint8_t* y, const uint8_t* u, const uint8_t* v, uint8_t* dy,
-                uint8_t* du, uint8_t* dv, const int32_t* mi, const int32_t* cdef) {
-    if (!hdr || !y || !dy || !mi || !cdef) return kArgs;
-    Cdef c;
+template <typename P>
+void cdef_at(const int32_t* hdr, const void* y, const void* u, const void* v, void* dy, void* du, void* dv,
+             const int32_t* mi, const int32_t* cdef) {
+    Cdef<P> c;
     c.hdr = hdr;
     c.miCols = hdr[H_MI_COLS];
     c.miRows = hdr[H_MI_ROWS];
     c.numPlanes = hdr[H_MONO] ? 1 : 3;
     c.ssx = hdr[H_SSX];
     c.ssy = hdr[H_SSY];
-    if (c.numPlanes > 1 && !(u && v && du && dv)) return kArgs;
-    c.src[0] = y;
-    c.src[1] = u;
-    c.src[2] = v;
-    c.dst[0] = dy;
-    c.dst[1] = du;
-    c.dst[2] = dv;
+    c.bd = hdr[H_BITDEPTH];
+    c.src[0] = (const P*)y;
+    c.src[1] = (const P*)u;
+    c.src[2] = (const P*)v;
+    c.dst[0] = (P*)dy;
+    c.dst[1] = (P*)du;
+    c.dst[2] = (P*)dv;
     c.stride[0] = hdr[H_STRIDE_Y];
     c.stride[1] = c.stride[2] = hdr[H_STRIDE_UV];
     c.mi = mi;
     c.idx = cdef;
     c.run();
-    return 0;
 }
 
-// Loop restoration of CDEF's planes (cy, cu, cv) into dy, du, dv (copies of
-// them), the stripes' edge rows from the deblocked planes (py, pu, pv).
-int fd_av1_lr(const int32_t* hdr, const uint8_t* py, const uint8_t* pu, const uint8_t* pv, const uint8_t* cy,
-              const uint8_t* cu, const uint8_t* cv, uint8_t* dy, uint8_t* du, uint8_t* dv, const int32_t* lr) {
-    if (!hdr || !py || !cy || !dy || !lr) return kArgs;
-    Restoration R;
+template <typename P>
+void lr_at(const int32_t* hdr, const void* const* pre, const void* const* cdef, void* const* dst, const int32_t* lr) {
+    Restoration<P> R;
     R.hdr = hdr;
     R.numPlanes = hdr[H_MONO] ? 1 : 3;
     R.ssx = hdr[H_SSX];
     R.ssy = hdr[H_SSY];
-    if (R.numPlanes > 1 && !(pu && pv && cu && cv && du && dv)) return kArgs;
+    R.bd = hdr[H_BITDEPTH];
     R.width = hdr[H_WIDTH];
     R.height = hdr[H_HEIGHT];
-    const uint8_t* p[3] = {py, pu, pv};
-    const uint8_t* c[3] = {cy, cu, cv};
-    uint8_t* d[3] = {dy, du, dv};
     for (int i = 0; i < 3; i++) {
-        R.pre[i] = p[i];
-        R.cdef[i] = c[i];
-        R.dst[i] = d[i];
+        R.pre[i] = (const P*)pre[i];
+        R.cdef[i] = (const P*)cdef[i];
+        R.dst[i] = (P*)dst[i];
     }
     R.stride[0] = hdr[H_STRIDE_Y];
     R.stride[1] = R.stride[2] = hdr[H_STRIDE_UV];
     R.units = lr;
     R.run();
-    return 0;
 }
 
-// Y (ys stride), U and V (cs stride, or null for monochrome), alpha (as
-// stride, or null: 255) of a w x h image to RGBA by the conversion `conv`
-// (C_FIELDS values).
-int fd_av1_to_rgb(const uint8_t* y, int ys, const uint8_t* u, const uint8_t* v, int cs,
-                  const uint8_t* a, int as, int w, int h, const int32_t* conv, uint8_t* out) {
-    if (!y || !out || !conv || w <= 0 || h <= 0 || (!u != !v)) return kArgs;
-    int route = conv[C_ROUTE], ssx = conv[C_SSX], ssy = conv[C_SSY], full = conv[C_FULL];
-    if ((route != ROUTE_LIBYUV && route != ROUTE_FLOAT) || ssx < 0 || ssx > 1 || ssy < 0 || ssy > ssx ||
-        conv[C_MODE] < MODE_YUV || conv[C_MODE] > MODE_YCGCO)
-        return kArgs;
-    float tY[256], tUV[256];
-    float biasY = full ? 0.0f : 16.0f, rangeY = full ? 255.0f : 219.0f, rangeUV = full ? 255.0f : 224.0f;
-    for (int cp = 0; cp < 256; cp++) {
-        tY[cp] = ((float)cp - biasY) / rangeY;
-        tUV[cp] = conv[C_MODE] == MODE_IDENTITY ? tY[cp] : ((float)cp - 128.0f) / rangeUV;
-    }
-    std::vector<uint8_t> urow(w + 1), vrow(w + 1);
-    for (int row = 0; row < h; row++) {
-        const uint8_t* yr = y + (size_t)row * ys;
-        uint8_t* o = out + (size_t)row * w * 4;
-        if (route == ROUTE_FLOAT) {
-            float_pixel_row(conv, tY, tUV, yr, u, v, cs, row, w, h, o);
-        } else if (!u) {  // libyuv's YPixel: grey
-            for (int x = 0; x < w; x++) {
-                int y1 = (int)((uint32_t)(yr[x] * 0x0101 * conv[C_YG]) >> 16);
-                o[x * 4] = o[x * 4 + 1] = o[x * 4 + 2] = (uint8_t)clip1((y1 + conv[C_YB]) >> 6);
-            }
-        } else {
-            libyuv_chroma_row(u, v, cs, ssx, ssy, row, w, h, urow.data(), vrow.data());
-            for (int x = 0; x < w; x++) yuv_pixel(conv, yr[x], urow[x], vrow[x], o + x * 4);
-        }
-        for (int x = 0; x < w; x++) o[x * 4 + 3] = a ? a[(size_t)row * as + x] : 255;
-    }
-    return 0;
-}
-
-// A sw x sh plane (src, stride ss) to dw x dh (dst, stride ds) as libavif
-// scales a decoded frame to its ispe; kScaleRatio for the 3/4 and 3/8
-// scales, which are not ported.
-int fd_av1_scale(const uint8_t* src, int ss, int sw, int sh, uint8_t* dst, int ds, int dw, int dh) {
-    if (!src || !dst || sw <= 0 || sh <= 0 || dw <= 0 || dh <= 0 || ss < sw || ds < dw) return kArgs;
-    return scale::plane(src, ss, sw, sh, dst, ds, dw, dh);
-}
-
-// CDEF of one block from its window ((h + 4) x (w + 4) samples, -1
-// outside the frame): luma (plane 0, 8x8) searches its direction on the
-// window's centre, chroma (4x4, 4 wide and 8 tall for 4:2:2, 8x8 for
-// 4:4:4) maps ydir by its size; out gets w * h, dv the
-// direction and variance as the trace records them.
-int fd_av1_cdef_block(const int32_t* win, int w, int h, int plane, int pri, int sec, int damping, int ydir,
-                      uint8_t* out, int32_t* dv) {
+template <typename P>
+int cdef_block_at(const int32_t* win, int w, int h, int plane, int pri, int sec, int damping, int ydir, int bd,
+                  P* out, int32_t* dv) {
     if (!win || !out || !dv || (w != 4 && w != 8) || (h != 4 && h != 8) || (!plane && (w != 8 || h != 8)) ||
         pri < 0 || pri > 15 || sec < 0 || sec > 4 ||
-        damping < 2 || damping > 6 || ydir < -1 || ydir > 7)
+        damping < 2 || damping > 6 || ydir < -1 || ydir > 7 || !valid_depth(bd))
         return kArgs;
     std::vector<int> v(win, win + (w + 4) * (h + 4));
     int var = 0;
@@ -3394,34 +3494,146 @@ int fd_av1_cdef_block(const int32_t* win, int w, int h, int plane, int pri, int 
         int b[64];
         for (int i = 0; i < 8; i++)
             for (int j = 0; j < 8; j++) b[i * 8 + j] = v[(i + 2) * 12 + j + 2];
-        ydir = cdef_direction(b, 8, &var);
+        ydir = cdef_direction(b, 8, &var, bd);
     } else if (ydir < 0) {
         return kArgs;
     }
-    int dir = cdef_apply(v.data(), w, h, plane, pri, sec, damping, ydir, var, out);
+    int dir = cdef_apply(v.data(), w, h, plane, pri, sec, damping, ydir, var, out, bd);
     dv[0] = plane ? dir : ydir;
     dv[1] = plane ? 0 : var;
     return 0;
 }
 
+}  // namespace
+
+extern "C" {
+
+// One tile into the planes (uint8_t at 8 bits, else uint16_t, by the
+// header's H_BITDEPTH) and the per-4x4 info; `left` gets the symbol
+// decoder's SymbolMaxBits at the tile's end (negative: bits read past it).
+// `cdef` gets each 64x64's CDEF index (-1 where read_cdef read none), `lr`
+// each restoration unit ([3][H_LR_STRIDE][L_FIELDS]).
+int fd_av1_tile(const uint8_t* data, int64_t size, const int32_t* hdr, void* y, void* u, void* v, int32_t* mi,
+                int64_t* left, int32_t* cdef, int32_t* lr) {
+    if (!data || size < 0 || !hdr || !y || !mi || !cdef || !lr || !valid_depth(hdr[H_BITDEPTH])) return kArgs;
+    if (hdr[H_BITDEPTH] == 8) return tile_at<uint8_t>(data, size, hdr, y, u, v, mi, left, cdef, lr);
+    return tile_at<uint16_t>(data, size, hdr, y, u, v, mi, left, cdef, lr);
+}
+
+int fd_av1_deblock(const int32_t* hdr, void* y, void* u, void* v, const int32_t* mi) {
+    if (!hdr || !y || !mi || !valid_depth(hdr[H_BITDEPTH])) return kArgs;
+    if (hdr[H_BITDEPTH] == 8) deblock_at<uint8_t>(hdr, y, u, v, mi);
+    else deblock_at<uint16_t>(hdr, y, u, v, mi);
+    return 0;
+}
+
+// CDEF of the deblocked planes y, u, v (null for monochrome) into dy, du, dv
+// (copies of them), by the per-4x4 info and the 64x64 indices.
+int fd_av1_cdef(const int32_t* hdr, const void* y, const void* u, const void* v, void* dy, void* du, void* dv,
+                const int32_t* mi, const int32_t* cdef) {
+    if (!hdr || !y || !dy || !mi || !cdef || !valid_depth(hdr[H_BITDEPTH])) return kArgs;
+    if (!hdr[H_MONO] && !(u && v && du && dv)) return kArgs;
+    if (hdr[H_BITDEPTH] == 8) cdef_at<uint8_t>(hdr, y, u, v, dy, du, dv, mi, cdef);
+    else cdef_at<uint16_t>(hdr, y, u, v, dy, du, dv, mi, cdef);
+    return 0;
+}
+
+// Loop restoration of CDEF's planes (cy, cu, cv) into dy, du, dv (copies of
+// them), the stripes' edge rows from the deblocked planes (py, pu, pv).
+int fd_av1_lr(const int32_t* hdr, const void* py, const void* pu, const void* pv, const void* cy, const void* cu,
+              const void* cv, void* dy, void* du, void* dv, const int32_t* lr) {
+    if (!hdr || !py || !cy || !dy || !lr || !valid_depth(hdr[H_BITDEPTH])) return kArgs;
+    if (!hdr[H_MONO] && !(pu && pv && cu && cv && du && dv)) return kArgs;
+    const void* pre[3] = {py, pu, pv};
+    const void* c[3] = {cy, cu, cv};
+    void* d[3] = {dy, du, dv};
+    if (hdr[H_BITDEPTH] == 8) lr_at<uint8_t>(hdr, pre, c, d, lr);
+    else lr_at<uint16_t>(hdr, pre, c, d, lr);
+    return 0;
+}
+
+// Y (ys stride), U and V (cs stride, or null for monochrome), alpha (as
+// stride, or null: 255) of a w x h image to RGBA by the conversion `conv`
+// (C_FIELDS values); samples are uint8_t at C_DEPTH 8, else uint16_t, and
+// strides count samples.
+int fd_av1_to_rgb(const void* y, int ys, const void* u, const void* v, int cs, const void* a, int as, int w, int h,
+                  const int32_t* conv, uint8_t* out) {
+    if (!y || !out || !conv || w <= 0 || h <= 0 || (!u != !v)) return kArgs;
+    int route = conv[C_ROUTE], ssx = conv[C_SSX], ssy = conv[C_SSY], depth = conv[C_DEPTH];
+    if ((route != ROUTE_LIBYUV && route != ROUTE_FLOAT) || ssx < 0 || ssx > 1 || ssy < 0 || ssy > ssx ||
+        conv[C_MODE] < MODE_YUV || conv[C_MODE] > MODE_YCGCO_RE || !valid_depth(depth))
+        return kArgs;
+    if (depth == 8) {
+        to_rgb(conv, 8, (const uint8_t*)y, ys, (const uint8_t*)u, (const uint8_t*)v, cs, w, h, out);
+    } else if (conv[C_DOWN]) {
+        int cw = (w + ssx) >> ssx, ch = (h + ssy) >> ssy;
+        std::vector<uint8_t> y8 = downshift((const uint16_t*)y, ys, w, h, depth), u8, v8;
+        if (u) {
+            u8 = downshift((const uint16_t*)u, cs, cw, ch, depth);
+            v8 = downshift((const uint16_t*)v, cs, cw, ch, depth);
+        }
+        to_rgb(conv, 8, y8.data(), w, u ? u8.data() : nullptr, u ? v8.data() : nullptr, cw, w, h, out);
+    } else {
+        to_rgb(conv, depth, (const uint16_t*)y, ys, (const uint16_t*)u, (const uint16_t*)v, cs, w, h, out);
+    }
+    int mx = (1 << depth) - 1;
+    for (int row = 0; row < h; row++) {
+        uint8_t* o = out + (size_t)row * w * 4;
+        for (int x = 0; x < w; x++) {
+            int av = 255;
+            if (a && depth == 8) av = ((const uint8_t*)a)[(size_t)row * as + x];
+            else if (a) {
+                int s = ((const uint16_t*)a)[(size_t)row * as + x];
+                av = conv[C_ALPHA_ROUND] ? (s * 255 + mx / 2) / mx : std::min(s >> (depth - 8), 255);
+            }
+            o[x * 4 + 3] = (uint8_t)av;
+        }
+    }
+    return 0;
+}
+
+// A sw x sh plane (src, stride ss) to dw x dh (dst, stride ds) as libavif
+// scales a decoded frame to its ispe: samples of `bytes` 1 (uint8_t) or 2
+// (uint16_t, libyuv's ScalePlane_16); kScaleRatio for the 3/4 and 3/8
+// scales, which are not ported.
+int fd_av1_scale(const void* src, int ss, int sw, int sh, void* dst, int ds, int dw, int dh, int bytes) {
+    if (!src || !dst || sw <= 0 || sh <= 0 || dw <= 0 || dh <= 0 || ss < sw || ds < dw || bytes < 1 || bytes > 2)
+        return kArgs;
+    if (bytes == 1) return scale::plane((const uint8_t*)src, ss, sw, sh, (uint8_t*)dst, ds, dw, dh);
+    return scale::plane((const uint16_t*)src, ss, sw, sh, (uint16_t*)dst, ds, dw, dh);
+}
+
+// The stages alone at bit depth bd (8, 10 or 12), samples out as uint16_t.
+
+// CDEF of one block from its window ((h + 4) x (w + 4) samples, -1
+// outside the frame; the strengths and damping as the header gives them):
+// luma (plane 0, 8x8) searches its direction on the window's centre,
+// chroma (4x4, 4 wide and 8 tall for 4:2:2, 8x8 for 4:4:4) maps ydir by
+// its size; out gets w * h, dv the direction and variance as the trace
+// records them.
+int fd_av1_cdef_block(const int32_t* win, int w, int h, int plane, int pri, int sec, int damping, int ydir, int bd,
+                      uint16_t* out, int32_t* dv) {
+    return cdef_block_at(win, w, h, plane, pri, sec, damping, ydir, bd, out, dv);
+}
+
 // The Wiener filter of a w x h block from its window ((h + 6) x (w + 6)):
 // taps = the vertical then the horizontal taps 0-2; out gets w * h.
-int fd_av1_wiener(const int32_t* win, int w, int h, const int32_t* taps, uint8_t* out) {
-    if (!win || !taps || !out || w <= 0 || h <= 0) return kArgs;
+int fd_av1_wiener(const int32_t* win, int w, int h, const int32_t* taps, int bd, uint16_t* out) {
+    if (!win || !taps || !out || w <= 0 || h <= 0 || !valid_depth(bd)) return kArgs;
     std::vector<int> v(win, win + (size_t)(w + 6) * (h + 6));
     int t[6];
     for (int i = 0; i < 6; i++) t[i] = taps[i];
-    wiener_filter(v.data(), w, h, t, t + 3, out);
+    wiener_filter(v.data(), w, h, t, t + 3, out, bd);
     return 0;
 }
 
 // The self-guided filter of a w x h block from its window (as
 // fd_av1_wiener's) with parameter set `set` and weights xqd[2].
-int fd_av1_sgr(const int32_t* win, int w, int h, int set, const int32_t* xqd, uint8_t* out) {
-    if (!win || !xqd || !out || w <= 0 || h <= 0 || set < 0 || set > 15) return kArgs;
+int fd_av1_sgr(const int32_t* win, int w, int h, int set, const int32_t* xqd, int bd, uint16_t* out) {
+    if (!win || !xqd || !out || w <= 0 || h <= 0 || set < 0 || set > 15 || !valid_depth(bd)) return kArgs;
     std::vector<int> v(win, win + (size_t)(w + 6) * (h + 6));
     int x[2] = {xqd[0], xqd[1]};
-    sgr_filter(v.data(), w, h, set, x, out);
+    sgr_filter(v.data(), w, h, set, x, out, bd);
     return 0;
 }
 
@@ -3429,44 +3641,44 @@ int fd_av1_sgr(const int32_t* win, int w, int h, int set, const int32_t* xqd, ui
 // haveAbove, angleDelta, filterType, edgeFilter, useFilterIntra,
 // filterIntraMode, aboveLimit, leftLimit}; above / left hold w + h + 1
 // values each, the corner first; pred gets w * h.
-int fd_av1_predict(const int32_t* params, const int32_t* above_in, const int32_t* left_in,
-                   uint8_t* pred) {
+int fd_av1_predict(const int32_t* params, const int32_t* above_in, const int32_t* left_in, int bd, uint16_t* pred) {
     PredParams p{params[0], params[1], params[2], params[3], params[4], params[5],
                  params[6], params[7], params[8], params[9], params[10], params[11]};
-    if (p.log2W < 2 || p.log2W > 6 || p.log2H < 2 || p.log2H > 6) return kArgs;
+    if (p.log2W < 2 || p.log2W > 6 || p.log2H < 2 || p.log2H > 6 || !valid_depth(bd)) return kArgs;
     int n = (1 << p.log2W) + (1 << p.log2H);
     int ab[320], lb[320];
     for (int i = 0; i <= n; i++) {
         ab[15 + i] = above_in[i];
         lb[15 + i] = left_in[i];
     }
-    predict(p, ab + 16, lb + 16, pred);
+    predict(p, ab + 16, lb + 16, pred, bd);
     return 0;
 }
 
 // CfL on a w x h DC prediction from the averaged luma L (w * h, the
 // specification's L[i][j]).
-int fd_av1_cfl(const int32_t* L, int w, int h, int alpha, uint8_t* pred) {
-    if (w < 4 || h < 4 || w > 32 || h > 32) return kArgs;
-    cfl_apply(L, w, h, alpha, pred);
+int fd_av1_cfl(const int32_t* L, int w, int h, int alpha, int bd, uint16_t* pred) {
+    if (w < 4 || h < 4 || w > 32 || h > 32 || !valid_depth(bd)) return kArgs;
+    cfl_apply(L, w, h, alpha, pred, bd);
     return 0;
 }
 
 // The inverse transform of tx size `tx` (0-18) and type `type` (0-15):
 // deq is 64 x 64 (Dequant[i][j] at i * 64 + j), res gets w * h.
-int fd_av1_inv_txfm(const int32_t* deq, int tx, int type, int lossless, int32_t* res) {
-    if (tx < 0 || tx > 18 || type < 0 || type > 15) return kArgs;
-    inverse_transform(deq, tx, type, lossless, res);
+int fd_av1_inv_txfm(const int32_t* deq, int tx, int type, int lossless, int bd, int32_t* res) {
+    if (tx < 0 || tx > 18 || type < 0 || type > 15 || !valid_depth(bd)) return kArgs;
+    inverse_transform(deq, tx, type, lossless, res, bd);
     return 0;
 }
 
 // One loop filter position: s holds 16 samples, q0 at s[8]; params =
-// {filterSize, plane, limit, blimit, thresh}; filtered in place.
-int fd_av1_lf_edge(int32_t* s, const int32_t* params) {
+// {filterSize, plane, limit, blimit, thresh} (at 8 bits); filtered in place.
+int fd_av1_lf_edge(int32_t* s, const int32_t* params, int bd) {
+    if (!valid_depth(bd)) return kArgs;
     LfParams lp{params[0], params[1], params[2], params[3], params[4]};
     int v[16];
     for (int i = 0; i < 16; i++) v[i] = s[i];
-    lf_sample(v + 8, lp);
+    lf_sample(v + 8, lp, bd);
     for (int i = 0; i < 16; i++) s[i] = v[i];
     return 0;
 }

@@ -1803,6 +1803,27 @@ AVIF_444_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_avif_444_480x2
 AVIF_422_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_422_limited_cdef.avif")
 AVIF_422_FILE_REFERENCE = os.path.join(REFERENCE_DIR, "example_image_file_avif_422_1x_blocks8.npy")
 AVIF_422_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_avif_422_480x270_blocks8.npy")
+# the three made 10- and 12-bit by rewriting their AV1 sequence headers
+# (tools/make_image_formats.py's avif_at_depth; their tile symbols read at
+# the new depth): the speed-2 CDEF file at 10 bits (4:2:0, CDEF and loop
+# restoration), the 4:4:4 file at 10 bits (profile 1) and the
+# limited-range 4:2:2 file at 12 bits (profile 2, CDEF and restoration),
+# each drawn in the image-file scene and on the photo wall
+AVIF_CDEF10_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_s2_cdef_10bit.avif")
+AVIF_CDEF10_FILE_REFERENCE = os.path.join(REFERENCE_DIR,
+                                          "example_image_file_avif_cdef10_1x_blocks8.npy")
+AVIF_CDEF10_WALL_REFERENCE = os.path.join(REFERENCE_DIR,
+                                          "photo_wall_avif_cdef10_480x270_blocks8.npy")
+AVIF_444_10_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_444_10bit.avif")
+AVIF_444_10_FILE_REFERENCE = os.path.join(REFERENCE_DIR,
+                                          "example_image_file_avif_444_10_1x_blocks8.npy")
+AVIF_444_10_WALL_REFERENCE = os.path.join(REFERENCE_DIR,
+                                          "photo_wall_avif_444_10_480x270_blocks8.npy")
+AVIF_422_12_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_422_12bit.avif")
+AVIF_422_12_FILE_REFERENCE = os.path.join(REFERENCE_DIR,
+                                          "example_image_file_avif_422_12_1x_blocks8.npy")
+AVIF_422_12_WALL_REFERENCE = os.path.join(REFERENCE_DIR,
+                                          "photo_wall_avif_422_12_480x270_blocks8.npy")
 
 
 def make_image_file_scene(w: float, h: float, image_id: int) -> Renders:

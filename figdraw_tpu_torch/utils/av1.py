@@ -6,8 +6,9 @@ then YUV -> RGBA as libavif 1.3.0 converts it for PIL 12.1.0 (libyuv's
 fixed point where it has constants for the matrix and range, else
 libavif's own float conversion: `conversion`).
 
-Decoded: profiles 0-2 at 8 bits, 4:2:0, 4:2:2 and 4:4:4 colour or
-monochrome (an alpha item),
+Decoded: profiles 0-2 at 8, 10 and 12 bits (planes of uint8 at 8 bits,
+uint16 at 10 and 12), 4:2:0, 4:2:2 and 4:4:4 colour or monochrome (an
+alpha item),
 the reduced still-picture header or a full one with one shown key frame,
 uniform and non-uniform tiles, segmentation, delta q and delta lf,
 palettes, intra block copy (its vector stack, vectors and copies, the
@@ -16,8 +17,8 @@ intra, coded-lossless frames (WHT), CDEF (its 64x64 indices, the
 direction search, the primary and secondary taps) and loop restoration
 (Wiener and self-guided units, switchable or not, over stripes of 64
 luma rows). Refused with NotImplementedError naming AVIF and the
-feature: 10 and 12 bits, superres, film grain, and any frame that is not
-a shown key frame. Quantiser matrices (aom's `enable-qm`) are read. A
+feature: superres, film grain, and any frame that is not a shown key
+frame. Quantiser matrices (aom's `enable-qm`) are read. A
 malformed stream raises ValueError, as does a 4:2:2 partition whose
 chroma block has no size (dav1d rejects it).
 
@@ -35,7 +36,9 @@ on the load path uses the twins unless `plain` is asked for):
 - scale_plain: libyuv's ScalePlane as libavif scales a frame to the size
   its item's ispe gives;
 - to_rgba_plain: libyuv's chroma upsampling (4:2:2 across, 4:2:0
-  bilinear) and fixed point, or libavif's float conversion.
+  bilinear) and fixed point, or libavif's float conversion, at the bit
+  depth libavif converts at.
+Each stage's twin takes the bit depth (`bit_depth`, 8 by default).
 `decode(stream, plain=True)` decodes the tiles in C++ with a trace of each
 prediction, transform, loop filter, CDEF and restoration call, checks
 every traced call against its twin, and converts with the plain
@@ -93,9 +96,10 @@ H_LR_SIZE = H_LR_TYPE + 3
 H_LR_ROWS = H_LR_SIZE + 3
 H_LR_COLS = H_LR_ROWS + 3
 H_LR_STRIDE = H_LR_COLS + 3
-# the chroma planes' subsampling across and down (1 for monochrome)
-H_SSX, H_SSY = H_LR_STRIDE + 1, H_LR_STRIDE + 2
-H_SIZE = H_SSY + 1
+# the chroma planes' subsampling across and down (1 for monochrome), and
+# BitDepth (8, 10 or 12)
+H_SSX, H_SSY, H_BITDEPTH = H_LR_STRIDE + 1, H_LR_STRIDE + 2, H_LR_STRIDE + 3
+H_SIZE = H_BITDEPTH + 1
 RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE = range(4)
 REMAP_LR_TYPE = (RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER, RESTORE_SGRPROJ)
 # a restoration unit as fd_av1_tile writes it (L_* there): its type, the
@@ -288,31 +292,40 @@ def parse_sequence(payload: bytes) -> Sequence:
         raise refuse("superres")
     s.enable_cdef = r.f(1)
     s.enable_restoration = r.f(1)
+    # color_config: profile 0 is 4:2:0 or monochrome, 1 is 4:4:4 (never
+    # monochrome), 2 is 4:2:2 at 8 and 10 bits and codes its subsampling
+    # at 12 (twelve_bit, read in profile 2 only)
+    s.color_bit = r.bit
     high = r.f(1)
-    if high:
-        raise refuse("10- or 12-bit samples")
-    # color_config at 8 bits: profile 0 is 4:2:0 or monochrome, 1 is 4:4:4
-    # (never monochrome), 2 is 4:2:2 (its subsampling bits are 12-bit only)
+    s.bit_depth = 8 + 2 * high
+    if s.profile == 2 and high:
+        s.bit_depth += 2 * r.f(1)
     s.mono = 0 if s.profile == 1 else r.f(1)
+    s.color_description = r.f(1)
     s.primaries, s.transfer, s.matrix = 2, 2, 2
-    if r.f(1):
+    if s.color_description:
         s.primaries, s.transfer, s.matrix = r.f(8), r.f(8), r.f(8)
     s.ssx, s.ssy = (0, 0) if s.profile == 1 else ((1, 0) if s.profile == 2 else (1, 1))
-    s.separate_uv_dq = 0
+    s.separate_uv_dq = s.chroma_position = 0
     if s.mono:
         s.ssx = s.ssy = 1
         s.full_range = r.f(1)
     else:
         if (s.primaries, s.transfer, s.matrix) == (1, 13, 0):  # sRGB: 4:4:4 full range, unread
-            if s.profile != 1:  # dav1d rejects it outside profile 1 at 8 bits
-                raise ValueError("AV1: sRGB identity colour outside profile 1")
+            if s.profile != 1 and s.bit_depth != 12:  # dav1d rejects it elsewhere
+                raise ValueError("AV1: sRGB identity colour outside profile 1 and 12 bits")
+            s.ssx = s.ssy = 0
             s.full_range = 1
         else:
             s.full_range = r.f(1)
+            if s.profile == 2 and s.bit_depth == 12:
+                s.ssx = r.f(1)
+                s.ssy = r.f(1) if s.ssx else 0
             if s.ssx and s.ssy:
-                r.f(2)  # chroma sample position
+                s.chroma_position = r.f(2)
         s.separate_uv_dq = r.f(1)
-    if r.f(1):
+    s.film_grain = r.f(1)
+    if s.film_grain:
         raise refuse("film grain")
     return s
 
@@ -322,8 +335,9 @@ class Frame:
     V or None), their visible size, and the colour description."""
 
     def __init__(self, planes, width, height, full_range, matrix, mono, ssx=1, ssy=1,
-                 primaries=2):
+                 primaries=2, bit_depth=8):
         self.planes, self.width, self.height = planes, width, height
+        self.bit_depth = bit_depth  # 8 (uint8 planes), 10 or 12 (uint16)
         self.full_range, self.matrix, self.mono = full_range, matrix, mono
         self.ssx, self.ssy = ssx, ssy  # the chroma planes' subsampling
         self.primaries = primaries
@@ -563,7 +577,7 @@ def parse_frame_header(r: BitReader, s: Sequence) -> dict:
     hdr[H_LR_ROWS:H_LR_ROWS + 3] = [u[0] for u in units]
     hdr[H_LR_COLS:H_LR_COLS + 3] = [u[1] for u in units]
     hdr[H_LR_STRIDE] = max(1, max(a * b for a, b in units))
-    hdr[H_SSX], hdr[H_SSY] = s.ssx, s.ssy
+    hdr[H_SSX], hdr[H_SSY], hdr[H_BITDEPTH] = s.ssx, s.ssy, s.bit_depth
     return {"hdr": hdr, "col_starts": col_starts, "row_starts": row_starts,
             "cols_log2": cols_log2, "rows_log2": rows_log2, "tile_size_bytes": tile_size_bytes}
 
@@ -630,11 +644,12 @@ def decode(stream: bytes, plain: bool = False) -> Frame:
     # planes of whole 128x128 superblocks: a transform block may run past
     # the frame's last 4x4
     ph, pw = (mi_rows * 4 + 127) & ~127, (mi_cols * 4 + 127) & ~127
-    y = np.zeros((ph, pw), np.uint8)
+    dtype = np.uint8 if seq.bit_depth == 8 else np.uint16
+    y = np.zeros((ph, pw), dtype)
     u = v = None
     if not seq.mono:
-        u = np.zeros((ph >> seq.ssy, pw >> seq.ssx), np.uint8)
-        v = np.zeros((ph >> seq.ssy, pw >> seq.ssx), np.uint8)
+        u = np.zeros((ph >> seq.ssy, pw >> seq.ssx), dtype)
+        v = np.zeros((ph >> seq.ssy, pw >> seq.ssx), dtype)
     hdr[H_STRIDE_Y], hdr[H_STRIDE_UV] = pw, pw >> seq.ssx
     mi = np.zeros((mi_rows, mi_cols, M_FIELDS), np.int32)
     cdef = np.full(((mi_rows + 15) >> 4, (mi_cols + 15) >> 4), -1, np.int32)
@@ -681,7 +696,7 @@ def decode(stream: bytes, plain: bool = False) -> Frame:
         planes = out
     t3 = time.perf_counter()
     frame = Frame(planes, int(hdr[H_WIDTH]), int(hdr[H_HEIGHT]), seq.full_range, seq.matrix,
-                  seq.mono, seq.ssx, seq.ssy, seq.primaries)
+                  seq.mono, seq.ssx, seq.ssy, seq.primaries, seq.bit_depth)
     frame.mi, frame.cdef, frame.lr = mi, cdef, lr
     frame.ms = {"tiles + loop filter": (t1 - t0) * 1e3, "cdef": (t2 - t1) * 1e3,
                 "loop restoration": (t3 - t2) * 1e3}
@@ -696,10 +711,12 @@ def decode(stream: bytes, plain: bool = False) -> Frame:
 def scale(plane: np.ndarray, width: int, height: int, dw: int, dh: int,
           plain: bool = False) -> np.ndarray:
     """The top-left width x height of a decoded plane scaled to dw x dh as
-    libavif scales a frame to its item's ispe (fd_av1_scale)."""
+    libavif scales a frame to its item's ispe (fd_av1_scale; uint16 planes
+    as libyuv's ScalePlane_16)."""
     src = np.ascontiguousarray(plane[:height, :width])
-    out = np.zeros((dh, dw), np.uint8)
-    rc = _lib().fd_av1_scale(src.ctypes.data, width, width, height, out.ctypes.data, dw, dw, dh)
+    out = np.zeros((dh, dw), src.dtype)
+    rc = _lib().fd_av1_scale(src.ctypes.data, width, width, height, out.ctypes.data, dw, dw, dh,
+                             src.itemsize)
     if rc == SCALE_RATIO:
         raise refuse(f"an AV1 frame of another size than ispe ({width}x{height} to {dw}x{dh}, "
                      "libyuv's 3/4 or 3/8 filter)")
@@ -711,10 +728,10 @@ def scale(plane: np.ndarray, width: int, height: int, dw: int, dh: int,
 
 
 # the conversion as fd_av1_to_rgb takes it (C_* there)
-(C_ROUTE, C_SSX, C_SSY, C_FULL, C_MODE, C_KR, C_KB, C_YG, C_YB, C_UB, C_UG, C_VG, C_VR,
- C_FIELDS) = range(14)
+(C_ROUTE, C_SSX, C_SSY, C_FULL, C_MODE, C_KR, C_KB, C_YG, C_YB, C_UB, C_UG, C_VG, C_VR, C_DEPTH,
+ C_DOWN, C_NEAREST, C_ALPHA_ROUND, C_FIELDS) = range(18)
 ROUTE_LIBYUV, ROUTE_FLOAT = 0, 1
-MODE_YUV, MODE_IDENTITY, MODE_YCGCO = 0, 1, 2
+MODE_YUV, MODE_IDENTITY, MODE_YCGCO, MODE_YCGCO_RE = 0, 1, 2, 3
 # libyuv's YuvConstants (row_common.cc) that libavif 1.3.0 picks: YG, YB,
 # UB, UG, VG, VR of full-range BT.601 (JPEG), BT.709 and BT.2020, then of
 # the limited ranges (UB capped at 128 there)
@@ -727,9 +744,11 @@ LIBYUV_CONSTANTS = {
 LIBYUV_MATRIX = {1: "709", 2: "601", 5: "601", 6: "601", 9: "2020"}
 LIBYUV_PRIMARIES = {1: "709", 2: "709", 5: "601", 6: "601", 9: "2020"}
 # the matrices libavif converts at 8 bits (0 identity in 4:4:4 and 4:0:0
-# only, 8 YCgCo at full range only; 15 takes its default kr and kb); its
-# own kr, kb of the matrices that reach its float conversion
+# only, 8 YCgCo at full range only; 15 takes its default kr and kb), and
+# 16 (YCgCo-Re) of 10-bit full-range samples only, whose RGB has two bits
+# fewer; its own kr, kb of the matrices that reach its float conversion
 CONVERTED = {0, 1, 2, 4, 5, 6, 7, 8, 9, 12, 15}
+YCGCO_RE = 16
 KR_KB = {4: (0.30, 0.11), 7: (0.212, 0.087)}
 KR_KB_DEFAULT = (0.299, 0.114)
 # libavif's colour primaries (avifColorPrimariesGetValues: x, y of red,
@@ -761,14 +780,23 @@ def kr_kb_from_primaries(primaries: int) -> tuple:
 
 
 def conversion(mono: int, ssx: int, ssy: int, full_range: int, matrix: int, primaries: int,
-               alpha: bool) -> np.ndarray:
+               alpha: bool, depth: int = 8) -> np.ndarray:
     """The YUV -> RGB conversion libavif 1.3.0's avifImageYUVToRGB makes for
-    PIL (RGBA where the image has alpha, else RGB) as fd_av1_to_rgb takes
-    it: libyuv's fixed point where getLibYUVConstants finds constants
+    PIL (8-bit RGBA where the image has alpha, else RGB) as fd_av1_to_rgb
+    takes it: libyuv's fixed point where getLibYUVConstants finds constants
     (colour, and 4:0:0 at limited range with alpha), else libavif's float
-    conversion. Raises ValueError where libavif fails ("Reformat failed"
-    in PIL)."""
-    if (matrix not in CONVERTED or (matrix == 8 and not full_range)
+    conversion. At 10 and 12 bits, where libyuv has constants: its
+    high-bit-depth functions where it has one for the case (10-bit colour
+    with alpha, I010 / I210 / I410AlphaToARGBMatrixFilter: alpha >> 2;
+    12-bit 4:2:0, I012ToARGBMatrix: each chroma sample for its 2x2, and
+    libavif's rounded alpha), else the planes brought to 8 bits
+    (Convert16To8Plane) and converted as an 8-bit image (a monochrome one
+    with libavif's rounded alpha); a monochrome image without alpha and the
+    matrices without constants take libavif's float conversion at the bit
+    depth. Raises ValueError where libavif fails ("Reformat failed" in
+    PIL)."""
+    ycgco_re = matrix == YCGCO_RE and full_range and depth == 10
+    if ((matrix not in CONVERTED and not ycgco_re) or (matrix == 8 and not full_range)
             or (matrix == 0 and not mono and (ssx or ssy))):
         raise ValueError(f"AVIF: libavif converts no {'full' if full_range else 'limited'}-range "
                          f"YUV of matrix coefficients {matrix} here (Reformat failed)")
@@ -776,12 +804,19 @@ def conversion(mono: int, ssx: int, ssy: int, full_range: int, matrix: int, prim
     conv[C_SSX], conv[C_SSY], conv[C_FULL] = ssx, ssy, int(bool(full_range))
     m = 6 if (mono and matrix == 0) else matrix  # libavif's BT.601 for 4:0:0 identity
     family = LIBYUV_PRIMARIES.get(primaries) if m == 12 else LIBYUV_MATRIX.get(m)
+    conv[C_DEPTH] = depth
+    if depth > 8 and family and (not mono or alpha):
+        conv[C_DOWN] = int(bool(mono or not alpha or (depth == 12 and not (ssx and ssy))))
+        conv[C_NEAREST] = int(not conv[C_DOWN] and depth == 12)
+        conv[C_ALPHA_ROUND] = int(bool(mono or conv[C_NEAREST]))
+    elif depth > 8:
+        conv[C_ALPHA_ROUND] = 1
     if family and (not mono or (alpha and not full_range)):
         conv[C_ROUTE] = ROUTE_LIBYUV
         conv[C_YG:C_VR + 1] = LIBYUV_CONSTANTS[(int(bool(full_range)), family)]
         return conv
     conv[C_ROUTE] = ROUTE_FLOAT
-    conv[C_MODE] = {0: MODE_IDENTITY, 8: MODE_YCGCO}.get(matrix, MODE_YUV)
+    conv[C_MODE] = {0: MODE_IDENTITY, 8: MODE_YCGCO, YCGCO_RE: MODE_YCGCO_RE}.get(matrix, MODE_YUV)
     kr, kb = kr_kb_from_primaries(primaries) if matrix == 12 else KR_KB.get(matrix, KR_KB_DEFAULT)
     conv[C_KR:C_KB + 1] = np.array([kr, kb], np.float32).view(np.int32)
     return conv
@@ -792,7 +827,7 @@ def to_rgba(frame: Frame, alpha, full_range: int, matrix: int, primaries: int = 
     """A decoded colour frame (and alpha plane) to RGBA as libavif converts
     it for PIL."""
     conv = conversion(frame.mono, frame.ssx, frame.ssy, full_range, matrix, primaries,
-                      alpha is not None)
+                      alpha is not None, frame.bit_depth)
     w, h = frame.width, frame.height
     y, u, v = frame.planes
     out = np.zeros((h, w, 4), np.uint8)
@@ -1064,9 +1099,11 @@ def _run_1d(L: _Lanes, kind: int, n: int) -> None:
         _adst_plain(L, n)
 
 
-def inv_txfm_plain(deq: np.ndarray, tx: int, tx_type: int, lossless: int) -> np.ndarray:
+def inv_txfm_plain(deq: np.ndarray, tx: int, tx_type: int, lossless: int,
+                   bit_depth: int = 8) -> np.ndarray:
     """The 2D inverse transform of csrc's inverse_transform: deq is the
-    64 x 64 Dequant (rows and columns past 32 zero), the result h x w."""
+    64 x 64 Dequant (rows and columns past 32 zero), the result h x w; the
+    rows clamp at bit_depth + 8 bits, the columns at Max(bit_depth + 6, 16)."""
     w, h = TX_W[tx], TX_H[tx]
     lw, lh = w.bit_length() - 1, h.bit_length() - 1
     row_shift, col_shift = (0, 0) if lossless else (ROW_SHIFT[tx], 4)
@@ -1078,20 +1115,21 @@ def inv_txfm_plain(deq: np.ndarray, tx: int, tx_type: int, lossless: int) -> np.
     else:
         if abs(lw - lh) == 1:
             t[:w] = _round2(t[:w] * 2896, 12)
-        L = _Lanes(t, 16)
+        L = _Lanes(t, bit_depth + 8)
         t[:w] = L.clamp(t[:w])
         _run_1d(L, rt, lw)
+    col_clamp = max(bit_depth + 6, 16)
     rows = _round2(t[:w], row_shift).T  # h x w
     if rt == 2:
         rows = rows[:, ::-1]
     if not lossless:
-        rows = np.clip(rows, -(1 << 15), (1 << 15) - 1)
+        rows = np.clip(rows, -(1 << (col_clamp - 1)), (1 << (col_clamp - 1)) - 1)
     c = np.zeros((64, w), np.int64)  # lanes are the columns
     c[:h] = rows
     if lossless:
         _wht_plain(c, 0)
     else:
-        _run_1d(_Lanes(c, 16), ct, lh)
+        _run_1d(_Lanes(c, col_clamp), ct, lh)
     out = _round2(c[:h], col_shift)
     if ct == 2:
         out = out[::-1]
@@ -1132,7 +1170,7 @@ def _edge_filter(e: dict, sz: int, strength: int) -> None:
         e[i - 1] = (s + 8) >> 4
 
 
-def _upsample(e: dict, num: int) -> None:
+def _upsample(e: dict, num: int, bit_depth: int) -> None:
     dup = [0] * (num + 3)
     dup[0] = e[-1]
     for i in range(-1, num):
@@ -1141,16 +1179,22 @@ def _upsample(e: dict, num: int) -> None:
     e[-2] = dup[0]
     for i in range(num):
         s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3]
-        e[2 * i - 1] = min(max(_round2(s, 4), 0), 255)
+        e[2 * i - 1] = min(max(_round2(s, 4), 0), (1 << bit_depth) - 1)
         e[2 * i] = dup[i + 2]
 
 
-def predict_plain(params, above, left) -> np.ndarray:
+def _samples(bit_depth: int):
+    return np.uint8 if bit_depth == 8 else np.uint16
+
+
+def predict_plain(params, above, left, bit_depth: int = 8) -> np.ndarray:
     """csrc's predict: params as fd_av1_predict takes them, above / left
-    with the corner first; the prediction h x w uint8."""
+    with the corner first; the prediction h x w (uint8 at 8 bits, else
+    uint16)."""
     (mode, lw, lh, have_left, have_above, angle_delta, filter_type, edge_filter,
      use_filter, filter_mode, above_limit, left_limit) = (int(v) for v in params)
     w, h = 1 << lw, 1 << lh
+    peak = (1 << bit_depth) - 1
     A = {i - 1: int(v) for i, v in enumerate(above)}
     Lf = {i - 1: int(v) for i, v in enumerate(left)}
     pred = np.zeros((h, w), np.int64)
@@ -1174,8 +1218,8 @@ def predict_plain(params, above, left) -> np.ndarray:
                 for i in range(8):
                     pr = sum(int(taps[i, j]) * p[j] for j in range(7))
                     v = _round2(pr, 4) if pr >= 0 else -_round2(-pr, 4)
-                    pred[(i2 << 1) + (i >> 2), (j4 << 2) + (i & 3)] = min(max(v, 0), 255)
-        return pred.astype(np.uint8)
+                    pred[(i2 << 1) + (i >> 2), (j4 << 2) + (i & 3)] = min(max(v, 0), peak)
+        return pred.astype(_samples(bit_depth))
     if 1 <= mode <= 8:
         p_angle = int(T.MODE_TO_ANGLE[mode]) + angle_delta * 3
         up_a = up_l = 0
@@ -1197,10 +1241,10 @@ def predict_plain(params, above, left) -> np.ndarray:
                 return int(w + h <= (16 if filter_type == 0 else 8))
             up_a = ups(p_angle - 90)
             if up_a:
-                _upsample(A, w + (h if p_angle < 90 else 0))
+                _upsample(A, w + (h if p_angle < 90 else 0), bit_depth)
             up_l = ups(p_angle - 180)
             if up_l:
-                _upsample(Lf, h + (w if p_angle > 180 else 0))
+                _upsample(Lf, h + (w if p_angle > 180 else 0), bit_depth)
         dr = T.DR_INTRA_DERIVATIVE
         dx = int(dr[p_angle]) if p_angle < 90 else (int(dr[180 - p_angle]) if 90 < p_angle < 180 else 0)
         dy = int(dr[p_angle - 90]) if 90 < p_angle < 180 else (int(dr[270 - p_angle]) if p_angle > 180 else 0)
@@ -1234,7 +1278,7 @@ def predict_plain(params, above, left) -> np.ndarray:
                 else:
                     v = Lf[i]
                 pred[i, j] = v
-        return pred.astype(np.uint8)
+        return pred.astype(_samples(bit_depth))
     a = np.array([A[j] for j in range(w)], np.int64)
     lc = np.array([Lf[i] for i in range(h)], np.int64)
     sw = T.SM_WEIGHTS.astype(np.int64)
@@ -1250,33 +1294,37 @@ def predict_plain(params, above, left) -> np.ndarray:
         if have_left and have_above:
             avg = (int(a.sum() + lc.sum()) + ((w + h) >> 1)) // (w + h)
         elif have_left:
-            avg = min(max((int(lc.sum()) + (h >> 1)) >> lh, 0), 255)
+            avg = min(max((int(lc.sum()) + (h >> 1)) >> lh, 0), peak)
         elif have_above:
-            avg = min(max((int(a.sum()) + (w >> 1)) >> lw, 0), 255)
+            avg = min(max((int(a.sum()) + (w >> 1)) >> lw, 0), peak)
         else:
-            avg = 128
+            avg = 1 << (bit_depth - 1)
         pred = np.full((h, w), avg, np.int64)
     else:
         base = a[None, :] + lc[:, None] - A[-1]
         pl, pt, ptl = np.abs(base - lc[:, None]), np.abs(base - a[None, :]), np.abs(base - A[-1])
         pred = np.where((pl <= pt) & (pl <= ptl), lc[:, None] + 0 * a[None, :],
                         np.where(pt <= ptl, a[None, :] + 0 * lc[:, None], A[-1]))
-    return pred.astype(np.uint8)
+    return pred.astype(_samples(bit_depth))
 
 
-def cfl_plain(L: np.ndarray, alpha: int, pred: np.ndarray) -> np.ndarray:
+def cfl_plain(L: np.ndarray, alpha: int, pred: np.ndarray, bit_depth: int = 8) -> np.ndarray:
     """CfL on a DC prediction from the averaged luma L (h x w)."""
     h, w = pred.shape
     L = L.astype(np.int64)
     avg = _round2(int(L.sum()), (w.bit_length() - 1) + (h.bit_length() - 1))
     x = alpha * (L - avg)
     scaled = np.where(x >= 0, _round2(x, 6), -_round2(-x, 6))
-    return np.clip(pred.astype(np.int64) + scaled, 0, 255).astype(np.uint8)
+    return np.clip(pred.astype(np.int64) + scaled, 0, (1 << bit_depth) - 1).astype(_samples(bit_depth))
 
 
-def lf_edge_plain(s: np.ndarray, params) -> np.ndarray:
-    """csrc's lf_sample on a batch: s is (K, 16) with q0 at column 8."""
+def lf_edge_plain(s: np.ndarray, params, bit_depth: int = 8) -> np.ndarray:
+    """csrc's lf_sample on a batch: s is (K, 16) with q0 at column 8; the
+    limits (given at 8 bits) and the flatness threshold scale by
+    bit_depth - 8, the narrow filter's lanes are bit_depth bits."""
     size, plane, limit, blimit, thresh = (int(v) for v in params)
+    shift = bit_depth - 8
+    limit, blimit, thresh, one = limit << shift, blimit << shift, thresh << shift, 1 << shift
     s = s.astype(np.int64).copy()
     q = [s[:, 8 + k] for k in range(8)]
     p = [s[:, 7 - k] for k in range(8)]
@@ -1291,26 +1339,27 @@ def lf_edge_plain(s: np.ndarray, params) -> np.ndarray:
     flat = np.zeros_like(mask)
     flat2 = np.zeros_like(mask)
     if size >= 8:
-        flat = ((np.abs(p[1] - p[0]) <= 1) & (np.abs(q[1] - q[0]) <= 1) & (np.abs(p[2] - p[0]) <= 1)
-                & (np.abs(q[2] - q[0]) <= 1))
+        flat = ((np.abs(p[1] - p[0]) <= one) & (np.abs(q[1] - q[0]) <= one)
+                & (np.abs(p[2] - p[0]) <= one) & (np.abs(q[2] - q[0]) <= one))
         if length >= 8:
-            flat &= (np.abs(p[3] - p[0]) <= 1) & (np.abs(q[3] - q[0]) <= 1)
+            flat &= (np.abs(p[3] - p[0]) <= one) & (np.abs(q[3] - q[0]) <= one)
     if size >= 16:
         flat2 = np.ones_like(mask)
         for k in (4, 5, 6):
-            flat2 &= (np.abs(p[k] - p[0]) <= 1) & (np.abs(q[k] - q[0]) <= 1)
+            flat2 &= (np.abs(p[k] - p[0]) <= one) & (np.abs(q[k] - q[0]) <= one)
     out = s.copy()
     narrow = mask & ((size == 4) | ~flat)
 
     def c(v):
-        return np.clip(v, -128, 127)
-    ps1, ps0, qs0, qs1 = p[1] - 128, p[0] - 128, q[0] - 128, q[1] - 128
+        return np.clip(v, -(1 << (bit_depth - 1)), (1 << (bit_depth - 1)) - 1)
+    mid = 0x80 << shift
+    ps1, ps0, qs0, qs1 = p[1] - mid, p[0] - mid, q[0] - mid, q[1] - mid
     f = np.where(hev, c(ps1 - qs1), 0)
     f = c(f + 3 * (qs0 - ps0))
     f1, f2 = c(f + 4) >> 3, c(f + 3) >> 3
-    oq0, op0 = c(qs0 - f1) + 128, c(ps0 + f2) + 128
+    oq0, op0 = c(qs0 - f1) + mid, c(ps0 + f2) + mid
     fr = _round2(f1, 1)
-    oq1, op1 = c(qs1 - fr) + 128, c(ps1 + fr) + 128
+    oq1, op1 = c(qs1 - fr) + mid, c(ps1 + fr) + mid
     out[:, 8] = np.where(narrow, oq0, out[:, 8])
     out[:, 7] = np.where(narrow, op0, out[:, 7])
     out[:, 9] = np.where(narrow & ~hev, oq1, out[:, 9])
@@ -1343,9 +1392,16 @@ def _interp_rows(a, b, f: int):
     return a if f == 0 else (a * (256 - f) + b * f + 128) >> 8
 
 
-def _filter_cols(row, dw: int, x: int, dx: int):
+def _filter_cols(row, dw: int, x: int, dx: int, wide: bool = False):
+    """libyuv's column filter: x86's 7-bit fractions on 8-bit rows, the C
+    filter's 16-bit ones on 16-bit rows (`wide`)."""
     row = np.concatenate([row.astype(np.int64), [0]])
     xs = x + dx * np.arange(dw, dtype=np.int64)
+    if wide:
+        xi, f = xs >> 16, xs & 0xFFFF
+        a = row[xi]
+        b = np.where(f > 0, row[np.minimum(xi + 1, len(row) - 1)], a)
+        return a + ((f * (b - a) + 0x8000) >> 16)
     xi, f = xs >> 16, (xs >> 9) & 127
     return ((128 - f) * row[xi] + f * row[xi + 1] + 64) >> 7
 
@@ -1366,9 +1422,12 @@ def _up2_row(a, b, dw: int):
 
 def scale_plain(src: np.ndarray, dw: int, dh: int):
     """libyuv's ScalePlane with kFilterBox, as libavif 1.3.0's avifImageScale
-    calls it (fd_av1_scale): ScaleFilterReduce, then the path libyuv takes
-    (csrc's scale::plane names them); None for the 3/4 and 3/8 filters."""
+    calls it (fd_av1_scale), or ScalePlane_16 for a uint16 plane (32-bit
+    box sums, the C column filter): ScaleFilterReduce, then the path libyuv
+    takes (csrc's scale::plane names them); None for the 3/4 and 3/8
+    filters."""
     sh, sw = src.shape
+    wide = src.dtype != np.uint8
     s = src.astype(np.int64)
     f = 3  # box
     if f == 3 and (dw * 2 >= sw or dh * 2 >= sh):
@@ -1395,14 +1454,14 @@ def scale_plain(src: np.ndarray, dw: int, dh: int):
             out[j] = _interp_rows(s[y >> 16], s[min((y >> 16) + 1, sh - 1)],
                                   ((y >> 8) & 255) if f else 0)
             y += dy
-        return out.astype(np.uint8)
+        return out.astype(src.dtype)
     if dw <= sw and dh <= sh:
         if (4 * dw == 3 * sw and 4 * dh == 3 * sh) or (8 * dw == 3 * sw and 8 * dh == 3 * sh):
             return None
         for k in (2, 4):
             if k * dw == sw and k * dh == sh:
                 total = sum(s[a::k, b::k][:dh, :dw] for a in range(k) for b in range(k))
-                return ((total + k * k // 2) >> (2 if k == 2 else 4)).astype(np.uint8)
+                return ((total + k * k // 2) >> (2 if k == 2 else 4)).astype(src.dtype)
     if f == 3 and dh * 2 < sh:  # box means (both sides below half: widths of 2 or more)
         dx, dy, y = _fixed_div(sw, dw), _fixed_div(sh, dh), 0
         if dx & 0xFFFF:  # widths of dx >> 16 or one more
@@ -1415,18 +1474,18 @@ def scale_plain(src: np.ndarray, dw: int, dh: int):
             iy = y >> 16
             y = min(y + dy, sh << 16)
             bh = max(1, (y >> 16) - iy)
-            row = s[iy:iy + bh].sum(0) & 0xFFFF  # libyuv's uint16 row sums
+            row = s[iy:iy + bh].sum(0) & (0xFFFFFFFF if wide else 0xFFFF)  # libyuv's row sums
             sums = np.array([row[a:a + b].sum() for a, b in zip(ix, bw)], np.int64)
             out[j] = (sums * (65536 // (bw * bh))) >> 16
-        return (out & 255).astype(np.uint8)
+        return (out & (0xFFFF if wide else 0xFF)).astype(src.dtype)
     if (dw + 1) // 2 == sw and f == 1:  # 2x linear across
         if dh == 1:
-            return _up2_row(s[(sh - 1) // 2], s[(sh - 1) // 2], dw)[None].astype(np.uint8)
+            return _up2_row(s[(sh - 1) // 2], s[(sh - 1) // 2], dw)[None].astype(src.dtype)
         dy, y = _fixed_div(sh - 1, dh - 1), (1 << 15) - 1
         for j in range(dh):
             out[j] = _up2_row(s[y >> 16], s[y >> 16], dw)
             y += dy
-        return out.astype(np.uint8)
+        return out.astype(src.dtype)
     if (dh + 1) // 2 == sh and (dw + 1) // 2 == sw and f in (2, 3):  # 2x bilinear
         out[0] = _up2_row(s[0], s[0], dw)
         for k in range(sh - 1):
@@ -1435,7 +1494,7 @@ def scale_plain(src: np.ndarray, dw: int, dh: int):
                 out[2 + 2 * k] = _up2_row(s[k + 1], s[k], dw)
         if not dh & 1:
             out[dh - 1] = _up2_row(s[sh - 1], s[sh - 1], dw)
-        return out.astype(np.uint8)
+        return out.astype(src.dtype)
     if f:  # bilinear (ScaleSlope's steps, then rows and columns)
         x = y = dx = dy = 0
         if dw <= sw:
@@ -1457,19 +1516,19 @@ def scale_plain(src: np.ndarray, dw: int, dh: int):
             yi, yf = y >> 16, ((y >> 8) & 255) if f == 2 else 0
             below = s[min(yi + 1, sh - 1)]
             if dh > sh:  # columns of both rows, then the rows
-                out[j] = _interp_rows(_filter_cols(s[yi], dw, x, dx),
-                                      _filter_cols(below, dw, x, dx), yf)
+                out[j] = _interp_rows(_filter_cols(s[yi], dw, x, dx, wide),
+                                      _filter_cols(below, dw, x, dx, wide), yf)
             else:  # the rows, then the columns
-                out[j] = _filter_cols(_interp_rows(s[yi], below, yf), dw, x, dx)
+                out[j] = _filter_cols(_interp_rows(s[yi], below, yf), dw, x, dx, wide)
             y = min(y + dy, max_y)
-        return out.astype(np.uint8)
+        return out.astype(src.dtype)
     dx, dy = _fixed_div(sw, dw), _fixed_div(sh, dh)  # point sampling
     x, y = _centerstart(dx, 0), _centerstart(dy, 0)
     xs = (np.arange(dw) >> 1) if (sw * 2 == dw and x < 0x8000) else \
         (x + dx * np.arange(dw, dtype=np.int64)) >> 16
     for j in range(dh):
         out[j] = s[(y + dy * j) >> 16][xs]
-    return out.astype(np.uint8)
+    return out.astype(src.dtype)
 
 
 def _libyuv_chroma(c, ssx: int, ssy: int, w: int, h: int):
@@ -1522,14 +1581,26 @@ def to_rgba_plain(y, u, v, alpha, w: int, h: int, conv) -> np.ndarray:
     None, `conv` from conversion()."""
     conv = np.asarray(conv)
     ssx, ssy, full = int(conv[C_SSX]), int(conv[C_SSY]), int(conv[C_FULL])
+    depth = bit_depth = int(conv[C_DEPTH])
+    if depth > 8 and conv[C_DOWN]:  # libyuv's Convert16To8Plane, then an 8-bit image
+        y, u, v = (None if p is None else np.minimum(p.astype(np.int64) >> (depth - 8), 255)
+                   for p in (y, u, v))
+        depth = 8
+    s = depth - 8
     out = np.zeros((h, w, 4), np.uint8)
     if conv[C_ROUTE] == ROUTE_LIBYUV:
         yg, yb, ub, ug, vg, vr = (int(x) for x in conv[C_YG:C_VR + 1])
-        y1 = (y[:h, :w].astype(np.int64) * 0x0101 * yg) >> 16
+        yy = y[:h, :w].astype(np.int64)
+        y1 = (((yy << (16 - depth)) | (yy >> (2 * depth - 16))) * yg) >> 16
         if u is None:
             rgb = [(y1 + yb) >> 6] * 3
         else:
-            uu, vv = _libyuv_chroma(u, ssx, ssy, w, h), _libyuv_chroma(v, ssx, ssy, w, h)
+            if conv[C_NEAREST]:
+                rows, cols = np.arange(h)[:, None] >> ssy, np.arange(w)[None, :] >> ssx
+                uu, vv = u.astype(np.int64)[rows, cols], v.astype(np.int64)[rows, cols]
+            else:
+                uu, vv = _libyuv_chroma(u, ssx, ssy, w, h), _libyuv_chroma(v, ssx, ssy, w, h)
+            uu, vv = np.minimum(uu >> s, 255), np.minimum(vv >> s, 255)
             rgb = [(y1 + vv * vr - (vr * 128 - yb)) >> 6,
                    (y1 + (ug * 128 + vg * 128 + yb) - (uu * ug + vv * vg)) >> 6,
                    (y1 + uu * ub - (ub * 128 - yb)) >> 6]
@@ -1539,15 +1610,22 @@ def to_rgba_plain(y, u, v, alpha, w: int, h: int, conv) -> np.ndarray:
         f32 = np.float32
         kr, kb = conv[C_KR:C_KB + 1].astype(np.int32).view(np.float32)
         kg = f32(1) - kr - kb
-        cp = np.arange(256, dtype=f32)
-        ty = (cp - f32(0 if full else 16)) / f32(255 if full else 219)
-        tuv = ty if conv[C_MODE] == MODE_IDENTITY else (cp - f32(128)) / f32(255 if full else 224)
+        mx = (1 << depth) - 1
+        cp = np.arange(mx + 1, dtype=f32)
+        ty = (cp - f32(0 if full else 16 << s)) / f32(mx if full else 219 << s)
+        tuv = ty if conv[C_MODE] == MODE_IDENTITY else (cp - f32(128 << s)) / f32(mx if full else 224 << s)
         Y = ty[y[:h, :w]]
         if u is None:
             R = G = B = Y
         else:
             Cb, Cr = _float_chroma(tuv, u, ssx, ssy, w, h), _float_chroma(tuv, v, ssx, ssy, w, h)
-            if conv[C_MODE] == MODE_IDENTITY:
+            if conv[C_MODE] == MODE_YCGCO_RE:  # libavif's lifting of the rounded integers
+                cg, co = (np.floor(c * f32(mx) + f32(0.5)).astype(np.int64) for c in (Cb, Cr))
+                t = y[:h, :w].astype(np.int64) - (cg >> 1)
+                g, b = np.clip(t + cg, 0, 255), np.clip(t - (co >> 1), 0, 255)
+                for k, c in enumerate((np.clip(b + co, 0, 255), g, b)):
+                    out[..., k] = c
+            elif conv[C_MODE] == MODE_IDENTITY:
                 G, B, R = Y, Cb, Cr
             elif conv[C_MODE] == MODE_YCGCO:
                 t = Y - Cb
@@ -1556,9 +1634,17 @@ def to_rgba_plain(y, u, v, alpha, w: int, h: int, conv) -> np.ndarray:
                 R = Y + (f32(2) * (f32(1) - kr)) * Cr
                 B = Y + (f32(2) * (f32(1) - kb)) * Cb
                 G = Y - ((f32(2) * ((kr * (f32(1) - kr) * Cr) + (kb * (f32(1) - kb) * Cb))) / kg)
-        for k, c in enumerate((R, G, B)):
-            out[..., k] = (f32(0.5) + np.clip(c, f32(0), f32(1)) * f32(255)).astype(np.uint8)
-    out[..., 3] = 255 if alpha is None else alpha[:h, :w]
+        if u is None or conv[C_MODE] != MODE_YCGCO_RE:
+            for k, c in enumerate((R, G, B)):
+                out[..., k] = (f32(0.5) + np.clip(c, f32(0), f32(1)) * f32(255)).astype(np.uint8)
+    if alpha is None:
+        out[..., 3] = 255
+    elif bit_depth == 8:
+        out[..., 3] = alpha[:h, :w]
+    else:
+        a, mx = alpha[:h, :w].astype(np.int64), (1 << bit_depth) - 1
+        out[..., 3] = ((a * 255 + mx // 2) // mx if conv[C_ALPHA_ROUND]
+                       else np.minimum(a >> (bit_depth - 8), 255))
     return out
 
 
@@ -1570,9 +1656,10 @@ def _constrain(diff, threshold: int, damping: int):
     return np.sign(diff) * val
 
 
-def cdef_direction_plain(b: np.ndarray) -> tuple:
-    """The direction search of 7.15.2 on an 8x8: (direction, variance)."""
-    x = b.astype(np.int64) - 128
+def cdef_direction_plain(b: np.ndarray, bit_depth: int = 8) -> tuple:
+    """The direction search of 7.15.2 on an 8x8 (searched at 8 bits):
+    (direction, variance)."""
+    x = (b.astype(np.int64) >> (bit_depth - 8)) - 128
     i, j = np.mgrid[0:8, 0:8]
     lines = (i + j, i + j // 2, i, 3 + i - j // 2, 7 + i - j, 3 - i // 2 + j, j, i // 2 + j)
     partial = np.array([np.bincount(ln.ravel(), weights=x.ravel(), minlength=15)
@@ -1594,18 +1681,21 @@ def cdef_direction_plain(b: np.ndarray) -> tuple:
 
 
 def cdef_block_plain(win: np.ndarray, plane: int, pri: int, sec: int, damping: int,
-                     ydir: int) -> tuple:
+                     ydir: int, bit_depth: int = 8) -> tuple:
     """CDEF (7.15) of one block from its window: (h + 4, w + 4) samples, the
     block at (2, 2), -1 outside the frame. Luma searches its direction
     (ydir is ignored) and adjusts `pri` by the variance; chroma takes the
     luma direction `ydir` through Cdef_Uv_Dir of its subsampling, which
     its size gives (8 >> ssx wide, 8 >> ssy tall). Returns (direction,
     variance, filtered h x w): for luma the search's direction and
-    variance, for chroma the direction used and 0."""
+    variance, for chroma the direction used and 0. The strengths and
+    damping are the header's, shifted here by bit_depth - 8."""
     win = win.astype(np.int64)
     h, w = win.shape[0] - 4, win.shape[1] - 4
+    shift = bit_depth - 8
+    pri, sec, damping = pri << shift, sec << shift, damping + shift
     if plane == 0:
-        ydir, var = cdef_direction_plain(win[2:10, 2:10])
+        ydir, var = cdef_direction_plain(win[2:10, 2:10], bit_depth)
         direction = ydir if pri else 0
         var_str = min((var >> 6).bit_length() - 1, 12) if var >> 6 else 0
         pri = (pri * (4 + var_str) + 8) >> 4 if var else 0
@@ -1617,7 +1707,7 @@ def cdef_block_plain(win: np.ndarray, plane: int, pri: int, sec: int, damping: i
     x = win[2:2 + h, 2:2 + w]
     total = np.zeros_like(x)
     hi, lo = x.copy(), x.copy()
-    pri_taps, sec_taps = T.CDEF_PRI_TAPS[pri & 1], T.CDEF_SEC_TAPS[pri & 1]
+    pri_taps, sec_taps = T.CDEF_PRI_TAPS[(pri >> shift) & 1], T.CDEF_SEC_TAPS[(pri >> shift) & 1]
 
     def tap(d, k, sign, strength, weight):
         nonlocal total, hi, lo
@@ -1634,13 +1724,14 @@ def cdef_block_plain(win: np.ndarray, plane: int, pri: int, sec: int, damping: i
             for off in (-2, 2):
                 tap((direction + off) & 7, k, sign, sec, sec_taps[k])
     out = np.clip(x + ((8 + total - (total < 0)) >> 4), lo, hi)
-    return result, var, out.astype(np.uint8)
+    return result, var, out.astype(_samples(bit_depth))
 
 
-def wiener_plain(win: np.ndarray, vtaps, htaps) -> np.ndarray:
+def wiener_plain(win: np.ndarray, vtaps, htaps, bit_depth: int = 8) -> np.ndarray:
     """The Wiener filter (7.17.4) of a block from its window ((h + 6, w + 6),
     the block at (3, 3)): 7 taps each way, tap 3 = 128 - 2 (taps 0-2), the
-    8-bit rounding and the clip of the horizontal intermediate."""
+    rounding of the bit depth (InterRound0 3 and InterRound1 11, 5 and 9 at
+    12 bits) and the clip of the horizontal intermediate."""
     win = win.astype(np.int64)
     h, w = win.shape[0] - 6, win.shape[1] - 6
 
@@ -1648,13 +1739,15 @@ def wiener_plain(win: np.ndarray, vtaps, htaps) -> np.ndarray:
         t = [int(v) for v in t]
         return t + [128 - 2 * sum(t)] + t[::-1]
     hf, vf = taps(htaps), taps(vtaps)
+    round0, round1 = (5, 9) if bit_depth == 12 else (3, 11)
+    offset, limit = 1 << (bit_depth + 7 - round0 - 1), (1 << (bit_depth + 1 + 7 - round0)) - 1
     mid = sum(hf[t] * win[:, t:t + w] for t in range(7))
-    mid = np.clip(_round2(mid, 3), -2048, 8191 - 2048)
+    mid = np.clip(_round2(mid, round0), -offset, limit - offset)
     out = sum(vf[t] * mid[t:t + h] for t in range(7))
-    return np.clip(_round2(out, 11), 0, 255).astype(np.uint8)
+    return np.clip(_round2(out, round1), 0, (1 << bit_depth) - 1).astype(_samples(bit_depth))
 
 
-def _sgr_box_plain(win: np.ndarray, r: int, s: int, pass_: int) -> np.ndarray:
+def _sgr_box_plain(win: np.ndarray, r: int, s: int, pass_: int, bit_depth: int) -> np.ndarray:
     h, w = win.shape[0] - 6, win.shape[1] - 6
     n = (2 * r + 1) ** 2
     a = np.zeros((h + 2, w + 2), np.int64)
@@ -1664,7 +1757,8 @@ def _sgr_box_plain(win: np.ndarray, r: int, s: int, pass_: int) -> np.ndarray:
             c = win[2 + dy:2 + dy + h + 2, 2 + dx:2 + dx + w + 2]
             a += c * c
             b += c
-    p = np.maximum(0, a * n - b * b)
+    shift = bit_depth - 8
+    p = np.maximum(0, _round2(a, 2 * shift) * n - _round2(b, shift) ** 2)
     z = _round2(p * s, 20)
     A = T.X_BY_XPLUS1.astype(np.int64)[np.minimum(z, 255)]
     B = _round2((256 - A) * b * int(T.ONE_BY_X[n - 1]), 12)
@@ -1684,7 +1778,7 @@ def _sgr_box_plain(win: np.ndarray, r: int, s: int, pass_: int) -> np.ndarray:
     return (v + (1 << (8 + shift - 4 - 1))) >> (8 + shift - 4)
 
 
-def sgr_plain(win: np.ndarray, sgr_set: int, xqd) -> np.ndarray:
+def sgr_plain(win: np.ndarray, sgr_set: int, xqd, bit_depth: int = 8) -> np.ndarray:
     """The self-guided filter (7.17.3) of a block from its window (as
     wiener_plain's): the set's box passes at radius 2 (every other row) and
     1, then the projection with weights xqd."""
@@ -1695,21 +1789,25 @@ def sgr_plain(win: np.ndarray, sgr_set: int, xqd) -> np.ndarray:
     w0, w1 = int(xqd[0]), int(xqd[1])
     w2 = (1 << 7) - w0 - w1
     v = w1 * u
-    v = v + w0 * (_sgr_box_plain(win, r0, s0, 0) if r0 else u)
-    v = v + w2 * (_sgr_box_plain(win, r1, s1, 1) if r1 else u)
-    return np.clip(_round2(v, 11), 0, 255).astype(np.uint8)
+    v = v + w0 * (_sgr_box_plain(win, r0, s0, 0, bit_depth) if r0 else u)
+    v = v + w2 * (_sgr_box_plain(win, r1, s1, 1, bit_depth) if r1 else u)
+    return np.clip(_round2(v, 11), 0, (1 << bit_depth) - 1).astype(_samples(bit_depth))
 
 
 def check_trace(buf: np.ndarray, limit: int = 0) -> dict:
     """Checks the traced stage calls against their twins; `limit` caps the
     calls checked of each kind (0: all). Returns the counts checked;
-    raises RuntimeError at the first call that differs."""
+    raises RuntimeError at the first call that differs. A record of kind 8
+    sets the bit depth of the records after it (8 until one does)."""
     counts = {"predict": 0, "cfl": 0, "txfm": 0, "lf": 0, "cdef": 0, "wiener": 0, "sgr": 0}
     lf_batches = {}
-    pos, n = 0, len(buf)
+    pos, n, depth = 0, len(buf), 8
     while pos < n:
         kind = int(buf[pos])
-        if kind == 1:
+        if kind == 8:
+            depth = int(buf[pos + 1])
+            pos += 2
+        elif kind == 1:
             params = buf[pos + 1:pos + 13]
             m = int(buf[pos + 13])
             above = buf[pos + 14:pos + 14 + m]
@@ -1718,7 +1816,7 @@ def check_trace(buf: np.ndarray, limit: int = 0) -> dict:
             got = buf[pos + 14 + 2 * m:pos + 14 + 2 * m + w * h]
             pos += 14 + 2 * m + w * h
             if not limit or counts["predict"] < limit:
-                want = predict_plain(params, above, left)
+                want = predict_plain(params, above, left, depth)
                 if not np.array_equal(want.reshape(-1), got):
                     raise RuntimeError(f"predict {params.tolist()} differs from predict_plain")
                 counts["predict"] += 1
@@ -1730,7 +1828,7 @@ def check_trace(buf: np.ndarray, limit: int = 0) -> dict:
             got = buf[pos + 4 + 2 * k:pos + 4 + 3 * k]
             pos += 4 + 3 * k
             if not limit or counts["cfl"] < limit:
-                if not np.array_equal(cfl_plain(L, alpha, dc).reshape(-1), got):
+                if not np.array_equal(cfl_plain(L, alpha, dc, depth).reshape(-1), got):
                     raise RuntimeError("cfl differs from cfl_plain")
                 counts["cfl"] += 1
         elif kind == 3:
@@ -1742,12 +1840,12 @@ def check_trace(buf: np.ndarray, limit: int = 0) -> dict:
             if not limit or counts["txfm"] < limit:
                 deq = np.zeros(64 * 64, np.int64)
                 deq[pairs[:, 0]] = pairs[:, 1]
-                want = inv_txfm_plain(deq.reshape(64, 64), tx, ty, lossless)
+                want = inv_txfm_plain(deq.reshape(64, 64), tx, ty, lossless, depth)
                 if not np.array_equal(want.reshape(-1), got):
                     raise RuntimeError(f"inverse transform {tx} {ty} differs from inv_txfm_plain")
                 counts["txfm"] += 1
         elif kind == 4:
-            key = tuple(int(v) for v in buf[pos + 1:pos + 6])
+            key = tuple(int(v) for v in buf[pos + 1:pos + 6]) + (depth,)
             lf_batches.setdefault(key, []).append(buf[pos + 6:pos + 38])
             pos += 38
         elif kind == 5:
@@ -1758,7 +1856,7 @@ def check_trace(buf: np.ndarray, limit: int = 0) -> dict:
             got = buf[pos + 10 + k:pos + 10 + k + w * h]
             pos += 10 + k + w * h
             if not limit or counts["cdef"] < limit:
-                d, var, out = cdef_block_plain(win, plane, pri, sec, damping, ydir)
+                d, var, out = cdef_block_plain(win, plane, pri, sec, damping, ydir, depth)
                 if (d, var) != (got_dir, got_var) or not np.array_equal(out.reshape(-1), got):
                     raise RuntimeError(f"CDEF of plane {plane} (strengths {pri}, {sec}) differs "
                                        "from cdef_block_plain")
@@ -1772,8 +1870,8 @@ def check_trace(buf: np.ndarray, limit: int = 0) -> dict:
             pos += 9 + k + w * h
             name = "wiener" if kind == 6 else "sgr"
             if not limit or counts[name] < limit:
-                want = (wiener_plain(win, params[:3], params[3:]) if kind == 6
-                        else sgr_plain(win, int(params[0]), params[1:3]))
+                want = (wiener_plain(win, params[:3], params[3:], depth) if kind == 6
+                        else sgr_plain(win, int(params[0]), params[1:3], depth))
                 if not np.array_equal(want.reshape(-1), got):
                     raise RuntimeError(f"{'Wiener' if kind == 6 else 'self-guided'} filter "
                                        f"{params.tolist()} differs from {name}_plain")
@@ -1782,7 +1880,7 @@ def check_trace(buf: np.ndarray, limit: int = 0) -> dict:
             raise RuntimeError(f"a trace record of kind {kind}")
     for key, rows in lf_batches.items():
         rows = np.array(rows[:limit] if limit else rows)
-        want = lf_edge_plain(rows[:, :16], key)
+        want = lf_edge_plain(rows[:, :16], key[:5], key[5])
         if not np.array_equal(want, rows[:, 16:]):
             raise RuntimeError(f"loop filter {key} differs from lf_edge_plain")
         counts["lf"] += len(rows)

@@ -32,9 +32,10 @@ the ROADMAP item: a derived primary item (`grid`, `iovl`), an image
 sequence (`avis`, a `moov` track, which PIL reads instead of the primary
 item), `clap` cropping, `a1op` / `lsel` layer selection, a premultiplied
 alpha (`prem`), a limited-range alpha item, a scale to ispe by libyuv's
-3/4 or 3/8 filters, and the AV1 features utils/av1.py refuses (10 and 12
-bits, superres, film grain). A truncated or malformed file raises
-ValueError.
+3/4 or 3/8 filters or of a 10- or 12-bit frame, and the AV1 features
+utils/av1.py refuses (superres, film grain). An alpha item of another bit
+depth than the colour item fails, as in libavif ("Decoding of alpha plane
+failed" in PIL). A truncated or malformed file raises ValueError.
 """
 
 from __future__ import annotations
@@ -386,7 +387,7 @@ def to_ispe(frame: av1.Frame, width: int, height: int, plain: bool = False) -> a
         planes.append(av1.scale(p, (frame.width + sx) >> sx, (frame.height + sy) >> sy,
                                 (width + sx) >> sx, (height + sy) >> sy, plain=plain))
     out = av1.Frame(tuple(planes), width, height, frame.full_range, frame.matrix, frame.mono,
-                    frame.ssx, frame.ssy, frame.primaries)
+                    frame.ssx, frame.ssy, frame.primaries, frame.bit_depth)
     out.mi, out.cdef, out.lr, out.ms = frame.mi, frame.cdef, frame.lr, frame.ms
     return out
 
@@ -398,7 +399,11 @@ def decode_avif(data: bytes, plain: bool = False) -> np.ndarray:
     color = to_ispe(av1.decode(still.color, plain=plain), still.width, still.height, plain)
     alpha = None
     if still.alpha:
-        a = to_ispe(av1.decode(still.alpha, plain=plain), *still.alpha_size, plain)
+        a = av1.decode(still.alpha, plain=plain)
+        if a.bit_depth != color.bit_depth:  # dav1d's alpha plane must match the colour's
+            raise ValueError(f"AVIF: a {a.bit_depth}-bit alpha item on a {color.bit_depth}-bit "
+                             "colour item (libavif: Decoding of alpha plane failed)")
+        a = to_ispe(a, *still.alpha_size, plain)
         if a.width != still.width or a.height != still.height:
             raise ValueError("AVIF: the alpha and colour items differ in size")
         if not a.full_range:

@@ -62,14 +62,14 @@ _AV1_SIGNATURES = {
     "fd_av1_cdef": ([_P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
     "fd_av1_lr": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
     "fd_av1_to_rgb": ([_P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P], _I),
-    "fd_av1_scale": ([_P, _I, _I, _I, _P, _I, _I, _I], _I),
-    "fd_av1_cdef_block": ([_P, _I, _I, _I, _I, _I, _I, _I, _P, _P], _I),
-    "fd_av1_wiener": ([_P, _I, _I, _P, _P], _I),
-    "fd_av1_sgr": ([_P, _I, _I, _I, _P, _P], _I),
-    "fd_av1_predict": ([_P, _P, _P, _P], _I),
-    "fd_av1_cfl": ([_P, _I, _I, _I, _P], _I),
-    "fd_av1_inv_txfm": ([_P, _I, _I, _I, _P], _I),
-    "fd_av1_lf_edge": ([_P, _P], _I),
+    "fd_av1_scale": ([_P, _I, _I, _I, _P, _I, _I, _I, _I], _I),
+    "fd_av1_cdef_block": ([_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P], _I),
+    "fd_av1_wiener": ([_P, _I, _I, _P, _I, _P], _I),
+    "fd_av1_sgr": ([_P, _I, _I, _I, _P, _I, _P], _I),
+    "fd_av1_predict": ([_P, _P, _P, _I, _P], _I),
+    "fd_av1_cfl": ([_P, _I, _I, _I, _I, _P], _I),
+    "fd_av1_inv_txfm": ([_P, _I, _I, _I, _I, _P], _I),
+    "fd_av1_lf_edge": ([_P, _P, _I], _I),
     "fd_av1_trace": ([_P, _I64], _I64),
 }
 _ZSTD_SIGNATURES = {"fd_zstd_decompress": ([_P, _I64, _P, _I64], _I64)}

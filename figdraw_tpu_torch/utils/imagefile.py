@@ -8,8 +8,9 @@ Decoded: PNG (utils/png.py), JPEG (utils/jpeg.py), GIF's first frame
 (utils/qoi.py), TIFF and BigTIFF's first image (utils/tiff.py, CCITT fax
 and ZSTD through utils/fax.py and utils/zstd.py), WebP's first frame,
 lossy, lossless or animated (utils/webp.py) and AVIF still images of AV1
-profile 0, 8-bit 4:2:0 with an optional alpha item (utils/avif.py,
-utils/av1.py); their sequential loops run in C++ (csrc/png_unfilter.cpp,
+profiles 0-2 at 8, 10 and 12 bits, 4:2:0, 4:2:2, 4:4:4 or 4:0:0, with an
+optional alpha item (utils/avif.py, utils/av1.py); their sequential loops
+run in C++ (csrc/png_unfilter.cpp,
 csrc/image_decode.cpp, csrc/zstd_decode.cpp, csrc/webp_decode.cpp,
 csrc/av1_decode.cpp, built with g++ at first use; a missing toolchain
 raises). PIL's other readers raise NotImplementedError naming the format,

@@ -437,13 +437,13 @@ def test_inverse_transforms_equal_their_twin(tx):
             scale = (8, 200, 2000)[trial]
             deq[idx // tw, idx % tw] = rng.integers(-scale, scale + 1, k)
             got = np.zeros(w * h, np.int32)
-            assert lib.fd_av1_inv_txfm(deq.ctypes.data, tx, tx_type, 0, got.ctypes.data) == 0
+            assert lib.fd_av1_inv_txfm(deq.ctypes.data, tx, tx_type, 0, 8, got.ctypes.data) == 0
             want = av1.inv_txfm_plain(deq, tx, tx_type, 0)
             np.testing.assert_array_equal(got.reshape(h, w), want, err_msg=f"{tx} {tx_type}")
     deq = np.zeros((64, 64), np.int32)
     deq[:4, :4] = rng.integers(-300, 300, (4, 4))
     got = np.zeros(16, np.int32)
-    lib.fd_av1_inv_txfm(deq.ctypes.data, 0, 0, 1, got.ctypes.data)
+    lib.fd_av1_inv_txfm(deq.ctypes.data, 0, 0, 1, 8, got.ctypes.data)
     np.testing.assert_array_equal(got.reshape(4, 4), av1.inv_txfm_plain(deq, 0, 0, 1))
 
 
@@ -499,8 +499,8 @@ def test_predictors_equal_their_twin(mode, lw, lh):
             above, left = _edges(rng, n, trial == 3), _edges(rng, n)
             left[0] = above[0]
             p = np.array(params, np.int32)
-            got = np.zeros(w * h, np.uint8)
-            assert lib.fd_av1_predict(p.ctypes.data, above.ctypes.data, left.ctypes.data,
+            got = np.zeros(w * h, np.uint16)
+            assert lib.fd_av1_predict(p.ctypes.data, above.ctypes.data, left.ctypes.data, 8,
                                       got.ctypes.data) == 0
             want = av1.predict_plain(params, above, left)
             np.testing.assert_array_equal(got.reshape(h, w), want, err_msg=str(params))
@@ -510,8 +510,8 @@ def test_predictors_equal_their_twin(mode, lw, lh):
             above, left = _edges(rng, w + h + 1), _edges(rng, w + h + 1)
             left[0] = above[0]
             p = np.array(params, np.int32)
-            got = np.zeros(w * h, np.uint8)
-            lib.fd_av1_predict(p.ctypes.data, above.ctypes.data, left.ctypes.data, got.ctypes.data)
+            got = np.zeros(w * h, np.uint16)
+            lib.fd_av1_predict(p.ctypes.data, above.ctypes.data, left.ctypes.data, 8, got.ctypes.data)
             np.testing.assert_array_equal(got.reshape(h, w), av1.predict_plain(params, above, left))
 
 
@@ -522,8 +522,8 @@ def test_cfl_equals_its_twin(w, h):
     for alpha in (-16, -5, -1, 0, 1, 7, 16):
         L = (rng.integers(0, 256 * 4, (h, w)) * 2).astype(np.int32)
         dc = np.full((h, w), rng.integers(0, 256), np.uint8)
-        got = dc.copy()
-        assert lib.fd_av1_cfl(L.ctypes.data, w, h, alpha, got.ctypes.data) == 0
+        got = dc.astype(np.uint16)
+        assert lib.fd_av1_cfl(L.ctypes.data, w, h, alpha, 8, got.ctypes.data) == 0
         np.testing.assert_array_equal(got, av1.cfl_plain(L, alpha, dc))
 
 
@@ -549,7 +549,7 @@ def test_loop_filter_edge_equals_its_twin(size, plane):
             got = []
             for s in rows:
                 x = s.copy()
-                lib.fd_av1_lf_edge(x.ctypes.data, p.ctypes.data)
+                lib.fd_av1_lf_edge(x.ctypes.data, p.ctypes.data, 8)
                 got.append(x)
             np.testing.assert_array_equal(np.array(got), av1.lf_edge_plain(np.array(rows), params))
 

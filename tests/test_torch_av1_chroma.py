@@ -215,17 +215,19 @@ def _put(addr: int, off: int, value: int, n: int = 4) -> None:
     ctypes.memmove(addr + off, int(value).to_bytes(n, "little", signed=value < 0), n)
 
 
-def _avif_yuv_to_rgb(lib, planes, alpha, fmt: str, full: int, matrix: int, primaries: int):
+def _avif_yuv_to_rgb(lib, planes, alpha, fmt: str, full: int, matrix: int, primaries: int,
+                     depth: int = 8):
     """libavif 1.3.0's avifImageYUVToRGB as PIL calls it (avifRGBImage
-    defaults, 8 bits, RGBA where there is alpha, else RGB): the RGBA image
-    or None where it fails. avifImage: width, height, depth, format, range
-    (byte 16), the plane pointers at 24 and their row bytes at 48, alpha's
-    at 64 and 72, primaries and matrix as uint16 at 104 and 108;
-    avifRGBImage: depth at 8, format at 12, pixels at 48, row bytes at 56."""
+    defaults, 8 bits, RGBA where there is alpha, else RGB) on an image of
+    `depth` bits (uint16 samples past 8): the RGBA image or None where it
+    fails. avifImage: width, height, depth, format, range (byte 16), the
+    plane pointers at 24 and their row bytes at 48, alpha's at 64 and 72,
+    primaries and matrix as uint16 at 104 and 108; avifRGBImage: depth at
+    8, format at 12, pixels at 48, row bytes at 56."""
     y = planes[0]
     h, w = y.shape
     code = {"4:4:4": 1, "4:2:2": 2, "4:2:0": 3, "4:0:0": 4}[fmt]
-    img = lib.avifImageCreate(w, h, 8, code)
+    img = lib.avifImageCreate(w, h, depth, code)
     assert lib.avifImageAllocatePlanes(img, 1 | (2 if alpha is not None else 0)) == 0
     _put(img, 16, full)
     _put(img, 104, primaries, 2)
@@ -233,8 +235,9 @@ def _avif_yuv_to_rgb(lib, planes, alpha, fmt: str, full: int, matrix: int, prima
     for k, p in enumerate(planes + ([alpha] if alpha is not None else [])):
         at_ptr, at_stride = (64, 72) if k == len(planes) else (24 + 8 * k, 48 + 4 * k)
         ptr, stride = _word(img, at_ptr, 8), _word(img, at_stride)
+        p = np.ascontiguousarray(p, np.uint8 if depth == 8 else np.uint16)
         for r in range(p.shape[0]):
-            ctypes.memmove(ptr + r * stride, np.ascontiguousarray(p[r]).ctypes.data, p.shape[1])
+            ctypes.memmove(ptr + r * stride, p[r].ctypes.data, p.shape[1] * p.itemsize)
     rgb = ctypes.create_string_buffer(256)
     at = ctypes.addressof(rgb)
     lib.avifRGBImageSetDefaults(at, img)
@@ -387,9 +390,9 @@ def test_chroma_cdef_block_equals_its_twin(w, h):
             win[:, : int(rng.integers(1, 3))] = -1
         pri, sec = int(rng.integers(0, 16)), int(rng.choice([0, 1, 2, 4]))
         damping, ydir = int(rng.integers(2, 6)), int(rng.integers(0, 8))
-        out = np.zeros(w * h, np.uint8)
+        out = np.zeros(w * h, np.uint16)
         dv = np.zeros(2, np.int32)
-        assert lib.fd_av1_cdef_block(win.ctypes.data, w, h, 1, pri, sec, damping, ydir,
+        assert lib.fd_av1_cdef_block(win.ctypes.data, w, h, 1, pri, sec, damping, ydir, 8,
                                      out.ctypes.data, dv.ctypes.data) == 0
         d, var, want = av1.cdef_block_plain(win, 1, pri, sec, damping, ydir)
         assert (int(dv[0]), int(dv[1])) == (d, var)
@@ -444,7 +447,16 @@ AV1C_CASES = {
     "pixi no depths": (lambda d: _flip(d, b"pixi", 4, value=0), False),
     # av1C and pixi agree on 10 bits over an 8-bit stream: decoded at 8
     "av1C and pixi 10 bits": (lambda d: _ten_bits(d), True),
+    # the stream, av1C and pixi all at 10 or 12 bits: decoded at their depth
+    "stream, av1C and pixi 10 bits": (lambda d: _at_depth(d, 10), True),
+    "stream, av1C and pixi 12 bits": (lambda d: _at_depth(d, 12), True),
 }
+
+
+def _at_depth(data: bytes, depth: int) -> bytes:
+    import make_image_formats
+
+    return make_image_formats.avif_at_depth(data, depth)
 
 
 def _ten_bits(data: bytes) -> bytes:

@@ -60,9 +60,9 @@ def test_cdef_blocks_equal_their_twin(plane):
         cut = tuple(int(v) for v in rng.integers(0, 3, 4) * (rng.random(4) < 0.3)) \
             if trial % 2 else None
         win = _window(rng, n, n, 2, trial % 3 == 0, cut)
-        out = np.zeros(n * n, np.uint8)
+        out = np.zeros(n * n, np.uint16)
         dv = np.zeros(2, np.int32)
-        assert lib.fd_av1_cdef_block(win.ctypes.data, n, n, plane, pri, sec, damping, ydir,
+        assert lib.fd_av1_cdef_block(win.ctypes.data, n, n, plane, pri, sec, damping, ydir, 8,
                                      out.ctypes.data, dv.ctypes.data) == 0
         d, var, want = av1.cdef_block_plain(win, plane, pri, sec, damping, ydir)
         assert (d, var) == tuple(dv), (pri, sec, damping)
@@ -110,8 +110,8 @@ def test_wiener_equals_its_twin(w, h):
                 taps[[0, 3]] = 0
         taps = taps.astype(np.int32)
         win = _window(rng, w, h, 3, trial % 3 == 0)
-        out = np.zeros(w * h, np.uint8)
-        assert lib.fd_av1_wiener(win.ctypes.data, w, h, taps.ctypes.data, out.ctypes.data) == 0
+        out = np.zeros(w * h, np.uint16)
+        assert lib.fd_av1_wiener(win.ctypes.data, w, h, taps.ctypes.data, 8, out.ctypes.data) == 0
         np.testing.assert_array_equal(out.reshape(h, w), av1.wiener_plain(win, taps[:3], taps[3:]),
                                       err_msg=str(taps))
 
@@ -136,8 +136,8 @@ def test_sgr_equals_its_twin(sgr_set):
         xqd = np.array([rng.integers(lo[0], hi[0] + 1) if r0 else 0,
                         rng.integers(lo[1], hi[1] + 1)], np.int32)
         win = _window(rng, w, h, 3, trial % 2 == 0)
-        out = np.zeros(w * h, np.uint8)
-        assert lib.fd_av1_sgr(win.ctypes.data, w, h, sgr_set, xqd.ctypes.data,
+        out = np.zeros(w * h, np.uint16)
+        assert lib.fd_av1_sgr(win.ctypes.data, w, h, sgr_set, xqd.ctypes.data, 8,
                               out.ctypes.data) == 0
         np.testing.assert_array_equal(out.reshape(h, w), av1.sgr_plain(win, sgr_set, xqd),
                                       err_msg=f"{w}x{h} {xqd}")
@@ -147,13 +147,13 @@ def test_sgr_equals_its_twin(sgr_set):
 def test_the_stage_entry_points_refuse_bad_arguments():
     lib = image_lib.load_av1()
     win = np.zeros(144, np.int32)
-    out = np.zeros(64, np.uint8)
+    out = np.zeros(64, np.uint16)
     dv = np.zeros(2, np.int32)
-    assert lib.fd_av1_cdef_block(win.ctypes.data, 8, 8, 0, 16, 0, 3, -1, out.ctypes.data,
+    assert lib.fd_av1_cdef_block(win.ctypes.data, 8, 8, 0, 16, 0, 3, -1, 8, out.ctypes.data,
                                  dv.ctypes.data) == -2  # a primary strength past 15
-    assert lib.fd_av1_cdef_block(win.ctypes.data, 4, 4, 1, 1, 0, 2, -1, out.ctypes.data,
+    assert lib.fd_av1_cdef_block(win.ctypes.data, 4, 4, 1, 1, 0, 2, -1, 8, out.ctypes.data,
                                  dv.ctypes.data) == -2  # chroma without the luma direction
-    assert lib.fd_av1_sgr(win.ctypes.data, 2, 2, 16, dv.ctypes.data, out.ctypes.data) == -2
+    assert lib.fd_av1_sgr(win.ctypes.data, 2, 2, 16, dv.ctypes.data, 8, out.ctypes.data) == -2
 
 
 # --- the headers and what the tiles read -------------------------------------------

@@ -17,7 +17,8 @@ truncated and corrupt files raising or decoding as PIL does
 they found); load_image of each stored fixture (PIL's default save, the
 speed-2 CDEF file, the 4:4:4 file and the limited-range BT.709 4:2:2 file
 with CDEF and loop restoration) against figdraw_tpu's (image, mips,
-sidecar) and its frames against figdraw_tpu's block means."""
+sidecar) and its frames against figdraw_tpu's block means, as of the three
+made 10- and 12-bit from the CDEF, 4:4:4 and 4:2:2 files."""
 
 import ctypes
 import glob
@@ -35,10 +36,13 @@ import torch
 from PIL import Image
 
 from figdraw_tpu_torch.scenes import (
-    AVIF_422_FILE_REFERENCE, AVIF_422_FIXTURE, AVIF_422_WALL_REFERENCE, AVIF_444_FILE_REFERENCE,
-    AVIF_444_FIXTURE, AVIF_444_WALL_REFERENCE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_FIXTURE,
-    AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE, AVIF_FIXTURE, AVIF_WALL_REFERENCE, IMAGE_FIXTURE,
-    IMAGE_FORMATS_REFERENCE,
+    AVIF_422_12_FILE_REFERENCE, AVIF_422_12_FIXTURE, AVIF_422_12_WALL_REFERENCE,
+    AVIF_422_FILE_REFERENCE, AVIF_422_FIXTURE, AVIF_422_WALL_REFERENCE,
+    AVIF_444_10_FILE_REFERENCE, AVIF_444_10_FIXTURE, AVIF_444_10_WALL_REFERENCE,
+    AVIF_444_FILE_REFERENCE, AVIF_444_FIXTURE, AVIF_444_WALL_REFERENCE,
+    AVIF_CDEF10_FILE_REFERENCE, AVIF_CDEF10_FIXTURE, AVIF_CDEF10_WALL_REFERENCE,
+    AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_FIXTURE, AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE,
+    AVIF_FIXTURE, AVIF_WALL_REFERENCE, IMAGE_FIXTURE, IMAGE_FORMATS_REFERENCE,
 )
 from figdraw_tpu_torch.utils import av1, avif, imagefile
 from torch_reference import REPO
@@ -198,7 +202,14 @@ FIXTURES = {"q75": (AVIF_FIXTURE, AVIF_FILE_REFERENCE, AVIF_WALL_REFERENCE),
             "s2_cdef": (AVIF_CDEF_FIXTURE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_WALL_REFERENCE),
             "444": (AVIF_444_FIXTURE, AVIF_444_FILE_REFERENCE, AVIF_444_WALL_REFERENCE),
             "422_limited_cdef": (AVIF_422_FIXTURE, AVIF_422_FILE_REFERENCE,
-                                 AVIF_422_WALL_REFERENCE)}
+                                 AVIF_422_WALL_REFERENCE),
+            # the three made 10- and 12-bit (tests/test_torch_av1_depth.py)
+            "s2_cdef_10bit": (AVIF_CDEF10_FIXTURE, AVIF_CDEF10_FILE_REFERENCE,
+                              AVIF_CDEF10_WALL_REFERENCE),
+            "444_10bit": (AVIF_444_10_FIXTURE, AVIF_444_10_FILE_REFERENCE,
+                          AVIF_444_10_WALL_REFERENCE),
+            "422_12bit": (AVIF_422_12_FIXTURE, AVIF_422_12_FILE_REFERENCE,
+                          AVIF_422_12_WALL_REFERENCE)}
 
 
 @pytest.mark.parametrize("fixture", sorted(FIXTURES))
@@ -392,27 +403,30 @@ def _libavif():
     return lib
 
 
-def _avif_scale(lib, plane: np.ndarray, dw: int, dh: int) -> np.ndarray:
-    """libavif 1.3.0's avifImageScale of a 4:0:0 image: its Y plane
-    (avifImage: width, height, depth, format, range, chroma position, then
-    the three plane pointers at byte 24 and their row bytes at 48)."""
+def _avif_scale(lib, plane: np.ndarray, dw: int, dh: int, depth: int = 8) -> np.ndarray:
+    """libavif 1.3.0's avifImageScale of a 4:0:0 image of `depth` bits
+    (uint16 samples past 8): its Y plane (avifImage: width, height, depth,
+    format, range, chroma position, then the three plane pointers at byte
+    24 and their row bytes at 48)."""
     h, w = plane.shape
-    img = lib.avifImageCreate(w, h, 8, 4)
+    img = lib.avifImageCreate(w, h, depth, 4)
     assert lib.avifImageAllocatePlanes(img, 1) == 0
 
     def y_plane():
         raw = bytes((ctypes.c_uint8 * 56).from_address(img))
         return int.from_bytes(raw[24:32], "little"), int.from_bytes(raw[48:52], "little")
 
+    dtype = np.uint8 if depth == 8 else np.uint16
+    plane = np.ascontiguousarray(plane, dtype)
     ptr, stride = y_plane()
     for r in range(h):
-        ctypes.memmove(ptr + r * stride, plane[r].ctypes.data, w)
+        ctypes.memmove(ptr + r * stride, plane[r].ctypes.data, w * plane.itemsize)
     diag = ctypes.create_string_buffer(1024)
     assert lib.avifImageScale(img, dw, dh, diag) == 0
     ptr, stride = y_plane()
-    out = np.frombuffer(bytes((ctypes.c_uint8 * (stride * dh)).from_address(ptr)), np.uint8)
+    out = np.frombuffer(bytes((ctypes.c_uint8 * (stride * dh)).from_address(ptr)), dtype)
     lib.avifImageDestroy(img)
-    return out.reshape(dh, stride)[:, :dw]
+    return out.reshape(dh, stride // plane.itemsize)[:, :dw]
 
 
 def test_scale_and_its_twin_equal_libavifs_scale():

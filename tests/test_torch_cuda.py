@@ -604,6 +604,56 @@ def test_chroma_avif_photo_wall_on_k4_atlas(dev, tmp_path, kind):
     _avif_photo_wall(dev, tmp_path, fixture, wall_ref)
 
 
+def _deep_avif(kind: str) -> tuple:
+    """(file, scene reference, wall reference, bit depth) of a stored AVIF
+    made 10- or 12-bit (the CDEF file and the 4:4:4 file at 10 bits, the
+    limited-range 4:2:2 file at 12)."""
+    from figdraw_tpu_torch import scenes
+
+    return {"cdef10": (scenes.AVIF_CDEF10_FIXTURE, scenes.AVIF_CDEF10_FILE_REFERENCE,
+                       scenes.AVIF_CDEF10_WALL_REFERENCE, 10),
+            "444_10": (scenes.AVIF_444_10_FIXTURE, scenes.AVIF_444_10_FILE_REFERENCE,
+                       scenes.AVIF_444_10_WALL_REFERENCE, 10),
+            "422_12": (scenes.AVIF_422_12_FIXTURE, scenes.AVIF_422_12_FILE_REFERENCE,
+                       scenes.AVIF_422_12_WALL_REFERENCE, 12)}[kind]
+
+
+@pytest.mark.parametrize("kind", ["cdef10", "444_10", "422_12"])
+def test_deep_avif_decodes_to_its_digest(kind):
+    """The stored 10- and 12-bit AVIFs on the card's host: the C++ decode at
+    their depth (its stages held to their twins through the trace) and the
+    conversion to PIL's stored digest."""
+    import hashlib
+    import json
+
+    from figdraw_tpu_torch.scenes import IMAGE_FORMATS_REFERENCE
+    from figdraw_tpu_torch.utils import av1, avif, imagefile
+
+    path, _scene_ref, _wall_ref, depth = _deep_avif(kind)
+    with open(path, "rb") as fh:
+        data = fh.read()
+    with open(IMAGE_FORMATS_REFERENCE) as fh:
+        want = json.load(fh)["files"][os.path.basename(path)]["decoded_sha256"]
+    assert hashlib.sha256(imagefile.decode_image(data).tobytes()).hexdigest() == want
+    frame = av1.decode(avif.parse(data).color, plain=True)
+    assert frame.bit_depth == depth
+    if kind != "444_10":
+        assert all(frame.checked[k] for k in ("cdef", "wiener", "sgr")), frame.checked
+    assert hashlib.sha256(avif.decode_avif(data, plain=True).tobytes()).hexdigest() == want
+
+
+@pytest.mark.parametrize("kind", ["cdef10", "444_10", "422_12"])
+def test_deep_avif_image_file_frame_on_k1_atlas(dev, tmp_path, kind):
+    fixture, scene_ref, _wall_ref, _depth = _deep_avif(kind)
+    _avif_image_file_frame(dev, tmp_path, fixture, scene_ref)
+
+
+@pytest.mark.parametrize("kind", ["cdef10", "444_10", "422_12"])
+def test_deep_avif_photo_wall_on_k4_atlas(dev, tmp_path, kind):
+    fixture, _scene_ref, wall_ref, _depth = _deep_avif(kind)
+    _avif_photo_wall(dev, tmp_path, fixture, wall_ref)
+
+
 def test_text_table_matches_plain_executor(dev):
     """The stored table of text in clipped cells (1200x800) on the
     megakernel with the atlas: one K4-atlas launch, the frame the plain

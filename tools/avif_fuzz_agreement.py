@@ -13,7 +13,10 @@ cases without --formats keep their bytes. With --dav1d-c PIL's dav1d runs
 its C code only (`dav1d_set_cpu_flags_mask(0)` in PIL's libavif): on
 coefficients that corrupt data drives to the clamp, dav1d's SSSE3 and AVX2
 transforms part from its C code and the specification, which the port
-follows.
+follows. With --depths each case's file is made a 10- or 12-bit one (drawn
+from a seeded stream of its own) by rewriting its sequence headers, av1C
+and pixi (tools/make_image_formats.py's avif_at_depth: aom in PIL's
+libavif writes 8 bits only; 12 bits in profile 2), its tile symbols kept.
 
 A picture is one of: seeded noise, a crop of the PNG fixture
 (tests/goldens/render_3d_overlay_gaussian.png), a flat UI-like picture of
@@ -26,7 +29,7 @@ decoded). With --corrupt an error on both sides agrees. The counts are
 printed by speed, and each disagreement by its seed and index
 (`case(seed, index)` rebuilds it). Needs PIL (the CPU host's).
 
-    python tools/avif_fuzz_agreement.py [--corrupt] [--formats] [--dav1d-c]
+    python tools/avif_fuzz_agreement.py [--corrupt] [--formats] [--depths] [--dav1d-c]
         [cases per seed, default 200] [seeds, default 1]
 """
 
@@ -98,12 +101,24 @@ def with_matrix(data: bytes, matrix: int) -> bytes:
     return data[:at + 8] + matrix.to_bytes(2, "big") + data[at + 10:]
 
 
-def written_cases(seed: int, cases: int, start: int = 0, formats: bool = False):
+def at_depth(data: bytes, depth: int) -> bytes:
+    """A PIL-written file made a `depth`-bit one (make_image_formats)."""
+    for path in (REPO, os.path.dirname(os.path.abspath(__file__))):
+        if path not in sys.path:
+            sys.path.insert(0, path)
+    from make_image_formats import avif_at_depth
+
+    return avif_at_depth(data, depth)
+
+
+def written_cases(seed: int, cases: int, start: int = 0, formats: bool = False,
+                  depths: bool = False):
     """Yields (index, options, bytes) of one seed's PIL-written AVIFs from
     index `start` (the pictures before it are drawn, not written)."""
     rng = np.random.default_rng(seed)
     cdef_rng = np.random.default_rng([seed, 7])
     sub_rng, range_rng, matrix_rng = (np.random.default_rng([seed, k]) for k in (8, 9, 10))
+    depth_rng = np.random.default_rng([seed, 11])
     fixture = _fixture()
     for i in range(cases):
         w, h = int(rng.integers(1, 300)), int(rng.integers(1, 300))
@@ -120,20 +135,24 @@ def written_cases(seed: int, cases: int, start: int = 0, formats: bool = False):
             options["range"] = ("full", "limited")[int(range_rng.integers(2))]
             options["matrix"] = MATRICES[int(matrix_rng.integers(len(MATRICES)))]
             extra = {"subsampling": options["subsampling"], "range": options["range"]}
+        if depths:
+            options["depth"] = (10, 12)[int(depth_rng.integers(2))]
         if i >= start:
             data = pil_avif(px, quality=options["quality"], speed=options["speed"],
                             advanced={"enable-cdef": str(options["cdef"])}, **extra)
             if formats and options["matrix"] is not None:
                 data = with_matrix(data, options["matrix"])
+            if depths:
+                data = at_depth(data, options["depth"])
             yield i, options, data
 
 
-def corrupt_cases(seed: int, cases: int, formats: bool = False):
+def corrupt_cases(seed: int, cases: int, formats: bool = False, depths: bool = False):
     """Yields (index, options, bytes): a third of PIL-written files cut at a
     random length, the others with one to three bits flipped (a third of
     those in the first 400 bytes, the container and headers)."""
     rng = np.random.default_rng(seed + 1000)
-    sources = [(o, d) for _i, o, d in written_cases(seed, 12, formats=formats)]
+    sources = [(o, d) for _i, o, d in written_cases(seed, 12, formats=formats, depths=depths)]
     for i in range(cases):
         options, src = sources[i % len(sources)]
         data = bytearray(src)
@@ -147,10 +166,11 @@ def corrupt_cases(seed: int, cases: int, formats: bool = False):
         yield i, options, bytes(data)
 
 
-def case(seed: int, index: int, corrupt: bool = False, formats: bool = False) -> tuple:
+def case(seed: int, index: int, corrupt: bool = False, formats: bool = False,
+         depths: bool = False) -> tuple:
     """(options, bytes) of case `index` of `seed`."""
-    gen = (corrupt_cases(seed, index + 1, formats) if corrupt
-           else written_cases(seed, index + 1, index, formats))
+    gen = (corrupt_cases(seed, index + 1, formats, depths) if corrupt
+           else written_cases(seed, index + 1, index, formats, depths))
     for i, options, data in gen:
         if i == index:
             return options, data
@@ -215,35 +235,39 @@ def outcome(data: bytes, corrupt: bool = False) -> tuple:
     return "differ", f"max |diff| {np.abs(got.astype(int) - want.astype(int)).max() if got.shape == want.shape else 'shape'}"
 
 
-def run(cases: int, seeds: int, corrupt: bool, formats: bool = False) -> dict:
+def run(cases: int, seeds: int, corrupt: bool, formats: bool = False, depths: bool = False) -> dict:
     counts = Counter()
-    by_speed, by_format = defaultdict(Counter), defaultdict(Counter)
+    by_speed, by_format, by_depth = defaultdict(Counter), defaultdict(Counter), defaultdict(Counter)
     features = Counter()
     bad = []
     for seed in range(seeds):
-        gen = corrupt_cases(seed, cases, formats) if corrupt else written_cases(seed, cases,
-                                                                                 formats=formats)
+        gen = (corrupt_cases(seed, cases, formats, depths) if corrupt
+               else written_cases(seed, cases, formats=formats, depths=depths))
         for i, options, data in gen:
             kind, detail = outcome(data, corrupt)
             counts[kind] += 1
+            if detail == "both raise":
+                counts["equal: both raise"] += 1
             by_speed[options["speed"]][kind] += 1
             if formats:
                 by_format[(options["subsampling"], options["range"])][kind] += 1
+            if depths:
+                by_depth[options["depth"]][kind] += 1
             if kind == "refused":
                 features[detail] += 1
             if kind in ("differ", "error"):
                 bad.append((seed, i, options, detail))
-    return {"counts": counts, "by_speed": by_speed, "by_format": by_format, "features": features,
-            "bad": bad}
+    return {"counts": counts, "by_speed": by_speed, "by_format": by_format, "by_depth": by_depth,
+            "features": features, "bad": bad}
 
 
 def main(argv) -> int:
-    corrupt, formats = "--corrupt" in argv, "--formats" in argv
+    corrupt, formats, depths = "--corrupt" in argv, "--formats" in argv, "--depths" in argv
     nums = [int(a) for a in argv if not a.startswith("--")]
     cases = nums[0] if nums else 200
     seeds = nums[1] if len(nums) > 1 else 1
     with dav1d_c_path() if "--dav1d-c" in argv else contextlib.nullcontext():
-        res = run(cases, seeds, corrupt, formats)
+        res = run(cases, seeds, corrupt, formats, depths)
     flags = " ".join(a for a in argv if a.startswith("--"))
     print(f"{'corrupt' if corrupt else 'written'} {flags}: {cases} cases x {seeds} seeds:",
           dict(res["counts"]))
@@ -251,6 +275,8 @@ def main(argv) -> int:
         print(f"  speed {speed}: {dict(res['by_speed'][speed])}")
     for (sub, rng), n in sorted(res["by_format"].items()):
         print(f"  {sub} {rng} range: {dict(n)}")
+    for depth, n in sorted(res["by_depth"].items()):
+        print(f"  {depth} bits: {dict(n)}")
     for feature, n in res["features"].most_common():
         print(f"  refused, {feature}: {n}")
     for seed, i, options, detail in res["bad"]:

@@ -248,6 +248,14 @@ STORED = {
     # name: (dtype, count, anchor, what)
     "DC_QLOOKUP": ("<i2", 256, (4, 8, 8, 9, 10, 11, 12, 12, 13, 14, 15, 16), "8-bit DC quantiser by q index"),
     "AC_QLOOKUP": ("<i2", 256, (4, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18), "8-bit AC quantiser by q index"),
+    "DC_QLOOKUP_10": ("<i2", 256, (4, 9, 10, 13, 15, 17, 20, 22, 25, 28, 31, 34),
+                      "10-bit DC quantiser by q index"),
+    "AC_QLOOKUP_10": ("<i2", 256, (4, 9, 11, 13, 16, 18, 21, 24, 27, 30, 33, 37),
+                      "10-bit AC quantiser by q index"),
+    "DC_QLOOKUP_12": ("<i2", 256, (4, 12, 18, 25, 33, 41, 50, 60, 70, 80, 91, 103),
+                      "12-bit DC quantiser by q index"),
+    "AC_QLOOKUP_12": ("<i2", 256, (4, 13, 19, 27, 35, 44, 54, 64, 75, 87, 99, 112),
+                      "12-bit AC quantiser by q index"),
     "SM_WEIGHTS": ("u1", 124, (255, 149, 85, 64, 255, 197, 146, 105), "smooth weights of 4, 8, 16, 32 and 64"),
     "DR_INTRA_DERIVATIVE": ("<i2", 90, (0, 0, 0, 1023, 0, 0, 547), "directional step by angle"),
     "FILTER_INTRA_TAPS": ("i1", 320, (-6, 10, 0, 0, 0, 12, 0, 0), "filter intra taps [mode][8][8] (7 used)"),

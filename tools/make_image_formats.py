@@ -43,7 +43,12 @@ render_3d_overlay_gaussian.png, 800x600 RGBA), with PIL on the CPU host:
   (`fixture_444.avif`, AV1 profile 1, PIL's default otherwise) and at
   4:2:2, speed 0 with CDEF, marked limited-range BT.709
   (`fixture_422_limited_cdef.avif`, profile 2: 4:2:2's CDEF direction
-  map, its Wiener and self-guided units, libyuv's limited BT.709). The card's machine has no
+  map, its Wiener and self-guided units, libyuv's limited BT.709), and three
+  of those made 10- and 12-bit by rewriting their AV1 sequence headers
+  (`avif_at_depth`: aom in PIL's libavif writes 8 bits only):
+  `fixture_s2_cdef_10bit.avif`, `fixture_444_10bit.avif` (profile 1) and
+  `fixture_422_12bit.avif` (profile 2, limited-range BT.709, CDEF and loop
+  restoration at 12 bits). The card's machine has no
   PIL: chip_smoke.py decodes these.
 - `figdraw_tpu_torch/reference/image_formats.json`: under "files", each
   file's sha256 and the sha256 and shape of PIL's decode,
@@ -51,9 +56,9 @@ render_3d_overlay_gaussian.png, 800x600 RGBA), with PIL on the CPU host:
   .flippy sidecar figdraw_tpu's read_image_cached writes for the baseline
   JPEG, the TIFF fixture, the lossy WebP fixture, the ZSTD fixture, the
   Group 4 fax page, the SOF10 fixture, the SOF3 crop, the incomplete
-  progressive JPEG, the RLE-W fixture and the four AVIF fixtures.
-- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3,arith,incomplete,rlew,avif,avif_cdef,avif_444,avif_422}_1x_blocks8.npy`
-  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4,lossless,incomplete,rlew,avif,avif_cdef,avif_444,avif_422}_480x270_blocks8.npy`:
+  progressive JPEG, the RLE-W fixture and the seven AVIF fixtures.
+- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3,arith,incomplete,rlew,avif,avif_cdef,avif_444,avif_422,avif_cdef10,avif_444_10,avif_422_12}_1x_blocks8.npy`
+  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4,lossless,incomplete,rlew,avif,avif_cdef,avif_444,avif_422,avif_cdef10,avif_444_10,avif_422_12}_480x270_blocks8.npy`:
   8x8 block means of figdraw_tpu's frames of the image-file scene and of
   the photo wall at 480x270 (12 panels) with the baseline JPEG, the TIFF,
   WebP or ZSTD fixture, the dithered Group 3 fixture, the Group 4 page,
@@ -103,6 +108,10 @@ AVIF_FIXTURE = "fixture_q75.avif"
 AVIF_CDEF_FIXTURE = "fixture_s2_cdef.avif"
 AVIF_444_FIXTURE = "fixture_444.avif"
 AVIF_422_FIXTURE = "fixture_422_limited_cdef.avif"
+# the three made 10- and 12-bit from the ones above (name: (source, bits))
+AVIF_DEPTHS = {"fixture_s2_cdef_10bit.avif": (AVIF_CDEF_FIXTURE, 10),
+               "fixture_444_10bit.avif": (AVIF_444_FIXTURE, 10),
+               "fixture_422_12bit.avif": (AVIF_422_FIXTURE, 12)}
 
 
 def _pack_rows(pixels: np.ndarray, bits: int) -> np.ndarray:
@@ -690,6 +699,8 @@ def image_files() -> dict:
     save(AVIF_422_FIXTURE, src, "AVIF", subsampling="4:2:2", speed=0,
          advanced={"enable-cdef": "1"})
     files[AVIF_422_FIXTURE] = limited_bt709(files[AVIF_422_FIXTURE])
+    for name, (source, depth) in AVIF_DEPTHS.items():
+        files[name] = avif_at_depth(files[source], depth)
     return files
 
 
@@ -714,6 +725,164 @@ def limited_bt709(data: bytes) -> bytes:
         if {k for k in seq if seq[k] != other[k]} == {"full_range"}:
             return data.replace(head, bytes(flipped))
     raise ValueError("no color_range bit in the sequence header")
+
+
+def _bits(data: bytes, start: int, end: int) -> list:
+    return [(data[i >> 3] >> (7 - (i & 7))) & 1 for i in range(start, end)]
+
+
+def sequence_header_at(head: bytes, depth: int) -> bytes:
+    """An AV1 sequence header OBU's payload with its color_config rewritten
+    to `depth` bits (high_bitdepth; at 12 bits profile 2 with twelve_bit and
+    the stream's subsampling coded after color_range, a 4:2:0 stream keeping
+    its chroma sample position); everything else is kept. The result is
+    parsed back and held to the intended fields field by field (a bit
+    slipped to the wrong place, such as the subsampling bits written after
+    twelve_bit, parses as another stream: monochrome)."""
+    from figdraw_tpu_torch.utils import av1
+
+    seq = av1.parse_sequence(head)
+    profile = 2 if depth == 12 else seq.profile
+    ssx, ssy = seq.ssx, seq.ssy
+    bits = [(profile >> 2) & 1, (profile >> 1) & 1, profile & 1] + _bits(head, 3, seq.color_bit)
+    bits += [int(depth > 8)] + ([int(depth == 12)] if profile == 2 and depth > 8 else [])
+    if profile != 1:
+        bits.append(seq.mono)
+    bits.append(seq.color_description)
+    if seq.color_description:
+        for v in (seq.primaries, seq.transfer, seq.matrix):
+            bits += [(v >> (7 - k)) & 1 for k in range(8)]
+    if seq.mono:
+        bits.append(seq.full_range)
+    else:
+        if (seq.primaries, seq.transfer, seq.matrix) != (1, 13, 0):
+            bits.append(seq.full_range)
+            if profile == 2 and depth == 12:
+                bits += [ssx] + ([ssy] if ssx else [])
+            if ssx and ssy:
+                bits += [(seq.chroma_position >> 1) & 1, seq.chroma_position & 1]
+        bits.append(seq.separate_uv_dq)
+    bits += [seq.film_grain, 1]  # film_grain_params_present, trailing_one_bit
+    bits += [0] * (-len(bits) % 8)
+    out = bytes(int("".join(map(str, bits[i:i + 8])), 2) for i in range(0, len(bits), 8))
+    check_rewrite(out, head, depth)
+    return out
+
+
+def check_rewrite(out: bytes, head: bytes, depth: int) -> None:
+    """Raises ValueError unless the sequence header `out` parses, field by
+    field, as `head` at `depth` bits (in profile 2 at 12 bits)."""
+    from figdraw_tpu_torch.utils import av1
+
+    seq = av1.parse_sequence(head)
+    got, want = vars(av1.parse_sequence(out)), dict(vars(seq))
+    want.update(profile=2 if depth == 12 else seq.profile, bit_depth=depth)
+    if got != want:
+        raise ValueError("AV1: the rewritten sequence header parses as "
+                         f"{ {k: got[k] for k in got if got[k] != want.get(k)} }")
+
+
+def _obu(kind: int, payload: bytes) -> bytes:
+    size, n = b"", len(payload)
+    while True:
+        size += bytes([(n & 0x7F) | (0x80 if n >> 7 else 0)])
+        n >>= 7
+        if not n:
+            break
+    return bytes([(kind << 3) | 2]) + size + payload
+
+
+def stream_at(stream: bytes, depth: int) -> bytes:
+    """An item's AV1 stream with each sequence header OBU rewritten by
+    sequence_header_at (the OBUs re-sized; every tile symbol kept)."""
+    from figdraw_tpu_torch.utils import av1
+
+    out = b""
+    for kind, payload in av1.obus(stream):
+        if kind == av1.OBU_SEQUENCE_HEADER:
+            payload = sequence_header_at(payload, depth)
+        out += _obu(kind, payload)
+    return out
+
+
+def _box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(payload)) + kind + payload
+
+
+def avif_at_depth(data: bytes, depth: int, alpha_depth: int = None) -> bytes:
+    """A PIL-written 8-bit AVIF made a `depth`-bit one, as no encoder on
+    this host writes one (aom in PIL's libavif has no high bit depth): the
+    sequence header of the colour item and of its alpha item (at
+    `alpha_depth`, the colour's by default) rewritten by stream_at, in the
+    items and in each av1C's configOBUs, av1C's profile, high_bitdepth,
+    twelve_bit and subsampling bits and pixi's depths set to match, and
+    the boxes rebuilt around the longer streams (ftyp, meta: hdlr, pitm,
+    iloc version 0 with 4-byte offsets and lengths, iinf, iref, iprp; then
+    mdat). The tiles' symbols are kept: their samples are read at the new
+    depth."""
+    from figdraw_tpu_torch.utils import av1, avif
+
+    alpha_depth = depth if alpha_depth is None else alpha_depth
+    top = list(avif._boxes(data, 0, len(data), top=True))
+    ftyp = next(data[s - 8:e] for k, s, e in top if k == b"ftyp")
+    _k, ms, me = next(b for b in top if b[0] == b"meta")
+    still = avif.parse(data)
+    parts, ipco, ipma, iloc = [], [], {}, {}
+    for kind, s, e in avif._boxes(data, ms + 4, me):
+        if kind == b"iloc":
+            c = avif._Cursor(data, s, e)
+            avif._parse_iloc(c, iloc := avif._Items())
+        if kind == b"iprp":
+            for pk, ps, pe in avif._boxes(data, s, e):
+                if pk == b"ipco":
+                    ipco = [(kk, data[a:b]) for kk, a, b in avif._boxes(data, ps, pe)]
+                elif pk == b"ipma":
+                    c = avif._Cursor(data, ps, pe)
+                    _v, flags = c.full((0, 1))
+                    for _ in range(c.uint(4)):
+                        item = c.uint(2)
+                        ipma[item] = [c.uint(2 if flags & 1 else 1) for _a in range(c.uint(1))]
+        parts.append((kind, data[s - 8:e]))
+    assert all(len(iloc[i].extents) == 1 for i in iloc) and len(iloc) <= 2
+    alpha_id = next((i for i in iloc if avif._item_bytes(data, iloc[i], b"") == still.alpha
+                     and still.alpha), None)
+    color_id = next(i for i in iloc if i != alpha_id)
+    ids = [color_id] + ([alpha_id] if alpha_id else [])
+    depths = {color_id: depth, alpha_id: alpha_depth}
+    streams = {i: stream_at(avif._item_bytes(data, iloc[i], b""), depths[i]) for i in ids}
+    for i in ids:
+        seq = av1.parse_sequence(next(p for k, p in av1.obus(streams[i])
+                                      if k == av1.OBU_SEQUENCE_HEADER))
+        for index in ipma[i]:
+            kind, payload = ipco[(index & 0x7F) - 1]
+            if kind == b"av1C":
+                b2 = (payload[2] & 0x83) | (int(seq.bit_depth > 8) << 6) | (
+                    int(seq.bit_depth == 12) << 5) | (seq.mono << 4) | (seq.ssx << 3) | (seq.ssy << 2)
+                config = stream_at(payload[4:], seq.bit_depth)
+                payload = bytes([payload[0], (seq.profile << 5) | (payload[1] & 31), b2,
+                                 payload[3]]) + config
+            elif kind == b"pixi":
+                payload = payload[:5] + bytes([seq.bit_depth] * payload[4])
+            ipco[(index & 0x7F) - 1] = (kind, payload)
+    iprp_at = next(k for k, (kind, _b) in enumerate(parts) if kind == b"iprp")
+    ipma_box = next(data[a - 8:b] for k, s, e in top if k == b"meta"
+                    for kk, ss, ee in avif._boxes(data, ms + 4, me) if kk == b"iprp"
+                    for kind, a, b in avif._boxes(data, ss, ee) if kind == b"ipma")
+    parts[iprp_at] = (b"iprp", _box(b"iprp", _box(b"ipco", b"".join(_box(k, p) for k, p in ipco))
+                                    + ipma_box))
+
+    def build(base: int) -> bytes:
+        body = struct.pack(">HH", 0x4400, len(ids))
+        pos = base
+        for i in ids:
+            body += struct.pack(">HHHII", i, 0, 1, pos, len(streams[i]))
+            pos += len(streams[i])
+        iloc_box = _box(b"iloc", struct.pack(">I", 0) + body)
+        return _box(b"meta", data[ms:ms + 4] + b"".join(
+            iloc_box if kind == b"iloc" else raw for kind, raw in parts))
+
+    base = len(ftyp) + len(build(0)) + 8
+    return ftyp + build(base) + _box(b"mdat", b"".join(streams[i] for i in ids))
 
 
 def _jpeg_chunk(quality: int, subsampling: str):
@@ -1410,20 +1579,22 @@ def sidecar_digest(name: str) -> str:
             return hashlib.sha256(fh.read()).hexdigest()
 
 
-def write_frames() -> None:
+def write_frames(names=None) -> None:
     """figdraw_tpu's block means of the image-file scene and the photo wall
     from the baseline JPEG, the TIFF fixture, the lossy WebP fixture and
     the ZSTD fixture, of the image-file scene from the dithered Group 3
     fixture and the SOF10 fixture, of the photo wall from the Group 4 fax
     page (its atlas started at scenes.FAX_ATLAS) and the SOF3 crop, and of
     both from the incomplete progressive JPEG, the RLE-W fixture and the
-    four AVIF fixtures."""
+    seven AVIF fixtures; `names` limits it to those files."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_reference import block_means, jax_image_file_frame, jax_photo_wall_frame
 
     from figdraw_tpu_torch.scenes import (
         ARITH_FILE_REFERENCE, AVIF_422_FILE_REFERENCE, AVIF_422_WALL_REFERENCE,
-        AVIF_444_FILE_REFERENCE, AVIF_444_WALL_REFERENCE, AVIF_CDEF_FILE_REFERENCE,
+        AVIF_422_12_FILE_REFERENCE, AVIF_422_12_WALL_REFERENCE, AVIF_444_10_FILE_REFERENCE,
+        AVIF_444_10_WALL_REFERENCE, AVIF_444_FILE_REFERENCE, AVIF_444_WALL_REFERENCE,
+        AVIF_CDEF10_FILE_REFERENCE, AVIF_CDEF10_WALL_REFERENCE, AVIF_CDEF_FILE_REFERENCE,
         AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE, AVIF_WALL_REFERENCE, FAX_ATLAS, G3_FILE_REFERENCE, G4_WALL_REFERENCE,
         INCOMPLETE_FILE_REFERENCE, INCOMPLETE_WALL_REFERENCE, RLEW_FILE_REFERENCE,
         RLEW_WALL_REFERENCE,
@@ -1446,7 +1617,14 @@ def write_frames() -> None:
             (AVIF_FIXTURE, AVIF_FILE_REFERENCE, AVIF_WALL_REFERENCE, 512),
             (AVIF_CDEF_FIXTURE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_WALL_REFERENCE, 512),
             (AVIF_444_FIXTURE, AVIF_444_FILE_REFERENCE, AVIF_444_WALL_REFERENCE, 512),
-            (AVIF_422_FIXTURE, AVIF_422_FILE_REFERENCE, AVIF_422_WALL_REFERENCE, 512)):
+            (AVIF_422_FIXTURE, AVIF_422_FILE_REFERENCE, AVIF_422_WALL_REFERENCE, 512),
+            ("fixture_s2_cdef_10bit.avif", AVIF_CDEF10_FILE_REFERENCE, AVIF_CDEF10_WALL_REFERENCE,
+             512),
+            ("fixture_444_10bit.avif", AVIF_444_10_FILE_REFERENCE, AVIF_444_10_WALL_REFERENCE, 512),
+            ("fixture_422_12bit.avif", AVIF_422_12_FILE_REFERENCE, AVIF_422_12_WALL_REFERENCE,
+             512)):
+        if names is not None and name not in names:
+            continue
         with tempfile.TemporaryDirectory() as td:
             path = os.path.join(td, name)
             shutil.copyfile(os.path.join(OUT_DIR, name), path)
@@ -1477,7 +1655,8 @@ def main() -> None:
                           for name in (BASELINE, TIFF_FIXTURE, WEBP_FIXTURE, ZSTD_FIXTURE,
                                        FAX_PAGE, ARITH_FIXTURE, LOSSLESS_FIXTURE,
                                        INCOMPLETE_HUFF, RLEW_FIXTURE, AVIF_FIXTURE,
-                                       AVIF_CDEF_FIXTURE, AVIF_444_FIXTURE, AVIF_422_FIXTURE)}}
+                                       AVIF_CDEF_FIXTURE, AVIF_444_FIXTURE, AVIF_422_FIXTURE,
+                                       *AVIF_DEPTHS)}}
     with open(DIGESTS, "w") as fh:
         json.dump(stored, fh, indent=1)
         fh.write("\n")
