@@ -98,7 +98,8 @@ FigRenderer(device="cuda").render_frame or execute_plan:
   of the JPEG, GIF, BMP, ICO, QOI, TIFF (with CCITT fax and ZSTD) and
   WebP decoders (csrc/image_decode.cpp, csrc/webp_decode.cpp,
   csrc/zstd_decode.cpp, g++) and of the AVIF decoder (csrc/av1_decode.cpp:
-  8-bit files and three made 10- and 12-bit) against PIL's stored
+  8-bit files, three made 10- and 12-bit, and two grid images: the
+  fixture with an alpha grid and a 12 MP photo) against PIL's stored
   digests, their C++ stages against the plain twins, and the baseline
   JPEG, the fixture's
   LZW + Predictor 2 TIFF, its lossy WebP at q 90 and its ZSTD + Predictor
@@ -3347,7 +3348,11 @@ AVIF_KINDS = {"fixture_q75.avif": ("predict", "cfl", "txfm", "lf"),
               "fixture_s2_cdef_10bit.avif": ("predict", "cfl", "txfm", "lf", "cdef", "wiener",
                                              "sgr"),
               "fixture_444_10bit.avif": ("predict", "cfl", "txfm", "lf"),
-              "fixture_422_12bit.avif": ("predict", "cfl", "txfm", "lf", "cdef", "wiener", "sgr")}
+              "fixture_422_12bit.avif": ("predict", "cfl", "txfm", "lf", "cdef", "wiener", "sgr"),
+              # the grids: the fixture's twelve 200x200 tiles, and the 12 MP
+              # photo's middle tile (512x512, speed 10)
+              "fixture_grid.avif": ("predict", "cfl", "txfm", "lf"),
+              "photo_grid_4032x3024.avif": ("predict", "txfm", "lf")}
 
 
 def split_frames(ren, scene, size, frames: int = FRAMES):
@@ -3528,10 +3533,19 @@ def image_formats_check(tag: str) -> dict:
                 held.append("plain decode")
         elif name.endswith(".avif"):
             still = avif.parse(data)
+            size = (still.width, still.height)
             lib = image_lib.load_av1()
             trace = np.zeros(40 * 1024 * 1024 // 4 * 3, np.int32)
             lib.fd_av1_trace(trace.ctypes.data, trace.size)
-            frame = av1.decode(still.color)
+            # a grid's tiles while they hold an 800x600 frame's pixels, else
+            # its middle tile
+            traced = [still.color]
+            if still.grid:
+                g = still.grid
+                traced = (g.tiles if sum(w * h for w, h in g.sizes) <= 800 * 600
+                          else [g.tiles[g.rows // 2 * g.columns + g.columns // 2]])
+            for stream in traced:
+                av1.decode(stream)
             n = lib.fd_av1_trace(None, 0)
             if n <= 0:
                 fail(f"image formats: {name}: the AV1 stage trace overflowed")
@@ -3542,31 +3556,48 @@ def image_formats_check(tag: str) -> dict:
             missing = [k for k in AVIF_KINDS.get(name, ("predict",)) if not checked[k]]
             if missing:
                 fail(f"image formats: {name}: the stage kinds {missing} never ran: {checked}")
+            frame = avif.decode_item(still.color, still.grid, size)
+            alpha = None
+            if still.alpha or still.alpha_grid:
+                alpha = avif.decode_item(still.alpha, still.alpha_grid, still.alpha_size,
+                                         alpha=True).planes[0]
             y, u, v = frame.planes
             # the colr box's colour description, else the sequence header's
             cp, _tc, mc, full = still.nclx or (frame.primaries, 2, frame.matrix,
                                                frame.full_range)
-            conv = av1.conversion(frame.mono, frame.ssx, frame.ssy, full, mc, cp, False,
-                                  frame.bit_depth)
-            rgb = av1.to_rgba(frame, None, full, mc, cp)
-            if not (np.array_equal(rgb, av1.to_rgba_plain(y, u, v, None, frame.width,
+            conv = av1.conversion(frame.mono, frame.ssx, frame.ssy, full, mc, cp,
+                                  alpha is not None, frame.bit_depth)
+            rgb = av1.to_rgba(frame, alpha, full, mc, cp)
+            if not (np.array_equal(rgb, av1.to_rgba_plain(y, u, v, alpha, frame.width,
                                                          frame.height, conv))
                     and np.array_equal(rgb, px)):
                 fail(f"image formats: {name}: fd_av1_to_rgb differs from to_rgba_plain")
             held += [f"{k} x{c}" for k, c in checked.items() if c] + ["to_rgb"]
-            # the decode's stages: the first run without the trace (cold)
-            # and the median of IMAGE_REPS more (warm)
-            first = av1.decode(still.color)
+            # the decode's stages (a grid's summed over its tiles, then its
+            # assembly): the first run without the trace (cold) and the
+            # median of IMAGE_REPS more (warm); the alpha item's whole decode
+            first = avif.decode_item(still.color, still.grid, size)
             t0 = time.perf_counter()
-            av1.to_rgba(frame, None, full, mc, cp)
+            av1.to_rgba(frame, alpha, full, mc, cp)
             rgb_cold = (time.perf_counter() - t0) * 1e3
-            runs = [av1.decode(still.color).ms for _ in range(IMAGE_REPS)]
-            rgb_warm, _ = host_ms(lambda: av1.to_rgba(frame, None, full, mc, cp))
+            runs = [avif.decode_item(still.color, still.grid, size).ms for _ in range(IMAGE_REPS)]
+            rgb_warm, _ = host_ms(lambda: av1.to_rgba(frame, alpha, full, mc, cp))
             chroma = {(0, 0): "4:4:4", (1, 0): "4:2:2"}.get((frame.ssx, frame.ssy), "4:2:0")
-            avif_formats[name] = (f"{frame.width}x{frame.height}, {frame.bit_depth}-bit "
-                                  f"{chroma}, {'full' if full else 'limited'} range, matrix {mc}")
+            layout = (f", a grid of {still.grid.columns}x{still.grid.rows} tiles of "
+                      f"{still.grid.sizes[0][0]}x{still.grid.sizes[0][1]}" if still.grid else "")
+            avif_formats[name] = (f"{frame.width}x{frame.height}{layout}, {frame.bit_depth}-bit "
+                                  f"{'4:0:0' if frame.mono else chroma}, "
+                                  f"{'full' if full else 'limited'} range, matrix {mc}"
+                                  + (", with alpha" if alpha is not None else ""))
             avif_stages[name] = {k: (first.ms[k], statistics.median(r[k] for r in runs))
                                  for k in first.ms}
+            if alpha is not None:
+                decode_alpha = (lambda: avif.decode_item(still.alpha, still.alpha_grid,
+                                                         still.alpha_size, alpha=True))
+                t0 = time.perf_counter()
+                decode_alpha()
+                alpha_cold = (time.perf_counter() - t0) * 1e3
+                avif_stages[name]["alpha item"] = (alpha_cold, host_ms(decode_alpha)[0])
             avif_stages[name]["yuv -> rgba"] = (rgb_cold, rgb_warm)
         if held:
             stages[name] = held
@@ -3613,7 +3644,9 @@ def image_files_phase(tag: str, dev) -> dict:
     its dithered centre and the fixture's seven AVIFs (PIL's default save,
     speed 2 with CDEF, 4:4:4, and limited-range BT.709 4:2:2 with CDEF and
     loop restoration; the CDEF file and the 4:4:4 file at 10 bits, the
-    4:2:2 file at 12), image_formats_check
+    4:2:2 file at 12; a grid of 4x3 tiles with an alpha grid), and a 12 MP
+    AVIF grid of the fixture scaled to 4032x3024 loaded cold and warm (not
+    drawn), its decode split printed (image_formats_check
     first: every stored format against PIL's digests): load_image cold and
     warm against figdraw_tpu's sidecar digest, the image-file scene on
     K1-atlas and the photo wall on K4-atlas, each within FILE_TOL of
@@ -3645,7 +3678,8 @@ def image_files_phase(tag: str, dev) -> dict:
         AVIF_444_10_WALL_REFERENCE, AVIF_444_FILE_REFERENCE, AVIF_444_FIXTURE,
         AVIF_444_WALL_REFERENCE, AVIF_CDEF10_FILE_REFERENCE, AVIF_CDEF10_FIXTURE,
         AVIF_CDEF10_WALL_REFERENCE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_FIXTURE,
-        AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE, AVIF_FIXTURE,
+        AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE, AVIF_FIXTURE, AVIF_GRID_FILE_REFERENCE,
+        AVIF_GRID_FIXTURE, AVIF_GRID_WALL_REFERENCE, AVIF_PHOTO_FIXTURE,
         AVIF_WALL_REFERENCE, EXAMPLE_FORMS, EXAMPLE_IMAGES, EXAMPLE_SCENES,
         FAX_ATLAS, FAX_PAGE, G3_FILE_REFERENCE, LOSSLESS_FIXTURE, LOSSLESS_WALL_REFERENCE,
         G3_FIXTURE, G4_WALL_REFERENCE, IMAGE_FILE_SIZE, IMAGE_FIXTURE,
@@ -3808,6 +3842,13 @@ def image_files_phase(tag: str, dev) -> dict:
         k12path, k12cold_ms, k12warm_ms, _k12image = cold_warm(
             AVIF_422_12_FIXTURE,
             "12-bit AVIF (4:2:2, limited-range BT.709, CDEF and loop restoration)")
+        # the grids: the fixture with an alpha grid (drawn below) and the
+        # 12 MP photo (loaded, not drawn), with its bleed and chain alone
+        xpath, xcold_ms, xwarm_ms, _ximage = cold_warm(
+            AVIF_GRID_FIXTURE, "AVIF grid (4x3 tiles of 200x200, an alpha grid)")
+        _ppath, pcold_ms, pwarm_ms, pimage = cold_warm(
+            AVIF_PHOTO_FIXTURE, "12 MP AVIF grid (4032x3024, 8x6 tiles of 512x512)")
+        pchain_ms, _ = host_ms(lambda: flippy.image_to_flippy(pimage), 3)
         g3path = os.path.join(td, os.path.basename(G3_FIXTURE))
         shutil.copyfile(G3_FIXTURE, g3path)
 
@@ -3925,7 +3966,8 @@ def image_files_phase(tag: str, dev) -> dict:
                        "avif 444 10-bit": file_scene(f10path, "avif 444 10-bit",
                                                      AVIF_444_10_FILE_REFERENCE),
                        "avif 422 12-bit": file_scene(k12path, "avif 422 12-bit",
-                                                     AVIF_422_12_FILE_REFERENCE)}
+                                                     AVIF_422_12_FILE_REFERENCE),
+                       "avif grid": file_scene(xpath, "avif grid", AVIF_GRID_FILE_REFERENCE)}
 
         # --- the 1080p photo wall of each loaded image ---
         def photo_wall(src, small_ref, what, tol=TOL, atlas=256):
@@ -3994,7 +4036,9 @@ def image_files_phase(tag: str, dev) -> dict:
                  "avif 444 10-bit": photo_wall(f10path, AVIF_444_10_WALL_REFERENCE,
                                                "photo wall avif 444 10-bit", FILE_TOL),
                  "avif 422 12-bit": photo_wall(k12path, AVIF_422_12_WALL_REFERENCE,
-                                               "photo wall avif 422 12-bit", FILE_TOL)}
+                                               "photo wall avif 422 12-bit", FILE_TOL),
+                 "avif grid": photo_wall(xpath, AVIF_GRID_WALL_REFERENCE, "photo wall avif grid",
+                                         FILE_TOL)}
         for ref in refs:
             ref.close()
     med = statistics.median
@@ -4036,8 +4080,15 @@ def image_files_phase(tag: str, dev) -> dict:
           f"the 10-bit CDEF AVIF's load_image cold {c10cold_ms:.3f} ms, warm "
           f"{c10warm_ms:.3f} ms; the 10-bit 4:4:4 AVIF's load_image cold {f10cold_ms:.3f} ms, "
           f"warm {f10warm_ms:.3f} ms; the 12-bit 4:2:2 AVIF's load_image cold "
-          f"{k12cold_ms:.3f} ms, warm {k12warm_ms:.3f} ms {tag}",
+          f"{k12cold_ms:.3f} ms, warm {k12warm_ms:.3f} ms; the AVIF grid's (with its alpha "
+          f"grid) load_image cold {xcold_ms:.3f} ms, warm {xwarm_ms:.3f} ms {tag}",
           flush=True)
+    split = decodes["avif stages"]["photo_grid_4032x3024.avif"]
+    print(f"times: the 12 MP AVIF grid (4032x3024, 48 tiles of 512x512), host ms cold / warm: "
+          + "; ".join(f"{k} {c:.3f} / {w:.3f}" for k, (c, w) in split.items())
+          + f" (the tiles' stages summed over 48 tiles); load_image cold (decode, bleed, "
+          f"chain, compress, write) {pcold_ms:.3f}, of which bleed + chain alone "
+          f"{pchain_ms:.3f} (median of 3); warm (the sidecar) {pwarm_ms:.3f} {tag}", flush=True)
     for src, (f_ms, f_host, f_dev) in file_frames.items():
         print(f"times: image_file scene from the {src.upper()}, 800x600 on K1-atlas: median "
               f"{f_ms:.3f} ms/frame = host (messages, walk, plan) {med(f_host):.3f} ms "

@@ -1824,6 +1824,17 @@ AVIF_422_12_FILE_REFERENCE = os.path.join(REFERENCE_DIR,
                                           "example_image_file_avif_422_12_1x_blocks8.npy")
 AVIF_422_12_WALL_REFERENCE = os.path.join(REFERENCE_DIR,
                                           "photo_wall_avif_422_12_480x270_blocks8.npy")
+# the fixture, its alpha faded towards the corners, as an AVIF grid of 4x3
+# tiles of 200x200 with an alpha grid (libavif's encoder, quality 75, speed
+# 6, 4:2:0), drawn in the image-file scene and on the photo wall
+AVIF_GRID_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_grid.avif")
+AVIF_GRID_FILE_REFERENCE = os.path.join(REFERENCE_DIR,
+                                        "example_image_file_avif_grid_1x_blocks8.npy")
+AVIF_GRID_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_avif_grid_480x270_blocks8.npy")
+# the fixture scaled to a 12 MP phone photo, 4032x3024, as a grid of 8x6
+# tiles of 512x512 whose last column and row the grid crops (quality 50,
+# speed 10): decoded and loaded, not drawn
+AVIF_PHOTO_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "photo_grid_4032x3024.avif")
 
 
 def make_image_file_scene(w: float, h: float, image_id: int) -> Renders:

@@ -214,6 +214,8 @@ def parse_sequence(payload: bytes) -> Sequence:
     s.profile = r.f(3)
     s.still = r.f(1)
     s.reduced = r.f(1)
+    if s.reduced and not s.still:  # dav1d rejects the stream
+        raise ValueError("AV1: a reduced still-picture header without still_picture")
     s.decoder_model = 0
     s.equal_picture_interval = 0
     s.op_idc = [0]
@@ -335,12 +337,12 @@ class Frame:
     V or None), their visible size, and the colour description."""
 
     def __init__(self, planes, width, height, full_range, matrix, mono, ssx=1, ssy=1,
-                 primaries=2, bit_depth=8):
+                 primaries=2, bit_depth=8, transfer=2):
         self.planes, self.width, self.height = planes, width, height
         self.bit_depth = bit_depth  # 8 (uint8 planes), 10 or 12 (uint16)
         self.full_range, self.matrix, self.mono = full_range, matrix, mono
         self.ssx, self.ssy = ssx, ssy  # the chroma planes' subsampling
-        self.primaries = primaries
+        self.primaries, self.transfer = primaries, transfer
         self.checked = None  # the stage calls checked against their twins (plain)
         self.mi = None  # the per-4x4 block info the tiles wrote (M_FIELDS int32 each)
         self.cdef = None  # each 64x64's CDEF index (-1: none read)
@@ -696,7 +698,7 @@ def decode(stream: bytes, plain: bool = False) -> Frame:
         planes = out
     t3 = time.perf_counter()
     frame = Frame(planes, int(hdr[H_WIDTH]), int(hdr[H_HEIGHT]), seq.full_range, seq.matrix,
-                  seq.mono, seq.ssx, seq.ssy, seq.primaries, seq.bit_depth)
+                  seq.mono, seq.ssx, seq.ssy, seq.primaries, seq.bit_depth, seq.transfer)
     frame.mi, frame.cdef, frame.lr = mi, cdef, lr
     frame.ms = {"tiles + loop filter": (t1 - t0) * 1e3, "cdef": (t2 - t1) * 1e3,
                 "loop restoration": (t3 - t2) * 1e3}

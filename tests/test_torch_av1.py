@@ -665,6 +665,21 @@ def test_corrupt_streams_at_the_coefficient_clamp_equal_dav1d_c_path(seed, index
     assert fuzz.outcome(source)[0] == "equal" and _clamped_coefficients(source) == 0
 
 
+def test_a_reduced_header_without_still_picture_raises():
+    """A sequence header with reduced_still_picture_header set and
+    still_picture clear (a bit flip of --grids --corrupt, seed 5 index 41):
+    dav1d rejects the stream (PIL: "Decoding of color planes failed"), and
+    so does the port, which decoded it before."""
+    _options, data = fuzz.case(3, 0)
+    head = next(p for k, p in av1.obus(avif.parse(data).color) if k == av1.OBU_SEQUENCE_HEADER)
+    assert av1.parse_sequence(head).reduced and head[0] & 0x10
+    flipped = data.replace(head, bytes([head[0] & ~0x10]) + head[1:])
+    with pytest.raises(Exception):
+        _pil(flipped)
+    with pytest.raises(ValueError, match="still"):
+        imagefile.decode_image(flipped)
+
+
 def test_a_failed_build_raises(monkeypatch):
     """The C++ AV1 library does not build: the decode raises, never runs
     the plain twins."""

@@ -6,9 +6,11 @@ files PIL writes and on the same items re-muxed here (iloc versions 0-2,
 field sizes 0/4/8, construction method 1 from idat, split extents, infe
 version 3, 15-bit ipma indices, an alpha item named by auxl), each equal
 to PIL's decode of the same bytes; irot / imir read and not applied, as
-PIL; the features outside the slice refused with NotImplementedError
-naming AVIF, the feature, the path and the ROADMAP item (grid, avis,
-clap, a1op, lsel, prem); an AV1 frame of another size than its item's
+PIL; a grid primary item equal to PIL (tests/test_torch_avif_grid.py
+holds the grids) and an iovl one raising ValueError as PIL fails; the
+features outside the slice refused with NotImplementedError naming AVIF,
+the feature, the path and the ROADMAP item (avis, clap, a1op, lsel,
+prem); an AV1 frame of another size than its item's
 ispe scaled to it as libavif scales it (libyuv's ScalePlane: the C++
 scaler and its twin held to libavif's own avifImageScale, and PIL's
 decodes of files whose ispe is patched), the 3/4 and 3/8 scales refused;
@@ -312,8 +314,6 @@ def _refused(data: bytes, feature: str, tmp_path) -> None:
 
 
 @pytest.mark.parametrize("feature, kw", [
-    ("derived images \\(grid\\)", dict(primary_type=b"grid")),
-    ("derived images \\(iovl\\)", dict(primary_type=b"iovl")),
     ("clean-aperture cropping", dict(extra_props=[(b"clap", b"\0" * 32)])),
     ("operating point selection", dict(extra_props=[(b"a1op", b"\0")])),
     ("layer selection", dict(extra_props=[(b"lsel", b"\0\0")])),
@@ -323,6 +323,29 @@ def _refused(data: bytes, feature: str, tmp_path) -> None:
 def test_features_outside_the_slice_are_refused(feature, kw, tmp_path):
     src = _pil_avif(_crop(61, 47, alpha=True))
     _refused(remux(src, **kw), feature, tmp_path)
+
+
+@pytest.mark.parametrize("kind", ["grid", "iovl"])
+def test_derived_primary_items(kind):
+    """A grid primary item (libavif's own encoder writes one; PIL's save
+    does not) decodes equal to PIL; the same file with its grid item
+    renamed iovl fails in PIL (libavif 1.3.0 reads no overlay: "Missing or
+    empty image item") and raises ValueError in the port."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from make_image_formats import Heif, avif_grid
+
+    data = avif_grid(_crop(130, 96, alpha=True), 3, 2, (64, 64))
+    if kind == "grid":
+        assert avif.parse(data).grid is not None
+        _same(data)
+        return
+    heif = Heif(data)
+    heif.items[heif.primary]["type"] = b"iovl"
+    data = heif.write()
+    with pytest.raises(Exception, match="Missing or empty image item"):
+        _pil(data)
+    with pytest.raises(ValueError, match="Missing or empty image item"):
+        imagefile.decode_image(data)
 
 
 def test_pils_image_sequence_is_refused(tmp_path):

@@ -654,6 +654,47 @@ def test_deep_avif_photo_wall_on_k4_atlas(dev, tmp_path, kind):
     _avif_photo_wall(dev, tmp_path, fixture, wall_ref)
 
 
+@pytest.mark.parametrize("name", ["fixture_grid.avif", "photo_grid_4032x3024.avif"])
+def test_grid_avif_decodes_to_its_digest(name):
+    """The stored grid AVIFs on the card's host: the fixture's 4x3 tiles
+    with an alpha grid, and the 12 MP photo's 8x6 tiles cropped by the
+    grid, decoded by the C++ helper to PIL's stored digest; the fixture's
+    also through the numpy twins (its first tile's stages through the
+    trace)."""
+    import hashlib
+    import json
+
+    from figdraw_tpu_torch.scenes import IMAGE_FORMATS_DIR, IMAGE_FORMATS_REFERENCE
+    from figdraw_tpu_torch.utils import av1, avif, imagefile
+
+    with open(os.path.join(IMAGE_FORMATS_DIR, name), "rb") as fh:
+        data = fh.read()
+    with open(IMAGE_FORMATS_REFERENCE) as fh:
+        want = json.load(fh)["files"][name]["decoded_sha256"]
+    assert hashlib.sha256(imagefile.decode_image(data).tobytes()).hexdigest() == want
+    still = avif.parse(data)
+    assert still.grid is not None and not still.color
+    if name == "fixture_grid.avif":
+        assert still.alpha_grid is not None
+        frame = av1.decode(still.grid.tiles[0], plain=True)
+        assert all(frame.checked[k] for k in ("predict", "txfm", "lf")), frame.checked
+        assert hashlib.sha256(avif.decode_avif(data, plain=True).tobytes()).hexdigest() == want
+
+
+def test_grid_avif_image_file_frame_on_k1_atlas(dev, tmp_path):
+    """The fixture as a grid with an alpha grid, in the image-file scene."""
+    from figdraw_tpu_torch.scenes import AVIF_GRID_FILE_REFERENCE, AVIF_GRID_FIXTURE
+
+    _avif_image_file_frame(dev, tmp_path, AVIF_GRID_FIXTURE, AVIF_GRID_FILE_REFERENCE)
+
+
+def test_grid_avif_photo_wall_on_k4_atlas(dev, tmp_path):
+    """The fixture as a grid with an alpha grid, on the 1080p photo wall."""
+    from figdraw_tpu_torch.scenes import AVIF_GRID_FIXTURE, AVIF_GRID_WALL_REFERENCE
+
+    _avif_photo_wall(dev, tmp_path, AVIF_GRID_FIXTURE, AVIF_GRID_WALL_REFERENCE)
+
+
 def test_text_table_matches_plain_executor(dev):
     """The stored table of text in clipped cells (1200x800) on the
     megakernel with the atlas: one K4-atlas launch, the frame the plain

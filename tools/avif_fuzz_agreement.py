@@ -17,6 +17,14 @@ follows. With --depths each case's file is made a 10- or 12-bit one (drawn
 from a seeded stream of its own) by rewriting its sequence headers, av1C
 and pixi (tools/make_image_formats.py's avif_at_depth: aom in PIL's
 libavif writes 8 bits only; 12 bits in profile 2), its tile symbols kept.
+With --grids each case is a grid image written by libavif's own encoder
+(tools/make_image_formats.py's avif_grid: PIL's save writes no grid) from
+streams of its own: 1 to 3 columns and rows of tiles 64 to 128 wide and
+high, the last column and row (of two or more) cropped to a drawn width and
+height (even where chroma is subsampled, as MIAF asks), a picture of the output's size
+(a quarter with an alpha channel, which becomes an alpha grid), its
+subsampling, range, quality, speed and aom's CDEF; with --depths too,
+every tile made 10- or 12-bit.
 
 A picture is one of: seeded noise, a crop of the PNG fixture
 (tests/goldens/render_3d_overlay_gaussian.png), a flat UI-like picture of
@@ -29,8 +37,8 @@ decoded). With --corrupt an error on both sides agrees. The counts are
 printed by speed, and each disagreement by its seed and index
 (`case(seed, index)` rebuilds it). Needs PIL (the CPU host's).
 
-    python tools/avif_fuzz_agreement.py [--corrupt] [--formats] [--depths] [--dav1d-c]
-        [cases per seed, default 200] [seeds, default 1]
+    python tools/avif_fuzz_agreement.py [--corrupt] [--formats] [--depths] [--grids]
+        [--dav1d-c] [cases per seed, default 200] [seeds, default 1]
 """
 
 from __future__ import annotations
@@ -101,14 +109,53 @@ def with_matrix(data: bytes, matrix: int) -> bytes:
     return data[:at + 8] + matrix.to_bytes(2, "big") + data[at + 10:]
 
 
-def at_depth(data: bytes, depth: int) -> bytes:
-    """A PIL-written file made a `depth`-bit one (make_image_formats)."""
+def _tool():
     for path in (REPO, os.path.dirname(os.path.abspath(__file__))):
         if path not in sys.path:
             sys.path.insert(0, path)
-    from make_image_formats import avif_at_depth
+    import make_image_formats
 
-    return avif_at_depth(data, depth)
+    return make_image_formats
+
+
+def at_depth(data: bytes, depth: int) -> bytes:
+    """A PIL-written file made a `depth`-bit one (make_image_formats)."""
+    return _tool().avif_at_depth(data, depth)
+
+
+def grid_cases(seed: int, cases: int, start: int = 0, depths: bool = False):
+    """Yields (index, options, bytes) of one seed's grid images (avif_grid)
+    from index `start`."""
+    rng = np.random.default_rng([seed, 20])
+    depth_rng = np.random.default_rng([seed, 11])
+    fixture = _fixture()
+    for i in range(cases):
+        sub = SUBSAMPLINGS[int(rng.integers(4))]
+        ssx, ssy = {"4:2:0": (1, 1), "4:2:2": (1, 0)}.get(sub, (0, 0))
+        columns, rows = int(rng.integers(1, 4)), int(rng.integers(1, 4))
+        tw, th = int(rng.integers(64, 129)), int(rng.integers(64, 129))
+        tw, th = tw + (tw & ssx), th + (th & ssy)
+        lw, lh = int(rng.integers(1, tw + 1)), int(rng.integers(1, th + 1))
+        lw, lh = min(tw, lw + (lw & ssx)), min(th, lh + (lh & ssy))
+        lw, lh = lw if columns > 1 else tw, lh if rows > 1 else th  # one cell: the tile itself
+        w, h = tw * (columns - 1) + lw, th * (rows - 1) + lh
+        px = picture(rng, fixture, w, h)
+        if rng.integers(4) == 0:
+            px = np.ascontiguousarray(np.dstack([px, picture(rng, fixture, w, h)[..., 0]]))
+        options = {"grid": f"{columns}x{rows} of {tw}x{th}", "size": (w, h), "subsampling": sub,
+                   "range": ("full", "limited")[int(rng.integers(2))],
+                   "quality": int(rng.integers(0, 101)), "speed": int(rng.integers(0, 11)),
+                   "cdef": int(rng.integers(2)), "alpha": px.shape[2] == 4}
+        if depths:
+            options["depth"] = (10, 12)[int(depth_rng.integers(2))]
+        if i >= start:
+            data = _tool().avif_grid(px, columns, rows, (tw, th), quality=options["quality"],
+                                     speed=options["speed"], subsampling=sub,
+                                     full_range=options["range"] == "full",
+                                     enable_cdef=options["cdef"])
+            if depths:
+                data = at_depth(data, options["depth"])
+            yield i, options, data
 
 
 def written_cases(seed: int, cases: int, start: int = 0, formats: bool = False,
@@ -147,29 +194,35 @@ def written_cases(seed: int, cases: int, start: int = 0, formats: bool = False,
             yield i, options, data
 
 
-def corrupt_cases(seed: int, cases: int, formats: bool = False, depths: bool = False):
-    """Yields (index, options, bytes): a third of PIL-written files cut at a
-    random length, the others with one to three bits flipped (a third of
-    those in the first 400 bytes, the container and headers)."""
+def corrupt_cases(seed: int, cases: int, formats: bool = False, depths: bool = False,
+                  grids: bool = False):
+    """Yields (index, options, bytes): a third of PIL-written files (or
+    grids) cut at a random length, the others with one to three bits
+    flipped (a third of those in the first 400 bytes, the container and
+    headers; with grids, in the meta box)."""
     rng = np.random.default_rng(seed + 1000)
-    sources = [(o, d) for _i, o, d in written_cases(seed, 12, formats=formats, depths=depths)]
+    sources = [(o, d) for _i, o, d in (grid_cases(seed, 12, depths=depths) if grids else
+                                       written_cases(seed, 12, formats=formats, depths=depths))]
     for i in range(cases):
         options, src = sources[i % len(sources)]
         data = bytearray(src)
+        head_end = max(src.find(b"mdat") - 4, 1) if grids else 400
         if rng.integers(3) == 0:
             data = data[: int(rng.integers(0, len(data)))]
         else:
             head = rng.integers(3) == 0
             for _ in range(int(rng.integers(1, 4))):
-                at = int(rng.integers(0, min(400, len(data)))) if head else int(rng.integers(0, len(data)))
+                at = (int(rng.integers(0, min(head_end, len(data)))) if head
+                      else int(rng.integers(0, len(data))))
                 data[at] ^= 1 << int(rng.integers(8))
         yield i, options, bytes(data)
 
 
 def case(seed: int, index: int, corrupt: bool = False, formats: bool = False,
-         depths: bool = False) -> tuple:
+         depths: bool = False, grids: bool = False) -> tuple:
     """(options, bytes) of case `index` of `seed`."""
-    gen = (corrupt_cases(seed, index + 1, formats, depths) if corrupt
+    gen = (corrupt_cases(seed, index + 1, formats, depths, grids) if corrupt
+           else grid_cases(seed, index + 1, index, depths) if grids
            else written_cases(seed, index + 1, index, formats, depths))
     for i, options, data in gen:
         if i == index:
@@ -235,13 +288,15 @@ def outcome(data: bytes, corrupt: bool = False) -> tuple:
     return "differ", f"max |diff| {np.abs(got.astype(int) - want.astype(int)).max() if got.shape == want.shape else 'shape'}"
 
 
-def run(cases: int, seeds: int, corrupt: bool, formats: bool = False, depths: bool = False) -> dict:
+def run(cases: int, seeds: int, corrupt: bool, formats: bool = False, depths: bool = False,
+        grids: bool = False) -> dict:
     counts = Counter()
     by_speed, by_format, by_depth = defaultdict(Counter), defaultdict(Counter), defaultdict(Counter)
     features = Counter()
     bad = []
     for seed in range(seeds):
-        gen = (corrupt_cases(seed, cases, formats, depths) if corrupt
+        gen = (corrupt_cases(seed, cases, formats, depths, grids) if corrupt
+               else grid_cases(seed, cases, depths=depths) if grids
                else written_cases(seed, cases, formats=formats, depths=depths))
         for i, options, data in gen:
             kind, detail = outcome(data, corrupt)
@@ -249,7 +304,7 @@ def run(cases: int, seeds: int, corrupt: bool, formats: bool = False, depths: bo
             if detail == "both raise":
                 counts["equal: both raise"] += 1
             by_speed[options["speed"]][kind] += 1
-            if formats:
+            if formats or grids:
                 by_format[(options["subsampling"], options["range"])][kind] += 1
             if depths:
                 by_depth[options["depth"]][kind] += 1
@@ -263,11 +318,12 @@ def run(cases: int, seeds: int, corrupt: bool, formats: bool = False, depths: bo
 
 def main(argv) -> int:
     corrupt, formats, depths = "--corrupt" in argv, "--formats" in argv, "--depths" in argv
+    grids = "--grids" in argv
     nums = [int(a) for a in argv if not a.startswith("--")]
     cases = nums[0] if nums else 200
     seeds = nums[1] if len(nums) > 1 else 1
     with dav1d_c_path() if "--dav1d-c" in argv else contextlib.nullcontext():
-        res = run(cases, seeds, corrupt, formats, depths)
+        res = run(cases, seeds, corrupt, formats, depths, grids)
     flags = " ".join(a for a in argv if a.startswith("--"))
     print(f"{'corrupt' if corrupt else 'written'} {flags}: {cases} cases x {seeds} seeds:",
           dict(res["counts"]))

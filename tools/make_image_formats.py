@@ -48,32 +48,42 @@ render_3d_overlay_gaussian.png, 800x600 RGBA), with PIL on the CPU host:
   (`avif_at_depth`: aom in PIL's libavif writes 8 bits only):
   `fixture_s2_cdef_10bit.avif`, `fixture_444_10bit.avif` (profile 1) and
   `fixture_422_12bit.avif` (profile 2, limited-range BT.709, CDEF and loop
-  restoration at 12 bits). The card's machine has no
-  PIL: chip_smoke.py decodes these.
+  restoration at 12 bits), and two grid images, which PIL's save does not
+  write, through libavif's own encoder (`avif_grid`): the fixture with a
+  vignette alpha (`vignetted`) as 4x3 tiles of 200x200 with an alpha grid
+  (`fixture_grid.avif`) and the fixture scaled to a 4032x3024 phone photo
+  as 8x6 tiles of 512x512, the last column and row cropped by the grid
+  (`photo_grid_4032x3024.avif`, quality 50, speed 10). The card's machine
+  has no PIL: chip_smoke.py decodes these.
 - `figdraw_tpu_torch/reference/image_formats.json`: under "files", each
   file's sha256 and the sha256 and shape of PIL's decode,
   `Image.open(p).convert("RGBA")`; under "sidecar", the sha256 of the
   .flippy sidecar figdraw_tpu's read_image_cached writes for the baseline
   JPEG, the TIFF fixture, the lossy WebP fixture, the ZSTD fixture, the
   Group 4 fax page, the SOF10 fixture, the SOF3 crop, the incomplete
-  progressive JPEG, the RLE-W fixture and the seven AVIF fixtures.
-- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3,arith,incomplete,rlew,avif,avif_cdef,avif_444,avif_422,avif_cdef10,avif_444_10,avif_422_12}_1x_blocks8.npy`
-  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4,lossless,incomplete,rlew,avif,avif_cdef,avif_444,avif_422,avif_cdef10,avif_444_10,avif_422_12}_480x270_blocks8.npy`:
+  progressive JPEG, the RLE-W fixture, the seven AVIF fixtures and the
+  two grids.
+- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3,arith,incomplete,rlew,avif,avif_cdef,avif_444,avif_422,avif_cdef10,avif_444_10,avif_422_12,avif_grid}_1x_blocks8.npy`
+  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4,lossless,incomplete,rlew,avif,avif_cdef,avif_444,avif_422,avif_cdef10,avif_444_10,avif_422_12,avif_grid}_480x270_blocks8.npy`:
   8x8 block means of figdraw_tpu's frames of the image-file scene and of
   the photo wall at 480x270 (12 panels) with the baseline JPEG, the TIFF,
   WebP or ZSTD fixture, the dithered Group 3 fixture, the Group 4 page,
   the SOF10 fixture, the SOF3 crop, the incomplete progressive JPEG, the
-  RLE-W fixture or an AVIF fixture loaded by its load_image
+  RLE-W fixture or an AVIF fixture (the grid fixture among them) loaded
+  by its load_image
   (FigRenderer(atlas_size=512, use_pallas=False), the page's from
   scenes.FAX_ATLAS; tests/torch_reference.py).
 
 The BMP builders (`bmp_bytes`, `rle8`, `rle4`), the TIFF writer
 (`tiff_bytes`, with `packbits`, `lzw`, `jpeg_parts` and the CCITT encoder
-`fax_encode` with its bit writer `FaxBits`) and the WebP writers
-(`libwebp_encode`, `riff`, `anim_bytes`) also serve the tests: PIL
+`fax_encode` with its bit writer `FaxBits`), the WebP writers
+(`libwebp_encode`, `riff`, `anim_bytes`) and the AVIF ones (`avif_grid`,
+`avif_at_depth`, and `Heif`, which edits a file's items and writes it
+again) also serve the tests: PIL
 writes only one BMP header kind, no TIFF tiles, planar or big-endian
 files, FillOrder 2 or subsampled JPEG-in-TIFF, no hand-made fax strip,
-and sets none of libwebp's filter, segment, partition or alpha options.
+sets none of libwebp's filter, segment, partition or alpha options, and
+writes no AVIF grid and nothing past 8 bits.
 The tests rerun `image_files` but never `libzstd_files`: they load no
 libzstd.
 
@@ -109,6 +119,8 @@ AVIF_CDEF_FIXTURE = "fixture_s2_cdef.avif"
 AVIF_444_FIXTURE = "fixture_444.avif"
 AVIF_422_FIXTURE = "fixture_422_limited_cdef.avif"
 # the three made 10- and 12-bit from the ones above (name: (source, bits))
+AVIF_GRID_FIXTURE = "fixture_grid.avif"
+AVIF_PHOTO = "photo_grid_4032x3024.avif"
 AVIF_DEPTHS = {"fixture_s2_cdef_10bit.avif": (AVIF_CDEF_FIXTURE, 10),
                "fixture_444_10bit.avif": (AVIF_444_FIXTURE, 10),
                "fixture_422_12bit.avif": (AVIF_422_FIXTURE, 12)}
@@ -701,7 +713,21 @@ def image_files() -> dict:
     files[AVIF_422_FIXTURE] = limited_bt709(files[AVIF_422_FIXTURE])
     for name, (source, depth) in AVIF_DEPTHS.items():
         files[name] = avif_at_depth(files[source], depth)
+    files[AVIF_GRID_FIXTURE] = avif_grid(vignetted(np.asarray(src)), 4, 3, (200, 200))
+    photo = np.asarray(rgb.resize((4032, 3024), Image.BILINEAR))
+    files[AVIF_PHOTO] = avif_grid(photo, 8, 6, (512, 512), quality=50, speed=10)
     return files
+
+
+def vignetted(rgba: np.ndarray) -> np.ndarray:
+    """The pixels with an alpha that fades from 255 inside half the
+    half-diagonal to 104 in the corners (the fixture's own is opaque)."""
+    h, w = rgba.shape[:2]
+    gy, gx = np.mgrid[0:h, 0:w]
+    r = np.hypot((gx - (w - 1) / 2) / (w / 2), (gy - (h - 1) / 2) / (h / 2))
+    out = rgba.copy()
+    out[..., 3] = np.clip(255 - 150 * np.clip(r - 0.5, 0, None) / 0.91, 0, 255).astype(np.uint8)
+    return out
 
 
 def limited_bt709(data: bytes) -> bytes:
@@ -810,23 +836,24 @@ def _box(kind: bytes, payload: bytes) -> bytes:
 
 
 def avif_at_depth(data: bytes, depth: int, alpha_depth: int = None) -> bytes:
-    """A PIL-written 8-bit AVIF made a `depth`-bit one, as no encoder on
-    this host writes one (aom in PIL's libavif has no high bit depth): the
-    sequence header of the colour item and of its alpha item (at
-    `alpha_depth`, the colour's by default) rewritten by stream_at, in the
-    items and in each av1C's configOBUs, av1C's profile, high_bitdepth,
-    twelve_bit and subsampling bits and pixi's depths set to match, and
-    the boxes rebuilt around the longer streams (ftyp, meta: hdlr, pitm,
-    iloc version 0 with 4-byte offsets and lengths, iinf, iref, iprp; then
-    mdat). The tiles' symbols are kept: their samples are read at the new
-    depth."""
+    """A libavif-written 8-bit AVIF (PIL's save, or avif_grid's) made a
+    `depth`-bit one, as no encoder on this host writes one (aom in PIL's
+    libavif has no high bit depth): the sequence header of every av01 item
+    (the colour item or a grid's tiles, and the alpha item or its grid's
+    tiles, at `alpha_depth`, the colour's by default) rewritten by
+    stream_at, in the items and in each av1C's configOBUs, av1C's profile,
+    high_bitdepth, twelve_bit and subsampling bits and pixi's depths (a
+    grid item's too) set to match, and the boxes rebuilt around the longer
+    streams (ftyp, meta: hdlr, pitm, iloc version 0 with 4-byte offsets and
+    lengths, iinf, iref, iprp; then mdat). The tiles' symbols are kept:
+    their samples are read at the new depth."""
     from figdraw_tpu_torch.utils import av1, avif
 
     alpha_depth = depth if alpha_depth is None else alpha_depth
     top = list(avif._boxes(data, 0, len(data), top=True))
     ftyp = next(data[s - 8:e] for k, s, e in top if k == b"ftyp")
     _k, ms, me = next(b for b in top if b[0] == b"meta")
-    still = avif.parse(data)
+    heif = Heif(data)
     parts, ipco, ipma, iloc = [], [], {}, {}
     for kind, s, e in avif._boxes(data, ms + 4, me):
         if kind == b"iloc":
@@ -843,26 +870,28 @@ def avif_at_depth(data: bytes, depth: int, alpha_depth: int = None) -> bytes:
                         item = c.uint(2)
                         ipma[item] = [c.uint(2 if flags & 1 else 1) for _a in range(c.uint(1))]
         parts.append((kind, data[s - 8:e]))
-    assert all(len(iloc[i].extents) == 1 for i in iloc) and len(iloc) <= 2
-    alpha_id = next((i for i in iloc if avif._item_bytes(data, iloc[i], b"") == still.alpha
-                     and still.alpha), None)
-    color_id = next(i for i in iloc if i != alpha_id)
-    ids = [color_id] + ([alpha_id] if alpha_id else [])
-    depths = {color_id: depth, alpha_id: alpha_depth}
-    streams = {i: stream_at(avif._item_bytes(data, iloc[i], b""), depths[i]) for i in ids}
+    assert all(len(iloc[i].extents) == 1 for i in iloc)
+    alpha = {f for k, f, to in heif.refs if k == b"auxl" and heif.primary in to}
+    alpha |= {t for k, f, to in heif.refs if k == b"dimg" and f in alpha for t in to}
+    ids = list(iloc)
+    depths = {i: alpha_depth if i in alpha else depth for i in ids}
+    streams = {i: stream_at(heif.items[i]["data"], depths[i])
+               if heif.items[i]["type"] == b"av01" else heif.items[i]["data"] for i in ids}
     for i in ids:
-        seq = av1.parse_sequence(next(p for k, p in av1.obus(streams[i])
-                                      if k == av1.OBU_SEQUENCE_HEADER))
+        seq = None
+        if heif.items[i]["type"] == b"av01":
+            seq = av1.parse_sequence(next(p for k, p in av1.obus(streams[i])
+                                          if k == av1.OBU_SEQUENCE_HEADER))
         for index in ipma[i]:
             kind, payload = ipco[(index & 0x7F) - 1]
-            if kind == b"av1C":
+            if kind == b"av1C" and seq is not None:
                 b2 = (payload[2] & 0x83) | (int(seq.bit_depth > 8) << 6) | (
                     int(seq.bit_depth == 12) << 5) | (seq.mono << 4) | (seq.ssx << 3) | (seq.ssy << 2)
                 config = stream_at(payload[4:], seq.bit_depth)
                 payload = bytes([payload[0], (seq.profile << 5) | (payload[1] & 31), b2,
                                  payload[3]]) + config
             elif kind == b"pixi":
-                payload = payload[:5] + bytes([seq.bit_depth] * payload[4])
+                payload = payload[:5] + bytes([depths[i]] * payload[4])
             ipco[(index & 0x7F) - 1] = (kind, payload)
     iprp_at = next(k for k, (kind, _b) in enumerate(parts) if kind == b"iprp")
     ipma_box = next(data[a - 8:b] for k, s, e in top if k == b"meta"
@@ -883,6 +912,203 @@ def avif_at_depth(data: bytes, depth: int, alpha_depth: int = None) -> bytes:
 
     base = len(ftyp) + len(build(0)) + 8
     return ftyp + build(base) + _box(b"mdat", b"".join(streams[i] for i in ids))
+
+
+_LIBAVIF = []
+AVIF_FORMATS = {"4:4:4": 1, "4:2:2": 2, "4:2:0": 3, "4:0:0": 4}  # avifPixelFormat
+
+
+def _libavif():
+    """PIL's libavif 1.3.0 (pillow.libs) through ctypes, for its encoder."""
+    if not _LIBAVIF:
+        from PIL import Image
+
+        path = glob.glob(os.path.join(os.path.dirname(os.path.dirname(Image.__file__)),
+                                      "pillow.libs", "libavif-*.so*"))[0]
+        lib = ctypes.CDLL(path)
+        for name, args, res in (
+                ("avifEncoderCreate", [], _P), ("avifEncoderDestroy", [_P], None),
+                ("avifImageCreate", [ctypes.c_uint32] * 3 + [ctypes.c_int], _P),
+                ("avifImageDestroy", [_P], None), ("avifRGBImageSetDefaults", [_P, _P], None),
+                ("avifImageRGBToYUV", [_P, _P], ctypes.c_int),
+                ("avifEncoderAddImageGrid", [_P, ctypes.c_uint32, ctypes.c_uint32, _P,
+                                             ctypes.c_int], ctypes.c_int),
+                ("avifEncoderFinish", [_P, _P], ctypes.c_int), ("avifRWDataFree", [_P], None),
+                ("avifResultToString", [ctypes.c_int], ctypes.c_char_p)):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, res
+        _LIBAVIF.append(lib)
+    return _LIBAVIF[0]
+
+
+def _poke(addr: int, off: int, value: int, n: int = 4) -> None:
+    ctypes.memmove(addr + off, int(value).to_bytes(n, "little", signed=value < 0), n)
+
+
+def avif_grid(pixels: np.ndarray, columns: int, rows: int, tile: tuple, quality: int = 75,
+              speed: int = 6, subsampling: str = "4:2:0", full_range: bool = True,
+              **aom) -> bytes:
+    """An AVIF grid image of (h, w, 3 or 4) uint8 RGB(A) pixels through
+    libavif's own encoder (PIL's save writes no grid): the pixels cut into
+    columns x rows cells of `tile` (width, height), the last column and row
+    narrower where the pixels end, each converted by avifImageRGBToYUV with
+    the colour fields PIL's save sets (BT.709 primaries, sRGB transfer,
+    BT.601 matrix, full range unless asked), then avifEncoderAddImageGrid
+    (AVIF_ADD_IMAGE_FLAG_SINGLE) and avifEncoderFinish with aom at `speed`
+    and `quality` (alpha too). libavif stores every cell at the tile size
+    and writes the grid's output size; a non-opaque alpha channel becomes
+    an alpha grid. `aom` sets aom's options by name (`enable_cdef="1"`
+    for `enable-cdef`). libavif refuses a grid MIAF does not allow
+    (ValueError with its message): cells under 64, odd sizes where chroma
+    is subsampled."""
+    lib = _libavif()
+    px = np.ascontiguousarray(pixels, np.uint8)
+    tw, th = tile
+    cells, held = [], []
+    enc = lib.avifEncoderCreate()
+    out = (ctypes.c_uint8 * 16)()
+    try:
+        for r in range(rows):
+            for c in range(columns):
+                cell = np.ascontiguousarray(px[r * th:(r + 1) * th, c * tw:(c + 1) * tw])
+                img = lib.avifImageCreate(cell.shape[1], cell.shape[0], 8,
+                                          AVIF_FORMATS[subsampling])
+                cells.append(img)
+                _poke(img, 16, int(full_range))  # yuvRange
+                for off, v in ((104, 1), (106, 13), (108, 6)):  # primaries, transfer, matrix
+                    _poke(img, off, v, 2)
+                rgb = ctypes.create_string_buffer(256)  # avifRGBImage
+                lib.avifRGBImageSetDefaults(ctypes.addressof(rgb), img)
+                _poke(ctypes.addressof(rgb), 12, 1 if px.shape[2] == 4 else 0)  # RGBA / RGB
+                _poke(ctypes.addressof(rgb), 48, cell.ctypes.data, 8)
+                _poke(ctypes.addressof(rgb), 56, cell.strides[0])
+                held.append((rgb, cell))
+                res = lib.avifImageRGBToYUV(img, ctypes.addressof(rgb))
+                if res:
+                    raise ValueError(f"avifImageRGBToYUV: {lib.avifResultToString(res).decode()}")
+        for off, v in ((8, speed), (32, quality), (36, quality)):  # speed, quality, qualityAlpha
+            _poke(enc, off, v)
+        for key, value in aom.items():
+            if lib.avifEncoderSetCodecSpecificOption(ctypes.c_void_p(enc),
+                                                    key.replace("_", "-").encode(),
+                                                    str(value).encode()):
+                raise ValueError(f"aom option {key}")
+        grid = (ctypes.c_void_p * len(cells))(*cells)
+        res = lib.avifEncoderAddImageGrid(enc, columns, rows, grid, 2)
+        if not res:
+            res = lib.avifEncoderFinish(enc, ctypes.addressof(out))
+        if res:
+            raise ValueError(f"libavif: {lib.avifResultToString(res).decode()}")
+        return ctypes.string_at(int.from_bytes(bytes(out[:8]), "little"),
+                                int.from_bytes(bytes(out[8:]), "little"))
+    finally:
+        lib.avifRWDataFree(ctypes.addressof(out))
+        lib.avifEncoderDestroy(enc)
+        for img in cells:
+            lib.avifImageDestroy(img)
+
+
+class Heif:
+    """An AVIF file's items, to edit and write again: `ftyp` (its payload),
+    `primary`, `items` (id -> {"type", "flags", "name", "data", "props":
+    [(ipco index, essential)]}, in iinf order), `ipco` [(kind, payload)]
+    and `refs` [(kind, from, [to])]. `write` lays them out as libavif
+    does: ftyp, then meta (hdlr, pitm, iloc version 0 with 4-byte offsets
+    and lengths into one mdat, iinf, iref, iprp), then mdat."""
+
+    def __init__(self, data: bytes):
+        from figdraw_tpu_torch.utils import avif
+
+        top = list(avif._boxes(data, 0, len(data), top=True))
+        self.ftyp = next(data[s:e] for k, s, e in top if k == b"ftyp")
+        _k, ms, me = next(b for b in top if b[0] == b"meta")
+        self.items, self.ipco, self.refs, idat = {}, [], [], b""
+        iloc = avif._Items()
+        for kind, s, e in avif._boxes(data, ms + 4, me):
+            c = avif._Cursor(data, s, e)
+            if kind == b"pitm":
+                c.full()
+                self.primary = c.uint(2)
+            elif kind == b"iloc":
+                avif._parse_iloc(c, iloc)
+            elif kind == b"idat":
+                idat = data[s:e]
+            elif kind == b"iinf":
+                c.full()
+                c.uint(2)
+                for _ik, a, b in avif._boxes(data, c.pos, e):
+                    ic = avif._Cursor(data, a, b)
+                    _v, flags = ic.full((2,))
+                    item_id = ic.uint(2)
+                    ic.uint(2)
+                    self.items[item_id] = {"type": ic.take(4), "flags": flags,
+                                           "name": ic.cstring(), "data": b"", "props": []}
+            elif kind == b"iref":
+                c.full()
+                for rk, a, b in avif._boxes(data, c.pos, e):
+                    rc = avif._Cursor(data, a, b)
+                    frm = rc.uint(2)
+                    self.refs.append((rk, frm, [rc.uint(2) for _ in range(rc.uint(2))]))
+            elif kind == b"iprp":
+                for pk, ps, pe in avif._boxes(data, s, e):
+                    pc = avif._Cursor(data, ps, pe)
+                    if pk == b"ipco":
+                        self.ipco = [(kk, data[a:b]) for kk, a, b in avif._boxes(data, ps, pe)]
+                    elif pk == b"ipma":
+                        _v, flags = pc.full()
+                        for _ in range(pc.uint(4)):
+                            item_id = pc.uint(2)
+                            for _a in range(pc.uint(1)):
+                                v = pc.uint(2 if flags & 1 else 1)
+                                wide = 15 if flags & 1 else 7
+                                self.items[item_id]["props"].append((v & ((1 << wide) - 1),
+                                                                     v >> wide))
+        for item_id, item in iloc.items():
+            self.items[item_id]["data"] = avif._item_bytes(data, item, idat)
+
+    def prop(self, item_id: int, kind: bytes):
+        """The ipco index of an item's property of `kind`, or None."""
+        return next((i for i, _e in self.items[item_id]["props"]
+                     if self.ipco[i - 1][0] == kind), None)
+
+    def set_prop(self, item_id: int, kind: bytes, payload: bytes, essential: int = 0) -> None:
+        """Gives the item alone a property of `kind` (a new ipco entry in
+        place of its own, if it had one)."""
+        self.ipco.append((kind, payload))
+        props = [(i, e) for i, e in self.items[item_id]["props"] if self.ipco[i - 1][0] != kind]
+        self.items[item_id]["props"] = props + [(len(self.ipco), essential)]
+
+    def tiles(self, grid_id: int) -> list:
+        return next(to for k, f, to in self.refs if k == b"dimg" and f == grid_id)
+
+    def write(self) -> bytes:
+        ids = list(self.items)
+        hdlr = _box(b"hdlr", bytes(8) + b"pict" + bytes(13))
+        pitm = _box(b"pitm", bytes(4) + struct.pack(">H", self.primary))
+        iinf = _box(b"iinf", bytes(4) + struct.pack(">H", len(ids)) + b"".join(
+            _box(b"infe", struct.pack(">I", (2 << 24) | it["flags"]) + struct.pack(">HH", i, 0)
+                 + it["type"] + it["name"] + b"\0") for i, it in self.items.items()))
+        iref = _box(b"iref", bytes(4) + b"".join(
+            _box(k, struct.pack(">HH", f, len(to)) + b"".join(struct.pack(">H", t) for t in to))
+            for k, f, to in self.refs)) if self.refs else b""
+        wide = len(self.ipco) > 127
+        assoc = b"".join(struct.pack(">HB", i, len(it["props"])) + b"".join(
+            struct.pack(">H", (e << 15) | x) if wide else bytes([(e << 7) | x])
+            for x, e in it["props"]) for i, it in self.items.items())
+        iprp = _box(b"iprp", _box(b"ipco", b"".join(_box(k, p) for k, p in self.ipco))
+                    + _box(b"ipma", struct.pack(">II", int(wide), len(ids)) + assoc))
+
+        def meta(base: int) -> bytes:
+            body, pos = struct.pack(">HH", 0x4400, len(ids)), base
+            for i in ids:
+                body += struct.pack(">HHHII", i, 0, 1, pos, len(self.items[i]["data"]))
+                pos += len(self.items[i]["data"])
+            iloc = _box(b"iloc", bytes(4) + body)
+            return _box(b"meta", bytes(4) + hdlr + pitm + iloc + iinf + iref + iprp)
+
+        head = _box(b"ftyp", self.ftyp)
+        base = len(head) + len(meta(0)) + 8
+        return head + meta(base) + _box(b"mdat", b"".join(self.items[i]["data"] for i in ids))
 
 
 def _jpeg_chunk(quality: int, subsampling: str):
@@ -1585,8 +1811,9 @@ def write_frames(names=None) -> None:
     the ZSTD fixture, of the image-file scene from the dithered Group 3
     fixture and the SOF10 fixture, of the photo wall from the Group 4 fax
     page (its atlas started at scenes.FAX_ATLAS) and the SOF3 crop, and of
-    both from the incomplete progressive JPEG, the RLE-W fixture and the
-    seven AVIF fixtures; `names` limits it to those files."""
+    both from the incomplete progressive JPEG, the RLE-W fixture, the
+    seven AVIF fixtures and the grid fixture; `names` limits it to those
+    files."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_reference import block_means, jax_image_file_frame, jax_photo_wall_frame
 
@@ -1595,7 +1822,9 @@ def write_frames(names=None) -> None:
         AVIF_422_12_FILE_REFERENCE, AVIF_422_12_WALL_REFERENCE, AVIF_444_10_FILE_REFERENCE,
         AVIF_444_10_WALL_REFERENCE, AVIF_444_FILE_REFERENCE, AVIF_444_WALL_REFERENCE,
         AVIF_CDEF10_FILE_REFERENCE, AVIF_CDEF10_WALL_REFERENCE, AVIF_CDEF_FILE_REFERENCE,
-        AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE, AVIF_WALL_REFERENCE, FAX_ATLAS, G3_FILE_REFERENCE, G4_WALL_REFERENCE,
+        AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE, AVIF_GRID_FILE_REFERENCE,
+        AVIF_GRID_WALL_REFERENCE, AVIF_WALL_REFERENCE, FAX_ATLAS, G3_FILE_REFERENCE,
+        G4_WALL_REFERENCE,
         INCOMPLETE_FILE_REFERENCE, INCOMPLETE_WALL_REFERENCE, RLEW_FILE_REFERENCE,
         RLEW_WALL_REFERENCE,
         JPEG_FILE_REFERENCE, JPEG_WALL_REFERENCE, LOSSLESS_WALL_REFERENCE, PHOTO_WALL_SMALL,
@@ -1622,7 +1851,8 @@ def write_frames(names=None) -> None:
              512),
             ("fixture_444_10bit.avif", AVIF_444_10_FILE_REFERENCE, AVIF_444_10_WALL_REFERENCE, 512),
             ("fixture_422_12bit.avif", AVIF_422_12_FILE_REFERENCE, AVIF_422_12_WALL_REFERENCE,
-             512)):
+             512),
+            (AVIF_GRID_FIXTURE, AVIF_GRID_FILE_REFERENCE, AVIF_GRID_WALL_REFERENCE, 512)):
         if names is not None and name not in names:
             continue
         with tempfile.TemporaryDirectory() as td:
@@ -1656,7 +1886,7 @@ def main() -> None:
                                        FAX_PAGE, ARITH_FIXTURE, LOSSLESS_FIXTURE,
                                        INCOMPLETE_HUFF, RLEW_FIXTURE, AVIF_FIXTURE,
                                        AVIF_CDEF_FIXTURE, AVIF_444_FIXTURE, AVIF_422_FIXTURE,
-                                       *AVIF_DEPTHS)}}
+                                       *AVIF_DEPTHS, AVIF_GRID_FIXTURE, AVIF_PHOTO)}}
     with open(DIGESTS, "w") as fh:
         json.dump(stored, fh, indent=1)
         fh.write("\n")
