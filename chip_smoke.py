@@ -98,8 +98,9 @@ FigRenderer(device="cuda").render_frame or execute_plan:
   of the JPEG, GIF, BMP, ICO, QOI, TIFF (with CCITT fax and ZSTD) and
   WebP decoders (csrc/image_decode.cpp, csrc/webp_decode.cpp,
   csrc/zstd_decode.cpp, g++) and of the AVIF decoder (csrc/av1_decode.cpp:
-  8-bit files, three made 10- and 12-bit, and two grid images: the
-  fixture with an alpha grid and a 12 MP photo) against PIL's stored
+  8-bit files, three made 10- and 12-bit, two grid images: the fixture
+  with an alpha grid and a 12 MP photo, and two with film grain, one
+  10-bit, drawn in the image-file scene and the photo wall) against PIL's stored
   digests, their C++ stages against the plain twins, and the baseline
   JPEG, the fixture's
   LZW + Predictor 2 TIFF, its lossy WebP at q 90 and its ZSTD + Predictor
@@ -3352,7 +3353,12 @@ AVIF_KINDS = {"fixture_q75.avif": ("predict", "cfl", "txfm", "lf"),
               # the grids: the fixture's twelve 200x200 tiles, and the 12 MP
               # photo's middle tile (512x512, speed 10)
               "fixture_grid.avif": ("predict", "cfl", "txfm", "lf"),
-              "photo_grid_4032x3024.avif": ("predict", "txfm", "lf")}
+              "photo_grid_4032x3024.avif": ("predict", "txfm", "lf"),
+              # film grain (aom's test vectors 2 and 4): fd_av1_film_grain
+              # against film_grain_plain on each grained item's own planes
+              # (the first file's alpha item too)
+              "fixture_grain.avif": ("predict", "cfl", "txfm", "lf", "grain"),
+              "fixture_grain_422_10bit.avif": ("predict", "cfl", "txfm", "lf", "grain")}
 
 
 def split_frames(ren, scene, size, frames: int = FRAMES):
@@ -3407,9 +3413,11 @@ def image_formats_check(tag: str) -> dict:
     (csrc/av1_decode.cpp through the stage trace: up to AVIF_STAGE_CALLS
     calls of each of the intra predictor, CfL, the inverse transform, the
     loop filter, CDEF and the Wiener and self-guided filters against
-    av1.py's twins, every kind of AVIF_KINDS reached, fd_av1_to_rgb whole
-    against to_rgba_plain; its decode split in the tiles and loop filter,
-    CDEF, loop restoration and the RGB conversion). Returns {file: (cold
+    av1.py's twins, every kind of AVIF_KINDS reached, fd_av1_film_grain
+    against film_grain_plain on each grained item's own planes,
+    fd_av1_to_rgb whole against to_rgba_plain; its decode split in the
+    tiles and loop filter, CDEF, loop restoration, film grain and the RGB
+    conversion). Returns {file: (cold
     ms, warm ms, shape)}, with "avif stages" {file: {stage: (cold ms, warm
     ms)}}."""
     import hashlib
@@ -3553,7 +3561,20 @@ def image_formats_check(tag: str) -> dict:
                 checked = av1.check_trace(trace[:n], limit=AVIF_STAGE_CALLS)
             except RuntimeError as exc:
                 fail(f"image formats: {name}: {exc}")
-            missing = [k for k in AVIF_KINDS.get(name, ("predict",)) if not checked[k]]
+            if "grain" in AVIF_KINDS.get(name, ()):
+                # fd_av1_film_grain against its twin on each grained item's
+                # planes as the tiles, loop filter, CDEF and restoration left them
+                checked["grain"] = 0
+                for stream in traced + ([still.alpha] if still.alpha else []):
+                    f = av1.decode(stream, grain=False)
+                    if not av1.grain_applies(f.grain):
+                        continue
+                    try:
+                        av1.film_grain(f.planes, f.width, f.height, f.grain, plain=True)
+                    except RuntimeError as exc:
+                        fail(f"image formats: {name}: {exc}")
+                    checked["grain"] += 1
+            missing = [k for k in AVIF_KINDS.get(name, ("predict",)) if not checked.get(k)]
             if missing:
                 fail(f"image formats: {name}: the stage kinds {missing} never ran: {checked}")
             frame = avif.decode_item(still.color, still.grid, size)
@@ -3641,10 +3662,12 @@ def image_files_phase(tag: str, dev) -> dict:
     arithmetic-coded JPEG (SOF10) of the fixture, the lossless JPEG (SOF3)
     of a 224x168 crop (equal to the PNG's pixels), the incomplete
     progressive JPEG of the fixture (block smoothing), the RLE-W TIFF of
-    its dithered centre and the fixture's seven AVIFs (PIL's default save,
+    its dithered centre and the fixture's AVIFs (PIL's default save,
     speed 2 with CDEF, 4:4:4, and limited-range BT.709 4:2:2 with CDEF and
     loop restoration; the CDEF file and the 4:4:4 file at 10 bits, the
-    4:2:2 file at 12; a grid of 4x3 tiles with an alpha grid), and a 12 MP
+    4:2:2 file at 12; a grid of 4x3 tiles with an alpha grid; film grain:
+    aom's test vector 2 with a vignette alpha, and vector 4 at 4:2:2 made
+    10-bit), and a 12 MP
     AVIF grid of the fixture scaled to 4032x3024 loaded cold and warm (not
     drawn), its decode split printed (image_formats_check
     first: every stored format against PIL's digests): load_image cold and
@@ -3679,6 +3702,9 @@ def image_files_phase(tag: str, dev) -> dict:
         AVIF_444_WALL_REFERENCE, AVIF_CDEF10_FILE_REFERENCE, AVIF_CDEF10_FIXTURE,
         AVIF_CDEF10_WALL_REFERENCE, AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_FIXTURE,
         AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE, AVIF_FIXTURE, AVIF_GRID_FILE_REFERENCE,
+        AVIF_GRAIN_422_10_FILE_REFERENCE, AVIF_GRAIN_422_10_FIXTURE,
+        AVIF_GRAIN_422_10_WALL_REFERENCE, AVIF_GRAIN_FILE_REFERENCE, AVIF_GRAIN_FIXTURE,
+        AVIF_GRAIN_WALL_REFERENCE,
         AVIF_GRID_FIXTURE, AVIF_GRID_WALL_REFERENCE, AVIF_PHOTO_FIXTURE,
         AVIF_WALL_REFERENCE, EXAMPLE_FORMS, EXAMPLE_IMAGES, EXAMPLE_SCENES,
         FAX_ATLAS, FAX_PAGE, G3_FILE_REFERENCE, LOSSLESS_FIXTURE, LOSSLESS_WALL_REFERENCE,
@@ -3848,6 +3874,12 @@ def image_files_phase(tag: str, dev) -> dict:
             AVIF_GRID_FIXTURE, "AVIF grid (4x3 tiles of 200x200, an alpha grid)")
         _ppath, pcold_ms, pwarm_ms, pimage = cold_warm(
             AVIF_PHOTO_FIXTURE, "12 MP AVIF grid (4032x3024, 8x6 tiles of 512x512)")
+        # film grain: aom's test vector 2 with the vignette alpha, and
+        # vector 4 at 4:2:2 made 10-bit
+        npath, ncold_ms, nwarm_ms, _nimage = cold_warm(
+            AVIF_GRAIN_FIXTURE, "AVIF with film grain (vector 2, its alpha item grained too)")
+        n10path, n10cold_ms, n10warm_ms, _n10image = cold_warm(
+            AVIF_GRAIN_422_10_FIXTURE, "10-bit 4:2:2 AVIF with film grain (vector 4)")
         pchain_ms, _ = host_ms(lambda: flippy.image_to_flippy(pimage), 3)
         g3path = os.path.join(td, os.path.basename(G3_FIXTURE))
         shutil.copyfile(G3_FIXTURE, g3path)
@@ -3967,7 +3999,10 @@ def image_files_phase(tag: str, dev) -> dict:
                                                      AVIF_444_10_FILE_REFERENCE),
                        "avif 422 12-bit": file_scene(k12path, "avif 422 12-bit",
                                                      AVIF_422_12_FILE_REFERENCE),
-                       "avif grid": file_scene(xpath, "avif grid", AVIF_GRID_FILE_REFERENCE)}
+                       "avif grid": file_scene(xpath, "avif grid", AVIF_GRID_FILE_REFERENCE),
+                       "avif grain": file_scene(npath, "avif grain", AVIF_GRAIN_FILE_REFERENCE),
+                       "avif grain 422 10-bit": file_scene(n10path, "avif grain 422 10-bit",
+                                                           AVIF_GRAIN_422_10_FILE_REFERENCE)}
 
         # --- the 1080p photo wall of each loaded image ---
         def photo_wall(src, small_ref, what, tol=TOL, atlas=256):
@@ -4038,7 +4073,12 @@ def image_files_phase(tag: str, dev) -> dict:
                  "avif 422 12-bit": photo_wall(k12path, AVIF_422_12_WALL_REFERENCE,
                                                "photo wall avif 422 12-bit", FILE_TOL),
                  "avif grid": photo_wall(xpath, AVIF_GRID_WALL_REFERENCE, "photo wall avif grid",
-                                         FILE_TOL)}
+                                         FILE_TOL),
+                 "avif grain": photo_wall(npath, AVIF_GRAIN_WALL_REFERENCE,
+                                          "photo wall avif grain", FILE_TOL),
+                 "avif grain 422 10-bit": photo_wall(n10path, AVIF_GRAIN_422_10_WALL_REFERENCE,
+                                                     "photo wall avif grain 422 10-bit",
+                                                     FILE_TOL)}
         for ref in refs:
             ref.close()
     med = statistics.median
@@ -4081,8 +4121,10 @@ def image_files_phase(tag: str, dev) -> dict:
           f"{c10warm_ms:.3f} ms; the 10-bit 4:4:4 AVIF's load_image cold {f10cold_ms:.3f} ms, "
           f"warm {f10warm_ms:.3f} ms; the 12-bit 4:2:2 AVIF's load_image cold "
           f"{k12cold_ms:.3f} ms, warm {k12warm_ms:.3f} ms; the AVIF grid's (with its alpha "
-          f"grid) load_image cold {xcold_ms:.3f} ms, warm {xwarm_ms:.3f} ms {tag}",
-          flush=True)
+          f"grid) load_image cold {xcold_ms:.3f} ms, warm {xwarm_ms:.3f} ms; the film grain "
+          f"AVIF's (with its alpha) load_image cold {ncold_ms:.3f} ms, warm {nwarm_ms:.3f} ms; "
+          f"the 10-bit 4:2:2 film grain AVIF's load_image cold {n10cold_ms:.3f} ms, warm "
+          f"{n10warm_ms:.3f} ms {tag}", flush=True)
     split = decodes["avif stages"]["photo_grid_4032x3024.avif"]
     print(f"times: the 12 MP AVIF grid (4032x3024, 48 tiles of 512x512), host ms cold / warm: "
           + "; ".join(f"{k} {c:.3f} / {w:.3f}" for k, (c, w) in split.items())

@@ -3,8 +3,9 @@
 // utils/av1.py, which parses the sequence and frame headers and holds the
 // plain numpy twin of each self-contained stage. The decoding process is
 // the AV1 specification's (section 7) for a shown key frame of profiles 0-2
-// at 8, 10 or 12 bits (4:2:0, 4:2:2, 4:4:4 or monochrome), without superres
-// or film grain; the tables are libaom's (csrc/av1_tables.h). Planes hold
+// at 8, 10 or 12 bits (4:2:0, 4:2:2, 4:4:4 or monochrome) without superres,
+// and its film grain; the tables are libaom's, the Gaussian sequence
+// dav1d's (csrc/av1_tables.h). Planes hold
 // uint8_t samples at 8 bits and uint16_t at 10 and 12 (the stages are
 // templated on the sample type; the header's H_BITDEPTH picks it).
 //   fd_av1_tile       one tile: the symbol decoder with CDF adaptation,
@@ -25,6 +26,9 @@
 //                     decoded frame to its item's ispe (libyuv's ScalePlane
 //                     with kFilterBox and its x86 column filter; its
 //                     ScalePlane_16 past 8 bits);
+//   fd_av1_film_grain film grain synthesis (7.18.3) as dav1d 1.5.1 applies
+//                     it: the grain templates, the scaling lookups and the
+//                     noise of 32x32 blocks over the frame;
 //   fd_av1_to_rgb     YUV to RGBA as libavif 1.3.0 converts it for PIL
 //                     (libyuv's fixed point with its chroma upsampling, or
 //                     libavif's own float conversion), the alpha item's
@@ -3504,6 +3508,228 @@ int cdef_block_at(const int32_t* win, int w, int h, int plane, int pri, int sec,
     return 0;
 }
 
+// ------------------------------------------------------------ film grain ---
+
+// film_grain_params as utils/av1.py's parse_film_grain writes them (G_*
+// there), then the sequence's subsampling, monochrome, BitDepth and
+// whether its matrix is the identity.
+enum { G_SEED, G_NUM_Y, G_Y_POINTS, G_CSFL = G_Y_POINTS + 28, G_NUM_UV, G_UV_POINTS = G_NUM_UV + 2,
+       G_SCALING_SHIFT = G_UV_POINTS + 40, G_AR_LAG, G_AR_Y, G_AR_UV = G_AR_Y + 24, G_AR_SHIFT = G_AR_UV + 50,
+       G_GRAIN_SCALE_SHIFT, G_UV_MULT, G_UV_LUMA_MULT = G_UV_MULT + 2, G_UV_OFFSET = G_UV_LUMA_MULT + 2,
+       G_OVERLAP = G_UV_OFFSET + 2, G_CLIP, G_SSX, G_SSY, G_MONO, G_BITDEPTH, G_IS_ID, G_FIELDS };
+constexpr int kGrainH = 73, kGrainW = 82, kSubGrainH = 38, kSubGrainW = 44, kGrainBlock = 32;
+constexpr int kScalingSize = 4096;
+
+// The 16-bit LFSR of the specification's get_random_number.
+inline int grain_random(int bits, unsigned* state) {
+    unsigned r = *state;
+    unsigned bit = (r ^ (r >> 1) ^ (r >> 3) ^ (r >> 12)) & 1;
+    *state = (r >> 1) | (bit << 15);
+    return (int)((*state >> (16 - bits)) & ((1u << bits) - 1));
+}
+
+// dav1d's round2 of the film grain (an arithmetic shift, 0 rounds nothing)
+inline int grain_round2(int x, int shift) { return (x + ((1 << shift) >> 1)) >> shift; }
+
+// The grain templates (dav1d's generate_grain_y / generate_grain_uv):
+// Gaussian values by the LFSR, shifted to the bit depth and by
+// grain_scale_shift, then the autoregressive filter of lag 0-3 from row and
+// column 3 on (chroma adds the luma template's average over its sample's
+// luma samples, where there is luma grain), clamped to the grain's range.
+// lut[1] and lut[2] are written only for a chroma plane that takes grain
+// (38 x 44 where subsampled); the luma template always, as dav1d does.
+void grain_templates(const int32_t* g, int16_t (*lut)[kGrainH][kGrainW]) {
+    int bdm8 = g[G_BITDEPTH] - 8, lag = g[G_AR_LAG];
+    int shift = 4 - bdm8 + g[G_GRAIN_SCALE_SHIFT];
+    int gmin = -(128 << bdm8), gmax = (128 << bdm8) - 1;
+    for (int p = 0; p < 3; p++) {
+        if (p && (g[G_MONO] || !(g[G_NUM_UV + p - 1] || g[G_CSFL]))) continue;
+        int sx = p ? g[G_SSX] : 0, sy = p ? g[G_SSY] : 0;
+        int cw = sx ? kSubGrainW : kGrainW, ch = sy ? kSubGrainH : kGrainH;
+        unsigned seed = (unsigned)g[G_SEED] ^ (p == 1 ? 0xb524u : p == 2 ? 0x49d8u : 0u);
+        int16_t (*buf)[kGrainW] = lut[p];
+        for (int y = 0; y < ch; y++)
+            for (int x = 0; x < cw; x++) buf[y][x] = (int16_t)grain_round2(GAUSSIAN_SEQUENCE[grain_random(11, &seed)], shift);
+        const int32_t* coeff0 = p ? g + G_AR_UV + 25 * (p - 1) : g + G_AR_Y;
+        for (int y = 3; y < ch; y++) {
+            for (int x = 3; x < cw - 3; x++) {
+                const int32_t* coeff = coeff0;
+                int sum = 0;
+                for (int dy = -lag; dy <= 0; dy++) {
+                    for (int dx = -lag; dx <= lag; dx++) {
+                        if (!dx && !dy) {
+                            if (p && g[G_NUM_Y]) {
+                                int luma = 0, lx = ((x - 3) << sx) + 3, ly = ((y - 3) << sy) + 3;
+                                for (int i = 0; i <= sy; i++)
+                                    for (int j = 0; j <= sx; j++) luma += lut[0][ly + i][lx + j];
+                                sum += grain_round2(luma, sx + sy) * *coeff;
+                            }
+                            break;
+                        }
+                        sum += *(coeff++) * buf[y + dy][x + dx];
+                    }
+                }
+                buf[y][x] = (int16_t)clip3(gmin, gmax, buf[y][x] + grain_round2(sum, g[G_AR_SHIFT]));
+            }
+        }
+    }
+}
+
+// The scaling lookup of a plane's points (x, scaling pairs; dav1d's
+// generate_scaling): the first point's value before it, the points joined
+// by 16.16 steps, the last point's value after it; at 10 and 12 bits the
+// 8-bit points are spread to the depth and each run between them
+// interpolated again.
+void grain_scaling(int bd, const int32_t* pts, int num, uint8_t* scaling) {
+    int shift = bd - 8, size = 1 << bd;
+    if (!num) {
+        memset(scaling, 0, size);
+        return;
+    }
+    memset(scaling, pts[1], (size_t)pts[0] << shift);
+    for (int i = 0; i < num - 1; i++) {
+        int bx = pts[2 * i], by = pts[2 * i + 1], ex = pts[2 * i + 2], ey = pts[2 * i + 3];
+        int dx = ex - bx, dy = ey - by;
+        int delta = dy * ((0x10000 + (dx >> 1)) / dx);
+        for (int x = 0, d = 0x8000; x < dx; x++) {
+            scaling[(bx + x) << shift] = (uint8_t)(by + (d >> 16));
+            d += delta;
+        }
+    }
+    int n = pts[2 * (num - 1)] << shift;
+    memset(scaling + n, pts[2 * (num - 1) + 1], size - n);
+    if (!shift) return;
+    int pad = 1 << shift, rnd = pad >> 1;
+    for (int i = 0; i < num - 1; i++) {
+        int bx = pts[2 * i] << shift, dx = (pts[2 * i + 2] << shift) - bx;
+        for (int x = 0; x < dx; x += pad) {
+            int range = scaling[bx + x + pad] - scaling[bx + x];
+            for (int k = 1, r = rnd; k < pad; k++) {
+                r += range;
+                scaling[bx + x + k] = (uint8_t)(scaling[bx + x] + (r >> shift));
+            }
+        }
+    }
+}
+
+// One row of 32 luma rows (`row`) of plane p (dav1d's fgy_32x32xn and
+// fguv_32x32xn): pw x bh samples of src into dst (stride st), in blocks of
+// 32 (16 across or down where chroma is subsampled) each at its random
+// template offset (each block row's LFSR seeded from grain_seed and the
+// row), the first two columns (one subsampled) blended with the block to
+// the left and the first two rows with the block above where overlap_flag
+// is set; the noise is the template's value times the scaling lookup of
+// the sample (of chroma: the co-located luma's average across, or its
+// combination with the chroma sample by mult, luma_mult and offset),
+// shifted by scaling_shift, and the sum is clipped to the full or the
+// restricted range.
+template <typename P>
+void grain_row(const int32_t* g, const int16_t (*lut)[kGrainW], const uint8_t* scaling, int p, const P* src, P* dst,
+               int st, int pw, int bh, int row, const P* luma, int lst, int lw) {
+    static const int kBlend[2][2][2] = {{{27, 17}, {17, 27}}, {{23, 22}, {0, 0}}};
+    int bd = g[G_BITDEPTH], bdm8 = bd - 8, bmax = (1 << bd) - 1;
+    int sx = p ? g[G_SSX] : 0, sy = p ? g[G_SSY] : 0;
+    int gmin = -(128 << bdm8), gmax = (128 << bdm8) - 1;
+    int lo = 0, hi = bmax;
+    if (g[G_CLIP]) {
+        lo = 16 << bdm8;
+        hi = (p == 0 || g[G_IS_ID] ? 235 : 240) << bdm8;
+    }
+    int overlap = g[G_OVERLAP], rows = 1 + (overlap && row > 0);
+    int uv = p ? p - 1 : 0, csfl = g[G_CSFL], shift = g[G_SCALING_SHIFT];
+    int mult = g[G_UV_MULT + uv], lmult = g[G_UV_LUMA_MULT + uv], offset = g[G_UV_OFFSET + uv] * (1 << bdm8);
+    unsigned seed[2];
+    for (int i = 0; i < rows; i++)
+        seed[i] = (unsigned)g[G_SEED] ^ ((((row - i) * 37 + 178) & 0xFF) << 8) ^ (((row - i) * 173 + 105) & 0xFF);
+    int bsx = kGrainBlock >> sx, bsy = kGrainBlock >> sy;
+    int offsets[2][2] = {{0, 0}, {0, 0}};  // [current / left block][current / above row]
+    auto sample = [&](int bxi, int byi, int x, int y) -> int {
+        int rv = offsets[bxi][byi];
+        int offx = 3 + (2 >> sx) * (3 + (rv >> 4)), offy = 3 + (2 >> sy) * (3 + (rv & 0xF));
+        return lut[offy + y + bsy * byi][offx + x + bsx * bxi];
+    };
+    auto blend = [&](int old, int cur, const int* w) { return clip3(gmin, gmax, grain_round2(old * w[0] + cur * w[1], 5)); };
+    for (int bx = 0; bx < pw; bx += bsx) {
+        int bw = std::min(bsx, pw - bx);
+        if (overlap && bx)
+            for (int i = 0; i < rows; i++) offsets[1][i] = offsets[0][i];
+        for (int i = 0; i < rows; i++) offsets[0][i] = grain_random(8, &seed[i]);
+        int ystart = overlap && row ? std::min(2 >> sy, bh) : 0;
+        int xstart = overlap && bx ? std::min(2 >> sx, bw) : 0;
+        for (int y = 0; y < bh; y++) {
+            for (int x = 0; x < bw; x++) {
+                int grain = sample(0, 0, x, y);
+                if (x < xstart) grain = blend(sample(1, 0, x, y), grain, kBlend[sx][x]);
+                if (y < ystart) {
+                    int top = sample(0, 1, x, y);
+                    if (x < xstart) top = blend(sample(1, 1, x, y), top, kBlend[sx][x]);
+                    grain = blend(top, grain, kBlend[sy][y]);
+                }
+                int s = src[(size_t)y * st + bx + x], val = s;
+                if (p) {
+                    int lx = (bx + x) << sx;
+                    const P* l = luma + (size_t)(y << sy) * lst + lx;
+                    int avg = l[0];
+                    if (sx) avg = (avg + (lx + 1 < lw ? l[1] : l[0]) + 1) >> 1;  // dav1d repeats the last column
+                    val = avg;
+                    if (!csfl) val = clip3(0, bmax, ((avg * lmult + s * mult) >> 6) + offset);
+                }
+                int noise = grain_round2(scaling[val] * grain, shift);
+                dst[(size_t)y * st + bx + x] = (P)clip3(lo, hi, s + noise);
+            }
+        }
+    }
+}
+
+// Film grain over a w x h frame (dav1d's prep_grain, then apply_grain_row
+// for each row of 32 luma rows): luma where it has points, each chroma
+// plane where it has points or chroma_scaling_from_luma is set (from the
+// ungrained luma).
+template <typename P>
+void film_grain(const int32_t* g, int w, int h, const P* const* src, const int* st, P* const* dst,
+                int16_t (*lut)[kGrainH][kGrainW], uint8_t (*scaling)[kScalingSize]) {
+    int bd = g[G_BITDEPTH], sx = g[G_SSX], sy = g[G_SSY], csfl = g[G_CSFL];
+    grain_templates(g, lut);
+    if (g[G_NUM_Y] || csfl) grain_scaling(bd, g + G_Y_POINTS, g[G_NUM_Y], scaling[0]);
+    for (int pl = 0; pl < 2; pl++)
+        if (g[G_NUM_UV + pl]) grain_scaling(bd, g + G_UV_POINTS + 20 * pl, g[G_NUM_UV + pl], scaling[1 + pl]);
+    int cw = (w + sx) >> sx;
+    for (int row = 0; row * kGrainBlock < h; row++) {
+        int bh = std::min(h - row * kGrainBlock, kGrainBlock);
+        const P* luma = src[0] + (size_t)row * kGrainBlock * st[0];
+        if (g[G_NUM_Y])
+            grain_row<P>(g, lut[0], scaling[0], 0, luma, dst[0] + (size_t)row * kGrainBlock * st[0], st[0], w, bh,
+                         row, nullptr, 0, w);
+        if (g[G_MONO]) continue;
+        int cbh = (bh + sy) >> sy;
+        size_t off = (size_t)(row * kGrainBlock >> sy) * st[1];
+        for (int pl = 0; pl < 2; pl++)
+            if (csfl || g[G_NUM_UV + pl])
+                grain_row<P>(g, lut[1 + pl], scaling[csfl ? 0 : 1 + pl], 1 + pl, src[1 + pl] + off,
+                             dst[1 + pl] + off, st[1], cw, cbh, row, luma, st[0], w);
+    }
+}
+
+// The parameters' bounds that keep every read of the templates and the
+// lookups in place (the header parser holds the stream to them).
+bool grain_valid(const int32_t* g) {
+    if (!valid_depth(g[G_BITDEPTH]) || g[G_NUM_Y] < 0 || g[G_NUM_Y] > 14 || g[G_AR_LAG] < 0 || g[G_AR_LAG] > 3 ||
+        g[G_SCALING_SHIFT] < 8 || g[G_SCALING_SHIFT] > 11 || g[G_AR_SHIFT] < 6 || g[G_AR_SHIFT] > 9 ||
+        g[G_GRAIN_SCALE_SHIFT] < 0 || g[G_GRAIN_SCALE_SHIFT] > 3 || g[G_SSX] < 0 || g[G_SSX] > 1 ||
+        g[G_SSY] < 0 || g[G_SSY] > g[G_SSX])
+        return false;
+    for (int k = 0; k < 3; k++) {
+        int n = k ? g[G_NUM_UV + k - 1] : g[G_NUM_Y];
+        const int32_t* pts = k ? g + G_UV_POINTS + 20 * (k - 1) : g + G_Y_POINTS;
+        if (n < 0 || n > (k ? 10 : 14)) return false;
+        for (int i = 0; i < n; i++)
+            if (pts[2 * i] < 0 || pts[2 * i] > 255 || pts[2 * i + 1] < 0 || pts[2 * i + 1] > 255 ||
+                (i && pts[2 * i] <= pts[2 * i - 2]))
+                return false;
+    }
+    return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -3668,6 +3894,38 @@ int fd_av1_cfl(const int32_t* L, int w, int h, int alpha, int bd, uint16_t* pred
 int fd_av1_inv_txfm(const int32_t* deq, int tx, int type, int lossless, int bd, int32_t* res) {
     if (tx < 0 || tx > 18 || type < 0 || type > 15 || !valid_depth(bd)) return kArgs;
     inverse_transform(deq, tx, type, lossless, res, bd);
+    return 0;
+}
+
+// Film grain (specification 7.18.3, as dav1d 1.5.1 applies it) of a w x h
+// frame's planes y, u, v (null for monochrome; strides ys and cs in
+// samples; uint8_t at 8 bits, else uint16_t, by G_BITDEPTH) into dy, du, dv
+// (copies of them: a plane without grain is left as it is) by the
+// parameters g (G_FIELDS; the caller checks that dav1d grains the frame at
+// all). templ, when not null, gets the three grain templates (int16_t
+// [3][73][82], zeros where a chroma plane takes none), and scal the three
+// scaling lookups (uint8_t [3][4096], zeros past the depth's 1 << bd).
+int fd_av1_film_grain(const int32_t* g, int w, int h, const void* y, const void* u, const void* v, int ys, int cs,
+                      void* dy, void* du, void* dv, int16_t* templ, uint8_t* scal) {
+    if (!g || !y || !dy || w <= 0 || h <= 0 || ys < w || !grain_valid(g)) return kArgs;
+    int cw = (w + g[G_SSX]) >> g[G_SSX];
+    if (!g[G_MONO] && (!u || !v || !du || !dv || cs < cw)) return kArgs;
+    std::vector<int16_t> lut((size_t)3 * kGrainH * kGrainW, 0);
+    std::vector<uint8_t> scaling((size_t)3 * kScalingSize, 0);
+    auto* L = (int16_t (*)[kGrainH][kGrainW])lut.data();
+    auto* S = (uint8_t (*)[kScalingSize])scaling.data();
+    int st[2] = {ys, cs};
+    if (g[G_BITDEPTH] == 8) {
+        const uint8_t* src[3] = {(const uint8_t*)y, (const uint8_t*)u, (const uint8_t*)v};
+        uint8_t* dst[3] = {(uint8_t*)dy, (uint8_t*)du, (uint8_t*)dv};
+        film_grain<uint8_t>(g, w, h, src, st, dst, L, S);
+    } else {
+        const uint16_t* src[3] = {(const uint16_t*)y, (const uint16_t*)u, (const uint16_t*)v};
+        uint16_t* dst[3] = {(uint16_t*)dy, (uint16_t*)du, (uint16_t*)dv};
+        film_grain<uint16_t>(g, w, h, src, st, dst, L, S);
+    }
+    if (templ) memcpy(templ, lut.data(), lut.size() * sizeof(int16_t));
+    if (scal) memcpy(scal, scaling.data(), scaling.size());
     return 0;
 }
 

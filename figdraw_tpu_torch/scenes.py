@@ -1831,6 +1831,21 @@ AVIF_GRID_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_grid.avif")
 AVIF_GRID_FILE_REFERENCE = os.path.join(REFERENCE_DIR,
                                         "example_image_file_avif_grid_1x_blocks8.npy")
 AVIF_GRID_WALL_REFERENCE = os.path.join(REFERENCE_DIR, "photo_wall_avif_grid_480x270_blocks8.npy")
+# film grain: the fixture with the grid's faded alpha as PIL's AVIF with
+# aom's film-grain-test vector 2 (luma and chroma points, AR lag 3,
+# overlap_flag; the alpha item grained too), and the fixture at 4:2:2
+# with vector 4 (nine points a plane) made 10-bit by avif_at_depth, each
+# drawn in the image-file scene and on the photo wall
+AVIF_GRAIN_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_grain.avif")
+AVIF_GRAIN_FILE_REFERENCE = os.path.join(REFERENCE_DIR,
+                                         "example_image_file_avif_grain_1x_blocks8.npy")
+AVIF_GRAIN_WALL_REFERENCE = os.path.join(REFERENCE_DIR,
+                                         "photo_wall_avif_grain_480x270_blocks8.npy")
+AVIF_GRAIN_422_10_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "fixture_grain_422_10bit.avif")
+AVIF_GRAIN_422_10_FILE_REFERENCE = os.path.join(
+    REFERENCE_DIR, "example_image_file_avif_grain_422_10_1x_blocks8.npy")
+AVIF_GRAIN_422_10_WALL_REFERENCE = os.path.join(
+    REFERENCE_DIR, "photo_wall_avif_grain_422_10_480x270_blocks8.npy")
 # the fixture scaled to a 12 MP phone photo, 4032x3024, as a grid of 8x6
 # tiles of 512x512 whose last column and row the grid crops (quality 50,
 # speed 10): decoded and loaded, not drawn

@@ -1,10 +1,10 @@
 """The port's AV1 intra decoder for AVIF still images (utils/avif.py reads
 the container): the OBUs, the sequence header and the frame header of a
-shown key frame in Python, the tiles, the loop filter, CDEF and loop
-restoration in C++ (csrc/av1_decode.cpp, built by utils/image_lib.py),
-then YUV -> RGBA as libavif 1.3.0 converts it for PIL 12.1.0 (libyuv's
-fixed point where it has constants for the matrix and range, else
-libavif's own float conversion: `conversion`).
+shown key frame in Python, the tiles, the loop filter, CDEF, loop
+restoration and film grain synthesis in C++ (csrc/av1_decode.cpp, built
+by utils/image_lib.py), then YUV -> RGBA as libavif 1.3.0 converts it
+for PIL 12.1.0 (libyuv's fixed point where it has constants for the
+matrix and range, else libavif's own float conversion: `conversion`).
 
 Decoded: profiles 0-2 at 8, 10 and 12 bits (planes of uint8 at 8 bits,
 uint16 at 10 and 12), 4:2:0, 4:2:2 and 4:4:4 colour or monochrome (an
@@ -16,11 +16,17 @@ inter transform sets and split transform sizes it brings) and filter
 intra, coded-lossless frames (WHT), CDEF (its 64x64 indices, the
 direction search, the primary and secondary taps) and loop restoration
 (Wiener and self-guided units, switchable or not, over stripes of 64
-luma rows). Refused with NotImplementedError naming AVIF and the
-feature: superres, film grain, and any frame that is not a shown key
-frame. Quantiser matrices (aom's `enable-qm`) are read. A
-malformed stream raises ValueError, as does a 4:2:2 partition whose
-chroma block has no size (dav1d rejects it).
+luma rows), and film grain (film_grain_params, then the grain as dav1d
+1.5.1 synthesises it before libavif receives the picture: the templates
+from the LFSR and the Gaussian sequence with their autoregressive
+filter, the scaling lookups, the noise of 32x32 blocks at random
+offsets with their overlap; at every layout and depth). Refused with
+NotImplementedError naming AVIF and the feature: superres and any frame
+that is not a shown key frame. Quantiser matrices (aom's `enable-qm`)
+are read. A malformed stream raises ValueError, as do a 4:2:2 partition
+whose chroma block has no size and the film grain headers dav1d rejects
+(more than 14 luma or 10 chroma points, points that do not increase,
+4:2:0 points for one chroma plane only).
 
 The C++ stages and their numpy twins here, the tests' reference (nothing
 on the load path uses the twins unless `plain` is asked for):
@@ -37,12 +43,17 @@ on the load path uses the twins unless `plain` is asked for):
   its item's ispe gives;
 - to_rgba_plain: libyuv's chroma upsampling (4:2:2 across, 4:2:0
   bilinear) and fixed point, or libavif's float conversion, at the bit
-  depth libavif converts at.
-Each stage's twin takes the bit depth (`bit_depth`, 8 by default).
+  depth libavif converts at;
+- film_grain_plain: the film grain of a frame's planes, from
+  grain_templates_plain (the three templates), grain_scaling_plain (a
+  plane's scaling lookup) and grain_offsets_plain (each block's random
+  offset).
+Each stage's twin takes the bit depth (`bit_depth`, 8 by default; the
+film grain's is in its parameters).
 `decode(stream, plain=True)` decodes the tiles in C++ with a trace of each
 prediction, transform, loop filter, CDEF and restoration call, checks
-every traced call against its twin, and converts with the plain
-conversion.
+every traced call against its twin, holds the C++ film grain to
+film_grain_plain, and converts with the plain conversion.
 """
 
 from __future__ import annotations
@@ -106,6 +117,33 @@ REMAP_LR_TYPE = (RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER, RESTORE_SGRPR
 # Wiener taps 0-2 of the vertical then the horizontal filter, the
 # self-guided set and its two weights
 L_TYPE, L_WIENER, L_SET, L_XQD, L_FIELDS = 0, 1, 7, 8, 10
+# film_grain_params as fd_av1_film_grain takes them (G_* there): grain_seed,
+# the luma points (x, scaling) and their count, chroma_scaling_from_luma,
+# the Cb and Cr counts and points, scaling_shift (grain_scaling_minus_8 +
+# 8), ar_coeff_lag, the AR coefficients (luma's 24; each chroma plane's 25,
+# the luma term last), ar_coeff_shift, grain_scale_shift, each chroma
+# plane's mult, luma_mult and offset, overlap_flag and
+# clip_to_restricted_range; then the sequence's subsampling, monochrome,
+# BitDepth and whether its matrix is the identity (the chroma clip's range)
+G_SEED, G_NUM_Y, G_Y_POINTS = 0, 1, 2
+G_CSFL = G_Y_POINTS + 28
+G_NUM_UV = G_CSFL + 1
+G_UV_POINTS = G_NUM_UV + 2
+G_SCALING_SHIFT = G_UV_POINTS + 40
+G_AR_LAG = G_SCALING_SHIFT + 1
+G_AR_Y = G_AR_LAG + 1
+G_AR_UV = G_AR_Y + 24
+G_AR_SHIFT = G_AR_UV + 50
+G_GRAIN_SCALE_SHIFT = G_AR_SHIFT + 1
+G_UV_MULT = G_GRAIN_SCALE_SHIFT + 1
+G_UV_LUMA_MULT = G_UV_MULT + 2
+G_UV_OFFSET = G_UV_LUMA_MULT + 2
+G_OVERLAP = G_UV_OFFSET + 2
+G_CLIP, G_SSX, G_SSY, G_MONO, G_BITDEPTH, G_IS_ID = range(G_OVERLAP + 1, G_OVERLAP + 7)
+G_FIELDS = G_IS_ID + 1
+# the grain templates (luma; chroma 38 rows and 44 columns where subsampled)
+GRAIN_H, GRAIN_W, SUB_GRAIN_H, SUB_GRAIN_W = 73, 82, 38, 44
+
 # the per-4x4 block info csrc/av1_decode.cpp writes (M_* there)
 (M_SIZE, M_SKIP, M_SEG, M_TX_Y, M_TX_UV, M_DLF0, M_DLF1, M_DLF2, M_DLF3, M_YMODE, M_UVMODE,
  M_INTER, M_MV_ROW, M_MV_COL, M_WRITTEN, M_FIELDS) = range(16)
@@ -326,9 +364,7 @@ def parse_sequence(payload: bytes) -> Sequence:
             if s.ssx and s.ssy:
                 s.chroma_position = r.f(2)
         s.separate_uv_dq = r.f(1)
-    s.film_grain = r.f(1)
-    if s.film_grain:
-        raise refuse("film grain")
+    s.film_grain = r.f(1)  # film_grain_params_present
     return s
 
 
@@ -347,6 +383,7 @@ class Frame:
         self.mi = None  # the per-4x4 block info the tiles wrote (M_FIELDS int32 each)
         self.cdef = None  # each 64x64's CDEF index (-1: none read)
         self.lr = None  # the restoration units (3, H_LR_STRIDE, L_FIELDS)
+        self.grain = None  # the film grain parameters (G_FIELDS), or None
         self.ms = {}  # host ms of each decode stage
 
 
@@ -554,6 +591,9 @@ def parse_frame_header(r: BitReader, s: Sequence) -> dict:
     # tx mode
     tx_mode = 0 if coded_lossless else (2 if r.f(1) else 1)
     reduced_tx_set = r.f(1)
+    # an intra frame reads no global motion: film_grain_params end the header
+    grain_bit = r.bit
+    grain = parse_film_grain(r, s) if s.film_grain else None
     hdr[[H_WIDTH, H_HEIGHT, H_MI_COLS, H_MI_ROWS]] = width, height, mi_cols, mi_rows
     hdr[H_MONO] = s.mono
     hdr[H_USE128], hdr[H_FILTER_INTRA], hdr[H_EDGE_FILTER] = s.use128, s.filter_intra, s.edge_filter
@@ -581,7 +621,71 @@ def parse_frame_header(r: BitReader, s: Sequence) -> dict:
     hdr[H_LR_STRIDE] = max(1, max(a * b for a, b in units))
     hdr[H_SSX], hdr[H_SSY], hdr[H_BITDEPTH] = s.ssx, s.ssy, s.bit_depth
     return {"hdr": hdr, "col_starts": col_starts, "row_starts": row_starts,
-            "cols_log2": cols_log2, "rows_log2": rows_log2, "tile_size_bytes": tile_size_bytes}
+            "cols_log2": cols_log2, "rows_log2": rows_log2, "tile_size_bytes": tile_size_bytes,
+            "grain": grain, "grain_bit": grain_bit}
+
+
+def _grain_points(r: BitReader, g: np.ndarray, at: int, most: int, what: str) -> int:
+    n = r.f(4)
+    if n > most:  # dav1d rejects the header
+        raise ValueError(f"AV1: film grain with {n} {what} points (at most {most})")
+    for i in range(n):
+        g[at + 2 * i] = r.f(8)
+        if i and g[at + 2 * i] <= g[at + 2 * i - 2]:
+            raise ValueError(f"AV1: film grain's {what} points do not increase")
+        g[at + 2 * i + 1] = r.f(8)
+    return n
+
+
+def parse_film_grain(r: BitReader, s: Sequence):
+    """film_grain_params (specification 5.9.30) of a shown key frame, as
+    dav1d 1.5.1 reads them: None where apply_grain is clear, else the
+    G_FIELDS array fd_av1_film_grain takes (update_grain is 1 for a key
+    frame, so every field is read). Raises ValueError where dav1d rejects
+    the header: more than 14 luma or 10 chroma points, points whose values
+    do not increase, and at 4:2:0 Cb points without Cr points or the
+    reverse."""
+    if not r.f(1):  # apply_grain
+        return None
+    g = np.zeros(G_FIELDS, np.int32)
+    g[G_SEED] = r.f(16)
+    g[G_NUM_Y] = ny = _grain_points(r, g, G_Y_POINTS, 14, "luma")
+    g[G_CSFL] = csfl = 0 if s.mono else r.f(1)
+    if not (s.mono or csfl or (s.ssx and s.ssy and not ny)):
+        for pl, what in enumerate(("Cb", "Cr")):
+            g[G_NUM_UV + pl] = _grain_points(r, g, G_UV_POINTS + 20 * pl, 10, what)
+    if s.ssx and s.ssy and bool(g[G_NUM_UV]) != bool(g[G_NUM_UV + 1]):
+        raise ValueError("AV1: 4:2:0 film grain with points for one chroma plane only")
+    g[G_SCALING_SHIFT] = r.f(2) + 8
+    g[G_AR_LAG] = lag = r.f(2)
+    num_pos = 2 * lag * (lag + 1)
+    if ny:
+        for i in range(num_pos):
+            g[G_AR_Y + i] = r.f(8) - 128
+    for pl in range(2):
+        if g[G_NUM_UV + pl] or csfl:  # the luma term last, where there is luma grain
+            for i in range(num_pos + int(ny > 0)):
+                g[G_AR_UV + 25 * pl + i] = r.f(8) - 128
+    g[G_AR_SHIFT] = r.f(2) + 6
+    g[G_GRAIN_SCALE_SHIFT] = r.f(2)
+    for pl in range(2):
+        if g[G_NUM_UV + pl]:
+            g[G_UV_MULT + pl] = r.f(8) - 128
+            g[G_UV_LUMA_MULT + pl] = r.f(8) - 128
+            g[G_UV_OFFSET + pl] = r.f(9) - 256
+    g[G_OVERLAP] = r.f(1)
+    g[G_CLIP] = r.f(1)
+    g[G_SSX], g[G_SSY], g[G_MONO], g[G_BITDEPTH] = s.ssx, s.ssy, s.mono, s.bit_depth
+    g[G_IS_ID] = int(s.matrix == 0)
+    return g
+
+
+def grain_applies(g) -> bool:
+    """Whether dav1d grains a picture with these parameters (its has_grain:
+    points for a plane, or chroma scaled from luma and clipped to the
+    restricted range); else its output is the decoded picture."""
+    return g is not None and bool(g[G_NUM_Y] or g[G_NUM_UV] or g[G_NUM_UV + 1]
+                                  or (g[G_CLIP] and g[G_CSFL]))
 
 
 def _tiles(data: bytes, pos: int, end: int, fh: dict) -> list:
@@ -616,8 +720,10 @@ def _lib():
     return image_lib.load_av1()
 
 
-def decode(stream: bytes, plain: bool = False) -> Frame:
-    """An AV1 stream (one shown key frame) to its decoded planes."""
+def decode(stream: bytes, plain: bool = False, grain: bool = True) -> Frame:
+    """An AV1 stream (one shown key frame) to its decoded planes (with
+    `grain` False, the planes before film grain; its parameters are in
+    frame.grain all the same)."""
     seq, fh, tiles = None, None, []
     for kind, payload in obus(stream):
         if kind == OBU_SEQUENCE_HEADER:
@@ -697,11 +803,16 @@ def decode(stream: bytes, plain: bool = False) -> Frame:
                       lr.ctypes.data)
         planes = out
     t3 = time.perf_counter()
-    frame = Frame(planes, int(hdr[H_WIDTH]), int(hdr[H_HEIGHT]), seq.full_range, seq.matrix,
-                  seq.mono, seq.ssx, seq.ssy, seq.primaries, seq.bit_depth, seq.transfer)
+    width, height = int(hdr[H_WIDTH]), int(hdr[H_HEIGHT])
+    if grain and grain_applies(fh["grain"]):
+        planes = film_grain(planes, width, height, fh["grain"], plain)
+    t4 = time.perf_counter()
+    frame = Frame(planes, width, height, seq.full_range, seq.matrix, seq.mono, seq.ssx, seq.ssy,
+                  seq.primaries, seq.bit_depth, seq.transfer)
     frame.mi, frame.cdef, frame.lr = mi, cdef, lr
+    frame.grain = fh["grain"]
     frame.ms = {"tiles + loop filter": (t1 - t0) * 1e3, "cdef": (t2 - t1) * 1e3,
-                "loop restoration": (t3 - t2) * 1e3}
+                "loop restoration": (t3 - t2) * 1e3, "film grain": (t4 - t3) * 1e3}
     if plain:
         n = lib.fd_av1_trace(null, 0)
         if n < 0:
@@ -726,6 +837,36 @@ def scale(plane: np.ndarray, width: int, height: int, dw: int, dh: int,
         raise ValueError(f"AV1: {ERRORS.get(rc, rc)}")
     if plain and not np.array_equal(out, scale_plain(src, dw, dh)):
         raise RuntimeError("fd_av1_scale differs from scale_plain")
+    return out
+
+
+def film_grain(planes, width: int, height: int, grain: np.ndarray, plain: bool = False) -> tuple:
+    """A decoded frame's planes (Y, U, V or None) with film grain, as
+    dav1d 1.5.1 grains a picture before libavif receives it
+    (fd_av1_film_grain over the width x height samples; a plane without
+    grain is a copy). `plain` holds the result to film_grain_plain."""
+    dtype = np.uint8 if grain[G_BITDEPTH] == 8 else np.uint16
+    for k, p in enumerate(planes[:1 if grain[G_MONO] else 3]):
+        sx, sy = (int(grain[G_SSX]), int(grain[G_SSY])) if k else (0, 0)
+        if (p is None or p.dtype != dtype or not p.flags.c_contiguous
+                or p.shape[0] < (height + sy) >> sy or p.shape[1] < (width + sx) >> sx):
+            raise ValueError(f"AV1: {ERRORS[-2]}")
+    out = tuple(p.copy() if p is not None else None for p in planes)
+    null = ctypes.c_void_p(0)
+
+    def ptr(p):
+        return p.ctypes.data if p is not None else null
+
+    y, u, _v = planes
+    rc = _lib().fd_av1_film_grain(grain.ctypes.data, width, height, *(ptr(p) for p in planes),
+                                  y.shape[1], u.shape[1] if u is not None else 0,
+                                  *(ptr(p) for p in out), null, null)
+    if rc < 0:
+        raise ValueError(f"AV1: {ERRORS.get(rc, rc)}")
+    if plain:
+        want = film_grain_plain(planes, width, height, grain)
+        if not all(np.array_equal(a, b) for a, b in zip(out, want)):
+            raise RuntimeError("fd_av1_film_grain differs from film_grain_plain")
     return out
 
 
@@ -1794,6 +1935,196 @@ def sgr_plain(win: np.ndarray, sgr_set: int, xqd, bit_depth: int = 8) -> np.ndar
     v = v + w0 * (_sgr_box_plain(win, r0, s0, 0, bit_depth) if r0 else u)
     v = v + w2 * (_sgr_box_plain(win, r1, s1, 1, bit_depth) if r1 else u)
     return np.clip(_round2(v, 11), 0, (1 << bit_depth) - 1).astype(_samples(bit_depth))
+
+
+def _grain_random(state: int, bits: int) -> tuple:
+    """The specification's get_random_number: (value, new state)."""
+    bit = (state ^ (state >> 1) ^ (state >> 3) ^ (state >> 12)) & 1
+    state = (state >> 1) | (bit << 15)
+    return (state >> (16 - bits)) & ((1 << bits) - 1), state
+
+
+def _grain_round2(x, shift: int):
+    return (x + ((1 << shift) >> 1)) >> shift
+
+
+def _grain_range(bit_depth: int) -> tuple:
+    return -(128 << (bit_depth - 8)), (128 << (bit_depth - 8)) - 1
+
+
+def grain_templates_plain(g: np.ndarray) -> np.ndarray:
+    """The grain templates (int16 (3, 73, 82), as fd_av1_film_grain's
+    `templ`): the luma template always, a chroma one (38 x 44 where
+    subsampled) where its plane takes grain, zeros elsewhere. Gaussian
+    values by the LFSR, shifted by 12 - BitDepth + grain_scale_shift, then
+    the autoregressive filter from row and column 3 on."""
+    bd, lag = int(g[G_BITDEPTH]), int(g[G_AR_LAG])
+    shift = 12 - bd + int(g[G_GRAIN_SCALE_SHIFT])
+    gmin, gmax = _grain_range(bd)
+    ar_shift, ny = int(g[G_AR_SHIFT]), int(g[G_NUM_Y])
+    out = np.zeros((3, GRAIN_H, GRAIN_W), np.int16)
+    taps = [(dy, dx) for dy in range(-lag, 1) for dx in range(-lag, lag + 1)][: 2 * lag * (lag + 1)]
+    above = [(k, dy, dx) for k, (dy, dx) in enumerate(taps) if dy < 0]
+    left = [(k, dx) for k, (dy, dx) in enumerate(taps) if dy == 0]
+    for p in range(3):
+        if p and (g[G_MONO] or not (g[G_NUM_UV + p - 1] or g[G_CSFL])):
+            continue
+        sx, sy = (int(g[G_SSX]), int(g[G_SSY])) if p else (0, 0)
+        cw, ch = (SUB_GRAIN_W if sx else GRAIN_W), (SUB_GRAIN_H if sy else GRAIN_H)
+        seed = int(g[G_SEED]) ^ (0, 0xB524, 0x49D8)[p]
+        draws = []
+        for _ in range(cw * ch):
+            v, seed = _grain_random(seed, 11)
+            draws.append(v)
+        buf = _grain_round2(T.GAUSSIAN_SEQUENCE[draws].astype(np.int64), shift).reshape(ch, cw)
+        coeff = [int(c) for c in (g[G_AR_UV + 25 * (p - 1):G_AR_UV + 25 * p] if p
+                                  else g[G_AR_Y:G_AR_Y + 24])]
+        xs = np.arange(3, cw - 3)
+        luma = out[0].astype(np.int64) if p and ny else None  # the luma term's template
+        for y in range(3, ch):
+            known = np.zeros(len(xs), np.int64)  # the rows above, already final
+            for k, dy, dx in above:
+                known += coeff[k] * buf[y + dy, xs + dx]
+            if luma is not None:
+                lx, ly = ((xs - 3) << sx) + 3, ((y - 3) << sy) + 3
+                total = sum(luma[ly + i, lx + j] for i in range(sy + 1) for j in range(sx + 1))
+                known += _grain_round2(total, sx + sy) * coeff[len(taps)]
+            row = buf[y]
+            for i, x in enumerate(xs.tolist()):
+                total = int(known[i]) + sum(coeff[k] * int(row[x + dx]) for k, dx in left)
+                row[x] = min(max(int(row[x]) + _grain_round2(total, ar_shift), gmin), gmax)
+        out[p, :ch, :cw] = buf
+    return out
+
+
+def grain_scaling_plain(points, num: int, bit_depth: int) -> np.ndarray:
+    """A plane's scaling lookup (uint8, 1 << bit_depth entries) from its
+    points ((x, scaling) pairs, x rising), as dav1d's generate_scaling:
+    16.16 steps between the 8-bit points, the ends held, and at 10 and 12
+    bits each run between spread points interpolated again."""
+    shift, size = bit_depth - 8, 1 << bit_depth
+    out = np.zeros(size, np.int64)
+    if not num:
+        return out.astype(np.uint8)
+    pts = [(int(points[2 * i]), int(points[2 * i + 1])) for i in range(num)]
+    out[:pts[0][0] << shift] = pts[0][1]
+    for (bx, by), (ex, ey) in zip(pts, pts[1:]):
+        dx = ex - bx
+        delta = (ey - by) * ((0x10000 + (dx >> 1)) // dx)
+        for x in range(dx):
+            out[(bx + x) << shift] = (by + ((0x8000 + x * delta) >> 16)) & 0xFF
+    out[pts[-1][0] << shift:] = pts[-1][1]
+    if shift:
+        pad, rnd = 1 << shift, 1 << (shift - 1)
+        for (bx, _by), (ex, _ey) in zip(pts, pts[1:]):
+            for x in range(bx << shift, ex << shift, pad):
+                rng = int(out[x + pad] - out[x])
+                for k in range(1, pad):
+                    out[x + k] = (out[x] + ((rnd + k * rng) >> shift)) & 0xFF
+    return out.astype(np.uint8)
+
+
+def grain_offsets_plain(seed: int, rows: int, cols: int) -> np.ndarray:
+    """Each block's random template offset (8 bits: x in the high nibble,
+    y in the low), block row by block row, each row's LFSR seeded from
+    grain_seed and the row."""
+    out = np.zeros((rows, cols), np.int64)
+    for r in range(rows):
+        state = seed ^ ((((r * 37 + 178) & 0xFF) << 8) | ((r * 173 + 105) & 0xFF))
+        for c in range(cols):
+            out[r, c], state = _grain_random(state, 8)
+    return out
+
+
+# the overlap's weights of the old (left or above) and the new block by
+# the position in the overlap: [subsampled][position]
+GRAIN_BLEND_OLD, GRAIN_BLEND_NEW = ((27, 17), (23,)), ((17, 27), (22,))
+
+
+def _grain_map(lut: np.ndarray, off: np.ndarray, pw: int, ph: int, sx: int, sy: int,
+               overlap: int, bit_depth: int) -> np.ndarray:
+    """The grain of each sample of a pw x ph plane: blocks of 32 (16 where
+    subsampled) from the template at their offsets, the first columns and
+    rows blended with the left and upper blocks' continuations under
+    overlap_flag."""
+    gmin, gmax = _grain_range(bit_depth)
+    bsx, bsy = 32 >> sx, 32 >> sy
+    out = np.zeros((ph, pw), np.int64)
+
+    def part(rv, bxi, byi, h, w):
+        x0 = 3 + (2 >> sx) * (3 + (int(rv) >> 4)) + bsx * bxi
+        y0 = 3 + (2 >> sy) * (3 + (int(rv) & 15)) + bsy * byi
+        return lut[y0:y0 + h, x0:x0 + w].astype(np.int64)
+
+    def blend(old, new, s, axis):
+        w_old = np.array(GRAIN_BLEND_OLD[s][:old.shape[axis]])
+        w_new = np.array(GRAIN_BLEND_NEW[s][:old.shape[axis]])
+        if axis == 0:
+            w_old, w_new = w_old[:, None], w_new[:, None]
+        return np.clip(_grain_round2(old * w_old + new * w_new, 5), gmin, gmax)
+
+    for r in range(-(-ph // bsy)):
+        y0 = r * bsy
+        bh = min(bsy, ph - y0)
+        ys = min(2 >> sy, bh) if overlap and r else 0
+        for c in range(-(-pw // bsx)):
+            x0 = c * bsx
+            bw = min(bsx, pw - x0)
+            xs = min(2 >> sx, bw) if overlap and c else 0
+            cur = part(off[r, c], 0, 0, bh, bw)
+            if xs:
+                cur[:, :xs] = blend(part(off[r, c - 1], 1, 0, bh, xs), cur[:, :xs], sx, 1)
+            if ys:
+                top = part(off[r - 1, c], 0, 1, ys, bw)
+                if xs:
+                    top[:, :xs] = blend(part(off[r - 1, c - 1], 1, 1, ys, xs), top[:, :xs], sx, 1)
+                cur[:ys] = blend(top, cur[:ys], sy, 0)
+            out[y0:y0 + bh, x0:x0 + bw] = cur
+    return out
+
+
+def film_grain_plain(planes, width: int, height: int, g: np.ndarray) -> tuple:
+    """fd_av1_film_grain's twin: the planes with film grain over the
+    width x height samples (a plane without grain returned as it is)."""
+    bd = int(g[G_BITDEPTH])
+    bmax, bdm8 = (1 << bd) - 1, bd - 8
+    lut = grain_templates_plain(g)
+    csfl, shift = int(g[G_CSFL]), int(g[G_SCALING_SHIFT])
+    off = grain_offsets_plain(int(g[G_SEED]), (height + 31) >> 5, ((width + 31) >> 5) + 1)
+    out = list(planes)
+    luma = planes[0].astype(np.int64)
+    for p in range(1 if g[G_MONO] else 3):
+        n = int(g[G_NUM_Y] if p == 0 else g[G_NUM_UV + p - 1])
+        if not n and not (p and csfl):
+            continue
+        sx, sy = (int(g[G_SSX]), int(g[G_SSY])) if p else (0, 0)
+        pw, ph = (width + sx) >> sx, (height + sy) >> sy
+        if p and csfl:
+            scaling = grain_scaling_plain(g[G_Y_POINTS:], int(g[G_NUM_Y]), bd)
+        else:
+            at = G_Y_POINTS if p == 0 else G_UV_POINTS + 20 * (p - 1)
+            scaling = grain_scaling_plain(g[at:], n, bd)
+        grain = _grain_map(lut[p], off, pw, ph, sx, sy, int(g[G_OVERLAP]), bd)
+        src = planes[p][:ph, :pw].astype(np.int64)
+        val = src
+        if p:
+            ly, lx = np.arange(ph) << sy, np.arange(pw) << sx
+            avg = luma[ly][:, lx]
+            if sx:  # the last column repeated past an odd width
+                avg = (avg + luma[ly][:, np.minimum(lx + 1, width - 1)] + 1) >> 1
+            val = avg
+            if not csfl:
+                mult, lmult = int(g[G_UV_MULT + p - 1]), int(g[G_UV_LUMA_MULT + p - 1])
+                offset = int(g[G_UV_OFFSET + p - 1]) << bdm8
+                val = np.clip(((avg * lmult + src * mult) >> 6) + offset, 0, bmax)
+        lo, hi = 0, bmax
+        if g[G_CLIP]:
+            lo, hi = 16 << bdm8, (235 if p == 0 or g[G_IS_ID] else 240) << bdm8
+        noise = _grain_round2(scaling[val].astype(np.int64) * grain, shift)
+        plane = planes[p].copy()
+        plane[:ph, :pw] = np.clip(src + noise, lo, hi)
+        out[p] = plane
+    return tuple(out)
 
 
 def check_trace(buf: np.ndarray, limit: int = 0) -> dict:

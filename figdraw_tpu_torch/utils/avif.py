@@ -48,9 +48,12 @@ primary item), `clap` cropping, `a1op` / `lsel` layer selection, a
 premultiplied alpha (`prem`), a limited-range alpha item, alpha items on
 a grid's tiles (libavif builds an alpha grid of them), a scale to ispe by
 libyuv's 3/4 or 3/8 filters, and the AV1 features utils/av1.py refuses
-(superres, film grain). An alpha item of another bit depth than the
-colour item fails, as in libavif ("Decoding of alpha plane failed" in
-PIL). A truncated or malformed file raises ValueError.
+(superres). Film grain is synthesised in each AV1 frame before its scale
+to ispe and a grid's assembly, as dav1d hands libavif the grained
+picture: every tile by its own parameters, the alpha item too. An alpha
+item of another bit depth than the colour item fails, as in libavif
+("Decoding of alpha plane failed" in PIL). A truncated or malformed file
+raises ValueError.
 """
 
 from __future__ import annotations
@@ -204,14 +207,18 @@ class _Items(dict):
         return self[item_id]
 
 
+def _item_size(item: Item) -> int:
+    """The item's bytes as libavif counts them: its extents' lengths (an
+    extent of length 0 holds nothing; libavif reads no "to the end")."""
+    return sum(length for _off, length in item.extents)
+
+
 def _item_bytes(data: bytes, item: Item, idat: bytes) -> bytes:
     src = data if item.method == 0 else idat
     if item.method not in (0, 1):
         raise ValueError(f"AVIF: iloc construction method {item.method}")
     out = bytearray()
     for off, length in item.extents:
-        if length == 0:
-            length = len(src) - off
         if off < 0 or length < 0 or off + length > len(src):
             raise ValueError("AVIF: an item extent runs past the file")
         out += src[off:off + length]
@@ -303,6 +310,8 @@ def parse(data: bytes) -> Still:
     if item.type not in (b"av01", b"grid"):  # iovl among them: libavif 1.3.0 reads no overlay
         raise ValueError(f"AVIF: a primary item of type {item.type!r} (libavif: Missing or "
                          "empty image item)")
+    if not _item_size(item):  # libavif skips an item without data
+        raise ValueError("AVIF: an empty primary item (libavif: Missing or empty image item)")
     # libavif's dimg model: each tile names its grid and its place in the
     # grid's reference (a later reference overwrites an earlier one)
     dimg_of = {}
@@ -376,7 +385,7 @@ def parse(data: bytes) -> Still:
         if any(index > len(props) for index, _essential in it.props):
             raise ValueError(f"AVIF: Box[ipma] for item ID [{it.id}] contains an illegal "
                              "property index")
-        if (it.type in (b"av01", b"grid") and it.extents and it.id not in thumbnails
+        if (it.type in (b"av01", b"grid") and _item_size(it) and it.id not in thumbnails
                 and not unsupported(it)):
             ispe(next((props[i - 1][1:] for i, _e in it.props
                        if i and props[i - 1][0] == b"ispe"), None), LIBAVIF_SIZE_LIMIT)
@@ -458,9 +467,10 @@ def parse(data: bytes) -> Still:
             if rk != b"auxl" or owner not in to or frm not in items:
                 continue
             alpha = items[frm]
-            # libavif skips an item with an unknown essential property or of
-            # a type it does not decode (avifDecoderItemShouldBeSkipped)
-            if unsupported(alpha) or alpha.type not in (b"av01", b"grid"):
+            # libavif skips an item with an unknown essential property, of
+            # a type it does not decode or without data
+            # (avifDecoderItemShouldBeSkipped)
+            if unsupported(alpha) or alpha.type not in (b"av01", b"grid") or not _item_size(alpha):
                 continue
             ap = item_props(alpha)
             aux = ap.get(b"auxC")
@@ -505,6 +515,7 @@ def to_ispe(frame: av1.Frame, width: int, height: int, plain: bool = False) -> a
     out = av1.Frame(tuple(planes), width, height, frame.full_range, frame.matrix, frame.mono,
                     frame.ssx, frame.ssy, frame.primaries, frame.bit_depth)
     out.mi, out.cdef, out.lr, out.ms = frame.mi, frame.cdef, frame.lr, frame.ms
+    out.grain = frame.grain
     return out
 
 

@@ -7,12 +7,14 @@ at 1x1 to 257x129, a gradient alpha, a flat UI picture at speeds 0 and 6,
 copy; with aom's CDEF on: the crop at speeds 0-8 and qualities 30-95,
 64x64 and 128x128 superblocks, 2x2 tiles, noisy gradients of 1x1 to
 257x129 whose restoration units and 8x8s meet the frame's edges, the
-alpha item, 4:0:0; loop restoration at speeds 0-4) equal byte for byte
-or refused with the feature named (film grain); the headers of those
+alpha item, 4:0:0; loop restoration at speeds 0-4; film grain, since it
+was ported: tests/test_torch_av1_film_grain.py) equal byte for byte or
+refused with the feature named (image sequences); the headers of those
 files (4:4:4, 4:2:2 and limited range since they were ported:
 tests/test_torch_av1_chroma.py); the constant tables
 (tools/make_av1_tables.py) pinned by sha256
-and found whole in libaom's binary; each C++ stage (the inverse
+and found whole in libaom's binary (the Gaussian sequence in dav1d's in
+PIL's libavif too); each C++ stage (the inverse
 transforms, the intra predictors with the edge filter and upsampling,
 CfL, filter intra, one loop-filter position at each length, YUV -> RGB)
 equal to its numpy twin on seeded inputs and, through the stage trace,
@@ -22,6 +24,7 @@ tools/avif_fuzz_agreement.py; and no fallback when the C++ does not
 build."""
 
 import ctypes
+import glob
 import hashlib
 import io
 import os
@@ -157,6 +160,13 @@ def _corpus(name: str) -> bytes:
         quality = int(options.pop("quality", 60))
         return _pil_avif(np.ascontiguousarray(fix[100:356, 150:470]), quality=quality,
                          advanced=options)
+    if kind == "avis":  # PIL's save_all: that many frames of the crop, each moved a pixel
+        crop = fix[100:196, 200:330]
+        frames = [Image.fromarray(np.ascontiguousarray(np.roll(crop, k, 1)))
+                  for k in range(int(arg))]
+        out = io.BytesIO()
+        frames[0].save(out, "AVIF", save_all=True, append_images=frames[1:])
+        return out.getvalue()
     if kind == "icons":
         speed, _, rest = arg.partition(",")
         kw = {"quality": 100} if rest == "lossless" else ({"subsampling": "4:0:0"} if rest else {})
@@ -177,9 +187,12 @@ DECODED = (["fixture:%d" % q for q in (0, 10, 25, 50, 75, 90, 100)] + ["crop:10"
            + ["cdef:%d" % s for s in (0, 2, 4, 6, 8)] + ["cdefq:%d" % q for q in (30, 75, 95)]
            + ["sb:64", "sb:128", "lr:2,40", "lr:0,20", "lrtiles:"]
            + ["grain:%s" % s for s in ("1x1", "17x3", "65x65", "130x96", "201x77", "257x129")]
-           + ["cdefalpha:", "cdefmono:", "cdeflossless:", "cdeficons:"])
-# film grain (ROADMAP item 1.3, a later AVIF slice)
-REFUSED = {"aom:film-grain-test=1": "film grain", "aom:film-grain-test=1,quality=30": "film grain"}
+           + ["cdefalpha:", "cdefmono:", "cdeflossless:", "cdeficons:"]
+           # film grain (tests/test_torch_av1_film_grain.py holds the rest)
+           + ["aom:film-grain-test=1", "aom:film-grain-test=1,quality=30"])
+# PIL's save_all writes an image sequence (avis; ROADMAP item 1.3, a later
+# AVIF slice)
+REFUSED = {"avis:2": "image sequences", "avis:3": "image sequences"}
 
 
 @pytest.mark.parametrize("name", DECODED)
@@ -385,6 +398,14 @@ def test_stored_tables_occur_whole_in_libaom(name):
     fmt = STORED[name][0] if name in STORED else "<i2"
     values = _header_tables()[name].astype(fmt)
     assert values.tobytes() in binary
+
+
+def test_gaussian_sequence_is_dav1ds():
+    """dav1d's int16 copy of film grain's Gaussian sequence, in PIL's libavif."""
+    path = glob.glob(os.path.join(os.path.dirname(os.path.dirname(Image.__file__)),
+                                  "pillow.libs", "libavif-*.so*"))[0]
+    with open(path, "rb") as fh:
+        assert av1_tables.GAUSSIAN_SEQUENCE.astype("<i2").tobytes() in fh.read()
 
 
 @pytest.mark.parametrize("name", list(CDFS))

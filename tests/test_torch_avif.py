@@ -44,7 +44,9 @@ from figdraw_tpu_torch.scenes import (
     AVIF_444_FILE_REFERENCE, AVIF_444_FIXTURE, AVIF_444_WALL_REFERENCE,
     AVIF_CDEF10_FILE_REFERENCE, AVIF_CDEF10_FIXTURE, AVIF_CDEF10_WALL_REFERENCE,
     AVIF_CDEF_FILE_REFERENCE, AVIF_CDEF_FIXTURE, AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE,
-    AVIF_FIXTURE, AVIF_WALL_REFERENCE, IMAGE_FIXTURE, IMAGE_FORMATS_REFERENCE,
+    AVIF_FIXTURE, AVIF_GRAIN_422_10_FILE_REFERENCE, AVIF_GRAIN_422_10_FIXTURE,
+    AVIF_GRAIN_422_10_WALL_REFERENCE, AVIF_GRAIN_FILE_REFERENCE, AVIF_GRAIN_FIXTURE,
+    AVIF_GRAIN_WALL_REFERENCE, AVIF_WALL_REFERENCE, IMAGE_FIXTURE, IMAGE_FORMATS_REFERENCE,
 )
 from figdraw_tpu_torch.utils import av1, avif, imagefile
 from torch_reference import REPO
@@ -211,7 +213,11 @@ FIXTURES = {"q75": (AVIF_FIXTURE, AVIF_FILE_REFERENCE, AVIF_WALL_REFERENCE),
             "444_10bit": (AVIF_444_10_FIXTURE, AVIF_444_10_FILE_REFERENCE,
                           AVIF_444_10_WALL_REFERENCE),
             "422_12bit": (AVIF_422_12_FIXTURE, AVIF_422_12_FILE_REFERENCE,
-                          AVIF_422_12_WALL_REFERENCE)}
+                          AVIF_422_12_WALL_REFERENCE),
+            # film grain (tests/test_torch_av1_film_grain.py)
+            "grain": (AVIF_GRAIN_FIXTURE, AVIF_GRAIN_FILE_REFERENCE, AVIF_GRAIN_WALL_REFERENCE),
+            "grain_422_10bit": (AVIF_GRAIN_422_10_FIXTURE, AVIF_GRAIN_422_10_FILE_REFERENCE,
+                                AVIF_GRAIN_422_10_WALL_REFERENCE)}
 
 
 @pytest.mark.parametrize("fixture", sorted(FIXTURES))
@@ -541,6 +547,29 @@ def test_container_rules_found_by_the_corrupt_cases(case):
     got = _same(data)
     if case == "alpha av1C type":
         assert (got[..., 3] == 255).all()
+
+
+@pytest.mark.parametrize("case", ["colour", "colour with alpha", "alpha", "iloc length size"])
+def test_an_extent_of_length_zero_holds_nothing(case):
+    """libavif 1.3.0 reads an iloc extent length of 0 as no bytes (not as
+    "to the end of the file") and skips an item without data: an empty
+    colour item is "Missing or empty image item", an empty alpha item
+    leaves the image opaque. Found by `--grain --corrupt` (seed 2 index
+    73: a bit flip set the iloc's length_size to 0)."""
+    src = _pil_avif(_crop(64, 48, alpha=case in ("colour with alpha", "alpha")))
+    at = src.find(b"iloc")
+    if case == "iloc length size":  # v0, offset and length sizes 4: length_size 0
+        data = src[:at + 8] + bytes([0x40]) + src[at + 9:]
+    else:
+        entry = at + 12 + 14 * (case == "alpha")  # v0: id, ref index, count, offset, length
+        data = src[:entry + 10] + bytes(4) + src[entry + 14:]
+    if case == "alpha":
+        assert (_same(data)[..., 3] == 255).all()
+        return
+    with pytest.raises(Exception, match="Missing or empty image item"):
+        _pil(data)
+    with pytest.raises(ValueError, match="Missing or empty image item"):
+        imagefile.decode_image(data)
 
 
 @pytest.mark.parametrize("seed", range(2))

@@ -695,6 +695,53 @@ def test_grid_avif_photo_wall_on_k4_atlas(dev, tmp_path):
     _avif_photo_wall(dev, tmp_path, AVIF_GRID_FIXTURE, AVIF_GRID_WALL_REFERENCE)
 
 
+def _grain_avif(kind: str) -> tuple:
+    """(file, scene reference, wall reference) of a stored AVIF with film
+    grain: aom's test vector 2 with a vignette alpha, and vector 4 at 4:2:2
+    made 10-bit."""
+    from figdraw_tpu_torch import scenes
+
+    return {"grain": (scenes.AVIF_GRAIN_FIXTURE, scenes.AVIF_GRAIN_FILE_REFERENCE,
+                      scenes.AVIF_GRAIN_WALL_REFERENCE),
+            "grain_422_10": (scenes.AVIF_GRAIN_422_10_FIXTURE,
+                             scenes.AVIF_GRAIN_422_10_FILE_REFERENCE,
+                             scenes.AVIF_GRAIN_422_10_WALL_REFERENCE)}[kind]
+
+
+@pytest.mark.parametrize("kind", ["grain", "grain_422_10"])
+def test_grain_avif_decodes_to_its_digest(kind):
+    """The stored film grain AVIFs on the card's host: the C++ decode (its
+    film grain and every traced stage held to their twins) and the
+    conversion to PIL's stored digest."""
+    import hashlib
+    import json
+
+    from figdraw_tpu_torch.scenes import IMAGE_FORMATS_REFERENCE
+    from figdraw_tpu_torch.utils import av1, avif, imagefile
+
+    path = _grain_avif(kind)[0]
+    with open(path, "rb") as fh:
+        data = fh.read()
+    with open(IMAGE_FORMATS_REFERENCE) as fh:
+        want = json.load(fh)["files"][os.path.basename(path)]["decoded_sha256"]
+    assert hashlib.sha256(imagefile.decode_image(data).tobytes()).hexdigest() == want
+    frame = av1.decode(avif.parse(data).color)
+    assert av1.grain_applies(frame.grain)
+    assert hashlib.sha256(avif.decode_avif(data, plain=True).tobytes()).hexdigest() == want
+
+
+@pytest.mark.parametrize("kind", ["grain", "grain_422_10"])
+def test_grain_avif_image_file_frame_on_k1_atlas(dev, tmp_path, kind):
+    fixture, scene_ref, _wall_ref = _grain_avif(kind)
+    _avif_image_file_frame(dev, tmp_path, fixture, scene_ref)
+
+
+@pytest.mark.parametrize("kind", ["grain", "grain_422_10"])
+def test_grain_avif_photo_wall_on_k4_atlas(dev, tmp_path, kind):
+    fixture, _scene_ref, wall_ref = _grain_avif(kind)
+    _avif_photo_wall(dev, tmp_path, fixture, wall_ref)
+
+
 def test_text_table_matches_plain_executor(dev):
     """The stored table of text in clipped cells (1200x800) on the
     megakernel with the atlas: one K4-atlas launch, the frame the plain

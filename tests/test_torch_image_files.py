@@ -148,12 +148,13 @@ def test_load_image_without_the_flippy_cache(fixture_png):
 def test_load_image_of_another_format_raises(ext, tmp_path):
     """A format the port does not decode yet (JPEG decodes since
     utils/imagefile.py, WebP since utils/webp.py), or an AVIF outside the
-    port's slice (film grain): NotImplementedError naming the format, the
-    path and the ROADMAP item, and no sidecar."""
+    port's slice (an image sequence, PIL's save_all): NotImplementedError
+    naming the format, the path and the ROADMAP item, and no sidecar."""
     from PIL import Image
 
     path = str(tmp_path / f"photo.{ext}")
-    extra = {"advanced": {"film-grain-test": "1"}} if ext == "avif" else {}
+    extra = ({"save_all": True, "append_images": [Image.fromarray(np.full((8, 8, 3), 9, np.uint8))]}
+             if ext == "avif" else {})
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path, **extra)
     for cache in (True, False):
         with pytest.raises(NotImplementedError,

@@ -295,9 +295,11 @@ def test_other_formats_raise_not_implemented(fmt, tmp_path):
     """Formats PIL reads that the port does not decode (JPEG, GIF, BMP,
     TIFF, WebP and AVIF decode since utils/imagefile.py: tests/test_torch_jpeg.py,
     test_torch_tiff.py, test_torch_webp.py, test_torch_avif.py and the others
-    hold them to PIL), and an AVIF outside the port's slice (film grain)."""
+    hold them to PIL), and an AVIF outside the port's slice (an image
+    sequence, PIL's save_all)."""
     path = str(tmp_path / f"x.{fmt.lower()}")
-    extra = {"advanced": {"film-grain-test": "1"}} if fmt == "AVIF" else {}
+    extra = ({"save_all": True, "append_images": [Image.fromarray(np.full((8, 8, 3), 9, np.uint8))]}
+             if fmt == "AVIF" else {})
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path, format=fmt, **extra)
     with pytest.raises(NotImplementedError, match="Image formats other than PNG"):
         png.read_image(path)

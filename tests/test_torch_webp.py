@@ -466,15 +466,17 @@ def test_unknown_alph_compression_raises_not_implemented(method, tmp_path):
 
 
 def test_avif_raises_not_implemented_naming_it(tmp_path):
-    """An AVIF outside the port's slice (film grain; the slice is
-    tests/test_torch_avif.py's): NotImplementedError naming AVIF, the
-    feature, the path and the ROADMAP item, never ValueError."""
+    """An AVIF outside the port's slice (an image sequence, which PIL's
+    save_all writes; the slice is tests/test_torch_avif.py's):
+    NotImplementedError naming AVIF, the feature, the path and the ROADMAP
+    item, never ValueError."""
     path = str(tmp_path / "photo.avif")
-    Image.fromarray(_crop(16, 16)).save(path, "AVIF", advanced={"film-grain-test": "1"})
+    Image.fromarray(_crop(16, 16)).save(path, "AVIF", save_all=True,
+                                        append_images=[Image.fromarray(_crop(16, 16)[::-1].copy())])
     with open(path, "rb") as fh:
         assert imagefile.format_of(fh.read()) == "AVIF"
     with pytest.raises(NotImplementedError,
-                       match=rf"AVIF images with film grain .*photo\.avif.*{ROADMAP_ITEM}"):
+                       match=rf"AVIF images with image sequences .*photo\.avif.*{ROADMAP_ITEM}"):
         imagefile.read_image(path)
     # an avif brand among the compatible ones only
     head = struct.pack(">I", 24) + b"ftypmif1" + b"\0\0\0\0" + b"mif1avif"

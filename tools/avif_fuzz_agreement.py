@@ -24,7 +24,12 @@ high, the last column and row (of two or more) cropped to a drawn width and
 height (even where chroma is subsampled, as MIAF asks), a picture of the output's size
 (a quarter with an alpha channel, which becomes an alpha grid), its
 subsampling, range, quality, speed and aom's CDEF; with --depths too,
-every tile made 10- or 12-bit.
+every tile made 10- or 12-bit. With --grain each written case or grid also draws,
+from a seeded stream of its own, one of aom's film grain options: a
+`film-grain-test` vector (1-16, aom's test parameter sets) or a
+`denoise-noise-level` (5-50: aom denoises the picture and sends the grain
+it took out as parameters); the port synthesises the grain as PIL's dav1d
+does.
 
 A picture is one of: seeded noise, a crop of the PNG fixture
 (tests/goldens/render_3d_overlay_gaussian.png), a flat UI-like picture of
@@ -38,7 +43,7 @@ printed by speed, and each disagreement by its seed and index
 (`case(seed, index)` rebuilds it). Needs PIL (the CPU host's).
 
     python tools/avif_fuzz_agreement.py [--corrupt] [--formats] [--depths] [--grids]
-        [--dav1d-c] [cases per seed, default 200] [seeds, default 1]
+        [--grain] [--dav1d-c] [cases per seed, default 200] [seeds, default 1]
 """
 
 from __future__ import annotations
@@ -103,6 +108,11 @@ SUBSAMPLINGS = ("4:2:0", "4:2:2", "4:4:4", "4:0:0")
 MATRICES = (None, None, None, None, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
 
 
+# --grain: aom's film grain options, one drawn per case
+GRAIN_OPTIONS = ([("film-grain-test", str(v)) for v in range(1, 17)]
+                 + [("denoise-noise-level", str(v)) for v in (5, 10, 20, 35, 50)])
+
+
 def with_matrix(data: bytes, matrix: int) -> bytes:
     """The file with its colr box's nclx matrix coefficients set."""
     at = data.find(b"nclx")
@@ -123,11 +133,13 @@ def at_depth(data: bytes, depth: int) -> bytes:
     return _tool().avif_at_depth(data, depth)
 
 
-def grid_cases(seed: int, cases: int, start: int = 0, depths: bool = False):
+def grid_cases(seed: int, cases: int, start: int = 0, depths: bool = False,
+               grain: bool = False):
     """Yields (index, options, bytes) of one seed's grid images (avif_grid)
     from index `start`."""
     rng = np.random.default_rng([seed, 20])
     depth_rng = np.random.default_rng([seed, 11])
+    grain_rng = np.random.default_rng([seed, 12])
     fixture = _fixture()
     for i in range(cases):
         sub = SUBSAMPLINGS[int(rng.integers(4))]
@@ -148,24 +160,29 @@ def grid_cases(seed: int, cases: int, start: int = 0, depths: bool = False):
                    "cdef": int(rng.integers(2)), "alpha": px.shape[2] == 4}
         if depths:
             options["depth"] = (10, 12)[int(depth_rng.integers(2))]
+        aom = {"enable_cdef": options["cdef"]}
+        if grain:
+            key, value = GRAIN_OPTIONS[int(grain_rng.integers(len(GRAIN_OPTIONS)))]
+            options["grain"] = f"{key}={value}"
+            aom[key.replace("-", "_")] = value
         if i >= start:
             data = _tool().avif_grid(px, columns, rows, (tw, th), quality=options["quality"],
                                      speed=options["speed"], subsampling=sub,
-                                     full_range=options["range"] == "full",
-                                     enable_cdef=options["cdef"])
+                                     full_range=options["range"] == "full", **aom)
             if depths:
                 data = at_depth(data, options["depth"])
             yield i, options, data
 
 
 def written_cases(seed: int, cases: int, start: int = 0, formats: bool = False,
-                  depths: bool = False):
+                  depths: bool = False, grain: bool = False):
     """Yields (index, options, bytes) of one seed's PIL-written AVIFs from
     index `start` (the pictures before it are drawn, not written)."""
     rng = np.random.default_rng(seed)
     cdef_rng = np.random.default_rng([seed, 7])
     sub_rng, range_rng, matrix_rng = (np.random.default_rng([seed, k]) for k in (8, 9, 10))
     depth_rng = np.random.default_rng([seed, 11])
+    grain_rng = np.random.default_rng([seed, 12])
     fixture = _fixture()
     for i in range(cases):
         w, h = int(rng.integers(1, 300)), int(rng.integers(1, 300))
@@ -184,9 +201,14 @@ def written_cases(seed: int, cases: int, start: int = 0, formats: bool = False,
             extra = {"subsampling": options["subsampling"], "range": options["range"]}
         if depths:
             options["depth"] = (10, 12)[int(depth_rng.integers(2))]
+        advanced = {"enable-cdef": str(options["cdef"])}
+        if grain:
+            key, value = GRAIN_OPTIONS[int(grain_rng.integers(len(GRAIN_OPTIONS)))]
+            options["grain"] = f"{key}={value}"
+            advanced[key] = value
         if i >= start:
             data = pil_avif(px, quality=options["quality"], speed=options["speed"],
-                            advanced={"enable-cdef": str(options["cdef"])}, **extra)
+                            advanced=advanced, **extra)
             if formats and options["matrix"] is not None:
                 data = with_matrix(data, options["matrix"])
             if depths:
@@ -195,14 +217,15 @@ def written_cases(seed: int, cases: int, start: int = 0, formats: bool = False,
 
 
 def corrupt_cases(seed: int, cases: int, formats: bool = False, depths: bool = False,
-                  grids: bool = False):
+                  grids: bool = False, grain: bool = False):
     """Yields (index, options, bytes): a third of PIL-written files (or
     grids) cut at a random length, the others with one to three bits
     flipped (a third of those in the first 400 bytes, the container and
     headers; with grids, in the meta box)."""
     rng = np.random.default_rng(seed + 1000)
-    sources = [(o, d) for _i, o, d in (grid_cases(seed, 12, depths=depths) if grids else
-                                       written_cases(seed, 12, formats=formats, depths=depths))]
+    sources = [(o, d) for _i, o, d in (grid_cases(seed, 12, depths=depths, grain=grain) if grids else
+                                       written_cases(seed, 12, formats=formats, depths=depths,
+                                                     grain=grain))]
     for i in range(cases):
         options, src = sources[i % len(sources)]
         data = bytearray(src)
@@ -219,11 +242,11 @@ def corrupt_cases(seed: int, cases: int, formats: bool = False, depths: bool = F
 
 
 def case(seed: int, index: int, corrupt: bool = False, formats: bool = False,
-         depths: bool = False, grids: bool = False) -> tuple:
+         depths: bool = False, grids: bool = False, grain: bool = False) -> tuple:
     """(options, bytes) of case `index` of `seed`."""
-    gen = (corrupt_cases(seed, index + 1, formats, depths, grids) if corrupt
-           else grid_cases(seed, index + 1, index, depths) if grids
-           else written_cases(seed, index + 1, index, formats, depths))
+    gen = (corrupt_cases(seed, index + 1, formats, depths, grids, grain) if corrupt
+           else grid_cases(seed, index + 1, index, depths, grain) if grids
+           else written_cases(seed, index + 1, index, formats, depths, grain))
     for i, options, data in gen:
         if i == index:
             return options, data
@@ -289,15 +312,16 @@ def outcome(data: bytes, corrupt: bool = False) -> tuple:
 
 
 def run(cases: int, seeds: int, corrupt: bool, formats: bool = False, depths: bool = False,
-        grids: bool = False) -> dict:
+        grids: bool = False, grain: bool = False) -> dict:
     counts = Counter()
     by_speed, by_format, by_depth = defaultdict(Counter), defaultdict(Counter), defaultdict(Counter)
+    by_grain = defaultdict(Counter)
     features = Counter()
     bad = []
     for seed in range(seeds):
-        gen = (corrupt_cases(seed, cases, formats, depths, grids) if corrupt
-               else grid_cases(seed, cases, depths=depths) if grids
-               else written_cases(seed, cases, formats=formats, depths=depths))
+        gen = (corrupt_cases(seed, cases, formats, depths, grids, grain) if corrupt
+               else grid_cases(seed, cases, depths=depths, grain=grain) if grids
+               else written_cases(seed, cases, formats=formats, depths=depths, grain=grain))
         for i, options, data in gen:
             kind, detail = outcome(data, corrupt)
             counts[kind] += 1
@@ -308,22 +332,24 @@ def run(cases: int, seeds: int, corrupt: bool, formats: bool = False, depths: bo
                 by_format[(options["subsampling"], options["range"])][kind] += 1
             if depths:
                 by_depth[options["depth"]][kind] += 1
+            if grain:
+                by_grain[options["grain"].split("=")[0]][kind] += 1
             if kind == "refused":
                 features[detail] += 1
             if kind in ("differ", "error"):
                 bad.append((seed, i, options, detail))
     return {"counts": counts, "by_speed": by_speed, "by_format": by_format, "by_depth": by_depth,
-            "features": features, "bad": bad}
+            "by_grain": by_grain, "features": features, "bad": bad}
 
 
 def main(argv) -> int:
     corrupt, formats, depths = "--corrupt" in argv, "--formats" in argv, "--depths" in argv
-    grids = "--grids" in argv
+    grids, grain = "--grids" in argv, "--grain" in argv
     nums = [int(a) for a in argv if not a.startswith("--")]
     cases = nums[0] if nums else 200
     seeds = nums[1] if len(nums) > 1 else 1
     with dav1d_c_path() if "--dav1d-c" in argv else contextlib.nullcontext():
-        res = run(cases, seeds, corrupt, formats, depths, grids)
+        res = run(cases, seeds, corrupt, formats, depths, grids, grain)
     flags = " ".join(a for a in argv if a.startswith("--"))
     print(f"{'corrupt' if corrupt else 'written'} {flags}: {cases} cases x {seeds} seeds:",
           dict(res["counts"]))
@@ -333,6 +359,8 @@ def main(argv) -> int:
         print(f"  {sub} {rng} range: {dict(n)}")
     for depth, n in sorted(res["by_depth"].items()):
         print(f"  {depth} bits: {dict(n)}")
+    for option, n in sorted(res["by_grain"].items()):
+        print(f"  {option}: {dict(n)}")
     for feature, n in res["features"].most_common():
         print(f"  refused, {feature}: {n}")
     for seed, i, options, detail in res["bad"]:

@@ -273,6 +273,8 @@ STORED = {
                     "self-guided a by z: 256 z / (z + 1) rounded, 1 at 0, 256 at 255"),
     "ONE_BY_X": ("<i4", 25, (4096, 2048, 1365, 1024, 819, 683),
                  "self-guided 1 / n at 12 bits, n = 1 .. 25"),
+    "GAUSSIAN_SEQUENCE": ("<i4", 2048, (56, 568, -180, 172, 124, -84, 172, -64, -900, 24, 820, 224),
+                          "film grain's Gaussian sequence (12-bit values)"),
 }
 
 

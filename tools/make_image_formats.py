@@ -53,23 +53,29 @@ render_3d_overlay_gaussian.png, 800x600 RGBA), with PIL on the CPU host:
   vignette alpha (`vignetted`) as 4x3 tiles of 200x200 with an alpha grid
   (`fixture_grid.avif`) and the fixture scaled to a 4032x3024 phone photo
   as 8x6 tiles of 512x512, the last column and row cropped by the grid
-  (`photo_grid_4032x3024.avif`, quality 50, speed 10). The card's machine
-  has no PIL: chip_smoke.py decodes these.
+  (`photo_grid_4032x3024.avif`, quality 50, speed 10), and two files with
+  film grain, written with aom's `film-grain-test` vectors
+  (`AVIF_GRAIN_VECTORS`): the fixture with the grid's vignette alpha at
+  quality 75 with vector 2 (`fixture_grain.avif`: luma and chroma points,
+  AR lag 3, overlap; the alpha item takes grain too) and at 4:2:2 with
+  vector 4 made 10-bit (`fixture_grain_422_10bit.avif`). The card's
+  machine has no PIL: chip_smoke.py decodes these.
 - `figdraw_tpu_torch/reference/image_formats.json`: under "files", each
   file's sha256 and the sha256 and shape of PIL's decode,
   `Image.open(p).convert("RGBA")`; under "sidecar", the sha256 of the
   .flippy sidecar figdraw_tpu's read_image_cached writes for the baseline
   JPEG, the TIFF fixture, the lossy WebP fixture, the ZSTD fixture, the
   Group 4 fax page, the SOF10 fixture, the SOF3 crop, the incomplete
-  progressive JPEG, the RLE-W fixture, the seven AVIF fixtures and the
-  two grids.
-- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3,arith,incomplete,rlew,avif,avif_cdef,avif_444,avif_422,avif_cdef10,avif_444_10,avif_422_12,avif_grid}_1x_blocks8.npy`
-  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4,lossless,incomplete,rlew,avif,avif_cdef,avif_444,avif_422,avif_cdef10,avif_444_10,avif_422_12,avif_grid}_480x270_blocks8.npy`:
+  progressive JPEG, the RLE-W fixture, the seven AVIF fixtures, the
+  two grids and the two film grain files.
+- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3,arith,incomplete,rlew,avif,avif_cdef,avif_444,avif_422,avif_cdef10,avif_444_10,avif_422_12,avif_grid,avif_grain,avif_grain_422_10}_1x_blocks8.npy`
+  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4,lossless,incomplete,rlew,avif,avif_cdef,avif_444,avif_422,avif_cdef10,avif_444_10,avif_422_12,avif_grid,avif_grain,avif_grain_422_10}_480x270_blocks8.npy`:
   8x8 block means of figdraw_tpu's frames of the image-file scene and of
   the photo wall at 480x270 (12 panels) with the baseline JPEG, the TIFF,
   WebP or ZSTD fixture, the dithered Group 3 fixture, the Group 4 page,
   the SOF10 fixture, the SOF3 crop, the incomplete progressive JPEG, the
-  RLE-W fixture or an AVIF fixture (the grid fixture among them) loaded
+  RLE-W fixture or an AVIF fixture (the grid and film grain files among
+  them) loaded
   by its load_image
   (FigRenderer(atlas_size=512, use_pallas=False), the page's from
   scenes.FAX_ATLAS; tests/torch_reference.py).
@@ -78,12 +84,14 @@ The BMP builders (`bmp_bytes`, `rle8`, `rle4`), the TIFF writer
 (`tiff_bytes`, with `packbits`, `lzw`, `jpeg_parts` and the CCITT encoder
 `fax_encode` with its bit writer `FaxBits`), the WebP writers
 (`libwebp_encode`, `riff`, `anim_bytes`) and the AVIF ones (`avif_grid`,
-`avif_at_depth`, and `Heif`, which edits a file's items and writes it
-again) also serve the tests: PIL
+`avif_at_depth`, `avif_with_grain`, which rewrites the film grain
+parameters of every item, and `Heif`, which edits a file's items and
+writes it again) also serve the tests: PIL
 writes only one BMP header kind, no TIFF tiles, planar or big-endian
 files, FillOrder 2 or subsampled JPEG-in-TIFF, no hand-made fax strip,
 sets none of libwebp's filter, segment, partition or alpha options, and
-writes no AVIF grid and nothing past 8 bits.
+writes no AVIF grid, nothing past 8 bits and no film grain parameters
+but aom's 16 test vectors.
 The tests rerun `image_files` but never `libzstd_files`: they load no
 libzstd.
 
@@ -124,6 +132,13 @@ AVIF_PHOTO = "photo_grid_4032x3024.avif"
 AVIF_DEPTHS = {"fixture_s2_cdef_10bit.avif": (AVIF_CDEF_FIXTURE, 10),
                "fixture_444_10bit.avif": (AVIF_444_FIXTURE, 10),
                "fixture_422_12bit.avif": (AVIF_422_FIXTURE, 12)}
+# film grain: aom's film-grain-test vectors (its grain_synthesis.c test
+# vectors 1-16) of the two stored grain files. Vector 2: two luma points,
+# two a chroma plane, AR lag 3, overlap_flag; vector 4: nine points a plane,
+# lag 3, overlap_flag.
+AVIF_GRAIN_FIXTURE = "fixture_grain.avif"
+AVIF_GRAIN_422_10 = "fixture_grain_422_10bit.avif"
+AVIF_GRAIN_VECTORS = {AVIF_GRAIN_FIXTURE: 2, AVIF_GRAIN_422_10: 4}
 
 
 def _pack_rows(pixels: np.ndarray, bits: int) -> np.ndarray:
@@ -716,6 +731,11 @@ def image_files() -> dict:
     files[AVIF_GRID_FIXTURE] = avif_grid(vignetted(np.asarray(src)), 4, 3, (200, 200))
     photo = np.asarray(rgb.resize((4032, 3024), Image.BILINEAR))
     files[AVIF_PHOTO] = avif_grid(photo, 8, 6, (512, 512), quality=50, speed=10)
+    save(AVIF_GRAIN_FIXTURE, Image.fromarray(vignetted(np.asarray(src))), "AVIF",
+         advanced={"film-grain-test": str(AVIF_GRAIN_VECTORS[AVIF_GRAIN_FIXTURE])})
+    save(AVIF_GRAIN_422_10, src, "AVIF", subsampling="4:2:2",
+         advanced={"film-grain-test": str(AVIF_GRAIN_VECTORS[AVIF_GRAIN_422_10])})
+    files[AVIF_GRAIN_422_10] = avif_at_depth(files[AVIF_GRAIN_422_10], 10)
     return files
 
 
@@ -912,6 +932,104 @@ def avif_at_depth(data: bytes, depth: int, alpha_depth: int = None) -> bytes:
 
     base = len(ftyp) + len(build(0)) + 8
     return ftyp + build(base) + _box(b"mdat", b"".join(streams[i] for i in ids))
+
+
+def _uint_bits(value: int, n: int) -> list:
+    return [(value >> (n - 1 - k)) & 1 for k in range(n)]
+
+
+def film_grain_bits(params, seq) -> list:
+    """film_grain_params (AV1 specification 5.9.30) of a key frame of the
+    sequence `seq` (av1.Sequence), as bits: apply_grain 0 for None, else
+    every field of `params`, a dict of "seed" (16 bits), "y", "cb", "cr"
+    (lists of (x, scaling) points; "cb" and "cr" written where the syntax
+    reads them), "csfl" (chroma_scaling_from_luma), "scaling_shift" (8-11),
+    "lag" (0-3), "ar_y", "ar_cb", "ar_cr" (the AR coefficients, -128..127,
+    as many as the syntax reads), "ar_shift" (6-9), "grain_scale_shift"
+    (0-3), "cb_mult", "cb_luma_mult" (-128..127), "cb_offset" (-256..255),
+    the same for "cr_", "overlap" and "clip". Nothing is checked: a count
+    past the syntax's limits is written as given (4 bits)."""
+    if params is None:
+        return [0]
+    q = params
+    bits = [1] + _uint_bits(q["seed"], 16)
+
+    def points(pts):
+        out = _uint_bits(len(pts), 4)
+        for x, v in pts:
+            out += _uint_bits(x, 8) + _uint_bits(v, 8)
+        return out
+    bits += points(q["y"])
+    csfl = 0 if seq.mono else q.get("csfl", 0)
+    if not seq.mono:
+        bits.append(csfl)
+    chroma = {"cb": [], "cr": []}
+    if not (seq.mono or csfl or (seq.ssx and seq.ssy and not q["y"])):
+        for name in ("cb", "cr"):
+            chroma[name] = q.get(name, [])
+            bits += points(chroma[name])
+    bits += _uint_bits(q["scaling_shift"] - 8, 2) + _uint_bits(q["lag"], 2)
+    num_pos = 2 * q["lag"] * (q["lag"] + 1)
+    if q["y"]:
+        bits += sum((_uint_bits(c + 128, 8) for c in q["ar_y"][:num_pos]), [])
+    for name in ("cb", "cr"):
+        if chroma[name] or csfl:
+            count = num_pos + int(bool(q["y"]))
+            bits += sum((_uint_bits(c + 128, 8) for c in q["ar_" + name][:count]), [])
+    bits += _uint_bits(q["ar_shift"] - 6, 2) + _uint_bits(q["grain_scale_shift"], 2)
+    for name in ("cb", "cr"):
+        if chroma[name]:
+            bits += (_uint_bits(q[name + "_mult"] + 128, 8) + _uint_bits(q[name + "_luma_mult"] + 128, 8)
+                     + _uint_bits(q[name + "_offset"] + 256, 9))
+    return bits + [q["overlap"], q["clip"]]
+
+
+def stream_with_grain(stream: bytes, params) -> bytes:
+    """An item's AV1 stream (a sequence header with film_grain_params_present
+    and one OBU_FRAME, as aom writes a still) with the frame header's
+    film_grain_params replaced by film_grain_bits(params): the header's
+    bits before them kept, the new ones byte-aligned, the tile group's
+    bytes kept, the OBU re-sized."""
+    from figdraw_tpu_torch.utils import av1
+
+    out, seq = b"", None
+    for kind, payload in av1.obus(stream):
+        if kind == av1.OBU_SEQUENCE_HEADER:
+            seq = av1.parse_sequence(payload)
+            if not seq.film_grain:
+                raise ValueError("AV1: the sequence header has no film_grain_params_present")
+        elif kind == av1.OBU_FRAME:
+            r = av1.BitReader(payload)
+            fh = av1.parse_frame_header(r, seq)
+            grain = film_grain_bits(params, seq)
+            bits = _bits(payload, 0, fh["grain_bit"]) + grain
+            bits += [0] * (-len(bits) % 8)
+            head = bytes(int("".join(map(str, bits[i:i + 8])), 2) for i in range(0, len(bits), 8))
+            payload = head + payload[(r.bit + 7) >> 3:]
+            try:  # read back: the same bits where the parser takes the header
+                r = av1.BitReader(payload)
+                av1.parse_frame_header(r, seq)
+            except ValueError:  # a header dav1d rejects, as asked
+                pass
+            else:
+                if _bits(payload, fh["grain_bit"], r.bit) != grain:
+                    raise ValueError("AV1: the rewritten film grain parameters read back otherwise")
+        elif kind == av1.OBU_FRAME_HEADER:
+            raise ValueError("AV1: a separate frame header OBU (not rewritten)")
+        out += _obu(kind, payload)
+    return out
+
+
+def avif_with_grain(data: bytes, params) -> bytes:
+    """An AVIF file written with film grain (aom's film-grain-test, so that
+    its sequence headers set film_grain_params_present) whose every av01
+    item (colour, alpha and grid tiles) takes the film grain parameters
+    `params` (see film_grain_bits; None: apply_grain 0)."""
+    heif = Heif(data)
+    for item in heif.items.values():
+        if item["type"] == b"av01":
+            item["data"] = stream_with_grain(item["data"], params)
+    return heif.write()
 
 
 _LIBAVIF = []
@@ -1812,8 +1930,8 @@ def write_frames(names=None) -> None:
     fixture and the SOF10 fixture, of the photo wall from the Group 4 fax
     page (its atlas started at scenes.FAX_ATLAS) and the SOF3 crop, and of
     both from the incomplete progressive JPEG, the RLE-W fixture, the
-    seven AVIF fixtures and the grid fixture; `names` limits it to those
-    files."""
+    seven AVIF fixtures, the grid fixture and the two film grain files;
+    `names` limits it to those files."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_reference import block_means, jax_image_file_frame, jax_photo_wall_frame
 
@@ -1822,7 +1940,9 @@ def write_frames(names=None) -> None:
         AVIF_422_12_FILE_REFERENCE, AVIF_422_12_WALL_REFERENCE, AVIF_444_10_FILE_REFERENCE,
         AVIF_444_10_WALL_REFERENCE, AVIF_444_FILE_REFERENCE, AVIF_444_WALL_REFERENCE,
         AVIF_CDEF10_FILE_REFERENCE, AVIF_CDEF10_WALL_REFERENCE, AVIF_CDEF_FILE_REFERENCE,
-        AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE, AVIF_GRID_FILE_REFERENCE,
+        AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE, AVIF_GRAIN_422_10_FILE_REFERENCE,
+        AVIF_GRAIN_422_10_WALL_REFERENCE, AVIF_GRAIN_FILE_REFERENCE, AVIF_GRAIN_WALL_REFERENCE,
+        AVIF_GRID_FILE_REFERENCE,
         AVIF_GRID_WALL_REFERENCE, AVIF_WALL_REFERENCE, FAX_ATLAS, G3_FILE_REFERENCE,
         G4_WALL_REFERENCE,
         INCOMPLETE_FILE_REFERENCE, INCOMPLETE_WALL_REFERENCE, RLEW_FILE_REFERENCE,
@@ -1852,7 +1972,10 @@ def write_frames(names=None) -> None:
             ("fixture_444_10bit.avif", AVIF_444_10_FILE_REFERENCE, AVIF_444_10_WALL_REFERENCE, 512),
             ("fixture_422_12bit.avif", AVIF_422_12_FILE_REFERENCE, AVIF_422_12_WALL_REFERENCE,
              512),
-            (AVIF_GRID_FIXTURE, AVIF_GRID_FILE_REFERENCE, AVIF_GRID_WALL_REFERENCE, 512)):
+            (AVIF_GRID_FIXTURE, AVIF_GRID_FILE_REFERENCE, AVIF_GRID_WALL_REFERENCE, 512),
+            (AVIF_GRAIN_FIXTURE, AVIF_GRAIN_FILE_REFERENCE, AVIF_GRAIN_WALL_REFERENCE, 512),
+            (AVIF_GRAIN_422_10, AVIF_GRAIN_422_10_FILE_REFERENCE,
+             AVIF_GRAIN_422_10_WALL_REFERENCE, 512)):
         if names is not None and name not in names:
             continue
         with tempfile.TemporaryDirectory() as td:
@@ -1886,7 +2009,8 @@ def main() -> None:
                                        FAX_PAGE, ARITH_FIXTURE, LOSSLESS_FIXTURE,
                                        INCOMPLETE_HUFF, RLEW_FIXTURE, AVIF_FIXTURE,
                                        AVIF_CDEF_FIXTURE, AVIF_444_FIXTURE, AVIF_422_FIXTURE,
-                                       *AVIF_DEPTHS, AVIF_GRID_FIXTURE, AVIF_PHOTO)}}
+                                       *AVIF_DEPTHS, AVIF_GRID_FIXTURE, AVIF_PHOTO,
+                                       AVIF_GRAIN_FIXTURE, AVIF_GRAIN_422_10)}}
     with open(DIGESTS, "w") as fh:
         json.dump(stored, fh, indent=1)
         fh.write("\n")
