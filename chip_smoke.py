@@ -215,8 +215,8 @@ TOL = 1.0 / 255.0  # kernel vs plain version, and port vs the JAX reference
 # frame 0 (tests/test_torch_render_frame.py pins it against the JAX
 # package), and the 12x6 clip tables at 320x200 (tests/test_torch_masks.py
 # and test_torch_mega.py pin those)
-REF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "figdraw_tpu_torch", "reference")
+REPO = os.path.dirname(os.path.abspath(__file__))
+REF_DIR = os.path.join(REPO, "figdraw_tpu_torch", "reference")
 REF_BLOCKS = os.path.join(REF_DIR, "headline_384x216_f0_blocks8.npy")
 # bench_clipmask.py's table
 TABLE_W, TABLE_H, TABLE_ROWS, TABLE_COLS = 1200, 800, 180, 6
@@ -3358,7 +3358,53 @@ AVIF_KINDS = {"fixture_q75.avif": ("predict", "cfl", "txfm", "lf"),
               # against film_grain_plain on each grained item's own planes
               # (the first file's alpha item too)
               "fixture_grain.avif": ("predict", "cfl", "txfm", "lf", "grain"),
-              "fixture_grain_422_10bit.avif": ("predict", "cfl", "txfm", "lf", "grain")}
+              "fixture_grain_422_10bit.avif": ("predict", "cfl", "txfm", "lf", "grain"),
+              # an image sequence's first frame (a full sequence header; a
+              # 64x64 frame at q 50 that neither CfL nor the loop filter
+              # reaches), premultiplied: fd_av1_unattenuate against
+              # unattenuate_plain on its RGBA, and the card's rewrites of it
+              # (avif_rewrites)
+              "sequence_prem_64x64.avif": ("predict", "txfm")}
+
+
+def avif_rewrites(name: str, data: bytes, stored: dict) -> tuple:
+    """The files made from the stored sequence `name` by byte edits that
+    keep every offset (tools/make_image_formats.py's card_rewrites: its
+    prem references renamed, its alpha track marked limited-range, read
+    as a still, and that still with an lsel): each decoded to PIL's stored
+    digest; fd_av1_alpha_range against alpha_range_plain on the limited
+    file's own alpha plane. Returns (the stages held, {stage: (cold ms,
+    warm ms)} of the new stages on the sequence's own planes)."""
+    import hashlib
+
+    from figdraw_tpu_torch.utils import av1, avif, imagefile
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from make_image_formats import card_rewrites
+
+    held, made = [], card_rewrites(data)
+    for kind, d in made.items():
+        px = imagefile.decode_image(d, f"{name} ({kind})")
+        ref = stored[kind]
+        if (hashlib.sha256(px.tobytes()).hexdigest() != ref["decoded_sha256"]
+                or list(px.shape) != ref["shape"]):
+            fail(f"image formats: {name} ({kind}) decodes to another RGBA than PIL's stored "
+                 "digest")
+        held.append(f"{kind} at PIL's digest")
+    limited = avif.parse(made["limited alpha"])
+    f = av1.decode(limited.alpha)
+    if f.full_range:
+        fail(f"image formats: {name}'s limited-alpha rewrite decodes to a full-range alpha")
+    try:
+        av1.alpha_range(f.planes[0], f.width, f.height, f.bit_depth, plain=True)
+    except RuntimeError as exc:
+        fail(f"image formats: {name}: {exc}")
+    held.append("alpha_range")
+    t0 = time.perf_counter()
+    av1.alpha_range(f.planes[0], f.width, f.height, f.bit_depth)
+    cold = (time.perf_counter() - t0) * 1e3
+    warm, _ = host_ms(lambda: av1.alpha_range(f.planes[0], f.width, f.height, f.bit_depth))
+    return held, {"alpha range": (cold, warm)}
 
 
 def split_frames(ren, scene, size, frames: int = FRAMES):
@@ -3415,9 +3461,11 @@ def image_formats_check(tag: str) -> dict:
     loop filter, CDEF and the Wiener and self-guided filters against
     av1.py's twins, every kind of AVIF_KINDS reached, fd_av1_film_grain
     against film_grain_plain on each grained item's own planes,
-    fd_av1_to_rgb whole against to_rgba_plain; its decode split in the
-    tiles and loop filter, CDEF, loop restoration, film grain and the RGB
-    conversion). Returns {file: (cold
+    fd_av1_to_rgb whole against to_rgba_plain, fd_av1_unattenuate against
+    unattenuate_plain on a premultiplied file's RGBA, and the stored
+    sequence's byte rewrites through avif_rewrites; its decode split in
+    the tiles and loop filter, CDEF, loop restoration, film grain, the RGB
+    conversion and the new stages). Returns {file: (cold
     ms, warm ms, shape)}, with "avif stages" {file: {stage: (cold ms, warm
     ms)}}."""
     import hashlib
@@ -3430,7 +3478,8 @@ def image_formats_check(tag: str) -> dict:
     )
 
     with open(IMAGE_FORMATS_REFERENCE) as fh:
-        stored = json.load(fh)["files"]
+        references = json.load(fh)
+    stored, rewrites = references["files"], references["rewrites"]
     t0 = time.perf_counter()
     image_lib.load()  # the g++ builds, kept out of the first file's cold decode
     image_lib.load_webp()
@@ -3589,11 +3638,28 @@ def image_formats_check(tag: str) -> dict:
             conv = av1.conversion(frame.mono, frame.ssx, frame.ssy, full, mc, cp,
                                   alpha is not None, frame.bit_depth)
             rgb = av1.to_rgba(frame, alpha, full, mc, cp)
-            if not (np.array_equal(rgb, av1.to_rgba_plain(y, u, v, alpha, frame.width,
-                                                         frame.height, conv))
-                    and np.array_equal(rgb, px)):
+            if not np.array_equal(rgb, av1.to_rgba_plain(y, u, v, alpha, frame.width,
+                                                        frame.height, conv)):
                 fail(f"image formats: {name}: fd_av1_to_rgb differs from to_rgba_plain")
+            new_stages = {}
+            if still.premultiplied:  # PIL's straight alpha from libavif's unpremultiply
+                try:
+                    straight = av1.unattenuate(rgb, plain=True)
+                except RuntimeError as exc:
+                    fail(f"image formats: {name}: {exc}")
+                t0 = time.perf_counter()
+                av1.unattenuate(rgb)
+                new_stages["unattenuate"] = ((time.perf_counter() - t0) * 1e3,
+                                             host_ms(lambda: av1.unattenuate(rgb))[0])
+                rgb = straight
+                held.append("unattenuate")
+            if not np.array_equal(rgb, px):
+                fail(f"image formats: {name}: the stages' RGBA differs from read_image's")
             held += [f"{k} x{c}" for k, c in checked.items() if c] + ["to_rgb"]
+            if name in rewrites:
+                more, times_of = avif_rewrites(name, data, rewrites[name])
+                held += more
+                new_stages.update(times_of)
             # the decode's stages (a grid's summed over its tiles, then its
             # assembly): the first run without the trace (cold) and the
             # median of IMAGE_REPS more (warm); the alpha item's whole decode
@@ -3620,6 +3686,7 @@ def image_formats_check(tag: str) -> dict:
                 alpha_cold = (time.perf_counter() - t0) * 1e3
                 avif_stages[name]["alpha item"] = (alpha_cold, host_ms(decode_alpha)[0])
             avif_stages[name]["yuv -> rgba"] = (rgb_cold, rgb_warm)
+            avif_stages[name].update(new_stages)
         if held:
             stages[name] = held
     print(f"check 13: the {len(stored)} stored image files (JPEG with Huffman, arithmetic and "
@@ -3667,7 +3734,8 @@ def image_files_phase(tag: str, dev) -> dict:
     loop restoration; the CDEF file and the 4:4:4 file at 10 bits, the
     4:2:2 file at 12; a grid of 4x3 tiles with an alpha grid; film grain:
     aom's test vector 2 with a vignette alpha, and vector 4 at 4:2:2 made
-    10-bit), and a 12 MP
+    10-bit; an image sequence, premultiplied, and its byte rewrite with a
+    limited-range alpha track), and a 12 MP
     AVIF grid of the fixture scaled to 4032x3024 loaded cold and warm (not
     drawn), its decode split printed (image_formats_check
     first: every stored format against PIL's digests): load_image cold and
@@ -3704,7 +3772,9 @@ def image_files_phase(tag: str, dev) -> dict:
         AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE, AVIF_FIXTURE, AVIF_GRID_FILE_REFERENCE,
         AVIF_GRAIN_422_10_FILE_REFERENCE, AVIF_GRAIN_422_10_FIXTURE,
         AVIF_GRAIN_422_10_WALL_REFERENCE, AVIF_GRAIN_FILE_REFERENCE, AVIF_GRAIN_FIXTURE,
-        AVIF_GRAIN_WALL_REFERENCE,
+        AVIF_GRAIN_WALL_REFERENCE, AVIF_SEQUENCE_FILE_REFERENCE, AVIF_SEQUENCE_FIXTURE,
+        AVIF_SEQUENCE_LIMITED_FILE_REFERENCE, AVIF_SEQUENCE_LIMITED_WALL_REFERENCE,
+        AVIF_SEQUENCE_WALL_REFERENCE,
         AVIF_GRID_FIXTURE, AVIF_GRID_WALL_REFERENCE, AVIF_PHOTO_FIXTURE,
         AVIF_WALL_REFERENCE, EXAMPLE_FORMS, EXAMPLE_IMAGES, EXAMPLE_SCENES,
         FAX_ATLAS, FAX_PAGE, G3_FILE_REFERENCE, LOSSLESS_FIXTURE, LOSSLESS_WALL_REFERENCE,
@@ -3880,6 +3950,18 @@ def image_files_phase(tag: str, dev) -> dict:
             AVIF_GRAIN_FIXTURE, "AVIF with film grain (vector 2, its alpha item grained too)")
         n10path, n10cold_ms, n10warm_ms, _n10image = cold_warm(
             AVIF_GRAIN_422_10_FIXTURE, "10-bit 4:2:2 AVIF with film grain (vector 4)")
+        # an image sequence's first frame, premultiplied, and the same
+        # file with its alpha track marked limited-range (a byte rewrite)
+        spath, scold_ms, swarm_ms, _simage = cold_warm(
+            AVIF_SEQUENCE_FIXTURE, "AVIF image sequence (2 frames of 64x64, premultiplied)")
+        sys.path.insert(0, os.path.join(REPO, "tools"))
+        from make_image_formats import card_rewrites
+
+        slpath = os.path.join(td, "sequence_limited_alpha.avif")
+        with open(AVIF_SEQUENCE_FIXTURE, "rb") as fh:
+            limited_bytes = card_rewrites(fh.read())["limited alpha"]
+        with open(slpath, "wb") as fh:
+            fh.write(limited_bytes)
         pchain_ms, _ = host_ms(lambda: flippy.image_to_flippy(pimage), 3)
         g3path = os.path.join(td, os.path.basename(G3_FIXTURE))
         shutil.copyfile(G3_FIXTURE, g3path)
@@ -4002,7 +4084,12 @@ def image_files_phase(tag: str, dev) -> dict:
                        "avif grid": file_scene(xpath, "avif grid", AVIF_GRID_FILE_REFERENCE),
                        "avif grain": file_scene(npath, "avif grain", AVIF_GRAIN_FILE_REFERENCE),
                        "avif grain 422 10-bit": file_scene(n10path, "avif grain 422 10-bit",
-                                                           AVIF_GRAIN_422_10_FILE_REFERENCE)}
+                                                           AVIF_GRAIN_422_10_FILE_REFERENCE),
+                       "avif sequence": file_scene(spath, "avif sequence",
+                                                   AVIF_SEQUENCE_FILE_REFERENCE),
+                       "avif sequence limited alpha": file_scene(
+                           slpath, "avif sequence limited alpha",
+                           AVIF_SEQUENCE_LIMITED_FILE_REFERENCE)}
 
         # --- the 1080p photo wall of each loaded image ---
         def photo_wall(src, small_ref, what, tol=TOL, atlas=256):
@@ -4078,7 +4165,12 @@ def image_files_phase(tag: str, dev) -> dict:
                                           "photo wall avif grain", FILE_TOL),
                  "avif grain 422 10-bit": photo_wall(n10path, AVIF_GRAIN_422_10_WALL_REFERENCE,
                                                      "photo wall avif grain 422 10-bit",
-                                                     FILE_TOL)}
+                                                     FILE_TOL),
+                 "avif sequence": photo_wall(spath, AVIF_SEQUENCE_WALL_REFERENCE,
+                                             "photo wall avif sequence", FILE_TOL),
+                 "avif sequence limited alpha": photo_wall(
+                     slpath, AVIF_SEQUENCE_LIMITED_WALL_REFERENCE,
+                     "photo wall avif sequence limited alpha", FILE_TOL)}
         for ref in refs:
             ref.close()
     med = statistics.median
@@ -4124,7 +4216,8 @@ def image_files_phase(tag: str, dev) -> dict:
           f"grid) load_image cold {xcold_ms:.3f} ms, warm {xwarm_ms:.3f} ms; the film grain "
           f"AVIF's (with its alpha) load_image cold {ncold_ms:.3f} ms, warm {nwarm_ms:.3f} ms; "
           f"the 10-bit 4:2:2 film grain AVIF's load_image cold {n10cold_ms:.3f} ms, warm "
-          f"{n10warm_ms:.3f} ms {tag}", flush=True)
+          f"{n10warm_ms:.3f} ms; the AVIF image sequence's (premultiplied, 64x64) load_image "
+          f"cold {scold_ms:.3f} ms, warm {swarm_ms:.3f} ms {tag}", flush=True)
     split = decodes["avif stages"]["photo_grid_4032x3024.avif"]
     print(f"times: the 12 MP AVIF grid (4032x3024, 48 tiles of 512x512), host ms cold / warm: "
           + "; ".join(f"{k} {c:.3f} / {w:.3f}" for k, (c, w) in split.items())

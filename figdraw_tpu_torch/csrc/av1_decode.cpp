@@ -33,6 +33,12 @@
 //                     (libyuv's fixed point with its chroma upsampling, or
 //                     libavif's own float conversion), the alpha item's
 //                     plane to alpha;
+//   fd_av1_alpha_range a limited-range alpha plane to full range, as
+//                     libavif 1.3.0 expands it (avifLimitedToFullY at the
+//                     plane's bit depth);
+//   fd_av1_unattenuate premultiplied 8-bit RGBA to straight, as libavif
+//                     1.3.0 unpremultiplies it for PIL (libyuv's
+//                     ARGBUnattenuate);
 //   fd_av1_predict, fd_av1_cfl, fd_av1_inv_txfm, fd_av1_lf_edge,
 //   fd_av1_cdef_block, fd_av1_wiener, fd_av1_sgr
 //                     the stages alone at a bit depth (samples out as
@@ -3827,6 +3833,47 @@ int fd_av1_scale(const void* src, int ss, int sw, int sh, void* dst, int ds, int
         return kArgs;
     if (bytes == 1) return scale::plane((const uint8_t*)src, ss, sw, sh, (uint8_t*)dst, ds, dw, dh);
     return scale::plane((const uint16_t*)src, ss, sw, sh, (uint16_t*)dst, ds, dw, dh);
+}
+
+// A limited-range alpha plane (w x h samples, stride as) to full range in
+// place, as libavif 1.3.0 expands the alpha that dav1d returns with
+// color_range 0: avifLimitedToFullY's ((v - lo) * full + (hi - lo) / 2) /
+// (hi - lo), truncated and clamped to [0, full], with libavif's constants
+// of the bit depth bd (8: 16..235 of 255; 10: 64..940 of 1023; 12:
+// 256..3760 of 4095); samples are uint8_t at 8 bits, else uint16_t.
+int fd_av1_alpha_range(void* a, int as, int w, int h, int bd) {
+    if (!a || w <= 0 || h <= 0 || as < w || !valid_depth(bd)) return kArgs;
+    int lo = 16 << (bd - 8), hi = 235 << (bd - 8), full = (1 << bd) - 1;
+    for (int row = 0; row < h; row++) {
+        for (int x = 0; x < w; x++) {
+            size_t at = (size_t)row * as + x;
+            int v = bd == 8 ? ((uint8_t*)a)[at] : ((uint16_t*)a)[at];
+            v = clip3(0, full, ((v - lo) * full + (hi - lo) / 2) / (hi - lo));
+            if (bd == 8) ((uint8_t*)a)[at] = (uint8_t)v;
+            else ((uint16_t*)a)[at] = (uint16_t)v;
+        }
+    }
+    return 0;
+}
+
+// n pixels of premultiplied 8-bit RGBA to straight alpha in place, as
+// libyuv's x86 rows (ARGBUnattenuateRow_SSE2 / _AVX2) divide them for
+// libavif 1.3.0: alpha kept, each colour c to v = (c * 257 * ia) >> 16, ia
+// from libyuv's 8.8 inverse table (0 for alpha 0, 0xffff for 1, 65536 / a
+// below 255, 256 for 255), packed as packuswb packs it: the 16-bit v read
+// as signed, so 0 from 32768 up (alpha 1 and c >= 128), else min(v, 255).
+int fd_av1_unattenuate(uint8_t* rgba, int64_t n) {
+    if (!rgba || n < 0) return kArgs;
+    for (int64_t i = 0; i < n; i++) {
+        uint8_t* p = rgba + i * 4;
+        int a = p[3];
+        uint32_t ia = a == 0 ? 0 : (a == 1 ? 0xffff : (a == 255 ? 0x100 : 0x10000 / a));
+        for (int c = 0; c < 3; c++) {
+            uint32_t v = ((uint32_t)p[c] * 257 * ia) >> 16;
+            p[c] = (uint8_t)(v >= 32768 ? 0 : std::min<uint32_t>(v, 255));
+        }
+    }
+    return 0;
 }
 
 // The stages alone at bit depth bd (8, 10 or 12), samples out as uint16_t.

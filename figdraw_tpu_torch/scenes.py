@@ -1846,6 +1846,21 @@ AVIF_GRAIN_422_10_FILE_REFERENCE = os.path.join(
     REFERENCE_DIR, "example_image_file_avif_grain_422_10_1x_blocks8.npy")
 AVIF_GRAIN_422_10_WALL_REFERENCE = os.path.join(
     REFERENCE_DIR, "photo_wall_avif_grain_422_10_480x270_blocks8.npy")
+# an image sequence (PIL's save_all): two 64x64 crops of the fixture with
+# the vignette alpha at quality 50, premultiplied (prem), whose first frame
+# is drawn in the image-file scene and on the photo wall, as is the same
+# file with its alpha track marked limited-range (a byte rewrite that
+# chip_smoke.py makes on the card's host: tools/make_image_formats.py's
+# card_rewrites)
+AVIF_SEQUENCE_FIXTURE = os.path.join(IMAGE_FORMATS_DIR, "sequence_prem_64x64.avif")
+AVIF_SEQUENCE_FILE_REFERENCE = os.path.join(REFERENCE_DIR,
+                                            "example_image_file_avif_sequence_1x_blocks8.npy")
+AVIF_SEQUENCE_WALL_REFERENCE = os.path.join(REFERENCE_DIR,
+                                            "photo_wall_avif_sequence_480x270_blocks8.npy")
+AVIF_SEQUENCE_LIMITED_FILE_REFERENCE = os.path.join(
+    REFERENCE_DIR, "example_image_file_avif_sequence_limited_1x_blocks8.npy")
+AVIF_SEQUENCE_LIMITED_WALL_REFERENCE = os.path.join(
+    REFERENCE_DIR, "photo_wall_avif_sequence_limited_480x270_blocks8.npy")
 # the fixture scaled to a 12 MP phone photo, 4032x3024, as a grid of 8x6
 # tiles of 512x512 whose last column and row the grid crops (quality 50,
 # speed 10): decoded and loaded, not drawn

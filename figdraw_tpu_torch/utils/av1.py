@@ -9,7 +9,13 @@ matrix and range, else libavif's own float conversion: `conversion`).
 Decoded: profiles 0-2 at 8, 10 and 12 bits (planes of uint8 at 8 bits,
 uint16 at 10 and 12), 4:2:0, 4:2:2 and 4:4:4 colour or monochrome (an
 alpha item),
-the reduced still-picture header or a full one with one shown key frame,
+the reduced still-picture header or a full one with one shown key frame
+(timing and decoder model info, operating points, frame ids, screen
+content and order hint settings; a frame as one OBU_FRAME or an
+OBU_FRAME_HEADER and its tile groups; OBU extension headers, dropped
+outside the layers of the operating point dav1d decodes, as an item's
+a1op picks it, and an item's lsel asking for a frame of its spatial
+layer),
 uniform and non-uniform tiles, segmentation, delta q and delta lf,
 palettes, intra block copy (its vector stack, vectors and copies, the
 inter transform sets and split transform sizes it brings) and filter
@@ -47,7 +53,11 @@ on the load path uses the twins unless `plain` is asked for):
 - film_grain_plain: the film grain of a frame's planes, from
   grain_templates_plain (the three templates), grain_scaling_plain (a
   plane's scaling lookup) and grain_offsets_plain (each block's random
-  offset).
+  offset);
+- alpha_range_plain: a limited-range alpha plane expanded to full range
+  (libavif's avifLimitedToFullY);
+- unattenuate_plain: premultiplied RGBA made straight (libyuv's x86
+  ARGBUnattenuate rows).
 Each stage's twin takes the bit depth (`bit_depth`, 8 by default; the
 film grain's is in its parameters).
 `decode(stream, plain=True)` decodes the tiles in C++ with a trace of each
@@ -225,12 +235,24 @@ def leb128(data: bytes, pos: int) -> tuple:
 
 def obus(data: bytes):
     """(type, payload bytes) of each OBU of a low-overhead stream."""
+    for kind, _layer, payload in obu_layers(data):
+        yield kind, payload
+
+
+def obu_layers(data: bytes):
+    """(type, (temporal id, spatial id) from its extension header or None,
+    payload bytes) of each OBU of a low-overhead stream."""
     pos = 0
     while pos < len(data):
         head = data[pos]  # dav1d reads past a set forbidden bit (its default, not strict)
         kind = (head >> 3) & 15
         ext = (head >> 2) & 1
         has_size = (head >> 1) & 1
+        layer = None
+        if ext:
+            if pos + 1 >= len(data):
+                raise ValueError("AV1: a truncated OBU header")
+            layer = (data[pos + 1] >> 5, (data[pos + 1] >> 3) & 3)
         pos += 1 + ext
         if has_size:
             size, pos = leb128(data, pos)
@@ -238,7 +260,7 @@ def obus(data: bytes):
             size = len(data) - pos
         if pos + size > len(data):
             raise ValueError("AV1: an OBU runs past the stream")
-        yield kind, data[pos:pos + size]
+        yield kind, layer, data[pos:pos + size]
         pos += size
 
 
@@ -266,8 +288,8 @@ def parse_sequence(payload: bytes) -> Sequence:
             r.f(32)
             r.f(32)
             s.equal_picture_interval = r.f(1)
-            if s.equal_picture_interval:
-                r.uvlc()
+            if s.equal_picture_interval and r.uvlc() == (1 << 32) - 1:  # dav1d rejects it
+                raise ValueError("AV1: num_ticks_per_picture past 32 bits")
             s.decoder_model = r.f(1)
             if s.decoder_model:
                 s.buffer_delay_len = r.f(5) + 1
@@ -279,6 +301,8 @@ def parse_sequence(payload: bytes) -> Sequence:
         s.op_idc, s.decoder_model_present = [], []
         for _ in range(count):
             s.op_idc.append(r.f(12))
+            if s.op_idc[-1] and (not s.op_idc[-1] & 0xFF or not s.op_idc[-1] & 0xF00):
+                raise ValueError("AV1: an operating point without a temporal or spatial layer")
             level = r.f(5)
             if level > 7:
                 r.f(1)
@@ -394,9 +418,12 @@ def _tile_log2(blk: int, target: int) -> int:
     return k
 
 
-def parse_frame_header(r: BitReader, s: Sequence) -> dict:
+def parse_frame_header(r: BitReader, s: Sequence, layer=None) -> dict:
     """The uncompressed header of a shown key frame as an HDR array and
-    its tile layout."""
+    its tile layout; `layer` is the (temporal id, spatial id) of its OBU's
+    extension header (None: 0, 0), which picks the operating points whose
+    buffer removal times it carries."""
+    temporal, spatial = layer or (0, 0)
     hdr = np.zeros(H_SIZE, np.int32)
     if not s.reduced:
         if r.f(1):
@@ -417,8 +444,8 @@ def parse_frame_header(r: BitReader, s: Sequence) -> dict:
     r.f(s.order_hint_bits)
     if s.decoder_model:
         if r.f(1):
-            for op, present in enumerate(s.decoder_model_present):
-                if present:
+            for idc, present in zip(s.op_idc, s.decoder_model_present):
+                if present and (idc == 0 or ((idc >> temporal) & 1 and (idc >> (spatial + 8)) & 1)):
                     r.f(s.removal_len)
     if override:
         width, height = r.f(s.wbits) + 1, r.f(s.hbits) + 1
@@ -720,21 +747,32 @@ def _lib():
     return image_lib.load_av1()
 
 
-def decode(stream: bytes, plain: bool = False, grain: bool = True) -> Frame:
+def decode(stream: bytes, plain: bool = False, grain: bool = True, operating_point: int = 0,
+           spatial_layer: int = None) -> Frame:
     """An AV1 stream (one shown key frame) to its decoded planes (with
     `grain` False, the planes before film grain; its parameters are in
-    frame.grain all the same)."""
-    seq, fh, tiles = None, None, []
-    for kind, payload in obus(stream):
+    frame.grain all the same). As dav1d decodes for libavif: the OBUs with
+    an extension header outside the layers of the operating point
+    `operating_point` (the first where the sequence has fewer) are
+    dropped; `spatial_layer` (an item's lsel) asks for a frame of that
+    spatial layer, and a stream without one fails."""
+    seq, fh, tiles, idc = None, None, [], 0
+    for kind, layer, payload in obu_layers(stream):
         if kind == OBU_SEQUENCE_HEADER:
             seq = parse_sequence(payload)
-        elif kind in (OBU_FRAME_HEADER, OBU_FRAME):
+            idc = seq.op_idc[operating_point if operating_point < len(seq.op_idc) else 0]
+            continue
+        if (layer is not None and idc and kind != 2  # the temporal delimiter stays
+                and not ((idc >> layer[0]) & 1 and (idc >> (layer[1] + 8)) & 1)):
+            continue
+        if kind in (OBU_FRAME_HEADER, OBU_FRAME):
             if seq is None:
                 raise ValueError("AV1: a frame before the sequence header")
             if fh is not None:
                 raise refuse("more than one frame")
             r = BitReader(payload)
-            fh = parse_frame_header(r, seq)
+            fh = parse_frame_header(r, seq, layer)
+            fh["spatial"] = layer[1] if layer else 0
             if kind == OBU_FRAME:
                 r.align()
                 tiles += _tiles(payload, r.bit >> 3, len(payload), fh)
@@ -744,6 +782,9 @@ def decode(stream: bytes, plain: bool = False, grain: bool = True) -> Frame:
             tiles += _tiles(payload, 0, len(payload), fh)
     if fh is None:
         raise ValueError("AV1: no frame in the stream")
+    if spatial_layer is not None and fh["spatial"] != spatial_layer:
+        raise ValueError(f"AV1: no frame of spatial layer {spatial_layer} (libavif: Decoding of "
+                         "the planes failed)")
     ncols, nrows = len(fh["col_starts"]) - 1, len(fh["row_starts"]) - 1
     if len(tiles) != ncols * nrows:
         raise ValueError("AV1: tiles missing from the frame")
@@ -989,6 +1030,38 @@ def to_rgba(frame: Frame, alpha, full_range: int, matrix: int, primaries: int = 
         want = to_rgba_plain(y, u, v, a, w, h, conv)
         if not np.array_equal(want, out):
             raise RuntimeError("fd_av1_to_rgb differs from to_rgba_plain")
+    return out
+
+
+def alpha_range(plane: np.ndarray, width: int, height: int, bit_depth: int,
+                plain: bool = False) -> np.ndarray:
+    """A copy of a limited-range alpha plane with its width x height
+    samples expanded to full range as libavif 1.3.0 expands them
+    (fd_av1_alpha_range); `plain` holds it to alpha_range_plain."""
+    out = np.ascontiguousarray(plane).copy()
+    if out.dtype != (np.uint8 if bit_depth == 8 else np.uint16) or out.shape[0] < height \
+            or out.shape[1] < width:
+        raise ValueError(f"AV1: {ERRORS[-2]}")
+    rc = _lib().fd_av1_alpha_range(out.ctypes.data, out.shape[1], width, height, bit_depth)
+    if rc < 0:
+        raise ValueError(f"AV1: {ERRORS.get(rc, rc)}")
+    if plain and not np.array_equal(out, alpha_range_plain(plane, width, height, bit_depth)):
+        raise RuntimeError("fd_av1_alpha_range differs from alpha_range_plain")
+    return out
+
+
+def unattenuate(rgba: np.ndarray, plain: bool = False) -> np.ndarray:
+    """(h, w, 4) uint8 premultiplied RGBA to straight alpha, a new array, as
+    libavif 1.3.0 unpremultiplies it for PIL (fd_av1_unattenuate); `plain`
+    holds it to unattenuate_plain."""
+    if rgba.dtype != np.uint8 or rgba.ndim != 3 or rgba.shape[2] != 4:
+        raise ValueError(f"AV1: {ERRORS[-2]}")
+    out = np.ascontiguousarray(rgba).copy()
+    rc = _lib().fd_av1_unattenuate(out.ctypes.data, out.size // 4)
+    if rc < 0:
+        raise ValueError(f"AV1: {ERRORS.get(rc, rc)}")
+    if plain and not np.array_equal(out, unattenuate_plain(rgba)):
+        raise RuntimeError("fd_av1_unattenuate differs from unattenuate_plain")
     return out
 
 
@@ -1935,6 +2008,34 @@ def sgr_plain(win: np.ndarray, sgr_set: int, xqd, bit_depth: int = 8) -> np.ndar
     v = v + w0 * (_sgr_box_plain(win, r0, s0, 0, bit_depth) if r0 else u)
     v = v + w2 * (_sgr_box_plain(win, r1, s1, 1, bit_depth) if r1 else u)
     return np.clip(_round2(v, 11), 0, (1 << bit_depth) - 1).astype(_samples(bit_depth))
+
+
+def alpha_range_plain(plane: np.ndarray, width: int, height: int, bit_depth: int) -> np.ndarray:
+    """fd_av1_alpha_range's twin: a copy of the plane with its width x
+    height samples v made ((v - lo) * full + (hi - lo) // 2) / (hi - lo),
+    truncated towards zero and clamped to [0, full] (libavif's
+    avifLimitedToFullY: lo, hi = 16, 235 at 8 bits, shifted left by
+    bit_depth - 8)."""
+    lo, hi, full = 16 << (bit_depth - 8), 235 << (bit_depth - 8), (1 << bit_depth) - 1
+    out = np.array(plane, copy=True)
+    num = (out[:height, :width].astype(np.int64) - lo) * full + (hi - lo) // 2
+    q = np.abs(num) // (hi - lo) * np.sign(num)
+    out[:height, :width] = np.clip(q, 0, full)
+    return out
+
+
+def unattenuate_plain(rgba: np.ndarray) -> np.ndarray:
+    """fd_av1_unattenuate's twin: libyuv's x86 ARGBUnattenuate rows, each
+    colour c of a pixel with alpha a made v = (c | c << 8) * ia >> 16 with
+    ia the low half of fixed_invtbl8[a], packed by packuswb (v read as a
+    signed 16-bit word: 0 from 32768 up, else min(v, 255)); alpha kept."""
+    a = rgba[..., 3:].astype(np.uint32)
+    ia = np.where(a == 0, 0, np.where(a == 1, 0xFFFF, np.where(a == 255, 0x100,
+                                                                 0x10000 // np.maximum(a, 1))))
+    v = (rgba[..., :3].astype(np.uint32) * 257 * ia) >> 16
+    out = rgba.copy()
+    out[..., :3] = np.where(v >= 32768, 0, np.minimum(v, 255))
+    return out
 
 
 def _grain_random(state: int, bits: int) -> tuple:

@@ -1,25 +1,39 @@
-"""The port's AVIF reader: an AVIF still image to (H, W, 4) uint8 RGBA, as
-PIL 12.1.0's `Image.open(path).convert("RGBA")` returns it (figdraw_tpu
-decodes through PIL; the port may not import it). PIL reads AVIF through
-libavif 1.3.0 (AvifImagePlugin.py, its _avif module), whose decoder is
-dav1d and whose YUV -> RGB conversion is libyuv's; each step is matched
-here.
+"""The port's AVIF reader: an AVIF file to (H, W, 4) uint8 RGBA, as PIL
+12.1.0's `Image.open(path).convert("RGBA")` returns it (figdraw_tpu
+decodes through PIL; the port may not import it): a still image, or the
+first frame of an image sequence. PIL reads AVIF through libavif 1.3.0
+(AvifImagePlugin.py, its _avif module), whose decoder is dav1d and whose
+YUV -> RGB conversion is libyuv's; each step is matched here.
 
-The container is HEIF's ISO base media file format as libavif reads a
-still image: `ftyp` (an `avif` brand), then `meta` (FullBox) with `hdlr`
-(handler `pict`), `pitm` (the primary item), `iloc` (versions 0-2, offset,
-length, base-offset and index sizes 0/4/8, construction methods 0, the
-file, and 1, `idat`, several extents joined in order), `iinf` / `infe`
-(versions 2 and 3), `iref` (`auxl` names the alpha item) and `iprp`:
-`ipco` properties and `ipma` associations (the essential bit, 7- or
-15-bit indices). The properties read are `ispe` (size), `pixi`, `av1C`
+The container is HEIF's ISO base media file format as libavif reads it.
+The top-level boxes are walked as libavif walks them (`_top`): ftyp (an
+`avif` or `avis` brand), meta and moov read whole, any other box stepped
+over, and the walk stops once ftyp is read with a meta where an `avif`
+brand asks for one and a moov where an `avis` brand does (a box after that
+is never read). The source is then picked as libavif's
+AVIF_DECODER_SOURCE_AUTO picks it: the tracks where the major brand is
+`avis`, the primary item where it is `avif`, else the tracks where a moov
+was read.
+
+A still image is `meta` (FullBox) with `hdlr` (handler `pict`), `pitm`
+(the primary item), `iloc` (versions 0-2, offset, length, base-offset and
+index sizes 0/4/8, construction methods 0, the file, and 1, `idat`,
+several extents joined in order), `iinf` / `infe` (versions 2 and 3),
+`iref` (`auxl` names the alpha item, `prem` a premultiplied one) and
+`iprp`: `ipco` properties and `ipma` associations (the essential bit, 7-
+or 15-bit indices). The properties read are `ispe` (size), `pixi`, `av1C`
 (profile, bit depth, monochrome, subsampling), `colr` (`nclx`; an ICC
-`prof` or `rICC` is ignored, as PIL leaves the pixels alone) and `auxC`
-(the alpha URN). libavif holds pixi's depths to av1C's and neither to
-the AV1 sequence header, nor av1C's profile, monochrome and subsampling
-fields: the stream decides them. PIL 12.1.0 applies neither `irot` nor `imir` to the
-pixels (it reports the orientation as EXIF for ImageOps.exif_transpose),
-so they are read and left unapplied here too.
+`prof` or `rICC` is ignored, as PIL leaves the pixels alone), `auxC` (the
+alpha URN), `a1op` (the operating point dav1d decodes), `lsel` (the
+spatial layer asked for) with `a1lx` (the layers' sizes), and `clap`,
+`irot` and `imir`, which PIL 12.1.0 does not apply to the pixels (it
+reports the orientation as EXIF for ImageOps.exif_transpose), so they
+are read and left unapplied here too. libavif's parse-time checks of
+every property in ipco, used or not, are copied (`_check_property`), as
+are its rules that a1op, lsel, clap, irot and imir be marked essential
+and a1lx not. libavif holds pixi's depths to av1C's and neither to the
+AV1 sequence header, nor av1C's profile, monochrome and subsampling
+fields: the stream decides them.
 
 A `grid` primary item (HEIF's ImageGrid: version 0, 16- or 32-bit output
 sizes) is read as libavif 1.3.0 reads it: its tiles are the av01 items
@@ -32,28 +46,45 @@ reads libavif's rows of the grid's output width at that size (`decode_avif`
 copies it). An `iovl` primary item fails as in PIL: libavif 1.3.0 reads no
 overlay ("Missing or empty image item").
 
-utils/av1.py decodes the items' AV1 streams. An item (or a tile) whose AV1
-frame has another size than its `ispe` is scaled to ispe's size before the
-colour conversion, plane by plane (the chroma planes to half of it, rounded
-up), as libavif 1.3.0 scales it (avifImageScale over libyuv's ScalePlane,
-av1.scale). A grid's tiles are then copied into planes of its output size,
-the last column and row cropped, and the whole image converted once, so
-that the chroma upsampling crosses the tile seams as in libavif. The colr
-box's nclx (else the sequence header's colour description) picks the
-YUV -> RGB conversion (av1.conversion); a matrix and range libavif does
-not convert raise ValueError, as PIL raises. Refused with
-NotImplementedError naming AVIF, the feature and the ROADMAP item: an
-image sequence (`avis`, a `moov` track, which PIL reads instead of the
-primary item), `clap` cropping, `a1op` / `lsel` layer selection, a
-premultiplied alpha (`prem`), a limited-range alpha item, alpha items on
-a grid's tiles (libavif builds an alpha grid of them), a scale to ispe by
-libyuv's 3/4 or 3/8 filters, and the AV1 features utils/av1.py refuses
-(superres). Film grain is synthesised in each AV1 frame before its scale
-to ispe and a grid's assembly, as dav1d hands libavif the grained
-picture: every tile by its own parameters, the alpha item too. An alpha
-item of another bit depth than the colour item fails, as in libavif
-("Decoding of alpha plane failed" in PIL). A truncated or malformed file
-raises ValueError.
+An image sequence (PIL's save_all) is read from its `moov` (`Track`):
+each `trak`'s `tkhd` (track id, size in 16.16), `tref` (`auxl`, `prem`),
+`edts` / `elst`, and `mdia` with `hdlr`, `mdhd` (the media timescale,
+which PIL divides by) and `minf` / `stbl`: `stsd` (an `av01` sample entry
+and its `av1C`, `colr`, `auxi`, `clap`, `a1op`, `lsel`, ...), `stsc`,
+`stsz` (one size or a table), `stco` or `co64`, `stss` and `stts`, with
+libavif's checks of each. The colour track is the first with an id, a
+sample table with chunks, an av01 sample entry and no auxl reference; the
+alpha track the first such whose auxl names it (and whose auxi, if any,
+names alpha). Their first samples become the colour and alpha streams of
+a `Still`, sized by each track's tkhd, so that `decode_avif` stays one
+path.
+
+utils/av1.py decodes the items' AV1 streams. An item (a tile, a track)
+whose AV1 frame has another size than its `ispe` (its tkhd) is scaled to
+that size before the colour conversion, plane by plane (the chroma planes
+to half of it, rounded up), as libavif 1.3.0 scales it (avifImageScale
+over libyuv's ScalePlane, av1.scale). A grid's tiles are then copied into
+planes of its output size, the last column and row cropped, and the whole
+image converted once, so that the chroma upsampling crosses the tile
+seams as in libavif. The colr box's nclx (else the sequence header's
+colour description) picks the YUV -> RGB conversion (av1.conversion); a
+matrix and range libavif does not convert raise ValueError, as PIL
+raises. A limited-range alpha is expanded to full range before the scale
+(av1.alpha_range, libavif's avifLimitedToFullY at the alpha's depth), and
+a premultiplied image (the colour's prem reference names its alpha) is
+made straight after the conversion (av1.unattenuate, libyuv's
+ARGBUnattenuate), as PIL asks libavif for straight alpha. Film grain is
+synthesised in each AV1 frame before its scale to ispe and a grid's
+assembly, as dav1d hands libavif the grained picture: every tile by its
+own parameters, the alpha item too. An alpha item of another bit depth
+than the colour item fails, as in libavif ("Decoding of alpha plane
+failed" in PIL). A truncated or malformed file raises ValueError.
+
+Refused with NotImplementedError naming AVIF, the feature and ROADMAP
+item 1.3: alpha items on a grid's tiles (libavif builds an alpha grid of
+them), a scale to ispe by libyuv's 3/4 or 3/8 filters, and the AV1
+features utils/av1.py refuses (superres; a first sample that is not one
+shown key frame).
 """
 
 from __future__ import annotations
@@ -77,9 +108,9 @@ LIBAVIF_SIZE_LIMIT = 16384 * 16384
 # another type is skipped (the primary item then is missing)
 KNOWN_PROPERTIES = {b"ispe", b"auxC", b"colr", b"av1C", b"pasp", b"clap", b"irot", b"imir", b"pixi",
                     b"a1op", b"lsel", b"a1lx", b"clli"}
-REFUSED_PROPERTIES = {b"clap": "clean-aperture cropping (clap)",
-                      b"a1op": "operating point selection (a1op)",
-                      b"lsel": "layer selection (lsel)"}
+# the properties libavif requires an item to mark essential (a1lx it
+# requires not to be)
+ESSENTIAL_PROPERTIES = {b"a1op", b"lsel", b"clap", b"irot", b"imir"}
 
 
 refuse = av1.refuse
@@ -158,6 +189,7 @@ class Grid:
         self.rows, self.columns, self.width, self.height = rows, columns, width, height
         self.tiles = []  # each tile's AV1 stream, in raster order
         self.sizes = []  # each tile's ispe (width, height)
+        self.layers = []  # each tile's (operating point, spatial layer or None)
         self.av1c = None  # the tiles' av1C fields, which libavif holds equal
 
 
@@ -172,10 +204,198 @@ class Still:
         self.width = self.height = 0
         self.alpha_size = None  # the alpha item's ispe (width, height)
         self.av1c = None       # (profile, high bitdepth, twelve bit, mono, ssx, ssy)
+        self.layers = (0, None)  # the colour item's a1op operating point and lsel layer
+        self.alpha_layers = (0, None)
         self.alpha_av1c = None
         self.nclx = None       # (primaries, transfer, matrix, full range)
         self.rotation = 0      # irot, read and not applied (as PIL)
         self.mirror = None     # imir axis, read and not applied
+        self.premultiplied = False  # the colour is premultiplied by the alpha (prem)
+        self.track = None      # the colour Track where the image is a sequence's first frame
+
+
+class Track:
+    """A moov track as libavif 1.3.0 reads one (avifParseTrackBox): its
+    id and size (tkhd), the track its `auxl`
+    and `prem` references name (the first id of each), its media timescale
+    (mdhd) and its sample table (stbl): chunk offsets (stco or co64),
+    sample-to-chunk runs (first chunk, samples per chunk), the samples'
+    sizes (stsz: one size for all, or a table) and the sample entries
+    (format, [(property, payload start, end)])."""
+
+    def __init__(self):
+        self.id = self.width = self.height = 0
+        self.aux_for = self.prem_by = 0
+        self.timescale = 0
+        self.has_table = False  # an stbl was read
+        self.chunks, self.runs, self.sizes, self.entries = [], [], [], []
+        self.all_size = 0
+
+    def samples(self, file_size: int) -> list:
+        """(offset, size) of every sample, with libavif's checks
+        (avifCodecDecodeInputFillFromSampleTable): no chunk without samples,
+        no sample past the size table, none past the file."""
+        out, k = [], 0
+        for index, offset in enumerate(self.chunks):
+            per = next((n for first, n in reversed(self.runs) if first <= index + 1), 0)
+            if per == 0:
+                raise ValueError("AVIF: Sample table contains a chunk with 0 samples")
+            for _ in range(per):
+                size = self.all_size
+                if not size:
+                    if k >= len(self.sizes):
+                        raise ValueError("AVIF: Truncated sample table")
+                    size = self.sizes[k]
+                if offset + size > file_size:
+                    raise ValueError("AVIF: a sample runs past the file (libavif: Exceeded "
+                                     "avifIO's sizeHint)")
+                out.append((offset, size))
+                offset += size
+                k += 1
+        return out
+
+    def properties(self):
+        """The properties of the track's first av01 sample entry, or None."""
+        return next((props for fmt, props in self.entries if fmt == b"av01"), None)
+
+
+VISUAL_SAMPLE_ENTRY = 78  # a VisualSampleEntry's fields before its child boxes
+
+
+def _read_moov(data: bytes, start: int, end: int) -> list:
+    tracks = [_read_trak(data, s, e) for kind, s, e in _boxes(data, start, end) if kind == b"trak"]
+    if not tracks:
+        raise ValueError("AVIF: Box[moov] has no [trak]")
+    return tracks
+
+
+def _versioned(c: _Cursor, versions=(0, 1)) -> int:
+    v = c.uint(4) >> 24
+    if v not in versions:
+        raise ValueError(f"AVIF: a box of version {v}")
+    return v
+
+
+def _read_trak(data: bytes, start: int, end: int) -> Track:
+    t = Track()
+    seen = set()
+    for kind, s, e in _boxes(data, start, end):
+        c = _Cursor(data, s, e)
+        if kind in (b"tkhd", b"edts"):
+            if kind in seen:
+                raise ValueError(f"AVIF: a second {kind.decode()} in a trak")
+            seen.add(kind)
+        if kind == b"tkhd":
+            v = _versioned(c)
+            c.take(16 if v else 8)  # creation and modification times
+            track_id = c.uint(4)
+            c.take(4 + (8 if v else 4) + 52)  # reserved, duration, layer .. matrix
+            t.width, t.height = c.uint(4) >> 16, c.uint(4) >> 16
+            if not t.width or not t.height:
+                raise ValueError(f"AVIF: Track ID [{track_id}] has an invalid size")
+            if (t.width > DIMENSION_LIMIT or t.height > DIMENSION_LIMIT
+                    or t.width * t.height > LIBAVIF_SIZE_LIMIT):
+                raise ValueError(f"AVIF: Track ID [{track_id}] dimensions are too large "
+                                 f"[{t.width}x{t.height}]")
+            t.id = track_id
+        elif kind == b"meta":
+            _read_meta(data, s, e)
+        elif kind == b"mdia":
+            for mk, ms, me in _boxes(data, s, e):
+                if mk == b"hdlr":  # held as meta's, of any handler type
+                    hc = _Cursor(data, ms, me)
+                    _versioned(hc, (0,))
+                    if hc.uint(4):
+                        raise ValueError("AVIF: hdlr pre_defined is not 0")
+                    hc.take(16)
+                    if data.find(b"\0", hc.pos, me) < 0:
+                        raise ValueError("AVIF: hdlr name is not null-terminated")
+                elif mk == b"mdhd":
+                    mc = _Cursor(data, ms, me)
+                    v = _versioned(mc)
+                    mc.take(16 if v else 8)
+                    t.timescale = mc.uint(4)
+                    mc.take(8 if v else 4)
+                elif mk == b"minf":
+                    for nk, ns, ne in _boxes(data, ms, me):
+                        if nk == b"stbl":
+                            if t.has_table:
+                                raise ValueError("AVIF: Duplicate Box[stbl] for a single track")
+                            t.has_table = True
+                            _read_stbl(data, ns, ne, t)
+        elif kind == b"tref":
+            for rk, rs, re_ in _boxes(data, s, e):
+                if rk in (b"auxl", b"prem"):
+                    first = _Cursor(data, rs, re_).uint(4)  # the first id alone
+                    if rk == b"auxl":
+                        t.aux_for = first
+                    else:
+                        t.prem_by = first
+        elif kind == b"edts":
+            elst = [(s_, e_) for k_, s_, e_ in _boxes(data, s, e) if k_ == b"elst"]
+            if len(elst) != 1:
+                raise ValueError("AVIF: Box[edts] holds no [elst] or more than one")
+            ec = _Cursor(data, *elst[0])
+            v = ec.uint(1)
+            if ec.uint(3) & 1:  # repeating: one entry of a nonzero duration
+                if ec.uint(4) != 1:
+                    raise ValueError("AVIF: Box[elst] contains an entry_count != 1")
+                if v not in (0, 1):
+                    raise ValueError(f"AVIF: Box[elst] has an unsupported version [{v}]")
+                if not ec.uint(8 if v else 4):
+                    raise ValueError("AVIF: Box[elst] Invalid value for segment_duration (0)")
+    if b"tkhd" not in seen:
+        raise ValueError("AVIF: Box[trak] does not contain a mandatory [tkhd] box")
+    return t
+
+
+def _read_stbl(data: bytes, start: int, end: int, t: Track) -> None:
+    for kind, s, e in _boxes(data, start, end):
+        c = _Cursor(data, s, e)
+        if kind in (b"stco", b"co64"):
+            _versioned(c, (0,))
+            wide = 8 if kind == b"co64" else 4
+            t.chunks += [c.uint(wide) for _ in range(c.uint(4))]
+        elif kind == b"stsc":
+            _versioned(c, (0,))
+            for i in range(c.uint(4)):
+                first, per, _desc = c.uint(4), c.uint(4), c.uint(4)
+                if (i == 0 and first != 1) or (i and first <= t.runs[-1][0]):
+                    raise ValueError("AVIF: Box[stsc] chunks do not begin with 1 and increase")
+                t.runs.append((first, per))
+        elif kind == b"stsz":
+            _versioned(c, (0,))
+            size, count = c.uint(4), c.uint(4)
+            if size:
+                t.all_size = size
+            else:
+                t.sizes += [c.uint(4) for _ in range(count)]
+        elif kind == b"stss":
+            _versioned(c, (0,))
+            for _ in range(c.uint(4)):
+                c.uint(4)
+        elif kind == b"stts":
+            _versioned(c, (0,))
+            for _ in range(c.uint(4)):
+                c.take(8)
+        elif kind == b"stsd":
+            _versioned(c, (0, 1))
+            count = c.uint(4)
+            pos = c.pos
+            for _ in range(count):
+                entry = next(_boxes(data, pos, e), None)
+                if entry is None:
+                    raise ValueError("AVIF: Box[stsd] holds fewer entries than its count")
+                fmt, es, ee = entry
+                props = []
+                if fmt == b"av01":
+                    if ee - es < VISUAL_SAMPLE_ENTRY:
+                        raise ValueError("AVIF: Not enough bytes to parse VisualSampleEntry")
+                    props = list(_boxes(data, es + VISUAL_SAMPLE_ENTRY, ee))
+                    for prop in props:
+                        _check_property(data, *prop)
+                t.entries.append((fmt, props))
+                pos = ee
 
 
 def _parse_iloc(c: _Cursor, items: dict) -> None:
@@ -225,39 +445,95 @@ def _item_bytes(data: bytes, item: Item, idat: bytes) -> bytes:
     return bytes(out)
 
 
-def parse(data: bytes) -> Still:
-    """The primary item (and its alpha) of an AVIF file."""
-    top = list(_boxes(data, 0, len(data), top=True))
-    if not top or top[0][0] != b"ftyp":
-        raise ValueError("AVIF: no ftyp box first")
-    if any(b[0] == b"moov" for b in top):  # PIL reads the track's first frame
-        raise refuse("image sequences (avis)")
-    metas = [b for b in top if b[0] == b"meta"]
-    if not metas:
-        raise ValueError("AVIF: no meta box")
-    _kind, ms, me = metas[0]
+def _top(data: bytes) -> tuple:
+    """libavif 1.3.0's walk of the top-level boxes (avifParse): ftyp, meta
+    and moov are read whole (a box past the file fails), any other box is
+    stepped over (one that ends past the file fails at the next step, one
+    of size 0 ends the walk), and the walk stops as soon as ftyp is read
+    with a meta where an `avif` brand asks for one and a moov where an
+    `avis` brand does: a box after that is never read. Returns (the major
+    brand, the meta box's payload span or None, the tracks of the moov or
+    None)."""
+    pos, n = 0, len(data)
+    major, meta, tracks = None, None, None
+    needs_meta = needs_moov = False
+    while pos < n:
+        if pos + 8 > n:
+            raise ValueError("AVIF: a truncated box header")
+        size, kind, head = int.from_bytes(data[pos:pos + 4], "big"), data[pos + 4:pos + 8], 8
+        if size == 1:
+            if pos + 16 > n:
+                raise ValueError("AVIF: a truncated box header")
+            size, head = int.from_bytes(data[pos + 8:pos + 16], "big"), 16
+        if kind in (b"ftyp", b"meta", b"moov"):
+            end = n if size == 0 else pos + size
+            if size and size < head or end > n:
+                raise ValueError(f"AVIF: box {kind!r} runs past the file")
+            start = pos + head
+            if kind == b"ftyp":
+                if major is not None or (end - start) < 8 or (end - start) % 4:
+                    raise ValueError("AVIF: a second or malformed ftyp box")
+                major = data[start:start + 4]
+                brands = [major] + [data[i:i + 4] for i in range(start + 8, end, 4)]
+                if b"avif" not in brands and b"avis" not in brands:
+                    raise ValueError("AVIF: ftyp names no avif or avis brand")
+                needs_meta, needs_moov = b"avif" in brands, b"avis" in brands
+            elif kind == b"meta":
+                if meta is not None:
+                    raise ValueError("AVIF: a second meta box")
+                meta = (start, end)
+            else:
+                if tracks is not None:
+                    raise ValueError("AVIF: a second moov box")
+                tracks = _read_moov(data, start, end)
+        elif size == 0:
+            break
+        elif size < head:
+            raise ValueError(f"AVIF: box {kind!r} runs past its parent")
+        else:
+            end = pos + size
+        pos = end
+        if major is not None and (meta or not needs_meta) and (tracks or not needs_moov):
+            return major, meta, tracks
+        if pos > n:
+            raise ValueError(f"AVIF: box {kind!r} runs past the file")
+    if major is None:
+        raise ValueError("AVIF: no ftyp box")
+    raise ValueError("AVIF: the file ends before its " + ("meta" if needs_meta and not meta
+                                                          else "moov") + " box")
+
+
+class _Meta:
+    """A meta box as libavif's avifParseMetaBox reads it."""
+
+    def __init__(self):
+        self.items = _Items()
+        self.props, self.primary, self.idat, self.handler = [], None, b"", b""
+        self.refs = []  # (type, from, [to])
+
+
+def _read_meta(data: bytes, ms: int, me: int) -> _Meta:
     c = _Cursor(data, ms, me)
     c.full()
-    items = _Items()
-    props, primary, idat, handler = [], None, b"", b""
-    refs = []  # (type, from, [to])
+    m = _Meta()
+    items, refs = m.items, m.refs
     for kind, s, e in _boxes(data, c.pos, me):
         b = _Cursor(data, s, e)
         if kind == b"hdlr":
             b.full()
             if b.uint(4):
                 raise ValueError("AVIF: hdlr pre_defined is not 0")
-            handler = b.take(4)
+            m.handler = b.take(4)
             b.take(12)
             if data.find(b"\0", b.pos, e) < 0:
                 raise ValueError("AVIF: hdlr name is not null-terminated")
         elif kind == b"pitm":
             version, _ = b.full((0, 1))
-            primary = b.uint(2 if version == 0 else 4)
+            m.primary = b.uint(2 if version == 0 else 4)
         elif kind == b"iloc":
             _parse_iloc(b, items)
         elif kind == b"idat":
-            idat = data[s:e]
+            m.idat = data[s:e]
         elif kind == b"iinf":
             version, _ = b.full((0, 1))
             count = b.uint(2 if version == 0 else 4)
@@ -289,7 +565,9 @@ def parse(data: bytes) -> Still:
         elif kind == b"iprp":
             for pk, ps, pe in _boxes(data, s, e):
                 if pk == b"ipco":
-                    props = list(_boxes(data, ps, pe))
+                    m.props = list(_boxes(data, ps, pe))
+                    for prop in m.props:
+                        _check_property(data, *prop)
                 elif pk == b"ipma":
                     pb = _Cursor(data, ps, pe)
                     version, flags = pb.full((0, 1))
@@ -302,8 +580,203 @@ def parse(data: bytes) -> Still:
                             else:
                                 v = pb.uint(1)
                                 item.props.append((v & 0x7F, v >> 7))
-    if handler != b"pict":
-        raise ValueError(f"AVIF: meta handler {handler!r}, not pict")
+    if m.handler != b"pict":
+        raise ValueError(f"AVIF: meta handler {m.handler!r}, not pict")
+    return m
+
+
+def _check_property(data: bytes, kind: bytes, s: int, e: int) -> None:
+    """The checks libavif 1.3.0 makes of a property as it parses one (in
+    ipco or a sample entry), used or not: each type it reads holds its
+    fields (ispe, auxC and pixi as FullBoxes of version 0; auxC's URN
+    null-terminated; colr's colour type, and nclx's 7 reserved bits zero;
+    av1C's marker and version 1; pixi's one to four equal depths; irot's and
+    imir's reserved bits zero; a1op an operating point of at most 31; lsel
+    a layer below 4, or 0xFFFF: any; a1lx's reserved bits zero and three 16-
+    or 32-bit layer sizes)."""
+    c = _Cursor(data, s, e)
+    if kind in (b"ispe", b"auxC", b"pixi"):
+        c.full()
+    if kind == b"ispe":
+        c.take(8)
+    elif kind == b"auxC":
+        if data.find(b"\0", c.pos, e) < 0:
+            raise ValueError("AVIF: auxC's URN is not null-terminated")
+    elif kind == b"pixi":
+        depths = c.take(c.uint(1))
+        if not 0 < len(depths) <= 4 or depths.count(depths[0]) != len(depths):
+            raise ValueError(f"AVIF: pixi depths {list(depths)}, which libavif does not read")
+    elif kind == b"colr":
+        colour = c.take(4)
+        if colour == b"nclx":
+            c.take(6)
+            if c.uint(1) & 0x7F:
+                raise ValueError("AVIF: colr nclx reserved bits set")
+    elif kind == b"av1C":
+        if c.take(4)[0] != 0x81:
+            raise ValueError("AVIF: av1C's marker and version are not 1")
+    elif kind in (b"irot", b"imir"):
+        if c.uint(1) & (0xFC if kind == b"irot" else 0xFE):
+            raise ValueError(f"AVIF: Box[{kind.decode()}] contains nonzero reserved bits")
+    elif kind == b"pasp":
+        c.take(8)
+    elif kind == b"clli":
+        c.take(4)
+    elif kind == b"clap":
+        c.take(32)
+    elif kind == b"a1op":
+        if c.uint(1) > 31:
+            raise ValueError("AVIF: Box[a1op] contains an unsupported operating point")
+    elif kind == b"lsel":
+        layer = c.uint(2)
+        if layer != 0xFFFF and layer >= 4:
+            raise ValueError(f"AVIF: Box[lsel] contains an unsupported layer [{layer}]")
+    elif kind == b"a1lx":
+        large = c.uint(1)
+        if large & 0xFE:
+            raise ValueError("AVIF: Box[a1lx] has bits set in the reserved section")
+        for _ in range(3):
+            c.uint(4 if large else 2)
+
+
+def parse(data: bytes) -> Still:
+    """The image that PIL reads from an AVIF file: the primary item (and
+    its alpha), or the first samples of the colour track (and its alpha
+    track) of an image sequence, picked as libavif 1.3.0's
+    AVIF_DECODER_SOURCE_AUTO picks: the track where the major brand is
+    `avis`, the item where it is `avif`, else the track where a moov with a
+    track was read."""
+    major, meta_span, tracks = _top(data)
+    meta = _read_meta(data, *meta_span) if meta_span else None
+    if meta is not None:
+        _check_items(data, meta)
+    if major == b"avis" or (major != b"avif" and tracks):
+        return _track_still(data, tracks)
+    if meta is None:
+        raise ValueError("AVIF: no meta box")
+    return _item_still(data, meta)
+
+
+def _check_items(data: bytes, meta: _Meta) -> None:
+    """libavif's checks of every item as it parses (avifDecoderParse),
+    used or not, whichever source it then decodes: each ipma index within
+    ipco; an item it would decode (av01 or grid, with data, no unknown
+    essential property, no thumbnail) has an ispe of a size it takes (an
+    alpha item too: PIL's libavif decodes with its strict flags)."""
+    props = meta.props
+    thumbnails = {frm for rk, frm, _to in meta.refs if rk == b"thmb"}
+    for it in meta.items.values():
+        if any(index > len(props) for index, _essential in it.props):
+            raise ValueError(f"AVIF: Box[ipma] for item ID [{it.id}] contains an illegal "
+                             "property index")
+        for index, essential in it.props:
+            kind = props[index - 1][0] if index else b""
+            if (kind in ESSENTIAL_PROPERTIES and not essential) or (kind == b"a1lx" and essential):
+                raise ValueError(f"AVIF: item ID [{it.id}] has a {kind.decode()} property "
+                                 f"{'not ' if not essential else ''}marked essential")
+        if (it.type in (b"av01", b"grid") and _item_size(it) and it.id not in thumbnails
+                and not _unsupported(it, props)):
+            _ispe(data, next((props[i - 1][1:] for i, _e in it.props
+                              if i and props[i - 1][0] == b"ispe"), None), LIBAVIF_SIZE_LIMIT)
+
+
+def _unsupported(it: Item, props: list) -> bool:
+    """An essential property of a type libavif does not read."""
+    return any(essential and 0 < index <= len(props) and props[index - 1][0] not in
+               KNOWN_PROPERTIES for index, essential in it.props)
+
+
+def _ispe(data: bytes, span, area: int = SIZE_LIMIT) -> tuple:
+    if span is None:
+        raise ValueError("AVIF: an item without ispe")
+    ic = _Cursor(data, *span)
+    ic.full()
+    w, h = ic.uint(4), ic.uint(4)
+    if not (0 < w <= DIMENSION_LIMIT and 0 < h <= DIMENSION_LIMIT) or w * h > area:
+        raise ValueError(f"AVIF: an ispe of {w}x{h}, past libavif's or PIL's limits")
+    return w, h
+
+
+def _av1c(data: bytes, span) -> tuple:
+    if span is None:
+        raise ValueError("AVIF: an av01 item without av1C")
+    ps, pe = span
+    if pe - ps < 4:
+        raise ValueError("AVIF: a short av1C")
+    if data[ps] != 0x81:
+        raise ValueError("AVIF: av1C's marker and version are not 1")
+    b1, b2 = data[ps + 1], data[ps + 2]
+    return (b1 >> 5, (b2 >> 6) & 1, (b2 >> 5) & 1, (b2 >> 4) & 1, (b2 >> 3) & 1, (b2 >> 2) & 1)
+
+
+def _nclx(data: bytes, span):
+    """A colr box's nclx (primaries, transfer, matrix, full range), or None
+    for an ICC profile."""
+    ps, pe = span
+    if data[ps:ps + 4] == b"nclx" and pe - ps >= 11:
+        if data[ps + 10] & 0x7F:
+            raise ValueError("AVIF: colr nclx reserved bits set")
+        cp, tc, mc = struct.unpack(">HHH", data[ps + 4:ps + 10])
+        return cp, tc, mc, data[ps + 10] >> 7
+    return None
+
+
+def _track_still(data: bytes, tracks: list) -> Still:
+    """The first samples of an image sequence's colour track and its alpha
+    track as libavif 1.3.0 picks them (avifDecoderReset with the tracks
+    source): the colour track is the first with an id, a sample table with
+    chunks, an av01 sample entry and no auxl reference; the alpha track the
+    first such track whose auxl reference names it and whose auxi property,
+    if it has one, names alpha. Each track's tkhd
+    gives its size, the colour sample entry's colr its nclx; the colour is
+    premultiplied where its prem reference names the alpha track."""
+    def usable(t):
+        return t.id and t.has_table and t.chunks and t.properties() is not None
+
+    color = next((t for t in tracks if usable(t) and not t.aux_for), None)
+    if color is None:
+        raise ValueError("AVIF: Failed to find AV1 color track")
+    def is_alpha(t):  # an auxi property, where there is one, names alpha
+        for kind, s, e in t.properties():
+            if kind == b"auxi":
+                c = _Cursor(data, s, e)
+                c.full()
+                return c.cstring() in ALPHA_URNS
+        return True
+
+    alpha = next((t for t in tracks if usable(t) and t.aux_for == color.id and is_alpha(t)), None)
+    out = Still()
+    out.track = color
+    props = {}
+    for kind, s, e in color.properties():
+        if kind == b"colr" and _nclx(data, (s, e)) is not None:
+            if props.get(b"nclx"):
+                raise ValueError("AVIF: Multiple colr boxes with colour type nclx found")
+            props[b"nclx"] = (s, e)
+        props.setdefault(kind, (s, e))
+    out.av1c = _av1c(data, props.get(b"av1C"))
+    if b"nclx" in props:
+        out.nclx = _nclx(data, props[b"nclx"])
+    out.width, out.height = color.width, color.height
+    if color.width * color.height > SIZE_LIMIT:
+        raise ValueError(f"AVIF: a {color.width}x{color.height} track, past PIL's limit")
+    offset, size = color.samples(len(data))[0]
+    out.color = data[offset:offset + size]
+    if alpha is not None:
+        offset, size = alpha.samples(len(data))[0]
+        out.alpha = data[offset:offset + size]
+        out.alpha_size = (alpha.width, alpha.height)
+        config = next((se for k, *se in alpha.properties() if k == b"av1C"), None)
+        out.alpha_av1c = _av1c(data, config) if config else None  # not required of the alpha
+        out.premultiplied = color.prem_by == alpha.id
+    if not color.timescale:  # PIL divides the first frame's timestamp by it
+        raise ValueError("AVIF: a track of media timescale 0 (PIL: division by zero)")
+    return out
+
+
+def _item_still(data: bytes, meta: _Meta) -> Still:
+    """The primary item (and its alpha) as libavif 1.3.0 reads it."""
+    items, props, primary, idat, refs = meta.items, meta.props, meta.primary, meta.idat, meta.refs
     if primary is None or primary not in items:
         raise ValueError("AVIF: no primary item")
     item = items[primary]
@@ -322,9 +795,7 @@ def parse(data: bytes) -> Still:
     out = Still()
 
     def unsupported(it: Item) -> bool:
-        """An essential property of a type libavif does not read."""
-        return any(essential and 0 < index <= len(props) and props[index - 1][0] not in
-                   KNOWN_PROPERTIES for index, essential in it.props)
+        return _unsupported(it, props)
 
     def item_props(it: Item) -> dict:
         found = {}
@@ -334,31 +805,46 @@ def parse(data: bytes) -> Still:
             if index > len(props):
                 raise ValueError("AVIF: an ipma index past ipco")
             pk, ps, pe = props[index - 1]
-            if pk in REFUSED_PROPERTIES:
-                raise refuse(REFUSED_PROPERTIES[pk])
             found[pk] = (ps, pe)
         return found
 
     def av1c(span) -> tuple:
-        if span is None:
-            raise ValueError("AVIF: an av01 item without av1C")
-        ps, pe = span
-        if pe - ps < 4:
-            raise ValueError("AVIF: a short av1C")
-        if data[ps] != 0x81:
-            raise ValueError("AVIF: av1C's marker and version are not 1")
-        b1, b2 = data[ps + 1], data[ps + 2]
-        return (b1 >> 5, (b2 >> 6) & 1, (b2 >> 5) & 1, (b2 >> 4) & 1, (b2 >> 3) & 1, (b2 >> 2) & 1)
+        return _av1c(data, span)
 
     def ispe(span, area: int = SIZE_LIMIT) -> tuple:
-        if span is None:
-            raise ValueError("AVIF: an item without ispe")
-        ic = _Cursor(data, *span)
-        ic.full()
-        w, h = ic.uint(4), ic.uint(4)
-        if not (0 < w <= DIMENSION_LIMIT and 0 < h <= DIMENSION_LIMIT) or w * h > area:
-            raise ValueError(f"AVIF: an ispe of {w}x{h}, past libavif's or PIL's limits")
-        return w, h
+        return _ispe(data, span, area)
+
+    def layers(it: Item, ip: dict) -> tuple:
+        """An item's operating point (a1op), spatial layer (lsel, None for
+        0xFFFF or none) and AV1 stream as libavif feeds dav1d: with a layer
+        and an a1lx, the item's bytes up to that layer's end (libavif's
+        avifCodecDecodeInputFillFromDecoderItem, with its checks)."""
+        stream = _item_bytes(data, it, idat)
+        op = data[ip[b"a1op"][0]] if b"a1op" in ip else 0
+        layer = int.from_bytes(data[ip[b"lsel"][0]:ip[b"lsel"][0] + 2], "big") \
+            if b"lsel" in ip else 0xFFFF
+        if b"a1lx" in ip:
+            lc = _Cursor(data, *ip[b"a1lx"])
+            wide = 4 if lc.uint(1) & 1 else 2
+            sizes, left = [], len(stream)
+            for _ in range(3):
+                n = lc.uint(wide)
+                if n and n >= left:
+                    raise ValueError(f"AVIF: a1lx layer index [{len(sizes)}] does not fit in "
+                                     "item size")
+                sizes.append(n or left)
+                left -= sizes[-1]
+                if not n:
+                    break
+            if left:
+                sizes.append(left)
+            if layer == 0xFFFF:
+                return op, None, stream
+            if layer >= len(sizes):
+                raise ValueError(f"AVIF: lsel property requests layer index [{layer}] which "
+                                 f"isn't present in a1lx property ([{len(sizes)}] layers)")
+            stream = stream[:sum(sizes[:layer + 1])]
+        return op, None if layer == 0xFFFF else layer, stream
 
     def pixi(span, config: tuple) -> None:
         """libavif's checks of pixi: one to four depths, all equal, equal to
@@ -375,20 +861,6 @@ def parse(data: bytes) -> Still:
         want = 12 if config[2] else (10 if config[1] else 8)
         if depths[0] != want:
             raise ValueError(f"AVIF: pixi depths {depths} differ from av1C's {want}")
-
-    # libavif's checks of every item as it parses, used or not: each ipma
-    # index within ipco; an item it would decode (av01 or grid, with data,
-    # no unknown essential property, no thumbnail) has an ispe of a size it
-    # takes (an alpha item too: PIL's libavif decodes with its strict flags)
-    thumbnails = {frm for rk, frm, _to in refs if rk == b"thmb"}
-    for it in items.values():
-        if any(index > len(props) for index, _essential in it.props):
-            raise ValueError(f"AVIF: Box[ipma] for item ID [{it.id}] contains an illegal "
-                             "property index")
-        if (it.type in (b"av01", b"grid") and _item_size(it) and it.id not in thumbnails
-                and not unsupported(it)):
-            ispe(next((props[i - 1][1:] for i, _e in it.props
-                       if i and props[i - 1][0] == b"ispe"), None), LIBAVIF_SIZE_LIMIT)
 
     def grid(g: Item) -> Grid:
         """A grid item's ImageGrid and its tiles, with libavif's checks of
@@ -430,7 +902,9 @@ def parse(data: bytes) -> Still:
                 raise ValueError(f"AVIF: The fields of the av1C property of tile item ID {t.id} "
                                  "differs from other tiles")
             out.sizes.append(ispe(tp.get(b"ispe"), LIBAVIF_SIZE_LIMIT))
-            out.tiles.append(_item_bytes(data, t, idat))
+            op, layer, stream = layers(t, tp)
+            out.tiles.append(stream)
+            out.layers.append((op, layer))
         return out
 
     if unsupported(item):
@@ -444,21 +918,14 @@ def parse(data: bytes) -> Still:
         out.av1c = av1c(p.get(b"av1C"))
     pixi(p.get(b"pixi"), out.av1c)
     if b"colr" in p:
-        ps, pe = p[b"colr"]
-        if data[ps:ps + 4] == b"nclx" and pe - ps >= 11:
-            if data[ps + 10] & 0x7F:
-                raise ValueError("AVIF: colr nclx reserved bits set")
-            cp, tc, mc = struct.unpack(">HHH", data[ps + 4:ps + 10])
-            out.nclx = (cp, tc, mc, data[ps + 10] >> 7)
+        out.nclx = _nclx(data, p[b"colr"])
     if b"irot" in p:
         out.rotation = data[p[b"irot"][0]] & 3
     if b"imir" in p:
         out.mirror = data[p[b"imir"][0]] & 1
     if out.grid is None:
-        out.color = _item_bytes(data, item, idat)
-    for rk, frm, to in refs:
-        if rk == b"prem" and (frm == primary or primary in to):
-            raise refuse("premultiplied alpha (prem)")
+        op, layer, out.color = layers(item, p)
+        out.layers = (op, layer)
 
     def alpha_of(owner: int):
         """The alpha item of an item, as libavif finds it: the first auxl
@@ -489,9 +956,14 @@ def parse(data: bytes) -> Still:
             out.alpha_av1c = out.alpha_grid.av1c
         else:
             out.alpha_av1c = av1c(ap.get(b"av1C"))
-            out.alpha = _item_bytes(data, alpha, idat)
+            op, layer, out.alpha = layers(alpha, ap)
+            out.alpha_layers = (op, layer)
         pixi(ap.get(b"pixi"), out.alpha_av1c)
         out.alpha_size = ispe(ap.get(b"ispe"))
+        # libavif's premByID: the last item that a prem reference from the
+        # colour item names
+        prem = [to[-1] for rk, frm, to in refs if rk == b"prem" and frm == primary and to]
+        out.premultiplied = bool(prem) and prem[-1] == alpha.id
     elif out.grid is not None and any(alpha_of(t)[0] is not None
                                       for t, (frm, _k) in dimg_of.items() if frm == primary):
         raise refuse("alpha items on a grid's tiles")
@@ -512,9 +984,18 @@ def to_ispe(frame: av1.Frame, width: int, height: int, plain: bool = False) -> a
         sx, sy = (frame.ssx, frame.ssy) if k else (0, 0)
         planes.append(av1.scale(p, (frame.width + sx) >> sx, (frame.height + sy) >> sy,
                                 (width + sx) >> sx, (height + sy) >> sy, plain=plain))
-    out = av1.Frame(tuple(planes), width, height, frame.full_range, frame.matrix, frame.mono,
-                    frame.ssx, frame.ssy, frame.primaries, frame.bit_depth)
-    out.mi, out.cdef, out.lr, out.ms = frame.mi, frame.cdef, frame.lr, frame.ms
+    return _with_planes(frame, tuple(planes), width, height)
+
+
+def _with_planes(frame: av1.Frame, planes: tuple, width: int = None,
+                 height: int = None) -> av1.Frame:
+    """A frame like `frame` (its colour description, block info and stage
+    ms) with other planes, of another size where one is given."""
+    out = av1.Frame(planes, frame.width if width is None else width,
+                    frame.height if height is None else height, frame.full_range, frame.matrix,
+                    frame.mono, frame.ssx, frame.ssy, frame.primaries, frame.bit_depth,
+                    frame.transfer)
+    out.mi, out.cdef, out.lr, out.ms = frame.mi, frame.cdef, frame.lr, dict(frame.ms)
     out.grain = frame.grain
     return out
 
@@ -568,15 +1049,23 @@ def assemble(frames: list, grid: Grid, alpha: bool = False) -> av1.Frame:
 
 
 def decode_item(stream: bytes, grid, size: tuple, plain: bool = False,
-                alpha: bool = False) -> av1.Frame:
+                alpha: bool = False, layers: tuple = (0, None)) -> av1.Frame:
     """A colour or alpha item's frame at its size: a single item's AV1
     frame scaled to its ispe (`size`), or a grid's tiles, each scaled to
     its own ispe, assembled; ms holds the stages' host ms summed over the
     tiles and, for a grid, the assembly's."""
+    def frame(t, s, ol):
+        f = av1.decode(t, plain=plain, operating_point=ol[0], spatial_layer=ol[1])
+        if alpha and not f.full_range:  # libavif expands it before the scale to ispe
+            t0 = time.perf_counter()
+            plane = av1.alpha_range(f.planes[0], f.width, f.height, f.bit_depth, plain)
+            f = _with_planes(f, (plane,) + tuple(f.planes[1:]))
+            f.ms["alpha range"] = (time.perf_counter() - t0) * 1e3
+        return to_ispe(f, *s, plain)
+
     if grid is None:
-        return to_ispe(av1.decode(stream, plain=plain), *size, plain)
-    frames = [to_ispe(av1.decode(t, plain=plain), *s, plain)
-              for t, s in zip(grid.tiles, grid.sizes)]
+        return frame(stream, size, layers)
+    frames = [frame(t, s, ol) for t, s, ol in zip(grid.tiles, grid.sizes, grid.layers)]
     t0 = time.perf_counter()
     out = assemble(frames, grid, alpha)
     out.ms["assembly"] = (time.perf_counter() - t0) * 1e3
@@ -587,22 +1076,24 @@ def decode_avif(data: bytes, plain: bool = False) -> np.ndarray:
     """An AVIF file's bytes to (H, W, 4) uint8 RGBA. `plain` runs the
     numpy twins of utils/av1.py's stages around the C++ tile syntax."""
     still = parse(data)
-    color = decode_item(still.color, still.grid, (still.width, still.height), plain)
+    color = decode_item(still.color, still.grid, (still.width, still.height), plain,
+                        layers=still.layers)
     alpha = None
     if still.alpha or still.alpha_grid:
-        a = decode_item(still.alpha, still.alpha_grid, still.alpha_size, plain, alpha=True)
+        a = decode_item(still.alpha, still.alpha_grid, still.alpha_size, plain, alpha=True,
+                        layers=still.alpha_layers)
         if a.bit_depth != color.bit_depth:  # dav1d's alpha plane must match the colour's
             raise ValueError(f"AVIF: a {a.bit_depth}-bit alpha item on a {color.bit_depth}-bit "
                              "colour item (libavif: Decoding of alpha plane failed)")
         if a.width != color.width or a.height != color.height:
             raise ValueError("AVIF: the alpha and colour items differ in size")
-        if not a.full_range:
-            raise refuse("limited-range alpha")
         alpha = a.planes[0][: a.height, : a.width]
     # the colr box's nclx where there is one, else the sequence header's
     primaries, _transfer, matrix, full = still.nclx or (color.primaries, 2, color.matrix,
                                                         color.full_range)
     rgba = av1.to_rgba(color, alpha, full, matrix, primaries, plain=plain)
+    if still.premultiplied and alpha is not None:  # PIL asks libavif for straight alpha
+        rgba = av1.unattenuate(rgba, plain)
     if (color.width, color.height) == (still.width, still.height):
         return rgba
     # a grid whose ispe is not its output size: PIL's image has the ispe's

@@ -63,6 +63,8 @@ _AV1_SIGNATURES = {
     "fd_av1_lr": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
     "fd_av1_to_rgb": ([_P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P], _I),
     "fd_av1_scale": ([_P, _I, _I, _I, _P, _I, _I, _I, _I], _I),
+    "fd_av1_alpha_range": ([_P, _I, _I, _I, _I], _I),
+    "fd_av1_unattenuate": ([_P, _I64], _I),
     "fd_av1_film_grain": ([_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P], _I),
     "fd_av1_cdef_block": ([_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P], _I),
     "fd_av1_wiener": ([_P, _I, _I, _P, _I, _P], _I),

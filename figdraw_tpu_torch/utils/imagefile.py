@@ -7,12 +7,13 @@ Decoded: PNG (utils/png.py), JPEG (utils/jpeg.py), GIF's first frame
 (utils/gif.py), BMP (utils/bmp.py), ICO (utils/ico.py), QOI
 (utils/qoi.py), TIFF and BigTIFF's first image (utils/tiff.py, CCITT fax
 and ZSTD through utils/fax.py and utils/zstd.py), WebP's first frame,
-lossy, lossless or animated (utils/webp.py) and AVIF still images of AV1
-profiles 0-2 at 8, 10 and 12 bits, 4:2:0, 4:2:2, 4:4:4 or 4:0:0, with an
-optional alpha item (utils/avif.py, utils/av1.py); their sequential loops
-run in C++ (csrc/png_unfilter.cpp,
-csrc/image_decode.cpp, csrc/zstd_decode.cpp, csrc/webp_decode.cpp,
-csrc/av1_decode.cpp, built with g++ at first use; a missing toolchain
+lossy, lossless or animated (utils/webp.py) and AVIF still images and
+the first frame of AVIF image sequences, of AV1 profiles 0-2 at 8, 10 and
+12 bits, 4:2:0, 4:2:2, 4:4:4 or 4:0:0, with an optional alpha item or
+track, straight or premultiplied (utils/avif.py, utils/av1.py); their
+sequential loops run in C++ (csrc/png_unfilter.cpp, csrc/image_decode.cpp,
+csrc/zstd_decode.cpp, csrc/webp_decode.cpp, csrc/av1_decode.cpp, built
+with g++ at first use; a missing toolchain
 raises). PIL's other readers raise NotImplementedError naming the format,
 the path and the ROADMAP item, as does a TIFF compression or photometric
 not ported, a WebP inter frame, a VP8L version other than 0, an ALPH

@@ -8,8 +8,10 @@ copy; with aom's CDEF on: the crop at speeds 0-8 and qualities 30-95,
 64x64 and 128x128 superblocks, 2x2 tiles, noisy gradients of 1x1 to
 257x129 whose restoration units and 8x8s meet the frame's edges, the
 alpha item, 4:0:0; loop restoration at speeds 0-4; film grain, since it
-was ported: tests/test_torch_av1_film_grain.py) equal byte for byte or
-refused with the feature named (image sequences); the headers of those
+was ported: tests/test_torch_av1_film_grain.py; PIL's image sequences,
+since they were read: tests/test_torch_avif_sequence.py) equal byte for
+byte or refused with the feature named (those sequences with their
+tracks sized 3/4 of their frames); the headers of those
 files (4:4:4, 4:2:2 and limited range since they were ported:
 tests/test_torch_av1_chroma.py); the constant tables
 (tools/make_av1_tables.py) pinned by sha256
@@ -189,10 +191,14 @@ DECODED = (["fixture:%d" % q for q in (0, 10, 25, 50, 75, 90, 100)] + ["crop:10"
            + ["grain:%s" % s for s in ("1x1", "17x3", "65x65", "130x96", "201x77", "257x129")]
            + ["cdefalpha:", "cdefmono:", "cdeflossless:", "cdeficons:"]
            # film grain (tests/test_torch_av1_film_grain.py holds the rest)
-           + ["aom:film-grain-test=1", "aom:film-grain-test=1,quality=30"])
-# PIL's save_all writes an image sequence (avis; ROADMAP item 1.3, a later
-# AVIF slice)
-REFUSED = {"avis:2": "image sequences", "avis:3": "image sequences"}
+           + ["aom:film-grain-test=1", "aom:film-grain-test=1,quality=30"]
+           # PIL's save_all: an image sequence's first frame
+           # (tests/test_torch_avif_sequence.py holds the rest)
+           + ["avis:2", "avis:3"])
+# PIL's image sequences with their tracks' size 3/4 of their frames'
+# (libyuv's 3/4 filter; ROADMAP item 1.3, entry 10)
+REFUSED = {"avis:2": "an AV1 frame of another size than ispe",
+           "avis:3": "an AV1 frame of another size than ispe"}
 
 
 @pytest.mark.parametrize("name", DECODED)
@@ -206,8 +212,18 @@ def test_corpus_equals_pil(name):
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_corpus_outside_the_slice_is_refused(name):
+    """The corpus's sequence of that many frames, cut to 128x96 and its
+    tracks sized 96x72: the first frame scaled by 3/4 stays refused."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from make_image_formats import with_track_size
+
+    crop = _fixture()[100:196, 200:328]
+    frames = [Image.fromarray(np.ascontiguousarray(np.roll(crop, k, 1)))
+              for k in range(int(name.split(":")[1]))]
+    out = io.BytesIO()
+    frames[0].save(out, "AVIF", save_all=True, append_images=frames[1:])
     with pytest.raises(NotImplementedError, match=rf"AVIF images with {REFUSED[name]}"):
-        imagefile.decode_image(_corpus(name))
+        imagefile.decode_image(with_track_size(out.getvalue(), 96, 72))
 
 
 # the post-filters each file's plain decode must reach

@@ -319,16 +319,29 @@ def _refused(data: bytes, feature: str, tmp_path) -> None:
         imagefile.read_image(path)
 
 
+# each case names what it once refused: clap, a1op, lsel, prem and a moov
+# are read since utils/avif.py reads them as PIL does; each file now also
+# has a 3/4 scale to its ispe (ROADMAP item 1.3, entry 10), which stays
+# refused whatever the feature beside it
+SCALE_REFUSAL = "an AV1 frame of another size than ispe"
+
+
 @pytest.mark.parametrize("feature, kw", [
-    ("clean-aperture cropping", dict(extra_props=[(b"clap", b"\0" * 32)])),
-    ("operating point selection", dict(extra_props=[(b"a1op", b"\0")])),
-    ("layer selection", dict(extra_props=[(b"lsel", b"\0\0")])),
-    ("premultiplied alpha", dict(refs=[(b"auxl", 2, [1]), (b"prem", 1, [2])])),
-    ("image sequences", dict(moov=True)),
+    pytest.param(SCALE_REFUSAL, dict(extra_props=[(b"clap", b"\0" * 32)]),
+                 id="clean-aperture cropping-kw0"),
+    pytest.param(SCALE_REFUSAL, dict(extra_props=[(b"a1op", b"\0")]),
+                 id="operating point selection-kw1"),
+    pytest.param(SCALE_REFUSAL, dict(extra_props=[(b"lsel", b"\0\0")]), id="layer selection-kw2"),
+    pytest.param(SCALE_REFUSAL, dict(refs=[(b"auxl", 2, [1]), (b"prem", 1, [2])]),
+                 id="premultiplied alpha-kw3"),
+    pytest.param(SCALE_REFUSAL, dict(moov=True), id="image sequences-kw4"),
 ])
 def test_features_outside_the_slice_are_refused(feature, kw, tmp_path):
-    src = _pil_avif(_crop(61, 47, alpha=True))
-    _refused(remux(src, **kw), feature, tmp_path)
+    src = _pil_avif(_crop(96, 64, alpha=True))
+    data = remux(src, **kw)
+    if "moov" not in kw:  # the feature alone is read as PIL reads it
+        _same(data)
+    _refused(_with_ispe(data, 72, 48), feature, tmp_path)
 
 
 @pytest.mark.parametrize("kind", ["grid", "iovl"])
@@ -355,15 +368,24 @@ def test_derived_primary_items(kind):
 
 
 def test_pils_image_sequence_is_refused(tmp_path):
+    """PIL's image sequence is read (tests/test_torch_avif_sequence.py);
+    one whose tracks' size is 3/4 of its frames' stays refused, naming the
+    scale (ROADMAP item 1.3, entry 10)."""
+    from make_image_formats import with_track_size
+
     frames = [Image.fromarray(_crop(32, 24)), Image.fromarray(_crop(32, 24)[::-1].copy())]
     out = io.BytesIO()
     frames[0].save(out, "AVIF", save_all=True, append_images=frames[1:])
-    _refused(out.getvalue(), "image sequences", tmp_path)
+    _same(out.getvalue())
+    _refused(with_track_size(out.getvalue(), 24, 18), SCALE_REFUSAL, tmp_path)
 
 
 def test_pils_premultiplied_alpha_is_refused(tmp_path):
-    _refused(_pil_avif(_crop(61, 47, alpha=True), alpha_premultiplied=True),
-             "premultiplied alpha", tmp_path)
+    """PIL's premultiplied alpha is read; with a 3/4 ispe the file stays
+    refused, naming the scale."""
+    data = _pil_avif(_crop(96, 64, alpha=True), alpha_premultiplied=True)
+    _same(data)
+    _refused(_with_ispe(data, 72, 48), SCALE_REFUSAL, tmp_path)
 
 
 # --- an AV1 frame of another size than ispe -----------------------------------------

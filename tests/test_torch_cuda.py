@@ -742,6 +742,81 @@ def test_grain_avif_photo_wall_on_k4_atlas(dev, tmp_path, kind):
     _avif_photo_wall(dev, tmp_path, fixture, wall_ref)
 
 
+def _card_rewrites():
+    """tools/make_image_formats.py's card_rewrites (byte edits, no PIL)."""
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                    "tools"))
+    from make_image_formats import card_rewrites
+
+    return card_rewrites
+
+
+def _sequence_avif(kind: str, tmp_path) -> tuple:
+    """(file, scene reference, wall reference) of the stored image sequence
+    (premultiplied) or of its limited-alpha rewrite (tools/
+    make_image_formats.py's card_rewrites), written under tmp_path."""
+    from figdraw_tpu_torch import scenes
+
+    if kind == "sequence":
+        return (scenes.AVIF_SEQUENCE_FIXTURE, scenes.AVIF_SEQUENCE_FILE_REFERENCE,
+                scenes.AVIF_SEQUENCE_WALL_REFERENCE)
+    card_rewrites = _card_rewrites()
+
+    with open(scenes.AVIF_SEQUENCE_FIXTURE, "rb") as fh:
+        data = card_rewrites(fh.read())["limited alpha"]
+    os.makedirs(tmp_path / "src", exist_ok=True)
+    path = str(tmp_path / "src" / "sequence_limited_alpha.avif")
+    with open(path, "wb") as fh:
+        fh.write(data)
+    return (path, scenes.AVIF_SEQUENCE_LIMITED_FILE_REFERENCE,
+            scenes.AVIF_SEQUENCE_LIMITED_WALL_REFERENCE)
+
+
+def test_sequence_avif_and_its_rewrites_decode_to_their_digests():
+    """The stored image sequence on the card's host: its first frame to
+    PIL's stored digest, fd_av1_unattenuate against unattenuate_plain on
+    its RGBA, each card rewrite (straight, limited alpha, still, lsel) to
+    its stored digest, and fd_av1_alpha_range against alpha_range_plain on
+    the limited file's alpha plane."""
+    import hashlib
+    import json
+
+    import numpy as np
+
+    from figdraw_tpu_torch.scenes import AVIF_SEQUENCE_FIXTURE, IMAGE_FORMATS_REFERENCE
+    from figdraw_tpu_torch.utils import av1, avif, imagefile
+
+    card_rewrites = _card_rewrites()
+
+    with open(AVIF_SEQUENCE_FIXTURE, "rb") as fh:
+        data = fh.read()
+    with open(IMAGE_FORMATS_REFERENCE) as fh:
+        stored = json.load(fh)
+    name = os.path.basename(AVIF_SEQUENCE_FIXTURE)
+    px = imagefile.decode_image(data)
+    assert hashlib.sha256(px.tobytes()).hexdigest() == stored["files"][name]["decoded_sha256"]
+    assert np.array_equal(avif.decode_avif(data, plain=True), px)
+    for kind, d in card_rewrites(data).items():
+        got = hashlib.sha256(imagefile.decode_image(d).tobytes()).hexdigest()
+        assert got == stored["rewrites"][name][kind]["decoded_sha256"], kind
+    f = av1.decode(avif.parse(card_rewrites(data)["limited alpha"]).alpha)
+    av1.alpha_range(f.planes[0], f.width, f.height, f.bit_depth, plain=True)
+
+
+@pytest.mark.parametrize("kind", ["sequence", "limited"])
+def test_sequence_avif_image_file_frame_on_k1_atlas(dev, tmp_path, kind):
+    fixture, scene_ref, _wall_ref = _sequence_avif(kind, tmp_path)
+    _avif_image_file_frame(dev, tmp_path, fixture, scene_ref)
+
+
+@pytest.mark.parametrize("kind", ["sequence", "limited"])
+def test_sequence_avif_photo_wall_on_k4_atlas(dev, tmp_path, kind):
+    fixture, _scene_ref, wall_ref = _sequence_avif(kind, tmp_path)
+    _avif_photo_wall(dev, tmp_path, fixture, wall_ref)
+
+
 def test_text_table_matches_plain_executor(dev):
     """The stored table of text in clipped cells (1200x800) on the
     megakernel with the atlas: one K4-atlas launch, the frame the plain

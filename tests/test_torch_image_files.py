@@ -148,14 +148,27 @@ def test_load_image_without_the_flippy_cache(fixture_png):
 def test_load_image_of_another_format_raises(ext, tmp_path):
     """A format the port does not decode yet (JPEG decodes since
     utils/imagefile.py, WebP since utils/webp.py), or an AVIF outside the
-    port's slice (an image sequence, PIL's save_all): NotImplementedError
-    naming the format, the path and the ROADMAP item, and no sidecar."""
+    port's slice (an image sequence, PIL's save_all, with its tracks' size
+    3/4 of its frames'): NotImplementedError naming the format, the path
+    and the ROADMAP item, and no sidecar."""
     from PIL import Image
 
     path = str(tmp_path / f"photo.{ext}")
     extra = ({"save_all": True, "append_images": [Image.fromarray(np.full((8, 8, 3), 9, np.uint8))]}
              if ext == "avif" else {})
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path, **extra)
+    if ext == "avif":
+        import sys
+
+        from torch_reference import REPO
+
+        sys.path.insert(0, os.path.join(REPO, "tools"))
+        from make_image_formats import with_track_size
+
+        with open(path, "rb") as fh:
+            data = with_track_size(fh.read(), 6, 6)
+        with open(path, "wb") as fh:
+            fh.write(data)
     for cache in (True, False):
         with pytest.raises(NotImplementedError,
                            match=r"(AVIF|PPM) images .*photo.*Image formats other than PNG"):

@@ -296,11 +296,24 @@ def test_other_formats_raise_not_implemented(fmt, tmp_path):
     TIFF, WebP and AVIF decode since utils/imagefile.py: tests/test_torch_jpeg.py,
     test_torch_tiff.py, test_torch_webp.py, test_torch_avif.py and the others
     hold them to PIL), and an AVIF outside the port's slice (an image
-    sequence, PIL's save_all)."""
+    sequence, PIL's save_all, with its tracks' size 3/4 of its frames')."""
     path = str(tmp_path / f"x.{fmt.lower()}")
     extra = ({"save_all": True, "append_images": [Image.fromarray(np.full((8, 8, 3), 9, np.uint8))]}
              if fmt == "AVIF" else {})
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path, format=fmt, **extra)
+    if fmt == "AVIF":
+        import os
+        import sys
+
+        from torch_reference import REPO
+
+        sys.path.insert(0, os.path.join(REPO, "tools"))
+        from make_image_formats import with_track_size
+
+        with open(path, "rb") as fh:
+            data = with_track_size(fh.read(), 6, 6)
+        with open(path, "wb") as fh:
+            fh.write(data)
     with pytest.raises(NotImplementedError, match="Image formats other than PNG"):
         png.read_image(path)
 

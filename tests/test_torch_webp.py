@@ -467,16 +467,24 @@ def test_unknown_alph_compression_raises_not_implemented(method, tmp_path):
 
 def test_avif_raises_not_implemented_naming_it(tmp_path):
     """An AVIF outside the port's slice (an image sequence, which PIL's
-    save_all writes; the slice is tests/test_torch_avif.py's):
+    save_all writes, whose tracks' size is 3/4 of its frames': libyuv's 3/4
+    filter is not ported; the slice is tests/test_torch_avif.py's):
     NotImplementedError naming AVIF, the feature, the path and the ROADMAP
     item, never ValueError."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from make_image_formats import with_track_size
+
     path = str(tmp_path / "photo.avif")
-    Image.fromarray(_crop(16, 16)).save(path, "AVIF", save_all=True,
+    out = io.BytesIO()
+    Image.fromarray(_crop(16, 16)).save(out, "AVIF", save_all=True,
                                         append_images=[Image.fromarray(_crop(16, 16)[::-1].copy())])
+    with open(path, "wb") as fh:
+        fh.write(with_track_size(out.getvalue(), 12, 12))
     with open(path, "rb") as fh:
         assert imagefile.format_of(fh.read()) == "AVIF"
     with pytest.raises(NotImplementedError,
-                       match=rf"AVIF images with image sequences .*photo\.avif.*{ROADMAP_ITEM}"):
+                       match=rf"AVIF images with an AV1 frame of another size than ispe "
+                             rf".*photo\.avif.*{ROADMAP_ITEM}"):
         imagefile.read_image(path)
     # an avif brand among the compatible ones only
     head = struct.pack(">I", 24) + b"ftypmif1" + b"\0\0\0\0" + b"mif1avif"

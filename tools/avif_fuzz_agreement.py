@@ -29,7 +29,16 @@ from a seeded stream of its own, one of aom's film grain options: a
 `film-grain-test` vector (1-16, aom's test parameter sets) or a
 `denoise-noise-level` (5-50: aom denoises the picture and sends the grain
 it took out as parameters); the port synthesises the grain as PIL's dav1d
-does.
+does. With --avis each case is an image sequence (PIL's save_all: 2 to 4
+frames, alpha for half, premultiplied for a quarter of those, a drawn
+subsampling, quality, speed and aom option) written again in a drawn
+sample layout (PIL's, a chunk a sample, co64, one sample size, moov
+before meta, major brand mif1; tools/make_image_formats.py's Avis); with
+--depths too, 10- or 12-bit (avis_at_depth). With --properties each case
+is a PIL-written file with alpha given one of: premultiplied alpha, a
+limited-range alpha item, both, or a clap, a1op, lsel, a1lx or irot
+property of drawn value and essential flag on the colour or alpha item
+(or on a sequence's colour sample entry), a third of them 10- or 12-bit.
 
 A picture is one of: seeded noise, a crop of the PNG fixture
 (tests/goldens/render_3d_overlay_gaussian.png), a flat UI-like picture of
@@ -43,7 +52,8 @@ printed by speed, and each disagreement by its seed and index
 (`case(seed, index)` rebuilds it). Needs PIL (the CPU host's).
 
     python tools/avif_fuzz_agreement.py [--corrupt] [--formats] [--depths] [--grids]
-        [--grain] [--dav1d-c] [cases per seed, default 200] [seeds, default 1]
+        [--grain] [--avis] [--properties] [--dav1d-c] [cases per seed, default 200]
+        [seeds, default 1]
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ import glob
 import io
 import os
 import re
+import struct
 import sys
 from collections import Counter, defaultdict
 
@@ -216,20 +227,169 @@ def written_cases(seed: int, cases: int, start: int = 0, formats: bool = False,
             yield i, options, data
 
 
+# --avis: the sample layouts written around PIL's own (tools/
+# make_image_formats.py's Avis), each drawn as often as PIL's
+LAYOUTS = ("pil", "pil", "pil", "chunks", "co64", "default size", "moov first", "major mif1")
+# aom's options that libavif passes on for a sequence (kf-max-dist and
+# lag-in-frames are refused there: "Invalid codec-specific option")
+SEQUENCE_AOM = ({}, {}, {"auto-alt-ref": "1"}, {"error-resilient": "1"}, {"tile-columns": "1"},
+                {"end-usage": "q", "cq-level": "30"}, {"enable-order-hint": "0"},
+                {"frame-parallel": "1"})
+
+
+def avis_cases(seed: int, cases: int, start: int = 0, depths: bool = False):
+    """Yields (index, options, bytes) of one seed's image sequences (PIL's
+    save_all) from index `start`: 2 to 4 frames, each a seeded crop or
+    picture of a drawn size, with alpha for half of them, a drawn
+    subsampling, quality, speed and aom options, premultiplied for a
+    quarter of those with alpha, then written again in a drawn sample
+    layout; with --depths made 10- or 12-bit (avis_at_depth)."""
+    rng = np.random.default_rng([seed, 30])
+    depth_rng = np.random.default_rng([seed, 11])
+    fixture = _fixture()
+    for i in range(cases):
+        n = int(rng.integers(2, 5))
+        w, h = int(rng.integers(1, 200)), int(rng.integers(1, 200))
+        alpha = bool(rng.integers(2))
+        frames = []
+        for _f in range(n):
+            px = picture(rng, fixture, w, h)
+            if alpha:
+                px = np.ascontiguousarray(np.dstack([px, picture(rng, fixture, w, h)[..., 0]]))
+            frames.append(px)
+        options = {"frames": n, "size": (w, h), "alpha": alpha,
+                   "subsampling": SUBSAMPLINGS[int(rng.integers(4))],
+                   "quality": int(rng.integers(0, 101)), "speed": int(rng.integers(0, 11)),
+                   "aom": SEQUENCE_AOM[int(rng.integers(len(SEQUENCE_AOM)))],
+                   "premultiplied": alpha and not rng.integers(4),
+                   "layout": LAYOUTS[int(rng.integers(len(LAYOUTS)))]}
+        if depths:
+            options["depth"] = (10, 12)[int(depth_rng.integers(2))]
+        if i < start:
+            continue
+        from PIL import Image
+
+        out = io.BytesIO()
+        images = [Image.fromarray(px) for px in frames]
+        images[0].save(out, "AVIF", save_all=True, append_images=images[1:],
+                       quality=options["quality"], speed=options["speed"],
+                       subsampling=options["subsampling"], advanced=options["aom"],
+                       alpha_premultiplied=options["premultiplied"])
+        tool = _tool()
+        data = tool.steady_times(out.getvalue())
+        if depths:
+            data = tool.avis_at_depth(data, options["depth"])
+        layout = options["layout"]
+        if layout != "pil":
+            a = tool.Avis(data)
+            if layout == "major mif1":
+                a.ftyp = b"mif1" + a.ftyp[4:]
+            data = a.write(chunks=[1] * n if layout == "chunks" else None, co64=layout == "co64",
+                           default_size=layout == "default size",
+                           order=(b"moov", b"meta") if layout == "moov first" else (b"meta", b"moov"))
+        yield i, options, data
+
+
+# --properties: what each case adds to a PIL-written file with alpha
+PROPERTY_KINDS = ("prem", "limited alpha", "prem + limited alpha", "clap", "a1op", "lsel",
+                  "a1lx", "lsel + a1lx", "irot", "track properties")
+
+
+def property_cases(seed: int, cases: int, start: int = 0):
+    """Yields (index, options, bytes) of one seed's files with the
+    properties and alpha forms PIL reads as plain or converts: premultiplied
+    alpha (PIL's alpha_premultiplied, or a prem reference added), a
+    limited-range alpha (make_image_formats.limited_alpha), both, and the
+    clap, a1op, lsel, a1lx and irot properties with drawn values, marked
+    essential or not, on the colour or the alpha item (a sequence's sample
+    entries for "track properties"); a third made 10- or 12-bit."""
+    rng = np.random.default_rng([seed, 31])
+    fixture = _fixture()
+    for i in range(cases):
+        w, h = int(rng.integers(1, 200)), int(rng.integers(1, 200))
+        px = np.ascontiguousarray(np.dstack([picture(rng, fixture, w, h),
+                                             picture(rng, fixture, w, h)[..., 0]]))
+        kind = PROPERTY_KINDS[int(rng.integers(len(PROPERTY_KINDS)))]
+        options = {"kind": kind, "size": (w, h), "quality": int(rng.integers(0, 101)),
+                   "speed": int(rng.integers(0, 11)),
+                   "subsampling": SUBSAMPLINGS[int(rng.integers(4))],
+                   "depth": (8, 8, 8, 8, 10, 12)[int(rng.integers(6))],
+                   "item": int(rng.integers(1, 3)), "essential": int(rng.integers(4) > 0)}
+        value = int(rng.integers(0, 1 << 16))
+        small = int(rng.integers(0, 6))
+        if kind == "clap":
+            options["value"] = [int(v) for v in rng.integers(0, 300, 8)]
+        elif kind == "a1op":
+            options["value"] = (0, 1, small, 31, 32, value & 0xFF)[small]
+        elif kind in ("lsel", "lsel + a1lx"):
+            options["value"] = (0, 0, 1, 3, 4, 0xFFFF)[small]
+        elif kind == "a1lx":
+            options["value"] = [int(v) for v in rng.integers(0, 400, 3)]
+        if kind == "lsel + a1lx":
+            options["sizes"] = [int(v) for v in rng.integers(0, 400, 3)]
+        if i < start:
+            continue
+        tool = _tool()
+        data = pil_avif(px, quality=options["quality"], speed=options["speed"],
+                        subsampling=options["subsampling"],
+                        alpha_premultiplied=kind.startswith("prem") and options["item"] == 1)
+        if options["depth"] > 8:
+            data = at_depth(data, options["depth"])
+        if kind.startswith("prem") and options["item"] == 2:
+            heif = tool.Heif(data)
+            heif.refs.append((b"prem", heif.primary, [2]))
+            data = heif.write()
+        if "limited" in kind:
+            data = tool.limited_alpha(data)
+        props = {"clap": lambda v: struct.pack(">8I", *v),
+                 "a1op": lambda v: bytes([v]), "lsel": lambda v: struct.pack(">H", v),
+                 "a1lx": lambda v: b"\0" + struct.pack(">3H", *v),
+                 "irot": lambda v: bytes([value & 3])}
+        if kind in props or kind == "lsel + a1lx":
+            heif = tool.Heif(data)
+            item = options["item"] if options["item"] in heif.items else heif.primary
+            if kind == "lsel + a1lx":
+                heif.set_prop(item, b"a1lx", props["a1lx"](options["sizes"]))
+                heif.set_prop(item, b"lsel", props["lsel"](options["value"]), options["essential"])
+            else:
+                heif.set_prop(item, kind.encode(), props[kind](options.get("value")),
+                              options["essential"] ^ (kind == "a1lx"))
+            data = heif.write()
+        if kind == "track properties":
+            from PIL import Image
+
+            out = io.BytesIO()
+            Image.fromarray(px).save(out, "AVIF", save_all=True,
+                                     append_images=[Image.fromarray(px[::-1].copy())],
+                                     quality=options["quality"], speed=options["speed"])
+            a = tool.Avis(tool.steady_times(out.getvalue()))
+            fmt, fields, entry = a.tracks[0]["entry"]
+            extra = [(b"clap", struct.pack(">8I", *rng.integers(0, 300, 8))),
+                     (b"a1op", bytes([(0, 5, 31, 32)[small % 4]])),
+                     (b"lsel", struct.pack(">H", (0, 2, 4, 0xFFFF)[small % 4]))]
+            a.tracks[0]["entry"] = (fmt, fields, entry + extra[:1 + small % 3])
+            data = a.write()
+        yield i, options, data
+
+
 def corrupt_cases(seed: int, cases: int, formats: bool = False, depths: bool = False,
-                  grids: bool = False, grain: bool = False):
+                  grids: bool = False, grain: bool = False, avis: bool = False,
+                  properties: bool = False):
     """Yields (index, options, bytes): a third of PIL-written files (or
-    grids) cut at a random length, the others with one to three bits
-    flipped (a third of those in the first 400 bytes, the container and
-    headers; with grids, in the meta box)."""
+    grids, sequences or property cases) cut at a random length, the others
+    with one to three bits flipped (a third of those in the first 400
+    bytes, the container and headers; with grids and sequences, in the
+    boxes before mdat)."""
     rng = np.random.default_rng(seed + 1000)
-    sources = [(o, d) for _i, o, d in (grid_cases(seed, 12, depths=depths, grain=grain) if grids else
-                                       written_cases(seed, 12, formats=formats, depths=depths,
-                                                     grain=grain))]
+    sources = [(o, d) for _i, o, d in (
+        grid_cases(seed, 12, depths=depths, grain=grain) if grids
+        else avis_cases(seed, 12, depths=depths) if avis
+        else property_cases(seed, 12) if properties
+        else written_cases(seed, 12, formats=formats, depths=depths, grain=grain))]
     for i in range(cases):
         options, src = sources[i % len(sources)]
         data = bytearray(src)
-        head_end = max(src.find(b"mdat") - 4, 1) if grids else 400
+        head_end = max(src.find(b"mdat") - 4, 1) if grids or avis else 400
         if rng.integers(3) == 0:
             data = data[: int(rng.integers(0, len(data)))]
         else:
@@ -242,10 +402,14 @@ def corrupt_cases(seed: int, cases: int, formats: bool = False, depths: bool = F
 
 
 def case(seed: int, index: int, corrupt: bool = False, formats: bool = False,
-         depths: bool = False, grids: bool = False, grain: bool = False) -> tuple:
+         depths: bool = False, grids: bool = False, grain: bool = False, avis: bool = False,
+         properties: bool = False) -> tuple:
     """(options, bytes) of case `index` of `seed`."""
-    gen = (corrupt_cases(seed, index + 1, formats, depths, grids, grain) if corrupt
+    gen = (corrupt_cases(seed, index + 1, formats, depths, grids, grain, avis, properties)
+           if corrupt
            else grid_cases(seed, index + 1, index, depths, grain) if grids
+           else avis_cases(seed, index + 1, index, depths) if avis
+           else property_cases(seed, index + 1, index) if properties
            else written_cases(seed, index + 1, index, formats, depths, grain))
     for i, options, data in gen:
         if i == index:
@@ -312,15 +476,19 @@ def outcome(data: bytes, corrupt: bool = False) -> tuple:
 
 
 def run(cases: int, seeds: int, corrupt: bool, formats: bool = False, depths: bool = False,
-        grids: bool = False, grain: bool = False) -> dict:
+        grids: bool = False, grain: bool = False, avis: bool = False,
+        properties: bool = False) -> dict:
     counts = Counter()
     by_speed, by_format, by_depth = defaultdict(Counter), defaultdict(Counter), defaultdict(Counter)
     by_grain = defaultdict(Counter)
     features = Counter()
     bad = []
     for seed in range(seeds):
-        gen = (corrupt_cases(seed, cases, formats, depths, grids, grain) if corrupt
+        gen = (corrupt_cases(seed, cases, formats, depths, grids, grain, avis, properties)
+               if corrupt
                else grid_cases(seed, cases, depths=depths, grain=grain) if grids
+               else avis_cases(seed, cases, depths=depths) if avis
+               else property_cases(seed, cases) if properties
                else written_cases(seed, cases, formats=formats, depths=depths, grain=grain))
         for i, options, data in gen:
             kind, detail = outcome(data, corrupt)
@@ -328,7 +496,9 @@ def run(cases: int, seeds: int, corrupt: bool, formats: bool = False, depths: bo
             if detail == "both raise":
                 counts["equal: both raise"] += 1
             by_speed[options["speed"]][kind] += 1
-            if formats or grids:
+            if avis or properties:
+                by_format[(options.get("layout") or options["kind"], options["subsampling"])][kind] += 1
+            elif formats or grids:
                 by_format[(options["subsampling"], options["range"])][kind] += 1
             if depths:
                 by_depth[options["depth"]][kind] += 1
@@ -345,18 +515,19 @@ def run(cases: int, seeds: int, corrupt: bool, formats: bool = False, depths: bo
 def main(argv) -> int:
     corrupt, formats, depths = "--corrupt" in argv, "--formats" in argv, "--depths" in argv
     grids, grain = "--grids" in argv, "--grain" in argv
+    avis, properties = "--avis" in argv, "--properties" in argv
     nums = [int(a) for a in argv if not a.startswith("--")]
     cases = nums[0] if nums else 200
     seeds = nums[1] if len(nums) > 1 else 1
     with dav1d_c_path() if "--dav1d-c" in argv else contextlib.nullcontext():
-        res = run(cases, seeds, corrupt, formats, depths, grids, grain)
+        res = run(cases, seeds, corrupt, formats, depths, grids, grain, avis, properties)
     flags = " ".join(a for a in argv if a.startswith("--"))
     print(f"{'corrupt' if corrupt else 'written'} {flags}: {cases} cases x {seeds} seeds:",
           dict(res["counts"]))
     for speed in sorted(res["by_speed"]):
         print(f"  speed {speed}: {dict(res['by_speed'][speed])}")
     for (sub, rng), n in sorted(res["by_format"].items()):
-        print(f"  {sub} {rng} range: {dict(n)}")
+        print(f"  {sub} {rng}{'' if avis or properties else ' range'}: {dict(n)}")
     for depth, n in sorted(res["by_depth"].items()):
         print(f"  {depth} bits: {dict(n)}")
     for option, n in sorted(res["by_grain"].items()):

@@ -58,24 +58,31 @@ render_3d_overlay_gaussian.png, 800x600 RGBA), with PIL on the CPU host:
   (`AVIF_GRAIN_VECTORS`): the fixture with the grid's vignette alpha at
   quality 75 with vector 2 (`fixture_grain.avif`: luma and chroma points,
   AR lag 3, overlap; the alpha item takes grain too) and at 4:2:2 with
-  vector 4 made 10-bit (`fixture_grain_422_10bit.avif`). The card's
-  machine has no PIL: chip_smoke.py decodes these.
+  vector 4 made 10-bit (`fixture_grain_422_10bit.avif`), and an image
+  sequence (`sequence_prem_64x64.avif`: PIL's save_all of two 64x64 crops
+  of the fixture with the vignette alpha at quality 50,
+  `alpha_premultiplied=True`, its mvhd / tkhd / mdhd times set to 0 by
+  `steady_times`). The card's machine has no PIL: chip_smoke.py decodes
+  these, and makes four more files from the sequence by byte edits that
+  keep every offset (`card_rewrites`: straight alpha, a limited-range
+  alpha track, read as a still, an lsel on the still).
 - `figdraw_tpu_torch/reference/image_formats.json`: under "files", each
   file's sha256 and the sha256 and shape of PIL's decode,
-  `Image.open(p).convert("RGBA")`; under "sidecar", the sha256 of the
+  `Image.open(p).convert("RGBA")`; under "rewrites", the same of each of
+  the sequence's card_rewrites; under "sidecar", the sha256 of the
   .flippy sidecar figdraw_tpu's read_image_cached writes for the baseline
   JPEG, the TIFF fixture, the lossy WebP fixture, the ZSTD fixture, the
   Group 4 fax page, the SOF10 fixture, the SOF3 crop, the incomplete
   progressive JPEG, the RLE-W fixture, the seven AVIF fixtures, the
-  two grids and the two film grain files.
-- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3,arith,incomplete,rlew,avif,avif_cdef,avif_444,avif_422,avif_cdef10,avif_444_10,avif_422_12,avif_grid,avif_grain,avif_grain_422_10}_1x_blocks8.npy`
-  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4,lossless,incomplete,rlew,avif,avif_cdef,avif_444,avif_422,avif_cdef10,avif_444_10,avif_422_12,avif_grid,avif_grain,avif_grain_422_10}_480x270_blocks8.npy`:
+  two grids, the two film grain files and the sequence.
+- `reference/example_image_file_{jpeg,tiff,webp,zstd,g3,arith,incomplete,rlew,avif,avif_cdef,avif_444,avif_422,avif_cdef10,avif_444_10,avif_422_12,avif_grid,avif_grain,avif_grain_422_10,avif_sequence,avif_sequence_limited}_1x_blocks8.npy`
+  and `reference/photo_wall_{jpeg,tiff,webp,zstd,g4,lossless,incomplete,rlew,avif,avif_cdef,avif_444,avif_422,avif_cdef10,avif_444_10,avif_422_12,avif_grid,avif_grain,avif_grain_422_10,avif_sequence,avif_sequence_limited}_480x270_blocks8.npy`:
   8x8 block means of figdraw_tpu's frames of the image-file scene and of
   the photo wall at 480x270 (12 panels) with the baseline JPEG, the TIFF,
   WebP or ZSTD fixture, the dithered Group 3 fixture, the Group 4 page,
   the SOF10 fixture, the SOF3 crop, the incomplete progressive JPEG, the
-  RLE-W fixture or an AVIF fixture (the grid and film grain files among
-  them) loaded
+  RLE-W fixture or an AVIF fixture (the grid, film grain and sequence
+  files among them, and the sequence's limited-alpha rewrite) loaded
   by its load_image
   (FigRenderer(atlas_size=512, use_pallas=False), the page's from
   scenes.FAX_ATLAS; tests/torch_reference.py).
@@ -85,13 +92,18 @@ The BMP builders (`bmp_bytes`, `rle8`, `rle4`), the TIFF writer
 `fax_encode` with its bit writer `FaxBits`), the WebP writers
 (`libwebp_encode`, `riff`, `anim_bytes`) and the AVIF ones (`avif_grid`,
 `avif_at_depth`, `avif_with_grain`, which rewrites the film grain
-parameters of every item, and `Heif`, which edits a file's items and
-writes it again) also serve the tests: PIL
+parameters of every item, `Heif`, which edits a file's items and writes
+it again, `Avis`, which does the same for an image sequence's tracks and
+their sample tables in other layouts, `avis_at_depth`, `limited_alpha`,
+`with_track_size` and `stream_variant`, which rewrites a sequence's
+first sample with other sequence and frame header fields, a split frame
+header or OBU extension headers) also serve the tests: PIL
 writes only one BMP header kind, no TIFF tiles, planar or big-endian
 files, FillOrder 2 or subsampled JPEG-in-TIFF, no hand-made fax strip,
 sets none of libwebp's filter, segment, partition or alpha options, and
-writes no AVIF grid, nothing past 8 bits and no film grain parameters
-but aom's 16 test vectors.
+writes no AVIF grid, nothing past 8 bits, no film grain parameters
+but aom's 16 test vectors, no limited-range alpha and no sequence header
+but aom's.
 The tests rerun `image_files` but never `libzstd_files`: they load no
 libzstd.
 
@@ -139,6 +151,7 @@ AVIF_DEPTHS = {"fixture_s2_cdef_10bit.avif": (AVIF_CDEF_FIXTURE, 10),
 AVIF_GRAIN_FIXTURE = "fixture_grain.avif"
 AVIF_GRAIN_422_10 = "fixture_grain_422_10bit.avif"
 AVIF_GRAIN_VECTORS = {AVIF_GRAIN_FIXTURE: 2, AVIF_GRAIN_422_10: 4}
+AVIF_SEQUENCE = "sequence_prem_64x64.avif"
 
 
 def _pack_rows(pixels: np.ndarray, bits: int) -> np.ndarray:
@@ -736,7 +749,49 @@ def image_files() -> dict:
     save(AVIF_GRAIN_422_10, src, "AVIF", subsampling="4:2:2",
          advanced={"film-grain-test": str(AVIF_GRAIN_VECTORS[AVIF_GRAIN_422_10])})
     files[AVIF_GRAIN_422_10] = avif_at_depth(files[AVIF_GRAIN_422_10], 10)
+    px = np.asarray(src)
+    frames = [Image.fromarray(vignetted(px[y:y + 64, x:x + 64])) for y, x in ((268, 368),
+                                                                             (272, 372))]
+    save(AVIF_SEQUENCE, frames[0], "AVIF", save_all=True, append_images=frames[1:], quality=50,
+         alpha_premultiplied=True)
+    files[AVIF_SEQUENCE] = steady_times(files[AVIF_SEQUENCE])
     return files
+
+
+def card_rewrites(data: bytes) -> dict:
+    """name -> bytes of the files chip_smoke.py makes on the card's host
+    from the stored sequence (AVIF_SEQUENCE) by byte edits that keep every
+    offset (no PIL there): "straight" (its prem references renamed, so
+    that its alpha is straight), "limited alpha" (limited_alpha: the alpha
+    track's color_range bit flipped), "still" (the major brand avif: the
+    meta's primary item, which shares the first samples' bytes) and "lsel"
+    (the still with the colour item's pixi renamed lsel, layer 0, and
+    marked essential). tools/make_image_formats.py stores PIL's digest of
+    each."""
+    from figdraw_tpu_torch.utils import avif
+
+    def edited(d: bytes, edits) -> bytes:
+        out = bytearray(d)
+        for at, value in edits:
+            out[at:at + len(value)] = value
+        return bytes(out)
+
+    def boxes(d: bytes, kinds, start=0, end=None, into=(b"moov", b"trak", b"tref", b"meta",
+                                                         b"iref", b"iprp", b"ipco")):
+        for kind, s, e in avif._boxes(d, start, len(d) if end is None else end, top=start == 0):
+            if kind in kinds:
+                yield kind, s, e
+            if kind in into:
+                yield from boxes(d, kinds, s + (4 if kind in (b"meta", b"iref") else 0), e, into)
+
+    straight = edited(data, [(s - 4, b"none") for _k, s, _e in boxes(data, (b"prem",))])
+    still = edited(data, [(8, b"avif")])
+    pixi = next(s for _k, s, _e in boxes(still, (b"pixi",)))
+    _k, ps, pe = next(boxes(still, (b"ipma",)))
+    ipma = still.index(b"\x00\x01\x04\x01\x02", ps, pe) + 4  # item 1: ispe, pixi (index 2)
+    lsel = edited(still, [(pixi - 4, b"lsel"), (ipma, b"\x82")])
+    return {"straight": straight, "limited alpha": limited_alpha(data), "still": still,
+            "lsel": lsel}
 
 
 def vignetted(rgba: np.ndarray) -> np.ndarray:
@@ -760,8 +815,16 @@ def limited_bt709(data: bytes) -> bytes:
     at = data.find(b"nclx") + 8
     data = data[:at] + (1).to_bytes(2, "big") + bytes([data[at + 2] & 0x7F]) + data[at + 3:]
     head = next(p for k, p in av1.obus(avif.parse(data).color) if k == av1.OBU_SEQUENCE_HEADER)
+    return data.replace(head, _range_flipped(head))
+
+
+def _range_flipped(head: bytes) -> bytes:
+    """An AV1 sequence header OBU's payload with the one bit flipped that
+    turns its full_range (color_range) alone."""
+    from figdraw_tpu_torch.utils import av1
+
     seq = vars(av1.parse_sequence(head))
-    for bit in range(len(head) * 8):  # the one bit that turns full_range alone
+    for bit in range(len(head) * 8):
         flipped = bytearray(head)
         flipped[bit >> 3] ^= 0x80 >> (bit & 7)
         try:
@@ -769,8 +832,32 @@ def limited_bt709(data: bytes) -> bytes:
         except (ValueError, NotImplementedError):
             continue
         if {k for k in seq if seq[k] != other[k]} == {"full_range"}:
-            return data.replace(head, bytes(flipped))
+            return bytes(flipped)
     raise ValueError("no color_range bit in the sequence header")
+
+
+def limited_alpha(data: bytes) -> bytes:
+    """A PIL-written AVIF (a still or a sequence) whose alpha is marked
+    limited-range: the color_range bit of every sequence header of the
+    alpha item's stream (and of the alpha track's samples) flipped, the
+    file's length and offsets kept; the decoded alpha plane is as it was
+    and libavif expands it to full range."""
+    from figdraw_tpu_torch.utils import av1, avif
+
+    still = avif.parse(data)
+    head = next(p for k, p in av1.obus(still.alpha) if k == av1.OBU_SEQUENCE_HEADER)
+    flipped = _range_flipped(head)
+    out = bytearray(data)
+    at = data.find(head)
+    while at >= 0:
+        if data[max(0, at - 2)] >> 3 == av1.OBU_SEQUENCE_HEADER or data[max(0, at - 3)] >> 3 \
+                == av1.OBU_SEQUENCE_HEADER:
+            out[at:at + len(head)] = flipped
+        at = data.find(head, at + 1)
+    out = bytes(out)
+    if avif.parse(out).alpha == still.alpha:
+        raise ValueError("the alpha stream's sequence header was not rewritten")
+    return out
 
 
 def _bits(data: bytes, start: int, end: int) -> list:
@@ -826,6 +913,260 @@ def check_rewrite(out: bytes, head: bytes, depth: int) -> None:
     if got != want:
         raise ValueError("AV1: the rewritten sequence header parses as "
                          f"{ {k: got[k] for k in got if got[k] != want.get(k)} }")
+
+
+class _Bits:
+    """An MSB-first bit reader (`read`) and writer (`put`) of AV1 headers."""
+
+    def __init__(self, data: bytes = b""):
+        self.data, self.pos, self.out = data, 0, []
+
+    def read(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | ((self.data[self.pos >> 3] >> (7 - (self.pos & 7))) & 1)
+            self.pos += 1
+        return v
+
+    def uvlc(self) -> int:
+        zeros = 0
+        while not self.read(1):
+            zeros += 1
+        return self.read(zeros) + (1 << zeros) - 1
+
+    def put(self, value: int, n: int) -> None:
+        self.out += [(value >> (n - 1 - k)) & 1 for k in range(n)]
+
+    def put_uvlc(self, value: int) -> None:
+        n = (value + 1).bit_length() - 1
+        self.put(0, n)
+        self.put(value + 1, n + 1)
+
+    def payload(self, rest: list = ()) -> bytes:
+        """The bits written, then `rest`, then trailing_bits (a one, then
+        zeros to a byte)."""
+        bits = self.out + list(rest) + [1]
+        bits += [0] * (-len(bits) % 8)
+        return bytes(int("".join(map(str, bits[i:i + 8])), 2) for i in range(0, len(bits), 8))
+
+
+def sequence_fields(head: bytes) -> dict:
+    """Every field of a full (not reduced) AV1 sequence header OBU's payload
+    up to color_config, by the specification's names, with "ops" a list of
+    operating points (idc, level, tier, decoder model params or None,
+    initial display delay or None) and "rest" the bits from color_config to
+    the trailing one bit."""
+    r = _Bits(head)
+    f = {"profile": r.read(3), "still": r.read(1), "reduced": r.read(1)}
+    assert not f["reduced"], "a reduced still-picture header"
+    f["timing"] = r.read(1)
+    if f["timing"]:
+        f["units"], f["scale"], f["equal"] = r.read(32), r.read(32), r.read(1)
+        if f["equal"]:
+            f["ticks"] = r.uvlc()
+        f["model"] = r.read(1)
+        if f["model"]:
+            f["delay_len"], f["decoding_tick"] = r.read(5) + 1, r.read(32)
+            f["removal_len"], f["presentation_len"] = r.read(5) + 1, r.read(5) + 1
+    f["display_delay"] = r.read(1)
+    f["ops"] = []
+    for _ in range(r.read(5) + 1):
+        idc, level = r.read(12), r.read(5)
+        tier = r.read(1) if level > 7 else 0
+        model = None
+        if f.get("model") and r.read(1):
+            n = f["delay_len"]
+            model = (r.read(n), r.read(n), r.read(1))
+        delay = r.read(4) if f["display_delay"] and r.read(1) else None
+        f["ops"].append((idc, level, tier, model, delay))
+    f["wbits"], f["hbits"] = r.read(4) + 1, r.read(4) + 1
+    f["max_w"], f["max_h"] = r.read(f["wbits"]), r.read(f["hbits"])
+    f["frame_ids"] = r.read(1)
+    if f["frame_ids"]:
+        f["delta_id_len"], f["extra_id_len"] = r.read(4) + 2, r.read(3) + 1
+    for name in ("use128", "filter_intra", "edge", "interintra", "masked", "warped", "dual",
+                 "order_hint"):
+        f[name] = r.read(1)
+    if f["order_hint"]:
+        f["jnt"], f["ref_mvs"] = r.read(1), r.read(1)
+    f["choose_sct"] = r.read(1)
+    f["sct"] = 2 if f["choose_sct"] else r.read(1)
+    if f["sct"]:
+        f["choose_imv"] = r.read(1)
+        f["imv"] = 2 if f["choose_imv"] else r.read(1)
+    if f["order_hint"]:
+        f["hint_bits"] = r.read(3) + 1
+    end = len(head) * 8 - 1
+    while not (head[end >> 3] >> (7 - (end & 7))) & 1:
+        end -= 1
+    f["rest"] = _bits(head, r.pos, end)
+    return f
+
+
+def write_sequence(f: dict) -> bytes:
+    """A sequence header OBU's payload from sequence_fields' dict."""
+    w = _Bits()
+    w.put(f["profile"], 3)
+    w.put(f["still"], 1)
+    w.put(0, 1)
+    w.put(f["timing"], 1)
+    if f["timing"]:
+        w.put(f["units"], 32)
+        w.put(f["scale"], 32)
+        w.put(f["equal"], 1)
+        if f["equal"]:
+            w.put_uvlc(f["ticks"])
+        w.put(f["model"], 1)
+        if f["model"]:
+            for key, n in (("delay_len", 5), ("decoding_tick", 32), ("removal_len", 5),
+                           ("presentation_len", 5)):
+                w.put(f[key] - (key != "decoding_tick"), n)
+    w.put(f["display_delay"], 1)
+    w.put(len(f["ops"]) - 1, 5)
+    for idc, level, tier, model, delay in f["ops"]:
+        w.put(idc, 12)
+        w.put(level, 5)
+        if level > 7:
+            w.put(tier, 1)
+        if f.get("model"):
+            w.put(model is not None, 1)
+            if model is not None:
+                w.put(model[0], f["delay_len"])
+                w.put(model[1], f["delay_len"])
+                w.put(model[2], 1)
+        if f["display_delay"]:
+            w.put(delay is not None, 1)
+            if delay is not None:
+                w.put(delay, 4)
+    w.put(f["wbits"] - 1, 4)
+    w.put(f["hbits"] - 1, 4)
+    w.put(f["max_w"], f["wbits"])
+    w.put(f["max_h"], f["hbits"])
+    w.put(f["frame_ids"], 1)
+    if f["frame_ids"]:
+        w.put(f["delta_id_len"] - 2, 4)
+        w.put(f["extra_id_len"] - 1, 3)
+    for name in ("use128", "filter_intra", "edge", "interintra", "masked", "warped", "dual",
+                 "order_hint"):
+        w.put(f[name], 1)
+    if f["order_hint"]:
+        w.put(f["jnt"], 1)
+        w.put(f["ref_mvs"], 1)
+    w.put(f["choose_sct"], 1)
+    if not f["choose_sct"]:
+        w.put(f["sct"], 1)
+    if f["sct"]:
+        w.put(f["choose_imv"], 1)
+        if not f["choose_imv"]:
+            w.put(f["imv"], 1)
+    if f["order_hint"]:
+        w.put(f["hint_bits"] - 1, 3)
+    return w.payload(f["rest"])
+
+
+def frame_prefix(payload: bytes, f: dict) -> tuple:
+    """A shown key frame header's fields before frame_size (under the
+    sequence's fields `f`): (the values read, the bit where the rest of the
+    header starts)."""
+    r = _Bits(payload)
+    v = {"existing": r.read(1), "type": r.read(2), "show": r.read(1)}
+    assert (v["existing"], v["type"], v["show"]) == (0, 0, 1), "not a shown key frame"
+    if f.get("model") and not f["equal"]:
+        r.read(f["presentation_len"])
+    v["cdf"] = r.read(1)
+    v["sct"] = r.read(1) if f["sct"] == 2 else f["sct"]
+    if v["sct"] and f.get("imv") == 2:
+        v["imv"] = r.read(1)
+    if f["frame_ids"]:
+        r.read(f["delta_id_len"] + f["extra_id_len"])
+    v["override"] = r.read(1)
+    r.read(f.get("hint_bits", 0) if f["order_hint"] else 0)
+    if f.get("model") and r.read(1):
+        for idc, _l, _t, model, _d in f["ops"]:
+            if model is not None and (idc == 0 or (idc & 1 and idc & 0x100)):
+                r.read(f["removal_len"])
+    return v, r.pos
+
+
+def write_frame_prefix(v: dict, f: dict, layer=(0, 0)) -> _Bits:
+    """frame_prefix's fields written for the sequence `f`, a frame of the
+    OBU layer (temporal id, spatial id): presentation time, frame id and
+    order hint 0, the buffer removal times (0) of the operating points
+    whose layers hold the frame."""
+    w = _Bits()
+    w.put(0, 1)
+    w.put(0, 2)
+    w.put(1, 1)
+    if f.get("model") and not f["equal"]:
+        w.put(0, f["presentation_len"])
+    w.put(v["cdf"], 1)
+    if f["sct"] == 2:
+        w.put(v["sct"], 1)
+    elif f["sct"] != v["sct"]:
+        raise ValueError("the frame's screen content tools differ from the sequence's")
+    if v["sct"] and f.get("imv") == 2:
+        w.put(v.get("imv", 0), 1)
+    if f["frame_ids"]:
+        w.put(0, f["delta_id_len"] + f["extra_id_len"])
+    w.put(v["override"], 1)
+    w.put(0, f.get("hint_bits", 0) if f["order_hint"] else 0)
+    if f.get("model"):
+        w.put(1, 1)
+        t, sp = layer
+        for idc, _l, _t, model, _d in f["ops"]:
+            if model is not None and (idc == 0 or ((idc >> t) & 1 and (idc >> (sp + 8)) & 1)):
+                w.put(0, f["removal_len"])
+    return w
+
+
+def stream_variant(stream: bytes, split: bool = False, layer=None, **changes) -> bytes:
+    """A sequence's first sample (temporal delimiter, a full sequence
+    header, one OBU_FRAME of a shown key frame, as aom writes it) with its
+    sequence header's fields changed (sequence_fields' names: `timing`,
+    `equal`, `model`, `ops`, `frame_ids`, `choose_sct`, `sct`, `order_hint`,
+    ...) and its frame header rewritten to match, every tile byte kept;
+    `split` writes the frame as an OBU_FRAME_HEADER (with trailing bits)
+    and an OBU_TILE_GROUP; `layer` (temporal id, spatial id) gives each OBU
+    but the delimiter and the sequence header an extension header."""
+    from figdraw_tpu_torch.utils import av1
+
+    units = list(av1.obus(stream))
+    head = next(p for k, p in units if k == av1.OBU_SEQUENCE_HEADER)
+    old = sequence_fields(head)
+    new = dict(old, **changes)
+    seq_payload = write_sequence(new)
+    out = b""
+    for kind, payload in units:
+        if kind == av1.OBU_SEQUENCE_HEADER:
+            out += _obu(kind, seq_payload)
+        elif kind == av1.OBU_FRAME:
+            r = av1.BitReader(payload)
+            av1.parse_frame_header(r, av1.parse_sequence(head))
+            end, tiles = r.bit, payload[(r.bit + 7) >> 3:]
+            v, at = frame_prefix(payload, old)
+            w = write_frame_prefix(v, new, layer or (0, 0))
+            rest = _bits(payload, at, end)
+            if split:
+                out += _obu_at(av1.OBU_FRAME_HEADER, w.payload(rest), layer)
+                out += _obu_at(av1.OBU_TILE_GROUP, tiles, layer)
+            else:
+                bits = w.out + rest
+                bits += [0] * (-len(bits) % 8)
+                header = bytes(int("".join(map(str, bits[i:i + 8])), 2)
+                               for i in range(0, len(bits), 8))
+                out += _obu_at(kind, header + tiles, layer)
+        else:
+            out += _obu(kind, payload)
+    return out
+
+
+def _obu_at(kind: int, payload: bytes, layer=None) -> bytes:
+    """An OBU with its size, and an extension header for `layer`
+    (temporal id, spatial id) where one is given."""
+    if layer is None:
+        return _obu(kind, payload)
+    plain = _obu(kind, payload)
+    return bytes([plain[0] | 4, (layer[0] << 5) | (layer[1] << 3)]) + plain[1:]
 
 
 def _obu(kind: int, payload: bytes) -> bytes:
@@ -1199,7 +1540,9 @@ class Heif:
     def tiles(self, grid_id: int) -> list:
         return next(to for k, f, to in self.refs if k == b"dimg" and f == grid_id)
 
-    def write(self) -> bytes:
+    def write(self, offsets: dict = None) -> bytes:
+        """The file; with `offsets` (item id -> file offset of its data),
+        the meta box alone, its iloc pointing there."""
         ids = list(self.items)
         hdlr = _box(b"hdlr", bytes(8) + b"pict" + bytes(13))
         pitm = _box(b"pitm", bytes(4) + struct.pack(">H", self.primary))
@@ -1219,14 +1562,268 @@ class Heif:
         def meta(base: int) -> bytes:
             body, pos = struct.pack(">HH", 0x4400, len(ids)), base
             for i in ids:
-                body += struct.pack(">HHHII", i, 0, 1, pos, len(self.items[i]["data"]))
+                at = pos if offsets is None else offsets[i]
+                body += struct.pack(">HHHII", i, 0, 1, at, len(self.items[i]["data"]))
                 pos += len(self.items[i]["data"])
             iloc = _box(b"iloc", bytes(4) + body)
             return _box(b"meta", bytes(4) + hdlr + pitm + iloc + iinf + iref + iprp)
 
+        if offsets is not None:
+            return meta(0)
         head = _box(b"ftyp", self.ftyp)
         base = len(head) + len(meta(0)) + 8
         return head + meta(base) + _box(b"mdat", b"".join(self.items[i]["data"] for i in ids))
+
+
+class Avis:
+    """An AVIF image sequence (PIL's save_all file) to edit and write again:
+    `ftyp` (its payload), `heif` (a Heif of its meta box, or None), `mvhd`
+    (the box) and `tracks`, each a dict of "tkhd" (payload), "tref"
+    [(kind, [track ids])], "edts", "mdhd", "hdlr" (payloads, or None to
+    leave the box out), "minf" (minf's boxes before stbl, as bytes), "entry"
+    (the sample entry's format, its 78 VisualSampleEntry bytes and its
+    children [(kind, payload)]), "samples" [bytes], "stts" and "stss"
+    (payloads, or None). `write` lays them out as libavif does (ftyp, meta,
+    moov, then one mdat: each track's samples in turn) with the layout
+    options of the tests: `order` of the meta and moov boxes, `chunks`
+    (samples per chunk of every track: one chunk each by default), `co64`
+    (64-bit chunk offsets), `default_size` (every sample padded with a
+    padding OBU to the largest size, and stsz's one size) and `share`
+    (the meta items' extents on the first samples where their bytes are
+    the same, as libavif writes them; else the items' own bytes first)."""
+
+    def __init__(self, data: bytes):
+        from figdraw_tpu_torch.utils import avif
+
+        top = list(avif._boxes(data, 0, len(data), top=True))
+        self.ftyp = next(data[s:e] for k, s, e in top if k == b"ftyp")
+        self.heif = Heif(data) if any(k == b"meta" for k, _s, _e in top) else None
+        _k, ms, me = next(b for b in top if b[0] == b"moov")
+        self.tracks = []
+        for kind, s, e in avif._boxes(data, ms, me):
+            if kind == b"mvhd":
+                self.mvhd = data[s - 8:e]
+            elif kind == b"trak":
+                self.tracks.append(self._track(data, s, e))
+
+    @staticmethod
+    def _track(data: bytes, start: int, end: int) -> dict:
+        from figdraw_tpu_torch.utils import avif
+
+        t = {"tref": [], "edts": None, "stss": None, "stts": None, "minf": b""}
+        offsets, sizes, runs = [], [], []
+        for kind, s, e in avif._boxes(data, start, end):
+            if kind == b"tkhd":
+                t["tkhd"] = data[s:e]
+            elif kind == b"edts":
+                t["edts"] = data[s:e]
+            elif kind == b"tref":
+                t["tref"] = [(rk, [int.from_bytes(data[i:i + 4], "big") for i in range(rs, re_, 4)])
+                             for rk, rs, re_ in avif._boxes(data, s, e)]
+            elif kind == b"mdia":
+                for mk, ms, me in avif._boxes(data, s, e):
+                    if mk in (b"mdhd", b"hdlr"):
+                        t[mk.decode()] = data[ms:me]
+                    elif mk == b"minf":
+                        for nk, ns, ne in avif._boxes(data, ms, me):
+                            if nk != b"stbl":
+                                t["minf"] += data[ns - 8:ne]
+                                continue
+                            for bk, bs, be in avif._boxes(data, ns, ne):
+                                c = avif._Cursor(data, bs + 4, be)
+                                if bk in (b"stts", b"stss"):
+                                    t[bk.decode()] = data[bs:be]
+                                elif bk == b"stsd":
+                                    _f, es, ee = next(avif._boxes(data, bs + 8, be))
+                                    t["entry"] = (_f, data[es:es + 78], [
+                                        (pk, data[ps:pe])
+                                        for pk, ps, pe in avif._boxes(data, es + 78, ee)])
+                                elif bk == b"stco":
+                                    offsets += [c.uint(4) for _ in range(c.uint(4))]
+                                elif bk == b"stsc":
+                                    runs += [(c.uint(4), c.uint(4), c.uint(4)) for _ in range(c.uint(4))]
+                                elif bk == b"stsz":
+                                    assert c.uint(4) == 0
+                                    sizes += [c.uint(4) for _ in range(c.uint(4))]
+        assert len(offsets) == 1 and len(runs) == 1, "PIL writes one chunk a track"
+        pos, t["samples"] = offsets[0], []
+        for n in sizes:
+            t["samples"].append(data[pos:pos + n])
+            pos += n
+        return t
+
+    def track(self, track_id: int) -> dict:
+        return next(t for t in self.tracks if struct.unpack(">I", t["tkhd"][12 if t["tkhd"][0]
+                                                                            else 8:][:4])[0]
+                    == track_id)
+
+    def _moov(self, offsets: list, chunks, co64: bool, default_size: int) -> bytes:
+        out = self.mvhd
+        for t, base in zip(self.tracks, offsets):
+            n = len(t["samples"])
+            per = chunks or [n]
+            assert sum(per) == n
+            fmt, fields, props = t["entry"]
+            entry = _box(fmt, fields + b"".join(_box(k, p) for k, p in props))
+            sizes = [default_size or len(x) for x in t["samples"]]
+            starts, pos, k = [], base, 0
+            for m in per:
+                starts.append(pos)
+                pos += sum(sizes[k:k + m])
+                k += m
+            runs = [(i + 1, m) for i, m in enumerate(per) if i == 0 or m != per[i - 1]]
+            stbl = (_box(b"stsd", struct.pack(">II", 0, 1) + entry)
+                    + (_box(b"stts", t["stts"]) if t["stts"] is not None else b"")
+                    + _box(b"stsc", struct.pack(">II", 0, len(runs)) + b"".join(
+                        struct.pack(">III", f, m, 1) for f, m in runs))
+                    + (_box(b"stsz", struct.pack(">III", 0, default_size, n)) if default_size
+                       else _box(b"stsz", struct.pack(">III", 0, 0, n) + b"".join(
+                           struct.pack(">I", x) for x in sizes)))
+                    + (_box(b"co64", struct.pack(">II", 0, len(starts)) + b"".join(
+                        struct.pack(">Q", x) for x in starts)) if co64
+                       else _box(b"stco", struct.pack(">II", 0, len(starts)) + b"".join(
+                           struct.pack(">I", x) for x in starts)))
+                    + (_box(b"stss", t["stss"]) if t["stss"] is not None else b""))
+            mdia = ((_box(b"mdhd", t["mdhd"]) if t.get("mdhd") is not None else b"")
+                    + (_box(b"hdlr", t["hdlr"]) if t.get("hdlr") is not None else b"")
+                    + _box(b"minf", t["minf"] + _box(b"stbl", stbl)))
+            tref = _box(b"tref", b"".join(_box(k, b"".join(struct.pack(">I", i) for i in ids))
+                                          for k, ids in t["tref"])) if t["tref"] else b""
+            out += _box(b"trak", _box(b"tkhd", t["tkhd"]) + tref
+                        + (_box(b"edts", t["edts"]) if t["edts"] is not None else b"")
+                        + _box(b"mdia", mdia))
+        return _box(b"moov", out)
+
+    def write(self, order=(b"meta", b"moov"), chunks=None, co64: bool = False,
+              default_size: bool = False, share: bool = True) -> bytes:
+        samples = [list(t["samples"]) for t in self.tracks]
+        size = 0
+        if default_size:
+            size = max(len(x) for xs in samples for x in xs) + 3
+            samples = [[x + _padding(size - len(x)) for x in xs] for xs in samples]
+        firsts = [xs[0] for xs in samples]
+        items = {} if self.heif is None else self.heif.items
+        own = [i for i, it in items.items() if not (share and it["data"] in firsts)]
+        body = b"".join(items[i]["data"] for i in own) + b"".join(b"".join(xs) for xs in samples)
+
+        def layout(base: int) -> tuple:
+            pos, item_at = base, {}
+            for i in own:
+                item_at[i] = pos
+                pos += len(items[i]["data"])
+            track_at = []
+            for xs in samples:
+                track_at.append(pos)
+                pos += sum(len(x) for x in xs)
+            for i, it in items.items():
+                if i not in item_at:
+                    k = firsts.index(it["data"])
+                    item_at[i] = track_at[k]
+            boxes = {b"moov": self._moov(track_at, chunks, co64, size),
+                     b"meta": self.heif.write(item_at) if self.heif is not None else b""}
+            return b"".join(boxes[k] for k in order)
+
+        head = _box(b"ftyp", self.ftyp)
+        base = len(head) + len(layout(0)) + 8
+        return head + layout(base) + _box(b"mdat", body)
+
+
+def steady_times(data: bytes) -> bytes:
+    """A PIL-written image sequence with the creation and modification
+    times of its mvhd, tkhd and mdhd boxes (the clock at the save) set to
+    0, so that a file written twice is the same bytes."""
+    from figdraw_tpu_torch.utils import avif
+
+    out = bytearray(data)
+
+    def walk(start: int, end: int) -> None:
+        for kind, s, e in avif._boxes(data, start, end):
+            if kind in (b"moov", b"trak", b"mdia"):
+                walk(s, e)
+            elif kind in (b"mvhd", b"tkhd", b"mdhd"):
+                n = 16 if data[s] == 1 else 8
+                out[s + 4:s + 4 + n] = bytes(n)
+
+    _k, ms, me = next(b for b in avif._boxes(data, 0, len(data), top=True) if b[0] == b"moov")
+    walk(ms - 8, me)
+    return bytes(out)
+
+
+def with_track_size(data: bytes, width: int, height: int) -> bytes:
+    """An image sequence with every track's tkhd width and height set (the
+    size libavif scales each track's frames to), the file's length and
+    offsets kept."""
+    from figdraw_tpu_torch.utils import avif
+
+    out = bytearray(data)
+    _k, ms, me = next(b for b in avif._boxes(data, 0, len(data), top=True) if b[0] == b"moov")
+    for kind, s, e in avif._boxes(data, ms, me):
+        if kind == b"trak":
+            for tk, ts, te in avif._boxes(data, s, e):
+                if tk == b"tkhd":
+                    out[te - 8:te] = struct.pack(">II", width << 16, height << 16)
+    return bytes(out)
+
+
+def _config_at(payload: bytes, seq) -> bytes:
+    """An av1C payload set to the sequence header `seq` (profile,
+    high_bitdepth, twelve_bit, monochrome, subsampling), its configOBUs
+    rewritten to the same depth."""
+    b2 = (payload[2] & 0x83) | (int(seq.bit_depth > 8) << 6) | (int(seq.bit_depth == 12) << 5) | (
+        seq.mono << 4) | (seq.ssx << 3) | (seq.ssy << 2)
+    return bytes([payload[0], (seq.profile << 5) | (payload[1] & 31), b2, payload[3]]) + \
+        stream_at(payload[4:], seq.bit_depth)
+
+
+def avis_at_depth(data: bytes, depth: int, alpha_depth: int = None) -> bytes:
+    """A PIL-written image sequence made a `depth`-bit one as avif_at_depth
+    makes a still: every sample of every track (the alpha track's at
+    `alpha_depth`) and every av01 item rewritten by stream_at, the sample
+    entries' and the items' av1C and the items' pixi set to match, the
+    file written again by Avis.write."""
+    from figdraw_tpu_torch.utils import av1
+
+    alpha_depth = depth if alpha_depth is None else alpha_depth
+    a = Avis(data)
+
+    def seq_of(stream):
+        return av1.parse_sequence(next(p for k, p in av1.obus(stream)
+                                       if k == av1.OBU_SEQUENCE_HEADER))
+
+    for t in a.tracks:
+        d = alpha_depth if any(k == b"auxl" for k, _ids in t["tref"]) else depth
+        t["samples"] = [stream_at(x, d) for x in t["samples"]]
+        seq = seq_of(t["samples"][0])
+        fmt, fields, props = t["entry"]
+        t["entry"] = (fmt, fields, [(k, _config_at(p, seq) if k == b"av1C" else p)
+                                    for k, p in props])
+    h = a.heif
+    alpha = {f for k, f, to in h.refs if k == b"auxl" and h.primary in to}
+    for i, item in h.items.items():
+        if item["type"] != b"av01":
+            continue
+        d = alpha_depth if i in alpha else depth
+        item["data"] = stream_at(item["data"], d)
+        seq = seq_of(item["data"])
+        for index, essential in list(item["props"]):
+            kind, payload = h.ipco[index - 1]
+            if kind == b"av1C":
+                h.set_prop(i, kind, _config_at(payload, seq), essential)
+            elif kind == b"pixi":
+                h.set_prop(i, kind, payload[:5] + bytes([d] * payload[4]), essential)
+    return a.write()
+
+
+def _padding(n: int) -> bytes:
+    """An OBU_PADDING of n bytes in all (n >= 3), its size in two to four
+    leb128 bytes."""
+    for size_bytes in (2, 3, 4):
+        k = n - 1 - size_bytes
+        if 0 <= k < 1 << (7 * size_bytes):
+            size = bytes(((k >> (7 * i)) & 0x7F) | (0x80 if i < size_bytes - 1 else 0)
+                         for i in range(size_bytes))
+            return bytes([15 << 3 | 2]) + size + bytes(k)
+    raise ValueError(f"no padding OBU of {n} bytes")
 
 
 def _jpeg_chunk(quality: int, subsampling: str):
@@ -1942,7 +2539,9 @@ def write_frames(names=None) -> None:
         AVIF_CDEF10_FILE_REFERENCE, AVIF_CDEF10_WALL_REFERENCE, AVIF_CDEF_FILE_REFERENCE,
         AVIF_CDEF_WALL_REFERENCE, AVIF_FILE_REFERENCE, AVIF_GRAIN_422_10_FILE_REFERENCE,
         AVIF_GRAIN_422_10_WALL_REFERENCE, AVIF_GRAIN_FILE_REFERENCE, AVIF_GRAIN_WALL_REFERENCE,
-        AVIF_GRID_FILE_REFERENCE,
+        AVIF_GRID_FILE_REFERENCE, AVIF_SEQUENCE_FILE_REFERENCE,
+        AVIF_SEQUENCE_LIMITED_FILE_REFERENCE, AVIF_SEQUENCE_LIMITED_WALL_REFERENCE,
+        AVIF_SEQUENCE_WALL_REFERENCE,
         AVIF_GRID_WALL_REFERENCE, AVIF_WALL_REFERENCE, FAX_ATLAS, G3_FILE_REFERENCE,
         G4_WALL_REFERENCE,
         INCOMPLETE_FILE_REFERENCE, INCOMPLETE_WALL_REFERENCE, RLEW_FILE_REFERENCE,
@@ -1975,12 +2574,22 @@ def write_frames(names=None) -> None:
             (AVIF_GRID_FIXTURE, AVIF_GRID_FILE_REFERENCE, AVIF_GRID_WALL_REFERENCE, 512),
             (AVIF_GRAIN_FIXTURE, AVIF_GRAIN_FILE_REFERENCE, AVIF_GRAIN_WALL_REFERENCE, 512),
             (AVIF_GRAIN_422_10, AVIF_GRAIN_422_10_FILE_REFERENCE,
-             AVIF_GRAIN_422_10_WALL_REFERENCE, 512)):
+             AVIF_GRAIN_422_10_WALL_REFERENCE, 512),
+            (AVIF_SEQUENCE, AVIF_SEQUENCE_FILE_REFERENCE, AVIF_SEQUENCE_WALL_REFERENCE, 512),
+            ("limited alpha", AVIF_SEQUENCE_LIMITED_FILE_REFERENCE,
+             AVIF_SEQUENCE_LIMITED_WALL_REFERENCE, 512)):
         if names is not None and name not in names:
             continue
         with tempfile.TemporaryDirectory() as td:
-            path = os.path.join(td, name)
-            shutil.copyfile(os.path.join(OUT_DIR, name), path)
+            if name == "limited alpha":  # a card rewrite of the stored sequence
+                path = os.path.join(td, "sequence_limited_alpha.avif")
+                with open(os.path.join(OUT_DIR, AVIF_SEQUENCE), "rb") as fh:
+                    data = card_rewrites(fh.read())[name]
+                with open(path, "wb") as fh:
+                    fh.write(data)
+            else:
+                path = os.path.join(td, name)
+                shutil.copyfile(os.path.join(OUT_DIR, name), path)
             if scene_ref:
                 np.save(scene_ref,
                         block_means(jax_image_file_frame(path, "1x")).astype(np.float32))
@@ -2004,13 +2613,14 @@ def main() -> None:
         with open(os.path.join(OUT_DIR, name), "wb") as fh:
             fh.write(data)
     stored = {"files": digests(files),
+              "rewrites": {AVIF_SEQUENCE: digests(card_rewrites(files[AVIF_SEQUENCE]))},
               "sidecar": {name: sidecar_digest(name)
                           for name in (BASELINE, TIFF_FIXTURE, WEBP_FIXTURE, ZSTD_FIXTURE,
                                        FAX_PAGE, ARITH_FIXTURE, LOSSLESS_FIXTURE,
                                        INCOMPLETE_HUFF, RLEW_FIXTURE, AVIF_FIXTURE,
                                        AVIF_CDEF_FIXTURE, AVIF_444_FIXTURE, AVIF_422_FIXTURE,
                                        *AVIF_DEPTHS, AVIF_GRID_FIXTURE, AVIF_PHOTO,
-                                       AVIF_GRAIN_FIXTURE, AVIF_GRAIN_422_10)}}
+                                       AVIF_GRAIN_FIXTURE, AVIF_GRAIN_422_10, AVIF_SEQUENCE)}}
     with open(DIGESTS, "w") as fh:
         json.dump(stored, fh, indent=1)
         fh.write("\n")
